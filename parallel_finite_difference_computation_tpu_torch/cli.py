@@ -1,17 +1,21 @@
-"""Command-line interface of the port: the main path's two programs.
+"""Command-line interface of the port: the reference's four programs.
 
 Usage (the reference's invocations):
 
+    python -m parallel_finite_difference_computation_tpu_torch.cli stencil ./input.dat
     python -m parallel_finite_difference_computation_tpu_torch.cli mod     par=input.dat
+    python -m parallel_finite_difference_computation_tpu_torch.cli rtm     par=input.dat
     python -m parallel_finite_difference_computation_tpu_torch.cli rtm_gpu ./models/<m>/input.dat
 
-``mod`` replaces ``mod_main`` (``dpct_gpu_rtm_domain_division``) and
-``rtm_gpu`` replaces ``rtm_code`` (``cuda_reference_RTM``). ``par=file`` and
-bare config paths are both accepted. ``--device`` picks where the shots run
-(default ``cuda``: the CUDA step kernels, built with ``nvcc`` at first use;
-``cpu`` runs the plain torch version). The other programs of the JAX
-package's CLI (stencil, rtm, psnr, laplace), its mesh options and its
-checkpointed surveys are still to be ported (ROADMAP.md).
+``stencil`` replaces ``stencil_code`` (``cuda_reference_stencil_computation``),
+``mod`` replaces ``mod_main`` and ``rtm`` replaces ``rtm_main`` (both
+``dpct_gpu_rtm_domain_division``), ``rtm_gpu`` replaces ``rtm_code``
+(``cuda_reference_RTM``). ``par=file`` and bare config paths are both
+accepted. ``--device`` picks where the work runs (default ``cuda``: the
+CUDA kernels, built with ``nvcc`` at first use; ``cpu`` runs the plain
+torch version). The JAX package's ``psnr`` and ``laplace`` tools, its mesh
+options and its checkpointed surveys (``--checkpoint-dir``,
+``--chunk-shots``) are still to be ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,6 +39,15 @@ def _echo(p):
     print(f"## order = {p.order}, nzb = {p.nzb}, nxb = {p.nxb}, F = {p.fac} ")
 
 
+def cmd_stencil(args):
+    p = parse_input_dat(_config_arg(args.config))
+    out = args.output or "output_tpu.bin"
+    t0 = time.time()
+    lap = pipeline.run_stencil(p, output_path=out, device=args.device)
+    print(f"Laplacian {lap.shape} written to {out} "
+          f"({time.time() - t0:.3f}s incl. build)")
+
+
 def cmd_mod(args):
     p = parse_input_dat(_config_arg(args.config))
     _echo(p)
@@ -44,6 +57,17 @@ def cmd_mod(args):
                                  lap_impl=args.lap_impl)
     print(f"> Exec time = {time.time() - t0:.2f} (s)")
     print(f"wrote {data.shape} shot gathers to {out}")
+
+
+def cmd_rtm(args):
+    p = parse_input_dat(_config_arg(args.config))
+    _echo(p)
+    outdir = args.outdir or (p.tmpdir if p.tmpdir and os.path.isdir(p.tmpdir)
+                             else ".")
+    t0 = time.time()
+    pipeline.run_rtm_cpu(p, outdir=outdir, device=args.device)
+    print(f"Execution Time: {time.time() - t0:.2f} seconds")
+    print(f"wrote dir.image / dir.img to {outdir}")
 
 
 def cmd_rtm_gpu(args):
@@ -63,18 +87,21 @@ def cmd_rtm_gpu(args):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="pfdc-torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for name, fn in (("mod", cmd_mod), ("rtm_gpu", cmd_rtm_gpu)):
+    for name, fn in (("stencil", cmd_stencil), ("mod", cmd_mod),
+                     ("rtm", cmd_rtm), ("rtm_gpu", cmd_rtm_gpu)):
         s = sub.add_parser(name)
         s.add_argument("config", help="input.dat path or par=path")
         s.add_argument("--output", default=None)
         s.add_argument("--outdir", default=None)
         s.add_argument("--device", default="cuda",
-                       help="torch device: cuda (the CUDA step kernels) or "
-                            "cpu (the plain torch version)")
-        s.add_argument("--lap-impl", default=None, dest="lap_impl",
-                       choices=["auto", "vpu", "mxu", "mxu6"],
-                       help="Laplacian lowering: only the exact taps (vpu, "
-                            "the default) are ported; the others raise")
+                       help="torch device: cuda (the CUDA kernels) or cpu "
+                            "(the plain torch version)")
+        if name in ("mod", "rtm_gpu"):
+            s.add_argument("--lap-impl", default=None, dest="lap_impl",
+                           choices=["auto", "vpu", "mxu", "mxu6"],
+                           help="Laplacian lowering: only the exact taps "
+                                "(vpu, the default) are ported; the others "
+                                "raise")
         if name == "rtm_gpu":
             s.add_argument("--seed", type=int, default=0)
             s.add_argument("--image-num", action="store_true",

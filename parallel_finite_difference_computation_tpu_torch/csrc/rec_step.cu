@@ -1,0 +1,265 @@
+// rec_fwd_step / rec_bwd_step: one time step of rtm_main's full-wavefield
+// RTM (rtm_main.cpp:158-247) for every shot of a batch, and the C entry
+// points pfdc_rec_fwd_run and pfdc_rec_bwd_run that run the whole time
+// loop on a stream.
+//
+// Replaces: parallel_finite_difference_computation_tpu/ops/pallas_stream.py,
+// _kstep_rec_kernel (:1002), called through fd_kstep_rec_padded (:1084) in
+// source-window mode (the forward half, solver.py:311-321 there) and in
+// receiver-column mode (the backward half, solver.py:663-719). That kernel
+// fuses K steps per pass only because a large grid does not fit in VMEM;
+// here each step is one launch over all shots, as in mod_step.cu, and the
+// host function loops over the steps.
+//
+// The step is the CPU-flavor step of mod_step.cu: u = (2p - m*pp) +
+// v2dt2*lap(p), inject into u, store pp <- u*m; the time-t value is m*p.
+// Injection comes before the taper (the lax order), so every value rounds
+// as the plain torch version's does. The TPU kernel adds a pre-masked
+// injection after the taper instead, which rounds differently.
+//
+// rec_fwd_step (source mode) adds amp * patch around (sx[s], sz) and writes
+// m*p of each interior cell into swf[s, it]. rec_bwd_step (receiver mode)
+// adds inj[s, it, ix - x0] on row gz for x0 <= ix < x0 + nx (x0 already
+// clamped into the grid by the wrapper, as the JAX package's
+// dynamic_update_slice clamps it) and then either
+//   - frame mode: writes m*p of each interior cell into rwf[s, it], or
+//   - image mode: img[s] += swf[s, nt-1-it] * (m*p), the zero-lag
+//     correlation of rtm_main.cpp:223-229 summed in time order. Each thread
+//     owns its cell, so no atomics; rwf is never stored.
+//
+// What bounds it on an H100: the frames. At the 3lay size (231 x 231
+// extended, 151 x 151 interior, nt = 1001, 8 shots) swf is 730 MB, written
+// once by the forward and read once by the backward: 0.22 ms each at
+// 3.35 TB/s, about the time of the ~33 flop per cell-step at 67 TFLOP/s.
+// The fields, v2*dt2 and the mask (7 MB) stay in L2. This first version
+// does nothing special: threads run along z for coalesced loads and frame
+// stores, nothing is staged in shared memory, and each launch is short, so
+// launch latency sets the pace, as for mod_step.
+//
+// Frame offsets are size_t: ns * nt * nx * nz passes 2^31 at marmousi size.
+#include "stencil.cuh"
+
+namespace {
+
+// The CPU-flavor update of cell j of one shot (mod_step.cu): cur holds the
+// time-t field as stored (tapered once on write), old the older field,
+// tapered on read.
+template <int H>
+__device__ __forceinline__ float cpu_update(const float* __restrict__ p,
+                                            const float* __restrict__ pp,
+                                            const float* __restrict__ mask,
+                                            float m, float v, int ix, int iz,
+                                            int j, int nxe, int nze,
+                                            const pfdc::Coefs& c) {
+  const float lap = pfdc::in_interior(ix, iz, H, nxe, nze)
+                        ? pfdc::laplacian<H, false>(p, mask, j, nze, c)
+                        : 0.0f;
+  return (2.0f * p[j] - pp[j] * m) + v * lap;
+}
+
+// Offset of interior cell (ix, iz) in one (nx, nz) frame.
+__device__ __forceinline__ size_t frame_offset(int ix, int iz, int nxb,
+                                               int nzb, int nz) {
+  return static_cast<size_t>(ix - nxb) * nz + (iz - nzb);
+}
+
+template <int H>
+__global__ void rec_fwd_step(const float* __restrict__ cur,
+                             float* __restrict__ old,
+                             const float* __restrict__ v2dt2,
+                             int v2_shot_stride,
+                             const float* __restrict__ mask,
+                             const float* __restrict__ patch, int r,
+                             const int* __restrict__ sx, int sz, float amp,
+                             float* __restrict__ swf_it,
+                             size_t swf_shot_stride, int nxb, int nzb,
+                             int nx, int nz, int nxe, int nze,
+                             pfdc::Coefs c) {
+  const int iz = blockIdx.x * blockDim.x + threadIdx.x;
+  const int ix = blockIdx.y * blockDim.y + threadIdx.y;
+  const int s = blockIdx.z;
+  if (ix >= nxe || iz >= nze) return;
+  const int j = ix * nze + iz;
+  const size_t plane = static_cast<size_t>(nxe) * nze;
+  const float* p = cur + s * plane;
+  float* pp = old + s * plane;
+
+  const float m = mask[j];
+  const float pc = p[j];
+  float u = cpu_update<H>(p, pp, mask, m,
+                          v2dt2[s * static_cast<size_t>(v2_shot_stride) + j],
+                          ix, iz, j, nxe, nze, c);
+  const int dx = ix - sx[s];
+  const int dz = iz - sz;
+  if (dx >= -r && dx <= r && dz >= -r && dz <= r) {
+    u = u + amp * patch[(dx + r) * (2 * r + 1) + (dz + r)];
+  }
+  pp[j] = u * m;
+  if (ix >= nxb && ix < nxb + nx && iz >= nzb && iz < nzb + nz) {
+    swf_it[s * swf_shot_stride + frame_offset(ix, iz, nxb, nzb, nz)] = pc * m;
+  }
+}
+
+template <int H, bool kImage>
+__global__ void rec_bwd_step(const float* __restrict__ cur,
+                             float* __restrict__ old,
+                             const float* __restrict__ v2dt2,
+                             int v2_shot_stride,
+                             const float* __restrict__ mask,
+                             const float* __restrict__ inj_it,
+                             size_t inj_shot_stride, int x0, int gz,
+                             const float* __restrict__ swf_rev,
+                             float* __restrict__ out,
+                             size_t frame_shot_stride, int nxb, int nzb,
+                             int nx, int nz, int nxe, int nze,
+                             pfdc::Coefs c) {
+  const int iz = blockIdx.x * blockDim.x + threadIdx.x;
+  const int ix = blockIdx.y * blockDim.y + threadIdx.y;
+  const int s = blockIdx.z;
+  if (ix >= nxe || iz >= nze) return;
+  const int j = ix * nze + iz;
+  const size_t plane = static_cast<size_t>(nxe) * nze;
+  const float* p = cur + s * plane;
+  float* pp = old + s * plane;
+
+  const float m = mask[j];
+  const float pc = p[j];
+  float u = cpu_update<H>(p, pp, mask, m,
+                          v2dt2[s * static_cast<size_t>(v2_shot_stride) + j],
+                          ix, iz, j, nxe, nze, c);
+  if (iz == gz && ix >= x0 && ix < x0 + nx) {
+    u = u + inj_it[s * inj_shot_stride + (ix - x0)];
+  }
+  pp[j] = u * m;
+  if (ix >= nxb && ix < nxb + nx && iz >= nzb && iz < nzb + nz) {
+    const size_t q = frame_offset(ix, iz, nxb, nzb, nz);
+    if (kImage) {
+      // out is img (ns, nx, nz); swf_rev is frame nt-1-it of shot 0
+      float* im = out + s * static_cast<size_t>(nx) * nz + q;
+      *im = *im + swf_rev[s * frame_shot_stride + q] * (pc * m);
+    } else {
+      // out is frame it of rwf (ns, nt, nx, nz), shot 0
+      out[s * frame_shot_stride + q] = pc * m;
+    }
+  }
+}
+
+struct RecFwdRun {
+  float* a;
+  float* b;
+  const float* v2dt2;
+  int v2_shot_stride;
+  const float* mask;
+  const float* patch;
+  int r;
+  const int* sx;
+  int sz;
+  const float* wav;  // host, nt samples
+  float* swf;        // (ns, nt, nx, nz)
+  int ns, nxe, nze, nxb, nzb, nt;
+  pfdc::Coefs c;
+  cudaStream_t stream;
+
+  template <int H>
+  cudaError_t operator()() const {
+    const dim3 grid = pfdc::step_grid(ns, nxe, nze);
+    const dim3 block = pfdc::step_block();
+    const int nx = nxe - 2 * nxb;
+    const int nz = nze - 2 * nzb;
+    const size_t frame = static_cast<size_t>(nx) * nz;
+    for (int it = 0; it < nt; ++it) {
+      float* cur = (it % 2 == 0) ? a : b;
+      float* old = (it % 2 == 0) ? b : a;
+      rec_fwd_step<H><<<grid, block, 0, stream>>>(
+          cur, old, v2dt2, v2_shot_stride, mask, patch, r, sx, sz, wav[it],
+          swf + static_cast<size_t>(it) * frame, static_cast<size_t>(nt) * frame,
+          nxb, nzb, nx, nz, nxe, nze, c);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+    return cudaSuccess;
+  }
+};
+
+struct RecBwdRun {
+  float* a;
+  float* b;
+  const float* v2dt2;
+  int v2_shot_stride;
+  const float* mask;
+  const float* inj;  // (ns, nt, nx)
+  int x0, gz;
+  const float* swf;  // (ns, nt, nx, nz) in image mode, else nullptr
+  float* out;        // img (ns, nx, nz) in image mode, else rwf
+  int ns, nxe, nze, nxb, nzb, nt;
+  pfdc::Coefs c;
+  cudaStream_t stream;
+
+  template <int H, bool kImage>
+  cudaError_t run() const {
+    const dim3 grid = pfdc::step_grid(ns, nxe, nze);
+    const dim3 block = pfdc::step_block();
+    const int nx = nxe - 2 * nxb;
+    const int nz = nze - 2 * nzb;
+    const size_t frame = static_cast<size_t>(nx) * nz;
+    for (int it = 0; it < nt; ++it) {
+      float* cur = (it % 2 == 0) ? a : b;
+      float* old = (it % 2 == 0) ? b : a;
+      const float* swf_rev =
+          kImage ? swf + static_cast<size_t>(nt - 1 - it) * frame : nullptr;
+      float* out_it = kImage ? out : out + static_cast<size_t>(it) * frame;
+      rec_bwd_step<H, kImage><<<grid, block, 0, stream>>>(
+          cur, old, v2dt2, v2_shot_stride, mask,
+          inj + static_cast<size_t>(it) * nx, static_cast<size_t>(nt) * nx,
+          x0, gz, swf_rev, out_it, static_cast<size_t>(nt) * frame, nxb, nzb,
+          nx, nz, nxe, nze, c);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+    return cudaSuccess;
+  }
+
+  template <int H>
+  cudaError_t operator()() const {
+    return swf != nullptr ? run<H, true>() : run<H, false>();
+  }
+};
+
+}  // namespace
+
+// Runs nt steps of rec_fwd_step, writing the (ns, nt, nx, nz) interior
+// frames into swf. a and b hold the two fields (zeroed by the caller);
+// after the loop the newest field is in b when nt is odd, else in a.
+// Returns a cudaError_t.
+extern "C" int pfdc_rec_fwd_run(float* a, float* b, const float* v2dt2,
+                                int v2_shot_stride, const float* mask,
+                                const float* patch, int r, const int* sx,
+                                int sz, const float* wav, float* swf, int ns,
+                                int nxe, int nze, int nxb, int nzb, int nt,
+                                int order, const float* cx, const float* cz,
+                                void* stream) {
+  const RecFwdRun run{a,   b,   v2dt2, v2_shot_stride, mask, patch, r,
+                      sx,  sz,  wav,   swf,            ns,   nxe,   nze,
+                      nxb, nzb, nt,    pfdc::make_coefs(order / 2, cx, cz),
+                      static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(pfdc::dispatch_half(order, run));
+}
+
+// Runs nt steps of rec_bwd_step with the (ns, nt, nx) injection rows inj.
+// With swf null (frame mode) it writes the (ns, nt, nx, nz) frames into
+// out; with swf the forward's frames (image mode) it adds each shot's
+// correlation into out, an (ns, nx, nz) image zeroed by the caller. Field
+// roles as for pfdc_rec_fwd_run. Returns a cudaError_t.
+extern "C" int pfdc_rec_bwd_run(float* a, float* b, const float* v2dt2,
+                                int v2_shot_stride, const float* mask,
+                                const float* inj, int x0, int gz,
+                                const float* swf, float* out, int ns, int nxe,
+                                int nze, int nxb, int nzb, int nt, int order,
+                                const float* cx, const float* cz,
+                                void* stream) {
+  const RecBwdRun run{a,   b,   v2dt2, v2_shot_stride, mask, inj, x0,
+                      gz,  swf, out,   ns,             nxe,  nze, nxb,
+                      nzb, nt,  pfdc::make_coefs(order / 2, cx, cz),
+                      static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(pfdc::dispatch_half(order, run));
+}

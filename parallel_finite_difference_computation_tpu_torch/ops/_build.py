@@ -1,4 +1,4 @@
-"""Build the CUDA step kernels in ``csrc/`` with ``nvcc`` and load them.
+"""Build the CUDA kernels in ``csrc/`` with ``nvcc`` and load them.
 
 The sources are compiled at first use into one shared library with a plain
 C interface (no PyTorch headers, so ``nvcc`` takes seconds), named by a hash
@@ -50,6 +50,17 @@ _SIGNATURES = {
     "pfdc_rtm_bwd_run": [_P, _P, _P, _P, _P, _P, _P, _I,
                          _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P],
+    # pfdc_rec_fwd_run(a, b, v2dt2, v2_shot_stride, mask, patch, r, sx, sz,
+    #                  wav, swf, ns, nxe, nze, nxb, nzb, nt, order, cx, cz,
+    #                  stream)
+    "pfdc_rec_fwd_run": [_P, _P, _P, _I, _P, _P, _I, _P, _I,
+                         _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # pfdc_rec_bwd_run(a, b, v2dt2, v2_shot_stride, mask, inj, x0, gz, swf,
+    #                  out, ns, nxe, nze, nxb, nzb, nt, order, cx, cz, stream)
+    "pfdc_rec_bwd_run": [_P, _P, _P, _I, _P, _P, _I, _I, _P,
+                         _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # pfdc_lap_run(p, out, nx, nz, order, cx, cz, stream)
+    "pfdc_lap_run": [_P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -85,21 +96,40 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _run_all(cmds):
+    """Runs the commands at once and waits for all of them. Returns their
+    combined output; raises on the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash) and load the kernel library: one
+    ``nvcc -c`` per source, all started together, then one link."""
     so = _library_path()
     if not so.exists():
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         cu, _ = _sources()
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        so.with_suffix(".log").write_text(res.stdout + res.stderr)
+        tag = f"{so.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{f.stem}.o" for f in cu]
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        log = _run_all([[nvcc, *compile_flags, "-c", "-o", str(o), str(f)]
+                        for f, o in zip(cu, objs)])
+        tmp = so.with_name(f"{tag}.tmp.so")
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                          *map(str, objs)]])
+        for o in objs:
+            o.unlink()
+        so.with_suffix(".log").write_text(log)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

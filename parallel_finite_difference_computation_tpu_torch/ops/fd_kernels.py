@@ -1,22 +1,25 @@
-"""Wrappers of the CUDA step kernels: the port's counterparts of the JAX
-package's ``ops/pallas_fd.py`` entry points.
+"""Wrappers of the CUDA kernels: the port's counterparts of the JAX
+package's Pallas entry points.
 
 Each wrapper routes by the device of its input. A CPU tensor goes to the
-plain version in :mod:`..solver`; a CUDA tensor goes to the kernel, and any
-failure (no ``nvcc``, a build error, a refused launch) raises. Nothing falls
-back.
+plain version in :mod:`..solver` or :mod:`.stencil`; a CUDA tensor goes to
+the kernel, and any failure (no ``nvcc``, a build error, a refused launch)
+raises. Nothing falls back.
 
-One kernel launch is one time step for every shot of the batch; the C entry
-point loops over the nt steps on PyTorch's current stream, so one wrapper
-call runs a whole batch, as one Pallas call ran a whole shot. ``LAUNCHES``
-counts the step launches of each kernel (nt per call), and is added to only
-where the kernels are launched.
+One step-kernel launch is one time step for every shot of the batch; the C
+entry point loops over the nt steps on PyTorch's current stream, so one
+wrapper call runs a whole batch, as one Pallas call ran a whole shot.
+``LAUNCHES`` counts the launches of each kernel (nt per propagation, one
+per Laplacian apply), and is added to only where the kernels are launched.
 
-| kernel         | source                  | replaces (``ops/pallas_fd.py``)      |
-|----------------|-------------------------|--------------------------------------|
-| ``mod_step``     | ``csrc/mod_step.cu``     | ``_fwd_mod_kernel`` (:423)             |
-| ``rtm_fwd_step`` | ``csrc/rtm_fwd_step.cu`` | ``_rtm_kernel`` forward, ``_fwd_gpu_kernel`` (:534, :702) |
-| ``rtm_bwd_step`` | ``csrc/rtm_bwd_step.cu`` | ``_rtm_kernel`` backward, ``_bwd_gpu_kernel`` (:534, :729) |
+| kernel | source | replaces (JAX package, ``ops/``) |
+|---|---|---|
+| ``mod_step`` | ``csrc/mod_step.cu`` | ``pallas_fd.py`` ``_fwd_mod_kernel`` (:423) |
+| ``rtm_fwd_step`` | ``csrc/rtm_fwd_step.cu`` | ``pallas_fd.py`` ``_rtm_kernel`` forward, ``_fwd_gpu_kernel`` (:534, :702) |
+| ``rtm_bwd_step`` | ``csrc/rtm_bwd_step.cu`` | ``pallas_fd.py`` ``_rtm_kernel`` backward, ``_bwd_gpu_kernel`` (:534, :729) |
+| ``rec_fwd_step`` | ``csrc/rec_step.cu`` | ``pallas_stream.py`` ``_kstep_rec_kernel`` source mode (:1002) |
+| ``rec_bwd_step`` | ``csrc/rec_step.cu`` | ``pallas_stream.py`` ``_kstep_rec_kernel`` receiver mode (:1002) |
+| ``lap_apply`` | ``csrc/laplacian.cu`` | ``pallas_stencil.py`` ``_kernel`` (:60) |
 """
 
 from __future__ import annotations
@@ -26,12 +29,15 @@ import torch
 
 from .. import solver
 from ..solver import FDContext, host_wavelet, shot_positions
+from . import stencil
 
 __all__ = ["LAUNCHES", "reset_launches", "check_lap_impl",
            "forward_modeling_cuda", "fd_forward_cuda", "fd_back_cuda",
-           "rtm_snapshot_cuda"]
+           "rtm_snapshot_cuda", "backward_recorded_cuda",
+           "backward_image_cuda", "rtm_full_cuda", "laplacian_cuda"]
 
-LAUNCHES = {"mod_step": 0, "rtm_fwd_step": 0, "rtm_bwd_step": 0}
+LAUNCHES = {"mod_step": 0, "rtm_fwd_step": 0, "rtm_bwd_step": 0,
+            "rec_fwd_step": 0, "rec_bwd_step": 0, "lap_apply": 0}
 
 
 def reset_launches() -> None:
@@ -129,14 +135,24 @@ def _newest_prev(a, b, nt: int):
     return (b, a) if nt % 2 else (a, b)
 
 
+def _check_gz(ctx: FDContext, gz: int) -> None:
+    if not 0 <= gz < ctx.nze:
+        raise ValueError(f"receiver depth gz={gz} is outside the grid")
+
+
 def forward_modeling_cuda(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
                           source: str = "gaussian", taper: str = "all",
-                          lap_impl=None):
-    """Forward modeling (``mod_main``) for a batch of shots: the counterpart
-    of ``forward_modeling_pallas``. Returns ``(p, pp, seis)`` with seis
-    (ns, nt, nx), as :func:`..solver.forward_modeling`."""
+                          record: str = "trace", lap_impl=None):
+    """Forward modeling (``mod_main``, and ``rtm_main``'s forward half) for
+    a batch of shots: the counterpart of ``forward_modeling_pallas`` and of
+    ``forward_modeling_tiled``. Returns ``(p, pp, recorded)`` as
+    :func:`..solver.forward_modeling`: ``record="trace"`` and ``"none"``
+    run ``mod_step``, ``"wavefield"`` runs ``rec_fwd_step``, which writes
+    the (ns, nt, nx, nz) interior frames."""
     check_lap_impl(lap_impl)
     _check_order(ctx)
+    if record not in solver.RECORD_MODES:
+        raise ValueError(f"unknown record mode {record!r}")
     sxs = shot_positions(sx)
     ns, dev = len(sxs), v2.device
     wav = _check_wavelet(ctx, wavelet)
@@ -144,11 +160,11 @@ def forward_modeling_cuda(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
     patch = ctx.source_patch if source == "gaussian" else np.ones((1, 1))
     r = patch.shape[0] // 2
     _check_window(ctx, sxs, sz, r)
-    if not 0 <= gz < ctx.nze:
-        raise ValueError(f"receiver depth gz={gz} is outside the grid")
+    _check_gz(ctx, gz)
     if not _on_cuda(v2):
         return solver.forward_modeling(ctx, v2, wav, sxs, sz, gz,
-                                       source=source, taper=taper)
+                                       source=source, taper=taper,
+                                       record=record)
     from . import _build
     v2dt2 = v2 * ctx.dt2
     mask = _dev_f32(ctx.mask_all if taper == "all" else ctx.mask_top, dev)
@@ -156,18 +172,177 @@ def forward_modeling_cuda(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
     sx_d = torch.tensor(sxs, dtype=torch.int32, device=dev)
     a = torch.zeros((ns, ctx.nxe, ctx.nze), dtype=torch.float32, device=dev)
     b = torch.zeros_like(a)
-    seis = torch.empty((ns, ctx.nt, ctx.nx), dtype=torch.float32, device=dev)
+    keep, (cx, cz) = _coef_args(ctx)
+    if record == "wavefield":
+        rec = torch.empty((ns, ctx.nt, ctx.nx, ctx.nz), dtype=torch.float32,
+                          device=dev)
+        with torch.cuda.device(dev):
+            rc = _build.library().pfdc_rec_fwd_run(
+                a.data_ptr(), b.data_ptr(), v2dt2.data_ptr(), v2_stride,
+                mask.data_ptr(), patch_d.data_ptr(), r, sx_d.data_ptr(), sz,
+                wav.ctypes.data, rec.data_ptr(), ns, ctx.nxe, ctx.nze,
+                ctx.nxb, ctx.nzb, ctx.nt, ctx.order, cx, cz, _stream(dev))
+        _raise_on(rc, "rec_fwd_step")
+        LAUNCHES["rec_fwd_step"] += ctx.nt
+    else:
+        rec = torch.empty((ns, ctx.nt, ctx.nx), dtype=torch.float32,
+                          device=dev)
+        with torch.cuda.device(dev):
+            rc = _build.library().pfdc_mod_run(
+                a.data_ptr(), b.data_ptr(), v2dt2.data_ptr(), v2_stride,
+                mask.data_ptr(), patch_d.data_ptr(), r, sx_d.data_ptr(), sz,
+                gz, wav.ctypes.data, rec.data_ptr(), ns, ctx.nxe, ctx.nze,
+                ctx.nxb, ctx.nx, ctx.nt, ctx.order, cx, cz, _stream(dev))
+        _raise_on(rc, "mod_step")
+        LAUNCHES["mod_step"] += ctx.nt
+        if record == "none":
+            rec = None
+    newest, prev = _newest_prev(a, b, ctx.nt)
+    return newest, prev * mask, rec
+
+
+def _check_dobs(ctx: FDContext, dobs: torch.Tensor, device) -> int:
+    """Checks the (ns, nx, nt) gathers and returns ns."""
+    if dobs.dim() != 3:
+        raise ValueError(f"dobs must be (ns, nx, nt), got shape "
+                         f"{tuple(dobs.shape)}")
+    _check("dobs", dobs, (dobs.shape[0], ctx.nx, ctx.nt), device)
+    return dobs.shape[0]
+
+
+def _next_shot_first(next_shot_first, ns: int, device) -> torch.Tensor:
+    """``next_shot_first`` as an (ns,) float32 tensor: one number for every
+    shot, or one per shot."""
+    nxt = torch.as_tensor(next_shot_first, dtype=torch.float32,
+                          device=device).reshape(-1)
+    if nxt.numel() == 1:
+        nxt = nxt.expand(ns)
+    if nxt.shape != (ns,):
+        raise ValueError(f"next_shot_first has {nxt.numel()} values, "
+                         f"expected 1 or {ns}")
+    return nxt
+
+
+def _rec_bwd(ctx: FDContext, v2, dobs, gz: int, x_off_quirk, next_shot_first,
+             swf=None):
+    """Checks the inputs of the receiver-mode step and routes them: the
+    plain version on the CPU, ``rec_bwd_step`` on the card. Without
+    ``swf`` (frame mode) returns ``(p, pp, rwf)``; with it (image mode)
+    returns the (ns, nx, nz) images."""
+    _check_order(ctx)
+    dev = v2.device
+    ns = _check_dobs(ctx, dobs, dev)
+    v2_stride = _check_v2(ctx, v2, ns)
+    _check_gz(ctx, gz)
+    nxt = _next_shot_first(next_shot_first, ns, dev)
+    if swf is not None:
+        _check("swf", swf, (ns, ctx.nt, ctx.nx, ctx.nz), dev)
+    if not _on_cuda(v2):
+        if swf is None:
+            return solver.backward_recorded(ctx, v2, dobs, gz,
+                                            x_off_quirk=x_off_quirk,
+                                            next_shot_first=nxt)
+        return solver.backward_image(ctx, v2, swf, dobs, gz,
+                                     x_off_quirk=x_off_quirk,
+                                     next_shot_first=nxt)
+    from . import _build
+    v2dt2 = v2 * ctx.dt2
+    mask = _dev_f32(ctx.mask_top, dev)
+    inj = solver._injection_rows(ctx, dobs, nxt)            # (ns, nt, nx)
+    x0 = solver.receiver_offset(ctx, x_off_quirk)
+    a = torch.zeros((ns, ctx.nxe, ctx.nze), dtype=torch.float32, device=dev)
+    b = torch.zeros_like(a)
+    if swf is None:
+        out = torch.empty((ns, ctx.nt, ctx.nx, ctx.nz), dtype=torch.float32,
+                          device=dev)
+    else:
+        out = torch.zeros((ns, ctx.nx, ctx.nz), dtype=torch.float32,
+                          device=dev)
     keep, (cx, cz) = _coef_args(ctx)
     with torch.cuda.device(dev):
-        rc = _build.library().pfdc_mod_run(
+        rc = _build.library().pfdc_rec_bwd_run(
             a.data_ptr(), b.data_ptr(), v2dt2.data_ptr(), v2_stride,
-            mask.data_ptr(), patch_d.data_ptr(), r, sx_d.data_ptr(), sz, gz,
-            wav.ctypes.data, seis.data_ptr(), ns, ctx.nxe, ctx.nze, ctx.nxb,
-            ctx.nx, ctx.nt, ctx.order, cx, cz, _stream(dev))
-    _raise_on(rc, "mod_step")
-    LAUNCHES["mod_step"] += ctx.nt
+            mask.data_ptr(), inj.data_ptr(), x0, gz,
+            None if swf is None else swf.data_ptr(), out.data_ptr(), ns,
+            ctx.nxe, ctx.nze, ctx.nxb, ctx.nzb, ctx.nt, ctx.order, cx, cz,
+            _stream(dev))
+    _raise_on(rc, "rec_bwd_step")
+    LAUNCHES["rec_bwd_step"] += ctx.nt
+    if swf is not None:
+        return out
     newest, prev = _newest_prev(a, b, ctx.nt)
-    return newest, prev * mask, seis
+    return newest, prev * mask, out
+
+
+def backward_recorded_cuda(ctx: FDContext, v2, dobs, gz: int,
+                           x_off_quirk: bool = True, next_shot_first=0.0):
+    """``rtm_main``'s backward half for a batch of shots (``dobs`` (ns, nx,
+    nt); ``next_shot_first`` one number or one per shot): the counterpart of
+    ``backward_recorded_tiled``, ``rec_bwd_step`` in frame mode. Returns
+    ``(p, pp, rwf)`` with rwf (ns, nt, nx, nz), as
+    :func:`..solver.backward_recorded`."""
+    return _rec_bwd(ctx, v2, dobs, gz, x_off_quirk, next_shot_first)
+
+
+def backward_image_cuda(ctx: FDContext, v2, swf, dobs, gz: int,
+                        x_off_quirk: bool = True, next_shot_first=0.0):
+    """``rtm_main``'s backward half fused with its imaging for a batch of
+    shots: ``rec_bwd_step`` in image mode, correlating each step's frame
+    with ``swf[:, nt-1-it]`` without storing the receiver wavefield.
+    Returns the (ns, nx, nz) images, as :func:`..solver.backward_image`
+    (the sum runs in time order there, so the two agree to rounding)."""
+    return _rec_bwd(ctx, v2, dobs, gz, x_off_quirk, next_shot_first,
+                    swf=swf)
+
+
+def rtm_full_cuda(ctx: FDContext, v2, wavelet, dobs, sx, sz: int, gz: int,
+                  x_off_quirk: bool = True, next_shot_first=0.0,
+                  lap_impl=None):
+    """Full-wavefield RTM (``rtm_main``) for a batch of shots: the
+    counterpart of ``rtm_shot_full_tiled``. ``rec_fwd_step`` stores the
+    source wavefield, then ``rec_bwd_step`` in image mode reads it back in
+    reverse. Returns the (ns, nx, nz) images, as
+    :func:`..solver.rtm_shot_full`."""
+    check_lap_impl(lap_impl)
+    _, _, swf = forward_modeling_cuda(ctx, v2, wavelet, sx, sz, gz,
+                                      source="point", taper="top",
+                                      record="wavefield")
+    return backward_image_cuda(ctx, v2, swf, dobs, gz,
+                               x_off_quirk=x_off_quirk,
+                               next_shot_first=next_shot_first)
+
+
+def laplacian_cuda(p, coefs_x, coefs_z, order: int):
+    """The order-``order`` interior Laplacian of one (nx, nz) field with a
+    zero border of width order/2: the counterpart of ``laplacian_pallas``,
+    ``lap_apply`` on the card, :func:`.stencil.laplacian` on the CPU.
+    ``coefs_x``/``coefs_z`` are the premultiplied (order+1,) arrays of
+    :func:`..numerics.scaled_coefficients`."""
+    if order % 2 or not 2 <= order <= 10:
+        raise ValueError(f"lap_apply takes even orders 2..10, got {order}")
+    if p.dim() != 2:
+        raise ValueError(f"p must be one (nx, nz) field, got shape "
+                         f"{tuple(p.shape)}")
+    nx, nz = p.shape
+    if nx <= order or nz <= order or -(-nx // 8) > 65535:
+        raise ValueError(f"field {nx}x{nz} does not fit order {order} or "
+                         f"the launch grid")
+    _check("p", p, (nx, nz), p.device)
+    cx = np.ascontiguousarray(coefs_x, np.float32)
+    cz = np.ascontiguousarray(coefs_z, np.float32)
+    if cx.shape != (order + 1,) or cz.shape != (order + 1,):
+        raise ValueError(f"coefficients must be ({order + 1},) arrays")
+    if not _on_cuda(p):
+        return stencil.laplacian(p, cx, cz, order)
+    from . import _build
+    out = torch.empty_like(p)
+    with torch.cuda.device(p.device):
+        rc = _build.library().pfdc_lap_run(
+            p.data_ptr(), out.data_ptr(), nx, nz, order, cx.ctypes.data,
+            cz.ctypes.data, _stream(p.device))
+    _raise_on(rc, "lap_apply")
+    LAUNCHES["lap_apply"] += 1
+    return out
 
 
 def fd_forward_cuda(ctx: FDContext, v2, wavelet, sx, sz: int):
@@ -208,8 +383,7 @@ def fd_back_cuda(ctx: FDContext, v2, snap_p, snap_pp, dobs, gz: int):
     _check_order(ctx)
     dev = v2.device
     ns = snap_p.shape[0]
-    if not 0 <= gz < ctx.nze:
-        raise ValueError(f"receiver depth gz={gz} is outside the grid")
+    _check_gz(ctx, gz)
     _check("snap_p", snap_p, (ns, ctx.nxe, ctx.nze), dev)
     _check("snap_pp", snap_pp, (ns, ctx.nxe, ctx.nze), dev)
     _check("dobs", dobs, (ns, ctx.nx, ctx.nt), dev)

@@ -19,7 +19,7 @@ import torch
 __all__ = [
     "laplacian_interior", "laplacian", "lap_interior_mask",
     "leapfrog", "apply_taper", "inject_point", "inject_gaussian",
-    "inject_receivers", "imaging_correlation",
+    "receiver_x0", "inject_receivers", "imaging_correlation",
 ]
 
 
@@ -122,13 +122,24 @@ def inject_gaussian(pp, sx, sz: int, amp: float, patch):
     return out
 
 
+def receiver_x0(x_off: int, n: int, nx_ext: int) -> int:
+    """Start row of an n-long receiver row at x offset ``x_off`` in a grid
+    of ``nx_ext`` rows, clamped to ``[0, nx_ext - n]`` as the JAX package's
+    ``dynamic_slice``/``dynamic_update_slice`` clamp it (``stencil.py:
+    202-209`` there). ``rtm_main``'s nzb-for-nxb quirk with nzb > 2*nxb
+    lands here: the row moves, it does not leave the grid."""
+    return min(max(int(x_off), 0), nx_ext - n)
+
+
 def inject_receivers(ppr, dobs_t, nxb: int, gz: int):
     """Receiver-row injection for the backward pass, kernel K5
     (``kernel_sism``, ``fd-code.cu:124-131``): adds ``dobs_t`` (..., n)
-    along depth row ``gz`` at x in ``[nxb, nxb+n)``. Returns a new tensor."""
+    along depth row ``gz`` at x in ``[x0, x0+n)``, ``x0`` being ``nxb``
+    clamped by :func:`receiver_x0`. Returns a new tensor."""
     n = dobs_t.shape[-1]
+    x0 = receiver_x0(nxb, n, ppr.shape[-2])
     out = ppr.clone()
-    out[..., nxb:nxb + n, gz] += dobs_t
+    out[..., x0:x0 + n, gz] += dobs_t
     return out
 
 

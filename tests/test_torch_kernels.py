@@ -21,6 +21,8 @@ import torch
 import parallel_finite_difference_computation_tpu_torch as tpk
 from parallel_finite_difference_computation_tpu_torch import (
     cli as tcli, numerics, pipeline, solver)
+from parallel_finite_difference_computation_tpu_torch.models import (
+    layered_model)
 from parallel_finite_difference_computation_tpu_torch.ops import (
     _build, fd_kernels as fk)
 
@@ -61,13 +63,19 @@ from parallel_finite_difference_computation_tpu_torch import (
 from parallel_finite_difference_computation_tpu_torch.models import zoo
 from parallel_finite_difference_computation_tpu_torch.ops import (
     _build, fd_kernels, stencil)
+import numpy as np
 p = tpk.Params(nz=12, nx=14, nt=6, dz=10.0, dx=10.0, dt=0.001, fpeak=25.0,
                ns=2, sz=3, fsx=4, ds=5, gz=1, nxb=5, nzb=5, fac=0.7)
 vp = zoo.layered_model(p.nx, p.nz)
 d = pipeline.run_modeling(p, vp=vp, device="cpu")
 img, _ = pipeline.run_rtm_gpu(p, vp=vp, dobs=d, outdir={str(tmp_path)!r},
                               device="cpu")
-assert d.shape == (2, 14, 6) and img.shape == (14, 12)
+img2, _ = pipeline.run_rtm_cpu(p, vp=vp, dobs=d, device="cpu")
+p.tmpdir = {str(tmp_path / "field.bin")!r}
+io.write_f32(p.tmpdir, np.ones((p.nxe, p.nze), np.float32))
+lap = pipeline.run_stencil(p, device="cpu")
+assert d.shape == (2, 14, 6) and img.shape == img2.shape == (14, 12)
+assert lap.shape == (p.nxe, p.nze)
 assert not any(m == "jax" or m.startswith("jax.") for m, v in
                sys.modules.items() if v is not None)
 print("ok")
@@ -96,8 +104,13 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     p, pp = fk.fd_forward_cuda(ctx, v2, wav, SXS, SZ)
     fk.fd_back_cuda(ctx, v2, p, pp, dobs, GZ)
     fk.rtm_snapshot_cuda(ctx, v2, wav, dobs, SXS, SZ, GZ)
+    fk.forward_modeling_cuda(ctx, v2[0], wav, SXS, SZ, GZ, record="wavefield")
+    fk.backward_recorded_cuda(ctx, v2, dobs, GZ)
+    fk.rtm_full_cuda(ctx, v2, wav, dobs, SXS, SZ, GZ)
+    fk.laplacian_cuda(v2[0], ctx.coefs_x, ctx.coefs_z, ctx.order)
     assert fk.LAUNCHES == {"mod_step": 0, "rtm_fwd_step": 0,
-                           "rtm_bwd_step": 0}
+                           "rtm_bwd_step": 0, "rec_fwd_step": 0,
+                           "rec_bwd_step": 0, "lap_apply": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "strides", "wavelet",
@@ -241,7 +254,8 @@ def test_kernels_match_plain_on_the_card(cuda_device, order, nt):
     torch.cuda.synchronize()
     assert float((ki - pi).abs().max() / pi.abs().max()) <= GATE
     assert fk.LAUNCHES == {"mod_step": nt, "rtm_fwd_step": nt,
-                           "rtm_bwd_step": nt}
+                           "rtm_bwd_step": nt, "rec_fwd_step": 0,
+                           "rec_bwd_step": 0, "lap_apply": 0}
 
 
 @pytest.mark.cuda
@@ -250,3 +264,84 @@ def test_cuda_wrapper_checks_device_of_every_input(cuda_device):
     p, pp = fk.fd_forward_cuda(ctx, v2, wav, SXS, SZ)
     with pytest.raises(ValueError):
         fk.fd_back_cuda(ctx, v2, p, pp, dobs.cpu(), GZ)
+
+
+def _rec_setup(nt, order, nxb, nzb, device, seed=4):
+    """One velocity and two shots' data for the rtm_main kernels, on a
+    grid where the receiver row is clamped when nzb > 2 * nxb."""
+    rng = np.random.default_rng(seed)
+    ctx = solver.FDContext.create(26, 34, nt, dx=10.0, dz=10.0, dt=0.001,
+                                  order=order, nxb=nxb, nzb=nzb, fac=0.7,
+                                  exact_taper=False)
+    v2 = torch.from_numpy((1500.0 + 500.0 * rng.random(
+        (ctx.nxe, ctx.nze))).astype(np.float32) ** 2).to(device)
+    wav = numerics.ricker_wavelet(nt, 0.001, 30.0)
+    dobs = torch.from_numpy(rng.standard_normal(
+        (2, ctx.nx, nt)).astype(np.float32)).to(device)
+    return ctx, v2, wav, dobs, (nxb + 9, nxb + 15), nzb + 2, nzb + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [2, 4, 6, 8, 10])
+@pytest.mark.parametrize("nt", [10, 11])
+@pytest.mark.parametrize("nxb,nzb", [(6, 5), (3, 8)])
+def test_rec_kernels_match_plain_on_the_card(cuda_device, order, nt, nxb,
+                                             nzb):
+    ctx, v2, wav, dobs, sxs, sz, gz = _rec_setup(nt, order, nxb, nzb,
+                                                 cuda_device)
+    nxt = (0.25, -0.5)
+    fk.reset_launches()
+    got = fk.forward_modeling_cuda(ctx, v2, wav, sxs, sz, gz, source="point",
+                                   taper="top", record="wavefield")
+    want = solver.forward_modeling(ctx, v2, wav, sxs, sz, gz, source="point",
+                                   taper="top", record="wavefield")
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max() / b.abs().max()) <= GATE
+    for quirk in (True, False):
+        kb = fk.backward_recorded_cuda(ctx, v2, dobs, gz, x_off_quirk=quirk,
+                                       next_shot_first=nxt)
+        pb = solver.backward_recorded(ctx, v2, dobs, gz, x_off_quirk=quirk,
+                                      next_shot_first=nxt)
+        for a, b in zip(kb, pb):
+            assert float((a - b).abs().max() / b.abs().max()) <= GATE
+        ki = fk.rtm_full_cuda(ctx, v2, wav, dobs, sxs, sz, gz,
+                              x_off_quirk=quirk, next_shot_first=nxt)
+        pi = solver.rtm_shot_full(ctx, v2, wav, dobs, sxs, sz, gz,
+                                  x_off_quirk=quirk, next_shot_first=nxt)
+        torch.cuda.synchronize()
+        assert float((ki - pi).abs().max() / pi.abs().max()) <= GATE
+    assert fk.LAUNCHES["rec_fwd_step"] == 3 * nt
+    assert fk.LAUNCHES["rec_bwd_step"] == 4 * nt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [2, 4, 6, 8, 10])
+@pytest.mark.parametrize("shape", [(45, 139), (300, 257)])
+def test_lap_apply_matches_plain_on_the_card(cuda_device, order, shape):
+    rng = np.random.default_rng(order)
+    f = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    cx, cz = numerics.scaled_coefficients(order, 10.0, 12.5)
+    fk.reset_launches()
+    got = fk.laplacian_cuda(f.to(cuda_device), cx, cz, order)
+    want = fk.laplacian_cuda(f, cx, cz, order)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert fk.LAUNCHES["lap_apply"] == 1
+
+
+@pytest.mark.cuda
+def test_run_rtm_cpu_and_run_stencil_card_match_cpu(cuda_device, tmp_path):
+    p = tpk.Params(nz=24, nx=28, nt=11, dz=10.0, dx=10.0, dt=0.001,
+                   fpeak=25.0, ns=3, sz=4, fsx=6, ds=7, gz=1, nxb=8, nzb=6,
+                   fac=0.7, order=8)
+    vp = layered_model(p.nx, p.nz)
+    dobs = np.random.default_rng(3).standard_normal(
+        (p.ns, p.nx, p.nt)).astype(np.float32)
+    _, locs_k = pipeline.run_rtm_cpu(p, vp=vp, dobs=dobs, device=cuda_device)
+    _, locs_p = pipeline.run_rtm_cpu(p, vp=vp, dobs=dobs, device="cpu")
+    assert np.abs(locs_k - locs_p).max() <= GATE * np.abs(locs_p).max()
+    p.tmpdir = str(tmp_path / "field.bin")
+    tpk.io.write_f32(p.tmpdir, np.random.default_rng(5).standard_normal(
+        (p.nxe, p.nze)).astype(np.float32))
+    np.testing.assert_array_equal(pipeline.run_stencil(p, device=cuda_device),
+                                  pipeline.run_stencil(p, device="cpu"))
