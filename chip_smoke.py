@@ -46,16 +46,37 @@ Run from the root of the repository, on a machine with one CUDA card and
    cut, for time), through ``backend="auto"`` (which resolves to the tiled
    tier) and through ``"pallas"``: launch counts, ``dir.image``, the two
    tiers' gathers and images (rel RMS <= 1e-5), wall s/shot of each;
-11. times: each kernel's wrapper call and its plain version, timed with
+11. domain kernels vs plain: ``block_mod`` (both source modes),
+   ``block_fwd`` and ``block_bwd`` against their plain versions on the same
+   CUDA tensors, launch by launch on random states of every slab (seeded,
+   full and tail blocks), at orders 4, 8 and 10, K = 2, 3 and 8, x = 2 and
+   4, on a 134 x 88 grid (nxe no multiple of 4) with the sources at the
+   first slab edge; and the two makers on a (2, x) mesh of cuda:0 and on
+   one alternating cuda:0 and the CPU against the same makers on a CPU
+   mesh (edge slabs' zero halos, the exchange within and between
+   devices); gate: max relative error <= 1e-5;
+12. 3lay mesh path: ``run_modeling`` then ``run_rtm_gpu`` on the 3lay
+   config over meshes (2, 1), (2, 2) and (1, 4), every position on cuda:0,
+   against the no-mesh run of phase 4 (rel RMS <= 1e-5);
+13. the Pluto domain path: ``run_modeling`` then ``run_rtm_gpu`` at the
+   full Pluto grid, nt=12860, 2 shots, over a (1, 4) mesh of cuda:0 (K=8):
+   launch counts, ``dir.image``, gathers and images against phase 10's
+   per-step tier (rel RMS <= 1e-5), wall s/shot;
+14. times: each kernel's wrapper call and its plain version, timed with
    CUDA events, median of 5 after a warm-up, taken in turns; for the
    stencil also ``torch.nn.functional.conv2d`` with the same taps (the
    library yardstick, not used by the port); for the K-step kernels, at
    the Pluto grid (2 shots, nt=1001), their passes, their plain passes and
-   the per-step kernel call for the same function;
-12. profile: one ``torch.profiler`` trace of each 3lay 8-shot call, of the
+   the per-step kernel call for the same function; the same for the block
+   kernels over the four slabs of a (1, 4) mesh, after holding each
+   against its plain version there (K = 8 and the tails 4 and 1, seeded;
+   gate 1e-5), and the domain tier's whole modeling and RTM calls against
+   the per-step calls;
+15. profile: one ``torch.profiler`` trace of each 3lay 8-shot call, of the
    8192 x 8192 stencil, and of the Pluto modeling and RTM calls (nt=1001)
    of each tier: the device time of each kernel, its launch count, and the
-   share of the event-timed call that the card spent in kernels.
+   share of the event-timed call that the card spent in kernels; for the
+   domain tier also the share of the copy kernels (the halo exchange).
 
 Every phase prints its seconds. It prints one JSON line of per-kernel results (with each kernel's bound,
 worked out from this run's shapes), the nvidia-smi line, and, as the last
@@ -101,6 +122,12 @@ KERNELS = {
                       "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:857"),
     "gpu_step": (f"{PKG}/csrc/gpu_step.cu",
                  "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:207"),
+    "block_mod": (f"{PKG}/csrc/domain_block.cu",
+                  "parallel_finite_difference_computation_tpu/parallel/domain_pallas.py:189"),
+    "block_fwd": (f"{PKG}/csrc/domain_block.cu",
+                  "parallel_finite_difference_computation_tpu/parallel/domain_pallas.py:115"),
+    "block_bwd": (f"{PKG}/csrc/domain_block.cu",
+                  "parallel_finite_difference_computation_tpu/parallel/domain_pallas.py:136"),
 }
 # The reference's full-resolution Pluto config
 # (dpct_gpu_rtm_domain_division/build/pluto/input.orig, as restated in
@@ -219,6 +246,48 @@ def kstep_bounds(ctx, ns: int, k: int):
     }
 
 
+def block_bounds(ctx, ns: int, k: int, n_x: int):
+    """Bounds of the x-domain tier's block kernels as this script times
+    them: blocks of k steps over ``ctx.nt`` steps on each of ``n_x`` slabs,
+    the bytes of every launch (each input read once, each output written
+    once: the halo-extended fields in, the owned rows out), the flop of the
+    steps over the grid (halo rows computed twice not counted). block_mod's
+    velocity is one plane for all shots, the RTM kernels' one per shot;
+    block_bwd's launches are not the seeded first one."""
+    h = ctx.order // 2
+    nxl = -(-ctx.nxe // n_x)
+    ext = (nxl + 2 * k * h) * ctx.nze
+    own = nxl * ctx.nze
+    nxw = nxl + 2 * k * h
+    ramps = nxw + 2 * ctx.nze
+    launches = -(-ctx.nt // k) * n_x
+    plane = ctx.nxe * ctx.nze
+    lapc = (ctx.nxe - 2 * h) * (ctx.nze - 2 * h)
+    inter = ctx.nx * ctx.nz
+    steps = ns * ctx.nt
+    f4 = 4
+    return {
+        # reads p, pp, v2m, ramps, 7 Gaussian source rows a shot; writes
+        # p, pp and the traces
+        "block_mod": bound(
+            f4 * launches * (2 * ns * ext + ext + ramps + 7 * ns * nxw + k
+                             + 2 * ns * own + ns * k * nxl),
+            steps * (lapc * lap_flops(h) + 6 * plane + ctx.nx + 49)),
+        # reads p, pp, v2m, ramps, the source row; writes p, pp
+        "block_fwd": bound(
+            f4 * launches * (3 * ns * ext + ramps + ns * nxw + k
+                             + 2 * ns * own),
+            steps * (lapc * lap_flops(h) + 7 * plane + 1)),
+        # reads four fields, v2m, ramps, k trace rows and the image; writes
+        # four fields and the image
+        "block_bwd": bound(
+            f4 * launches * (5 * ns * ext + ramps + ns * k * nxw
+                             + 6 * ns * own),
+            steps * (lapc * 2 * lap_flops(h) + 11 * plane + ctx.nx
+                     + 2 * inter)),
+    }
+
+
 def max_rel(a, b) -> float:
     """max |a - b| / max |b|."""
     return float((a - b).abs().max() / b.abs().max())
@@ -257,6 +326,7 @@ def profile(torch, label: str, fn, call_ms: float, smi: str) -> None:
     print(f"[profile] {label}: kernels {busy:.3f} ms of the {call_ms:.3f} ms "
           f"event-timed call, busy share {busy / call_ms:.3f}; {smi}",
           flush=True)
+    return rows
 
 
 def main() -> int:
@@ -788,10 +858,188 @@ def main() -> int:
           f"image rel RMS {rr[1]:.3e}, per-shot images rel RMS {rr[2]:.3e}",
           flush=True)
     check(max(rr) <= GATE, "the Pluto tiers differ")
+    pluto_ref = tiers["pallas"]
     del tiers, dat
     phase_done("Pluto path")
 
-    # ---- 11. times, kernel and plain in turns
+    # ---- 11. the x-domain tier's block kernels vs plain on the card
+    from parallel_finite_difference_computation_tpu_torch.parallel import (
+        domain_kernels as dk, make_mesh)
+    from parallel_finite_difference_computation_tpu_torch.parallel.domain \
+        import embed_dobs
+
+    def randn(rng, *shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    def block_errs(ms, rs, fields, imgs, amps, ks):
+        """(max rel err, max abs err) of each block kernel against its
+        plain version on the same CUDA tensors, one launch a slab on the
+        slab's states ``fields[j]`` (six (ns, nxw, nze) tensors) and image
+        ``imgs[j]`` for each step count in ``ks``: block_mod with the
+        Gaussian source and all-edge taper (slabs ``ms``) and with the
+        point source and top taper (``rs``), block_fwd, block_bwd at trace
+        row ks[0]; then block_bwd seeded by fields 4 and 5 at row 0."""
+        out = {}
+
+        def note(name, e):
+            old = out.get(name, (0.0, 0.0))
+            out[name] = (max(old[0], e[0]), max(old[1], e[1]))
+
+        for cm, cr, f, img in zip(ms, rs, fields, imgs):
+            for kk in ks:
+                a = amps[:kk]
+                for c in (cm, cr):
+                    note("block_mod", errs(dk.block_mod_cuda(c, f[0], f[1], a),
+                                           dk.block_mod(c, f[0], f[1], a)))
+                note("block_fwd", errs(dk.block_fwd_cuda(cr, f[0], f[1], a),
+                                       dk.block_fwd(cr, f[0], f[1], a)))
+                note("block_bwd", errs(
+                    dk.block_bwd_cuda(cr, *f[:4], img.clone(), ks[0], kk),
+                    dk.block_bwd(cr, *f[:4], img, ks[0], kk)))
+            if ks[0] > 1:
+                note("block_bwd", errs(
+                    dk.block_bwd_cuda(cr, *f[:4], img.clone(), 0, ks[0],
+                                      f[4:6]),
+                    dk.block_bwd(cr, *f[:4], img, 0, ks[0], f[4:6])))
+        torch.cuda.synchronize()
+        return out
+
+    def compare_blocks(case, n_x: int, k: int):
+        """:func:`block_errs` on random states of every slab of an x mesh
+        of n_x slabs, with k steps and a tail of k - 1."""
+        ctx_m, ctx_r, v2_m, v2_r, _, _, d, gp = case
+        rng = np.random.default_rng(n_x * 10 + k)
+        amps = rng.standard_normal(k).astype(np.float32)
+        ms = dk.prepare_slabs(ctx_m, [dev] * n_x, k, v2_m, "all", sxs=gp.sx,
+                              sz=gp.sz, source="gaussian", gz=gp.gz)
+        rs = dk.prepare_slabs(ctx_r, [dev] * n_x, k, v2_r, "top", sxs=gp.sx,
+                              sz=gp.sz, dobs_ext=embed_dobs(
+                                  ctx_r, d.cpu().numpy()), gz=gp.gz)
+        fields = [[randn(rng, c.ns, c.nxw, ctx_m.nze) for _ in range(6)]
+                  for c in ms]
+        imgs = [randn(rng, c.ns, c.nxl, ctx_m.nze) for c in ms]
+        return block_errs(ms, rs, fields, imgs, amps,
+                          (k, k - 1) if k > 1 else (k,))
+
+    def compare_makers(case, n_x: int, k: int):
+        """The two makers on a (2, n_x) mesh of cuda:0, and on one whose
+        positions alternate between cuda:0 and the CPU (the exchange copies
+        between devices), against the same makers on a CPU mesh (the plain
+        block functions): the edge slabs' zero halos, the exchange, nxe
+        padded to a multiple of n_x. Returns the larger error."""
+        ctx_m, ctx_r, v2_m, v2_r, wav_m, wav_r, d, gp = case
+        d_ext = embed_dobs(ctx_r, d.cpu().numpy())
+        out = []
+        for devices in ([dev] * (2 * n_x), [dev, "cpu"] * n_x,
+                        ["cpu"] * (2 * n_x)):
+            mesh = make_mesh(2, n_x, devices=devices)
+            out.append((
+                dk.make_sharded_forward_modeling_cuda(
+                    ctx_m, mesh, gp.sz, gp.gz, block_k=k)(
+                    v2_m, gp.sx, wav_m).cpu(),
+                dk.make_sharded_rtm_snapshot_cuda(
+                    ctx_r, mesh, gp.sz, gp.gz, block_k=k)(
+                    v2_r, gp.sx, wav_r, d_ext).cpu()))
+        e = [errs(got, out[2]) for got in out[:2]]
+        return max(e[0][0], e[1][0]), max(e[0][1], e[1][1])
+
+    # 120 x 70 + borders 7, 9: 134 x 88, no multiple of x = 4 (padded to
+    # 136) nor of the 32 x 64 tiles; two shots around the first slab edge,
+    # the source at z = 62 and the receiver row at z = 63, across a tile
+    # edge; nt = 21: tails for every K
+    dom = Params(nz=70, nx=120, nt=21, dz=10.0, dx=10.0, dt=0.001,
+                 fpeak=30.0, ns=2, sz=53, fsx=33, ds=1, gz=54, nxb=7,
+                 nzb=9, fac=0.7, order=8)
+    block_err = {k: 0.0 for k in ("block_mod", "block_fwd", "block_bwd")}
+    n_cases = 0
+    for order in (4, 8, 10):
+        case = tier_case(dataclasses.replace(dom, order=order))
+        for n_x in (2, 4):
+            nxl = -(-dom.nxe // n_x)
+            case_x = case[:7] + (dataclasses.replace(
+                case[7], sx=(nxl - 1, nxl)),)
+            for k in (2, 3, 8):
+                if k * order // 2 > nxl:
+                    continue
+                for kname, (rel, absd) in {
+                        **compare_blocks(case_x, n_x, k),
+                        "makers (cuda:0, mixed) vs CPU mesh":
+                            compare_makers(case_x, n_x, k)}.items():
+                    print(f"[domain vs plain] {kname} order {order} x "
+                          f"{n_x} K {k} nt {dom.nt} {dom.nxe} x {dom.nze}: "
+                          f"max rel err {rel:.3e}, max abs err {absd:.3e}",
+                          flush=True)
+                    check(rel <= GATE, f"{kname} order {order} x {n_x} K "
+                                       f"{k}: {rel:.3e} > {GATE}")
+                    if kname in block_err:
+                        block_err[kname] = max(block_err[kname], absd)
+                n_cases += 1
+    print(f"[domain vs plain] {n_cases} cases; max abs err {block_err}",
+          flush=True)
+    phase_done("domain kernels vs plain")
+
+    # ---- 12. the 3lay path over meshes on cuda:0, against the no-mesh run
+    for shape in ((2, 1), (2, 2), (1, 4)):
+        mesh = make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+        dk.reset_launches()
+        t0 = time.perf_counter()
+        data_m = pipeline.run_modeling(P, vp=vp, mesh=mesh)
+        img_m3, locs_m3 = pipeline.run_rtm_gpu(P, vp=vp, dobs=data_m, seed=0,
+                                               mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rr3 = (rel_rms(data_m, data), rel_rms(img_m3, img),
+               rel_rms(locs_m3, imlocs))
+        print(f"[3lay mesh path] mesh {shape}: run_modeling + run_rtm_gpu "
+              f"{wall:.3f} s wall; block launches {dict(dk.LAUNCHES)}; vs "
+              f"the no-mesh per-step run: gathers rel RMS {rr3[0]:.3e}, image "
+              f"{rr3[1]:.3e}, per-shot images {rr3[2]:.3e}", flush=True)
+        check(max(rr3) <= GATE, f"3lay mesh {shape} differs")
+        check((shape[1] > 1) == all(dk.LAUNCHES.values()),
+              f"mesh {shape}: block launches {dk.LAUNCHES}")
+    phase_done("3lay mesh path")
+
+    # ---- 13. the Pluto path over a (1, 4) mesh of cuda:0: four x-slabs
+    mesh = make_mesh(1, 4, devices=[dev] * 4)
+    fk.reset_launches()
+    stream.reset_launches()
+    dk.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dat_d = pipeline.run_modeling(pl, vp=vp_pl, mesh=mesh)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img_d, locs_d = pipeline.run_rtm_gpu(pl, vp=vp_pl, dobs=dat_d, seed=0,
+                                             outdir=tmp, mesh=mesh)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        written = np.fromfile(os.path.join(tmp, "dir.image"), np.float32)
+    launches = dict(dk.LAUNCHES)
+    print(f"[Pluto domain path] mesh (1, 4) on cuda:0 ({pl.nxe} x {pl.nze}, "
+          f"nt {pl.nt}, ns {pl.ns}, K 8): run_modeling {t1 - t0:.3f} s wall "
+          f"({(t1 - t0) / pl.ns:.3f} s/shot), run_rtm_gpu {t2 - t1:.3f} s wall "
+          f"({(t2 - t1) / pl.ns:.3f} s/shot), host included; launches "
+          f"{launches}; {smi}", flush=True)
+    blocks = 4 * -(-pl.nt // 8)
+    for k in launches:
+        results[k]["launches"] = launches[k]
+        check(launches[k] == blocks, f"{k} launched {launches[k]} times, "
+                                     f"expected {blocks}")
+    check(not any(fk.LAUNCHES.values()) and not any(stream.LAUNCHES.values()),
+          f"the domain path launched other kernels: {fk.LAUNCHES}, "
+          f"{stream.LAUNCHES}")
+    check(written.tobytes() == img_d.tobytes() and np.isfinite(img_d).all()
+          and np.abs(img_d).max() > 0, "domain dir.image wrong or zero")
+    rr = [rel_rms(a, b) for a, b in zip((dat_d, img_d, locs_d), pluto_ref)]
+    print(f"[Pluto domain path] vs the per-step tier: gathers rel RMS "
+          f"{rr[0]:.3e}, image rel RMS {rr[1]:.3e}, per-shot images rel RMS "
+          f"{rr[2]:.3e}", flush=True)
+    check(max(rr) <= GATE, "the Pluto domain path differs")
+    del dat_d, pluto_ref
+    phase_done("Pluto domain path")
+
+    # ---- 14. times, kernel and plain in turns
     ctx_m, ctx_r, v2_m, v2_r, wav_m, wav_r = shapes(8, P.nt)
     d = torch.from_numpy(data).to(dev)
     snaps = fk.fd_forward_cuda(ctx_r, v2_r, wav_r, g.sx, g.sz)
@@ -990,9 +1238,101 @@ def main() -> int:
                   f"{pluto_ms[c] / 1e3 / pt.ns * PLUTO['nt'] / pt.nt:.3f} "
                   f"s/shot scaled to nt {PLUTO['nt']}; {smi}", flush=True)
 
+    # the x-domain tier at the Pluto grid over a (1, 4) mesh of cuda:0, 2
+    # shots, nt=1001, K=8: each block kernel's launches on fixed random
+    # states of the four slabs (no exchange), its plain version's, and the
+    # per-step kernel call for the same function, the yardstick; then the
+    # two makers' whole calls (slab set-up and exchange included) in turns
+    # with the per-step calls
+    KD = 8
+    mesh4 = make_mesh(1, 4, devices=[dev] * 4)
+    d_ext_p = embed_dobs(ctx_pr, d_p.cpu().numpy())
+    ms_p = dk.prepare_slabs(ctx_pm, [dev] * 4, KD, v2_pm, "all", sxs=gp.sx,
+                            sz=gp.sz, source="gaussian", gz=gp.gz)
+    rs_p = dk.prepare_slabs(ctx_pr, [dev] * 4, KD, v2_pr, "top", sxs=gp.sx,
+                            sz=gp.sz, dobs_ext=d_ext_p, gz=gp.gz)
+    rng = np.random.default_rng(11)
+    st_p = [[randn(rng, pt.ns, c.nxw, pt.nze) for _ in range(6)]
+            for c in rs_p]
+    imgs_p = [randn(rng, pt.ns, c.nxl, pt.nze) for c in rs_p]
+    # the block kernels against their plain versions at the shapes the
+    # Pluto domain path gives them: each slab of the (1, 4) mesh, K = 8,
+    # the tails of nt = 12860 (4) and of nt = 1001 (1), the seeded block
+    amps_p = rng.standard_normal(KD).astype(np.float32)
+    for kname, (rel, absd) in block_errs(ms_p, rs_p, st_p, imgs_p, amps_p,
+                                         (KD, 4, 1)).items():
+        print(f"[domain vs plain] {kname} at the Pluto grid ({pt.nxe} x "
+              f"{pt.nze}, {pt.ns} shots, 4 slabs of {rs_p[0].nxw} rows, "
+              f"K {KD}, 4, 1): max rel err {rel:.3e}, max abs err "
+              f"{absd:.3e}", flush=True)
+        check(rel <= GATE, f"{kname} at the Pluto grid: {rel:.3e} > {GATE}")
+        results[kname]["max_abs_err"] = max(block_err[kname], absd)
+
+    outs_p = [[torch.zeros_like(st_p[j][0]) for _ in range(4)]
+              for j in range(4)]
+
+    def block_run(kind: str, kernel: bool):
+        fn = {"block_mod": (dk.block_mod_cuda, dk.block_mod),
+              "block_fwd": (dk.block_fwd_cuda, dk.block_fwd),
+              "block_bwd": (dk.block_bwd_cuda, dk.block_bwd)}[kind][
+                  0 if kernel else 1]
+
+        # the kernels write into output buffers made once, as the makers do
+        n_out = 4 if kind == "block_bwd" else 2
+
+        def run():
+            for it0 in range(0, pt.nt, KD):
+                k = min(KD, pt.nt - it0)
+                for j in range(4):
+                    out = {"out": outs_p[j][:n_out]} if kernel else {}
+                    if kind == "block_mod":
+                        fn(ms_p[j], *st_p[j][:2], wav_pm[it0:it0 + k], **out)
+                    elif kind == "block_fwd":
+                        fn(rs_p[j], *st_p[j][:2], wav_pr[it0:it0 + k], **out)
+                    else:
+                        fn(rs_p[j], *st_p[j][:4], imgs_p[j], it0, k, **out)
+        return run
+
+    per_step = {
+        "block_mod": lambda: fk.forward_modeling_cuda(
+            ctx_pm, v2_pm, wav_pm, gp.sx, gp.sz, gp.gz),
+        "block_fwd": lambda: fk.fd_forward_cuda(ctx_pr, v2_pr, wav_pr, gp.sx,
+                                                gp.sz),
+        "block_bwd": lambda: fk.fd_back_cuda(ctx_pr, v2_pr, *snaps_p, d_p,
+                                             gp.gz)}
+    bounds = {**block_bounds(ctx_pr, pt.ns, KD, 4),
+              "block_mod": block_bounds(ctx_pm, pt.ns, KD, 4)["block_mod"]}
+    for k in ("block_mod", "block_fwd", "block_bwd"):
+        tk, tp, ts = in_turns([block_run(k, True), block_run(k, False),
+                               per_step[k]])
+        bms, by = bounds[k]
+        print(f"[times] {k} at the Pluto grid ({pt.ns} shots, nt {pt.nt}, 4 "
+              f"slabs, {4 * -(-pt.nt // KD)} launches of K={KD}): kernel "
+              f"{span(tk)}, plain {span(tp)}, per-step kernel {span(ts)}; "
+              f"bound {bms:.3f} ms ({by}), kernel / bound "
+              f"{statistics.median(tk) / bms:.2f}; {smi}", flush=True)
+        results[k].update(ms=statistics.median(tk),
+                          plain_ms=statistics.median(tp), bound_ms=bms,
+                          bound_by=by, library_ms=None)
+    del st_p, imgs_p, outs_p, ms_p, rs_p
+    dmod = dk.make_sharded_forward_modeling_cuda(ctx_pm, mesh4, gp.sz, gp.gz,
+                                                 block_k=KD)
+    drtm = dk.make_sharded_rtm_snapshot_cuda(ctx_pr, mesh4, gp.sz, gp.gz,
+                                             block_k=KD)
+    pluto_calls["modeling domain"] = lambda: dmod(v2_pm, gp.sx, wav_pm)
+    pluto_calls["RTM domain"] = lambda: drtm(v2_pr, gp.sx, wav_pr, d_ext_p)
+    for pair in (("modeling domain", "modeling per-step"),
+                 ("RTM domain", "RTM per-step")):
+        ts = in_turns([pluto_calls[c] for c in pair])
+        for c, t in zip(pair, ts):
+            pluto_ms[c] = statistics.median(t)
+            print(f"[times] Pluto {c} ({pt.ns} shots, nt {pt.nt}; mesh (1, 4) "
+                  f"of cuda:0 for the domain tier): {span(t)}, "
+                  f"{pluto_ms[c] / 1e3 / pt.ns:.6f} s/shot; {smi}", flush=True)
+
     phase_done("times")
 
-    # ---- 12. one profiler trace of each timed call
+    # ---- 15. one profiler trace of each timed call
     f = fields["8192 x 8192"]
     cx, cz = numerics.scaled_coefficients(8, 10.0, 10.0)
     stencil_call = lambda: fk.laplacian_cuda(f, cx, cz, 8)
@@ -1005,7 +1345,19 @@ def main() -> int:
              results["lap_apply"]["ms"]),
             *((f"Pluto {c}", pluto_calls[c], pluto_ms[c])
               for c in pluto_calls)):
-        profile(torch, label, fn, ms, smi)
+        rows = profile(torch, label, fn, ms, smi)
+        if "domain" in label:
+            # copy kernels on the card: the halo exchange, with the trace
+            # rows and the slab set-up; not the host <-> device copies
+            copies = sum(t for key, t, _ in rows if "copy" in key.lower()
+                         and "HtoD" not in key and "DtoH" not in key
+                         and "CatArray" not in key)
+            fills = sum(t for key, t, _ in rows if "Fill" in key)
+            print(f"[profile] {label}: copy kernels (halo exchange, trace "
+                  f"rows, slab set-up) {copies:.3f} ms, share of the call "
+                  f"{copies / ms:.3f}; fills (buffers zeroed once a call) "
+                  f"{fills:.3f} ms, share {fills / ms:.3f}; {smi}",
+                  flush=True)
     phase_done("profile")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

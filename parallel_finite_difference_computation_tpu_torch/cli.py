@@ -16,9 +16,14 @@ CUDA kernels, built with ``nvcc`` at first use; ``cpu`` runs the plain
 torch version). ``mod`` and ``rtm_gpu`` take ``--backend``: ``pallas`` (the
 per-step kernels), ``tiled`` (the large-grid tier of K-step passes) or
 ``auto`` (the default: ``tiled`` above 1.5 M extended cells, such as the
-Pluto grid). The JAX package's ``psnr`` and ``laplace`` tools, its mesh
-options and its checkpointed surveys (``--checkpoint-dir``,
-``--chunk-shots``) are still to be ported (ROADMAP.md).
+Pluto grid). ``mod``, ``rtm_gpu`` and ``rtm`` take ``--shards-shot S``
+and ``--shards-x X``: the shots split over S groups and, for ``mod`` and
+``rtm_gpu``, the grid into X x-slabs (``rtm`` takes X = 1 only). With
+``--device cpu`` every position of the mesh is the CPU; with ``cuda`` the
+mesh takes the visible cards, and too few raise. The JAX package's
+``psnr`` and ``laplace`` tools, ``--shards-z`` and its checkpointed surveys
+(``--checkpoint-dir``, ``--chunk-shots``) are still to be ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import time
 
 from . import pipeline
 from .config import parse_input_dat
+from .parallel import make_mesh
 
 
 def _config_arg(arg: str) -> str:
@@ -40,6 +46,15 @@ def _echo(p):
     print(f"## dz = {p.dz}, dx = {p.dx}, dt = {p.dt} ")
     print(f"## ns = {p.ns}, sz = {p.sz}, fsx = {p.fsx}, ds = {p.ds}, gz = {p.gz} ")
     print(f"## order = {p.order}, nzb = {p.nzb}, nxb = {p.nxb}, F = {p.fac} ")
+
+
+def _mesh(args):
+    """The mesh of ``--shards-shot``/``--shards-x``, or None for neither."""
+    if args.shards_shot == 1 and args.shards_x == 1:
+        return None
+    n = args.shards_shot * args.shards_x
+    devices = [args.device] * n if args.device == "cpu" else None
+    return make_mesh(args.shards_shot, args.shards_x, devices=devices)
 
 
 def cmd_stencil(args):
@@ -57,7 +72,8 @@ def cmd_mod(args):
     out = args.output or p.datfile or "dobs.bin"
     t0 = time.time()
     data = pipeline.run_modeling(p, out_datfile=out, device=args.device,
-                                 backend=args.backend, lap_impl=args.lap_impl)
+                                 backend=args.backend, mesh=_mesh(args),
+                                 lap_impl=args.lap_impl)
     print(f"> Exec time = {time.time() - t0:.2f} (s)")
     print(f"wrote {data.shape} shot gathers to {out}")
 
@@ -68,7 +84,8 @@ def cmd_rtm(args):
     outdir = args.outdir or (p.tmpdir if p.tmpdir and os.path.isdir(p.tmpdir)
                              else ".")
     t0 = time.time()
-    pipeline.run_rtm_cpu(p, outdir=outdir, device=args.device)
+    pipeline.run_rtm_cpu(p, outdir=outdir, device=args.device,
+                         mesh=_mesh(args))
     print(f"Execution Time: {time.time() - t0:.2f} seconds")
     print(f"wrote dir.image / dir.img to {outdir}")
 
@@ -81,7 +98,8 @@ def cmd_rtm_gpu(args):
     t0 = time.time()
     pipeline.run_rtm_gpu(p, seed=args.seed, outdir=outdir,
                          write_image_num=args.image_num, device=args.device,
-                         backend=args.backend, lap_impl=args.lap_impl)
+                         backend=args.backend, mesh=_mesh(args),
+                         lap_impl=args.lap_impl)
     print(f"> Exec time = {time.time() - t0:.2f} (s)")
     print(f"wrote dir.image to {outdir}"
           + (" (+ image.num)" if args.image_num else ""))
@@ -99,6 +117,14 @@ def main(argv=None):
         s.add_argument("--device", default="cuda",
                        help="torch device: cuda (the CUDA kernels) or cpu "
                             "(the plain torch version)")
+        if name != "stencil":
+            s.add_argument("--shards-shot", type=int, default=1,
+                           dest="shards_shot",
+                           help="shot groups of the mesh (default 1)")
+            s.add_argument("--shards-x", type=int, default=1,
+                           dest="shards_x",
+                           help="x-slabs of the grid (default 1); > 1 runs "
+                                "the block kernels of the x-domain tier")
         if name in ("mod", "rtm_gpu"):
             s.add_argument("--backend", default="auto",
                            choices=list(pipeline.BACKENDS),

@@ -19,12 +19,20 @@ kernels (``"pallas"``) or the large-grid tier of K-step passes
 fallback between tiers, and without CUDA a default call raises torch's own
 error.
 
-Not ported yet (ROADMAP.md): the mesh and domain-decomposed branches and
-the checkpointed survey.
+With ``mesh=`` (:func:`.parallel.make_mesh`) the mesh's devices say where
+the work runs: a shot-only mesh splits the shots over its shot axis, each
+group on the tiers above (:mod:`.parallel.shots`); a mesh whose x axis is
+> 1 also cuts the grid into x-slabs, for ``run_modeling`` and
+``run_rtm_gpu``: K steps a block on the block kernels
+(:mod:`.parallel.domain_kernels`), or, on a mesh of CPU devices only, one
+step at a time on the plain per-step loops (:mod:`.parallel.domain`, as
+the JAX package runs its lax makers off the TPU). Not ported yet (ROADMAP.md): ``run_rtm_cpu`` over an x
+mesh, the (x, z) decomposition, and the checkpointed survey.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional
 
@@ -33,8 +41,8 @@ import torch
 
 from . import io, numerics
 from .config import Params, Geometry
-from .ops.fd_kernels import (forward_modeling_cuda, laplacian_cuda,
-                             rtm_full_cuda, rtm_snapshot_cuda)
+from .ops.fd_kernels import (check_lap_impl, forward_modeling_cuda,
+                             laplacian_cuda, rtm_full_cuda, rtm_snapshot_cuda)
 from .solver import FDContext, forward_modeling_tiled, rtm_shot_snapshot_tiled
 
 __all__ = ["run_stencil", "run_modeling", "run_rtm_cpu", "run_rtm_gpu",
@@ -142,27 +150,54 @@ def prepare_velocities_gpu(p: Params, vp: np.ndarray, *, device,
     return ext * ext
 
 
+def _mesh_decomposes_grid(mesh) -> bool:
+    """True when the mesh's x axis is > 1: the domain tier applies."""
+    return mesh.shape.get("x", 1) > 1
+
+
+def _mesh_shots(mesh) -> int:
+    return 1 if mesh is None else mesh.shape["shot"]
+
+
 def run_modeling(p: Params, vp: Optional[np.ndarray] = None,
                  out_datfile: Optional[str] = None, *, device="cuda",
-                 backend: str = "auto", lap_impl=None) -> np.ndarray:
+                 backend: str = "auto", mesh=None,
+                 lap_impl=None) -> np.ndarray:
     """``mod_main``: model all shots on ``device``, in batches under
     ``_SHOT_BATCH_BYTES``, through the tier ``backend`` selects
     (:func:`resolve_backend`); return the (ns, nx, nt) gathers and
-    optionally write the raw ``datfile`` blob the RTM programs read."""
+    optionally write the raw ``datfile`` blob the RTM programs read.
+
+    With a ``mesh`` its devices run the work: the shots split over its
+    shot axis; an x axis > 1 decomposes the grid into x-slabs on the block
+    kernels (``backend`` is then not read), with blocks of K =
+    ``max(1, min(8, (nxe // n_x) // h, nt))`` steps, or on a mesh of CPU
+    devices one step at a time (:func:`_modeling_domain`)."""
     tier = resolve_backend(backend, p.nxe, p.nze)
     if vp is None:
         vp = io.read_velocity(p.vpfile, p.nx, p.nz)
-    vel2 = torch.from_numpy(prepare_velocity_cpu(p, vp)).to(device)
+    vel2 = torch.from_numpy(prepare_velocity_cpu(p, vp))
     ctx = FDContext.from_params(p, exact_taper=False)
     g = Geometry.from_params(p)
     wav = numerics.ricker_wavelet(p.nt, p.dt, p.fpeak, truncated=True)
-    run, kw = ((forward_modeling_tiled, {"block_k": TILED_BLOCK_K})
-               if tier == "tiled" else (forward_modeling_cuda, {}))
-    per = _batch_shots(p, planes=4, traces=2)
+    if mesh is not None and _mesh_decomposes_grid(mesh):
+        run = _modeling_domain(ctx, g, mesh, lap_impl)
+    elif mesh is not None:
+        from .parallel import shots
+        make = (functools.partial(shots.make_sharded_modeling_tiled,
+                                  block_k=TILED_BLOCK_K)
+                if tier == "tiled" else shots.make_sharded_modeling_cuda)
+        run = make(ctx, mesh, g.sz, g.gz, lap_impl=lap_impl)
+    else:
+        vel2 = vel2.to(device)
+        fwd, kw = ((forward_modeling_tiled, {"block_k": TILED_BLOCK_K})
+                   if tier == "tiled" else (forward_modeling_cuda, {}))
+        run = lambda v2, sxs, wav: fwd(ctx, v2, wav, sxs, g.sz, g.gz,
+                                       lap_impl=lap_impl, **kw)[2]
+    per = _batch_shots(p, planes=4, traces=2) * _mesh_shots(mesh)
     parts = []
     for s0 in range(0, p.ns, per):
-        _, _, seis = run(ctx, vel2, wav, g.sx[s0:s0 + per], g.sz, g.gz,
-                         lap_impl=lap_impl, **kw)
+        seis = run(vel2, g.sx[s0:s0 + per], wav)
         parts.append(seis.transpose(1, 2).contiguous().cpu().numpy())
     data = np.concatenate(parts, axis=0)                  # (ns, nx, nt)
     if out_datfile:
@@ -170,9 +205,39 @@ def run_modeling(p: Params, vp: Optional[np.ndarray] = None,
     return data
 
 
+def _mesh_on_cpu(mesh) -> bool:
+    """True when every position of the mesh is the CPU."""
+    return all(d.type == "cpu" for d in mesh.devices.flat)
+
+
+def _modeling_domain(ctx, g, mesh, lap_impl):
+    """``run(v2, sxs, wav) -> (ns, nt, nx)`` traces of the x-domain tier
+    (the JAX package's ``_run_modeling_domain``, its pipeline.py:268-321):
+    the block kernels with K = ``max(1, min(8, nxl // h, nt))``, or the
+    per-step loops on a CPU mesh."""
+    from .parallel import domain, domain_kernels as dk
+    check_lap_impl(lap_impl)
+    if _mesh_on_cpu(mesh):
+        fn = domain.make_sharded_forward_modeling(ctx, mesh, g.gz,
+                                                  source="gaussian",
+                                                  taper="all")
+        srcf = lambda sxs: domain.embed_source_fields(ctx, sxs, g.sz,
+                                                      gaussian=True)
+    else:
+        h = ctx.order // 2
+        block_k = max(1, min(dk.MAX_STEPS, (ctx.nxe // mesh.shape["x"]) // h,
+                             ctx.nt))
+        fn = dk.make_sharded_forward_modeling_cuda(
+            ctx, mesh, g.sz, g.gz, source="gaussian", taper="all",
+            block_k=block_k, lap_impl=lap_impl)
+        srcf = lambda sxs: sxs
+    return lambda v2, sxs, wav: fn(v2, srcf(sxs), wav)[
+        :, :, ctx.nxb:ctx.nxb + ctx.nx]
+
+
 def run_rtm_cpu(p: Params, vp: Optional[np.ndarray] = None,
                 dobs: Optional[np.ndarray] = None,
-                outdir: Optional[str] = None, *, device="cuda",
+                outdir: Optional[str] = None, *, device="cuda", mesh=None,
                 shot_indices=None):
     """``rtm_main``: migrate the shots with full-wavefield storage on
     ``device``, in batches whose stored source wavefields fit
@@ -187,12 +252,21 @@ def run_rtm_cpu(p: Params, vp: Optional[np.ndarray] = None,
     (``dobs`` stays the full survey's gathers). Each shot's it=0 flat-read
     sample (``rtm_main.cpp:202``) is the first sample of its successor in
     the full survey (0 for the last), worked out before the subset is
-    taken, so a subset reproduces those shots of the whole run."""
+    taken, so a subset reproduces those shots of the whole run.
+
+    With a shot-only ``mesh`` the shots split over its shot axis, each
+    group on ``rtm_full_cuda`` on its device. An x axis > 1, ``rtm_main``
+    over x-slabs, is still to be ported and raises."""
+    if mesh is not None and _mesh_decomposes_grid(mesh):
+        raise NotImplementedError(
+            "run_rtm_cpu over a mesh whose x axis is > 1 (rtm_main's domain "
+            "tier, make_sharded_rtm_full) is still to be ported (see "
+            "ROADMAP.md, Queue 1 item 8); use a shot-only mesh")
     if vp is None:
         vp = io.read_velocity(p.vpfile, p.nx, p.nz)
     if dobs is None:
         dobs = io.read_shot_gathers(p.datfile, p.ns, p.nx, p.nt)
-    vel2 = torch.from_numpy(prepare_velocity_cpu(p, vp)).to(device)
+    vel2 = torch.from_numpy(prepare_velocity_cpu(p, vp))
     ctx = FDContext.from_params(p, exact_taper=False)
     g = Geometry.from_params(p)
     wav = numerics.ricker_wavelet(p.nt, p.dt, p.fpeak, truncated=True)
@@ -205,13 +279,22 @@ def run_rtm_cpu(p: Params, vp: Optional[np.ndarray] = None,
     dobs_sel = dobs_full[idx]
     nxt = nxt_full[idx]
 
+    if mesh is not None:
+        from .parallel.shots import make_sharded_rtm_full_cuda
+        sharded = make_sharded_rtm_full_cuda(ctx, mesh, g.sz, g.gz)
+        run = lambda d, sxs, nx1: sharded(vel2, d, sxs, nx1, wav)
+    else:
+        vel2 = vel2.to(device)
+        run = lambda d, sxs, nx1: rtm_full_cuda(
+            ctx, vel2, wav, d.to(device), sxs, g.sz, g.gz,
+            next_shot_first=nx1)
     per = max(1, int(_RTM_BATCH_BYTES // (p.nt * p.nx * p.nz * 4)))
+    per *= _mesh_shots(mesh)
     parts = []
     for s0 in range(0, len(idx), per):
         b = slice(s0, s0 + per)
-        d = torch.from_numpy(np.ascontiguousarray(dobs_sel[b])).to(device)
-        parts.append(rtm_full_cuda(ctx, vel2, wav, d, sx_sel[b], g.sz, g.gz,
-                                   next_shot_first=nxt[b]).cpu().numpy())
+        d = torch.from_numpy(np.ascontiguousarray(dobs_sel[b]))
+        parts.append(run(d, sx_sel[b], nxt[b]).cpu().numpy())
     imlocs = np.concatenate(parts, axis=0)
     img = imlocs.sum(axis=0)
     if outdir:
@@ -225,7 +308,7 @@ def run_rtm_gpu(p: Params, vp: Optional[np.ndarray] = None,
                 seed: int = 0, outdir: Optional[str] = None,
                 write_image_num: bool = False, *, device="cuda",
                 generator: Optional[torch.Generator] = None,
-                backend: str = "auto", lap_impl=None):
+                backend: str = "auto", mesh=None, lap_impl=None):
     """``rtm_code``: two-snapshot RTM of all shots on ``device``, with random
     (``seed``/``generator``) or file-loaded boundary velocities, in batches
     under ``_SHOT_BATCH_BYTES``, through the tier ``backend`` selects
@@ -236,27 +319,45 @@ def run_rtm_gpu(p: Params, vp: Optional[np.ndarray] = None,
     (ns, nx, nz) per-shot images. With ``outdir``, writes ``dir.image``,
     ``dir.image_lap`` (zeros, as the reference leaves it,
     ``fd-code.cu:542``) and optionally the ``image.num`` text dump
-    (``fd-code.cu:522-528``)."""
+    (``fd-code.cu:522-528``).
+
+    With a ``mesh`` its devices run the work (the boundaries are drawn on
+    its first device): the shots split over its shot axis; an x axis > 1
+    decomposes the grid into x-slabs on the block kernels (``backend`` is
+    then not read), with blocks of K = ``min(8, (nxe // n_x) // h,
+    nt // 2)`` steps, which must be >= 2, or on a mesh of CPU devices one
+    step at a time (:func:`_rtm_gpu_domain`)."""
     tier = resolve_backend(backend, p.nxe, p.nze)
     if vp is None:
         vp = io.read_velocity(p.vpfile, p.nx, p.nz)
     if dobs is None:
         dobs = io.read_shot_gathers(p.datfile, p.ns, p.nx, p.nt)
-    vel2 = prepare_velocities_gpu(p, vp, device=device, seed=seed,
-                                  generator=generator)
     ctx = FDContext.from_params(p, exact_taper=True)
     g = Geometry.from_params(p)
+    if mesh is not None and _mesh_decomposes_grid(mesh):
+        run = _rtm_gpu_domain(ctx, g, mesh, lap_impl)
+    elif mesh is not None:
+        from .parallel import shots
+        make = (functools.partial(shots.make_sharded_rtm_tiled,
+                                  block_k=TILED_BLOCK_K)
+                if tier == "tiled" else shots.make_sharded_rtm_cuda)
+        run = make(ctx, mesh, g.sz, g.gz, lap_impl=lap_impl)
+    else:
+        rtm, kw = ((rtm_shot_snapshot_tiled, {"block_k": TILED_BLOCK_K})
+                   if tier == "tiled" else (rtm_snapshot_cuda, {}))
+        run = lambda v2, d, sxs, wav: rtm(ctx, v2, wav, d.to(device), sxs,
+                                          g.sz, g.gz, lap_impl=lap_impl, **kw)
+    vel2 = prepare_velocities_gpu(
+        p, vp, device=device if mesh is None else mesh.devices[0, 0],
+        seed=seed, generator=generator)
     wav = numerics.ricker_wavelet(p.nt, p.dt, p.fpeak)
     dobs = np.asarray(dobs, np.float32)
-    run, kw = ((rtm_shot_snapshot_tiled, {"block_k": TILED_BLOCK_K})
-               if tier == "tiled" else (rtm_snapshot_cuda, {}))
-    per = _batch_shots(p, planes=12, traces=2)
+    per = _batch_shots(p, planes=12, traces=2) * _mesh_shots(mesh)
     parts = []
     for s0 in range(0, p.ns, per):
         b = slice(s0, s0 + per)
-        d = torch.from_numpy(np.ascontiguousarray(dobs[b])).to(device)
-        parts.append(run(ctx, vel2[b], wav, d, g.sx[b], g.sz, g.gz,
-                         lap_impl=lap_impl, **kw).cpu().numpy())
+        d = torch.from_numpy(np.ascontiguousarray(dobs[b]))
+        parts.append(run(vel2[b], d, g.sx[b], wav).cpu().numpy())
     imlocs = np.concatenate(parts, axis=0)
     img = imlocs.sum(axis=0)
     _write_rtm_gpu_outputs(outdir, img, imlocs, write_image_num)
@@ -276,3 +377,33 @@ def _write_rtm_gpu_outputs(outdir, img, imlocs, write_image_num):
     if write_image_num:
         io.write_image_num(os.path.join(outdir, "image.num"),
                            list(np.cumsum(imlocs, axis=0)))
+
+
+def _rtm_gpu_domain(ctx, g, mesh, lap_impl):
+    """``run(v2, dobs, sxs, wav) -> (ns, nx, nz)`` images of the x-domain
+    tier (the JAX package's ``_run_rtm_gpu_domain``, its
+    pipeline.py:632-685): the block kernels with K = ``min(8, nxl // h,
+    nt // 2)``, or the per-step loops on a CPU mesh. K < 2 raises on every
+    mesh, so that a CPU run meets the card's limits."""
+    from .parallel import domain, domain_kernels as dk
+    check_lap_impl(lap_impl)
+    h = ctx.order // 2
+    block_k = min(dk.MAX_STEPS, (ctx.nxe // mesh.shape["x"]) // h,
+                  ctx.nt // 2)
+    if block_k < 2:
+        raise NotImplementedError(
+            f"the x-domain RTM needs blocks of K >= 2 steps, this grid and "
+            f"mesh give K={block_k} (nxe={ctx.nxe}, x={mesh.shape['x']}, "
+            f"nt={ctx.nt}); the JAX package's per-step fallback on the card "
+            f"is not ported (see ROADMAP.md, Queue 1 item 8): use fewer x "
+            f"shards")
+    if _mesh_on_cpu(mesh):
+        run = domain.make_sharded_rtm_snapshot(ctx, mesh, g.gz)
+        fn = lambda v2, sxs, wav, d_ext: run(
+            v2, domain.embed_source_fields(ctx, sxs, g.sz), wav, d_ext)
+    else:
+        fn = dk.make_sharded_rtm_snapshot_cuda(
+            ctx, mesh, g.sz, g.gz, block_k=block_k, lap_impl=lap_impl)
+    return lambda v2, d, sxs, wav: fn(v2, sxs, wav, domain.embed_dobs(
+        ctx, d.numpy()))[:, ctx.nxb:ctx.nxe - ctx.nxb,
+                         ctx.nzb:ctx.nze - ctx.nzb]

@@ -63,6 +63,8 @@ from parallel_finite_difference_computation_tpu_torch import (
 from parallel_finite_difference_computation_tpu_torch.models import zoo
 from parallel_finite_difference_computation_tpu_torch.ops import (
     _build, fd_kernels, stencil)
+from parallel_finite_difference_computation_tpu_torch.parallel import (
+    domain, domain_kernels, mesh, shots)
 import numpy as np
 p = tpk.Params(nz=12, nx=14, nt=6, dz=10.0, dx=10.0, dt=0.001, fpeak=25.0,
                ns=2, sz=3, fsx=4, ds=5, gz=1, nxb=5, nzb=5, fac=0.7)
@@ -70,6 +72,18 @@ vp = zoo.layered_model(p.nx, p.nz)
 d = pipeline.run_modeling(p, vp=vp, device="cpu")
 img, _ = pipeline.run_rtm_gpu(p, vp=vp, dobs=d, outdir={str(tmp_path)!r},
                               device="cpu")
+m = mesh.make_mesh(1, 2, devices=["cpu", "cpu"])
+dm = pipeline.run_modeling(p, vp=vp, mesh=m)
+imgm, _ = pipeline.run_rtm_gpu(p, vp=vp, dobs=d, mesh=m)
+assert dm.shape == d.shape and np.abs(dm - d).max() <= 1e-5 * np.abs(d).max()
+assert np.abs(imgm - img).max() <= 1e-5 * np.abs(img).max()
+ctx = solver.FDContext.from_params(p, exact_taper=False)
+g = config.Geometry.from_params(p)
+seis = domain_kernels.make_sharded_forward_modeling_cuda(
+    ctx, m, g.sz, g.gz, block_k=2)(
+    pipeline.prepare_velocity_cpu(p, vp), g.sx,
+    numerics.ricker_wavelet(p.nt, p.dt, p.fpeak, truncated=True))
+assert np.array_equal(seis[:, :, p.nxb:p.nxb + p.nx].transpose(1, 2), d)
 img2, _ = pipeline.run_rtm_cpu(p, vp=vp, dobs=d, device="cpu")
 p.tmpdir = {str(tmp_path / "field.bin")!r}
 io.write_f32(p.tmpdir, np.ones((p.nxe, p.nze), np.float32))
@@ -381,3 +395,73 @@ def test_kstep_kernels_match_plain_on_the_card(cuda_device, order, block_k):
     assert stream.LAUNCHES == {"kstep_mod": passes, "kstep_gpu_fwd": passes,
                                "kstep_gpu_bwd": -(-(nt - 2) // block_k),
                                "gpu_step": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [4, 8, 10])
+@pytest.mark.parametrize("block_k", [2, 3])
+def test_block_kernels_match_plain_on_the_card(cuda_device, order, block_k):
+    """The x-domain tier's kernels (block_mod, block_fwd, block_bwd) against
+    their plain versions on the same CUDA tensors, launch by launch on
+    random states of the slabs of a (1, 3) mesh, seeded and tail blocks
+    included, block_mod with both source modes; then the two makers on a
+    (2, 3) mesh of the card, and on one whose positions alternate between
+    the card and the CPU (the exchange copies between devices), against
+    the same makers on a CPU mesh. The grid (84 x 77 extended) is no
+    multiple of 3 nor of the tiles, and the sources sit at the first slab
+    edge."""
+    from parallel_finite_difference_computation_tpu_torch.parallel import (
+        domain_kernels as dk, make_mesh)
+    from parallel_finite_difference_computation_tpu_torch.parallel.domain \
+        import embed_dobs
+    nt = 9
+    rng = np.random.default_rng(order + block_k)
+    ctx = solver.FDContext.create(70, 63, nt, dx=10.0, dz=10.0, dt=0.001,
+                                  order=order, nxb=7, nzb=7, fac=0.7)
+    v2 = torch.from_numpy(((1500.0 + 500.0 * rng.random(
+        (2, ctx.nxe, ctx.nze))).astype(np.float32)) ** 2)
+    wav = numerics.ricker_wavelet(nt, 0.001, 30.0)
+    d_ext = embed_dobs(ctx, rng.standard_normal(
+        (2, ctx.nx, nt)).astype(np.float32))
+    sxs, sz, gz = (27, 28), 62, 63
+    k = block_k
+    ms = dk.prepare_slabs(ctx, [cuda_device] * 3, k, v2[0], "all", sxs=sxs,
+                          sz=sz, source="gaussian", gz=gz)
+    rs = dk.prepare_slabs(ctx, [cuda_device] * 3, k, v2, "top", sxs=sxs,
+                          sz=sz, dobs_ext=d_ext, gz=gz)
+    dk.reset_launches()
+
+    def same(got, want):
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max() / b.abs().max()) <= GATE
+
+    for cm, cr in zip(ms, rs):
+        f = [torch.from_numpy(rng.standard_normal(
+            (2, cm.nxw, ctx.nze)).astype(np.float32)).to(cuda_device)
+             for _ in range(6)]
+        img = torch.from_numpy(rng.standard_normal(
+            (2, cm.nxl, ctx.nze)).astype(np.float32)).to(cuda_device)
+        for kk in (k, k - 1):
+            a = wav[:kk]
+            for c in (cm, cr):            # gaussian/all, point/top
+                same(dk.block_mod_cuda(c, f[0], f[1], a),
+                     dk.block_mod(c, f[0], f[1], a))
+            same(dk.block_fwd_cuda(cr, f[0], f[1], a),
+                 dk.block_fwd(cr, f[0], f[1], a))
+            same(dk.block_bwd_cuda(cr, *f[:4], img.clone(), k, kk),
+                 dk.block_bwd(cr, *f[:4], img, k, kk))
+        same(dk.block_bwd_cuda(cr, *f[:4], img.clone(), 0, k, f[4:]),
+             dk.block_bwd(cr, *f[:4], img, 0, k, f[4:]))
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES == {"block_mod": 12, "block_fwd": 6, "block_bwd": 9}
+    outs = []
+    for devices in ([cuda_device] * 6, [cuda_device, "cpu"] * 3,
+                    ["cpu"] * 6):
+        mesh = make_mesh(2, 3, devices=devices)
+        outs.append((
+            dk.make_sharded_forward_modeling_cuda(ctx, mesh, sz, gz,
+                                                  block_k=k)(v2[0], sxs, wav),
+            dk.make_sharded_rtm_snapshot_cuda(ctx, mesh, sz, gz, block_k=k)(
+                v2, sxs, wav, d_ext)))
+    for got in outs[:2]:
+        same([t.cpu() for t in got], outs[2])
