@@ -76,7 +76,29 @@ Run from the root of the repository, on a machine with one CUDA card and
    8192 x 8192 stencil, and of the Pluto modeling and RTM calls (nt=1001)
    of each tier: the device time of each kernel, its launch count, and the
    share of the event-timed call that the card spent in kernels; for the
-   domain tier also the share of the copy kernels (the halo exchange).
+   domain tier also the share of the copy kernels (the halo exchange);
+16. (x, z) kernels vs plain: ``block2_mod`` (both source modes),
+   ``block2_fwd`` and ``block2_bwd`` against their plain versions on the
+   same CUDA tensors, launch by launch on random states of every tile
+   (seeded, full and tail blocks), at orders 4, 8 and 10, K = 2, 3 and 8,
+   over (1, 2, 2) and (1, 1, 4) meshes, on the 134 x 88 grid with the
+   sources across the x cut, the Gaussian band across a z cut and the
+   receiver row in a later z part; and the two makers on (2, x, z) meshes
+   of cuda:0 and alternating cuda:0 and the CPU against a CPU mesh; gate:
+   max relative error <= 1e-5;
+17. 3lay (x, z) mesh path: ``run_modeling`` then ``run_rtm_gpu`` on the
+   3lay config over (2, 2, 2), (1, 2, 2) and (1, 1, 4) meshes of cuda:0,
+   against the no-mesh run of phase 4 (rel RMS <= 1e-5);
+18. the Pluto (x, z) path: ``run_modeling`` then ``run_rtm_gpu`` at the
+   full Pluto grid, nt=12860, 2 shots, over a (1, 2, 2) mesh of cuda:0
+   (K=8): launch counts, ``dir.image``, gathers and images against phase
+   10's per-step tier (rel RMS <= 1e-5), wall s/shot; then at nt=1001 the
+   three kernels held against their plain versions at the Pluto tile
+   shapes (K = 8 and the tails 4 and 1), each kernel's launches, its plain
+   version's and the per-step kernel call for the same function in turns,
+   the two makers' whole calls against the per-step calls, and one
+   profiler trace of each: the copy kernels' (the two-stage exchange)
+   and the idle share of the call.
 
 Every phase prints its seconds. It prints one JSON line of per-kernel results (with each kernel's bound,
 worked out from this run's shapes), the nvidia-smi line, and, as the last
@@ -128,6 +150,12 @@ KERNELS = {
                   "parallel_finite_difference_computation_tpu/parallel/domain_pallas.py:115"),
     "block_bwd": (f"{PKG}/csrc/domain_block.cu",
                   "parallel_finite_difference_computation_tpu/parallel/domain_pallas.py:136"),
+    "block2_mod": (f"{PKG}/csrc/domain2d_block.cu",
+                   "parallel_finite_difference_computation_tpu/parallel/domain2d_pallas.py:178"),
+    "block2_fwd": (f"{PKG}/csrc/domain2d_block.cu",
+                   "parallel_finite_difference_computation_tpu/parallel/domain2d_pallas.py:99"),
+    "block2_bwd": (f"{PKG}/csrc/domain2d_block.cu",
+                   "parallel_finite_difference_computation_tpu/parallel/domain2d_pallas.py:124"),
 }
 # The reference's full-resolution Pluto config
 # (dpct_gpu_rtm_domain_division/build/pluto/input.orig, as restated in
@@ -246,51 +274,63 @@ def kstep_bounds(ctx, ns: int, k: int):
     }
 
 
-def block_bounds(ctx, ns: int, k: int, n_x: int):
-    """Bounds of the x-domain tier's block kernels as this script times
-    them: blocks of k steps over ``ctx.nt`` steps on each of ``n_x`` slabs,
-    the bytes of every launch (each input read once, each output written
-    once: the halo-extended fields in, the owned rows out), the flop of the
-    steps over the grid (halo rows computed twice not counted). block_mod's
-    velocity is one plane for all shots, the RTM kernels' one per shot;
-    block_bwd's launches are not the seeded first one."""
+def block_bounds(ctx, ns: int, k: int, n_x: int, n_z: int = 1,
+                 gz: int = 0):
+    """Bounds of the domain tiers' block kernels as this script times
+    them: blocks of k steps over ``ctx.nt`` steps on each of ``n_x`` slabs
+    (``n_z = 1``, the x tier's kernels) or ``n_x x n_z`` (x, z) tiles (a
+    halo on each axis cut in more than one part), the bytes of every launch
+    (each input read once, each output written once: the halo-extended
+    fields in, the owned cells out; the traces by the tiles that record or
+    inject row ``gz`` only), the flop of the steps over the grid (halo
+    cells computed twice not counted). block_mod's velocity is one plane
+    for all shots, the RTM kernels' one per shot; block_bwd's launches are
+    not the seeded first one."""
     h = ctx.order // 2
-    nxl = -(-ctx.nxe // n_x)
-    ext = (nxl + 2 * k * h) * ctx.nze
-    own = nxl * ctx.nze
-    nxw = nxl + 2 * k * h
-    ramps = nxw + 2 * ctx.nze
-    launches = -(-ctx.nt // k) * n_x
+    nxl, nzl = -(-ctx.nxe // n_x), -(-ctx.nze // n_z)
+    hx = k * h if n_x > 1 or n_z == 1 else 0
+    hz = k * h if n_z > 1 else 0
+    nxw, nzw = nxl + 2 * hx, nzl + 2 * hz
+    ext, own = nxw * nzw, nxl * nzl
+    ramps = nxw + 2 * nzw
+    blocks = -(-ctx.nt // k)
+    launches = blocks * n_x * n_z
+    holds = sum(l * nzl - hz <= gz < (l + 1) * nzl + hz for l in range(n_z))
+    rows = blocks * n_x * (holds if n_z > 1 else 1)   # trace-row launches
+    recs = blocks * n_x                                # recording launches
     plane = ctx.nxe * ctx.nze
     lapc = (ctx.nxe - 2 * h) * (ctx.nze - 2 * h)
     inter = ctx.nx * ctx.nz
     steps = ns * ctx.nt
     f4 = 4
+    two_d = "2" if n_z > 1 else ""
     return {
         # reads p, pp, v2m, ramps, 7 Gaussian source rows a shot; writes
         # p, pp and the traces
-        "block_mod": bound(
-            f4 * launches * (2 * ns * ext + ext + ramps + 7 * ns * nxw + k
-                             + 2 * ns * own + ns * k * nxl),
+        f"block{two_d}_mod": bound(
+            f4 * (launches * (2 * ns * ext + ext + ramps + 7 * ns * nxw + k
+                              + 2 * ns * own) + recs * ns * k * nxl),
             steps * (lapc * lap_flops(h) + 6 * plane + ctx.nx + 49)),
         # reads p, pp, v2m, ramps, the source row; writes p, pp
-        "block_fwd": bound(
+        f"block{two_d}_fwd": bound(
             f4 * launches * (3 * ns * ext + ramps + ns * nxw + k
                              + 2 * ns * own),
             steps * (lapc * lap_flops(h) + 7 * plane + 1)),
         # reads four fields, v2m, ramps, k trace rows and the image; writes
         # four fields and the image
-        "block_bwd": bound(
-            f4 * launches * (5 * ns * ext + ramps + ns * k * nxw
-                             + 6 * ns * own),
+        f"block{two_d}_bwd": bound(
+            f4 * (launches * (5 * ns * ext + ramps + 6 * ns * own)
+                  + rows * ns * k * nxw),
             steps * (lapc * 2 * lap_flops(h) + 11 * plane + ctx.nx
                      + 2 * inter)),
     }
 
 
 def max_rel(a, b) -> float:
-    """max |a - b| / max |b|."""
-    return float((a - b).abs().max() / b.abs().max())
+    """max |a - b| / max |b| (0 where both are all zero: the traces of a
+    tile that records none)."""
+    d, m = float((a - b).abs().max()), float(b.abs().max())
+    return d / m if m else (0.0 if d == 0 else float("inf"))
 
 
 def rel_rms(a, b) -> float:
@@ -872,14 +912,21 @@ def main() -> int:
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dev)
 
-    def block_errs(ms, rs, fields, imgs, amps, ks):
+    X_BLOCKS = (("block_mod", dk.block_mod_cuda, dk.block_mod),
+                ("block_fwd", dk.block_fwd_cuda, dk.block_fwd),
+                ("block_bwd", dk.block_bwd_cuda, dk.block_bwd))
+
+    def block_errs(ms, rs, fields, imgs, amps, ks, blocks=X_BLOCKS):
         """(max rel err, max abs err) of each block kernel against its
-        plain version on the same CUDA tensors, one launch a slab on the
-        slab's states ``fields[j]`` (six (ns, nxw, nze) tensors) and image
-        ``imgs[j]`` for each step count in ``ks``: block_mod with the
-        Gaussian source and all-edge taper (slabs ``ms``) and with the
-        point source and top taper (``rs``), block_fwd, block_bwd at trace
-        row ks[0]; then block_bwd seeded by fields 4 and 5 at row 0."""
+        plain version on the same CUDA tensors, one launch a tile on the
+        tile's states ``fields[j]`` (six (ns, nxw, nzw) tensors) and image
+        ``imgs[j]`` for each step count in ``ks``: the modeling kernel
+        with the Gaussian source and all-edge taper (tiles ``ms``) and with
+        the point source and top taper (``rs``), the forward kernel, the
+        backward kernel at trace row ks[0]; then the backward kernel seeded
+        by fields 4 and 5 at row 0. ``blocks``: (name, wrapper, plain
+        version) of the tier's modeling, forward and backward kernels."""
+        (nm, km, pm), (nf, kf, pf), (nb, kb, pb) = blocks
         out = {}
 
         def note(name, e):
@@ -890,18 +937,13 @@ def main() -> int:
             for kk in ks:
                 a = amps[:kk]
                 for c in (cm, cr):
-                    note("block_mod", errs(dk.block_mod_cuda(c, f[0], f[1], a),
-                                           dk.block_mod(c, f[0], f[1], a)))
-                note("block_fwd", errs(dk.block_fwd_cuda(cr, f[0], f[1], a),
-                                       dk.block_fwd(cr, f[0], f[1], a)))
-                note("block_bwd", errs(
-                    dk.block_bwd_cuda(cr, *f[:4], img.clone(), ks[0], kk),
-                    dk.block_bwd(cr, *f[:4], img, ks[0], kk)))
+                    note(nm, errs(km(c, f[0], f[1], a), pm(c, f[0], f[1], a)))
+                note(nf, errs(kf(cr, f[0], f[1], a), pf(cr, f[0], f[1], a)))
+                note(nb, errs(kb(cr, *f[:4], img.clone(), ks[0], kk),
+                              pb(cr, *f[:4], img, ks[0], kk)))
             if ks[0] > 1:
-                note("block_bwd", errs(
-                    dk.block_bwd_cuda(cr, *f[:4], img.clone(), 0, ks[0],
-                                      f[4:6]),
-                    dk.block_bwd(cr, *f[:4], img, 0, ks[0], f[4:6])))
+                note(nb, errs(kb(cr, *f[:4], img.clone(), 0, ks[0], f[4:6]),
+                              pb(cr, *f[:4], img, 0, ks[0], f[4:6])))
         torch.cuda.synchronize()
         return out
 
@@ -1036,7 +1078,7 @@ def main() -> int:
           f"{rr[0]:.3e}, image rel RMS {rr[1]:.3e}, per-shot images rel RMS "
           f"{rr[2]:.3e}", flush=True)
     check(max(rr) <= GATE, "the Pluto domain path differs")
-    del dat_d, pluto_ref
+    del dat_d
     phase_done("Pluto domain path")
 
     # ---- 14. times, kernel and plain in turns
@@ -1271,27 +1313,31 @@ def main() -> int:
     outs_p = [[torch.zeros_like(st_p[j][0]) for _ in range(4)]
               for j in range(4)]
 
-    def block_run(kind: str, kernel: bool):
-        fn = {"block_mod": (dk.block_mod_cuda, dk.block_mod),
-              "block_fwd": (dk.block_fwd_cuda, dk.block_fwd),
-              "block_bwd": (dk.block_bwd_cuda, dk.block_bwd)}[kind][
-                  0 if kernel else 1]
+    def block_runner(blocks, ms, rs, st, imgs, outs):
+        """``run(i, kernel)``: a function that runs block kernel i of
+        ``blocks`` (0 modeling, 1 forward, 2 backward), or its plain
+        version, over ``pt.nt`` steps in blocks of KD on every tile, from
+        the fixed states ``st`` and images ``imgs``; the kernels write into
+        the output buffers ``outs``, made once, as the makers do."""
+        def run(i: int, kernel: bool):
+            fn = blocks[i][1 if kernel else 2]
+            n_out = 4 if i == 2 else 2
 
-        # the kernels write into output buffers made once, as the makers do
-        n_out = 4 if kind == "block_bwd" else 2
-
-        def run():
-            for it0 in range(0, pt.nt, KD):
-                k = min(KD, pt.nt - it0)
-                for j in range(4):
-                    out = {"out": outs_p[j][:n_out]} if kernel else {}
-                    if kind == "block_mod":
-                        fn(ms_p[j], *st_p[j][:2], wav_pm[it0:it0 + k], **out)
-                    elif kind == "block_fwd":
-                        fn(rs_p[j], *st_p[j][:2], wav_pr[it0:it0 + k], **out)
-                    else:
-                        fn(rs_p[j], *st_p[j][:4], imgs_p[j], it0, k, **out)
+            def go():
+                for it0 in range(0, pt.nt, KD):
+                    k = min(KD, pt.nt - it0)
+                    for j in range(len(ms)):
+                        out = {"out": outs[j][:n_out]} if kernel else {}
+                        if i == 0:
+                            fn(ms[j], *st[j][:2], wav_pm[it0:it0 + k], **out)
+                        elif i == 1:
+                            fn(rs[j], *st[j][:2], wav_pr[it0:it0 + k], **out)
+                        else:
+                            fn(rs[j], *st[j][:4], imgs[j], it0, k, **out)
+            return go
         return run
+
+    block_run = block_runner(X_BLOCKS, ms_p, rs_p, st_p, imgs_p, outs_p)
 
     per_step = {
         "block_mod": lambda: fk.forward_modeling_cuda(
@@ -1302,8 +1348,8 @@ def main() -> int:
                                              gp.gz)}
     bounds = {**block_bounds(ctx_pr, pt.ns, KD, 4),
               "block_mod": block_bounds(ctx_pm, pt.ns, KD, 4)["block_mod"]}
-    for k in ("block_mod", "block_fwd", "block_bwd"):
-        tk, tp, ts = in_turns([block_run(k, True), block_run(k, False),
+    for i, k in enumerate(("block_mod", "block_fwd", "block_bwd")):
+        tk, tp, ts = in_turns([block_run(i, True), block_run(i, False),
                                per_step[k]])
         bms, by = bounds[k]
         print(f"[times] {k} at the Pluto grid ({pt.ns} shots, nt {pt.nt}, 4 "
@@ -1359,6 +1405,226 @@ def main() -> int:
                   f"{fills:.3f} ms, share {fills / ms:.3f}; {smi}",
                   flush=True)
     phase_done("profile")
+
+    # ---- 16. the (x, z) tier's block kernels vs plain on the card
+    from parallel_finite_difference_computation_tpu_torch.parallel import (
+        domain2d_kernels as d2k)
+    XZ_BLOCKS = (("block2_mod", d2k.block2_mod_cuda, d2k.block2_mod),
+                 ("block2_fwd", d2k.block2_fwd_cuda, d2k.block2_fwd),
+                 ("block2_bwd", d2k.block2_bwd_cuda, d2k.block2_bwd))
+
+    def xz_tiles(case, shape, k, devices):
+        """The modeling tiles (Gaussian source, all-edge taper) and the
+        RTM tiles (point source, top taper, trace rows) of shot group 0 of
+        a mesh of ``shape`` over ``devices``, blocks of k steps."""
+        ctx_m, ctx_r, v2_m, v2_r, _, _, d, gp_ = case
+        geom = d2k.tile_geometry(ctx_m, shape[1], shape[2], k)
+        grid = make_mesh(*shape, devices=devices).grid(0)
+        return (d2k.prepare_tiles(ctx_m, grid, geom, v2_m, "all", sxs=gp_.sx,
+                                  sz=gp_.sz, source="gaussian", gz=gp_.gz),
+                d2k.prepare_tiles(ctx_r, grid, geom, v2_r, "top", sxs=gp_.sx,
+                                  sz=gp_.sz, gz=gp_.gz, dobs_ext=embed_dobs(
+                                      ctx_r, d.cpu().numpy())))
+
+    def compare_blocks2(case, shape, k):
+        """:func:`block_errs` of the (x, z) kernels on random states of
+        every tile of a mesh of ``shape`` on cuda:0, k steps and a tail of
+        k - 1."""
+        ms, rs = xz_tiles(case, shape, k, [dev] * (shape[1] * shape[2]))
+        rng = np.random.default_rng(shape[1] * 100 + shape[2] * 10 + k)
+        amps = rng.standard_normal(k).astype(np.float32)
+        fields = [[randn(rng, c.ns, c.nxw, c.nzw) for _ in range(6)]
+                  for c in ms]
+        imgs = [randn(rng, c.ns, c.nxl, c.nzl) for c in ms]
+        return block_errs(ms, rs, fields, imgs, amps,
+                          (k, k - 1) if k > 1 else (k,), XZ_BLOCKS)
+
+    def compare_makers2(case, shape, k):
+        """The two (x, z) makers on a (2, x, z) mesh of cuda:0, and on one
+        whose positions alternate between cuda:0 and the CPU along both
+        grid axes (the two-stage exchange between devices), against the
+        same makers on a CPU mesh. Returns the larger error."""
+        ctx_m, ctx_r, v2_m, v2_r, wav_m, wav_r, d, gp_ = case
+        d_ext = embed_dobs(ctx_r, d.cpu().numpy())
+        n = 2 * shape[1] * shape[2]
+        out = []
+        for devices in ([dev] * n, [dev, "cpu", "cpu", dev] * (n // 4),
+                        ["cpu"] * n):
+            mesh = make_mesh(2, shape[1], shape[2], devices=devices)
+            out.append((
+                d2k.make_sharded_forward_modeling_2d_cuda(
+                    ctx_m, mesh, gp_.sz, gp_.gz, block_k=k)(
+                    v2_m, gp_.sx, wav_m).cpu(),
+                d2k.make_sharded_rtm_snapshot_2d_cuda(
+                    ctx_r, mesh, gp_.sz, gp_.gz, block_k=k)(
+                    v2_r, gp_.sx, wav_r, d_ext).cpu()))
+        e = [errs(got, out[2]) for got in out[:2]]
+        return max(e[0][0], e[1][0]), max(e[0][1], e[1][1])
+
+    # phase 11's 134 x 88 grid, the sources at x = 66 and 67 (across the x
+    # cut of a (1, 2, 2) mesh at 67), the Gaussian band at z = 40..46
+    # (across the z cut at 44 of both meshes), the receiver row at z = 46
+    # (in the second z part of (1, 2, 2), the third of (1, 1, 4))
+    dom2 = dataclasses.replace(dom, sz=34, gz=37)
+    block2_err = {k: 0.0 for k in ("block2_mod", "block2_fwd", "block2_bwd")}
+    n_cases = 0
+    for order in (4, 8, 10):
+        case = tier_case(dataclasses.replace(dom2, order=order))
+        case = case[:7] + (dataclasses.replace(case[7], sx=(66, 67)),)
+        for shape in ((1, 2, 2), (1, 1, 4)):
+            nxl = -(-dom2.nxe // shape[1])
+            nzl = -(-dom2.nze // shape[2])
+            for k in (2, 3, 8):
+                halo = k * order // 2
+                if (shape[1] > 1 and halo > nxl) or halo > nzl:
+                    continue
+                for kname, (rel, absd) in {
+                        **compare_blocks2(case, shape, k),
+                        "makers (cuda:0, mixed) vs CPU mesh":
+                            compare_makers2(case, shape, k)}.items():
+                    print(f"[(x, z) vs plain] {kname} order {order} mesh "
+                          f"{shape} K {k} nt {dom2.nt} {dom2.nxe} x "
+                          f"{dom2.nze}: max rel err {rel:.3e}, max abs err "
+                          f"{absd:.3e}", flush=True)
+                    check(rel <= GATE, f"{kname} order {order} mesh {shape}"
+                                       f" K {k}: {rel:.3e} > {GATE}")
+                    if kname in block2_err:
+                        block2_err[kname] = max(block2_err[kname], absd)
+                n_cases += 1
+    print(f"[(x, z) vs plain] {n_cases} cases; max abs err {block2_err}",
+          flush=True)
+    phase_done("(x, z) kernels vs plain")
+
+    # ---- 17. the 3lay path over (x, z) meshes of cuda:0
+    for shape in ((2, 2, 2), (1, 2, 2), (1, 1, 4)):
+        mesh = make_mesh(*shape, devices=[dev] * int(np.prod(shape)))
+        dk.reset_launches()
+        d2k.reset_launches()
+        t0 = time.perf_counter()
+        data_m = pipeline.run_modeling(P, vp=vp, mesh=mesh)
+        img_m3, locs_m3 = pipeline.run_rtm_gpu(P, vp=vp, dobs=data_m, seed=0,
+                                               mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rr3 = (rel_rms(data_m, data), rel_rms(img_m3, img),
+               rel_rms(locs_m3, imlocs))
+        print(f"[3lay (x, z) mesh path] mesh {shape}: run_modeling + "
+              f"run_rtm_gpu {wall:.3f} s wall; block launches "
+              f"{dict(d2k.LAUNCHES)}; vs the no-mesh per-step run: gathers "
+              f"rel RMS {rr3[0]:.3e}, image {rr3[1]:.3e}, per-shot images "
+              f"{rr3[2]:.3e}", flush=True)
+        check(max(rr3) <= GATE, f"3lay mesh {shape} differs")
+        check(all(d2k.LAUNCHES.values()) and not any(dk.LAUNCHES.values()),
+              f"mesh {shape}: block launches {d2k.LAUNCHES}, {dk.LAUNCHES}")
+    phase_done("3lay (x, z) mesh path")
+
+    # ---- 18. the Pluto path over a (1, 2, 2) mesh of cuda:0: four tiles
+    mesh = make_mesh(1, 2, 2, devices=[dev] * 4)
+    for lc in (fk, stream, dk, d2k):
+        lc.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dat_z = pipeline.run_modeling(pl, vp=vp_pl, mesh=mesh)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img_z, locs_z = pipeline.run_rtm_gpu(pl, vp=vp_pl, dobs=dat_z, seed=0,
+                                             outdir=tmp, mesh=mesh)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        written = np.fromfile(os.path.join(tmp, "dir.image"), np.float32)
+    launches = dict(d2k.LAUNCHES)
+    print(f"[Pluto (x, z) path] mesh (1, 2, 2) on cuda:0 ({pl.nxe} x "
+          f"{pl.nze}, nt {pl.nt}, ns {pl.ns}, K 8): run_modeling "
+          f"{t1 - t0:.3f} s wall ({(t1 - t0) / pl.ns:.3f} s/shot), "
+          f"run_rtm_gpu {t2 - t1:.3f} s wall ({(t2 - t1) / pl.ns:.3f} "
+          f"s/shot), host included; launches {launches}; {smi}", flush=True)
+    blocks = 4 * -(-pl.nt // 8)
+    for k in launches:
+        results[k]["launches"] = launches[k]
+        check(launches[k] == blocks, f"{k} launched {launches[k]} times, "
+                                     f"expected {blocks}")
+    check(not any(fk.LAUNCHES.values()) and not any(stream.LAUNCHES.values())
+          and not any(dk.LAUNCHES.values()),
+          f"the (x, z) path launched other kernels: {fk.LAUNCHES}, "
+          f"{stream.LAUNCHES}, {dk.LAUNCHES}")
+    check(written.tobytes() == img_z.tobytes() and np.isfinite(img_z).all()
+          and np.abs(img_z).max() > 0, "(x, z) dir.image wrong or zero")
+    rr = [rel_rms(a, b) for a, b in zip((dat_z, img_z, locs_z), pluto_ref)]
+    print(f"[Pluto (x, z) path] vs the per-step tier: gathers rel RMS "
+          f"{rr[0]:.3e}, image rel RMS {rr[1]:.3e}, per-shot images rel RMS "
+          f"{rr[2]:.3e}", flush=True)
+    check(max(rr) <= GATE, "the Pluto (x, z) path differs")
+    del dat_z, pluto_ref
+
+    # the kernels at the Pluto tile shapes, 2 shots, nt=1001, K=8: held
+    # against their plain versions (K = 8, the tails 4 of nt = 12860 and 1
+    # of nt = 1001, the seeded block), then timed as phase 14 times the x
+    # tier's, with the per-step kernel call for the same function
+    geom_z = d2k.tile_geometry(ctx_pm, 2, 2, KD)
+    grid_z = mesh.grid(0)
+    ms_z = d2k.prepare_tiles(ctx_pm, grid_z, geom_z, v2_pm, "all", sxs=gp.sx,
+                             sz=gp.sz, source="gaussian", gz=gp.gz)
+    rs_z = d2k.prepare_tiles(ctx_pr, grid_z, geom_z, v2_pr, "top", sxs=gp.sx,
+                             sz=gp.sz, dobs_ext=d_ext_p, gz=gp.gz)
+    rng = np.random.default_rng(13)
+    st_z = [[randn(rng, pt.ns, c.nxw, c.nzw) for _ in range(6)]
+            for c in rs_z]
+    imgs_z = [randn(rng, pt.ns, c.nxl, c.nzl) for c in rs_z]
+    amps_z = rng.standard_normal(KD).astype(np.float32)
+    for kname, (rel, absd) in block_errs(ms_z, rs_z, st_z, imgs_z, amps_z,
+                                         (KD, 4, 1), XZ_BLOCKS).items():
+        print(f"[(x, z) vs plain] {kname} at the Pluto grid ({pt.nxe} x "
+              f"{pt.nze}, {pt.ns} shots, 4 tiles of {rs_z[0].nxw} x "
+              f"{rs_z[0].nzw}, K {KD}, 4, 1): max rel err {rel:.3e}, max "
+              f"abs err {absd:.3e}", flush=True)
+        check(rel <= GATE, f"{kname} at the Pluto grid: {rel:.3e} > {GATE}")
+        results[kname]["max_abs_err"] = max(block2_err[kname], absd)
+    outs_z = [[torch.zeros_like(st_z[j][0]) for _ in range(4)]
+              for j in range(4)]
+    run_z = block_runner(XZ_BLOCKS, ms_z, rs_z, st_z, imgs_z, outs_z)
+    bounds = {**block_bounds(ctx_pr, pt.ns, KD, 2, 2, gp.gz),
+              "block2_mod": block_bounds(ctx_pm, pt.ns, KD, 2, 2,
+                                         gp.gz)["block2_mod"]}
+    for i, k in enumerate(("block2_mod", "block2_fwd", "block2_bwd")):
+        tk, tp, ts = in_turns([run_z(i, True), run_z(i, False),
+                               per_step[k.replace("2", "")]])
+        bms, by = bounds[k]
+        print(f"[times] {k} at the Pluto grid ({pt.ns} shots, nt {pt.nt}, 4 "
+              f"tiles of {rs_z[0].nxw} x {rs_z[0].nzw}, "
+              f"{4 * -(-pt.nt // KD)} launches of K={KD}): kernel "
+              f"{span(tk)}, plain {span(tp)}, per-step kernel {span(ts)}; "
+              f"bound {bms:.3f} ms ({by}), kernel / bound "
+              f"{statistics.median(tk) / bms:.2f}; {smi}", flush=True)
+        results[k].update(ms=statistics.median(tk),
+                          plain_ms=statistics.median(tp), bound_ms=bms,
+                          bound_by=by, library_ms=None)
+    del st_z, imgs_z, outs_z, ms_z, rs_z
+    zmod = d2k.make_sharded_forward_modeling_2d_cuda(ctx_pm, mesh, gp.sz,
+                                                     gp.gz, block_k=KD)
+    zrtm = d2k.make_sharded_rtm_snapshot_2d_cuda(ctx_pr, mesh, gp.sz, gp.gz,
+                                                 block_k=KD)
+    pluto_calls["modeling (x, z)"] = lambda: zmod(v2_pm, gp.sx, wav_pm)
+    pluto_calls["RTM (x, z)"] = lambda: zrtm(v2_pr, gp.sx, wav_pr, d_ext_p)
+    for pair in (("modeling (x, z)", "modeling per-step"),
+                 ("RTM (x, z)", "RTM per-step")):
+        ts = in_turns([pluto_calls[c] for c in pair])
+        for c, t in zip(pair, ts):
+            pluto_ms[c] = statistics.median(t)
+            print(f"[times] Pluto {c} ({pt.ns} shots, nt {pt.nt}; mesh (1, 2, "
+                  f"2) of cuda:0 for the (x, z) tier): {span(t)}, "
+                  f"{pluto_ms[c] / 1e3 / pt.ns:.6f} s/shot; {smi}",
+                  flush=True)
+    for c in ("modeling (x, z)", "RTM (x, z)"):
+        rows = profile(torch, f"Pluto {c}", pluto_calls[c], pluto_ms[c], smi)
+        busy = sum(t for _, t, _ in rows)
+        copies = sum(t for key, t, _ in rows if "copy" in key.lower()
+                     and "HtoD" not in key and "DtoH" not in key
+                     and "CatArray" not in key)
+        print(f"[profile] Pluto {c}: copy kernels (the two-stage exchange, "
+              f"trace rows, tile set-up) {copies:.3f} ms, share of the call "
+              f"{copies / pluto_ms[c]:.3f}; idle share "
+              f"{1 - busy / pluto_ms[c]:.3f}; {smi}", flush=True)
+    phase_done("Pluto (x, z) path")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -7,7 +7,7 @@ one is the reference the port is held against; this package never imports
 it, nor ``jax``. Plain torch versions of every kernel run on the CPU; on a
 CUDA device the work runs through hand-written CUDA kernels (``csrc/``,
 built with ``nvcc`` at first use). :mod:`.parallel` splits shots and the
-grid's x axis over a mesh of devices.
+grid's x axis, or both its axes, over a mesh of devices.
 """
 
 from .config import Params, Geometry, parse_input_dat

@@ -16,14 +16,14 @@ CUDA kernels, built with ``nvcc`` at first use; ``cpu`` runs the plain
 torch version). ``mod`` and ``rtm_gpu`` take ``--backend``: ``pallas`` (the
 per-step kernels), ``tiled`` (the large-grid tier of K-step passes) or
 ``auto`` (the default: ``tiled`` above 1.5 M extended cells, such as the
-Pluto grid). ``mod``, ``rtm_gpu`` and ``rtm`` take ``--shards-shot S``
-and ``--shards-x X``: the shots split over S groups and, for ``mod`` and
-``rtm_gpu``, the grid into X x-slabs (``rtm`` takes X = 1 only). With
-``--device cpu`` every position of the mesh is the CPU; with ``cuda`` the
-mesh takes the visible cards, and too few raise. The JAX package's
-``psnr`` and ``laplace`` tools, ``--shards-z`` and its checkpointed surveys
-(``--checkpoint-dir``, ``--chunk-shots``) are still to be ported
-(ROADMAP.md).
+Pluto grid). ``mod``, ``rtm_gpu`` and ``rtm`` take ``--shards-shot S``,
+``--shards-x X`` and ``--shards-z Z``: the shots split over S groups and,
+for ``mod`` and ``rtm_gpu``, the grid into X x-slabs or, with Z > 1, into
+X x Z tiles (``rtm`` takes X = Z = 1 only). With ``--device cpu`` every
+position of the mesh is the CPU; with ``cuda`` the mesh takes the visible
+cards, and too few raise. The JAX package's ``psnr`` and ``laplace`` tools
+and its checkpointed surveys (``--checkpoint-dir``, ``--chunk-shots``) are
+still to be ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -49,12 +49,14 @@ def _echo(p):
 
 
 def _mesh(args):
-    """The mesh of ``--shards-shot``/``--shards-x``, or None for neither."""
-    if args.shards_shot == 1 and args.shards_x == 1:
+    """The mesh of ``--shards-shot``/``--shards-x``/``--shards-z``, or None
+    for none of them."""
+    n = args.shards_shot * args.shards_x * args.shards_z
+    if n == 1:
         return None
-    n = args.shards_shot * args.shards_x
     devices = [args.device] * n if args.device == "cpu" else None
-    return make_mesh(args.shards_shot, args.shards_x, devices=devices)
+    return make_mesh(args.shards_shot, args.shards_x, args.shards_z,
+                     devices=devices)
 
 
 def cmd_stencil(args):
@@ -125,6 +127,11 @@ def main(argv=None):
                            dest="shards_x",
                            help="x-slabs of the grid (default 1); > 1 runs "
                                 "the block kernels of the x-domain tier")
+            s.add_argument("--shards-z", type=int, default=1,
+                           dest="shards_z",
+                           help="z parts of the grid (default 1); > 1 cuts "
+                                "it into (x, z) tiles on the block kernels "
+                                "of the (x, z) tier")
         if name in ("mod", "rtm_gpu"):
             s.add_argument("--backend", default="auto",
                            choices=list(pipeline.BACKENDS),

@@ -1,0 +1,500 @@
+// The domain tiers' block kernels, shared by the x tier (domain_block.cu)
+// and the (x, z) tier (domain2d_block.cu): block_mod, block_fwd and
+// block_bwd, each K time steps on one halo-extended tile of the grid for
+// every shot of a batch, and their launchers.
+//
+// The tile. The extended grid is cut into n_x x n_z tiles of nxl x nzl
+// owned cells; a tile's buffers also hold hs rows of halo on each x side
+// and hz columns on each z side, exchanged by the caller once per block
+// ((ns, nxw, nzw) buffers, nxw = nxl + 2*hs, nzw = nzl + 2*hz, z
+// contiguous). An x-slab is the tile with hz = 0 and nzl = nze. An axis cut
+// in one part carries no halo (hs or hz = 0): its tile edge is the grid's.
+// The exact region shrinks by h a step from every edge that has a halo,
+// so after k steps, k*h <= the halo, the owned cells are exact
+// (communication-avoiding blocking). A block of threads owns kTX x kTZ
+// cells of one shot and stages its part of the tile with a k*h halo on
+// both axes in shared memory, as the K-step kernels do (kstep.cuh): a
+// Pluto tile is thousands of rows of hundreds of floats, far beyond an
+// SM. The Laplacian is zero on the tile's border (in_interior over the
+// tile), and the global interior is folded into v2m = v2*dt2 (0 outside
+// it), so a zero halo at the grid's edge reproduces the unsharded grid.
+//
+// Operands made once a run per tile by the wrapper: v2m (per shot, or one
+// plane for all), the taper's 1-D ramps cut to the tile (0 beyond the
+// grid; taper_at rebuilds the mask bitwise inside the grid), the source
+// rows at the tile-local depth src_z around it (the Gaussian patch's rows,
+// or a one-hot row), and for block_bwd the time-reversed trace rows (nt,
+// nxw) of each shot. Acquisition depths are tile-local rows: a source or
+// trace row is injected on every tile whose buffer holds it (its halo
+// included), so that the halo evolves as the neighbour's own cells; a
+// trace is recorded by the tile that owns the row only; -1 is a row that
+// no cell matches. v2m is read from global memory at the cell's own
+// position only, so it is not staged.
+//
+// What bounds it on an H100: per block the pass reads the staged fields
+// and v2m once and writes the owned cells once; what is left is shared-
+// memory and ALU work on a tile (32 + 2kh)(64 + 2kh) for 32 x 64 owned
+// cells (block_bwd: 32 x 32, to fit four fields at order 10 and K = 8).
+//
+// Per step the operations, their order and rounding are the plain block
+// functions' (parallel/domain_kernels.py) and the TPU kernels': the older
+// field tapered in place in a phase of its own, then a barrier, outputs to
+// buffers no block of the launch reads. block_bwd sums the image delta of
+// the block from 0 in shared memory and adds it to the running image once,
+// as the JAX package does (domain_pallas.py:161, :178, :492). Offsets into
+// trace rows and seismograms are size_t.
+//
+// The kernels sit in an anonymous namespace: each source that includes
+// this header builds its own instances.
+#pragma once
+
+#include "kstep.cuh"
+
+namespace {
+
+constexpr int kModTX = 32, kModTZ = 64;   // block_mod, block_fwd
+constexpr int kBwdTX = 32, kBwdTZ = 32;   // block_bwd
+
+// A tile's owned size and halos. kZ: an (x, z) tile, with a z halo and z
+// extent of its own; false: an x-slab (no z halo, nzl = nze), whose z
+// terms fold away at compile time: left to run time they cost the x
+// tier's block_mod ~5 % (PERF.md).
+template <bool kZ>
+struct Dims {
+  int hs, nxl, hz_, nzl;
+  __host__ __device__ int hz() const { return kZ ? hz_ : 0; }
+  __host__ __device__ int nxw() const { return nxl + 2 * hs; }
+  __host__ __device__ int nzw() const { return nzl + 2 * hz(); }
+  __host__ __device__ size_t plane() const {
+    return static_cast<size_t>(nxw()) * nzw();
+  }
+  // k steps fit the halos of the axes that have one
+  __host__ __device__ bool fits(int halo) const {
+    return (hs == 0 || halo <= hs) && (hz() == 0 || halo <= hz());
+  }
+  // tile cell (gx, gz), gx past the x halo and gz past the z halo, is
+  // owned
+  __host__ __device__ bool owns(int gx, int gz) const {
+    return gx < hs + nxl && (!kZ || gz < hz_ + nzl);
+  }
+};
+
+// One block's part of the tile: local (0, 0) is tile cell (x0, z0); the
+// owned cells are local [r, r + TX) x [r, r + TZ) within the owned cells
+// of the tile.
+template <int TX, int TZ>
+struct BlockTile {
+  int r, sx, sz, x0, z0;
+
+  template <bool kZ>
+  __device__ BlockTile(int halo, const Dims<kZ>& d)
+      : r(halo),
+        sx(TX + 2 * halo),
+        sz(TZ + 2 * halo),
+        x0(d.hs + static_cast<int>(blockIdx.y) * TX - halo),
+        z0(d.hz() + static_cast<int>(blockIdx.x) * TZ - halo) {}
+
+  __device__ int cells() const { return sx * sz; }
+
+  template <bool kZ>
+  __device__ bool owned(int lx, int lz, int gx, int gz,
+                        const Dims<kZ>& d) const {
+    return lx >= r && lx < r + TX && lz >= r && lz < r + TZ && d.owns(gx, gz);
+  }
+};
+
+template <int TX, int TZ>
+size_t tile_bytes(int fields, int halo, bool image) {
+  const size_t cells = static_cast<size_t>(TX + 2 * halo) * (TZ + 2 * halo);
+  return sizeof(float) * (fields * cells + (image ? TX * TZ : 0));
+}
+
+template <int TX, int TZ, bool kZ>
+dim3 tile_grid(int ns, const Dims<kZ>& d) {
+  return dim3((d.nzl + TZ - 1) / TZ, (d.nxl + TX - 1) / TX, ns);
+}
+
+// Calls fn(lx, lz, gx, gz) for every block-tile cell at least lo cells
+// from its edge that lies in the nxw x nzw tile (gx, gz: tile row and
+// column). The cell -> thread map does not depend on lo.
+template <class T, class F>
+__device__ __forceinline__ void for_cells(const T& t, int lo, int nxw, int nzw,
+                                          F&& fn) {
+  for (int lx = threadIdx.y; lx < t.sx; lx += blockDim.y) {
+    const int gx = t.x0 + lx;
+    if (lx < lo || lx >= t.sx - lo || gx < 0 || gx >= nxw) continue;
+    for (int lz = threadIdx.x; lz < t.sz; lz += blockDim.x) {
+      const int gz = t.z0 + lz;
+      if (lz < lo || lz >= t.sz - lo || gz < 0 || gz >= nzw) continue;
+      fn(lx, lz, gx, gz);
+    }
+  }
+}
+
+// Stages one shot's tile field f (nxw, nzw) into s, 0 outside the tile.
+template <class T>
+__device__ __forceinline__ void load_tile(float* s, const float* __restrict__ f,
+                                          const T& t, int nxw, int nzw) {
+  for (int lx = threadIdx.y; lx < t.sx; lx += blockDim.y) {
+    const int gx = t.x0 + lx;
+    for (int lz = threadIdx.x; lz < t.sz; lz += blockDim.x) {
+      const int gz = t.z0 + lz;
+      s[lx * t.sz + lz] = (gx >= 0 && gx < nxw && gz >= 0 && gz < nzw)
+                              ? f[static_cast<size_t>(gx) * nzw + gz]
+                              : 0.0f;
+    }
+  }
+}
+
+// Writes the owned cells of s to one shot's tile field f.
+template <class T, class D>
+__device__ __forceinline__ void store_tile(float* __restrict__ f,
+                                           const float* s, const T& t,
+                                           const D& d) {
+  const int nzw = d.nzw();
+  for_cells(t, t.r, d.nxw(), nzw, [&](int lx, int lz, int gx, int gz) {
+    if (t.owned(lx, lz, gx, gz, d)) {
+      f[static_cast<size_t>(gx) * nzw + gz] = s[lx * t.sz + lz];
+    }
+  });
+}
+
+// Per step, from the state (p, pp), pp tapered: u = (2p - pp) + v*lap(p);
+// u += amp * src on the source rows; pp' = u*m; p' = p*m, whose row gz on
+// the owned cells is the step's trace (mod_main.cpp:146-168).
+template <int H, bool kZ>
+__global__ void block_mod(const float* __restrict__ p_in,
+                          const float* __restrict__ pp_in,
+                          float* __restrict__ p_out, float* __restrict__ pp_out,
+                          const float* __restrict__ v2m, int v2_shot_stride,
+                          const float* __restrict__ xramp,
+                          const float* __restrict__ zfac,
+                          const float* __restrict__ strip,
+                          const float* __restrict__ src, int r, int src_z,
+                          pfdc::Amps amps, int k_steps, float* __restrict__ rec,
+                          int gz_rec, Dims<kZ> d, pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  const int nxw = d.nxw(), nzw = d.nzw();
+  const BlockTile<kModTX, kModTZ> t(k_steps * H, d);
+  const int n = t.cells();
+  float* sp = smem;
+  float* spp = smem + n;
+  const int s = blockIdx.z;
+  const size_t plane = d.plane();
+  load_tile(sp, p_in + s * plane, t, nxw, nzw);
+  load_tile(spp, pp_in + s * plane, t, nxw, nzw);
+  __syncthreads();
+  const float* v = v2m + s * static_cast<size_t>(v2_shot_stride);
+  const float* src_s = src + s * static_cast<size_t>(2 * r + 1) * nxw;
+  float* rec_s = rec + s * static_cast<size_t>(k_steps) * d.nxl;
+  for (int k = 0; k < k_steps; ++k) {
+    const int lo = (k + 1) * H;
+    const float amp = amps.a[k];
+    // the update, into the older field's slot (read only at its own cell)
+    for_cells(t, lo, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
+      const int j = lx * t.sz + lz;
+      const float lap = pfdc::in_interior(gx, gz, H, nxw, nzw)
+                            ? pfdc::laplacian<H, false>(sp, nullptr, j, t.sz, c)
+                            : 0.0f;
+      float u = (2.0f * sp[j] - spp[j]) +
+                v[static_cast<size_t>(gx) * nzw + gz] * lap;
+      const int dz = gz - src_z;
+      if (dz >= -r && dz <= r) {
+        u = u + amp * src_s[static_cast<size_t>(dz + r) * nxw + gx];
+      }
+      spp[j] = u * pfdc::taper_at(xramp, zfac, strip, gx, gz);
+    });
+    __syncthreads();
+    // taper the old field once every neighbour has read it; record row gz
+    for_cells(t, lo, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
+      const int j = lx * t.sz + lz;
+      const float q = sp[j] * pfdc::taper_at(xramp, zfac, strip, gx, gz);
+      sp[j] = q;
+      if (gz == gz_rec && t.owned(lx, lz, gx, gz, d)) {
+        rec_s[static_cast<size_t>(k) * d.nxl + (gx - d.hs)] = q;
+      }
+    });
+    float* tmp = sp;
+    sp = spp;
+    spp = tmp;
+  }
+  store_tile(p_out + s * plane, sp, t, d);
+  store_tile(pp_out + s * plane, spp, t, d);
+}
+
+// Per step, from the state (p, pp), p tapered and pp not (fd-code.cu:
+// 259-267): t = pp*m (in place, then a barrier), u = (2t - p*m) + v*lap(t),
+// u += amp * src on row src_z; the next state is (t, u).
+template <int H, bool kZ>
+__global__ void block_fwd(const float* __restrict__ p_in,
+                          const float* __restrict__ pp_in,
+                          float* __restrict__ p_out, float* __restrict__ pp_out,
+                          const float* __restrict__ v2m, int v2_shot_stride,
+                          const float* __restrict__ xramp,
+                          const float* __restrict__ zfac,
+                          const float* __restrict__ strip,
+                          const float* __restrict__ src, int src_z,
+                          pfdc::Amps amps, int k_steps, Dims<kZ> d,
+                          pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  const int nxw = d.nxw(), nzw = d.nzw();
+  const BlockTile<kModTX, kModTZ> t(k_steps * H, d);
+  const int n = t.cells();
+  float* sx_ = smem;      // p: the older field, tapered
+  float* sy = smem + n;   // pp: the newest field
+  const int s = blockIdx.z;
+  const size_t plane = d.plane();
+  load_tile(sx_, p_in + s * plane, t, nxw, nzw);
+  load_tile(sy, pp_in + s * plane, t, nxw, nzw);
+  const float* v = v2m + s * static_cast<size_t>(v2_shot_stride);
+  const float* src_s = src + s * static_cast<size_t>(nxw);
+  for (int k = 0; k < k_steps; ++k) {
+    // taper the newest field over every cell this step's taps read
+    for_cells(t, k * H, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
+      const int j = lx * t.sz + lz;
+      sy[j] = sy[j] * pfdc::taper_at(xramp, zfac, strip, gx, gz);
+    });
+    __syncthreads();
+    const float amp = amps.a[k];
+    for_cells(t, (k + 1) * H, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
+      const int j = lx * t.sz + lz;
+      const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
+      const float lap = pfdc::in_interior(gx, gz, H, nxw, nzw)
+                            ? pfdc::laplacian<H, false>(sy, nullptr, j, t.sz, c)
+                            : 0.0f;
+      float u = (2.0f * sy[j] - sx_[j] * m) +
+                v[static_cast<size_t>(gx) * nzw + gz] * lap;
+      if (gz == src_z) u = u + amp * src_s[gx];
+      sx_[j] = u;
+    });
+    float* tmp = sx_;
+    sx_ = sy;
+    sy = tmp;
+  }
+  store_tile(p_out + s * plane, sx_, t, d);
+  store_tile(pp_out + s * plane, sy, t, d);
+}
+
+// Per step, from the state (ps, pps, pr, ppr) (fd-code.cu:302-333): the
+// source s = (2ps - pps) + v*lap(ps), untapered, or with snap0/snap1 given
+// (the first block) the snapshot snap1 at step 0 and snap0 at step 1; the
+// receiver t = pr*m (in place, then a barrier), u = (2t - ppr*m) +
+// v*lap(t), plus trace row k at row gz_rec (K5); the block's image delta
+// += s*u on the owned cells (K6), added to img at the end.
+template <int H, bool kZ>
+__global__ void block_bwd(const float* __restrict__ ps_in,
+                          const float* __restrict__ pps_in,
+                          const float* __restrict__ pr_in,
+                          const float* __restrict__ ppr_in,
+                          float* __restrict__ ps_out,
+                          float* __restrict__ pps_out,
+                          float* __restrict__ pr_out,
+                          float* __restrict__ ppr_out,
+                          const float* __restrict__ snap0,
+                          const float* __restrict__ snap1,
+                          float* __restrict__ img,
+                          const float* __restrict__ v2m, int v2_shot_stride,
+                          const float* __restrict__ xramp,
+                          const float* __restrict__ zfac,
+                          const float* __restrict__ strip,
+                          const float* __restrict__ inj, int inj_shot_stride,
+                          int gz_rec, int k_steps, Dims<kZ> d,
+                          pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  const int nxw = d.nxw(), nzw = d.nzw();
+  const BlockTile<kBwdTX, kBwdTZ> t(k_steps * H, d);
+  const int n = t.cells();
+  float* sps = smem;
+  float* spps = smem + n;
+  float* spr = smem + 2 * n;
+  float* sppr = smem + 3 * n;
+  float* simg = smem + 4 * n;   // kBwdTX x kBwdTZ, owned cells
+  const int s = blockIdx.z;
+  const size_t plane = d.plane();
+  load_tile(sps, ps_in + s * plane, t, nxw, nzw);
+  load_tile(spps, pps_in + s * plane, t, nxw, nzw);
+  load_tile(spr, pr_in + s * plane, t, nxw, nzw);
+  load_tile(sppr, ppr_in + s * plane, t, nxw, nzw);
+  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < kBwdTX * kBwdTZ;
+       i += blockDim.x * blockDim.y) {
+    simg[i] = 0.0f;
+  }
+  const float* v = v2m + s * static_cast<size_t>(v2_shot_stride);
+  const float* inj_s = inj + s * static_cast<size_t>(inj_shot_stride);
+  const bool seed = snap0 != nullptr;
+  for (int k = 0; k < k_steps; ++k) {
+    // taper the receiver field over every cell this step's taps read
+    for_cells(t, k * H, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
+      const int j = lx * t.sz + lz;
+      spr[j] = spr[j] * pfdc::taper_at(xramp, zfac, strip, gx, gz);
+    });
+    __syncthreads();
+    for_cells(t, (k + 1) * H, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
+      const int j = lx * t.sz + lz;
+      const size_t q = static_cast<size_t>(gx) * nzw + gz;
+      const bool interior = pfdc::in_interior(gx, gz, H, nxw, nzw);
+      const float vq = v[q];
+      float us;
+      if (seed && k < 2) {
+        us = (k == 0 ? snap1 : snap0)[s * plane + q];
+      } else {
+        const float lap_s =
+            interior ? pfdc::laplacian<H, false>(sps, nullptr, j, t.sz, c)
+                     : 0.0f;
+        us = (2.0f * sps[j] - spps[j]) + vq * lap_s;
+      }
+      spps[j] = us;
+      const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
+      const float lap_r =
+          interior ? pfdc::laplacian<H, false>(spr, nullptr, j, t.sz, c) : 0.0f;
+      float ur = (2.0f * spr[j] - sppr[j] * m) + vq * lap_r;
+      if (gz == gz_rec) {
+        ur = ur + inj_s[static_cast<size_t>(k) * nxw + gx];
+      }
+      sppr[j] = ur;
+      if (t.owned(lx, lz, gx, gz, d)) {
+        float& acc = simg[(lx - t.r) * kBwdTZ + (lz - t.r)];
+        acc = acc + us * ur;
+      }
+    });
+    float* tmp = sps;
+    sps = spps;
+    spps = tmp;
+    tmp = spr;
+    spr = sppr;
+    sppr = tmp;
+  }
+  store_tile(ps_out + s * plane, sps, t, d);
+  store_tile(pps_out + s * plane, spps, t, d);
+  store_tile(pr_out + s * plane, spr, t, d);
+  store_tile(ppr_out + s * plane, sppr, t, d);
+  float* img_s = img + s * static_cast<size_t>(d.nxl) * d.nzl;
+  for_cells(t, t.r, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
+    if (t.owned(lx, lz, gx, gz, d)) {
+      float& out =
+          img_s[static_cast<size_t>(gx - d.hs) * d.nzl + (gz - d.hz())];
+      out = out + simg[(lx - t.r) * kBwdTZ + (lz - t.r)];
+    }
+  });
+}
+
+template <bool kZ>
+struct BlockModRun {
+  const float* p;
+  const float* pp;
+  float* p_out;
+  float* pp_out;
+  const float* v2m;
+  int v2_shot_stride;
+  const float* xramp;
+  const float* zfac;
+  const float* strip;
+  const float* src;
+  int r, sz;
+  pfdc::Amps amps;
+  int k;
+  float* rec;
+  int gz, ns;
+  Dims<kZ> d;
+  pfdc::Coefs c;
+  cudaStream_t stream;
+
+  template <int H>
+  cudaError_t operator()() const {
+    if (!d.fits(k * H)) return cudaErrorInvalidValue;
+    const size_t bytes = tile_bytes<kModTX, kModTZ>(2, k * H, false);
+    const cudaError_t e = pfdc::allow_smem(block_mod<H, kZ>, bytes);
+    if (e != cudaSuccess) return e;
+    const dim3 grid = tile_grid<kModTX, kModTZ>(ns, d);
+    const dim3 block = pfdc::tile_block();
+    block_mod<H, kZ><<<grid, block, bytes, stream>>>(
+        p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp, zfac, strip, src, r,
+        sz, amps, k, rec, gz, d, c);
+    return cudaGetLastError();
+  }
+};
+
+template <bool kZ>
+struct BlockFwdRun {
+  const float* p;
+  const float* pp;
+  float* p_out;
+  float* pp_out;
+  const float* v2m;
+  int v2_shot_stride;
+  const float* xramp;
+  const float* zfac;
+  const float* strip;
+  const float* src;
+  int sz;
+  pfdc::Amps amps;
+  int k, ns;
+  Dims<kZ> d;
+  pfdc::Coefs c;
+  cudaStream_t stream;
+
+  template <int H>
+  cudaError_t operator()() const {
+    if (!d.fits(k * H)) return cudaErrorInvalidValue;
+    const size_t bytes = tile_bytes<kModTX, kModTZ>(2, k * H, false);
+    const cudaError_t e = pfdc::allow_smem(block_fwd<H, kZ>, bytes);
+    if (e != cudaSuccess) return e;
+    const dim3 grid = tile_grid<kModTX, kModTZ>(ns, d);
+    const dim3 block = pfdc::tile_block();
+    block_fwd<H, kZ><<<grid, block, bytes, stream>>>(
+        p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp, zfac, strip, src,
+        sz, amps, k, d, c);
+    return cudaGetLastError();
+  }
+};
+
+template <bool kZ>
+struct BlockBwdRun {
+  const float* ps;
+  const float* pps;
+  const float* pr;
+  const float* ppr;
+  float* ps_out;
+  float* pps_out;
+  float* pr_out;
+  float* ppr_out;
+  const float* snap0;
+  const float* snap1;
+  float* img;
+  const float* v2m;
+  int v2_shot_stride;
+  const float* xramp;
+  const float* zfac;
+  const float* strip;
+  const float* inj;
+  int inj_shot_stride, gz, k, ns;
+  Dims<kZ> d;
+  pfdc::Coefs c;
+  cudaStream_t stream;
+
+  template <int H>
+  cudaError_t operator()() const {
+    if (!d.fits(k * H)) return cudaErrorInvalidValue;
+    const size_t bytes = tile_bytes<kBwdTX, kBwdTZ>(4, k * H, true);
+    const cudaError_t e = pfdc::allow_smem(block_bwd<H, kZ>, bytes);
+    if (e != cudaSuccess) return e;
+    const dim3 grid = tile_grid<kBwdTX, kBwdTZ>(ns, d);
+    const dim3 block = pfdc::tile_block();
+    block_bwd<H, kZ><<<grid, block, bytes, stream>>>(
+        ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out, snap0, snap1, img,
+        v2m, v2_shot_stride, xramp, zfac, strip, inj, inj_shot_stride, gz, k,
+        d, c);
+    return cudaGetLastError();
+  }
+};
+
+// The entry points' common checks: 1 <= k <= 8; a seeded block_bwd has
+// both snapshots and k >= 2.
+inline bool bad_steps(int k) { return k < 1 || k > pfdc::kMaxSteps; }
+
+inline bool bad_seed(const float* snap0, const float* snap1, int k) {
+  return (snap0 != nullptr && k < 2) ||
+         ((snap0 == nullptr) != (snap1 == nullptr));
+}
+
+}  // namespace

@@ -217,8 +217,8 @@ def _sharded(ctx, mesh, body, dim: int):
         parts = distribute_shots(mesh, _per_shot(v2, len(srcf)),
                                  np.asarray(srcf, np.float32),
                                  *(np.asarray(e, np.float32) for e in extra))
-        outs = [from_slabs(body(list(mesh.devices[i]), *group[:2], wav,
-                                *group[2:]), ctx.nxe, mesh.devices[0, 0], dim)
+        outs = [from_slabs(body(list(mesh.grid(i)[:, 0]), *group[:2], wav,
+                                *group[2:]), ctx.nxe, mesh.lead(), dim)
                 for i, group in enumerate(zip(*parts)) if len(group[0])]
         return torch.cat(outs)
     return fn

@@ -4,9 +4,9 @@
 Shots are independent given their velocities, so a shot-batched
 computation splits over the mesh's ``shot`` axis with no communication
 until the results are joined. Each shot group runs on the device of its
-row of the mesh (position x = 0) through the tiers that already exist: the
-per-step kernels, the K-step passes of the large-grid tier, or
-``rtm_main``'s ``rtm_full_cuda``. Groups on different devices run at once:
+row of the mesh (its first grid position, :meth:`.Mesh.lead`) through the
+tiers that already exist: the per-step kernels, the K-step passes of the
+large-grid tier, or ``rtm_main``'s ``rtm_full_cuda``. Groups on different devices run at once:
 their launches are queued on each device's stream before any result is
 read back.
 
@@ -42,11 +42,11 @@ def split_shots(ns: int, n_groups: int) -> list:
 
 def distribute_shots(mesh, *arrays):
     """Splits shot-batched arrays or tensors (leading axis = shot) over the
-    mesh's ``shot`` axis (:func:`split_shots`), each part on the device of
-    its group (position x = 0). Returns one list of tensors per array."""
+    mesh's ``shot`` axis (:func:`split_shots`), each part on its group's
+    lead device. Returns one list of tensors per array."""
     groups = split_shots(len(arrays[0]), mesh.shape["shot"])
     return tuple([torch.as_tensor(a)[torch.as_tensor(idx)].to(
-        mesh.devices[i, 0]) for i, idx in enumerate(groups)] for a in arrays)
+        mesh.lead(i)) for i, idx in enumerate(groups)] for a in arrays)
 
 
 def _run_groups(mesh, ns: int, run, *per_shot):
@@ -57,10 +57,9 @@ def _run_groups(mesh, ns: int, run, *per_shot):
     groups = split_shots(ns, mesh.shape["shot"])
     parts = (list(zip(*distribute_shots(mesh, *per_shot))) if per_shot
              else [()] * len(groups))
-    outs = [run(mesh.devices[i, 0], idx, *parts[i])
+    outs = [run(mesh.lead(i), idx, *parts[i])
             for i, idx in enumerate(groups) if len(idx)]
-    dev0 = mesh.devices[0, 0]
-    return torch.cat([o.to(dev0) for o in outs])
+    return torch.cat([o.to(mesh.lead()) for o in outs])
 
 
 def _on(v2, device):

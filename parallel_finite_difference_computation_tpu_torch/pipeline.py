@@ -22,12 +22,14 @@ error.
 With ``mesh=`` (:func:`.parallel.make_mesh`) the mesh's devices say where
 the work runs: a shot-only mesh splits the shots over its shot axis, each
 group on the tiers above (:mod:`.parallel.shots`); a mesh whose x axis is
-> 1 also cuts the grid into x-slabs, for ``run_modeling`` and
-``run_rtm_gpu``: K steps a block on the block kernels
-(:mod:`.parallel.domain_kernels`), or, on a mesh of CPU devices only, one
-step at a time on the plain per-step loops (:mod:`.parallel.domain`, as
-the JAX package runs its lax makers off the TPU). Not ported yet (ROADMAP.md): ``run_rtm_cpu`` over an x
-mesh, the (x, z) decomposition, and the checkpointed survey.
+> 1 also cuts the grid into x-slabs, and a (shot, x, z) mesh whose z axis
+is > 1 into (x, z) tiles, for ``run_modeling`` and ``run_rtm_gpu``: K steps
+a block on the block kernels (:mod:`.parallel.domain_kernels`,
+:mod:`.parallel.domain2d_kernels`), or, on a mesh of CPU devices only, one
+step at a time on the plain per-step loops (:mod:`.parallel.domain`,
+:mod:`.parallel.domain2d`, as the JAX package runs its lax makers off the
+TPU). Not ported yet (ROADMAP.md): ``run_rtm_cpu`` over a domain mesh and
+the checkpointed survey.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from . import io, numerics
 from .config import Params, Geometry
 from .ops.fd_kernels import (check_lap_impl, forward_modeling_cuda,
                              laplacian_cuda, rtm_full_cuda, rtm_snapshot_cuda)
+from .ops.stream import MAX_STEPS
 from .solver import FDContext, forward_modeling_tiled, rtm_shot_snapshot_tiled
 
 __all__ = ["run_stencil", "run_modeling", "run_rtm_cpu", "run_rtm_gpu",
@@ -151,8 +154,13 @@ def prepare_velocities_gpu(p: Params, vp: np.ndarray, *, device,
 
 
 def _mesh_decomposes_grid(mesh) -> bool:
-    """True when the mesh's x axis is > 1: the domain tier applies."""
-    return mesh.shape.get("x", 1) > 1
+    """True when the mesh's x or z axis is > 1: a domain tier applies."""
+    return mesh.shape.get("x", 1) > 1 or mesh.shape.get("z", 1) > 1
+
+
+def _mesh_cuts_z(mesh) -> bool:
+    """True when the mesh's z axis is > 1: the (x, z) tier applies."""
+    return mesh.shape.get("z", 1) > 1
 
 
 def _mesh_shots(mesh) -> int:
@@ -169,9 +177,10 @@ def run_modeling(p: Params, vp: Optional[np.ndarray] = None,
     optionally write the raw ``datfile`` blob the RTM programs read.
 
     With a ``mesh`` its devices run the work: the shots split over its
-    shot axis; an x axis > 1 decomposes the grid into x-slabs on the block
-    kernels (``backend`` is then not read), with blocks of K =
-    ``max(1, min(8, (nxe // n_x) // h, nt))`` steps, or on a mesh of CPU
+    shot axis; an x axis > 1 decomposes the grid into x-slabs, a z axis > 1
+    into (x, z) tiles, on the block kernels (``backend`` is then not read),
+    with blocks of K = ``max(1, min(8, (nxe // n_x) // h, (nze // n_z) //
+    h, nt))`` steps (the z term on a z axis > 1 only), or on a mesh of CPU
     devices one step at a time (:func:`_modeling_domain`)."""
     tier = resolve_backend(backend, p.nxe, p.nze)
     if vp is None:
@@ -210,26 +219,42 @@ def _mesh_on_cpu(mesh) -> bool:
     return all(d.type == "cpu" for d in mesh.devices.flat)
 
 
+def _block_k(ctx, mesh, limit: int) -> int:
+    """The JAX pipelines' block size of the domain tiers (its
+    pipeline.py:278, :298-299, :652, :666-668): ``min(8, (nxe // n_x) //
+    h, (nze // n_z) // h, limit)``, the z term on a z axis > 1 only."""
+    h = ctx.order // 2
+    parts = [(ctx.nxe // mesh.shape["x"]) // h]
+    if _mesh_cuts_z(mesh):
+        parts.append((ctx.nze // mesh.shape["z"]) // h)
+    return min(MAX_STEPS, *parts, limit)
+
+
 def _modeling_domain(ctx, g, mesh, lap_impl):
-    """``run(v2, sxs, wav) -> (ns, nt, nx)`` traces of the x-domain tier
-    (the JAX package's ``_run_modeling_domain``, its pipeline.py:268-321):
-    the block kernels with K = ``max(1, min(8, nxl // h, nt))``, or the
-    per-step loops on a CPU mesh."""
-    from .parallel import domain, domain_kernels as dk
+    """``run(v2, sxs, wav) -> (ns, nt, nx)`` traces of the x- or (x, z)-
+    domain tier (the JAX package's ``_run_modeling_domain``, its
+    pipeline.py:268-321): the block kernels with K = ``max(1,``
+    :func:`_block_k` ``(nt))``, or the per-step loops on a CPU mesh. A
+    tile too small for even K = 1 (fewer than h owned rows or columns)
+    raises on every mesh, before anything runs."""
+    from .parallel import (domain, domain2d, domain_kernels as dk,
+                           domain2d_kernels as d2k)
     check_lap_impl(lap_impl)
+    two_d = _mesh_cuts_z(mesh)
+    block_k = max(1, _block_k(ctx, mesh, ctx.nt))
+    if two_d:
+        d2k.tile_geometry(ctx, mesh.shape["x"], mesh.shape["z"], block_k)
     if _mesh_on_cpu(mesh):
-        fn = domain.make_sharded_forward_modeling(ctx, mesh, g.gz,
-                                                  source="gaussian",
-                                                  taper="all")
+        make = (domain2d.make_sharded_forward_modeling_2d if two_d
+                else domain.make_sharded_forward_modeling)
+        fn = make(ctx, mesh, g.gz, source="gaussian", taper="all")
         srcf = lambda sxs: domain.embed_source_fields(ctx, sxs, g.sz,
                                                       gaussian=True)
     else:
-        h = ctx.order // 2
-        block_k = max(1, min(dk.MAX_STEPS, (ctx.nxe // mesh.shape["x"]) // h,
-                             ctx.nt))
-        fn = dk.make_sharded_forward_modeling_cuda(
-            ctx, mesh, g.sz, g.gz, source="gaussian", taper="all",
-            block_k=block_k, lap_impl=lap_impl)
+        make = (d2k.make_sharded_forward_modeling_2d_cuda if two_d
+                else dk.make_sharded_forward_modeling_cuda)
+        fn = make(ctx, mesh, g.sz, g.gz, source="gaussian", taper="all",
+                  block_k=block_k, lap_impl=lap_impl)
         srcf = lambda sxs: sxs
     return lambda v2, sxs, wav: fn(v2, srcf(sxs), wav)[
         :, :, ctx.nxb:ctx.nxb + ctx.nx]
@@ -255,13 +280,15 @@ def run_rtm_cpu(p: Params, vp: Optional[np.ndarray] = None,
     taken, so a subset reproduces those shots of the whole run.
 
     With a shot-only ``mesh`` the shots split over its shot axis, each
-    group on ``rtm_full_cuda`` on its device. An x axis > 1, ``rtm_main``
-    over x-slabs, is still to be ported and raises."""
+    group on ``rtm_full_cuda`` on its device. An x or z axis > 1,
+    ``rtm_main`` over a decomposed grid, is still to be ported and
+    raises."""
     if mesh is not None and _mesh_decomposes_grid(mesh):
         raise NotImplementedError(
-            "run_rtm_cpu over a mesh whose x axis is > 1 (rtm_main's domain "
-            "tier, make_sharded_rtm_full) is still to be ported (see "
-            "ROADMAP.md, Queue 1 item 8); use a shot-only mesh")
+            "run_rtm_cpu over a mesh whose x or z axis is > 1 (rtm_main's "
+            "domain tiers, make_sharded_rtm_full and make_sharded_rtm_full_"
+            "2d) is still to be ported (see ROADMAP.md, Queue 1 item 8); use "
+            "a shot-only mesh")
     if vp is None:
         vp = io.read_velocity(p.vpfile, p.nx, p.nz)
     if dobs is None:
@@ -323,10 +350,11 @@ def run_rtm_gpu(p: Params, vp: Optional[np.ndarray] = None,
 
     With a ``mesh`` its devices run the work (the boundaries are drawn on
     its first device): the shots split over its shot axis; an x axis > 1
-    decomposes the grid into x-slabs on the block kernels (``backend`` is
-    then not read), with blocks of K = ``min(8, (nxe // n_x) // h,
-    nt // 2)`` steps, which must be >= 2, or on a mesh of CPU devices one
-    step at a time (:func:`_rtm_gpu_domain`)."""
+    decomposes the grid into x-slabs, a z axis > 1 into (x, z) tiles, on
+    the block kernels (``backend`` is then not read), with blocks of K =
+    ``min(8, (nxe // n_x) // h, (nze // n_z) // h, nt // 2)`` steps (the z
+    term on a z axis > 1 only), which must be >= 2, or on a mesh of CPU
+    devices one step at a time (:func:`_rtm_gpu_domain`)."""
     tier = resolve_backend(backend, p.nxe, p.nze)
     if vp is None:
         vp = io.read_velocity(p.vpfile, p.nx, p.nz)
@@ -348,7 +376,7 @@ def run_rtm_gpu(p: Params, vp: Optional[np.ndarray] = None,
         run = lambda v2, d, sxs, wav: rtm(ctx, v2, wav, d.to(device), sxs,
                                           g.sz, g.gz, lap_impl=lap_impl, **kw)
     vel2 = prepare_velocities_gpu(
-        p, vp, device=device if mesh is None else mesh.devices[0, 0],
+        p, vp, device=device if mesh is None else mesh.lead(),
         seed=seed, generator=generator)
     wav = numerics.ricker_wavelet(p.nt, p.dt, p.fpeak)
     dobs = np.asarray(dobs, np.float32)
@@ -380,30 +408,32 @@ def _write_rtm_gpu_outputs(outdir, img, imlocs, write_image_num):
 
 
 def _rtm_gpu_domain(ctx, g, mesh, lap_impl):
-    """``run(v2, dobs, sxs, wav) -> (ns, nx, nz)`` images of the x-domain
-    tier (the JAX package's ``_run_rtm_gpu_domain``, its
-    pipeline.py:632-685): the block kernels with K = ``min(8, nxl // h,
-    nt // 2)``, or the per-step loops on a CPU mesh. K < 2 raises on every
-    mesh, so that a CPU run meets the card's limits."""
-    from .parallel import domain, domain_kernels as dk
+    """``run(v2, dobs, sxs, wav) -> (ns, nx, nz)`` images of the x- or
+    (x, z)-domain tier (the JAX package's ``_run_rtm_gpu_domain``, its
+    pipeline.py:632-685): the block kernels with K = :func:`_block_k`
+    ``(nt // 2)``, or the per-step loops on a CPU mesh. K < 2 raises on
+    every mesh, so that a CPU run meets the card's limits."""
+    from .parallel import (domain, domain2d, domain_kernels as dk,
+                           domain2d_kernels as d2k)
     check_lap_impl(lap_impl)
-    h = ctx.order // 2
-    block_k = min(dk.MAX_STEPS, (ctx.nxe // mesh.shape["x"]) // h,
-                  ctx.nt // 2)
+    two_d = _mesh_cuts_z(mesh)
+    block_k = _block_k(ctx, mesh, ctx.nt // 2)
     if block_k < 2:
         raise NotImplementedError(
-            f"the x-domain RTM needs blocks of K >= 2 steps, this grid and "
-            f"mesh give K={block_k} (nxe={ctx.nxe}, x={mesh.shape['x']}, "
-            f"nt={ctx.nt}); the JAX package's per-step fallback on the card "
-            f"is not ported (see ROADMAP.md, Queue 1 item 8): use fewer x "
-            f"shards")
+            f"the domain RTM needs blocks of K >= 2 steps, this grid and "
+            f"mesh give K={block_k} (nxe={ctx.nxe}, nze={ctx.nze}, mesh "
+            f"{mesh.shape}, nt={ctx.nt}); the JAX package's per-step "
+            f"fallback on the card is not ported (see ROADMAP.md, Queue 1 "
+            f"item 8): use fewer x or z shards")
     if _mesh_on_cpu(mesh):
-        run = domain.make_sharded_rtm_snapshot(ctx, mesh, g.gz)
+        run = (domain2d.make_sharded_rtm_snapshot_2d if two_d
+               else domain.make_sharded_rtm_snapshot)(ctx, mesh, g.gz)
         fn = lambda v2, sxs, wav, d_ext: run(
             v2, domain.embed_source_fields(ctx, sxs, g.sz), wav, d_ext)
     else:
-        fn = dk.make_sharded_rtm_snapshot_cuda(
-            ctx, mesh, g.sz, g.gz, block_k=block_k, lap_impl=lap_impl)
+        make = (d2k.make_sharded_rtm_snapshot_2d_cuda if two_d
+                else dk.make_sharded_rtm_snapshot_cuda)
+        fn = make(ctx, mesh, g.sz, g.gz, block_k=block_k, lap_impl=lap_impl)
     return lambda v2, d, sxs, wav: fn(v2, sxs, wav, domain.embed_dobs(
         ctx, d.numpy()))[:, ctx.nxb:ctx.nxe - ctx.nxb,
                          ctx.nzb:ctx.nze - ctx.nzb]

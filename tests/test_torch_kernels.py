@@ -64,7 +64,7 @@ from parallel_finite_difference_computation_tpu_torch.models import zoo
 from parallel_finite_difference_computation_tpu_torch.ops import (
     _build, fd_kernels, stencil)
 from parallel_finite_difference_computation_tpu_torch.parallel import (
-    domain, domain_kernels, mesh, shots)
+    domain, domain2d, domain2d_kernels, domain_kernels, mesh, shots)
 import numpy as np
 p = tpk.Params(nz=12, nx=14, nt=6, dz=10.0, dx=10.0, dt=0.001, fpeak=25.0,
                ns=2, sz=3, fsx=4, ds=5, gz=1, nxb=5, nzb=5, fac=0.7)
@@ -84,6 +84,16 @@ seis = domain_kernels.make_sharded_forward_modeling_cuda(
     pipeline.prepare_velocity_cpu(p, vp), g.sx,
     numerics.ricker_wavelet(p.nt, p.dt, p.fpeak, truncated=True))
 assert np.array_equal(seis[:, :, p.nxb:p.nxb + p.nx].transpose(1, 2), d)
+m4 = mesh.make_mesh(1, 2, 2, devices=["cpu"] * 4)    # (x, z) tiles
+dz = pipeline.run_modeling(p, vp=vp, mesh=m4)
+imgz, _ = pipeline.run_rtm_gpu(p, vp=vp, dobs=d, mesh=m4)
+assert np.array_equal(dz, d)
+assert np.abs(imgz - img).max() <= 1e-5 * np.abs(img).max()
+seis2 = domain2d_kernels.make_sharded_forward_modeling_2d_cuda(
+    ctx, m4, g.sz, g.gz, block_k=2)(
+    pipeline.prepare_velocity_cpu(p, vp), g.sx,
+    numerics.ricker_wavelet(p.nt, p.dt, p.fpeak, truncated=True))
+assert np.array_equal(seis2[:, :, p.nxb:p.nxb + p.nx].transpose(1, 2), d)
 img2, _ = pipeline.run_rtm_cpu(p, vp=vp, dobs=d, device="cpu")
 p.tmpdir = {str(tmp_path / "field.bin")!r}
 io.write_f32(p.tmpdir, np.ones((p.nxe, p.nze), np.float32))
@@ -462,6 +472,80 @@ def test_block_kernels_match_plain_on_the_card(cuda_device, order, block_k):
             dk.make_sharded_forward_modeling_cuda(ctx, mesh, sz, gz,
                                                   block_k=k)(v2[0], sxs, wav),
             dk.make_sharded_rtm_snapshot_cuda(ctx, mesh, sz, gz, block_k=k)(
+                v2, sxs, wav, d_ext)))
+    for got in outs[:2]:
+        same([t.cpu() for t in got], outs[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [4, 8, 10])
+@pytest.mark.parametrize("block_k", [2, 3])
+def test_block2_kernels_match_plain_on_the_card(cuda_device, order, block_k):
+    """The (x, z)-domain tier's kernels (block2_mod, block2_fwd,
+    block2_bwd) against their plain versions on the same CUDA tensors,
+    launch by launch on random states of the tiles of a (1, 2, 2) mesh,
+    seeded and tail blocks included, block2_mod with both source modes;
+    then the two makers on a (2, 2, 2) mesh of the card, and on one whose
+    positions alternate between the card and the CPU, against the same
+    makers on a CPU mesh. The grid (84 x 77 extended) is no multiple of
+    the mesh nor of the tiles; the sources sit at the x cut and across the
+    z cut, the receiver row in the second z part."""
+    from parallel_finite_difference_computation_tpu_torch.parallel import (
+        domain2d_kernels as d2k, make_mesh)
+    from parallel_finite_difference_computation_tpu_torch.parallel.domain \
+        import embed_dobs
+    nt = 9
+    rng = np.random.default_rng(order + block_k)
+    ctx = solver.FDContext.create(70, 63, nt, dx=10.0, dz=10.0, dt=0.001,
+                                  order=order, nxb=7, nzb=7, fac=0.7)
+    v2 = torch.from_numpy(((1500.0 + 500.0 * rng.random(
+        (2, ctx.nxe, ctx.nze))).astype(np.float32)) ** 2)
+    wav = numerics.ricker_wavelet(nt, 0.001, 30.0)
+    d_ext = embed_dobs(ctx, rng.standard_normal(
+        (2, ctx.nx, nt)).astype(np.float32))
+    sxs, sz, gz = (41, 42), 38, 40
+    k = block_k
+    geom = d2k.tile_geometry(ctx, 2, 2, k)
+    grid = make_mesh(1, 2, 2, devices=[cuda_device] * 4).grid(0)
+    ms = d2k.prepare_tiles(ctx, grid, geom, v2[0], "all", sxs=sxs, sz=sz,
+                           source="gaussian", gz=gz)
+    rs = d2k.prepare_tiles(ctx, grid, geom, v2, "top", sxs=sxs, sz=sz,
+                           dobs_ext=d_ext, gz=gz)
+    d2k.reset_launches()
+
+    def same(got, want):      # (the traces of a tile that records none: 0)
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= GATE * float(b.abs().max())
+
+    for cm, cr in zip(ms, rs):
+        f = [torch.from_numpy(rng.standard_normal(
+            (2, cm.nxw, cm.nzw)).astype(np.float32)).to(cuda_device)
+             for _ in range(6)]
+        img = torch.from_numpy(rng.standard_normal(
+            (2, cm.nxl, cm.nzl)).astype(np.float32)).to(cuda_device)
+        for kk in (k, k - 1):
+            a = wav[:kk]
+            for c in (cm, cr):            # gaussian/all, point/top
+                same(d2k.block2_mod_cuda(c, f[0], f[1], a),
+                     d2k.block2_mod(c, f[0], f[1], a))
+            same(d2k.block2_fwd_cuda(cr, f[0], f[1], a),
+                 d2k.block2_fwd(cr, f[0], f[1], a))
+            same(d2k.block2_bwd_cuda(cr, *f[:4], img.clone(), k, kk),
+                 d2k.block2_bwd(cr, *f[:4], img, k, kk))
+        same(d2k.block2_bwd_cuda(cr, *f[:4], img.clone(), 0, k, f[4:]),
+             d2k.block2_bwd(cr, *f[:4], img, 0, k, f[4:]))
+    torch.cuda.synchronize()
+    assert d2k.LAUNCHES == {"block2_mod": 16, "block2_fwd": 8,
+                            "block2_bwd": 12}
+    outs = []
+    for devices in ([cuda_device] * 8, [cuda_device, "cpu"] * 4,
+                    ["cpu"] * 8):
+        mesh = make_mesh(2, 2, 2, devices=devices)
+        outs.append((
+            d2k.make_sharded_forward_modeling_2d_cuda(
+                ctx, mesh, sz, gz, block_k=k)(v2[0], sxs, wav),
+            d2k.make_sharded_rtm_snapshot_2d_cuda(ctx, mesh, sz, gz,
+                                                  block_k=k)(
                 v2, sxs, wav, d_ext)))
     for got in outs[:2]:
         same([t.cpu() for t in got], outs[2])

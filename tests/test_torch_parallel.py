@@ -7,7 +7,8 @@ The port's meshes put every position on the CPU (a device may repeat), so
 its makers run the plain block functions (``parallel/domain_kernels.py``)
 and the plain per-step loops (``parallel/domain.py``).
 
-* Mesh: shapes, the too-few-devices error, repeated devices, z > 1.
+* Mesh: shapes, the too-few-devices error, repeated devices, z > 1
+  (a three-axis mesh).
 * The halo exchanges and the sharded Laplacian, bitwise against the JAX
   ones (the row exchange against ``halo_exchange_lanes``) and the unsharded
   Laplacian.
@@ -117,8 +118,12 @@ def test_make_mesh_shapes_and_errors():
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="mesh needs 2 devices, have 0"):
             make_mesh(1, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh(1, 2, n_z=2, devices=["cpu"] * 4)
+    # n_z > 1: a (shot, x, z) mesh, the (x, z) tier's
+    m3 = make_mesh(1, 2, n_z=2, devices=["cpu"] * 4)
+    assert m3.shape == {"shot": 1, "x": 2, "z": 2}
+    assert m3.axis_names == ("shot", "x", "z")
+    assert m3.grid(0).shape == (2, 2) and m3.lead() == torch.device("cpu")
+    assert m.grid(1).shape == (4, 1)
 
 
 def test_split_and_pad_shots():
