@@ -98,7 +98,28 @@ Run from the root of the repository, on a machine with one CUDA card and
    version's and the per-step kernel call for the same function in turns,
    the two makers' whole calls against the per-step calls, and one
    profiler trace of each: the copy kernels' (the two-stage exchange)
-   and the idle share of the call.
+   and the idle share of the call;
+19. stream-step kernels vs plain: ``fd_step`` (both tapers; no injection,
+   the Gaussian window, the point source, the receiver row at nxb, at nzb
+   and at nxe, where it clamps) and ``fd_update`` against their plain
+   versions on the same CUDA tensors, then the four tiled loops at
+   K = 1 against the whole-grid plain loops and ``forward_modeling_tiled``'s
+   other modes at K = 2, in short runs (nt=21) on phase 8's 67 x 88 grid
+   (nxb 7, nzb 9) at orders 4, 8, 10, 12 and 16; then three steps at the
+   full Pluto grid, 2 shots; gate: max relative error <= 1e-5;
+20. the K = 1 tier at the Pluto grid (2 shots, nt=203, phase 9's shapes):
+   the launch counts of the three K = 1 loops, their gathers bitwise the
+   per-step tier's, ``rtm_shot_snapshot_tiled`` against
+   ``rtm_snapshot_cuda``, ``rtm_shot_full_tiled`` against
+   ``rtm_full_cuda`` (and against the plain ``rtm_shot_full`` on one shot),
+   and ``run_rtm_cpu(backend="tiled")`` against ``"pallas"`` on the 3lay
+   config and at the Pluto grid; gate: 1e-5 rel RMS;
+21. times and profile of the K = 1 tier at the Pluto grid, 2 shots,
+   nt=1001: ``fd_step`` and ``fd_update`` over 1001 launches, their plain
+   versions and the per-step kernel for a step of the same kind
+   (``mod_step``, ``rtm_fwd_step``), with their bounds; the K = 1 modeling
+   and RTM calls against the K = 4 and per-step calls; one profiler trace
+   of each K = 1 call (kernel time, the other ops' launches, idle share).
 
 Every phase prints its seconds. It prints one JSON line of per-kernel results (with each kernel's bound,
 worked out from this run's shapes), the nvidia-smi line, and, as the last
@@ -156,6 +177,10 @@ KERNELS = {
                    "parallel_finite_difference_computation_tpu/parallel/domain2d_pallas.py:99"),
     "block2_bwd": (f"{PKG}/csrc/domain2d_block.cu",
                    "parallel_finite_difference_computation_tpu/parallel/domain2d_pallas.py:124"),
+    "fd_step": (f"{PKG}/csrc/stream_step.cu",
+                "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:76"),
+    "fd_update": (f"{PKG}/csrc/stream_step.cu",
+                  "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:171"),
 }
 # The reference's full-resolution Pluto config
 # (dpct_gpu_rtm_domain_division/build/pluto/input.orig, as restated in
@@ -1625,6 +1650,290 @@ def main() -> int:
               f"{copies / pluto_ms[c]:.3f}; idle share "
               f"{1 - busy / pluto_ms[c]:.3f}; {smi}", flush=True)
     phase_done("Pluto (x, z) path")
+
+    # ---- 19. the per-step streaming kernels vs plain on the card
+    def compare_stream(case, order):
+        """(max rel err, max abs err) of fd_step (both tapers; no injection,
+        the Gaussian window, the point source, the receiver row at nxb, at
+        nzb and at nxe, which clamps to nxe - nx) and fd_update against
+        their plain versions on random states; then the four tiled loops at
+        K = 1 against the whole-grid plain loops (and rtm_shot_full_tiled
+        against rtm_full_cuda), and forward_modeling_tiled's modes at K = 2
+        (point source and top taper on kstep_mod; the Gaussian wavefield on
+        rec_fwd_step)."""
+        ctx_m, ctx_r, v2_m, v2_r, wav_m, wav_r, d, gp_ = case
+        rng = np.random.default_rng(order)
+        p_, pp_ = randn(rng, 2, ctx_m.nxe, ctx_m.nze), randn(
+            rng, 2, ctx_m.nxe, ctx_m.nze)
+        row = randn(rng, 2, ctx_m.nx)
+        out = {}
+
+        def note(name, e):
+            old = out.get(name, (0.0, 0.0))
+            out[name] = (max(old[0], e[0]), max(old[1], e[1]))
+
+        injections = [{}, dict(amp=0.7, sx=gp_.sx, sz=gp_.sz),
+                      dict(amp=0.7, sx=gp_.sx, sz=gp_.sz, source="point")]
+        injections += [dict(inj_row=row, x0=x0, gz=gp_.gz)
+                       for x0 in (ctx_m.nxb, ctx_m.nzb, ctx_m.nxe)]
+        for taper in ("all", "top"):
+            for kw in injections:
+                note("fd_step", errs(
+                    stream.fd_step_cuda(ctx_m, p_, pp_, v2_m, taper, **kw),
+                    solver.fd_step(ctx_m, p_, pp_, v2_m, taper, **kw)))
+        note("fd_update", errs(stream.fd_update_cuda(ctx_r, p_, pp_, v2_r),
+                               solver.fd_update(ctx_r, p_, pp_, v2_r)))
+        args = (v2_m, wav_m, gp_.sx, gp_.sz, gp_.gz)
+        note("forward_modeling_tiled K=1", errs(
+            solver.forward_modeling_tiled(ctx_m, *args, block_k=1),
+            solver.forward_modeling(ctx_m, *args)))
+        mode = dict(source="point", taper="top", record="wavefield")
+        note("forward_modeling_tiled K=1", errs(
+            solver.forward_modeling_tiled(ctx_m, *args, **mode, block_k=1),
+            solver.forward_modeling(ctx_m, *args, **mode)))
+        nxt = torch.cat([d[1:, 0, 0], d.new_zeros(1)]).cpu().numpy()
+        for quirk in (True, False):
+            note("backward_recorded_tiled K=1", errs(
+                solver.backward_recorded_tiled(ctx_m, v2_m, d, gp_.gz,
+                                               x_off_quirk=quirk,
+                                               next_shot_first=nxt),
+                solver.backward_recorded(ctx_m, v2_m, d, gp_.gz,
+                                         x_off_quirk=quirk,
+                                         next_shot_first=nxt)))
+        full = solver.rtm_shot_full_tiled(ctx_m, v2_m, wav_m, d, gp_.sx,
+                                          gp_.sz, gp_.gz, next_shot_first=nxt)
+        note("rtm_shot_full_tiled K=1 vs rtm_full_cuda", errs(
+            full, fk.rtm_full_cuda(ctx_m, v2_m, wav_m, d, gp_.sx, gp_.sz,
+                                   gp_.gz, next_shot_first=nxt)))
+        note("rtm_shot_snapshot_tiled K=1", errs(
+            solver.rtm_shot_snapshot_tiled(ctx_r, v2_r, wav_r, d, gp_.sx,
+                                           gp_.sz, gp_.gz, block_k=1),
+            solver.rtm_shot_snapshot(ctx_r, v2_r, wav_r, d, gp_.sx, gp_.sz,
+                                     gp_.gz)))
+        for mode in (dict(source="point", taper="top", record="trace"),
+                     dict(source="gaussian", taper="all",
+                          record="wavefield")):
+            note("forward_modeling_tiled K=2, other modes", errs(
+                solver.forward_modeling_tiled(ctx_m, *args, **mode,
+                                              block_k=2),
+                solver.forward_modeling(ctx_m, *args, **mode)))
+        torch.cuda.synchronize()
+        return out
+
+    stream_err = {"fd_step": 0.0, "fd_update": 0.0}
+    for order in (4, 8, 10, 12, 16):
+        for name, (rel, absd) in compare_stream(
+                tier_case(dataclasses.replace(short, order=order)),
+                order).items():
+            print(f"[stream vs plain] {name} order {order} nt {short.nt} 67 "
+                  f"x 88 (nxb 7, nzb 9): max rel err {rel:.3e}, max abs err "
+                  f"{absd:.3e}", flush=True)
+            check(rel <= GATE, f"{name} order {order}: {rel:.3e} > {GATE}")
+            if name in stream_err:
+                stream_err[name] = max(stream_err[name], absd)
+    # a few steps at the full Pluto grid, 2 shots: fd_step with the Gaussian
+    # source (all-edge taper) and the receiver row (top strip), fd_update
+    # with one velocity plane a shot, from random states
+    rng = np.random.default_rng(19)
+    st = [randn(rng, pt.ns, pt.nxe, pt.nze) for _ in range(2)]
+    rows = randn(rng, pt.ns, pt.nx)
+    for step in range(3):
+        for taper, kw in (("all", dict(amp=float(wav_pm[step]), sx=gp.sx,
+                                       sz=gp.sz)),
+                          ("top", dict(inj_row=rows, x0=ctx_pm.nzb,
+                                       gz=gp.gz))):
+            rel, absd = errs(
+                stream.fd_step_cuda(ctx_pm, *st, v2_pm, taper, **kw),
+                solver.fd_step(ctx_pm, *st, v2_pm, taper, **kw))
+            print(f"[stream vs plain] fd_step at the Pluto grid ({pt.nxe} x "
+                  f"{pt.nze}, {pt.ns} shots, taper {taper}, step {step}): "
+                  f"max rel err {rel:.3e}, max abs err {absd:.3e}",
+                  flush=True)
+            check(rel <= GATE, f"fd_step at the Pluto grid: {rel:.3e}")
+            stream_err["fd_step"] = max(stream_err["fd_step"], absd)
+        rel, absd = errs(stream.fd_update_cuda(ctx_pm, *st, v2_pr),
+                         solver.fd_update(ctx_pm, *st, v2_pr))
+        print(f"[stream vs plain] fd_update at the Pluto grid, step {step}: "
+              f"max rel err {rel:.3e}, max abs err {absd:.3e}", flush=True)
+        check(rel <= GATE, f"fd_update at the Pluto grid: {rel:.3e}")
+        stream_err["fd_update"] = max(stream_err["fd_update"], absd)
+        st = list(solver.fd_step(ctx_pm, *st, v2_pm, "all"))[::-1]
+    for k, e in stream_err.items():
+        results[k]["max_abs_err"] = e
+    del st, rows
+    phase_done("stream-step kernels vs plain")
+
+    # ---- 20. the K = 1 tier at the Pluto grid, 2 shots, nt = 203 (the
+    # phase-9 shapes), against the per-step tier; then rtm_main's two
+    # tiers through run_rtm_cpu on the 3lay config and at the Pluto grid
+    case = tier_case(pluto, PLUTO_VELOCITIES)
+    ctx_m, ctx_r, v2_m, v2_r, wav_m, wav_r, d, gp20 = case
+    nxt20 = torch.cat([d[1:, 0, 0], d.new_zeros(1)]).cpu().numpy()
+    fk.reset_launches()
+    stream.reset_launches()
+    k1 = {"gathers": solver.forward_modeling_tiled(
+              ctx_m, v2_m, wav_m, gp20.sx, gp20.sz, gp20.gz, block_k=1)[2],
+          "snapshot": solver.rtm_shot_snapshot_tiled(
+              ctx_r, v2_r, wav_r, d, gp20.sx, gp20.sz, gp20.gz, block_k=1),
+          "full": solver.rtm_shot_full_tiled(
+              ctx_m, v2_m, wav_m, d, gp20.sx, gp20.sz, gp20.gz,
+              next_shot_first=nxt20, block_k=1)}
+    torch.cuda.synchronize()
+    launches = dict(stream.LAUNCHES)
+    print(f"[K=1 tier] Pluto ({pluto.nxe} x {pluto.nze}, ns {pluto.ns}, nt "
+          f"{pluto.nt}): forward_modeling_tiled, rtm_shot_snapshot_tiled and "
+          f"rtm_shot_full_tiled at block_k=1: launches {launches}, "
+          f"{dict(fk.LAUNCHES)}", flush=True)
+    want = {"fd_step": 3 * pluto.nt, "fd_update": pluto.nt - 2,
+            "gpu_step": 2 * pluto.nt}
+    for k, n in launches.items():
+        check(n == want.get(k, 0), f"K=1 tier: {k} launched {n} times, "
+                                   f"expected {want.get(k, 0)}")
+    check(not any(fk.LAUNCHES.values()), f"the K=1 tier launched per-step "
+                                         f"kernels: {fk.LAUNCHES}")
+    for k in ("fd_step", "fd_update"):
+        results[k]["launches"] = launches[k]
+    ref = fk.forward_modeling_cuda(ctx_m, v2_m, wav_m, gp20.sx, gp20.sz,
+                                   gp20.gz)[2]
+    check(torch.equal(k1["gathers"], ref),
+          f"K=1 gathers are not bitwise the per-step tier's: "
+          f"{errs(k1['gathers'], ref)}")
+    rr = {"snapshot": rel_rms(k1["snapshot"].cpu(), fk.rtm_snapshot_cuda(
+              ctx_r, v2_r, wav_r, d, gp20.sx, gp20.sz, gp20.gz).cpu()),
+          "full": rel_rms(k1["full"].cpu(), fk.rtm_full_cuda(
+              ctx_m, v2_m, wav_m, d, gp20.sx, gp20.sz, gp20.gz,
+              next_shot_first=nxt20).cpu())}
+    plain1 = solver.rtm_shot_full(ctx_m, v2_m, wav_m, d[:1], gp20.sx[:1],
+                                  gp20.sz, gp20.gz,
+                                  next_shot_first=nxt20[:1]).cpu()
+    rr["full, shot 0, vs plain"] = rel_rms(k1["full"][:1].cpu(), plain1)
+    print(f"[K=1 tier] gathers bitwise the per-step tier's; images rel RMS "
+          f"{rr} (rtm_shot_snapshot_tiled vs rtm_snapshot_cuda, "
+          f"rtm_shot_full_tiled vs rtm_full_cuda and the plain "
+          f"rtm_shot_full)", flush=True)
+    check(max(rr.values()) <= GATE, f"K=1 images differ: {rr}")
+    del k1, ref, plain1
+    dobs20 = d.cpu().numpy()
+    for label, p_, vp_, dobs_ in (
+            ("3lay", P, vp, data),
+            ("Pluto", pluto, layered_model(pluto.nx, pluto.nz,
+                                           velocities=PLUTO_VELOCITIES),
+             dobs20)):
+        outs = {}
+        for backend in ("tiled", "pallas"):
+            fk.reset_launches()
+            stream.reset_launches()
+            t0 = time.perf_counter()
+            outs[backend] = pipeline.run_rtm_cpu(p_, vp=vp_, dobs=dobs_,
+                                                 device=dev, backend=backend)
+            torch.cuda.synchronize()
+            print(f"[K=1 tier] run_rtm_cpu {label} backend={backend!r} (ns "
+                  f"{p_.ns}, nt {p_.nt}): {time.perf_counter() - t0:.3f} s "
+                  f"wall; launches {dict(fk.LAUNCHES)}, "
+                  f"{dict(stream.LAUNCHES)}", flush=True)
+            check(fk.LAUNCHES["rec_fwd_step"] == p_.nt
+                  and fk.LAUNCHES["rec_bwd_step"] == p_.nt
+                  and np.isfinite(outs[backend][1]).all()
+                  and np.abs(outs[backend][0]).max() > 0,
+                  f"run_rtm_cpu {label} {backend}")
+        rr = [rel_rms(a, b) for a, b in zip(outs["tiled"], outs["pallas"])]
+        print(f"[K=1 tier] run_rtm_cpu {label}: tiled vs pallas image rel RMS "
+              f"{rr[0]:.3e}, per-shot {rr[1]:.3e}", flush=True)
+        check(max(rr) <= GATE, f"run_rtm_cpu {label} tiers differ")
+    del case, d, outs
+    phase_done("K=1 tier at the Pluto grid")
+
+    # ---- 21. times and profile of the K = 1 tier at the Pluto grid, 2
+    # shots, nt=1001: each new kernel's launches over the steps (constants
+    # and buffers made once, as the tiled loops do), its plain version's, and
+    # the per-step kernel call for the same function, in turns; then the
+    # whole K = 1 calls against the K = 4 and per-step calls, and one trace
+    # of each K = 1 call
+    c_mod = stream.prepare(ctx_pm, v2_pm, gp.sx, source="gaussian",
+                           taper="all")
+    c_rtm = stream.prepare(ctx_pr, v2_pr, gp.sx, source="point", taper="top")
+    st = [randn(np.random.default_rng(21), pt.ns, pt.nxe, pt.nze)
+          for _ in range(4)]
+    # the plain step with its mask and patch on the card once, as the
+    # plain loops hold them (solver.fd_step uploads the mask every call)
+    mask_all = torch.as_tensor(ctx_pm.mask_all, device=dev)
+    patch = torch.as_tensor(ctx_pm.source_patch, device=dev)
+
+    def step_loop(kernel: bool, update: bool):
+        def run():
+            if update:
+                for _ in range(pt.nt):
+                    if kernel:
+                        stream.fd_update_cuda(ctx_pr, st[0], st[1], v2_pr,
+                                              consts=c_rtm, out=st[2])
+                    else:
+                        solver.fd_update(ctx_pr, st[0], st[1], v2_pr)
+                return
+            for amp in wav_pm:
+                kw = dict(amp=float(amp), sx=gp.sx, sz=gp.sz)
+                if kernel:
+                    stream.fd_step_cuda(ctx_pm, st[0], st[1], v2_pm, "all",
+                                        consts=c_mod, out=st[2:], **kw)
+                else:
+                    solver._step(ctx_pm, st[0], st[1], v2_pm, mask_all,
+                                 float(amp), gp.sx, gp.sz, patch)
+        return run
+
+    plane = pt.nxe * pt.nze
+    h = pt.order // 2
+    lapc = (pt.nxe - 2 * h) * (pt.nze - 2 * h)
+    ramps = pt.nxe + 2 * pt.nze
+    steps = pt.ns * pt.nt
+    stream_bounds = {
+        # fd_step: reads p, pp, one v2*dt2 plane, the ramps and the patch;
+        # writes p*m and u*m; the update (4), two tapers, the Gaussian add
+        "fd_step": bound(4 * pt.nt * (4 * pt.ns * plane + plane + ramps + 50),
+                         steps * (lapc * lap_flops(h) + 6 * plane + 2 * 49)),
+        # fd_update: reads p, pp and one v2*dt2 plane a shot; writes one
+        # field a shot; the update (4)
+        "fd_update": bound(4 * pt.nt * 4 * pt.ns * plane,
+                           steps * (lapc * lap_flops(h) + 4 * plane))}
+    yardstick = {
+        "fd_step": ("mod_step", lambda: fk.forward_modeling_cuda(
+            ctx_pm, v2_pm, wav_pm, gp.sx, gp.sz, gp.gz)),
+        "fd_update": ("rtm_fwd_step", lambda: fk.fd_forward_cuda(
+            ctx_pr, v2_pr, wav_pr, gp.sx, gp.sz))}
+    for k, update in (("fd_step", False), ("fd_update", True)):
+        tk, tp, ts = in_turns([step_loop(True, update),
+                               step_loop(False, update), yardstick[k][1]])
+        bms, by = stream_bounds[k]
+        print(f"[times] {k} at the Pluto grid ({pt.ns} shots, {pt.nt} "
+              f"launches): kernel {span(tk)}, plain {span(tp)}, per-step "
+              f"kernel {yardstick[k][0]} {span(ts)}; bound {bms:.3f} ms "
+              f"({by}), kernel / bound {statistics.median(tk) / bms:.2f}; "
+              f"{smi}", flush=True)
+        results[k].update(ms=statistics.median(tk),
+                          plain_ms=statistics.median(tp), bound_ms=bms,
+                          bound_by=by, library_ms=None)
+    del st
+    pluto_calls["modeling K=1"] = lambda: solver.forward_modeling_tiled(
+        ctx_pm, v2_pm, wav_pm, gp.sx, gp.sz, gp.gz, block_k=1)
+    pluto_calls["RTM K=1"] = lambda: solver.rtm_shot_snapshot_tiled(
+        ctx_pr, v2_pr, wav_pr, d_p, gp.sx, gp.sz, gp.gz, block_k=1)
+    for trio in (("modeling K=1", "modeling tiled", "modeling per-step"),
+                 ("RTM K=1", "RTM tiled", "RTM per-step")):
+        ts = in_turns([pluto_calls[c] for c in trio])
+        for c, t in zip(trio, ts):
+            pluto_ms[c] = statistics.median(t)
+            print(f"[times] Pluto {c} ({pt.ns} shots, nt {pt.nt}; tiled = "
+                  f"K={K}): {span(t)}, {pluto_ms[c] / 1e3 / pt.ns:.6f} s/shot; "
+                  f"{smi}", flush=True)
+    ours = ("fd_step", "fd_update", "gpu_step")
+    for c in ("modeling K=1", "RTM K=1"):
+        rows = profile(torch, f"Pluto {c}", pluto_calls[c], pluto_ms[c], smi)
+        busy = sum(t for _, t, _ in rows)
+        other = [(key, t, n) for key, t, n in rows
+                 if not any(o in key for o in ours)]
+        print(f"[profile] Pluto {c}: other ops (trace copies, the point "
+              f"source's index add, fills) {sum(t for _, t, _ in other):.3f} "
+              f"ms in {sum(n for _, _, n in other)} launches; idle share "
+              f"{1 - busy / pluto_ms[c]:.3f}; {smi}", flush=True)
+    phase_done("K=1 times and profile")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

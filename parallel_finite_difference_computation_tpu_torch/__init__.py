@@ -13,7 +13,8 @@ grid's x axis, or both its axes, over a mesh of devices.
 from .config import Params, Geometry, parse_input_dat
 from .solver import (
     FDContext, forward_modeling, fd_forward, fd_back, rtm_shot_snapshot,
-    backward_recorded, rtm_shot_full,
+    backward_recorded, rtm_shot_full, forward_modeling_tiled,
+    backward_recorded_tiled, rtm_shot_full_tiled, rtm_shot_snapshot_tiled,
 )
 from . import numerics, io, pipeline, parallel
 from .parallel import make_mesh

@@ -19,7 +19,7 @@
 
 namespace pfdc {
 
-constexpr int kMaxHalf = 5;  // order 10
+constexpr int kMaxHalf = 8;  // order 16
 constexpr int kBlockZ = 32;
 constexpr int kBlockX = 8;
 
@@ -114,6 +114,9 @@ cudaError_t dispatch_half(int order, F&& f) {
     case 3: return f.template operator()<3>();
     case 4: return f.template operator()<4>();
     case 5: return f.template operator()<5>();
+    case 6: return f.template operator()<6>();
+    case 7: return f.template operator()<7>();
+    case 8: return f.template operator()<8>();
     default: return cudaErrorInvalidValue;
   }
 }

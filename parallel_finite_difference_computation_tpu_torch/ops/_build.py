@@ -84,6 +84,15 @@ _SIGNATURES = {
     #                   nzb, ns, nxe, nze, order, cx, cz, stream)
     "pfdc_gpu_step_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                           _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # pfdc_fd_step_run(p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp,
+    #                  zfac, strip, patch, r, sx, sz, amp, inj,
+    #                  inj_shot_stride, x0, gz, nx, ns, nxe, nze, order, cx,
+    #                  cz, stream)
+    "pfdc_fd_step_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I,
+                         _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # pfdc_fd_update_run(p, pp, out, v2dt2, v2_shot_stride, ns, nxe, nze,
+    #                    order, cx, cz, stream)
+    "pfdc_fd_update_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # pfdc_block_mod_run(p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp,
     #                    zfac, strip, src, r, sz, amps, k, rec, gz, ns, hs,
     #                    nxl, nze, order, cx, cz, stream)

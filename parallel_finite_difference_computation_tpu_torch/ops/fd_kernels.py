@@ -76,10 +76,21 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_order(ctx: FDContext) -> None:
-    if ctx.order % 2 or not 2 <= ctx.order <= 10:
-        raise ValueError(f"the CUDA step kernels take even orders 2..10, "
-                         f"got {ctx.order}")
+# The highest order the kernels take: 2 * kMaxHalf of csrc/stencil.cuh.
+MAX_ORDER = 16
+# A block's dynamic shared memory on an H100 (kMaxSmemBytes, csrc/kstep.cuh).
+SMEM_BYTES = 232448
+_INVALID_VALUE = 1             # cudaErrorInvalidValue
+
+
+def _check_order(order: int, on_cuda: bool) -> None:
+    """Every even order >= 2 runs on the CPU, as in the JAX package; the
+    kernels take up to ``MAX_ORDER``."""
+    if order % 2 or order < 2:
+        raise ValueError(f"the order must be even and >= 2, got {order}")
+    if on_cuda and order > MAX_ORDER:
+        raise ValueError(f"the CUDA kernels take even orders up to "
+                         f"{MAX_ORDER}, got {order}")
 
 
 def _check_v2(ctx: FDContext, v2: torch.Tensor, ns: int) -> int:
@@ -125,7 +136,17 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _raise_on(rc: int, name: str) -> None:
+def _raise_on(rc: int, name: str, order: int = 0, k: int = 0) -> None:
+    """Raises on a C entry point's error. For a kernel that stages a tile
+    with a halo of ``k`` steps of order ``order``, the entry point's refusal
+    (cudaErrorInvalidValue) means the tile does not fit a block's shared
+    memory."""
+    if rc == _INVALID_VALUE and k:
+        raise ValueError(
+            f"{name}: order {order} with K={k} steps (a halo of "
+            f"{k * (order // 2)} cells) needs a tile larger than the "
+            f"{SMEM_BYTES} bytes of shared memory a block may use "
+            f"(kMaxSmemBytes, csrc/kstep.cuh): use a smaller block_k")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} in the step launches")
 
@@ -150,7 +171,6 @@ def forward_modeling_cuda(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
     run ``mod_step``, ``"wavefield"`` runs ``rec_fwd_step``, which writes
     the (ns, nt, nx, nz) interior frames."""
     check_lap_impl(lap_impl)
-    _check_order(ctx)
     if record not in solver.RECORD_MODES:
         raise ValueError(f"unknown record mode {record!r}")
     sxs = shot_positions(sx)
@@ -161,6 +181,7 @@ def forward_modeling_cuda(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
     r = patch.shape[0] // 2
     _check_window(ctx, sxs, sz, r)
     _check_gz(ctx, gz)
+    _check_order(ctx.order, _on_cuda(v2))
     if not _on_cuda(v2):
         return solver.forward_modeling(ctx, v2, wav, sxs, sz, gz,
                                        source=source, taper=taper,
@@ -229,7 +250,7 @@ def _rec_bwd(ctx: FDContext, v2, dobs, gz: int, x_off_quirk, next_shot_first,
     plain version on the CPU, ``rec_bwd_step`` on the card. Without
     ``swf`` (frame mode) returns ``(p, pp, rwf)``; with it (image mode)
     returns the (ns, nx, nz) images."""
-    _check_order(ctx)
+    _check_order(ctx.order, _on_cuda(v2))
     dev = v2.device
     ns = _check_dobs(ctx, dobs, dev)
     v2_stride = _check_v2(ctx, v2, ns)
@@ -318,8 +339,7 @@ def laplacian_cuda(p, coefs_x, coefs_z, order: int):
     ``lap_apply`` on the card, :func:`.stencil.laplacian` on the CPU.
     ``coefs_x``/``coefs_z`` are the premultiplied (order+1,) arrays of
     :func:`..numerics.scaled_coefficients`."""
-    if order % 2 or not 2 <= order <= 10:
-        raise ValueError(f"lap_apply takes even orders 2..10, got {order}")
+    _check_order(order, _on_cuda(p))
     if p.dim() != 2:
         raise ValueError(f"p must be one (nx, nz) field, got shape "
                          f"{tuple(p.shape)}")
@@ -349,12 +369,12 @@ def fd_forward_cuda(ctx: FDContext, v2, wavelet, sx, sz: int):
     """GPU-suite forward propagation for a batch of shots: the counterpart
     of ``fd_forward_pallas``. Returns the tapered final pair ``(p, pp)``,
     as :func:`..solver.fd_forward`."""
-    _check_order(ctx)
     sxs = shot_positions(sx)
     ns, dev = len(sxs), v2.device
     wav = _check_wavelet(ctx, wavelet)
     v2_stride = _check_v2(ctx, v2, ns)
     _check_window(ctx, sxs, sz, 0)
+    _check_order(ctx.order, _on_cuda(v2))
     if not _on_cuda(v2):
         return solver.fd_forward(ctx, v2, wav, sxs, sz)
     from . import _build
@@ -380,7 +400,7 @@ def fd_back_cuda(ctx: FDContext, v2, snap_p, snap_pp, dobs, gz: int):
     counterpart of ``fd_back_pallas``. ``snap_p``/``snap_pp`` are
     :func:`fd_forward_cuda`'s outputs (ns, nxe, nze); ``dobs`` is
     (ns, nx, nt). Returns the (ns, nx, nz) images."""
-    _check_order(ctx)
+    _check_order(ctx.order, _on_cuda(v2))
     dev = v2.device
     ns = snap_p.shape[0]
     _check_gz(ctx, gz)

@@ -2,31 +2,39 @@
 the JAX package's ``ops/pallas_stream.py``.
 
 Grids far beyond the L2 cache (the reference's full-resolution Pluto
-config, 7040 x 1281 extended, 36 MB a field) run in passes of K fused time
-steps: each pass reads and writes every field once (temporal blocking, as
-the JAX package's K-step kernels do). One wrapper call is one pass, one
-kernel launch for every shot of the batch; the tiled entry points
-:func:`..solver.forward_modeling_tiled` and
-:func:`..solver.rtm_shot_snapshot_tiled` loop over the passes.
+config, 7040 x 1281 extended, 36 MB a field) run either one step a launch
+(``block_k=1``, the per-step streaming tier: ``fd_step``, ``fd_update``
+and ``gpu_step``) or in passes of K fused time steps: each pass reads and
+writes every field once (temporal blocking, as the JAX package's K-step
+kernels do). One wrapper call is one step or one pass, one kernel launch
+for every shot of the batch; the tiled entry points
+:func:`..solver.forward_modeling_tiled`,
+:func:`..solver.backward_recorded_tiled`,
+:func:`..solver.rtm_shot_full_tiled` and
+:func:`..solver.rtm_shot_snapshot_tiled` loop over them.
 
 Each wrapper routes by the device of its input. A CPU tensor goes to the
 plain version in :mod:`..solver`; a CUDA tensor goes to the kernel, and any
 failure (no ``nvcc``, a build error, a refused launch) raises. The state
 goes in and comes out as the plain versions carry it; on the card the
-outputs are new buffers, except the image, which the kernels add into in
-place (pass a copy to keep the old one). ``LAUNCHES`` counts one per
-kernel launch and is added to only where a kernel is launched.
+outputs are new buffers, or the buffers ``out`` names (which the launch
+must not read), except the image, which the kernels add into in place
+(pass a copy to keep the old one). ``LAUNCHES`` counts one per kernel
+launch and is added to only where a kernel is launched.
 
 Per-run constants (``v2*dt2``, the taper ramps, the source patch and
 positions) are made on the card once by :func:`prepare` and handed to every
-pass, so that a pass copies nothing from the host. The kernels rebuild the
-taper from its 1-D ramps (``numerics.mask_ramps``), bitwise the mask plane,
-and so read no mask plane. A block's shared memory is sized, and a tile
-too large for it refused, by the kernels' C entry points
-(``csrc/kstep.cuh``, ``allow_smem``); the wrappers raise on that refusal.
+call, so that a step or pass copies nothing from the host. The kernels
+rebuild the taper from its 1-D ramps (``numerics.mask_ramps``), bitwise
+the mask plane, and so read no mask plane. A block's shared memory is
+sized, and a tile too large for it refused, by the K-step kernels' C entry
+points (``csrc/kstep.cuh``, ``allow_smem``); the wrappers raise on that
+refusal, naming the limit.
 
 | kernel | source | replaces (JAX package, ``ops/pallas_stream.py``) |
 |---|---|---|
+| ``fd_step`` | ``csrc/stream_step.cu`` | ``_kernel`` (:76) |
+| ``fd_update`` | ``csrc/stream_step.cu`` | ``_kernel_update`` (:171) |
 | ``kstep_mod`` | ``csrc/kstep_mod.cu`` | ``_kstep_kernel`` (:574) |
 | ``kstep_gpu_fwd`` | ``csrc/kstep_gpu_fwd.cu`` | ``_kstep_gpu_fwd_kernel`` (:740) |
 | ``kstep_gpu_bwd`` | ``csrc/kstep_gpu_bwd.cu`` | ``_kstep_gpu_bwd_kernel`` (:857) |
@@ -44,15 +52,15 @@ where the port stands with it (``PERF.md``, section 6, has the times):
 | 5 | ``ops/pallas_fd.py:260-334`` MXU ``_make_lap`` | banded-matmul Laplacian | to be ported |
 | 6 | ``ops/pallas_stencil.py:60`` ``_kernel`` | interior Laplacian | ``lap_apply`` |
 | 7 | ``ops/pallas_stencil.py:546``, ``:429`` | padded-layout Laplacian | to be ported |
-| 8 | ``ops/pallas_stream.py:76`` ``_kernel`` | one fused CPU-flavor step | to be ported |
-| 9 | ``ops/pallas_stream.py:171`` ``_kernel_update`` | untapered leapfrog | to be ported |
+| 8 | ``ops/pallas_stream.py:76`` ``_kernel`` | one fused CPU-flavor step | ``fd_step`` |
+| 9 | ``ops/pallas_stream.py:171`` ``_kernel_update`` | untapered leapfrog | ``fd_update`` |
 | 10 | ``ops/pallas_stream.py:207`` ``_kernel_gpu`` | taper-first step, K5, K6 | ``gpu_step`` |
 | 11 | ``ops/pallas_stream.py:574`` ``_kstep_kernel`` | K CPU-flavor steps + trace | ``kstep_mod`` |
 | 12 | ``ops/pallas_stream.py:740`` ``_kstep_gpu_fwd_kernel`` | K ``fd_forward`` steps | ``kstep_gpu_fwd`` |
 | 13 | ``ops/pallas_stream.py:857`` ``_kstep_gpu_bwd_kernel`` | K ``fd_back`` steps + K5/K6 | ``kstep_gpu_bwd`` |
 | 14 | ``ops/pallas_stream.py:1002`` ``_kstep_rec_kernel`` | K steps writing frames | ``rec_fwd_step``, ``rec_bwd_step`` |
 | 15 | ``parallel/domain_pallas.py:115, :136, :189`` | x-slab blocked fwd/bwd/mod | ``block_fwd``, ``block_bwd``, ``block_mod`` (:mod:`..parallel.domain_kernels`) |
-| 16 | ``parallel/domain2d_pallas.py:99, :124, :178`` | (x, z) blocked fwd/bwd/mod | to be ported |
+| 16 | ``parallel/domain2d_pallas.py:99, :124, :178`` | (x, z) blocked fwd/bwd/mod | ``block2_fwd``, ``block2_bwd``, ``block2_mod`` (:mod:`..parallel.domain2d_kernels`) |
 """
 
 from __future__ import annotations
@@ -67,12 +75,14 @@ from ..solver import FDContext, host_wavelet, shot_positions
 from .fd_kernels import (_check, _check_gz, _check_order, _check_v2,
                          _check_window, _coef_args, _dev_f32, _on_cuda,
                          _raise_on, _stream)
+from .stencil import receiver_x0
 
-__all__ = ["LAUNCHES", "reset_launches", "check_block_k", "Consts", "prepare", "mod_kstep_cuda", "fd_forward_kstep_cuda",
-           "fd_back_kstep_cuda", "fd_step_gpu_cuda"]
+__all__ = ["LAUNCHES", "reset_launches", "check_block_k", "Consts",
+           "prepare", "fd_step_cuda", "fd_update_cuda", "mod_kstep_cuda",
+           "fd_forward_kstep_cuda", "fd_back_kstep_cuda", "fd_step_gpu_cuda"]
 
-LAUNCHES = {"kstep_mod": 0, "kstep_gpu_fwd": 0, "kstep_gpu_bwd": 0,
-            "gpu_step": 0}
+LAUNCHES = {"fd_step": 0, "fd_update": 0, "kstep_mod": 0,
+            "kstep_gpu_fwd": 0, "kstep_gpu_bwd": 0, "gpu_step": 0}
 
 # The most steps a pass takes (kMaxSteps of csrc/kstep.cuh).
 MAX_STEPS = 8
@@ -84,17 +94,11 @@ def reset_launches() -> None:
 
 
 def check_block_k(block_k) -> int:
-    """``block_k`` as an int in [2, 8]. ``block_k=1`` selects the JAX
-    package's per-step streaming tier, which is not ported."""
+    """``block_k`` as an int in [1, 8]: 1 selects the per-step streaming
+    tier, 2..8 the K-step passes."""
     K = int(block_k)
-    if K == 1:
-        raise NotImplementedError(
-            "block_k=1 is the per-step streaming tier (fd_step_padded and "
-            "fd_update_padded, rows 8 and 9 of PERF.md's kernel table), "
-            "still to be ported (see ROADMAP.md, Queue 2); use block_k >= 2, "
-            "or the per-step kernels (backend='pallas')")
-    if not 2 <= K <= MAX_STEPS:
-        raise ValueError(f"block_k must be in [2, {MAX_STEPS}], got {K}")
+    if not 1 <= K <= MAX_STEPS:
+        raise ValueError(f"block_k must be in [1, {MAX_STEPS}], got {K}")
     return K
 
 
@@ -182,26 +186,124 @@ def _rows(name: str, rows, ns: int, n: int, nx: int, device) -> int:
     return rows.stride(0)
 
 
+def _check_out(like, n: int, out, *inputs) -> None:
+    """``out``, if given, names ``n`` buffers shaped as ``like``, none of
+    them one of ``inputs`` (the launch reads those)."""
+    if out is None:
+        return
+    if len(out) != n:
+        raise ValueError(f"out must name {n} buffers, got {len(out)}")
+    for o in out:
+        _check("out", o, like.shape, like.device)
+        if any(o.data_ptr() == t.data_ptr() for t in inputs):
+            raise ValueError("an output buffer is an input of the launch")
+
+
+def _outputs(like, n: int, out):
+    """The buffers ``out`` names, or ``n`` new ones shaped as ``like``."""
+    return list(out) if out is not None else [torch.empty_like(like)
+                                              for _ in range(n)]
+
+
+def fd_step_cuda(ctx: FDContext, p, pp, v2, taper: str = "all", amp=None,
+                 sx=None, sz: int = 0, source: str = "gaussian",
+                 inj_row=None, x0: int = 0, gz: int = 0, consts=None,
+                 out=None):
+    """One fused CPU-flavor step from the state ``(p, pp)`` (ns, nxe, nze),
+    ``pp`` tapered, with the optional injection before the taper: the
+    source window ``amp * patch`` at ``(sx[s], sz)`` (``source`` Gaussian
+    or point) when ``amp`` is given, the receiver row ``inj_row`` (ns, nx)
+    on row gz from x0 (clamped into the grid) when it is given.
+    ``fd_step`` on the card, into the buffers ``out`` if given;
+    :func:`..solver.fd_step` on the CPU. Returns ``(p*m, (u + inj)*m)``."""
+    if taper not in ("all", "top"):
+        raise ValueError(f"unknown taper {taper!r}")
+    ns = _check_state(ctx, v2, p=p, pp=pp)
+    sxs = None
+    if amp is not None:
+        sxs = shot_positions(sx)
+        if ns != len(sxs):
+            raise ValueError(f"{len(sxs)} source positions for {ns} shots")
+        _check_window(ctx, sxs, sz, ctx.source_patch.shape[0] // 2
+                      if source == "gaussian" else 0)
+    inj_stride = 0
+    if inj_row is not None:
+        _check_gz(ctx, gz)
+        inj_stride = _rows("inj_row", inj_row[:, None], ns, 1, ctx.nx,
+                           p.device)
+        x0 = receiver_x0(x0, ctx.nx, ctx.nxe)
+    _check_out(p, 2, out, p, pp)
+    _check_order(ctx.order, _on_cuda(p))
+    if not _on_cuda(p):
+        return solver.fd_step(ctx, p, pp, v2, taper, amp, sxs, sz, source,
+                              inj_row, x0, gz)
+    from . import _build
+    outs = _outputs(p, 2, out)
+    c = _consts(consts, ctx, v2, sxs, None if amp is None else source, taper)
+    amps = np.float32([0.0 if amp is None else amp])
+    xr, zf, st = c.ramps
+    with torch.cuda.device(p.device):
+        rc = _build.library().pfdc_fd_step_run(
+            p.data_ptr(), pp.data_ptr(), *(o.data_ptr() for o in outs),
+            c.v2dt2.data_ptr(), c.v2_stride, xr.data_ptr(), zf.data_ptr(),
+            st.data_ptr(), c.patch.data_ptr(), c.patch.shape[0] // 2,
+            c.sx.data_ptr(), sz, None if amp is None else amps.ctypes.data,
+            None if inj_row is None else inj_row.data_ptr(), inj_stride, x0,
+            gz, ctx.nx, ns, ctx.nxe, ctx.nze, ctx.order, *c.coef_ptrs,
+            _stream(p.device))
+    _raise_on(rc, "fd_step")
+    LAUNCHES["fd_step"] += 1
+    return tuple(outs)
+
+
+def fd_update_cuda(ctx: FDContext, p, pp, v2, consts=None, out=None):
+    """The untapered leapfrog update ``2p - pp + v2*dt2*lap(p)`` of the
+    state ``(p, pp)`` (ns, nxe, nze), ``fd_back``'s source reconstruction:
+    ``fd_update`` on the card, into the buffer ``out`` if given;
+    :func:`..solver.fd_update` on the CPU."""
+    ns = _check_state(ctx, v2, p=p, pp=pp)
+    out = None if out is None else (out,)
+    _check_out(p, 1, out, p, pp)
+    _check_order(ctx.order, _on_cuda(p))
+    if not _on_cuda(p):
+        return solver.fd_update(ctx, p, pp, v2)
+    from . import _build
+    (res,) = _outputs(p, 1, out)
+    c = _consts(consts, ctx, v2,
+                taper="top" if consts is None else consts.taper)
+    with torch.cuda.device(p.device):
+        rc = _build.library().pfdc_fd_update_run(
+            p.data_ptr(), pp.data_ptr(), res.data_ptr(), c.v2dt2.data_ptr(),
+            c.v2_stride, ns, ctx.nxe, ctx.nze, ctx.order, *c.coef_ptrs,
+            _stream(p.device))
+    _raise_on(rc, "fd_update")
+    LAUNCHES["fd_update"] += 1
+    return res
+
+
 def mod_kstep_cuda(ctx: FDContext, p, pp, v2, amps, sx, sz: int, gz: int,
+                   source: str = "gaussian", taper: str = "all",
                    consts=None):
-    """One pass of K = ``len(amps)`` ``mod_main`` steps (Gaussian source,
-    all-edge taper) from the state ``(p, pp)`` (ns, nxe, nze): ``kstep_mod``
-    on the card, :func:`..solver.mod_kstep` on the CPU. Returns ``(p, pp,
-    rec)`` with rec (ns, K, nx), the traces at depth gz."""
-    _check_order(ctx)
+    """One pass of K = ``len(amps)`` ``mod_main`` steps (``source``
+    Gaussian or point, ``taper`` all-edge or top strip) from the state
+    ``(p, pp)`` (ns, nxe, nze): ``kstep_mod`` on the card,
+    :func:`..solver.mod_kstep` on the CPU. Returns ``(p, pp, rec)`` with rec
+    (ns, K, nx), the traces at depth gz."""
     sxs = shot_positions(sx)
     amps = _check_amps(amps)
     ns = _check_state(ctx, v2, p=p, pp=pp)
     if ns != len(sxs):
         raise ValueError(f"{len(sxs)} source positions for {ns} shots")
-    r = ctx.source_patch.shape[0] // 2
+    r = ctx.source_patch.shape[0] // 2 if source == "gaussian" else 0
     _check_window(ctx, sxs, sz, r)
     _check_gz(ctx, gz)
+    _check_order(ctx.order, _on_cuda(p))
     if not _on_cuda(p):
-        return solver.mod_kstep(ctx, p, pp, v2, amps, sxs, sz, gz)
+        return solver.mod_kstep(ctx, p, pp, v2, amps, sxs, sz, gz, source,
+                                taper)
     from . import _build
     k = len(amps)
-    c = _consts(consts, ctx, v2, sxs, "gaussian", "all")
+    c = _consts(consts, ctx, v2, sxs, source, taper)
     p_out, pp_out = torch.empty_like(p), torch.empty_like(pp)
     rec = torch.empty((ns, k, ctx.nx), dtype=torch.float32, device=p.device)
     xr, zf, st = c.ramps
@@ -212,7 +314,7 @@ def mod_kstep_cuda(ctx: FDContext, p, pp, v2, amps, sx, sz: int, gz: int,
             st.data_ptr(), c.patch.data_ptr(), r, c.sx.data_ptr(), sz, gz,
             amps.ctypes.data, k, rec.data_ptr(), ns, ctx.nxe, ctx.nze,
             ctx.nxb, ctx.order, *c.coef_ptrs, _stream(p.device))
-    _raise_on(rc, "kstep_mod")
+    _raise_on(rc, "kstep_mod", ctx.order, k)
     LAUNCHES["kstep_mod"] += 1
     return p_out, pp_out, rec
 
@@ -222,13 +324,13 @@ def fd_forward_kstep_cuda(ctx: FDContext, p, pp, v2, amps, sx, sz: int,
     """One pass of K = ``len(amps)`` ``fd_forward`` steps from the state
     ``(p, pp)`` (ns, nxe, nze): ``kstep_gpu_fwd`` on the card,
     :func:`..solver.fd_forward_kstep` on the CPU. Returns ``(p, pp)``."""
-    _check_order(ctx)
     sxs = shot_positions(sx)
     amps = _check_amps(amps)
     ns = _check_state(ctx, v2, p=p, pp=pp)
     if ns != len(sxs):
         raise ValueError(f"{len(sxs)} source positions for {ns} shots")
     _check_window(ctx, sxs, sz, 0)
+    _check_order(ctx.order, _on_cuda(p))
     if not _on_cuda(p):
         return solver.fd_forward_kstep(ctx, p, pp, v2, amps, sxs, sz)
     from . import _build
@@ -242,7 +344,7 @@ def fd_forward_kstep_cuda(ctx: FDContext, p, pp, v2, amps, sx, sz: int,
             c.v2dt2.data_ptr(), c.v2_stride, xr.data_ptr(), zf.data_ptr(),
             st.data_ptr(), c.sx.data_ptr(), sz, amps.ctypes.data, k, ns,
             ctx.nxe, ctx.nze, ctx.order, *c.coef_ptrs, _stream(p.device))
-    _raise_on(rc, "kstep_gpu_fwd")
+    _raise_on(rc, "kstep_gpu_fwd", ctx.order, k)
     LAUNCHES["kstep_gpu_fwd"] += 1
     return p_out, pp_out
 
@@ -254,7 +356,6 @@ def fd_back_kstep_cuda(ctx: FDContext, ps, pps, pr, ppr, img, v2, inj_rows,
     trace rows, ``img`` (ns, nx, nz). ``kstep_gpu_bwd`` on the card, which
     adds into ``img`` in place; :func:`..solver.fd_back_kstep` on the CPU.
     Returns the next state."""
-    _check_order(ctx)
     ns = _check_state(ctx, v2, ps=ps, pps=pps, pr=pr, ppr=ppr)
     _check("img", img, (ns, ctx.nx, ctx.nz), ps.device)
     _check_gz(ctx, gz)
@@ -263,6 +364,7 @@ def fd_back_kstep_cuda(ctx: FDContext, ps, pps, pr, ppr, img, v2, inj_rows,
         raise ValueError(f"a pass takes 1 to {MAX_STEPS} trace rows, got "
                          f"shape {tuple(inj_rows.shape)}")
     inj_stride = _rows("inj_rows", inj_rows, ns, k, ctx.nx, ps.device)
+    _check_order(ctx.order, _on_cuda(ps))
     if not _on_cuda(ps):
         return solver.fd_back_kstep(ctx, ps, pps, pr, ppr, img, v2, inj_rows,
                                     gz)
@@ -278,20 +380,19 @@ def fd_back_kstep_cuda(ctx: FDContext, ps, pps, pr, ppr, img, v2, inj_rows,
             st.data_ptr(), inj_rows.data_ptr(), inj_stride, gz, k, ctx.nxb,
             ctx.nzb, ns, ctx.nxe, ctx.nze, ctx.order, *c.coef_ptrs,
             _stream(ps.device))
-    _raise_on(rc, "kstep_gpu_bwd")
+    _raise_on(rc, "kstep_gpu_bwd", ctx.order, k)
     LAUNCHES["kstep_gpu_bwd"] += 1
     return (*outs, img)
 
 
 def fd_step_gpu_cuda(ctx: FDContext, y, x, v2, gz: int = 0, inj_row=None,
-                     img=None, src=None, consts=None):
+                     img=None, src=None, consts=None, out=None):
     """One taper-first step from the state ``(x, y)`` (ns, nxe, nze), with
     the trace row ``inj_row`` (ns, nx) at depth gz and ``img += src * new``
     (``img`` (ns, nx, nz), ``src`` (ns, nxe, nze)) when given: ``gpu_step``
-    on the card, which adds into ``img`` in place;
-    :func:`..solver.fd_step_gpu` on the CPU. Returns ``(t, new)`` or
+    on the card, into the buffers ``out`` if given, adding into ``img`` in
+    place; :func:`..solver.fd_step_gpu` on the CPU. Returns ``(t, new)`` or
     ``(t, new, img)``."""
-    _check_order(ctx)
     ns = _check_state(ctx, v2, y=y, x=x)
     _check_gz(ctx, gz)
     inj_stride = 0
@@ -303,11 +404,13 @@ def fd_step_gpu_cuda(ctx: FDContext, y, x, v2, gz: int = 0, inj_row=None,
     if img is not None:
         _check("img", img, (ns, ctx.nx, ctx.nz), y.device)
         _check("src", src, (ns, ctx.nxe, ctx.nze), y.device)
+    _check_out(y, 2, out, y, x, *(() if src is None else (src,)))
+    _check_order(ctx.order, _on_cuda(y))
     if not _on_cuda(y):
         return solver.fd_step_gpu(ctx, y, x, v2, gz, inj_row, img, src)
     from . import _build
+    t, new = _outputs(y, 2, out)
     c = _consts(consts, ctx, v2)
-    t, new = torch.empty_like(y), torch.empty_like(y)
     ptr = lambda a: None if a is None else a.data_ptr()
     xr, zf, st = c.ramps
     with torch.cuda.device(y.device):

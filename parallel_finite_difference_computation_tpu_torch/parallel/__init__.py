@@ -19,7 +19,7 @@ from .mesh import Mesh, make_mesh
 from .shots import (split_shots, distribute_shots,
                     make_sharded_modeling_cuda, make_sharded_modeling_tiled,
                     make_sharded_rtm_cuda, make_sharded_rtm_tiled,
-                    make_sharded_rtm_full_cuda)
+                    make_sharded_rtm_full_cuda, make_sharded_rtm_full_tiled)
 from .domain import (halo_exchange, sharded_laplacian,
                      make_sharded_forward_modeling, make_sharded_rtm_snapshot,
                      embed_source_fields, embed_dobs)

@@ -129,7 +129,7 @@ def make_sharded_forward_modeling_2d_cuda(ctx: FDContext, mesh, sz: int,
     ``sxs`` (ns,) source rows at depth ``sz``, and ``seis`` (ns, nt, nxe)
     extended-row seismograms on the mesh's first device
     (:func:`.domain_kernels.modeling_maker`)."""
-    _check_maker(ctx, gz, lap_impl)
+    _check_maker(ctx, mesh, gz, lap_impl)
     return modeling_maker(
         ctx, mesh, _geometry(ctx, mesh, block_k), sz, gz, source, taper,
         lambda *a, **kw: block2_mod_cuda(*a, **kw))
@@ -146,7 +146,7 @@ def make_sharded_rtm_snapshot_2d_cuda(ctx: FDContext, mesh, sz: int,
     (:func:`.domain.embed_dobs`), and ``imloc_ext`` (ns, nxe, nze) extended
     per-shot images on the mesh's first device
     (:func:`.domain_kernels.rtm_maker`). Needs K >= 2 and nt >= 2K."""
-    _check_maker(ctx, gz, lap_impl)
+    _check_maker(ctx, mesh, gz, lap_impl)
     geom = _geometry(ctx, mesh, block_k)
     check_rtm_blocks(ctx, geom.k, "the per-step (x, z) loops "
                      "(domain2d.make_sharded_rtm_snapshot_2d, a CPU mesh)")

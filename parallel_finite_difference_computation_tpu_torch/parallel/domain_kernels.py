@@ -472,6 +472,7 @@ def launch_mod(name: str, launches: dict, c: Tile, p, pp, amps, out=None):
     _check_out(c, (p, pp), out, 2)
     if not _on_cuda(p):
         return block_mod(c, p, pp, amps)
+    _check_order(c.ctx.order, True)
     run, dims = _entry(c, name)
     k = len(amps)
     p_out, pp_out = _outputs(p, out, 2)
@@ -485,7 +486,7 @@ def launch_mod(name: str, launches: dict, c: Tile, p, pp, amps, out=None):
                  c.r, c.sz, amps.ctypes.data, k, rec.data_ptr(), c.gz, ns,
                  c.hs, c.nxl, *dims, c.ctx.order, *c.coef_ptrs,
                  _stream(p.device))
-    _raise_on(rc, name)
+    _raise_on(rc, name, c.ctx.order, k)
     launches[name] += 1
     return p_out, pp_out, rec
 
@@ -503,6 +504,7 @@ def launch_fwd(name: str, launches: dict, c: Tile, p, pp, amps, out=None):
     _check_out(c, (p, pp), out, 2)
     if not _on_cuda(p):
         return block_fwd(c, p, pp, amps)
+    _check_order(c.ctx.order, True)
     run, dims = _entry(c, name)
     p_out, pp_out = _outputs(p, out, 2)
     xr, zf, st = c.ramps
@@ -513,7 +515,7 @@ def launch_fwd(name: str, launches: dict, c: Tile, p, pp, amps, out=None):
                  c.sz if 0 <= c.sz < c.nzw else -1, amps.ctypes.data,
                  len(amps), ns, c.hs, c.nxl, *dims, c.ctx.order,
                  *c.coef_ptrs, _stream(p.device))
-    _raise_on(rc, name)
+    _raise_on(rc, name, c.ctx.order, len(amps))
     launches[name] += 1
     return p_out, pp_out
 
@@ -543,6 +545,7 @@ def launch_bwd(name: str, launches: dict, c: Tile, ps, pps, pr, ppr, img,
     _check_out(c, (ps, pps, pr, ppr, img, *(snaps or ())), out, 4)
     if not _on_cuda(ps):
         return block_bwd(c, ps, pps, pr, ppr, img, it0, k, snaps)
+    _check_order(c.ctx.order, True)
     run, dims = _entry(c, name)
     outs = _outputs(ps, out, 4)
     xr, zf, st = c.ramps
@@ -556,7 +559,7 @@ def launch_bwd(name: str, launches: dict, c: Tile, ps, pps, pr, ppr, img,
                  c.v2m.data_ptr(), c.v2_stride, xr.data_ptr(), zf.data_ptr(),
                  st.data_ptr(), inj, inj_stride, c.gz, k, ns, c.hs, c.nxl,
                  *dims, c.ctx.order, *c.coef_ptrs, _stream(ps.device))
-    _raise_on(rc, name)
+    _raise_on(rc, name, c.ctx.order, k)
     launches[name] += 1
     return (*outs, img)
 
@@ -614,9 +617,9 @@ def _image_mask(c: Tile):
             & ((zs >= ctx.nzb) & (zs < ctx.nze - ctx.nzb))[None, :]).float()
 
 
-def _check_maker(ctx: FDContext, gz, lap_impl) -> None:
+def _check_maker(ctx: FDContext, mesh, gz, lap_impl) -> None:
     check_lap_impl(lap_impl)
-    _check_order(ctx)
+    _check_order(ctx.order, any(d.type == "cuda" for d in mesh.devices.flat))
     _check_gz(ctx, gz)
 
 
@@ -758,7 +761,7 @@ def make_sharded_forward_modeling_cuda(ctx: FDContext, mesh, sz: int,
     with ``v2`` (nxe, nze) shared by the shots, or (ns, nxe, nze), ``sxs``
     (ns,) source rows, and ``seis`` (ns, nt, nxe) extended-row seismograms
     on the mesh's first device (:func:`modeling_maker`)."""
-    _check_maker(ctx, gz, lap_impl)
+    _check_maker(ctx, mesh, gz, lap_impl)
     return modeling_maker(
         ctx, mesh, slab_geometry(ctx, mesh.shape["x"], block_k), sz, gz,
         source, taper, lambda *a, **kw: block_mod_cuda(*a, **kw))
@@ -773,7 +776,7 @@ def make_sharded_rtm_snapshot_cuda(ctx: FDContext, mesh, sz: int, gz: int,
     depth ``sz``, ``dobs_ext`` (ns, nxe, nt) (:func:`.domain.embed_dobs`),
     and ``imloc_ext`` (ns, nxe, nze) extended per-shot images on the mesh's
     first device (:func:`rtm_maker`)."""
-    _check_maker(ctx, gz, lap_impl)
+    _check_maker(ctx, mesh, gz, lap_impl)
     geom = slab_geometry(ctx, mesh.shape["x"], block_k)
     check_rtm_blocks(ctx, geom.k, "a shot-only mesh (n_x = 1)")
     return rtm_maker(ctx, mesh, geom, sz, gz,

@@ -5,8 +5,8 @@ Shots are independent given their velocities, so a shot-batched
 computation splits over the mesh's ``shot`` axis with no communication
 until the results are joined. Each shot group runs on the device of its
 row of the mesh (its first grid position, :meth:`.Mesh.lead`) through the
-tiers that already exist: the per-step kernels, the K-step passes of the
-large-grid tier, or ``rtm_main``'s ``rtm_full_cuda``. Groups on different devices run at once:
+tiers that already exist: the per-step kernels, the large-grid tier, or
+``rtm_main``'s ``rtm_full_cuda``. Groups on different devices run at once:
 their launches are queued on each device's stream before any result is
 read back.
 
@@ -25,12 +25,13 @@ import torch
 from ..ops.fd_kernels import (forward_modeling_cuda, rtm_full_cuda,
                               rtm_snapshot_cuda)
 from ..solver import (forward_modeling_tiled, host_wavelet,
-                      rtm_shot_snapshot_tiled, shot_positions)
+                      rtm_shot_full_tiled, rtm_shot_snapshot_tiled,
+                      shot_positions)
 
 __all__ = ["split_shots", "distribute_shots",
            "make_sharded_modeling_cuda", "make_sharded_modeling_tiled",
            "make_sharded_rtm_cuda", "make_sharded_rtm_tiled",
-           "make_sharded_rtm_full_cuda"]
+           "make_sharded_rtm_full_cuda", "make_sharded_rtm_full_tiled"]
 
 
 def split_shots(ns: int, n_groups: int) -> list:
@@ -129,4 +130,20 @@ def make_sharded_rtm_full_cuda(ctx, mesh, sz: int, gz: int):
         return _run_groups(mesh, len(sxs), lambda dev, idx, d: rtm_full_cuda(
             ctx, _on(v2, dev), wav, d, [sxs[s] for s in idx], sz, gz,
             next_shot_first=nxts[idx]), dobs)
+    return fn
+
+
+def make_sharded_rtm_full_tiled(ctx, mesh, sz: int, gz: int,
+                                block_k: int = 4, lap_impl=None):
+    """Shot-sharded full-wavefield RTM (``rtm_main``) on the large-grid
+    tier, :func:`..solver.rtm_shot_full_tiled` (the counterpart of
+    ``make_sharded_rtm_full_tiled``, the JAX ``parallel/shots.py:128-160``),
+    over real shot groups only; as :func:`make_sharded_rtm_full_cuda`."""
+    def fn(v2, dobs, sxs, nxts, wavelet):
+        sxs, wav = shot_positions(sxs), host_wavelet(wavelet)
+        nxts = np.asarray(nxts, np.float32)
+        return _run_groups(mesh, len(sxs), lambda dev, idx, d: rtm_shot_full_tiled(
+            ctx, _on(v2, dev), wav, d, [sxs[s] for s in idx], sz, gz,
+            next_shot_first=nxts[idx], block_k=block_k, lap_impl=lap_impl),
+            dobs)
     return fn

@@ -12,10 +12,11 @@
 Every entry point takes ``device=``, ``"cuda"`` unless the caller asks for
 the CPU. On a CUDA device the shots run in batches through the CUDA kernels
 (:mod:`.ops.fd_kernels`, :mod:`.ops.stream`); on the CPU they run through
-the plain torch version. ``run_modeling`` and ``run_rtm_gpu`` choose their
-tier explicitly with ``backend`` (:func:`resolve_backend`): the per-step
-kernels (``"pallas"``) or the large-grid tier of K-step passes
-(``"tiled"``); ``"auto"`` decides by the grid's size alone. There is no
+the plain torch version. ``run_modeling``, ``run_rtm_gpu`` and
+``run_rtm_cpu`` choose their tier explicitly with ``backend``
+(:func:`resolve_backend`): the per-step kernels (``"pallas"``) or the
+large-grid tier at ``TILED_BLOCK_K`` steps a pass (``"tiled"``); ``"auto"``
+decides by the grid's size alone. There is no
 fallback between tiers, and without CUDA a default call raises torch's own
 error.
 
@@ -46,7 +47,8 @@ from .config import Params, Geometry
 from .ops.fd_kernels import (check_lap_impl, forward_modeling_cuda,
                              laplacian_cuda, rtm_full_cuda, rtm_snapshot_cuda)
 from .ops.stream import MAX_STEPS
-from .solver import FDContext, forward_modeling_tiled, rtm_shot_snapshot_tiled
+from .solver import (FDContext, forward_modeling_tiled, rtm_shot_full_tiled,
+                     rtm_shot_snapshot_tiled)
 
 __all__ = ["run_stencil", "run_modeling", "run_rtm_cpu", "run_rtm_gpu",
            "prepare_velocity_cpu", "prepare_velocities_gpu",
@@ -176,6 +178,12 @@ def run_modeling(p: Params, vp: Optional[np.ndarray] = None,
     (:func:`resolve_backend`); return the (ns, nx, nt) gathers and
     optionally write the raw ``datfile`` blob the RTM programs read.
 
+    The Gaussian source (a 7 x 7 patch) must lie at least 3 cells inside
+    the extended grid: a border ``nxb``, ``nzb`` of 2 with the source on the
+    grid's first row or column (``fsx = 0``, ``sz = 0``) raises
+    ``ValueError`` on every device. The JAX package shifts the patch there
+    and the reference clips it (``ptsrc.c``); neither is reproduced.
+
     With a ``mesh`` its devices run the work: the shots split over its
     shot axis; an x axis > 1 decomposes the grid into x-slabs, a z axis > 1
     into (x, z) tiles, on the block kernels (``backend`` is then not read),
@@ -263,10 +271,16 @@ def _modeling_domain(ctx, g, mesh, lap_impl):
 def run_rtm_cpu(p: Params, vp: Optional[np.ndarray] = None,
                 dobs: Optional[np.ndarray] = None,
                 outdir: Optional[str] = None, *, device="cuda", mesh=None,
-                shot_indices=None):
+                backend: str = "auto", shot_indices=None):
     """``rtm_main``: migrate the shots with full-wavefield storage on
     ``device``, in batches whose stored source wavefields fit
-    ``_RTM_BATCH_BYTES``.
+    ``_RTM_BATCH_BYTES``, through the tier ``backend`` selects
+    (:func:`resolve_backend`): ``"pallas"`` runs ``rtm_full_cuda``,
+    ``"tiled"`` runs :func:`..solver.rtm_shot_full_tiled` at
+    ``TILED_BLOCK_K``. At K >= 2 both tiers run the ``rec_step`` kernels on
+    the card (``rec_fwd_step``, ``rec_bwd_step``), the port of the kernel
+    the JAX tiled tier runs (``_kstep_rec_kernel``); at K = 1 the tiled
+    tier runs ``fd_step``.
 
     Returns host ``(img, imlocs)``: the stacked (nx, nz) image and the
     (ns, nx, nz) per-shot images. With ``outdir``, writes ``dir.image``
@@ -280,7 +294,7 @@ def run_rtm_cpu(p: Params, vp: Optional[np.ndarray] = None,
     taken, so a subset reproduces those shots of the whole run.
 
     With a shot-only ``mesh`` the shots split over its shot axis, each
-    group on ``rtm_full_cuda`` on its device. An x or z axis > 1,
+    group on the selected tier on its device. An x or z axis > 1,
     ``rtm_main`` over a decomposed grid, is still to be ported and
     raises."""
     if mesh is not None and _mesh_decomposes_grid(mesh):
@@ -289,6 +303,7 @@ def run_rtm_cpu(p: Params, vp: Optional[np.ndarray] = None,
             "domain tiers, make_sharded_rtm_full and make_sharded_rtm_full_"
             "2d) is still to be ported (see ROADMAP.md, Queue 1 item 8); use "
             "a shot-only mesh")
+    tier = resolve_backend(backend, p.nxe, p.nze)
     if vp is None:
         vp = io.read_velocity(p.vpfile, p.nx, p.nz)
     if dobs is None:
@@ -307,14 +322,19 @@ def run_rtm_cpu(p: Params, vp: Optional[np.ndarray] = None,
     nxt = nxt_full[idx]
 
     if mesh is not None:
-        from .parallel.shots import make_sharded_rtm_full_cuda
-        sharded = make_sharded_rtm_full_cuda(ctx, mesh, g.sz, g.gz)
+        from .parallel import shots
+        make = (functools.partial(shots.make_sharded_rtm_full_tiled,
+                                  block_k=TILED_BLOCK_K)
+                if tier == "tiled" else shots.make_sharded_rtm_full_cuda)
+        sharded = make(ctx, mesh, g.sz, g.gz)
         run = lambda d, sxs, nx1: sharded(vel2, d, sxs, nx1, wav)
     else:
         vel2 = vel2.to(device)
-        run = lambda d, sxs, nx1: rtm_full_cuda(
+        rtm, kw = ((rtm_shot_full_tiled, {"block_k": TILED_BLOCK_K})
+                   if tier == "tiled" else (rtm_full_cuda, {}))
+        run = lambda d, sxs, nx1: rtm(
             ctx, vel2, wav, d.to(device), sxs, g.sz, g.gz,
-            next_shot_first=nx1)
+            next_shot_first=nx1, **kw)
     per = max(1, int(_RTM_BATCH_BYTES // (p.nt * p.nx * p.nz * 4)))
     per *= _mesh_shots(mesh)
     parts = []

@@ -19,14 +19,18 @@ kernel wrappers in :mod:`.ops.fd_kernels` route CPU tensors here.
   (``fd-code.cu:247-288``) and ``fd_back`` (``:290-341``): swap, taper,
   update, inject; and the untapered source reconstruction from the two
   snapshots beside the tapered receiver field with imaging.
-* The large-grid tier's passes, which take a state in and give it out:
-  :func:`mod_kstep` (K ``mod_main`` steps), :func:`fd_forward_kstep` (K
-  ``fd_forward`` steps), :func:`fd_back_kstep` (K ``fd_back`` steps) and
+* The large-grid tier's steps and passes, which take a state in and give
+  it out: :func:`fd_step` (one CPU-flavor step with an optional source
+  window or receiver row), :func:`fd_update` (the untapered leapfrog),
   :func:`fd_step_gpu` (one taper-first step with optional trace injection
-  and imaging), the plain versions of the kernels in :mod:`.ops.stream`.
-  The whole-grid loops above run the same step bodies, so the tiled
-  loops :func:`forward_modeling_tiled` and :func:`rtm_shot_snapshot_tiled`
-  give bitwise their results on the CPU.
+  and imaging), :func:`mod_kstep` (K ``mod_main`` steps),
+  :func:`fd_forward_kstep` (K ``fd_forward`` steps) and
+  :func:`fd_back_kstep` (K ``fd_back`` steps), the plain versions of the
+  kernels in :mod:`.ops.stream`. The whole-grid loops above run the same
+  step bodies, so the tiled loops :func:`forward_modeling_tiled`,
+  :func:`backward_recorded_tiled`, :func:`rtm_shot_full_tiled` and
+  :func:`rtm_shot_snapshot_tiled` give bitwise their results on the CPU
+  (the full-wavefield image at K = 1 up to its summation order).
 
 Shots: ``v2`` is (nxe, nze), shared by every shot, or (ns, nxe, nze);
 ``sx`` is one int or a sequence of one int per shot. Fields and outputs
@@ -50,9 +54,10 @@ from .ops.stencil import (
 
 __all__ = ["FDContext", "forward_modeling", "fd_forward", "fd_back",
            "rtm_shot_snapshot", "backward_recorded", "backward_image",
-           "rtm_shot_full", "receiver_offset", "mod_kstep",
-           "fd_forward_kstep", "fd_back_kstep", "fd_step_gpu",
-           "forward_modeling_tiled", "rtm_shot_snapshot_tiled"]
+           "rtm_shot_full", "receiver_offset", "fd_update", "fd_step",
+           "mod_kstep", "fd_forward_kstep", "fd_back_kstep", "fd_step_gpu",
+           "forward_modeling_tiled", "backward_recorded_tiled",
+           "rtm_shot_full_tiled", "rtm_shot_snapshot_tiled"]
 
 _F = np.float32
 
@@ -126,11 +131,15 @@ def host_wavelet(wavelet) -> np.ndarray:
     return np.ascontiguousarray(wavelet, dtype=np.float32)
 
 
-def _fd_update(ctx: FDContext, p, pp, v2):
-    """One Laplacian + leapfrog update (K1+K2; CPU ``fd_step``,
-    ``timestep/fd.c:24-46``)."""
+def fd_update(ctx: FDContext, p, pp, v2):
+    """One Laplacian + leapfrog update ``2p - pp + v2*dt2*lap(p)`` (K1+K2;
+    CPU ``fd_step``, ``timestep/fd.c:24-46``): the plain version of the
+    ``fd_update`` kernel and of the JAX package's ``_kernel_update``
+    (``ops/pallas_stream.py:171-204``), ``fd_back``'s untapered source
+    reconstruction."""
     lap = laplacian(p, ctx.coefs_x, ctx.coefs_z, ctx.order)
     return leapfrog(p, pp, v2, lap, ctx.dt2)
+
 
 
 def _zero_fields(ctx: FDContext, ns: int, like):
@@ -149,17 +158,55 @@ def _mask(ctx: FDContext, taper: str, device):
                            device=device)
 
 
+def _step(ctx: FDContext, p, pp, v2, mask, amp=None, sxs=None, sz: int = 0,
+          patch=None, inj_row=None, x0: int = 0, gz: int = 0):
+    """One CPU-flavor step from the state ``(p, pp)``, pp tapered: update,
+    inject into the new field (``amp * patch`` around each shot's source,
+    or ``amp`` at it without a patch; the receiver row ``inj_row`` on row gz
+    from x0), taper both. Returns ``(p * m, new * m)``."""
+    new = fd_update(ctx, p, pp, v2)
+    if amp is not None:
+        new = (inject_point(new, sxs, sz, amp) if patch is None
+               else inject_gaussian(new, sxs, sz, amp, patch))
+    if inj_row is not None:
+        new = inject_receivers(new, inj_row, x0, gz)
+    return p * mask, new * mask
+
+
+def _patch(ctx: FDContext, source: str, device):
+    """The Gaussian source patch on ``device``, or None for a point
+    source."""
+    if source not in ("gaussian", "point"):
+        raise ValueError(f"unknown source {source!r}")
+    return (torch.as_tensor(ctx.source_patch, device=device)
+            if source == "gaussian" else None)
+
+
 def _mod_step(ctx: FDContext, p, pp, v2, mask, amp: float, sxs, sz: int,
-              source: str, patch):
+              patch):
     """One ``mod_main`` step from the state ``(p, pp)``: update, inject into
     the new field, taper both. Returns the next state ``(new * m, p * m)``;
     its second field is the one the step records."""
-    new = _fd_update(ctx, p, pp, v2)
-    if source == "gaussian":
-        new = inject_gaussian(new, sxs, sz, amp, patch)
-    else:
-        new = inject_point(new, sxs, sz, amp)
-    return new * mask, p * mask
+    pm, new = _step(ctx, p, pp, v2, mask, amp, sxs, sz, patch)
+    return new, pm
+
+
+def fd_step(ctx: FDContext, p, pp, v2, taper: str = "all", amp=None,
+            sx=None, sz: int = 0, source: str = "gaussian", inj_row=None,
+            x0: int = 0, gz: int = 0):
+    """One fused CPU-flavor step from the state ``(p, pp)`` (ns, nxe, nze),
+    pp tapered: the plain version of the ``fd_step`` kernel and of the JAX
+    package's ``_kernel`` (``ops/pallas_stream.py:76-108``),
+    ``(p*m, (u + inj)*m)`` with ``u = 2p - pp + v2*dt2*lap(p)`` and ``m`` the
+    ``taper`` (``"all"`` or ``"top"``) mask. ``inj``, added before the taper
+    in the reference's order: with ``amp``, the ``source`` window
+    (Gaussian patch or point) scaled by ``amp`` at ``(sx[s], sz)``; with
+    ``inj_row`` (ns, nx), the receiver row on row gz from x0 (clamped into
+    the grid, :func:`.ops.stencil.receiver_x0`)."""
+    patch = _patch(ctx, source, p.device)
+    return _step(ctx, p, pp, v2, _mask(ctx, taper, p.device), amp,
+                 None if amp is None else shot_positions(sx), sz, patch,
+                 inj_row, x0, gz)
 
 
 def forward_modeling(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
@@ -180,7 +227,7 @@ def forward_modeling(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
     sxs = shot_positions(sx)
     wav = host_wavelet(wavelet)
     mask = _mask(ctx, taper, v2.device)
-    patch = torch.as_tensor(ctx.source_patch, device=v2.device)
+    patch = _patch(ctx, source, v2.device)
     p = _zero_fields(ctx, len(sxs), v2)
     pp = _zero_fields(ctx, len(sxs), v2)
     rec = None
@@ -190,7 +237,7 @@ def forward_modeling(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
         rec = v2.new_empty((len(sxs), ctx.nt, ctx.nx, ctx.nz))
     for it in range(ctx.nt):
         p, pp = _mod_step(ctx, p, pp, v2, mask, float(wav[it]), sxs, sz,
-                          source, patch)
+                          patch)
         if record == "trace":
             rec[:, it] = pp[:, ctx.nxb:ctx.nxb + ctx.nx, gz]
         elif record == "wavefield":
@@ -198,23 +245,24 @@ def forward_modeling(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
     return p, pp, rec
 
 
-def mod_kstep(ctx: FDContext, p, pp, v2, amps, sx, sz: int, gz: int):
-    """K ``mod_main`` steps (Gaussian source, all-edge taper) from the
-    state ``(p, pp)`` (ns, nxe, nze), K = ``len(amps)``: the plain version
-    of the ``kstep_mod`` kernel and the body of the JAX package's
-    ``_kstep_kernel`` (``ops/pallas_stream.py:637-647``: update, inject,
-    taper, record the trace at gz). ``amps`` are the K wavelet samples of
-    this pass. Returns ``(p, pp, rec)`` with rec
-    (ns, K, nx): row gz of each step's tapered old field, as
-    :func:`forward_modeling` records it."""
+def mod_kstep(ctx: FDContext, p, pp, v2, amps, sx, sz: int, gz: int,
+              source: str = "gaussian", taper: str = "all"):
+    """K ``mod_main`` steps from the state ``(p, pp)`` (ns, nxe, nze), K =
+    ``len(amps)``: the plain version of the ``kstep_mod`` kernel and the
+    body of the JAX package's ``_kstep_kernel`` (``ops/pallas_stream.py:
+    637-647``: update, inject, taper, record the trace at gz), with the
+    ``source`` (Gaussian or point) and ``taper`` (all-edge or top strip)
+    of :func:`forward_modeling`. ``amps`` are the K wavelet samples of
+    this pass. Returns ``(p, pp, rec)`` with rec (ns, K, nx): row gz of
+    each step's tapered old field, as :func:`forward_modeling` records
+    it."""
     sxs = shot_positions(sx)
     amps = host_wavelet(amps)
-    mask = _mask(ctx, "all", p.device)
-    patch = torch.as_tensor(ctx.source_patch, device=p.device)
+    mask = _mask(ctx, taper, p.device)
+    patch = _patch(ctx, source, p.device)
     rec = p.new_empty((p.shape[0], len(amps), ctx.nx))
     for k, amp in enumerate(amps):
-        p, pp = _mod_step(ctx, p, pp, v2, mask, float(amp), sxs, sz,
-                          "gaussian", patch)
+        p, pp = _mod_step(ctx, p, pp, v2, mask, float(amp), sxs, sz, patch)
         rec[:, k] = pp[:, ctx.nxb:ctx.nxb + ctx.nx, gz]
     return p, pp, rec
 
@@ -267,12 +315,10 @@ def backward_recorded(ctx: FDContext, v2, dobs, gz: int,
     pp = _zero_fields(ctx, ns, dobs)
     rwf = dobs.new_empty((ns, ctx.nt, ctx.nx, ctx.nz))
     for it in range(ctx.nt):
-        pp = _fd_update(ctx, p, pp, v2)
-        pp = inject_receivers(pp, inj[:, it], x0, gz)
-        pp = pp * mask
-        p = p * mask
-        rwf[:, it] = _interior(ctx, p)
-        p, pp = pp, p
+        pm, new = _step(ctx, p, pp, v2, mask, inj_row=inj[:, it], x0=x0,
+                        gz=gz)
+        rwf[:, it] = _interior(ctx, pm)
+        p, pp = new, pm
     return p, pp, rwf
 
 
@@ -308,7 +354,7 @@ def _gpu_step(ctx: FDContext, y, x, v2, mask, gz: int = 0, inj_row=None,
     at depth gz (K5), and ``img += src * new`` over the interior (K6).
     Returns ``(t, new)``, or ``(t, new, img)`` with ``img``."""
     t = y * mask
-    new = _fd_update(ctx, t, x * mask, v2)
+    new = fd_update(ctx, t, x * mask, v2)
     if inj_row is not None:
         new = inject_receivers(new, inj_row, ctx.nxb, gz)
     if img is None:
@@ -356,7 +402,7 @@ def fd_back_kstep(ctx: FDContext, ps, pps, pr, ppr, img, v2, inj_rows,
     nx); ``img`` (ns, nx, nz). Returns the next state."""
     mask = _mask(ctx, "top", ps.device)
     for k in range(inj_rows.shape[1]):
-        ps, pps = _fd_update(ctx, ps, pps, v2), ps
+        ps, pps = fd_update(ctx, ps, pps, v2), ps
         ppr, pr, img = _gpu_step(ctx, pr, ppr, v2, mask, gz, inj_rows[:, k],
                                  img, ps)
     return ps, pps, pr, ppr, img
@@ -412,63 +458,221 @@ def rtm_shot_snapshot(ctx: FDContext, v2, wavelet, dobs, sx, sz: int,
 
 
 def forward_modeling_tiled(ctx: FDContext, v2, wavelet, sx, sz: int,
-                           gz: int, block_k: int = 4, lap_impl=None):
-    """:func:`forward_modeling` of ``mod_main`` (Gaussian source, all-edge
-    taper, ``record="trace"``) through the large-grid tier: nt // K passes of K fused steps, then one tail pass of
-    nt % K (the JAX package's ``_forward_modeling_kblocked``,
-    ``solver.py:264-355``). Each pass goes through
-    :func:`.ops.stream.mod_kstep_cuda`: the ``kstep_mod`` kernel on the
-    card, :func:`mod_kstep` on the CPU, where the result is bitwise
-    :func:`forward_modeling`'s. (The JAX driver's other sources, tapers and
-    record modes are still to be ported; wavefield recording on large grids
-    is ``rec_fwd_step``'s, :func:`.ops.fd_kernels.forward_modeling_cuda`.)
-    Returns ``(p, pp, seis)`` as :func:`forward_modeling`."""
+                           gz: int, source: str = "gaussian",
+                           taper: str = "all", record: str = "trace",
+                           block_k: int = 1, lap_impl=None):
+    """:func:`forward_modeling` through the large-grid tier (the JAX
+    package's ``forward_modeling_tiled``, ``solver.py:184-355``), with its
+    ``source``, ``taper`` and ``record`` modes. Returns ``(p, pp,
+    recorded)`` as :func:`forward_modeling`, bitwise its on the CPU.
+
+    ``block_k=1``, the per-step streaming tier: one
+    :func:`.ops.stream.fd_step_cuda` a step (the ``fd_step`` kernel on the
+    card, the injection folded in before the taper; :func:`fd_step` on the
+    CPU) into two buffer pairs swapped every step, and the record taken
+    from the tapered old field. ``block_k`` in 2..8: nt // K passes of K
+    fused steps and one tail pass of nt % K through
+    :func:`.ops.stream.mod_kstep_cuda` (``kstep_mod``) for traces or none;
+    wavefield recording runs ``rec_fwd_step``
+    (:func:`.ops.fd_kernels.forward_modeling_cuda`), the port of the JAX
+    K-step recording kernel."""
     from .ops import stream
-    from .ops.fd_kernels import check_lap_impl
+    from .ops.fd_kernels import (check_lap_impl, forward_modeling_cuda,
+                                 _check_gz, _check_wavelet)
     check_lap_impl(lap_impl)
     K = stream.check_block_k(block_k)
+    if record not in RECORD_MODES:
+        raise ValueError(f"unknown record mode {record!r}")
+    if taper not in ("all", "top"):
+        raise ValueError(f"unknown taper {taper!r}")
     sxs = shot_positions(sx)
-    wav = host_wavelet(wavelet)
-    consts = stream.prepare(ctx, v2, sxs, source="gaussian", taper="all")
-    p = _zero_fields(ctx, len(sxs), v2)
-    pp = _zero_fields(ctx, len(sxs), v2)
-    seis = v2.new_empty((len(sxs), ctx.nt, ctx.nx))
-    for it0 in range(0, ctx.nt, K):
-        amps = wav[it0:it0 + K]
-        p, pp, rec = stream.mod_kstep_cuda(ctx, p, pp, v2, amps, sxs, sz, gz,
-                                           consts=consts)
-        seis[:, it0:it0 + len(amps)] = rec
-    return p, pp, seis
+    wav = _check_wavelet(ctx, wavelet)
+    if K > 1 and record == "wavefield":
+        return forward_modeling_cuda(ctx, v2, wav, sxs, sz, gz, source=source,
+                                     taper=taper, record=record)
+    consts = stream.prepare(ctx, v2, sxs, source=source, taper=taper)
+    ns = len(sxs)
+    p = _zero_fields(ctx, ns, v2)
+    pp = _zero_fields(ctx, ns, v2)
+    rec = None
+    if record == "trace":
+        rec = v2.new_empty((ns, ctx.nt, ctx.nx))
+    elif record == "wavefield":
+        rec = v2.new_empty((ns, ctx.nt, ctx.nx, ctx.nz))
+    if K > 1:
+        for it0 in range(0, ctx.nt, K):
+            amps = wav[it0:it0 + K]
+            p, pp, tr = stream.mod_kstep_cuda(ctx, p, pp, v2, amps, sxs, sz,
+                                              gz, source, taper,
+                                              consts=consts)
+            if rec is not None:
+                rec[:, it0:it0 + len(amps)] = tr
+        return p, pp, rec
+    _check_gz(ctx, gz)
+    spare = (torch.empty_like(p), torch.empty_like(p))
+    for it in range(ctx.nt):
+        pm, new = stream.fd_step_cuda(ctx, p, pp, v2, taper,
+                                      amp=float(wav[it]), sx=sxs, sz=sz,
+                                      source=source, consts=consts, out=spare)
+        if record == "trace":
+            rec[:, it] = pm[:, ctx.nxb:ctx.nxb + ctx.nx, gz]
+        elif record == "wavefield":
+            rec[:, it] = _interior(ctx, pm)
+        spare = (p, pp)
+        p, pp = new, pm
+    return p, pp, rec
+
+
+def _backward_steps(ctx: FDContext, v2, dobs, gz: int, x_off_quirk,
+                    next_shot_first, swf=None):
+    """``rtm_main``'s backward half one :func:`.ops.stream.fd_step_cuda` a
+    step (top-strip taper, the receiver row of :func:`_injection_rows` at
+    :func:`receiver_offset` folded in before it), two buffer pairs swapped
+    every step. Without ``swf`` returns ``(p, pp, rwf)``; with the source
+    wavefield ``swf`` (ns, nt, nx, nz) returns the (ns, nx, nz) images,
+    ``img += swf[:, nt-1-it] * frame`` each step in time order, so that no
+    receiver wavefield is held."""
+    from .ops import stream
+    from .ops.fd_kernels import (_check, _check_dobs, _check_gz,
+                                 _next_shot_first)
+    ns = _check_dobs(ctx, dobs, v2.device)
+    _check_gz(ctx, gz)
+    if swf is not None:
+        _check("swf", swf, (ns, ctx.nt, ctx.nx, ctx.nz), v2.device)
+    inj = _injection_rows(ctx, dobs,
+                          _next_shot_first(next_shot_first, ns, v2.device))
+    x0 = receiver_offset(ctx, x_off_quirk)
+    consts = stream.prepare(ctx, v2, [0], source="point", taper="top")
+    p = _zero_fields(ctx, ns, dobs)
+    pp = _zero_fields(ctx, ns, dobs)
+    spare = (torch.empty_like(p), torch.empty_like(p))
+    if swf is None:
+        out = dobs.new_empty((ns, ctx.nt, ctx.nx, ctx.nz))
+    else:
+        out = dobs.new_zeros((ns, ctx.nx, ctx.nz))
+    for it in range(ctx.nt):
+        pm, new = stream.fd_step_cuda(ctx, p, pp, v2, "top",
+                                      inj_row=inj[:, it], x0=x0, gz=gz,
+                                      consts=consts, out=spare)
+        if swf is None:
+            out[:, it] = _interior(ctx, pm)
+        else:
+            out += swf[:, ctx.nt - 1 - it] * _interior(ctx, pm)
+        spare = (p, pp)
+        p, pp = new, pm
+    return (p, pp, out) if swf is None else out
+
+
+def backward_recorded_tiled(ctx: FDContext, v2, dobs, gz: int,
+                            x_off_quirk: bool = True, next_shot_first=0.0,
+                            block_k: int = 1, lap_impl=None):
+    """:func:`backward_recorded` through the large-grid tier (the JAX
+    package's ``backward_recorded_tiled``, ``solver.py:609-661``): at
+    ``block_k=1`` one ``fd_step`` a step with the receiver row (the JAX
+    tiled tier's missing clamp of the row is not copied: the row sits at
+    :func:`receiver_offset`); at K in 2..8 ``rec_bwd_step`` in frame mode
+    (:func:`.ops.fd_kernels.backward_recorded_cuda`), the port of the JAX
+    K-step recording kernel. ``dobs`` is (ns, nx, nt), ``next_shot_first``
+    one number or one per shot. Returns ``(p, pp, rwf)`` with rwf (ns, nt,
+    nx, nz), bitwise :func:`backward_recorded`'s on the CPU."""
+    from .ops import stream
+    from .ops.fd_kernels import backward_recorded_cuda, check_lap_impl
+    check_lap_impl(lap_impl)
+    if stream.check_block_k(block_k) > 1:
+        return backward_recorded_cuda(ctx, v2, dobs, gz,
+                                      x_off_quirk=x_off_quirk,
+                                      next_shot_first=next_shot_first)
+    return _backward_steps(ctx, v2, dobs, gz, x_off_quirk, next_shot_first)
+
+
+def rtm_shot_full_tiled(ctx: FDContext, v2, wavelet, dobs, sx, sz: int,
+                        gz: int, x_off_quirk: bool = True,
+                        next_shot_first=0.0, block_k: int = 1,
+                        lap_impl=None):
+    """:func:`rtm_shot_full` (``rtm_main``) through the large-grid tier (the
+    JAX package's ``rtm_shot_full_tiled``, ``solver.py:724-748``). At
+    ``block_k=1``: :func:`forward_modeling_tiled` stores the source
+    wavefield (point source, top taper), then the backward steps add
+    ``swf[:, nt-1-it] * frame`` into the image each step, in time order, so
+    the card holds one wavefield volume, as ``rec_bwd_step``'s image mode
+    does. At K in 2..8: :func:`.ops.fd_kernels.rtm_full_cuda`
+    (``rec_fwd_step``, ``rec_bwd_step``). Returns the (ns, nx, nz) images;
+    on the CPU they equal :func:`rtm_shot_full`'s up to the summation
+    order of the image."""
+    from .ops import stream
+    from .ops.fd_kernels import check_lap_impl, rtm_full_cuda
+    check_lap_impl(lap_impl)
+    if stream.check_block_k(block_k) > 1:
+        return rtm_full_cuda(ctx, v2, wavelet, dobs, sx, sz, gz,
+                             x_off_quirk=x_off_quirk,
+                             next_shot_first=next_shot_first)
+    _, _, swf = forward_modeling_tiled(ctx, v2, wavelet, sx, sz, gz,
+                                       source="point", taper="top",
+                                       record="wavefield", block_k=1)
+    return _backward_steps(ctx, v2, dobs, gz, x_off_quirk, next_shot_first,
+                           swf)
 
 
 def rtm_shot_snapshot_tiled(ctx: FDContext, v2, wavelet, dobs, sx, sz: int,
-                            gz: int, block_k: int = 4, lap_impl=None):
+                            gz: int, block_k: int = 1, lap_impl=None):
     """:func:`rtm_shot_snapshot` through the large-grid tier (the JAX
-    package's ``_rtm_snapshot_kblocked``, ``solver.py:438-531``): the
-    forward in nt // K passes of K ``fd_forward`` steps and a tail of
-    nt % K; the backward seeded by the two taper-first steps from the
-    snapshots (``gpu_step``), then (nt - 2) // K passes of K ``fd_back``
-    steps and a tail. On the card the passes run the kernels of
-    :mod:`.ops.stream`; on the CPU their plain versions, bitwise
-    :func:`rtm_shot_snapshot`. ``dobs`` is (ns, nx, nt). Returns the (ns,
-    nx, nz) images."""
+    package's ``rtm_shot_snapshot_tiled`` and ``_rtm_snapshot_kblocked``,
+    ``solver.py:362-531``). ``block_k=1``: the forward one taper-first
+    ``gpu_step`` a step, then the point source added into the new field;
+    the backward seeded by the two taper-first steps from the snapshots,
+    then per step the untapered source reconstruction (``fd_update``) and
+    the receiver step with the trace row and imaging (``gpu_step``), each
+    into buffers swapped every step. ``block_k`` in 2..8: the forward in
+    nt // K passes of K ``fd_forward`` steps and a tail of nt % K; the same
+    seed, then (nt - 2) // K passes of K ``fd_back`` steps and a tail. On
+    the card the steps and passes run the kernels of :mod:`.ops.stream`;
+    on the CPU their plain versions, bitwise :func:`rtm_shot_snapshot`.
+    ``dobs`` is (ns, nx, nt). Returns the (ns, nx, nz) images."""
     from .ops import stream
-    from .ops.fd_kernels import check_lap_impl
+    from .ops.fd_kernels import check_lap_impl, _check_wavelet, _check_window
     check_lap_impl(lap_impl)
     K = stream.check_block_k(block_k)
     sxs = shot_positions(sx)
-    wav = host_wavelet(wavelet)
+    wav = _check_wavelet(ctx, wavelet)
+    _check_window(ctx, sxs, sz, 0)
     consts = stream.prepare(ctx, v2, sxs, source="point", taper="top")
-    p = _zero_fields(ctx, len(sxs), v2)
-    pp = _zero_fields(ctx, len(sxs), v2)
-    for it0 in range(0, ctx.nt, K):
-        p, pp = stream.fd_forward_kstep_cuda(ctx, p, pp, v2, wav[it0:it0 + K],
-                                             sxs, sz, consts=consts)
+    ns = len(sxs)
+    p = _zero_fields(ctx, ns, v2)
+    pp = _zero_fields(ctx, ns, v2)
+    if K == 1:
+        shots = torch.arange(ns, device=v2.device)
+        xs = torch.as_tensor(sxs, device=v2.device)
+        spare = (torch.empty_like(p), torch.empty_like(p))
+        for amp in wav:
+            t, new = stream.fd_step_gpu_cuda(ctx, pp, p, v2, consts=consts,
+                                             out=spare)
+            new[shots, xs, sz] += float(amp)
+            spare = (p, pp)
+            p, pp = t, new
+    else:
+        for it0 in range(0, ctx.nt, K):
+            p, pp = stream.fd_forward_kstep_cuda(ctx, p, pp, v2,
+                                                 wav[it0:it0 + K], sxs, sz,
+                                                 consts=consts)
     inj = dobs.flip(-1).transpose(1, 2).contiguous()     # (ns, nt, nx)
     step = functools.partial(stream.fd_step_gpu_cuda, consts=consts)
     state = _seed_steps(ctx, v2, p, pp, inj, gz, step)
-    for it0 in range(2, ctx.nt, K):
-        state = stream.fd_back_kstep_cuda(ctx, *state, v2,
-                                          inj[:, it0:it0 + K], gz,
-                                          consts=consts)
-    return state[4]
+    if K > 1:
+        for it0 in range(2, ctx.nt, K):
+            state = stream.fd_back_kstep_cuda(ctx, *state, v2,
+                                              inj[:, it0:it0 + K], gz,
+                                              consts=consts)
+        return state[4]
+    ps, pps, pr, ppr, img = state
+    spare_s = torch.empty_like(ps)
+    spare_r = (torch.empty_like(ps), torch.empty_like(ps))
+    for it in range(2, ctx.nt):
+        src = stream.fd_update_cuda(ctx, ps, pps, v2, consts=consts,
+                                    out=spare_s)
+        spare_s, pps, ps = pps, ps, src
+        t, new, img = stream.fd_step_gpu_cuda(ctx, pr, ppr, v2, gz,
+                                              inj[:, it], img, ps,
+                                              consts=consts, out=spare_r)
+        spare_r = (pr, ppr)
+        ppr, pr = t, new
+    return img

@@ -53,7 +53,8 @@ from parallel_finite_difference_computation_tpu_torch import (
     cli as tcli, io as tio, numerics as tnum, pipeline as tpipe, solver)
 from parallel_finite_difference_computation_tpu_torch.convert import (
     context_from_arrays)
-from parallel_finite_difference_computation_tpu_torch.ops import stream
+from parallel_finite_difference_computation_tpu_torch.ops import (
+    fd_kernels as fk, stream)
 
 GATE = 1e-5
 TR = 16                      # tile_rows of the JAX streaming kernels
@@ -353,10 +354,10 @@ def test_unknown_backend_and_block_k_raise():
     for fn, args in ((solver.forward_modeling_tiled, (wav, sxs, sz, gz)),
                      (solver.rtm_shot_snapshot_tiled,
                       (wav, torch.zeros((2, ctx.nx, 4)), sxs, sz, gz))):
-        with pytest.raises(NotImplementedError, match="rows 8 and 9"):
-            fn(ctx, v2, *args, block_k=1)
-        with pytest.raises(ValueError, match="block_k"):
-            fn(ctx, v2, *args, block_k=9)
+        fn(ctx, v2, *args, block_k=1)      # the per-step streaming tier
+        for bad in (0, 9):
+            with pytest.raises(ValueError, match="block_k"):
+                fn(ctx, v2, *args, block_k=bad)
 
 
 def test_wrappers_on_cpu_are_the_plain_passes_and_count_nothing():
@@ -385,7 +386,8 @@ def test_wrappers_on_cpu_are_the_plain_passes_and_count_nothing():
     for got, want in pairs:
         for a, b in zip(got, want):
             assert torch.equal(a, b)
-    assert stream.LAUNCHES == {"kstep_mod": 0, "kstep_gpu_fwd": 0,
+    assert stream.LAUNCHES == {"fd_step": 0, "fd_update": 0,
+                               "kstep_mod": 0, "kstep_gpu_fwd": 0,
                                "kstep_gpu_bwd": 0, "gpu_step": 0}
 
 
@@ -426,7 +428,8 @@ def test_wrappers_raise_on_bad_inputs(bad):
 def test_shared_memory_of_the_kernels():
     """The K-step kernels' tiles, as their C sources size them, fit a
     block's shared memory at the pipelines' K up to order 10, and the
-    wrappers' step limit is the kernels'."""
+    wrappers' step limit is the kernels'; which (kernel, order, K) the card
+    refuses up to order 16, the K-step and the block kernels."""
     csrc = pathlib.Path(stream.__file__).parents[1] / "csrc"
     const = {m[1]: int(m[2]) for m in re.finditer(
         r"constexpr int (k\w+) = (\d+);", (csrc / "kstep.cuh").read_text())}
@@ -448,6 +451,52 @@ def test_shared_memory_of_the_kernels():
     for kernel in ("kstep_mod", "kstep_gpu_fwd", "kstep_gpu_bwd"):
         assert smem(kernel, 10, tpipe.TILED_BLOCK_K) <= limit
     assert smem("kstep_gpu_bwd", 8, 8) > limit     # refused by allow_smem
+
+    # the block kernels of the domain tiers (csrc/domain_block.cuh):
+    # tile_bytes<TX, TZ>(fields, K*h, image)
+    cuh = (csrc / "domain_block.cuh").read_text()
+    dims = {m[1]: int(m[2]) for m in re.finditer(r"(k\w+T[XZ]) = (\d+)",
+                                                 cuh)}
+    blocks = dict(zip(("block_mod", "block_fwd", "block_bwd"), re.findall(
+        r"tile_bytes<(\w+), (\w+)>\((\d), k \* H, (true|false)\)", cuh)))
+
+    def block_smem(kernel, order, k):
+        bx, bz, fields, image = blocks[kernel]
+        r = k * (order // 2)
+        cells = (dims[bx] + 2 * r) * (dims[bz] + 2 * r)
+        return 4 * (int(fields) * cells
+                    + (dims[bx] * dims[bz] if image == "true" else 0))
+
+    assert block_smem("block_bwd", 8, 8) == 4 * (4 * 96 * 96 + 32 * 32)
+
+    # The smallest K each order's tile is refused at (None: every K up to
+    # 8 fits): orders above 10 run on the card, but with fewer steps a pass
+    # or block; the wrappers then raise, naming the limit (fk._raise_on).
+    def first_refused(size, kernel, order):
+        ks = [k for k in range(1, stream.MAX_STEPS + 1)
+              if size(kernel, order, k) > limit]
+        return ks[0] if ks else None
+
+    refused = {order: {kernel: first_refused(
+        block_smem if kernel.startswith("block") else smem, kernel, order)
+        for kernel in ("kstep_mod", "kstep_gpu_fwd", "kstep_gpu_bwd",
+                       "block_mod", "block_fwd", "block_bwd")}
+        for order in (8, 10, 12, 14, 16)}
+    assert refused == {
+        8: {"kstep_mod": None, "kstep_gpu_fwd": None, "kstep_gpu_bwd": 8,
+            "block_mod": None, "block_fwd": None, "block_bwd": None},
+        10: {"kstep_mod": None, "kstep_gpu_fwd": None, "kstep_gpu_bwd": 6,
+             "block_mod": None, "block_fwd": None, "block_bwd": None},
+        12: {"kstep_mod": 8, "kstep_gpu_fwd": 8, "kstep_gpu_bwd": 5,
+             "block_mod": None, "block_fwd": None, "block_bwd": 8},
+        14: {"kstep_mod": 7, "kstep_gpu_fwd": 7, "kstep_gpu_bwd": 5,
+             "block_mod": None, "block_fwd": None, "block_bwd": 7},
+        16: {"kstep_mod": 6, "kstep_gpu_fwd": 6, "kstep_gpu_bwd": 4,
+             "block_mod": 8, "block_fwd": 8, "block_bwd": 6}}
+    # the per-step kernels (fd_step, fd_update, gpu_step and the whole-grid
+    # step kernels) stage nothing and take every order up to MAX_ORDER
+    assert fk.MAX_ORDER == 2 * int(re.search(
+        r"kMaxHalf = (\d+)", (csrc / "stencil.cuh").read_text())[1])
 
 
 # ------------------------------------------------------- the slice, batches
