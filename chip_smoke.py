@@ -120,6 +120,30 @@ Run from the root of the repository, on a machine with one CUDA card and
    (``mod_step``, ``rtm_fwd_step``), with their bounds; the K = 1 modeling
    and RTM calls against the K = 4 and per-step calls; one profiler trace
    of each K = 1 call (kernel time, the other ops' launches, idle share).
+22. padded stencil vs plain: ``lap_padded`` bitwise its plain version and
+   n = 1, 2, 16 chained applies of ``stencil.laplacian`` (two buffers,
+   ``out=``), ``lap_padded_mma`` (mxu, mxu6) within 1e-6 of max of its
+   plain version and 2e-5 / 2e-7 of the exact taps, the pads zero, at
+   415 x 295 and 8192 x 8192, orders 4, 8, 10 and 16; then the padded chain
+   path (16 applies at 8192 x 8192, order 8, each impl) and its launches;
+23. the split-bf16 tiers (``lap_impl`` mxu, mxu6): ``mod_step_mma``,
+   ``rtm_fwd_step_mma`` and ``rtm_bwd_step_mma`` against their plain
+   versions in short runs (nt=20, orders 4, 8, 10, 16, nxb != nzb) and at
+   3lay (8 shots, nt=1001); gate: max relative error <= 1e-5, but 1e-4 for
+   3lay's final fields p, pp, which move by ~1e-5 when only the order of
+   the plain version's own sums changes (scripts/torch_sum_order_floor.py);
+   then the main path ``run_modeling`` + ``run_rtm_gpu`` on 3lay with
+   ``lap_impl="auto"`` (resolves to mxu) and ``"mxu6"``: the launch counts
+   (the *_mma kernels nt times, the exact ones never), the image against
+   the plain path on the card (rel RMS <= 1e-5) and against phase 4's
+   exact image (<= 1e-4 for mxu, <= 1e-5 for mxu6);
+24. times and traces of the tensor-core tiers: the 3lay modeling and RTM
+   calls in exact, mxu and mxu6; each *_mma kernel's call (mxu) against its
+   plain version and the exact per-step call of the same function; the
+   padded chain per apply (vpu, mxu, mxu6) against ``lap_apply`` and fp32
+   ``conv2d``; one profiler trace of each mxu call and chain. The bounds
+   count the x taps' multiply-adds of each cross term at the bf16 tensor
+   rate and the rest at the float32 rate.
 
 Every phase prints its seconds. It prints one JSON line of per-kernel results (with each kernel's bound,
 worked out from this run's shapes), the nvidia-smi line, and, as the last
@@ -181,6 +205,16 @@ KERNELS = {
                 "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:76"),
     "fd_update": (f"{PKG}/csrc/stream_step.cu",
                   "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:171"),
+    "lap_padded": (f"{PKG}/csrc/lap_padded.cu",
+                   "parallel_finite_difference_computation_tpu/ops/pallas_stencil.py:546"),
+    "lap_padded_mma": (f"{PKG}/csrc/lap_padded.cu",
+                       "parallel_finite_difference_computation_tpu/ops/pallas_stencil.py:429"),
+    "mod_step_mma": (f"{PKG}/csrc/step_mma.cu",
+                     "parallel_finite_difference_computation_tpu/ops/pallas_fd.py:260"),
+    "rtm_fwd_step_mma": (f"{PKG}/csrc/step_mma.cu",
+                         "parallel_finite_difference_computation_tpu/ops/pallas_fd.py:260"),
+    "rtm_bwd_step_mma": (f"{PKG}/csrc/step_mma.cu",
+                         "parallel_finite_difference_computation_tpu/ops/pallas_fd.py:260"),
 }
 # The reference's full-resolution Pluto config
 # (dpct_gpu_rtm_domain_division/build/pluto/input.orig, as restated in
@@ -190,11 +224,13 @@ PLUTO = dict(nz=1201, nx=6960, nt=12860, dz=7.62, dx=7.62, dt=0.0007,
              fpeak=6.0, ns=2, sz=0, fsx=2700, ds=20, gz=0, nxb=40, nzb=40,
              fac=0.75, order=8)
 PLUTO_VELOCITIES = (1500.0, 2200.0, 3000.0, 4000.0)
-# The card's published peaks (H100 SXM data sheet): HBM bytes/s and float32
-# flop/s outside the tensor cores. A kernel's bound is the larger of its
-# bytes (inputs read once, outputs written once) and its flop over these.
+# The card's published peaks (H100 SXM data sheet): HBM bytes/s, float32
+# flop/s outside the tensor cores and dense bf16 flop/s on them. A kernel's
+# bound is the largest of its bytes (inputs read once, outputs written once)
+# and its flop of each kind over these.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TENSOR_FLOP_PER_S = 989e12
 
 
 def lap_flops(h: int) -> int:
@@ -204,22 +240,38 @@ def lap_flops(h: int) -> int:
     return 6 * h + 3
 
 
-def bound(nbytes: float, flops: float):
-    """(bound_ms, bound_by) of a call that moves nbytes and does flops."""
+def mma_lap_flops(h: int, parts: int):
+    """(float32 flop, bf16 tensor flop) of one order-2h Laplacian cell with
+    the taps of one axis as the parts-part split-bf16 banded product: the
+    other axis exact (3h + 1), the split of the field (a rounding and a
+    subtraction a part), the sum of the cross terms and yx + accz on the
+    CUDA cores; a multiply-add for each of the 2h + 1 taps of each cross
+    term (3 for parts = 2, 6 for 3) on the tensor cores."""
+    terms = 3 if parts == 2 else 6
+    return 3 * h + 1 + 2 * parts + terms, terms * 2 * (2 * h + 1)
+
+
+def bound(nbytes: float, flops: float, tensor_flops: float = 0.0):
+    """(bound_ms, bound_by) of a call that moves nbytes and does flops on
+    the CUDA cores and tensor_flops on the tensor cores."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / F32_FLOP_PER_S * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
+    t = max(tb, flops / F32_FLOP_PER_S * 1e3,
+            tensor_flops / BF16_TENSOR_FLOP_PER_S * 1e3)
+    return (t, "bytes") if t == tb else (t, "operations")
 
 
-def step_bounds(ctx, ns: int):
+def step_bounds(ctx, ns: int, parts: int = 0):
     """Bounds of one wrapper call (ns shots x nt steps) of each step kernel
     as this script times it, from the shapes: per cell-step, the Laplacian
     over its interior and the update over the whole plane; bytes of the
     call's inputs and outputs, float32. The modeling and rtm_main calls
     share one velocity plane; the two-snapshot RTM has one per shot. A
     field is tapered once per cell, as the functions define it: the kernels'
-    taper of each Laplacian tap on read is not counted."""
+    taper of each Laplacian tap on read is not counted. With parts > 0 the
+    Laplacian's x taps are the split-bf16 banded product
+    (:func:`mma_lap_flops`): the bounds of the *_mma kernels."""
     h = ctx.order // 2
+    lf, tf = (lap_flops(h), 0) if not parts else mma_lap_flops(h, parts)
     plane = ctx.nxe * ctx.nze
     lapc = (ctx.nxe - 2 * h) * (ctx.nze - 2 * h)
     inter = ctx.nx * ctx.nz
@@ -230,18 +282,19 @@ def step_bounds(ctx, ns: int):
         "mod_step": bound(
             f4 * (plane + plane + 49 + ctx.nt + 2 * ns * plane
                   + ns * ctx.nt * ctx.nx),
-            steps * (lapc * lap_flops(h) + 6 * plane + ctx.nx + 49)),
+            steps * (lapc * lf + 6 * plane + ctx.nx + 49),
+            steps * lapc * tf),
         # rtm_fwd_step: a=m*p, b=m*(m*pp), u=2a-b+v*lap(a)
         "rtm_fwd_step": bound(
             f4 * (ns * plane + plane + ctx.nt + 2 * ns * plane),
-            steps * (lapc * lap_flops(h) + 7 * plane + 1)),
+            steps * (lapc * lf + 7 * plane + 1), steps * lapc * tf),
         # rtm_bwd_step: untapered source step (4), tapered receiver step
         # (7), trace add, imaging multiply-add over the interior
         "rtm_bwd_step": bound(
             f4 * (ns * plane + plane + 2 * ns * plane
                   + ns * ctx.nx * ctx.nt + ns * inter),
-            steps * (lapc * 2 * lap_flops(h)
-                     + 11 * plane + ctx.nx + 2 * inter)),
+            steps * (lapc * 2 * lf + 11 * plane + ctx.nx + 2 * inter),
+            steps * lapc * 2 * tf),
         # rec_fwd_step: the mod_step update, a point source, frame m*p
         "rec_fwd_step": bound(
             f4 * (plane + plane + ctx.nt + 2 * ns * plane
@@ -1934,6 +1987,318 @@ def main() -> int:
               f"ms in {sum(n for _, _, n in other)} launches; idle share "
               f"{1 - busy / pluto_ms[c]:.3f}; {smi}", flush=True)
     phase_done("K=1 times and profile")
+
+    # ---- 22. the padded-layout stencil (kernel-table row 7) vs plain on
+    # the card: lap_padded bitwise its plain version and n = 1, 2, 16
+    # chained applies of stencil.laplacian; lap_padded_mma within 1e-6 of
+    # max of its plain version and 2e-5 (mxu) / 2e-7 (mxu6) of the exact
+    # taps; the pads zero
+    from parallel_finite_difference_computation_tpu_torch.ops import padded
+
+    def pads_zero(t, nx, nz, order) -> bool:
+        q = t.clone()
+        padded.from_padded(q, nx, nz, order).zero_()
+        return float(q.abs().max()) == 0.0
+
+    pad_abs = {"lap_padded": 0.0, "lap_padded_mma": 0.0}
+    for label, p in grids.items():
+        f = fields[label]
+        nx, nz = f.shape
+        for order in (4, 8, 10, 16):
+            cx, cz = numerics.scaled_coefficients(order, p.dx, p.dz)
+            pf = padded.to_padded(f, order)
+            exact = padded.laplacian_padded(pf, cx, cz, order, nx, nz)
+            bufs = (pf.clone(), torch.empty_like(pf))
+            chain = f
+            for n in range(1, 17):
+                got = padded.laplacian_padded_cuda(
+                    bufs[(n - 1) % 2], cx, cz, order, nx, nz,
+                    out=bufs[n % 2])
+                chain = stencil.laplacian(chain, cx, cz, order)
+                if n == 1:
+                    check(torch.equal(got, exact), f"lap_padded {label} "
+                          f"order {order} differs from its plain version")
+                if n in (1, 2, 16):
+                    check(torch.equal(padded.from_padded(got, nx, nz, order),
+                                      chain),
+                          f"lap_padded {label} order {order}: {n} chained "
+                          f"applies differ from stencil.laplacian")
+            check(pads_zero(got, nx, nz, order), f"lap_padded {label} "
+                  f"order {order}: pads not zero")
+            line = [f"lap_padded bitwise (1, 2, 16 applies)"]
+            for impl, tol in (("mxu", 2e-5), ("mxu6", 2e-7)):
+                got = padded.laplacian_padded_cuda(pf, cx, cz, order, nx, nz,
+                                                   impl, out=bufs[1])
+                want = padded.laplacian_padded(pf, cx, cz, order, nx, nz,
+                                               impl)
+                e_plain, e_exact = max_rel(got, want), max_rel(got, exact)
+                pad_abs["lap_padded_mma"] = max(
+                    pad_abs["lap_padded_mma"],
+                    float((got - want).abs().max()))
+                line.append(f"lap_padded_mma {impl}: {e_plain:.3e} of max "
+                            f"from plain, {e_exact:.3e} from exact")
+                check(e_plain <= 1e-6 and e_exact <= tol
+                      and pads_zero(got, nx, nz, order),
+                      f"lap_padded_mma {impl} {label} order {order}: "
+                      f"{e_plain:.3e} from plain (gate 1e-6), {e_exact:.3e} "
+                      f"from exact (gate {tol})")
+            print(f"[padded vs plain] {label} order {order}: "
+                  + "; ".join(line), flush=True)
+            del pf, exact, bufs, chain, got, want
+    results["lap_padded"]["max_abs_err"] = pad_abs["lap_padded"]
+    results["lap_padded_mma"]["max_abs_err"] = pad_abs["lap_padded_mma"]
+
+    # the padded chain path: 16 chained applies at 8192 x 8192, order 8, on
+    # two buffers, for each impl, counted
+    p8 = grids["8192 x 8192"]
+    f8 = fields["8192 x 8192"]
+    cx8, cz8 = numerics.scaled_coefficients(8, p8.dx, p8.dz)
+    pf8 = padded.to_padded(f8, 8)
+    chain_bufs = (pf8.clone(), torch.empty_like(pf8))
+
+    def padded_chain(impl: str):
+        def run():
+            for n in range(16):
+                padded.laplacian_padded_cuda(
+                    chain_bufs[n % 2], cx8, cz8, 8, p8.nxe, p8.nze, impl,
+                    out=chain_bufs[1 - n % 2])
+        return run
+
+    padded.reset_launches()
+    for impl in padded.IMPLS:
+        padded_chain(impl)()
+    torch.cuda.synchronize()
+    launches = dict(padded.LAUNCHES)
+    print(f"[padded path] 16 chained applies at 8192 x 8192, order 8, for "
+          f"vpu, mxu and mxu6: launches {launches}", flush=True)
+    check(launches == {"lap_padded": 16, "lap_padded_mma": 32},
+          f"padded chain launches {launches}")
+    results["lap_padded"]["launches"] = launches["lap_padded"]
+    results["lap_padded_mma"]["launches"] = launches["lap_padded_mma"]
+    phase_done("padded stencil vs plain")
+
+    # ---- 23. the split-bf16 tiers of the per-step kernels (row 5): the
+    # three *_mma kernels vs their plain versions (short runs at orders 4,
+    # 8, 10, 16 with nxb != nzb, and 3lay), then the 3lay main path with
+    # lap_impl="auto" (which resolves to mxu) and "mxu6"
+    mma_names = ("mod_step_mma", "rtm_fwd_step_mma", "rtm_bwd_step_mma")
+    exact_img = img
+
+    def compare_mma(p, lap_impl):
+        """{kernel: [(output, max rel, max abs)]} of the *_mma kernels
+        against the plain split loops on the same CUDA tensors; the
+        backward kernel from the plain forward's snapshots."""
+        ctx_m = solver.FDContext.from_params(p, exact_taper=False)
+        ctx_r = solver.FDContext.from_params(p, exact_taper=True)
+        v2_m = torch.from_numpy(pipeline.prepare_velocity_cpu(p, vp)).to(dev)
+        v2_r = pipeline.prepare_velocities_gpu(p, vp, device=dev, seed=0)
+        wav_m = numerics.ricker_wavelet(p.nt, p.dt, p.fpeak, truncated=True)
+        wav_r = numerics.ricker_wavelet(p.nt, p.dt, p.fpeak)
+        gp_ = Geometry.from_params(p)
+        parts = fk.lap_parts(lap_impl, ctx_r)
+        lap = solver.laplacian_of(ctx_r, parts)
+        out = {}
+        km = fk.forward_modeling_cuda(ctx_m, v2_m, wav_m, gp_.sx, gp_.sz,
+                                      gp_.gz, lap_impl=parts)
+        pm = solver.forward_modeling(ctx_m, v2_m, wav_m, gp_.sx, gp_.sz,
+                                     gp_.gz, lap_impl=parts)
+        out["mod_step_mma"] = [(n, max_rel(a, b), float((a - b).abs().max()))
+                               for n, a, b in zip(("p", "pp", "gathers"),
+                                                  km, pm)]
+        kf = fk._fd_forward(ctx_r, v2_r, wav_r, gp_.sx, gp_.sz, parts)
+        pf = solver.fd_forward(ctx_r, v2_r, wav_r, gp_.sx, gp_.sz, lap)
+        out["rtm_fwd_step_mma"] = [
+            (n, max_rel(a, b), float((a - b).abs().max()))
+            for n, a, b in zip(("p", "pp"), kf, pf)]
+        dobs = pm[2].transpose(1, 2).contiguous()
+        kb = fk._fd_back(ctx_r, v2_r, pf[0], pf[1], dobs, gp_.gz, parts)
+        pb = solver.fd_back(ctx_r, v2_r, pf[0], pf[1], dobs, gp_.gz, lap)
+        out["rtm_bwd_step_mma"] = [("images", max_rel(kb, pb),
+                                    float((kb - pb).abs().max()))]
+        torch.cuda.synchronize()
+        return out
+
+    mma_abs = {k: 0.0 for k in mma_names}
+    runs = [(dataclasses.replace(P, order=order, nt=20, nxb=nxb, nzb=nzb),
+             li)
+            for order, nxb, nzb in ((4, 40, 30), (8, 40, 40), (10, 12, 30),
+                                    (16, 30, 40))
+            for li in ("mxu", "mxu6")]
+    runs += [(P, "mxu"), (P, "mxu6")]
+    for p, li in runs:
+        for k, outs in compare_mma(p, li).items():
+            for name, rel, absd in outs:
+                # after the 1001 steps of 3lay the final fields are the
+                # residual wavefield, whose max moves by ~1e-5 when only the
+                # order of the plain version's own sums changes
+                # (scripts/torch_sum_order_floor.py); the gathers and the
+                # images are the calls' products
+                final = p.nt == P.nt and name in ("p", "pp")
+                gate = 1e-4 if final else GATE
+                print(f"[mma vs plain] {k} {li} order {p.order} nt {p.nt} "
+                      f"nxb {p.nxb} nzb {p.nzb}: {name} max rel err "
+                      f"{rel:.3e} (gate {gate}), max abs err {absd:.3e}",
+                      flush=True)
+                check(rel <= gate, f"{k} {li} order {p.order} nt {p.nt} "
+                                   f"{name}: {rel:.3e} > {gate}")
+                if p is P:
+                    mma_abs[k] = max(mma_abs[k], absd)
+    for k in mma_names:
+        results[k]["max_abs_err"] = mma_abs[k]
+
+    ctx_p = solver.FDContext.from_params(P, exact_taper=True)
+    check(fk.resolve_lap_impl(ctx_p, "auto") == "mxu",
+          "3lay lap_impl='auto' does not resolve to mxu")
+    wav_r = numerics.ricker_wavelet(P.nt, P.dt, P.fpeak)
+    v2_r = pipeline.prepare_velocities_gpu(P, vp, device=dev, seed=0)
+    for li in ("auto", "mxu6"):
+        fk.reset_launches()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            data_li = pipeline.run_modeling(P, vp=vp, device=dev,
+                                            lap_impl=li)
+            img_li, _ = pipeline.run_rtm_gpu(P, vp=vp, dobs=data_li, seed=0,
+                                             device=dev, outdir=tmp,
+                                             lap_impl=li)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(fk.LAUNCHES)
+            written = np.fromfile(os.path.join(tmp, "dir.image"), np.float32)
+        print(f"[mxu path] run_modeling + run_rtm_gpu, 3lay ns={P.ns} "
+              f"nt={P.nt}, lap_impl={li!r}: {wall:.3f} s wall incl. host; "
+              f"launches {launches}", flush=True)
+        want = {k: (P.nt if k in mma_names else 0) for k in fk.LAUNCHES}
+        check(launches == want, f"lap_impl={li!r} launches {launches}")
+        if li == "auto":
+            for k in mma_names:
+                results[k]["launches"] = launches[k]
+        check(np.isfinite(data_li).all() and np.isfinite(img_li).all()
+              and np.array_equal(written.reshape(P.nx, P.nz), img_li),
+              f"lap_impl={li!r}: outputs not finite or dir.image differs")
+        d_li = torch.from_numpy(data_li).to(dev)
+        plain_li = solver.rtm_shot_snapshot(
+            ctx_p, v2_r, wav_r, d_li, g.sx, g.sz, g.gz,
+            lap_impl=li).cpu().numpy().sum(axis=0)
+        rr_plain = rel_rms(img_li, plain_li)
+        rr_exact = rel_rms(img_li, exact_img)
+        rr_data = rel_rms(data_li, data)
+        gate = 1e-4 if li == "auto" else 1e-5
+        print(f"[mxu path] lap_impl={li!r}: image vs the plain {li} path on "
+              f"the card rel RMS {rr_plain:.3e} (gate {GATE}); vs phase 4's "
+              f"exact path: image rel RMS {rr_exact:.3e} (gate {gate}), "
+              f"gathers rel RMS {rr_data:.3e} (the JAX record for mxu on "
+              f"3lay: 2.1e-5 against the C oracle)", flush=True)
+        check(rr_plain <= GATE and rr_exact <= gate,
+              f"lap_impl={li!r} path: {rr_plain:.3e} from plain, "
+              f"{rr_exact:.3e} from exact")
+        del d_li
+    phase_done("split-bf16 tiers vs plain and the mxu path")
+
+    # ---- 24. times and traces of the tensor-core tiers: the 3lay calls in
+    # exact, mxu and mxu6 in turns; each *_mma call (mxu) against its plain
+    # version and the exact per-step call of the same function; the padded
+    # chain per apply against lap_apply and conv2d; one trace of each
+    ctx_m, ctx_r, v2_m, v2_r, wav_m, wav_r = shapes(8, P.nt)
+    d = torch.from_numpy(data).to(dev)
+    calls = {}
+    for label, fn in (
+            ("modeling", lambda li: lambda: fk.forward_modeling_cuda(
+                ctx_m, v2_m, wav_m, g.sx, g.sz, g.gz, lap_impl=li)),
+            ("RTM", lambda li: lambda: fk.rtm_snapshot_cuda(
+                ctx_r, v2_r, wav_r, d, g.sx, g.sz, g.gz, lap_impl=li))):
+        ts = in_turns([fn(None), fn("mxu"), fn("mxu6")])
+        for li, t in zip(("exact", "mxu", "mxu6"), ts):
+            calls[label, li] = statistics.median(t)
+            print(f"[times] 3lay {label} {li} ({P.ns} shots x {P.nt} steps): "
+                  f"{span(t)}, {calls[label, li] / 1e3 / P.ns:.6f} s/shot; "
+                  f"{smi}", flush=True)
+    lap2 = solver.laplacian_of(ctx_r, 2)
+    snaps2 = fk._fd_forward(ctx_r, v2_r, wav_r, g.sx, g.sz, 2)
+    snaps0 = fk.fd_forward_cuda(ctx_r, v2_r, wav_r, g.sx, g.sz)
+    mma_cases = {
+        "mod_step_mma": (
+            lambda: fk.forward_modeling_cuda(ctx_m, v2_m, wav_m, g.sx, g.sz,
+                                             g.gz, lap_impl=2),
+            lambda: solver.forward_modeling(ctx_m, v2_m, wav_m, g.sx, g.sz,
+                                            g.gz, lap_impl=2),
+            lambda: fk.forward_modeling_cuda(ctx_m, v2_m, wav_m, g.sx, g.sz,
+                                             g.gz)),
+        "rtm_fwd_step_mma": (
+            lambda: fk._fd_forward(ctx_r, v2_r, wav_r, g.sx, g.sz, 2),
+            lambda: solver.fd_forward(ctx_r, v2_r, wav_r, g.sx, g.sz, lap2),
+            lambda: fk.fd_forward_cuda(ctx_r, v2_r, wav_r, g.sx, g.sz)),
+        "rtm_bwd_step_mma": (
+            lambda: fk._fd_back(ctx_r, v2_r, *snaps2, d, g.gz, 2),
+            lambda: solver.fd_back(ctx_r, v2_r, *snaps2, d, g.gz, lap2),
+            lambda: fk.fd_back_cuda(ctx_r, v2_r, *snaps0, d, g.gz))}
+    bounds = step_bounds(ctx_r, P.ns, parts=2)
+    for k, (kern, plain, exact_call) in mma_cases.items():
+        tk, tp, te = in_turns([kern, plain, exact_call])
+        bms, by = bounds[k[:-4]]
+        print(f"[times] {k} (mxu) {P.ns} shots x {P.nt} steps: kernel "
+              f"{span(tk)}, plain {span(tp)}, exact per-step kernel "
+              f"{span(te)}; bound {bms:.4f} ms ({by}); {smi}", flush=True)
+        results[k].update(ms=statistics.median(tk),
+                          plain_ms=statistics.median(tp),
+                          library_ms=statistics.median(te), bound_ms=bms,
+                          bound_by=by)
+    del snaps2, snaps0
+
+    def lap_apply_chain():
+        for _ in range(16):
+            fk.laplacian_cuda(f8, cx8, cz8, 8)
+
+    w8 = torch.zeros((1, 1, 9, 9), device=dev)
+    w8[0, 0, 4, :] = torch.from_numpy(cz8).to(dev)
+    w8[0, 0, :, 4] += torch.from_numpy(cx8).to(dev)
+
+    def conv_chain():
+        for _ in range(16):
+            torch.nn.functional.conv2d(f8[None, None], w8)
+
+    ts = in_turns([padded_chain("vpu"), padded_chain("mxu"),
+                   padded_chain("mxu6"), lap_apply_chain, conv_chain])
+    per = {k: statistics.median(t) / 16 for k, t in zip(
+        ("lap_padded", "lap_padded_mma", "lap_padded_mma mxu6", "lap_apply",
+         "conv2d"), ts)}
+    tp = in_turns([lambda: padded.laplacian_padded(pf8, cx8, cz8, 8, p8.nxe,
+                                                   p8.nze),
+                   lambda: padded.laplacian_padded(pf8, cx8, cz8, 8, p8.nxe,
+                                                   p8.nze, "mxu")])
+    R8, W8 = pf8.shape
+    h8 = 4
+    interior8 = (p8.nxe - 2 * h8) * (p8.nze - 2 * h8)
+    pad_bounds = {
+        "lap_padded": bound(2 * 4 * R8 * W8, interior8 * lap_flops(h8)),
+        "lap_padded_mma": bound(2 * 4 * R8 * W8,
+                                interior8 * mma_lap_flops(h8, 2)[0],
+                                interior8 * mma_lap_flops(h8, 2)[1])}
+    for k, t_plain in zip(("lap_padded", "lap_padded_mma"), tp):
+        bms, by = pad_bounds[k]
+        print(f"[times] {k} 8192 x 8192 order 8, per apply of a 16-apply "
+              f"chain: kernel {per[k]:.4f} ms (mxu6 "
+              f"{per['lap_padded_mma mxu6']:.4f}), plain {span(t_plain)} per "
+              f"apply, lap_apply {per['lap_apply']:.4f}, conv2d "
+              f"{per['conv2d']:.4f}; bound {bms:.4f} ms ({by}), kernel / "
+              f"bound {per[k] / bms:.2f}; {smi}", flush=True)
+        results[k].update(ms=per[k], plain_ms=statistics.median(t_plain),
+                          library_ms=per["conv2d"], bound_ms=bms,
+                          bound_by=by)
+    for label, fn, ms in (
+            ("3lay modeling mxu", mma_cases["mod_step_mma"][0],
+             calls["modeling", "mxu"]),
+            ("3lay RTM mxu", lambda: fk.rtm_snapshot_cuda(
+                ctx_r, v2_r, wav_r, d, g.sx, g.sz, g.gz, lap_impl="mxu"),
+             calls["RTM", "mxu"]),
+            ("padded chain 8192^2 vpu", padded_chain("vpu"),
+             16 * per["lap_padded"]),
+            ("padded chain 8192^2 mxu", padded_chain("mxu"),
+             16 * per["lap_padded_mma"])):
+        if not profile(torch, label, fn, ms, smi):
+            # a trace that caught no kernel: take it once more
+            profile(torch, label, fn, ms, smi)
+    del pf8, chain_bufs, d
+    phase_done("tensor-core tiers: times and profile")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

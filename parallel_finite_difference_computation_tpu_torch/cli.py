@@ -140,9 +140,15 @@ def main(argv=None):
                                 "tiled above 1.5 M extended cells")
             s.add_argument("--lap-impl", default=None, dest="lap_impl",
                            choices=["auto", "vpu", "mxu", "mxu6"],
-                           help="Laplacian lowering: only the exact taps "
-                                "(vpu, the default) are ported; the others "
-                                "raise")
+                           help="Laplacian: the exact taps (vpu, the "
+                                "default), split-bf16 tensor-core tiers "
+                                "(mxu: 3 passes, mxu6: 6), or auto (mxu for "
+                                "nt <= 1500 and dx == dz, mxu6 for nt <= "
+                                "4500, else vpu). The per-step tier runs "
+                                "all of them; the tiled and domain tiers "
+                                "raise on a resolved mxu/mxu6 (their split "
+                                "variants are still to be ported, see "
+                                "ROADMAP.md)")
         if name == "rtm_gpu":
             s.add_argument("--seed", type=int, default=0)
             s.add_argument("--image-num", action="store_true",

@@ -61,6 +61,19 @@ _SIGNATURES = {
                          _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # pfdc_lap_run(p, out, nx, nz, order, cx, cz, stream)
     "pfdc_lap_run": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # pfdc_lap_padded_run(p, out, rows, pitch, nx, nz, order, parts, cx, cz,
+    #                     stream)
+    "pfdc_lap_padded_run": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # pfdc_mod_mma_run: pfdc_mod_run's arguments with parts after order
+    "pfdc_mod_mma_run": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I,
+                         _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # pfdc_rtm_fwd_mma_run: pfdc_rtm_fwd_run's with parts after order
+    "pfdc_rtm_fwd_mma_run": [_P, _P, _P, _I, _P, _P, _I, _P,
+                             _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # pfdc_rtm_bwd_mma_run: pfdc_rtm_bwd_run's with parts after order
+    "pfdc_rtm_bwd_mma_run": [_P, _P, _P, _P, _P, _P, _P, _I,
+                             _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P, _P, _P],
     # pfdc_kstep_mod_run(p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp,
     #                    zfac, strip, patch, r, sx, sz, gz, amps, k, rec, ns,
     #                    nxe, nze, nxb, order, cx, cz, stream)

@@ -20,9 +20,29 @@ per Laplacian apply), and is added to only where the kernels are launched.
 | ``rec_fwd_step`` | ``csrc/rec_step.cu`` | ``pallas_stream.py`` ``_kstep_rec_kernel`` source mode (:1002) |
 | ``rec_bwd_step`` | ``csrc/rec_step.cu`` | ``pallas_stream.py`` ``_kstep_rec_kernel`` receiver mode (:1002) |
 | ``lap_apply`` | ``csrc/laplacian.cu`` | ``pallas_stencil.py`` ``_kernel`` (:60) |
+| ``mod_step_mma`` | ``csrc/step_mma.cu`` | ``pallas_fd.py`` MXU branch of ``_make_lap`` (:260-334) in ``_fwd_mod_kernel`` (:423) |
+| ``rtm_fwd_step_mma`` | ``csrc/step_mma.cu`` | the same in ``_rtm_kernel``'s forward (:534) |
+| ``rtm_bwd_step_mma`` | ``csrc/step_mma.cu`` | the same in ``_rtm_kernel``'s backward (:534) |
+
+The padded-layout stencil's two kernels, ``lap_padded`` and
+``lap_padded_mma`` (``pallas_stencil.py`` ``_kernel_padded`` :546 and
+``_kernel_padded_mxu`` :429), have their wrapper in :mod:`.padded`.
+
+``lap_impl`` selects the Laplacian of the whole-shot kernels as in the JAX
+package (:func:`resolve_lap_impl`): the exact taps (``None``, ``"vpu"``),
+the split-bf16 tensor-core tiers (``"mxu"``: 3 passes, ``"mxu6"``: 6), or
+``"auto"``. The per-step tier runs all of them (``mod_step``/``rtm_*_step``
+exact, the ``*_step_mma`` kernels split); the other tiers have the exact
+taps only and raise on a resolved ``mxu``/``mxu6``
+(:func:`check_exact_taps`). The JAX kernels' ``z_taps`` and
+``taper_impl`` are Mosaic lowering choices with bitwise-identical results
+and are not ported.
 """
 
 from __future__ import annotations
+
+import os
+import warnings
 
 import numpy as np
 import torch
@@ -31,13 +51,15 @@ from .. import solver
 from ..solver import FDContext, host_wavelet, shot_positions
 from . import stencil
 
-__all__ = ["LAUNCHES", "reset_launches", "check_lap_impl",
+__all__ = ["LAUNCHES", "reset_launches", "MXU3_NT_MAX", "MXU6_NT_MAX",
+           "resolve_lap_impl", "lap_parts", "check_exact_taps",
            "forward_modeling_cuda", "fd_forward_cuda", "fd_back_cuda",
            "rtm_snapshot_cuda", "backward_recorded_cuda",
            "backward_image_cuda", "rtm_full_cuda", "laplacian_cuda"]
 
 LAUNCHES = {"mod_step": 0, "rtm_fwd_step": 0, "rtm_bwd_step": 0,
-            "rec_fwd_step": 0, "rec_bwd_step": 0, "lap_apply": 0}
+            "rec_fwd_step": 0, "rec_bwd_step": 0, "lap_apply": 0,
+            "mod_step_mma": 0, "rtm_fwd_step_mma": 0, "rtm_bwd_step_mma": 0}
 
 
 def reset_launches() -> None:
@@ -45,15 +67,88 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def check_lap_impl(lap_impl) -> None:
-    """The port has the exact taps only (``None``/``"vpu"``). The bf16 MXU
-    tiers and their ``auto`` routing are still to be ported (ROADMAP.md,
-    Queue 2)."""
-    if lap_impl not in (None, "vpu"):
+# The JAX package's routing rule for lap_impl="auto" (its ops/pallas_fd.py:
+# 150-163): the accuracy envelope it measured for its split-bf16 tiers
+# against the C oracle. The 3-pass tier drifted 2.1e-5 over 3lay (nt=1001,
+# dx == dz) and 2.4e-3 over marmousi (nt=3004, dz != dx, dt at the fine
+# axis's CFL edge); the 6-pass tier 4.0e-6 over marmousi. Each tier is
+# trusted to about 1.5x its validated nt.
+MXU3_NT_MAX = 1500
+MXU6_NT_MAX = 4500
+# lap_impl=None reads this import-time snapshot of PFDC_LAP_IMPL, never the
+# environment at call time: "mxu", "mxu6" and "auto" select those tiers;
+# the default "padded" (and "roll") are the JAX kernels' lowerings of the
+# exact taps.
+_ENV_LAP_IMPL = os.environ.get("PFDC_LAP_IMPL", "padded")
+_EXACT = (None, "vpu", "padded", "roll")
+_PARTS = {"mxu": 2, "mxu6": 3}
+
+
+def _mxu3_in_envelope(ctx: FDContext) -> bool:
+    """Whether the 3-pass tier's measured envelope covers ``ctx``: nt <=
+    ``MXU3_NT_MAX`` and an isotropic grid, seen through the premultiplied
+    centre coefficients (``coefs_x[h] == coefs_z[h]`` iff dx == dz).
+    Isotropy stands in for the CFL margin, which depends on the velocity
+    model; ``auto`` assumes dt well inside the CFL bound."""
+    h = ctx.order // 2
+    isotropic = float(ctx.coefs_x[h]) == float(ctx.coefs_z[h])
+    return ctx.nt <= MXU3_NT_MAX and isotropic
+
+
+def resolve_lap_impl(ctx: FDContext, lap_impl):
+    """``lap_impl`` resolved against ``ctx`` as the JAX package resolves it
+    (``resolve_lap_impl``, its ``ops/pallas_fd.py:186-218``): ``None``
+    takes the ``PFDC_LAP_IMPL`` snapshot when that is ``"mxu"``, ``"mxu6"``
+    or ``"auto"``; ``"auto"`` is ``"mxu"`` inside the 3-pass envelope,
+    else ``"mxu6"`` up to ``MXU6_NT_MAX`` steps, else ``"vpu"``. An
+    explicit ``"mxu"`` outside its envelope runs, with a ``UserWarning``."""
+    if lap_impl not in _EXACT and lap_impl not in ("auto", "mxu", "mxu6"):
+        raise ValueError(f"unknown lap_impl {lap_impl!r}: one of None, "
+                         f"'vpu', 'mxu', 'mxu6', 'auto'")
+    if lap_impl is None and _ENV_LAP_IMPL in ("mxu", "mxu6", "auto"):
+        lap_impl = _ENV_LAP_IMPL
+    if lap_impl == "auto":
+        if _mxu3_in_envelope(ctx):
+            return "mxu"
+        return "mxu6" if ctx.nt <= MXU6_NT_MAX else "vpu"
+    if lap_impl == "mxu" and not _mxu3_in_envelope(ctx):
+        warnings.warn(
+            f"lap_impl='mxu' outside its validated accuracy envelope "
+            f"(nt={ctx.nt}, isotropic grid required, nt <= {MXU3_NT_MAX}):"
+            f" measured 2.4e-3 image drift on marmousi-class configs. Use"
+            f" lap_impl='mxu6' (validated 4.0e-6) or 'auto'.",
+            stacklevel=3)
+    return lap_impl
+
+
+def lap_parts(lap_impl, ctx: FDContext) -> int:
+    """The bf16 splits the whole-shot Laplacian runs with (the JAX
+    ``_use_mxu_lap``, its ``ops/pallas_fd.py:221-241``): 0 for the exact
+    taps, 2 for ``"mxu"`` (3 passes), 3 for ``"mxu6"`` (6 passes), after
+    :func:`resolve_lap_impl`. A part count (0, 2 or 3) is taken as already
+    resolved, as the wrappers hand it on to the plain versions."""
+    if isinstance(lap_impl, int) and not isinstance(lap_impl, bool):
+        if lap_impl not in (0, 2, 3):
+            raise ValueError(f"a resolved lap_impl is 0, 2 or 3 bf16 parts, "
+                             f"got {lap_impl}")
+        return lap_impl
+    return _PARTS.get(resolve_lap_impl(ctx, lap_impl), 0)
+
+
+def check_exact_taps(ctx: FDContext, lap_impl, tier: str) -> None:
+    """Raises ``NotImplementedError`` where ``lap_impl`` resolves to a
+    split-bf16 tier on a tier of the port that has the exact taps only
+    (``tier`` names it): the JAX package's ``use_mxu`` lowerings of its
+    streaming, K-step and domain kernels are still to be ported
+    (ROADMAP.md). An ``auto`` that resolves to ``"vpu"`` passes."""
+    parts = lap_parts(lap_impl, ctx)
+    if parts:
         raise NotImplementedError(
-            f"lap_impl={lap_impl!r}: only the exact taps (None or 'vpu') are "
-            f"ported; the MXU Laplacian tiers are still to be ported "
-            f"(see ROADMAP.md, Queue 2)")
+            f"lap_impl={lap_impl!r} resolves to the "
+            f"{'mxu' if parts == 2 else 'mxu6'} tier here; {tier} has the "
+            f"exact taps only (its split-bf16 variant is still to be ported, "
+            f"see ROADMAP.md, Queue 2): use the per-step tier or "
+            f"lap_impl='vpu'")
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -168,9 +263,14 @@ def forward_modeling_cuda(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
     a batch of shots: the counterpart of ``forward_modeling_pallas`` and of
     ``forward_modeling_tiled``. Returns ``(p, pp, recorded)`` as
     :func:`..solver.forward_modeling`: ``record="trace"`` and ``"none"``
-    run ``mod_step``, ``"wavefield"`` runs ``rec_fwd_step``, which writes
-    the (ns, nt, nx, nz) interior frames."""
-    check_lap_impl(lap_impl)
+    run ``mod_step``, or ``mod_step_mma`` where ``lap_impl`` resolves to a
+    split-bf16 tier (:func:`lap_parts`); ``"wavefield"`` runs
+    ``rec_fwd_step``, which writes the (ns, nt, nx, nz) interior frames and
+    has the exact taps only."""
+    if record == "wavefield":
+        check_exact_taps(ctx, lap_impl, "the wavefield recording "
+                                        "(rec_fwd_step)")
+    parts = lap_parts(lap_impl, ctx)
     if record not in solver.RECORD_MODES:
         raise ValueError(f"unknown record mode {record!r}")
     sxs = shot_positions(sx)
@@ -185,7 +285,7 @@ def forward_modeling_cuda(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
     if not _on_cuda(v2):
         return solver.forward_modeling(ctx, v2, wav, sxs, sz, gz,
                                        source=source, taper=taper,
-                                       record=record)
+                                       record=record, lap_impl=parts)
     from . import _build
     v2dt2 = v2 * ctx.dt2
     mask = _dev_f32(ctx.mask_all if taper == "all" else ctx.mask_top, dev)
@@ -208,14 +308,19 @@ def forward_modeling_cuda(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
     else:
         rec = torch.empty((ns, ctx.nt, ctx.nx), dtype=torch.float32,
                           device=dev)
-        with torch.cuda.device(dev):
-            rc = _build.library().pfdc_mod_run(
-                a.data_ptr(), b.data_ptr(), v2dt2.data_ptr(), v2_stride,
+        name = "mod_step_mma" if parts else "mod_step"
+        args = (a.data_ptr(), b.data_ptr(), v2dt2.data_ptr(), v2_stride,
                 mask.data_ptr(), patch_d.data_ptr(), r, sx_d.data_ptr(), sz,
                 gz, wav.ctypes.data, rec.data_ptr(), ns, ctx.nxe, ctx.nze,
-                ctx.nxb, ctx.nx, ctx.nt, ctx.order, cx, cz, _stream(dev))
-        _raise_on(rc, "mod_step")
-        LAUNCHES["mod_step"] += ctx.nt
+                ctx.nxb, ctx.nx, ctx.nt, ctx.order)
+        with torch.cuda.device(dev):
+            lib = _build.library()
+            if parts:
+                rc = lib.pfdc_mod_mma_run(*args, parts, cx, cz, _stream(dev))
+            else:
+                rc = lib.pfdc_mod_run(*args, cx, cz, _stream(dev))
+        _raise_on(rc, name)
+        LAUNCHES[name] += ctx.nt
         if record == "none":
             rec = None
     newest, prev = _newest_prev(a, b, ctx.nt)
@@ -323,8 +428,9 @@ def rtm_full_cuda(ctx: FDContext, v2, wavelet, dobs, sx, sz: int, gz: int,
     counterpart of ``rtm_shot_full_tiled``. ``rec_fwd_step`` stores the
     source wavefield, then ``rec_bwd_step`` in image mode reads it back in
     reverse. Returns the (ns, nx, nz) images, as
-    :func:`..solver.rtm_shot_full`."""
-    check_lap_impl(lap_impl)
+    :func:`..solver.rtm_shot_full`. Both kernels have the exact taps only:
+    a ``lap_impl`` that resolves to ``mxu``/``mxu6`` raises."""
+    check_exact_taps(ctx, lap_impl, "rtm_main (rec_fwd_step, rec_bwd_step)")
     _, _, swf = forward_modeling_cuda(ctx, v2, wavelet, sx, sz, gz,
                                       source="point", taper="top",
                                       record="wavefield")
@@ -367,8 +473,14 @@ def laplacian_cuda(p, coefs_x, coefs_z, order: int):
 
 def fd_forward_cuda(ctx: FDContext, v2, wavelet, sx, sz: int):
     """GPU-suite forward propagation for a batch of shots: the counterpart
-    of ``fd_forward_pallas``. Returns the tapered final pair ``(p, pp)``,
-    as :func:`..solver.fd_forward`."""
+    of ``fd_forward_pallas``, with the exact taps as there. Returns the
+    tapered final pair ``(p, pp)``, as :func:`..solver.fd_forward`."""
+    return _fd_forward(ctx, v2, wavelet, sx, sz, 0)
+
+
+def _fd_forward(ctx: FDContext, v2, wavelet, sx, sz: int, parts: int):
+    """:func:`fd_forward_cuda` with the Laplacian in ``parts`` bf16 splits
+    (0: exact, ``rtm_fwd_step``; 2, 3: ``rtm_fwd_step_mma``)."""
     sxs = shot_positions(sx)
     ns, dev = len(sxs), v2.device
     wav = _check_wavelet(ctx, wavelet)
@@ -376,7 +488,8 @@ def fd_forward_cuda(ctx: FDContext, v2, wavelet, sx, sz: int):
     _check_window(ctx, sxs, sz, 0)
     _check_order(ctx.order, _on_cuda(v2))
     if not _on_cuda(v2):
-        return solver.fd_forward(ctx, v2, wav, sxs, sz)
+        return solver.fd_forward(ctx, v2, wav, sxs, sz,
+                                 solver.laplacian_of(ctx, parts))
     from . import _build
     v2dt2 = v2 * ctx.dt2
     mask = _dev_f32(ctx.mask_top, dev)
@@ -384,22 +497,34 @@ def fd_forward_cuda(ctx: FDContext, v2, wavelet, sx, sz: int):
     a = torch.zeros((ns, ctx.nxe, ctx.nze), dtype=torch.float32, device=dev)
     b = torch.zeros_like(a)
     keep, (cx, cz) = _coef_args(ctx)
-    with torch.cuda.device(dev):
-        rc = _build.library().pfdc_rtm_fwd_run(
-            a.data_ptr(), b.data_ptr(), v2dt2.data_ptr(), v2_stride,
+    name = "rtm_fwd_step_mma" if parts else "rtm_fwd_step"
+    args = (a.data_ptr(), b.data_ptr(), v2dt2.data_ptr(), v2_stride,
             mask.data_ptr(), sx_d.data_ptr(), sz, wav.ctypes.data, ns,
-            ctx.nxe, ctx.nze, ctx.nt, ctx.order, cx, cz, _stream(dev))
-    _raise_on(rc, "rtm_fwd_step")
-    LAUNCHES["rtm_fwd_step"] += ctx.nt
+            ctx.nxe, ctx.nze, ctx.nt, ctx.order)
+    with torch.cuda.device(dev):
+        lib = _build.library()
+        if parts:
+            rc = lib.pfdc_rtm_fwd_mma_run(*args, parts, cx, cz, _stream(dev))
+        else:
+            rc = lib.pfdc_rtm_fwd_run(*args, cx, cz, _stream(dev))
+    _raise_on(rc, name)
+    LAUNCHES[name] += ctx.nt
     newest, prev = _newest_prev(a, b, ctx.nt)
     return prev * mask, newest
 
 
 def fd_back_cuda(ctx: FDContext, v2, snap_p, snap_pp, dobs, gz: int):
     """GPU-suite backward propagation and imaging for a batch of shots: the
-    counterpart of ``fd_back_pallas``. ``snap_p``/``snap_pp`` are
-    :func:`fd_forward_cuda`'s outputs (ns, nxe, nze); ``dobs`` is
-    (ns, nx, nt). Returns the (ns, nx, nz) images."""
+    counterpart of ``fd_back_pallas``, with the exact taps as there.
+    ``snap_p``/``snap_pp`` are :func:`fd_forward_cuda`'s outputs (ns, nxe,
+    nze); ``dobs`` is (ns, nx, nt). Returns the (ns, nx, nz) images."""
+    return _fd_back(ctx, v2, snap_p, snap_pp, dobs, gz, 0)
+
+
+def _fd_back(ctx: FDContext, v2, snap_p, snap_pp, dobs, gz: int,
+             parts: int):
+    """:func:`fd_back_cuda` with the Laplacian in ``parts`` bf16 splits
+    (0: exact, ``rtm_bwd_step``; 2, 3: ``rtm_bwd_step_mma``)."""
     _check_order(ctx.order, _on_cuda(v2))
     dev = v2.device
     ns = snap_p.shape[0]
@@ -409,7 +534,8 @@ def fd_back_cuda(ctx: FDContext, v2, snap_p, snap_pp, dobs, gz: int):
     _check("dobs", dobs, (ns, ctx.nx, ctx.nt), dev)
     v2_stride = _check_v2(ctx, v2, ns)
     if not _on_cuda(v2):
-        return solver.fd_back(ctx, v2, snap_p, snap_pp, dobs, gz)
+        return solver.fd_back(ctx, v2, snap_p, snap_pp, dobs, gz,
+                              solver.laplacian_of(ctx, parts))
     from . import _build
     v2dt2 = v2 * ctx.dt2
     mask = _dev_f32(ctx.mask_top, dev)
@@ -420,15 +546,20 @@ def fd_back_cuda(ctx: FDContext, v2, snap_p, snap_pp, dobs, gz: int):
     rb = torch.zeros_like(sa)
     img = torch.zeros((ns, ctx.nx, ctx.nz), dtype=torch.float32, device=dev)
     keep, (cx, cz) = _coef_args(ctx)
-    with torch.cuda.device(dev):
-        rc = _build.library().pfdc_rtm_bwd_run(
-            sa.data_ptr(), sb.data_ptr(), snap_p.data_ptr(),
+    name = "rtm_bwd_step_mma" if parts else "rtm_bwd_step"
+    args = (sa.data_ptr(), sb.data_ptr(), snap_p.data_ptr(),
             snap_pp.data_ptr(), ra.data_ptr(), rb.data_ptr(),
             v2dt2.data_ptr(), v2_stride, mask.data_ptr(), inj.data_ptr(),
             img.data_ptr(), gz, ctx.nxb, ctx.nzb, ns, ctx.nxe, ctx.nze,
-            ctx.nt, ctx.order, cx, cz, _stream(dev))
-    _raise_on(rc, "rtm_bwd_step")
-    LAUNCHES["rtm_bwd_step"] += ctx.nt
+            ctx.nt, ctx.order)
+    with torch.cuda.device(dev):
+        lib = _build.library()
+        if parts:
+            rc = lib.pfdc_rtm_bwd_mma_run(*args, parts, cx, cz, _stream(dev))
+        else:
+            rc = lib.pfdc_rtm_bwd_run(*args, cx, cz, _stream(dev))
+    _raise_on(rc, name)
+    LAUNCHES[name] += ctx.nt
     return img
 
 
@@ -436,8 +567,11 @@ def rtm_snapshot_cuda(ctx: FDContext, v2, wavelet, dobs, sx, sz: int,
                       gz: int, lap_impl=None):
     """Two-snapshot RTM for a batch of shots: the counterpart of
     ``rtm_snapshot_pallas``. The forward and backward kernels run back to
-    back on one stream; the snapshots stay on the card. Returns the
+    back on one stream; the snapshots stay on the card. ``lap_impl``
+    (:func:`lap_parts`) picks ``rtm_fwd_step``/``rtm_bwd_step`` (exact) or
+    ``rtm_fwd_step_mma``/``rtm_bwd_step_mma`` (split bf16); on CPU tensors
+    :func:`..solver.rtm_shot_snapshot` with the same Laplacian. Returns the
     (ns, nx, nz) images."""
-    check_lap_impl(lap_impl)
-    p, pp = fd_forward_cuda(ctx, v2, wavelet, sx, sz)
-    return fd_back_cuda(ctx, v2, p, pp, dobs, gz)
+    parts = lap_parts(lap_impl, ctx)
+    p, pp = _fd_forward(ctx, v2, wavelet, sx, sz, parts)
+    return _fd_back(ctx, v2, p, pp, dobs, gz, parts)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = [
-    "laplacian_interior", "laplacian", "lap_interior_mask",
+    "laplacian_interior", "laplacian", "laplacian_mxu", "lap_interior_mask",
     "leapfrog", "apply_taper", "inject_point", "inject_gaussian",
     "receiver_x0", "inject_receivers", "imaging_correlation",
 ]
@@ -61,6 +61,51 @@ def laplacian(p, coefs_x, coefs_z, order: int):
     out = torch.zeros_like(p)
     out[..., h:p.shape[-2] - h, h:p.shape[-1] - h] = laplacian_interior(
         p, coefs_x, coefs_z, order)
+    return out
+
+
+def _axis_taps(p, c, order: int, axis: int):
+    """One axis's exact taps over the interior, centre included: the
+    ``accz`` (axis -1) or ``accx`` (axis -2) of :func:`laplacian_interior`,
+    in its order."""
+    h = order // 2
+    c = [float(v) for v in np.asarray(c, np.float32)]
+    n = p.shape[axis]
+    other = -1 if axis == -2 else -2
+    q = p.narrow(other, h, p.shape[other] - 2 * h)
+    acc = None
+    for k in range(h, 0, -1):
+        term = c[h + k] * (q.narrow(axis, h - k, n - 2 * h)
+                           + q.narrow(axis, h + k, n - 2 * h))
+        acc = term if acc is None else acc + term
+    return acc + c[h] * q.narrow(axis, h, n - 2 * h)
+
+
+def laplacian_mxu(p, coefs_x, coefs_z, order: int, parts: int,
+                  axis: str = "x"):
+    """The interior Laplacian with one axis's taps as the ``parts``-pass
+    split-bf16 banded product (:func:`.banded.banded_taps`, 2 parts: the
+    JAX package's ``lap_impl="mxu"``, 3: ``"mxu6"``) and the other axis's
+    taps exact, zero border of width order/2.
+
+    ``axis="x"``: ``yx + accz``, the MXU branch of the JAX whole-shot
+    kernels' ``_make_lap`` (``ops/pallas_fd.py:260-334``), the plain version
+    of the ``*_step_mma`` kernels. ``axis="z"``: ``yz + accx``, the padded
+    stencil's ``_kernel_padded_mxu`` (``ops/pallas_stencil.py:429``), the
+    plain version of ``lap_padded_mma``."""
+    from .banded import banded_taps
+    h = order // 2
+    nx, nz = p.shape[-2:]
+    if axis == "x":
+        banded = banded_taps(p[..., :, h:nz - h], coefs_x, h, -2, parts)
+        exact = _axis_taps(p, coefs_z, order, -1)
+    elif axis == "z":
+        banded = banded_taps(p[..., h:nx - h, :], coefs_z, h, -1, parts)
+        exact = _axis_taps(p, coefs_x, order, -2)
+    else:
+        raise ValueError(f"axis must be 'x' or 'z', got {axis!r}")
+    out = torch.zeros_like(p)
+    out[..., h:nx - h, h:nz - h] = banded + exact
     return out
 
 

@@ -34,10 +34,12 @@ the plain versions and CUDA tensors to the kernels (no fallback;
 | ``block2_fwd`` | :func:`block2_fwd` | ``_fwd2_block_kernel`` (:99) |
 | ``block2_bwd`` | :func:`block2_bwd` | ``_bwd2_block_kernel`` (:124) |
 
-Not ported, as TPU-only apparatus: ``_block2_vmem_params``, the lane
-padding ``pad_to``/``nxww`` and ``_mxu_band_inputs`` (``lap_impl`` other
-than None/"vpu" raises); nor ``force_halo``, the benchmark's halo-cost
-proxy (ROADMAP.md, Queue 1 item 9).
+Not ported, as TPU-only apparatus: ``_block2_vmem_params`` and the lane
+padding ``pad_to``; nor ``force_halo``, the benchmark's halo-cost proxy
+(ROADMAP.md, Queue 1 item 3). Still to be ported (ROADMAP.md): the
+kernels' split-bf16 variant (``use_mxu``, ``_mxu_band_inputs`` and its
+``nxww`` padding, ``domain2d_pallas.py:211-239``); a ``lap_impl`` that
+resolves to ``mxu`` or ``mxu6`` raises.
 """
 
 from __future__ import annotations

@@ -47,9 +47,10 @@ added to the running image, the interior mask applied once at the end
 per-step tier the image then differs by rounding only. They take (x, z)
 tiles as they take slabs, and serve both tiers.
 
-Not ported, as TPU-only apparatus: ``_block_vmem_params``, the lane padding
-``pad_to`` and ``_mxu_band_inputs`` (``lap_impl`` other than None/"vpu"
-raises).
+Not ported, as TPU-only apparatus: ``_block_vmem_params`` and the lane
+padding ``pad_to``. Still to be ported (ROADMAP.md): the block kernels'
+split-bf16 variant (``use_mxu``, ``_mxu_band_inputs``); a ``lap_impl`` that
+resolves to ``mxu`` or ``mxu6`` raises.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ import torch
 from .. import numerics
 from ..ops.fd_kernels import (_check_gz, _check_order, _check_window,
                               _coef_args, _on_cuda, _raise_on, _stream,
-                              check_lap_impl)
+                              check_exact_taps)
 from ..ops.stencil import laplacian
 from ..ops.stream import MAX_STEPS
 from ..solver import FDContext, host_wavelet, shot_positions
@@ -618,7 +619,7 @@ def _image_mask(c: Tile):
 
 
 def _check_maker(ctx: FDContext, mesh, gz, lap_impl) -> None:
-    check_lap_impl(lap_impl)
+    check_exact_taps(ctx, lap_impl, "the domain tiers' block kernels")
     _check_order(ctx.order, any(d.type == "cuda" for d in mesh.devices.flat))
     _check_gz(ctx, gz)
 

@@ -44,7 +44,7 @@ import torch
 
 from . import io, numerics
 from .config import Params, Geometry
-from .ops.fd_kernels import (check_lap_impl, forward_modeling_cuda,
+from .ops.fd_kernels import (check_exact_taps, forward_modeling_cuda,
                              laplacian_cuda, rtm_full_cuda, rtm_snapshot_cuda)
 from .ops.stream import MAX_STEPS
 from .solver import (FDContext, forward_modeling_tiled, rtm_shot_full_tiled,
@@ -189,7 +189,18 @@ def run_modeling(p: Params, vp: Optional[np.ndarray] = None,
     into (x, z) tiles, on the block kernels (``backend`` is then not read),
     with blocks of K = ``max(1, min(8, (nxe // n_x) // h, (nze // n_z) //
     h, nt))`` steps (the z term on a z axis > 1 only), or on a mesh of CPU
-    devices one step at a time (:func:`_modeling_domain`)."""
+    devices one step at a time (:func:`_modeling_domain`).
+
+    ``lap_impl`` selects the Laplacian as in the JAX package
+    (:func:`.ops.fd_kernels.resolve_lap_impl`): the exact taps (None,
+    ``"vpu"``), the split-bf16 tensor-core tiers ``"mxu"`` (3 passes) and
+    ``"mxu6"`` (6), or ``"auto"``, which takes ``"mxu"`` for nt <= 1500 on
+    a grid with dx == dz (3lay), ``"mxu6"`` for nt <= 4500, else the exact
+    taps (Pluto). The per-step tier (``backend="pallas"``, with or without
+    a shot-only mesh) runs every value, through ``mod_step_mma`` where it
+    resolves to a split tier; the large-grid and domain tiers have the
+    exact taps only and raise ``NotImplementedError`` on a resolved
+    ``"mxu"``/``"mxu6"`` (their split variants are in ROADMAP.md)."""
     tier = resolve_backend(backend, p.nxe, p.nze)
     if vp is None:
         vp = io.read_velocity(p.vpfile, p.nx, p.nz)
@@ -247,7 +258,7 @@ def _modeling_domain(ctx, g, mesh, lap_impl):
     raises on every mesh, before anything runs."""
     from .parallel import (domain, domain2d, domain_kernels as dk,
                            domain2d_kernels as d2k)
-    check_lap_impl(lap_impl)
+    check_exact_taps(ctx, lap_impl, "the domain tiers")
     two_d = _mesh_cuts_z(mesh)
     block_k = max(1, _block_k(ctx, mesh, ctx.nt))
     if two_d:
@@ -301,7 +312,7 @@ def run_rtm_cpu(p: Params, vp: Optional[np.ndarray] = None,
         raise NotImplementedError(
             "run_rtm_cpu over a mesh whose x or z axis is > 1 (rtm_main's "
             "domain tiers, make_sharded_rtm_full and make_sharded_rtm_full_"
-            "2d) is still to be ported (see ROADMAP.md, Queue 1 item 8); use "
+            "2d) is still to be ported (see ROADMAP.md, Queue 1 item 2); use "
             "a shot-only mesh")
     tier = resolve_backend(backend, p.nxe, p.nze)
     if vp is None:
@@ -374,7 +385,12 @@ def run_rtm_gpu(p: Params, vp: Optional[np.ndarray] = None,
     the block kernels (``backend`` is then not read), with blocks of K =
     ``min(8, (nxe // n_x) // h, (nze // n_z) // h, nt // 2)`` steps (the z
     term on a z axis > 1 only), which must be >= 2, or on a mesh of CPU
-    devices one step at a time (:func:`_rtm_gpu_domain`)."""
+    devices one step at a time (:func:`_rtm_gpu_domain`).
+
+    ``lap_impl`` as in :func:`run_modeling`: the per-step tier runs every
+    value (``rtm_fwd_step_mma`` and ``rtm_bwd_step_mma`` for a resolved
+    ``"mxu"``/``"mxu6"``); the large-grid and domain tiers raise on
+    those."""
     tier = resolve_backend(backend, p.nxe, p.nze)
     if vp is None:
         vp = io.read_velocity(p.vpfile, p.nx, p.nz)
@@ -435,7 +451,7 @@ def _rtm_gpu_domain(ctx, g, mesh, lap_impl):
     every mesh, so that a CPU run meets the card's limits."""
     from .parallel import (domain, domain2d, domain_kernels as dk,
                            domain2d_kernels as d2k)
-    check_lap_impl(lap_impl)
+    check_exact_taps(ctx, lap_impl, "the domain tiers")
     two_d = _mesh_cuts_z(mesh)
     block_k = _block_k(ctx, mesh, ctx.nt // 2)
     if block_k < 2:
@@ -444,7 +460,7 @@ def _rtm_gpu_domain(ctx, g, mesh, lap_impl):
             f"mesh give K={block_k} (nxe={ctx.nxe}, nze={ctx.nze}, mesh "
             f"{mesh.shape}, nt={ctx.nt}); the JAX package's per-step "
             f"fallback on the card is not ported (see ROADMAP.md, Queue 1 "
-            f"item 8): use fewer x or z shards")
+            f"item 2): use fewer x or z shards")
     if _mesh_on_cpu(mesh):
         run = (domain2d.make_sharded_rtm_snapshot_2d if two_d
                else domain.make_sharded_rtm_snapshot)(ctx, mesh, g.gz)

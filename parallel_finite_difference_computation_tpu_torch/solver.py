@@ -48,14 +48,14 @@ import torch
 from . import numerics
 from .config import Params
 from .ops.stencil import (
-    laplacian, leapfrog, inject_point, inject_gaussian, inject_receivers,
-    imaging_correlation, receiver_x0,
+    laplacian, laplacian_mxu, leapfrog, inject_point, inject_gaussian,
+    inject_receivers, imaging_correlation, receiver_x0,
 )
 
 __all__ = ["FDContext", "forward_modeling", "fd_forward", "fd_back",
            "rtm_shot_snapshot", "backward_recorded", "backward_image",
-           "rtm_shot_full", "receiver_offset", "fd_update", "fd_step",
-           "mod_kstep", "fd_forward_kstep", "fd_back_kstep", "fd_step_gpu",
+           "rtm_shot_full", "receiver_offset", "laplacian_of", "fd_update",
+           "fd_step", "mod_kstep", "fd_forward_kstep", "fd_back_kstep", "fd_step_gpu",
            "forward_modeling_tiled", "backward_recorded_tiled",
            "rtm_shot_full_tiled", "rtm_shot_snapshot_tiled"]
 
@@ -131,15 +131,32 @@ def host_wavelet(wavelet) -> np.ndarray:
     return np.ascontiguousarray(wavelet, dtype=np.float32)
 
 
-def fd_update(ctx: FDContext, p, pp, v2):
+def laplacian_of(ctx: FDContext, lap_impl=None):
+    """The Laplacian ``p -> lap(p)`` the whole-shot steps apply under
+    ``lap_impl`` (:func:`.ops.fd_kernels.lap_parts`): None for the exact
+    taps (:func:`.ops.stencil.laplacian`, which the steps then call as
+    they always have), else :func:`.ops.stencil.laplacian_mxu` with the x
+    taps in 2 or 3 bf16 parts, the JAX whole-shot kernels' MXU branch."""
+    from .ops.fd_kernels import lap_parts
+    parts = lap_parts(lap_impl, ctx)
+    if not parts:
+        return None
+    return lambda p: laplacian_mxu(p, ctx.coefs_x, ctx.coefs_z, ctx.order,
+                                   parts)
+
+
+def fd_update(ctx: FDContext, p, pp, v2, lap=None):
     """One Laplacian + leapfrog update ``2p - pp + v2*dt2*lap(p)`` (K1+K2;
     CPU ``fd_step``, ``timestep/fd.c:24-46``): the plain version of the
     ``fd_update`` kernel and of the JAX package's ``_kernel_update``
     (``ops/pallas_stream.py:171-204``), ``fd_back``'s untapered source
-    reconstruction."""
-    lap = laplacian(p, ctx.coefs_x, ctx.coefs_z, ctx.order)
-    return leapfrog(p, pp, v2, lap, ctx.dt2)
-
+    reconstruction. ``lap``: the Laplacian (:func:`laplacian_of`); None
+    is the exact one."""
+    if lap is None:
+        lap_p = laplacian(p, ctx.coefs_x, ctx.coefs_z, ctx.order)
+    else:
+        lap_p = lap(p)
+    return leapfrog(p, pp, v2, lap_p, ctx.dt2)
 
 
 def _zero_fields(ctx: FDContext, ns: int, like):
@@ -159,12 +176,13 @@ def _mask(ctx: FDContext, taper: str, device):
 
 
 def _step(ctx: FDContext, p, pp, v2, mask, amp=None, sxs=None, sz: int = 0,
-          patch=None, inj_row=None, x0: int = 0, gz: int = 0):
-    """One CPU-flavor step from the state ``(p, pp)``, pp tapered: update,
-    inject into the new field (``amp * patch`` around each shot's source,
-    or ``amp`` at it without a patch; the receiver row ``inj_row`` on row gz
-    from x0), taper both. Returns ``(p * m, new * m)``."""
-    new = fd_update(ctx, p, pp, v2)
+          patch=None, inj_row=None, x0: int = 0, gz: int = 0, lap=None):
+    """One CPU-flavor step from the state ``(p, pp)``, pp tapered: update
+    (with the Laplacian ``lap``, :func:`fd_update`), inject into the new
+    field (``amp * patch`` around each shot's source, or ``amp`` at it
+    without a patch; the receiver row ``inj_row`` on row gz from x0), taper
+    both. Returns ``(p * m, new * m)``."""
+    new = fd_update(ctx, p, pp, v2, lap)
     if amp is not None:
         new = (inject_point(new, sxs, sz, amp) if patch is None
                else inject_gaussian(new, sxs, sz, amp, patch))
@@ -183,11 +201,11 @@ def _patch(ctx: FDContext, source: str, device):
 
 
 def _mod_step(ctx: FDContext, p, pp, v2, mask, amp: float, sxs, sz: int,
-              patch):
+              patch, lap=None):
     """One ``mod_main`` step from the state ``(p, pp)``: update, inject into
     the new field, taper both. Returns the next state ``(new * m, p * m)``;
     its second field is the one the step records."""
-    pm, new = _step(ctx, p, pp, v2, mask, amp, sxs, sz, patch)
+    pm, new = _step(ctx, p, pp, v2, mask, amp, sxs, sz, patch, lap=lap)
     return new, pm
 
 
@@ -211,11 +229,14 @@ def fd_step(ctx: FDContext, p, pp, v2, taper: str = "all", amp=None,
 
 def forward_modeling(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
                      source: str = "gaussian", taper: str = "all",
-                     record: str = "trace"):
+                     record: str = "trace", lap_impl=None):
     """Forward modeling: ``mod_main``'s time loop (``mod_main.cpp:146-168``)
     and ``rtm_main``'s forward half (``rtm_main.cpp:166-188``). Per step:
     leapfrog update, source injection into the *new* field, taper both
-    fields, record from the tapered *old* field, swap.
+    fields, record from the tapered *old* field, swap. ``lap_impl`` selects
+    the Laplacian (:func:`laplacian_of`): the exact taps, or the x taps in
+    split bf16 as the JAX package's ``forward_modeling_pallas(lap_impl=...)``
+    runs them.
 
     Returns ``(p, pp, recorded)``: the final fields (ns, nxe, nze) and, by
     ``record``, the (ns, nt, nx) seismograms ``seis[s, it, ix] =
@@ -228,6 +249,7 @@ def forward_modeling(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
     wav = host_wavelet(wavelet)
     mask = _mask(ctx, taper, v2.device)
     patch = _patch(ctx, source, v2.device)
+    lap = laplacian_of(ctx, lap_impl)
     p = _zero_fields(ctx, len(sxs), v2)
     pp = _zero_fields(ctx, len(sxs), v2)
     rec = None
@@ -237,7 +259,7 @@ def forward_modeling(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
         rec = v2.new_empty((len(sxs), ctx.nt, ctx.nx, ctx.nz))
     for it in range(ctx.nt):
         p, pp = _mod_step(ctx, p, pp, v2, mask, float(wav[it]), sxs, sz,
-                          patch)
+                          patch, lap)
         if record == "trace":
             rec[:, it] = pp[:, ctx.nxb:ctx.nxb + ctx.nx, gz]
         elif record == "wavefield":
@@ -348,13 +370,15 @@ def rtm_shot_full(ctx: FDContext, v2, wavelet, dobs, sx, sz: int, gz: int,
 
 
 def _gpu_step(ctx: FDContext, y, x, v2, mask, gz: int = 0, inj_row=None,
-              img=None, src=None):
+              img=None, src=None, lap=None):
     """One taper-first step from the state ``(x, y)``: ``t = y*m``, ``new =
     2t - x*m + v2*dt2*lap(t)``, the receiver row ``inj_row`` (ns, nx) added
     at depth gz (K5), and ``img += src * new`` over the interior (K6).
-    Returns ``(t, new)``, or ``(t, new, img)`` with ``img``."""
+    The Laplacian ``lap`` (:func:`fd_update`) takes the tapered ``t``, as
+    the JAX whole-shot kernel's tapered leap does. Returns ``(t, new)``,
+    or ``(t, new, img)`` with ``img``."""
     t = y * mask
-    new = fd_update(ctx, t, x * mask, v2)
+    new = fd_update(ctx, t, x * mask, v2, lap)
     if inj_row is not None:
         new = inject_receivers(new, inj_row, ctx.nxb, gz)
     if img is None:
@@ -363,35 +387,36 @@ def _gpu_step(ctx: FDContext, y, x, v2, mask, gz: int = 0, inj_row=None,
 
 
 def fd_step_gpu(ctx: FDContext, y, x, v2, gz: int = 0, inj_row=None,
-                img=None, src=None):
+                img=None, src=None, lap=None):
     """One taper-first step (top-strip taper) from the state ``(x, y)``
     (ns, nxe, nze): the plain version of the ``gpu_step`` kernel and of the
     JAX package's ``_kernel_gpu`` (``ops/pallas_stream.py:207-267``).
     ``t = y*m``, ``new = 2t - x*m + v2*dt2*lap(t)``; with ``inj_row`` (ns,
     nx) the receiver row is added at depth gz (K5); with ``img`` (ns, nx,
-    nz), ``img + src * new`` over the interior (K6). Returns ``(t, new)``,
-    or ``(t, new, img)``."""
+    nz), ``img + src * new`` over the interior (K6); ``lap``: the Laplacian
+    (:func:`fd_update`). Returns ``(t, new)``, or ``(t, new, img)``."""
     return _gpu_step(ctx, y, x, v2, _mask(ctx, "top", y.device), gz,
-                     inj_row, img, src)
+                     inj_row, img, src, lap)
 
 
-def fd_forward_kstep(ctx: FDContext, p, pp, v2, amps, sx, sz: int):
+def fd_forward_kstep(ctx: FDContext, p, pp, v2, amps, sx, sz: int,
+                     lap=None):
     """K ``fd_forward`` steps from the state ``(p, pp)`` (ns, nxe, nze), K =
     ``len(amps)``: the plain version of the ``kstep_gpu_fwd`` kernel and the
     body of the JAX package's ``_kstep_gpu_fwd_kernel``
     (``ops/pallas_stream.py:788-791``): per step ``t = pp*m``, ``pp' = 2t -
-    p*m + v2*dt2*lap(t) + amp`` at (sx, sz), ``p' = t``. Returns
-    ``(p, pp)``."""
+    p*m + v2*dt2*lap(t) + amp`` at (sx, sz), ``p' = t``; ``lap``: the
+    Laplacian (:func:`fd_update`). Returns ``(p, pp)``."""
     sxs = shot_positions(sx)
     mask = _mask(ctx, "top", p.device)
     for amp in host_wavelet(amps):
-        p, pp = _gpu_step(ctx, pp, p, v2, mask)
+        p, pp = _gpu_step(ctx, pp, p, v2, mask, lap=lap)
         pp = inject_point(pp, sxs, sz, float(amp))
     return p, pp
 
 
 def fd_back_kstep(ctx: FDContext, ps, pps, pr, ppr, img, v2, inj_rows,
-                  gz: int):
+                  gz: int, lap=None):
     """K ``fd_back`` steps (it >= 2) from the state ``(ps, pps, pr, ppr,
     img)``: the plain version of the ``kstep_gpu_bwd`` kernel and the body
     of the JAX package's ``_kstep_gpu_bwd_kernel``
@@ -399,23 +424,26 @@ def fd_back_kstep(ctx: FDContext, ps, pps, pr, ppr, img, v2, inj_rows,
     reconstruction ``s = 2ps - pps + v2*dt2*lap(ps)``, the tapered receiver
     step with ``inj_rows[:, k]`` added at depth gz (K5), and ``img += s *
     pr'`` over the interior (K6), in time order. ``inj_rows`` is (ns, K,
-    nx); ``img`` (ns, nx, nz). Returns the next state."""
+    nx); ``img`` (ns, nx, nz); ``lap``: the Laplacian of both propagations
+    (:func:`fd_update`). Returns the next state."""
     mask = _mask(ctx, "top", ps.device)
     for k in range(inj_rows.shape[1]):
-        ps, pps = fd_update(ctx, ps, pps, v2), ps
+        ps, pps = fd_update(ctx, ps, pps, v2, lap), ps
         ppr, pr, img = _gpu_step(ctx, pr, ppr, v2, mask, gz, inj_rows[:, k],
-                                 img, ps)
+                                 img, ps, lap)
     return ps, pps, pr, ppr, img
 
 
-def fd_forward(ctx: FDContext, v2, wavelet, sx, sz: int):
+def fd_forward(ctx: FDContext, v2, wavelet, sx, sz: int, lap=None):
     """GPU-suite forward propagation (``fd_forward``, ``fd-code.cu:247-288``).
     Per step: swap, taper both fields (top strip), Laplacian + leapfrog,
-    point source into the new field. Returns ``(p, pp)``, the final two
-    states (ns, nxe, nze): the snapshots :func:`fd_back` starts from."""
+    point source into the new field; ``lap``: the Laplacian
+    (:func:`fd_update`). Returns ``(p, pp)``, the final two states (ns,
+    nxe, nze): the snapshots :func:`fd_back` starts from."""
     ns = len(shot_positions(sx))
     return fd_forward_kstep(ctx, _zero_fields(ctx, ns, v2),
-                            _zero_fields(ctx, ns, v2), v2, wavelet, sx, sz)
+                            _zero_fields(ctx, ns, v2), v2, wavelet, sx, sz,
+                            lap)
 
 
 def _seed_steps(ctx: FDContext, v2, snap0, snap1, inj, gz: int,
@@ -435,7 +463,7 @@ def _seed_steps(ctx: FDContext, v2, snap0, snap1, inj, gz: int,
     return ps, pps, pr, ppr, img
 
 
-def fd_back(ctx: FDContext, v2, snap0, snap1, dobs, gz: int):
+def fd_back(ctx: FDContext, v2, snap0, snap1, dobs, gz: int, lap=None):
     """GPU-suite backward propagation and imaging (``fd_back``,
     ``fd-code.cu:290-341``).
 
@@ -443,18 +471,25 @@ def fd_back(ctx: FDContext, v2, snap0, snap1, dobs, gz: int):
     then ``snap0``) and re-propagated without taper; the receiver field is
     tapered (top strip), updated, and gets the time-reversed ``dobs``
     (ns, nx, nt) added along row ``gz`` (K5); ``imloc += p * pr`` over the
-    interior every step (K6). Returns the (ns, nx, nz) per-shot images."""
+    interior every step (K6); ``lap``: the Laplacian of both propagations
+    (:func:`fd_update`). Returns the (ns, nx, nz) per-shot images."""
     inj = dobs.flip(-1).transpose(1, 2)   # inj[:, it] = dobs[..., nt-1-it]
-    state = _seed_steps(ctx, v2, snap0, snap1, inj, gz)
-    return fd_back_kstep(ctx, *state, v2, inj[:, 2:], gz)[4]
+    state = _seed_steps(ctx, v2, snap0, snap1, inj, gz,
+                        functools.partial(fd_step_gpu, lap=lap))
+    return fd_back_kstep(ctx, *state, v2, inj[:, 2:], gz, lap)[4]
 
 
 def rtm_shot_snapshot(ctx: FDContext, v2, wavelet, dobs, sx, sz: int,
-                      gz: int):
+                      gz: int, lap_impl=None):
     """Two-snapshot RTM (``fd-code.cu:480-529``): :func:`fd_forward` to the
-    final two states, then :func:`fd_back`. Returns (ns, nx, nz) images."""
-    p, pp = fd_forward(ctx, v2, wavelet, sx, sz)
-    return fd_back(ctx, v2, p, pp, dobs, gz)
+    final two states, then :func:`fd_back`, with the Laplacian ``lap_impl``
+    selects (:func:`laplacian_of`), as the JAX package's
+    ``rtm_snapshot_pallas(lap_impl=...)`` runs it: the tapered leaps take
+    the tapered field ``m*f``, the source reconstruction the untapered
+    one. Returns (ns, nx, nz) images."""
+    lap = laplacian_of(ctx, lap_impl)
+    p, pp = fd_forward(ctx, v2, wavelet, sx, sz, lap)
+    return fd_back(ctx, v2, p, pp, dobs, gz, lap)
 
 
 def forward_modeling_tiled(ctx: FDContext, v2, wavelet, sx, sz: int,
@@ -477,9 +512,10 @@ def forward_modeling_tiled(ctx: FDContext, v2, wavelet, sx, sz: int,
     (:func:`.ops.fd_kernels.forward_modeling_cuda`), the port of the JAX
     K-step recording kernel."""
     from .ops import stream
-    from .ops.fd_kernels import (check_lap_impl, forward_modeling_cuda,
+    from .ops.fd_kernels import (check_exact_taps, forward_modeling_cuda,
                                  _check_gz, _check_wavelet)
-    check_lap_impl(lap_impl)
+    check_exact_taps(ctx, lap_impl, "the large-grid tier "
+                                    "(forward_modeling_tiled)")
     K = stream.check_block_k(block_k)
     if record not in RECORD_MODES:
         raise ValueError(f"unknown record mode {record!r}")
@@ -576,8 +612,9 @@ def backward_recorded_tiled(ctx: FDContext, v2, dobs, gz: int,
     one number or one per shot. Returns ``(p, pp, rwf)`` with rwf (ns, nt,
     nx, nz), bitwise :func:`backward_recorded`'s on the CPU."""
     from .ops import stream
-    from .ops.fd_kernels import backward_recorded_cuda, check_lap_impl
-    check_lap_impl(lap_impl)
+    from .ops.fd_kernels import backward_recorded_cuda, check_exact_taps
+    check_exact_taps(ctx, lap_impl, "the large-grid tier "
+                                    "(backward_recorded_tiled)")
     if stream.check_block_k(block_k) > 1:
         return backward_recorded_cuda(ctx, v2, dobs, gz,
                                       x_off_quirk=x_off_quirk,
@@ -600,8 +637,9 @@ def rtm_shot_full_tiled(ctx: FDContext, v2, wavelet, dobs, sx, sz: int,
     on the CPU they equal :func:`rtm_shot_full`'s up to the summation
     order of the image."""
     from .ops import stream
-    from .ops.fd_kernels import check_lap_impl, rtm_full_cuda
-    check_lap_impl(lap_impl)
+    from .ops.fd_kernels import check_exact_taps, rtm_full_cuda
+    check_exact_taps(ctx, lap_impl, "the large-grid tier "
+                                    "(rtm_shot_full_tiled)")
     if stream.check_block_k(block_k) > 1:
         return rtm_full_cuda(ctx, v2, wavelet, dobs, sx, sz, gz,
                              x_off_quirk=x_off_quirk,
@@ -629,8 +667,10 @@ def rtm_shot_snapshot_tiled(ctx: FDContext, v2, wavelet, dobs, sx, sz: int,
     on the CPU their plain versions, bitwise :func:`rtm_shot_snapshot`.
     ``dobs`` is (ns, nx, nt). Returns the (ns, nx, nz) images."""
     from .ops import stream
-    from .ops.fd_kernels import check_lap_impl, _check_wavelet, _check_window
-    check_lap_impl(lap_impl)
+    from .ops.fd_kernels import (check_exact_taps, _check_wavelet,
+                                 _check_window)
+    check_exact_taps(ctx, lap_impl, "the large-grid tier "
+                                    "(rtm_shot_snapshot_tiled)")
     K = stream.check_block_k(block_k)
     sxs = shot_positions(sx)
     wav = _check_wavelet(ctx, wavelet)

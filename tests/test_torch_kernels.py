@@ -63,7 +63,7 @@ from parallel_finite_difference_computation_tpu_torch import (
     cli, config, convert, io, numerics, pipeline, solver)
 from parallel_finite_difference_computation_tpu_torch.models import zoo
 from parallel_finite_difference_computation_tpu_torch.ops import (
-    _build, fd_kernels, stencil)
+    _build, banded, fd_kernels, padded, stencil)
 from parallel_finite_difference_computation_tpu_torch.parallel import (
     domain, domain2d, domain2d_kernels, domain_kernels, mesh, shots)
 import numpy as np
@@ -71,6 +71,8 @@ p = tpk.Params(nz=12, nx=14, nt=6, dz=10.0, dx=10.0, dt=0.001, fpeak=25.0,
                ns=2, sz=3, fsx=4, ds=5, gz=1, nxb=5, nzb=5, fac=0.7)
 vp = zoo.layered_model(p.nx, p.nz)
 d = pipeline.run_modeling(p, vp=vp, device="cpu")
+dm6 = pipeline.run_modeling(p, vp=vp, device="cpu", lap_impl="mxu6")
+assert np.abs(dm6 - d).max() <= 1e-5 * np.abs(d).max()
 img, _ = pipeline.run_rtm_gpu(p, vp=vp, dobs=d, outdir={str(tmp_path)!r},
                               device="cpu")
 m = mesh.make_mesh(1, 2, devices=["cpu", "cpu"])
@@ -133,9 +135,16 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     fk.backward_recorded_cuda(ctx, v2, dobs, GZ)
     fk.rtm_full_cuda(ctx, v2, wav, dobs, SXS, SZ, GZ)
     fk.laplacian_cuda(v2[0], ctx.coefs_x, ctx.coefs_z, ctx.order)
+    for lap_impl in ("mxu", "mxu6"):
+        fk.forward_modeling_cuda(ctx, v2[0], wav, SXS, SZ, GZ,
+                                 lap_impl=lap_impl)
+        fk.rtm_snapshot_cuda(ctx, v2, wav, dobs, SXS, SZ, GZ,
+                             lap_impl=lap_impl)
     assert fk.LAUNCHES == {"mod_step": 0, "rtm_fwd_step": 0,
                            "rtm_bwd_step": 0, "rec_fwd_step": 0,
-                           "rec_bwd_step": 0, "lap_apply": 0}
+                           "rec_bwd_step": 0, "lap_apply": 0,
+                           "mod_step_mma": 0, "rtm_fwd_step_mma": 0,
+                           "rtm_bwd_step_mma": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "strides", "wavelet",
@@ -180,18 +189,40 @@ def test_fd_back_raises_on_bad_inputs(bad):
 
 @pytest.mark.parametrize("lap_impl", ["mxu", "mxu6", "auto"])
 def test_mxu_lap_impl_raises(lap_impl, tmp_path):
+    """The per-step tier runs the split-bf16 tiers (on the CPU through the
+    plain mxu path, which differs from the exact one); the tiers with the
+    exact taps only (large-grid, K = 1, domain, rtm_main) still raise,
+    naming ROADMAP. ``auto`` resolves to ``mxu`` here (nt = 6, dx = dz)."""
     ctx, v2, wav, dobs = _setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fk.forward_modeling_cuda(ctx, v2[0], wav, SXS, SZ, GZ,
-                                 lap_impl=lap_impl)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fk.rtm_snapshot_cuda(ctx, v2, wav, dobs, SXS, SZ, GZ,
-                             lap_impl=lap_impl)
+    got = fk.forward_modeling_cuda(ctx, v2[0], wav, SXS, SZ, GZ,
+                                   lap_impl=lap_impl)
+    want = solver.forward_modeling(ctx, v2[0], wav, SXS, SZ, GZ,
+                                   lap_impl=lap_impl)
+    exact = solver.forward_modeling(ctx, v2[0], wav, SXS, SZ, GZ)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not torch.equal(got[0], exact[0])
+    img = fk.rtm_snapshot_cuda(ctx, v2, wav, dobs, SXS, SZ, GZ,
+                               lap_impl=lap_impl)
+    assert torch.equal(img, solver.rtm_shot_snapshot(
+        ctx, v2, wav, dobs, SXS, SZ, GZ, lap_impl=lap_impl))
+    for tiled in (lambda: solver.forward_modeling_tiled(
+                      ctx, v2[0], wav, SXS, SZ, GZ, lap_impl=lap_impl),
+                  lambda: solver.rtm_shot_snapshot_tiled(
+                      ctx, v2, wav, dobs, SXS, SZ, GZ, block_k=2,
+                      lap_impl=lap_impl),
+                  lambda: fk.rtm_full_cuda(ctx, v2[0], wav, dobs, SXS, SZ, GZ,
+                                           lap_impl=lap_impl)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tiled()
     p = tpk.Params(nz=12, nx=14, nt=4, dz=10.0, dx=10.0, dt=0.001,
                    fpeak=25.0, ns=1, sz=3, fsx=4, gz=1, nxb=5, nzb=5)
+    vp = np.full((14, 12), 2000.0, np.float32)
+    d = pipeline.run_modeling(p, vp=vp, device="cpu", lap_impl=lap_impl)
+    assert d.shape == (1, 14, 4) and np.isfinite(d).all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.run_modeling(p, vp=np.full((14, 12), 2000.0, np.float32),
-                              device="cpu", lap_impl=lap_impl)
+        pipeline.run_modeling(p, vp=vp, device="cpu", backend="tiled",
+                              lap_impl=lap_impl)
 
 
 def test_vpu_lap_impl_is_the_exact_path():
@@ -249,12 +280,17 @@ def test_cli_lap_impl_and_device_options(tmp_path):
                      np.full((14, 12), 2000.0, np.float32))
     cfg.write_text("nz=12\nnx=14\nnt=4\ndz=10\ndx=10\ndt=0.001\nfpeak=25\n"
                    "ns=1\nsz=3\nfsx=4\ngz=1\nnxb=5\nnzb=5\nvpfile=vp.bin\n")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(["mod", str(cfg), "--device", "cpu", "--lap-impl", "mxu",
-                   "--output", str(tmp_path / "d.bin")])
+                   "--backend", "tiled", "--output", str(tmp_path / "d.bin")])
+    tcli.main(["mod", str(cfg), "--device", "cpu", "--lap-impl", "mxu",
+               "--output", str(tmp_path / "m.bin")])
     tcli.main(["mod", str(cfg), "--device", "cpu", "--lap-impl", "vpu",
                "--output", str(tmp_path / "d.bin")])
     assert os.path.getsize(tmp_path / "d.bin") == 14 * 4 * 4
+    d, m = (np.fromfile(tmp_path / f, np.float32) for f in ("d.bin", "m.bin"))
+    assert d.shape == m.shape and not np.array_equal(d, m)
+    assert np.abs(m - d).max() <= 1e-4 * np.abs(d).max()
 
 
 # ---------------------------------------------------------------- card only
@@ -279,7 +315,9 @@ def test_kernels_match_plain_on_the_card(cuda_device, order, nt):
     assert float((ki - pi).abs().max() / pi.abs().max()) <= GATE
     assert fk.LAUNCHES == {"mod_step": nt, "rtm_fwd_step": nt,
                            "rtm_bwd_step": nt, "rec_fwd_step": 0,
-                           "rec_bwd_step": 0, "lap_apply": 0}
+                           "rec_bwd_step": 0, "lap_apply": 0,
+                           "mod_step_mma": 0, "rtm_fwd_step_mma": 0,
+                           "rtm_bwd_step_mma": 0}
 
 
 @pytest.mark.cuda
@@ -607,3 +645,70 @@ def test_k1_tiled_loops_match_plain_on_the_card(cuda_device):
     assert torch.equal(
         solver.rtm_shot_snapshot_tiled(ctx, v2s, wav, dobs, sxs, sz, gz),
         solver.rtm_shot_snapshot(ctx, v2s, wav, dobs, sxs, sz, gz))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [2, 4, 8, 10, 16])
+@pytest.mark.parametrize("shape", [(45, 139), (300, 257)])
+def test_lap_padded_kernels_match_plain_on_the_card(cuda_device, order,
+                                                    shape):
+    """lap_padded bitwise its plain version and chained applies of
+    stencil.laplacian, on two buffers through out=; lap_padded_mma (2 and 3
+    parts) within 1e-6 of max of its plain version, within 2e-5 / 2e-7 of
+    the exact taps, pads zero."""
+    from parallel_finite_difference_computation_tpu_torch.ops import (
+        padded, stencil)
+    nx, nz = shape
+    rng = np.random.default_rng(order)
+    f = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        cuda_device)
+    cx, cz = numerics.scaled_coefficients(order, 10.0, 12.5)
+    pf = padded.to_padded(f, order)
+    padded.reset_launches()
+    exact = padded.laplacian_padded(pf, cx, cz, order, nx, nz)
+    for impl, tol in (("vpu", 0.0), ("mxu", 2e-5), ("mxu6", 2e-7)):
+        got = padded.laplacian_padded_cuda(pf, cx, cz, order, nx, nz, impl)
+        want = padded.laplacian_padded(pf, cx, cz, order, nx, nz, impl)
+        torch.cuda.synchronize()
+        scale = float(exact.abs().max())
+        assert float((got - want).abs().max()) <= (0.0 if impl == "vpu"
+                                                   else 1e-6 * scale)
+        assert float((got - exact).abs().max()) <= tol * scale
+        padded.from_padded(got, nx, nz, order).zero_()
+        assert float(got.abs().max()) == 0.0           # the pads stay zero
+    bufs = (pf.clone(), torch.empty_like(pf))
+    ref = f
+    for i in range(3):
+        padded.laplacian_padded_cuda(bufs[i % 2], cx, cz, order, nx, nz,
+                                     out=bufs[1 - i % 2])
+        ref = stencil.laplacian(ref, cx, cz, order)
+    torch.cuda.synchronize()
+    assert torch.equal(padded.from_padded(bufs[1], nx, nz, order), ref)
+    assert padded.LAUNCHES == {"lap_padded": 4, "lap_padded_mma": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [2, 4, 8, 10, 16])
+@pytest.mark.parametrize("lap_impl", ["mxu", "mxu6"])
+@pytest.mark.parametrize("nt", [10, 11])
+def test_mma_step_kernels_match_plain_on_the_card(cuda_device, order,
+                                                  lap_impl, nt):
+    """mod_step_mma, rtm_fwd_step_mma and rtm_bwd_step_mma against the
+    plain split-bf16 loops on the same CUDA tensors (they differ in the
+    order of the tensor cores' float32 sums only)."""
+    ctx, v2, wav, dobs = _setup(nt, order, device=cuda_device)
+    fk.reset_launches()
+    got = fk.forward_modeling_cuda(ctx, v2[0], wav, SXS, SZ, GZ,
+                                   lap_impl=lap_impl)
+    want = solver.forward_modeling(ctx, v2[0], wav, SXS, SZ, GZ,
+                                   lap_impl=lap_impl)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max() / b.abs().max()) <= GATE
+    ki = fk.rtm_snapshot_cuda(ctx, v2, wav, dobs, SXS, SZ, GZ,
+                              lap_impl=lap_impl)
+    pi = solver.rtm_shot_snapshot(ctx, v2, wav, dobs, SXS, SZ, GZ,
+                                  lap_impl=lap_impl)
+    torch.cuda.synchronize()
+    assert float((ki - pi).abs().max() / pi.abs().max()) <= GATE
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "mod_step_mma": nt, "rtm_fwd_step_mma": nt, "rtm_bwd_step_mma": nt}
