@@ -1,6 +1,7 @@
 // Shared pieces of the K-step kernels of the large-grid tier (kstep_mod.cu,
 // kstep_gpu_fwd.cu, kstep_gpu_bwd.cu): the shared-memory tile, the taper
-// rebuilt from its 1-D ramps, and the loop over a tile's cells.
+// rebuilt from its 1-D ramps, the loop over a tile's cells, and the split
+// z taps of their lap_impl mxu/mxu6 variants.
 //
 // Temporal blocking on an SM. One block owns kTileX x kTileZ cells of one
 // shot and stages each field of the tile plus a halo of r = K*H cells on
@@ -16,8 +17,21 @@
 // whatever the region (for_cells below), so a thread may read back a cell
 // it wrote itself without a barrier; a barrier separates writing a cell
 // from its neighbours' reading it.
+//
+// The split z taps. Each kernel is a template on P, the bf16 parts of its
+// Laplacian: P = 0 is the exact kernel; P = 2 (3) takes the z taps as the
+// 3-pass (6-pass) split-bf16 banded product on the tensor cores
+// (mma_bf16.cuh) and the x taps exact, as the JAX K-step kernels' use_mxu
+// branch does (ops/pallas_stream.py:600-608, _lap_z_mxu_full + _lap_x_slab).
+// An mma hands each output to a lane other than the one for_cells maps the
+// cell to, so z_band writes the product into a staged buffer behind a
+// barrier, and the cell's own thread adds the x taps (tile_lap): the
+// update, the taper and the rest keep their threads and their order.
 #pragma once
 
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 #include "stencil.cuh"
 
 namespace pfdc {
@@ -25,7 +39,8 @@ namespace pfdc {
 constexpr int kTileX = 32;         // owned rows (x) of a block
 constexpr int kTileZ = 64;         // owned columns (z) of a block
 constexpr int kTileThreadsZ = 32;  // threadIdx.x runs along z
-constexpr int kTileThreadsX = 16;  // threadIdx.y along x
+constexpr int kTileThreadsX = 16;  // threadIdx.y along x, a warp each
+constexpr int kTileThreads = kTileThreadsZ * kTileThreadsX;
 constexpr int kMaxSteps = 8;       // K per pass
 constexpr int kMaxSmemBytes = 232448;  // dynamic shared memory of a block
 
@@ -132,6 +147,95 @@ __device__ __forceinline__ float taper_at(const float* __restrict__ xramp,
                                           const float* __restrict__ strip,
                                           int gx, int gz) {
   return zfac[gz] * (strip[gz] != 0.0f ? xramp[gx] : 1.0f);
+}
+
+// The x taps of tile cell j (pitch sz), centre included, in the order of
+// laplacian's accx (stencil.cuh): the exact half of a split Laplacian.
+template <int H>
+__device__ __forceinline__ float x_taps(const float* f, int j, int sz,
+                                        const Coefs& c) {
+  float accx = c.x[H] * (f[j - H * sz] + f[j + H * sz]);
+#pragma unroll
+  for (int k = H - 1; k >= 1; --k) {
+    accx = accx + c.x[k] * (f[j - k * sz] + f[j + k * sz]);
+  }
+  return accx + c.x[0] * f[j];
+}
+
+// This thread's band fragments of the split z taps; nothing for P = 0.
+struct NoBand {};
+template <int H, int P>
+using ZBand = std::conditional_t<P == 0, NoBand, Band<H, P>>;
+
+template <int H, int P>
+__device__ __forceinline__ ZBand<H, P> z_band_fragments(const Coefs& c) {
+  if constexpr (P == 0) {
+    return {};
+  } else {
+    return band_fragments<H, P>(c.z, static_cast<int>(threadIdx.x));
+  }
+}
+
+// The z taps of the field f, centre included, as the P-part split-bf16
+// banded product, into zb at every cell of the tile at least lo cells from
+// its edge, then a barrier; nothing for P = 0. A warp (threadIdx.y) takes
+// the region's 16 x 8 blocks in turn: an output's window runs from H cells
+// before it along z, reads past the tile's edge read 0 (the band's zeros
+// multiply every value read, so each must be finite), and outputs beyond
+// the region are not written.
+template <int H, int P>
+__device__ __forceinline__ void z_band(float* zb, const float* f,
+                                       const Tile& t, int lo,
+                                       const ZBand<H, P>& band) {
+  if constexpr (P > 0) {
+    const int lane = static_cast<int>(threadIdx.x);
+    const int hx = t.sx - lo, hz = t.sz - lo;
+    const int nbz = (hz - lo + 7) / 8;
+    const int nb = (hx - lo + 15) / 16 * nbz;
+    for (int b = threadIdx.y; b < nb; b += blockDim.y) {
+      const int x0 = lo + 16 * (b / nbz);
+      const int z0 = lo + 8 * (b % nbz);
+      float y[4];
+      banded_mma<H, P>(
+          y,
+          [&](int m, int k) {
+            const int lx = x0 + m, lz = z0 - H + k;
+            return lx < t.sx && lz < t.sz ? f[lx * t.sz + lz] : 0.0f;
+          },
+          band, lane);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int lx = x0 + frag_g(lane) + 8 * (q >> 1);
+        const int lz = z0 + 2 * frag_t(lane) + (q & 1);
+        if (lx < hx && lz < hz) zb[lx * t.sz + lz] = y[q];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The Laplacian at tile cell j of the field f: the exact taps (P = 0), or
+// the split z taps z_band left in zb plus the exact x taps (yz + accx).
+template <int H, int P>
+__device__ __forceinline__ float tile_lap(const float* f, const float* zb,
+                                          int j, int sz, const Coefs& c) {
+  if constexpr (P == 0) {
+    return laplacian<H, false>(f, nullptr, j, sz, c);
+  } else {
+    return zb[j] + x_taps<H>(f, j, sz, c);
+  }
+}
+
+// Calls run.template launch<H, P>() for the P = parts (0, 2 or 3) of a
+// kernel of the tier (the K-step kernels, gpu_step).
+template <int H, class Run>
+cudaError_t dispatch_parts(const Run& run, int parts) {
+  switch (parts) {
+    case 0: return run.template launch<H, 0>();
+    case 2: return run.template launch<H, 2>();
+    case 3: return run.template launch<H, 3>();
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace pfdc

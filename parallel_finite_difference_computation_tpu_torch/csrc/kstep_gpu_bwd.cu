@@ -1,14 +1,21 @@
 // kstep_gpu_bwd: K steps of the GPU suite's backward propagation and
 // imaging (fd_back, cuda_reference_RTM/src/fd-code.cu:290-341, it >= 2) in
-// one pass over the grid, for every shot of a batch, and the C entry point
-// pfdc_kstep_gpu_bwd_run that launches one pass.
+// one pass over the grid, for every shot of a batch, and the C entry points
+// pfdc_kstep_gpu_bwd_run and pfdc_kstep_gpu_bwd_mma_run that launch one
+// pass.
 //
 // Replaces: parallel_finite_difference_computation_tpu/ops/pallas_stream.py,
 // _kstep_gpu_bwd_kernel (:857), called through fd_kstep_gpu_bwd_padded
-// (:932) by the JAX package's rtm_shot_snapshot_tiled with block_k > 1.
+// (:932) by the JAX package's rtm_shot_snapshot_tiled with block_k > 1:
+// kstep_gpu_bwd<H, 0> its exact taps, kstep_gpu_bwd<H, 2 or 3>
+// (kstep_gpu_bwd_mma) its use_mxu branch (:875-883), the z taps of both
+// Laplacians in split bf16 on the tensor cores (kstep.cuh, z_band).
 // A block stages a 2-D tile of the four fields and v2*dt2 with a K*H halo
 // on both axes, and its owned part of the image (kstep.cuh); 131 KB of
-// shared memory at order 8 and K = 4, 158 KB at order 10.
+// shared memory at order 8 and K = 4, 158 KB at order 10. With P > 0 two
+// more tiles hold the z taps of the two fields, so that one loop over the
+// cells takes both Laplacians as the exact kernel does: 180 KB at order 8
+// and K = 4, 218 KB at order 10.
 //
 // What bounds it on an H100: at the Pluto grid the per-step rtm_bwd_step
 // moves ~340 MB a shot-step through HBM; this pass reads four fields,
@@ -22,30 +29,32 @@
 // at depth gz (K5, into every computed cell of the row, halo included);
 // img += s*u on the owned interior cells (K6), held in shared memory and
 // summed in time order. These are rtm_bwd_step's operations in its order,
-// so with -fmad=false the result is bitwise the per-step kernel's.
+// so with -fmad=false the exact kernel is bitwise the per-step kernel; the
+// split one sums each mma's 16 products in the tensor cores' own order.
 #include "kstep.cuh"
 
 namespace {
 
-template <int H>
-__global__ void kstep_gpu_bwd(const float* __restrict__ ps_in,
-                              const float* __restrict__ pps_in,
-                              const float* __restrict__ pr_in,
-                              const float* __restrict__ ppr_in,
-                              float* __restrict__ ps_out,
-                              float* __restrict__ pps_out,
-                              float* __restrict__ pr_out,
-                              float* __restrict__ ppr_out,
-                              float* __restrict__ img,
-                              const float* __restrict__ v2dt2,
-                              int v2_shot_stride,
-                              const float* __restrict__ xramp,
-                              const float* __restrict__ zfac,
-                              const float* __restrict__ strip,
-                              const float* __restrict__ inj,
-                              int inj_shot_stride, int gz_rec, int k_steps,
-                              int nxb, int nzb, int nx, int nz, int nxe,
-                              int nze, pfdc::Coefs c) {
+// Staged tiles: four fields and v2*dt2, and with the split taps the z
+// products of the source and the receiver field.
+template <int P>
+constexpr int kFields = P ? 7 : 5;
+
+template <int H, int P>
+__global__ void __launch_bounds__(pfdc::kTileThreads)
+    kstep_gpu_bwd(const float* __restrict__ ps_in,
+                  const float* __restrict__ pps_in,
+                  const float* __restrict__ pr_in,
+                  const float* __restrict__ ppr_in,
+                  float* __restrict__ ps_out, float* __restrict__ pps_out,
+                  float* __restrict__ pr_out, float* __restrict__ ppr_out,
+                  float* __restrict__ img, const float* __restrict__ v2dt2,
+                  int v2_shot_stride, const float* __restrict__ xramp,
+                  const float* __restrict__ zfac,
+                  const float* __restrict__ strip,
+                  const float* __restrict__ inj, int inj_shot_stride,
+                  int gz_rec, int k_steps, int nxb, int nzb, int nx, int nz,
+                  int nxe, int nze, pfdc::Coefs c) {
   extern __shared__ float smem[];
   const pfdc::Tile t(k_steps * H);
   const int n = t.cells();
@@ -55,6 +64,9 @@ __global__ void kstep_gpu_bwd(const float* __restrict__ ps_in,
   float* sppr = smem + 3 * n;
   float* sv = smem + 4 * n;
   float* simg = smem + 5 * n;   // kTileX x kTileZ, owned cells
+  float* zs = simg + pfdc::kTileX * pfdc::kTileZ;   // P > 0: z taps of sps
+  float* zr = zs + n;                               // and of spr
+  const auto band = pfdc::z_band_fragments<H, P>(c);
   const int s = blockIdx.z;
   const size_t plane = static_cast<size_t>(nxe) * nze;
   pfdc::load_tile(sps, ps_in + s * plane, t, nxe, nze);
@@ -83,18 +95,20 @@ __global__ void kstep_gpu_bwd(const float* __restrict__ ps_in,
       spr[j] = spr[j] * pfdc::taper_at(xramp, zfac, strip, gx, gz);
     });
     __syncthreads();
+    pfdc::z_band<H, P>(zs, sps, t, (k + 1) * H, band);
+    pfdc::z_band<H, P>(zr, spr, t, (k + 1) * H, band);
     pfdc::for_cells(t, (k + 1) * H, nxe, nze,
                     [&](int lx, int lz, int gx, int gz) {
       const int j = lx * t.sz + lz;
       const bool interior = pfdc::in_interior(gx, gz, H, nxe, nze);
       const float v = sv[j];
       const float lap_s =
-          interior ? pfdc::laplacian<H, false>(sps, nullptr, j, t.sz, c) : 0.0f;
+          interior ? pfdc::tile_lap<H, P>(sps, zs, j, t.sz, c) : 0.0f;
       const float us = (2.0f * sps[j] - spps[j]) + v * lap_s;
       spps[j] = us;
       const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
       const float lap_r =
-          interior ? pfdc::laplacian<H, false>(spr, nullptr, j, t.sz, c) : 0.0f;
+          interior ? pfdc::tile_lap<H, P>(spr, zr, j, t.sz, c) : 0.0f;
       float ur = (2.0f * spr[j] - sppr[j] * m) + v * lap_r;
       if (gz == gz_rec && gx >= nxb && gx < nxb + nx) {
         ur = ur + inj_s[static_cast<size_t>(k) * nx + (gx - nxb)];
@@ -141,24 +155,51 @@ struct KstepBwdRun {
   const float* inj;
   int inj_shot_stride, gz, k, nxb, nzb, ns, nxe, nze;
   pfdc::Coefs c;
+  int parts;
   cudaStream_t stream;
 
-  template <int H>
-  cudaError_t operator()() const {
+  template <int H, int P>
+  cudaError_t launch() const {
     const size_t bytes =
-        sizeof(float) * (5 * pfdc::tile_cells(k * H) +
+        sizeof(float) * (kFields<P> * pfdc::tile_cells(k * H) +
                          static_cast<size_t>(pfdc::kTileX) * pfdc::kTileZ);
-    const cudaError_t e = pfdc::allow_smem(kstep_gpu_bwd<H>, bytes);
+    const cudaError_t e = pfdc::allow_smem(kstep_gpu_bwd<H, P>, bytes);
     if (e != cudaSuccess) return e;
     const dim3 grid = pfdc::tile_grid(ns, nxe, nze);
     const dim3 block = pfdc::tile_block();
-    kstep_gpu_bwd<H><<<grid, block, bytes, stream>>>(
+    kstep_gpu_bwd<H, P><<<grid, block, bytes, stream>>>(
         ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out, img, v2dt2,
         v2_shot_stride, xramp, zfac, strip, inj, inj_shot_stride, gz, k, nxb,
         nzb, nxe - 2 * nxb, nze - 2 * nzb, nxe, nze, c);
     return cudaGetLastError();
   }
+
+  template <int H>
+  cudaError_t operator()() const {
+    return pfdc::dispatch_parts<H>(*this, parts);
+  }
 };
+
+int kstep_gpu_bwd_run(const float* ps, const float* pps, const float* pr,
+                      const float* ppr, float* ps_out, float* pps_out,
+                      float* pr_out, float* ppr_out, float* img,
+                      const float* v2dt2, int v2_shot_stride,
+                      const float* xramp, const float* zfac,
+                      const float* strip, const float* inj,
+                      int inj_shot_stride, int gz, int k, int nxb, int nzb,
+                      int ns, int nxe, int nze, int order, int parts,
+                      const float* cx, const float* cz, void* stream) {
+  if (k < 1 || k > pfdc::kMaxSteps) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const KstepBwdRun run{ps,    pps,    pr,     ppr,   ps_out, pps_out,
+                        pr_out, ppr_out, img,  v2dt2, v2_shot_stride,
+                        xramp, zfac,   strip,  inj,   inj_shot_stride,
+                        gz,    k,      nxb,    nzb,   ns,     nxe,
+                        nze,   pfdc::make_coefs(order / 2, cx, cz), parts,
+                        static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(pfdc::dispatch_half(order, run));
+}
 
 }  // namespace
 
@@ -179,14 +220,27 @@ extern "C" int pfdc_kstep_gpu_bwd_run(const float* ps, const float* pps,
                                       int ns, int nxe, int nze, int order,
                                       const float* cx, const float* cz,
                                       void* stream) {
-  if (k < 1 || k > pfdc::kMaxSteps) {
+  return kstep_gpu_bwd_run(ps, pps, pr, ppr, ps_out, pps_out, pr_out,
+                           ppr_out, img, v2dt2, v2_shot_stride, xramp, zfac,
+                           strip, inj, inj_shot_stride, gz, k, nxb, nzb, ns,
+                           nxe, nze, order, 0, cx, cz, stream);
+}
+
+// The same pass with the z taps in parts (2 or 3) bf16 splits:
+// kstep_gpu_bwd_mma.
+extern "C" int pfdc_kstep_gpu_bwd_mma_run(
+    const float* ps, const float* pps, const float* pr, const float* ppr,
+    float* ps_out, float* pps_out, float* pr_out, float* ppr_out, float* img,
+    const float* v2dt2, int v2_shot_stride, const float* xramp,
+    const float* zfac, const float* strip, const float* inj,
+    int inj_shot_stride, int gz, int k, int nxb, int nzb, int ns, int nxe,
+    int nze, int order, int parts, const float* cx, const float* cz,
+    void* stream) {
+  if (parts != 2 && parts != 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const KstepBwdRun run{ps,    pps,    pr,     ppr,   ps_out, pps_out,
-                        pr_out, ppr_out, img,  v2dt2, v2_shot_stride,
-                        xramp, zfac,   strip,  inj,   inj_shot_stride,
-                        gz,    k,      nxb,    nzb,   ns,     nxe,
-                        nze,   pfdc::make_coefs(order / 2, cx, cz),
-                        static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(pfdc::dispatch_half(order, run));
+  return kstep_gpu_bwd_run(ps, pps, pr, ppr, ps_out, pps_out, pr_out,
+                           ppr_out, img, v2dt2, v2_shot_stride, xramp, zfac,
+                           strip, inj, inj_shot_stride, gz, k, nxb, nzb, ns,
+                           nxe, nze, order, parts, cx, cz, stream);
 }

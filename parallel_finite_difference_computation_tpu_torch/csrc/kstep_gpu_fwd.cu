@@ -1,12 +1,16 @@
 // kstep_gpu_fwd: K steps of the GPU suite's forward propagation (fd_forward,
 // cuda_reference_RTM/src/fd-code.cu:247-288) in one pass over the grid, for
-// every shot of a batch, and the C entry point pfdc_kstep_gpu_fwd_run that
-// launches one pass.
+// every shot of a batch, and the C entry points pfdc_kstep_gpu_fwd_run and
+// pfdc_kstep_gpu_fwd_mma_run that launch one pass.
 //
 // Replaces: parallel_finite_difference_computation_tpu/ops/pallas_stream.py,
 // _kstep_gpu_fwd_kernel (:740), called through fd_kstep_gpu_fwd_padded
-// (:796) by the JAX package's rtm_shot_snapshot_tiled with block_k > 1.
-// A block stages a 2-D tile with a K*H halo on both axes (kstep.cuh).
+// (:796) by the JAX package's rtm_shot_snapshot_tiled with block_k > 1:
+// kstep_gpu_fwd<H, 0> its exact taps, kstep_gpu_fwd<H, 2 or 3>
+// (kstep_gpu_fwd_mma) its use_mxu branch (:753-761), the z taps in split
+// bf16 on the tensor cores (kstep.cuh, z_band). A block stages a 2-D tile
+// with a K*H halo on both axes (kstep.cuh), and with P > 0 one more tile
+// for the z taps.
 //
 // What bounds it on an H100: at the Pluto grid the per-step rtm_fwd_step
 // moves ~180 MB a shot-step through HBM; this pass reads p, pp and v2*dt2
@@ -18,30 +22,34 @@
 // (in place, then a barrier), u = (2t - p*m) + v*lap(t), u += amp at the
 // source cell; the next state is (t, u). These are rtm_fwd_step's
 // operations in its order (its taper on read rounds the same), so with
-// -fmad=false the result is bitwise the per-step kernel's.
+// -fmad=false the exact kernel is bitwise the per-step kernel; the split
+// one sums each mma's 16 products in the tensor cores' own order.
 #include "kstep.cuh"
 
 namespace {
 
-template <int H>
-__global__ void kstep_gpu_fwd(const float* __restrict__ p_in,
-                              const float* __restrict__ pp_in,
-                              float* __restrict__ p_out,
-                              float* __restrict__ pp_out,
-                              const float* __restrict__ v2dt2,
-                              int v2_shot_stride,
-                              const float* __restrict__ xramp,
-                              const float* __restrict__ zfac,
-                              const float* __restrict__ strip,
-                              const int* __restrict__ sx, int sz,
-                              pfdc::Amps amps, int k_steps, int nxe, int nze,
-                              pfdc::Coefs c) {
+// Staged tiles: p, pp and v2*dt2, and with the split taps the z product.
+template <int P>
+constexpr int kFields = P ? 4 : 3;
+
+template <int H, int P>
+__global__ void __launch_bounds__(pfdc::kTileThreads)
+    kstep_gpu_fwd(const float* __restrict__ p_in,
+                  const float* __restrict__ pp_in, float* __restrict__ p_out,
+                  float* __restrict__ pp_out, const float* __restrict__ v2dt2,
+                  int v2_shot_stride, const float* __restrict__ xramp,
+                  const float* __restrict__ zfac,
+                  const float* __restrict__ strip,
+                  const int* __restrict__ sx, int sz, pfdc::Amps amps,
+                  int k_steps, int nxe, int nze, pfdc::Coefs c) {
   extern __shared__ float smem[];
   const pfdc::Tile t(k_steps * H);
   const int n = t.cells();
   float* sx_ = smem;      // p: the older field, tapered
   float* sy = smem + n;   // pp: the newest field
   float* sv = smem + 2 * n;
+  float* zb = smem + 3 * n;     // P > 0: the z taps of sy
+  const auto band = pfdc::z_band_fragments<H, P>(c);
   const int s = blockIdx.z;
   const size_t plane = static_cast<size_t>(nxe) * nze;
   pfdc::load_tile(sx_, p_in + s * plane, t, nxe, nze);
@@ -57,12 +65,13 @@ __global__ void kstep_gpu_fwd(const float* __restrict__ p_in,
     });
     __syncthreads();
     const float amp = amps.a[k];
+    pfdc::z_band<H, P>(zb, sy, t, (k + 1) * H, band);
     pfdc::for_cells(t, (k + 1) * H, nxe, nze,
                     [&](int lx, int lz, int gx, int gz) {
       const int j = lx * t.sz + lz;
       const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
       const float lap = pfdc::in_interior(gx, gz, H, nxe, nze)
-                            ? pfdc::laplacian<H, false>(sy, nullptr, j, t.sz, c)
+                            ? pfdc::tile_lap<H, P>(sy, zb, j, t.sz, c)
                             : 0.0f;
       float u = (2.0f * sy[j] - sx_[j] * m) + sv[j] * lap;
       if (gx == src_x && gz == sz) u = u + amp;
@@ -91,21 +100,45 @@ struct KstepFwdRun {
   pfdc::Amps amps;
   int k, ns, nxe, nze;
   pfdc::Coefs c;
+  int parts;
   cudaStream_t stream;
 
-  template <int H>
-  cudaError_t operator()() const {
-    const size_t bytes = 3 * sizeof(float) * pfdc::tile_cells(k * H);
-    const cudaError_t e = pfdc::allow_smem(kstep_gpu_fwd<H>, bytes);
+  template <int H, int P>
+  cudaError_t launch() const {
+    const size_t bytes = kFields<P> * sizeof(float) * pfdc::tile_cells(k * H);
+    const cudaError_t e = pfdc::allow_smem(kstep_gpu_fwd<H, P>, bytes);
     if (e != cudaSuccess) return e;
     const dim3 grid = pfdc::tile_grid(ns, nxe, nze);
     const dim3 block = pfdc::tile_block();
-    kstep_gpu_fwd<H><<<grid, block, bytes, stream>>>(
+    kstep_gpu_fwd<H, P><<<grid, block, bytes, stream>>>(
         p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp, zfac, strip, sx,
         sz, amps, k, nxe, nze, c);
     return cudaGetLastError();
   }
+
+  template <int H>
+  cudaError_t operator()() const {
+    return pfdc::dispatch_parts<H>(*this, parts);
+  }
 };
+
+int kstep_gpu_fwd_run(const float* p, const float* pp, float* p_out,
+                      float* pp_out, const float* v2dt2, int v2_shot_stride,
+                      const float* xramp, const float* zfac,
+                      const float* strip, const int* sx, int sz,
+                      const float* amps, int k, int ns, int nxe, int nze,
+                      int order, int parts, const float* cx, const float* cz,
+                      void* stream) {
+  if (k < 1 || k > pfdc::kMaxSteps) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const KstepFwdRun run{p,     pp,   p_out, pp_out, v2dt2, v2_shot_stride,
+                        xramp, zfac, strip, sx,     sz,
+                        pfdc::make_amps(amps, k), k, ns, nxe, nze,
+                        pfdc::make_coefs(order / 2, cx, cz), parts,
+                        static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(pfdc::dispatch_half(order, run));
+}
 
 }  // namespace
 
@@ -121,13 +154,23 @@ extern "C" int pfdc_kstep_gpu_fwd_run(const float* p, const float* pp,
                                       int ns, int nxe, int nze, int order,
                                       const float* cx, const float* cz,
                                       void* stream) {
-  if (k < 1 || k > pfdc::kMaxSteps) {
+  return kstep_gpu_fwd_run(p, pp, p_out, pp_out, v2dt2, v2_shot_stride,
+                           xramp, zfac, strip, sx, sz, amps, k, ns, nxe, nze,
+                           order, 0, cx, cz, stream);
+}
+
+// The same pass with the z taps in parts (2 or 3) bf16 splits:
+// kstep_gpu_fwd_mma.
+extern "C" int pfdc_kstep_gpu_fwd_mma_run(
+    const float* p, const float* pp, float* p_out, float* pp_out,
+    const float* v2dt2, int v2_shot_stride, const float* xramp,
+    const float* zfac, const float* strip, const int* sx, int sz,
+    const float* amps, int k, int ns, int nxe, int nze, int order, int parts,
+    const float* cx, const float* cz, void* stream) {
+  if (parts != 2 && parts != 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const KstepFwdRun run{p,     pp,   p_out, pp_out, v2dt2, v2_shot_stride,
-                        xramp, zfac, strip, sx,     sz,
-                        pfdc::make_amps(amps, k), k, ns, nxe, nze,
-                        pfdc::make_coefs(order / 2, cx, cz),
-                        static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(pfdc::dispatch_half(order, run));
+  return kstep_gpu_fwd_run(p, pp, p_out, pp_out, v2dt2, v2_shot_stride,
+                           xramp, zfac, strip, sx, sz, amps, k, ns, nxe, nze,
+                           order, parts, cx, cz, stream);
 }

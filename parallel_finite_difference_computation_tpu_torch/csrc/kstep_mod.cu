@@ -1,12 +1,16 @@
 // kstep_mod: K forward-modeling steps (mod_main's loop, mod_main.cpp:
 // 146-168) in one pass over the grid, for every shot of a batch, and the C
-// entry point pfdc_kstep_mod_run that launches one pass.
+// entry points pfdc_kstep_mod_run and pfdc_kstep_mod_mma_run that launch
+// one pass.
 //
 // Replaces: parallel_finite_difference_computation_tpu/ops/pallas_stream.py,
 // _kstep_kernel (:574), called through fd_kstep_padded (:650) by the JAX
-// package's forward_modeling_tiled with block_k > 1. That kernel streams
-// full-width row slabs through VMEM; here a block stages a 2-D tile with a
-// K*H halo on both axes in shared memory (kstep.cuh).
+// package's forward_modeling_tiled with block_k > 1: kstep_mod<H, 0> its
+// exact taps, kstep_mod<H, 2 or 3> (kstep_mod_mma) its use_mxu branch
+// (:600-608), the z taps in split bf16 on the tensor cores (kstep.cuh,
+// z_band). That kernel streams full-width row slabs through VMEM; here a
+// block stages a 2-D tile with a K*H halo on both axes in shared memory
+// (kstep.cuh), and with P > 0 one more tile for the z taps.
 //
 // What bounds it on an H100: at the Pluto grid (7040 x 1281, 36 MB a field)
 // the per-step mod_step moves ~180 MB a shot-step through HBM; this pass
@@ -18,32 +22,35 @@
 // Per step, from the state (p, pp) with pp tapered (the plain version's
 // state): u = (2p - pp) + v*lap(p); u += amp * patch around the source;
 // pp' = u * m; p' = p * m, whose row gz is the step's trace. The operations
-// and their order are mod_step's, so with -fmad=false the result is
-// bitwise the per-step kernel's.
+// and their order are mod_step's, so with -fmad=false the exact kernel is
+// bitwise the per-step kernel; the split one sums each mma's 16 products in
+// the tensor cores' own order.
 #include "kstep.cuh"
 
 namespace {
 
-template <int H>
-__global__ void kstep_mod(const float* __restrict__ p_in,
-                          const float* __restrict__ pp_in,
-                          float* __restrict__ p_out,
-                          float* __restrict__ pp_out,
-                          const float* __restrict__ v2dt2, int v2_shot_stride,
-                          const float* __restrict__ xramp,
-                          const float* __restrict__ zfac,
-                          const float* __restrict__ strip,
-                          const float* __restrict__ patch, int r,
-                          const int* __restrict__ sx, int sz, int gz_rec,
-                          pfdc::Amps amps, int k_steps,
-                          float* __restrict__ rec, int nxb, int nx, int nxe,
-                          int nze, pfdc::Coefs c) {
+// Staged tiles: p, pp and v2*dt2, and with the split taps the z product.
+template <int P>
+constexpr int kFields = P ? 4 : 3;
+
+template <int H, int P>
+__global__ void __launch_bounds__(pfdc::kTileThreads)
+    kstep_mod(const float* __restrict__ p_in, const float* __restrict__ pp_in,
+              float* __restrict__ p_out, float* __restrict__ pp_out,
+              const float* __restrict__ v2dt2, int v2_shot_stride,
+              const float* __restrict__ xramp, const float* __restrict__ zfac,
+              const float* __restrict__ strip, const float* __restrict__ patch,
+              int r, const int* __restrict__ sx, int sz, int gz_rec,
+              pfdc::Amps amps, int k_steps, float* __restrict__ rec, int nxb,
+              int nx, int nxe, int nze, pfdc::Coefs c) {
   extern __shared__ float smem[];
   const pfdc::Tile t(k_steps * H);
   const int n = t.cells();
   float* sp = smem;
   float* spp = smem + n;
   float* sv = smem + 2 * n;
+  float* zb = smem + 3 * n;     // P > 0: the z taps of sp
+  const auto band = pfdc::z_band_fragments<H, P>(c);
   const int s = blockIdx.z;
   const size_t plane = static_cast<size_t>(nxe) * nze;
   pfdc::load_tile(sp, p_in + s * plane, t, nxe, nze);
@@ -56,11 +63,12 @@ __global__ void kstep_mod(const float* __restrict__ p_in,
   for (int k = 0; k < k_steps; ++k) {
     const int lo = (k + 1) * H;
     const float amp = amps.a[k];
+    pfdc::z_band<H, P>(zb, sp, t, lo, band);
     // the update, into the older field's slot (read only at its own cell)
     pfdc::for_cells(t, lo, nxe, nze, [&](int lx, int lz, int gx, int gz) {
       const int j = lx * t.sz + lz;
       const float lap = pfdc::in_interior(gx, gz, H, nxe, nze)
-                            ? pfdc::laplacian<H, false>(sp, nullptr, j, t.sz, c)
+                            ? pfdc::tile_lap<H, P>(sp, zb, j, t.sz, c)
                             : 0.0f;
       float u = (2.0f * sp[j] - spp[j]) + sv[j] * lap;
       const int dx = gx - src_x;
@@ -107,21 +115,46 @@ struct KstepModRun {
   float* rec;
   int ns, nxe, nze, nxb, nx;
   pfdc::Coefs c;
+  int parts;
   cudaStream_t stream;
 
-  template <int H>
-  cudaError_t operator()() const {
-    const size_t bytes = 3 * sizeof(float) * pfdc::tile_cells(k * H);
-    const cudaError_t e = pfdc::allow_smem(kstep_mod<H>, bytes);
+  template <int H, int P>
+  cudaError_t launch() const {
+    const size_t bytes = kFields<P> * sizeof(float) * pfdc::tile_cells(k * H);
+    const cudaError_t e = pfdc::allow_smem(kstep_mod<H, P>, bytes);
     if (e != cudaSuccess) return e;
     const dim3 grid = pfdc::tile_grid(ns, nxe, nze);
     const dim3 block = pfdc::tile_block();
-    kstep_mod<H><<<grid, block, bytes, stream>>>(
+    kstep_mod<H, P><<<grid, block, bytes, stream>>>(
         p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp, zfac, strip,
         patch, r, sx, sz, gz, amps, k, rec, nxb, nx, nxe, nze, c);
     return cudaGetLastError();
   }
+
+  template <int H>
+  cudaError_t operator()() const {
+    return pfdc::dispatch_parts<H>(*this, parts);
+  }
 };
+
+int kstep_mod_run(const float* p, const float* pp, float* p_out,
+                  float* pp_out, const float* v2dt2, int v2_shot_stride,
+                  const float* xramp, const float* zfac, const float* strip,
+                  const float* patch, int r, const int* sx, int sz, int gz,
+                  const float* amps, int k, float* rec, int ns, int nxe,
+                  int nze, int nxb, int order, int parts, const float* cx,
+                  const float* cz, void* stream) {
+  if (k < 1 || k > pfdc::kMaxSteps) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const KstepModRun run{p,     pp,    p_out, pp_out, v2dt2, v2_shot_stride,
+                        xramp, zfac,  strip, patch,  r,     sx,
+                        sz,    gz,    pfdc::make_amps(amps, k),
+                        k,     rec,   ns,    nxe,    nze,   nxb,
+                        nxe - 2 * nxb, pfdc::make_coefs(order / 2, cx, cz),
+                        parts, static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(pfdc::dispatch_half(order, run));
+}
 
 }  // namespace
 
@@ -139,14 +172,26 @@ extern "C" int pfdc_kstep_mod_run(const float* p, const float* pp,
                                   int ns, int nxe, int nze, int nxb,
                                   int order, const float* cx,
                                   const float* cz, void* stream) {
-  if (k < 1 || k > pfdc::kMaxSteps) {
+  return kstep_mod_run(p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp,
+                       zfac, strip, patch, r, sx, sz, gz, amps, k, rec, ns,
+                       nxe, nze, nxb, order, 0, cx, cz, stream);
+}
+
+// The same pass with the z taps in parts (2 or 3) bf16 splits: kstep_mod_mma.
+extern "C" int pfdc_kstep_mod_mma_run(const float* p, const float* pp,
+                                      float* p_out, float* pp_out,
+                                      const float* v2dt2, int v2_shot_stride,
+                                      const float* xramp, const float* zfac,
+                                      const float* strip, const float* patch,
+                                      int r, const int* sx, int sz, int gz,
+                                      const float* amps, int k, float* rec,
+                                      int ns, int nxe, int nze, int nxb,
+                                      int order, int parts, const float* cx,
+                                      const float* cz, void* stream) {
+  if (parts != 2 && parts != 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const KstepModRun run{p,     pp,    p_out, pp_out, v2dt2, v2_shot_stride,
-                        xramp, zfac,  strip, patch,  r,     sx,
-                        sz,    gz,    pfdc::make_amps(amps, k),
-                        k,     rec,   ns,    nxe,    nze,   nxb,
-                        nxe - 2 * nxb, pfdc::make_coefs(order / 2, cx, cz),
-                        static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(pfdc::dispatch_half(order, run));
+  return kstep_mod_run(p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp,
+                       zfac, strip, patch, r, sx, sz, gz, amps, k, rec, ns,
+                       nxe, nze, nxb, order, parts, cx, cz, stream);
 }

@@ -97,6 +97,21 @@ _SIGNATURES = {
     #                   nzb, ns, nxe, nze, order, cx, cz, stream)
     "pfdc_gpu_step_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                           _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # pfdc_kstep_mod_mma_run, pfdc_kstep_gpu_fwd_mma_run,
+    # pfdc_kstep_gpu_bwd_mma_run, pfdc_gpu_step_mma_run: the exact entry
+    # points' arguments with parts after order
+    "pfdc_kstep_mod_mma_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                               _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                               _I, _P, _P, _P],
+    "pfdc_kstep_gpu_fwd_mma_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                                   _I, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                                   _P],
+    "pfdc_kstep_gpu_bwd_mma_run": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _P, _P, _P],
+    "pfdc_gpu_step_mma_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                              _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                              _P],
     # pfdc_fd_step_run(p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp,
     #                  zfac, strip, patch, r, sx, sz, amp, inj,
     #                  inj_shot_stride, x0, gz, nx, ns, nxe, nze, order, cx,

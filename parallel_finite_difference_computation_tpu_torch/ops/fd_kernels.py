@@ -32,11 +32,14 @@ The padded-layout stencil's two kernels, ``lap_padded`` and
 package (:func:`resolve_lap_impl`): the exact taps (``None``, ``"vpu"``),
 the split-bf16 tensor-core tiers (``"mxu"``: 3 passes, ``"mxu6"``: 6), or
 ``"auto"``. The per-step tier runs all of them (``mod_step``/``rtm_*_step``
-exact, the ``*_step_mma`` kernels split); the other tiers have the exact
-taps only and raise on a resolved ``mxu``/``mxu6``
-(:func:`check_exact_taps`). The JAX kernels' ``z_taps`` and
-``taper_impl`` are Mosaic lowering choices with bitwise-identical results
-and are not ported.
+exact, the ``*_step_mma`` kernels split, the x taps in bf16 parts), and so
+does the large-grid tier at K >= 2 (the ``kstep_*_mma`` and
+``gpu_step_mma`` kernels of :mod:`.stream`, the z taps in bf16 parts, as
+the JAX streaming kernels split them); the other tiers (K = 1, the
+``rtm_main`` kernels, the domain tiers) have the exact taps only and raise
+on a resolved ``mxu``/``mxu6`` (:func:`check_exact_taps`). The JAX
+kernels' ``z_taps`` and ``taper_impl`` are Mosaic lowering choices with
+bitwise-identical results and are not ported.
 """
 
 from __future__ import annotations
@@ -122,7 +125,7 @@ def resolve_lap_impl(ctx: FDContext, lap_impl):
 
 
 def lap_parts(lap_impl, ctx: FDContext) -> int:
-    """The bf16 splits the whole-shot Laplacian runs with (the JAX
+    """The bf16 splits the split-bf16 Laplacian runs with (the JAX
     ``_use_mxu_lap``, its ``ops/pallas_fd.py:221-241``): 0 for the exact
     taps, 2 for ``"mxu"`` (3 passes), 3 for ``"mxu6"`` (6 passes), after
     :func:`resolve_lap_impl`. A part count (0, 2 or 3) is taken as already
@@ -139,16 +142,17 @@ def check_exact_taps(ctx: FDContext, lap_impl, tier: str) -> None:
     """Raises ``NotImplementedError`` where ``lap_impl`` resolves to a
     split-bf16 tier on a tier of the port that has the exact taps only
     (``tier`` names it): the JAX package's ``use_mxu`` lowerings of its
-    streaming, K-step and domain kernels are still to be ported
-    (ROADMAP.md). An ``auto`` that resolves to ``"vpu"`` passes."""
+    per-step streaming (K = 1), ``rtm_main`` K-step and domain kernels are
+    still to be ported (ROADMAP.md, Queue 2). An ``auto`` that resolves to ``"vpu"``
+    passes."""
     parts = lap_parts(lap_impl, ctx)
     if parts:
         raise NotImplementedError(
             f"lap_impl={lap_impl!r} resolves to the "
             f"{'mxu' if parts == 2 else 'mxu6'} tier here; {tier} has the "
             f"exact taps only (its split-bf16 variant is still to be ported, "
-            f"see ROADMAP.md, Queue 2): use the per-step tier or "
-            f"lap_impl='vpu'")
+            f"see ROADMAP.md, Queue 2): use the per-step tier, the large-grid "
+            f"tier at block_k >= 2, or lap_impl='vpu'")
 
 
 def _on_cuda(t: torch.Tensor) -> bool:

@@ -31,6 +31,13 @@ sized, and a tile too large for it refused, by the K-step kernels' C entry
 points (``csrc/kstep.cuh``, ``allow_smem``); the wrappers raise on that
 refusal, naming the limit.
 
+The K-step wrappers and ``fd_step_gpu_cuda`` take ``parts``, the bf16
+splits of the Laplacian's z taps (:func:`.fd_kernels.lap_parts`): 0 runs
+the exact kernels; 2 (``lap_impl="mxu"``) and 3 (``"mxu6"``) the ``*_mma``
+kernels, which take the z taps as the split-bf16 banded product on the
+tensor cores as the JAX kernels' ``use_mxu`` branch does, and the plain
+passes with :func:`..solver.laplacian_of` (``axis="z"``) on the CPU.
+
 | kernel | source | replaces (JAX package, ``ops/pallas_stream.py``) |
 |---|---|---|
 | ``fd_step`` | ``csrc/stream_step.cu`` | ``_kernel`` (:76) |
@@ -39,6 +46,10 @@ refusal, naming the limit.
 | ``kstep_gpu_fwd`` | ``csrc/kstep_gpu_fwd.cu`` | ``_kstep_gpu_fwd_kernel`` (:740) |
 | ``kstep_gpu_bwd`` | ``csrc/kstep_gpu_bwd.cu`` | ``_kstep_gpu_bwd_kernel`` (:857) |
 | ``gpu_step`` | ``csrc/gpu_step.cu`` | ``_kernel_gpu`` (:207) |
+| ``kstep_mod_mma`` | ``csrc/kstep_mod.cu`` | ``_kstep_kernel``'s ``use_mxu`` branch (:600-608) |
+| ``kstep_gpu_fwd_mma`` | ``csrc/kstep_gpu_fwd.cu`` | ``_kstep_gpu_fwd_kernel``'s (:753-761) |
+| ``kstep_gpu_bwd_mma`` | ``csrc/kstep_gpu_bwd.cu`` | ``_kstep_gpu_bwd_kernel``'s (:875-883) |
+| ``gpu_step_mma`` | ``csrc/gpu_step.cu`` | ``_kernel_gpu``'s (:220, ``_lap_dispatch`` :64) |
 
 Every function of the JAX package that reaches ``pl.pallas_call``, and
 where the port stands with it (``PERF.md``, section 6, has the times):
@@ -49,15 +60,15 @@ where the port stands with it (``PERF.md``, section 6, has the times):
 | 2 | ``ops/pallas_fd.py:534`` ``_rtm_kernel`` | whole two-snapshot RTM shot | ``rtm_fwd_step`` + ``rtm_bwd_step`` |
 | 3 | ``ops/pallas_fd.py:702`` ``_fwd_gpu_kernel`` | ``fd_forward`` | ``rtm_fwd_step`` |
 | 4 | ``ops/pallas_fd.py:729`` ``_bwd_gpu_kernel`` | ``fd_back`` + imaging | ``rtm_bwd_step`` |
-| 5 | ``ops/pallas_fd.py:260-334`` MXU ``_make_lap`` | banded-matmul Laplacian | to be ported |
+| 5 | ``ops/pallas_fd.py:260-334`` MXU ``_make_lap`` | banded-matmul Laplacian | ``*_step_mma`` |
 | 6 | ``ops/pallas_stencil.py:60`` ``_kernel`` | interior Laplacian | ``lap_apply`` |
-| 7 | ``ops/pallas_stencil.py:546``, ``:429`` | padded-layout Laplacian | to be ported |
+| 7 | ``ops/pallas_stencil.py:546``, ``:429`` | padded-layout Laplacian | ``lap_padded``, ``lap_padded_mma`` (:mod:`.padded`) |
 | 8 | ``ops/pallas_stream.py:76`` ``_kernel`` | one fused CPU-flavor step | ``fd_step`` |
 | 9 | ``ops/pallas_stream.py:171`` ``_kernel_update`` | untapered leapfrog | ``fd_update`` |
-| 10 | ``ops/pallas_stream.py:207`` ``_kernel_gpu`` | taper-first step, K5, K6 | ``gpu_step`` |
-| 11 | ``ops/pallas_stream.py:574`` ``_kstep_kernel`` | K CPU-flavor steps + trace | ``kstep_mod`` |
-| 12 | ``ops/pallas_stream.py:740`` ``_kstep_gpu_fwd_kernel`` | K ``fd_forward`` steps | ``kstep_gpu_fwd`` |
-| 13 | ``ops/pallas_stream.py:857`` ``_kstep_gpu_bwd_kernel`` | K ``fd_back`` steps + K5/K6 | ``kstep_gpu_bwd`` |
+| 10 | ``ops/pallas_stream.py:207`` ``_kernel_gpu`` | taper-first step, K5, K6 | ``gpu_step``, ``gpu_step_mma`` |
+| 11 | ``ops/pallas_stream.py:574`` ``_kstep_kernel`` | K CPU-flavor steps + trace | ``kstep_mod``, ``kstep_mod_mma`` |
+| 12 | ``ops/pallas_stream.py:740`` ``_kstep_gpu_fwd_kernel`` | K ``fd_forward`` steps | ``kstep_gpu_fwd``, ``kstep_gpu_fwd_mma`` |
+| 13 | ``ops/pallas_stream.py:857`` ``_kstep_gpu_bwd_kernel`` | K ``fd_back`` steps + K5/K6 | ``kstep_gpu_bwd``, ``kstep_gpu_bwd_mma`` |
 | 14 | ``ops/pallas_stream.py:1002`` ``_kstep_rec_kernel`` | K steps writing frames | ``rec_fwd_step``, ``rec_bwd_step`` |
 | 15 | ``parallel/domain_pallas.py:115, :136, :189`` | x-slab blocked fwd/bwd/mod | ``block_fwd``, ``block_bwd``, ``block_mod`` (:mod:`..parallel.domain_kernels`) |
 | 16 | ``parallel/domain2d_pallas.py:99, :124, :178`` | (x, z) blocked fwd/bwd/mod | ``block2_fwd``, ``block2_bwd``, ``block2_mod`` (:mod:`..parallel.domain2d_kernels`) |
@@ -74,7 +85,7 @@ from .. import numerics, solver
 from ..solver import FDContext, host_wavelet, shot_positions
 from .fd_kernels import (_check, _check_gz, _check_order, _check_v2,
                          _check_window, _coef_args, _dev_f32, _on_cuda,
-                         _raise_on, _stream)
+                         _raise_on, _stream, lap_parts)
 from .stencil import receiver_x0
 
 __all__ = ["LAUNCHES", "reset_launches", "check_block_k", "Consts",
@@ -82,7 +93,9 @@ __all__ = ["LAUNCHES", "reset_launches", "check_block_k", "Consts",
            "fd_forward_kstep_cuda", "fd_back_kstep_cuda", "fd_step_gpu_cuda"]
 
 LAUNCHES = {"fd_step": 0, "fd_update": 0, "kstep_mod": 0,
-            "kstep_gpu_fwd": 0, "kstep_gpu_bwd": 0, "gpu_step": 0}
+            "kstep_gpu_fwd": 0, "kstep_gpu_bwd": 0, "gpu_step": 0,
+            "kstep_mod_mma": 0, "kstep_gpu_fwd_mma": 0,
+            "kstep_gpu_bwd_mma": 0, "gpu_step_mma": 0}
 
 # The most steps a pass takes (kMaxSteps of csrc/kstep.cuh).
 MAX_STEPS = 8
@@ -199,6 +212,15 @@ def _check_out(like, n: int, out, *inputs) -> None:
             raise ValueError("an output buffer is an input of the launch")
 
 
+def _split(ctx: FDContext, parts, name: str):
+    """``parts`` checked (0, 2 or 3); the kernel a launch with them runs
+    (``name`` or its ``*_mma`` sibling) and the plain passes' Laplacian
+    (None for the exact taps)."""
+    parts = lap_parts(int(parts), ctx)
+    return (parts, f"{name}_mma" if parts else name,
+            solver.laplacian_of(ctx, parts, axis="z"))
+
+
 def _outputs(like, n: int, out):
     """The buffers ``out`` names, or ``n`` new ones shaped as ``like``."""
     return list(out) if out is not None else [torch.empty_like(like)
@@ -283,12 +305,13 @@ def fd_update_cuda(ctx: FDContext, p, pp, v2, consts=None, out=None):
 
 def mod_kstep_cuda(ctx: FDContext, p, pp, v2, amps, sx, sz: int, gz: int,
                    source: str = "gaussian", taper: str = "all",
-                   consts=None):
+                   consts=None, parts: int = 0):
     """One pass of K = ``len(amps)`` ``mod_main`` steps (``source``
     Gaussian or point, ``taper`` all-edge or top strip) from the state
-    ``(p, pp)`` (ns, nxe, nze): ``kstep_mod`` on the card,
-    :func:`..solver.mod_kstep` on the CPU. Returns ``(p, pp, rec)`` with rec
-    (ns, K, nx), the traces at depth gz."""
+    ``(p, pp)`` (ns, nxe, nze): ``kstep_mod`` (``kstep_mod_mma`` with the z
+    taps in ``parts`` bf16 splits) on the card, :func:`..solver.mod_kstep`
+    on the CPU. Returns ``(p, pp, rec)`` with rec (ns, K, nx), the traces
+    at depth gz."""
     sxs = shot_positions(sx)
     amps = _check_amps(amps)
     ns = _check_state(ctx, v2, p=p, pp=pp)
@@ -297,32 +320,40 @@ def mod_kstep_cuda(ctx: FDContext, p, pp, v2, amps, sx, sz: int, gz: int,
     r = ctx.source_patch.shape[0] // 2 if source == "gaussian" else 0
     _check_window(ctx, sxs, sz, r)
     _check_gz(ctx, gz)
+    parts, name, lap = _split(ctx, parts, "kstep_mod")
     _check_order(ctx.order, _on_cuda(p))
     if not _on_cuda(p):
         return solver.mod_kstep(ctx, p, pp, v2, amps, sxs, sz, gz, source,
-                                taper)
+                                taper, lap)
     from . import _build
     k = len(amps)
     c = _consts(consts, ctx, v2, sxs, source, taper)
     p_out, pp_out = torch.empty_like(p), torch.empty_like(pp)
     rec = torch.empty((ns, k, ctx.nx), dtype=torch.float32, device=p.device)
     xr, zf, st = c.ramps
-    with torch.cuda.device(p.device):
-        rc = _build.library().pfdc_kstep_mod_run(
-            p.data_ptr(), pp.data_ptr(), p_out.data_ptr(), pp_out.data_ptr(),
+    args = (p.data_ptr(), pp.data_ptr(), p_out.data_ptr(), pp_out.data_ptr(),
             c.v2dt2.data_ptr(), c.v2_stride, xr.data_ptr(), zf.data_ptr(),
             st.data_ptr(), c.patch.data_ptr(), r, c.sx.data_ptr(), sz, gz,
             amps.ctypes.data, k, rec.data_ptr(), ns, ctx.nxe, ctx.nze,
-            ctx.nxb, ctx.order, *c.coef_ptrs, _stream(p.device))
-    _raise_on(rc, "kstep_mod", ctx.order, k)
-    LAUNCHES["kstep_mod"] += 1
+            ctx.nxb, ctx.order)
+    with torch.cuda.device(p.device):
+        lib = _build.library()
+        if parts:
+            rc = lib.pfdc_kstep_mod_mma_run(*args, parts, *c.coef_ptrs,
+                                            _stream(p.device))
+        else:
+            rc = lib.pfdc_kstep_mod_run(*args, *c.coef_ptrs,
+                                        _stream(p.device))
+    _raise_on(rc, name, ctx.order, k)
+    LAUNCHES[name] += 1
     return p_out, pp_out, rec
 
 
 def fd_forward_kstep_cuda(ctx: FDContext, p, pp, v2, amps, sx, sz: int,
-                          consts=None):
+                          consts=None, parts: int = 0):
     """One pass of K = ``len(amps)`` ``fd_forward`` steps from the state
-    ``(p, pp)`` (ns, nxe, nze): ``kstep_gpu_fwd`` on the card,
+    ``(p, pp)`` (ns, nxe, nze): ``kstep_gpu_fwd`` (``kstep_gpu_fwd_mma``
+    with the z taps in ``parts`` bf16 splits) on the card,
     :func:`..solver.fd_forward_kstep` on the CPU. Returns ``(p, pp)``."""
     sxs = shot_positions(sx)
     amps = _check_amps(amps)
@@ -330,32 +361,40 @@ def fd_forward_kstep_cuda(ctx: FDContext, p, pp, v2, amps, sx, sz: int,
     if ns != len(sxs):
         raise ValueError(f"{len(sxs)} source positions for {ns} shots")
     _check_window(ctx, sxs, sz, 0)
+    parts, name, lap = _split(ctx, parts, "kstep_gpu_fwd")
     _check_order(ctx.order, _on_cuda(p))
     if not _on_cuda(p):
-        return solver.fd_forward_kstep(ctx, p, pp, v2, amps, sxs, sz)
+        return solver.fd_forward_kstep(ctx, p, pp, v2, amps, sxs, sz, lap)
     from . import _build
     k = len(amps)
     c = _consts(consts, ctx, v2, sxs)
     p_out, pp_out = torch.empty_like(p), torch.empty_like(pp)
     xr, zf, st = c.ramps
-    with torch.cuda.device(p.device):
-        rc = _build.library().pfdc_kstep_gpu_fwd_run(
-            p.data_ptr(), pp.data_ptr(), p_out.data_ptr(), pp_out.data_ptr(),
+    args = (p.data_ptr(), pp.data_ptr(), p_out.data_ptr(), pp_out.data_ptr(),
             c.v2dt2.data_ptr(), c.v2_stride, xr.data_ptr(), zf.data_ptr(),
             st.data_ptr(), c.sx.data_ptr(), sz, amps.ctypes.data, k, ns,
-            ctx.nxe, ctx.nze, ctx.order, *c.coef_ptrs, _stream(p.device))
-    _raise_on(rc, "kstep_gpu_fwd", ctx.order, k)
-    LAUNCHES["kstep_gpu_fwd"] += 1
+            ctx.nxe, ctx.nze, ctx.order)
+    with torch.cuda.device(p.device):
+        lib = _build.library()
+        if parts:
+            rc = lib.pfdc_kstep_gpu_fwd_mma_run(*args, parts, *c.coef_ptrs,
+                                                _stream(p.device))
+        else:
+            rc = lib.pfdc_kstep_gpu_fwd_run(*args, *c.coef_ptrs,
+                                            _stream(p.device))
+    _raise_on(rc, name, ctx.order, k)
+    LAUNCHES[name] += 1
     return p_out, pp_out
 
 
 def fd_back_kstep_cuda(ctx: FDContext, ps, pps, pr, ppr, img, v2, inj_rows,
-                       gz: int, consts=None):
+                       gz: int, consts=None, parts: int = 0):
     """One pass of K ``fd_back`` steps (it >= 2) from the state ``(ps, pps,
     pr, ppr, img)``; ``inj_rows`` (ns, K, nx) are the pass's time-reversed
-    trace rows, ``img`` (ns, nx, nz). ``kstep_gpu_bwd`` on the card, which
-    adds into ``img`` in place; :func:`..solver.fd_back_kstep` on the CPU.
-    Returns the next state."""
+    trace rows, ``img`` (ns, nx, nz). ``kstep_gpu_bwd`` (``kstep_gpu_bwd_mma``
+    with the z taps in ``parts`` bf16 splits) on the card, which adds into
+    ``img`` in place; :func:`..solver.fd_back_kstep` on the CPU. Returns the
+    next state."""
     ns = _check_state(ctx, v2, ps=ps, pps=pps, pr=pr, ppr=ppr)
     _check("img", img, (ns, ctx.nx, ctx.nz), ps.device)
     _check_gz(ctx, gz)
@@ -364,34 +403,42 @@ def fd_back_kstep_cuda(ctx: FDContext, ps, pps, pr, ppr, img, v2, inj_rows,
         raise ValueError(f"a pass takes 1 to {MAX_STEPS} trace rows, got "
                          f"shape {tuple(inj_rows.shape)}")
     inj_stride = _rows("inj_rows", inj_rows, ns, k, ctx.nx, ps.device)
+    parts, name, lap = _split(ctx, parts, "kstep_gpu_bwd")
     _check_order(ctx.order, _on_cuda(ps))
     if not _on_cuda(ps):
         return solver.fd_back_kstep(ctx, ps, pps, pr, ppr, img, v2, inj_rows,
-                                    gz)
+                                    gz, lap)
     from . import _build
     c = _consts(consts, ctx, v2)
     outs = [torch.empty_like(f) for f in (ps, pps, pr, ppr)]
     xr, zf, st = c.ramps
-    with torch.cuda.device(ps.device):
-        rc = _build.library().pfdc_kstep_gpu_bwd_run(
-            ps.data_ptr(), pps.data_ptr(), pr.data_ptr(), ppr.data_ptr(),
+    args = (ps.data_ptr(), pps.data_ptr(), pr.data_ptr(), ppr.data_ptr(),
             *(o.data_ptr() for o in outs), img.data_ptr(),
             c.v2dt2.data_ptr(), c.v2_stride, xr.data_ptr(), zf.data_ptr(),
             st.data_ptr(), inj_rows.data_ptr(), inj_stride, gz, k, ctx.nxb,
-            ctx.nzb, ns, ctx.nxe, ctx.nze, ctx.order, *c.coef_ptrs,
-            _stream(ps.device))
-    _raise_on(rc, "kstep_gpu_bwd", ctx.order, k)
-    LAUNCHES["kstep_gpu_bwd"] += 1
+            ctx.nzb, ns, ctx.nxe, ctx.nze, ctx.order)
+    with torch.cuda.device(ps.device):
+        lib = _build.library()
+        if parts:
+            rc = lib.pfdc_kstep_gpu_bwd_mma_run(*args, parts, *c.coef_ptrs,
+                                                _stream(ps.device))
+        else:
+            rc = lib.pfdc_kstep_gpu_bwd_run(*args, *c.coef_ptrs,
+                                            _stream(ps.device))
+    _raise_on(rc, name, ctx.order, k)
+    LAUNCHES[name] += 1
     return (*outs, img)
 
 
 def fd_step_gpu_cuda(ctx: FDContext, y, x, v2, gz: int = 0, inj_row=None,
-                     img=None, src=None, consts=None, out=None):
+                     img=None, src=None, consts=None, out=None,
+                     parts: int = 0):
     """One taper-first step from the state ``(x, y)`` (ns, nxe, nze), with
     the trace row ``inj_row`` (ns, nx) at depth gz and ``img += src * new``
     (``img`` (ns, nx, nz), ``src`` (ns, nxe, nze)) when given: ``gpu_step``
-    on the card, into the buffers ``out`` if given, adding into ``img`` in
-    place; :func:`..solver.fd_step_gpu` on the CPU. Returns ``(t, new)`` or
+    (``gpu_step_mma`` with the z taps in ``parts`` bf16 splits) on the card,
+    into the buffers ``out`` if given, adding into ``img`` in place;
+    :func:`..solver.fd_step_gpu` on the CPU. Returns ``(t, new)`` or
     ``(t, new, img)``."""
     ns = _check_state(ctx, v2, y=y, x=x)
     _check_gz(ctx, gz)
@@ -405,21 +452,27 @@ def fd_step_gpu_cuda(ctx: FDContext, y, x, v2, gz: int = 0, inj_row=None,
         _check("img", img, (ns, ctx.nx, ctx.nz), y.device)
         _check("src", src, (ns, ctx.nxe, ctx.nze), y.device)
     _check_out(y, 2, out, y, x, *(() if src is None else (src,)))
+    parts, name, lap = _split(ctx, parts, "gpu_step")
     _check_order(ctx.order, _on_cuda(y))
     if not _on_cuda(y):
-        return solver.fd_step_gpu(ctx, y, x, v2, gz, inj_row, img, src)
+        return solver.fd_step_gpu(ctx, y, x, v2, gz, inj_row, img, src, lap)
     from . import _build
     t, new = _outputs(y, 2, out)
     c = _consts(consts, ctx, v2)
     ptr = lambda a: None if a is None else a.data_ptr()
     xr, zf, st = c.ramps
-    with torch.cuda.device(y.device):
-        rc = _build.library().pfdc_gpu_step_run(
-            y.data_ptr(), x.data_ptr(), t.data_ptr(), new.data_ptr(),
+    args = (y.data_ptr(), x.data_ptr(), t.data_ptr(), new.data_ptr(),
             c.v2dt2.data_ptr(), c.v2_stride, xr.data_ptr(), zf.data_ptr(),
             st.data_ptr(), ptr(inj_row), inj_stride, gz, ptr(src), ptr(img),
-            ctx.nxb, ctx.nzb, ns,
-            ctx.nxe, ctx.nze, ctx.order, *c.coef_ptrs, _stream(y.device))
-    _raise_on(rc, "gpu_step")
-    LAUNCHES["gpu_step"] += 1
+            ctx.nxb, ctx.nzb, ns, ctx.nxe, ctx.nze, ctx.order)
+    with torch.cuda.device(y.device):
+        lib = _build.library()
+        if parts:
+            rc = lib.pfdc_gpu_step_mma_run(*args, parts, *c.coef_ptrs,
+                                           _stream(y.device))
+        else:
+            rc = lib.pfdc_gpu_step_run(*args, *c.coef_ptrs,
+                                       _stream(y.device))
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return (t, new) if img is None else (t, new, img)

@@ -196,9 +196,12 @@ def run_modeling(p: Params, vp: Optional[np.ndarray] = None,
     ``"vpu"``), the split-bf16 tensor-core tiers ``"mxu"`` (3 passes) and
     ``"mxu6"`` (6), or ``"auto"``, which takes ``"mxu"`` for nt <= 1500 on
     a grid with dx == dz (3lay), ``"mxu6"`` for nt <= 4500, else the exact
-    taps (Pluto). The per-step tier (``backend="pallas"``, with or without
-    a shot-only mesh) runs every value, through ``mod_step_mma`` where it
-    resolves to a split tier; the large-grid and domain tiers have the
+    taps (Pluto at its nt = 12860). The per-step tier (``backend="pallas"``,
+    with or without a shot-only mesh) runs every value, through
+    ``mod_step_mma`` where it resolves to a split tier (the x taps in bf16
+    parts), and so does the large-grid tier (``"tiled"``, K =
+    ``TILED_BLOCK_K``), through ``kstep_mod_mma`` (the z taps in bf16
+    parts, as the JAX K-step kernels split them); the domain tiers have the
     exact taps only and raise ``NotImplementedError`` on a resolved
     ``"mxu"``/``"mxu6"`` (their split variants are in ROADMAP.md)."""
     tier = resolve_backend(backend, p.nxe, p.nze)
@@ -389,7 +392,8 @@ def run_rtm_gpu(p: Params, vp: Optional[np.ndarray] = None,
 
     ``lap_impl`` as in :func:`run_modeling`: the per-step tier runs every
     value (``rtm_fwd_step_mma`` and ``rtm_bwd_step_mma`` for a resolved
-    ``"mxu"``/``"mxu6"``); the large-grid and domain tiers raise on
+    ``"mxu"``/``"mxu6"``), the large-grid tier too (``kstep_gpu_fwd_mma``,
+    ``gpu_step_mma`` and ``kstep_gpu_bwd_mma``); the domain tiers raise on
     those."""
     tier = resolve_backend(backend, p.nxe, p.nze)
     if vp is None:

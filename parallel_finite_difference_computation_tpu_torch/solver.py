@@ -131,18 +131,20 @@ def host_wavelet(wavelet) -> np.ndarray:
     return np.ascontiguousarray(wavelet, dtype=np.float32)
 
 
-def laplacian_of(ctx: FDContext, lap_impl=None):
-    """The Laplacian ``p -> lap(p)`` the whole-shot steps apply under
-    ``lap_impl`` (:func:`.ops.fd_kernels.lap_parts`): None for the exact
-    taps (:func:`.ops.stencil.laplacian`, which the steps then call as
-    they always have), else :func:`.ops.stencil.laplacian_mxu` with the x
-    taps in 2 or 3 bf16 parts, the JAX whole-shot kernels' MXU branch."""
+def laplacian_of(ctx: FDContext, lap_impl=None, axis: str = "x"):
+    """The Laplacian ``p -> lap(p)`` the steps apply under ``lap_impl``
+    (:func:`.ops.fd_kernels.lap_parts`): None for the exact taps
+    (:func:`.ops.stencil.laplacian`, which the steps then call as they
+    always have), else :func:`.ops.stencil.laplacian_mxu` with the taps of
+    ``axis`` in 2 or 3 bf16 parts: ``"x"``, the JAX whole-shot kernels'
+    MXU branch; ``"z"``, the streaming and K-step kernels' ``use_mxu``
+    branch (``ops/pallas_stream.py:600-608``, ``_lap_dispatch`` :64)."""
     from .ops.fd_kernels import lap_parts
     parts = lap_parts(lap_impl, ctx)
     if not parts:
         return None
     return lambda p: laplacian_mxu(p, ctx.coefs_x, ctx.coefs_z, ctx.order,
-                                   parts)
+                                   parts, axis)
 
 
 def fd_update(ctx: FDContext, p, pp, v2, lap=None):
@@ -268,23 +270,24 @@ def forward_modeling(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
 
 
 def mod_kstep(ctx: FDContext, p, pp, v2, amps, sx, sz: int, gz: int,
-              source: str = "gaussian", taper: str = "all"):
+              source: str = "gaussian", taper: str = "all", lap=None):
     """K ``mod_main`` steps from the state ``(p, pp)`` (ns, nxe, nze), K =
     ``len(amps)``: the plain version of the ``kstep_mod`` kernel and the
     body of the JAX package's ``_kstep_kernel`` (``ops/pallas_stream.py:
     637-647``: update, inject, taper, record the trace at gz), with the
     ``source`` (Gaussian or point) and ``taper`` (all-edge or top strip)
     of :func:`forward_modeling`. ``amps`` are the K wavelet samples of
-    this pass. Returns ``(p, pp, rec)`` with rec (ns, K, nx): row gz of
-    each step's tapered old field, as :func:`forward_modeling` records
-    it."""
+    this pass; ``lap``: the Laplacian (:func:`fd_update`). Returns ``(p,
+    pp, rec)`` with rec (ns, K, nx): row gz of each step's tapered old
+    field, as :func:`forward_modeling` records it."""
     sxs = shot_positions(sx)
     amps = host_wavelet(amps)
     mask = _mask(ctx, taper, p.device)
     patch = _patch(ctx, source, p.device)
     rec = p.new_empty((p.shape[0], len(amps), ctx.nx))
     for k, amp in enumerate(amps):
-        p, pp = _mod_step(ctx, p, pp, v2, mask, float(amp), sxs, sz, patch)
+        p, pp = _mod_step(ctx, p, pp, v2, mask, float(amp), sxs, sz, patch,
+                          lap)
         rec[:, k] = pp[:, ctx.nxb:ctx.nxb + ctx.nx, gz]
     return p, pp, rec
 
@@ -510,13 +513,21 @@ def forward_modeling_tiled(ctx: FDContext, v2, wavelet, sx, sz: int,
     :func:`.ops.stream.mod_kstep_cuda` (``kstep_mod``) for traces or none;
     wavefield recording runs ``rec_fwd_step``
     (:func:`.ops.fd_kernels.forward_modeling_cuda`), the port of the JAX
-    K-step recording kernel."""
+    K-step recording kernel.
+
+    ``lap_impl`` (:func:`.ops.fd_kernels.lap_parts`) as in the JAX
+    package: at K >= 2 with traces or none, a split-bf16 tier runs
+    ``kstep_mod_mma``, the z taps in 2 or 3 bf16 parts (the JAX K-step
+    kernel's ``use_mxu`` branch; :func:`laplacian_of` with ``axis="z"`` on
+    the CPU). K = 1 and the wavefield recording have the exact taps only
+    and raise ``NotImplementedError`` on a resolved ``mxu``/``mxu6``."""
     from .ops import stream
     from .ops.fd_kernels import (check_exact_taps, forward_modeling_cuda,
-                                 _check_gz, _check_wavelet)
-    check_exact_taps(ctx, lap_impl, "the large-grid tier "
-                                    "(forward_modeling_tiled)")
+                                 lap_parts, _check_gz, _check_wavelet)
     K = stream.check_block_k(block_k)
+    if K == 1:
+        check_exact_taps(ctx, lap_impl, "the per-step streaming tier "
+                                        "(forward_modeling_tiled, K = 1)")
     if record not in RECORD_MODES:
         raise ValueError(f"unknown record mode {record!r}")
     if taper not in ("all", "top"):
@@ -524,8 +535,11 @@ def forward_modeling_tiled(ctx: FDContext, v2, wavelet, sx, sz: int,
     sxs = shot_positions(sx)
     wav = _check_wavelet(ctx, wavelet)
     if K > 1 and record == "wavefield":
+        check_exact_taps(ctx, lap_impl, "the wavefield recording "
+                                        "(rec_fwd_step)")
         return forward_modeling_cuda(ctx, v2, wav, sxs, sz, gz, source=source,
                                      taper=taper, record=record)
+    parts = lap_parts(lap_impl, ctx)
     consts = stream.prepare(ctx, v2, sxs, source=source, taper=taper)
     ns = len(sxs)
     p = _zero_fields(ctx, ns, v2)
@@ -540,7 +554,7 @@ def forward_modeling_tiled(ctx: FDContext, v2, wavelet, sx, sz: int,
             amps = wav[it0:it0 + K]
             p, pp, tr = stream.mod_kstep_cuda(ctx, p, pp, v2, amps, sxs, sz,
                                               gz, source, taper,
-                                              consts=consts)
+                                              consts=consts, parts=parts)
             if rec is not None:
                 rec[:, it0:it0 + len(amps)] = tr
         return p, pp, rec
@@ -613,7 +627,7 @@ def backward_recorded_tiled(ctx: FDContext, v2, dobs, gz: int,
     nx, nz), bitwise :func:`backward_recorded`'s on the CPU."""
     from .ops import stream
     from .ops.fd_kernels import backward_recorded_cuda, check_exact_taps
-    check_exact_taps(ctx, lap_impl, "the large-grid tier "
+    check_exact_taps(ctx, lap_impl, "rtm_main's large-grid tier "
                                     "(backward_recorded_tiled)")
     if stream.check_block_k(block_k) > 1:
         return backward_recorded_cuda(ctx, v2, dobs, gz,
@@ -638,7 +652,7 @@ def rtm_shot_full_tiled(ctx: FDContext, v2, wavelet, dobs, sx, sz: int,
     order of the image."""
     from .ops import stream
     from .ops.fd_kernels import check_exact_taps, rtm_full_cuda
-    check_exact_taps(ctx, lap_impl, "the large-grid tier "
+    check_exact_taps(ctx, lap_impl, "rtm_main's large-grid tier "
                                     "(rtm_shot_full_tiled)")
     if stream.check_block_k(block_k) > 1:
         return rtm_full_cuda(ctx, v2, wavelet, dobs, sx, sz, gz,
@@ -665,13 +679,22 @@ def rtm_shot_snapshot_tiled(ctx: FDContext, v2, wavelet, dobs, sx, sz: int,
     seed, then (nt - 2) // K passes of K ``fd_back`` steps and a tail. On
     the card the steps and passes run the kernels of :mod:`.ops.stream`;
     on the CPU their plain versions, bitwise :func:`rtm_shot_snapshot`.
-    ``dobs`` is (ns, nx, nt). Returns the (ns, nx, nz) images."""
+    ``dobs`` is (ns, nx, nt). Returns the (ns, nx, nz) images.
+
+    ``lap_impl`` (:func:`.ops.fd_kernels.lap_parts`) as in the JAX
+    package: at K >= 2 a split-bf16 tier runs ``kstep_gpu_fwd_mma``,
+    ``gpu_step_mma`` (the seed steps) and ``kstep_gpu_bwd_mma``, the z taps
+    in 2 or 3 bf16 parts (:func:`laplacian_of` with ``axis="z"`` on the
+    CPU). K = 1 has the exact taps only and raises
+    ``NotImplementedError`` on a resolved ``mxu``/``mxu6``."""
     from .ops import stream
-    from .ops.fd_kernels import (check_exact_taps, _check_wavelet,
-                                 _check_window)
-    check_exact_taps(ctx, lap_impl, "the large-grid tier "
-                                    "(rtm_shot_snapshot_tiled)")
+    from .ops.fd_kernels import (check_exact_taps, lap_parts,
+                                 _check_wavelet, _check_window)
     K = stream.check_block_k(block_k)
+    if K == 1:
+        check_exact_taps(ctx, lap_impl, "the per-step streaming tier "
+                                        "(rtm_shot_snapshot_tiled, K = 1)")
+    parts = lap_parts(lap_impl, ctx)
     sxs = shot_positions(sx)
     wav = _check_wavelet(ctx, wavelet)
     _check_window(ctx, sxs, sz, 0)
@@ -693,15 +716,16 @@ def rtm_shot_snapshot_tiled(ctx: FDContext, v2, wavelet, dobs, sx, sz: int,
         for it0 in range(0, ctx.nt, K):
             p, pp = stream.fd_forward_kstep_cuda(ctx, p, pp, v2,
                                                  wav[it0:it0 + K], sxs, sz,
-                                                 consts=consts)
+                                                 consts=consts, parts=parts)
     inj = dobs.flip(-1).transpose(1, 2).contiguous()     # (ns, nt, nx)
-    step = functools.partial(stream.fd_step_gpu_cuda, consts=consts)
+    step = functools.partial(stream.fd_step_gpu_cuda, consts=consts,
+                             parts=parts)
     state = _seed_steps(ctx, v2, p, pp, inj, gz, step)
     if K > 1:
         for it0 in range(2, ctx.nt, K):
             state = stream.fd_back_kstep_cuda(ctx, *state, v2,
                                               inj[:, it0:it0 + K], gz,
-                                              consts=consts)
+                                              consts=consts, parts=parts)
         return state[4]
     ps, pps, pr, ppr, img = state
     spare_s = torch.empty_like(ps)

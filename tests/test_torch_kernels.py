@@ -135,16 +135,26 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     fk.backward_recorded_cuda(ctx, v2, dobs, GZ)
     fk.rtm_full_cuda(ctx, v2, wav, dobs, SXS, SZ, GZ)
     fk.laplacian_cuda(v2[0], ctx.coefs_x, ctx.coefs_z, ctx.order)
+    stream.reset_launches()
     for lap_impl in ("mxu", "mxu6"):
         fk.forward_modeling_cuda(ctx, v2[0], wav, SXS, SZ, GZ,
                                  lap_impl=lap_impl)
         fk.rtm_snapshot_cuda(ctx, v2, wav, dobs, SXS, SZ, GZ,
                              lap_impl=lap_impl)
+        solver.forward_modeling_tiled(ctx, v2[0], wav, SXS, SZ, GZ,
+                                      block_k=4, lap_impl=lap_impl)
+        solver.rtm_shot_snapshot_tiled(ctx, v2, wav, dobs, SXS, SZ, GZ,
+                                       block_k=4, lap_impl=lap_impl)
     assert fk.LAUNCHES == {"mod_step": 0, "rtm_fwd_step": 0,
                            "rtm_bwd_step": 0, "rec_fwd_step": 0,
                            "rec_bwd_step": 0, "lap_apply": 0,
                            "mod_step_mma": 0, "rtm_fwd_step_mma": 0,
                            "rtm_bwd_step_mma": 0}
+    assert stream.LAUNCHES == {"fd_step": 0, "fd_update": 0,
+                               "kstep_mod": 0, "kstep_gpu_fwd": 0,
+                               "kstep_gpu_bwd": 0, "gpu_step": 0,
+                               "kstep_mod_mma": 0, "kstep_gpu_fwd_mma": 0,
+                               "kstep_gpu_bwd_mma": 0, "gpu_step_mma": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "strides", "wavelet",
@@ -190,9 +200,11 @@ def test_fd_back_raises_on_bad_inputs(bad):
 @pytest.mark.parametrize("lap_impl", ["mxu", "mxu6", "auto"])
 def test_mxu_lap_impl_raises(lap_impl, tmp_path):
     """The per-step tier runs the split-bf16 tiers (on the CPU through the
-    plain mxu path, which differs from the exact one); the tiers with the
-    exact taps only (large-grid, K = 1, domain, rtm_main) still raise,
-    naming ROADMAP. ``auto`` resolves to ``mxu`` here (nt = 6, dx = dz)."""
+    plain mxu path, which differs from the exact one), and so does the
+    large-grid tier at K >= 2 (the z taps split, not the x taps: another
+    result); the tiers with the exact taps only (the large-grid tier at
+    K = 1, rtm_main's kernels, the domain tiers) still raise, naming
+    ROADMAP. ``auto`` resolves to ``mxu`` here (nt = 6, dx = dz)."""
     ctx, v2, wav, dobs = _setup()
     got = fk.forward_modeling_cuda(ctx, v2[0], wav, SXS, SZ, GZ,
                                    lap_impl=lap_impl)
@@ -209,20 +221,27 @@ def test_mxu_lap_impl_raises(lap_impl, tmp_path):
     for tiled in (lambda: solver.forward_modeling_tiled(
                       ctx, v2[0], wav, SXS, SZ, GZ, lap_impl=lap_impl),
                   lambda: solver.rtm_shot_snapshot_tiled(
-                      ctx, v2, wav, dobs, SXS, SZ, GZ, block_k=2,
+                      ctx, v2, wav, dobs, SXS, SZ, GZ, block_k=1,
                       lap_impl=lap_impl),
+                  lambda: solver.forward_modeling_tiled(
+                      ctx, v2[0], wav, SXS, SZ, GZ, record="wavefield",
+                      block_k=2, lap_impl=lap_impl),
                   lambda: fk.rtm_full_cuda(ctx, v2[0], wav, dobs, SXS, SZ, GZ,
                                            lap_impl=lap_impl)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tiled()
+    tiled = solver.rtm_shot_snapshot_tiled(ctx, v2, wav, dobs, SXS, SZ, GZ,
+                                           block_k=2, lap_impl=lap_impl)
+    assert torch.isfinite(tiled).all() and not torch.equal(tiled, img)
     p = tpk.Params(nz=12, nx=14, nt=4, dz=10.0, dx=10.0, dt=0.001,
                    fpeak=25.0, ns=1, sz=3, fsx=4, gz=1, nxb=5, nzb=5)
     vp = np.full((14, 12), 2000.0, np.float32)
     d = pipeline.run_modeling(p, vp=vp, device="cpu", lap_impl=lap_impl)
     assert d.shape == (1, 14, 4) and np.isfinite(d).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.run_modeling(p, vp=vp, device="cpu", backend="tiled",
-                              lap_impl=lap_impl)
+    dt = pipeline.run_modeling(p, vp=vp, device="cpu", backend="tiled",
+                               lap_impl=lap_impl)
+    assert dt.shape == d.shape and np.isfinite(dt).all()
+    assert not np.array_equal(dt, d)
 
 
 def test_vpu_lap_impl_is_the_exact_path():
@@ -282,15 +301,20 @@ def test_cli_lap_impl_and_device_options(tmp_path):
                    "ns=1\nsz=3\nfsx=4\ngz=1\nnxb=5\nnzb=5\nvpfile=vp.bin\n")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(["mod", str(cfg), "--device", "cpu", "--lap-impl", "mxu",
-                   "--backend", "tiled", "--output", str(tmp_path / "d.bin")])
+                   "--shards-x", "2", "--output", str(tmp_path / "d.bin")])
+    tcli.main(["mod", str(cfg), "--device", "cpu", "--lap-impl", "mxu",
+               "--backend", "tiled", "--output", str(tmp_path / "t.bin")])
     tcli.main(["mod", str(cfg), "--device", "cpu", "--lap-impl", "mxu",
                "--output", str(tmp_path / "m.bin")])
     tcli.main(["mod", str(cfg), "--device", "cpu", "--lap-impl", "vpu",
                "--output", str(tmp_path / "d.bin")])
     assert os.path.getsize(tmp_path / "d.bin") == 14 * 4 * 4
-    d, m = (np.fromfile(tmp_path / f, np.float32) for f in ("d.bin", "m.bin"))
-    assert d.shape == m.shape and not np.array_equal(d, m)
+    d, m, t = (np.fromfile(tmp_path / f, np.float32)
+               for f in ("d.bin", "m.bin", "t.bin"))
+    assert d.shape == m.shape == t.shape and not np.array_equal(d, m)
     assert np.abs(m - d).max() <= 1e-4 * np.abs(d).max()
+    assert not np.array_equal(t, d) and not np.array_equal(t, m)
+    assert np.abs(t - d).max() <= 1e-4 * np.abs(d).max()
 
 
 # ---------------------------------------------------------------- card only
@@ -443,7 +467,81 @@ def test_kstep_kernels_match_plain_on_the_card(cuda_device, order, block_k):
     assert stream.LAUNCHES == {"fd_step": 0, "fd_update": 0,
                                "kstep_mod": passes, "kstep_gpu_fwd": passes,
                                "kstep_gpu_bwd": -(-(nt - 2) // block_k),
-                               "gpu_step": 2}
+                               "gpu_step": 2, "kstep_mod_mma": 0,
+                               "kstep_gpu_fwd_mma": 0, "kstep_gpu_bwd_mma": 0,
+                               "gpu_step_mma": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [4, 8, 10, 16])
+@pytest.mark.parametrize("parts", [2, 3])
+def test_split_kstep_kernels_match_plain_on_the_card(cuda_device, order,
+                                                     parts):
+    """kstep_mod_mma (both sources and tapers), kstep_gpu_fwd_mma,
+    gpu_step_mma and kstep_gpu_bwd_mma against the plain passes with the z
+    taps in ``parts`` bf16 splits, pass by pass from random states and
+    through the tiled loops, on the 67 x 88 grid with the sources and the
+    receiver row across tile edges (they differ in the order of the tensor
+    cores' float32 sums only). Order 16 runs K = 2: its split backward
+    tile is refused at K = 4."""
+    nt = 11
+    rng = np.random.default_rng(10 * order + parts)
+    ctx = solver.FDContext.create(53, 70, nt, dx=10.0, dz=10.0, dt=0.001,
+                                  order=order, nxb=7, nzb=9, fac=0.7)
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a, np.float32)).to(cuda_device)
+    v2 = on(((1500.0 + 500.0 * rng.random((2, ctx.nxe, ctx.nze))) ** 2))
+    p, pp, pr, ppr = (on(rng.standard_normal((2, ctx.nxe, ctx.nze)))
+                      for _ in range(4))
+    img = on(rng.standard_normal((2, ctx.nx, ctx.nz)))
+    inj = on(rng.standard_normal((2, 4, ctx.nx)))
+    wav = numerics.ricker_wavelet(nt, 0.001, 30.0)
+    dobs = on(rng.standard_normal((2, ctx.nx, nt)))
+    sxs, sz, gz = (31, ctx.nxe - 6), 62, 63
+    lap = solver.laplacian_of(ctx, parts, axis="z")
+    close = lambda got, want: all(
+        float((a - b).abs().max() / b.abs().max()) <= GATE
+        for a, b in zip(got, want))
+    v2m = v2[0]
+    for k in ((2,) if order == 16 else (2, 4)):
+        amps = rng.standard_normal(k).astype(np.float32)
+        for source, taper in (("gaussian", "all"), ("point", "top")):
+            assert close(
+                stream.mod_kstep_cuda(ctx, p, pp, v2m, amps, sxs, sz, gz,
+                                      source, taper, parts=parts),
+                solver.mod_kstep(ctx, p, pp, v2m, amps, sxs, sz, gz, source,
+                                 taper, lap))
+        assert close(
+            stream.fd_forward_kstep_cuda(ctx, p, pp, v2, amps, sxs, sz,
+                                         parts=parts),
+            solver.fd_forward_kstep(ctx, p, pp, v2, amps, sxs, sz, lap))
+        assert close(
+            stream.fd_back_kstep_cuda(ctx, p, pp, pr, ppr, img.clone(), v2,
+                                      inj[:, :k].contiguous(), gz,
+                                      parts=parts),
+            solver.fd_back_kstep(ctx, p, pp, pr, ppr, img, v2, inj[:, :k],
+                                 gz, lap))
+    assert close(
+        stream.fd_step_gpu_cuda(ctx, pr, ppr, v2, gz, inj[:, 0].contiguous(),
+                                img.clone(), p, parts=parts),
+        solver.fd_step_gpu(ctx, pr, ppr, v2, gz, inj[:, 0], img, p, lap))
+    block_k = 2 if order == 16 else 4
+    stream.reset_launches()
+    got = solver.forward_modeling_tiled(ctx, v2m, wav, sxs, sz, gz,
+                                        block_k=block_k, lap_impl=parts)
+    want = solver.forward_modeling_tiled(ctx, v2m.cpu(), wav, sxs, sz, gz,
+                                         block_k=block_k, lap_impl=parts)
+    assert close([g.cpu() for g in got], want)
+    ki = solver.rtm_shot_snapshot_tiled(ctx, v2, wav, dobs, sxs, sz, gz,
+                                        block_k=block_k, lap_impl=parts)
+    pf = solver.fd_forward(ctx, v2, wav, sxs, sz, lap)
+    pi = solver.fd_back(ctx, v2, *pf, dobs, gz, lap)
+    torch.cuda.synchronize()
+    assert close((ki,), (pi,))
+    passes = -(-nt // block_k)
+    assert {k: v for k, v in stream.LAUNCHES.items() if v} == {
+        "kstep_mod_mma": passes, "kstep_gpu_fwd_mma": passes,
+        "kstep_gpu_bwd_mma": -(-(nt - 2) // block_k), "gpu_step_mma": 2}
 
 
 @pytest.mark.cuda

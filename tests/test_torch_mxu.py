@@ -322,6 +322,11 @@ def test_cli_lap_impl_auto(slice_runs, tmp_path):
 # ------------------------------------------------- tiers with exact taps only
 
 def test_other_tiers_raise_on_a_resolved_split_tier():
+    """The tiers with the exact taps only raise on a resolved split tier,
+    naming ROADMAP: the domain tiers (x and (x, z) meshes), the large-grid
+    tier at K = 1, and rtm_main's kernels (the wavefield recording, its
+    backward, the whole rtm_main shot) at every K. The large-grid tier at
+    K >= 2 runs them (``tests/test_torch_tiled_mxu*.py``)."""
     p = tpk.Params(**CFG)
     vp = layered_model(p.nx, p.nz)
     dobs = np.zeros((p.ns, p.nx, p.nt), np.float32)
@@ -329,11 +334,10 @@ def test_other_tiers_raise_on_a_resolved_split_tier():
     xz_mesh = make_mesh(1, 2, 2, devices=["cpu"] * 4)
     for lap_impl in ("mxu", "mxu6", "auto"):
         for run in (
-                lambda: tpipe.run_modeling(p, vp=vp, device="cpu",
-                                           backend="tiled",
+                lambda: tpipe.run_modeling(p, vp=vp, mesh=xz_mesh,
                                            lap_impl=lap_impl),
-                lambda: tpipe.run_rtm_gpu(p, vp=vp, dobs=dobs, device="cpu",
-                                          backend="tiled", lap_impl=lap_impl),
+                lambda: tpipe.run_rtm_gpu(p, vp=vp, dobs=dobs, mesh=x_mesh,
+                                          lap_impl=lap_impl),
                 lambda: tpipe.run_modeling(p, vp=vp, mesh=x_mesh,
                                            lap_impl=lap_impl),
                 lambda: tpipe.run_rtm_gpu(p, vp=vp, dobs=dobs, mesh=xz_mesh,
@@ -351,6 +355,14 @@ def test_other_tiers_raise_on_a_resolved_split_tier():
                     lap_impl="mxu6"),
                 lambda: solver.backward_recorded_tiled(
                     ctx, v2, d, 9, block_k=1, lap_impl="auto"),
+                lambda: solver.backward_recorded_tiled(
+                    ctx, v2, d, 9, block_k=4, lap_impl="mxu"),
+                lambda: solver.rtm_shot_full_tiled(
+                    ctx, v2, wav, d, [14], 10, 9, block_k=4,
+                    lap_impl="mxu6"),
+                lambda: solver.forward_modeling_tiled(
+                    ctx, v2, wav, [14], 10, 9, record="wavefield",
+                    block_k=4, lap_impl="auto"),
                 lambda: fk.forward_modeling_cuda(
                     ctx, v2, wav, [14], 10, 9, record="wavefield",
                     lap_impl="mxu")):

@@ -388,7 +388,9 @@ def test_wrappers_on_cpu_are_the_plain_passes_and_count_nothing():
             assert torch.equal(a, b)
     assert stream.LAUNCHES == {"fd_step": 0, "fd_update": 0,
                                "kstep_mod": 0, "kstep_gpu_fwd": 0,
-                               "kstep_gpu_bwd": 0, "gpu_step": 0}
+                               "kstep_gpu_bwd": 0, "gpu_step": 0,
+                               "kstep_mod_mma": 0, "kstep_gpu_fwd_mma": 0,
+                               "kstep_gpu_bwd_mma": 0, "gpu_step_mma": 0}
 
 
 @pytest.mark.parametrize("bad", ["amps", "shape", "dtype", "rows", "gz",
@@ -429,7 +431,9 @@ def test_shared_memory_of_the_kernels():
     """The K-step kernels' tiles, as their C sources size them, fit a
     block's shared memory at the pipelines' K up to order 10, and the
     wrappers' step limit is the kernels'; which (kernel, order, K) the card
-    refuses up to order 16, the K-step and the block kernels."""
+    refuses up to order 16, the K-step kernels exact and split (``*_mma``:
+    one more staged tile for the z taps' product, two in kstep_gpu_bwd)
+    and the block kernels."""
     csrc = pathlib.Path(stream.__file__).parents[1] / "csrc"
     const = {m[1]: int(m[2]) for m in re.finditer(
         r"constexpr int (k\w+) = (\d+);", (csrc / "kstep.cuh").read_text())}
@@ -437,9 +441,13 @@ def test_shared_memory_of_the_kernels():
     tx, tz, limit = const["kTileX"], const["kTileZ"], const["kMaxSmemBytes"]
 
     def smem(kernel, order, k):
-        src = (csrc / f"{kernel}.cu").read_text()
-        fields = int(re.search(r"(\d) \* (?:sizeof\(float\) \* )?"
-                               r"pfdc::tile_cells", src)[1])
+        """Bytes of a block of ``kernel`` (``*_mma``: its split variant,
+        P > 0 in the same source)."""
+        src = (csrc / f"{kernel.removesuffix('_mma')}.cu").read_text()
+        assert re.search(r"kFields<P> \* (?:sizeof\(float\) \* )?"
+                         r"pfdc::tile_cells", src)
+        split, exact = re.search(r"kFields = P \? (\d) : (\d);", src).groups()
+        fields = int(split if kernel.endswith("_mma") else exact)
         image = tx * tz if "pfdc::kTileX) * pfdc::kTileZ" in src else 0
         r = k * (order // 2)
         return 4 * (fields * (tx + 2 * r) * (tz + 2 * r) + image)
@@ -448,7 +456,12 @@ def test_shared_memory_of_the_kernels():
     assert smem("kstep_mod", 8, 4) == 3 * 4 * 64 * 96
     assert smem("kstep_gpu_fwd", 8, 4) == 3 * 4 * 64 * 96
     assert smem("kstep_gpu_bwd", 8, 4) == 4 * (5 * 64 * 96 + 32 * 64)
-    for kernel in ("kstep_mod", "kstep_gpu_fwd", "kstep_gpu_bwd"):
+    assert smem("kstep_mod_mma", 8, 4) == 4 * 4 * 64 * 96
+    assert smem("kstep_gpu_fwd_mma", 8, 4) == 4 * 4 * 64 * 96
+    assert smem("kstep_gpu_bwd_mma", 8, 4) == 4 * (7 * 64 * 96 + 32 * 64)
+    ksteps = ("kstep_mod", "kstep_gpu_fwd", "kstep_gpu_bwd")
+    splits = tuple(f"{k}_mma" for k in ksteps)
+    for kernel in ksteps + splits:
         assert smem(kernel, 10, tpipe.TILED_BLOCK_K) <= limit
     assert smem("kstep_gpu_bwd", 8, 8) > limit     # refused by allow_smem
 
@@ -482,6 +495,9 @@ def test_shared_memory_of_the_kernels():
         for kernel in ("kstep_mod", "kstep_gpu_fwd", "kstep_gpu_bwd",
                        "block_mod", "block_fwd", "block_bwd")}
         for order in (8, 10, 12, 14, 16)}
+    refused_split = {order: {kernel: first_refused(smem, kernel, order)
+                             for kernel in splits}
+                     for order in (8, 10, 12, 14, 16)}
     assert refused == {
         8: {"kstep_mod": None, "kstep_gpu_fwd": None, "kstep_gpu_bwd": 8,
             "block_mod": None, "block_fwd": None, "block_bwd": None},
@@ -493,8 +509,22 @@ def test_shared_memory_of_the_kernels():
              "block_mod": None, "block_fwd": None, "block_bwd": 7},
         16: {"kstep_mod": 6, "kstep_gpu_fwd": 6, "kstep_gpu_bwd": 4,
              "block_mod": 8, "block_fwd": 8, "block_bwd": 6}}
+    # the split tier at TILED_BLOCK_K = 4: RTM up to order 10, modeling up
+    # to order 16
+    assert refused_split == {
+        8: {"kstep_mod_mma": None, "kstep_gpu_fwd_mma": None,
+            "kstep_gpu_bwd_mma": 6},
+        10: {"kstep_mod_mma": 8, "kstep_gpu_fwd_mma": 8,
+             "kstep_gpu_bwd_mma": 5},
+        12: {"kstep_mod_mma": 7, "kstep_gpu_fwd_mma": 7,
+             "kstep_gpu_bwd_mma": 4},
+        14: {"kstep_mod_mma": 6, "kstep_gpu_fwd_mma": 6,
+             "kstep_gpu_bwd_mma": 4},
+        16: {"kstep_mod_mma": 5, "kstep_gpu_fwd_mma": 5,
+             "kstep_gpu_bwd_mma": 3}}
     # the per-step kernels (fd_step, fd_update, gpu_step and the whole-grid
-    # step kernels) stage nothing and take every order up to MAX_ORDER
+    # step kernels) stage nothing, gpu_step_mma a static tile under 48 KB
+    # (a static_assert), and they take every order up to MAX_ORDER
     assert fk.MAX_ORDER == 2 * int(re.search(
         r"kMaxHalf = (\d+)", (csrc / "stencil.cuh").read_text())[1])
 
