@@ -8,7 +8,7 @@ Run from the root of the repository, on a machine with one CUDA card and
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the CUDA kernels from ``csrc/``, with ``nvcc`` (one per source,
-   started together);
+   started together), and each kernel's registers and spill stores;
 3. kernel vs plain: ``mod_step``, ``rtm_fwd_step`` and ``rtm_bwd_step``
    against their plain torch versions on the same CUDA tensors, at the 3lay
    shapes (231 x 231 extended grid, nt=1001, 8 shots, order 8) and in short
@@ -171,7 +171,37 @@ Run from the root of the repository, on a machine with one CUDA card and
    passes (mxu) and the exact kernel of the same function in turns, with
    ``kstep_bounds(parts=)`` (the z taps' cross terms at the bf16 tensor
    rate); the whole tiled modeling and RTM calls in exact, mxu and mxu6;
-   one profiler trace of each split call.
+   one profiler trace of each split call;
+28. the split-bf16 lowering of the K = 1 tier and of rtm_main's recording
+   kernels: ``fd_step_mma`` (both tapers, every injection) and
+   ``fd_update_mma`` one step from random states (gate 1e-6 of max an
+   apply), ``rec_fwd_step_mma`` and ``rec_bwd_step_mma`` (frame mode at
+   both receiver offsets, image mode) over nt steps (images 1e-5, frames
+   and fields 1e-4), against their plain versions with the z taps in the
+   same bf16 parts: phase 8's 67 x 88 grid (nt=21) at orders 4-16, parts 2
+   and 3, then the Pluto grid (2 shots; the rec loops at nt=5) and 3lay
+   (8 shots, nt=1001);
+29. the Pluto K = 1 path through them: ``forward_modeling_tiled`` and
+   ``rtm_shot_snapshot_tiled`` at block_k=1, 2 shots, nt=1001, with
+   ``lap_impl="auto"`` (= mxu) and ``"mxu6"``: launch counts (only the
+   split kernels), gathers and images against the K = 4 split tier at the
+   same lap_impl (rel RMS <= 1e-5), mxu6 against the exact K = 1 run
+   (<= 1e-5), mxu's drift reported;
+30. rtm_main through them at the Pluto grid, 2 shots, nt=203 (cut for
+   memory: swf is 13.6 GB): ``rtm_shot_full_tiled`` at K = 1 and 4 in
+   exact, mxu and mxu6 (K = 1 against K = 4, mxu6 against exact: rel RMS
+   <= 1e-5), ``run_rtm_cpu(backend="tiled")`` in a subprocess with
+   ``PFDC_LAP_IMPL=mxu6`` (read at import) against the in-process call;
+   at 3lay the split tier against its plain path, and the whole-grid tier
+   under ``PFDC_LAP_IMPL=auto``, which keeps the exact taps (the JAX lax
+   ``rtm_shot_full`` has no other);
+31. times and traces: ``fd_step_mma``/``fd_update_mma`` over 1001 launches
+   at the Pluto grid and ``rec_fwd_step_mma``/``rec_bwd_step_mma`` over
+   3lay's 8 shots x 1001 steps, each against mxu6, its plain version and
+   its exact twin, with ``stream_bounds(parts=)`` and
+   ``step_bounds(parts=)``; the Pluto K = 1 modeling and RTM calls and the
+   3lay rtm_main call in exact, mxu and mxu6; one profiler trace of each
+   split call.
 
 Every phase prints its seconds. It prints one JSON line of per-kernel results (with each kernel's bound,
 worked out from this run's shapes), the nvidia-smi line, and, as the last
@@ -251,6 +281,14 @@ KERNELS = {
                           "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:875"),
     "gpu_step_mma": (f"{PKG}/csrc/gpu_step.cu",
                      "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:220"),
+    "fd_step_mma": (f"{PKG}/csrc/stream_step.cu",
+                    "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:79"),
+    "fd_update_mma": (f"{PKG}/csrc/stream_step.cu",
+                      "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:177"),
+    "rec_fwd_step_mma": (f"{PKG}/csrc/rec_step.cu",
+                         "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:1026"),
+    "rec_bwd_step_mma": (f"{PKG}/csrc/rec_step.cu",
+                         "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:1026"),
 }
 # The reference's full-resolution Pluto config
 # (dpct_gpu_rtm_domain_division/build/pluto/input.orig, as restated in
@@ -304,7 +342,8 @@ def step_bounds(ctx, ns: int, parts: int = 0):
     share one velocity plane; the two-snapshot RTM has one per shot. A
     field is tapered once per cell, as the functions define it: the kernels'
     taper of each Laplacian tap on read is not counted. With parts > 0 the
-    Laplacian's x taps are the split-bf16 banded product
+    Laplacian's taps of one axis (x for the mod and rtm steps, z for the
+    rec steps: the same count) are the split-bf16 banded product
     (:func:`mma_lap_flops`): the bounds of the *_mma kernels."""
     h = ctx.order // 2
     lf, tf = (lap_flops(h), 0) if not parts else mma_lap_flops(h, parts)
@@ -335,15 +374,42 @@ def step_bounds(ctx, ns: int, parts: int = 0):
         "rec_fwd_step": bound(
             f4 * (plane + plane + ctx.nt + 2 * ns * plane
                   + ns * ctx.nt * inter),
-            steps * (lapc * lap_flops(h) + 6 * plane + inter + 1)),
+            steps * (lapc * lf + 6 * plane + inter + 1), steps * lapc * tf),
         # rec_bwd_step, image mode: the update, the trace add, and
         # img += swf * (m*p) over the interior; reads swf once
         "rec_bwd_step": bound(
             f4 * (plane + plane + ns * ctx.nx * ctx.nt
                   + ns * ctx.nt * inter + ns * inter),
-            steps * (lapc * lap_flops(h) + 6 * plane + ctx.nx
-                     + 3 * inter)),
+            steps * (lapc * lf + 6 * plane + ctx.nx + 3 * inter),
+            steps * lapc * tf),
     }
+
+
+def stream_bounds(ctx, ns: int, parts: int = 0):
+    """Bounds of the K = 1 tier's launches as this script times them, nt
+    launches over ns shots: fd_step with the Gaussian window and the
+    all-edge taper (one velocity plane), fd_update (one velocity plane a
+    shot), each input read once and each output written once a launch.
+    With parts > 0 the z taps are the split-bf16 banded product
+    (:func:`mma_lap_flops`): the bounds of fd_step_mma and
+    fd_update_mma."""
+    h = ctx.order // 2
+    lf, tf = (lap_flops(h), 0) if not parts else mma_lap_flops(h, parts)
+    plane = ctx.nxe * ctx.nze
+    lapc = (ctx.nxe - 2 * h) * (ctx.nze - 2 * h)
+    ramps = ctx.nxe + 2 * ctx.nze
+    steps = ns * ctx.nt
+    return {
+        # fd_step: reads p, pp, one v2*dt2 plane, the ramps and the patch;
+        # writes p*m and u*m; the update (4), two tapers, the Gaussian add
+        "fd_step": bound(4 * ctx.nt * (4 * ns * plane + plane + ramps + 50),
+                         steps * (lapc * lf + 6 * plane + 2 * 49),
+                         steps * lapc * tf),
+        # fd_update: reads p, pp and one v2*dt2 plane a shot; writes one
+        # field a shot; the update (4)
+        "fd_update": bound(4 * ctx.nt * 4 * ns * plane,
+                           steps * (lapc * lf + 4 * plane),
+                           steps * lapc * tf)}
 
 
 def kstep_bounds(ctx, ns: int, k: int, parts: int = 0):
@@ -456,6 +522,44 @@ def rel_rms(a, b) -> float:
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     return float(np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b ** 2)))
+
+
+def kernel_name(mangled: str):
+    """The template's name in an Itanium-mangled kernel name
+    (``...11fd_step_mmaILi4ELi2EE...`` -> ``fd_step_mma``): the first
+    length-prefixed identifier followed by its template arguments. A
+    length prefix may follow the hex digits of an anonymous namespace's
+    hash, so every tail of a run of digits is tried."""
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group()
+        for k in range(1, len(digits) + 1):
+            n = int(digits[-k:])
+            name = mangled[m.end():m.end() + n]
+            if (len(name) == n and name.isidentifier()
+                    and mangled[m.end() + n:m.end() + n + 1] == "I"):
+                return name
+    return None
+
+
+def build_report(log: str) -> list:
+    """One line per kernel of the build log: its instances, registers and
+    spill stores (ptxas names an entry function, then prints its spills,
+    then its registers)."""
+    per, fn, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            per.setdefault(fn, []).append((int(m.group(1)), spill))
+    return [f"[build] {fn}: {len(rs)} instances, "
+            f"{min(r for r, _ in rs)}-{max(r for r, _ in rs)} registers, "
+            f"{max(s for _, s in rs)} bytes of spill stores at most"
+            for fn, rs in sorted(per.items())]
 
 
 def check(ok: bool, what: str) -> None:
@@ -575,6 +679,8 @@ def main() -> int:
         print(f"[build] {len(regs)} kernel instances: {min(regs)}-{max(regs)} "
               f"registers per thread, {max(spills, default=0)} bytes of "
               f"spills at most")
+    for line in build_report(log):
+        print(line)
 
     phase_done("build")
 
@@ -1980,20 +2086,7 @@ def main() -> int:
                                  float(amp), gp.sx, gp.sz, patch)
         return run
 
-    plane = pt.nxe * pt.nze
-    h = pt.order // 2
-    lapc = (pt.nxe - 2 * h) * (pt.nze - 2 * h)
-    ramps = pt.nxe + 2 * pt.nze
-    steps = pt.ns * pt.nt
-    stream_bounds = {
-        # fd_step: reads p, pp, one v2*dt2 plane, the ramps and the patch;
-        # writes p*m and u*m; the update (4), two tapers, the Gaussian add
-        "fd_step": bound(4 * pt.nt * (4 * pt.ns * plane + plane + ramps + 50),
-                         steps * (lapc * lap_flops(h) + 6 * plane + 2 * 49)),
-        # fd_update: reads p, pp and one v2*dt2 plane a shot; writes one
-        # field a shot; the update (4)
-        "fd_update": bound(4 * pt.nt * 4 * pt.ns * plane,
-                           steps * (lapc * lap_flops(h) + 4 * plane))}
+    k1_bounds = stream_bounds(ctx_pm, pt.ns)
     yardstick = {
         "fd_step": ("mod_step", lambda: fk.forward_modeling_cuda(
             ctx_pm, v2_pm, wav_pm, gp.sx, gp.sz, gp.gz)),
@@ -2003,7 +2096,7 @@ def main() -> int:
         tk, tp, ts = in_turns([step_loop(True, update),
                                step_loop(False, update), yardstick[k][1]],
                               once=(1,))
-        bms, by = stream_bounds[k]
+        bms, by = k1_bounds[k]
         print(f"[times] {k} at the Pluto grid ({pt.ns} shots, {pt.nt} "
               f"launches): kernel {span(tk)}, plain {span(tp)}, per-step "
               f"kernel {yardstick[k][0]} {span(ts)}; bound {bms:.3f} ms "
@@ -2690,6 +2783,404 @@ def main() -> int:
                     split_ms[label, n], smi)
     del split_calls, d_p, v2_pm, v2_pr, zero
     phase_done("split tier: times and profile")
+
+    # ---- 28. the split-bf16 lowering of the per-step streaming tier and of
+    # rtm_main's recording kernels (rows 8, 9, 14): fd_step_mma,
+    # fd_update_mma, rec_fwd_step_mma and rec_bwd_step_mma against their
+    # plain versions (the z taps in the same bf16 parts) on the same CUDA
+    # tensors: one step from random states on phase 8's 67 x 88 grid at
+    # orders 4-16 and at the Pluto grid, gate 1e-6 of max an apply; the rec
+    # loops (frames, frame and image mode) on the 67 x 88 grid (nt=21), at
+    # the Pluto grid (nt=5) and at 3lay (8 shots, nt=1001), gate 1e-5 for
+    # the images, 1e-4 for the frames and final fields (the fields' floor
+    # of the tensor cores' summation order over many steps, phase 23)
+    split_k1 = ("fd_step_mma", "fd_update_mma", "rec_fwd_step_mma",
+                "rec_bwd_step_mma")
+    worst28 = dict.fromkeys(split_k1, 0.0)
+
+    def gate28(label, name, got, want, gate):
+        """Prints and gates the largest errors of the kernel outputs got
+        against the plain ones want (lists of output tuples)."""
+        rel, absd = (max(e) for e in zip(*map(errs, got, want)))
+        print(f"[split K=1 vs plain] {name} {label}: max rel err {rel:.3e} "
+              f"(gate {gate}), max abs err {absd:.3e}", flush=True)
+        check(rel <= gate, f"{name} {label}: {rel:.3e} > {gate}")
+        worst28[name.split()[0]] = max(worst28[name.split()[0]], absd)
+
+    def split_steps(label, case, parts, st, row):
+        """fd_step_mma (both tapers; no injection, the Gaussian window, the
+        point source, the receiver row at nzb) and fd_update_mma (a
+        velocity plane a shot), one step from the random state st."""
+        ctx_m, ctx_r, v2_m, v2_r, _, _, _, gp_ = case
+        lap = solver.laplacian_of(ctx_m, parts, axis="z")
+        cases = [(taper, kw) for taper in ("all", "top") for kw in (
+            {}, dict(amp=0.7, sx=gp_.sx, sz=gp_.sz),
+            dict(amp=0.7, sx=gp_.sx, sz=gp_.sz, source="point"),
+            dict(inj_row=row, x0=ctx_m.nzb, gz=gp_.gz))]
+        gate28(f"{label} (both tapers, every injection)", "fd_step_mma",
+               [stream.fd_step_cuda(ctx_m, *st, v2_m, taper, parts=parts,
+                                    **kw) for taper, kw in cases],
+               [solver.fd_step(ctx_m, *st, v2_m, taper, lap=lap, **kw)
+                for taper, kw in cases], 1e-6)
+        gate28(label, "fd_update_mma",
+               [stream.fd_update_cuda(ctx_r, *st, v2_r, parts=parts)],
+               [solver.fd_update(ctx_r, *st, v2_r,
+                                 solver.laplacian_of(ctx_r, parts, axis="z"))],
+               1e-6)
+
+    def split_rec(label, p_, dobs, parts, quirks=(True, False)):
+        """rec_fwd_step_mma's frames and fields, rec_bwd_step_mma in frame
+        mode (both receiver offsets) and in image mode, over p_.nt steps."""
+        ctx, v2, wav, d, nxt = rec_inputs(p_, dobs)
+        gp_ = Geometry.from_params(p_)
+        lap = solver.laplacian_of(ctx, parts, axis="z")
+        wf = dict(source="point", taper="top", record="wavefield")
+        kf = fk.forward_modeling_cuda(ctx, v2, wav, gp_.sx, gp_.sz, gp_.gz,
+                                      **wf, lap_impl=parts)
+        pf = solver.forward_modeling(ctx, v2, wav, gp_.sx, gp_.sz, gp_.gz,
+                                     **wf, lap_impl=parts)
+        gate28(label, "rec_fwd_step_mma frames", [kf[2]], [pf[2]], 1e-4)
+        gate28(label, "rec_fwd_step_mma fields", [kf[:2]], [pf[:2]], 1e-4)
+        swf = pf[2]
+        del kf, pf
+        for quirk in quirks:
+            kb = fk.backward_recorded_cuda(ctx, v2, d, gp_.gz,
+                                           x_off_quirk=quirk,
+                                           next_shot_first=nxt,
+                                           lap_impl=parts)
+            pb = solver.backward_recorded(ctx, v2, d, gp_.gz,
+                                          x_off_quirk=quirk,
+                                          next_shot_first=nxt, lap=lap)
+            gate28(f"{label} x_off_quirk {quirk}", "rec_bwd_step_mma frames",
+                   [kb[2]], [pb[2]], 1e-4)
+            gate28(f"{label} x_off_quirk {quirk}", "rec_bwd_step_mma fields",
+                   [kb[:2]], [pb[:2]], 1e-4)
+            del kb, pb
+        gate28(label, "rec_bwd_step_mma image",
+               [fk.backward_image_cuda(ctx, v2, swf, d, gp_.gz,
+                                       next_shot_first=nxt, lap_impl=parts)],
+               [solver.backward_image(ctx, v2, swf, d, gp_.gz,
+                                      next_shot_first=nxt, lap=lap)], GATE)
+        del swf
+        torch.cuda.synchronize()
+
+    rng = np.random.default_rng(28)
+    for order in (4, 8, 10, 12, 16):
+        p_ = dataclasses.replace(short, order=order)
+        case = tier_case(p_)
+        st = [randn(rng, p_.ns, case[0].nxe, case[0].nze) for _ in range(2)]
+        row = randn(rng, p_.ns, p_.nx)
+        for parts in (2, 3):
+            label = f"order {order} parts {parts} 67 x 88"
+            split_steps(label, case, parts, st, row)
+            split_rec(f"{label} nt {p_.nt}", p_, case[6].cpu().numpy(),
+                      parts)
+    case = tier_case(pluto, PLUTO_VELOCITIES)
+    st = [randn(rng, pluto.ns, pluto.nxe, pluto.nze) for _ in range(2)]
+    row = randn(rng, pluto.ns, pluto.nx)
+    p5 = dataclasses.replace(pluto, nt=5)
+    for parts in (2, 3):
+        label = f"Pluto {pluto.nxe} x {pluto.nze} ns {pluto.ns} parts {parts}"
+        split_steps(label, case, parts, st, row)
+        split_rec(f"{label} nt 5", p5, case[6][..., :5].cpu().numpy(),
+                  parts, quirks=(True,))
+    del case, st, row
+    for parts in (2, 3):
+        split_rec(f"3lay ns {P.ns} nt {P.nt} parts {parts}", P, data, parts,
+                  quirks=(True,))
+    for k in split_k1:
+        results[k]["max_abs_err"] = worst28[k]
+    phase_done("split K=1 and rec kernels vs plain")
+
+    # ---- 29. the Pluto K = 1 path through the split kernels: 2 shots,
+    # nt=1001, the full grid: forward_modeling_tiled and
+    # rtm_shot_snapshot_tiled at block_k=1 with lap_impl "auto" (= mxu at
+    # nt=1001) and "mxu6", against the K = 4 split tier at the same
+    # lap_impl and the exact K = 1 calls
+    (ctx_pm, ctx_pr, v2_pm, v2_pr, wav_pm, wav_pr, d_p,
+     gp) = tier_case(pt, PLUTO_VELOCITIES)
+    check(fk.resolve_lap_impl(ctx_pr, "auto") == "mxu",
+          "Pluto nt 1001: auto does not resolve to mxu")
+    k1 = {}
+    for li, k in (("auto", 1), ("auto", K), ("mxu6", 1), ("mxu6", K),
+                  (None, 1)):
+        fk.reset_launches()
+        stream.reset_launches()
+        t0 = time.perf_counter()
+        gathers = solver.forward_modeling_tiled(
+            ctx_pm, v2_pm, wav_pm, gp.sx, gp.sz, gp.gz, block_k=k,
+            lap_impl=li)[2]
+        image = solver.rtm_shot_snapshot_tiled(
+            ctx_pr, v2_pr, wav_pr, d_p, gp.sx, gp.sz, gp.gz, block_k=k,
+            lap_impl=li)
+        torch.cuda.synchronize()
+        launches = {n: v for n, v in {**fk.LAUNCHES,
+                                      **stream.LAUNCHES}.items() if v}
+        print(f"[split K=1 Pluto] lap_impl={li!r} block_k={k}, Pluto "
+              f"{pt.nxe} x {pt.nze}, ns {pt.ns}, nt {pt.nt}: modeling + RTM "
+              f"{time.perf_counter() - t0:.3f} s wall; launches {launches}",
+              flush=True)
+        check(torch.isfinite(gathers).all() and torch.isfinite(image).all()
+              and float(image.abs().max()) > 0,
+              f"Pluto lap_impl {li} K {k}: outputs not finite or zero")
+        if k == 1:
+            sfx = "_mma" if li else ""
+            want = {f"fd_step{sfx}": pt.nt, f"gpu_step{sfx}": 2 * pt.nt,
+                    f"fd_update{sfx}": pt.nt - 2}
+            check(launches == want, f"Pluto K=1 lap_impl {li}: launches "
+                                    f"{launches}, expected {want}")
+            if li == "auto":
+                for n in ("fd_step_mma", "fd_update_mma"):
+                    results[n]["launches"] = launches[n]
+        k1[li, k] = (gathers.cpu(), image.cpu())
+        del gathers, image
+    rr29 = {}
+    for li in ("auto", "mxu6"):
+        for n, what in enumerate(("gathers", "image")):
+            rr29[f"{li} K=1 vs K={K} {what}"] = rel_rms(k1[li, 1][n],
+                                                        k1[li, K][n])
+            rr29[f"{li} K=1 vs exact K=1 {what}"] = rel_rms(k1[li, 1][n],
+                                                            k1[None, 1][n])
+    print(f"[split K=1 Pluto] rel RMS {rr29} (gates: K=1 vs K={K} at the "
+          f"same lap_impl 1e-5, mxu6 vs exact 1e-5; mxu vs exact reported)",
+          flush=True)
+    for key, v in rr29.items():
+        if "vs K=" in key or key.startswith("mxu6"):
+            check(v <= GATE, f"Pluto K=1 {key}: {v:.3e} > {GATE}")
+    del k1
+    phase_done("Pluto K=1 path through the split kernels")
+
+    # ---- 30. rtm_main at the Pluto grid through the split kernels, 2
+    # shots, nt=203 (cut for memory: swf is 13.6 GB at nt=203, 67 GB at
+    # nt=1001): rtm_shot_full_tiled at K = 1 and 4 in exact, mxu and mxu6;
+    # run_rtm_cpu(backend="tiled") in a subprocess with PFDC_LAP_IMPL=mxu6
+    # (read at import); at 3lay, the split tier against its plain path and
+    # the whole-grid tier under PFDC_LAP_IMPL=auto, which keeps the exact
+    # taps
+    (ctx_m, _, v2_m, _, wav_m, _, d, gp30) = tier_case(pluto,
+                                                       PLUTO_VELOCITIES)
+    nxt30 = torch.cat([d[1:, 0, 0], d.new_zeros(1)]).cpu().numpy()
+    full = {}
+    for li in (None, "mxu", "mxu6"):
+        for k in (1, K):
+            fk.reset_launches()
+            stream.reset_launches()
+            t0 = time.perf_counter()
+            full[li, k] = solver.rtm_shot_full_tiled(
+                ctx_m, v2_m, wav_m, d, gp30.sx, gp30.sz, gp30.gz,
+                next_shot_first=nxt30, block_k=k, lap_impl=li).cpu()
+            torch.cuda.synchronize()
+            launches = {n: v for n, v in {**fk.LAUNCHES,
+                                          **stream.LAUNCHES}.items() if v}
+            print(f"[split rtm_main Pluto] lap_impl={li!r} block_k={k}, "
+                  f"{pluto.nxe} x {pluto.nze}, ns {pluto.ns}, nt {pluto.nt}: "
+                  f"{time.perf_counter() - t0:.3f} s wall; launches "
+                  f"{launches}", flush=True)
+            sfx = "_mma" if li else ""
+            want = ({f"fd_step{sfx}": 2 * pluto.nt} if k == 1 else
+                    {f"rec_fwd_step{sfx}": pluto.nt,
+                     f"rec_bwd_step{sfx}": pluto.nt})
+            check(launches == want and bool(full[li, k].isfinite().all()),
+                  f"rtm_main Pluto lap_impl {li} K {k}: launches {launches}, "
+                  f"expected {want}, or the image is not finite")
+            if li == "mxu" and k == K:
+                for n in ("rec_fwd_step_mma", "rec_bwd_step_mma"):
+                    results[n]["launches"] = launches[n]
+            torch.cuda.empty_cache()
+    rr30 = {f"{li} K=1 vs K={K}": rel_rms(full[li, 1], full[li, K])
+            for li in (None, "mxu", "mxu6")}
+    rr30.update({f"{li} vs exact, K={K}": rel_rms(full[li, K], full[None, K])
+                 for li in ("mxu", "mxu6")})
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "dobs.npy"), d.cpu().numpy())
+        code = (
+            "import json, sys\n"
+            f"sys.path.insert(0, {REPO!r})\n"
+            "import numpy as np\n"
+            f"from {PKG} import pipeline\n"
+            f"from {PKG}.config import Params\n"
+            f"from {PKG}.models import layered_model\n"
+            f"from {PKG}.ops import fd_kernels as fk, stream\n"
+            f"p = Params(**{dict(PLUTO, nt=pluto.nt)!r})\n"
+            "vp = layered_model(p.nx, p.nz, "
+            f"velocities={PLUTO_VELOCITIES!r})\n"
+            "_, locs = pipeline.run_rtm_cpu(p, vp=vp, dobs=np.load("
+            "sys.argv[1]), backend='tiled')\n"
+            "np.save(sys.argv[2], locs)\n"
+            "print(json.dumps({k: v for k, v in {**fk.LAUNCHES, "
+            "**stream.LAUNCHES}.items() if v}))\n")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", code, os.path.join(tmp, "dobs.npy"),
+             os.path.join(tmp, "locs.npy")], capture_output=True, text=True,
+            timeout=600, env=dict(os.environ, PFDC_LAP_IMPL="mxu6"))
+        check(out.returncode == 0, f"run_rtm_cpu subprocess: {out.stderr}")
+        sub_launches = json.loads(out.stdout.strip().splitlines()[-1])
+        sub_locs = np.load(os.path.join(tmp, "locs.npy"))
+    print(f"[split rtm_main Pluto] run_rtm_cpu(backend='tiled') with "
+          f"PFDC_LAP_IMPL=mxu6 in a subprocess: "
+          f"{time.perf_counter() - t0:.3f} s wall (start-up and build load "
+          f"included); launches {sub_launches}", flush=True)
+    check(sub_launches == {"rec_fwd_step_mma": pluto.nt,
+                           "rec_bwd_step_mma": pluto.nt},
+          f"run_rtm_cpu mxu6 launches {sub_launches}")
+    rr30["run_rtm_cpu (PFDC_LAP_IMPL=mxu6) vs rtm_shot_full_tiled mxu6"] = (
+        rel_rms(sub_locs, full["mxu6", K]))
+    ctx3, v23, wav3, d3, nxt3 = rec_inputs(P, data)
+    g3 = Geometry.from_params(P)
+    rr30["3lay K=4 mxu vs its plain path"] = rel_rms(
+        solver.rtm_shot_full_tiled(ctx3, v23, wav3, d3, g3.sx, g3.sz, g3.gz,
+                                   next_shot_first=nxt3, block_k=K,
+                                   lap_impl="mxu").cpu(),
+        solver.rtm_shot_full(ctx3, v23, wav3, d3, g3.sx, g3.sz, g3.gz,
+                             next_shot_first=nxt3, lap_impl="mxu").cpu())
+    print(f"[split rtm_main] rel RMS {rr30} (gate {GATE}; mxu vs exact "
+          f"reported)", flush=True)
+    for key, v in rr30.items():
+        if not key.startswith("mxu vs"):
+            check(v <= GATE, f"rtm_main {key}: {v:.3e} > {GATE}")
+    exact3 = pipeline.run_rtm_cpu(P, vp=vp, dobs=data, device=dev)[1]
+    env_lap = fk._ENV_LAP_IMPL
+    fk._ENV_LAP_IMPL = "auto"         # what PFDC_LAP_IMPL=auto sets
+    try:
+        fk.reset_launches()
+        stream.reset_launches()
+        auto3 = pipeline.run_rtm_cpu(P, vp=vp, dobs=data, device=dev)[1]
+        torch.cuda.synchronize()
+        launches = {n: v for n, v in {**fk.LAUNCHES,
+                                      **stream.LAUNCHES}.items() if v}
+    finally:
+        fk._ENV_LAP_IMPL = env_lap
+    print(f"[split rtm_main] 3lay run_rtm_cpu (whole-grid tier) under "
+          f"PFDC_LAP_IMPL=auto: launches {launches}, images bitwise the "
+          f"exact run's: {np.array_equal(auto3, exact3)}", flush=True)
+    check(launches == {"rec_fwd_step": P.nt, "rec_bwd_step": P.nt}
+          and np.array_equal(auto3, exact3),
+          "the whole-grid rtm_main tier left the exact taps under auto")
+    del full, d, v2_m, sub_locs, exact3, auto3
+    torch.cuda.empty_cache()
+    phase_done("rtm_main through the split kernels")
+
+    # ---- 31. times and traces of the split K = 1 and rtm_main kernels:
+    # fd_step_mma and fd_update_mma over 1001 launches at the Pluto grid (2
+    # shots; phase 21's loops), rec_fwd_step_mma and rec_bwd_step_mma (image
+    # mode) over 3lay's 8 shots x 1001 steps; each against mxu6, its plain
+    # version (mxu, timed once) and its exact twin, in turns; the whole
+    # Pluto K = 1 calls and the 3lay rtm_main call per lowering; one trace
+    # of each split call
+    c_mod = stream.prepare(ctx_pm, v2_pm, gp.sx, source="gaussian",
+                           taper="all")
+    c_rtm = stream.prepare(ctx_pr, v2_pr, gp.sx, source="point", taper="top")
+    st = [randn(np.random.default_rng(31), pt.ns, pt.nxe, pt.nze)
+          for _ in range(4)]
+    mask_all = torch.as_tensor(ctx_pm.mask_all, device=dev)
+    patch = torch.as_tensor(ctx_pm.source_patch, device=dev)
+    lap2m = solver.laplacian_of(ctx_pm, 2, axis="z")
+    lap2r = solver.laplacian_of(ctx_pr, 2, axis="z")
+
+    def k1_loop(update: bool, parts):
+        """nt launches of fd_step(_mma) or fd_update(_mma); parts None: the
+        plain version with the z taps in 2 bf16 parts."""
+        def run():
+            if update:
+                for _ in range(pt.nt):
+                    if parts is None:
+                        solver.fd_update(ctx_pr, st[0], st[1], v2_pr, lap2r)
+                    else:
+                        stream.fd_update_cuda(ctx_pr, st[0], st[1], v2_pr,
+                                              consts=c_rtm, out=st[2],
+                                              parts=parts)
+                return
+            for amp in wav_pm:
+                if parts is None:
+                    solver._step(ctx_pm, st[0], st[1], v2_pm, mask_all,
+                                 float(amp), gp.sx, gp.sz, patch, lap=lap2m)
+                else:
+                    stream.fd_step_cuda(ctx_pm, st[0], st[1], v2_pm, "all",
+                                        amp=float(amp), sx=gp.sx, sz=gp.sz,
+                                        consts=c_mod, out=st[2:],
+                                        parts=parts)
+        return run
+
+    b2, b3 = stream_bounds(ctx_pm, pt.ns, 2), stream_bounds(ctx_pm, pt.ns, 3)
+    for k, update in (("fd_step_mma", False), ("fd_update_mma", True)):
+        tk, tk6, tp, te = in_turns([k1_loop(update, 2), k1_loop(update, 3),
+                                    k1_loop(update, None),
+                                    k1_loop(update, 0)], once=(2,))
+        bms, by = b2[k[:-4]]
+        print(f"[times] {k} at the Pluto grid ({pt.ns} shots, {pt.nt} "
+              f"launches): kernel (mxu) {span(tk)}, mxu6 {span(tk6)}, plain "
+              f"(mxu) {span(tp)}, exact kernel {k[:-4]} {span(te)}; bound "
+              f"{bms:.3f} ms ({by}; mxu6 {b3[k[:-4]][0]:.3f}), kernel / "
+              f"bound {statistics.median(tk) / bms:.2f}; {smi}", flush=True)
+        results[k].update(ms=statistics.median(tk),
+                          plain_ms=statistics.median(tp), bound_ms=bms,
+                          bound_by=by, library_ms=None)
+    del st, c_mod, c_rtm
+    ctx3, v23, wav3, d3, nxt3 = rec_inputs(P, data)
+    g3 = Geometry.from_params(P)
+    wf = dict(source="point", taper="top", record="wavefield")
+    swf3 = fk.forward_modeling_cuda(ctx3, v23, wav3, g3.sx, g3.sz, g3.gz,
+                                    **wf, lap_impl=2)[2]
+    lap3 = solver.laplacian_of(ctx3, 2, axis="z")
+    rec_calls = {
+        "rec_fwd_step_mma": lambda parts: (
+            (lambda: solver.forward_modeling(ctx3, v23, wav3, g3.sx, g3.sz,
+                                             g3.gz, **wf, lap_impl=2))
+            if parts is None else
+            (lambda: fk.forward_modeling_cuda(ctx3, v23, wav3, g3.sx, g3.sz,
+                                              g3.gz, **wf, lap_impl=parts))),
+        "rec_bwd_step_mma": lambda parts: (
+            (lambda: solver.backward_image(ctx3, v23, swf3, d3, g3.gz,
+                                           next_shot_first=nxt3, lap=lap3))
+            if parts is None else
+            (lambda: fk.backward_image_cuda(ctx3, v23, swf3, d3, g3.gz,
+                                            next_shot_first=nxt3,
+                                            lap_impl=parts)))}
+    b2, b3 = step_bounds(ctx3, P.ns, 2), step_bounds(ctx3, P.ns, 3)
+    for k, call in rec_calls.items():
+        tk, tk6, tp, te = in_turns([call(2), call(3), call(None), call(0)],
+                                   once=(2,))
+        bms, by = b2[k[:-4]]
+        print(f"[times] {k} at 3lay ({P.ns} shots, {P.nt} launches"
+              f"{', image mode' if 'bwd' in k else ''}): kernel (mxu) "
+              f"{span(tk)}, mxu6 {span(tk6)}, plain (mxu) {span(tp)}, exact "
+              f"kernel {k[:-4]} {span(te)}; bound {bms:.3f} ms ({by}; mxu6 "
+              f"{b3[k[:-4]][0]:.3f}), kernel / bound "
+              f"{statistics.median(tk) / bms:.2f}; {smi}", flush=True)
+        results[k].update(ms=statistics.median(tk),
+                          plain_ms=statistics.median(tp), bound_ms=bms,
+                          bound_by=by, library_ms=None)
+    k1_calls = {}
+    for li, name in ((None, "exact"), (2, "mxu"), (3, "mxu6")):
+        k1_calls["modeling K=1", name] = (
+            lambda li=li: solver.forward_modeling_tiled(
+                ctx_pm, v2_pm, wav_pm, gp.sx, gp.sz, gp.gz, block_k=1,
+                lap_impl=li))
+        k1_calls["RTM K=1", name] = (
+            lambda li=li: solver.rtm_shot_snapshot_tiled(
+                ctx_pr, v2_pr, wav_pr, d_p, gp.sx, gp.sz, gp.gz, block_k=1,
+                lap_impl=li))
+        k1_calls["3lay rtm_main", name] = (
+            lambda li=li: fk.rtm_full_cuda(ctx3, v23, wav3, d3, g3.sx, g3.sz,
+                                           g3.gz, next_shot_first=nxt3,
+                                           lap_impl=li))
+    k1_ms = {}
+    for label in ("modeling K=1", "RTM K=1", "3lay rtm_main"):
+        names = ("exact", "mxu", "mxu6")
+        ts = in_turns([k1_calls[label, n] for n in names])
+        for n, t in zip(names, ts):
+            k1_ms[label, n] = statistics.median(t)
+            ns_ = P.ns if label.startswith("3lay") else pt.ns
+            print(f"[times] {'' if label.startswith('3lay') else 'Pluto '}"
+                  f"{label} {n} ({ns_} shots, nt 1001): {span(t)}, "
+                  f"{k1_ms[label, n] / 1e3 / ns_:.6f} s/shot; {smi}",
+                  flush=True)
+    for (label, n), fn in k1_calls.items():
+        if n != "exact":
+            profile(torch, f"{label} {n}", fn, k1_ms[label, n], smi)
+    del k1_calls, swf3, d_p, v2_pm, v2_pr
+    phase_done("split K=1 and rtm_main: times and profile")
 
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -27,29 +27,21 @@
 //
 // gpu_step_mma stages what its taps read: a block of four warps takes
 // 64 x 64 cells and copies t = m*y of them and of an H-cell halo into
-// shared memory (zeros outside the grid). Each warp runs its 16 rows as
-// eight 16 x 8 mma blocks along z (mma_bf16.cuh, banded_mma: the window of
-// an output starts H cells before it), and the lane that holds an output
-// does that cell's whole step: the x taps from the tile, the update, the
-// trace row and the image. The tile is the only thing shared, so one
-// barrier suffices. The step runs twice a call: it is kept simple.
-#include "kstep.cuh"
+// shared memory (zeros outside the grid; mma_tile.cuh's MmaTile). Each
+// warp runs its 16 rows as eight 16 x 8 mma blocks along z (mma_bf16.cuh,
+// banded_mma: the window of an output starts H cells before it), and the
+// lane that holds an output does that cell's whole step: the x taps from
+// the tile, the update, the trace row and the image. The tile is the only
+// thing shared, so one barrier suffices. The step runs twice a call: it is
+// kept simple.
+#include "mma_tile.cuh"
 
 namespace {
 
-constexpr int kMmaTileX = 64;     // output rows (x) of a gpu_step_mma block
-constexpr int kMmaTileZ = 64;     // output columns (z)
-constexpr int kMmaThreads = 128;  // four warps of 16 rows
-
-// The staged tile: rows x0 - H .. x0 + 63 + H, columns z0 - H on; the last
-// window reads to column 8 * 7 + 16 * KS - 1, beyond the x taps' reach
-// (63 + H). A row pitch of 8 mod 32 floats, as lap_padded's.
-template <int H>
-struct MmaTile {
-  static constexpr int kRows = kMmaTileX + 2 * H;
-  static constexpr int kCols = kMmaTileZ - 8 + 16 * pfdc::band_ksteps<H>();
-  static constexpr int kPitch = (kCols + 23) / 32 * 32 + 8;
-};
+using pfdc::kMmaThreads;
+using pfdc::kMmaTileX;
+using pfdc::kMmaTileZ;
+using pfdc::MmaTile;
 
 template <int H>
 __global__ void gpu_step(const float* __restrict__ y,

@@ -1,7 +1,8 @@
 // rec_fwd_step / rec_bwd_step: one time step of rtm_main's full-wavefield
-// RTM (rtm_main.cpp:158-247) for every shot of a batch, and the C entry
-// points pfdc_rec_fwd_run and pfdc_rec_bwd_run that run the whole time
-// loop on a stream.
+// RTM (rtm_main.cpp:158-247) for every shot of a batch, their split-bf16
+// twins rec_fwd_step_mma and rec_bwd_step_mma, and the C entry points
+// pfdc_rec_fwd_run and pfdc_rec_bwd_run that run the whole time loop on a
+// stream.
 //
 // Replaces: parallel_finite_difference_computation_tpu/ops/pallas_stream.py,
 // _kstep_rec_kernel (:1002), called through fd_kstep_rec_padded (:1084) in
@@ -9,7 +10,9 @@
 // receiver-column mode (the backward half, solver.py:663-719). That kernel
 // fuses K steps per pass only because a large grid does not fit in VMEM;
 // here each step is one launch over all shots, as in mod_step.cu, and the
-// host function loops over the steps.
+// host function loops over the steps. The *_mma kernels replace its
+// use_mxu branch (:1026-1033: _lap_z_mxu_full + _lap_x_slab, the z taps as
+// the split-bf16 banded product, then the x taps exact).
 //
 // The step is the CPU-flavor step of mod_step.cu: u = (2p - m*pp) +
 // v2dt2*lap(p), inject into u, store pp <- u*m; the time-t value is m*p.
@@ -36,8 +39,17 @@
 // stores, nothing is staged in shared memory, and each launch is short, so
 // launch latency sets the pace, as for mod_step.
 //
+// rec_fwd_step_mma<H, P> and rec_bwd_step_mma<H, P, kImage> compute what
+// their exact twins compute, in the same order, but for the Laplacian: the
+// z taps as the P-part (2: lap_impl "mxu", 3: "mxu6") split-bf16 banded
+// product on the tensor cores, plus the exact x taps. A block stages a
+// 64 x 64 tile of the time-t field and its halo, writes the z product
+// behind a barrier and then takes its cells threads along z
+// (mma_tile.cuh), so that a warp's frame stores and swf reads cover whole
+// 32-byte sectors, as the exact kernels' do.
+//
 // Frame offsets are size_t: ns * nt * nx * nz passes 2^31 at marmousi size.
-#include "stencil.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -144,6 +156,92 @@ __global__ void rec_bwd_step(const float* __restrict__ cur,
   }
 }
 
+template <int H, int P>
+__global__ void __launch_bounds__(pfdc::kMmaThreads)
+    rec_fwd_step_mma(const float* __restrict__ cur, float* __restrict__ old,
+                     const float* __restrict__ v2dt2, int v2_shot_stride,
+                     const float* __restrict__ mask,
+                     const float* __restrict__ patch, int r,
+                     const int* __restrict__ sx, int sz, float amp,
+                     float* __restrict__ swf_it, size_t swf_shot_stride,
+                     int nxb, int nzb, int nx, int nz, int nxe, int nze,
+                     pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  float* t = smem;
+  float* zb = smem + pfdc::MmaTile<H>::kCells;
+  const int s = blockIdx.z;
+  const int bx = blockIdx.y * pfdc::kMmaTileX;
+  const int bz = blockIdx.x * pfdc::kMmaTileZ;
+  const size_t plane = static_cast<size_t>(nxe) * nze;
+  float* pp = old + s * plane;
+  pfdc::stage_tile<H>(t, cur + s * plane, bx, bz, nxe, nze);
+  pfdc::tile_z_mma<H, P>(zb, t, bx, bz, nxe, nze, c);
+  pfdc::for_tile_cells<H>(bx, bz, nxe, nze, [&](int ix, int iz, int jt,
+                                                int jz) {
+    const size_t j = static_cast<size_t>(ix) * nze + iz;
+    const float m = mask[j];
+    const float pc = t[jt];
+    const float lap = pfdc::split_lap<H>(t, zb, ix, iz, jt, jz, nxe, nze, c);
+    float u = (2.0f * pc - pp[j] * m) +
+              v2dt2[s * static_cast<size_t>(v2_shot_stride) + j] * lap;
+    const int dx = ix - sx[s];
+    const int dz = iz - sz;
+    if (dx >= -r && dx <= r && dz >= -r && dz <= r) {
+      u = u + amp * patch[(dx + r) * (2 * r + 1) + (dz + r)];
+    }
+    pp[j] = u * m;
+    if (ix >= nxb && ix < nxb + nx && iz >= nzb && iz < nzb + nz) {
+      swf_it[s * swf_shot_stride + frame_offset(ix, iz, nxb, nzb, nz)] =
+          pc * m;
+    }
+  });
+}
+
+template <int H, int P, bool kImage>
+__global__ void __launch_bounds__(pfdc::kMmaThreads)
+    rec_bwd_step_mma(const float* __restrict__ cur, float* __restrict__ old,
+                     const float* __restrict__ v2dt2, int v2_shot_stride,
+                     const float* __restrict__ mask,
+                     const float* __restrict__ inj_it,
+                     size_t inj_shot_stride, int x0, int gz,
+                     const float* __restrict__ swf_rev,
+                     float* __restrict__ out, size_t frame_shot_stride,
+                     int nxb, int nzb, int nx, int nz, int nxe, int nze,
+                     pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  float* t = smem;
+  float* zb = smem + pfdc::MmaTile<H>::kCells;
+  const int s = blockIdx.z;
+  const int bx = blockIdx.y * pfdc::kMmaTileX;
+  const int bz = blockIdx.x * pfdc::kMmaTileZ;
+  const size_t plane = static_cast<size_t>(nxe) * nze;
+  float* pp = old + s * plane;
+  pfdc::stage_tile<H>(t, cur + s * plane, bx, bz, nxe, nze);
+  pfdc::tile_z_mma<H, P>(zb, t, bx, bz, nxe, nze, c);
+  pfdc::for_tile_cells<H>(bx, bz, nxe, nze, [&](int ix, int iz, int jt,
+                                                int jz) {
+    const size_t j = static_cast<size_t>(ix) * nze + iz;
+    const float m = mask[j];
+    const float pc = t[jt];
+    const float lap = pfdc::split_lap<H>(t, zb, ix, iz, jt, jz, nxe, nze, c);
+    float u = (2.0f * pc - pp[j] * m) +
+              v2dt2[s * static_cast<size_t>(v2_shot_stride) + j] * lap;
+    if (iz == gz && ix >= x0 && ix < x0 + nx) {
+      u = u + inj_it[s * inj_shot_stride + (ix - x0)];
+    }
+    pp[j] = u * m;
+    if (ix >= nxb && ix < nxb + nx && iz >= nzb && iz < nzb + nz) {
+      const size_t q = frame_offset(ix, iz, nxb, nzb, nz);
+      if (kImage) {
+        float* im = out + s * static_cast<size_t>(nx) * nz + q;
+        *im = *im + swf_rev[s * frame_shot_stride + q] * (pc * m);
+      } else {
+        out[s * frame_shot_stride + q] = pc * m;
+      }
+    }
+  });
+}
+
 struct RecFwdRun {
   float* a;
   float* b;
@@ -158,26 +256,47 @@ struct RecFwdRun {
   float* swf;        // (ns, nt, nx, nz)
   int ns, nxe, nze, nxb, nzb, nt;
   pfdc::Coefs c;
+  int parts;
   cudaStream_t stream;
 
-  template <int H>
-  cudaError_t operator()() const {
-    const dim3 grid = pfdc::step_grid(ns, nxe, nze);
-    const dim3 block = pfdc::step_block();
+  template <int H, int P>
+  cudaError_t launch() const {
     const int nx = nxe - 2 * nxb;
     const int nz = nze - 2 * nzb;
     const size_t frame = static_cast<size_t>(nx) * nz;
+    const size_t bytes = pfdc::MmaTile<H>::kStageBytes;
+    if constexpr (P > 0) {
+      const cudaError_t e = pfdc::allow_smem(rec_fwd_step_mma<H, P>, bytes);
+      if (e != cudaSuccess) return e;
+    }
     for (int it = 0; it < nt; ++it) {
       float* cur = (it % 2 == 0) ? a : b;
       float* old = (it % 2 == 0) ? b : a;
-      rec_fwd_step<H><<<grid, block, 0, stream>>>(
-          cur, old, v2dt2, v2_shot_stride, mask, patch, r, sx, sz, wav[it],
-          swf + static_cast<size_t>(it) * frame, static_cast<size_t>(nt) * frame,
-          nxb, nzb, nx, nz, nxe, nze, c);
+      float* swf_it = swf + static_cast<size_t>(it) * frame;
+      if constexpr (P == 0) {
+        const dim3 grid = pfdc::step_grid(ns, nxe, nze);
+        const dim3 block = pfdc::step_block();
+        rec_fwd_step<H><<<grid, block, 0, stream>>>(
+            cur, old, v2dt2, v2_shot_stride, mask, patch, r, sx, sz, wav[it],
+            swf_it, static_cast<size_t>(nt) * frame, nxb, nzb, nx, nz, nxe,
+            nze, c);
+      } else {
+        const dim3 grid = pfdc::mma_grid(ns, nxe, nze);
+        const dim3 block(pfdc::kMmaThreads);
+        rec_fwd_step_mma<H, P><<<grid, block, bytes, stream>>>(
+            cur, old, v2dt2, v2_shot_stride, mask, patch, r, sx, sz, wav[it],
+            swf_it, static_cast<size_t>(nt) * frame, nxb, nzb, nx, nz, nxe,
+            nze, c);
+      }
       const cudaError_t e = cudaGetLastError();
       if (e != cudaSuccess) return e;
     }
     return cudaSuccess;
+  }
+
+  template <int H>
+  cudaError_t operator()() const {
+    return pfdc::dispatch_parts<H>(*this, parts);
   }
 };
 
@@ -193,35 +312,56 @@ struct RecBwdRun {
   float* out;        // img (ns, nx, nz) in image mode, else rwf
   int ns, nxe, nze, nxb, nzb, nt;
   pfdc::Coefs c;
+  int parts;
   cudaStream_t stream;
 
-  template <int H, bool kImage>
+  template <int H, int P, bool kImage>
   cudaError_t run() const {
-    const dim3 grid = pfdc::step_grid(ns, nxe, nze);
-    const dim3 block = pfdc::step_block();
     const int nx = nxe - 2 * nxb;
     const int nz = nze - 2 * nzb;
     const size_t frame = static_cast<size_t>(nx) * nz;
+    const size_t bytes = pfdc::MmaTile<H>::kStageBytes;
+    if constexpr (P > 0) {
+      const cudaError_t e =
+          pfdc::allow_smem(rec_bwd_step_mma<H, P, kImage>, bytes);
+      if (e != cudaSuccess) return e;
+    }
     for (int it = 0; it < nt; ++it) {
       float* cur = (it % 2 == 0) ? a : b;
       float* old = (it % 2 == 0) ? b : a;
       const float* swf_rev =
           kImage ? swf + static_cast<size_t>(nt - 1 - it) * frame : nullptr;
       float* out_it = kImage ? out : out + static_cast<size_t>(it) * frame;
-      rec_bwd_step<H, kImage><<<grid, block, 0, stream>>>(
-          cur, old, v2dt2, v2_shot_stride, mask,
-          inj + static_cast<size_t>(it) * nx, static_cast<size_t>(nt) * nx,
-          x0, gz, swf_rev, out_it, static_cast<size_t>(nt) * frame, nxb, nzb,
-          nx, nz, nxe, nze, c);
+      const float* inj_it = inj + static_cast<size_t>(it) * nx;
+      if constexpr (P == 0) {
+        const dim3 grid = pfdc::step_grid(ns, nxe, nze);
+        const dim3 block = pfdc::step_block();
+        rec_bwd_step<H, kImage><<<grid, block, 0, stream>>>(
+            cur, old, v2dt2, v2_shot_stride, mask, inj_it,
+            static_cast<size_t>(nt) * nx, x0, gz, swf_rev, out_it,
+            static_cast<size_t>(nt) * frame, nxb, nzb, nx, nz, nxe, nze, c);
+      } else {
+        const dim3 grid = pfdc::mma_grid(ns, nxe, nze);
+        const dim3 block(pfdc::kMmaThreads);
+        rec_bwd_step_mma<H, P, kImage><<<grid, block, bytes, stream>>>(
+            cur, old, v2dt2, v2_shot_stride, mask, inj_it,
+            static_cast<size_t>(nt) * nx, x0, gz, swf_rev, out_it,
+            static_cast<size_t>(nt) * frame, nxb, nzb, nx, nz, nxe, nze, c);
+      }
       const cudaError_t e = cudaGetLastError();
       if (e != cudaSuccess) return e;
     }
     return cudaSuccess;
   }
 
+  template <int H, int P>
+  cudaError_t launch() const {
+    return swf != nullptr ? run<H, P, true>() : run<H, P, false>();
+  }
+
   template <int H>
   cudaError_t operator()() const {
-    return swf != nullptr ? run<H, true>() : run<H, false>();
+    return pfdc::dispatch_parts<H>(*this, parts);
   }
 };
 
@@ -230,18 +370,19 @@ struct RecBwdRun {
 // Runs nt steps of rec_fwd_step, writing the (ns, nt, nx, nz) interior
 // frames into swf. a and b hold the two fields (zeroed by the caller);
 // after the loop the newest field is in b when nt is odd, else in a.
-// Returns a cudaError_t.
+// parts: 0 for the exact taps (rec_fwd_step), 2 or 3 for the z taps in
+// that many bf16 splits (rec_fwd_step_mma). Returns a cudaError_t.
 extern "C" int pfdc_rec_fwd_run(float* a, float* b, const float* v2dt2,
                                 int v2_shot_stride, const float* mask,
                                 const float* patch, int r, const int* sx,
                                 int sz, const float* wav, float* swf, int ns,
                                 int nxe, int nze, int nxb, int nzb, int nt,
-                                int order, const float* cx, const float* cz,
-                                void* stream) {
+                                int order, int parts, const float* cx,
+                                const float* cz, void* stream) {
   const RecFwdRun run{a,   b,   v2dt2, v2_shot_stride, mask, patch, r,
                       sx,  sz,  wav,   swf,            ns,   nxe,   nze,
                       nxb, nzb, nt,    pfdc::make_coefs(order / 2, cx, cz),
-                      static_cast<cudaStream_t>(stream)};
+                      parts, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(pfdc::dispatch_half(order, run));
 }
 
@@ -249,17 +390,18 @@ extern "C" int pfdc_rec_fwd_run(float* a, float* b, const float* v2dt2,
 // With swf null (frame mode) it writes the (ns, nt, nx, nz) frames into
 // out; with swf the forward's frames (image mode) it adds each shot's
 // correlation into out, an (ns, nx, nz) image zeroed by the caller. Field
-// roles as for pfdc_rec_fwd_run. Returns a cudaError_t.
+// roles and parts (rec_bwd_step or rec_bwd_step_mma) as for
+// pfdc_rec_fwd_run. Returns a cudaError_t.
 extern "C" int pfdc_rec_bwd_run(float* a, float* b, const float* v2dt2,
                                 int v2_shot_stride, const float* mask,
                                 const float* inj, int x0, int gz,
                                 const float* swf, float* out, int ns, int nxe,
                                 int nze, int nxb, int nzb, int nt, int order,
-                                const float* cx, const float* cz,
+                                int parts, const float* cx, const float* cz,
                                 void* stream) {
   const RecBwdRun run{a,   b,   v2dt2, v2_shot_stride, mask, inj, x0,
                       gz,  swf, out,   ns,             nxe,  nze, nxb,
                       nzb, nt,  pfdc::make_coefs(order / 2, cx, cz),
-                      static_cast<cudaStream_t>(stream)};
+                      parts, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(pfdc::dispatch_half(order, run));
 }

@@ -1,12 +1,17 @@
 // fd_step / fd_update: one time step of the large-grid tier at K = 1 for
-// every shot of a batch, and the C entry points pfdc_fd_step_run and
-// pfdc_fd_update_run that launch one step on a stream.
+// every shot of a batch, their split-bf16 twins fd_step_mma and
+// fd_update_mma, and the C entry points pfdc_fd_step_run,
+// pfdc_fd_update_run and their *_mma_run siblings that launch one step on
+// a stream.
 //
 // Replaces: parallel_finite_difference_computation_tpu/ops/pallas_stream.py,
 // _kernel (:76), called through fd_step_padded (:111) by the JAX package's
 // forward_modeling_tiled and backward_recorded_tiled at block_k = 1; and
 // _kernel_update (:171), called through fd_update_padded (:284) for the
-// source reconstruction of rtm_shot_snapshot_tiled at block_k = 1. Those
+// source reconstruction of rtm_shot_snapshot_tiled at block_k = 1; the
+// *_mma kernels their use_mxu branch (_lap_dispatch, :64, through
+// pallas_stencil.py's _lap_taps_mxu: the z taps as the split-bf16 banded
+// product, then the x taps exact). Those
 // kernels stream row tiles of the padded layout through VMEM with a
 // double-buffered halo DMA; here one thread owns one cell of one shot
 // (threads along z, blockIdx.z the shot) and the Laplacian's neighbours
@@ -35,7 +40,16 @@
 // against ~40 flop a cell. fd_update reads p, pp and a v2*dt2 plane a shot
 // and writes one field: 8 planes. This first version stages nothing in
 // shared memory: the 2H+1 taps along x touch rows 2H apart, reread from L2.
-#include "kstep.cuh"
+//
+// fd_step_mma<H, P> and fd_update_mma<H, P> compute what their exact twins
+// compute, in the same order and with the same taper, but for the
+// Laplacian: the z taps as the P-part (2: lap_impl "mxu", 3: "mxu6")
+// split-bf16 banded product on the tensor cores, plus the exact x taps. A
+// block stages a 64 x 64 tile of p and its halo, writes the z product
+// behind a barrier and then takes its cells threads along z
+// (mma_tile.cuh). They read and write what the exact kernels do, so HBM
+// bounds them too; the stage adds a shared-memory pass and two barriers.
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -100,6 +114,75 @@ __global__ void fd_update(const float* __restrict__ p,
            v2dt2[s * static_cast<size_t>(v2_shot_stride) + j] * lap;
 }
 
+template <int H, int P>
+__global__ void __launch_bounds__(pfdc::kMmaThreads)
+    fd_step_mma(const float* __restrict__ p, const float* __restrict__ pp,
+                float* __restrict__ p_out, float* __restrict__ pp_out,
+                const float* __restrict__ v2dt2, int v2_shot_stride,
+                const float* __restrict__ xramp,
+                const float* __restrict__ zfac,
+                const float* __restrict__ strip,
+                const float* __restrict__ patch, int r,
+                const int* __restrict__ sx, int sz, float amp,
+                const float* __restrict__ inj, int inj_shot_stride, int x0,
+                int gz, int nx, int nxe, int nze, pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  float* t = smem;
+  float* zb = smem + pfdc::MmaTile<H>::kCells;
+  const int s = blockIdx.z;
+  const int bx = blockIdx.y * pfdc::kMmaTileX;
+  const int bz = blockIdx.x * pfdc::kMmaTileZ;
+  const size_t plane = static_cast<size_t>(nxe) * nze;
+  pfdc::stage_tile<H>(t, p + s * plane, bx, bz, nxe, nze);
+  pfdc::tile_z_mma<H, P>(zb, t, bx, bz, nxe, nze, c);
+  pfdc::for_tile_cells<H>(bx, bz, nxe, nze, [&](int ix, int iz, int jt,
+                                                int jz) {
+    const size_t j = static_cast<size_t>(ix) * nze + iz;
+    const size_t q = s * plane + j;
+    const float pc = t[jt];
+    const float lap = pfdc::split_lap<H>(t, zb, ix, iz, jt, jz, nxe, nze, c);
+    float u = (2.0f * pc - pp[q]) +
+              v2dt2[s * static_cast<size_t>(v2_shot_stride) + j] * lap;
+    if (patch != nullptr) {
+      const int dx = ix - sx[s];
+      const int dz = iz - sz;
+      if (dx >= -r && dx <= r && dz >= -r && dz <= r) {
+        u = u + amp * patch[(dx + r) * (2 * r + 1) + (dz + r)];
+      }
+    }
+    if (inj != nullptr && iz == gz && ix >= x0 && ix < x0 + nx) {
+      u = u + inj[s * static_cast<size_t>(inj_shot_stride) + (ix - x0)];
+    }
+    const float m = pfdc::taper_at(xramp, zfac, strip, ix, iz);
+    p_out[q] = pc * m;
+    pp_out[q] = u * m;
+  });
+}
+
+template <int H, int P>
+__global__ void __launch_bounds__(pfdc::kMmaThreads)
+    fd_update_mma(const float* __restrict__ p, const float* __restrict__ pp,
+                  float* __restrict__ out, const float* __restrict__ v2dt2,
+                  int v2_shot_stride, int nxe, int nze, pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  float* t = smem;
+  float* zb = smem + pfdc::MmaTile<H>::kCells;
+  const int s = blockIdx.z;
+  const int bx = blockIdx.y * pfdc::kMmaTileX;
+  const int bz = blockIdx.x * pfdc::kMmaTileZ;
+  const size_t plane = static_cast<size_t>(nxe) * nze;
+  pfdc::stage_tile<H>(t, p + s * plane, bx, bz, nxe, nze);
+  pfdc::tile_z_mma<H, P>(zb, t, bx, bz, nxe, nze, c);
+  pfdc::for_tile_cells<H>(bx, bz, nxe, nze, [&](int ix, int iz, int jt,
+                                                int jz) {
+    const size_t j = static_cast<size_t>(ix) * nze + iz;
+    const size_t q = s * plane + j;
+    const float lap = pfdc::split_lap<H>(t, zb, ix, iz, jt, jz, nxe, nze, c);
+    out[q] = (2.0f * t[jt] - pp[q]) +
+             v2dt2[s * static_cast<size_t>(v2_shot_stride) + j] * lap;
+  });
+}
+
 struct FdStepRun {
   const float* p;
   const float* pp;
@@ -118,16 +201,35 @@ struct FdStepRun {
   const float* inj;
   int inj_shot_stride, x0, gz, nx, ns, nxe, nze;
   pfdc::Coefs c;
+  int parts;
   cudaStream_t stream;
+
+  template <int H, int P>
+  cudaError_t launch() const {
+    if constexpr (P == 0) {
+      const dim3 grid = pfdc::step_grid(ns, nxe, nze);
+      const dim3 block = pfdc::step_block();
+      fd_step<H><<<grid, block, 0, stream>>>(
+          p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp, zfac, strip,
+          patch, r, sx, sz, amp, inj, inj_shot_stride, x0, gz, nx, nxe, nze,
+          c);
+    } else {
+      const size_t bytes = pfdc::MmaTile<H>::kStageBytes;
+      const cudaError_t e = pfdc::allow_smem(fd_step_mma<H, P>, bytes);
+      if (e != cudaSuccess) return e;
+      const dim3 grid = pfdc::mma_grid(ns, nxe, nze);
+      const dim3 block(pfdc::kMmaThreads);
+      fd_step_mma<H, P><<<grid, block, bytes, stream>>>(
+          p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp, zfac, strip,
+          patch, r, sx, sz, amp, inj, inj_shot_stride, x0, gz, nx, nxe, nze,
+          c);
+    }
+    return cudaGetLastError();
+  }
 
   template <int H>
   cudaError_t operator()() const {
-    const dim3 grid = pfdc::step_grid(ns, nxe, nze);
-    const dim3 block = pfdc::step_block();
-    fd_step<H><<<grid, block, 0, stream>>>(
-        p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp, zfac, strip,
-        patch, r, sx, sz, amp, inj, inj_shot_stride, x0, gz, nx, nxe, nze, c);
-    return cudaGetLastError();
+    return pfdc::dispatch_parts<H>(*this, parts);
   }
 };
 
@@ -138,17 +240,60 @@ struct FdUpdateRun {
   const float* v2dt2;
   int v2_shot_stride, ns, nxe, nze;
   pfdc::Coefs c;
+  int parts;
   cudaStream_t stream;
+
+  template <int H, int P>
+  cudaError_t launch() const {
+    if constexpr (P == 0) {
+      const dim3 grid = pfdc::step_grid(ns, nxe, nze);
+      const dim3 block = pfdc::step_block();
+      fd_update<H><<<grid, block, 0, stream>>>(p, pp, out, v2dt2,
+                                               v2_shot_stride, nxe, nze, c);
+    } else {
+      const size_t bytes = pfdc::MmaTile<H>::kStageBytes;
+      const cudaError_t e = pfdc::allow_smem(fd_update_mma<H, P>, bytes);
+      if (e != cudaSuccess) return e;
+      const dim3 grid = pfdc::mma_grid(ns, nxe, nze);
+      const dim3 block(pfdc::kMmaThreads);
+      fd_update_mma<H, P><<<grid, block, bytes, stream>>>(
+          p, pp, out, v2dt2, v2_shot_stride, nxe, nze, c);
+    }
+    return cudaGetLastError();
+  }
 
   template <int H>
   cudaError_t operator()() const {
-    const dim3 grid = pfdc::step_grid(ns, nxe, nze);
-    const dim3 block = pfdc::step_block();
-    fd_update<H><<<grid, block, 0, stream>>>(p, pp, out, v2dt2,
-                                             v2_shot_stride, nxe, nze, c);
-    return cudaGetLastError();
+    return pfdc::dispatch_parts<H>(*this, parts);
   }
 };
+
+int fd_step_run(const float* p, const float* pp, float* p_out,
+                float* pp_out, const float* v2dt2, int v2_shot_stride,
+                const float* xramp, const float* zfac, const float* strip,
+                const float* patch, int r, const int* sx, int sz,
+                const float* amp, const float* inj, int inj_shot_stride,
+                int x0, int gz, int nx, int ns, int nxe, int nze, int order,
+                int parts, const float* cx, const float* cz, void* stream) {
+  const FdStepRun run{p, pp, p_out, pp_out, v2dt2, v2_shot_stride,
+                      xramp, zfac, strip,
+                      amp != nullptr ? patch : nullptr, r, sx, sz,
+                      amp != nullptr ? *amp : 0.0f,
+                      inj, inj_shot_stride, x0, gz, nx, ns, nxe, nze,
+                      pfdc::make_coefs(order / 2, cx, cz), parts,
+                      static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(pfdc::dispatch_half(order, run));
+}
+
+int fd_update_run(const float* p, const float* pp, float* out,
+                  const float* v2dt2, int v2_shot_stride, int ns, int nxe,
+                  int nze, int order, int parts, const float* cx,
+                  const float* cz, void* stream) {
+  const FdUpdateRun run{p,   pp,  out, v2dt2, v2_shot_stride, ns,
+                        nxe, nze, pfdc::make_coefs(order / 2, cx, cz), parts,
+                        static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(pfdc::dispatch_half(order, run));
+}
 
 }  // namespace
 
@@ -168,14 +313,28 @@ extern "C" int pfdc_fd_step_run(const float* p, const float* pp,
                                 int gz, int nx, int ns, int nxe, int nze,
                                 int order, const float* cx, const float* cz,
                                 void* stream) {
-  const FdStepRun run{p, pp, p_out, pp_out, v2dt2, v2_shot_stride,
-                      xramp, zfac, strip,
-                      amp != nullptr ? patch : nullptr, r, sx, sz,
-                      amp != nullptr ? *amp : 0.0f,
-                      inj, inj_shot_stride, x0, gz, nx, ns, nxe, nze,
-                      pfdc::make_coefs(order / 2, cx, cz),
-                      static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(pfdc::dispatch_half(order, run));
+  return fd_step_run(p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp,
+                     zfac, strip, patch, r, sx, sz, amp, inj,
+                     inj_shot_stride, x0, gz, nx, ns, nxe, nze, order, 0, cx,
+                     cz, stream);
+}
+
+// The same step with the z taps in parts (2 or 3) bf16 splits:
+// fd_step_mma.
+extern "C" int pfdc_fd_step_mma_run(
+    const float* p, const float* pp, float* p_out, float* pp_out,
+    const float* v2dt2, int v2_shot_stride, const float* xramp,
+    const float* zfac, const float* strip, const float* patch, int r,
+    const int* sx, int sz, const float* amp, const float* inj,
+    int inj_shot_stride, int x0, int gz, int nx, int ns, int nxe, int nze,
+    int order, int parts, const float* cx, const float* cz, void* stream) {
+  if (parts != 2 && parts != 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return fd_step_run(p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp,
+                     zfac, strip, patch, r, sx, sz, amp, inj,
+                     inj_shot_stride, x0, gz, nx, ns, nxe, nze, order, parts,
+                     cx, cz, stream);
 }
 
 // Runs one fd_update from (p, pp) into out, all (ns, nxe, nze). Returns a
@@ -185,8 +344,21 @@ extern "C" int pfdc_fd_update_run(const float* p, const float* pp,
                                   int v2_shot_stride, int ns, int nxe,
                                   int nze, int order, const float* cx,
                                   const float* cz, void* stream) {
-  const FdUpdateRun run{p,   pp,  out, v2dt2, v2_shot_stride, ns,
-                        nxe, nze, pfdc::make_coefs(order / 2, cx, cz),
-                        static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(pfdc::dispatch_half(order, run));
+  return fd_update_run(p, pp, out, v2dt2, v2_shot_stride, ns, nxe, nze,
+                       order, 0, cx, cz, stream);
+}
+
+// The same update with the z taps in parts (2 or 3) bf16 splits:
+// fd_update_mma.
+extern "C" int pfdc_fd_update_mma_run(const float* p, const float* pp,
+                                      float* out, const float* v2dt2,
+                                      int v2_shot_stride, int ns, int nxe,
+                                      int nze, int order, int parts,
+                                      const float* cx, const float* cz,
+                                      void* stream) {
+  if (parts != 2 && parts != 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return fd_update_run(p, pp, out, v2dt2, v2_shot_stride, ns, nxe, nze,
+                       order, parts, cx, cz, stream);
 }

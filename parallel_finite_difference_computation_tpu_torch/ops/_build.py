@@ -51,14 +51,16 @@ _SIGNATURES = {
                          _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P],
     # pfdc_rec_fwd_run(a, b, v2dt2, v2_shot_stride, mask, patch, r, sx, sz,
-    #                  wav, swf, ns, nxe, nze, nxb, nzb, nt, order, cx, cz,
-    #                  stream)
+    #                  wav, swf, ns, nxe, nze, nxb, nzb, nt, order, parts,
+    #                  cx, cz, stream)
     "pfdc_rec_fwd_run": [_P, _P, _P, _I, _P, _P, _I, _P, _I,
-                         _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+                         _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                         _P],
     # pfdc_rec_bwd_run(a, b, v2dt2, v2_shot_stride, mask, inj, x0, gz, swf,
-    #                  out, ns, nxe, nze, nxb, nzb, nt, order, cx, cz, stream)
+    #                  out, ns, nxe, nze, nxb, nzb, nt, order, parts, cx, cz,
+    #                  stream)
     "pfdc_rec_bwd_run": [_P, _P, _P, _I, _P, _P, _I, _I, _P,
-                         _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+                         _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # pfdc_lap_run(p, out, nx, nz, order, cx, cz, stream)
     "pfdc_lap_run": [_P, _P, _I, _I, _I, _P, _P, _P],
     # pfdc_lap_padded_run(p, out, rows, pitch, nx, nz, order, parts, cx, cz,
@@ -121,6 +123,13 @@ _SIGNATURES = {
     # pfdc_fd_update_run(p, pp, out, v2dt2, v2_shot_stride, ns, nxe, nze,
     #                    order, cx, cz, stream)
     "pfdc_fd_update_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # pfdc_fd_step_mma_run, pfdc_fd_update_mma_run: the exact entry points'
+    # arguments with parts after order
+    "pfdc_fd_step_mma_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
+                             _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P, _P, _P],
+    "pfdc_fd_update_mma_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                               _P, _P],
     # pfdc_block_mod_run(p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp,
     #                    zfac, strip, src, r, sz, amps, k, rec, gz, ns, hs,
     #                    nxl, nze, order, cx, cz, stream)

@@ -23,6 +23,8 @@ per Laplacian apply), and is added to only where the kernels are launched.
 | ``mod_step_mma`` | ``csrc/step_mma.cu`` | ``pallas_fd.py`` MXU branch of ``_make_lap`` (:260-334) in ``_fwd_mod_kernel`` (:423) |
 | ``rtm_fwd_step_mma`` | ``csrc/step_mma.cu`` | the same in ``_rtm_kernel``'s forward (:534) |
 | ``rtm_bwd_step_mma`` | ``csrc/step_mma.cu`` | the same in ``_rtm_kernel``'s backward (:534) |
+| ``rec_fwd_step_mma`` | ``csrc/rec_step.cu`` | ``pallas_stream.py`` ``_kstep_rec_kernel``'s ``use_mxu`` branch (:1026-1033), source mode |
+| ``rec_bwd_step_mma`` | ``csrc/rec_step.cu`` | the same, receiver mode |
 
 The padded-layout stencil's two kernels, ``lap_padded`` and
 ``lap_padded_mma`` (``pallas_stencil.py`` ``_kernel_padded`` :546 and
@@ -33,11 +35,12 @@ package (:func:`resolve_lap_impl`): the exact taps (``None``, ``"vpu"``),
 the split-bf16 tensor-core tiers (``"mxu"``: 3 passes, ``"mxu6"``: 6), or
 ``"auto"``. The per-step tier runs all of them (``mod_step``/``rtm_*_step``
 exact, the ``*_step_mma`` kernels split, the x taps in bf16 parts), and so
-does the large-grid tier at K >= 2 (the ``kstep_*_mma`` and
-``gpu_step_mma`` kernels of :mod:`.stream`, the z taps in bf16 parts, as
-the JAX streaming kernels split them); the other tiers (K = 1, the
-``rtm_main`` kernels, the domain tiers) have the exact taps only and raise
-on a resolved ``mxu``/``mxu6`` (:func:`check_exact_taps`). The JAX
+do the large-grid tier (the ``*_mma`` kernels of :mod:`.stream`, the z
+taps in bf16 parts, as the JAX streaming kernels split them) and the
+``rtm_main`` kernels (``rec_*_step_mma``, the z taps split, as the JAX
+K-step recording kernel splits them). The domain tiers have the exact
+taps only and raise on a resolved ``mxu``/``mxu6``
+(:func:`check_exact_taps`). The JAX
 kernels' ``z_taps`` and ``taper_impl`` are Mosaic lowering choices with
 bitwise-identical results and are not ported.
 """
@@ -62,7 +65,8 @@ __all__ = ["LAUNCHES", "reset_launches", "MXU3_NT_MAX", "MXU6_NT_MAX",
 
 LAUNCHES = {"mod_step": 0, "rtm_fwd_step": 0, "rtm_bwd_step": 0,
             "rec_fwd_step": 0, "rec_bwd_step": 0, "lap_apply": 0,
-            "mod_step_mma": 0, "rtm_fwd_step_mma": 0, "rtm_bwd_step_mma": 0}
+            "mod_step_mma": 0, "rtm_fwd_step_mma": 0, "rtm_bwd_step_mma": 0,
+            "rec_fwd_step_mma": 0, "rec_bwd_step_mma": 0}
 
 
 def reset_launches() -> None:
@@ -141,18 +145,18 @@ def lap_parts(lap_impl, ctx: FDContext) -> int:
 def check_exact_taps(ctx: FDContext, lap_impl, tier: str) -> None:
     """Raises ``NotImplementedError`` where ``lap_impl`` resolves to a
     split-bf16 tier on a tier of the port that has the exact taps only
-    (``tier`` names it): the JAX package's ``use_mxu`` lowerings of its
-    per-step streaming (K = 1), ``rtm_main`` K-step and domain kernels are
-    still to be ported (ROADMAP.md, Queue 2). An ``auto`` that resolves to ``"vpu"``
-    passes."""
+    (``tier`` names it): the domain tiers, whose JAX block kernels' ``use_mxu``
+    lowerings (kernel-table rows 15-16) are still to be ported (ROADMAP.md,
+    Queue 2). An ``auto`` that resolves to ``"vpu"`` passes."""
     parts = lap_parts(lap_impl, ctx)
     if parts:
         raise NotImplementedError(
             f"lap_impl={lap_impl!r} resolves to the "
             f"{'mxu' if parts == 2 else 'mxu6'} tier here; {tier} has the "
-            f"exact taps only (its split-bf16 variant is still to be ported, "
-            f"see ROADMAP.md, Queue 2): use the per-step tier, the large-grid "
-            f"tier at block_k >= 2, or lap_impl='vpu'")
+            f"exact taps only (the split-bf16 variant of the block kernels, "
+            f"kernel-table rows 15-16, is still to be ported, see ROADMAP.md, "
+            f"Queue 2): use the per-step or the large-grid tier, or "
+            f"lap_impl='vpu'")
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -267,13 +271,10 @@ def forward_modeling_cuda(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
     a batch of shots: the counterpart of ``forward_modeling_pallas`` and of
     ``forward_modeling_tiled``. Returns ``(p, pp, recorded)`` as
     :func:`..solver.forward_modeling`: ``record="trace"`` and ``"none"``
-    run ``mod_step``, or ``mod_step_mma`` where ``lap_impl`` resolves to a
-    split-bf16 tier (:func:`lap_parts`); ``"wavefield"`` runs
-    ``rec_fwd_step``, which writes the (ns, nt, nx, nz) interior frames and
-    has the exact taps only."""
-    if record == "wavefield":
-        check_exact_taps(ctx, lap_impl, "the wavefield recording "
-                                        "(rec_fwd_step)")
+    run ``mod_step``, or ``mod_step_mma`` (the x taps split) where
+    ``lap_impl`` resolves to a split-bf16 tier (:func:`lap_parts`);
+    ``"wavefield"`` runs ``rec_fwd_step``, or ``rec_fwd_step_mma`` (the z
+    taps split), which write the (ns, nt, nx, nz) interior frames."""
     parts = lap_parts(lap_impl, ctx)
     if record not in solver.RECORD_MODES:
         raise ValueError(f"unknown record mode {record!r}")
@@ -301,14 +302,16 @@ def forward_modeling_cuda(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
     if record == "wavefield":
         rec = torch.empty((ns, ctx.nt, ctx.nx, ctx.nz), dtype=torch.float32,
                           device=dev)
+        name = "rec_fwd_step_mma" if parts else "rec_fwd_step"
         with torch.cuda.device(dev):
             rc = _build.library().pfdc_rec_fwd_run(
                 a.data_ptr(), b.data_ptr(), v2dt2.data_ptr(), v2_stride,
                 mask.data_ptr(), patch_d.data_ptr(), r, sx_d.data_ptr(), sz,
                 wav.ctypes.data, rec.data_ptr(), ns, ctx.nxe, ctx.nze,
-                ctx.nxb, ctx.nzb, ctx.nt, ctx.order, cx, cz, _stream(dev))
-        _raise_on(rc, "rec_fwd_step")
-        LAUNCHES["rec_fwd_step"] += ctx.nt
+                ctx.nxb, ctx.nzb, ctx.nt, ctx.order, parts, cx, cz,
+                _stream(dev))
+        _raise_on(rc, name)
+        LAUNCHES[name] += ctx.nt
     else:
         rec = torch.empty((ns, ctx.nt, ctx.nx), dtype=torch.float32,
                           device=dev)
@@ -354,11 +357,13 @@ def _next_shot_first(next_shot_first, ns: int, device) -> torch.Tensor:
 
 
 def _rec_bwd(ctx: FDContext, v2, dobs, gz: int, x_off_quirk, next_shot_first,
-             swf=None):
+             lap_impl, swf=None):
     """Checks the inputs of the receiver-mode step and routes them: the
-    plain version on the CPU, ``rec_bwd_step`` on the card. Without
-    ``swf`` (frame mode) returns ``(p, pp, rwf)``; with it (image mode)
-    returns the (ns, nx, nz) images."""
+    plain version on the CPU, ``rec_bwd_step`` (``rec_bwd_step_mma`` where
+    ``lap_impl`` resolves to a split-bf16 tier: the z taps split) on the
+    card. Without ``swf`` (frame mode) returns ``(p, pp, rwf)``; with it
+    (image mode) returns the (ns, nx, nz) images."""
+    parts = lap_parts(lap_impl, ctx)
     _check_order(ctx.order, _on_cuda(v2))
     dev = v2.device
     ns = _check_dobs(ctx, dobs, dev)
@@ -368,13 +373,14 @@ def _rec_bwd(ctx: FDContext, v2, dobs, gz: int, x_off_quirk, next_shot_first,
     if swf is not None:
         _check("swf", swf, (ns, ctx.nt, ctx.nx, ctx.nz), dev)
     if not _on_cuda(v2):
+        lap = solver.laplacian_of(ctx, parts, axis="z")
         if swf is None:
             return solver.backward_recorded(ctx, v2, dobs, gz,
                                             x_off_quirk=x_off_quirk,
-                                            next_shot_first=nxt)
+                                            next_shot_first=nxt, lap=lap)
         return solver.backward_image(ctx, v2, swf, dobs, gz,
                                      x_off_quirk=x_off_quirk,
-                                     next_shot_first=nxt)
+                                     next_shot_first=nxt, lap=lap)
     from . import _build
     v2dt2 = v2 * ctx.dt2
     mask = _dev_f32(ctx.mask_top, dev)
@@ -389,15 +395,16 @@ def _rec_bwd(ctx: FDContext, v2, dobs, gz: int, x_off_quirk, next_shot_first,
         out = torch.zeros((ns, ctx.nx, ctx.nz), dtype=torch.float32,
                           device=dev)
     keep, (cx, cz) = _coef_args(ctx)
+    name = "rec_bwd_step_mma" if parts else "rec_bwd_step"
     with torch.cuda.device(dev):
         rc = _build.library().pfdc_rec_bwd_run(
             a.data_ptr(), b.data_ptr(), v2dt2.data_ptr(), v2_stride,
             mask.data_ptr(), inj.data_ptr(), x0, gz,
             None if swf is None else swf.data_ptr(), out.data_ptr(), ns,
-            ctx.nxe, ctx.nze, ctx.nxb, ctx.nzb, ctx.nt, ctx.order, cx, cz,
-            _stream(dev))
-    _raise_on(rc, "rec_bwd_step")
-    LAUNCHES["rec_bwd_step"] += ctx.nt
+            ctx.nxe, ctx.nze, ctx.nxb, ctx.nzb, ctx.nt, ctx.order, parts, cx,
+            cz, _stream(dev))
+    _raise_on(rc, name)
+    LAUNCHES[name] += ctx.nt
     if swf is not None:
         return out
     newest, prev = _newest_prev(a, b, ctx.nt)
@@ -405,24 +412,28 @@ def _rec_bwd(ctx: FDContext, v2, dobs, gz: int, x_off_quirk, next_shot_first,
 
 
 def backward_recorded_cuda(ctx: FDContext, v2, dobs, gz: int,
-                           x_off_quirk: bool = True, next_shot_first=0.0):
+                           x_off_quirk: bool = True, next_shot_first=0.0,
+                           lap_impl=None):
     """``rtm_main``'s backward half for a batch of shots (``dobs`` (ns, nx,
     nt); ``next_shot_first`` one number or one per shot): the counterpart of
-    ``backward_recorded_tiled``, ``rec_bwd_step`` in frame mode. Returns
-    ``(p, pp, rwf)`` with rwf (ns, nt, nx, nz), as
-    :func:`..solver.backward_recorded`."""
-    return _rec_bwd(ctx, v2, dobs, gz, x_off_quirk, next_shot_first)
+    ``backward_recorded_tiled``, ``rec_bwd_step`` (``rec_bwd_step_mma``
+    under a split ``lap_impl``) in frame mode. Returns ``(p, pp, rwf)`` with
+    rwf (ns, nt, nx, nz), as :func:`..solver.backward_recorded`."""
+    return _rec_bwd(ctx, v2, dobs, gz, x_off_quirk, next_shot_first,
+                    lap_impl)
 
 
 def backward_image_cuda(ctx: FDContext, v2, swf, dobs, gz: int,
-                        x_off_quirk: bool = True, next_shot_first=0.0):
+                        x_off_quirk: bool = True, next_shot_first=0.0,
+                        lap_impl=None):
     """``rtm_main``'s backward half fused with its imaging for a batch of
-    shots: ``rec_bwd_step`` in image mode, correlating each step's frame
-    with ``swf[:, nt-1-it]`` without storing the receiver wavefield.
-    Returns the (ns, nx, nz) images, as :func:`..solver.backward_image`
-    (the sum runs in time order there, so the two agree to rounding)."""
+    shots: ``rec_bwd_step`` (``rec_bwd_step_mma`` under a split
+    ``lap_impl``) in image mode, correlating each step's frame with
+    ``swf[:, nt-1-it]`` without storing the receiver wavefield. Returns the
+    (ns, nx, nz) images, as :func:`..solver.backward_image` (the sum runs in
+    time order there, so the two agree to rounding)."""
     return _rec_bwd(ctx, v2, dobs, gz, x_off_quirk, next_shot_first,
-                    swf=swf)
+                    lap_impl, swf=swf)
 
 
 def rtm_full_cuda(ctx: FDContext, v2, wavelet, dobs, sx, sz: int, gz: int,
@@ -431,16 +442,18 @@ def rtm_full_cuda(ctx: FDContext, v2, wavelet, dobs, sx, sz: int, gz: int,
     """Full-wavefield RTM (``rtm_main``) for a batch of shots: the
     counterpart of ``rtm_shot_full_tiled``. ``rec_fwd_step`` stores the
     source wavefield, then ``rec_bwd_step`` in image mode reads it back in
-    reverse. Returns the (ns, nx, nz) images, as
-    :func:`..solver.rtm_shot_full`. Both kernels have the exact taps only:
-    a ``lap_impl`` that resolves to ``mxu``/``mxu6`` raises."""
-    check_exact_taps(ctx, lap_impl, "rtm_main (rec_fwd_step, rec_bwd_step)")
+    reverse; under a ``lap_impl`` that resolves to ``mxu``/``mxu6``, their
+    ``*_mma`` twins (the z taps split, as the JAX K-step recording kernel
+    splits them). Returns the (ns, nx, nz) images, as
+    :func:`..solver.rtm_shot_full`."""
+    parts = lap_parts(lap_impl, ctx)
     _, _, swf = forward_modeling_cuda(ctx, v2, wavelet, sx, sz, gz,
                                       source="point", taper="top",
-                                      record="wavefield")
+                                      record="wavefield", lap_impl=parts)
     return backward_image_cuda(ctx, v2, swf, dobs, gz,
                                x_off_quirk=x_off_quirk,
-                               next_shot_first=next_shot_first)
+                               next_shot_first=next_shot_first,
+                               lap_impl=parts)
 
 
 def laplacian_cuda(p, coefs_x, coefs_z, order: int):

@@ -31,12 +31,12 @@ sized, and a tile too large for it refused, by the K-step kernels' C entry
 points (``csrc/kstep.cuh``, ``allow_smem``); the wrappers raise on that
 refusal, naming the limit.
 
-The K-step wrappers and ``fd_step_gpu_cuda`` take ``parts``, the bf16
-splits of the Laplacian's z taps (:func:`.fd_kernels.lap_parts`): 0 runs
-the exact kernels; 2 (``lap_impl="mxu"``) and 3 (``"mxu6"``) the ``*_mma``
-kernels, which take the z taps as the split-bf16 banded product on the
-tensor cores as the JAX kernels' ``use_mxu`` branch does, and the plain
-passes with :func:`..solver.laplacian_of` (``axis="z"``) on the CPU.
+Every wrapper takes ``parts``, the bf16 splits of the Laplacian's z taps
+(:func:`.fd_kernels.lap_parts`): 0 runs the exact kernels; 2
+(``lap_impl="mxu"``) and 3 (``"mxu6"``) the ``*_mma`` kernels, which take
+the z taps as the split-bf16 banded product on the tensor cores as the JAX
+kernels' ``use_mxu`` branch does, and the plain versions with
+:func:`..solver.laplacian_of` (``axis="z"``) on the CPU.
 
 | kernel | source | replaces (JAX package, ``ops/pallas_stream.py``) |
 |---|---|---|
@@ -50,6 +50,8 @@ passes with :func:`..solver.laplacian_of` (``axis="z"``) on the CPU.
 | ``kstep_gpu_fwd_mma`` | ``csrc/kstep_gpu_fwd.cu`` | ``_kstep_gpu_fwd_kernel``'s (:753-761) |
 | ``kstep_gpu_bwd_mma`` | ``csrc/kstep_gpu_bwd.cu`` | ``_kstep_gpu_bwd_kernel``'s (:875-883) |
 | ``gpu_step_mma`` | ``csrc/gpu_step.cu`` | ``_kernel_gpu``'s (:220, ``_lap_dispatch`` :64) |
+| ``fd_step_mma`` | ``csrc/stream_step.cu`` | ``_kernel``'s (:79, ``_lap_dispatch`` :64) |
+| ``fd_update_mma`` | ``csrc/stream_step.cu`` | ``_kernel_update``'s (:177) |
 
 Every function of the JAX package that reaches ``pl.pallas_call``, and
 where the port stands with it (``PERF.md``, section 6, has the times):
@@ -63,13 +65,13 @@ where the port stands with it (``PERF.md``, section 6, has the times):
 | 5 | ``ops/pallas_fd.py:260-334`` MXU ``_make_lap`` | banded-matmul Laplacian | ``*_step_mma`` |
 | 6 | ``ops/pallas_stencil.py:60`` ``_kernel`` | interior Laplacian | ``lap_apply`` |
 | 7 | ``ops/pallas_stencil.py:546``, ``:429`` | padded-layout Laplacian | ``lap_padded``, ``lap_padded_mma`` (:mod:`.padded`) |
-| 8 | ``ops/pallas_stream.py:76`` ``_kernel`` | one fused CPU-flavor step | ``fd_step`` |
-| 9 | ``ops/pallas_stream.py:171`` ``_kernel_update`` | untapered leapfrog | ``fd_update`` |
+| 8 | ``ops/pallas_stream.py:76`` ``_kernel`` | one fused CPU-flavor step | ``fd_step``, ``fd_step_mma`` |
+| 9 | ``ops/pallas_stream.py:171`` ``_kernel_update`` | untapered leapfrog | ``fd_update``, ``fd_update_mma`` |
 | 10 | ``ops/pallas_stream.py:207`` ``_kernel_gpu`` | taper-first step, K5, K6 | ``gpu_step``, ``gpu_step_mma`` |
 | 11 | ``ops/pallas_stream.py:574`` ``_kstep_kernel`` | K CPU-flavor steps + trace | ``kstep_mod``, ``kstep_mod_mma`` |
 | 12 | ``ops/pallas_stream.py:740`` ``_kstep_gpu_fwd_kernel`` | K ``fd_forward`` steps | ``kstep_gpu_fwd``, ``kstep_gpu_fwd_mma`` |
 | 13 | ``ops/pallas_stream.py:857`` ``_kstep_gpu_bwd_kernel`` | K ``fd_back`` steps + K5/K6 | ``kstep_gpu_bwd``, ``kstep_gpu_bwd_mma`` |
-| 14 | ``ops/pallas_stream.py:1002`` ``_kstep_rec_kernel`` | K steps writing frames | ``rec_fwd_step``, ``rec_bwd_step`` |
+| 14 | ``ops/pallas_stream.py:1002`` ``_kstep_rec_kernel`` | K steps writing frames | ``rec_fwd_step``, ``rec_bwd_step``, their ``*_mma`` |
 | 15 | ``parallel/domain_pallas.py:115, :136, :189`` | x-slab blocked fwd/bwd/mod | ``block_fwd``, ``block_bwd``, ``block_mod`` (:mod:`..parallel.domain_kernels`) |
 | 16 | ``parallel/domain2d_pallas.py:99, :124, :178`` | (x, z) blocked fwd/bwd/mod | ``block2_fwd``, ``block2_bwd``, ``block2_mod`` (:mod:`..parallel.domain2d_kernels`) |
 """
@@ -95,7 +97,8 @@ __all__ = ["LAUNCHES", "reset_launches", "check_block_k", "Consts",
 LAUNCHES = {"fd_step": 0, "fd_update": 0, "kstep_mod": 0,
             "kstep_gpu_fwd": 0, "kstep_gpu_bwd": 0, "gpu_step": 0,
             "kstep_mod_mma": 0, "kstep_gpu_fwd_mma": 0,
-            "kstep_gpu_bwd_mma": 0, "gpu_step_mma": 0}
+            "kstep_gpu_bwd_mma": 0, "gpu_step_mma": 0, "fd_step_mma": 0,
+            "fd_update_mma": 0}
 
 # The most steps a pass takes (kMaxSteps of csrc/kstep.cuh).
 MAX_STEPS = 8
@@ -230,14 +233,15 @@ def _outputs(like, n: int, out):
 def fd_step_cuda(ctx: FDContext, p, pp, v2, taper: str = "all", amp=None,
                  sx=None, sz: int = 0, source: str = "gaussian",
                  inj_row=None, x0: int = 0, gz: int = 0, consts=None,
-                 out=None):
+                 out=None, parts: int = 0):
     """One fused CPU-flavor step from the state ``(p, pp)`` (ns, nxe, nze),
     ``pp`` tapered, with the optional injection before the taper: the
     source window ``amp * patch`` at ``(sx[s], sz)`` (``source`` Gaussian
     or point) when ``amp`` is given, the receiver row ``inj_row`` (ns, nx)
     on row gz from x0 (clamped into the grid) when it is given.
-    ``fd_step`` on the card, into the buffers ``out`` if given;
-    :func:`..solver.fd_step` on the CPU. Returns ``(p*m, (u + inj)*m)``."""
+    ``fd_step`` (``fd_step_mma`` with the z taps in ``parts`` bf16 splits)
+    on the card, into the buffers ``out`` if given; :func:`..solver.fd_step`
+    on the CPU. Returns ``(p*m, (u + inj)*m)``."""
     if taper not in ("all", "top"):
         raise ValueError(f"unknown taper {taper!r}")
     ns = _check_state(ctx, v2, p=p, pp=pp)
@@ -255,51 +259,64 @@ def fd_step_cuda(ctx: FDContext, p, pp, v2, taper: str = "all", amp=None,
                            p.device)
         x0 = receiver_x0(x0, ctx.nx, ctx.nxe)
     _check_out(p, 2, out, p, pp)
+    parts, name, lap = _split(ctx, parts, "fd_step")
     _check_order(ctx.order, _on_cuda(p))
     if not _on_cuda(p):
         return solver.fd_step(ctx, p, pp, v2, taper, amp, sxs, sz, source,
-                              inj_row, x0, gz)
+                              inj_row, x0, gz, lap)
     from . import _build
     outs = _outputs(p, 2, out)
     c = _consts(consts, ctx, v2, sxs, None if amp is None else source, taper)
     amps = np.float32([0.0 if amp is None else amp])
     xr, zf, st = c.ramps
-    with torch.cuda.device(p.device):
-        rc = _build.library().pfdc_fd_step_run(
-            p.data_ptr(), pp.data_ptr(), *(o.data_ptr() for o in outs),
+    args = (p.data_ptr(), pp.data_ptr(), *(o.data_ptr() for o in outs),
             c.v2dt2.data_ptr(), c.v2_stride, xr.data_ptr(), zf.data_ptr(),
             st.data_ptr(), c.patch.data_ptr(), c.patch.shape[0] // 2,
             c.sx.data_ptr(), sz, None if amp is None else amps.ctypes.data,
             None if inj_row is None else inj_row.data_ptr(), inj_stride, x0,
-            gz, ctx.nx, ns, ctx.nxe, ctx.nze, ctx.order, *c.coef_ptrs,
-            _stream(p.device))
-    _raise_on(rc, "fd_step")
-    LAUNCHES["fd_step"] += 1
+            gz, ctx.nx, ns, ctx.nxe, ctx.nze, ctx.order)
+    with torch.cuda.device(p.device):
+        lib = _build.library()
+        if parts:
+            rc = lib.pfdc_fd_step_mma_run(*args, parts, *c.coef_ptrs,
+                                          _stream(p.device))
+        else:
+            rc = lib.pfdc_fd_step_run(*args, *c.coef_ptrs, _stream(p.device))
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return tuple(outs)
 
 
-def fd_update_cuda(ctx: FDContext, p, pp, v2, consts=None, out=None):
+def fd_update_cuda(ctx: FDContext, p, pp, v2, consts=None, out=None,
+                   parts: int = 0):
     """The untapered leapfrog update ``2p - pp + v2*dt2*lap(p)`` of the
     state ``(p, pp)`` (ns, nxe, nze), ``fd_back``'s source reconstruction:
-    ``fd_update`` on the card, into the buffer ``out`` if given;
+    ``fd_update`` (``fd_update_mma`` with the z taps in ``parts`` bf16
+    splits) on the card, into the buffer ``out`` if given;
     :func:`..solver.fd_update` on the CPU."""
     ns = _check_state(ctx, v2, p=p, pp=pp)
     out = None if out is None else (out,)
     _check_out(p, 1, out, p, pp)
+    parts, name, lap = _split(ctx, parts, "fd_update")
     _check_order(ctx.order, _on_cuda(p))
     if not _on_cuda(p):
-        return solver.fd_update(ctx, p, pp, v2)
+        return solver.fd_update(ctx, p, pp, v2, lap)
     from . import _build
     (res,) = _outputs(p, 1, out)
     c = _consts(consts, ctx, v2,
                 taper="top" if consts is None else consts.taper)
+    args = (p.data_ptr(), pp.data_ptr(), res.data_ptr(), c.v2dt2.data_ptr(),
+            c.v2_stride, ns, ctx.nxe, ctx.nze, ctx.order)
     with torch.cuda.device(p.device):
-        rc = _build.library().pfdc_fd_update_run(
-            p.data_ptr(), pp.data_ptr(), res.data_ptr(), c.v2dt2.data_ptr(),
-            c.v2_stride, ns, ctx.nxe, ctx.nze, ctx.order, *c.coef_ptrs,
-            _stream(p.device))
-    _raise_on(rc, "fd_update")
-    LAUNCHES["fd_update"] += 1
+        lib = _build.library()
+        if parts:
+            rc = lib.pfdc_fd_update_mma_run(*args, parts, *c.coef_ptrs,
+                                            _stream(p.device))
+        else:
+            rc = lib.pfdc_fd_update_run(*args, *c.coef_ptrs,
+                                        _stream(p.device))
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return res
 
 

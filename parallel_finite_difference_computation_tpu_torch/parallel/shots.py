@@ -123,13 +123,15 @@ def make_sharded_rtm_full_cuda(ctx, mesh, sz: int, gz: int):
     (the counterpart of ``make_sharded_rtm_full_tiled``): ``fn(v2, dobs,
     sxs, nxts, wavelet) -> (ns, nx, nz)`` images, ``v2`` (nxe, nze) shared
     (``rtm_main.cpp:113-132``), ``nxts`` each shot's cross-shot it=0
-    flat-read sample (``rtm_main.cpp:202``)."""
+    flat-read sample (``rtm_main.cpp:202``). The exact taps, whatever
+    ``PFDC_LAP_IMPL`` says, as the JAX lax ``rtm_shot_full`` this tier
+    stands for."""
     def fn(v2, dobs, sxs, nxts, wavelet):
         sxs, wav = shot_positions(sxs), host_wavelet(wavelet)
         nxts = np.asarray(nxts, np.float32)
         return _run_groups(mesh, len(sxs), lambda dev, idx, d: rtm_full_cuda(
             ctx, _on(v2, dev), wav, d, [sxs[s] for s in idx], sz, gz,
-            next_shot_first=nxts[idx]), dobs)
+            next_shot_first=nxts[idx], lap_impl="vpu"), dobs)
     return fn
 
 

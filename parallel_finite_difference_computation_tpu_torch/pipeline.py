@@ -296,6 +296,12 @@ def run_rtm_cpu(p: Params, vp: Optional[np.ndarray] = None,
     the JAX tiled tier runs (``_kstep_rec_kernel``); at K = 1 the tiled
     tier runs ``fd_step``.
 
+    The Laplacian follows the JAX package's tiers: ``"pallas"`` stands for
+    its lax ``rtm_shot_full``, which has the exact taps only, so it runs
+    them whatever ``PFDC_LAP_IMPL`` says; ``"tiled"`` resolves the
+    ``PFDC_LAP_IMPL`` snapshot (``lap_impl=None``, as the JAX tiled tier
+    does) and runs the ``*_mma`` twins under a split tier.
+
     Returns host ``(img, imlocs)``: the stacked (nx, nz) image and the
     (ns, nx, nz) per-shot images. With ``outdir``, writes ``dir.image``
     (stack) and ``dir.img`` (the per-shot images one after another), as
@@ -345,7 +351,8 @@ def run_rtm_cpu(p: Params, vp: Optional[np.ndarray] = None,
     else:
         vel2 = vel2.to(device)
         rtm, kw = ((rtm_shot_full_tiled, {"block_k": TILED_BLOCK_K})
-                   if tier == "tiled" else (rtm_full_cuda, {}))
+                   if tier == "tiled"
+                   else (rtm_full_cuda, {"lap_impl": "vpu"}))
         run = lambda d, sxs, nx1: rtm(
             ctx, vel2, wav, d.to(device), sxs, g.sz, g.gz,
             next_shot_first=nx1, **kw)

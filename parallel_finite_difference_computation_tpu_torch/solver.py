@@ -213,7 +213,7 @@ def _mod_step(ctx: FDContext, p, pp, v2, mask, amp: float, sxs, sz: int,
 
 def fd_step(ctx: FDContext, p, pp, v2, taper: str = "all", amp=None,
             sx=None, sz: int = 0, source: str = "gaussian", inj_row=None,
-            x0: int = 0, gz: int = 0):
+            x0: int = 0, gz: int = 0, lap=None):
     """One fused CPU-flavor step from the state ``(p, pp)`` (ns, nxe, nze),
     pp tapered: the plain version of the ``fd_step`` kernel and of the JAX
     package's ``_kernel`` (``ops/pallas_stream.py:76-108``),
@@ -222,11 +222,12 @@ def fd_step(ctx: FDContext, p, pp, v2, taper: str = "all", amp=None,
     in the reference's order: with ``amp``, the ``source`` window
     (Gaussian patch or point) scaled by ``amp`` at ``(sx[s], sz)``; with
     ``inj_row`` (ns, nx), the receiver row on row gz from x0 (clamped into
-    the grid, :func:`.ops.stencil.receiver_x0`)."""
+    the grid, :func:`.ops.stencil.receiver_x0`). ``lap``: the Laplacian
+    (:func:`fd_update`)."""
     patch = _patch(ctx, source, p.device)
     return _step(ctx, p, pp, v2, _mask(ctx, taper, p.device), amp,
                  None if amp is None else shot_positions(sx), sz, patch,
-                 inj_row, x0, gz)
+                 inj_row, x0, gz, lap)
 
 
 def forward_modeling(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
@@ -236,9 +237,11 @@ def forward_modeling(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
     and ``rtm_main``'s forward half (``rtm_main.cpp:166-188``). Per step:
     leapfrog update, source injection into the *new* field, taper both
     fields, record from the tapered *old* field, swap. ``lap_impl`` selects
-    the Laplacian (:func:`laplacian_of`): the exact taps, or the x taps in
-    split bf16 as the JAX package's ``forward_modeling_pallas(lap_impl=...)``
-    runs them.
+    the Laplacian (:func:`laplacian_of`): the exact taps, or split bf16 as
+    the JAX package's tier for the record mode runs them: for traces (or
+    none) the x taps, as ``forward_modeling_pallas(lap_impl=...)`` does;
+    for the wavefield the z taps, as ``forward_modeling_tiled(record=
+    "wavefield", lap_impl=...)`` does (``rtm_main``'s recording kernel).
 
     Returns ``(p, pp, recorded)``: the final fields (ns, nxe, nze) and, by
     ``record``, the (ns, nt, nx) seismograms ``seis[s, it, ix] =
@@ -251,7 +254,8 @@ def forward_modeling(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
     wav = host_wavelet(wavelet)
     mask = _mask(ctx, taper, v2.device)
     patch = _patch(ctx, source, v2.device)
-    lap = laplacian_of(ctx, lap_impl)
+    lap = laplacian_of(ctx, lap_impl,
+                       axis="z" if record == "wavefield" else "x")
     p = _zero_fields(ctx, len(sxs), v2)
     pp = _zero_fields(ctx, len(sxs), v2)
     rec = None
@@ -323,13 +327,16 @@ def receiver_offset(ctx: FDContext, x_off_quirk: bool = True) -> int:
 
 
 def backward_recorded(ctx: FDContext, v2, dobs, gz: int,
-                      x_off_quirk: bool = True, next_shot_first=0.0):
+                      x_off_quirk: bool = True, next_shot_first=0.0,
+                      lap=None):
     """``rtm_main``'s backward half (``rtm_main.cpp:196-220``) for a batch
     of shots: propagate the time-reversed observed data ``dobs`` (ns, nx,
     nt), injected along row ``gz`` (:func:`_injection_rows`, at the x
     offset of :func:`receiver_offset`), with the CPU-flavor step and the
     top-strip taper, and record the interior of the tapered time-t field.
-    ``next_shot_first`` is one number or one per shot.
+    ``next_shot_first`` is one number or one per shot; ``lap``: the
+    Laplacian (:func:`fd_update`). The plain version of ``rec_bwd_step``
+    and ``rec_bwd_step_mma`` in frame mode.
 
     Returns ``(p, pp, rwf)`` with rwf (ns, nt, nx, nz)."""
     mask = torch.as_tensor(ctx.mask_top, device=v2.device)
@@ -341,35 +348,40 @@ def backward_recorded(ctx: FDContext, v2, dobs, gz: int,
     rwf = dobs.new_empty((ns, ctx.nt, ctx.nx, ctx.nz))
     for it in range(ctx.nt):
         pm, new = _step(ctx, p, pp, v2, mask, inj_row=inj[:, it], x0=x0,
-                        gz=gz)
+                        gz=gz, lap=lap)
         rwf[:, it] = _interior(ctx, pm)
         p, pp = new, pm
     return p, pp, rwf
 
 
 def backward_image(ctx: FDContext, v2, swf, dobs, gz: int,
-                   x_off_quirk: bool = True, next_shot_first=0.0):
-    """:func:`backward_recorded` then ``rtm_main``'s zero-lag correlation
-    with the stored source wavefield ``swf`` (ns, nt, nx, nz):
-    ``imloc = sum_it swf[nt-1-it] * rwf[it]`` (``rtm_main.cpp:223-229``),
-    summed as ``jnp.sum(swf[::-1] * rwf, axis=0)`` sums. Returns the
-    (ns, nx, nz) per-shot images."""
+                   x_off_quirk: bool = True, next_shot_first=0.0, lap=None):
+    """:func:`backward_recorded` (with the Laplacian ``lap``) then
+    ``rtm_main``'s zero-lag correlation with the stored source wavefield
+    ``swf`` (ns, nt, nx, nz): ``imloc = sum_it swf[nt-1-it] * rwf[it]``
+    (``rtm_main.cpp:223-229``), summed as ``jnp.sum(swf[::-1] * rwf,
+    axis=0)`` sums. Returns the (ns, nx, nz) per-shot images."""
     _, _, rwf = backward_recorded(ctx, v2, dobs, gz, x_off_quirk=x_off_quirk,
-                                  next_shot_first=next_shot_first)
+                                  next_shot_first=next_shot_first, lap=lap)
     return (swf.flip(1) * rwf).sum(1)
 
 
 def rtm_shot_full(ctx: FDContext, v2, wavelet, dobs, sx, sz: int, gz: int,
-                  x_off_quirk: bool = True, next_shot_first=0.0):
+                  x_off_quirk: bool = True, next_shot_first=0.0,
+                  lap_impl=None):
     """Full-wavefield-storage RTM, the ``rtm_main`` shot body
     (``rtm_main.cpp:158-247``): :func:`forward_modeling` with a point
     source, the top-strip taper and ``record="wavefield"``, then
-    :func:`backward_image`. Returns the (ns, nx, nz) per-shot images."""
+    :func:`backward_image`, both with the Laplacian ``lap_impl`` selects:
+    the exact taps, or the z taps in split bf16, as the JAX K-step
+    recording kernel (``_kstep_rec_kernel``) takes them. Returns the (ns,
+    nx, nz) per-shot images."""
     _, _, swf = forward_modeling(ctx, v2, wavelet, sx, sz, gz,
                                  source="point", taper="top",
-                                 record="wavefield")
+                                 record="wavefield", lap_impl=lap_impl)
     return backward_image(ctx, v2, swf, dobs, gz, x_off_quirk=x_off_quirk,
-                          next_shot_first=next_shot_first)
+                          next_shot_first=next_shot_first,
+                          lap=laplacian_of(ctx, lap_impl, axis="z"))
 
 
 def _gpu_step(ctx: FDContext, y, x, v2, mask, gz: int = 0, inj_row=None,
@@ -502,7 +514,8 @@ def forward_modeling_tiled(ctx: FDContext, v2, wavelet, sx, sz: int,
     """:func:`forward_modeling` through the large-grid tier (the JAX
     package's ``forward_modeling_tiled``, ``solver.py:184-355``), with its
     ``source``, ``taper`` and ``record`` modes. Returns ``(p, pp,
-    recorded)`` as :func:`forward_modeling`, bitwise its on the CPU.
+    recorded)`` as :func:`forward_modeling`, bitwise its on the CPU (under
+    a split ``lap_impl``, where it splits the z taps: the wavefield).
 
     ``block_k=1``, the per-step streaming tier: one
     :func:`.ops.stream.fd_step_cuda` a step (the ``fd_step`` kernel on the
@@ -516,18 +529,15 @@ def forward_modeling_tiled(ctx: FDContext, v2, wavelet, sx, sz: int,
     K-step recording kernel.
 
     ``lap_impl`` (:func:`.ops.fd_kernels.lap_parts`) as in the JAX
-    package: at K >= 2 with traces or none, a split-bf16 tier runs
-    ``kstep_mod_mma``, the z taps in 2 or 3 bf16 parts (the JAX K-step
-    kernel's ``use_mxu`` branch; :func:`laplacian_of` with ``axis="z"`` on
-    the CPU). K = 1 and the wavefield recording have the exact taps only
-    and raise ``NotImplementedError`` on a resolved ``mxu``/``mxu6``."""
+    package: a split-bf16 tier takes the z taps in 2 or 3 bf16 parts (the
+    JAX streaming kernels' ``use_mxu`` branch; :func:`laplacian_of` with
+    ``axis="z"`` on the CPU): ``fd_step_mma`` at K = 1, ``kstep_mod_mma``
+    at K >= 2, ``rec_fwd_step_mma`` for the wavefield at K >= 2."""
     from .ops import stream
-    from .ops.fd_kernels import (check_exact_taps, forward_modeling_cuda,
-                                 lap_parts, _check_gz, _check_wavelet)
+    from .ops.fd_kernels import (forward_modeling_cuda, lap_parts, _check_gz,
+                                 _check_wavelet)
     K = stream.check_block_k(block_k)
-    if K == 1:
-        check_exact_taps(ctx, lap_impl, "the per-step streaming tier "
-                                        "(forward_modeling_tiled, K = 1)")
+    parts = lap_parts(lap_impl, ctx)
     if record not in RECORD_MODES:
         raise ValueError(f"unknown record mode {record!r}")
     if taper not in ("all", "top"):
@@ -535,11 +545,9 @@ def forward_modeling_tiled(ctx: FDContext, v2, wavelet, sx, sz: int,
     sxs = shot_positions(sx)
     wav = _check_wavelet(ctx, wavelet)
     if K > 1 and record == "wavefield":
-        check_exact_taps(ctx, lap_impl, "the wavefield recording "
-                                        "(rec_fwd_step)")
         return forward_modeling_cuda(ctx, v2, wav, sxs, sz, gz, source=source,
-                                     taper=taper, record=record)
-    parts = lap_parts(lap_impl, ctx)
+                                     taper=taper, record=record,
+                                     lap_impl=parts)
     consts = stream.prepare(ctx, v2, sxs, source=source, taper=taper)
     ns = len(sxs)
     p = _zero_fields(ctx, ns, v2)
@@ -563,7 +571,8 @@ def forward_modeling_tiled(ctx: FDContext, v2, wavelet, sx, sz: int,
     for it in range(ctx.nt):
         pm, new = stream.fd_step_cuda(ctx, p, pp, v2, taper,
                                       amp=float(wav[it]), sx=sxs, sz=sz,
-                                      source=source, consts=consts, out=spare)
+                                      source=source, consts=consts, out=spare,
+                                      parts=parts)
         if record == "trace":
             rec[:, it] = pm[:, ctx.nxb:ctx.nxb + ctx.nx, gz]
         elif record == "wavefield":
@@ -574,12 +583,13 @@ def forward_modeling_tiled(ctx: FDContext, v2, wavelet, sx, sz: int,
 
 
 def _backward_steps(ctx: FDContext, v2, dobs, gz: int, x_off_quirk,
-                    next_shot_first, swf=None):
+                    next_shot_first, parts: int, swf=None):
     """``rtm_main``'s backward half one :func:`.ops.stream.fd_step_cuda` a
     step (top-strip taper, the receiver row of :func:`_injection_rows` at
-    :func:`receiver_offset` folded in before it), two buffer pairs swapped
-    every step. Without ``swf`` returns ``(p, pp, rwf)``; with the source
-    wavefield ``swf`` (ns, nt, nx, nz) returns the (ns, nx, nz) images,
+    :func:`receiver_offset` folded in before it; the z taps in ``parts``
+    bf16 splits), two buffer pairs swapped every step. Without ``swf``
+    returns ``(p, pp, rwf)``; with the source wavefield ``swf`` (ns, nt,
+    nx, nz) returns the (ns, nx, nz) images,
     ``img += swf[:, nt-1-it] * frame`` each step in time order, so that no
     receiver wavefield is held."""
     from .ops import stream
@@ -603,7 +613,7 @@ def _backward_steps(ctx: FDContext, v2, dobs, gz: int, x_off_quirk,
     for it in range(ctx.nt):
         pm, new = stream.fd_step_cuda(ctx, p, pp, v2, "top",
                                       inj_row=inj[:, it], x0=x0, gz=gz,
-                                      consts=consts, out=spare)
+                                      consts=consts, out=spare, parts=parts)
         if swf is None:
             out[:, it] = _interior(ctx, pm)
         else:
@@ -622,18 +632,21 @@ def backward_recorded_tiled(ctx: FDContext, v2, dobs, gz: int,
     tiled tier's missing clamp of the row is not copied: the row sits at
     :func:`receiver_offset`); at K in 2..8 ``rec_bwd_step`` in frame mode
     (:func:`.ops.fd_kernels.backward_recorded_cuda`), the port of the JAX
-    K-step recording kernel. ``dobs`` is (ns, nx, nt), ``next_shot_first``
-    one number or one per shot. Returns ``(p, pp, rwf)`` with rwf (ns, nt,
-    nx, nz), bitwise :func:`backward_recorded`'s on the CPU."""
+    K-step recording kernel; under a split ``lap_impl`` (the z taps in bf16
+    parts, :func:`forward_modeling_tiled`) their ``*_mma`` twins. ``dobs``
+    is (ns, nx, nt), ``next_shot_first`` one number or one per shot.
+    Returns ``(p, pp, rwf)`` with rwf (ns, nt, nx, nz), bitwise
+    :func:`backward_recorded`'s (with the same Laplacian) on the CPU."""
     from .ops import stream
-    from .ops.fd_kernels import backward_recorded_cuda, check_exact_taps
-    check_exact_taps(ctx, lap_impl, "rtm_main's large-grid tier "
-                                    "(backward_recorded_tiled)")
+    from .ops.fd_kernels import backward_recorded_cuda, lap_parts
+    parts = lap_parts(lap_impl, ctx)
     if stream.check_block_k(block_k) > 1:
         return backward_recorded_cuda(ctx, v2, dobs, gz,
                                       x_off_quirk=x_off_quirk,
-                                      next_shot_first=next_shot_first)
-    return _backward_steps(ctx, v2, dobs, gz, x_off_quirk, next_shot_first)
+                                      next_shot_first=next_shot_first,
+                                      lap_impl=parts)
+    return _backward_steps(ctx, v2, dobs, gz, x_off_quirk, next_shot_first,
+                           parts)
 
 
 def rtm_shot_full_tiled(ctx: FDContext, v2, wavelet, dobs, sx, sz: int,
@@ -647,22 +660,24 @@ def rtm_shot_full_tiled(ctx: FDContext, v2, wavelet, dobs, sx, sz: int,
     ``swf[:, nt-1-it] * frame`` into the image each step, in time order, so
     the card holds one wavefield volume, as ``rec_bwd_step``'s image mode
     does. At K in 2..8: :func:`.ops.fd_kernels.rtm_full_cuda`
-    (``rec_fwd_step``, ``rec_bwd_step``). Returns the (ns, nx, nz) images;
-    on the CPU they equal :func:`rtm_shot_full`'s up to the summation
-    order of the image."""
+    (``rec_fwd_step``, ``rec_bwd_step``). ``lap_impl`` as in
+    :func:`forward_modeling_tiled`: a split tier runs the ``*_mma`` twins.
+    Returns the (ns, nx, nz) images; on the CPU they equal
+    :func:`rtm_shot_full`'s (with the same ``lap_impl``) up to the
+    summation order of the image."""
     from .ops import stream
-    from .ops.fd_kernels import check_exact_taps, rtm_full_cuda
-    check_exact_taps(ctx, lap_impl, "rtm_main's large-grid tier "
-                                    "(rtm_shot_full_tiled)")
+    from .ops.fd_kernels import lap_parts, rtm_full_cuda
+    parts = lap_parts(lap_impl, ctx)
     if stream.check_block_k(block_k) > 1:
         return rtm_full_cuda(ctx, v2, wavelet, dobs, sx, sz, gz,
                              x_off_quirk=x_off_quirk,
-                             next_shot_first=next_shot_first)
+                             next_shot_first=next_shot_first, lap_impl=parts)
     _, _, swf = forward_modeling_tiled(ctx, v2, wavelet, sx, sz, gz,
                                        source="point", taper="top",
-                                       record="wavefield", block_k=1)
+                                       record="wavefield", block_k=1,
+                                       lap_impl=parts)
     return _backward_steps(ctx, v2, dobs, gz, x_off_quirk, next_shot_first,
-                           swf)
+                           parts, swf)
 
 
 def rtm_shot_snapshot_tiled(ctx: FDContext, v2, wavelet, dobs, sx, sz: int,
@@ -682,18 +697,13 @@ def rtm_shot_snapshot_tiled(ctx: FDContext, v2, wavelet, dobs, sx, sz: int,
     ``dobs`` is (ns, nx, nt). Returns the (ns, nx, nz) images.
 
     ``lap_impl`` (:func:`.ops.fd_kernels.lap_parts`) as in the JAX
-    package: at K >= 2 a split-bf16 tier runs ``kstep_gpu_fwd_mma``,
-    ``gpu_step_mma`` (the seed steps) and ``kstep_gpu_bwd_mma``, the z taps
-    in 2 or 3 bf16 parts (:func:`laplacian_of` with ``axis="z"`` on the
-    CPU). K = 1 has the exact taps only and raises
-    ``NotImplementedError`` on a resolved ``mxu``/``mxu6``."""
+    package: a split-bf16 tier takes the z taps in 2 or 3 bf16 parts
+    (:func:`laplacian_of` with ``axis="z"`` on the CPU): ``gpu_step_mma``
+    and ``fd_update_mma`` at K = 1; ``kstep_gpu_fwd_mma``, ``gpu_step_mma``
+    (the seed steps) and ``kstep_gpu_bwd_mma`` at K >= 2."""
     from .ops import stream
-    from .ops.fd_kernels import (check_exact_taps, lap_parts,
-                                 _check_wavelet, _check_window)
+    from .ops.fd_kernels import lap_parts, _check_wavelet, _check_window
     K = stream.check_block_k(block_k)
-    if K == 1:
-        check_exact_taps(ctx, lap_impl, "the per-step streaming tier "
-                                        "(rtm_shot_snapshot_tiled, K = 1)")
     parts = lap_parts(lap_impl, ctx)
     sxs = shot_positions(sx)
     wav = _check_wavelet(ctx, wavelet)
@@ -708,7 +718,7 @@ def rtm_shot_snapshot_tiled(ctx: FDContext, v2, wavelet, dobs, sx, sz: int,
         spare = (torch.empty_like(p), torch.empty_like(p))
         for amp in wav:
             t, new = stream.fd_step_gpu_cuda(ctx, pp, p, v2, consts=consts,
-                                             out=spare)
+                                             out=spare, parts=parts)
             new[shots, xs, sz] += float(amp)
             spare = (p, pp)
             p, pp = t, new
@@ -732,11 +742,12 @@ def rtm_shot_snapshot_tiled(ctx: FDContext, v2, wavelet, dobs, sx, sz: int,
     spare_r = (torch.empty_like(ps), torch.empty_like(ps))
     for it in range(2, ctx.nt):
         src = stream.fd_update_cuda(ctx, ps, pps, v2, consts=consts,
-                                    out=spare_s)
+                                    out=spare_s, parts=parts)
         spare_s, pps, ps = pps, ps, src
         t, new, img = stream.fd_step_gpu_cuda(ctx, pr, ppr, v2, gz,
                                               inj[:, it], img, ps,
-                                              consts=consts, out=spare_r)
+                                              consts=consts, out=spare_r,
+                                              parts=parts)
         spare_r = (pr, ppr)
         ppr, pr = t, new
     return img

@@ -145,16 +145,25 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
                                       block_k=4, lap_impl=lap_impl)
         solver.rtm_shot_snapshot_tiled(ctx, v2, wav, dobs, SXS, SZ, GZ,
                                        block_k=4, lap_impl=lap_impl)
+        solver.rtm_shot_snapshot_tiled(ctx, v2, wav, dobs, SXS, SZ, GZ,
+                                       block_k=1, lap_impl=lap_impl)
+        solver.rtm_shot_full_tiled(ctx, v2[0], wav, dobs, SXS, SZ, GZ,
+                                   block_k=1, lap_impl=lap_impl)
+        fk.rtm_full_cuda(ctx, v2[0], wav, dobs, SXS, SZ, GZ,
+                         lap_impl=lap_impl)
+        fk.backward_recorded_cuda(ctx, v2, dobs, GZ, lap_impl=lap_impl)
     assert fk.LAUNCHES == {"mod_step": 0, "rtm_fwd_step": 0,
                            "rtm_bwd_step": 0, "rec_fwd_step": 0,
                            "rec_bwd_step": 0, "lap_apply": 0,
                            "mod_step_mma": 0, "rtm_fwd_step_mma": 0,
-                           "rtm_bwd_step_mma": 0}
+                           "rtm_bwd_step_mma": 0, "rec_fwd_step_mma": 0,
+                           "rec_bwd_step_mma": 0}
     assert stream.LAUNCHES == {"fd_step": 0, "fd_update": 0,
                                "kstep_mod": 0, "kstep_gpu_fwd": 0,
                                "kstep_gpu_bwd": 0, "gpu_step": 0,
                                "kstep_mod_mma": 0, "kstep_gpu_fwd_mma": 0,
-                               "kstep_gpu_bwd_mma": 0, "gpu_step_mma": 0}
+                               "kstep_gpu_bwd_mma": 0, "gpu_step_mma": 0,
+                               "fd_step_mma": 0, "fd_update_mma": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "strides", "wavelet",
@@ -200,11 +209,11 @@ def test_fd_back_raises_on_bad_inputs(bad):
 @pytest.mark.parametrize("lap_impl", ["mxu", "mxu6", "auto"])
 def test_mxu_lap_impl_raises(lap_impl, tmp_path):
     """The per-step tier runs the split-bf16 tiers (on the CPU through the
-    plain mxu path, which differs from the exact one), and so does the
-    large-grid tier at K >= 2 (the z taps split, not the x taps: another
-    result); the tiers with the exact taps only (the large-grid tier at
-    K = 1, rtm_main's kernels, the domain tiers) still raise, naming
-    ROADMAP. ``auto`` resolves to ``mxu`` here (nt = 6, dx = dz)."""
+    plain mxu path, which differs from the exact one), and so do the
+    large-grid tier at every K and rtm_main's kernels (the z taps split,
+    not the x taps: another result), each call its plain path with that
+    Laplacian; only the domain tiers raise (``tests/test_torch_mxu.py``).
+    ``auto`` resolves to ``mxu`` here (nt = 6, dx = dz)."""
     ctx, v2, wav, dobs = _setup()
     got = fk.forward_modeling_cuda(ctx, v2[0], wav, SXS, SZ, GZ,
                                    lap_impl=lap_impl)
@@ -218,18 +227,31 @@ def test_mxu_lap_impl_raises(lap_impl, tmp_path):
                                lap_impl=lap_impl)
     assert torch.equal(img, solver.rtm_shot_snapshot(
         ctx, v2, wav, dobs, SXS, SZ, GZ, lap_impl=lap_impl))
-    for tiled in (lambda: solver.forward_modeling_tiled(
-                      ctx, v2[0], wav, SXS, SZ, GZ, lap_impl=lap_impl),
-                  lambda: solver.rtm_shot_snapshot_tiled(
-                      ctx, v2, wav, dobs, SXS, SZ, GZ, block_k=1,
-                      lap_impl=lap_impl),
-                  lambda: solver.forward_modeling_tiled(
-                      ctx, v2[0], wav, SXS, SZ, GZ, record="wavefield",
-                      block_k=2, lap_impl=lap_impl),
-                  lambda: fk.rtm_full_cuda(ctx, v2[0], wav, dobs, SXS, SZ, GZ,
-                                           lap_impl=lap_impl)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tiled()
+    lap = solver.laplacian_of(ctx, fk.lap_parts(lap_impl, ctx), axis="z")
+    snaps = solver.fd_forward(ctx, v2, wav, SXS, SZ, lap)
+    wavefield = dict(source="point", taper="top", record="wavefield")
+    pairs = (
+        (solver.forward_modeling_tiled(ctx, v2[0], wav, SXS, SZ, GZ,
+                                       lap_impl=lap_impl)[2],
+         solver.forward_modeling_tiled(ctx, v2[0], wav, SXS, SZ, GZ,
+                                       lap_impl=fk.lap_parts(lap_impl,
+                                                             ctx))[2]),
+        (solver.rtm_shot_snapshot_tiled(ctx, v2, wav, dobs, SXS, SZ, GZ,
+                                        block_k=1, lap_impl=lap_impl),
+         solver.fd_back(ctx, v2, *snaps, dobs, GZ, lap)),
+        (solver.forward_modeling_tiled(ctx, v2[0], wav, SXS, SZ, GZ,
+                                       block_k=2, lap_impl=lap_impl,
+                                       **wavefield)[2],
+         solver.forward_modeling(ctx, v2[0], wav, SXS, SZ, GZ,
+                                 lap_impl=lap_impl, **wavefield)[2]),
+        (fk.rtm_full_cuda(ctx, v2[0], wav, dobs, SXS, SZ, GZ,
+                          lap_impl=lap_impl),
+         solver.rtm_shot_full(ctx, v2[0], wav, dobs, SXS, SZ, GZ,
+                              lap_impl=lap_impl)))
+    for a, b in pairs:
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+    assert not torch.equal(pairs[3][0], fk.rtm_full_cuda(
+        ctx, v2[0], wav, dobs, SXS, SZ, GZ))
     tiled = solver.rtm_shot_snapshot_tiled(ctx, v2, wav, dobs, SXS, SZ, GZ,
                                            block_k=2, lap_impl=lap_impl)
     assert torch.isfinite(tiled).all() and not torch.equal(tiled, img)
@@ -341,7 +363,8 @@ def test_kernels_match_plain_on_the_card(cuda_device, order, nt):
                            "rtm_bwd_step": nt, "rec_fwd_step": 0,
                            "rec_bwd_step": 0, "lap_apply": 0,
                            "mod_step_mma": 0, "rtm_fwd_step_mma": 0,
-                           "rtm_bwd_step_mma": 0}
+                           "rtm_bwd_step_mma": 0, "rec_fwd_step_mma": 0,
+                           "rec_bwd_step_mma": 0}
 
 
 @pytest.mark.cuda
@@ -469,7 +492,8 @@ def test_kstep_kernels_match_plain_on_the_card(cuda_device, order, block_k):
                                "kstep_gpu_bwd": -(-(nt - 2) // block_k),
                                "gpu_step": 2, "kstep_mod_mma": 0,
                                "kstep_gpu_fwd_mma": 0, "kstep_gpu_bwd_mma": 0,
-                               "gpu_step_mma": 0}
+                               "gpu_step_mma": 0, "fd_step_mma": 0,
+                               "fd_update_mma": 0}
 
 
 @pytest.mark.cuda
@@ -743,6 +767,83 @@ def test_k1_tiled_loops_match_plain_on_the_card(cuda_device):
     assert torch.equal(
         solver.rtm_shot_snapshot_tiled(ctx, v2s, wav, dobs, sxs, sz, gz),
         solver.rtm_shot_snapshot(ctx, v2s, wav, dobs, sxs, sz, gz))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [4, 8, 10, 12, 16])
+@pytest.mark.parametrize("parts", [2, 3])
+def test_split_stream_and_rec_kernels_match_plain_on_the_card(cuda_device,
+                                                              order, parts):
+    """fd_step_mma (no injection, both sources, the receiver row),
+    fd_update_mma, rec_fwd_step_mma and rec_bwd_step_mma (frame and image
+    mode) against the plain steps with the z taps in ``parts`` bf16 splits
+    on the same CUDA tensors (they differ in the order of the tensor cores'
+    float32 sums only), on the 67 x 88 grid, no multiple of the 64 x 64
+    tiles; then the K = 1 drivers and rtm_full_cuda, with their launch
+    counts."""
+    nt = 11
+    ctx, v2, wav, dobs, (p, pp), row = _stream_case(order, nt, cuda_device)
+    sxs, sz, gz = (31, 40), 62, 63
+    lap = solver.laplacian_of(ctx, parts, axis="z")
+    close = lambda got, want: all(
+        float((a - b).abs().max() / b.abs().max()) <= GATE
+        for a, b in zip(got, want))
+    stream.reset_launches()
+    fk.reset_launches()
+    for kw in ({}, dict(amp=0.7, sx=sxs, sz=sz),
+               dict(amp=0.7, sx=sxs, sz=sz, source="point"),
+               dict(inj_row=row, x0=ctx.nzb, gz=gz)):
+        for taper in ("all", "top"):
+            assert close(
+                stream.fd_step_cuda(ctx, p, pp, v2, taper, parts=parts, **kw),
+                solver.fd_step(ctx, p, pp, v2, taper, lap=lap, **kw))
+    v2s = torch.stack([v2, v2 * 1.1])
+    assert close((stream.fd_update_cuda(ctx, p, pp, v2s, parts=parts),),
+                 (solver.fd_update(ctx, p, pp, v2s, lap),))
+    wavefield = dict(source="point", taper="top", record="wavefield")
+    swf = fk.forward_modeling_cuda(ctx, v2, wav, sxs, sz, gz, **wavefield,
+                                   lap_impl=parts)
+    swp = solver.forward_modeling(ctx, v2, wav, sxs, sz, gz, **wavefield,
+                                  lap_impl=parts)
+    assert close(swf, swp)
+    assert close(fk.backward_recorded_cuda(ctx, v2, dobs, gz,
+                                           lap_impl=parts),
+                 solver.backward_recorded(ctx, v2, dobs, gz, lap=lap))
+    assert close((fk.backward_image_cuda(ctx, v2, swp[2], dobs, gz,
+                                         lap_impl=parts),),
+                 (solver.backward_image(ctx, v2, swp[2], dobs, gz,
+                                        lap=lap),))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in stream.LAUNCHES.items() if v} == {
+        "fd_step_mma": 8, "fd_update_mma": 1}
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "rec_fwd_step_mma": nt, "rec_bwd_step_mma": 2 * nt}
+    stream.reset_launches()
+    fk.reset_launches()
+    cpu = lambda a: a.cpu()
+    for block_k in (1, 2):
+        assert close((solver.rtm_shot_full_tiled(
+                          ctx, v2, wav, dobs, sxs, sz, gz, block_k=block_k,
+                          lap_impl=parts).cpu(),),
+                     (solver.rtm_shot_full_tiled(
+                          ctx, cpu(v2), wav, cpu(dobs), sxs, sz, gz,
+                          block_k=block_k, lap_impl=parts),))
+    assert close(map(cpu, solver.forward_modeling_tiled(
+                     ctx, v2, wav, sxs, sz, gz, lap_impl=parts)),
+                 solver.forward_modeling_tiled(ctx, cpu(v2), wav, sxs, sz,
+                                               gz, lap_impl=parts))
+    assert close((solver.rtm_shot_snapshot_tiled(
+                      ctx, v2s, wav, dobs, sxs, sz, gz,
+                      lap_impl=parts).cpu(),),
+                 (solver.rtm_shot_snapshot_tiled(
+                      ctx, cpu(v2s), wav, cpu(dobs), sxs, sz, gz,
+                      lap_impl=parts),))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in stream.LAUNCHES.items() if v} == {
+        "fd_step_mma": 3 * nt, "fd_update_mma": nt - 2,
+        "gpu_step_mma": 2 * nt}
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "rec_fwd_step_mma": nt, "rec_bwd_step_mma": nt}
 
 
 @pytest.mark.cuda

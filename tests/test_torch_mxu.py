@@ -322,11 +322,13 @@ def test_cli_lap_impl_auto(slice_runs, tmp_path):
 # ------------------------------------------------- tiers with exact taps only
 
 def test_other_tiers_raise_on_a_resolved_split_tier():
-    """The tiers with the exact taps only raise on a resolved split tier,
-    naming ROADMAP: the domain tiers (x and (x, z) meshes), the large-grid
-    tier at K = 1, and rtm_main's kernels (the wavefield recording, its
-    backward, the whole rtm_main shot) at every K. The large-grid tier at
-    K >= 2 runs them (``tests/test_torch_tiled_mxu*.py``)."""
+    """The domain tiers (x and (x, z) meshes), whose block kernels have the
+    exact taps only, raise on a resolved split tier, naming kernel-table
+    rows 15-16 and ROADMAP. The large-grid tier at K = 1 and rtm_main's
+    kernels (the wavefield recording, its backward, the whole rtm_main
+    shot) at every K run them, the z taps split: each call equals its
+    plain path with that Laplacian (``tests/test_torch_stream_mxu.py``
+    holds them against the JAX package)."""
     p = tpk.Params(**CFG)
     vp = layered_model(p.nx, p.nz)
     dobs = np.zeros((p.ns, p.nx, p.nt), np.float32)
@@ -342,32 +344,54 @@ def test_other_tiers_raise_on_a_resolved_split_tier():
                                            lap_impl=lap_impl),
                 lambda: tpipe.run_rtm_gpu(p, vp=vp, dobs=dobs, mesh=xz_mesh,
                                           lap_impl=lap_impl)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+            with pytest.raises(NotImplementedError,
+                               match="rows 15-16.*ROADMAP"):
                 run()
     _, ctx = _ctxs(20, 16, 9)
     v2 = torch.full((ctx.nxe, ctx.nze), 2000.0 ** 2)
     wav = tnum.ricker_wavelet(ctx.nt, 0.001, 25.0)
-    d = torch.zeros((1, ctx.nx, ctx.nt))
-    for run in (lambda: solver.forward_modeling_tiled(
-                    ctx, v2, wav, [14], 10, 9, block_k=1, lap_impl="mxu"),
-                lambda: solver.rtm_shot_snapshot_tiled(
-                    ctx, v2[None], wav, d, [14], 10, 9, block_k=1,
-                    lap_impl="mxu6"),
-                lambda: solver.backward_recorded_tiled(
-                    ctx, v2, d, 9, block_k=1, lap_impl="auto"),
-                lambda: solver.backward_recorded_tiled(
-                    ctx, v2, d, 9, block_k=4, lap_impl="mxu"),
-                lambda: solver.rtm_shot_full_tiled(
-                    ctx, v2, wav, d, [14], 10, 9, block_k=4,
-                    lap_impl="mxu6"),
-                lambda: solver.forward_modeling_tiled(
-                    ctx, v2, wav, [14], 10, 9, record="wavefield",
-                    block_k=4, lap_impl="auto"),
-                lambda: fk.forward_modeling_cuda(
-                    ctx, v2, wav, [14], 10, 9, record="wavefield",
-                    lap_impl="mxu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run()
+    d = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (1, ctx.nx, ctx.nt)).astype(np.float32))
+    lap = lambda li: solver.laplacian_of(ctx, fk.lap_parts(li, ctx),
+                                         axis="z")
+    plain_fwd = lambda li, **kw: solver.forward_modeling(
+        ctx, v2, wav, [14], 10, 9, lap_impl=fk.lap_parts(li, ctx), **kw)
+    pairs = (
+        (lambda: solver.forward_modeling_tiled(
+            ctx, v2, wav, [14], 10, 9, record="wavefield", block_k=1,
+            lap_impl="mxu"),
+         lambda: plain_fwd("mxu", record="wavefield")),
+        (lambda: solver.rtm_shot_snapshot_tiled(
+            ctx, v2[None], wav, d, [14], 10, 9, block_k=1, lap_impl="mxu6"),
+         lambda: solver.fd_back(
+             ctx, v2[None], *solver.fd_forward(ctx, v2[None], wav, [14], 10,
+                                               lap("mxu6")),
+             d, 9, lap("mxu6"))),
+        (lambda: solver.backward_recorded_tiled(
+            ctx, v2, d, 9, block_k=1, lap_impl="auto"),
+         lambda: solver.backward_recorded(ctx, v2, d, 9, lap=lap("auto"))),
+        (lambda: solver.backward_recorded_tiled(
+            ctx, v2, d, 9, block_k=4, lap_impl="mxu"),
+         lambda: solver.backward_recorded(ctx, v2, d, 9, lap=lap("mxu"))),
+        (lambda: solver.rtm_shot_full_tiled(
+            ctx, v2, wav, d, [14], 10, 9, block_k=4, lap_impl="mxu6"),
+         lambda: solver.rtm_shot_full(ctx, v2, wav, d, [14], 10, 9,
+                                      lap_impl="mxu6")),
+        (lambda: solver.forward_modeling_tiled(
+            ctx, v2, wav, [14], 10, 9, record="wavefield", block_k=4,
+            lap_impl="auto"),
+         lambda: plain_fwd("auto", record="wavefield")),
+        (lambda: fk.forward_modeling_cuda(
+            ctx, v2, wav, [14], 10, 9, record="wavefield", lap_impl="mxu"),
+         lambda: plain_fwd("mxu", record="wavefield")))
+    exact = solver.forward_modeling(ctx, v2, wav, [14], 10, 9,
+                                    record="wavefield")[2]
+    for run, plain in pairs:
+        got, want = run(), plain()
+        got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert not torch.equal(pairs[0][0]()[2], exact)
 
 
 def test_auto_past_the_envelope_runs_the_exact_tiers():

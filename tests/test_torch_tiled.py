@@ -390,7 +390,8 @@ def test_wrappers_on_cpu_are_the_plain_passes_and_count_nothing():
                                "kstep_mod": 0, "kstep_gpu_fwd": 0,
                                "kstep_gpu_bwd": 0, "gpu_step": 0,
                                "kstep_mod_mma": 0, "kstep_gpu_fwd_mma": 0,
-                               "kstep_gpu_bwd_mma": 0, "gpu_step_mma": 0}
+                               "kstep_gpu_bwd_mma": 0, "gpu_step_mma": 0,
+                               "fd_step_mma": 0, "fd_update_mma": 0}
 
 
 @pytest.mark.parametrize("bad", ["amps", "shape", "dtype", "rows", "gz",
