@@ -59,11 +59,12 @@ Run from the root of the repository, on a machine with one CUDA card and
    config over meshes (2, 1), (2, 2) and (1, 4), every position on cuda:0,
    against the no-mesh run of phase 4 (rel RMS <= 1e-5);
 13. the Pluto domain path: ``run_modeling`` then ``run_rtm_gpu`` at the
-   full Pluto grid, nt=12860, 2 shots, over a (1, 4) mesh of cuda:0 (K=8):
-   launch counts, ``dir.image``, gathers and images against phase 10's
-   per-step tier (rel RMS <= 1e-5), wall s/shot;
+   full Pluto grid, nt=4500 (cut from 12860 for time), 2 shots, over a
+   (1, 4) mesh of cuda:0 (K=8): launch counts, ``dir.image``, gathers and
+   images against the per-step tier at the same nt (rel RMS <= 1e-5),
+   wall s/shot;
 14. times: each kernel's wrapper call and its plain version, timed with
-   CUDA events, median of 5 after a warm-up, taken in turns; for the
+   CUDA events, median of 3 after a warm-up, taken in turns; for the
    stencil also ``torch.nn.functional.conv2d`` with the same taps (the
    library yardstick, not used by the port); for the K-step kernels, at
    the Pluto grid (2 shots, nt=1001), their passes, their plain passes and
@@ -92,9 +93,9 @@ Run from the root of the repository, on a machine with one CUDA card and
    3lay config over (2, 2, 2), (1, 2, 2) and (1, 1, 4) meshes of cuda:0,
    against the no-mesh run of phase 4 (rel RMS <= 1e-5);
 18. the Pluto (x, z) path: ``run_modeling`` then ``run_rtm_gpu`` at the
-   full Pluto grid, nt=12860, 2 shots, over a (1, 2, 2) mesh of cuda:0
+   full Pluto grid, nt=4500, 2 shots, over a (1, 2, 2) mesh of cuda:0
    (K=8): launch counts, ``dir.image``, gathers and images against phase
-   10's per-step tier (rel RMS <= 1e-5), wall s/shot; then at nt=1001 the
+   13's per-step run (rel RMS <= 1e-5), wall s/shot; then at nt=1001 the
    three kernels held against their plain versions at the Pluto tile
    shapes (K = 8 and the tails 4 and 1), each kernel's launches, its plain
    version's and the per-step kernel call for the same function in turns,
@@ -201,9 +202,34 @@ Run from the root of the repository, on a machine with one CUDA card and
    its exact twin, with ``stream_bounds(parts=)`` and
    ``step_bounds(parts=)``; the Pluto K = 1 modeling and RTM calls and the
    3lay rtm_main call in exact, mxu and mxu6; one profiler trace of each
-   split call.
+   split call;
+32. the split-bf16 lowering of the domain tiers' block kernels:
+   ``block_*_mma`` and ``block2_*_mma`` against their plain block
+   functions with the x taps in the same bf16 parts, on the same CUDA
+   tensors, launch by launch on random states of every slab or tile
+   (seeded, full and tail blocks): phases 11 and 16's 134 x 88 grid over
+   (1, 2), (1, 4), (1, 2, 2) and (1, 1, 4) meshes, orders 4, 8 and 10,
+   K = 2, 3 and 8, parts 2 and 3, and the split makers on meshes of
+   cuda:0 against CPU meshes; then the Pluto slab and tile shapes (2
+   shots, K = 8 and the tails 4 and 1); gates: traces and images <= 1e-5
+   max rel, fields <= 1e-4;
+33. the 3lay mesh paths under ``lap_impl="auto"`` (= mxu) and ``"mxu6"``:
+   (1, 4) and (1, 2, 2) meshes of cuda:0 against the no-mesh run at the
+   same lap_impl (the per-step ``*_step_mma`` tier), rel RMS <= 1e-5, and
+   only the tier's ``_mma`` block kernels launched;
+34. the Pluto domain paths through them: full grid, 2 shots, nt=1001,
+   ``run_modeling`` + ``run_rtm_gpu`` over (1, 4) and (1, 2, 2) meshes of
+   cuda:0 under auto (= mxu), mxu6 and exact: launch counts, gathers and
+   images against the per-step tier at the same lap_impl (rel RMS <=
+   1e-5), mxu6 against the exact domain run (<= 1e-5), mxu's drift from
+   it reported, wall s/shot;
+35. times and traces at the Pluto shapes (nt=1001, K=8): each ``_mma``
+   block kernel's launches over the four slabs or tiles (mxu and mxu6),
+   its plain version and its exact twin (once each) in turns,
+   against ``block_bounds(parts=)``; one profiler trace of each split
+   maker call (mxu) with the copy and idle shares.
 
-Every phase prints its seconds. It prints one JSON line of per-kernel results (with each kernel's bound,
+Every phase prints its seconds, and the run its total. It prints one JSON line of per-kernel results (with each kernel's bound,
 worked out from this run's shapes), the nvidia-smi line, and, as the last
 line, ``{"ok": true, "device": {...}}``. Any failed phase raises and the
 exit code is not 0. Without a CUDA device it exits 1 at once.
@@ -289,6 +315,18 @@ KERNELS = {
                          "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:1026"),
     "rec_bwd_step_mma": (f"{PKG}/csrc/rec_step.cu",
                          "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:1026"),
+    "block_mod_mma": (f"{PKG}/csrc/domain_block.cu",
+                      "parallel_finite_difference_computation_tpu/parallel/domain_pallas.py:189"),
+    "block_fwd_mma": (f"{PKG}/csrc/domain_block.cu",
+                      "parallel_finite_difference_computation_tpu/parallel/domain_pallas.py:115"),
+    "block_bwd_mma": (f"{PKG}/csrc/domain_block.cu",
+                      "parallel_finite_difference_computation_tpu/parallel/domain_pallas.py:136"),
+    "block2_mod_mma": (f"{PKG}/csrc/domain2d_block.cu",
+                       "parallel_finite_difference_computation_tpu/parallel/domain2d_pallas.py:178"),
+    "block2_fwd_mma": (f"{PKG}/csrc/domain2d_block.cu",
+                       "parallel_finite_difference_computation_tpu/parallel/domain2d_pallas.py:99"),
+    "block2_bwd_mma": (f"{PKG}/csrc/domain2d_block.cu",
+                       "parallel_finite_difference_computation_tpu/parallel/domain2d_pallas.py:124"),
 }
 # The reference's full-resolution Pluto config
 # (dpct_gpu_rtm_domain_division/build/pluto/input.orig, as restated in
@@ -459,7 +497,7 @@ def kstep_bounds(ctx, ns: int, k: int, parts: int = 0):
 
 
 def block_bounds(ctx, ns: int, k: int, n_x: int, n_z: int = 1,
-                 gz: int = 0):
+                 gz: int = 0, parts: int = 0):
     """Bounds of the domain tiers' block kernels as this script times
     them: blocks of k steps over ``ctx.nt`` steps on each of ``n_x`` slabs
     (``n_z = 1``, the x tier's kernels) or ``n_x x n_z`` (x, z) tiles (a
@@ -469,8 +507,12 @@ def block_bounds(ctx, ns: int, k: int, n_x: int, n_z: int = 1,
     inject row ``gz`` only), the flop of the steps over the grid (halo
     cells computed twice not counted). block_mod's velocity is one plane
     for all shots, the RTM kernels' one per shot; block_bwd's launches are
-    not the seeded first one."""
+    not the seeded first one. With parts > 0 the Laplacian's x taps are the
+    split-bf16 banded product (:func:`mma_lap_flops`): the bounds of the
+    ``*_mma`` twins, under their names."""
     h = ctx.order // 2
+    lf, tf = (lap_flops(h), 0) if not parts else mma_lap_flops(h, parts)
+    sfx = "_mma" if parts else ""
     nxl, nzl = -(-ctx.nxe // n_x), -(-ctx.nze // n_z)
     hx = k * h if n_x > 1 or n_z == 1 else 0
     hz = k * h if n_z > 1 else 0
@@ -491,22 +533,22 @@ def block_bounds(ctx, ns: int, k: int, n_x: int, n_z: int = 1,
     return {
         # reads p, pp, v2m, ramps, 7 Gaussian source rows a shot; writes
         # p, pp and the traces
-        f"block{two_d}_mod": bound(
+        f"block{two_d}_mod{sfx}": bound(
             f4 * (launches * (2 * ns * ext + ext + ramps + 7 * ns * nxw + k
                               + 2 * ns * own) + recs * ns * k * nxl),
-            steps * (lapc * lap_flops(h) + 6 * plane + ctx.nx + 49)),
+            steps * (lapc * lf + 6 * plane + ctx.nx + 49), steps * lapc * tf),
         # reads p, pp, v2m, ramps, the source row; writes p, pp
-        f"block{two_d}_fwd": bound(
+        f"block{two_d}_fwd{sfx}": bound(
             f4 * launches * (3 * ns * ext + ramps + ns * nxw + k
                              + 2 * ns * own),
-            steps * (lapc * lap_flops(h) + 7 * plane + 1)),
+            steps * (lapc * lf + 7 * plane + 1), steps * lapc * tf),
         # reads four fields, v2m, ramps, k trace rows and the image; writes
         # four fields and the image
-        f"block{two_d}_bwd": bound(
+        f"block{two_d}_bwd{sfx}": bound(
             f4 * (launches * (5 * ns * ext + ramps + 6 * ns * own)
                   + rows * ns * k * nxw),
-            steps * (lapc * 2 * lap_flops(h) + 11 * plane + ctx.nx
-                     + 2 * inter)),
+            steps * (lapc * 2 * lf + 11 * plane + ctx.nx + 2 * inter),
+            steps * lapc * 2 * tf),
     }
 
 
@@ -529,16 +571,22 @@ def kernel_name(mangled: str):
     (``...11fd_step_mmaILi4ELi2EE...`` -> ``fd_step_mma``): the first
     length-prefixed identifier followed by its template arguments. A
     length prefix may follow the hex digits of an anonymous namespace's
-    hash, so every tail of a run of digits is tried."""
+    hash, so every tail of a run of digits is tried; where the hash's own
+    digits also read as the length of a longer identifier ending at the
+    same place, the shortest one, the innermost name, is taken."""
+    best = None
     for m in re.finditer(r"\d+", mangled):
         digits = m.group()
         for k in range(1, len(digits) + 1):
             n = int(digits[-k:])
             name = mangled[m.end():m.end() + n]
+            end = m.end() + n
             if (len(name) == n and name.isidentifier()
-                    and mangled[m.end() + n:m.end() + n + 1] == "I"):
-                return name
-    return None
+                    and mangled[end:end + 1] == "I"
+                    and (best is None or end < best[0]
+                         or (end == best[0] and n < len(best[1])))):
+                best = (end, name)
+    return best and best[1]
 
 
 def build_report(log: str) -> list:
@@ -568,11 +616,11 @@ def check(ok: bool, what: str) -> None:
 
 
 def profile(torch, label: str, fn, call_ms: float, smi: str) -> None:
-    """One torch.profiler trace of fn (after a warm-up): device time and
-    launches of each kernel, and the kernels' share of call_ms, the
-    call's median event time from the timing phase."""
+    """One torch.profiler trace of fn, a call this script has timed before
+    (so warm: no warm-up of its own, for the time limit):
+    device time and launches of each kernel, and the kernels' share of
+    call_ms, the call's median event time from the timing phase."""
     from torch.profiler import ProfilerActivity
-    fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
@@ -622,18 +670,20 @@ def main() -> int:
         return start.elapsed_time(end) / reps
 
     def in_turns(fns, reps: int = 1, once=()):
-        """Median-of-5 lists of event times of each function, after a
-        warm-up, the order of the functions turned each round. The
-        functions at the indices in ``once`` (the plain versions at the
-        Pluto grid, seconds a call: a scale beside the kernels, not a claim)
-        are timed once, in the first round, without a warm-up of their
-        own, to keep the script inside its time limit."""
+        """Median-of-3 lists of event times of each function, after a
+        warm-up, the order of the functions turned each round (3 rounds,
+        to keep the script under 1000 s; the min-max spread of 5 rounds was
+        under 3 % on the H100). The functions at the
+        indices in ``once`` (the plain versions at the Pluto grid, seconds a
+        call: a scale beside the kernels, not a claim) are timed once, in
+        the first round, without a warm-up of their own, to keep the script
+        inside its time limit."""
         for n, fn in enumerate(fns):
             if n not in once:
                 fn()
         torch.cuda.synchronize()
         ts = [[] for _ in fns]
-        for i in range(5):
+        for i in range(3):
             order = range(len(fns)) if i % 2 else reversed(range(len(fns)))
             for n in order:
                 if i == 0 or n not in once:
@@ -647,6 +697,7 @@ def main() -> int:
                 f"{max(t):.3f})")
 
     clock = [time.perf_counter()]
+    start = clock[0]
 
     def phase_done(label: str) -> None:
         now = time.perf_counter()
@@ -1130,7 +1181,6 @@ def main() -> int:
           f"image rel RMS {rr[1]:.3e}, per-shot images rel RMS {rr[2]:.3e}",
           flush=True)
     check(max(rr) <= GATE, "the Pluto tiers differ")
-    pluto_ref = tiers["pallas"]
     del tiers, dat
     phase_done("Pluto path")
 
@@ -1270,36 +1320,49 @@ def main() -> int:
               f"the no-mesh per-step run: gathers rel RMS {rr3[0]:.3e}, image "
               f"{rr3[1]:.3e}, per-shot images {rr3[2]:.3e}", flush=True)
         check(max(rr3) <= GATE, f"3lay mesh {shape} differs")
-        check((shape[1] > 1) == all(dk.LAUNCHES.values()),
-              f"mesh {shape}: block launches {dk.LAUNCHES}")
+        exact_n = [n for k, n in dk.LAUNCHES.items() if not k.endswith("_mma")]
+        check((shape[1] > 1) == all(exact_n) and sum(exact_n) == sum(
+            dk.LAUNCHES.values()), f"mesh {shape}: block launches "
+                                   f"{dk.LAUNCHES}")
     phase_done("3lay mesh path")
 
-    # ---- 13. the Pluto path over a (1, 4) mesh of cuda:0: four x-slabs
+    # ---- 13. the Pluto path over a (1, 4) mesh of cuda:0: four x-slabs,
+    # nt = 4500 (cut from 12860 for time), against the per-step tier at the
+    # same nt
+    pl45 = Params(**dict(PLUTO, nt=4500))
+    dat45 = pipeline.run_modeling(pl45, vp=vp_pl, device=dev,
+                                  backend="pallas")
+    pluto_ref = (dat45, *pipeline.run_rtm_gpu(pl45, vp=vp_pl, dobs=dat45,
+                                              seed=0, device=dev,
+                                              backend="pallas"))
     mesh = make_mesh(1, 4, devices=[dev] * 4)
     fk.reset_launches()
     stream.reset_launches()
     dk.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        dat_d = pipeline.run_modeling(pl, vp=vp_pl, mesh=mesh)
+        dat_d = pipeline.run_modeling(pl45, vp=vp_pl, mesh=mesh)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        img_d, locs_d = pipeline.run_rtm_gpu(pl, vp=vp_pl, dobs=dat_d, seed=0,
-                                             outdir=tmp, mesh=mesh)
+        img_d, locs_d = pipeline.run_rtm_gpu(pl45, vp=vp_pl, dobs=dat_d,
+                                             seed=0, outdir=tmp, mesh=mesh)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         written = np.fromfile(os.path.join(tmp, "dir.image"), np.float32)
     launches = dict(dk.LAUNCHES)
-    print(f"[Pluto domain path] mesh (1, 4) on cuda:0 ({pl.nxe} x {pl.nze}, "
-          f"nt {pl.nt}, ns {pl.ns}, K 8): run_modeling {t1 - t0:.3f} s wall "
-          f"({(t1 - t0) / pl.ns:.3f} s/shot), run_rtm_gpu {t2 - t1:.3f} s wall "
-          f"({(t2 - t1) / pl.ns:.3f} s/shot), host included; launches "
+    print(f"[Pluto domain path] mesh (1, 4) on cuda:0 ({pl45.nxe} x "
+          f"{pl45.nze}, nt {pl45.nt} (cut from {PLUTO['nt']}), ns "
+          f"{pl45.ns}, K 8): run_modeling {t1 - t0:.3f} s wall "
+          f"({(t1 - t0) / pl45.ns:.3f} s/shot), run_rtm_gpu {t2 - t1:.3f} s "
+          f"wall ({(t2 - t1) / pl45.ns:.3f} s/shot), host included; launches "
           f"{launches}; {smi}", flush=True)
-    blocks = 4 * -(-pl.nt // 8)
+    blocks = 4 * -(-pl45.nt // 8)
     for k in launches:
-        results[k]["launches"] = launches[k]
-        check(launches[k] == blocks, f"{k} launched {launches[k]} times, "
-                                     f"expected {blocks}")
+        want = 0 if k.endswith("_mma") else blocks
+        if want:
+            results[k]["launches"] = launches[k]
+        check(launches[k] == want, f"{k} launched {launches[k]} times, "
+                                   f"expected {want}")
     check(not any(fk.LAUNCHES.values()) and not any(stream.LAUNCHES.values()),
           f"the domain path launched other kernels: {fk.LAUNCHES}, "
           f"{stream.LAUNCHES}")
@@ -1531,7 +1594,7 @@ def main() -> int:
     imgs_p = [randn(rng, pt.ns, c.nxl, pt.nze) for c in rs_p]
     # the block kernels against their plain versions at the shapes the
     # Pluto domain path gives them: each slab of the (1, 4) mesh, K = 8,
-    # the tails of nt = 12860 (4) and of nt = 1001 (1), the seeded block
+    # the tails of nt = 4500 (4) and of nt = 1001 (1), the seeded block
     amps_p = rng.standard_normal(KD).astype(np.float32)
     for kname, (rel, absd) in block_errs(ms_p, rs_p, st_p, imgs_p, amps_p,
                                          (KD, 4, 1)).items():
@@ -1746,7 +1809,9 @@ def main() -> int:
               f"rel RMS {rr3[0]:.3e}, image {rr3[1]:.3e}, per-shot images "
               f"{rr3[2]:.3e}", flush=True)
         check(max(rr3) <= GATE, f"3lay mesh {shape} differs")
-        check(all(d2k.LAUNCHES.values()) and not any(dk.LAUNCHES.values()),
+        exact_n = [n for k, n in d2k.LAUNCHES.items() if not k.endswith("_mma")]
+        check(all(exact_n) and sum(exact_n) == sum(d2k.LAUNCHES.values())
+              and not any(dk.LAUNCHES.values()),
               f"mesh {shape}: block launches {d2k.LAUNCHES}, {dk.LAUNCHES}")
     phase_done("3lay (x, z) mesh path")
 
@@ -1756,25 +1821,28 @@ def main() -> int:
         lc.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        dat_z = pipeline.run_modeling(pl, vp=vp_pl, mesh=mesh)
+        dat_z = pipeline.run_modeling(pl45, vp=vp_pl, mesh=mesh)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        img_z, locs_z = pipeline.run_rtm_gpu(pl, vp=vp_pl, dobs=dat_z, seed=0,
-                                             outdir=tmp, mesh=mesh)
+        img_z, locs_z = pipeline.run_rtm_gpu(pl45, vp=vp_pl, dobs=dat_z,
+                                             seed=0, outdir=tmp, mesh=mesh)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         written = np.fromfile(os.path.join(tmp, "dir.image"), np.float32)
     launches = dict(d2k.LAUNCHES)
-    print(f"[Pluto (x, z) path] mesh (1, 2, 2) on cuda:0 ({pl.nxe} x "
-          f"{pl.nze}, nt {pl.nt}, ns {pl.ns}, K 8): run_modeling "
-          f"{t1 - t0:.3f} s wall ({(t1 - t0) / pl.ns:.3f} s/shot), "
-          f"run_rtm_gpu {t2 - t1:.3f} s wall ({(t2 - t1) / pl.ns:.3f} "
-          f"s/shot), host included; launches {launches}; {smi}", flush=True)
-    blocks = 4 * -(-pl.nt // 8)
+    print(f"[Pluto (x, z) path] mesh (1, 2, 2) on cuda:0 ({pl45.nxe} x "
+          f"{pl45.nze}, nt {pl45.nt} (cut from {PLUTO['nt']}), ns "
+          f"{pl45.ns}, K 8): run_modeling {t1 - t0:.3f} s wall "
+          f"({(t1 - t0) / pl45.ns:.3f} s/shot), run_rtm_gpu {t2 - t1:.3f} s "
+          f"wall ({(t2 - t1) / pl45.ns:.3f} s/shot), host included; "
+          f"launches {launches}; {smi}", flush=True)
+    blocks = 4 * -(-pl45.nt // 8)
     for k in launches:
-        results[k]["launches"] = launches[k]
-        check(launches[k] == blocks, f"{k} launched {launches[k]} times, "
-                                     f"expected {blocks}")
+        want = 0 if k.endswith("_mma") else blocks
+        if want:
+            results[k]["launches"] = launches[k]
+        check(launches[k] == want, f"{k} launched {launches[k]} times, "
+                                   f"expected {want}")
     check(not any(fk.LAUNCHES.values()) and not any(stream.LAUNCHES.values())
           and not any(dk.LAUNCHES.values()),
           f"the (x, z) path launched other kernels: {fk.LAUNCHES}, "
@@ -1786,10 +1854,10 @@ def main() -> int:
           f"{rr[0]:.3e}, image rel RMS {rr[1]:.3e}, per-shot images rel RMS "
           f"{rr[2]:.3e}", flush=True)
     check(max(rr) <= GATE, "the Pluto (x, z) path differs")
-    del dat_z, pluto_ref
+    del dat_z, pluto_ref, dat45
 
     # the kernels at the Pluto tile shapes, 2 shots, nt=1001, K=8: held
-    # against their plain versions (K = 8, the tails 4 of nt = 12860 and 1
+    # against their plain versions (K = 8, the tails 4 of nt = 4500 and 1
     # of nt = 1001, the seeded block), then timed as phase 14 times the x
     # tier's, with the per-step kernel call for the same function
     geom_z = d2k.tile_geometry(ctx_pm, 2, 2, KD)
@@ -3182,6 +3250,364 @@ def main() -> int:
     del k1_calls, swf3, d_p, v2_pm, v2_pr
     phase_done("split K=1 and rtm_main: times and profile")
 
+    # ---- 32. the split-bf16 lowering of the domain tiers' block kernels
+    # (rows 15-16): block_*_mma and block2_*_mma against their plain block
+    # functions with the x taps in the same bf16 parts, on the same CUDA
+    # tensors, launch by launch on random states of every slab or tile
+    # (seeded, full and tail blocks): phases 11 and 16's 134 x 88 grid and
+    # meshes at orders 4, 8 and 10, K = 2, 3 and 8, parts 2 and 3, and the
+    # split makers on a mesh of cuda:0 against a CPU mesh; then the Pluto
+    # slab and tile shapes (2 shots, K = 8 and the tails 4 and 1). Gates:
+    # traces and images 1e-5 max rel, fields 1e-4 (each mma sums its 16
+    # products in the card's order)
+    SPLIT_GATES = {"fields": 1e-4, "traces": GATE, "image": GATE}
+
+    def split_blocks(tier2: bool, parts: int):
+        """(name, wrapper, plain version) of a tier's three split kernels
+        with ``parts`` bf16 splits."""
+        wraps = ((d2k.block2_mod_cuda, d2k.block2_fwd_cuda,
+                  d2k.block2_bwd_cuda) if tier2 else
+                 (dk.block_mod_cuda, dk.block_fwd_cuda, dk.block_bwd_cuda))
+        stem = "block2_" if tier2 else "block_"
+        return tuple(
+            (f"{stem}{n}_mma", functools.partial(w, parts=parts),
+             functools.partial(plain, parts=parts))
+            for n, w, plain in zip(("mod", "fwd", "bwd"), wraps,
+                                   (dk.block_mod, dk.block_fwd,
+                                    dk.block_bwd)))
+
+    def split_errs(ms, rs, fields, imgs, amps, ks, blocks):
+        """{(kernel, "fields" | "traces" | "image"): (max rel err, max abs
+        err)} of each split kernel against its plain version, launch by
+        launch as :func:`block_errs` runs the exact ones."""
+        (nm, km, pm), (nf, kf, pf), (nb, kb, pb) = blocks
+        out = {}
+
+        def note(name, kinds, got, want):
+            for kind, a, b in zip(kinds, got, want):
+                old = out.get((name, kind), (0.0, 0.0))
+                out[name, kind] = (max(old[0], max_rel(a, b)),
+                                   max(old[1], float((a - b).abs().max())))
+
+        bwd_kinds = ("fields",) * 4 + ("image",)
+        for cm, cr, f, img in zip(ms, rs, fields, imgs):
+            for kk in ks:
+                a = amps[:kk]
+                for c in (cm, cr):
+                    note(nm, ("fields", "fields", "traces"),
+                         km(c, f[0], f[1], a), pm(c, f[0], f[1], a))
+                note(nf, ("fields", "fields"), kf(cr, f[0], f[1], a),
+                     pf(cr, f[0], f[1], a))
+                note(nb, bwd_kinds, kb(cr, *f[:4], img.clone(), ks[0], kk),
+                     pb(cr, *f[:4], img, ks[0], kk))
+            if ks[0] > 1:
+                note(nb, bwd_kinds,
+                     kb(cr, *f[:4], img.clone(), 0, ks[0], f[4:6]),
+                     pb(cr, *f[:4], img, 0, ks[0], f[4:6]))
+        torch.cuda.synchronize()
+        return out
+
+    def split_tiles(case, shape, k):
+        """The modeling and RTM tiles of shot group 0 of a mesh of
+        ``shape`` on cuda:0 (slabs on a (shot, x) mesh), blocks of k."""
+        ctx_m, ctx_r, v2_m, v2_r, _, _, d, gp_ = case
+        geom = (d2k.tile_geometry(ctx_m, shape[1], shape[2], k)
+                if len(shape) == 3 else dk.slab_geometry(ctx_m, shape[1], k))
+        grid = make_mesh(*shape, devices=[dev] * int(np.prod(shape))).grid(0)
+        return (dk.prepare_tiles(ctx_m, grid, geom, v2_m, "all", sxs=gp_.sx,
+                                 sz=gp_.sz, source="gaussian", gz=gp_.gz),
+                dk.prepare_tiles(ctx_r, grid, geom, v2_r, "top", sxs=gp_.sx,
+                                 sz=gp_.sz, gz=gp_.gz, dobs_ext=embed_dobs(
+                                     ctx_r, d.cpu().numpy())))
+
+    def split_case(case, shape, ks, parts, seed):
+        """:func:`split_errs` on random states of every tile of a mesh of
+        ``shape``, blocks of ks[0] steps and the tails ks[1:]."""
+        ms, rs = split_tiles(case, shape, ks[0])
+        rng = np.random.default_rng(seed)
+        amps = rng.standard_normal(ks[0]).astype(np.float32)
+        fields = [[randn(rng, c.ns, c.nxw, c.nzw) for _ in range(6)]
+                  for c in ms]
+        imgs = [randn(rng, c.ns, c.nxl, c.nzl) for c in ms]
+        return split_errs(ms, rs, fields, imgs, amps, ks,
+                          split_blocks(len(shape) == 3, parts))
+
+    def split_makers(case, shape, k, parts):
+        """The tier's two makers with lap_impl "mxu" (parts 2) or "mxu6" on
+        a (2, ...) mesh of cuda:0 against the same makers on a CPU mesh
+        (the plain split block functions): (max rel err, max abs err)."""
+        ctx_m, ctx_r, v2_m, v2_r, wav_m, wav_r, d, gp_ = case
+        d_ext = embed_dobs(ctx_r, d.cpu().numpy())
+        mshape = (2,) + shape[1:]
+        n = int(np.prod(mshape))
+        mod, rtm = ((d2k.make_sharded_forward_modeling_2d_cuda,
+                     d2k.make_sharded_rtm_snapshot_2d_cuda)
+                    if len(shape) == 3 else
+                    (dk.make_sharded_forward_modeling_cuda,
+                     dk.make_sharded_rtm_snapshot_cuda))
+        li = "mxu" if parts == 2 else "mxu6"
+        out = []
+        for devices in ([dev] * n, ["cpu"] * n):
+            mesh = make_mesh(*mshape, devices=devices)
+            out.append((
+                mod(ctx_m, mesh, gp_.sz, gp_.gz, block_k=k, lap_impl=li)(
+                    v2_m, gp_.sx, wav_m).cpu(),
+                rtm(ctx_r, mesh, gp_.sz, gp_.gz, block_k=k, lap_impl=li)(
+                    v2_r, gp_.sx, wav_r, d_ext).cpu()))
+        return errs(out[0], out[1])
+
+    split_err = {f"{s}{n}_mma": 0.0 for s in ("block_", "block2_")
+                 for n in ("mod", "fwd", "bwd")}
+
+    def hold(label, found):
+        """Prints one line per kernel of ``found`` (split_errs) and checks
+        the gates; keeps the largest abs error of each kernel."""
+        for kname in sorted({kn for kn, _ in found}):
+            kinds = {kind: found[kn, kind] for kn, kind in found
+                     if kn == kname}
+            print(f"[split domain vs plain] {kname} {label}: " + ", ".join(
+                f"{kind} max rel err {rel:.3e}" for kind, (rel, _)
+                in sorted(kinds.items())) + ", max abs err "
+                f"{max(a for _, a in kinds.values()):.3e}", flush=True)
+            for kind, (rel, absd) in kinds.items():
+                check(rel <= SPLIT_GATES[kind],
+                      f"{kname} {label}: {kind} {rel:.3e} > "
+                      f"{SPLIT_GATES[kind]}")
+                split_err[kname] = max(split_err[kname], absd)
+
+    n_cases = 0
+    for order in (4, 8, 10):
+        case_x = tier_case(dataclasses.replace(dom, order=order))
+        case_z = tier_case(dataclasses.replace(dom2, order=order))
+        case_z = case_z[:7] + (dataclasses.replace(case_z[7], sx=(66, 67)),)
+        for shape in ((1, 2), (1, 4), (1, 2, 2), (1, 1, 4)):
+            nxl = -(-dom.nxe // shape[1])
+            case = case_z if len(shape) == 3 else case_x
+            if len(shape) == 2:
+                case = case[:7] + (dataclasses.replace(
+                    case[7], sx=(nxl - 1, nxl)),)
+            nzl = -(-dom.nze // shape[2]) if len(shape) == 3 else dom.nze
+            for k in (2, 3, 8):
+                halo = k * order // 2
+                if (shape[1] > 1 and halo > nxl) or (
+                        len(shape) == 3 and shape[2] > 1 and halo > nzl):
+                    continue
+                for parts in (2, 3):
+                    hold(f"order {order} mesh {shape} K {k} parts {parts}",
+                         split_case(case, shape, (k, k - 1) if k > 1
+                                    else (k,), parts,
+                                    order * 1000 + k * 10 + parts))
+                    n_cases += 1
+                    if k == 3 and shape in ((1, 4), (1, 2, 2)):
+                        rel, absd = split_makers(case, shape, k, parts)
+                        print(f"[split domain vs plain] makers mesh "
+                              f"{(2,) + shape[1:]} cuda:0 vs CPU order "
+                              f"{order} K {k} parts {parts}: max rel err "
+                              f"{rel:.3e}, max abs err {absd:.3e}",
+                              flush=True)
+                        check(rel <= GATE, f"split makers {shape} order "
+                                           f"{order} parts {parts}: {rel:.3e}")
+    print(f"[split domain vs plain] {n_cases} cases on {dom.nxe} x "
+          f"{dom.nze}, nt {dom.nt}", flush=True)
+    (ctx_pm, ctx_pr, v2_pm, v2_pr, wav_pm, wav_pr, d_p,
+     gp) = case_p = tier_case(pt, PLUTO_VELOCITIES)
+    for shape in ((1, 4), (1, 2, 2)):
+        for parts in (2, 3):
+            hold(f"at the Pluto grid ({pt.nxe} x {pt.nze}, {pt.ns} shots, "
+                 f"mesh {shape}, K {KD}, 4, 1, parts {parts})",
+                 split_case(case_p, shape, (KD, 4, 1), parts, 32 + parts))
+    for k in split_err:
+        results[k]["max_abs_err"] = split_err[k]
+    phase_done("split domain kernels vs plain")
+
+    # ---- 33. the 3lay path over (1, 4) and (1, 2, 2) meshes of cuda:0
+    # with lap_impl "auto" (= mxu) and "mxu6", against the no-mesh run at
+    # the same lap_impl (the per-step *_step_mma tier, the same x lowering)
+    for li in ("auto", "mxu6"):
+        data_li = pipeline.run_modeling(P, vp=vp, device=dev, lap_impl=li)
+        ref_li = (data_li, *pipeline.run_rtm_gpu(
+            P, vp=vp, dobs=data_li, seed=0, device=dev, lap_impl=li))
+        for shape in ((1, 4), (1, 2, 2)):
+            mesh = make_mesh(*shape, devices=[dev] * 4)
+            for lc in (fk, stream, dk, d2k):
+                lc.reset_launches()
+            t0 = time.perf_counter()
+            data_m = pipeline.run_modeling(P, vp=vp, mesh=mesh, lap_impl=li)
+            img_m3, locs_m3 = pipeline.run_rtm_gpu(
+                P, vp=vp, dobs=data_m, seed=0, mesh=mesh, lap_impl=li)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rr3 = [rel_rms(a, b) for a, b in zip((data_m, img_m3, locs_m3),
+                                                 ref_li)]
+            lc = d2k if len(shape) == 3 else dk
+            launched = {k: n for k, n in {**fk.LAUNCHES, **stream.LAUNCHES,
+                                          **dk.LAUNCHES,
+                                          **d2k.LAUNCHES}.items() if n}
+            print(f"[split 3lay mesh path] lap_impl={li!r} mesh {shape}: "
+                  f"run_modeling + run_rtm_gpu {wall:.3f} s wall; launches "
+                  f"{launched}; vs the no-mesh run at the same lap_impl: "
+                  f"gathers rel RMS {rr3[0]:.3e}, image {rr3[1]:.3e}, "
+                  f"per-shot images {rr3[2]:.3e}", flush=True)
+            check(max(rr3) <= GATE, f"3lay {li} mesh {shape} differs")
+            check(set(launched) == {k for k in lc.LAUNCHES
+                                    if k.endswith("_mma")},
+                  f"3lay {li} mesh {shape}: launches {launched}")
+    del ref_li, data_li, data_m
+    phase_done("split 3lay mesh paths")
+
+    # ---- 34. the Pluto domain paths through the split kernels: the full
+    # grid, 2 shots, nt = 1001 (auto resolves to mxu), run_modeling then
+    # run_rtm_gpu over (1, 4) and (1, 2, 2) meshes of cuda:0 under auto and
+    # mxu6, and exact: launch counts (only the tier's _mma kernels), the
+    # gathers and images against the per-step tier at the same lap_impl,
+    # mxu6 against the exact domain run, mxu's drift from it (reported),
+    # wall s/shot
+    check(fk.resolve_lap_impl(ctx_pr, "auto") == "mxu",
+          "Pluto nt 1001: auto does not resolve to mxu")
+    step_ref = {}
+    for li in ("auto", "mxu6"):
+        dat = pipeline.run_modeling(pt, vp=vp_pl, device=dev,
+                                    backend="pallas", lap_impl=li)
+        step_ref[li] = (dat, *pipeline.run_rtm_gpu(
+            pt, vp=vp_pl, dobs=dat, seed=0, device=dev, backend="pallas",
+            lap_impl=li))
+    blocks = 4 * -(-pt.nt // KD)
+    for shape in ((1, 4), (1, 2, 2)):
+        mesh = make_mesh(*shape, devices=[dev] * 4)
+        lc = d2k if len(shape) == 3 else dk
+        runs = {}
+        for li in ("auto", "mxu6", None):
+            for c in (fk, stream, dk, d2k):
+                c.reset_launches()
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.perf_counter()
+                dat = pipeline.run_modeling(pt, vp=vp_pl, mesh=mesh,
+                                            lap_impl=li)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                img_s, locs_s = pipeline.run_rtm_gpu(
+                    pt, vp=vp_pl, dobs=dat, seed=0, outdir=tmp, mesh=mesh,
+                    lap_impl=li)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                written = np.fromfile(os.path.join(tmp, "dir.image"),
+                                      np.float32)
+            runs[li] = (dat, img_s, locs_s)
+            launched = {k: n for k, n in {**fk.LAUNCHES, **stream.LAUNCHES,
+                                          **dk.LAUNCHES,
+                                          **d2k.LAUNCHES}.items() if n}
+            name = {"auto": "mxu", None: "exact"}.get(li, li)
+            print(f"[split Pluto domain path] lap_impl={li!r} ({name}), "
+                  f"mesh {shape} of cuda:0, Pluto {pt.nxe} x {pt.nze}, nt "
+                  f"{pt.nt} (cut from {PLUTO['nt']}), ns {pt.ns}, K {KD}: "
+                  f"run_modeling {t1 - t0:.3f} s wall "
+                  f"({(t1 - t0) / pt.ns:.3f} s/shot), run_rtm_gpu "
+                  f"{t2 - t1:.3f} s wall ({(t2 - t1) / pt.ns:.3f} s/shot), "
+                  f"host included; launches {launched}; {smi}", flush=True)
+            check(np.isfinite(dat).all() and np.abs(dat).max() > 0
+                  and written.tobytes() == img_s.tobytes()
+                  and np.isfinite(img_s).all() and np.abs(img_s).max() > 0,
+                  f"{name} mesh {shape}: outputs not finite, zero or "
+                  f"dir.image differs")
+            want = {k: blocks for k in lc.LAUNCHES
+                    if k.endswith("_mma") == bool(li)}
+            check(launched == want, f"{name} mesh {shape}: launches "
+                                    f"{launched}, expected {want}")
+            if li == "auto":
+                for k in want:
+                    results[k]["launches"] = launched[k]
+            if li:
+                rr = [rel_rms(a, b) for a, b in zip(runs[li], step_ref[li])]
+                print(f"[split Pluto domain path] {name} mesh {shape} vs the "
+                      f"per-step tier at lap_impl={li!r}: gathers rel RMS "
+                      f"{rr[0]:.3e}, image {rr[1]:.3e}, per-shot images "
+                      f"{rr[2]:.3e} (gate {GATE})", flush=True)
+                check(max(rr) <= GATE, f"Pluto {name} mesh {shape} differs "
+                                       f"from the per-step tier")
+        rr6 = [rel_rms(a, b) for a, b in zip(runs["mxu6"][:2], runs[None])]
+        rr3 = [rel_rms(a, b) for a, b in zip(runs["auto"][:2], runs[None])]
+        print(f"[split Pluto domain path] mesh {shape}: mxu6 vs the exact "
+              f"domain run: gathers rel RMS {rr6[0]:.3e}, image {rr6[1]:.3e}"
+              f" (gate 1e-5); mxu vs exact: gathers {rr3[0]:.3e}, image "
+              f"{rr3[1]:.3e} (reported: the lowering's own drift at Pluto's "
+              f"sampling, scripts/torch_split_drift.py)", flush=True)
+        check(max(rr6) <= 1e-5, f"Pluto mxu6 mesh {shape} vs exact")
+    del runs, step_ref, dat
+    phase_done("split Pluto domain paths")
+
+    # ---- 35. times and traces of the split block kernels at the Pluto
+    # shapes (2 shots, nt = 1001, K = 8): each kernel's launches over the
+    # four slabs or tiles (mxu and mxu6), its plain version (mxu) and its
+    # exact twin (once each: phases 14 and 18 hold the twins' medians), in
+    # turns, against block_bounds(parts=); then one trace of each split
+    # maker call (mxu), with the share of the copy kernels and the idle
+    # share
+    d_ext_p = embed_dobs(ctx_pr, d_p.cpu().numpy())
+    for shape in ((1, 4), (1, 2, 2)):
+        tier2 = len(shape) == 3
+        ms_s, rs_s = split_tiles(case_p, shape, KD)
+        rng = np.random.default_rng(35)
+        st_s = [[randn(rng, pt.ns, c.nxw, c.nzw) for _ in range(6)]
+                for c in rs_s]
+        imgs_s = [randn(rng, pt.ns, c.nxl, c.nzl) for c in rs_s]
+        outs_s = [[torch.zeros_like(st_s[j][0]) for _ in range(4)]
+                  for j in range(4)]
+        runners = {p_: block_runner(split_blocks(tier2, p_), ms_s, rs_s,
+                                    st_s, imgs_s, outs_s) for p_ in (2, 3)}
+        exact_run = block_runner(XZ_BLOCKS if tier2 else X_BLOCKS, ms_s,
+                                 rs_s, st_s, imgs_s, outs_s)
+        n_xz = (shape[1], shape[2] if tier2 else 1)
+        stem = "block2_" if tier2 else "block_"
+        b2, b3 = ({**block_bounds(ctx_pr, pt.ns, KD, *n_xz, gp.gz, parts=p_),
+                   f"{stem}mod_mma": block_bounds(
+                       ctx_pm, pt.ns, KD, *n_xz, gp.gz,
+                       parts=p_)[f"{stem}mod_mma"]} for p_ in (2, 3))
+        for i, (k, _, _) in enumerate(split_blocks(tier2, 2)):
+            tk, tk6, tp, te = in_turns(
+                [runners[2](i, True), runners[3](i, True),
+                 runners[2](i, False), exact_run(i, True)],
+                once=(2, 3))
+            bms, by = b2[k]
+            print(f"[times] {k} at the Pluto grid ({pt.ns} shots, nt "
+                  f"{pt.nt}, 4 {'tiles' if tier2 else 'slabs'} of "
+                  f"{rs_s[0].nxw} x {rs_s[0].nzw}, {blocks} launches of "
+                  f"K={KD}): kernel (mxu) {span(tk)}, mxu6 {span(tk6)}, "
+                  f"plain (mxu) {span(tp)}, exact kernel {k[:-4]} "
+                  f"{span(te)}; bound {bms:.3f} ms ({by}; mxu6 "
+                  f"{b3[k][0]:.3f}), kernel / bound "
+                  f"{statistics.median(tk) / bms:.2f}; {smi}", flush=True)
+            results[k].update(ms=statistics.median(tk),
+                              plain_ms=statistics.median(tp), bound_ms=bms,
+                              bound_by=by, library_ms=None)
+        del st_s, imgs_s, outs_s, ms_s, rs_s, runners, exact_run
+        mesh = make_mesh(*shape, devices=[dev] * 4)
+        mk = ((d2k.make_sharded_forward_modeling_2d_cuda,
+               d2k.make_sharded_rtm_snapshot_2d_cuda) if tier2 else
+              (dk.make_sharded_forward_modeling_cuda,
+               dk.make_sharded_rtm_snapshot_cuda))
+        smod = mk[0](ctx_pm, mesh, gp.sz, gp.gz, block_k=KD, lap_impl="mxu")
+        srtm = mk[1](ctx_pr, mesh, gp.sz, gp.gz, block_k=KD, lap_impl="mxu")
+        for label, fn in (("modeling", lambda: smod(v2_pm, gp.sx, wav_pm)),
+                          ("RTM", lambda: srtm(v2_pr, gp.sx, wav_pr,
+                                               d_ext_p))):
+            call_ms = event_ms(fn)
+            label = f"Pluto {label} mxu, mesh {shape}"
+            print(f"[times] {label} ({pt.ns} shots, nt {pt.nt}): "
+                  f"{call_ms:.3f} ms (one sample), "
+                  f"{call_ms / 1e3 / pt.ns:.6f} s/shot; {smi}", flush=True)
+            rows = profile(torch, label, fn, call_ms, smi)
+            busy = sum(t for _, t, _ in rows)
+            copies = sum(t for key, t, _ in rows if "copy" in key.lower()
+                         and "HtoD" not in key and "DtoH" not in key
+                         and "CatArray" not in key)
+            print(f"[profile] {label}: copy kernels (the exchange, trace "
+                  f"rows, tile set-up) {copies:.3f} ms, share of the call "
+                  f"{copies / call_ms:.3f}; idle share "
+                  f"{1 - busy / call_ms:.3f}; {smi}", flush=True)
+    del d_p, v2_pm, v2_pr, d_ext_p, case_p
+    phase_done("split domain kernels: times and profile")
+
+    print(f"[total] {time.perf_counter() - start:.1f} s", flush=True)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -144,11 +144,10 @@ def main(argv=None):
                                 "default), split-bf16 tensor-core tiers "
                                 "(mxu: 3 passes, mxu6: 6), or auto (mxu for "
                                 "nt <= 1500 and dx == dz, mxu6 for nt <= "
-                                "4500, else vpu). The per-step and the "
-                                "tiled tier run all of them; the domain "
-                                "tiers raise on a resolved mxu/mxu6 (their "
-                                "split variants are still to be ported, see "
-                                "ROADMAP.md)")
+                                "4500, else vpu). Every tier on the card "
+                                "runs all of them; the domain tiers on CPU "
+                                "devices keep the exact taps, as the JAX "
+                                "package does there")
         if name == "rtm_gpu":
             s.add_argument("--seed", type=int, default=0)
             s.add_argument("--image-num", action="store_true",

@@ -44,6 +44,29 @@
 // as the JAX package does (domain_pallas.py:161, :178, :492). Offsets into
 // trace rows and seismograms are size_t.
 //
+// The split x taps (lap_impl "mxu", "mxu6"). Each kernel body is a
+// template on P, the bf16 parts of its Laplacian: P = 0 is the exact
+// kernel (block_mod, block_fwd, block_bwd), compiled as before; P = 2 (3)
+// is its *_mma twin (block_mod_mma, ...), which takes the x taps as the
+// 3-pass (6-pass) split-bf16 banded product on the tensor cores
+// (mma_bf16.cuh) and the z taps exact, yx + accz, as the JAX block kernels'
+// use_mxu branch does (_make_lap's MXU branch, ops/pallas_fd.py:312-332,
+// through _lap_and_refs, domain_pallas.py:106-112). x_band contracts down
+// the staged tile's rows (A[m][k] is a column of it) into one more staged
+// buffer behind a barrier, and the cell's own thread then adds the exact z
+// taps (block_lap), so the update, taper, injection, trace and image keep
+// their threads and order. block_bwd_mma takes its two Laplacians one after
+// the other through that one buffer, and owns 16 x 32 cells so that five
+// staged tiles fit a block at order 10 and K = 8. The buffers keep the
+// tile's pitch (TZ + 2Kh floats: 128 at order 8, K = 8 for block_mod_mma,
+// which gives the column reads 4-way bank conflicts). The TPU kernels' lane
+// pad to a multiple of 128 (nxww, domain_pallas.py:252) is layout, with
+// zero lanes: here a window past the tile reads 0. What bounds the twins:
+// the exact kernels' bytes; what they add is shared-memory and issue work
+// (the split of every value a window reads, the staged product, one more
+// barrier a step, two more in block_bwd_mma, and block_bwd_mma's smaller
+// owned tile recomputes more halo), not tensor-core time.
+//
 // The kernels sit in an anonymous namespace: each source that includes
 // this header builds its own instances.
 #pragma once
@@ -52,8 +75,9 @@
 
 namespace {
 
-constexpr int kModTX = 32, kModTZ = 64;   // block_mod, block_fwd
+constexpr int kModTX = 32, kModTZ = 64;   // block_mod, block_fwd (+ _mma)
 constexpr int kBwdTX = 32, kBwdTZ = 32;   // block_bwd
+constexpr int kBwdMmaTX = 16, kBwdMmaTZ = 32;   // block_bwd_mma
 
 // A tile's owned size and halos. kZ: an (x, z) tile, with a z halo and z
 // extent of its own; false: an x-slab (no z halo, nzl = nze), whose z
@@ -84,6 +108,7 @@ struct Dims {
 // of the tile.
 template <int TX, int TZ>
 struct BlockTile {
+  static constexpr int kTX = TX, kTZ = TZ;
   int r, sx, sz, x0, z0;
 
   template <bool kZ>
@@ -159,26 +184,79 @@ __device__ __forceinline__ void store_tile(float* __restrict__ f,
   });
 }
 
+// The x taps of the field f, centre included, as the P-part split-bf16
+// banded product, into xb at every block-tile cell at least lo cells from
+// its edge, then a barrier; nothing for P = 0. A warp (threadIdx.y) takes
+// the region's blocks of 16 columns (the mma's rows m, along z) by 8 rows
+// (its outputs n, along x) in turn, contracting down x: A[m][k] is column
+// z0 + m of the tile at row x0 - H + k, the window of output row x0 + n
+// starting H rows before it. Reads past the tile read 0 (the band's zeros
+// multiply every value read, so each must be finite: the tile's cells all
+// are), and outputs beyond the region are not written.
+template <int H, int P, class T>
+__device__ __forceinline__ void x_band(float* xb, const float* f, const T& t,
+                                       int lo, const pfdc::SplitBand<H, P>& band) {
+  if constexpr (P > 0) {
+    const int lane = static_cast<int>(threadIdx.x);
+    const int hx = t.sx - lo, hz = t.sz - lo;
+    const int nbz = (hz - lo + 15) / 16;
+    const int nb = (hx - lo + 7) / 8 * nbz;
+    for (int b = threadIdx.y; b < nb; b += blockDim.y) {
+      const int x0 = lo + 8 * (b / nbz);
+      const int z0 = lo + 16 * (b % nbz);
+      float y[4];
+      pfdc::banded_mma<H, P>(
+          y,
+          [&](int m, int k) {
+            const int lx = x0 - H + k, lz = z0 + m;
+            return lx < t.sx && lz < t.sz ? f[lx * t.sz + lz] : 0.0f;
+          },
+          band, lane);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int lz = z0 + pfdc::frag_g(lane) + 8 * (q >> 1);
+        const int lx = x0 + 2 * pfdc::frag_t(lane) + (q & 1);
+        if (lx < hx && lz < hz) xb[lx * t.sz + lz] = y[q];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The Laplacian at block-tile cell j of the field f: the exact taps
+// (P = 0), or the split x taps x_band left in xb plus the exact z taps
+// (yx + accz).
+template <int H, int P>
+__device__ __forceinline__ float block_lap(const float* f, const float* xb,
+                                           int j, int sz,
+                                           const pfdc::Coefs& c) {
+  if constexpr (P == 0) {
+    return pfdc::laplacian<H, false>(f, nullptr, j, sz, c);
+  } else {
+    return xb[j] + pfdc::axis_taps<H>(f, j, 1, c.z);
+  }
+}
+
 // Per step, from the state (p, pp), pp tapered: u = (2p - pp) + v*lap(p);
 // u += amp * src on the source rows; pp' = u*m; p' = p*m, whose row gz on
 // the owned cells is the step's trace (mod_main.cpp:146-168).
-template <int H, bool kZ>
-__global__ void block_mod(const float* __restrict__ p_in,
-                          const float* __restrict__ pp_in,
-                          float* __restrict__ p_out, float* __restrict__ pp_out,
-                          const float* __restrict__ v2m, int v2_shot_stride,
-                          const float* __restrict__ xramp,
-                          const float* __restrict__ zfac,
-                          const float* __restrict__ strip,
-                          const float* __restrict__ src, int r, int src_z,
-                          pfdc::Amps amps, int k_steps, float* __restrict__ rec,
-                          int gz_rec, Dims<kZ> d, pfdc::Coefs c) {
-  extern __shared__ float smem[];
+template <int H, bool kZ, int P>
+__device__ __forceinline__ void block_mod_body(
+    float* smem, const float* __restrict__ p_in,
+    const float* __restrict__ pp_in, float* __restrict__ p_out,
+    float* __restrict__ pp_out, const float* __restrict__ v2m,
+    int v2_shot_stride, const float* __restrict__ xramp,
+    const float* __restrict__ zfac, const float* __restrict__ strip,
+    const float* __restrict__ src, int r, int src_z, const pfdc::Amps& amps,
+    int k_steps, float* __restrict__ rec, int gz_rec, const Dims<kZ>& d,
+    const pfdc::Coefs& c) {
   const int nxw = d.nxw(), nzw = d.nzw();
   const BlockTile<kModTX, kModTZ> t(k_steps * H, d);
   const int n = t.cells();
   float* sp = smem;
   float* spp = smem + n;
+  float* xb = smem + 2 * n;     // P > 0: the x taps of sp
+  const auto band = pfdc::split_band<H, P>(c.x);
   const int s = blockIdx.z;
   const size_t plane = d.plane();
   load_tile(sp, p_in + s * plane, t, nxw, nzw);
@@ -190,11 +268,12 @@ __global__ void block_mod(const float* __restrict__ p_in,
   for (int k = 0; k < k_steps; ++k) {
     const int lo = (k + 1) * H;
     const float amp = amps.a[k];
+    x_band<H, P>(xb, sp, t, lo, band);
     // the update, into the older field's slot (read only at its own cell)
     for_cells(t, lo, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
       const int j = lx * t.sz + lz;
       const float lap = pfdc::in_interior(gx, gz, H, nxw, nzw)
-                            ? pfdc::laplacian<H, false>(sp, nullptr, j, t.sz, c)
+                            ? block_lap<H, P>(sp, xb, j, t.sz, c)
                             : 0.0f;
       float u = (2.0f * sp[j] - spp[j]) +
                 v[static_cast<size_t>(gx) * nzw + gz] * lap;
@@ -225,23 +304,22 @@ __global__ void block_mod(const float* __restrict__ p_in,
 // Per step, from the state (p, pp), p tapered and pp not (fd-code.cu:
 // 259-267): t = pp*m (in place, then a barrier), u = (2t - p*m) + v*lap(t),
 // u += amp * src on row src_z; the next state is (t, u).
-template <int H, bool kZ>
-__global__ void block_fwd(const float* __restrict__ p_in,
-                          const float* __restrict__ pp_in,
-                          float* __restrict__ p_out, float* __restrict__ pp_out,
-                          const float* __restrict__ v2m, int v2_shot_stride,
-                          const float* __restrict__ xramp,
-                          const float* __restrict__ zfac,
-                          const float* __restrict__ strip,
-                          const float* __restrict__ src, int src_z,
-                          pfdc::Amps amps, int k_steps, Dims<kZ> d,
-                          pfdc::Coefs c) {
-  extern __shared__ float smem[];
+template <int H, bool kZ, int P>
+__device__ __forceinline__ void block_fwd_body(
+    float* smem, const float* __restrict__ p_in,
+    const float* __restrict__ pp_in, float* __restrict__ p_out,
+    float* __restrict__ pp_out, const float* __restrict__ v2m,
+    int v2_shot_stride, const float* __restrict__ xramp,
+    const float* __restrict__ zfac, const float* __restrict__ strip,
+    const float* __restrict__ src, int src_z, const pfdc::Amps& amps,
+    int k_steps, const Dims<kZ>& d, const pfdc::Coefs& c) {
   const int nxw = d.nxw(), nzw = d.nzw();
   const BlockTile<kModTX, kModTZ> t(k_steps * H, d);
   const int n = t.cells();
   float* sx_ = smem;      // p: the older field, tapered
   float* sy = smem + n;   // pp: the newest field
+  float* xb = smem + 2 * n;     // P > 0: the x taps of sy
+  const auto band = pfdc::split_band<H, P>(c.x);
   const int s = blockIdx.z;
   const size_t plane = d.plane();
   load_tile(sx_, p_in + s * plane, t, nxw, nzw);
@@ -255,12 +333,13 @@ __global__ void block_fwd(const float* __restrict__ p_in,
       sy[j] = sy[j] * pfdc::taper_at(xramp, zfac, strip, gx, gz);
     });
     __syncthreads();
+    x_band<H, P>(xb, sy, t, (k + 1) * H, band);
     const float amp = amps.a[k];
     for_cells(t, (k + 1) * H, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
       const int j = lx * t.sz + lz;
       const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
       const float lap = pfdc::in_interior(gx, gz, H, nxw, nzw)
-                            ? pfdc::laplacian<H, false>(sy, nullptr, j, t.sz, c)
+                            ? block_lap<H, P>(sy, xb, j, t.sz, c)
                             : 0.0f;
       float u = (2.0f * sy[j] - sx_[j] * m) +
                 v[static_cast<size_t>(gx) * nzw + gz] * lap;
@@ -275,12 +354,221 @@ __global__ void block_fwd(const float* __restrict__ p_in,
   store_tile(pp_out + s * plane, sy, t, d);
 }
 
+// The owned cells of block_bwd (32 x 32) and of block_bwd_mma (16 x 32).
+template <int P>
+using BwdTile = std::conditional_t<P == 0, BlockTile<kBwdTX, kBwdTZ>,
+                                   BlockTile<kBwdMmaTX, kBwdMmaTZ>>;
+
 // Per step, from the state (ps, pps, pr, ppr) (fd-code.cu:302-333): the
 // source s = (2ps - pps) + v*lap(ps), untapered, or with snap0/snap1 given
 // (the first block) the snapshot snap1 at step 0 and snap0 at step 1; the
 // receiver t = pr*m (in place, then a barrier), u = (2t - ppr*m) +
 // v*lap(t), plus trace row k at row gz_rec (K5); the block's image delta
-// += s*u on the owned cells (K6), added to img at the end.
+// += s*u on the owned cells (K6), added to img at the end. With P > 0 the
+// source step and the receiver step each follow their own x product, in
+// two passes over the cells.
+template <int H, bool kZ, int P>
+__device__ __forceinline__ void block_bwd_body(
+    float* smem, const float* __restrict__ ps_in,
+    const float* __restrict__ pps_in, const float* __restrict__ pr_in,
+    const float* __restrict__ ppr_in, float* __restrict__ ps_out,
+    float* __restrict__ pps_out, float* __restrict__ pr_out,
+    float* __restrict__ ppr_out, const float* __restrict__ snap0,
+    const float* __restrict__ snap1, float* __restrict__ img,
+    const float* __restrict__ v2m, int v2_shot_stride,
+    const float* __restrict__ xramp, const float* __restrict__ zfac,
+    const float* __restrict__ strip, const float* __restrict__ inj,
+    int inj_shot_stride, int gz_rec, int k_steps, const Dims<kZ>& d,
+    const pfdc::Coefs& c) {
+  using T = BwdTile<P>;
+  const int nxw = d.nxw(), nzw = d.nzw();
+  const T t(k_steps * H, d);
+  const int n = t.cells();
+  float* sps = smem;
+  float* spps = smem + n;
+  float* spr = smem + 2 * n;
+  float* sppr = smem + 3 * n;
+  float* simg = smem + 4 * n;   // T::kTX x T::kTZ, owned cells
+  float* xb = simg + T::kTX * T::kTZ;   // P > 0: the x taps of sps or spr
+  const auto band = pfdc::split_band<H, P>(c.x);
+  const int s = blockIdx.z;
+  const size_t plane = d.plane();
+  load_tile(sps, ps_in + s * plane, t, nxw, nzw);
+  load_tile(spps, pps_in + s * plane, t, nxw, nzw);
+  load_tile(spr, pr_in + s * plane, t, nxw, nzw);
+  load_tile(sppr, ppr_in + s * plane, t, nxw, nzw);
+  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < T::kTX * T::kTZ;
+       i += blockDim.x * blockDim.y) {
+    simg[i] = 0.0f;
+  }
+  const float* v = v2m + s * static_cast<size_t>(v2_shot_stride);
+  const float* inj_s = inj + s * static_cast<size_t>(inj_shot_stride);
+  const bool seed = snap0 != nullptr;
+  for (int k = 0; k < k_steps; ++k) {
+    // taper the receiver field over every cell this step's taps read
+    for_cells(t, k * H, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
+      const int j = lx * t.sz + lz;
+      spr[j] = spr[j] * pfdc::taper_at(xramp, zfac, strip, gx, gz);
+    });
+    __syncthreads();
+    if constexpr (P == 0) {
+      for_cells(t, (k + 1) * H, nxw, nzw,
+                [&](int lx, int lz, int gx, int gz) {
+        const int j = lx * t.sz + lz;
+        const size_t q = static_cast<size_t>(gx) * nzw + gz;
+        const bool interior = pfdc::in_interior(gx, gz, H, nxw, nzw);
+        const float vq = v[q];
+        float us;
+        if (seed && k < 2) {
+          us = (k == 0 ? snap1 : snap0)[s * plane + q];
+        } else {
+          const float lap_s =
+              interior ? pfdc::laplacian<H, false>(sps, nullptr, j, t.sz, c)
+                       : 0.0f;
+          us = (2.0f * sps[j] - spps[j]) + vq * lap_s;
+        }
+        spps[j] = us;
+        const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
+        const float lap_r =
+            interior ? pfdc::laplacian<H, false>(spr, nullptr, j, t.sz, c)
+                     : 0.0f;
+        float ur = (2.0f * spr[j] - sppr[j] * m) + vq * lap_r;
+        if (gz == gz_rec) {
+          ur = ur + inj_s[static_cast<size_t>(k) * nxw + gx];
+        }
+        sppr[j] = ur;
+        if (t.owned(lx, lz, gx, gz, d)) {
+          float& acc = simg[(lx - t.r) * T::kTZ + (lz - t.r)];
+          acc = acc + us * ur;
+        }
+      });
+    } else {
+      // the source step after the x product of sps, then the receiver
+      // step and the image term after that of spr, through one buffer
+      const int lo = (k + 1) * H;
+      if (!(seed && k < 2)) x_band<H, P>(xb, sps, t, lo, band);
+      for_cells(t, lo, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
+        const int j = lx * t.sz + lz;
+        const size_t q = static_cast<size_t>(gx) * nzw + gz;
+        if (seed && k < 2) {
+          spps[j] = (k == 0 ? snap1 : snap0)[s * plane + q];
+        } else {
+          const float lap_s = pfdc::in_interior(gx, gz, H, nxw, nzw)
+                                  ? block_lap<H, P>(sps, xb, j, t.sz, c)
+                                  : 0.0f;
+          spps[j] = (2.0f * sps[j] - spps[j]) + v[q] * lap_s;
+        }
+      });
+      __syncthreads();   // every read of xb is done
+      x_band<H, P>(xb, spr, t, lo, band);
+      for_cells(t, lo, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
+        const int j = lx * t.sz + lz;
+        const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
+        const float lap_r = pfdc::in_interior(gx, gz, H, nxw, nzw)
+                                ? block_lap<H, P>(spr, xb, j, t.sz, c)
+                                : 0.0f;
+        float ur = (2.0f * spr[j] - sppr[j] * m) +
+                   v[static_cast<size_t>(gx) * nzw + gz] * lap_r;
+        if (gz == gz_rec) {
+          ur = ur + inj_s[static_cast<size_t>(k) * nxw + gx];
+        }
+        sppr[j] = ur;
+        if (t.owned(lx, lz, gx, gz, d)) {
+          float& acc = simg[(lx - t.r) * T::kTZ + (lz - t.r)];
+          acc = acc + spps[j] * ur;
+        }
+      });
+    }
+    float* tmp = sps;
+    sps = spps;
+    spps = tmp;
+    tmp = spr;
+    spr = sppr;
+    sppr = tmp;
+  }
+  store_tile(ps_out + s * plane, sps, t, d);
+  store_tile(pps_out + s * plane, spps, t, d);
+  store_tile(pr_out + s * plane, spr, t, d);
+  store_tile(ppr_out + s * plane, sppr, t, d);
+  float* img_s = img + s * static_cast<size_t>(d.nxl) * d.nzl;
+  for_cells(t, t.r, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
+    if (t.owned(lx, lz, gx, gz, d)) {
+      float& out =
+          img_s[static_cast<size_t>(gx - d.hs) * d.nzl + (gz - d.hz())];
+      out = out + simg[(lx - t.r) * T::kTZ + (lz - t.r)];
+    }
+  });
+}
+
+// The exact kernels (P = 0) and their split-bf16 twins (P = 2, 3), whose
+// mma fragments take registers: their launch bounds are stated.
+template <int H, bool kZ>
+__global__ void block_mod(const float* __restrict__ p_in,
+                          const float* __restrict__ pp_in,
+                          float* __restrict__ p_out, float* __restrict__ pp_out,
+                          const float* __restrict__ v2m, int v2_shot_stride,
+                          const float* __restrict__ xramp,
+                          const float* __restrict__ zfac,
+                          const float* __restrict__ strip,
+                          const float* __restrict__ src, int r, int src_z,
+                          pfdc::Amps amps, int k_steps, float* __restrict__ rec,
+                          int gz_rec, Dims<kZ> d, pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  block_mod_body<H, kZ, 0>(smem, p_in, pp_in, p_out, pp_out, v2m,
+                           v2_shot_stride, xramp, zfac, strip, src, r, src_z,
+                           amps, k_steps, rec, gz_rec, d, c);
+}
+
+template <int H, bool kZ, int P>
+__global__ void __launch_bounds__(pfdc::kTileThreads)
+    block_mod_mma(const float* __restrict__ p_in,
+                  const float* __restrict__ pp_in, float* __restrict__ p_out,
+                  float* __restrict__ pp_out, const float* __restrict__ v2m,
+                  int v2_shot_stride, const float* __restrict__ xramp,
+                  const float* __restrict__ zfac,
+                  const float* __restrict__ strip,
+                  const float* __restrict__ src, int r, int src_z,
+                  pfdc::Amps amps, int k_steps, float* __restrict__ rec,
+                  int gz_rec, Dims<kZ> d, pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  block_mod_body<H, kZ, P>(smem, p_in, pp_in, p_out, pp_out, v2m,
+                           v2_shot_stride, xramp, zfac, strip, src, r, src_z,
+                           amps, k_steps, rec, gz_rec, d, c);
+}
+
+template <int H, bool kZ>
+__global__ void block_fwd(const float* __restrict__ p_in,
+                          const float* __restrict__ pp_in,
+                          float* __restrict__ p_out, float* __restrict__ pp_out,
+                          const float* __restrict__ v2m, int v2_shot_stride,
+                          const float* __restrict__ xramp,
+                          const float* __restrict__ zfac,
+                          const float* __restrict__ strip,
+                          const float* __restrict__ src, int src_z,
+                          pfdc::Amps amps, int k_steps, Dims<kZ> d,
+                          pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  block_fwd_body<H, kZ, 0>(smem, p_in, pp_in, p_out, pp_out, v2m,
+                           v2_shot_stride, xramp, zfac, strip, src, src_z,
+                           amps, k_steps, d, c);
+}
+
+template <int H, bool kZ, int P>
+__global__ void __launch_bounds__(pfdc::kTileThreads)
+    block_fwd_mma(const float* __restrict__ p_in,
+                  const float* __restrict__ pp_in, float* __restrict__ p_out,
+                  float* __restrict__ pp_out, const float* __restrict__ v2m,
+                  int v2_shot_stride, const float* __restrict__ xramp,
+                  const float* __restrict__ zfac,
+                  const float* __restrict__ strip,
+                  const float* __restrict__ src, int src_z, pfdc::Amps amps,
+                  int k_steps, Dims<kZ> d, pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  block_fwd_body<H, kZ, P>(smem, p_in, pp_in, p_out, pp_out, v2m,
+                           v2_shot_stride, xramp, zfac, strip, src, src_z,
+                           amps, k_steps, d, c);
+}
+
 template <int H, bool kZ>
 __global__ void block_bwd(const float* __restrict__ ps_in,
                           const float* __restrict__ pps_in,
@@ -301,81 +589,33 @@ __global__ void block_bwd(const float* __restrict__ ps_in,
                           int gz_rec, int k_steps, Dims<kZ> d,
                           pfdc::Coefs c) {
   extern __shared__ float smem[];
-  const int nxw = d.nxw(), nzw = d.nzw();
-  const BlockTile<kBwdTX, kBwdTZ> t(k_steps * H, d);
-  const int n = t.cells();
-  float* sps = smem;
-  float* spps = smem + n;
-  float* spr = smem + 2 * n;
-  float* sppr = smem + 3 * n;
-  float* simg = smem + 4 * n;   // kBwdTX x kBwdTZ, owned cells
-  const int s = blockIdx.z;
-  const size_t plane = d.plane();
-  load_tile(sps, ps_in + s * plane, t, nxw, nzw);
-  load_tile(spps, pps_in + s * plane, t, nxw, nzw);
-  load_tile(spr, pr_in + s * plane, t, nxw, nzw);
-  load_tile(sppr, ppr_in + s * plane, t, nxw, nzw);
-  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < kBwdTX * kBwdTZ;
-       i += blockDim.x * blockDim.y) {
-    simg[i] = 0.0f;
-  }
-  const float* v = v2m + s * static_cast<size_t>(v2_shot_stride);
-  const float* inj_s = inj + s * static_cast<size_t>(inj_shot_stride);
-  const bool seed = snap0 != nullptr;
-  for (int k = 0; k < k_steps; ++k) {
-    // taper the receiver field over every cell this step's taps read
-    for_cells(t, k * H, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
-      const int j = lx * t.sz + lz;
-      spr[j] = spr[j] * pfdc::taper_at(xramp, zfac, strip, gx, gz);
-    });
-    __syncthreads();
-    for_cells(t, (k + 1) * H, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
-      const int j = lx * t.sz + lz;
-      const size_t q = static_cast<size_t>(gx) * nzw + gz;
-      const bool interior = pfdc::in_interior(gx, gz, H, nxw, nzw);
-      const float vq = v[q];
-      float us;
-      if (seed && k < 2) {
-        us = (k == 0 ? snap1 : snap0)[s * plane + q];
-      } else {
-        const float lap_s =
-            interior ? pfdc::laplacian<H, false>(sps, nullptr, j, t.sz, c)
-                     : 0.0f;
-        us = (2.0f * sps[j] - spps[j]) + vq * lap_s;
-      }
-      spps[j] = us;
-      const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
-      const float lap_r =
-          interior ? pfdc::laplacian<H, false>(spr, nullptr, j, t.sz, c) : 0.0f;
-      float ur = (2.0f * spr[j] - sppr[j] * m) + vq * lap_r;
-      if (gz == gz_rec) {
-        ur = ur + inj_s[static_cast<size_t>(k) * nxw + gx];
-      }
-      sppr[j] = ur;
-      if (t.owned(lx, lz, gx, gz, d)) {
-        float& acc = simg[(lx - t.r) * kBwdTZ + (lz - t.r)];
-        acc = acc + us * ur;
-      }
-    });
-    float* tmp = sps;
-    sps = spps;
-    spps = tmp;
-    tmp = spr;
-    spr = sppr;
-    sppr = tmp;
-  }
-  store_tile(ps_out + s * plane, sps, t, d);
-  store_tile(pps_out + s * plane, spps, t, d);
-  store_tile(pr_out + s * plane, spr, t, d);
-  store_tile(ppr_out + s * plane, sppr, t, d);
-  float* img_s = img + s * static_cast<size_t>(d.nxl) * d.nzl;
-  for_cells(t, t.r, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
-    if (t.owned(lx, lz, gx, gz, d)) {
-      float& out =
-          img_s[static_cast<size_t>(gx - d.hs) * d.nzl + (gz - d.hz())];
-      out = out + simg[(lx - t.r) * kBwdTZ + (lz - t.r)];
-    }
-  });
+  block_bwd_body<H, kZ, 0>(smem, ps_in, pps_in, pr_in, ppr_in, ps_out,
+                           pps_out, pr_out, ppr_out, snap0, snap1, img, v2m,
+                           v2_shot_stride, xramp, zfac, strip, inj,
+                           inj_shot_stride, gz_rec, k_steps, d, c);
+}
+
+template <int H, bool kZ, int P>
+__global__ void __launch_bounds__(pfdc::kTileThreads)
+    block_bwd_mma(const float* __restrict__ ps_in,
+                  const float* __restrict__ pps_in,
+                  const float* __restrict__ pr_in,
+                  const float* __restrict__ ppr_in,
+                  float* __restrict__ ps_out, float* __restrict__ pps_out,
+                  float* __restrict__ pr_out, float* __restrict__ ppr_out,
+                  const float* __restrict__ snap0,
+                  const float* __restrict__ snap1, float* __restrict__ img,
+                  const float* __restrict__ v2m, int v2_shot_stride,
+                  const float* __restrict__ xramp,
+                  const float* __restrict__ zfac,
+                  const float* __restrict__ strip,
+                  const float* __restrict__ inj, int inj_shot_stride,
+                  int gz_rec, int k_steps, Dims<kZ> d, pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  block_bwd_body<H, kZ, P>(smem, ps_in, pps_in, pr_in, ppr_in, ps_out,
+                           pps_out, pr_out, ppr_out, snap0, snap1, img, v2m,
+                           v2_shot_stride, xramp, zfac, strip, inj,
+                           inj_shot_stride, gz_rec, k_steps, d, c);
 }
 
 template <bool kZ>
@@ -397,20 +637,29 @@ struct BlockModRun {
   int gz, ns;
   Dims<kZ> d;
   pfdc::Coefs c;
+  int parts;
   cudaStream_t stream;
 
-  template <int H>
-  cudaError_t operator()() const {
+  template <int H, int P>
+  cudaError_t launch() const {
     if (!d.fits(k * H)) return cudaErrorInvalidValue;
-    const size_t bytes = tile_bytes<kModTX, kModTZ>(2, k * H, false);
-    const cudaError_t e = pfdc::allow_smem(block_mod<H, kZ>, bytes);
+    const size_t bytes = P ? tile_bytes<kModTX, kModTZ>(3, k * H, false)
+                           : tile_bytes<kModTX, kModTZ>(2, k * H, false);
+    auto kern = block_mod<H, kZ>;   // P > 0: its split twin
+    if constexpr (P > 0) kern = block_mod_mma<H, kZ, P>;
+    const cudaError_t e = pfdc::allow_smem(kern, bytes);
     if (e != cudaSuccess) return e;
     const dim3 grid = tile_grid<kModTX, kModTZ>(ns, d);
     const dim3 block = pfdc::tile_block();
-    block_mod<H, kZ><<<grid, block, bytes, stream>>>(
+    kern<<<grid, block, bytes, stream>>>(
         p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp, zfac, strip, src, r,
         sz, amps, k, rec, gz, d, c);
     return cudaGetLastError();
+  }
+
+  template <int H>
+  cudaError_t operator()() const {
+    return pfdc::dispatch_parts<H>(*this, parts);
   }
 };
 
@@ -431,20 +680,29 @@ struct BlockFwdRun {
   int k, ns;
   Dims<kZ> d;
   pfdc::Coefs c;
+  int parts;
   cudaStream_t stream;
 
-  template <int H>
-  cudaError_t operator()() const {
+  template <int H, int P>
+  cudaError_t launch() const {
     if (!d.fits(k * H)) return cudaErrorInvalidValue;
-    const size_t bytes = tile_bytes<kModTX, kModTZ>(2, k * H, false);
-    const cudaError_t e = pfdc::allow_smem(block_fwd<H, kZ>, bytes);
+    const size_t bytes = P ? tile_bytes<kModTX, kModTZ>(3, k * H, false)
+                           : tile_bytes<kModTX, kModTZ>(2, k * H, false);
+    auto kern = block_fwd<H, kZ>;   // P > 0: its split twin
+    if constexpr (P > 0) kern = block_fwd_mma<H, kZ, P>;
+    const cudaError_t e = pfdc::allow_smem(kern, bytes);
     if (e != cudaSuccess) return e;
     const dim3 grid = tile_grid<kModTX, kModTZ>(ns, d);
     const dim3 block = pfdc::tile_block();
-    block_fwd<H, kZ><<<grid, block, bytes, stream>>>(
+    kern<<<grid, block, bytes, stream>>>(
         p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp, zfac, strip, src,
         sz, amps, k, d, c);
     return cudaGetLastError();
+  }
+
+  template <int H>
+  cudaError_t operator()() const {
+    return pfdc::dispatch_parts<H>(*this, parts);
   }
 };
 
@@ -470,21 +728,30 @@ struct BlockBwdRun {
   int inj_shot_stride, gz, k, ns;
   Dims<kZ> d;
   pfdc::Coefs c;
+  int parts;
   cudaStream_t stream;
 
-  template <int H>
-  cudaError_t operator()() const {
+  template <int H, int P>
+  cudaError_t launch() const {
     if (!d.fits(k * H)) return cudaErrorInvalidValue;
-    const size_t bytes = tile_bytes<kBwdTX, kBwdTZ>(4, k * H, true);
-    const cudaError_t e = pfdc::allow_smem(block_bwd<H, kZ>, bytes);
+    const size_t bytes = P ? tile_bytes<kBwdMmaTX, kBwdMmaTZ>(5, k * H, true)
+                           : tile_bytes<kBwdTX, kBwdTZ>(4, k * H, true);
+    auto kern = block_bwd<H, kZ>;   // P > 0: its split twin
+    if constexpr (P > 0) kern = block_bwd_mma<H, kZ, P>;
+    const cudaError_t e = pfdc::allow_smem(kern, bytes);
     if (e != cudaSuccess) return e;
-    const dim3 grid = tile_grid<kBwdTX, kBwdTZ>(ns, d);
+    const dim3 grid = tile_grid<BwdTile<P>::kTX, BwdTile<P>::kTZ>(ns, d);
     const dim3 block = pfdc::tile_block();
-    block_bwd<H, kZ><<<grid, block, bytes, stream>>>(
+    kern<<<grid, block, bytes, stream>>>(
         ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out, snap0, snap1, img,
         v2m, v2_shot_stride, xramp, zfac, strip, inj, inj_shot_stride, gz, k,
         d, c);
     return cudaGetLastError();
+  }
+
+  template <int H>
+  cudaError_t operator()() const {
+    return pfdc::dispatch_parts<H>(*this, parts);
   }
 };
 

@@ -134,8 +134,8 @@ __global__ void __launch_bounds__(kMmaThreads)
       if (ix >= nxe || iz >= nze) continue;
       const int j_tile = (r + H) * T::kPitch + cz + H;   // its tile cell
       const float lap = pfdc::in_interior(ix, iz, H, nxe, nze)
-                            ? yz[q] + pfdc::x_taps<H>(&tile[0][0], j_tile,
-                                                      T::kPitch, c)
+                            ? yz[q] + pfdc::axis_taps<H>(&tile[0][0], j_tile,
+                                                         T::kPitch, c.x)
                             : 0.0f;
       const float t = (&tile[0][0])[j_tile];
       const float m = pfdc::taper_at(xramp, zfac, strip, ix, iz);

@@ -149,30 +149,33 @@ __device__ __forceinline__ float taper_at(const float* __restrict__ xramp,
   return zfac[gz] * (strip[gz] != 0.0f ? xramp[gx] : 1.0f);
 }
 
-// The x taps of tile cell j (pitch sz), centre included, in the order of
-// laplacian's accx (stencil.cuh): the exact half of a split Laplacian.
+// One axis's taps of tile cell j, centre included, its neighbours stride
+// apart (the tile's pitch for x, 1 for z) and half its coefficients
+// (Coefs::x or Coefs::z), in the order of laplacian's accx and accz
+// (stencil.cuh): the exact half of a split Laplacian.
 template <int H>
-__device__ __forceinline__ float x_taps(const float* f, int j, int sz,
-                                        const Coefs& c) {
-  float accx = c.x[H] * (f[j - H * sz] + f[j + H * sz]);
+__device__ __forceinline__ float axis_taps(const float* f, int j, int stride,
+                                           const float* half) {
+  float acc = half[H] * (f[j - H * stride] + f[j + H * stride]);
 #pragma unroll
   for (int k = H - 1; k >= 1; --k) {
-    accx = accx + c.x[k] * (f[j - k * sz] + f[j + k * sz]);
+    acc = acc + half[k] * (f[j - k * stride] + f[j + k * stride]);
   }
-  return accx + c.x[0] * f[j];
+  return acc + half[0] * f[j];
 }
 
-// This thread's band fragments of the split z taps; nothing for P = 0.
+// This thread's band fragments of one axis's split taps (half: that
+// axis's coefficients, Coefs::z or Coefs::x); nothing for P = 0.
 struct NoBand {};
 template <int H, int P>
-using ZBand = std::conditional_t<P == 0, NoBand, Band<H, P>>;
+using SplitBand = std::conditional_t<P == 0, NoBand, Band<H, P>>;
 
 template <int H, int P>
-__device__ __forceinline__ ZBand<H, P> z_band_fragments(const Coefs& c) {
+__device__ __forceinline__ SplitBand<H, P> split_band(const float* half) {
   if constexpr (P == 0) {
     return {};
   } else {
-    return band_fragments<H, P>(c.z, static_cast<int>(threadIdx.x));
+    return band_fragments<H, P>(half, static_cast<int>(threadIdx.x));
   }
 }
 
@@ -186,7 +189,7 @@ __device__ __forceinline__ ZBand<H, P> z_band_fragments(const Coefs& c) {
 template <int H, int P>
 __device__ __forceinline__ void z_band(float* zb, const float* f,
                                        const Tile& t, int lo,
-                                       const ZBand<H, P>& band) {
+                                       const SplitBand<H, P>& band) {
   if constexpr (P > 0) {
     const int lane = static_cast<int>(threadIdx.x);
     const int hx = t.sx - lo, hz = t.sz - lo;
@@ -222,7 +225,7 @@ __device__ __forceinline__ float tile_lap(const float* f, const float* zb,
   if constexpr (P == 0) {
     return laplacian<H, false>(f, nullptr, j, sz, c);
   } else {
-    return zb[j] + x_taps<H>(f, j, sz, c);
+    return zb[j] + axis_taps<H>(f, j, sz, c.x);
   }
 }
 

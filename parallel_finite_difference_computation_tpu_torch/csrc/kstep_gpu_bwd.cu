@@ -66,7 +66,7 @@ __global__ void __launch_bounds__(pfdc::kTileThreads)
   float* simg = smem + 5 * n;   // kTileX x kTileZ, owned cells
   float* zs = simg + pfdc::kTileX * pfdc::kTileZ;   // P > 0: z taps of sps
   float* zr = zs + n;                               // and of spr
-  const auto band = pfdc::z_band_fragments<H, P>(c);
+  const auto band = pfdc::split_band<H, P>(c.z);
   const int s = blockIdx.z;
   const size_t plane = static_cast<size_t>(nxe) * nze;
   pfdc::load_tile(sps, ps_in + s * plane, t, nxe, nze);

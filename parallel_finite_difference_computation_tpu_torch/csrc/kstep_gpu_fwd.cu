@@ -49,7 +49,7 @@ __global__ void __launch_bounds__(pfdc::kTileThreads)
   float* sy = smem + n;   // pp: the newest field
   float* sv = smem + 2 * n;
   float* zb = smem + 3 * n;     // P > 0: the z taps of sy
-  const auto band = pfdc::z_band_fragments<H, P>(c);
+  const auto band = pfdc::split_band<H, P>(c.z);
   const int s = blockIdx.z;
   const size_t plane = static_cast<size_t>(nxe) * nze;
   pfdc::load_tile(sx_, p_in + s * plane, t, nxe, nze);

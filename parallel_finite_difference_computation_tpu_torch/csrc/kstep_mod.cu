@@ -50,7 +50,7 @@ __global__ void __launch_bounds__(pfdc::kTileThreads)
   float* spp = smem + n;
   float* sv = smem + 2 * n;
   float* zb = smem + 3 * n;     // P > 0: the z taps of sp
-  const auto band = pfdc::z_band_fragments<H, P>(c);
+  const auto band = pfdc::split_band<H, P>(c.z);
   const int s = blockIdx.z;
   const size_t plane = static_cast<size_t>(nxe) * nze;
   pfdc::load_tile(sp, p_in + s * plane, t, nxe, nze);

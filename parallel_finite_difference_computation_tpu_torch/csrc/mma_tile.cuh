@@ -121,7 +121,7 @@ __device__ __forceinline__ float split_lap(const float* t, const float* zb,
                                            int nxe, int nze,
                                            const Coefs& c) {
   return in_interior(ix, iz, H, nxe, nze)
-             ? zb[jz] + x_taps<H>(t, jt, MmaTile<H>::kPitch, c)
+             ? zb[jz] + axis_taps<H>(t, jt, MmaTile<H>::kPitch, c.x)
              : 0.0f;
 }
 

@@ -165,6 +165,25 @@ _SIGNATURES = {
     "pfdc_block2_bwd_run": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P, _P, _P],
+    # pfdc_block{,2}_{mod,fwd,bwd}_mma_run: the exact entry points'
+    # arguments with parts after order
+    "pfdc_block_mod_mma_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                               _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _P, _P, _P],
+    "pfdc_block_fwd_mma_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                               _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "pfdc_block_bwd_mma_run": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _P, _P, _P],
+    "pfdc_block2_mod_mma_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                                _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _P, _P, _P],
+    "pfdc_block2_fwd_mma_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                                _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                                _P],
+    "pfdc_block2_bwd_mma_run": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

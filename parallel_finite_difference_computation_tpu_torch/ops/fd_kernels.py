@@ -38,11 +38,11 @@ exact, the ``*_step_mma`` kernels split, the x taps in bf16 parts), and so
 do the large-grid tier (the ``*_mma`` kernels of :mod:`.stream`, the z
 taps in bf16 parts, as the JAX streaming kernels split them) and the
 ``rtm_main`` kernels (``rec_*_step_mma``, the z taps split, as the JAX
-K-step recording kernel splits them). The domain tiers have the exact
-taps only and raise on a resolved ``mxu``/``mxu6``
-(:func:`check_exact_taps`). The JAX
-kernels' ``z_taps`` and ``taper_impl`` are Mosaic lowering choices with
-bitwise-identical results and are not ported.
+K-step recording kernel splits them), and the domain tiers (the block
+kernels' ``*_mma`` twins, the x taps split, as the JAX block kernels'
+``use_mxu`` branch splits them). The JAX kernels' ``z_taps`` and
+``taper_impl`` are Mosaic lowering choices with bitwise-identical results
+and are not ported.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ from ..solver import FDContext, host_wavelet, shot_positions
 from . import stencil
 
 __all__ = ["LAUNCHES", "reset_launches", "MXU3_NT_MAX", "MXU6_NT_MAX",
-           "resolve_lap_impl", "lap_parts", "check_exact_taps",
+           "resolve_lap_impl", "lap_parts",
            "forward_modeling_cuda", "fd_forward_cuda", "fd_back_cuda",
            "rtm_snapshot_cuda", "backward_recorded_cuda",
            "backward_image_cuda", "rtm_full_cuda", "laplacian_cuda"]
@@ -140,23 +140,6 @@ def lap_parts(lap_impl, ctx: FDContext) -> int:
                              f"got {lap_impl}")
         return lap_impl
     return _PARTS.get(resolve_lap_impl(ctx, lap_impl), 0)
-
-
-def check_exact_taps(ctx: FDContext, lap_impl, tier: str) -> None:
-    """Raises ``NotImplementedError`` where ``lap_impl`` resolves to a
-    split-bf16 tier on a tier of the port that has the exact taps only
-    (``tier`` names it): the domain tiers, whose JAX block kernels' ``use_mxu``
-    lowerings (kernel-table rows 15-16) are still to be ported (ROADMAP.md,
-    Queue 2). An ``auto`` that resolves to ``"vpu"`` passes."""
-    parts = lap_parts(lap_impl, ctx)
-    if parts:
-        raise NotImplementedError(
-            f"lap_impl={lap_impl!r} resolves to the "
-            f"{'mxu' if parts == 2 else 'mxu6'} tier here; {tier} has the "
-            f"exact taps only (the split-bf16 variant of the block kernels, "
-            f"kernel-table rows 15-16, is still to be ported, see ROADMAP.md, "
-            f"Queue 2): use the per-step or the large-grid tier, or "
-            f"lap_impl='vpu'")
 
 
 def _on_cuda(t: torch.Tensor) -> bool:

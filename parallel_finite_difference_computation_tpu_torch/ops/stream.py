@@ -72,8 +72,8 @@ where the port stands with it (``PERF.md``, section 6, has the times):
 | 12 | ``ops/pallas_stream.py:740`` ``_kstep_gpu_fwd_kernel`` | K ``fd_forward`` steps | ``kstep_gpu_fwd``, ``kstep_gpu_fwd_mma`` |
 | 13 | ``ops/pallas_stream.py:857`` ``_kstep_gpu_bwd_kernel`` | K ``fd_back`` steps + K5/K6 | ``kstep_gpu_bwd``, ``kstep_gpu_bwd_mma`` |
 | 14 | ``ops/pallas_stream.py:1002`` ``_kstep_rec_kernel`` | K steps writing frames | ``rec_fwd_step``, ``rec_bwd_step``, their ``*_mma`` |
-| 15 | ``parallel/domain_pallas.py:115, :136, :189`` | x-slab blocked fwd/bwd/mod | ``block_fwd``, ``block_bwd``, ``block_mod`` (:mod:`..parallel.domain_kernels`) |
-| 16 | ``parallel/domain2d_pallas.py:99, :124, :178`` | (x, z) blocked fwd/bwd/mod | ``block2_fwd``, ``block2_bwd``, ``block2_mod`` (:mod:`..parallel.domain2d_kernels`) |
+| 15 | ``parallel/domain_pallas.py:115, :136, :189`` | x-slab blocked fwd/bwd/mod | ``block_fwd``, ``block_bwd``, ``block_mod`` and their ``*_mma`` twins (:mod:`..parallel.domain_kernels`) |
+| 16 | ``parallel/domain2d_pallas.py:99, :124, :178`` | (x, z) blocked fwd/bwd/mod | ``block2_fwd``, ``block2_bwd``, ``block2_mod`` and their ``*_mma`` twins (:mod:`..parallel.domain2d_kernels`) |
 """
 
 from __future__ import annotations

@@ -23,23 +23,27 @@ Gaussian band is cut from the whole-grid patch, so the gathers are bitwise
 the per-step tier's (the JAX kernels form it with a float32 ``exp``).
 
 The three kernels (``csrc/domain2d_block.cu``, on the x tier's
-``csrc/domain_block.cuh``) and their plain versions, the x tier's, which
-take (x, z) tiles as they take slabs; the wrappers route CPU tensors to
-the plain versions and CUDA tensors to the kernels (no fallback;
-``LAUNCHES`` counts one per launch, and only there):
+``csrc/domain_block.cuh``), their split-bf16 twins and their plain
+versions, the x tier's, which take (x, z) tiles as they take slabs; the
+wrappers route CPU tensors to the plain versions and CUDA tensors to the
+kernels (no fallback; ``LAUNCHES`` counts one per launch, and only there):
 
 | kernel | plain version | replaces (JAX package, ``parallel/domain2d_pallas.py``) |
 |---|---|---|
 | ``block2_mod`` | :func:`block2_mod` | ``_mod2_block_kernel`` (:178) |
 | ``block2_fwd`` | :func:`block2_fwd` | ``_fwd2_block_kernel`` (:99) |
 | ``block2_bwd`` | :func:`block2_bwd` | ``_bwd2_block_kernel`` (:124) |
+| ``block2_mod_mma`` | :func:`block2_mod` with ``parts`` | ``_mod2_block_kernel``'s ``use_mxu`` lowering |
+| ``block2_fwd_mma`` | :func:`block2_fwd` with ``parts`` | ``_fwd2_block_kernel``'s |
+| ``block2_bwd_mma`` | :func:`block2_bwd` with ``parts`` | ``_bwd2_block_kernel``'s |
+
+``parts`` and ``lap_impl`` select them as on the x tier
+(:mod:`.domain_kernels`; ``_use_mxu_lap``, ``domain2d_pallas.py:234-239``).
 
 Not ported, as TPU-only apparatus: ``_block2_vmem_params`` and the lane
-padding ``pad_to``; nor ``force_halo``, the benchmark's halo-cost proxy
-(ROADMAP.md, Queue 1 item 3). Still to be ported (ROADMAP.md): the
-kernels' split-bf16 variant (``use_mxu``, ``_mxu_band_inputs`` and its
-``nxww`` padding, ``domain2d_pallas.py:211-239``); a ``lap_impl`` that
-resolves to ``mxu`` or ``mxu6`` raises.
+padding ``pad_to`` (the split variant's ``nxww``, ``domain2d_pallas.py:
+237``, whose zero lanes are inert); nor ``force_halo``, the benchmark's
+halo-cost proxy (ROADMAP.md, Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -57,7 +61,8 @@ __all__ = ["LAUNCHES", "reset_launches", "tile_geometry", "prepare_tiles",
            "make_sharded_forward_modeling_2d_cuda",
            "make_sharded_rtm_snapshot_2d_cuda"]
 
-LAUNCHES = {"block2_mod": 0, "block2_fwd": 0, "block2_bwd": 0}
+LAUNCHES = {"block2_mod": 0, "block2_fwd": 0, "block2_bwd": 0,
+            "block2_mod_mma": 0, "block2_fwd_mma": 0, "block2_bwd_mma": 0}
 
 # The plain versions of the three kernels: the x tier's block functions,
 # which run on any tile.
@@ -94,25 +99,27 @@ def tile_geometry(ctx: FDContext, n_x: int, n_z: int,
     return TileGeometry(nxl, nzl, K, hs, hz)
 
 
-def block2_mod_cuda(c, p, pp, amps, out=None):
-    """One block of ``block2_mod`` on an (x, z) tile
+def block2_mod_cuda(c, p, pp, amps, out=None, parts: int = 0):
+    """One block of ``block2_mod`` (``block2_mod_mma`` with the x taps in
+    ``parts`` bf16 splits) on an (x, z) tile
     (:func:`.domain_kernels.launch_mod`). Returns ``(p, pp, rec)``."""
-    return launch_mod("block2_mod", LAUNCHES, c, p, pp, amps, out)
+    return launch_mod("block2_mod", LAUNCHES, c, p, pp, amps, out, parts)
 
 
-def block2_fwd_cuda(c, p, pp, amps, out=None):
-    """One block of ``block2_fwd`` on an (x, z) tile
-    (:func:`.domain_kernels.launch_fwd`). Returns ``(p, pp)``."""
-    return launch_fwd("block2_fwd", LAUNCHES, c, p, pp, amps, out)
+def block2_fwd_cuda(c, p, pp, amps, out=None, parts: int = 0):
+    """One block of ``block2_fwd`` (``block2_fwd_mma`` with ``parts``) on
+    an (x, z) tile (:func:`.domain_kernels.launch_fwd`). Returns ``(p,
+    pp)``."""
+    return launch_fwd("block2_fwd", LAUNCHES, c, p, pp, amps, out, parts)
 
 
 def block2_bwd_cuda(c, ps, pps, pr, ppr, img, it0: int, k: int, snaps=None,
-                    out=None):
-    """One block of ``block2_bwd`` on an (x, z) tile
-    (:func:`.domain_kernels.launch_bwd`). Returns ``(ps, pps, pr, ppr,
-    img)``."""
+                    out=None, parts: int = 0):
+    """One block of ``block2_bwd`` (``block2_bwd_mma`` with ``parts``) on
+    an (x, z) tile (:func:`.domain_kernels.launch_bwd`). Returns ``(ps,
+    pps, pr, ppr, img)``."""
     return launch_bwd("block2_bwd", LAUNCHES, c, ps, pps, pr, ppr, img, it0,
-                      k, snaps, out)
+                      k, snaps, out, parts)
 
 
 def _geometry(ctx: FDContext, mesh, block_k: int) -> TileGeometry:
@@ -130,11 +137,13 @@ def make_sharded_forward_modeling_2d_cuda(ctx: FDContext, mesh, sz: int,
     seis`` with ``v2`` (nxe, nze) shared by the shots, or (ns, nxe, nze),
     ``sxs`` (ns,) source rows at depth ``sz``, and ``seis`` (ns, nt, nxe)
     extended-row seismograms on the mesh's first device
-    (:func:`.domain_kernels.modeling_maker`)."""
-    _check_maker(ctx, mesh, gz, lap_impl)
+    (:func:`.domain_kernels.modeling_maker`); ``block2_mod_mma`` where
+    ``lap_impl`` resolves to a split tier (``domain2d_pallas.py:
+    234-239``)."""
+    parts = _check_maker(ctx, mesh, gz, lap_impl)
     return modeling_maker(
         ctx, mesh, _geometry(ctx, mesh, block_k), sz, gz, source, taper,
-        lambda *a, **kw: block2_mod_cuda(*a, **kw))
+        lambda *a, **kw: block2_mod_cuda(*a, parts=parts, **kw))
 
 
 def make_sharded_rtm_snapshot_2d_cuda(ctx: FDContext, mesh, sz: int,
@@ -147,11 +156,13 @@ def make_sharded_rtm_snapshot_2d_cuda(ctx: FDContext, mesh, sz: int,
     source rows at depth ``sz``, ``dobs_ext`` (ns, nxe, nt)
     (:func:`.domain.embed_dobs`), and ``imloc_ext`` (ns, nxe, nze) extended
     per-shot images on the mesh's first device
-    (:func:`.domain_kernels.rtm_maker`). Needs K >= 2 and nt >= 2K."""
-    _check_maker(ctx, mesh, gz, lap_impl)
+    (:func:`.domain_kernels.rtm_maker`). Needs K >= 2 and nt >= 2K.
+    ``block2_fwd_mma`` and ``block2_bwd_mma`` where ``lap_impl`` resolves
+    to a split tier."""
+    parts = _check_maker(ctx, mesh, gz, lap_impl)
     geom = _geometry(ctx, mesh, block_k)
     check_rtm_blocks(ctx, geom.k, "the per-step (x, z) loops "
                      "(domain2d.make_sharded_rtm_snapshot_2d, a CPU mesh)")
     return rtm_maker(ctx, mesh, geom, sz, gz,
-                     lambda *a, **kw: block2_fwd_cuda(*a, **kw),
-                     lambda *a, **kw: block2_bwd_cuda(*a, **kw))
+                     lambda *a, **kw: block2_fwd_cuda(*a, parts=parts, **kw),
+                     lambda *a, **kw: block2_bwd_cuda(*a, parts=parts, **kw))

@@ -26,16 +26,27 @@ current streams with CUDA events. Positions that share a device run in
 turn on its stream.
 
 The three block kernels (``csrc/domain_block.cu`` on
-``csrc/domain_block.cuh``) and their plain torch versions here, the
-wrappers routing CPU tensors to the plain versions and CUDA tensors to the
-kernels (no fallback; ``LAUNCHES`` counts one per kernel launch, and only
-there):
+``csrc/domain_block.cuh``), their split-bf16 twins and their plain torch
+versions here, the wrappers routing CPU tensors to the plain versions and
+CUDA tensors to the kernels (no fallback; ``LAUNCHES`` counts one per
+kernel launch, and only there):
 
 | kernel | plain version | replaces (JAX package, ``parallel/domain_pallas.py``) |
 |---|---|---|
 | ``block_mod`` | :func:`block_mod` | ``_mod_block_kernel`` (:189) |
 | ``block_fwd`` | :func:`block_fwd` | ``_fwd_block_kernel`` (:115) |
 | ``block_bwd`` | :func:`block_bwd` | ``_bwd_block_kernel`` (:136) |
+| ``block_mod_mma`` | :func:`block_mod` with ``parts`` | ``_mod_block_kernel``'s ``use_mxu`` lowering |
+| ``block_fwd_mma`` | :func:`block_fwd` with ``parts`` | ``_fwd_block_kernel``'s |
+| ``block_bwd_mma`` | :func:`block_bwd` with ``parts`` | ``_bwd_block_kernel``'s |
+
+``parts`` (:func:`..ops.fd_kernels.lap_parts`: 0, 2 or 3) is the bf16
+splits of the Laplacian's x taps: 0 runs the exact kernels; 2
+(``lap_impl="mxu"``) and 3 (``"mxu6"``) the ``*_mma`` kernels, which take
+the x taps as the split-bf16 banded product on the tensor cores and the z
+taps exact, as ``_lap_and_refs`` (``domain_pallas.py:106-112``) hands the
+JAX block kernels ``_make_lap``'s MXU branch; on the CPU the plain
+versions with :func:`..ops.stencil.laplacian_mxu` (``axis="x"``).
 
 The plain versions run the steps of the JAX block kernels in their order
 and rounding: the update ``2p - pp + v2m*lap(p)`` with ``v2m = v2*dt2``
@@ -48,9 +59,8 @@ per-step tier the image then differs by rounding only. They take (x, z)
 tiles as they take slabs, and serve both tiers.
 
 Not ported, as TPU-only apparatus: ``_block_vmem_params`` and the lane
-padding ``pad_to``. Still to be ported (ROADMAP.md): the block kernels'
-split-bf16 variant (``use_mxu``, ``_mxu_band_inputs``); a ``lap_impl`` that
-resolves to ``mxu`` or ``mxu6`` raises.
+padding ``pad_to`` (the split variant's ``nxww``, whose zero lanes are
+inert: a band window past the tile reads 0 here).
 """
 
 from __future__ import annotations
@@ -64,8 +74,8 @@ import torch
 from .. import numerics
 from ..ops.fd_kernels import (_check_gz, _check_order, _check_window,
                               _coef_args, _on_cuda, _raise_on, _stream,
-                              check_exact_taps)
-from ..ops.stencil import laplacian
+                              lap_parts)
+from ..ops.stencil import laplacian, laplacian_mxu
 from ..ops.stream import MAX_STEPS
 from ..solver import FDContext, host_wavelet, shot_positions
 from .shots import split_shots
@@ -76,7 +86,8 @@ __all__ = ["LAUNCHES", "reset_launches", "Tile", "TileGeometry",
            "block_bwd_cuda", "make_sharded_forward_modeling_cuda",
            "make_sharded_rtm_snapshot_cuda"]
 
-LAUNCHES = {"block_mod": 0, "block_fwd": 0, "block_bwd": 0}
+LAUNCHES = {"block_mod": 0, "block_fwd": 0, "block_bwd": 0,
+            "block_mod_mma": 0, "block_fwd_mma": 0, "block_bwd_mma": 0}
 
 
 def reset_launches() -> None:
@@ -316,29 +327,35 @@ def _owned(c: Tile, f):
     return out
 
 
-def _update(c: Tile, p, pp):
-    """``2p - pp + v2m*lap(p)`` on the tile (zero-bordered Laplacian)."""
+def _update(c: Tile, p, pp, parts: int = 0):
+    """``2p - pp + v2m*lap(p)`` on the tile (zero-bordered Laplacian; with
+    ``parts`` > 0 its x taps in that many bf16 splits)."""
     ctx = c.ctx
-    return 2.0 * p - pp + c.v2m * laplacian(p, ctx.coefs_x, ctx.coefs_z,
-                                            ctx.order)
+    if parts:
+        lap = laplacian_mxu(p, ctx.coefs_x, ctx.coefs_z, ctx.order, parts,
+                            axis="x")
+    else:
+        lap = laplacian(p, ctx.coefs_x, ctx.coefs_z, ctx.order)
+    return 2.0 * p - pp + c.v2m * lap
 
 
-def block_mod(c: Tile, p, pp, amps):
+def block_mod(c: Tile, p, pp, amps, parts: int = 0):
     """K = ``len(amps)`` ``mod_main`` steps on the tile buffers (ns, nxw,
     nzw) from the state ``(p, pp)``: the plain version of ``block_mod``
-    and ``block2_mod``, the body of ``_mod_block_kernel``
-    (``domain_pallas.py:201-210``) and ``_mod2_block_kernel``
-    (``domain2d_pallas.py:193-201``): update, add ``amp * src`` on the
-    source rows the tile holds, taper the new and the old field, record
-    row gz of the tapered old field if the tile owns it. Returns ``(p, pp,
-    rec)``, rec (ns, K, nxl), zero where the tile records no row."""
+    and ``block2_mod`` (with ``parts`` > 0, of their ``*_mma`` twins), the
+    body of ``_mod_block_kernel`` (``domain_pallas.py:201-210``) and
+    ``_mod2_block_kernel`` (``domain2d_pallas.py:193-201``): update, add
+    ``amp * src`` on the source rows the tile holds, taper the new and the
+    old field, record row gz of the tapered old field if the tile owns it.
+    Returns ``(p, pp, rec)``, rec (ns, K, nxl), zero where the tile records
+    no row."""
     mask = c.mask()
     rows = c.owned[0]
     rec = p.new_zeros((p.shape[0], len(amps), c.nxl))
     lo, hi = max(c.sz - c.r, 0), min(c.sz + c.r + 1, c.nzw)
     src = c.src[:, lo - c.sz + c.r:hi - c.sz + c.r].transpose(1, 2)
     for k, amp in enumerate(host_wavelet(amps)):
-        upd = _update(c, p, pp)
+        upd = _update(c, p, pp, parts)
         if hi > lo:
             upd[:, :, lo:hi] += float(amp) * src
         p, pp = upd * mask, p * mask
@@ -347,9 +364,10 @@ def block_mod(c: Tile, p, pp, amps):
     return _owned(c, p), _owned(c, pp), rec
 
 
-def block_fwd(c: Tile, p, pp, amps):
+def block_fwd(c: Tile, p, pp, amps, parts: int = 0):
     """K ``fd_forward`` steps on the tile buffers from the state ``(p,
-    pp)``: the plain version of ``block_fwd`` and ``block2_fwd``, the body
+    pp)``: the plain version of ``block_fwd`` and ``block2_fwd`` (with
+    ``parts`` > 0, of their ``*_mma`` twins), the body
     of ``_fwd_block_kernel`` (``domain_pallas.py:124-130``) and
     ``_fwd2_block_kernel`` (``domain2d_pallas.py:112-118``): ``t = pp*m``,
     ``pp' = 2t - p*m + v2m*lap(t)``, ``amp * src`` added on row sz if the
@@ -357,7 +375,7 @@ def block_fwd(c: Tile, p, pp, amps):
     mask = c.mask()
     for amp in host_wavelet(amps):
         t = pp * mask
-        new = _update(c, t, p * mask)
+        new = _update(c, t, p * mask, parts)
         if 0 <= c.sz < c.nzw:
             new[:, :, c.sz] += float(amp) * c.src[:, 0]
         p, pp = t, new
@@ -365,10 +383,11 @@ def block_fwd(c: Tile, p, pp, amps):
 
 
 def block_bwd(c: Tile, ps, pps, pr, ppr, img, it0: int, k: int,
-              snaps=None):
+              snaps=None, parts: int = 0):
     """K = ``k`` ``fd_back`` steps on the tile buffers from the state
     ``(ps, pps, pr, ppr)``, trace rows ``it0 .. it0+k-1``: the plain
-    version of ``block_bwd`` and ``block2_bwd``, the body of
+    version of ``block_bwd`` and ``block2_bwd`` (with ``parts`` > 0, of
+    their ``*_mma`` twins), the body of
     ``_bwd_block_kernel`` (``domain_pallas.py:163-178``) and
     ``_bwd2_block_kernel`` (``domain2d_pallas.py:152-167``): the untapered
     source step (with ``snaps = (snap0, snap1)``, the first block: ``snap1``
@@ -383,10 +402,10 @@ def block_bwd(c: Tile, ps, pps, pr, ppr, img, it0: int, k: int,
         if snaps is not None and i < 2:
             new_s = snaps[1 - i]
         else:
-            new_s = _update(c, ps, pps)
+            new_s = _update(c, ps, pps, parts)
         ps, pps = new_s, ps
         t = pr * mask
-        new_r = _update(c, t, ppr * mask)
+        new_r = _update(c, t, ppr * mask, parts)
         if c.gz >= 0:
             new_r[:, :, c.gz] += c.inj[:, it0 + i]
         pr, ppr = new_r, t
@@ -444,10 +463,19 @@ def _outputs(like, out, n: int):
                                               for _ in range(n)]
 
 
-def _entry(c: Tile, name: str):
-    """The C entry point of kernel ``name`` and the tile's z sizes in its
-    signature: ``(nze,)`` for the x tier's ``block_*``, ``(hz, nzl)`` for
-    the (x, z) tier's ``block2_*``."""
+def _split(c: Tile, name: str, parts):
+    """``parts`` checked (0, 2 or 3, :func:`..ops.fd_kernels.lap_parts`) and
+    the kernel a launch with them runs: ``name`` or its ``*_mma`` twin."""
+    parts = lap_parts(int(parts), c.ctx)
+    return parts, f"{name}_mma" if parts else name
+
+
+def _entry(c: Tile, name: str, parts: int = 0):
+    """The C entry point of kernel ``name`` and the arguments of its
+    signature between the x sizes and the coefficients: the tile's z sizes
+    (``(nze,)`` for the x tier's ``block_*``, ``(hz, nzl)`` for the (x, z)
+    tier's ``block2_*``), the order, and ``parts`` for a ``*_mma``
+    kernel."""
     from ..ops import _build
     if name.startswith("block2_"):
         dims = (c.hz, c.nzl)
@@ -456,25 +484,29 @@ def _entry(c: Tile, name: str):
                          f"block2_{name[6:]}")
     else:
         dims = (c.nzl,)
-    return getattr(_build.library(), f"pfdc_{name}_run"), dims
+    return (getattr(_build.library(), f"pfdc_{name}_run"),
+            (*dims, c.ctx.order, *((parts,) if parts else ())))
 
 
-def launch_mod(name: str, launches: dict, c: Tile, p, pp, amps, out=None):
+def launch_mod(name: str, launches: dict, c: Tile, p, pp, amps, out=None,
+               parts: int = 0):
     """One block of the modeling kernel ``name`` (``block_mod`` or
-    ``block2_mod``): the kernel on the card, writing the owned cells of
-    ``out = (p_out, pp_out)`` (new buffers with zero halos when None) and
-    counted in ``launches``; :func:`block_mod` on the CPU, which returns new
-    buffers. Returns ``(p, pp, rec)``."""
+    ``block2_mod``, or with ``parts`` > 0 its ``*_mma`` twin): the kernel
+    on the card, writing the owned cells of ``out = (p_out, pp_out)`` (new
+    buffers with zero halos when None) and counted in ``launches``;
+    :func:`block_mod` on the CPU, which returns new buffers. Returns ``(p,
+    pp, rec)``."""
     amps = host_wavelet(amps)
     ns = _check_state(c, p=p, pp=pp)
     _check_steps(c, len(amps))
     if c.src is None:
         raise ValueError("the tile has no source rows")
     _check_out(c, (p, pp), out, 2)
+    parts, name = _split(c, name, parts)
     if not _on_cuda(p):
-        return block_mod(c, p, pp, amps)
+        return block_mod(c, p, pp, amps, parts)
     _check_order(c.ctx.order, True)
-    run, dims = _entry(c, name)
+    run, dims = _entry(c, name, parts)
     k = len(amps)
     p_out, pp_out = _outputs(p, out, 2)
     rec = (torch.empty if c.records else torch.zeros)(
@@ -485,28 +517,29 @@ def launch_mod(name: str, launches: dict, c: Tile, p, pp, amps, out=None):
                  pp_out.data_ptr(), c.v2m.data_ptr(), c.v2_stride,
                  xr.data_ptr(), zf.data_ptr(), st.data_ptr(), c.src.data_ptr(),
                  c.r, c.sz, amps.ctypes.data, k, rec.data_ptr(), c.gz, ns,
-                 c.hs, c.nxl, *dims, c.ctx.order, *c.coef_ptrs,
-                 _stream(p.device))
+                 c.hs, c.nxl, *dims, *c.coef_ptrs, _stream(p.device))
     _raise_on(rc, name, c.ctx.order, k)
     launches[name] += 1
     return p_out, pp_out, rec
 
 
-def launch_fwd(name: str, launches: dict, c: Tile, p, pp, amps, out=None):
+def launch_fwd(name: str, launches: dict, c: Tile, p, pp, amps, out=None,
+               parts: int = 0):
     """One block of the forward kernel ``name`` (``block_fwd`` or
-    ``block2_fwd``): the kernel on the card, writing the owned cells of
-    ``out`` as :func:`launch_mod` does; :func:`block_fwd` on the CPU.
-    Returns ``(p, pp)``."""
+    ``block2_fwd``, or with ``parts`` > 0 its ``*_mma`` twin): the kernel
+    on the card, writing the owned cells of ``out`` as :func:`launch_mod`
+    does; :func:`block_fwd` on the CPU. Returns ``(p, pp)``."""
     amps = host_wavelet(amps)
     ns = _check_state(c, p=p, pp=pp)
     _check_steps(c, len(amps))
     if c.src is None or c.r != 0:
         raise ValueError(f"{name} takes one point-source row")
     _check_out(c, (p, pp), out, 2)
+    parts, name = _split(c, name, parts)
     if not _on_cuda(p):
-        return block_fwd(c, p, pp, amps)
+        return block_fwd(c, p, pp, amps, parts)
     _check_order(c.ctx.order, True)
-    run, dims = _entry(c, name)
+    run, dims = _entry(c, name, parts)
     p_out, pp_out = _outputs(p, out, 2)
     xr, zf, st = c.ramps
     with torch.cuda.device(p.device):
@@ -514,20 +547,21 @@ def launch_fwd(name: str, launches: dict, c: Tile, p, pp, amps, out=None):
                  pp_out.data_ptr(), c.v2m.data_ptr(), c.v2_stride,
                  xr.data_ptr(), zf.data_ptr(), st.data_ptr(), c.src.data_ptr(),
                  c.sz if 0 <= c.sz < c.nzw else -1, amps.ctypes.data,
-                 len(amps), ns, c.hs, c.nxl, *dims, c.ctx.order,
-                 *c.coef_ptrs, _stream(p.device))
+                 len(amps), ns, c.hs, c.nxl, *dims, *c.coef_ptrs,
+                 _stream(p.device))
     _raise_on(rc, name, c.ctx.order, len(amps))
     launches[name] += 1
     return p_out, pp_out
 
 
 def launch_bwd(name: str, launches: dict, c: Tile, ps, pps, pr, ppr, img,
-               it0: int, k: int, snaps=None, out=None):
+               it0: int, k: int, snaps=None, out=None, parts: int = 0):
     """One block of the backward kernel ``name`` (``block_bwd`` or
-    ``block2_bwd``): the kernel on the card, which writes the owned cells
-    of the four ``out`` buffers as :func:`launch_mod` does and adds the
-    image delta into ``img`` (ns, nxl, nzl) in place; :func:`block_bwd` on
-    the CPU. Returns ``(ps, pps, pr, ppr, img)``."""
+    ``block2_bwd``, or with ``parts`` > 0 its ``*_mma`` twin): the kernel
+    on the card, which writes the owned cells of the four ``out`` buffers
+    as :func:`launch_mod` does and adds the image delta into ``img`` (ns,
+    nxl, nzl) in place; :func:`block_bwd` on the CPU. Returns ``(ps, pps,
+    pr, ppr, img)``."""
     ns = _check_state(c, ps=ps, pps=pps, pr=pr, ppr=ppr,
                       **({} if snaps is None else
                          {"snap0": snaps[0], "snap1": snaps[1]}))
@@ -544,10 +578,11 @@ def launch_bwd(name: str, launches: dict, c: Tile, ps, pps, pr, ppr, img,
         raise ValueError(f"img must be a contiguous float32 "
                          f"{(ns, c.nxl, c.nzl)} tensor on {c.device}")
     _check_out(c, (ps, pps, pr, ppr, img, *(snaps or ())), out, 4)
+    parts, name = _split(c, name, parts)
     if not _on_cuda(ps):
-        return block_bwd(c, ps, pps, pr, ppr, img, it0, k, snaps)
+        return block_bwd(c, ps, pps, pr, ppr, img, it0, k, snaps, parts)
     _check_order(c.ctx.order, True)
-    run, dims = _entry(c, name)
+    run, dims = _entry(c, name, parts)
     outs = _outputs(ps, out, 4)
     xr, zf, st = c.ramps
     s0, s1 = (None, None) if snaps is None else (snaps[0].data_ptr(),
@@ -559,30 +594,31 @@ def launch_bwd(name: str, launches: dict, c: Tile, ps, pps, pr, ppr, img,
                  *(o.data_ptr() for o in outs), s0, s1, img.data_ptr(),
                  c.v2m.data_ptr(), c.v2_stride, xr.data_ptr(), zf.data_ptr(),
                  st.data_ptr(), inj, inj_stride, c.gz, k, ns, c.hs, c.nxl,
-                 *dims, c.ctx.order, *c.coef_ptrs, _stream(ps.device))
+                 *dims, *c.coef_ptrs, _stream(ps.device))
     _raise_on(rc, name, c.ctx.order, k)
     launches[name] += 1
     return (*outs, img)
 
 
-def block_mod_cuda(c: Tile, p, pp, amps, out=None):
-    """One block of ``block_mod`` on an x-slab (:func:`launch_mod`).
-    Returns ``(p, pp, rec)``."""
-    return launch_mod("block_mod", LAUNCHES, c, p, pp, amps, out)
+def block_mod_cuda(c: Tile, p, pp, amps, out=None, parts: int = 0):
+    """One block of ``block_mod`` (``block_mod_mma`` with the x taps in
+    ``parts`` bf16 splits) on an x-slab (:func:`launch_mod`). Returns
+    ``(p, pp, rec)``."""
+    return launch_mod("block_mod", LAUNCHES, c, p, pp, amps, out, parts)
 
 
-def block_fwd_cuda(c: Tile, p, pp, amps, out=None):
-    """One block of ``block_fwd`` on an x-slab (:func:`launch_fwd`).
-    Returns ``(p, pp)``."""
-    return launch_fwd("block_fwd", LAUNCHES, c, p, pp, amps, out)
+def block_fwd_cuda(c: Tile, p, pp, amps, out=None, parts: int = 0):
+    """One block of ``block_fwd`` (``block_fwd_mma`` with ``parts``) on an
+    x-slab (:func:`launch_fwd`). Returns ``(p, pp)``."""
+    return launch_fwd("block_fwd", LAUNCHES, c, p, pp, amps, out, parts)
 
 
 def block_bwd_cuda(c: Tile, ps, pps, pr, ppr, img, it0: int, k: int,
-                   snaps=None, out=None):
-    """One block of ``block_bwd`` on an x-slab (:func:`launch_bwd`).
-    Returns ``(ps, pps, pr, ppr, img)``."""
+                   snaps=None, out=None, parts: int = 0):
+    """One block of ``block_bwd`` (``block_bwd_mma`` with ``parts``) on an
+    x-slab (:func:`launch_bwd`). Returns ``(ps, pps, pr, ppr, img)``."""
     return launch_bwd("block_bwd", LAUNCHES, c, ps, pps, pr, ppr, img, it0,
-                      k, snaps, out)
+                      k, snaps, out, parts)
 
 
 # --------------------------------------------------------------------------
@@ -618,10 +654,13 @@ def _image_mask(c: Tile):
             & ((zs >= ctx.nzb) & (zs < ctx.nze - ctx.nzb))[None, :]).float()
 
 
-def _check_maker(ctx: FDContext, mesh, gz, lap_impl) -> None:
-    check_exact_taps(ctx, lap_impl, "the domain tiers' block kernels")
+def _check_maker(ctx: FDContext, mesh, gz, lap_impl) -> int:
+    """Checks a maker's arguments; returns the bf16 parts ``lap_impl``
+    resolves to (:func:`..ops.fd_kernels.lap_parts`), which the block
+    calls take."""
     _check_order(ctx.order, any(d.type == "cuda" for d in mesh.devices.flat))
     _check_gz(ctx, gz)
+    return lap_parts(lap_impl, ctx)
 
 
 def check_rtm_blocks(ctx: FDContext, K: int, shot_only: str) -> None:
@@ -761,11 +800,15 @@ def make_sharded_forward_modeling_cuda(ctx: FDContext, mesh, sz: int,
     (``domain_pallas.py:220``). Returns ``fn(v2, sxs, wavelet) -> seis``
     with ``v2`` (nxe, nze) shared by the shots, or (ns, nxe, nze), ``sxs``
     (ns,) source rows, and ``seis`` (ns, nt, nxe) extended-row seismograms
-    on the mesh's first device (:func:`modeling_maker`)."""
-    _check_maker(ctx, mesh, gz, lap_impl)
+    on the mesh's first device (:func:`modeling_maker`). ``lap_impl``
+    resolves as in the JAX package (``_use_mxu_lap``,
+    ``domain_pallas.py:251``): to ``block_mod_mma`` with the x taps in 2
+    (``"mxu"``) or 3 (``"mxu6"``) bf16 splits, else ``block_mod``."""
+    parts = _check_maker(ctx, mesh, gz, lap_impl)
     return modeling_maker(
         ctx, mesh, slab_geometry(ctx, mesh.shape["x"], block_k), sz, gz,
-        source, taper, lambda *a, **kw: block_mod_cuda(*a, **kw))
+        source, taper,
+        lambda *a, **kw: block_mod_cuda(*a, parts=parts, **kw))
 
 
 def make_sharded_rtm_snapshot_cuda(ctx: FDContext, mesh, sz: int, gz: int,
@@ -776,10 +819,12 @@ def make_sharded_rtm_snapshot_cuda(ctx: FDContext, mesh, sz: int, gz: int,
     imloc_ext`` with ``v2`` (ns, nxe, nze), ``sxs`` (ns,) source rows at
     depth ``sz``, ``dobs_ext`` (ns, nxe, nt) (:func:`.domain.embed_dobs`),
     and ``imloc_ext`` (ns, nxe, nze) extended per-shot images on the mesh's
-    first device (:func:`rtm_maker`)."""
-    _check_maker(ctx, mesh, gz, lap_impl)
+    first device (:func:`rtm_maker`). ``lap_impl``: ``block_fwd_mma`` and
+    ``block_bwd_mma`` where it resolves to a split tier, as in the
+    modeling maker."""
+    parts = _check_maker(ctx, mesh, gz, lap_impl)
     geom = slab_geometry(ctx, mesh.shape["x"], block_k)
     check_rtm_blocks(ctx, geom.k, "a shot-only mesh (n_x = 1)")
     return rtm_maker(ctx, mesh, geom, sz, gz,
-                     lambda *a, **kw: block_fwd_cuda(*a, **kw),
-                     lambda *a, **kw: block_bwd_cuda(*a, **kw))
+                     lambda *a, **kw: block_fwd_cuda(*a, parts=parts, **kw),
+                     lambda *a, **kw: block_bwd_cuda(*a, parts=parts, **kw))

@@ -44,8 +44,9 @@ import torch
 
 from . import io, numerics
 from .config import Params, Geometry
-from .ops.fd_kernels import (check_exact_taps, forward_modeling_cuda,
-                             laplacian_cuda, rtm_full_cuda, rtm_snapshot_cuda)
+from .ops.fd_kernels import (forward_modeling_cuda, laplacian_cuda,
+                             resolve_lap_impl, rtm_full_cuda,
+                             rtm_snapshot_cuda)
 from .ops.stream import MAX_STEPS
 from .solver import (FDContext, forward_modeling_tiled, rtm_shot_full_tiled,
                      rtm_shot_snapshot_tiled)
@@ -201,9 +202,12 @@ def run_modeling(p: Params, vp: Optional[np.ndarray] = None,
     ``mod_step_mma`` where it resolves to a split tier (the x taps in bf16
     parts), and so does the large-grid tier (``"tiled"``, K =
     ``TILED_BLOCK_K``), through ``kstep_mod_mma`` (the z taps in bf16
-    parts, as the JAX K-step kernels split them); the domain tiers have the
-    exact taps only and raise ``NotImplementedError`` on a resolved
-    ``"mxu"``/``"mxu6"`` (their split variants are in ROADMAP.md)."""
+    parts, as the JAX K-step kernels split them), and so do the domain
+    tiers on the card, through ``block_mod_mma`` or ``block2_mod_mma`` (the
+    x taps in bf16 parts, as the JAX block kernels split them). On a mesh
+    of CPU devices the domain tiers run the per-step loops with the exact
+    taps whatever ``lap_impl`` says, as the JAX package's lax domain path
+    does on the CPU."""
     tier = resolve_backend(backend, p.nxe, p.nze)
     if vp is None:
         vp = io.read_velocity(p.vpfile, p.nx, p.nz)
@@ -256,12 +260,15 @@ def _modeling_domain(ctx, g, mesh, lap_impl):
     """``run(v2, sxs, wav) -> (ns, nt, nx)`` traces of the x- or (x, z)-
     domain tier (the JAX package's ``_run_modeling_domain``, its
     pipeline.py:268-321): the block kernels with K = ``max(1,``
-    :func:`_block_k` ``(nt))``, or the per-step loops on a CPU mesh. A
-    tile too small for even K = 1 (fewer than h owned rows or columns)
-    raises on every mesh, before anything runs."""
+    :func:`_block_k` ``(nt))``, their ``*_mma`` twins where ``lap_impl``
+    resolves to a split tier, or the per-step loops on a CPU mesh, which
+    keep the exact taps: the JAX package runs its lax domain path there
+    (``_use_pallas`` is False on the CPU) and that path ignores
+    ``lap_impl``. A tile too small for even K = 1 (fewer than h owned rows
+    or columns) raises on every mesh, before anything runs."""
     from .parallel import (domain, domain2d, domain_kernels as dk,
                            domain2d_kernels as d2k)
-    check_exact_taps(ctx, lap_impl, "the domain tiers")
+    resolve_lap_impl(ctx, lap_impl)      # an unknown value raises on any mesh
     two_d = _mesh_cuts_z(mesh)
     block_k = max(1, _block_k(ctx, mesh, ctx.nt))
     if two_d:
@@ -400,8 +407,10 @@ def run_rtm_gpu(p: Params, vp: Optional[np.ndarray] = None,
     ``lap_impl`` as in :func:`run_modeling`: the per-step tier runs every
     value (``rtm_fwd_step_mma`` and ``rtm_bwd_step_mma`` for a resolved
     ``"mxu"``/``"mxu6"``), the large-grid tier too (``kstep_gpu_fwd_mma``,
-    ``gpu_step_mma`` and ``kstep_gpu_bwd_mma``); the domain tiers raise on
-    those."""
+    ``gpu_step_mma`` and ``kstep_gpu_bwd_mma``), and the domain tiers on
+    the card (``block_fwd_mma`` and ``block_bwd_mma``, or their ``block2_``
+    twins); on a CPU mesh they keep the exact taps, as in
+    :func:`run_modeling`."""
     tier = resolve_backend(backend, p.nxe, p.nze)
     if vp is None:
         vp = io.read_velocity(p.vpfile, p.nx, p.nz)
@@ -458,11 +467,13 @@ def _rtm_gpu_domain(ctx, g, mesh, lap_impl):
     """``run(v2, dobs, sxs, wav) -> (ns, nx, nz)`` images of the x- or
     (x, z)-domain tier (the JAX package's ``_run_rtm_gpu_domain``, its
     pipeline.py:632-685): the block kernels with K = :func:`_block_k`
-    ``(nt // 2)``, or the per-step loops on a CPU mesh. K < 2 raises on
-    every mesh, so that a CPU run meets the card's limits."""
+    ``(nt // 2)``, their ``*_mma`` twins where ``lap_impl`` resolves to a
+    split tier, or the per-step loops with the exact taps on a CPU mesh,
+    as in :func:`_modeling_domain`. K < 2 raises on every mesh, so that a
+    CPU run meets the card's limits."""
     from .parallel import (domain, domain2d, domain_kernels as dk,
                            domain2d_kernels as d2k)
-    check_exact_taps(ctx, lap_impl, "the domain tiers")
+    resolve_lap_impl(ctx, lap_impl)      # an unknown value raises on any mesh
     two_d = _mesh_cuts_z(mesh)
     block_k = _block_k(ctx, mesh, ctx.nt // 2)
     if block_k < 2:

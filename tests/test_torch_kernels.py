@@ -321,9 +321,10 @@ def test_cli_lap_impl_and_device_options(tmp_path):
                      np.full((14, 12), 2000.0, np.float32))
     cfg.write_text("nz=12\nnx=14\nnt=4\ndz=10\ndx=10\ndt=0.001\nfpeak=25\n"
                    "ns=1\nsz=3\nfsx=4\ngz=1\nnxb=5\nnzb=5\nvpfile=vp.bin\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["mod", str(cfg), "--device", "cpu", "--lap-impl", "mxu",
-                   "--shards-x", "2", "--output", str(tmp_path / "d.bin")])
+    # an x mesh of the CPU: the per-step loops with the exact taps, as the
+    # JAX package's lax domain path runs there
+    tcli.main(["mod", str(cfg), "--device", "cpu", "--lap-impl", "mxu",
+               "--shards-x", "2", "--output", str(tmp_path / "x.bin")])
     tcli.main(["mod", str(cfg), "--device", "cpu", "--lap-impl", "mxu",
                "--backend", "tiled", "--output", str(tmp_path / "t.bin")])
     tcli.main(["mod", str(cfg), "--device", "cpu", "--lap-impl", "mxu",
@@ -337,6 +338,7 @@ def test_cli_lap_impl_and_device_options(tmp_path):
     assert np.abs(m - d).max() <= 1e-4 * np.abs(d).max()
     assert not np.array_equal(t, d) and not np.array_equal(t, m)
     assert np.abs(t - d).max() <= 1e-4 * np.abs(d).max()
+    assert np.array_equal(np.fromfile(tmp_path / "x.bin", np.float32), d)
 
 
 # ---------------------------------------------------------------- card only
@@ -624,7 +626,9 @@ def test_block_kernels_match_plain_on_the_card(cuda_device, order, block_k):
         same(dk.block_bwd_cuda(cr, *f[:4], img.clone(), 0, k, f[4:]),
              dk.block_bwd(cr, *f[:4], img, 0, k, f[4:]))
     torch.cuda.synchronize()
-    assert dk.LAUNCHES == {"block_mod": 12, "block_fwd": 6, "block_bwd": 9}
+    assert dk.LAUNCHES == {"block_mod": 12, "block_fwd": 6, "block_bwd": 9,
+                           "block_mod_mma": 0, "block_fwd_mma": 0,
+                           "block_bwd_mma": 0}
     outs = []
     for devices in ([cuda_device] * 6, [cuda_device, "cpu"] * 3,
                     ["cpu"] * 6):
@@ -697,7 +701,8 @@ def test_block2_kernels_match_plain_on_the_card(cuda_device, order, block_k):
              d2k.block2_bwd(cr, *f[:4], img, 0, k, f[4:]))
     torch.cuda.synchronize()
     assert d2k.LAUNCHES == {"block2_mod": 16, "block2_fwd": 8,
-                            "block2_bwd": 12}
+                            "block2_bwd": 12, "block2_mod_mma": 0,
+                            "block2_fwd_mma": 0, "block2_bwd_mma": 0}
     outs = []
     for devices in ([cuda_device] * 8, [cuda_device, "cpu"] * 4,
                     ["cpu"] * 8):
@@ -710,6 +715,94 @@ def test_block2_kernels_match_plain_on_the_card(cuda_device, order, block_k):
                 v2, sxs, wav, d_ext)))
     for got in outs[:2]:
         same([t.cpu() for t in got], outs[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [4, 8, 10])
+@pytest.mark.parametrize("parts", [2, 3])
+def test_split_block_kernels_match_plain_on_the_card(cuda_device, order,
+                                                     parts):
+    """The split-bf16 twins of both domain tiers' block kernels
+    (block_*_mma on the slabs of a (1, 3) mesh, block2_*_mma on the tiles
+    of a (1, 2, 2) mesh) against their plain versions with the x taps in
+    the same bf16 parts, on the same CUDA tensors, launch by launch from
+    random states, K = 3 and a tail of 2, the seeded backward block; then
+    the makers on meshes of the card against the same makers on a CPU
+    mesh. Gates: traces and images 1e-5 of max, fields 1e-4 (each mma sums
+    its products in the card's order: ~1e-7 a step)."""
+    from parallel_finite_difference_computation_tpu_torch.parallel import (
+        domain2d_kernels as d2k, domain_kernels as dk, make_mesh)
+    from parallel_finite_difference_computation_tpu_torch.parallel.domain \
+        import embed_dobs
+    nt, k = 9, 3
+    rng = np.random.default_rng(order + parts)
+    ctx = solver.FDContext.create(70, 63, nt, dx=10.0, dz=10.0, dt=0.001,
+                                  order=order, nxb=7, nzb=7, fac=0.7)
+    v2 = torch.from_numpy(((1500.0 + 500.0 * rng.random(
+        (2, ctx.nxe, ctx.nze))).astype(np.float32)) ** 2)
+    wav = numerics.ricker_wavelet(nt, 0.001, 30.0)
+    d_ext = embed_dobs(ctx, rng.standard_normal(
+        (2, ctx.nx, nt)).astype(np.float32))
+    sxs, sz, gz = (27, 28), 38, 40
+
+    def same(got, want, gates):
+        for a, b, gate in zip(got, want, gates):
+            assert float((a - b).abs().max()) <= gate * float(b.abs().max())
+
+    fields, traces = (1e-4,) * 4, (1e-4, 1e-4, 1e-5)
+    tiers = (((1, 3), dk.slab_geometry(ctx, 3, k), dk.block_mod_cuda,
+              dk.block_fwd_cuda, dk.block_bwd_cuda, dk.LAUNCHES, "block_"),
+             ((1, 2, 2), d2k.tile_geometry(ctx, 2, 2, k),
+              d2k.block2_mod_cuda, d2k.block2_fwd_cuda, d2k.block2_bwd_cuda,
+              d2k.LAUNCHES, "block2_"))
+    for shape, geom, km, kf, kb, launches, stem in tiers:
+        grid = make_mesh(*shape, devices=[cuda_device] * int(
+            np.prod(shape))).grid(0)
+        ms = dk.prepare_tiles(ctx, grid, geom, v2[0], "all", sxs=sxs, sz=sz,
+                              source="gaussian", gz=gz)
+        rs = dk.prepare_tiles(ctx, grid, geom, v2, "top", sxs=sxs, sz=sz,
+                              dobs_ext=d_ext, gz=gz)
+        for name in launches:
+            launches[name] = 0
+        for cm, cr in zip(ms, rs):
+            f = [torch.from_numpy(rng.standard_normal(
+                (2, cm.nxw, cm.nzw)).astype(np.float32)).to(cuda_device)
+                 for _ in range(6)]
+            img = torch.from_numpy(rng.standard_normal(
+                (2, cm.nxl, cm.nzl)).astype(np.float32)).to(cuda_device)
+            for kk in (k, k - 1):
+                a = wav[:kk]
+                for c in (cm, cr):        # gaussian/all, point/top
+                    same(km(c, f[0], f[1], a, parts=parts),
+                         dk.block_mod(c, f[0], f[1], a, parts), traces)
+                same(kf(cr, f[0], f[1], a, parts=parts),
+                     dk.block_fwd(cr, f[0], f[1], a, parts), fields)
+                same(kb(cr, *f[:4], img.clone(), k, kk, parts=parts),
+                     dk.block_bwd(cr, *f[:4], img, k, kk, None, parts),
+                     fields + (1e-5,))
+            same(kb(cr, *f[:4], img.clone(), 0, k, f[4:], parts=parts),
+                 dk.block_bwd(cr, *f[:4], img, 0, k, f[4:], parts),
+                 fields + (1e-5,))
+        torch.cuda.synchronize()
+        n = len(ms)
+        assert launches == {f"{stem}mod": 0, f"{stem}fwd": 0,
+                            f"{stem}bwd": 0, f"{stem}mod_mma": 4 * n,
+                            f"{stem}fwd_mma": 2 * n, f"{stem}bwd_mma": 3 * n}
+    lap_impl = "mxu" if parts == 2 else "mxu6"
+    for shape, mod, rtm in (
+            ((2, 3), dk.make_sharded_forward_modeling_cuda,
+             dk.make_sharded_rtm_snapshot_cuda),
+            ((2, 2, 2), d2k.make_sharded_forward_modeling_2d_cuda,
+             d2k.make_sharded_rtm_snapshot_2d_cuda)):
+        outs = []
+        for devices in ([cuda_device] * 12, ["cpu"] * 12):
+            mesh = make_mesh(*shape, devices=devices)
+            outs.append((
+                mod(ctx, mesh, sz, gz, block_k=k, lap_impl=lap_impl)(
+                    v2[0], sxs, wav).cpu(),
+                rtm(ctx, mesh, sz, gz, block_k=k, lap_impl=lap_impl)(
+                    v2, sxs, wav, d_ext).cpu()))
+        same(outs[0], outs[1], (1e-5, 1e-5))
 
 
 def _stream_case(order, nt, device):

@@ -156,9 +156,8 @@ def test_routing_errors_and_resolved_parts():
     with pytest.raises(ValueError, match="0, 2 or 3"):
         fk.lap_parts(1, ctx)
     assert fk.resolve_lap_impl(ctx, "auto") == "mxu6"
-    fk.check_exact_taps(_ctxs(12, 10, 4501)[1], "auto", "a tier")
-    with pytest.raises(NotImplementedError, match="mxu6 tier.*ROADMAP"):
-        fk.check_exact_taps(ctx, "auto", "a tier")
+    assert fk.lap_parts("auto", ctx) == 3
+    assert fk.lap_parts("auto", _ctxs(12, 10, 4501)[1]) == 0
 
 
 # -------------------------------------------------------- whole-shot parity
@@ -319,34 +318,38 @@ def test_cli_lap_impl_auto(slice_runs, tmp_path):
     assert np.array_equal(img, runs["mxu"][1].sum(axis=0))
 
 
-# ------------------------------------------------- tiers with exact taps only
+# ------------------------------------------------ the other tiers' routing
 
-def test_other_tiers_raise_on_a_resolved_split_tier():
-    """The domain tiers (x and (x, z) meshes), whose block kernels have the
-    exact taps only, raise on a resolved split tier, naming kernel-table
-    rows 15-16 and ROADMAP. The large-grid tier at K = 1 and rtm_main's
-    kernels (the wavefield recording, its backward, the whole rtm_main
-    shot) at every K run them, the z taps split: each call equals its
-    plain path with that Laplacian (``tests/test_torch_stream_mxu.py``
+def test_other_tiers_run_a_resolved_split_tier():
+    """The domain tiers (x and (x, z) meshes) on CPU devices run a resolved
+    split tier with the exact taps, the JAX package's lax domain path on
+    the CPU (their block kernels' split twins run on the card,
+    ``tests/test_torch_domain_mxu.py``). The large-grid tier at K = 1 and
+    rtm_main's kernels (the wavefield recording, its backward, the whole
+    rtm_main shot) at every K run them, the z taps split: each call equals
+    its plain path with that Laplacian (``tests/test_torch_stream_mxu.py``
     holds them against the JAX package)."""
     p = tpk.Params(**CFG)
     vp = layered_model(p.nx, p.nz)
     dobs = np.zeros((p.ns, p.nx, p.nt), np.float32)
     x_mesh = make_mesh(1, 2, devices=["cpu"] * 2)
     xz_mesh = make_mesh(1, 2, 2, devices=["cpu"] * 4)
-    for lap_impl in ("mxu", "mxu6", "auto"):
-        for run in (
-                lambda: tpipe.run_modeling(p, vp=vp, mesh=xz_mesh,
-                                           lap_impl=lap_impl),
-                lambda: tpipe.run_rtm_gpu(p, vp=vp, dobs=dobs, mesh=x_mesh,
-                                          lap_impl=lap_impl),
-                lambda: tpipe.run_modeling(p, vp=vp, mesh=x_mesh,
-                                           lap_impl=lap_impl),
-                lambda: tpipe.run_rtm_gpu(p, vp=vp, dobs=dobs, mesh=xz_mesh,
-                                          lap_impl=lap_impl)):
-            with pytest.raises(NotImplementedError,
-                               match="rows 15-16.*ROADMAP"):
-                run()
+    runs = {
+        "mod xz": lambda li: tpipe.run_modeling(p, vp=vp, mesh=xz_mesh,
+                                                lap_impl=li),
+        "rtm_gpu x": lambda li: tpipe.run_rtm_gpu(p, vp=vp, dobs=dobs,
+                                                  mesh=x_mesh, lap_impl=li),
+        "mod x": lambda li: tpipe.run_modeling(p, vp=vp, mesh=x_mesh,
+                                               lap_impl=li),
+        "rtm_gpu xz": lambda li: tpipe.run_rtm_gpu(p, vp=vp, dobs=dobs,
+                                                   mesh=xz_mesh,
+                                                   lap_impl=li)}
+    for label, run in runs.items():
+        exact = run(None)
+        for lap_impl in ("mxu", "mxu6", "auto"):
+            for a, b in zip(*(o if isinstance(o, tuple) else (o,)
+                              for o in (run(lap_impl), exact))):
+                np.testing.assert_array_equal(a, b, err_msg=label)
     _, ctx = _ctxs(20, 16, 9)
     v2 = torch.full((ctx.nxe, ctx.nze), 2000.0 ** 2)
     wav = tnum.ricker_wavelet(ctx.nt, 0.001, 25.0)

@@ -355,7 +355,9 @@ def test_block_functions_keep_zero_halos_and_sum_the_image_per_block():
     spare = [torch.zeros_like(t) for t in f]
     got = dk.block_bwd_cuda(c, *f, img, 3, 3, out=spare)
     assert all(torch.equal(a, b) for a, b in zip(got, out))
-    assert dk.LAUNCHES == {"block_mod": 0, "block_fwd": 0, "block_bwd": 0}
+    assert dk.LAUNCHES == {"block_mod": 0, "block_fwd": 0, "block_bwd": 0,
+                           "block_mod_mma": 0, "block_fwd_mma": 0,
+                           "block_bwd_mma": 0}
     # the kernels' output buffers: four, distinct, none an input
     for bad in (spare[:3], [spare[0]] * 4, [f[0]] + spare[1:],
                 [spare[0][:1]] + spare[1:]):
@@ -383,8 +385,8 @@ def test_block_makers_swap_buffers_as_the_kernels_need(monkeypatch):
     seen = []
 
     def owned_rows_only(plain, n):
-        def run(c, *args, out=None):
-            assert out is not None
+        def run(c, *args, out=None, parts=0):
+            assert out is not None and parts == 0
             dk._check_out(c, args[:n if n == 2 else 5], out, n)
             got = plain(c, *args)
             rows = slice(c.hs, c.hs + c.nxl)
@@ -415,11 +417,19 @@ def test_block_maker_errors():
         dk.make_sharded_rtm_snapshot_cuda(ctx, mesh, 8, 5, block_k=1)
     with pytest.raises(ValueError, match="nt=6 < 2\\*block_k=8"):
         dk.make_sharded_rtm_snapshot_cuda(ctx, mesh, 8, 5, block_k=4)
-    for lap_impl in ("mxu", "mxu6", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dk.make_sharded_forward_modeling_cuda(ctx, mesh, 8, 5,
-                                                  block_k=2,
-                                                  lap_impl=lap_impl)
+    # a split lap_impl runs the plain split block function (auto is mxu
+    # here: nt = 6, dx == dz); an unknown one raises
+    v2 = np.full((ctx.nxe, ctx.nze), 2000.0 ** 2, np.float32)
+    wav = np.float32(np.random.default_rng(0).standard_normal(ctx.nt))
+    seis = {lap_impl: dk.make_sharded_forward_modeling_cuda(
+        ctx, mesh, 8, 5, block_k=2, lap_impl=lap_impl)(v2, [20], wav)
+        for lap_impl in (None, "mxu", "mxu6", "auto")}
+    assert torch.equal(seis["auto"], seis["mxu"])
+    assert not torch.equal(seis["mxu"], seis[None])
+    assert not torch.equal(seis["mxu6"], seis["mxu"])
+    with pytest.raises(ValueError, match="unknown lap_impl"):
+        dk.make_sharded_forward_modeling_cuda(ctx, mesh, 8, 5, block_k=2,
+                                              lap_impl="mxu3")
     fn = dk.make_sharded_forward_modeling_cuda(ctx, mesh, 2, 5, block_k=2)
     with pytest.raises(ValueError, match="source window"):
         fn(np.ones((ctx.nxe, ctx.nze), np.float32), [20], ctx.source_patch)
@@ -438,8 +448,14 @@ def test_pipeline_mesh_errors():
     # nxe = 32 over 8 slabs: K = 4 // 4 = 1 < 2 for RTM
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpipe.run_rtm_gpu(p, vp=vp, dobs=dobs, mesh=cpu_mesh(1, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.run_modeling(p, vp=vp, mesh=cpu_mesh(1, 2), lap_impl="mxu")
+    # a CPU mesh keeps the exact taps under a split lap_impl, as the JAX
+    # lax domain path does on the CPU
+    np.testing.assert_array_equal(
+        tpipe.run_modeling(p, vp=vp, mesh=cpu_mesh(1, 2), lap_impl="mxu"),
+        tpipe.run_modeling(p, vp=vp, mesh=cpu_mesh(1, 2)))
+    with pytest.raises(ValueError, match="unknown lap_impl"):
+        tpipe.run_rtm_gpu(p, vp=vp, dobs=dobs, mesh=cpu_mesh(1, 2),
+                          lap_impl="mxu3")
 
 
 # ------------------------------------------------------------- pipelines
@@ -516,8 +532,8 @@ def test_no_dummy_shots(monkeypatch, survey):
     assert sorted(stepped) == [1] * tp.nt + [2] * tp.nt
     launched = []
     real_mod = dk.block_mod
-    monkeypatch.setattr(dk, "block_mod", lambda c, p, pp, a: (
-        launched.append(p.shape[0]), real_mod(c, p, pp, a))[1])
+    monkeypatch.setattr(dk, "block_mod", lambda c, p, pp, a, parts: (
+        launched.append(p.shape[0]), real_mod(c, p, pp, a, parts))[1])
     ctx = solver.FDContext.from_params(tp, exact_taper=False)
     g = tpk.Geometry.from_params(tp)
     k = 4                              # min(8, (32 // 2) // 4, nt)

@@ -259,11 +259,16 @@ def test_block_maker_errors():
                                          "make_sharded_rtm_snapshot_2d"):
         d2k.make_sharded_rtm_snapshot_2d_cuda(ctx, cpu_mesh(1, 2, 2), 8, 5,
                                               block_k=4)
-    for lap_impl in ("mxu", "mxu6", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            d2k.make_sharded_forward_modeling_2d_cuda(ctx, mesh, 8, 5,
-                                                      block_k=2,
-                                                      lap_impl=lap_impl)
+    # a split lap_impl runs the plain split block function (auto is mxu
+    # here: nt = 6, dx == dz)
+    v2 = np.full((ctx.nxe, ctx.nze), 2000.0 ** 2, np.float32)
+    wav = np.float32(np.random.default_rng(0).standard_normal(ctx.nt))
+    seis = {lap_impl: d2k.make_sharded_forward_modeling_2d_cuda(
+        ctx, cpu_mesh(1, 2, 2), 30, 35, block_k=2, lap_impl=lap_impl)(
+            v2, [20], wav) for lap_impl in (None, "mxu", "mxu6", "auto")}
+    assert torch.equal(seis["auto"], seis["mxu"])
+    assert not torch.equal(seis["mxu"], seis[None])
+    assert not torch.equal(seis["mxu6"], seis["mxu"])
 
 
 CFG = dict(nz=24, nx=24, nt=40, dz=10.0, dx=10.0, dt=0.001, fpeak=25.0,
@@ -279,6 +284,11 @@ def test_pipeline_mesh_errors(monkeypatch):
     # nze = 32 over 8 z parts: K = (4 // 4) = 1 < 2 for RTM
     with pytest.raises(NotImplementedError, match="fewer x or z shards"):
         tpipe.run_rtm_gpu(p, vp=vp, dobs=dobs, mesh=cpu_mesh(1, 1, 8))
+    # a CPU mesh keeps the exact taps under a split lap_impl, as the JAX
+    # lax domain path does on the CPU
+    np.testing.assert_array_equal(
+        tpipe.run_modeling(p, vp=vp, mesh=cpu_mesh(1, 2, 2), lap_impl="mxu"),
+        tpipe.run_modeling(p, vp=vp, mesh=cpu_mesh(1, 2, 2)))
     # tiles of 3 columns < h = 4: the modeling rule still gives K = 1, whose
     # halo outgrows the tile; it raises before anything runs, on any mesh
     ran = []
@@ -290,8 +300,6 @@ def test_pipeline_mesh_errors(monkeypatch):
         tpipe.run_modeling(q, vp=layered_model(q.nx, q.nz),
                            mesh=cpu_mesh(1, 1, 8))
     assert not ran
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.run_modeling(p, vp=vp, mesh=cpu_mesh(1, 2, 2), lap_impl="mxu")
 
 
 # ------------------------------------------------------------- pipelines

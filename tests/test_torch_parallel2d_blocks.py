@@ -186,7 +186,9 @@ def test_block2_functions_keep_zero_halos_and_route_cpu_tensors():
     spare = [torch.zeros_like(t) for t in f]
     got = d2k.block2_bwd_cuda(c, *f, img, 3, 3, out=spare)
     assert all(torch.equal(a, b) for a, b in zip(got, out))
-    assert d2k.LAUNCHES == {"block2_mod": 0, "block2_fwd": 0, "block2_bwd": 0}
+    assert d2k.LAUNCHES == {"block2_mod": 0, "block2_fwd": 0, "block2_bwd": 0,
+                            "block2_mod_mma": 0, "block2_fwd_mma": 0,
+                            "block2_bwd_mma": 0}
     for bad in (spare[:3], [spare[0]] * 4, [f[0]] + spare[1:],
                 [spare[0][:, :-1]] + spare[1:]):
         with pytest.raises(ValueError):
@@ -227,8 +229,8 @@ def test_block2_makers_swap_buffers_as_the_kernels_need(monkeypatch):
     seen = []
 
     def owned_only(plain, n):
-        def run(c, *args, out=None):
-            assert out is not None
+        def run(c, *args, out=None, parts=0):
+            assert out is not None and parts == 0
             got = plain(c, *args)
             rows, cols = c.owned
             for o, g in zip(out, got[:n]):

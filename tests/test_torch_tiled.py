@@ -434,7 +434,8 @@ def test_shared_memory_of_the_kernels():
     wrappers' step limit is the kernels'; which (kernel, order, K) the card
     refuses up to order 16, the K-step kernels exact and split (``*_mma``:
     one more staged tile for the z taps' product, two in kstep_gpu_bwd)
-    and the block kernels."""
+    and the block kernels exact and split (one more staged tile for the x
+    taps' product; block_bwd_mma on a smaller owned tile)."""
     csrc = pathlib.Path(stream.__file__).parents[1] / "csrc"
     const = {m[1]: int(m[2]) for m in re.finditer(
         r"constexpr int (k\w+) = (\d+);", (csrc / "kstep.cuh").read_text())}
@@ -467,12 +468,18 @@ def test_shared_memory_of_the_kernels():
     assert smem("kstep_gpu_bwd", 8, 8) > limit     # refused by allow_smem
 
     # the block kernels of the domain tiers (csrc/domain_block.cuh):
-    # tile_bytes<TX, TZ>(fields, K*h, image)
+    # P ? tile_bytes<TX, TZ>(fields, K*h, image) of the split twin
+    #   : tile_bytes<TX, TZ>(...) of the exact kernel
     cuh = (csrc / "domain_block.cuh").read_text()
     dims = {m[1]: int(m[2]) for m in re.finditer(r"(k\w+T[XZ]) = (\d+)",
                                                  cuh)}
-    blocks = dict(zip(("block_mod", "block_fwd", "block_bwd"), re.findall(
-        r"tile_bytes<(\w+), (\w+)>\((\d), k \* H, (true|false)\)", cuh)))
+    one = r"tile_bytes<(\w+), (\w+)>\((\d), k \* H, (true|false)\)"
+    pairs = re.findall(rf"P \? {one}\s*: {one};", cuh)
+    assert len(pairs) == 3
+    names = ("block_mod", "block_fwd", "block_bwd")
+    blocks = {**dict(zip(names, (pair[4:] for pair in pairs))),
+              **dict(zip((f"{n}_mma" for n in names),
+                         (pair[:4] for pair in pairs)))}
 
     def block_smem(kernel, order, k):
         bx, bz, fields, image = blocks[kernel]
@@ -482,6 +489,8 @@ def test_shared_memory_of_the_kernels():
                     + (dims[bx] * dims[bz] if image == "true" else 0))
 
     assert block_smem("block_bwd", 8, 8) == 4 * (4 * 96 * 96 + 32 * 32)
+    assert block_smem("block_mod_mma", 8, 8) == 4 * 3 * 96 * 128
+    assert block_smem("block_bwd_mma", 10, 8) == 4 * (5 * 96 * 112 + 16 * 32)
 
     # The smallest K each order's tile is refused at (None: every K up to
     # 8 fits): orders above 10 run on the card, but with fewer steps a pass
@@ -523,6 +532,19 @@ def test_shared_memory_of_the_kernels():
              "kstep_gpu_bwd_mma": 4},
         16: {"kstep_mod_mma": 5, "kstep_gpu_fwd_mma": 5,
              "kstep_gpu_bwd_mma": 3}}
+    # the split block kernels fit the pipelines' K = 8 up to order 10 (the
+    # JAX domain tests' orders); above it they take fewer steps a block
+    assert {order: {kernel: first_refused(block_smem, kernel, order)
+                    for kernel in ("block_mod_mma", "block_fwd_mma",
+                                   "block_bwd_mma")}
+            for order in (8, 10, 12, 14, 16)} == {
+        8: {"block_mod_mma": None, "block_fwd_mma": None,
+            "block_bwd_mma": None},
+        10: {"block_mod_mma": None, "block_fwd_mma": None,
+             "block_bwd_mma": None},
+        12: {"block_mod_mma": 8, "block_fwd_mma": 8, "block_bwd_mma": 7},
+        14: {"block_mod_mma": 7, "block_fwd_mma": 7, "block_bwd_mma": 6},
+        16: {"block_mod_mma": 6, "block_fwd_mma": 6, "block_bwd_mma": 6}}
     # the per-step kernels (fd_step, fd_update, gpu_step and the whole-grid
     # step kernels) stage nothing, gpu_step_mma a static tile under 48 KB
     # (a static_assert), and they take every order up to MAX_ORDER
