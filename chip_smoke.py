@@ -37,7 +37,9 @@ Run from the root of the repository, on a machine with one CUDA card and
    runs (nt=21, K = 2 and 4, orders 4, 8 and 10) on a 67 x 88 grid that is
    no multiple of the 32 x 64 tiles, with nxb != nzb and the sources and
    the receiver row across tile edges; then at the full Pluto grid (7040 x
-   1281 extended), 2 shots, nt=203, K=4; gate: max relative error <= 1e-5;
+   1281 extended), 2 shots, nt=203, K=4; gate: max relative error <= 1e-5,
+   and ``kstep_gpu_bwd`` (the strip body of ``csrc/bwd_strip.cuh``)
+   bitwise;
 9. tiled vs per-step at the Pluto grid: ``forward_modeling_tiled`` against
    ``forward_modeling_cuda`` and ``rtm_shot_snapshot_tiled`` against
    ``rtm_snapshot_cuda``, 2 shots, nt=203 (<= 1e-5; 0 expected);
@@ -54,7 +56,7 @@ Run from the root of the repository, on a machine with one CUDA card and
    first slab edge; and the two makers on a (2, x) mesh of cuda:0 and on
    one alternating cuda:0 and the CPU against the same makers on a CPU
    mesh (edge slabs' zero halos, the exchange within and between
-   devices); gate: max relative error <= 1e-5;
+   devices); gate: max relative error <= 1e-5, and ``block_bwd`` bitwise;
 12. 3lay mesh path: ``run_modeling`` then ``run_rtm_gpu`` on the 3lay
    config over meshes (2, 1), (2, 2) and (1, 4), every position on cuda:0,
    against the no-mesh run of phase 4 (rel RMS <= 1e-5);
@@ -73,8 +75,8 @@ Run from the root of the repository, on a machine with one CUDA card and
    timed once, without a warm-up of their own); the same for the block
    kernels over the four slabs of a (1, 4) mesh, after holding each
    against its plain version there (K = 8 and the tails 4 and 1, seeded;
-   gate 1e-5), and the domain tier's whole modeling and RTM calls against
-   the per-step calls;
+   gate 1e-5, ``block_bwd`` bitwise), and the domain tier's whole
+   modeling and RTM calls against the per-step calls;
 15. profile: one ``torch.profiler`` trace of each 3lay 8-shot call, of the
    8192 x 8192 stencil, and of the Pluto modeling and RTM calls (nt=1001)
    of each tier: the device time of each kernel, its launch count, and the
@@ -88,7 +90,7 @@ Run from the root of the repository, on a machine with one CUDA card and
    sources across the x cut, the Gaussian band across a z cut and the
    receiver row in a later z part; and the two makers on (2, x, z) meshes
    of cuda:0 and alternating cuda:0 and the CPU against a CPU mesh; gate:
-   max relative error <= 1e-5;
+   max relative error <= 1e-5, and ``block2_bwd`` bitwise;
 17. 3lay (x, z) mesh path: ``run_modeling`` then ``run_rtm_gpu`` on the
    3lay config over (2, 2, 2), (1, 2, 2) and (1, 1, 4) meshes of cuda:0,
    against the no-mesh run of phase 4 (rel RMS <= 1e-5);
@@ -227,7 +229,11 @@ Run from the root of the repository, on a machine with one CUDA card and
    block kernel's launches over the four slabs or tiles (mxu and mxu6),
    its plain version and its exact twin (once each) in turns,
    against ``block_bounds(parts=)``; one profiler trace of each split
-   maker call (mxu) with the copy and idle shares.
+   maker call (mxu) with the copy and idle shares;
+36. order 12: ``run_modeling`` and ``run_rtm_gpu`` on the 3lay config
+   through ``backend="tiled"`` and over a (1, 2) and a (1, 2, 2) mesh of
+   cuda:0, each at the K its pipeline chooses to fit a block's shared
+   memory, against the per-step tier (rel RMS <= 1e-5).
 
 Every phase prints its seconds, and the run its total. It prints one JSON line of per-kernel results (with each kernel's bound,
 worked out from this run's shapes), the nvidia-smi line, and, as the last
@@ -339,9 +345,12 @@ PLUTO_VELOCITIES = (1500.0, 2200.0, 3000.0, 4000.0)
 # The card's published peaks (H100 SXM data sheet): HBM bytes/s, float32
 # flop/s outside the tensor cores and dense bf16 flop/s on them. A kernel's
 # bound is the largest of its bytes (inputs read once, outputs written once)
-# and its flop of each kind over these.
+# and its flop of each kind over these. The data sheet's 67 TFLOP/s counts
+# a fused multiply-add as two flop; every kernel here is built with
+# -fmad=false (the reference's rounding), so each multiply and each add
+# issues on its own: 33.5e12 of them a second on the CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
+F32_FLOP_PER_S = 67e12 / 2
 BF16_TENSOR_FLOP_PER_S = 989e12
 
 
@@ -608,6 +617,19 @@ def build_report(log: str) -> list:
             f"{min(r for r, _ in rs)}-{max(r for r, _ in rs)} registers, "
             f"{max(s for _, s in rs)} bytes of spill stores at most"
             for fn, rs in sorted(per.items())]
+
+
+def block_launches(name: str, nt: int, k: int, tiles: int) -> int:
+    """Launches of the domain block kernel ``name`` over nt steps in
+    blocks of k (and a tail) on ``tiles`` slabs or tiles: one a block, two
+    for an exact backward block of more than 4 steps (two passes,
+    ``fk.bwd_passes``)."""
+    from parallel_finite_difference_computation_tpu_torch.ops import (
+        fd_kernels as fk)
+    full, tail = divmod(nt, k)
+    per = (fk.bwd_passes if name in ("block_bwd", "block2_bwd")
+           else lambda n: 1)
+    return tiles * (full * per(k) + (per(tail) if tail else 0))
 
 
 def check(ok: bool, what: str) -> None:
@@ -1100,6 +1122,8 @@ def main() -> int:
                       f"{short.nt} 67 x 88: max rel err {rel:.3e}, max abs "
                       f"err {absd:.3e}", flush=True)
                 check(rel <= GATE, f"{kname} order {order} K {k}: {rel:.3e}")
+                check(kname != "kstep_gpu_bwd" or absd == 0,
+                      f"kstep_gpu_bwd order {order} K {k} is not bitwise")
     pluto = Params(**dict(PLUTO, nt=203))
     case = tier_case(pluto, PLUTO_VELOCITIES)
     for kname, (rel, absd) in compare_tier(case, 4).items():
@@ -1107,6 +1131,8 @@ def main() -> int:
               f"order 8 K 4 nt {pluto.nt} ns {pluto.ns}: max rel err "
               f"{rel:.3e}, max abs err {absd:.3e}", flush=True)
         check(rel <= GATE, f"{kname} at the Pluto grid: {rel:.3e}")
+        check(kname != "kstep_gpu_bwd" or absd == 0,
+              "kstep_gpu_bwd at the Pluto grid is not bitwise")
         if kname in results:
             results[kname]["max_abs_err"] = absd
     phase_done("large-grid kernels vs plain")
@@ -1296,6 +1322,9 @@ def main() -> int:
                           flush=True)
                     check(rel <= GATE, f"{kname} order {order} x {n_x} K "
                                        f"{k}: {rel:.3e} > {GATE}")
+                    check(kname != "block_bwd" or absd == 0,
+                          f"block_bwd order {order} x {n_x} K {k} is not "
+                          f"bitwise")
                     if kname in block_err:
                         block_err[kname] = max(block_err[kname], absd)
                 n_cases += 1
@@ -1356,9 +1385,8 @@ def main() -> int:
           f"({(t1 - t0) / pl45.ns:.3f} s/shot), run_rtm_gpu {t2 - t1:.3f} s "
           f"wall ({(t2 - t1) / pl45.ns:.3f} s/shot), host included; launches "
           f"{launches}; {smi}", flush=True)
-    blocks = 4 * -(-pl45.nt // 8)
     for k in launches:
-        want = 0 if k.endswith("_mma") else blocks
+        want = 0 if k.endswith("_mma") else block_launches(k, pl45.nt, 8, 4)
         if want:
             results[k]["launches"] = launches[k]
         check(launches[k] == want, f"{k} launched {launches[k]} times, "
@@ -1603,6 +1631,8 @@ def main() -> int:
               f"K {KD}, 4, 1): max rel err {rel:.3e}, max abs err "
               f"{absd:.3e}", flush=True)
         check(rel <= GATE, f"{kname} at the Pluto grid: {rel:.3e} > {GATE}")
+        check(not kname.endswith("_bwd") or absd == 0,
+              f"{kname} at the Pluto grid is not bitwise")
         results[kname]["max_abs_err"] = max(block_err[kname], absd)
 
     outs_p = [[torch.zeros_like(st_p[j][0]) for _ in range(4)]
@@ -1648,7 +1678,7 @@ def main() -> int:
                                per_step[k]], once=(1,))
         bms, by = bounds[k]
         print(f"[times] {k} at the Pluto grid ({pt.ns} shots, nt {pt.nt}, 4 "
-              f"slabs, {4 * -(-pt.nt // KD)} launches of K={KD}): kernel "
+              f"slabs, {4 * -(-pt.nt // KD)} blocks of K={KD}): kernel "
               f"{span(tk)}, plain {span(tp)}, per-step kernel {span(ts)}; "
               f"bound {bms:.3f} ms ({by}), kernel / bound "
               f"{statistics.median(tk) / bms:.2f}; {smi}", flush=True)
@@ -1783,6 +1813,9 @@ def main() -> int:
                           f"{absd:.3e}", flush=True)
                     check(rel <= GATE, f"{kname} order {order} mesh {shape}"
                                        f" K {k}: {rel:.3e} > {GATE}")
+                    check(kname != "block2_bwd" or absd == 0,
+                          f"block2_bwd order {order} mesh {shape} K {k} is "
+                          f"not bitwise")
                     if kname in block2_err:
                         block2_err[kname] = max(block2_err[kname], absd)
                 n_cases += 1
@@ -1836,9 +1869,8 @@ def main() -> int:
           f"({(t1 - t0) / pl45.ns:.3f} s/shot), run_rtm_gpu {t2 - t1:.3f} s "
           f"wall ({(t2 - t1) / pl45.ns:.3f} s/shot), host included; "
           f"launches {launches}; {smi}", flush=True)
-    blocks = 4 * -(-pl45.nt // 8)
     for k in launches:
-        want = 0 if k.endswith("_mma") else blocks
+        want = 0 if k.endswith("_mma") else block_launches(k, pl45.nt, 8, 4)
         if want:
             results[k]["launches"] = launches[k]
         check(launches[k] == want, f"{k} launched {launches[k]} times, "
@@ -1878,6 +1910,8 @@ def main() -> int:
               f"{rs_z[0].nzw}, K {KD}, 4, 1): max rel err {rel:.3e}, max "
               f"abs err {absd:.3e}", flush=True)
         check(rel <= GATE, f"{kname} at the Pluto grid: {rel:.3e} > {GATE}")
+        check(not kname.endswith("_bwd") or absd == 0,
+              f"{kname} at the Pluto grid is not bitwise")
         results[kname]["max_abs_err"] = max(block2_err[kname], absd)
     outs_z = [[torch.zeros_like(st_z[j][0]) for _ in range(4)]
               for j in range(4)]
@@ -1891,7 +1925,7 @@ def main() -> int:
         bms, by = bounds[k]
         print(f"[times] {k} at the Pluto grid ({pt.ns} shots, nt {pt.nt}, 4 "
               f"tiles of {rs_z[0].nxw} x {rs_z[0].nzw}, "
-              f"{4 * -(-pt.nt // KD)} launches of K={KD}): kernel "
+              f"{4 * -(-pt.nt // KD)} blocks of K={KD}): kernel "
               f"{span(tk)}, plain {span(tp)}, per-step kernel {span(ts)}; "
               f"bound {bms:.3f} ms ({by}), kernel / bound "
               f"{statistics.median(tk) / bms:.2f}; {smi}", flush=True)
@@ -3471,7 +3505,6 @@ def main() -> int:
         step_ref[li] = (dat, *pipeline.run_rtm_gpu(
             pt, vp=vp_pl, dobs=dat, seed=0, device=dev, backend="pallas",
             lap_impl=li))
-    blocks = 4 * -(-pt.nt // KD)
     for shape in ((1, 4), (1, 2, 2)):
         mesh = make_mesh(*shape, devices=[dev] * 4)
         lc = d2k if len(shape) == 3 else dk
@@ -3509,7 +3542,7 @@ def main() -> int:
                   and np.isfinite(img_s).all() and np.abs(img_s).max() > 0,
                   f"{name} mesh {shape}: outputs not finite, zero or "
                   f"dir.image differs")
-            want = {k: blocks for k in lc.LAUNCHES
+            want = {k: block_launches(k, pt.nt, KD, 4) for k in lc.LAUNCHES
                     if k.endswith("_mma") == bool(li)}
             check(launched == want, f"{name} mesh {shape}: launches "
                                     f"{launched}, expected {want}")
@@ -3570,7 +3603,8 @@ def main() -> int:
             bms, by = b2[k]
             print(f"[times] {k} at the Pluto grid ({pt.ns} shots, nt "
                   f"{pt.nt}, 4 {'tiles' if tier2 else 'slabs'} of "
-                  f"{rs_s[0].nxw} x {rs_s[0].nzw}, {blocks} launches of "
+                  f"{rs_s[0].nxw} x {rs_s[0].nzw}, "
+                  f"{block_launches(k, pt.nt, KD, 4)} launches of "
                   f"K={KD}): kernel (mxu) {span(tk)}, mxu6 {span(tk6)}, "
                   f"plain (mxu) {span(tp)}, exact kernel {k[:-4]} "
                   f"{span(te)}; bound {bms:.3f} ms ({by}; mxu6 "
@@ -3606,6 +3640,38 @@ def main() -> int:
                   f"{1 - busy / call_ms:.3f}; {smi}", flush=True)
     del d_p, v2_pm, v2_pr, d_ext_p, case_p
     phase_done("split domain kernels: times and profile")
+
+    # ---- 36. order 12 on the pipelines' chosen K: run_modeling and
+    # run_rtm_gpu at 3lay through backend="tiled" and over a (1, 2) and a
+    # (1, 2, 2) mesh of cuda:0, against the per-step tier
+    p12 = dataclasses.replace(P, order=12)
+    ctx12 = solver.FDContext.from_params(p12)
+    dat12 = pipeline.run_modeling(p12, vp=vp, device=dev, backend="pallas")
+    img12 = pipeline.run_rtm_gpu(p12, vp=vp, dobs=dat12, seed=0, device=dev,
+                                 backend="pallas")[0]
+    runs12 = {"backend tiled": (dict(device=dev, backend="tiled"),
+                                stream.tiled_block_k(ctx12, (
+                                    "kstep_gpu_fwd", "kstep_gpu_bwd")))}
+    for shape in ((1, 2), (1, 2, 2)):
+        mesh = make_mesh(*shape, devices=[dev] * int(np.prod(shape)))
+        runs12[f"mesh {shape}"] = (dict(mesh=mesh), pipeline._block_k(
+            ctx12, mesh, p12.nt // 2, ("block_fwd", "block_bwd"), None))
+    for label, (kw, k12) in runs12.items():
+        for c in (fk, stream, dk, d2k):
+            c.reset_launches()
+        got_d = pipeline.run_modeling(p12, vp=vp, **kw)
+        got_i = pipeline.run_rtm_gpu(p12, vp=vp, dobs=got_d, seed=0, **kw)[0]
+        torch.cuda.synchronize()
+        launched = {k: n for c in (fk, stream, dk, d2k)
+                    for k, n in c.LAUNCHES.items() if n}
+        rr = (rel_rms(got_d, dat12), rel_rms(got_i, img12))
+        print(f"[order 12] 3lay {label}, RTM K {k12}: launches {launched}; "
+              f"vs the per-step tier: gathers rel RMS {rr[0]:.3e}, image "
+              f"rel RMS {rr[1]:.3e} (gate {GATE})", flush=True)
+        check(launched and max(rr) <= GATE, f"order 12 {label} differs "
+                                             f"from the per-step tier")
+    del dat12, img12, runs12
+    phase_done("order 12 on the chosen K")
 
     print(f"[total] {time.perf_counter() - start:.1f} s", flush=True)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -61,7 +61,8 @@ int block2_fwd_run(const float* p, const float* pp, float* p_out,
 int block2_bwd_run(const float* ps, const float* pps, const float* pr,
                    const float* ppr, float* ps_out, float* pps_out,
                    float* pr_out, float* ppr_out, const float* snap0,
-                   const float* snap1, float* img, const float* v2m,
+                   const float* snap1, float* img, float* scratch,
+                   const float* v2m,
                    int v2_shot_stride, const float* xramp, const float* zfac,
                    const float* strip, const float* inj, int inj_shot_stride,
                    int gz, int k, int ns, int hs, int nxl, int hz, int nzl,
@@ -75,7 +76,7 @@ int block2_bwd_run(const float* ps, const float* pps, const float* pr,
       ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out, snap0, snap1, img,
       v2m, v2_shot_stride, xramp, zfac, strip, inj, inj_shot_stride, gz, k,
       ns, Dims<true>{hs, nxl, hz, nzl}, pfdc::make_coefs(order / 2, cx, cz),
-      parts, static_cast<cudaStream_t>(stream)};
+      parts, scratch, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(pfdc::dispatch_half(order, run));
 }
 
@@ -167,13 +168,16 @@ extern "C" int pfdc_block2_fwd_mma_run(const float* p, const float* pp,
 // forward snapshots) are given for the first block only, else NULL. The
 // trace rows are added at tile row gz (-1: none, and inj may be NULL);
 // inj points at the block's first trace row of shot 0: row i of shot s is
-// inj[s * inj_shot_stride + i * nxw + x]. Returns a cudaError_t.
+// inj[s * inj_shot_stride + i * nxw + x]. For k > 4, scratch holds the
+// state and image delta between the block's two passes (4 * ns * nxw * nzw
+// + ns * nxl * nzl floats; may be NULL for k <= 4). Returns a cudaError_t.
 extern "C" int pfdc_block2_bwd_run(const float* ps, const float* pps,
                                    const float* pr, const float* ppr,
                                    float* ps_out, float* pps_out,
                                    float* pr_out, float* ppr_out,
                                    const float* snap0, const float* snap1,
-                                   float* img, const float* v2m,
+                                   float* img, float* scratch,
+                                   const float* v2m,
                                    int v2_shot_stride, const float* xramp,
                                    const float* zfac, const float* strip,
                                    const float* inj, int inj_shot_stride,
@@ -182,9 +186,9 @@ extern "C" int pfdc_block2_bwd_run(const float* ps, const float* pps,
                                    const float* cx, const float* cz,
                                    void* stream) {
   return block2_bwd_run(ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out,
-                        snap0, snap1, img, v2m, v2_shot_stride, xramp, zfac,
-                        strip, inj, inj_shot_stride, gz, k, ns, hs, nxl, hz,
-                        nzl, order, 0, cx, cz, stream);
+                        snap0, snap1, img, scratch, v2m, v2_shot_stride, xramp,
+                        zfac, strip, inj, inj_shot_stride, gz, k, ns, hs, nxl,
+                        hz, nzl, order, 0, cx, cz, stream);
 }
 
 // The same block with the x taps in parts (2 or 3) bf16 splits:
@@ -207,7 +211,7 @@ extern "C" int pfdc_block2_bwd_mma_run(const float* ps, const float* pps,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return block2_bwd_run(ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out,
-                        snap0, snap1, img, v2m, v2_shot_stride, xramp, zfac,
-                        strip, inj, inj_shot_stride, gz, k, ns, hs, nxl, hz,
-                        nzl, order, parts, cx, cz, stream);
+                        snap0, snap1, img, nullptr, v2m, v2_shot_stride, xramp,
+                        zfac, strip, inj, inj_shot_stride, gz, k, ns, hs, nxl,
+                        hz, nzl, order, parts, cx, cz, stream);
 }

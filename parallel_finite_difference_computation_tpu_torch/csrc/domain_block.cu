@@ -55,7 +55,8 @@ int block_fwd_run(const float* p, const float* pp, float* p_out,
 int block_bwd_run(const float* ps, const float* pps, const float* pr,
                   const float* ppr, float* ps_out, float* pps_out,
                   float* pr_out, float* ppr_out, const float* snap0,
-                  const float* snap1, float* img, const float* v2m,
+                  const float* snap1, float* img, float* scratch,
+                  const float* v2m,
                   int v2_shot_stride, const float* xramp, const float* zfac,
                   const float* strip, const float* inj, int inj_shot_stride,
                   int gz, int k, int ns, int hs, int nxl, int nze, int order,
@@ -68,7 +69,7 @@ int block_bwd_run(const float* ps, const float* pps, const float* pr,
       ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out, snap0, snap1, img,
       v2m, v2_shot_stride, xramp, zfac, strip, inj, inj_shot_stride, gz, k,
       ns, Dims<false>{hs, nxl, 0, nze}, pfdc::make_coefs(order / 2, cx, cz),
-      parts, static_cast<cudaStream_t>(stream)};
+      parts, scratch, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(pfdc::dispatch_half(order, run));
 }
 
@@ -154,13 +155,16 @@ extern "C" int pfdc_block_fwd_mma_run(const float* p, const float* pp,
 // delta into img (ns, nxl, nze) in place. snap0/snap1 (the slabs of the
 // forward snapshots) are given for the first block only, else NULL. inj
 // points at the block's first trace row of shot 0: row i of shot s is
-// inj[s * inj_shot_stride + i * nxw + x]. Returns a cudaError_t.
+// inj[s * inj_shot_stride + i * nxw + x]. For k > 4, scratch holds the
+// state and image delta between the block's two passes (4 * ns * nxw * nze
+// + ns * nxl * nze floats; may be NULL for k <= 4). Returns a cudaError_t.
 extern "C" int pfdc_block_bwd_run(const float* ps, const float* pps,
                                   const float* pr, const float* ppr,
                                   float* ps_out, float* pps_out,
                                   float* pr_out, float* ppr_out,
                                   const float* snap0, const float* snap1,
-                                  float* img, const float* v2m,
+                                  float* img, float* scratch,
+                                  const float* v2m,
                                   int v2_shot_stride, const float* xramp,
                                   const float* zfac, const float* strip,
                                   const float* inj, int inj_shot_stride,
@@ -168,9 +172,9 @@ extern "C" int pfdc_block_bwd_run(const float* ps, const float* pps,
                                   int nze, int order, const float* cx,
                                   const float* cz, void* stream) {
   return block_bwd_run(ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out,
-                       snap0, snap1, img, v2m, v2_shot_stride, xramp, zfac,
-                       strip, inj, inj_shot_stride, gz, k, ns, hs, nxl, nze,
-                       order, 0, cx, cz, stream);
+                       snap0, snap1, img, scratch, v2m, v2_shot_stride, xramp,
+                       zfac, strip, inj, inj_shot_stride, gz, k, ns, hs, nxl,
+                       nze, order, 0, cx, cz, stream);
 }
 
 // The same block with the x taps in parts (2 or 3) bf16 splits:
@@ -192,7 +196,7 @@ extern "C" int pfdc_block_bwd_mma_run(const float* ps, const float* pps,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return block_bwd_run(ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out,
-                       snap0, snap1, img, v2m, v2_shot_stride, xramp, zfac,
-                       strip, inj, inj_shot_stride, gz, k, ns, hs, nxl, nze,
-                       order, parts, cx, cz, stream);
+                       snap0, snap1, img, nullptr, v2m, v2_shot_stride, xramp,
+                       zfac, strip, inj, inj_shot_stride, gz, k, ns, hs, nxl,
+                       nze, order, parts, cx, cz, stream);
 }

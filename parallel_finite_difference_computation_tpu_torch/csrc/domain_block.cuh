@@ -34,7 +34,10 @@
 // What bounds it on an H100: per block the pass reads the staged fields
 // and v2m once and writes the owned cells once; what is left is shared-
 // memory and ALU work on a tile (32 + 2kh)(64 + 2kh) for 32 x 64 owned
-// cells (block_bwd: 32 x 32, to fit four fields at order 10 and K = 8).
+// cells. block_bwd and block2_bwd run the strip body of bwd_strip.cuh
+// (shared with kstep_gpu_bwd): 32 x 64 owned cells where the K*h halo
+// leaves room (order 8 and K = 8: 205 KB), a smaller shape where it does
+// not (32 x 32 at order 10 and K = 8).
 //
 // Per step the operations, their order and rounding are the plain block
 // functions' (parallel/domain_kernels.py) and the TPU kernels': the older
@@ -71,12 +74,12 @@
 // this header builds its own instances.
 #pragma once
 
+#include "bwd_strip.cuh"
 #include "kstep.cuh"
 
 namespace {
 
 constexpr int kModTX = 32, kModTZ = 64;   // block_mod, block_fwd (+ _mma)
-constexpr int kBwdTX = 32, kBwdTZ = 32;   // block_bwd
 constexpr int kBwdMmaTX = 16, kBwdMmaTZ = 32;   // block_bwd_mma
 
 // A tile's owned size and halos. kZ: an (x, z) tile, with a z halo and z
@@ -354,19 +357,15 @@ __device__ __forceinline__ void block_fwd_body(
   store_tile(pp_out + s * plane, sy, t, d);
 }
 
-// The owned cells of block_bwd (32 x 32) and of block_bwd_mma (16 x 32).
-template <int P>
-using BwdTile = std::conditional_t<P == 0, BlockTile<kBwdTX, kBwdTZ>,
-                                   BlockTile<kBwdMmaTX, kBwdMmaTZ>>;
-
 // Per step, from the state (ps, pps, pr, ppr) (fd-code.cu:302-333): the
 // source s = (2ps - pps) + v*lap(ps), untapered, or with snap0/snap1 given
 // (the first block) the snapshot snap1 at step 0 and snap0 at step 1; the
 // receiver t = pr*m (in place, then a barrier), u = (2t - ppr*m) +
 // v*lap(t), plus trace row k at row gz_rec (K5); the block's image delta
-// += s*u on the owned cells (K6), added to img at the end. With P > 0 the
-// source step and the receiver step each follow their own x product, in
-// two passes over the cells.
+// += s*u on the owned cells (K6), added to img at the end: block_bwd_mma's
+// body (P > 0; block_bwd runs bwd_strip.cuh's), where the source step and
+// the receiver step each follow their own x product, in two passes over
+// the cells.
 template <int H, bool kZ, int P>
 __device__ __forceinline__ void block_bwd_body(
     float* smem, const float* __restrict__ ps_in,
@@ -380,7 +379,8 @@ __device__ __forceinline__ void block_bwd_body(
     const float* __restrict__ strip, const float* __restrict__ inj,
     int inj_shot_stride, int gz_rec, int k_steps, const Dims<kZ>& d,
     const pfdc::Coefs& c) {
-  using T = BwdTile<P>;
+  static_assert(P > 0, "block_bwd runs bwd_strip");
+  using T = BlockTile<kBwdMmaTX, kBwdMmaTZ>;
   const int nxw = d.nxw(), nzw = d.nzw();
   const T t(k_steps * H, d);
   const int n = t.cells();
@@ -411,74 +411,41 @@ __device__ __forceinline__ void block_bwd_body(
       spr[j] = spr[j] * pfdc::taper_at(xramp, zfac, strip, gx, gz);
     });
     __syncthreads();
-    if constexpr (P == 0) {
-      for_cells(t, (k + 1) * H, nxw, nzw,
-                [&](int lx, int lz, int gx, int gz) {
-        const int j = lx * t.sz + lz;
-        const size_t q = static_cast<size_t>(gx) * nzw + gz;
-        const bool interior = pfdc::in_interior(gx, gz, H, nxw, nzw);
-        const float vq = v[q];
-        float us;
-        if (seed && k < 2) {
-          us = (k == 0 ? snap1 : snap0)[s * plane + q];
-        } else {
-          const float lap_s =
-              interior ? pfdc::laplacian<H, false>(sps, nullptr, j, t.sz, c)
-                       : 0.0f;
-          us = (2.0f * sps[j] - spps[j]) + vq * lap_s;
-        }
-        spps[j] = us;
-        const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
-        const float lap_r =
-            interior ? pfdc::laplacian<H, false>(spr, nullptr, j, t.sz, c)
-                     : 0.0f;
-        float ur = (2.0f * spr[j] - sppr[j] * m) + vq * lap_r;
-        if (gz == gz_rec) {
-          ur = ur + inj_s[static_cast<size_t>(k) * nxw + gx];
-        }
-        sppr[j] = ur;
-        if (t.owned(lx, lz, gx, gz, d)) {
-          float& acc = simg[(lx - t.r) * T::kTZ + (lz - t.r)];
-          acc = acc + us * ur;
-        }
-      });
-    } else {
-      // the source step after the x product of sps, then the receiver
-      // step and the image term after that of spr, through one buffer
-      const int lo = (k + 1) * H;
-      if (!(seed && k < 2)) x_band<H, P>(xb, sps, t, lo, band);
-      for_cells(t, lo, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
-        const int j = lx * t.sz + lz;
-        const size_t q = static_cast<size_t>(gx) * nzw + gz;
-        if (seed && k < 2) {
-          spps[j] = (k == 0 ? snap1 : snap0)[s * plane + q];
-        } else {
-          const float lap_s = pfdc::in_interior(gx, gz, H, nxw, nzw)
-                                  ? block_lap<H, P>(sps, xb, j, t.sz, c)
-                                  : 0.0f;
-          spps[j] = (2.0f * sps[j] - spps[j]) + v[q] * lap_s;
-        }
-      });
-      __syncthreads();   // every read of xb is done
-      x_band<H, P>(xb, spr, t, lo, band);
-      for_cells(t, lo, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
-        const int j = lx * t.sz + lz;
-        const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
-        const float lap_r = pfdc::in_interior(gx, gz, H, nxw, nzw)
-                                ? block_lap<H, P>(spr, xb, j, t.sz, c)
+    // the source step after the x product of sps, then the receiver
+    // step and the image term after that of spr, through one buffer
+    const int lo = (k + 1) * H;
+    if (!(seed && k < 2)) x_band<H, P>(xb, sps, t, lo, band);
+    for_cells(t, lo, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
+      const int j = lx * t.sz + lz;
+      const size_t q = static_cast<size_t>(gx) * nzw + gz;
+      if (seed && k < 2) {
+        spps[j] = (k == 0 ? snap1 : snap0)[s * plane + q];
+      } else {
+        const float lap_s = pfdc::in_interior(gx, gz, H, nxw, nzw)
+                                ? block_lap<H, P>(sps, xb, j, t.sz, c)
                                 : 0.0f;
-        float ur = (2.0f * spr[j] - sppr[j] * m) +
-                   v[static_cast<size_t>(gx) * nzw + gz] * lap_r;
-        if (gz == gz_rec) {
-          ur = ur + inj_s[static_cast<size_t>(k) * nxw + gx];
-        }
-        sppr[j] = ur;
-        if (t.owned(lx, lz, gx, gz, d)) {
-          float& acc = simg[(lx - t.r) * T::kTZ + (lz - t.r)];
-          acc = acc + spps[j] * ur;
-        }
-      });
-    }
+        spps[j] = (2.0f * sps[j] - spps[j]) + v[q] * lap_s;
+      }
+    });
+    __syncthreads();   // every read of xb is done
+    x_band<H, P>(xb, spr, t, lo, band);
+    for_cells(t, lo, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
+      const int j = lx * t.sz + lz;
+      const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
+      const float lap_r = pfdc::in_interior(gx, gz, H, nxw, nzw)
+                              ? block_lap<H, P>(spr, xb, j, t.sz, c)
+                              : 0.0f;
+      float ur = (2.0f * spr[j] - sppr[j] * m) +
+                 v[static_cast<size_t>(gx) * nzw + gz] * lap_r;
+      if (gz == gz_rec) {
+        ur = ur + inj_s[static_cast<size_t>(k) * nxw + gx];
+      }
+      sppr[j] = ur;
+      if (t.owned(lx, lz, gx, gz, d)) {
+        float& acc = simg[(lx - t.r) * T::kTZ + (lz - t.r)];
+        acc = acc + spps[j] * ur;
+      }
+    });
     float* tmp = sps;
     sps = spps;
     spps = tmp;
@@ -569,30 +536,122 @@ __global__ void __launch_bounds__(pfdc::kTileThreads)
                            amps, k_steps, d, c);
 }
 
+// block_bwd takes its K steps in passes of at most kBwdPassSteps, so that
+// the staged halo stays that many steps deep (K = 8 at order 8: two passes
+// of 4, a 16-cell halo and two blocks an SM, where one pass of 8 staged a
+// 32-cell halo, one block an SM, and computed 2.9x the owned cells): the
+// first pass writes its fields into scratch buffers over the owned cells
+// and the margin the second one stages, and the block's image delta, from
+// 0, into a scratch image; the second pass sums on from it and adds it to
+// the running image once, so the sums are the one-pass body's.
+constexpr int kBwdPassSteps = 4;
+
+// One pass of block_bwd: steps k0 .. k0 + k_steps - 1 of the block, the
+// margin (ex, ez) around the owned cells that it writes too, and where the
+// image sum starts (nullptr: from 0) and ends (added to img_end, or
+// stored).
+struct BwdPass {
+  int k0, k_steps, ex, ez;
+  const float* img_start;
+  float* img_end;
+  bool add;
+};
+
+// block_bwd's site (bwd_strip.cuh): one shot's tile buffers, (nxw, nzw);
+// the pass's output rectangle, the owned cells and its margin; the image
+// delta summed on the owned cells; the snapshots seed steps 0 and 1 of the
+// first block; the trace row is injected on every cell of row gz_rec.
+template <bool kZ>
+struct BlockBwdSite {
+  const float* ps;
+  const float* pps;
+  const float* pr;
+  const float* ppr;
+  float* ps_out;
+  float* pps_out;
+  float* pr_out;
+  float* ppr_out;
+  const float* snap0;
+  const float* snap1;
+  const float* img_start;
+  float* img_end;
+  bool add;
+  const float* v2m;
+  const float* xramp;
+  const float* zfac;
+  const float* strip;
+  const float* inj;
+  int gz_rec, nxf, nzf, ex, ez;
+  Dims<kZ> d;
+
+  __device__ float v(int gx, int gz) const {
+    return __ldg(v2m + static_cast<size_t>(gx) * nzf + gz);
+  }
+  __device__ bool seeded(int k) const { return snap0 != nullptr && k < 2; }
+  __device__ float snapshot(int k, int gx, int gz) const {
+    return (k == 0 ? snap1 : snap0)[static_cast<size_t>(gx) * nzf + gz];
+  }
+  __device__ float inject(int k, int gx, int gz, float u) const {
+    return gz == gz_rec ? u + inj[static_cast<size_t>(k) * nxf + gx] : u;
+  }
+  __device__ bool in_rect(int gx, int gz, int mx, int mz) const {
+    return gx >= d.hs - mx && gx < d.hs + d.nxl + mx &&
+           (!kZ || (gz >= d.hz() - mz && gz < d.hz() + d.nzl + mz));
+  }
+  __device__ bool imaged(int gx, int gz) const {
+    return in_rect(gx, gz, 0, 0);
+  }
+  __device__ bool stored(int gx, int gz) const {
+    return in_rect(gx, gz, ex, ez);
+  }
+  __device__ size_t image_index(int gx, int gz) const {
+    return static_cast<size_t>(gx - d.hs) * d.nzl + (gz - d.hz());
+  }
+  __device__ float image_start(int gx, int gz) const {
+    return img_start && imaged(gx, gz) ? img_start[image_index(gx, gz)]
+                                       : 0.0f;
+  }
+  __device__ void image_end(int gx, int gz, float acc) const {
+    float& out = img_end[image_index(gx, gz)];
+    out = add ? out + acc : acc;
+  }
+};
+
 template <int H, bool kZ>
-__global__ void block_bwd(const float* __restrict__ ps_in,
-                          const float* __restrict__ pps_in,
-                          const float* __restrict__ pr_in,
-                          const float* __restrict__ ppr_in,
-                          float* __restrict__ ps_out,
-                          float* __restrict__ pps_out,
-                          float* __restrict__ pr_out,
-                          float* __restrict__ ppr_out,
-                          const float* __restrict__ snap0,
-                          const float* __restrict__ snap1,
-                          float* __restrict__ img,
-                          const float* __restrict__ v2m, int v2_shot_stride,
-                          const float* __restrict__ xramp,
-                          const float* __restrict__ zfac,
-                          const float* __restrict__ strip,
-                          const float* __restrict__ inj, int inj_shot_stride,
-                          int gz_rec, int k_steps, Dims<kZ> d,
-                          pfdc::Coefs c) {
+__global__ void __launch_bounds__(pfdc::kStripThreads, 2)
+    block_bwd(const float* __restrict__ ps_in,
+              const float* __restrict__ pps_in,
+              const float* __restrict__ pr_in,
+              const float* __restrict__ ppr_in, float* __restrict__ ps_out,
+              float* __restrict__ pps_out, float* __restrict__ pr_out,
+              float* __restrict__ ppr_out, const float* __restrict__ snap0,
+              const float* __restrict__ snap1, const float* __restrict__ v2m,
+              int v2_shot_stride, const float* __restrict__ xramp,
+              const float* __restrict__ zfac,
+              const float* __restrict__ strip,
+              const float* __restrict__ inj, int inj_shot_stride, int gz_rec,
+              Dims<kZ> d, pfdc::StripShape shape, BwdPass pass,
+              pfdc::Coefs c) {
   extern __shared__ float smem[];
-  block_bwd_body<H, kZ, 0>(smem, ps_in, pps_in, pr_in, ppr_in, ps_out,
-                           pps_out, pr_out, ppr_out, snap0, snap1, img, v2m,
-                           v2_shot_stride, xramp, zfac, strip, inj,
-                           inj_shot_stride, gz_rec, k_steps, d, c);
+  const int s = blockIdx.z;
+  const size_t plane = d.plane();
+  const size_t image = static_cast<size_t>(d.nxl) * d.nzl;
+  const bool seed = snap0 != nullptr;
+  const BlockBwdSite<kZ> site{
+      ps_in + s * plane,  pps_in + s * plane, pr_in + s * plane,
+      ppr_in + s * plane, ps_out + s * plane, pps_out + s * plane,
+      pr_out + s * plane, ppr_out + s * plane,
+      seed ? snap0 + s * plane : nullptr, seed ? snap1 + s * plane : nullptr,
+      pass.img_start ? pass.img_start + s * image : nullptr,
+      pass.img_end + s * image, pass.add,
+      v2m + s * static_cast<size_t>(v2_shot_stride), xramp, zfac, strip,
+      inj + s * static_cast<size_t>(inj_shot_stride), gz_rec, d.nxw(),
+      d.nzw(), pass.ex, pass.ez, d};
+  const pfdc::StripTile t(
+      pass.k_steps * H, shape,
+      d.hs - pass.ex + static_cast<int>(blockIdx.y) * shape.tx,
+      d.hz() - pass.ez + static_cast<int>(blockIdx.x) * shape.tz);
+  pfdc::bwd_strip<H>(smem, site, t, pass.k0, pass.k_steps, c);
 }
 
 template <int H, bool kZ, int P>
@@ -729,23 +788,65 @@ struct BlockBwdRun {
   Dims<kZ> d;
   pfdc::Coefs c;
   int parts;
+  // block_bwd with k > kBwdPassSteps: the four fields and the image delta
+  // between its passes, 4 * ns * plane + ns * nxl * nzl floats
+  float* scratch;
   cudaStream_t stream;
+
+  // One pass of block_bwd from the fields (a, b, c_, d_) into the out
+  // buffers.
+  template <int H>
+  cudaError_t bwd_pass(const float* a, const float* b, const float* c_,
+                       const float* d_, float* a_out, float* b_out,
+                       float* c_out, float* d_out, BwdPass pass) const {
+    const pfdc::StripShape shape = pfdc::strip_shape(pass.k_steps * H);
+    if (shape.tx == 0) return cudaErrorInvalidValue;
+    const size_t bytes = pfdc::strip_bytes(shape, pass.k_steps * H);
+    const cudaError_t e = pfdc::allow_smem(block_bwd<H, kZ>, bytes);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((d.nzl + 2 * pass.ez + shape.tz - 1) / shape.tz,
+                    (d.nxl + 2 * pass.ex + shape.tx - 1) / shape.tx, ns);
+    const dim3 block(pfdc::kStripThreads);
+    block_bwd<H, kZ><<<grid, block, bytes, stream>>>(
+        a, b, c_, d_, a_out, b_out, c_out, d_out, snap0, snap1, v2m,
+        v2_shot_stride, xramp, zfac, strip, inj, inj_shot_stride, gz, d,
+        shape, pass, c);
+    return cudaGetLastError();
+  }
 
   template <int H, int P>
   cudaError_t launch() const {
     if (!d.fits(k * H)) return cudaErrorInvalidValue;
-    const size_t bytes = P ? tile_bytes<kBwdMmaTX, kBwdMmaTZ>(5, k * H, true)
-                           : tile_bytes<kBwdTX, kBwdTZ>(4, k * H, true);
-    auto kern = block_bwd<H, kZ>;   // P > 0: its split twin
-    if constexpr (P > 0) kern = block_bwd_mma<H, kZ, P>;
-    const cudaError_t e = pfdc::allow_smem(kern, bytes);
-    if (e != cudaSuccess) return e;
-    const dim3 grid = tile_grid<BwdTile<P>::kTX, BwdTile<P>::kTZ>(ns, d);
-    const dim3 block = pfdc::tile_block();
-    kern<<<grid, block, bytes, stream>>>(
-        ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out, snap0, snap1, img,
-        v2m, v2_shot_stride, xramp, zfac, strip, inj, inj_shot_stride, gz, k,
-        d, c);
+    if constexpr (P == 0) {
+      if (k <= kBwdPassSteps) {
+        return bwd_pass<H>(ps, pps, pr, ppr, ps_out, pps_out, pr_out,
+                           ppr_out, {0, k, 0, 0, nullptr, img, true});
+      }
+      // two passes through the scratch fields and image delta
+      if (scratch == nullptr) return cudaErrorInvalidValue;
+      const int k1 = (k + 1) / 2, k2 = k - k1;
+      const size_t n = ns * d.plane();
+      float* mid[4] = {scratch, scratch + n, scratch + 2 * n,
+                       scratch + 3 * n};
+      float* delta = scratch + 4 * n;
+      const cudaError_t e = bwd_pass<H>(
+          ps, pps, pr, ppr, mid[0], mid[1], mid[2], mid[3],
+          {0, k1, d.hs ? k2 * H : 0, d.hz() ? k2 * H : 0, nullptr, delta,
+           false});
+      if (e != cudaSuccess) return e;
+      return bwd_pass<H>(mid[0], mid[1], mid[2], mid[3], ps_out, pps_out,
+                         pr_out, ppr_out, {k1, k2, 0, 0, delta, img, true});
+    } else {
+      const size_t bytes = tile_bytes<kBwdMmaTX, kBwdMmaTZ>(5, k * H, true);
+      const cudaError_t e = pfdc::allow_smem(block_bwd_mma<H, kZ, P>, bytes);
+      if (e != cudaSuccess) return e;
+      const dim3 grid = tile_grid<kBwdMmaTX, kBwdMmaTZ>(ns, d);
+      const dim3 block = pfdc::tile_block();
+      block_bwd_mma<H, kZ, P><<<grid, block, bytes, stream>>>(
+          ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out, snap0, snap1,
+          img, v2m, v2_shot_stride, xramp, zfac, strip, inj,
+          inj_shot_stride, gz, k, d, c);
+    }
     return cudaGetLastError();
   }
 

@@ -36,6 +36,7 @@
 void pfdc_shim_mma(float (&d)[4], const uint32_t (&a)[4],
                    const uint32_t (&b)[2]);
 void pfdc_shim_cp_async16(void* dst, const void* src, bool valid);
+void pfdc_shim_cp_async4(void* dst, const void* src, bool valid);
 #endif
 
 namespace pfdc {
@@ -188,8 +189,22 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 #endif
 }
 
-// Waits for every cp_async16 of this thread; a __syncthreads() must follow
-// before other threads read the tile.
+// 4 bytes from global to shared memory without a register, or 4 zero
+// bytes where !valid (src is then not read, but must be a valid address).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+#ifdef PFDC_CPU_SHIM
+  pfdc_shim_cp_async4(dst, src, valid);
+#else
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(n));
+#endif
+}
+
+// Waits for every cp_async16 and cp_async4 of this thread; a
+// __syncthreads() must follow before other threads read the tile.
 __device__ __forceinline__ void cp_async_wait_all() {
 #ifndef PFDC_CPU_SHIM
   asm volatile("cp.async.commit_group;\n" ::);

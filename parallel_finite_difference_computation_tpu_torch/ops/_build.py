@@ -141,12 +141,12 @@ _SIGNATURES = {
     "pfdc_block_fwd_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
                            _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # pfdc_block_bwd_run(ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out,
-    #                    snap0, snap1, img, v2m, v2_shot_stride, xramp, zfac,
-    #                    strip, inj, inj_shot_stride, gz, k, ns, hs, nxl, nze,
-    #                    order, cx, cz, stream)
+    #                    snap0, snap1, img, scratch, v2m, v2_shot_stride,
+    #                    xramp, zfac, strip, inj, inj_shot_stride, gz, k, ns,
+    #                    hs, nxl, nze, order, cx, cz, stream)
     "pfdc_block_bwd_run": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _P, _P, _P],
+                           _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _P, _P, _P],
     # pfdc_block2_mod_run(p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp,
     #                     zfac, strip, src, r, sz, amps, k, rec, gz, ns, hs,
     #                     nxl, hz, nzl, order, cx, cz, stream)
@@ -159,14 +159,15 @@ _SIGNATURES = {
     "pfdc_block2_fwd_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
                             _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # pfdc_block2_bwd_run(ps, pps, pr, ppr, ps_out, pps_out, pr_out,
-    #                     ppr_out, snap0, snap1, img, v2m, v2_shot_stride,
-    #                     xramp, zfac, strip, inj, inj_shot_stride, gz, k,
-    #                     ns, hs, nxl, hz, nzl, order, cx, cz, stream)
+    #                     ppr_out, snap0, snap1, img, scratch, v2m,
+    #                     v2_shot_stride, xramp, zfac, strip, inj,
+    #                     inj_shot_stride, gz, k, ns, hs, nxl, hz, nzl, order,
+    #                     cx, cz, stream)
     "pfdc_block2_bwd_run": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _P, _P, _P],
+                            _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _P, _P, _P],
     # pfdc_block{,2}_{mod,fwd,bwd}_mma_run: the exact entry points'
-    # arguments with parts after order
+    # arguments with parts after order (the bwd ones without scratch)
     "pfdc_block_mod_mma_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
                                _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                                _P, _P, _P],

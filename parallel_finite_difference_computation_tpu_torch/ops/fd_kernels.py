@@ -58,6 +58,8 @@ from ..solver import FDContext, host_wavelet, shot_positions
 from . import stencil
 
 __all__ = ["LAUNCHES", "reset_launches", "MXU3_NT_MAX", "MXU6_NT_MAX",
+           "SMEM_BYTES", "STAGING_KERNELS", "BWD_PASS_STEPS", "bwd_passes",
+           "smem_bytes", "largest_fitting_k",
            "resolve_lap_impl", "lap_parts",
            "forward_modeling_cuda", "fd_forward_cuda", "fd_back_cuda",
            "rtm_snapshot_cuda", "backward_recorded_cuda",
@@ -166,6 +168,77 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
 MAX_ORDER = 16
 # A block's dynamic shared memory on an H100 (kMaxSmemBytes, csrc/kstep.cuh).
 SMEM_BYTES = 232448
+# The staging kernels' owned cells a block (x, z): the K-step kernels'
+# tile (kTileX, kTileZ, csrc/kstep.cuh; block_mod and block_fwd: kModTX,
+# kModTZ, csrc/domain_block.cuh), block_bwd_mma's (kBwdMmaTX, kBwdMmaTZ),
+# and the exact backward kernels' shapes, the first that fits taken
+# (kStripShapes, csrc/bwd_strip.cuh).
+_TILE = (32, 64)
+_BWD_MMA_TILE = (16, 32)
+_STRIP_SHAPES = ((32, 64), (32, 32), (16, 32), (16, 16))
+# The most steps a pass of the exact block_bwd takes (kBwdPassSteps).
+BWD_PASS_STEPS = 4
+# Staged fields (exact, split) of the kernels that stage a tile of a K*h
+# halo, and whether the owned image is staged too.
+_STAGED = {"kstep_mod": (_TILE, 3, 4, False),
+           "kstep_gpu_fwd": (_TILE, 3, 4, False),
+           "kstep_gpu_bwd": (_TILE, None, 7, True),
+           "block_mod": (_TILE, 2, 3, False),
+           "block_fwd": (_TILE, 2, 3, False),
+           "block_bwd": (_BWD_MMA_TILE, None, 5, True)}
+STAGING_KERNELS = tuple(_STAGED)
+
+
+def _tile_bytes(tile, r: int, fields: int, image: bool) -> int:
+    tx, tz = tile
+    return 4 * (fields * (tx + 2 * r) * (tz + 2 * r) + (tx * tz if image
+                                                        else 0))
+
+
+def _strip_bytes(shape, r: int) -> int:
+    """bwd_strip.cuh's strip_bytes: four staged fields, the owned image and
+    the x ramp of the tile's rows."""
+    tx, tz = shape
+    return _tile_bytes(shape, r, 4, True) + 4 * (tx + 2 * r)
+
+
+def bwd_passes(k: int) -> int:
+    """Launches of the exact ``block_bwd`` for a block of ``k`` steps: one
+    pass up to ``BWD_PASS_STEPS``, else two (kBwdPassSteps,
+    csrc/domain_block.cuh)."""
+    return 1 if k <= BWD_PASS_STEPS else 2
+
+
+def smem_bytes(kernel: str, order: int, k: int, parts: int = 0) -> int:
+    """Dynamic shared memory of one block of the staging kernel ``kernel``
+    (one of ``STAGING_KERNELS``; ``block2_*`` as ``block_*``, ``*_mma`` as
+    ``parts`` > 0) at ``order`` and K = ``k`` steps (a halo of k*h cells),
+    as its launcher sizes it. The exact ``kstep_gpu_bwd`` and ``block_bwd``
+    take the first of their shapes that fits ``SMEM_BYTES``; where none
+    does, the smallest's bytes (refused); the exact ``block_bwd`` stages
+    the steps of its longer pass only (:func:`bwd_passes`)."""
+    kernel = kernel.replace("block2_", "block_").removesuffix("_mma")
+    tile, exact, split, image = _STAGED[kernel]
+    if kernel == "block_bwd" and not parts and bwd_passes(k) > 1:
+        k = (k + 1) // 2
+    r = k * (order // 2)
+    if parts:
+        return _tile_bytes(tile, r, split, image)
+    if exact is None:
+        sizes = [_strip_bytes(s, r) for s in _STRIP_SHAPES]
+        return next((b for b in sizes if b <= SMEM_BYTES), sizes[-1])
+    return _tile_bytes(tile, r, exact, image)
+
+
+def largest_fitting_k(kernels, order: int, k_max: int, parts: int = 0) -> int:
+    """The largest K <= ``k_max`` whose blocks of every one of ``kernels``
+    fit a block's shared memory (:func:`smem_bytes`), at least 1: the
+    pipelines' and makers' default block size."""
+    for k in range(k_max, 1, -1):
+        if all(smem_bytes(n, order, k, parts) <= SMEM_BYTES
+               for n in kernels):
+            return k
+    return 1
 _INVALID_VALUE = 1             # cudaErrorInvalidValue
 
 

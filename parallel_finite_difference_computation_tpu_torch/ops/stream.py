@@ -87,10 +87,11 @@ from .. import numerics, solver
 from ..solver import FDContext, host_wavelet, shot_positions
 from .fd_kernels import (_check, _check_gz, _check_order, _check_v2,
                          _check_window, _coef_args, _dev_f32, _on_cuda,
-                         _raise_on, _stream, lap_parts)
+                         _raise_on, _stream, lap_parts, largest_fitting_k)
 from .stencil import receiver_x0
 
-__all__ = ["LAUNCHES", "reset_launches", "check_block_k", "Consts",
+__all__ = ["LAUNCHES", "reset_launches", "check_block_k", "TILED_BLOCK_K",
+           "tiled_block_k", "Consts",
            "prepare", "fd_step_cuda", "fd_update_cuda", "mod_kstep_cuda",
            "fd_forward_kstep_cuda", "fd_back_kstep_cuda", "fd_step_gpu_cuda"]
 
@@ -102,6 +103,9 @@ LAUNCHES = {"fd_step": 0, "fd_update": 0, "kstep_mod": 0,
 
 # The most steps a pass takes (kMaxSteps of csrc/kstep.cuh).
 MAX_STEPS = 8
+# The large-grid tier's K a pass by default: this, or the largest K below
+# it whose tiles fit a block's shared memory (tiled_block_k).
+TILED_BLOCK_K = 4
 
 
 def reset_launches() -> None:
@@ -116,6 +120,15 @@ def check_block_k(block_k) -> int:
     if not 1 <= K <= MAX_STEPS:
         raise ValueError(f"block_k must be in [1, {MAX_STEPS}], got {K}")
     return K
+
+
+def tiled_block_k(ctx: FDContext, kernels, lap_impl=None) -> int:
+    """The large-grid tier's default K for a run of ``kernels`` (names of
+    :func:`.fd_kernels.smem_bytes`) under ``lap_impl``: ``TILED_BLOCK_K``,
+    or the largest K below it whose tiles fit a block's shared memory
+    (above order 10 only: every tile of K = 4 fits up to there)."""
+    return largest_fitting_k(kernels, ctx.order, TILED_BLOCK_K,
+                             lap_parts(lap_impl, ctx))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

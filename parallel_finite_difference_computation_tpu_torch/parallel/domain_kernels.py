@@ -74,7 +74,7 @@ import torch
 from .. import numerics
 from ..ops.fd_kernels import (_check_gz, _check_order, _check_window,
                               _coef_args, _on_cuda, _raise_on, _stream,
-                              lap_parts)
+                              bwd_passes, lap_parts)
 from ..ops.stencil import laplacian, laplacian_mxu
 from ..ops.stream import MAX_STEPS
 from ..solver import FDContext, host_wavelet, shot_positions
@@ -589,14 +589,20 @@ def launch_bwd(name: str, launches: dict, c: Tile, ps, pps, pr, ppr, img,
                                                  snaps[1].data_ptr())
     inj, inj_stride = ((None, 0) if c.inj is None
                        else (c.inj[:, it0].data_ptr(), c.inj.stride(0)))
+    passes, scratch = 1, ()
+    if not parts:       # the exact kernel's state between its two passes
+        passes = bwd_passes(k)
+        buf = (torch.empty(4 * ns * c.nxw * c.nzw + ns * c.nxl * c.nzl,
+                           device=ps.device) if passes > 1 else None)
+        scratch = (None if buf is None else buf.data_ptr(),)
     with torch.cuda.device(ps.device):
         rc = run(ps.data_ptr(), pps.data_ptr(), pr.data_ptr(), ppr.data_ptr(),
                  *(o.data_ptr() for o in outs), s0, s1, img.data_ptr(),
-                 c.v2m.data_ptr(), c.v2_stride, xr.data_ptr(), zf.data_ptr(),
-                 st.data_ptr(), inj, inj_stride, c.gz, k, ns, c.hs, c.nxl,
-                 *dims, *c.coef_ptrs, _stream(ps.device))
+                 *scratch, c.v2m.data_ptr(), c.v2_stride, xr.data_ptr(),
+                 zf.data_ptr(), st.data_ptr(), inj, inj_stride, c.gz, k, ns,
+                 c.hs, c.nxl, *dims, *c.coef_ptrs, _stream(ps.device))
     _raise_on(rc, name, c.ctx.order, k)
-    launches[name] += 1
+    launches[name] += passes
     return (*outs, img)
 
 

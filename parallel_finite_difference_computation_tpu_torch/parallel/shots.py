@@ -24,6 +24,7 @@ import torch
 
 from ..ops.fd_kernels import (forward_modeling_cuda, rtm_full_cuda,
                               rtm_snapshot_cuda)
+from ..ops.stream import TILED_BLOCK_K, tiled_block_k
 from ..solver import (forward_modeling_tiled, host_wavelet,
                       rtm_shot_full_tiled, rtm_shot_snapshot_tiled,
                       shot_positions)
@@ -81,10 +82,15 @@ def make_sharded_modeling_cuda(ctx, mesh, sz: int, gz: int, lap_impl=None):
 
 
 def make_sharded_modeling_tiled(ctx, mesh, sz: int, gz: int,
-                                block_k: int = 4, lap_impl=None):
+                                block_k=None, lap_impl=None):
     """Shot-sharded forward modeling on the large-grid tier's K-step passes
     (the counterpart of ``make_sharded_modeling_tiled``); as
-    :func:`make_sharded_modeling_cuda`."""
+    :func:`make_sharded_modeling_cuda`. ``block_k=None``: K = 4, or the
+    largest K below it whose tiles fit (:func:`..ops.stream.
+    tiled_block_k`)."""
+    if block_k is None:
+        block_k = tiled_block_k(ctx, ("kstep_mod",), lap_impl)
+
     def fn(v2, sxs, wavelet):
         sxs, wav = shot_positions(sxs), host_wavelet(wavelet)
         return _run_groups(mesh, len(sxs), lambda dev, idx: forward_modeling_tiled(
@@ -106,10 +112,15 @@ def make_sharded_rtm_cuda(ctx, mesh, sz: int, gz: int, lap_impl=None):
     return fn
 
 
-def make_sharded_rtm_tiled(ctx, mesh, sz: int, gz: int, block_k: int = 4,
+def make_sharded_rtm_tiled(ctx, mesh, sz: int, gz: int, block_k=None,
                            lap_impl=None):
     """Shot-sharded two-snapshot RTM on the K-step passes (the counterpart
-    of ``make_sharded_rtm_tiled``); as :func:`make_sharded_rtm_cuda`."""
+    of ``make_sharded_rtm_tiled``); as :func:`make_sharded_rtm_cuda`.
+    ``block_k=None``: K = 4, or the largest K below it whose tiles fit."""
+    if block_k is None:
+        block_k = tiled_block_k(ctx, ("kstep_gpu_fwd", "kstep_gpu_bwd"),
+                                lap_impl)
+
     def fn(v2, dobs, sxs, wavelet):
         sxs, wav = shot_positions(sxs), host_wavelet(wavelet)
         return _run_groups(mesh, len(sxs), lambda dev, idx, v, d: rtm_shot_snapshot_tiled(
@@ -136,11 +147,13 @@ def make_sharded_rtm_full_cuda(ctx, mesh, sz: int, gz: int):
 
 
 def make_sharded_rtm_full_tiled(ctx, mesh, sz: int, gz: int,
-                                block_k: int = 4, lap_impl=None):
+                                block_k: int = TILED_BLOCK_K, lap_impl=None):
     """Shot-sharded full-wavefield RTM (``rtm_main``) on the large-grid
     tier, :func:`..solver.rtm_shot_full_tiled` (the counterpart of
     ``make_sharded_rtm_full_tiled``, the JAX ``parallel/shots.py:128-160``),
-    over real shot groups only; as :func:`make_sharded_rtm_full_cuda`."""
+    over real shot groups only; as :func:`make_sharded_rtm_full_cuda`. Its
+    kernels at K >= 2 (``rec_step``) stage no tile of K steps, so the
+    default K fits at every order."""
     def fn(v2, dobs, sxs, nxts, wavelet):
         sxs, wav = shot_positions(sxs), host_wavelet(wavelet)
         nxts = np.asarray(nxts, np.float32)

@@ -15,8 +15,9 @@ the CPU. On a CUDA device the shots run in batches through the CUDA kernels
 the plain torch version. ``run_modeling``, ``run_rtm_gpu`` and
 ``run_rtm_cpu`` choose their tier explicitly with ``backend``
 (:func:`resolve_backend`): the per-step kernels (``"pallas"``) or the
-large-grid tier at ``TILED_BLOCK_K`` steps a pass (``"tiled"``); ``"auto"``
-decides by the grid's size alone. There is no
+large-grid tier at up to ``TILED_BLOCK_K`` steps a pass (``"tiled"``, the
+largest K whose tiles fit a block's shared memory); ``"auto"`` decides by
+the grid's size alone. There is no
 fallback between tiers, and without CUDA a default call raises torch's own
 error.
 
@@ -35,7 +36,6 @@ the checkpointed survey.
 
 from __future__ import annotations
 
-import functools
 import os
 from typing import Optional
 
@@ -45,9 +45,10 @@ import torch
 from . import io, numerics
 from .config import Params, Geometry
 from .ops.fd_kernels import (forward_modeling_cuda, laplacian_cuda,
+                             largest_fitting_k, lap_parts,
                              resolve_lap_impl, rtm_full_cuda,
                              rtm_snapshot_cuda)
-from .ops.stream import MAX_STEPS
+from .ops.stream import MAX_STEPS, TILED_BLOCK_K, tiled_block_k
 from .solver import (FDContext, forward_modeling_tiled, rtm_shot_full_tiled,
                      rtm_shot_snapshot_tiled)
 
@@ -61,7 +62,6 @@ BACKENDS = ("auto", "pallas", "tiled")
 # pipeline.py:324-331). 3lay (231 x 231, 53 K cells) keeps the per-step
 # kernels; Pluto (7040 x 1281, 9.0 M cells) takes the tiled tier.
 TILED_MIN_CELLS = 1_500_000
-TILED_BLOCK_K = 4
 
 # Device budget of one shot batch of run_modeling and run_rtm_gpu. A shot
 # holds, besides its velocity plane (all shots' planes are drawn first, in
@@ -201,13 +201,13 @@ def run_modeling(p: Params, vp: Optional[np.ndarray] = None,
     with or without a shot-only mesh) runs every value, through
     ``mod_step_mma`` where it resolves to a split tier (the x taps in bf16
     parts), and so does the large-grid tier (``"tiled"``, K =
-    ``TILED_BLOCK_K``), through ``kstep_mod_mma`` (the z taps in bf16
-    parts, as the JAX K-step kernels split them), and so do the domain
-    tiers on the card, through ``block_mod_mma`` or ``block2_mod_mma`` (the
-    x taps in bf16 parts, as the JAX block kernels split them). On a mesh
-    of CPU devices the domain tiers run the per-step loops with the exact
-    taps whatever ``lap_impl`` says, as the JAX package's lax domain path
-    does on the CPU."""
+    :func:`.ops.stream.tiled_block_k`), through ``kstep_mod_mma`` (the z
+    taps in bf16 parts, as the JAX K-step kernels split them), and so do
+    the domain tiers on the card, through ``block_mod_mma`` or
+    ``block2_mod_mma`` (the x taps in bf16 parts, as the JAX block kernels
+    split them). On a mesh of CPU devices the domain tiers run the
+    per-step loops with the exact taps whatever ``lap_impl`` says, as the
+    JAX package's lax domain path does on the CPU."""
     tier = resolve_backend(backend, p.nxe, p.nze)
     if vp is None:
         vp = io.read_velocity(p.vpfile, p.nx, p.nz)
@@ -219,13 +219,13 @@ def run_modeling(p: Params, vp: Optional[np.ndarray] = None,
         run = _modeling_domain(ctx, g, mesh, lap_impl)
     elif mesh is not None:
         from .parallel import shots
-        make = (functools.partial(shots.make_sharded_modeling_tiled,
-                                  block_k=TILED_BLOCK_K)
-                if tier == "tiled" else shots.make_sharded_modeling_cuda)
+        make = (shots.make_sharded_modeling_tiled if tier == "tiled"
+                else shots.make_sharded_modeling_cuda)
         run = make(ctx, mesh, g.sz, g.gz, lap_impl=lap_impl)
     else:
         vel2 = vel2.to(device)
-        fwd, kw = ((forward_modeling_tiled, {"block_k": TILED_BLOCK_K})
+        k = tiled_block_k(ctx, ("kstep_mod",), lap_impl)
+        fwd, kw = ((forward_modeling_tiled, {"block_k": k})
                    if tier == "tiled" else (forward_modeling_cuda, {}))
         run = lambda v2, sxs, wav: fwd(ctx, v2, wav, sxs, g.sz, g.gz,
                                        lap_impl=lap_impl, **kw)[2]
@@ -245,15 +245,21 @@ def _mesh_on_cpu(mesh) -> bool:
     return all(d.type == "cpu" for d in mesh.devices.flat)
 
 
-def _block_k(ctx, mesh, limit: int) -> int:
+def _block_k(ctx, mesh, limit: int, kernels, lap_impl) -> int:
     """The JAX pipelines' block size of the domain tiers (its
     pipeline.py:278, :298-299, :652, :666-668): ``min(8, (nxe // n_x) //
-    h, (nze // n_z) // h, limit)``, the z term on a z axis > 1 only."""
+    h, (nze // n_z) // h, limit)``, the z term on a z axis > 1 only, or
+    below it the largest K whose tiles of ``kernels`` (the block kernels
+    the run launches, under ``lap_impl``) fit a block's shared memory
+    (orders above 10: :func:`..ops.fd_kernels.largest_fitting_k`)."""
     h = ctx.order // 2
     parts = [(ctx.nxe // mesh.shape["x"]) // h]
     if _mesh_cuts_z(mesh):
         parts.append((ctx.nze // mesh.shape["z"]) // h)
-    return min(MAX_STEPS, *parts, limit)
+    k = min(MAX_STEPS, *parts, limit)
+    if k < 2:
+        return k
+    return largest_fitting_k(kernels, ctx.order, k, lap_parts(lap_impl, ctx))
 
 
 def _modeling_domain(ctx, g, mesh, lap_impl):
@@ -270,7 +276,8 @@ def _modeling_domain(ctx, g, mesh, lap_impl):
                            domain2d_kernels as d2k)
     resolve_lap_impl(ctx, lap_impl)      # an unknown value raises on any mesh
     two_d = _mesh_cuts_z(mesh)
-    block_k = max(1, _block_k(ctx, mesh, ctx.nt))
+    block_k = max(1, _block_k(ctx, mesh, ctx.nt, ("block_mod",),
+                              lap_impl))
     if two_d:
         d2k.tile_geometry(ctx, mesh.shape["x"], mesh.shape["z"], block_k)
     if _mesh_on_cpu(mesh):
@@ -350,9 +357,8 @@ def run_rtm_cpu(p: Params, vp: Optional[np.ndarray] = None,
 
     if mesh is not None:
         from .parallel import shots
-        make = (functools.partial(shots.make_sharded_rtm_full_tiled,
-                                  block_k=TILED_BLOCK_K)
-                if tier == "tiled" else shots.make_sharded_rtm_full_cuda)
+        make = (shots.make_sharded_rtm_full_tiled if tier == "tiled"
+                else shots.make_sharded_rtm_full_cuda)
         sharded = make(ctx, mesh, g.sz, g.gz)
         run = lambda d, sxs, nx1: sharded(vel2, d, sxs, nx1, wav)
     else:
@@ -422,12 +428,12 @@ def run_rtm_gpu(p: Params, vp: Optional[np.ndarray] = None,
         run = _rtm_gpu_domain(ctx, g, mesh, lap_impl)
     elif mesh is not None:
         from .parallel import shots
-        make = (functools.partial(shots.make_sharded_rtm_tiled,
-                                  block_k=TILED_BLOCK_K)
-                if tier == "tiled" else shots.make_sharded_rtm_cuda)
+        make = (shots.make_sharded_rtm_tiled if tier == "tiled"
+                else shots.make_sharded_rtm_cuda)
         run = make(ctx, mesh, g.sz, g.gz, lap_impl=lap_impl)
     else:
-        rtm, kw = ((rtm_shot_snapshot_tiled, {"block_k": TILED_BLOCK_K})
+        k = tiled_block_k(ctx, ("kstep_gpu_fwd", "kstep_gpu_bwd"), lap_impl)
+        rtm, kw = ((rtm_shot_snapshot_tiled, {"block_k": k})
                    if tier == "tiled" else (rtm_snapshot_cuda, {}))
         run = lambda v2, d, sxs, wav: rtm(ctx, v2, wav, d.to(device), sxs,
                                           g.sz, g.gz, lap_impl=lap_impl, **kw)
@@ -475,7 +481,8 @@ def _rtm_gpu_domain(ctx, g, mesh, lap_impl):
                            domain2d_kernels as d2k)
     resolve_lap_impl(ctx, lap_impl)      # an unknown value raises on any mesh
     two_d = _mesh_cuts_z(mesh)
-    block_k = _block_k(ctx, mesh, ctx.nt // 2)
+    block_k = _block_k(ctx, mesh, ctx.nt // 2, ("block_fwd", "block_bwd"),
+                       lap_impl)
     if block_k < 2:
         raise NotImplementedError(
             f"the domain RTM needs blocks of K >= 2 steps, this grid and "

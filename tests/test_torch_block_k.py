@@ -1,0 +1,239 @@
+"""The block size K the pipelines and the shot-mesh makers choose: the
+largest K, up to the JAX package's choice, whose staged tiles fit a
+block's shared memory (``fk.smem_bytes``, the launchers' sizes; their C
+sources are held against it in ``tests/test_torch_tiled.py``).
+
+* The tiled tier takes ``TILED_BLOCK_K`` = 4, the domain tiers
+  ``min(8, (nxe // n_x) // h, (nze // n_z) // h, limit)``; above order 10
+  a smaller K where a kernel of the run would refuse that one. At orders
+  <= 10 the choice is the JAX package's, exact and split.
+* An explicit ``block_k`` whose tile does not fit still raises, naming the
+  limit: on the CPU through a stand-in library that refuses as the
+  kernels' launchers do.
+* On the card (``-m cuda``), ``run_modeling`` and ``run_rtm_gpu`` at
+  orders 12 and 16 over an x mesh and an (x, z) mesh of cuda:0 and
+  through ``backend="tiled"``, against the per-step tier (1e-5 relative
+  RMS, the tiers' contract); and a refused explicit K.
+
+This file imports no JAX (``python -m pytest tests/test_torch_block_k.py
+-m cuda --noconftest`` on a GPU machine)."""
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+import parallel_finite_difference_computation_tpu_torch as tpk
+from parallel_finite_difference_computation_tpu_torch import (
+    pipeline as tpipe, solver)
+from parallel_finite_difference_computation_tpu_torch.models import (
+    layered_model)
+from parallel_finite_difference_computation_tpu_torch.ops import (
+    _build, fd_kernels as fk, stream)
+from parallel_finite_difference_computation_tpu_torch.parallel import (
+    make_mesh, shots)
+
+ORDERS = (8, 10, 12, 14, 16)
+# 3lay's grid (231 x 231 extended): the slabs and tiles of these meshes
+# leave the domain K at 8 up to order 16 before the shared-memory limit.
+LAY3 = dict(nz=151, nx=151, nt=1001, dz=10.0, dx=10.0, dt=0.001,
+            fpeak=30.0, ns=2, sz=0, fsx=0, ds=20, gz=0, nxb=40, nzb=40,
+            fac=0.01)
+SMALL = dict(nz=24, nx=28, nt=11, dz=10.0, dx=10.0, dt=0.001, fpeak=25.0,
+             ns=2, sz=4, fsx=6, ds=10, gz=1, nxb=8, nzb=8, fac=0.7)
+TILED_RTM = ("kstep_gpu_fwd", "kstep_gpu_bwd")
+# order: K, exact and split (lap_impl "mxu"), of each tier's run
+WANT_TILED = {"mod": {o: (4, 4) for o in ORDERS},
+              "rtm": {8: (4, 4), 10: (4, 4), 12: (4, 3), 14: (4, 3),
+                      16: (4, 2)}}
+WANT_DOMAIN = {"mod": {8: (8, 8), 10: (8, 8), 12: (8, 7), 14: (8, 6),
+                       16: (7, 5)},
+               "rtm": {8: (8, 8), 10: (8, 8), 12: (8, 6), 14: (8, 5),
+                       16: (7, 5)}}
+DOMAIN_KERNELS = {"mod": ("block_mod",), "rtm": ("block_fwd", "block_bwd")}
+
+
+def _ctx(order, cfg=LAY3):
+    return solver.FDContext.from_params(tpk.Params(order=order, **cfg))
+
+
+def _fits(kernels, order, k, parts):
+    return all(fk.smem_bytes(n, order, k, parts) <= fk.SMEM_BYTES
+               for n in kernels)
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_tiled_default_k_fits(order):
+    ctx = _ctx(order)
+    for run, kernels in (("mod", ("kstep_mod",)), ("rtm", TILED_RTM)):
+        for i, lap_impl in enumerate((None, "mxu")):
+            parts = fk.lap_parts(lap_impl, ctx)
+            k = stream.tiled_block_k(ctx, kernels, lap_impl)
+            assert k == WANT_TILED[run][order][i]
+            assert _fits(kernels, order, k, parts)
+            if k < tpipe.TILED_BLOCK_K:
+                assert not _fits(kernels, order, k + 1, parts)
+            if order <= 10:
+                assert k == tpipe.TILED_BLOCK_K
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 2, 2)])
+@pytest.mark.parametrize("order", ORDERS)
+def test_domain_default_k_fits(order, shape):
+    ctx = _ctx(order)
+    mesh = make_mesh(*shape, devices=["cpu"] * int(np.prod(shape)))
+    h = order // 2
+    jax_k = min(8, (ctx.nxe // shape[1]) // h, ctx.nt // 2,
+                *((ctx.nze // shape[2]) // h for _ in shape[2:]))
+    assert jax_k == 8
+    for run, kernels in DOMAIN_KERNELS.items():
+        for i, lap_impl in enumerate((None, "mxu")):
+            parts = fk.lap_parts(lap_impl, ctx)
+            k = tpipe._block_k(ctx, mesh, ctx.nt // 2, kernels, lap_impl)
+            assert k == WANT_DOMAIN[run][order][i]
+            assert _fits(kernels, order, k, parts)
+            if k < jax_k:
+                assert not _fits(kernels, order, k + 1, parts)
+            if order <= 10:
+                assert k == jax_k
+
+
+def test_domain_k_keeps_the_grid_limit():
+    """Where the slab or tile is what bounds K, the JAX package's K stands
+    (the small grid: 22 rows a slab at order 12 give K = 3)."""
+    ctx = _ctx(12, SMALL)
+    mesh = make_mesh(1, 2, devices=["cpu"] * 2)
+    assert tpipe._block_k(ctx, mesh, ctx.nt // 2, DOMAIN_KERNELS["rtm"],
+                          None) == 3
+    assert tpipe._block_k(ctx, mesh, 1, DOMAIN_KERNELS["rtm"], None) == 1
+
+
+@pytest.mark.parametrize("order", [8, 12, 16])
+def test_pipelines_and_makers_pass_the_fitting_k(monkeypatch, order):
+    """``run_modeling``/``run_rtm_gpu`` with ``backend="tiled"`` and the
+    shot-mesh makers hand the tiled drivers the chosen K, exact and
+    split."""
+    seen = []
+
+    def spy(real):
+        def call(*a, **kw):
+            seen.append(kw["block_k"])
+            return real(*a, **kw)
+        return call
+
+    for mod in (tpipe, shots):
+        monkeypatch.setattr(mod, "forward_modeling_tiled",
+                            spy(solver.forward_modeling_tiled))
+        monkeypatch.setattr(mod, "rtm_shot_snapshot_tiled",
+                            spy(solver.rtm_shot_snapshot_tiled))
+    p = tpk.Params(order=order, **SMALL)
+    vp = layered_model(p.nx, p.nz)
+    for i, lap_impl in enumerate((None, "mxu")):
+        want_mod = WANT_TILED["mod"][order][i]
+        want_rtm = WANT_TILED["rtm"][order][i]
+        for mesh in (None, make_mesh(2, devices=["cpu"] * 2)):
+            seen.clear()
+            dobs = tpipe.run_modeling(p, vp=vp, device="cpu",
+                                      backend="tiled", mesh=mesh,
+                                      lap_impl=lap_impl)
+            assert seen and set(seen) == {want_mod}
+            seen.clear()
+            tpipe.run_rtm_gpu(p, vp=vp, dobs=dobs, device="cpu",
+                              backend="tiled", mesh=mesh, lap_impl=lap_impl)
+            assert seen and set(seen) == {want_rtm}
+
+
+class _RefusingLibrary:
+    """Stands in for the kernel library: every entry point refuses its
+    launch as a launcher whose tile does not fit does
+    (cudaErrorInvalidValue)."""
+
+    def __getattr__(self, name):
+        return lambda *args: 1
+
+
+@contextlib.contextmanager
+def _refusing_card():
+    saved = [(stream, "_on_cuda", stream._on_cuda),
+             (stream, "_stream", stream._stream),
+             (_build, "library", _build.library),
+             (torch.cuda, "device", torch.cuda.device)]
+    try:
+        stream._on_cuda = lambda t: True
+        stream._stream = lambda dev: 0
+        _build.library = lambda: _RefusingLibrary()
+        torch.cuda.device = lambda dev: contextlib.nullcontext()
+        yield
+    finally:
+        for mod, name, value in saved:
+            setattr(mod, name, value)
+
+
+def test_explicit_k_that_does_not_fit_raises():
+    """kstep_gpu_bwd at order 16 and K = 8 (a halo of 64 cells) fits no
+    owned shape; the maker's explicit block_k reaches the kernel's
+    wrapper, which names the limit."""
+    ctx = _ctx(16, SMALL)
+    k = 8
+    assert fk.smem_bytes("kstep_gpu_bwd", 16, k) > fk.SMEM_BYTES
+    rng = np.random.default_rng(0)
+    f = [torch.from_numpy(rng.standard_normal((2, ctx.nxe, ctx.nze)).astype(
+        np.float32)) for _ in range(4)]
+    img = torch.zeros((2, ctx.nx, ctx.nz))
+    v2 = torch.full((2, ctx.nxe, ctx.nze), 2000.0 ** 2)
+    inj = torch.zeros((2, k, ctx.nx))
+    with _refusing_card():
+        with pytest.raises(ValueError, match=f"{fk.SMEM_BYTES} bytes"):
+            stream.fd_back_kstep_cuda(ctx, *f, img, v2, inj, 1)
+    # the CPU runs any K: no shared memory to fit
+    out = stream.fd_back_kstep_cuda(ctx, *f, img, v2, inj, 1)
+    assert all(torch.isfinite(o).all() for o in out)
+
+
+# ------------------------------------------------------------ on the card
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
+    return torch.device("cuda", 0)
+
+
+def _rel_rms(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b ** 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [12, 16])
+def test_orders_above_10_run_on_the_card(cuda_device, order):
+    """3lay (2 shots, nt = 1001) at order 12 or 16: the x tier over a
+    (1, 2) mesh and the (x, z) tier over a (1, 2, 2) mesh of cuda:0, and
+    the tiled tier, against the per-step tier: gathers and images within
+    1e-5 relative RMS."""
+    p = tpk.Params(order=order, **LAY3)
+    vp = layered_model(p.nx, p.nz)
+    dobs = tpipe.run_modeling(p, vp=vp, backend="pallas")
+    img, _ = tpipe.run_rtm_gpu(p, vp=vp, dobs=dobs, backend="pallas")
+    runs = {"tiled": dict(backend="tiled")}
+    for shape in ((1, 2), (1, 2, 2)):
+        runs[str(shape)] = dict(mesh=make_mesh(
+            *shape, devices=[cuda_device] * int(np.prod(shape))))
+    for label, kw in runs.items():
+        got = tpipe.run_modeling(p, vp=vp, **kw)
+        assert _rel_rms(got, dobs) <= 1e-5, label
+        got_img, _ = tpipe.run_rtm_gpu(p, vp=vp, dobs=dobs, **kw)
+        assert _rel_rms(got_img, img) <= 1e-5, label
+
+
+@pytest.mark.cuda
+def test_explicit_k_that_does_not_fit_raises_on_the_card(cuda_device):
+    ctx = _ctx(16, SMALL)
+    p = tpk.Params(order=16, **SMALL)
+    mesh = make_mesh(1, devices=[cuda_device])
+    run = shots.make_sharded_rtm_tiled(ctx, mesh, p.sz, p.gz, block_k=8)
+    v2 = torch.full((2, ctx.nxe, ctx.nze), 2000.0 ** 2)
+    dobs = torch.zeros((2, ctx.nx, ctx.nt))
+    with pytest.raises(ValueError, match=f"{fk.SMEM_BYTES} bytes"):
+        run(v2, dobs, (6, 16), np.ones(ctx.nt, np.float32))

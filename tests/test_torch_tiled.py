@@ -429,27 +429,60 @@ def test_wrappers_raise_on_bad_inputs(bad):
 
 
 def test_shared_memory_of_the_kernels():
-    """The K-step kernels' tiles, as their C sources size them, fit a
-    block's shared memory at the pipelines' K up to order 10, and the
-    wrappers' step limit is the kernels'; which (kernel, order, K) the card
-    refuses up to order 16, the K-step kernels exact and split (``*_mma``:
-    one more staged tile for the z taps' product, two in kstep_gpu_bwd)
-    and the block kernels exact and split (one more staged tile for the x
-    taps' product; block_bwd_mma on a smaller owned tile)."""
+    """The staging kernels' tiles, as their C sources size them, against
+    the wrappers' mirror (``fk.smem_bytes``, which the pipelines' K choice
+    reads): the K-step kernels exact and split (``*_mma``: one more staged
+    tile for the z taps' product, two in kstep_gpu_bwd), the block kernels
+    exact and split (one more staged tile for the x taps' product;
+    block_bwd_mma on a smaller owned tile), and the exact backward kernels
+    kstep_gpu_bwd and block_bwd, which run bwd_strip.cuh's body on the
+    first of its owned shapes that fits (four staged fields, the owned
+    image and the x ramp). Which (kernel, order, K) the card refuses up to
+    order 16, and that every tile fits at the pipelines' K up to order
+    10; the wrappers' step limit is the kernels'."""
     csrc = pathlib.Path(stream.__file__).parents[1] / "csrc"
     const = {m[1]: int(m[2]) for m in re.finditer(
         r"constexpr int (k\w+) = (\d+);", (csrc / "kstep.cuh").read_text())}
     assert stream.MAX_STEPS == const["kMaxSteps"]
     tx, tz, limit = const["kTileX"], const["kTileZ"], const["kMaxSmemBytes"]
+    assert limit == fk.SMEM_BYTES
+
+    # the strip body's shapes and bytes (csrc/bwd_strip.cuh)
+    strip = (csrc / "bwd_strip.cuh").read_text()
+    shapes = [(int(a), int(b)) for a, b in re.findall(
+        r"\{(\d+), (\d+)\}", re.search(r"kStripShapes\[\] = \{(.*?)\};",
+                                       strip, re.S)[1])]
+    assert " ".join(strip.split()).count(
+        "sizeof(float) * (4 * sx * sz + static_cast<size_t>(s.tx) * s.tz + "
+        "sx)") == 1
+
+    def strip_smem(order, k):
+        """bwd_strip's strip_shape: the first shape that fits; the
+        smallest's bytes where none does."""
+        r = k * (order // 2)
+        sizes = [4 * (4 * (a + 2 * r) * (b + 2 * r) + a * b + a + 2 * r)
+                 for a, b in shapes]
+        return next((n for n in sizes if n <= limit), sizes[-1])
 
     def smem(kernel, order, k):
         """Bytes of a block of ``kernel`` (``*_mma``: its split variant,
-        P > 0 in the same source)."""
+        P > 0 in the same source), from its launcher."""
         src = (csrc / f"{kernel.removesuffix('_mma')}.cu").read_text()
-        assert re.search(r"kFields<P> \* (?:sizeof\(float\) \* )?"
-                         r"pfdc::tile_cells", src)
-        split, exact = re.search(r"kFields = P \? (\d) : (\d);", src).groups()
-        fields = int(split if kernel.endswith("_mma") else exact)
+        if kernel == "kstep_gpu_bwd":
+            assert re.search(r"if constexpr \(P == 0\) \{\s*const pfdc::"
+                             r"StripShape shape = pfdc::strip_shape\(k \* H\)"
+                             r";(?:.|\n)*?pfdc::strip_bytes\(shape, k \* H\)",
+                             src)
+            return strip_smem(order, k)
+        if kernel == "kstep_gpu_bwd_mma":
+            assert "kSplitFields * pfdc::tile_cells" in src
+            fields = int(re.search(r"kSplitFields = (\d);", src)[1])
+        else:
+            assert re.search(r"kFields<P> \* (?:sizeof\(float\) \* )?"
+                             r"pfdc::tile_cells", src)
+            split, exact = re.search(r"kFields = P \? (\d) : (\d);",
+                                     src).groups()
+            fields = int(split if kernel.endswith("_mma") else exact)
         image = tx * tz if "pfdc::kTileX) * pfdc::kTileZ" in src else 0
         r = k * (order // 2)
         return 4 * (fields * (tx + 2 * r) * (tz + 2 * r) + image)
@@ -457,7 +490,7 @@ def test_shared_memory_of_the_kernels():
     # order 8, K = 4: (32 + 32) x (64 + 32) cells a field
     assert smem("kstep_mod", 8, 4) == 3 * 4 * 64 * 96
     assert smem("kstep_gpu_fwd", 8, 4) == 3 * 4 * 64 * 96
-    assert smem("kstep_gpu_bwd", 8, 4) == 4 * (5 * 64 * 96 + 32 * 64)
+    assert smem("kstep_gpu_bwd", 8, 4) == 4 * (4 * 64 * 96 + 32 * 64 + 64)
     assert smem("kstep_mod_mma", 8, 4) == 4 * 4 * 64 * 96
     assert smem("kstep_gpu_fwd_mma", 8, 4) == 4 * 4 * 64 * 96
     assert smem("kstep_gpu_bwd_mma", 8, 4) == 4 * (7 * 64 * 96 + 32 * 64)
@@ -465,32 +498,72 @@ def test_shared_memory_of_the_kernels():
     splits = tuple(f"{k}_mma" for k in ksteps)
     for kernel in ksteps + splits:
         assert smem(kernel, 10, tpipe.TILED_BLOCK_K) <= limit
-    assert smem("kstep_gpu_bwd", 8, 8) > limit     # refused by allow_smem
+    # two blocks of kstep_gpu_bwd share an SM at order 8, K = 4 (228 KB
+    # and 1 KB reserved a block); K = 8 fits the strip body's tile
+    assert 2 * (smem("kstep_gpu_bwd", 8, 4) + 1024) <= 228 * 1024
+    assert smem("kstep_gpu_bwd", 8, 8) == 4 * (4 * 96 * 128 + 32 * 64 + 96)
 
     # the block kernels of the domain tiers (csrc/domain_block.cuh):
     # P ? tile_bytes<TX, TZ>(fields, K*h, image) of the split twin
-    #   : tile_bytes<TX, TZ>(...) of the exact kernel
+    #   : tile_bytes<TX, TZ>(...) of the exact kernel; block_bwd's launcher
+    # takes the strip body's shape and bytes for P = 0
     cuh = (csrc / "domain_block.cuh").read_text()
     dims = {m[1]: int(m[2]) for m in re.finditer(r"(k\w+T[XZ]) = (\d+)",
                                                  cuh)}
     one = r"tile_bytes<(\w+), (\w+)>\((\d), k \* H, (true|false)\)"
     pairs = re.findall(rf"P \? {one}\s*: {one};", cuh)
-    assert len(pairs) == 3
-    names = ("block_mod", "block_fwd", "block_bwd")
+    assert len(pairs) == 2
+    names = ("block_mod", "block_fwd")
     blocks = {**dict(zip(names, (pair[4:] for pair in pairs))),
               **dict(zip((f"{n}_mma" for n in names),
                          (pair[:4] for pair in pairs)))}
+    # block_bwd: a pass stages the strip body's tile of its own steps; K
+    # above kBwdPassSteps runs in two passes, the longer of (k + 1) / 2
+    assert re.search(r"const pfdc::StripShape shape = pfdc::strip_shape\("
+                     r"pass\.k_steps \* H\);\s*if \(shape\.tx == 0\) "
+                     r"return cudaErrorInvalidValue;\s*const size_t bytes = "
+                     r"pfdc::strip_bytes\(shape, pass\.k_steps \* H\);", cuh)
+    assert re.search(r"if constexpr \(P == 0\) \{\s*if \(k <= kBwdPassSteps"
+                     r"\)(?:.|\n)*?const int k1 = \(k \+ 1\) / 2, k2 = k - "
+                     r"k1;(?:.|\n)*?"
+                     rf"\}} else \{{\s*const size_t bytes = {one};", cuh)
+    pass_steps = int(re.search(r"kBwdPassSteps = (\d+);", cuh)[1])
+    assert pass_steps == fk.BWD_PASS_STEPS == 4
+    blocks["block_bwd_mma"] = re.search(
+        rf"\}} else \{{\s*const size_t bytes = {one};", cuh).groups()
 
     def block_smem(kernel, order, k):
+        if kernel == "block_bwd":
+            return strip_smem(order, k if k <= pass_steps else (k + 1) // 2)
         bx, bz, fields, image = blocks[kernel]
         r = k * (order // 2)
         cells = (dims[bx] + 2 * r) * (dims[bz] + 2 * r)
         return 4 * (int(fields) * cells
                     + (dims[bx] * dims[bz] if image == "true" else 0))
 
-    assert block_smem("block_bwd", 8, 8) == 4 * (4 * 96 * 96 + 32 * 32)
+    # order 8, K = 8: two passes of 4, the K = 4 tile of kstep_gpu_bwd
+    assert block_smem("block_bwd", 8, 8) == smem("kstep_gpu_bwd", 8, 4)
+    assert block_smem("block_bwd", 10, 8) == 4 * (4 * 72 * 104 + 32 * 64
+                                                  + 72)
     assert block_smem("block_mod_mma", 8, 8) == 4 * 3 * 96 * 128
     assert block_smem("block_bwd_mma", 10, 8) == 4 * (5 * 96 * 112 + 16 * 32)
+
+    # the mirror the pipelines choose K by is the launchers' arithmetic
+    for order in range(2, 17, 2):
+        for k in range(1, stream.MAX_STEPS + 1):
+            for kernel in ksteps:
+                assert fk.smem_bytes(kernel, order, k) == smem(
+                    kernel, order, k)
+                for parts in (2, 3):
+                    assert fk.smem_bytes(kernel, order, k, parts) == smem(
+                        f"{kernel}_mma", order, k)
+            for kernel in ("block_mod", "block_fwd", "block_bwd"):
+                assert fk.smem_bytes(kernel, order, k) == block_smem(
+                    kernel, order, k)
+                assert fk.smem_bytes(kernel.replace("block_", "block2_"),
+                                     order, k) == block_smem(kernel, order, k)
+                assert fk.smem_bytes(kernel, order, k, 2) == block_smem(
+                    f"{kernel}_mma", order, k)
 
     # The smallest K each order's tile is refused at (None: every K up to
     # 8 fits): orders above 10 run on the card, but with fewer steps a pass
@@ -509,16 +582,16 @@ def test_shared_memory_of_the_kernels():
                              for kernel in splits}
                      for order in (8, 10, 12, 14, 16)}
     assert refused == {
-        8: {"kstep_mod": None, "kstep_gpu_fwd": None, "kstep_gpu_bwd": 8,
+        8: {"kstep_mod": None, "kstep_gpu_fwd": None, "kstep_gpu_bwd": None,
             "block_mod": None, "block_fwd": None, "block_bwd": None},
-        10: {"kstep_mod": None, "kstep_gpu_fwd": None, "kstep_gpu_bwd": 6,
+        10: {"kstep_mod": None, "kstep_gpu_fwd": None, "kstep_gpu_bwd": None,
              "block_mod": None, "block_fwd": None, "block_bwd": None},
-        12: {"kstep_mod": 8, "kstep_gpu_fwd": 8, "kstep_gpu_bwd": 5,
-             "block_mod": None, "block_fwd": None, "block_bwd": 8},
-        14: {"kstep_mod": 7, "kstep_gpu_fwd": 7, "kstep_gpu_bwd": 5,
-             "block_mod": None, "block_fwd": None, "block_bwd": 7},
-        16: {"kstep_mod": 6, "kstep_gpu_fwd": 6, "kstep_gpu_bwd": 4,
-             "block_mod": 8, "block_fwd": 8, "block_bwd": 6}}
+        12: {"kstep_mod": 8, "kstep_gpu_fwd": 8, "kstep_gpu_bwd": None,
+             "block_mod": None, "block_fwd": None, "block_bwd": None},
+        14: {"kstep_mod": 7, "kstep_gpu_fwd": 7, "kstep_gpu_bwd": 8,
+             "block_mod": None, "block_fwd": None, "block_bwd": None},
+        16: {"kstep_mod": 6, "kstep_gpu_fwd": 6, "kstep_gpu_bwd": 7,
+             "block_mod": 8, "block_fwd": 8, "block_bwd": None}}
     # the split tier at TILED_BLOCK_K = 4: RTM up to order 10, modeling up
     # to order 16
     assert refused_split == {
