@@ -38,8 +38,9 @@ Run from the root of the repository, on a machine with one CUDA card and
    no multiple of the 32 x 64 tiles, with nxb != nzb and the sources and
    the receiver row across tile edges; then at the full Pluto grid (7040 x
    1281 extended), 2 shots, nt=203, K=4; gate: max relative error <= 1e-5,
-   and ``kstep_gpu_bwd`` (the strip body of ``csrc/bwd_strip.cuh``)
-   bitwise;
+   and the exact strip kernels bitwise: ``kstep_mod`` and ``kstep_gpu_fwd``
+   (the one-field body of ``csrc/fwd_strip.cuh``) and ``kstep_gpu_bwd``
+   (``csrc/bwd_strip.cuh``);
 9. tiled vs per-step at the Pluto grid: ``forward_modeling_tiled`` against
    ``forward_modeling_cuda`` and ``rtm_shot_snapshot_tiled`` against
    ``rtm_snapshot_cuda``, 2 shots, nt=203 (<= 1e-5; 0 expected);
@@ -334,6 +335,16 @@ KERNELS = {
     "block2_bwd_mma": (f"{PKG}/csrc/domain2d_block.cu",
                        "parallel_finite_difference_computation_tpu/parallel/domain2d_pallas.py:124"),
 }
+# The exact strip kernels' templates, as the build log and the profiler
+# name them: the wrapper (a key of KERNELS) and the kernel-table row
+# (PERF.md, section 6) each serves.
+STRIP_TEMPLATES = {"kstep_mod_strip": ("kstep_mod", "11"),
+                   "kstep_gpu_fwd_strip": ("kstep_gpu_fwd", "12"),
+                   "kstep_gpu_bwd_strip": ("kstep_gpu_bwd", "13"),
+                   "block_bwd": ("block_bwd", "15c/16c")}
+# The large-grid tier's exact strip kernels, which phase 8 holds bit for
+# bit to their plain versions.
+TIER_BITWISE = ("kstep_mod", "kstep_gpu_fwd", "kstep_gpu_bwd")
 # The reference's full-resolution Pluto config
 # (dpct_gpu_rtm_domain_division/build/pluto/input.orig, as restated in
 # scripts/run_pluto_survey.py:57-78) with its synthetic four-layer model
@@ -598,10 +609,20 @@ def kernel_name(mangled: str):
     return best and best[1]
 
 
+def strip_row(template: str) -> str:
+    """`` (row n, wrapper)`` for the template of an exact strip kernel
+    (STRIP_TEMPLATES), else ''."""
+    if template not in STRIP_TEMPLATES:
+        return ""
+    wrapper, row = STRIP_TEMPLATES[template]
+    return f" (row {row}, {wrapper})"
+
+
 def build_report(log: str) -> list:
-    """One line per kernel of the build log: its instances, registers and
-    spill stores (ptxas names an entry function, then prints its spills,
-    then its registers)."""
+    """One line per kernel of the build log: its instances, registers,
+    static shared memory and spill stores (ptxas names an entry function,
+    then prints its spills, then its registers and shared memory), with the
+    kernel-table row of an exact strip kernel."""
     per, fn, spill = {}, None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -612,10 +633,13 @@ def build_report(log: str) -> list:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
-            per.setdefault(fn, []).append((int(m.group(1)), spill))
-    return [f"[build] {fn}: {len(rs)} instances, "
-            f"{min(r for r, _ in rs)}-{max(r for r, _ in rs)} registers, "
-            f"{max(s for _, s in rs)} bytes of spill stores at most"
+            smem = re.search(r"(\d+) bytes smem", line)
+            per.setdefault(fn, []).append(
+                (int(m.group(1)), spill, int(smem.group(1)) if smem else 0))
+    return [f"[build] {fn}{strip_row(fn)}: {len(rs)} instances, "
+            f"{min(r[0] for r in rs)}-{max(r[0] for r in rs)} registers, "
+            f"{max(r[2] for r in rs)} bytes of static shared memory, "
+            f"{max(r[1] for r in rs)} bytes of spill stores at most"
             for fn, rs in sorted(per.items())]
 
 
@@ -653,8 +677,10 @@ def profile(torch, label: str, fn, call_ms: float, smi: str) -> None:
             and e.device_type.name == "CUDA"]
     busy = sum(ms for _, ms, _ in rows)
     for key, ms, n in sorted(rows, key=lambda r: -r[1]):
-        print(f"[profile] {label}: {key[:60]}: {ms:.3f} ms device time in "
-              f"{n} launches ({ms / n * 1e3:.2f} us each)")
+        template = re.search(r"(\w+)<", key)
+        row = strip_row(template.group(1)) if template else ""
+        print(f"[profile] {label}: {key[:60]}{row}: {ms:.3f} ms device time "
+              f"in {n} launches ({ms / n * 1e3:.2f} us each)")
     print(f"[profile] {label}: kernels {busy:.3f} ms of the {call_ms:.3f} ms "
           f"event-timed call, busy share {busy / call_ms:.3f}; {smi}",
           flush=True)
@@ -754,6 +780,14 @@ def main() -> int:
               f"spills at most")
     for line in build_report(log):
         print(line)
+    # the exact strip kernels' dynamic shared memory, as their launchers
+    # size it, at the main path's order 8 and K = 4 (the SM's 228 KB, 1 KB
+    # reserved a block)
+    for template, (name, row) in STRIP_TEMPLATES.items():
+        b = fk.smem_bytes(name, 8, 4)
+        print(f"[build] {template} (row {row}): {b} bytes of dynamic shared "
+              f"memory a block at order 8, K = 4, "
+              f"{228 * 1024 // (b + 1024)} blocks an SM by shared memory")
 
     phase_done("build")
 
@@ -1122,8 +1156,8 @@ def main() -> int:
                       f"{short.nt} 67 x 88: max rel err {rel:.3e}, max abs "
                       f"err {absd:.3e}", flush=True)
                 check(rel <= GATE, f"{kname} order {order} K {k}: {rel:.3e}")
-                check(kname != "kstep_gpu_bwd" or absd == 0,
-                      f"kstep_gpu_bwd order {order} K {k} is not bitwise")
+                check(kname not in TIER_BITWISE or absd == 0,
+                      f"{kname} order {order} K {k} is not bitwise")
     pluto = Params(**dict(PLUTO, nt=203))
     case = tier_case(pluto, PLUTO_VELOCITIES)
     for kname, (rel, absd) in compare_tier(case, 4).items():
@@ -1131,8 +1165,8 @@ def main() -> int:
               f"order 8 K 4 nt {pluto.nt} ns {pluto.ns}: max rel err "
               f"{rel:.3e}, max abs err {absd:.3e}", flush=True)
         check(rel <= GATE, f"{kname} at the Pluto grid: {rel:.3e}")
-        check(kname != "kstep_gpu_bwd" or absd == 0,
-              "kstep_gpu_bwd at the Pluto grid is not bitwise")
+        check(kname not in TIER_BITWISE or absd == 0,
+              f"{kname} at the Pluto grid is not bitwise")
         if kname in results:
             results[kname]["max_abs_err"] = absd
     phase_done("large-grid kernels vs plain")
@@ -1572,7 +1606,10 @@ def main() -> int:
         bms, by = bounds[k]
         what = ("one call" if k == "gpu_step"
                 else f"{-(-pt.nt // K)} passes of K={K}")
-        print(f"[times] {k} at the Pluto grid ({pt.ns} shots, nt {pt.nt}, "
+        strip = next((f" ({t}, row {row})" for t, (w, row)
+                      in STRIP_TEMPLATES.items() if w == k), "")
+        print(f"[times] {k}{strip} at the Pluto grid ({pt.ns} shots, nt "
+              f"{pt.nt}, "
               f"{what}): kernel {span(tk)}, plain {span(tp)}, per-step "
               f"kernel {span(ts)}; bound {bms:.3f} ms ({by}), kernel / "
               f"bound {statistics.median(tk) / bms:.2f}; {smi}", flush=True)

@@ -14,7 +14,8 @@
 // and rebuilt the taper from three global loads, twice; and a generic cell
 // loop recomputed bounds for every cell.
 //
-// This body:
+// This body (on the strip pieces of strip.cuh, which the forward body of
+// fwd_strip.cuh shares):
 // - stages only what neighbours read: the source and receiver fields at
 //   two time levels (the leapfrog's current and older field), with cp.async
 //   (every load of a thread in flight at once), plus the owned image and
@@ -55,75 +56,14 @@
 // injection, and whether a cell is imaged and stored.
 #pragma once
 
-#include "kstep.cuh"
+#include "strip.cuh"
 
 namespace pfdc {
 
-constexpr int kStripRows = 4;       // cells of a thread's strip along x
-constexpr int kStripWarps = 16;
-constexpr int kStripThreads = 32 * kStripWarps;
-
-// Owned cells of a block: the launchers take the first shape whose tile
-// fits a block's shared memory (strip_shape).
-struct StripShape {
-  int tx, tz;
-};
-constexpr StripShape kStripShapes[] = {
-    {32, 64}, {32, 32}, {16, 32}, {16, 16}};
-
-// Dynamic shared memory of a tile of shape s with a halo of r cells: the
-// four staged fields, the owned image and the x ramp of the rows.
-inline size_t strip_bytes(StripShape s, int r) {
-  const size_t sx = s.tx + 2 * r, sz = s.tz + 2 * r;
-  return sizeof(float) * (4 * sx * sz + static_cast<size_t>(s.tx) * s.tz +
-                          sx);
-}
-
-// The first of kStripShapes whose tile fits, or {0, 0} if none does.
-inline StripShape strip_shape(int r) {
-  for (const StripShape& s : kStripShapes) {
-    if (strip_bytes(s, r) <= static_cast<size_t>(kMaxSmemBytes)) return s;
-  }
-  return {0, 0};
-}
-
-// One block's staged tile: local (0, 0) is field cell (gx0, gz0); the
-// owned cells are local [r, r + tx) x [r, r + tz).
-struct StripTile {
-  int r, tx, tz, sx, sz, gx0, gz0;
-
-  __device__ StripTile(int halo, StripShape s, int ox, int oz)
-      : r(halo),
-        tx(s.tx),
-        tz(s.tz),
-        sx(s.tx + 2 * halo),
-        sz(s.tz + 2 * halo),
-        gx0(ox - halo),
-        gz0(oz - halo) {}
-};
-
-// The Laplacian of strip cell i at tile cell j: the z taps from the staged
-// field f, the x taps from the strip's window w (w[q] is row lx - H + q
-// of the cell's column), in the order of stencil.cuh's laplacian.
-template <int H, int N>
-__device__ __forceinline__ float strip_lap(const float (&w)[N], int i,
-                                           const float* f, int j,
-                                           const Coefs& c) {
-  const float centre = w[i + H];
-  float accz = c.z[H] * (f[j - H] + f[j + H]);
-#pragma unroll
-  for (int k = H - 1; k >= 1; --k) {
-    accz = accz + c.z[k] * (f[j - k] + f[j + k]);
-  }
-  accz = accz + c.z[0] * centre;
-  float accx = c.x[H] * (w[i] + w[i + 2 * H]);
-#pragma unroll
-  for (int k = H - 1; k >= 1; --k) {
-    accx = accx + c.x[k] * (w[i + H - k] + w[i + H + k]);
-  }
-  accx = accx + c.x[0] * centre;
-  return accz + accx;
-}
+// Owned shapes, the first that fits taken (strip_shape), and what the body
+// stages: the four fields and the owned image.
+constexpr StripShape kBwdShapes[] = {{32, 64}, {32, 32}, {16, 32}, {16, 16}};
+constexpr StripStage kBwdStage{4, true};
 
 // Steps k0 .. k0 + k_steps - 1 of the site's block, on its tile (blockDim.x
 // = kStripThreads, a 1-D block). Per step, from the state (ps, pps, pr, ppr)
@@ -146,23 +86,9 @@ __device__ __forceinline__ void bwd_strip(float* smem, const Site& site,
   const int tid = static_cast<int>(threadIdx.x);
   const int nth = static_cast<int>(blockDim.x);
   const int nxf = site.nxf, nzf = site.nzf;
-  auto in_grid = [&](int gx, int gz) {
-    return gx >= 0 && gx < nxf && gz >= 0 && gz < nzf;
-  };
-  for (int i = tid; i < n; i += nth) {
-    const int lx = i / t.sz, lz = i - lx * t.sz;
-    const int gx = t.gx0 + lx, gz = t.gz0 + lz;
-    const bool in = in_grid(gx, gz);
-    const size_t q = in ? static_cast<size_t>(gx) * nzf + gz : 0;
-    cp_async4(s_cur + i, site.ps + q, in);
-    cp_async4(s_old + i, site.pps + q, in);
-    cp_async4(r_cur + i, site.pr + q, in);
-    cp_async4(r_old + i, site.ppr + q, in);
-  }
-  for (int lx = tid; lx < t.sx; lx += nth) {
-    const int gx = t.gx0 + lx;
-    sxr[lx] = gx >= 0 && gx < nxf ? site.xramp[gx] : 0.0f;
-  }
+  stage_strip_tile<4>({s_cur, s_old, r_cur, r_old},
+                      {site.ps, site.pps, site.pr, site.ppr}, sxr,
+                      site.xramp, t, nxf, nzf);
   for (int i = tid; i < t.tx * t.tz; i += nth) {
     const int ox = i / t.tz, oz = i - ox * t.tz;
     simg[i] = site.image_start(t.gx0 + t.r + ox, t.gz0 + t.r + oz);
@@ -170,39 +96,18 @@ __device__ __forceinline__ void bwd_strip(float* smem, const Site& site,
   cp_async_wait_all();
   __syncthreads();
   // step 0's taper phase: the staged receiver field, every cell in the grid
-  for (int i = tid; i < n; i += nth) {
-    const int lx = i / t.sz, lz = i - lx * t.sz;
-    const int gx = t.gx0 + lx, gz = t.gz0 + lz;
-    if (in_grid(gx, gz)) {
-      r_cur[i] = r_cur[i] * (site.zfac[gz] *
-                             (site.strip[gz] != 0.0f ? sxr[lx] : 1.0f));
-    }
-  }
-  __syncthreads();
+  taper_strip_tile(r_cur, sxr, site.zfac, site.strip, t, nxf, nzf);
   const int warp = tid >> 5, lane = tid & 31, nwarps = nth >> 5;
   for (int k = 0; k < k_steps; ++k) {
-    const int lo = (k + 1) * H;
-    const int nstrips = (t.sx - 2 * lo + S - 1) / S;
-    const int ngroups = (t.sz - 2 * lo + 31) / 32;
     const bool last = k + 1 == k_steps;
-    for (int item = warp; item < nstrips * ngroups; item += nwarps) {
-      const int strip = item / ngroups;
-      const int lx0 = lo + strip * S;
-      const int lz = lo + (item - strip * ngroups) * 32 + lane;
-      const int gz = t.gz0 + lz;
-      if (lz >= t.sz - lo || gz < 0 || gz >= nzf) continue;
-      const int rows = t.sx - lo - lx0 < S ? t.sx - lo - lx0 : S;
+    const StripWalk<S> walk(t, (k + 1) * H);
+    for (int item = warp; item < walk.items; item += nwarps) {
+      int lx0, rows, lz, gz;
+      if (!walk.strip(item, lane, t, nzf, lx0, rows, lz, gz)) continue;
       const float zf = site.zfac[gz];
       const bool ramp = site.strip[gz] != 0.0f;
-      // the windows: rows lx0 - H .. lx0 + rows - 1 + H, inside the tile
-      float ws[S + 2 * H], wr[S + 2 * H];
-#pragma unroll
-      for (int q = 0; q < S + 2 * H; ++q) {
-        const int j = (lx0 - H + q) * t.sz + lz;
-        const bool ok = q < rows + 2 * H;
-        ws[q] = ok ? s_cur[j] : 0.0f;
-        wr[q] = ok ? r_cur[j] : 0.0f;
-      }
+      float w[2][S + 2 * H];     // the source's and the receiver's
+      strip_windows<H>(w, {s_cur, r_cur}, t, lx0, rows, lz);
 #pragma unroll
       for (int i = 0; i < S; ++i) {
         const int lx = lx0 + i, gx = t.gx0 + lx;
@@ -215,12 +120,13 @@ __device__ __forceinline__ void bwd_strip(float* smem, const Site& site,
           us = site.snapshot(k0 + k, gx, gz);
         } else {
           const float lap_s =
-              interior ? strip_lap<H>(ws, i, s_cur, j, c) : 0.0f;
-          us = (2.0f * ws[i + H] - s_old[j]) + v * lap_s;
+              interior ? strip_lap<H>(w[0], i, s_cur, j, c) : 0.0f;
+          us = (2.0f * w[0][i + H] - s_old[j]) + v * lap_s;
         }
-        const float m = zf * (ramp ? sxr[lx] : 1.0f);
-        const float lap_r = interior ? strip_lap<H>(wr, i, r_cur, j, c) : 0.0f;
-        float ur = (2.0f * wr[i + H] - r_old[j] * m) + v * lap_r;
+        const float m = strip_taper(sxr, lx, zf, ramp);
+        const float lap_r =
+            interior ? strip_lap<H>(w[1], i, r_cur, j, c) : 0.0f;
+        float ur = (2.0f * w[1][i + H] - r_old[j] * m) + v * lap_r;
         ur = site.inject(k0 + k, gx, gz, ur);
         s_old[j] = us;
         r_old[j] = last ? ur : ur * m;
@@ -244,7 +150,9 @@ __device__ __forceinline__ void bwd_strip(float* smem, const Site& site,
     const int ox = i / t.tz, oz = i - ox * t.tz;
     const int lx = t.r + ox, lz = t.r + oz;
     const int gx = t.gx0 + lx, gz = t.gz0 + lz;
-    if (!in_grid(gx, gz) || !site.stored(gx, gz)) continue;
+    if (gx < 0 || gx >= nxf || gz < 0 || gz >= nzf || !site.stored(gx, gz)) {
+      continue;
+    }
     const int j = lx * t.sz + lz;
     const size_t q = static_cast<size_t>(gx) * nzf + gz;
     site.ps_out[q] = s_cur[j];

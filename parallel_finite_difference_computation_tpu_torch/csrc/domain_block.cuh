@@ -618,7 +618,7 @@ struct BlockBwdSite {
 };
 
 template <int H, bool kZ>
-__global__ void __launch_bounds__(pfdc::kStripThreads, 2)
+__global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
     block_bwd(const float* __restrict__ ps_in,
               const float* __restrict__ pps_in,
               const float* __restrict__ pr_in,
@@ -799,13 +799,15 @@ struct BlockBwdRun {
   cudaError_t bwd_pass(const float* a, const float* b, const float* c_,
                        const float* d_, float* a_out, float* b_out,
                        float* c_out, float* d_out, BwdPass pass) const {
-    const pfdc::StripShape shape = pfdc::strip_shape(pass.k_steps * H);
+    const pfdc::StripShape shape = pfdc::strip_shape(
+        pfdc::kBwdShapes, pfdc::kBwdStage, pass.k_steps * H);
     if (shape.tx == 0) return cudaErrorInvalidValue;
-    const size_t bytes = pfdc::strip_bytes(shape, pass.k_steps * H);
+    const size_t bytes =
+        pfdc::strip_bytes(shape, pfdc::kBwdStage, pass.k_steps * H);
     const cudaError_t e = pfdc::allow_smem(block_bwd<H, kZ>, bytes);
     if (e != cudaSuccess) return e;
-    const dim3 grid((d.nzl + 2 * pass.ez + shape.tz - 1) / shape.tz,
-                    (d.nxl + 2 * pass.ex + shape.tx - 1) / shape.tx, ns);
+    const dim3 grid = pfdc::strip_grid(shape, ns, d.nxl + 2 * pass.ex,
+                                       d.nzl + 2 * pass.ez);
     const dim3 block(pfdc::kStripThreads);
     block_bwd<H, kZ><<<grid, block, bytes, stream>>>(
         a, b, c_, d_, a_out, b_out, c_out, d_out, snap0, snap1, v2m,

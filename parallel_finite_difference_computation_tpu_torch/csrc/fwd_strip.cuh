@@ -1,0 +1,144 @@
+// The exact forward body of the large-grid tier's K-step kernels: K steps
+// of one field's leapfrog on one block's staged tile, shared by kstep_mod
+// (kstep_mod.cu, mod_main's modeling step) and kstep_gpu_fwd
+// (kstep_gpu_fwd.cu, the GPU suite's fd_forward). Their split twins
+// (P > 0) keep the staged-tile bodies of kstep.cuh.
+//
+// What held the earlier body back on an H100 (PERF.md, kernel table, rows
+// 11-12: 11-13x the bytes bound, slower than the per-step kernels): it
+// staged p, pp and v2*dt2 with dependent loads (74 KB at order 8, K = 4);
+// a generic cell loop recomputed bounds for every cell; every cell-step
+// read 4H + 1 taps from shared memory and rebuilt the taper from three
+// global loads, twice; and each step took two barriers (an update phase,
+// then a taper phase, or the other way round).
+//
+// This body (on the strip pieces of strip.cuh, as bwd_strip.cuh's):
+// - stages only the field at its two time levels, the current one whose
+//   taps are read and the older one read at its own cell, with cp.async,
+//   plus the taper's x ramp along the tile's rows: 74.1 KB for 64 x 64
+//   owned cells at order 8, K = 4, which compute 1.43x the owned cells
+//   over four steps where 32 x 64 compute 1.67x. v2*dt2 is read from
+//   global memory at the cell's own position (for modeling one plane that
+//   all shots share, an L2 hit) and the taper's z factor and strip flag
+//   stay in registers;
+// - gives each thread a strip of kStripRows cells down one column, its x
+//   taps from a register window, the strips laid anew over each step's
+//   shrinking region; two blocks of 16 warps share an SM, with 64
+//   registers a thread and no spill at order 8;
+// - takes one barrier a step: a step writes only the older time level, at
+//   its own cells, and reads the current one. The taper goes where a value
+//   is written or read at its own cell, never in place while neighbours
+//   still read it:
+//   - kstep_gpu_fwd (state (p, pp), p tapered, pp not): a phase of its own
+//     behind a barrier tapers the staged newest field t before step 0;
+//     each step computes u = (2t - o*m) + v*lap(t) from the older field o,
+//     adds the point source, and stores u*m as the next step's t (u after
+//     the last step, the output's pp);
+//   - kstep_mod (state (p, pp), pp tapered): each step computes
+//     u = (2p - o) + v*lap(p) with o the older field as staged at step 0
+//     and o*m after it, adds amp * patch in the source window, stores u*m,
+//     and leaves p untapered in its slot: the old body's phase that
+//     tapered p in place once every neighbour had read it is the o*m of
+//     the next step's read, and of the final store of pp. The trace row is
+//     the owning thread's p*m.
+//   One multiplication by the same m rounds the same, whenever it is done.
+//
+// Exactness. Per cell and step the operations and their order are the
+// earlier body's (mod_step's and rtm_fwd_step's): the taps summed as
+// stencil.cuh's laplacian does, the update, the source, the taper. Built
+// with -fmad=false, so the kernels stay bitwise equal to their plain
+// versions; outputs go to buffers no block of the launch reads.
+//
+// The site. A kernel hands the body a Site: the flavour (kGpu: the
+// kstep_gpu_fwd state above, else kstep_mod's), one shot's field pointers
+// in the (nxf, nzf) layout (cur the newest level, old the older one, and
+// the outputs of each), the taper's ramps, v2*dt2 at a cell, the source's
+// injection and the trace row, if any.
+#pragma once
+
+#include "strip.cuh"
+
+namespace pfdc {
+
+// Owned shapes, the first that fits taken (strip_shape), and what the body
+// stages: the field at two time levels.
+constexpr StripShape kFwdShapes[] = {
+    {64, 64}, {32, 64}, {32, 32}, {16, 32}, {16, 16}};
+constexpr StripStage kFwdStage{2, false};
+
+// The k_steps steps of the site's block on its tile (blockDim.x =
+// kStripThreads, a 1-D block), amps.a[k] the source amplitude of step k.
+template <int H, class Site>
+__device__ __forceinline__ void fwd_strip(float* smem, const Site& site,
+                                          const StripTile& t,
+                                          const Amps& amps, int k_steps,
+                                          const Coefs& c) {
+  constexpr int S = kStripRows;
+  const int n = t.sx * t.sz;
+  float* cur = smem;         // the newest level, whose taps a step reads
+  float* old = smem + n;     // the older level, read at its own cell
+  float* sxr = smem + 2 * n;
+  const int nxf = site.nxf, nzf = site.nzf;
+  const int tid = static_cast<int>(threadIdx.x);
+  const int nth = static_cast<int>(blockDim.x);
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nth >> 5;
+  stage_strip_tile<2>({cur, old}, {site.cur, site.old}, sxr, site.xramp, t,
+                      nxf, nzf);
+  cp_async_wait_all();
+  __syncthreads();
+  if constexpr (Site::kGpu) {
+    taper_strip_tile(cur, sxr, site.zfac, site.strip, t, nxf, nzf);
+  }
+  for (int k = 0; k < k_steps; ++k) {
+    const float amp = amps.a[k];
+    const bool last = k + 1 == k_steps;
+    const bool old_tapered = !Site::kGpu && k == 0;
+    const StripWalk<S> walk(t, (k + 1) * H);
+    for (int item = warp; item < walk.items; item += nwarps) {
+      int lx0, rows, lz, gz;
+      if (!walk.strip(item, lane, t, nzf, lx0, rows, lz, gz)) continue;
+      const float zf = site.zfac[gz];
+      const bool ramp = site.strip[gz] != 0.0f;
+      float w[1][S + 2 * H];
+      strip_windows<H>(w, {cur}, t, lx0, rows, lz);
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        const int lx = lx0 + i, gx = t.gx0 + lx;
+        if (i >= rows || gx < 0 || gx >= nxf) continue;
+        const int j = lx * t.sz + lz;
+        const float m = strip_taper(sxr, lx, zf, ramp);
+        const float lap = in_interior(gx, gz, H, nxf, nzf)
+                              ? strip_lap<H>(w[0], i, cur, j, c)
+                              : 0.0f;
+        const float o = old_tapered ? old[j] : old[j] * m;
+        float u = (2.0f * w[0][i + H] - o) + site.v(gx, gz) * lap;
+        u = site.inject(amp, gx, gz, u);
+        old[j] = Site::kGpu && last ? u : u * m;
+        const int ox = lx - t.r, oz = lz - t.r;
+        if (site.records(gx, gz) && ox >= 0 && ox < t.tx && oz >= 0 &&
+            oz < t.tz) {
+          site.record(k, gx, w[0][i + H] * m);
+        }
+      }
+    }
+    __syncthreads();
+    float* tmp = cur;
+    cur = old;
+    old = tmp;
+  }
+  for (int i = tid; i < t.tx * t.tz; i += nth) {
+    const int ox = i / t.tz, oz = i - ox * t.tz;
+    const int lx = t.r + ox, lz = t.r + oz;
+    const int gx = t.gx0 + lx, gz = t.gz0 + lz;
+    if (gx < 0 || gx >= nxf || gz < 0 || gz >= nzf) continue;
+    const int j = lx * t.sz + lz;
+    const size_t q = static_cast<size_t>(gx) * nzf + gz;
+    site.cur_out[q] = cur[j];
+    site.old_out[q] =
+        Site::kGpu ? old[j]
+                   : old[j] * strip_taper(sxr, lx, site.zfac[gz],
+                                          site.strip[gz] != 0.0f);
+  }
+}
+
+}  // namespace pfdc

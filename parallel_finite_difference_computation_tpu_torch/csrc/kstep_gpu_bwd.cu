@@ -187,7 +187,7 @@ struct KstepBwdSite {
 };
 
 template <int H>
-__global__ void __launch_bounds__(pfdc::kStripThreads, 2)
+__global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
     kstep_gpu_bwd_strip(const float* __restrict__ ps_in,
                         const float* __restrict__ pps_in,
                         const float* __restrict__ pr_in,
@@ -245,13 +245,13 @@ struct KstepBwdRun {
   template <int H, int P>
   cudaError_t launch() const {
     if constexpr (P == 0) {
-      const pfdc::StripShape shape = pfdc::strip_shape(k * H);
+      const pfdc::StripShape shape =
+          pfdc::strip_shape(pfdc::kBwdShapes, pfdc::kBwdStage, k * H);
       if (shape.tx == 0) return cudaErrorInvalidValue;
-      const size_t bytes = pfdc::strip_bytes(shape, k * H);
+      const size_t bytes = pfdc::strip_bytes(shape, pfdc::kBwdStage, k * H);
       const cudaError_t e = pfdc::allow_smem(kstep_gpu_bwd_strip<H>, bytes);
       if (e != cudaSuccess) return e;
-      const dim3 grid((nze + shape.tz - 1) / shape.tz,
-                      (nxe + shape.tx - 1) / shape.tx, ns);
+      const dim3 grid = pfdc::strip_grid(shape, ns, nxe, nze);
       const dim3 block(pfdc::kStripThreads);
       kstep_gpu_bwd_strip<H><<<grid, block, bytes, stream>>>(
           ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out, img, v2dt2,

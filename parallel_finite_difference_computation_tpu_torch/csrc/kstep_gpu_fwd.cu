@@ -6,11 +6,16 @@
 // Replaces: parallel_finite_difference_computation_tpu/ops/pallas_stream.py,
 // _kstep_gpu_fwd_kernel (:740), called through fd_kstep_gpu_fwd_padded
 // (:796) by the JAX package's rtm_shot_snapshot_tiled with block_k > 1:
-// kstep_gpu_fwd<H, 0> its exact taps, kstep_gpu_fwd<H, 2 or 3>
+// kstep_gpu_fwd_strip<H> its exact taps, kstep_gpu_fwd<H, 2 or 3>
 // (kstep_gpu_fwd_mma) its use_mxu branch (:753-761), the z taps in split
-// bf16 on the tensor cores (kstep.cuh, z_band). A block stages a 2-D tile
-// with a K*H halo on both axes (kstep.cuh), and with P > 0 one more tile
-// for the z taps.
+// bf16 on the tensor cores (kstep.cuh, z_band).
+//
+// The exact kernel runs the one-field strip body of fwd_strip.cuh on a
+// block's tile of 64 x 64 owned cells (a smaller shape where the halo
+// leaves that no room): the field at two time levels and the x ramp, 74.1
+// KB at order 8, K = 4, two blocks of 16 warps an SM. The split kernel
+// stages p, pp, v2*dt2 and the z product of the newest field over a 2-D
+// tile with a K*H halo (kstep.cuh).
 //
 // What bounds it on an H100: at the Pluto grid the per-step rtm_fwd_step
 // moves ~180 MB a shot-step through HBM; this pass reads p, pp and v2*dt2
@@ -18,19 +23,19 @@
 // its ramps. What is left is shared-memory and ALU work, with the halo
 // cells computed redundantly.
 //
-// Per step, from the state (p, pp) with p tapered and pp not: t = pp*m
-// (in place, then a barrier), u = (2t - p*m) + v*lap(t), u += amp at the
-// source cell; the next state is (t, u). These are rtm_fwd_step's
-// operations in its order (its taper on read rounds the same), so with
-// -fmad=false the exact kernel is bitwise the per-step kernel; the split
-// one sums each mma's 16 products in the tensor cores' own order.
+// Per step, from the state (p, pp) with p tapered and pp not: t = pp*m,
+// u = (2t - p*m) + v*lap(t), u += amp at the source cell; the next state
+// is (t, u). These are rtm_fwd_step's operations in its order (its taper
+// on read rounds the same), so with -fmad=false the exact kernel is
+// bitwise the per-step kernel; the split one sums each mma's 16 products
+// in the tensor cores' own order.
+#include "fwd_strip.cuh"
 #include "kstep.cuh"
 
 namespace {
 
-// Staged tiles: p, pp and v2*dt2, and with the split taps the z product.
-template <int P>
-constexpr int kFields = P ? 4 : 3;
+// Staged tiles of the split kernel: p, pp, v2*dt2 and the z product of pp.
+constexpr int kSplitFields = 4;
 
 template <int H, int P>
 __global__ void __launch_bounds__(pfdc::kTileThreads)
@@ -42,6 +47,7 @@ __global__ void __launch_bounds__(pfdc::kTileThreads)
                   const float* __restrict__ strip,
                   const int* __restrict__ sx, int sz, pfdc::Amps amps,
                   int k_steps, int nxe, int nze, pfdc::Coefs c) {
+  static_assert(P > 0, "the exact kernel is kstep_gpu_fwd_strip");
   extern __shared__ float smem[];
   const pfdc::Tile t(k_steps * H);
   const int n = t.cells();
@@ -85,6 +91,57 @@ __global__ void __launch_bounds__(pfdc::kTileThreads)
   pfdc::store_tile(pp_out + s * plane, sy, t, nxe, nze);
 }
 
+// The exact kernel's site (fwd_strip.cuh): one shot's fields on the
+// (nxe, nze) grid, pp the newest level and p the older; the point source
+// at (src_x, sz); no trace.
+struct KstepFwdSite {
+  static constexpr bool kGpu = true;
+  const float* cur;
+  const float* old;
+  float* cur_out;
+  float* old_out;
+  const float* v2dt2;
+  const float* xramp;
+  const float* zfac;
+  const float* strip;
+  int src_x, sz, nxf, nzf;
+
+  __device__ float v(int gx, int gz) const {
+    return __ldg(v2dt2 + static_cast<size_t>(gx) * nzf + gz);
+  }
+  __device__ float inject(float amp, int gx, int gz, float u) const {
+    return gx == src_x && gz == sz ? u + amp : u;
+  }
+  __device__ bool records(int, int) const { return false; }
+  __device__ void record(int, int, float) const {}
+};
+
+template <int H>
+__global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
+    kstep_gpu_fwd_strip(const float* __restrict__ p_in,
+                        const float* __restrict__ pp_in,
+                        float* __restrict__ p_out,
+                        float* __restrict__ pp_out,
+                        const float* __restrict__ v2dt2, int v2_shot_stride,
+                        const float* __restrict__ xramp,
+                        const float* __restrict__ zfac,
+                        const float* __restrict__ strip,
+                        const int* __restrict__ sx, int sz, pfdc::Amps amps,
+                        int k_steps, int nxe, int nze,
+                        pfdc::StripShape shape, pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  const int s = blockIdx.z;
+  const size_t plane = static_cast<size_t>(nxe) * nze;
+  const KstepFwdSite site{
+      pp_in + s * plane, p_in + s * plane, pp_out + s * plane,
+      p_out + s * plane, v2dt2 + s * static_cast<size_t>(v2_shot_stride),
+      xramp, zfac, strip, sx[s], sz, nxe, nze};
+  const pfdc::StripTile t(k_steps * H, shape,
+                          static_cast<int>(blockIdx.y) * shape.tx,
+                          static_cast<int>(blockIdx.x) * shape.tz);
+  pfdc::fwd_strip<H>(smem, site, t, amps, k_steps, c);
+}
+
 struct KstepFwdRun {
   const float* p;
   const float* pp;
@@ -105,14 +162,29 @@ struct KstepFwdRun {
 
   template <int H, int P>
   cudaError_t launch() const {
-    const size_t bytes = kFields<P> * sizeof(float) * pfdc::tile_cells(k * H);
-    const cudaError_t e = pfdc::allow_smem(kstep_gpu_fwd<H, P>, bytes);
-    if (e != cudaSuccess) return e;
-    const dim3 grid = pfdc::tile_grid(ns, nxe, nze);
-    const dim3 block = pfdc::tile_block();
-    kstep_gpu_fwd<H, P><<<grid, block, bytes, stream>>>(
-        p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp, zfac, strip, sx,
-        sz, amps, k, nxe, nze, c);
+    if constexpr (P == 0) {
+      const pfdc::StripShape shape =
+          pfdc::strip_shape(pfdc::kFwdShapes, pfdc::kFwdStage, k * H);
+      if (shape.tx == 0) return cudaErrorInvalidValue;
+      const size_t bytes = pfdc::strip_bytes(shape, pfdc::kFwdStage, k * H);
+      const cudaError_t e = pfdc::allow_smem(kstep_gpu_fwd_strip<H>, bytes);
+      if (e != cudaSuccess) return e;
+      const dim3 grid = pfdc::strip_grid(shape, ns, nxe, nze);
+      const dim3 block(pfdc::kStripThreads);
+      kstep_gpu_fwd_strip<H><<<grid, block, bytes, stream>>>(
+          p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp, zfac, strip,
+          sx, sz, amps, k, nxe, nze, shape, c);
+    } else {
+      const size_t bytes =
+          kSplitFields * sizeof(float) * pfdc::tile_cells(k * H);
+      const cudaError_t e = pfdc::allow_smem(kstep_gpu_fwd<H, P>, bytes);
+      if (e != cudaSuccess) return e;
+      const dim3 grid = pfdc::tile_grid(ns, nxe, nze);
+      const dim3 block = pfdc::tile_block();
+      kstep_gpu_fwd<H, P><<<grid, block, bytes, stream>>>(
+          p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp, zfac, strip,
+          sx, sz, amps, k, nxe, nze, c);
+    }
     return cudaGetLastError();
   }
 

@@ -168,24 +168,28 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
 MAX_ORDER = 16
 # A block's dynamic shared memory on an H100 (kMaxSmemBytes, csrc/kstep.cuh).
 SMEM_BYTES = 232448
-# The staging kernels' owned cells a block (x, z): the K-step kernels'
-# tile (kTileX, kTileZ, csrc/kstep.cuh; block_mod and block_fwd: kModTX,
-# kModTZ, csrc/domain_block.cuh), block_bwd_mma's (kBwdMmaTX, kBwdMmaTZ),
-# and the exact backward kernels' shapes, the first that fits taken
-# (kStripShapes, csrc/bwd_strip.cuh).
+# The staging kernels' owned cells a block (x, z): the split K-step
+# kernels' tile (kTileX, kTileZ, csrc/kstep.cuh; block_mod and block_fwd:
+# kModTX, kModTZ, csrc/domain_block.cuh) and block_bwd_mma's (kBwdMmaTX,
+# kBwdMmaTZ).
 _TILE = (32, 64)
 _BWD_MMA_TILE = (16, 32)
-_STRIP_SHAPES = ((32, 64), (32, 32), (16, 32), (16, 16))
+# The exact strip bodies' owned shapes, the first that fits taken, and what
+# they stage besides the x ramp: fields, and whether the owned image
+# (csrc/bwd_strip.cuh: kBwdShapes, kBwdStage, kstep_gpu_bwd and block_bwd;
+# csrc/fwd_strip.cuh: kFwdShapes, kFwdStage, kstep_mod and kstep_gpu_fwd).
+_BWD_STRIP = (((32, 64), (32, 32), (16, 32), (16, 16)), 4, True)
+_FWD_STRIP = (((64, 64), (32, 64), (32, 32), (16, 32), (16, 16)), 2, False)
 # The most steps a pass of the exact block_bwd takes (kBwdPassSteps).
 BWD_PASS_STEPS = 4
-# Staged fields (exact, split) of the kernels that stage a tile of a K*h
-# halo, and whether the owned image is staged too.
-_STAGED = {"kstep_mod": (_TILE, 3, 4, False),
-           "kstep_gpu_fwd": (_TILE, 3, 4, False),
-           "kstep_gpu_bwd": (_TILE, None, 7, True),
-           "block_mod": (_TILE, 2, 3, False),
-           "block_fwd": (_TILE, 2, 3, False),
-           "block_bwd": (_BWD_MMA_TILE, None, 5, True)}
+# Per kernel: the split twin's tile, staged fields and whether the owned
+# image; the exact kernel's strip body, or its staged fields on that tile.
+_STAGED = {"kstep_mod": (_TILE, 4, False, _FWD_STRIP),
+           "kstep_gpu_fwd": (_TILE, 4, False, _FWD_STRIP),
+           "kstep_gpu_bwd": (_TILE, 7, True, _BWD_STRIP),
+           "block_mod": (_TILE, 3, False, 2),
+           "block_fwd": (_TILE, 3, False, 2),
+           "block_bwd": (_BWD_MMA_TILE, 5, True, _BWD_STRIP)}
 STAGING_KERNELS = tuple(_STAGED)
 
 
@@ -195,11 +199,10 @@ def _tile_bytes(tile, r: int, fields: int, image: bool) -> int:
                                                         else 0))
 
 
-def _strip_bytes(shape, r: int) -> int:
-    """bwd_strip.cuh's strip_bytes: four staged fields, the owned image and
-    the x ramp of the tile's rows."""
-    tx, tz = shape
-    return _tile_bytes(shape, r, 4, True) + 4 * (tx + 2 * r)
+def _strip_bytes(shape, r: int, fields: int, image: bool) -> int:
+    """strip.cuh's strip_bytes: the staged fields, the owned image if
+    staged, and the x ramp of the tile's rows."""
+    return _tile_bytes(shape, r, fields, image) + 4 * (shape[0] + 2 * r)
 
 
 def bwd_passes(k: int) -> int:
@@ -213,21 +216,23 @@ def smem_bytes(kernel: str, order: int, k: int, parts: int = 0) -> int:
     """Dynamic shared memory of one block of the staging kernel ``kernel``
     (one of ``STAGING_KERNELS``; ``block2_*`` as ``block_*``, ``*_mma`` as
     ``parts`` > 0) at ``order`` and K = ``k`` steps (a halo of k*h cells),
-    as its launcher sizes it. The exact ``kstep_gpu_bwd`` and ``block_bwd``
-    take the first of their shapes that fits ``SMEM_BYTES``; where none
-    does, the smallest's bytes (refused); the exact ``block_bwd`` stages
-    the steps of its longer pass only (:func:`bwd_passes`)."""
+    as its launcher sizes it. The exact K-step kernels and ``block_bwd``
+    run a strip body and take the first of its shapes that fits
+    ``SMEM_BYTES``; where none does, the smallest's bytes (refused); the
+    exact ``block_bwd`` stages the steps of its longer pass only
+    (:func:`bwd_passes`)."""
     kernel = kernel.replace("block2_", "block_").removesuffix("_mma")
-    tile, exact, split, image = _STAGED[kernel]
+    tile, split, image, exact = _STAGED[kernel]
     if kernel == "block_bwd" and not parts and bwd_passes(k) > 1:
         k = (k + 1) // 2
     r = k * (order // 2)
     if parts:
         return _tile_bytes(tile, r, split, image)
-    if exact is None:
-        sizes = [_strip_bytes(s, r) for s in _STRIP_SHAPES]
-        return next((b for b in sizes if b <= SMEM_BYTES), sizes[-1])
-    return _tile_bytes(tile, r, exact, image)
+    if isinstance(exact, int):
+        return _tile_bytes(tile, r, exact, False)
+    shapes, fields, staged_image = exact
+    sizes = [_strip_bytes(s, r, fields, staged_image) for s in shapes]
+    return next((b for b in sizes if b <= SMEM_BYTES), sizes[-1])
 
 
 def largest_fitting_k(kernels, order: int, k_max: int, parts: int = 0) -> int:

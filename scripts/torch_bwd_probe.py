@@ -20,8 +20,9 @@ as 126 blocks of K = 8 on the four slabs of a (1, 4) mesh of cuda:0 and
 states, median of 3 CUDA-event samples after a warm-up.
 
 ``--variants`` adds copies of the last tree with other constants of
-``csrc/bwd_strip.cuh`` and ``csrc/domain_block.cuh`` (the strip's rows,
-the warps of a block, the first owned shape, ``block_bwd`` in one pass),
+``csrc/strip.cuh``, ``csrc/bwd_strip.cuh`` and ``csrc/domain_block.cuh``
+(the strip's rows, the warps of a block, the first owned shape,
+``block_bwd`` in one pass),
 made under a temporary directory. The trees run in turns,
 ``--rounds`` times (A, B, ..., then in reverse). Prints one JSON line per
 process and the medians per tree, beside the card's name and power limit.
@@ -42,13 +43,13 @@ PKG = "parallel_finite_difference_computation_tpu_torch"
 # name: (a header of csrc/, a text in it, its replacement); the constants
 # of the tree these copies start from
 VARIANTS = {
-    "rows8": ("bwd_strip.cuh", "constexpr int kStripRows = 4;",
+    "rows8": ("strip.cuh", "constexpr int kStripRows = 4;",
               "constexpr int kStripRows = 8;"),
-    "rows16": ("bwd_strip.cuh", "constexpr int kStripRows = 4;",
+    "rows16": ("strip.cuh", "constexpr int kStripRows = 4;",
                "constexpr int kStripRows = 16;"),
-    "warps8": ("bwd_strip.cuh", "constexpr int kStripWarps = 16;",
+    "warps8": ("strip.cuh", "constexpr int kStripWarps = 16;",
                "constexpr int kStripWarps = 8;"),
-    "warps12": ("bwd_strip.cuh", "constexpr int kStripWarps = 16;",
+    "warps12": ("strip.cuh", "constexpr int kStripWarps = 16;",
                 "constexpr int kStripWarps = 12;"),
     "tile64x64": ("bwd_strip.cuh", "{32, 64}, {32, 32}, {16, 32}, {16, 16}};",
                   "{64, 64}, {32, 64}, {32, 32}, {16, 32}, {16, 16}};"),
@@ -201,12 +202,14 @@ print(json.dumps(res))
 '''
 
 
-def variant_trees(tree: str, names, tmp: pathlib.Path) -> dict:
-    """Copies of the port in ``tree`` with each of the VARIANTS ``names``
-    applied."""
+def variant_trees(tree: str, names, tmp: pathlib.Path,
+                  variants=None) -> dict:
+    """Copies of the port in ``tree`` with each of the ``variants`` (by
+    default VARIANTS) ``names`` applied."""
+    variants = VARIANTS if variants is None else variants
     out = {}
     for name in names:
-        header, old, new = VARIANTS[name]
+        header, old, new = variants[name]
         dst = tmp / name
         shutil.copytree(pathlib.Path(tree) / PKG, dst / PKG,
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
@@ -219,12 +222,17 @@ def variant_trees(tree: str, names, tmp: pathlib.Path) -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def main(child: str = CHILD, variants=None, doc: str = __doc__) -> int:
+    """Runs ``child`` (Python source that reads ``TREE`` and prints its
+    times as the last line of JSON, with ``"bitwise"``) once per tree and
+    round, the trees in turns; ``variants`` (by default VARIANTS) name the
+    copies ``--variants`` may ask for."""
+    variants = VARIANTS if variants is None else variants
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--variants", nargs="*", default=[],
-                    choices=sorted(VARIANTS), metavar="NAME",
-                    help=f"copies of the last tree: {', '.join(VARIANTS)}")
+                    choices=sorted(variants), metavar="NAME",
+                    help=f"copies of the last tree: {', '.join(variants)}")
     ap.add_argument("--rounds", type=int, default=1)
     args = ap.parse_args()
     smi = subprocess.run(
@@ -234,7 +242,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         trees = {t: t for t in args.trees}
         trees.update(variant_trees(args.trees[-1], args.variants,
-                                   pathlib.Path(tmp)))
+                                   pathlib.Path(tmp), variants))
         times = {name: [] for name in trees}
         bad = 0
         for r in range(args.rounds):
@@ -242,7 +250,7 @@ def main() -> int:
             for name in order:
                 out = subprocess.run(
                     [sys.executable, "-c",
-                     f"TREE = {trees[name]!r}\n" + CHILD],
+                     f"TREE = {trees[name]!r}\n" + child],
                     capture_output=True, text=True, timeout=1200)
                 sys.stderr.write(out.stderr[-6000:])
                 if out.returncode != 0:

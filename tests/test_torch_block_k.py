@@ -78,6 +78,28 @@ def test_tiled_default_k_fits(order):
                 assert k == tpipe.TILED_BLOCK_K
 
 
+# The tiled tier's K (modeling, RTM) on 3lay at orders 4-16 under each
+# lap_impl, as chosen before kstep_mod and kstep_gpu_fwd ran the forward
+# strip body: their tiles shrank, every K = 4 of theirs fit before and
+# after, and the RTM run's K is kstep_gpu_bwd's or its split twin's.
+LAP_IMPLS = (None, "vpu", "mxu", "mxu6", "auto")
+TILED_K = {order: {li: (4, 4) if order <= 10 or li in (None, "vpu")
+                   else (4, 2 if order == 16 else 3) for li in LAP_IMPLS}
+           for order in range(4, 17, 2)}
+
+
+@pytest.mark.parametrize("lap_impl", LAP_IMPLS)
+@pytest.mark.parametrize("order", sorted(TILED_K))
+def test_tiled_k_is_unchanged_by_the_forward_strip_body(order, lap_impl):
+    ctx = _ctx(order)
+    parts = fk.lap_parts(lap_impl, ctx)
+    for kernels, want in zip((("kstep_mod",), TILED_RTM),
+                             TILED_K[order][lap_impl]):
+        assert stream.tiled_block_k(ctx, kernels, lap_impl) == want
+        assert fk.largest_fitting_k(kernels, order, tpipe.TILED_BLOCK_K,
+                                    parts) == want
+
+
 @pytest.mark.parametrize("shape", [(1, 2), (1, 2, 2)])
 @pytest.mark.parametrize("order", ORDERS)
 def test_domain_default_k_fits(order, shape):

@@ -431,15 +431,17 @@ def test_wrappers_raise_on_bad_inputs(bad):
 def test_shared_memory_of_the_kernels():
     """The staging kernels' tiles, as their C sources size them, against
     the wrappers' mirror (``fk.smem_bytes``, which the pipelines' K choice
-    reads): the K-step kernels exact and split (``*_mma``: one more staged
-    tile for the z taps' product, two in kstep_gpu_bwd), the block kernels
-    exact and split (one more staged tile for the x taps' product;
-    block_bwd_mma on a smaller owned tile), and the exact backward kernels
-    kstep_gpu_bwd and block_bwd, which run bwd_strip.cuh's body on the
-    first of its owned shapes that fits (four staged fields, the owned
-    image and the x ramp). Which (kernel, order, K) the card refuses up to
-    order 16, and that every tile fits at the pipelines' K up to order
-    10; the wrappers' step limit is the kernels'."""
+    reads): the split K-step kernels (``*_mma``: p, pp, v2*dt2 and the z
+    taps' product; kstep_gpu_bwd_mma the four fields, v2*dt2, two products
+    and the owned image), the block kernels exact and split (one more
+    staged tile for the x taps' product; block_bwd_mma on a smaller owned
+    tile), and the exact strip kernels, each on the first of its body's
+    owned shapes that fits: kstep_mod and kstep_gpu_fwd on fwd_strip.cuh's
+    (the field at two time levels and the x ramp), kstep_gpu_bwd and
+    block_bwd on bwd_strip.cuh's (four staged fields, the owned image and
+    the x ramp). Which (kernel, order, K) the card refuses up to order 16,
+    and that every tile fits at the pipelines' K up to order 10; the
+    wrappers' step limit is the kernels'."""
     csrc = pathlib.Path(stream.__file__).parents[1] / "csrc"
     const = {m[1]: int(m[2]) for m in re.finditer(
         r"constexpr int (k\w+) = (\d+);", (csrc / "kstep.cuh").read_text())}
@@ -447,20 +449,35 @@ def test_shared_memory_of_the_kernels():
     tx, tz, limit = const["kTileX"], const["kTileZ"], const["kMaxSmemBytes"]
     assert limit == fk.SMEM_BYTES
 
-    # the strip body's shapes and bytes (csrc/bwd_strip.cuh)
-    strip = (csrc / "bwd_strip.cuh").read_text()
-    shapes = [(int(a), int(b)) for a, b in re.findall(
-        r"\{(\d+), (\d+)\}", re.search(r"kStripShapes\[\] = \{(.*?)\};",
-                                       strip, re.S)[1])]
-    assert " ".join(strip.split()).count(
-        "sizeof(float) * (4 * sx * sz + static_cast<size_t>(s.tx) * s.tz + "
-        "sx)") == 1
+    # the strip bodies' shapes and stages (csrc/bwd_strip.cuh,
+    # csrc/fwd_strip.cuh) and their bytes (csrc/strip.cuh)
+    assert " ".join((csrc / "strip.cuh").read_text().split()).count(
+        "sizeof(float) * (g.fields * sx * sz + (g.image ? "
+        "static_cast<size_t>(s.tx) * s.tz : 0) + sx)") == 1
 
-    def strip_smem(order, k):
-        """bwd_strip's strip_shape: the first shape that fits; the
-        smallest's bytes where none does."""
+    def body(name):
+        text = (csrc / f"{name.lower()}_strip.cuh").read_text()
+        shapes = [(int(a), int(b)) for a, b in re.findall(
+            r"\{(\d+), (\d+)\}", re.search(
+                rf"k{name}Shapes\[\] = \{{(.*?)\}};", text, re.S)[1])]
+        fields, image = re.search(
+            rf"StripStage k{name}Stage\{{(\d), (true|false)\}};",
+            text).groups()
+        return shapes, int(fields), image == "true"
+
+    bodies = {name: body(name) for name in ("Bwd", "Fwd")}
+    assert bodies == {
+        "Bwd": ([(32, 64), (32, 32), (16, 32), (16, 16)], 4, True),
+        "Fwd": ([(64, 64), (32, 64), (32, 32), (16, 32), (16, 16)], 2,
+                False)}
+
+    def strip_smem(name, order, k):
+        """strip_shape of the body ``name``: the first shape that fits;
+        the smallest's bytes where none does."""
+        shapes, fields, image = bodies[name]
         r = k * (order // 2)
-        sizes = [4 * (4 * (a + 2 * r) * (b + 2 * r) + a * b + a + 2 * r)
+        sizes = [4 * (fields * (a + 2 * r) * (b + 2 * r)
+                      + (a * b if image else 0) + a + 2 * r)
                  for a, b in shapes]
         return next((n for n in sizes if n <= limit), sizes[-1])
 
@@ -468,28 +485,25 @@ def test_shared_memory_of_the_kernels():
         """Bytes of a block of ``kernel`` (``*_mma``: its split variant,
         P > 0 in the same source), from its launcher."""
         src = (csrc / f"{kernel.removesuffix('_mma')}.cu").read_text()
-        if kernel == "kstep_gpu_bwd":
-            assert re.search(r"if constexpr \(P == 0\) \{\s*const pfdc::"
-                             r"StripShape shape = pfdc::strip_shape\(k \* H\)"
-                             r";(?:.|\n)*?pfdc::strip_bytes\(shape, k \* H\)",
-                             src)
-            return strip_smem(order, k)
-        if kernel == "kstep_gpu_bwd_mma":
-            assert "kSplitFields * pfdc::tile_cells" in src
-            fields = int(re.search(r"kSplitFields = (\d);", src)[1])
-        else:
-            assert re.search(r"kFields<P> \* (?:sizeof\(float\) \* )?"
-                             r"pfdc::tile_cells", src)
-            split, exact = re.search(r"kFields = P \? (\d) : (\d);",
-                                     src).groups()
-            fields = int(split if kernel.endswith("_mma") else exact)
+        if not kernel.endswith("_mma"):
+            name = "Bwd" if kernel == "kstep_gpu_bwd" else "Fwd"
+            assert re.search(
+                rf"if constexpr \(P == 0\) \{{\s*const pfdc::StripShape "
+                rf"shape =\s*pfdc::strip_shape\(pfdc::k{name}Shapes, "
+                rf"pfdc::k{name}Stage, k \* H\);(?:.|\n)*?pfdc::strip_bytes"
+                rf"\(shape, pfdc::k{name}Stage, k \* H\)", src)
+            return strip_smem(name, order, k)
+        assert re.search(r"kSplitFields \* (?:sizeof\(float\) \* )?"
+                         r"pfdc::tile_cells", src)
+        fields = int(re.search(r"kSplitFields = (\d);", src)[1])
         image = tx * tz if "pfdc::kTileX) * pfdc::kTileZ" in src else 0
         r = k * (order // 2)
         return 4 * (fields * (tx + 2 * r) * (tz + 2 * r) + image)
 
-    # order 8, K = 4: (32 + 32) x (64 + 32) cells a field
-    assert smem("kstep_mod", 8, 4) == 3 * 4 * 64 * 96
-    assert smem("kstep_gpu_fwd", 8, 4) == 3 * 4 * 64 * 96
+    # order 8, K = 4: (32 + 32) x (64 + 32) cells a field, (64 + 32)^2 on
+    # the forward body's 64 x 64 owned cells
+    assert smem("kstep_mod", 8, 4) == 4 * (2 * 96 * 96 + 96)
+    assert smem("kstep_gpu_fwd", 8, 4) == 4 * (2 * 96 * 96 + 96)
     assert smem("kstep_gpu_bwd", 8, 4) == 4 * (4 * 64 * 96 + 32 * 64 + 64)
     assert smem("kstep_mod_mma", 8, 4) == 4 * 4 * 64 * 96
     assert smem("kstep_gpu_fwd_mma", 8, 4) == 4 * 4 * 64 * 96
@@ -499,9 +513,12 @@ def test_shared_memory_of_the_kernels():
     for kernel in ksteps + splits:
         assert smem(kernel, 10, tpipe.TILED_BLOCK_K) <= limit
     # two blocks of kstep_gpu_bwd share an SM at order 8, K = 4 (228 KB
-    # and 1 KB reserved a block); K = 8 fits the strip body's tile
+    # and 1 KB reserved a block), three of the forward kernels; K = 8 fits
+    # both strip bodies' first shape
     assert 2 * (smem("kstep_gpu_bwd", 8, 4) + 1024) <= 228 * 1024
+    assert 3 * (smem("kstep_mod", 8, 4) + 1024) <= 228 * 1024
     assert smem("kstep_gpu_bwd", 8, 8) == 4 * (4 * 96 * 128 + 32 * 64 + 96)
+    assert smem("kstep_gpu_fwd", 8, 8) == 4 * (2 * 128 * 128 + 128)
 
     # the block kernels of the domain tiers (csrc/domain_block.cuh):
     # P ? tile_bytes<TX, TZ>(fields, K*h, image) of the split twin
@@ -520,9 +537,11 @@ def test_shared_memory_of_the_kernels():
     # block_bwd: a pass stages the strip body's tile of its own steps; K
     # above kBwdPassSteps runs in two passes, the longer of (k + 1) / 2
     assert re.search(r"const pfdc::StripShape shape = pfdc::strip_shape\("
-                     r"pass\.k_steps \* H\);\s*if \(shape\.tx == 0\) "
-                     r"return cudaErrorInvalidValue;\s*const size_t bytes = "
-                     r"pfdc::strip_bytes\(shape, pass\.k_steps \* H\);", cuh)
+                     r"\s*pfdc::kBwdShapes, pfdc::kBwdStage, pass\.k_steps "
+                     r"\* H\);\s*if \(shape\.tx == 0\) return "
+                     r"cudaErrorInvalidValue;\s*const size_t bytes =\s*"
+                     r"pfdc::strip_bytes\(shape, pfdc::kBwdStage, "
+                     r"pass\.k_steps \* H\);", cuh)
     assert re.search(r"if constexpr \(P == 0\) \{\s*if \(k <= kBwdPassSteps"
                      r"\)(?:.|\n)*?const int k1 = \(k \+ 1\) / 2, k2 = k - "
                      r"k1;(?:.|\n)*?"
@@ -534,7 +553,8 @@ def test_shared_memory_of_the_kernels():
 
     def block_smem(kernel, order, k):
         if kernel == "block_bwd":
-            return strip_smem(order, k if k <= pass_steps else (k + 1) // 2)
+            return strip_smem("Bwd", order,
+                              k if k <= pass_steps else (k + 1) // 2)
         bx, bz, fields, image = blocks[kernel]
         r = k * (order // 2)
         cells = (dims[bx] + 2 * r) * (dims[bz] + 2 * r)
@@ -586,11 +606,11 @@ def test_shared_memory_of_the_kernels():
             "block_mod": None, "block_fwd": None, "block_bwd": None},
         10: {"kstep_mod": None, "kstep_gpu_fwd": None, "kstep_gpu_bwd": None,
              "block_mod": None, "block_fwd": None, "block_bwd": None},
-        12: {"kstep_mod": 8, "kstep_gpu_fwd": 8, "kstep_gpu_bwd": None,
+        12: {"kstep_mod": None, "kstep_gpu_fwd": None, "kstep_gpu_bwd": None,
              "block_mod": None, "block_fwd": None, "block_bwd": None},
-        14: {"kstep_mod": 7, "kstep_gpu_fwd": 7, "kstep_gpu_bwd": 8,
+        14: {"kstep_mod": None, "kstep_gpu_fwd": None, "kstep_gpu_bwd": 8,
              "block_mod": None, "block_fwd": None, "block_bwd": None},
-        16: {"kstep_mod": 6, "kstep_gpu_fwd": 6, "kstep_gpu_bwd": 7,
+        16: {"kstep_mod": None, "kstep_gpu_fwd": None, "kstep_gpu_bwd": 7,
              "block_mod": 8, "block_fwd": 8, "block_bwd": None}}
     # the split tier at TILED_BLOCK_K = 4: RTM up to order 10, modeling up
     # to order 16
