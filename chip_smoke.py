@@ -57,15 +57,18 @@ Run from the root of the repository, on a machine with one CUDA card and
    first slab edge; and the two makers on a (2, x) mesh of cuda:0 and on
    one alternating cuda:0 and the CPU against the same makers on a CPU
    mesh (edge slabs' zero halos, the exchange within and between
-   devices); gate: max relative error <= 1e-5, and ``block_bwd`` bitwise;
+   devices); gate: max relative error <= 1e-5, and the three kernels
+   bitwise (they run the strip bodies of ``csrc/fwd_strip.cuh`` and
+   ``csrc/bwd_strip.cuh``, a block of more than 4 steps in two passes);
 12. 3lay mesh path: ``run_modeling`` then ``run_rtm_gpu`` on the 3lay
    config over meshes (2, 1), (2, 2) and (1, 4), every position on cuda:0,
    against the no-mesh run of phase 4 (rel RMS <= 1e-5);
 13. the Pluto domain path: ``run_modeling`` then ``run_rtm_gpu`` at the
    full Pluto grid, nt=4500 (cut from 12860 for time), 2 shots, over a
-   (1, 4) mesh of cuda:0 (K=8): launch counts, ``dir.image``, gathers and
-   images against the per-step tier at the same nt (rel RMS <= 1e-5),
-   wall s/shot;
+   (1, 4) mesh of cuda:0 (K=8): launch counts (two passes a block of each
+   block kernel), ``dir.image``, gathers and images against the per-step
+   tier at the same nt (rel RMS <= 1e-5) and their SHA-256 digests (equal
+   digests across runs are bitwise equal results), wall s/shot;
 14. times: each kernel's wrapper call and its plain version, timed with
    CUDA events, median of 3 after a warm-up, taken in turns; for the
    stencil also ``torch.nn.functional.conv2d`` with the same taps (the
@@ -76,7 +79,7 @@ Run from the root of the repository, on a machine with one CUDA card and
    timed once, without a warm-up of their own); the same for the block
    kernels over the four slabs of a (1, 4) mesh, after holding each
    against its plain version there (K = 8 and the tails 4 and 1, seeded;
-   gate 1e-5, ``block_bwd`` bitwise), and the domain tier's whole
+   gate 1e-5, every kernel bitwise), and the domain tier's whole
    modeling and RTM calls against the per-step calls;
 15. profile: one ``torch.profiler`` trace of each 3lay 8-shot call, of the
    8192 x 8192 stencil, and of the Pluto modeling and RTM calls (nt=1001)
@@ -91,16 +94,17 @@ Run from the root of the repository, on a machine with one CUDA card and
    sources across the x cut, the Gaussian band across a z cut and the
    receiver row in a later z part; and the two makers on (2, x, z) meshes
    of cuda:0 and alternating cuda:0 and the CPU against a CPU mesh; gate:
-   max relative error <= 1e-5, and ``block2_bwd`` bitwise;
+   max relative error <= 1e-5, and the three kernels bitwise;
 17. 3lay (x, z) mesh path: ``run_modeling`` then ``run_rtm_gpu`` on the
    3lay config over (2, 2, 2), (1, 2, 2) and (1, 1, 4) meshes of cuda:0,
    against the no-mesh run of phase 4 (rel RMS <= 1e-5);
 18. the Pluto (x, z) path: ``run_modeling`` then ``run_rtm_gpu`` at the
    full Pluto grid, nt=4500, 2 shots, over a (1, 2, 2) mesh of cuda:0
    (K=8): launch counts, ``dir.image``, gathers and images against phase
-   13's per-step run (rel RMS <= 1e-5), wall s/shot; then at nt=1001 the
-   three kernels held against their plain versions at the Pluto tile
-   shapes (K = 8 and the tails 4 and 1), each kernel's launches, its plain
+   13's per-step run (rel RMS <= 1e-5) and their digests beside the x
+   tier's, wall s/shot; then at nt=1001 the three kernels held bitwise
+   against their plain versions at the Pluto tile shapes (K = 8 and the
+   tails 4 and 1), each kernel's launches, its plain
    version's and the per-step kernel call for the same function in turns,
    the two makers' whole calls against the per-step calls, and one
    profiler trace of each: the copy kernels' (the two-stage exchange)
@@ -341,6 +345,8 @@ KERNELS = {
 STRIP_TEMPLATES = {"kstep_mod_strip": ("kstep_mod", "11"),
                    "kstep_gpu_fwd_strip": ("kstep_gpu_fwd", "12"),
                    "kstep_gpu_bwd_strip": ("kstep_gpu_bwd", "13"),
+                   "block_mod": ("block_mod", "15a/16a"),
+                   "block_fwd": ("block_fwd", "15b/16b"),
                    "block_bwd": ("block_bwd", "15c/16c")}
 # The large-grid tier's exact strip kernels, which phase 8 holds bit for
 # bit to their plain versions.
@@ -645,15 +651,26 @@ def build_report(log: str) -> list:
 
 def block_launches(name: str, nt: int, k: int, tiles: int) -> int:
     """Launches of the domain block kernel ``name`` over nt steps in
-    blocks of k (and a tail) on ``tiles`` slabs or tiles: one a block, two
-    for an exact backward block of more than 4 steps (two passes,
-    ``fk.bwd_passes``)."""
+    blocks of k (and a tail) on ``tiles`` slabs or tiles: one a block for
+    a ``*_mma`` twin, one a pass for an exact kernel, which takes a block
+    of more than 4 steps in two (``fk.block_passes``)."""
     from parallel_finite_difference_computation_tpu_torch.ops import (
         fd_kernels as fk)
     full, tail = divmod(nt, k)
-    per = (fk.bwd_passes if name in ("block_bwd", "block2_bwd")
-           else lambda n: 1)
+    per = ((lambda n: 1) if name.endswith("_mma")
+           else (lambda n: len(fk.block_passes(n))))
     return tiles * (full * per(k) + (per(tail) if tail else 0))
+
+
+def digest(*arrays) -> str:
+    """SHA-256 of the arrays' bytes, the first 16 hex digits: equal
+    digests across runs or commits are bitwise equal results."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(np.asarray(a, np.float32)).tobytes())
+    return h.hexdigest()[:16]
 
 
 def check(ok: bool, what: str) -> None:
@@ -1356,8 +1373,8 @@ def main() -> int:
                           flush=True)
                     check(rel <= GATE, f"{kname} order {order} x {n_x} K "
                                        f"{k}: {rel:.3e} > {GATE}")
-                    check(kname != "block_bwd" or absd == 0,
-                          f"block_bwd order {order} x {n_x} K {k} is not "
+                    check(kname not in block_err or absd == 0,
+                          f"{kname} order {order} x {n_x} K {k} is not "
                           f"bitwise")
                     if kname in block_err:
                         block_err[kname] = max(block_err[kname], absd)
@@ -1431,9 +1448,11 @@ def main() -> int:
     check(written.tobytes() == img_d.tobytes() and np.isfinite(img_d).all()
           and np.abs(img_d).max() > 0, "domain dir.image wrong or zero")
     rr = [rel_rms(a, b) for a, b in zip((dat_d, img_d, locs_d), pluto_ref)]
+    digests = [digest(a) for a in (dat_d, img_d, locs_d)]
     print(f"[Pluto domain path] vs the per-step tier: gathers rel RMS "
           f"{rr[0]:.3e}, image rel RMS {rr[1]:.3e}, per-shot images rel RMS "
-          f"{rr[2]:.3e}", flush=True)
+          f"{rr[2]:.3e}; SHA-256 of the gathers, image, per-shot images "
+          f"{', '.join(digests)}", flush=True)
     check(max(rr) <= GATE, "the Pluto domain path differs")
     del dat_d
     phase_done("Pluto domain path")
@@ -1668,8 +1687,7 @@ def main() -> int:
               f"K {KD}, 4, 1): max rel err {rel:.3e}, max abs err "
               f"{absd:.3e}", flush=True)
         check(rel <= GATE, f"{kname} at the Pluto grid: {rel:.3e} > {GATE}")
-        check(not kname.endswith("_bwd") or absd == 0,
-              f"{kname} at the Pluto grid is not bitwise")
+        check(absd == 0, f"{kname} at the Pluto grid is not bitwise")
         results[kname]["max_abs_err"] = max(block_err[kname], absd)
 
     outs_p = [[torch.zeros_like(st_p[j][0]) for _ in range(4)]
@@ -1850,8 +1868,8 @@ def main() -> int:
                           f"{absd:.3e}", flush=True)
                     check(rel <= GATE, f"{kname} order {order} mesh {shape}"
                                        f" K {k}: {rel:.3e} > {GATE}")
-                    check(kname != "block2_bwd" or absd == 0,
-                          f"block2_bwd order {order} mesh {shape} K {k} is "
+                    check(kname not in block2_err or absd == 0,
+                          f"{kname} order {order} mesh {shape} K {k} is "
                           f"not bitwise")
                     if kname in block2_err:
                         block2_err[kname] = max(block2_err[kname], absd)
@@ -1919,9 +1937,12 @@ def main() -> int:
     check(written.tobytes() == img_z.tobytes() and np.isfinite(img_z).all()
           and np.abs(img_z).max() > 0, "(x, z) dir.image wrong or zero")
     rr = [rel_rms(a, b) for a, b in zip((dat_z, img_z, locs_z), pluto_ref)]
+    digests_z = [digest(a) for a in (dat_z, img_z, locs_z)]
     print(f"[Pluto (x, z) path] vs the per-step tier: gathers rel RMS "
           f"{rr[0]:.3e}, image rel RMS {rr[1]:.3e}, per-shot images rel RMS "
-          f"{rr[2]:.3e}", flush=True)
+          f"{rr[2]:.3e}; SHA-256 of the gathers, image, per-shot images "
+          f"{', '.join(digests_z)} (bitwise the x tier's: "
+          f"{digests_z == digests})", flush=True)
     check(max(rr) <= GATE, "the Pluto (x, z) path differs")
     del dat_z, pluto_ref, dat45
 
@@ -1947,8 +1968,7 @@ def main() -> int:
               f"{rs_z[0].nzw}, K {KD}, 4, 1): max rel err {rel:.3e}, max "
               f"abs err {absd:.3e}", flush=True)
         check(rel <= GATE, f"{kname} at the Pluto grid: {rel:.3e} > {GATE}")
-        check(not kname.endswith("_bwd") or absd == 0,
-              f"{kname} at the Pluto grid is not bitwise")
+        check(absd == 0, f"{kname} at the Pluto grid is not bitwise")
         results[kname]["max_abs_err"] = max(block2_err[kname], absd)
     outs_z = [[torch.zeros_like(st_z[j][0]) for _ in range(4)]
               for j in range(4)]

@@ -28,31 +28,32 @@
 namespace {
 
 int block2_mod_run(const float* p, const float* pp, float* p_out,
-                   float* pp_out, const float* v2m, int v2_shot_stride,
-                   const float* xramp, const float* zfac, const float* strip,
-                   const float* src, int r, int sz, const float* amps, int k,
-                   float* rec, int gz, int ns, int hs, int nxl, int hz,
-                   int nzl, int order, int parts, const float* cx,
-                   const float* cz, void* stream) {
+                   float* pp_out, float* scratch, const float* v2m,
+                   int v2_shot_stride, const float* xramp, const float* zfac,
+                   const float* strip, const float* src, int r, int sz,
+                   const float* amps, int k, float* rec, int gz, int ns,
+                   int hs, int nxl, int hz, int nzl, int order, int parts,
+                   const float* cx, const float* cz, void* stream) {
   if (bad_steps(k)) return static_cast<int>(cudaErrorInvalidValue);
   const BlockModRun<true> run{
-      p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp, zfac, strip, src, r,
-      sz, pfdc::make_amps(amps, k), k, rec, gz, ns,
+      p, pp, p_out, pp_out, scratch, v2m, v2_shot_stride, xramp, zfac, strip,
+      src, r, sz, pfdc::make_amps(amps, k), k, rec, gz, ns,
       Dims<true>{hs, nxl, hz, nzl}, pfdc::make_coefs(order / 2, cx, cz),
       parts, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(pfdc::dispatch_half(order, run));
 }
 
 int block2_fwd_run(const float* p, const float* pp, float* p_out,
-                   float* pp_out, const float* v2m, int v2_shot_stride,
-                   const float* xramp, const float* zfac, const float* strip,
-                   const float* src, int sz, const float* amps, int k, int ns,
-                   int hs, int nxl, int hz, int nzl, int order, int parts,
-                   const float* cx, const float* cz, void* stream) {
+                   float* pp_out, float* scratch, const float* v2m,
+                   int v2_shot_stride, const float* xramp, const float* zfac,
+                   const float* strip, const float* src, int sz,
+                   const float* amps, int k, int ns, int hs, int nxl, int hz,
+                   int nzl, int order, int parts, const float* cx,
+                   const float* cz, void* stream) {
   if (bad_steps(k)) return static_cast<int>(cudaErrorInvalidValue);
   const BlockFwdRun<true> run{
-      p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp, zfac, strip, src, sz,
-      pfdc::make_amps(amps, k), k, ns, Dims<true>{hs, nxl, hz, nzl},
+      p, pp, p_out, pp_out, scratch, v2m, v2_shot_stride, xramp, zfac, strip,
+      src, sz, pfdc::make_amps(amps, k), k, ns, Dims<true>{hs, nxl, hz, nzl},
       pfdc::make_coefs(order / 2, cx, cz), parts,
       static_cast<cudaStream_t>(stream)};
   return static_cast<int>(pfdc::dispatch_half(order, run));
@@ -88,20 +89,22 @@ int block2_bwd_run(const float* ps, const float* pps, const float* pr,
 // rows at tile row gz (-1: none; the owned columns only) to rec (ns, k,
 // nxl). src holds each shot's 2r+1 source rows (tile rows sz-r..sz+r,
 // which may lie partly or wholly outside the tile) of the tile's x range;
-// amps is a host array of k samples. Returns a cudaError_t.
+// amps is a host array of k samples. For k > 4, scratch holds (p, pp)
+// between the block's two passes (2 * ns * nxw * nzw floats; may be NULL
+// for k <= 4). Returns a cudaError_t.
 extern "C" int pfdc_block2_mod_run(const float* p, const float* pp,
                                    float* p_out, float* pp_out,
-                                   const float* v2m, int v2_shot_stride,
-                                   const float* xramp, const float* zfac,
-                                   const float* strip, const float* src, int r,
-                                   int sz, const float* amps, int k,
-                                   float* rec, int gz, int ns, int hs,
-                                   int nxl, int hz, int nzl, int order,
-                                   const float* cx, const float* cz,
-                                   void* stream) {
-  return block2_mod_run(p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp,
-                        zfac, strip, src, r, sz, amps, k, rec, gz, ns, hs,
-                        nxl, hz, nzl, order, 0, cx, cz, stream);
+                                   float* scratch, const float* v2m,
+                                   int v2_shot_stride, const float* xramp,
+                                   const float* zfac, const float* strip,
+                                   const float* src, int r, int sz,
+                                   const float* amps, int k, float* rec,
+                                   int gz, int ns, int hs, int nxl, int hz,
+                                   int nzl, int order, const float* cx,
+                                   const float* cz, void* stream) {
+  return block2_mod_run(p, pp, p_out, pp_out, scratch, v2m, v2_shot_stride,
+                        xramp, zfac, strip, src, r, sz, amps, k, rec, gz, ns,
+                        hs, nxl, hz, nzl, order, 0, cx, cz, stream);
 }
 
 // The same block with the x taps in parts (2 or 3) bf16 splits:
@@ -119,27 +122,29 @@ extern "C" int pfdc_block2_mod_mma_run(const float* p, const float* pp,
   if (parts != 2 && parts != 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return block2_mod_run(p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp,
-                        zfac, strip, src, r, sz, amps, k, rec, gz, ns, hs,
-                        nxl, hz, nzl, order, parts, cx, cz, stream);
+  return block2_mod_run(p, pp, p_out, pp_out, nullptr, v2m, v2_shot_stride,
+                        xramp, zfac, strip, src, r, sz, amps, k, rec, gz, ns,
+                        hs, nxl, hz, nzl, order, parts, cx, cz, stream);
 }
 
 // Runs k steps of block_fwd on the tiles from the state (p, pp) into the
 // owned cells of (p_out, pp_out). src holds each shot's one-hot source row
-// of the tile's x range, added at tile row sz (-1: none). Returns a
-// cudaError_t.
+// of the tile's x range, added at tile row sz (-1: none). For k > 4,
+// scratch holds (p, pp) between the block's two passes (2 * ns * nxw *
+// nzw floats; may be NULL for k <= 4). Returns a cudaError_t.
 extern "C" int pfdc_block2_fwd_run(const float* p, const float* pp,
                                    float* p_out, float* pp_out,
-                                   const float* v2m, int v2_shot_stride,
-                                   const float* xramp, const float* zfac,
-                                   const float* strip, const float* src,
-                                   int sz, const float* amps, int k, int ns,
-                                   int hs, int nxl, int hz, int nzl,
-                                   int order, const float* cx,
-                                   const float* cz, void* stream) {
-  return block2_fwd_run(p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp,
-                        zfac, strip, src, sz, amps, k, ns, hs, nxl, hz, nzl,
-                        order, 0, cx, cz, stream);
+                                   float* scratch, const float* v2m,
+                                   int v2_shot_stride, const float* xramp,
+                                   const float* zfac, const float* strip,
+                                   const float* src, int sz,
+                                   const float* amps, int k, int ns, int hs,
+                                   int nxl, int hz, int nzl, int order,
+                                   const float* cx, const float* cz,
+                                   void* stream) {
+  return block2_fwd_run(p, pp, p_out, pp_out, scratch, v2m, v2_shot_stride,
+                        xramp, zfac, strip, src, sz, amps, k, ns, hs, nxl, hz,
+                        nzl, order, 0, cx, cz, stream);
 }
 
 // The same block with the x taps in parts (2 or 3) bf16 splits:
@@ -157,9 +162,9 @@ extern "C" int pfdc_block2_fwd_mma_run(const float* p, const float* pp,
   if (parts != 2 && parts != 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return block2_fwd_run(p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp,
-                        zfac, strip, src, sz, amps, k, ns, hs, nxl, hz, nzl,
-                        order, parts, cx, cz, stream);
+  return block2_fwd_run(p, pp, p_out, pp_out, nullptr, v2m, v2_shot_stride,
+                        xramp, zfac, strip, src, sz, amps, k, ns, hs, nxl, hz,
+                        nzl, order, parts, cx, cz, stream);
 }
 
 // Runs k steps of block_bwd on the tiles from the state (ps, pps, pr, ppr)

@@ -22,31 +22,32 @@
 namespace {
 
 int block_mod_run(const float* p, const float* pp, float* p_out,
-                  float* pp_out, const float* v2m, int v2_shot_stride,
-                  const float* xramp, const float* zfac, const float* strip,
-                  const float* src, int r, int sz, const float* amps, int k,
-                  float* rec, int gz, int ns, int hs, int nxl, int nze,
-                  int order, int parts, const float* cx, const float* cz,
-                  void* stream) {
+                  float* pp_out, float* scratch, const float* v2m,
+                  int v2_shot_stride, const float* xramp, const float* zfac,
+                  const float* strip, const float* src, int r, int sz,
+                  const float* amps, int k, float* rec, int gz, int ns,
+                  int hs, int nxl, int nze, int order, int parts,
+                  const float* cx, const float* cz, void* stream) {
   if (bad_steps(k)) return static_cast<int>(cudaErrorInvalidValue);
   const BlockModRun<false> run{
-      p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp, zfac, strip, src, r,
-      sz, pfdc::make_amps(amps, k), k, rec, gz, ns,
+      p, pp, p_out, pp_out, scratch, v2m, v2_shot_stride, xramp, zfac, strip,
+      src, r, sz, pfdc::make_amps(amps, k), k, rec, gz, ns,
       Dims<false>{hs, nxl, 0, nze}, pfdc::make_coefs(order / 2, cx, cz),
       parts, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(pfdc::dispatch_half(order, run));
 }
 
 int block_fwd_run(const float* p, const float* pp, float* p_out,
-                  float* pp_out, const float* v2m, int v2_shot_stride,
-                  const float* xramp, const float* zfac, const float* strip,
-                  const float* src, int sz, const float* amps, int k, int ns,
-                  int hs, int nxl, int nze, int order, int parts,
-                  const float* cx, const float* cz, void* stream) {
+                  float* pp_out, float* scratch, const float* v2m,
+                  int v2_shot_stride, const float* xramp, const float* zfac,
+                  const float* strip, const float* src, int sz,
+                  const float* amps, int k, int ns, int hs, int nxl, int nze,
+                  int order, int parts, const float* cx, const float* cz,
+                  void* stream) {
   if (bad_steps(k)) return static_cast<int>(cudaErrorInvalidValue);
   const BlockFwdRun<false> run{
-      p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp, zfac, strip, src, sz,
-      pfdc::make_amps(amps, k), k, ns, Dims<false>{hs, nxl, 0, nze},
+      p, pp, p_out, pp_out, scratch, v2m, v2_shot_stride, xramp, zfac, strip,
+      src, sz, pfdc::make_amps(amps, k), k, ns, Dims<false>{hs, nxl, 0, nze},
       pfdc::make_coefs(order / 2, cx, cz), parts,
       static_cast<cudaStream_t>(stream)};
   return static_cast<int>(pfdc::dispatch_half(order, run));
@@ -79,19 +80,22 @@ int block_bwd_run(const float* ps, const float* pps, const float* pr,
 // + 2*hs, nze) from the state (p, pp) into the owned rows of (p_out,
 // pp_out), and writes each shot's k traces of the owned rows to rec (ns, k,
 // nxl). src holds each shot's 2r+1 source rows (depths sz-r..sz+r) of the
-// slab; amps is a host array of k samples. Returns a cudaError_t.
+// slab; amps is a host array of k samples. For k > 4, scratch holds (p,
+// pp) between the block's two passes (2 * ns * nxw * nze floats; may be
+// NULL for k <= 4). Returns a cudaError_t.
 extern "C" int pfdc_block_mod_run(const float* p, const float* pp,
                                   float* p_out, float* pp_out,
-                                  const float* v2m, int v2_shot_stride,
-                                  const float* xramp, const float* zfac,
-                                  const float* strip, const float* src, int r,
-                                  int sz, const float* amps, int k, float* rec,
+                                  float* scratch, const float* v2m,
+                                  int v2_shot_stride, const float* xramp,
+                                  const float* zfac, const float* strip,
+                                  const float* src, int r, int sz,
+                                  const float* amps, int k, float* rec,
                                   int gz, int ns, int hs, int nxl, int nze,
                                   int order, const float* cx, const float* cz,
                                   void* stream) {
-  return block_mod_run(p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp,
-                       zfac, strip, src, r, sz, amps, k, rec, gz, ns, hs, nxl,
-                       nze, order, 0, cx, cz, stream);
+  return block_mod_run(p, pp, p_out, pp_out, scratch, v2m, v2_shot_stride,
+                       xramp, zfac, strip, src, r, sz, amps, k, rec, gz, ns,
+                       hs, nxl, nze, order, 0, cx, cz, stream);
 }
 
 // The same block with the x taps in parts (2 or 3) bf16 splits:
@@ -109,26 +113,28 @@ extern "C" int pfdc_block_mod_mma_run(const float* p, const float* pp,
   if (parts != 2 && parts != 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return block_mod_run(p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp,
-                       zfac, strip, src, r, sz, amps, k, rec, gz, ns, hs, nxl,
-                       nze, order, parts, cx, cz, stream);
+  return block_mod_run(p, pp, p_out, pp_out, nullptr, v2m, v2_shot_stride,
+                       xramp, zfac, strip, src, r, sz, amps, k, rec, gz, ns,
+                       hs, nxl, nze, order, parts, cx, cz, stream);
 }
 
 // Runs k steps of block_fwd on the slabs from the state (p, pp) into the
 // owned rows of (p_out, pp_out). src holds each shot's source row (depth
-// sz) of the slab. Returns a cudaError_t.
+// sz) of the slab. For k > 4, scratch holds (p, pp) between the block's
+// two passes (2 * ns * nxw * nze floats; may be NULL for k <= 4). Returns
+// a cudaError_t.
 extern "C" int pfdc_block_fwd_run(const float* p, const float* pp,
                                   float* p_out, float* pp_out,
-                                  const float* v2m, int v2_shot_stride,
-                                  const float* xramp, const float* zfac,
-                                  const float* strip, const float* src,
-                                  int sz, const float* amps, int k, int ns,
-                                  int hs, int nxl, int nze, int order,
-                                  const float* cx, const float* cz,
+                                  float* scratch, const float* v2m,
+                                  int v2_shot_stride, const float* xramp,
+                                  const float* zfac, const float* strip,
+                                  const float* src, int sz, const float* amps,
+                                  int k, int ns, int hs, int nxl, int nze,
+                                  int order, const float* cx, const float* cz,
                                   void* stream) {
-  return block_fwd_run(p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp,
-                       zfac, strip, src, sz, amps, k, ns, hs, nxl, nze, order,
-                       0, cx, cz, stream);
+  return block_fwd_run(p, pp, p_out, pp_out, scratch, v2m, v2_shot_stride,
+                       xramp, zfac, strip, src, sz, amps, k, ns, hs, nxl, nze,
+                       order, 0, cx, cz, stream);
 }
 
 // The same block with the x taps in parts (2 or 3) bf16 splits:
@@ -145,9 +151,9 @@ extern "C" int pfdc_block_fwd_mma_run(const float* p, const float* pp,
   if (parts != 2 && parts != 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return block_fwd_run(p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp,
-                       zfac, strip, src, sz, amps, k, ns, hs, nxl, nze, order,
-                       parts, cx, cz, stream);
+  return block_fwd_run(p, pp, p_out, pp_out, nullptr, v2m, v2_shot_stride,
+                       xramp, zfac, strip, src, sz, amps, k, ns, hs, nxl, nze,
+                       order, parts, cx, cz, stream);
 }
 
 // Runs k steps of block_bwd on the slabs from the state (ps, pps, pr, ppr)

@@ -33,24 +33,35 @@
 //
 // What bounds it on an H100: per block the pass reads the staged fields
 // and v2m once and writes the owned cells once; what is left is shared-
-// memory and ALU work on a tile (32 + 2kh)(64 + 2kh) for 32 x 64 owned
-// cells. block_bwd and block2_bwd run the strip body of bwd_strip.cuh
-// (shared with kstep_gpu_bwd): 32 x 64 owned cells where the K*h halo
-// leaves room (order 8 and K = 8: 205 KB), a smaller shape where it does
-// not (32 x 32 at order 10 and K = 8).
+// memory and ALU work on the staged tile, whose halo cells are computed
+// redundantly. The exact kernels run the register-strip bodies shared
+// with the large-grid tier's K-step kernels: block_mod and block_fwd the
+// one-field body of fwd_strip.cuh (kstep_mod's and kstep_gpu_fwd's, on 64
+// x 96 owned cells, kBlockFwdShapes: over the four kernels on the Pluto
+// slabs and tiles faster than 64 x 64, 64 x 112, 48 x 96, 32 x 128 and
+// 64 x 128, though 64 x 112 is 2-3 % faster on the tiles alone; PERF.md),
+// block_bwd the body of bwd_strip.cuh (kstep_gpu_bwd's; 32 x 64 owned
+// cells, 32 x 32 at order 10). Each takes the K steps of a block in
+// passes of at most kBlockPassSteps (below), so that the staged halo stays
+// that deep: at order 8, K = 8, two passes of 4 on 64 x 96 owned cells
+// compute 1.35x the owned cells each, where the earlier forward body's one
+// pass of 8 on 32 x 64 computed 2.9x.
 //
 // Per step the operations, their order and rounding are the plain block
-// functions' (parallel/domain_kernels.py) and the TPU kernels': the older
-// field tapered in place in a phase of its own, then a barrier, outputs to
-// buffers no block of the launch reads. block_bwd sums the image delta of
-// the block from 0 in shared memory and adds it to the running image once,
-// as the JAX package does (domain_pallas.py:161, :178, :492). Offsets into
-// trace rows and seismograms are size_t.
+// functions' (parallel/domain_kernels.py) and the TPU kernels', outputs
+// to buffers no block of the launch reads: the strip bodies put the taper
+// where a value is written or read at its own cell (fwd_strip.cuh says
+// why that rounds the same), the split twins' staged-tile bodies taper
+// the older field in place in a phase of its own, then a barrier.
+// block_bwd sums the image delta of the block from 0 in shared memory and
+// adds it to the running image once, as the JAX package does
+// (domain_pallas.py:161, :178, :492). Offsets into trace rows and
+// seismograms are size_t.
 //
-// The split x taps (lap_impl "mxu", "mxu6"). Each kernel body is a
-// template on P, the bf16 parts of its Laplacian: P = 0 is the exact
-// kernel (block_mod, block_fwd, block_bwd), compiled as before; P = 2 (3)
-// is its *_mma twin (block_mod_mma, ...), which takes the x taps as the
+// The split x taps (lap_impl "mxu", "mxu6"). The staged-tile bodies below
+// are templates on P, the bf16 parts of the Laplacian (P > 0; the exact
+// kernels, P = 0, run the strip bodies): P = 2 (3) is the *_mma twin of a
+// kernel (block_mod_mma, ...), which takes the x taps as the
 // 3-pass (6-pass) split-bf16 banded product on the tensor cores
 // (mma_bf16.cuh) and the z taps exact, yx + accz, as the JAX block kernels'
 // use_mxu branch does (_make_lap's MXU branch, ops/pallas_fd.py:312-332,
@@ -75,11 +86,12 @@
 #pragma once
 
 #include "bwd_strip.cuh"
+#include "fwd_strip.cuh"
 #include "kstep.cuh"
 
 namespace {
 
-constexpr int kModTX = 32, kModTZ = 64;   // block_mod, block_fwd (+ _mma)
+constexpr int kModTX = 32, kModTZ = 64;   // block_mod_mma, block_fwd_mma
 constexpr int kBwdMmaTX = 16, kBwdMmaTZ = 32;   // block_bwd_mma
 
 // A tile's owned size and halos. kZ: an (x, z) tile, with a z halo and z
@@ -189,7 +201,7 @@ __device__ __forceinline__ void store_tile(float* __restrict__ f,
 
 // The x taps of the field f, centre included, as the P-part split-bf16
 // banded product, into xb at every block-tile cell at least lo cells from
-// its edge, then a barrier; nothing for P = 0. A warp (threadIdx.y) takes
+// its edge, then a barrier. A warp (threadIdx.y) takes
 // the region's blocks of 16 columns (the mma's rows m, along z) by 8 rows
 // (its outputs n, along x) in turn, contracting down x: A[m][k] is column
 // z0 + m of the tile at row x0 - H + k, the window of output row x0 + n
@@ -199,50 +211,44 @@ __device__ __forceinline__ void store_tile(float* __restrict__ f,
 template <int H, int P, class T>
 __device__ __forceinline__ void x_band(float* xb, const float* f, const T& t,
                                        int lo, const pfdc::SplitBand<H, P>& band) {
-  if constexpr (P > 0) {
-    const int lane = static_cast<int>(threadIdx.x);
-    const int hx = t.sx - lo, hz = t.sz - lo;
-    const int nbz = (hz - lo + 15) / 16;
-    const int nb = (hx - lo + 7) / 8 * nbz;
-    for (int b = threadIdx.y; b < nb; b += blockDim.y) {
-      const int x0 = lo + 8 * (b / nbz);
-      const int z0 = lo + 16 * (b % nbz);
-      float y[4];
-      pfdc::banded_mma<H, P>(
-          y,
-          [&](int m, int k) {
-            const int lx = x0 - H + k, lz = z0 + m;
-            return lx < t.sx && lz < t.sz ? f[lx * t.sz + lz] : 0.0f;
-          },
-          band, lane);
+  static_assert(P > 0, "the split twins' x product");
+  const int lane = static_cast<int>(threadIdx.x);
+  const int hx = t.sx - lo, hz = t.sz - lo;
+  const int nbz = (hz - lo + 15) / 16;
+  const int nb = (hx - lo + 7) / 8 * nbz;
+  for (int b = threadIdx.y; b < nb; b += blockDim.y) {
+    const int x0 = lo + 8 * (b / nbz);
+    const int z0 = lo + 16 * (b % nbz);
+    float y[4];
+    pfdc::banded_mma<H, P>(
+        y,
+        [&](int m, int k) {
+          const int lx = x0 - H + k, lz = z0 + m;
+          return lx < t.sx && lz < t.sz ? f[lx * t.sz + lz] : 0.0f;
+        },
+        band, lane);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int lz = z0 + pfdc::frag_g(lane) + 8 * (q >> 1);
-        const int lx = x0 + 2 * pfdc::frag_t(lane) + (q & 1);
-        if (lx < hx && lz < hz) xb[lx * t.sz + lz] = y[q];
-      }
+    for (int q = 0; q < 4; ++q) {
+      const int lz = z0 + pfdc::frag_g(lane) + 8 * (q >> 1);
+      const int lx = x0 + 2 * pfdc::frag_t(lane) + (q & 1);
+      if (lx < hx && lz < hz) xb[lx * t.sz + lz] = y[q];
     }
-    __syncthreads();
   }
+  __syncthreads();
 }
 
-// The Laplacian at block-tile cell j of the field f: the exact taps
-// (P = 0), or the split x taps x_band left in xb plus the exact z taps
-// (yx + accz).
-template <int H, int P>
+// The split Laplacian at block-tile cell j of the field f: the x taps
+// x_band left in xb plus the exact z taps (yx + accz).
+template <int H>
 __device__ __forceinline__ float block_lap(const float* f, const float* xb,
-                                           int j, int sz,
-                                           const pfdc::Coefs& c) {
-  if constexpr (P == 0) {
-    return pfdc::laplacian<H, false>(f, nullptr, j, sz, c);
-  } else {
-    return xb[j] + pfdc::axis_taps<H>(f, j, 1, c.z);
-  }
+                                           int j, const pfdc::Coefs& c) {
+  return xb[j] + pfdc::axis_taps<H>(f, j, 1, c.z);
 }
 
 // Per step, from the state (p, pp), pp tapered: u = (2p - pp) + v*lap(p);
 // u += amp * src on the source rows; pp' = u*m; p' = p*m, whose row gz on
-// the owned cells is the step's trace (mod_main.cpp:146-168).
+// the owned cells is the step's trace (mod_main.cpp:146-168):
+// block_mod_mma's body (P > 0; block_mod runs fwd_strip.cuh's).
 template <int H, bool kZ, int P>
 __device__ __forceinline__ void block_mod_body(
     float* smem, const float* __restrict__ p_in,
@@ -253,12 +259,13 @@ __device__ __forceinline__ void block_mod_body(
     const float* __restrict__ src, int r, int src_z, const pfdc::Amps& amps,
     int k_steps, float* __restrict__ rec, int gz_rec, const Dims<kZ>& d,
     const pfdc::Coefs& c) {
+  static_assert(P > 0, "block_mod runs fwd_strip");
   const int nxw = d.nxw(), nzw = d.nzw();
   const BlockTile<kModTX, kModTZ> t(k_steps * H, d);
   const int n = t.cells();
   float* sp = smem;
   float* spp = smem + n;
-  float* xb = smem + 2 * n;     // P > 0: the x taps of sp
+  float* xb = smem + 2 * n;     // the x taps of sp
   const auto band = pfdc::split_band<H, P>(c.x);
   const int s = blockIdx.z;
   const size_t plane = d.plane();
@@ -276,7 +283,7 @@ __device__ __forceinline__ void block_mod_body(
     for_cells(t, lo, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
       const int j = lx * t.sz + lz;
       const float lap = pfdc::in_interior(gx, gz, H, nxw, nzw)
-                            ? block_lap<H, P>(sp, xb, j, t.sz, c)
+                            ? block_lap<H>(sp, xb, j, c)
                             : 0.0f;
       float u = (2.0f * sp[j] - spp[j]) +
                 v[static_cast<size_t>(gx) * nzw + gz] * lap;
@@ -306,7 +313,8 @@ __device__ __forceinline__ void block_mod_body(
 
 // Per step, from the state (p, pp), p tapered and pp not (fd-code.cu:
 // 259-267): t = pp*m (in place, then a barrier), u = (2t - p*m) + v*lap(t),
-// u += amp * src on row src_z; the next state is (t, u).
+// u += amp * src on row src_z; the next state is (t, u): block_fwd_mma's
+// body (P > 0; block_fwd runs fwd_strip.cuh's).
 template <int H, bool kZ, int P>
 __device__ __forceinline__ void block_fwd_body(
     float* smem, const float* __restrict__ p_in,
@@ -316,12 +324,13 @@ __device__ __forceinline__ void block_fwd_body(
     const float* __restrict__ zfac, const float* __restrict__ strip,
     const float* __restrict__ src, int src_z, const pfdc::Amps& amps,
     int k_steps, const Dims<kZ>& d, const pfdc::Coefs& c) {
+  static_assert(P > 0, "block_fwd runs fwd_strip");
   const int nxw = d.nxw(), nzw = d.nzw();
   const BlockTile<kModTX, kModTZ> t(k_steps * H, d);
   const int n = t.cells();
   float* sx_ = smem;      // p: the older field, tapered
   float* sy = smem + n;   // pp: the newest field
-  float* xb = smem + 2 * n;     // P > 0: the x taps of sy
+  float* xb = smem + 2 * n;     // the x taps of sy
   const auto band = pfdc::split_band<H, P>(c.x);
   const int s = blockIdx.z;
   const size_t plane = d.plane();
@@ -342,7 +351,7 @@ __device__ __forceinline__ void block_fwd_body(
       const int j = lx * t.sz + lz;
       const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
       const float lap = pfdc::in_interior(gx, gz, H, nxw, nzw)
-                            ? block_lap<H, P>(sy, xb, j, t.sz, c)
+                            ? block_lap<H>(sy, xb, j, c)
                             : 0.0f;
       float u = (2.0f * sy[j] - sx_[j] * m) +
                 v[static_cast<size_t>(gx) * nzw + gz] * lap;
@@ -389,7 +398,7 @@ __device__ __forceinline__ void block_bwd_body(
   float* spr = smem + 2 * n;
   float* sppr = smem + 3 * n;
   float* simg = smem + 4 * n;   // T::kTX x T::kTZ, owned cells
-  float* xb = simg + T::kTX * T::kTZ;   // P > 0: the x taps of sps or spr
+  float* xb = simg + T::kTX * T::kTZ;   // the x taps of sps or spr
   const auto band = pfdc::split_band<H, P>(c.x);
   const int s = blockIdx.z;
   const size_t plane = d.plane();
@@ -422,7 +431,7 @@ __device__ __forceinline__ void block_bwd_body(
         spps[j] = (k == 0 ? snap1 : snap0)[s * plane + q];
       } else {
         const float lap_s = pfdc::in_interior(gx, gz, H, nxw, nzw)
-                                ? block_lap<H, P>(sps, xb, j, t.sz, c)
+                                ? block_lap<H>(sps, xb, j, c)
                                 : 0.0f;
         spps[j] = (2.0f * sps[j] - spps[j]) + v[q] * lap_s;
       }
@@ -433,7 +442,7 @@ __device__ __forceinline__ void block_bwd_body(
       const int j = lx * t.sz + lz;
       const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
       const float lap_r = pfdc::in_interior(gx, gz, H, nxw, nzw)
-                              ? block_lap<H, P>(spr, xb, j, t.sz, c)
+                              ? block_lap<H>(spr, xb, j, c)
                               : 0.0f;
       float ur = (2.0f * spr[j] - sppr[j] * m) +
                  v[static_cast<size_t>(gx) * nzw + gz] * lap_r;
@@ -467,25 +476,8 @@ __device__ __forceinline__ void block_bwd_body(
   });
 }
 
-// The exact kernels (P = 0) and their split-bf16 twins (P = 2, 3), whose
-// mma fragments take registers: their launch bounds are stated.
-template <int H, bool kZ>
-__global__ void block_mod(const float* __restrict__ p_in,
-                          const float* __restrict__ pp_in,
-                          float* __restrict__ p_out, float* __restrict__ pp_out,
-                          const float* __restrict__ v2m, int v2_shot_stride,
-                          const float* __restrict__ xramp,
-                          const float* __restrict__ zfac,
-                          const float* __restrict__ strip,
-                          const float* __restrict__ src, int r, int src_z,
-                          pfdc::Amps amps, int k_steps, float* __restrict__ rec,
-                          int gz_rec, Dims<kZ> d, pfdc::Coefs c) {
-  extern __shared__ float smem[];
-  block_mod_body<H, kZ, 0>(smem, p_in, pp_in, p_out, pp_out, v2m,
-                           v2_shot_stride, xramp, zfac, strip, src, r, src_z,
-                           amps, k_steps, rec, gz_rec, d, c);
-}
-
+// The split-bf16 twins (P = 2, 3), whose mma fragments take registers:
+// their launch bounds are stated.
 template <int H, bool kZ, int P>
 __global__ void __launch_bounds__(pfdc::kTileThreads)
     block_mod_mma(const float* __restrict__ p_in,
@@ -501,23 +493,6 @@ __global__ void __launch_bounds__(pfdc::kTileThreads)
   block_mod_body<H, kZ, P>(smem, p_in, pp_in, p_out, pp_out, v2m,
                            v2_shot_stride, xramp, zfac, strip, src, r, src_z,
                            amps, k_steps, rec, gz_rec, d, c);
-}
-
-template <int H, bool kZ>
-__global__ void block_fwd(const float* __restrict__ p_in,
-                          const float* __restrict__ pp_in,
-                          float* __restrict__ p_out, float* __restrict__ pp_out,
-                          const float* __restrict__ v2m, int v2_shot_stride,
-                          const float* __restrict__ xramp,
-                          const float* __restrict__ zfac,
-                          const float* __restrict__ strip,
-                          const float* __restrict__ src, int src_z,
-                          pfdc::Amps amps, int k_steps, Dims<kZ> d,
-                          pfdc::Coefs c) {
-  extern __shared__ float smem[];
-  block_fwd_body<H, kZ, 0>(smem, p_in, pp_in, p_out, pp_out, v2m,
-                           v2_shot_stride, xramp, zfac, strip, src, src_z,
-                           amps, k_steps, d, c);
 }
 
 template <int H, bool kZ, int P>
@@ -536,26 +511,206 @@ __global__ void __launch_bounds__(pfdc::kTileThreads)
                            amps, k_steps, d, c);
 }
 
-// block_bwd takes its K steps in passes of at most kBwdPassSteps, so that
-// the staged halo stays that many steps deep (K = 8 at order 8: two passes
-// of 4, a 16-cell halo and two blocks an SM, where one pass of 8 staged a
-// 32-cell halo, one block an SM, and computed 2.9x the owned cells): the
-// first pass writes its fields into scratch buffers over the owned cells
-// and the margin the second one stages, and the block's image delta, from
-// 0, into a scratch image; the second pass sums on from it and adds it to
-// the running image once, so the sums are the one-pass body's.
-constexpr int kBwdPassSteps = 4;
+// The exact kernels take the K steps of a block in passes of at most
+// kBlockPassSteps, so that the staged halo stays that many steps deep (K =
+// 8 at order 8: two passes of 4, a 16-cell halo, two blocks an SM, where
+// one pass of 8 staged a 32-cell halo, one block an SM, and computed 1.9x
+// the owned cells of block_mod's 64 x 96, 2.9x of block_bwd's 32 x 64; on
+// the card one pass was 1.5x slower for block_mod on 64 x 64 and 1.8x for
+// block_bwd, PERF.md). Above it a block takes two
+// passes, of (K + 1) / 2 and K / 2 steps: the first writes its fields into
+// scratch buffers over the owned cells and the margin that the second
+// stages (K/2 * h rows where the tile has an x halo, as many columns where
+// it has a z halo), and block_bwd's image delta, from 0, into a scratch
+// image; the second reads them and writes the outputs, block_bwd summing
+// on from the delta and adding it to the running image once, so the sums
+// are the one-pass body's. The forward states compose across the passes
+// as fwd_strip.cuh says.
+constexpr int kBlockPassSteps = 4;
 
-// One pass of block_bwd: steps k0 .. k0 + k_steps - 1 of the block, the
-// margin (ex, ez) around the owned cells that it writes too, and where the
-// image sum starts (nullptr: from 0) and ends (added to img_end, or
-// stored).
-struct BwdPass {
+// One pass of an exact block kernel: steps k0 .. k0 + k_steps - 1 of the
+// block, the margin (ex, ez) around the owned cells that it writes too,
+// and for block_bwd where the image sum starts (nullptr: from 0) and ends
+// (added to img_end, or stored).
+struct BlockPass {
   int k0, k_steps, ex, ez;
   const float* img_start;
   float* img_end;
   bool add;
 };
+
+// The passes of an exact block of k steps on the tile d, h the half order:
+// n = 1, first all k steps; or n = 2, first (k + 1) / 2 steps and the
+// margin the second stages, second the rest. The image members are
+// block_bwd's to set.
+template <bool kZ>
+struct BlockPasses {
+  int n;
+  BlockPass first, second;
+
+  BlockPasses(const Dims<kZ>& d, int k, int h) {
+    const int k1 = k <= kBlockPassSteps ? k : (k + 1) / 2, k2 = k - k1;
+    n = k2 ? 2 : 1;
+    first = {0, k1, d.hs ? k2 * h : 0, d.hz() ? k2 * h : 0, nullptr, nullptr,
+             false};
+    second = {k1, k2, 0, 0, nullptr, nullptr, false};
+  }
+};
+
+// The amplitudes of steps k0 .. of a block: a later pass's.
+inline pfdc::Amps amps_from(const pfdc::Amps& amps, int k0) {
+  pfdc::Amps a{};
+  for (int i = k0; i < pfdc::kMaxSteps; ++i) a.a[i - k0] = amps.a[i];
+  return a;
+}
+
+// The block's staged tile in a pass: owned shape s from the pass's output
+// rectangle, the owned cells and the margin (ex, ez).
+template <bool kZ>
+__device__ pfdc::StripTile pass_tile(int halo, pfdc::StripShape s,
+                                     const BlockPass& pass,
+                                     const Dims<kZ>& d) {
+  return pfdc::StripTile(
+      halo, s, d.hs - pass.ex + static_cast<int>(blockIdx.y) * s.tx,
+      d.hz() - pass.ez + static_cast<int>(blockIdx.x) * s.tz);
+}
+
+// Tile cell (gx, gz) lies in the owned cells widened by mx rows and (on an
+// (x, z) tile) mz columns on each side.
+template <bool kZ>
+__device__ bool in_rect(const Dims<kZ>& d, int gx, int gz, int mx, int mz) {
+  return gx >= d.hs - mx && gx < d.hs + d.nxl + mx &&
+         (!kZ || (gz >= d.hz() - mz && gz < d.hz() + d.nzl + mz));
+}
+
+// block_mod's site (fwd_strip.cuh, kstep_mod's state): one shot's tile
+// buffers, (nxw, nzw), p the newest level and pp the older; the source
+// rows (2r + 1 of the tile's x range, at depths src_z - r .. src_z + r)
+// added on every cell of the buffer that holds them, halo included, so
+// that the halo evolves as the neighbour's own cells; the trace row gz_rec
+// recorded on the owned cells only (a first pass also computes the
+// margin), as step k0 + k of the block (rec: the shot's (K, nxl) traces);
+// the pass's output rectangle stored.
+template <bool kZ>
+struct BlockModSite {
+  static constexpr bool kGpu = false;
+  const float* cur;
+  const float* old;
+  float* cur_out;
+  float* old_out;
+  const float* v2m;
+  const float* xramp;
+  const float* zfac;
+  const float* strip;
+  const float* src;
+  float* rec;
+  int r, src_z, gz_rec, k0, nxf, nzf, ex, ez;
+  Dims<kZ> d;
+
+  __device__ float v(int gx, int gz) const {
+    return __ldg(v2m + static_cast<size_t>(gx) * nzf + gz);
+  }
+  __device__ float inject(float amp, int gx, int gz, float u) const {
+    const int dz = gz - src_z;
+    return dz >= -r && dz <= r
+               ? u + amp * src[static_cast<size_t>(dz + r) * nxf + gx]
+               : u;
+  }
+  __device__ bool records(int gx, int gz) const {
+    return gz == gz_rec && in_rect(d, gx, gz, 0, 0);
+  }
+  __device__ void record(int k, int gx, float q) const {
+    rec[static_cast<size_t>(k0 + k) * d.nxl + (gx - d.hs)] = q;
+  }
+  __device__ bool stored(int gx, int gz) const {
+    return in_rect(d, gx, gz, ex, ez);
+  }
+};
+
+// block_fwd's site (fwd_strip.cuh, kstep_gpu_fwd's state): one shot's tile
+// buffers, pp the newest level and p the older; the source row src_z (-1:
+// none in the buffer) added on every cell of it; no trace; the pass's
+// output rectangle stored.
+template <bool kZ>
+struct BlockFwdSite {
+  static constexpr bool kGpu = true;
+  const float* cur;
+  const float* old;
+  float* cur_out;
+  float* old_out;
+  const float* v2m;
+  const float* xramp;
+  const float* zfac;
+  const float* strip;
+  const float* src;
+  int src_z, nxf, nzf, ex, ez;
+  Dims<kZ> d;
+
+  __device__ float v(int gx, int gz) const {
+    return __ldg(v2m + static_cast<size_t>(gx) * nzf + gz);
+  }
+  __device__ float inject(float amp, int gx, int gz, float u) const {
+    return gz == src_z ? u + amp * src[gx] : u;
+  }
+  __device__ bool records(int, int) const { return false; }
+  __device__ void record(int, int, float) const {}
+  __device__ bool stored(int gx, int gz) const {
+    return in_rect(d, gx, gz, ex, ez);
+  }
+};
+
+// One pass of the exact block_mod: amps holds the pass's amplitudes from
+// its first step, k_steps is the block's (the traces' shot stride).
+template <int H, bool kZ>
+__global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
+    block_mod(const float* __restrict__ p_in,
+              const float* __restrict__ pp_in, float* __restrict__ p_out,
+              float* __restrict__ pp_out, const float* __restrict__ v2m,
+              int v2_shot_stride, const float* __restrict__ xramp,
+              const float* __restrict__ zfac,
+              const float* __restrict__ strip,
+              const float* __restrict__ src, int r, int src_z,
+              pfdc::Amps amps, int k_steps, float* __restrict__ rec,
+              int gz_rec, Dims<kZ> d, pfdc::StripShape shape,
+              BlockPass pass, pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  const int s = blockIdx.z;
+  const size_t plane = d.plane();
+  const int nxw = d.nxw();
+  const BlockModSite<kZ> site{
+      p_in + s * plane, pp_in + s * plane, p_out + s * plane,
+      pp_out + s * plane, v2m + s * static_cast<size_t>(v2_shot_stride),
+      xramp, zfac, strip, src + s * static_cast<size_t>(2 * r + 1) * nxw,
+      rec + s * static_cast<size_t>(k_steps) * d.nxl, r, src_z, gz_rec,
+      pass.k0, nxw, d.nzw(), pass.ex, pass.ez, d};
+  const pfdc::StripTile t = pass_tile(pass.k_steps * H, shape, pass, d);
+  pfdc::fwd_strip<H>(smem, site, t, amps, pass.k_steps, c);
+}
+
+// One pass of the exact block_fwd: amps holds the pass's amplitudes.
+template <int H, bool kZ>
+__global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
+    block_fwd(const float* __restrict__ p_in,
+              const float* __restrict__ pp_in, float* __restrict__ p_out,
+              float* __restrict__ pp_out, const float* __restrict__ v2m,
+              int v2_shot_stride, const float* __restrict__ xramp,
+              const float* __restrict__ zfac,
+              const float* __restrict__ strip,
+              const float* __restrict__ src, int src_z, pfdc::Amps amps,
+              Dims<kZ> d, pfdc::StripShape shape, BlockPass pass,
+              pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  const int s = blockIdx.z;
+  const size_t plane = d.plane();
+  const int nxw = d.nxw();
+  const BlockFwdSite<kZ> site{
+      pp_in + s * plane, p_in + s * plane, pp_out + s * plane,
+      p_out + s * plane, v2m + s * static_cast<size_t>(v2_shot_stride),
+      xramp, zfac, strip, src + s * static_cast<size_t>(nxw), src_z, nxw,
+      d.nzw(), pass.ex, pass.ez, d};
+  const pfdc::StripTile t = pass_tile(pass.k_steps * H, shape, pass, d);
+  pfdc::fwd_strip<H>(smem, site, t, amps, pass.k_steps, c);
+}
 
 // block_bwd's site (bwd_strip.cuh): one shot's tile buffers, (nxw, nzw);
 // the pass's output rectangle, the owned cells and its margin; the image
@@ -594,15 +749,11 @@ struct BlockBwdSite {
   __device__ float inject(int k, int gx, int gz, float u) const {
     return gz == gz_rec ? u + inj[static_cast<size_t>(k) * nxf + gx] : u;
   }
-  __device__ bool in_rect(int gx, int gz, int mx, int mz) const {
-    return gx >= d.hs - mx && gx < d.hs + d.nxl + mx &&
-           (!kZ || (gz >= d.hz() - mz && gz < d.hz() + d.nzl + mz));
-  }
   __device__ bool imaged(int gx, int gz) const {
-    return in_rect(gx, gz, 0, 0);
+    return in_rect(d, gx, gz, 0, 0);
   }
   __device__ bool stored(int gx, int gz) const {
-    return in_rect(gx, gz, ex, ez);
+    return in_rect(d, gx, gz, ex, ez);
   }
   __device__ size_t image_index(int gx, int gz) const {
     return static_cast<size_t>(gx - d.hs) * d.nzl + (gz - d.hz());
@@ -630,7 +781,7 @@ __global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
               const float* __restrict__ zfac,
               const float* __restrict__ strip,
               const float* __restrict__ inj, int inj_shot_stride, int gz_rec,
-              Dims<kZ> d, pfdc::StripShape shape, BwdPass pass,
+              Dims<kZ> d, pfdc::StripShape shape, BlockPass pass,
               pfdc::Coefs c) {
   extern __shared__ float smem[];
   const int s = blockIdx.z;
@@ -647,10 +798,7 @@ __global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
       v2m + s * static_cast<size_t>(v2_shot_stride), xramp, zfac, strip,
       inj + s * static_cast<size_t>(inj_shot_stride), gz_rec, d.nxw(),
       d.nzw(), pass.ex, pass.ez, d};
-  const pfdc::StripTile t(
-      pass.k_steps * H, shape,
-      d.hs - pass.ex + static_cast<int>(blockIdx.y) * shape.tx,
-      d.hz() - pass.ez + static_cast<int>(blockIdx.x) * shape.tz);
+  const pfdc::StripTile t = pass_tile(pass.k_steps * H, shape, pass, d);
   pfdc::bwd_strip<H>(smem, site, t, pass.k0, pass.k_steps, c);
 }
 
@@ -683,6 +831,9 @@ struct BlockModRun {
   const float* pp;
   float* p_out;
   float* pp_out;
+  // the exact block_mod with k > kBlockPassSteps: (p, pp) between its
+  // passes, 2 * ns * plane floats
+  float* scratch;
   const float* v2m;
   int v2_shot_stride;
   const float* xramp;
@@ -699,21 +850,50 @@ struct BlockModRun {
   int parts;
   cudaStream_t stream;
 
+  // One pass of the exact block_mod from (a, b) into (a_out, b_out).
+  template <int H>
+  cudaError_t mod_pass(const float* a, const float* b, float* a_out,
+                       float* b_out, BlockPass pass) const {
+    const pfdc::StripShape shape = pfdc::strip_shape(
+        pfdc::kBlockFwdShapes, pfdc::kFwdStage, pass.k_steps * H);
+    if (shape.tx == 0) return cudaErrorInvalidValue;
+    const size_t bytes =
+        pfdc::strip_bytes(shape, pfdc::kFwdStage, pass.k_steps * H);
+    const cudaError_t e = pfdc::allow_smem(block_mod<H, kZ>, bytes);
+    if (e != cudaSuccess) return e;
+    const dim3 grid = pfdc::strip_grid(shape, ns, d.nxl + 2 * pass.ex,
+                                       d.nzl + 2 * pass.ez);
+    const dim3 block(pfdc::kStripThreads);
+    block_mod<H, kZ><<<grid, block, bytes, stream>>>(
+        a, b, a_out, b_out, v2m, v2_shot_stride, xramp, zfac, strip, src, r,
+        sz, amps_from(amps, pass.k0), k, rec, gz, d, shape, pass, c);
+    return cudaGetLastError();
+  }
+
   template <int H, int P>
   cudaError_t launch() const {
     if (!d.fits(k * H)) return cudaErrorInvalidValue;
-    const size_t bytes = P ? tile_bytes<kModTX, kModTZ>(3, k * H, false)
-                           : tile_bytes<kModTX, kModTZ>(2, k * H, false);
-    auto kern = block_mod<H, kZ>;   // P > 0: its split twin
-    if constexpr (P > 0) kern = block_mod_mma<H, kZ, P>;
-    const cudaError_t e = pfdc::allow_smem(kern, bytes);
-    if (e != cudaSuccess) return e;
-    const dim3 grid = tile_grid<kModTX, kModTZ>(ns, d);
-    const dim3 block = pfdc::tile_block();
-    kern<<<grid, block, bytes, stream>>>(
-        p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp, zfac, strip, src, r,
-        sz, amps, k, rec, gz, d, c);
-    return cudaGetLastError();
+    if constexpr (P == 0) {
+      const BlockPasses<kZ> passes(d, k, H);
+      if (passes.n == 1) {
+        return mod_pass<H>(p, pp, p_out, pp_out, passes.first);
+      }
+      if (scratch == nullptr) return cudaErrorInvalidValue;
+      float* mid = scratch + ns * d.plane();
+      const cudaError_t e = mod_pass<H>(p, pp, scratch, mid, passes.first);
+      if (e != cudaSuccess) return e;
+      return mod_pass<H>(scratch, mid, p_out, pp_out, passes.second);
+    } else {
+      const size_t bytes = tile_bytes<kModTX, kModTZ>(3, k * H, false);
+      const cudaError_t e = pfdc::allow_smem(block_mod_mma<H, kZ, P>, bytes);
+      if (e != cudaSuccess) return e;
+      const dim3 grid = tile_grid<kModTX, kModTZ>(ns, d);
+      const dim3 block = pfdc::tile_block();
+      block_mod_mma<H, kZ, P><<<grid, block, bytes, stream>>>(
+          p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp, zfac, strip, src,
+          r, sz, amps, k, rec, gz, d, c);
+      return cudaGetLastError();
+    }
   }
 
   template <int H>
@@ -728,6 +908,9 @@ struct BlockFwdRun {
   const float* pp;
   float* p_out;
   float* pp_out;
+  // the exact block_fwd with k > kBlockPassSteps: (p, pp) between its
+  // passes, 2 * ns * plane floats
+  float* scratch;
   const float* v2m;
   int v2_shot_stride;
   const float* xramp;
@@ -742,21 +925,50 @@ struct BlockFwdRun {
   int parts;
   cudaStream_t stream;
 
+  // One pass of the exact block_fwd from (a, b) into (a_out, b_out).
+  template <int H>
+  cudaError_t fwd_pass(const float* a, const float* b, float* a_out,
+                       float* b_out, BlockPass pass) const {
+    const pfdc::StripShape shape = pfdc::strip_shape(
+        pfdc::kBlockFwdShapes, pfdc::kFwdStage, pass.k_steps * H);
+    if (shape.tx == 0) return cudaErrorInvalidValue;
+    const size_t bytes =
+        pfdc::strip_bytes(shape, pfdc::kFwdStage, pass.k_steps * H);
+    const cudaError_t e = pfdc::allow_smem(block_fwd<H, kZ>, bytes);
+    if (e != cudaSuccess) return e;
+    const dim3 grid = pfdc::strip_grid(shape, ns, d.nxl + 2 * pass.ex,
+                                       d.nzl + 2 * pass.ez);
+    const dim3 block(pfdc::kStripThreads);
+    block_fwd<H, kZ><<<grid, block, bytes, stream>>>(
+        a, b, a_out, b_out, v2m, v2_shot_stride, xramp, zfac, strip, src, sz,
+        amps_from(amps, pass.k0), d, shape, pass, c);
+    return cudaGetLastError();
+  }
+
   template <int H, int P>
   cudaError_t launch() const {
     if (!d.fits(k * H)) return cudaErrorInvalidValue;
-    const size_t bytes = P ? tile_bytes<kModTX, kModTZ>(3, k * H, false)
-                           : tile_bytes<kModTX, kModTZ>(2, k * H, false);
-    auto kern = block_fwd<H, kZ>;   // P > 0: its split twin
-    if constexpr (P > 0) kern = block_fwd_mma<H, kZ, P>;
-    const cudaError_t e = pfdc::allow_smem(kern, bytes);
-    if (e != cudaSuccess) return e;
-    const dim3 grid = tile_grid<kModTX, kModTZ>(ns, d);
-    const dim3 block = pfdc::tile_block();
-    kern<<<grid, block, bytes, stream>>>(
-        p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp, zfac, strip, src,
-        sz, amps, k, d, c);
-    return cudaGetLastError();
+    if constexpr (P == 0) {
+      const BlockPasses<kZ> passes(d, k, H);
+      if (passes.n == 1) {
+        return fwd_pass<H>(p, pp, p_out, pp_out, passes.first);
+      }
+      if (scratch == nullptr) return cudaErrorInvalidValue;
+      float* mid = scratch + ns * d.plane();
+      const cudaError_t e = fwd_pass<H>(p, pp, scratch, mid, passes.first);
+      if (e != cudaSuccess) return e;
+      return fwd_pass<H>(scratch, mid, p_out, pp_out, passes.second);
+    } else {
+      const size_t bytes = tile_bytes<kModTX, kModTZ>(3, k * H, false);
+      const cudaError_t e = pfdc::allow_smem(block_fwd_mma<H, kZ, P>, bytes);
+      if (e != cudaSuccess) return e;
+      const dim3 grid = tile_grid<kModTX, kModTZ>(ns, d);
+      const dim3 block = pfdc::tile_block();
+      block_fwd_mma<H, kZ, P><<<grid, block, bytes, stream>>>(
+          p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp, zfac, strip, src,
+          sz, amps, k, d, c);
+      return cudaGetLastError();
+    }
   }
 
   template <int H>
@@ -788,8 +1000,8 @@ struct BlockBwdRun {
   Dims<kZ> d;
   pfdc::Coefs c;
   int parts;
-  // block_bwd with k > kBwdPassSteps: the four fields and the image delta
-  // between its passes, 4 * ns * plane + ns * nxl * nzl floats
+  // the exact block_bwd with k > kBlockPassSteps: the four fields and the
+  // image delta between its passes, 4 * ns * plane + ns * nxl * nzl floats
   float* scratch;
   cudaStream_t stream;
 
@@ -798,7 +1010,7 @@ struct BlockBwdRun {
   template <int H>
   cudaError_t bwd_pass(const float* a, const float* b, const float* c_,
                        const float* d_, float* a_out, float* b_out,
-                       float* c_out, float* d_out, BwdPass pass) const {
+                       float* c_out, float* d_out, BlockPass pass) const {
     const pfdc::StripShape shape = pfdc::strip_shape(
         pfdc::kBwdShapes, pfdc::kBwdStage, pass.k_steps * H);
     if (shape.tx == 0) return cudaErrorInvalidValue;
@@ -820,24 +1032,28 @@ struct BlockBwdRun {
   cudaError_t launch() const {
     if (!d.fits(k * H)) return cudaErrorInvalidValue;
     if constexpr (P == 0) {
-      if (k <= kBwdPassSteps) {
+      BlockPasses<kZ> passes(d, k, H);
+      if (passes.n == 1) {
+        passes.first.img_end = img;
+        passes.first.add = true;
         return bwd_pass<H>(ps, pps, pr, ppr, ps_out, pps_out, pr_out,
-                           ppr_out, {0, k, 0, 0, nullptr, img, true});
+                           ppr_out, passes.first);
       }
       // two passes through the scratch fields and image delta
       if (scratch == nullptr) return cudaErrorInvalidValue;
-      const int k1 = (k + 1) / 2, k2 = k - k1;
       const size_t n = ns * d.plane();
       float* mid[4] = {scratch, scratch + n, scratch + 2 * n,
                        scratch + 3 * n};
       float* delta = scratch + 4 * n;
-      const cudaError_t e = bwd_pass<H>(
-          ps, pps, pr, ppr, mid[0], mid[1], mid[2], mid[3],
-          {0, k1, d.hs ? k2 * H : 0, d.hz() ? k2 * H : 0, nullptr, delta,
-           false});
+      passes.first.img_end = delta;
+      const cudaError_t e = bwd_pass<H>(ps, pps, pr, ppr, mid[0], mid[1],
+                                        mid[2], mid[3], passes.first);
       if (e != cudaSuccess) return e;
+      passes.second.img_start = delta;
+      passes.second.img_end = img;
+      passes.second.add = true;
       return bwd_pass<H>(mid[0], mid[1], mid[2], mid[3], ps_out, pps_out,
-                         pr_out, ppr_out, {k1, k2, 0, 0, delta, img, true});
+                         pr_out, ppr_out, passes.second);
     } else {
       const size_t bytes = tile_bytes<kBwdMmaTX, kBwdMmaTZ>(5, k * H, true);
       const cudaError_t e = pfdc::allow_smem(block_bwd_mma<H, kZ, P>, bytes);
@@ -848,8 +1064,8 @@ struct BlockBwdRun {
           ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out, snap0, snap1,
           img, v2m, v2_shot_stride, xramp, zfac, strip, inj,
           inj_shot_stride, gz, k, d, c);
+      return cudaGetLastError();
     }
-    return cudaGetLastError();
   }
 
   template <int H>

@@ -1,16 +1,22 @@
-// The exact forward body of the large-grid tier's K-step kernels: K steps
-// of one field's leapfrog on one block's staged tile, shared by kstep_mod
-// (kstep_mod.cu, mod_main's modeling step) and kstep_gpu_fwd
-// (kstep_gpu_fwd.cu, the GPU suite's fd_forward). Their split twins
-// (P > 0) keep the staged-tile bodies of kstep.cuh.
+// The exact forward body of the temporal-blocking kernels: K steps of one
+// field's leapfrog on one block's staged tile, shared by the large-grid
+// tier's kstep_mod (kstep_mod.cu, mod_main's modeling step) and
+// kstep_gpu_fwd (kstep_gpu_fwd.cu, the GPU suite's fd_forward), and by the
+// domain tiers' block_mod and block_fwd (domain_block.cuh: the same two
+// states on a halo-extended slab or tile, in passes of at most 4 steps).
+// Their split twins (P > 0) keep the staged-tile bodies of kstep.cuh and
+// domain_block.cuh.
 //
-// What held the earlier body back on an H100 (PERF.md, kernel table, rows
-// 11-12: 11-13x the bytes bound, slower than the per-step kernels): it
-// staged p, pp and v2*dt2 with dependent loads (74 KB at order 8, K = 4);
-// a generic cell loop recomputed bounds for every cell; every cell-step
-// read 4H + 1 taps from shared memory and rebuilt the taper from three
-// global loads, twice; and each step took two barriers (an update phase,
-// then a taper phase, or the other way round).
+// What held the earlier bodies back on an H100 (PERF.md, kernel table,
+// rows 11-12 and 15a-16b: 11-13x the bytes bound for the K-step kernels,
+// 27-31x the operations bound for the block kernels): they staged p and pp
+// (and for the K-step kernels v2*dt2) with dependent loads (74 KB at order
+// 8, K = 4); a generic cell loop recomputed bounds for every cell; every
+// cell-step read 4H + 1 taps from shared memory and rebuilt the taper from
+// three global loads, twice; and each step took two barriers (an update
+// phase, then a taper phase, or the other way round). The block kernels
+// also took all K = 8 steps in one pass on 32 x 64 owned cells, whose
+// 32-cell halo at order 8 made each block compute 2.9x its owned cells.
 //
 // This body (on the strip pieces of strip.cuh, as bwd_strip.cuh's):
 // - stages only the field at its two time levels, the current one whose
@@ -29,19 +35,22 @@
 //   its own cells, and reads the current one. The taper goes where a value
 //   is written or read at its own cell, never in place while neighbours
 //   still read it:
-//   - kstep_gpu_fwd (state (p, pp), p tapered, pp not): a phase of its own
-//     behind a barrier tapers the staged newest field t before step 0;
-//     each step computes u = (2t - o*m) + v*lap(t) from the older field o,
-//     adds the point source, and stores u*m as the next step's t (u after
-//     the last step, the output's pp);
-//   - kstep_mod (state (p, pp), pp tapered): each step computes
-//     u = (2p - o) + v*lap(p) with o the older field as staged at step 0
-//     and o*m after it, adds amp * patch in the source window, stores u*m,
-//     and leaves p untapered in its slot: the old body's phase that
-//     tapered p in place once every neighbour had read it is the o*m of
-//     the next step's read, and of the final store of pp. The trace row is
-//     the owning thread's p*m.
+//   - kstep_gpu_fwd and block_fwd (state (p, pp), p tapered, pp not): a
+//     phase of its own behind a barrier tapers the staged newest field t
+//     before step 0; each step computes u = (2t - o*m) + v*lap(t) from the
+//     older field o, adds the point source, and stores u*m as the next
+//     step's t (u after the last step, the output's pp);
+//   - kstep_mod and block_mod (state (p, pp), pp tapered): each step
+//     computes u = (2p - o) + v*lap(p) with o the older field as staged at
+//     step 0 and o*m after it, adds amp * patch in the source window (the
+//     source rows on the block kernels), stores u*m, and leaves p
+//     untapered in its slot: the old body's phase that tapered p in place
+//     once every neighbour had read it is the o*m of the next step's read,
+//     and of the final store of pp. The trace row is the owning thread's
+//     p*m.
 //   One multiplication by the same m rounds the same, whenever it is done.
+//   Both states compose across passes: a pass leaves pp tapered (mod) or
+//   p tapered and pp not (fwd), as its next pass stages them.
 //
 // Exactness. Per cell and step the operations and their order are the
 // earlier body's (mod_step's and rtm_fwd_step's): the taps summed as
@@ -53,7 +62,9 @@
 // kstep_gpu_fwd state above, else kstep_mod's), one shot's field pointers
 // in the (nxf, nzf) layout (cur the newest level, old the older one, and
 // the outputs of each), the taper's ramps, v2*dt2 at a cell, the source's
-// injection and the trace row, if any.
+// injection, the trace row, if any, and which owned cells of the tile are
+// stored (all of them on the K-step kernels' grid; on a block kernel's
+// tile the pass's output rectangle, not its halo).
 #pragma once
 
 #include "strip.cuh"
@@ -61,13 +72,20 @@
 namespace pfdc {
 
 // Owned shapes, the first that fits taken (strip_shape), and what the body
-// stages: the field at two time levels.
+// stages: the field at two time levels. The K-step kernels take
+// kFwdShapes; the block kernels kBlockFwdShapes, whose 64 x 96 first shape
+// measured 10 % faster than 64 x 64 on the domain tiers' Pluto slabs and
+// tiles (PERF.md).
 constexpr StripShape kFwdShapes[] = {
     {64, 64}, {32, 64}, {32, 32}, {16, 32}, {16, 16}};
+constexpr StripShape kBlockFwdShapes[] = {
+    {64, 96}, {64, 64}, {32, 64}, {32, 32}, {16, 32}, {16, 16}};
 constexpr StripStage kFwdStage{2, false};
 
 // The k_steps steps of the site's block on its tile (blockDim.x =
-// kStripThreads, a 1-D block), amps.a[k] the source amplitude of step k.
+// kStripThreads, a 1-D block), amps.a[k] the source amplitude of step k
+// (of the pass: a block kernel's second pass gets the block's amplitudes
+// from its first step on, and its site records step k as k0 + k).
 template <int H, class Site>
 __device__ __forceinline__ void fwd_strip(float* smem, const Site& site,
                                           const StripTile& t,
@@ -130,7 +148,9 @@ __device__ __forceinline__ void fwd_strip(float* smem, const Site& site,
     const int ox = i / t.tz, oz = i - ox * t.tz;
     const int lx = t.r + ox, lz = t.r + oz;
     const int gx = t.gx0 + lx, gz = t.gz0 + lz;
-    if (gx < 0 || gx >= nxf || gz < 0 || gz >= nzf) continue;
+    if (gx < 0 || gx >= nxf || gz < 0 || gz >= nzf || !site.stored(gx, gz)) {
+      continue;
+    }
     const int j = lx * t.sz + lz;
     const size_t q = static_cast<size_t>(gx) * nzf + gz;
     site.cur_out[q] = cur[j];

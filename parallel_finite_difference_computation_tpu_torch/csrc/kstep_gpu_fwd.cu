@@ -114,6 +114,7 @@ struct KstepFwdSite {
   }
   __device__ bool records(int, int) const { return false; }
   __device__ void record(int, int, float) const {}
+  __device__ bool stored(int, int) const { return true; }
 };
 
 template <int H>

@@ -138,6 +138,7 @@ struct KstepModSite {
   __device__ void record(int k, int gx, float q) const {
     rec[static_cast<size_t>(k) * nx + (gx - nxb)] = q;
   }
+  __device__ bool stored(int, int) const { return true; }
 };
 
 template <int H>

@@ -130,16 +130,17 @@ _SIGNATURES = {
                              _P, _P, _P],
     "pfdc_fd_update_mma_run": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                                _P, _P],
-    # pfdc_block_mod_run(p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp,
-    #                    zfac, strip, src, r, sz, amps, k, rec, gz, ns, hs,
-    #                    nxl, nze, order, cx, cz, stream)
-    "pfdc_block_mod_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
-                           _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # pfdc_block_fwd_run(p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp,
-    #                    zfac, strip, src, sz, amps, k, ns, hs, nxl, nze,
-    #                    order, cx, cz, stream)
-    "pfdc_block_fwd_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
-                           _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # pfdc_block_mod_run(p, pp, p_out, pp_out, scratch, v2m, v2_shot_stride,
+    #                    xramp, zfac, strip, src, r, sz, amps, k, rec, gz,
+    #                    ns, hs, nxl, nze, order, cx, cz, stream)
+    "pfdc_block_mod_run": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                           _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                           _P],
+    # pfdc_block_fwd_run(p, pp, p_out, pp_out, scratch, v2m, v2_shot_stride,
+    #                    xramp, zfac, strip, src, sz, amps, k, ns, hs, nxl,
+    #                    nze, order, cx, cz, stream)
+    "pfdc_block_fwd_run": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                           _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # pfdc_block_bwd_run(ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out,
     #                    snap0, snap1, img, scratch, v2m, v2_shot_stride,
     #                    xramp, zfac, strip, inj, inj_shot_stride, gz, k, ns,
@@ -147,17 +148,18 @@ _SIGNATURES = {
     "pfdc_block_bwd_run": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _I, _P, _P, _P],
-    # pfdc_block2_mod_run(p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp,
-    #                     zfac, strip, src, r, sz, amps, k, rec, gz, ns, hs,
-    #                     nxl, hz, nzl, order, cx, cz, stream)
-    "pfdc_block2_mod_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
-                            _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                            _P],
-    # pfdc_block2_fwd_run(p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp,
-    #                     zfac, strip, src, sz, amps, k, ns, hs, nxl, hz,
-    #                     nzl, order, cx, cz, stream)
-    "pfdc_block2_fwd_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # pfdc_block2_mod_run(p, pp, p_out, pp_out, scratch, v2m,
+    #                     v2_shot_stride, xramp, zfac, strip, src, r, sz,
+    #                     amps, k, rec, gz, ns, hs, nxl, hz, nzl, order, cx,
+    #                     cz, stream)
+    "pfdc_block2_mod_run": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                            _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                            _P, _P],
+    # pfdc_block2_fwd_run(p, pp, p_out, pp_out, scratch, v2m,
+    #                     v2_shot_stride, xramp, zfac, strip, src, sz, amps,
+    #                     k, ns, hs, nxl, hz, nzl, order, cx, cz, stream)
+    "pfdc_block2_fwd_run": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                            _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # pfdc_block2_bwd_run(ps, pps, pr, ppr, ps_out, pps_out, pr_out,
     #                     ppr_out, snap0, snap1, img, scratch, v2m,
     #                     v2_shot_stride, xramp, zfac, strip, inj,
@@ -167,7 +169,7 @@ _SIGNATURES = {
                             _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _P, _P, _P],
     # pfdc_block{,2}_{mod,fwd,bwd}_mma_run: the exact entry points'
-    # arguments with parts after order (the bwd ones without scratch)
+    # arguments without scratch, with parts after order
     "pfdc_block_mod_mma_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
                                _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                                _P, _P, _P],

@@ -58,7 +58,7 @@ from ..solver import FDContext, host_wavelet, shot_positions
 from . import stencil
 
 __all__ = ["LAUNCHES", "reset_launches", "MXU3_NT_MAX", "MXU6_NT_MAX",
-           "SMEM_BYTES", "STAGING_KERNELS", "BWD_PASS_STEPS", "bwd_passes",
+           "SMEM_BYTES", "STAGING_KERNELS", "BLOCK_PASS_STEPS", "block_passes",
            "smem_bytes", "largest_fitting_k",
            "resolve_lap_impl", "lap_parts",
            "forward_modeling_cuda", "fd_forward_cuda", "fd_back_cuda",
@@ -169,26 +169,28 @@ MAX_ORDER = 16
 # A block's dynamic shared memory on an H100 (kMaxSmemBytes, csrc/kstep.cuh).
 SMEM_BYTES = 232448
 # The staging kernels' owned cells a block (x, z): the split K-step
-# kernels' tile (kTileX, kTileZ, csrc/kstep.cuh; block_mod and block_fwd:
-# kModTX, kModTZ, csrc/domain_block.cuh) and block_bwd_mma's (kBwdMmaTX,
-# kBwdMmaTZ).
+# kernels' tile (kTileX, kTileZ, csrc/kstep.cuh; block_mod_mma and
+# block_fwd_mma: kModTX, kModTZ, csrc/domain_block.cuh) and block_bwd_mma's
+# (kBwdMmaTX, kBwdMmaTZ).
 _TILE = (32, 64)
 _BWD_MMA_TILE = (16, 32)
 # The exact strip bodies' owned shapes, the first that fits taken, and what
 # they stage besides the x ramp: fields, and whether the owned image
 # (csrc/bwd_strip.cuh: kBwdShapes, kBwdStage, kstep_gpu_bwd and block_bwd;
-# csrc/fwd_strip.cuh: kFwdShapes, kFwdStage, kstep_mod and kstep_gpu_fwd).
+# csrc/fwd_strip.cuh: kFwdShapes, kFwdStage, kstep_mod and kstep_gpu_fwd;
+# kBlockFwdShapes, block_mod and block_fwd).
 _BWD_STRIP = (((32, 64), (32, 32), (16, 32), (16, 16)), 4, True)
 _FWD_STRIP = (((64, 64), (32, 64), (32, 32), (16, 32), (16, 16)), 2, False)
-# The most steps a pass of the exact block_bwd takes (kBwdPassSteps).
-BWD_PASS_STEPS = 4
+_BLOCK_FWD_STRIP = (((64, 96),) + _FWD_STRIP[0], 2, False)
+# The most steps a pass of the exact block kernels takes (kBlockPassSteps).
+BLOCK_PASS_STEPS = 4
 # Per kernel: the split twin's tile, staged fields and whether the owned
-# image; the exact kernel's strip body, or its staged fields on that tile.
+# image; the exact kernel's strip body.
 _STAGED = {"kstep_mod": (_TILE, 4, False, _FWD_STRIP),
            "kstep_gpu_fwd": (_TILE, 4, False, _FWD_STRIP),
            "kstep_gpu_bwd": (_TILE, 7, True, _BWD_STRIP),
-           "block_mod": (_TILE, 3, False, 2),
-           "block_fwd": (_TILE, 3, False, 2),
+           "block_mod": (_TILE, 3, False, _BLOCK_FWD_STRIP),
+           "block_fwd": (_TILE, 3, False, _BLOCK_FWD_STRIP),
            "block_bwd": (_BWD_MMA_TILE, 5, True, _BWD_STRIP)}
 STAGING_KERNELS = tuple(_STAGED)
 
@@ -205,31 +207,30 @@ def _strip_bytes(shape, r: int, fields: int, image: bool) -> int:
     return _tile_bytes(shape, r, fields, image) + 4 * (shape[0] + 2 * r)
 
 
-def bwd_passes(k: int) -> int:
-    """Launches of the exact ``block_bwd`` for a block of ``k`` steps: one
-    pass up to ``BWD_PASS_STEPS``, else two (kBwdPassSteps,
-    csrc/domain_block.cuh)."""
-    return 1 if k <= BWD_PASS_STEPS else 2
+def block_passes(k: int) -> tuple:
+    """The steps of each pass of an exact block kernel (``block_mod``,
+    ``block_fwd``, ``block_bwd`` and their ``block2_*``) for a block of
+    ``k`` steps: one pass up to ``BLOCK_PASS_STEPS``, else two, of ``(k +
+    1) // 2`` and ``k // 2`` steps (kBlockPassSteps, BlockPasses,
+    csrc/domain_block.cuh); each pass is a launch."""
+    return (k,) if k <= BLOCK_PASS_STEPS else ((k + 1) // 2, k // 2)
 
 
 def smem_bytes(kernel: str, order: int, k: int, parts: int = 0) -> int:
     """Dynamic shared memory of one block of the staging kernel ``kernel``
     (one of ``STAGING_KERNELS``; ``block2_*`` as ``block_*``, ``*_mma`` as
     ``parts`` > 0) at ``order`` and K = ``k`` steps (a halo of k*h cells),
-    as its launcher sizes it. The exact K-step kernels and ``block_bwd``
-    run a strip body and take the first of its shapes that fits
-    ``SMEM_BYTES``; where none does, the smallest's bytes (refused); the
-    exact ``block_bwd`` stages the steps of its longer pass only
-    (:func:`bwd_passes`)."""
+    as its launcher sizes it. The exact kernels run a strip body and take
+    the first of its shapes that fits ``SMEM_BYTES``; where none does, the
+    smallest's bytes (refused); the exact block kernels stage the steps of
+    their longer pass only (:func:`block_passes`)."""
     kernel = kernel.replace("block2_", "block_").removesuffix("_mma")
     tile, split, image, exact = _STAGED[kernel]
-    if kernel == "block_bwd" and not parts and bwd_passes(k) > 1:
-        k = (k + 1) // 2
+    if kernel.startswith("block_") and not parts:
+        k = block_passes(k)[0]
     r = k * (order // 2)
     if parts:
         return _tile_bytes(tile, r, split, image)
-    if isinstance(exact, int):
-        return _tile_bytes(tile, r, exact, False)
     shapes, fields, staged_image = exact
     sizes = [_strip_bytes(s, r, fields, staged_image) for s in shapes]
     return next((b for b in sizes if b <= SMEM_BYTES), sizes[-1])

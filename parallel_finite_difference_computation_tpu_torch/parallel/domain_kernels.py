@@ -74,7 +74,7 @@ import torch
 from .. import numerics
 from ..ops.fd_kernels import (_check_gz, _check_order, _check_window,
                               _coef_args, _on_cuda, _raise_on, _stream,
-                              bwd_passes, lap_parts)
+                              block_passes, lap_parts)
 from ..ops.stencil import laplacian, laplacian_mxu
 from ..ops.stream import MAX_STEPS
 from ..solver import FDContext, host_wavelet, shot_positions
@@ -488,12 +488,30 @@ def _entry(c: Tile, name: str, parts: int = 0):
             (*dims, c.ctx.order, *((parts,) if parts else ())))
 
 
+def _scratch(c: Tile, parts: int, k: int, fields: int, like, extra: int = 0):
+    """The launches of a block of ``k`` steps (an exact kernel's passes,
+    :func:`..ops.fd_kernels.block_passes`; a ``*_mma`` twin's one), the
+    scratch argument of the entry point (none for a ``*_mma`` twin;
+    ``(None,)`` for one pass) and its buffer, which the caller keeps over
+    the launch: for two passes, ``fields`` tile fields and ``extra`` floats
+    on the device of ``like``."""
+    if parts:
+        return 1, (), None
+    passes = len(block_passes(k))
+    if passes == 1:
+        return 1, (None,), None
+    buf = torch.empty(fields * like.shape[0] * c.nxw * c.nzw + extra,
+                      device=like.device)
+    return passes, (buf.data_ptr(),), buf
+
+
 def launch_mod(name: str, launches: dict, c: Tile, p, pp, amps, out=None,
                parts: int = 0):
     """One block of the modeling kernel ``name`` (``block_mod`` or
     ``block2_mod``, or with ``parts`` > 0 its ``*_mma`` twin): the kernel
     on the card, writing the owned cells of ``out = (p_out, pp_out)`` (new
-    buffers with zero halos when None) and counted in ``launches``;
+    buffers with zero halos when None) and counted in ``launches``, once a
+    pass (the exact kernel takes a block of more than 4 steps in two);
     :func:`block_mod` on the CPU, which returns new buffers. Returns ``(p,
     pp, rec)``."""
     amps = host_wavelet(amps)
@@ -512,14 +530,15 @@ def launch_mod(name: str, launches: dict, c: Tile, p, pp, amps, out=None,
     rec = (torch.empty if c.records else torch.zeros)(
         (ns, k, c.nxl), dtype=torch.float32, device=p.device)
     xr, zf, st = c.ramps
+    passes, scratch, _buf = _scratch(c, parts, k, 2, p)
     with torch.cuda.device(p.device):
         rc = run(p.data_ptr(), pp.data_ptr(), p_out.data_ptr(),
-                 pp_out.data_ptr(), c.v2m.data_ptr(), c.v2_stride,
+                 pp_out.data_ptr(), *scratch, c.v2m.data_ptr(), c.v2_stride,
                  xr.data_ptr(), zf.data_ptr(), st.data_ptr(), c.src.data_ptr(),
                  c.r, c.sz, amps.ctypes.data, k, rec.data_ptr(), c.gz, ns,
                  c.hs, c.nxl, *dims, *c.coef_ptrs, _stream(p.device))
     _raise_on(rc, name, c.ctx.order, k)
-    launches[name] += 1
+    launches[name] += passes
     return p_out, pp_out, rec
 
 
@@ -527,8 +546,9 @@ def launch_fwd(name: str, launches: dict, c: Tile, p, pp, amps, out=None,
                parts: int = 0):
     """One block of the forward kernel ``name`` (``block_fwd`` or
     ``block2_fwd``, or with ``parts`` > 0 its ``*_mma`` twin): the kernel
-    on the card, writing the owned cells of ``out`` as :func:`launch_mod`
-    does; :func:`block_fwd` on the CPU. Returns ``(p, pp)``."""
+    on the card, writing the owned cells of ``out`` and counted as
+    :func:`launch_mod` does; :func:`block_fwd` on the CPU. Returns ``(p,
+    pp)``."""
     amps = host_wavelet(amps)
     ns = _check_state(c, p=p, pp=pp)
     _check_steps(c, len(amps))
@@ -542,15 +562,16 @@ def launch_fwd(name: str, launches: dict, c: Tile, p, pp, amps, out=None,
     run, dims = _entry(c, name, parts)
     p_out, pp_out = _outputs(p, out, 2)
     xr, zf, st = c.ramps
+    passes, scratch, _buf = _scratch(c, parts, len(amps), 2, p)
     with torch.cuda.device(p.device):
         rc = run(p.data_ptr(), pp.data_ptr(), p_out.data_ptr(),
-                 pp_out.data_ptr(), c.v2m.data_ptr(), c.v2_stride,
+                 pp_out.data_ptr(), *scratch, c.v2m.data_ptr(), c.v2_stride,
                  xr.data_ptr(), zf.data_ptr(), st.data_ptr(), c.src.data_ptr(),
                  c.sz if 0 <= c.sz < c.nzw else -1, amps.ctypes.data,
                  len(amps), ns, c.hs, c.nxl, *dims, *c.coef_ptrs,
                  _stream(p.device))
     _raise_on(rc, name, c.ctx.order, len(amps))
-    launches[name] += 1
+    launches[name] += passes
     return p_out, pp_out
 
 
@@ -589,12 +610,9 @@ def launch_bwd(name: str, launches: dict, c: Tile, ps, pps, pr, ppr, img,
                                                  snaps[1].data_ptr())
     inj, inj_stride = ((None, 0) if c.inj is None
                        else (c.inj[:, it0].data_ptr(), c.inj.stride(0)))
-    passes, scratch = 1, ()
-    if not parts:       # the exact kernel's state between its two passes
-        passes = bwd_passes(k)
-        buf = (torch.empty(4 * ns * c.nxw * c.nzw + ns * c.nxl * c.nzl,
-                           device=ps.device) if passes > 1 else None)
-        scratch = (None if buf is None else buf.data_ptr(),)
+    # the exact kernel's state and image delta between its two passes
+    passes, scratch, _buf = _scratch(c, parts, k, 4, ps,
+                                     ns * c.nxl * c.nzl)
     with torch.cuda.device(ps.device):
         rc = run(ps.data_ptr(), pps.data_ptr(), pr.data_ptr(), ppr.data_ptr(),
                  *(o.data_ptr() for o in outs), s0, s1, img.data_ptr(),

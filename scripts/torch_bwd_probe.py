@@ -264,8 +264,11 @@ def main(child: str = CHILD, variants=None, doc: str = __doc__) -> int:
                       flush=True)
         for name, runs in times.items():
             if runs:
+                # the medians of the times; the distinct values of any
+                # other entry (a digest of results)
                 med = {k: statistics.median(r[k] for r in runs)
-                       for k in runs[0]}
+                       if isinstance(runs[0][k], (int, float))
+                       else sorted({r[k] for r in runs}) for k in runs[0]}
                 print(f"{name}: median ms per 2-shot, 1001-step Pluto call "
                       f"{json.dumps(med)} ({len(runs)} processes); {smi}")
     return 1 if bad else 0

@@ -43,14 +43,18 @@ LAY3 = dict(nz=151, nx=151, nt=1001, dz=10.0, dx=10.0, dt=0.001,
 SMALL = dict(nz=24, nx=28, nt=11, dz=10.0, dx=10.0, dt=0.001, fpeak=25.0,
              ns=2, sz=4, fsx=6, ds=10, gz=1, nxb=8, nzb=8, fac=0.7)
 TILED_RTM = ("kstep_gpu_fwd", "kstep_gpu_bwd")
-# order: K, exact and split (lap_impl "mxu"), of each tier's run
+# order: K, exact and split (lap_impl "mxu"), of each tier's run. The exact
+# domain kernels take a block of more than 4 steps in two passes, each
+# staging the halo of its own steps, so at order 16 the exact K is the JAX
+# package's 8 (it was 7 while block_mod and block_fwd staged all K steps
+# at once on 32 x 64 owned cells, whose K = 8 tile did not fit).
 WANT_TILED = {"mod": {o: (4, 4) for o in ORDERS},
               "rtm": {8: (4, 4), 10: (4, 4), 12: (4, 3), 14: (4, 3),
                       16: (4, 2)}}
 WANT_DOMAIN = {"mod": {8: (8, 8), 10: (8, 8), 12: (8, 7), 14: (8, 6),
-                       16: (7, 5)},
+                       16: (8, 5)},
                "rtm": {8: (8, 8), 10: (8, 8), 12: (8, 6), 14: (8, 5),
-                       16: (7, 5)}}
+                       16: (8, 5)}}
 DOMAIN_KERNELS = {"mod": ("block_mod",), "rtm": ("block_fwd", "block_bwd")}
 
 
@@ -98,6 +102,54 @@ def test_tiled_k_is_unchanged_by_the_forward_strip_body(order, lap_impl):
         assert stream.tiled_block_k(ctx, kernels, lap_impl) == want
         assert fk.largest_fitting_k(kernels, order, tpipe.TILED_BLOCK_K,
                                     parts) == want
+
+
+# The domain tiers' K (modeling, RTM) on 3lay at orders 4-16 under each
+# lap_impl, on every mesh shape alike, as chosen before block_mod and
+# block_fwd ran the forward strip body in passes: K = 8 everywhere but the
+# split kernels' above order 10, and the exact order-16 runs, which rose
+# from 7 (the forward kernels' one-pass tile refused K = 8) to 8.
+DOMAIN_SPLIT_K = {12: (7, 6), 14: (6, 5), 16: (5, 5)}
+DOMAIN_K = {order: {li: (8, 8) if order <= 10 or li in (None, "vpu")
+                    else DOMAIN_SPLIT_K[order] for li in LAP_IMPLS}
+            for order in range(4, 17, 2)}
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 2, 2)])
+@pytest.mark.parametrize("lap_impl", LAP_IMPLS)
+@pytest.mark.parametrize("order", sorted(DOMAIN_K))
+def test_domain_k_is_unchanged_by_the_forward_strip_body(order, lap_impl,
+                                                         shape):
+    ctx = _ctx(order)
+    mesh = make_mesh(*shape, devices=["cpu"] * int(np.prod(shape)))
+    for run, want in zip(("mod", "rtm"), DOMAIN_K[order][lap_impl]):
+        assert tpipe._block_k(ctx, mesh, ctx.nt // 2, DOMAIN_KERNELS[run],
+                              lap_impl) == want
+
+
+@pytest.mark.parametrize("k", range(1, stream.MAX_STEPS + 1))
+def test_block_pass_split(k):
+    """An exact block kernel's passes: all K steps in one up to 4, else
+    (K + 1) // 2 then K // 2 (the launches ``LAUNCHES`` counts), and the
+    shared memory of the longer pass's tile."""
+    passes = fk.block_passes(k)
+    assert sum(passes) == k
+    assert passes == ((k,) if k <= fk.BLOCK_PASS_STEPS
+                      else ((k + 1) // 2, k // 2))
+    assert max(passes) <= fk.BLOCK_PASS_STEPS
+    for order in (4, 8, 16):
+        for name in ("block_mod", "block_fwd", "block2_mod", "block2_fwd",
+                     "block_bwd"):
+            assert fk.smem_bytes(name, order, k) == fk.smem_bytes(
+                name, order, passes[0]) <= fk.SMEM_BYTES
+        # 64 x 96 owned cells, the field at two levels and the x ramp
+        r = passes[0] * order // 2
+        if order == 8:
+            assert fk.smem_bytes("block_mod", order, k) == 4 * (
+                2 * (64 + 2 * r) * (96 + 2 * r) + 64 + 2 * r)
+        # the split twins stage all K steps at once
+        assert fk.smem_bytes("block_mod", order, k, 2) > fk.smem_bytes(
+            "block_mod", order, k - 1, 2)
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (1, 2, 2)])

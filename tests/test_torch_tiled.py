@@ -433,14 +433,15 @@ def test_shared_memory_of_the_kernels():
     the wrappers' mirror (``fk.smem_bytes``, which the pipelines' K choice
     reads): the split K-step kernels (``*_mma``: p, pp, v2*dt2 and the z
     taps' product; kstep_gpu_bwd_mma the four fields, v2*dt2, two products
-    and the owned image), the block kernels exact and split (one more
-    staged tile for the x taps' product; block_bwd_mma on a smaller owned
-    tile), and the exact strip kernels, each on the first of its body's
-    owned shapes that fits: kstep_mod and kstep_gpu_fwd on fwd_strip.cuh's
+    and the owned image), the split block kernels (p, pp and the x taps'
+    product; block_bwd_mma on a smaller owned tile), and the exact strip
+    kernels, each on the first of its body's owned shapes that fits:
+    kstep_mod, kstep_gpu_fwd, block_mod and block_fwd on fwd_strip.cuh's
     (the field at two time levels and the x ramp), kstep_gpu_bwd and
     block_bwd on bwd_strip.cuh's (four staged fields, the owned image and
-    the x ramp). Which (kernel, order, K) the card refuses up to order 16,
-    and that every tile fits at the pipelines' K up to order 10; the
+    the x ramp), the exact block kernels staging the steps of the longer
+    of their passes. Which (kernel, order, K) the card refuses up to order
+    16, and that every tile fits at the pipelines' K up to order 10; the
     wrappers' step limit is the kernels'."""
     csrc = pathlib.Path(stream.__file__).parents[1] / "csrc"
     const = {m[1]: int(m[2]) for m in re.finditer(
@@ -455,21 +456,28 @@ def test_shared_memory_of_the_kernels():
         "sizeof(float) * (g.fields * sx * sz + (g.image ? "
         "static_cast<size_t>(s.tx) * s.tz : 0) + sx)") == 1
 
-    def body(name):
+    def body(name, shapes_of=None):
+        """The shape list k{shapes_of}Shapes (by default the body's own)
+        and the stage of the strip body ``name``."""
         text = (csrc / f"{name.lower()}_strip.cuh").read_text()
         shapes = [(int(a), int(b)) for a, b in re.findall(
             r"\{(\d+), (\d+)\}", re.search(
-                rf"k{name}Shapes\[\] = \{{(.*?)\}};", text, re.S)[1])]
+                rf"\bk{shapes_of or name}Shapes\[\] = \{{(.*?)\}};", text,
+                re.S)[1])]
         fields, image = re.search(
             rf"StripStage k{name}Stage\{{(\d), (true|false)\}};",
             text).groups()
         return shapes, int(fields), image == "true"
 
-    bodies = {name: body(name) for name in ("Bwd", "Fwd")}
+    # the forward body's block kernels take a shape list of their own
+    bodies = {"Bwd": body("Bwd"), "Fwd": body("Fwd"),
+              "BlockFwd": body("Fwd", "BlockFwd")}
     assert bodies == {
         "Bwd": ([(32, 64), (32, 32), (16, 32), (16, 16)], 4, True),
         "Fwd": ([(64, 64), (32, 64), (32, 32), (16, 32), (16, 16)], 2,
-                False)}
+                False),
+        "BlockFwd": ([(64, 96), (64, 64), (32, 64), (32, 32), (16, 32),
+                      (16, 16)], 2, False)}
 
     def strip_smem(name, order, k):
         """strip_shape of the body ``name``: the first shape that fits;
@@ -520,40 +528,49 @@ def test_shared_memory_of_the_kernels():
     assert smem("kstep_gpu_bwd", 8, 8) == 4 * (4 * 96 * 128 + 32 * 64 + 96)
     assert smem("kstep_gpu_fwd", 8, 8) == 4 * (2 * 128 * 128 + 128)
 
-    # the block kernels of the domain tiers (csrc/domain_block.cuh):
-    # P ? tile_bytes<TX, TZ>(fields, K*h, image) of the split twin
-    #   : tile_bytes<TX, TZ>(...) of the exact kernel; block_bwd's launcher
-    # takes the strip body's shape and bytes for P = 0
+    # the block kernels of the domain tiers (csrc/domain_block.cuh): the
+    # split twin's tile_bytes<TX, TZ>(fields, K*h, image) for P > 0; for
+    # P = 0 the launcher takes its strip body's shape and bytes for a pass
+    # of pass.k_steps, a block of K above kBlockPassSteps running in two
+    # passes, the longer of (K + 1) / 2 steps (BlockPasses)
     cuh = (csrc / "domain_block.cuh").read_text()
     dims = {m[1]: int(m[2]) for m in re.finditer(r"(k\w+T[XZ]) = (\d+)",
                                                  cuh)}
     one = r"tile_bytes<(\w+), (\w+)>\((\d), k \* H, (true|false)\)"
-    pairs = re.findall(rf"P \? {one}\s*: {one};", cuh)
-    assert len(pairs) == 2
-    names = ("block_mod", "block_fwd")
-    blocks = {**dict(zip(names, (pair[4:] for pair in pairs))),
-              **dict(zip((f"{n}_mma" for n in names),
-                         (pair[:4] for pair in pairs)))}
-    # block_bwd: a pass stages the strip body's tile of its own steps; K
-    # above kBwdPassSteps runs in two passes, the longer of (k + 1) / 2
-    assert re.search(r"const pfdc::StripShape shape = pfdc::strip_shape\("
-                     r"\s*pfdc::kBwdShapes, pfdc::kBwdStage, pass\.k_steps "
-                     r"\* H\);\s*if \(shape\.tx == 0\) return "
-                     r"cudaErrorInvalidValue;\s*const size_t bytes =\s*"
-                     r"pfdc::strip_bytes\(shape, pfdc::kBwdStage, "
-                     r"pass\.k_steps \* H\);", cuh)
-    assert re.search(r"if constexpr \(P == 0\) \{\s*if \(k <= kBwdPassSteps"
-                     r"\)(?:.|\n)*?const int k1 = \(k \+ 1\) / 2, k2 = k - "
-                     r"k1;(?:.|\n)*?"
-                     rf"\}} else \{{\s*const size_t bytes = {one};", cuh)
-    pass_steps = int(re.search(r"kBwdPassSteps = (\d+);", cuh)[1])
-    assert pass_steps == fk.BWD_PASS_STEPS == 4
-    blocks["block_bwd_mma"] = re.search(
-        rf"\}} else \{{\s*const size_t bytes = {one};", cuh).groups()
+    runs = {name: cuh[cuh.index(f"struct {run} {{"):][:cuh[cuh.index(
+        f"struct {run} {{"):].index("\n};")]
+        for name, run in (("block_mod", "BlockModRun"),
+                          ("block_fwd", "BlockFwdRun"),
+                          ("block_bwd", "BlockBwdRun"))}
+    strip_of = {"block_mod": "BlockFwd", "block_fwd": "BlockFwd",
+                "block_bwd": "Bwd"}
+    blocks = {}
+    for name, text in runs.items():
+        shapes = strip_of[name]
+        stage = shapes.removeprefix("Block")
+        assert re.search(rf"const pfdc::StripShape shape = pfdc::strip_shape"
+                         rf"\(\s*pfdc::k{shapes}Shapes, pfdc::k{stage}Stage, "
+                         rf"pass\.k_steps \* H\);\s*if \(shape\.tx == 0\) "
+                         rf"return cudaErrorInvalidValue;\s*const size_t "
+                         rf"bytes =\s*pfdc::strip_bytes\(shape, pfdc::k{stage}"
+                         rf"Stage, pass\.k_steps \* H\);", text), name
+        assert re.search(rf"if constexpr \(P == 0\) \{{\s*(?:const )?"
+                         rf"BlockPasses<kZ> passes\(d, k, H\);(?:.|\n)*?"
+                         rf"\}} else \{{\s*const size_t bytes = {one};",
+                         text), name
+        blocks[f"{name}_mma"] = re.search(
+            rf"\}} else \{{\s*const size_t bytes = {one};", text).groups()
+    assert re.search(r"const int k1 = k <= kBlockPassSteps \? k : \(k \+ 1\)"
+                     r" / 2, k2 = k - k1;", cuh)
+    pass_steps = int(re.search(r"kBlockPassSteps = (\d+);", cuh)[1])
+    assert pass_steps == fk.BLOCK_PASS_STEPS == 4
+    # the split twins' bodies take P > 0 only
+    assert len(re.findall(r"static_assert\(P > 0, \"block_(mod|fwd|bwd) "
+                          r"runs (fwd|bwd)_strip\"\);", cuh)) == 3
 
     def block_smem(kernel, order, k):
-        if kernel == "block_bwd":
-            return strip_smem("Bwd", order,
+        if kernel in strip_of:
+            return strip_smem(strip_of[kernel], order,
                               k if k <= pass_steps else (k + 1) // 2)
         bx, bz, fields, image = blocks[kernel]
         r = k * (order // 2)
@@ -561,8 +578,13 @@ def test_shared_memory_of_the_kernels():
         return 4 * (int(fields) * cells
                     + (dims[bx] * dims[bz] if image == "true" else 0))
 
-    # order 8, K = 8: two passes of 4, the K = 4 tile of kstep_gpu_bwd
+    # order 8, K = 8: two passes of 4, the K = 4 tile of kstep_gpu_bwd,
+    # and of block_mod 64 x 96 owned cells (two blocks an SM); K = 5: a
+    # longer pass of 3
     assert block_smem("block_bwd", 8, 8) == smem("kstep_gpu_bwd", 8, 4)
+    assert block_smem("block_mod", 8, 8) == 4 * (2 * 96 * 128 + 96)
+    assert 2 * (block_smem("block_mod", 8, 8) + 1024) <= 228 * 1024
+    assert block_smem("block_fwd", 8, 5) == 4 * (2 * 88 * 120 + 88)
     assert block_smem("block_bwd", 10, 8) == 4 * (4 * 72 * 104 + 32 * 64
                                                   + 72)
     assert block_smem("block_mod_mma", 8, 8) == 4 * 3 * 96 * 128
@@ -611,7 +633,7 @@ def test_shared_memory_of_the_kernels():
         14: {"kstep_mod": None, "kstep_gpu_fwd": None, "kstep_gpu_bwd": 8,
              "block_mod": None, "block_fwd": None, "block_bwd": None},
         16: {"kstep_mod": None, "kstep_gpu_fwd": None, "kstep_gpu_bwd": 7,
-             "block_mod": 8, "block_fwd": 8, "block_bwd": None}}
+             "block_mod": None, "block_fwd": None, "block_bwd": None}}
     # the split tier at TILED_BLOCK_K = 4: RTM up to order 10, modeling up
     # to order 16
     assert refused_split == {
