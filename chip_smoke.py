@@ -652,12 +652,13 @@ def build_report(log: str) -> list:
 def block_launches(name: str, nt: int, k: int, tiles: int) -> int:
     """Launches of the domain block kernel ``name`` over nt steps in
     blocks of k (and a tail) on ``tiles`` slabs or tiles: one a block for
-    a ``*_mma`` twin, one a pass for an exact kernel, which takes a block
-    of more than 4 steps in two (``fk.block_passes``)."""
+    the staged-tile ``*_mod_mma`` and ``*_fwd_mma`` twins, one a pass for
+    an exact kernel and the split ``*_bwd_mma``, which take a block of
+    more than 4 steps in two (``fk.block_passes``)."""
     from parallel_finite_difference_computation_tpu_torch.ops import (
         fd_kernels as fk)
     full, tail = divmod(nt, k)
-    per = ((lambda n: 1) if name.endswith("_mma")
+    per = ((lambda n: 1) if name.endswith(("mod_mma", "fwd_mma"))
            else (lambda n: len(fk.block_passes(n))))
     return tiles * (full * per(k) + (per(tail) if tail else 0))
 
@@ -805,6 +806,12 @@ def main() -> int:
         print(f"[build] {template} (row {row}): {b} bytes of dynamic shared "
               f"memory a block at order 8, K = 4, "
               f"{228 * 1024 // (b + 1024)} blocks an SM by shared memory")
+    # and the split instances of the backward body (block_bwd_mma,
+    # block2_bwd_mma) at the domain tiers' K = 8, two passes of 4
+    b = fk.smem_bytes("block_bwd", 8, 8, parts=2)
+    print(f"[build] block_bwd_mma (rows 15c/16c split, bwd_strip.cuh at P > "
+          f"0): {b} bytes of dynamic shared memory a block at order 8, K = "
+          f"8, {228 * 1024 // (b + 1024)} blocks an SM by shared memory")
 
     phase_done("build")
 
@@ -3347,8 +3354,10 @@ def main() -> int:
     # tensors, launch by launch on random states of every slab or tile
     # (seeded, full and tail blocks): phases 11 and 16's 134 x 88 grid and
     # meshes at orders 4, 8 and 10, K = 2, 3 and 8, parts 2 and 3, and the
-    # split makers on a mesh of cuda:0 against a CPU mesh; then the Pluto
-    # slab and tile shapes (2 shots, K = 8 and the tails 4 and 1). Gates:
+    # split makers on a mesh of cuda:0 against a CPU mesh; the split
+    # backward twins alone at K = 5 and 7 (two unequal passes) at orders 8,
+    # 12 and 16; then the Pluto slab and tile shapes (2 shots, K = 8 and
+    # the tails 4 and 1). Gates:
     # traces and images 1e-5 max rel, fields 1e-4 (each mma sums its 16
     # products in the card's order)
     SPLIT_GATES = {"fields": 1e-4, "traces": GATE, "image": GATE}
@@ -3498,6 +3507,49 @@ def main() -> int:
                               flush=True)
                         check(rel <= GATE, f"split makers {shape} order "
                                            f"{order} parts {parts}: {rel:.3e}")
+
+    def split_bwd_case(case, shape, k, parts, seed):
+        """:func:`split_errs` of the split backward twin alone on random
+        states of every tile of a mesh of ``shape``, a block of k steps,
+        seeded and not."""
+        _, rs = split_tiles(case, shape, k)
+        name, kb, pb = split_blocks(len(shape) == 3, parts)[2]
+        rng = np.random.default_rng(seed)
+        out = {}
+        for cr in rs:
+            f = [randn(rng, cr.ns, cr.nxw, cr.nzw) for _ in range(6)]
+            img = randn(rng, cr.ns, cr.nxl, cr.nzl)
+            for it0, snaps in ((k, None), (0, f[4:6])):
+                got = kb(cr, *f[:4], img.clone(), it0, k, snaps)
+                want = pb(cr, *f[:4], img, it0, k, snaps)
+                for kind, a, b in zip(("fields",) * 4 + ("image",), got,
+                                      want):
+                    old = out.get((name, kind), (0.0, 0.0))
+                    out[name, kind] = (
+                        max(old[0], max_rel(a, b)),
+                        max(old[1], float((a - b).abs().max())))
+        torch.cuda.synchronize()
+        return out
+
+    # the split backward twins run two passes above 4 steps: unequal
+    # splits (K = 5: 3 + 2, K = 7: 4 + 3) at orders 8, 12 and 16, where
+    # the tiles take them
+    for order in (8, 12, 16):
+        case_x = tier_case(dataclasses.replace(dom, order=order))
+        case_z = tier_case(dataclasses.replace(dom2, order=order))
+        for shape in ((1, 2), (1, 2, 2)):
+            nxl = -(-dom.nxe // shape[1])
+            nzl = -(-dom.nze // shape[2]) if len(shape) == 3 else dom.nze
+            for k in (5, 7):
+                halo = k * order // 2
+                if halo > nxl or (len(shape) == 3 and halo > nzl):
+                    continue
+                for parts in (2, 3):
+                    hold(f"order {order} mesh {shape} K {k} parts {parts}",
+                         split_bwd_case(case_z if len(shape) == 3
+                                        else case_x, shape, k, parts,
+                                        order * 1000 + k * 10 + parts))
+                    n_cases += 1
     print(f"[split domain vs plain] {n_cases} cases on {dom.nxe} x "
           f"{dom.nze}, nt {dom.nt}", flush=True)
     (ctx_pm, ctx_pr, v2_pm, v2_pr, wav_pm, wav_pr, d_p,

@@ -1,10 +1,11 @@
-// The exact backward body of the temporal-blocking kernels: K steps of
-// the GPU suite's backward propagation and imaging (fd_back,
+// The backward body of the temporal-blocking kernels: K steps of the GPU
+// suite's backward propagation and imaging (fd_back,
 // cuda_reference_RTM/src/fd-code.cu:290-341) on one block's staged tile,
 // shared by kstep_gpu_bwd (kstep_gpu_bwd.cu, the large-grid tier) and
-// block_bwd / block2_bwd (domain_block.cuh, the domain tiers). Their split
-// twins (P > 0) keep the staged-tile bodies of kstep.cuh and
-// domain_block.cuh.
+// block_bwd / block2_bwd (domain_block.cuh, the domain tiers), and with
+// the x taps in split bf16 (P > 0, below) by block_bwd_mma /
+// block2_bwd_mma. kstep_gpu_bwd's split twin keeps the staged-tile body of
+// kstep_gpu_bwd.cu.
 //
 // What held the earlier body back on an H100 (PERF.md, kernel table): it
 // staged five fields and the image (131 KB at order 8, K = 4; 147 KB for
@@ -54,6 +55,30 @@
 // field's (nxf, nzf) layout), the tile, and per cell v2*dt2, the snapshot
 // that seeds a step (block_bwd's first block) if any, the trace row's
 // injection, and whether a cell is imaged and stored.
+//
+// The split x taps (P = 2 or 3 bf16 parts: lap_impl "mxu", "mxu6"). Each
+// step first takes the x taps of the source and the receiver field over
+// the step's region as the banded product on the tensor cores
+// (strip.cuh's x_product; the source's not on a seeded step) into two
+// more staged buffers, then a barrier: an mma hands an output to another
+// lane than the strip's cell thread. The cell loop then adds the exact z
+// taps to the product at the cell (xb + accz, the order of the JAX
+// kernels' use_mxu branch and of the plain split Laplacian), and keeps
+// everything else of the exact step. No register window is loaded: the x
+// taps are the product's. Two barriers a step (the products', the
+// step's); the products are written only after the end-of-step barrier
+// that follows every read of the last ones. What the split body stages: 6
+// tile fields (the four fields and the two products), the owned image and
+// the x ramp, its rows padded to a pitch of 4 mod 8 floats (strip_pitch:
+// the product's fragment reads and stores without bank conflicts), on the
+// exact body's shapes and launch bounds (32 x 64 owned cells first: 162.0
+// KB at order 8 and a pass of 4 steps, one block an SM). On an H100, over
+// one 2-shot, 1001-step Pluto call (PERF.md, scripts/torch_bwd_mma_probe.py)
+// these ran faster than 32 x 32 first (two blocks an SM), 16 x 32 first,
+// the unpadded pitch and one pass of 8 steps; __launch_bounds__(512, 1)
+// ran no faster. A second pass's buffers may hold no value past what the
+// first wrote: the split instances stage 0 there (the site's held()),
+// since the product multiplies every value it reads.
 #pragma once
 
 #include "strip.cuh"
@@ -61,34 +86,76 @@
 namespace pfdc {
 
 // Owned shapes, the first that fits taken (strip_shape), and what the body
-// stages: the four fields and the owned image.
+// stages: the four fields and the owned image; the split instances the
+// two x products too, on padded rows.
 constexpr StripShape kBwdShapes[] = {{32, 64}, {32, 32}, {16, 32}, {16, 16}};
 constexpr StripStage kBwdStage{4, true};
+constexpr StripStage kBwdMmaStage{6, true, true};
+
+// The Laplacian of strip cell i at tile cell j of the staged field f:
+// exact from the strip's x window w (P = 0), or the x product xb plus the
+// exact z taps.
+template <int H, int P, int N>
+__device__ __forceinline__ float bwd_lap(const float (&w)[N], int i,
+                                         const float* f, const float* xb,
+                                         int j, const Coefs& c) {
+  if constexpr (P == 0) {
+    return strip_lap<H>(w, i, f, j, c);
+  } else {
+    return xb[j] + axis_taps<H>(f, j, 1, c.z);
+  }
+}
+
+// The value of strip cell i at tile cell j of f: the window's (P = 0).
+template <int H, int P, int N>
+__device__ __forceinline__ float bwd_centre(const float (&w)[N], int i,
+                                            const float* f, int j) {
+  if constexpr (P == 0) {
+    return w[i + H];
+  } else {
+    return f[j];
+  }
+}
 
 // Steps k0 .. k0 + k_steps - 1 of the site's block, on its tile (blockDim.x
-// = kStripThreads, a 1-D block). Per step, from the state (ps, pps, pr, ppr)
-// with pr tapered: the source s = (2ps - pps) + v*lap(ps), untapered, or
-// the site's snapshot; the receiver u = (2pr - ppr*m) + v*lap(pr) plus the
-// trace row; the image += s*u on the imaged cells; the next state (s, ps,
-// u*m, pr).
-template <int H, class Site>
+// = kStripThreads, a 1-D block), with the x taps exact (P = 0) or in P
+// bf16 parts. Per step, from the state (ps, pps, pr, ppr) with pr tapered:
+// the source s = (2ps - pps) + v*lap(ps), untapered, or the site's
+// snapshot; the receiver u = (2pr - ppr*m) + v*lap(pr) plus the trace row;
+// the image += s*u on the imaged cells; the next state (s, ps, u*m, pr).
+template <int H, int P = 0, class Site>
 __device__ __forceinline__ void bwd_strip(float* smem, const Site& site,
                                           const StripTile& t, int k0,
                                           int k_steps, const Coefs& c) {
   constexpr int S = kStripRows;
-  const int n = t.sx * t.sz;
+  // the rows' pitch: padded in the split instances (strip_pitch)
+  const int pitch = P == 0 ? t.sz : strip_pitch(t.sz, kBwdMmaStage.padded);
+  const int n = t.sx * pitch;
   float* s_cur = smem;
   float* s_old = smem + n;
   float* r_cur = smem + 2 * n;
   float* r_old = smem + 3 * n;
   float* simg = smem + 4 * n;   // t.tx x t.tz, the owned cells
   float* sxr = simg + t.tx * t.tz;
+  float* xbs = sxr + t.sx;      // P > 0: the x products of s_cur, r_cur
+  float* xbr = xbs + n;
   const int tid = static_cast<int>(threadIdx.x);
   const int nth = static_cast<int>(blockDim.x);
   const int nxf = site.nxf, nzf = site.nzf;
-  stage_strip_tile<4>({s_cur, s_old, r_cur, r_old},
-                      {site.ps, site.pps, site.pr, site.ppr}, sxr,
-                      site.xramp, t, nxf, nzf);
+  if constexpr (P == 0) {
+    stage_strip_tile<4>({s_cur, s_old, r_cur, r_old},
+                        {site.ps, site.pps, site.pr, site.ppr}, sxr,
+                        site.xramp, t, nxf, nzf);
+  } else {
+    // x_product reads every staged cell: 0 where the site's buffers hold
+    // no value (past what a first pass wrote), which only inexact cells
+    // read in the exact body
+    stage_strip_tile<4>({s_cur, s_old, r_cur, r_old},
+                        {site.ps, site.pps, site.pr, site.ppr}, sxr,
+                        site.xramp, t, nxf, nzf,
+                        [&](int gx, int gz) { return site.held(gx, gz); },
+                        pitch);
+  }
   for (int i = tid; i < t.tx * t.tz; i += nth) {
     const int ox = i / t.tz, oz = i - ox * t.tz;
     simg[i] = site.image_start(t.gx0 + t.r + ox, t.gz0 + t.r + oz);
@@ -96,23 +163,35 @@ __device__ __forceinline__ void bwd_strip(float* smem, const Site& site,
   cp_async_wait_all();
   __syncthreads();
   // step 0's taper phase: the staged receiver field, every cell in the grid
-  taper_strip_tile(r_cur, sxr, site.zfac, site.strip, t, nxf, nzf);
+  taper_strip_tile(r_cur, sxr, site.zfac, site.strip, t, nxf, nzf, pitch);
   const int warp = tid >> 5, lane = tid & 31, nwarps = nth >> 5;
+  const SplitBand<H, P> band = split_band<H, P>(c.x, lane);
   for (int k = 0; k < k_steps; ++k) {
     const bool last = k + 1 == k_steps;
     const StripWalk<S> walk(t, (k + 1) * H);
+    if constexpr (P > 0) {
+      if (!site.seeded(k0 + k)) {
+        x_product<H, P>(xbs, s_cur, t, walk.lo, band, pitch, warp, nwarps,
+                        lane);
+      }
+      x_product<H, P>(xbr, r_cur, t, walk.lo, band, pitch, warp, nwarps,
+                      lane);
+      __syncthreads();
+    }
     for (int item = warp; item < walk.items; item += nwarps) {
       int lx0, rows, lz, gz;
       if (!walk.strip(item, lane, t, nzf, lx0, rows, lz, gz)) continue;
       const float zf = site.zfac[gz];
       const bool ramp = site.strip[gz] != 0.0f;
       float w[2][S + 2 * H];     // the source's and the receiver's
-      strip_windows<H>(w, {s_cur, r_cur}, t, lx0, rows, lz);
+      if constexpr (P == 0) {
+        strip_windows<H>(w, {s_cur, r_cur}, t, lx0, rows, lz);
+      }
 #pragma unroll
       for (int i = 0; i < S; ++i) {
         const int lx = lx0 + i, gx = t.gx0 + lx;
         if (i >= rows || gx < 0 || gx >= nxf) continue;
-        const int j = lx * t.sz + lz;
+        const int j = lx * pitch + lz;
         const bool interior = in_interior(gx, gz, H, nxf, nzf);
         const float v = site.v(gx, gz);
         float us;
@@ -120,13 +199,16 @@ __device__ __forceinline__ void bwd_strip(float* smem, const Site& site,
           us = site.snapshot(k0 + k, gx, gz);
         } else {
           const float lap_s =
-              interior ? strip_lap<H>(w[0], i, s_cur, j, c) : 0.0f;
-          us = (2.0f * w[0][i + H] - s_old[j]) + v * lap_s;
+              interior ? bwd_lap<H, P>(w[0], i, s_cur, xbs, j, c) : 0.0f;
+          us = (2.0f * bwd_centre<H, P>(w[0], i, s_cur, j) - s_old[j]) +
+               v * lap_s;
         }
         const float m = strip_taper(sxr, lx, zf, ramp);
         const float lap_r =
-            interior ? strip_lap<H>(w[1], i, r_cur, j, c) : 0.0f;
-        float ur = (2.0f * w[1][i + H] - r_old[j] * m) + v * lap_r;
+            interior ? bwd_lap<H, P>(w[1], i, r_cur, xbr, j, c) : 0.0f;
+        float ur =
+            (2.0f * bwd_centre<H, P>(w[1], i, r_cur, j) - r_old[j] * m) +
+            v * lap_r;
         ur = site.inject(k0 + k, gx, gz, ur);
         s_old[j] = us;
         r_old[j] = last ? ur : ur * m;
@@ -153,7 +235,7 @@ __device__ __forceinline__ void bwd_strip(float* smem, const Site& site,
     if (gx < 0 || gx >= nxf || gz < 0 || gz >= nzf || !site.stored(gx, gz)) {
       continue;
     }
-    const int j = lx * t.sz + lz;
+    const int j = lx * pitch + lz;
     const size_t q = static_cast<size_t>(gx) * nzf + gz;
     site.ps_out[q] = s_cur[j];
     site.pps_out[q] = s_old[j];

@@ -1,8 +1,10 @@
 // domain2d_block: the (x, z)-domain tier's three block kernels, each K time
 // steps on one halo-extended (x, z) tile for every shot of a batch: the C
 // entry points pfdc_block2_{mod,fwd,bwd}_run and, with the x taps in split
-// bf16, pfdc_block2_{mod,fwd,bwd}_mma_run (one launch a block and tile) of
-// the kernels in domain_block.cuh, which the x tier shares.
+// bf16, pfdc_block2_{mod,fwd,bwd}_mma_run (the modeling and forward twins
+// one launch a block and tile; the backward twin, as the exact kernels,
+// two for a block of more than 4 steps) of the kernels in
+// domain_block.cuh, which the x tier shares.
 //
 // Replaces: parallel_finite_difference_computation_tpu/parallel/
 // domain2d_pallas.py, _mod2_block_kernel (:178), _fwd2_block_kernel (:99)
@@ -197,15 +199,17 @@ extern "C" int pfdc_block2_bwd_run(const float* ps, const float* pps,
 }
 
 // The same block with the x taps in parts (2 or 3) bf16 splits:
-// block_bwd_mma on an (x, z) tile.
+// block_bwd_mma on an (x, z) tile, which takes a block of k > 4 in two
+// passes as well (scratch as above).
 extern "C" int pfdc_block2_bwd_mma_run(const float* ps, const float* pps,
                                        const float* pr, const float* ppr,
                                        float* ps_out, float* pps_out,
                                        float* pr_out, float* ppr_out,
                                        const float* snap0,
                                        const float* snap1, float* img,
-                                       const float* v2m, int v2_shot_stride,
-                                       const float* xramp, const float* zfac,
+                                       float* scratch, const float* v2m,
+                                       int v2_shot_stride, const float* xramp,
+                                       const float* zfac,
                                        const float* strip, const float* inj,
                                        int inj_shot_stride, int gz, int k,
                                        int ns, int hs, int nxl, int hz,
@@ -216,7 +220,7 @@ extern "C" int pfdc_block2_bwd_mma_run(const float* ps, const float* pps,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return block2_bwd_run(ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out,
-                        snap0, snap1, img, nullptr, v2m, v2_shot_stride, xramp,
+                        snap0, snap1, img, scratch, v2m, v2_shot_stride, xramp,
                         zfac, strip, inj, inj_shot_stride, gz, k, ns, hs, nxl,
                         hz, nzl, order, parts, cx, cz, stream);
 }

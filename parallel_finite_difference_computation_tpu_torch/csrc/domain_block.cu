@@ -1,9 +1,10 @@
 // domain_block: the x-domain tier's three block kernels, each K time steps
 // on one halo-extended x-slab for every shot of a batch: the C entry points
 // pfdc_block_{mod,fwd,bwd}_run and, with the x taps in split bf16,
-// pfdc_block_{mod,fwd,bwd}_mma_run (one launch a block and slab) of the
-// kernels in domain_block.cuh, for a slab, the tile that spans the whole z
-// axis (no z halo).
+// pfdc_block_{mod,fwd,bwd}_mma_run (the modeling and forward twins one
+// launch a block and slab; the backward twin, as the exact kernels, two
+// for a block of more than 4 steps) of the kernels in domain_block.cuh,
+// for a slab, the tile that spans the whole z axis (no z halo).
 //
 // Replaces: parallel_finite_difference_computation_tpu/parallel/
 // domain_pallas.py, _mod_block_kernel (:189), _fwd_block_kernel (:115) and
@@ -184,15 +185,17 @@ extern "C" int pfdc_block_bwd_run(const float* ps, const float* pps,
 }
 
 // The same block with the x taps in parts (2 or 3) bf16 splits:
-// block_bwd_mma.
+// block_bwd_mma, which takes a block of k > 4 in two passes as well
+// (scratch as above).
 extern "C" int pfdc_block_bwd_mma_run(const float* ps, const float* pps,
                                       const float* pr, const float* ppr,
                                       float* ps_out, float* pps_out,
                                       float* pr_out, float* ppr_out,
                                       const float* snap0, const float* snap1,
-                                      float* img, const float* v2m,
-                                      int v2_shot_stride, const float* xramp,
-                                      const float* zfac, const float* strip,
+                                      float* img, float* scratch,
+                                      const float* v2m, int v2_shot_stride,
+                                      const float* xramp, const float* zfac,
+                                      const float* strip,
                                       const float* inj, int inj_shot_stride,
                                       int gz, int k, int ns, int hs, int nxl,
                                       int nze, int order, int parts,
@@ -202,7 +205,7 @@ extern "C" int pfdc_block_bwd_mma_run(const float* ps, const float* pps,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return block_bwd_run(ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out,
-                       snap0, snap1, img, nullptr, v2m, v2_shot_stride, xramp,
+                       snap0, snap1, img, scratch, v2m, v2_shot_stride, xramp,
                        zfac, strip, inj, inj_shot_stride, gz, k, ns, hs, nxl,
                        nze, order, parts, cx, cz, stream);
 }

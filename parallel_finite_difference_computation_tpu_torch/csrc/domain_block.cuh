@@ -41,7 +41,8 @@
 // slabs and tiles faster than 64 x 64, 64 x 112, 48 x 96, 32 x 128 and
 // 64 x 128, though 64 x 112 is 2-3 % faster on the tiles alone; PERF.md),
 // block_bwd the body of bwd_strip.cuh (kstep_gpu_bwd's; 32 x 64 owned
-// cells, 32 x 32 at order 10). Each takes the K steps of a block in
+// cells, 32 x 32 at order 10), and so does block_bwd_mma, with the x taps
+// split (below). Each takes the K steps of a block in
 // passes of at most kBlockPassSteps (below), so that the staged halo stays
 // that deep: at order 8, K = 8, two passes of 4 on 64 x 96 owned cells
 // compute 1.35x the owned cells each, where the earlier forward body's one
@@ -51,35 +52,43 @@
 // functions' (parallel/domain_kernels.py) and the TPU kernels', outputs
 // to buffers no block of the launch reads: the strip bodies put the taper
 // where a value is written or read at its own cell (fwd_strip.cuh says
-// why that rounds the same), the split twins' staged-tile bodies taper
-// the older field in place in a phase of its own, then a barrier.
+// why that rounds the same), block_mod_mma's and block_fwd_mma's
+// staged-tile bodies taper the older field in place in a phase of its
+// own, then a barrier.
 // block_bwd sums the image delta of the block from 0 in shared memory and
 // adds it to the running image once, as the JAX package does
 // (domain_pallas.py:161, :178, :492). Offsets into trace rows and
 // seismograms are size_t.
 //
-// The split x taps (lap_impl "mxu", "mxu6"). The staged-tile bodies below
-// are templates on P, the bf16 parts of the Laplacian (P > 0; the exact
-// kernels, P = 0, run the strip bodies): P = 2 (3) is the *_mma twin of a
-// kernel (block_mod_mma, ...), which takes the x taps as the
-// 3-pass (6-pass) split-bf16 banded product on the tensor cores
-// (mma_bf16.cuh) and the z taps exact, yx + accz, as the JAX block kernels'
+// The split x taps (lap_impl "mxu", "mxu6"): P = 2 (3) is the *_mma twin
+// of a kernel (block_mod_mma, ...), which takes the x taps as the 3-pass
+// (6-pass) split-bf16 banded product on the tensor cores (mma_bf16.cuh;
+// strip.cuh's x_product contracts down the staged tile's rows, A[m][k] a
+// column of it) and the z taps exact, yx + accz, as the JAX block kernels'
 // use_mxu branch does (_make_lap's MXU branch, ops/pallas_fd.py:312-332,
-// through _lap_and_refs, domain_pallas.py:106-112). x_band contracts down
-// the staged tile's rows (A[m][k] is a column of it) into one more staged
+// through _lap_and_refs, domain_pallas.py:106-112). An mma output lands in
+// another lane than the cell's thread, so the product goes into a staged
 // buffer behind a barrier, and the cell's own thread then adds the exact z
-// taps (block_lap), so the update, taper, injection, trace and image keep
-// their threads and order. block_bwd_mma takes its two Laplacians one after
-// the other through that one buffer, and owns 16 x 32 cells so that five
-// staged tiles fit a block at order 10 and K = 8. The buffers keep the
-// tile's pitch (TZ + 2Kh floats: 128 at order 8, K = 8 for block_mod_mma,
-// which gives the column reads 4-way bank conflicts). The TPU kernels' lane
-// pad to a multiple of 128 (nxww, domain_pallas.py:252) is layout, with
-// zero lanes: here a window past the tile reads 0. What bounds the twins:
-// the exact kernels' bytes; what they add is shared-memory and issue work
-// (the split of every value a window reads, the staged product, one more
-// barrier a step, two more in block_bwd_mma, and block_bwd_mma's smaller
-// owned tile recomputes more halo), not tensor-core time.
+// taps: the update, taper, injection, trace and image keep their threads
+// and order. block_bwd_mma runs the backward strip body's split instances
+// (bwd_strip.cuh: both fields' products into two buffers, one barrier,
+// then the strip walk; block_bwd's shapes, 32 x 64 owned cells first) in
+// the passes of block_bwd, so that a pass of 4 steps at order 8 computes
+// 1.67x its owned cells, where the earlier staged-tile body's one pass of
+// 8 on 16 x 32 computed 5.8x.
+// block_mod_mma and block_fwd_mma keep the staged-tile bodies below
+// (templates on P > 0; x_band is x_product behind a barrier): all K steps
+// in one pass, 32 x 64 owned cells, the older field tapered in place in a
+// phase of its own. Their buffers keep the tile's pitch (TZ + 2Kh floats:
+// 128 at order 8, K = 8, which gives the column reads 4-way bank
+// conflicts; the strip body's 64 at order 8 does too). The TPU kernels'
+// lane pad to a multiple of 128 (nxww, domain_pallas.py:252) is layout,
+// with zero lanes: here a window past the tile reads 0, and every staged
+// cell is finite (a second pass stages 0 past what the first wrote). What
+// bounds the twins: the exact kernels' bytes; what they add is
+// shared-memory and issue work (the split of every value a window reads,
+// the staged products, one more barrier a step, the halo the smaller
+// owned tiles recompute), not tensor-core time.
 //
 // The kernels sit in an anonymous namespace: each source that includes
 // this header builds its own instances.
@@ -92,7 +101,6 @@
 namespace {
 
 constexpr int kModTX = 32, kModTZ = 64;   // block_mod_mma, block_fwd_mma
-constexpr int kBwdMmaTX = 16, kBwdMmaTZ = 32;   // block_bwd_mma
 
 // A tile's owned size and halos. kZ: an (x, z) tile, with a z halo and z
 // extent of its own; false: an x-slab (no z halo, nzl = nze), whose z
@@ -199,41 +207,17 @@ __device__ __forceinline__ void store_tile(float* __restrict__ f,
   });
 }
 
-// The x taps of the field f, centre included, as the P-part split-bf16
-// banded product, into xb at every block-tile cell at least lo cells from
-// its edge, then a barrier. A warp (threadIdx.y) takes
-// the region's blocks of 16 columns (the mma's rows m, along z) by 8 rows
-// (its outputs n, along x) in turn, contracting down x: A[m][k] is column
-// z0 + m of the tile at row x0 - H + k, the window of output row x0 + n
-// starting H rows before it. Reads past the tile read 0 (the band's zeros
-// multiply every value read, so each must be finite: the tile's cells all
-// are), and outputs beyond the region are not written.
+// The x taps of the field f as the P-part split-bf16 banded product
+// (strip.cuh's x_product), into xb at every block-tile cell at least lo
+// cells from its edge, a warp a threadIdx.y, then a barrier.
 template <int H, int P, class T>
 __device__ __forceinline__ void x_band(float* xb, const float* f, const T& t,
                                        int lo, const pfdc::SplitBand<H, P>& band) {
   static_assert(P > 0, "the split twins' x product");
-  const int lane = static_cast<int>(threadIdx.x);
-  const int hx = t.sx - lo, hz = t.sz - lo;
-  const int nbz = (hz - lo + 15) / 16;
-  const int nb = (hx - lo + 7) / 8 * nbz;
-  for (int b = threadIdx.y; b < nb; b += blockDim.y) {
-    const int x0 = lo + 8 * (b / nbz);
-    const int z0 = lo + 16 * (b % nbz);
-    float y[4];
-    pfdc::banded_mma<H, P>(
-        y,
-        [&](int m, int k) {
-          const int lx = x0 - H + k, lz = z0 + m;
-          return lx < t.sx && lz < t.sz ? f[lx * t.sz + lz] : 0.0f;
-        },
-        band, lane);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int lz = z0 + pfdc::frag_g(lane) + 8 * (q >> 1);
-      const int lx = x0 + 2 * pfdc::frag_t(lane) + (q & 1);
-      if (lx < hx && lz < hz) xb[lx * t.sz + lz] = y[q];
-    }
-  }
+  pfdc::x_product<H, P>(xb, f, t, lo, band, t.sz,
+                        static_cast<int>(threadIdx.y),
+                        static_cast<int>(blockDim.y),
+                        static_cast<int>(threadIdx.x));
   __syncthreads();
 }
 
@@ -366,116 +350,6 @@ __device__ __forceinline__ void block_fwd_body(
   store_tile(pp_out + s * plane, sy, t, d);
 }
 
-// Per step, from the state (ps, pps, pr, ppr) (fd-code.cu:302-333): the
-// source s = (2ps - pps) + v*lap(ps), untapered, or with snap0/snap1 given
-// (the first block) the snapshot snap1 at step 0 and snap0 at step 1; the
-// receiver t = pr*m (in place, then a barrier), u = (2t - ppr*m) +
-// v*lap(t), plus trace row k at row gz_rec (K5); the block's image delta
-// += s*u on the owned cells (K6), added to img at the end: block_bwd_mma's
-// body (P > 0; block_bwd runs bwd_strip.cuh's), where the source step and
-// the receiver step each follow their own x product, in two passes over
-// the cells.
-template <int H, bool kZ, int P>
-__device__ __forceinline__ void block_bwd_body(
-    float* smem, const float* __restrict__ ps_in,
-    const float* __restrict__ pps_in, const float* __restrict__ pr_in,
-    const float* __restrict__ ppr_in, float* __restrict__ ps_out,
-    float* __restrict__ pps_out, float* __restrict__ pr_out,
-    float* __restrict__ ppr_out, const float* __restrict__ snap0,
-    const float* __restrict__ snap1, float* __restrict__ img,
-    const float* __restrict__ v2m, int v2_shot_stride,
-    const float* __restrict__ xramp, const float* __restrict__ zfac,
-    const float* __restrict__ strip, const float* __restrict__ inj,
-    int inj_shot_stride, int gz_rec, int k_steps, const Dims<kZ>& d,
-    const pfdc::Coefs& c) {
-  static_assert(P > 0, "block_bwd runs bwd_strip");
-  using T = BlockTile<kBwdMmaTX, kBwdMmaTZ>;
-  const int nxw = d.nxw(), nzw = d.nzw();
-  const T t(k_steps * H, d);
-  const int n = t.cells();
-  float* sps = smem;
-  float* spps = smem + n;
-  float* spr = smem + 2 * n;
-  float* sppr = smem + 3 * n;
-  float* simg = smem + 4 * n;   // T::kTX x T::kTZ, owned cells
-  float* xb = simg + T::kTX * T::kTZ;   // the x taps of sps or spr
-  const auto band = pfdc::split_band<H, P>(c.x);
-  const int s = blockIdx.z;
-  const size_t plane = d.plane();
-  load_tile(sps, ps_in + s * plane, t, nxw, nzw);
-  load_tile(spps, pps_in + s * plane, t, nxw, nzw);
-  load_tile(spr, pr_in + s * plane, t, nxw, nzw);
-  load_tile(sppr, ppr_in + s * plane, t, nxw, nzw);
-  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < T::kTX * T::kTZ;
-       i += blockDim.x * blockDim.y) {
-    simg[i] = 0.0f;
-  }
-  const float* v = v2m + s * static_cast<size_t>(v2_shot_stride);
-  const float* inj_s = inj + s * static_cast<size_t>(inj_shot_stride);
-  const bool seed = snap0 != nullptr;
-  for (int k = 0; k < k_steps; ++k) {
-    // taper the receiver field over every cell this step's taps read
-    for_cells(t, k * H, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
-      const int j = lx * t.sz + lz;
-      spr[j] = spr[j] * pfdc::taper_at(xramp, zfac, strip, gx, gz);
-    });
-    __syncthreads();
-    // the source step after the x product of sps, then the receiver
-    // step and the image term after that of spr, through one buffer
-    const int lo = (k + 1) * H;
-    if (!(seed && k < 2)) x_band<H, P>(xb, sps, t, lo, band);
-    for_cells(t, lo, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
-      const int j = lx * t.sz + lz;
-      const size_t q = static_cast<size_t>(gx) * nzw + gz;
-      if (seed && k < 2) {
-        spps[j] = (k == 0 ? snap1 : snap0)[s * plane + q];
-      } else {
-        const float lap_s = pfdc::in_interior(gx, gz, H, nxw, nzw)
-                                ? block_lap<H>(sps, xb, j, c)
-                                : 0.0f;
-        spps[j] = (2.0f * sps[j] - spps[j]) + v[q] * lap_s;
-      }
-    });
-    __syncthreads();   // every read of xb is done
-    x_band<H, P>(xb, spr, t, lo, band);
-    for_cells(t, lo, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
-      const int j = lx * t.sz + lz;
-      const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
-      const float lap_r = pfdc::in_interior(gx, gz, H, nxw, nzw)
-                              ? block_lap<H>(spr, xb, j, c)
-                              : 0.0f;
-      float ur = (2.0f * spr[j] - sppr[j] * m) +
-                 v[static_cast<size_t>(gx) * nzw + gz] * lap_r;
-      if (gz == gz_rec) {
-        ur = ur + inj_s[static_cast<size_t>(k) * nxw + gx];
-      }
-      sppr[j] = ur;
-      if (t.owned(lx, lz, gx, gz, d)) {
-        float& acc = simg[(lx - t.r) * T::kTZ + (lz - t.r)];
-        acc = acc + spps[j] * ur;
-      }
-    });
-    float* tmp = sps;
-    sps = spps;
-    spps = tmp;
-    tmp = spr;
-    spr = sppr;
-    sppr = tmp;
-  }
-  store_tile(ps_out + s * plane, sps, t, d);
-  store_tile(pps_out + s * plane, spps, t, d);
-  store_tile(pr_out + s * plane, spr, t, d);
-  store_tile(ppr_out + s * plane, sppr, t, d);
-  float* img_s = img + s * static_cast<size_t>(d.nxl) * d.nzl;
-  for_cells(t, t.r, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
-    if (t.owned(lx, lz, gx, gz, d)) {
-      float& out =
-          img_s[static_cast<size_t>(gx - d.hs) * d.nzl + (gz - d.hz())];
-      out = out + simg[(lx - t.r) * T::kTZ + (lz - t.r)];
-    }
-  });
-}
-
 // The split-bf16 twins (P = 2, 3), whose mma fragments take registers:
 // their launch bounds are stated.
 template <int H, bool kZ, int P>
@@ -511,8 +385,9 @@ __global__ void __launch_bounds__(pfdc::kTileThreads)
                            amps, k_steps, d, c);
 }
 
-// The exact kernels take the K steps of a block in passes of at most
-// kBlockPassSteps, so that the staged halo stays that many steps deep (K =
+// The kernels on strip bodies (the exact ones and block_bwd_mma) take the
+// K steps of a block in passes of at most kBlockPassSteps, so that the
+// staged halo stays that many steps deep (K =
 // 8 at order 8: two passes of 4, a 16-cell halo, two blocks an SM, where
 // one pass of 8 staged a 32-cell halo, one block an SM, and computed 1.9x
 // the owned cells of block_mod's 64 x 96, 2.9x of block_bwd's 32 x 64; on
@@ -528,10 +403,10 @@ __global__ void __launch_bounds__(pfdc::kTileThreads)
 // as fwd_strip.cuh says.
 constexpr int kBlockPassSteps = 4;
 
-// One pass of an exact block kernel: steps k0 .. k0 + k_steps - 1 of the
-// block, the margin (ex, ez) around the owned cells that it writes too,
-// and for block_bwd where the image sum starts (nullptr: from 0) and ends
-// (added to img_end, or stored).
+// One pass of a block kernel on a strip body: steps k0 .. k0 + k_steps - 1
+// of the block, the margin (ex, ez) around the owned cells that it writes
+// too, and for block_bwd where the image sum starts (nullptr: from 0) and
+// ends (added to img_end, or stored).
 struct BlockPass {
   int k0, k_steps, ex, ez;
   const float* img_start;
@@ -539,7 +414,7 @@ struct BlockPass {
   bool add;
 };
 
-// The passes of an exact block of k steps on the tile d, h the half order:
+// The passes of a block of k steps on the tile d, h the half order:
 // n = 1, first all k steps; or n = 2, first (k + 1) / 2 steps and the
 // margin the second stages, second the rest. The image members are
 // block_bwd's to set.
@@ -715,7 +590,9 @@ __global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
 // block_bwd's site (bwd_strip.cuh): one shot's tile buffers, (nxw, nzw);
 // the pass's output rectangle, the owned cells and its margin; the image
 // delta summed on the owned cells; the snapshots seed steps 0 and 1 of the
-// first block; the trace row is injected on every cell of row gz_rec.
+// first block; the trace row is injected on every cell of row gz_rec. A
+// second pass's buffers hold values on the rectangle the first wrote only,
+// the owned cells and the margin (ix, iz).
 template <bool kZ>
 struct BlockBwdSite {
   const float* ps;
@@ -736,11 +613,14 @@ struct BlockBwdSite {
   const float* zfac;
   const float* strip;
   const float* inj;
-  int gz_rec, nxf, nzf, ex, ez;
+  int gz_rec, nxf, nzf, ex, ez, ix, iz;
   Dims<kZ> d;
 
   __device__ float v(int gx, int gz) const {
     return __ldg(v2m + static_cast<size_t>(gx) * nzf + gz);
+  }
+  __device__ bool held(int gx, int gz) const {
+    return in_rect(d, gx, gz, ix, iz);
   }
   __device__ bool seeded(int k) const { return snap0 != nullptr && k < 2; }
   __device__ float snapshot(int k, int gx, int gz) const {
@@ -768,6 +648,42 @@ struct BlockBwdSite {
   }
 };
 
+// One pass of block_bwd (P = 0) or block_bwd_mma (P = 2, 3) on the
+// backward strip body.
+template <int H, bool kZ, int P>
+__device__ __forceinline__ void block_bwd_pass(
+    float* smem, const float* __restrict__ ps_in,
+    const float* __restrict__ pps_in, const float* __restrict__ pr_in,
+    const float* __restrict__ ppr_in, float* __restrict__ ps_out,
+    float* __restrict__ pps_out, float* __restrict__ pr_out,
+    float* __restrict__ ppr_out, const float* __restrict__ snap0,
+    const float* __restrict__ snap1, const float* __restrict__ v2m,
+    int v2_shot_stride, const float* __restrict__ xramp,
+    const float* __restrict__ zfac, const float* __restrict__ strip,
+    const float* __restrict__ inj, int inj_shot_stride, int gz_rec,
+    const Dims<kZ>& d, pfdc::StripShape shape, const BlockPass& pass,
+    const pfdc::Coefs& c) {
+  const int s = blockIdx.z;
+  const size_t plane = d.plane();
+  const size_t image = static_cast<size_t>(d.nxl) * d.nzl;
+  const bool seed = snap0 != nullptr;
+  const BlockBwdSite<kZ> site{
+      ps_in + s * plane,  pps_in + s * plane, pr_in + s * plane,
+      ppr_in + s * plane, ps_out + s * plane, pps_out + s * plane,
+      pr_out + s * plane, ppr_out + s * plane,
+      seed ? snap0 + s * plane : nullptr, seed ? snap1 + s * plane : nullptr,
+      pass.img_start ? pass.img_start + s * image : nullptr,
+      pass.img_end + s * image, pass.add,
+      v2m + s * static_cast<size_t>(v2_shot_stride), xramp, zfac, strip,
+      inj + s * static_cast<size_t>(inj_shot_stride), gz_rec, d.nxw(),
+      d.nzw(), pass.ex, pass.ez,
+      // the input: the whole buffer, or what a first pass wrote
+      pass.k0 ? (d.hs ? pass.k_steps * H : 0) : d.hs,
+      pass.k0 ? (d.hz() ? pass.k_steps * H : 0) : d.hz(), d};
+  const pfdc::StripTile t = pass_tile(pass.k_steps * H, shape, pass, d);
+  pfdc::bwd_strip<H, P>(smem, site, t, pass.k0, pass.k_steps, c);
+}
+
 template <int H, bool kZ>
 __global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
     block_bwd(const float* __restrict__ ps_in,
@@ -784,26 +700,15 @@ __global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
               Dims<kZ> d, pfdc::StripShape shape, BlockPass pass,
               pfdc::Coefs c) {
   extern __shared__ float smem[];
-  const int s = blockIdx.z;
-  const size_t plane = d.plane();
-  const size_t image = static_cast<size_t>(d.nxl) * d.nzl;
-  const bool seed = snap0 != nullptr;
-  const BlockBwdSite<kZ> site{
-      ps_in + s * plane,  pps_in + s * plane, pr_in + s * plane,
-      ppr_in + s * plane, ps_out + s * plane, pps_out + s * plane,
-      pr_out + s * plane, ppr_out + s * plane,
-      seed ? snap0 + s * plane : nullptr, seed ? snap1 + s * plane : nullptr,
-      pass.img_start ? pass.img_start + s * image : nullptr,
-      pass.img_end + s * image, pass.add,
-      v2m + s * static_cast<size_t>(v2_shot_stride), xramp, zfac, strip,
-      inj + s * static_cast<size_t>(inj_shot_stride), gz_rec, d.nxw(),
-      d.nzw(), pass.ex, pass.ez, d};
-  const pfdc::StripTile t = pass_tile(pass.k_steps * H, shape, pass, d);
-  pfdc::bwd_strip<H>(smem, site, t, pass.k0, pass.k_steps, c);
+  block_bwd_pass<H, kZ, 0>(smem, ps_in, pps_in, pr_in, ppr_in, ps_out,
+                           pps_out, pr_out, ppr_out, snap0, snap1, v2m,
+                           v2_shot_stride, xramp, zfac, strip, inj,
+                           inj_shot_stride, gz_rec, d, shape, pass, c);
 }
 
+// The split twin (P = 2, 3): the same pass with the x taps in bf16 parts.
 template <int H, bool kZ, int P>
-__global__ void __launch_bounds__(pfdc::kTileThreads)
+__global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
     block_bwd_mma(const float* __restrict__ ps_in,
                   const float* __restrict__ pps_in,
                   const float* __restrict__ pr_in,
@@ -811,18 +716,30 @@ __global__ void __launch_bounds__(pfdc::kTileThreads)
                   float* __restrict__ ps_out, float* __restrict__ pps_out,
                   float* __restrict__ pr_out, float* __restrict__ ppr_out,
                   const float* __restrict__ snap0,
-                  const float* __restrict__ snap1, float* __restrict__ img,
+                  const float* __restrict__ snap1,
                   const float* __restrict__ v2m, int v2_shot_stride,
                   const float* __restrict__ xramp,
                   const float* __restrict__ zfac,
                   const float* __restrict__ strip,
                   const float* __restrict__ inj, int inj_shot_stride,
-                  int gz_rec, int k_steps, Dims<kZ> d, pfdc::Coefs c) {
+                  int gz_rec, Dims<kZ> d, pfdc::StripShape shape,
+                  BlockPass pass, pfdc::Coefs c) {
+  static_assert(P > 0, "block_bwd is the exact kernel");
   extern __shared__ float smem[];
-  block_bwd_body<H, kZ, P>(smem, ps_in, pps_in, pr_in, ppr_in, ps_out,
-                           pps_out, pr_out, ppr_out, snap0, snap1, img, v2m,
+  block_bwd_pass<H, kZ, P>(smem, ps_in, pps_in, pr_in, ppr_in, ps_out,
+                           pps_out, pr_out, ppr_out, snap0, snap1, v2m,
                            v2_shot_stride, xramp, zfac, strip, inj,
-                           inj_shot_stride, gz_rec, k_steps, d, c);
+                           inj_shot_stride, gz_rec, d, shape, pass, c);
+}
+
+// The kernel of a pass at P.
+template <int H, bool kZ, int P>
+auto bwd_kernel() {
+  if constexpr (P == 0) {
+    return block_bwd<H, kZ>;
+  } else {
+    return block_bwd_mma<H, kZ, P>;
+  }
 }
 
 template <bool kZ>
@@ -1000,28 +917,29 @@ struct BlockBwdRun {
   Dims<kZ> d;
   pfdc::Coefs c;
   int parts;
-  // the exact block_bwd with k > kBlockPassSteps: the four fields and the
-  // image delta between its passes, 4 * ns * plane + ns * nxl * nzl floats
+  // a block of k > kBlockPassSteps: the four fields and the image delta
+  // between its passes, 4 * ns * plane + ns * nxl * nzl floats
   float* scratch;
   cudaStream_t stream;
 
-  // One pass of block_bwd from the fields (a, b, c_, d_) into the out
-  // buffers.
-  template <int H>
+  // One pass of block_bwd (block_bwd_mma at P > 0) from the fields (a, b,
+  // c_, d_) into the out buffers.
+  template <int H, int P>
   cudaError_t bwd_pass(const float* a, const float* b, const float* c_,
                        const float* d_, float* a_out, float* b_out,
                        float* c_out, float* d_out, BlockPass pass) const {
-    const pfdc::StripShape shape = pfdc::strip_shape(
-        pfdc::kBwdShapes, pfdc::kBwdStage, pass.k_steps * H);
+    const pfdc::StripStage stage = P ? pfdc::kBwdMmaStage : pfdc::kBwdStage;
+    const pfdc::StripShape shape =
+        pfdc::strip_shape(pfdc::kBwdShapes, stage, pass.k_steps * H);
     if (shape.tx == 0) return cudaErrorInvalidValue;
-    const size_t bytes =
-        pfdc::strip_bytes(shape, pfdc::kBwdStage, pass.k_steps * H);
-    const cudaError_t e = pfdc::allow_smem(block_bwd<H, kZ>, bytes);
+    const size_t bytes = pfdc::strip_bytes(shape, stage, pass.k_steps * H);
+    const auto kernel = bwd_kernel<H, kZ, P>();
+    const cudaError_t e = pfdc::allow_smem(kernel, bytes);
     if (e != cudaSuccess) return e;
     const dim3 grid = pfdc::strip_grid(shape, ns, d.nxl + 2 * pass.ex,
                                        d.nzl + 2 * pass.ez);
     const dim3 block(pfdc::kStripThreads);
-    block_bwd<H, kZ><<<grid, block, bytes, stream>>>(
+    kernel<<<grid, block, bytes, stream>>>(
         a, b, c_, d_, a_out, b_out, c_out, d_out, snap0, snap1, v2m,
         v2_shot_stride, xramp, zfac, strip, inj, inj_shot_stride, gz, d,
         shape, pass, c);
@@ -1031,41 +949,27 @@ struct BlockBwdRun {
   template <int H, int P>
   cudaError_t launch() const {
     if (!d.fits(k * H)) return cudaErrorInvalidValue;
-    if constexpr (P == 0) {
-      BlockPasses<kZ> passes(d, k, H);
-      if (passes.n == 1) {
-        passes.first.img_end = img;
-        passes.first.add = true;
-        return bwd_pass<H>(ps, pps, pr, ppr, ps_out, pps_out, pr_out,
-                           ppr_out, passes.first);
-      }
-      // two passes through the scratch fields and image delta
-      if (scratch == nullptr) return cudaErrorInvalidValue;
-      const size_t n = ns * d.plane();
-      float* mid[4] = {scratch, scratch + n, scratch + 2 * n,
-                       scratch + 3 * n};
-      float* delta = scratch + 4 * n;
-      passes.first.img_end = delta;
-      const cudaError_t e = bwd_pass<H>(ps, pps, pr, ppr, mid[0], mid[1],
-                                        mid[2], mid[3], passes.first);
-      if (e != cudaSuccess) return e;
-      passes.second.img_start = delta;
-      passes.second.img_end = img;
-      passes.second.add = true;
-      return bwd_pass<H>(mid[0], mid[1], mid[2], mid[3], ps_out, pps_out,
-                         pr_out, ppr_out, passes.second);
-    } else {
-      const size_t bytes = tile_bytes<kBwdMmaTX, kBwdMmaTZ>(5, k * H, true);
-      const cudaError_t e = pfdc::allow_smem(block_bwd_mma<H, kZ, P>, bytes);
-      if (e != cudaSuccess) return e;
-      const dim3 grid = tile_grid<kBwdMmaTX, kBwdMmaTZ>(ns, d);
-      const dim3 block = pfdc::tile_block();
-      block_bwd_mma<H, kZ, P><<<grid, block, bytes, stream>>>(
-          ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out, snap0, snap1,
-          img, v2m, v2_shot_stride, xramp, zfac, strip, inj,
-          inj_shot_stride, gz, k, d, c);
-      return cudaGetLastError();
+    BlockPasses<kZ> passes(d, k, H);
+    if (passes.n == 1) {
+      passes.first.img_end = img;
+      passes.first.add = true;
+      return bwd_pass<H, P>(ps, pps, pr, ppr, ps_out, pps_out, pr_out,
+                            ppr_out, passes.first);
     }
+    // two passes through the scratch fields and image delta
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    const size_t n = ns * d.plane();
+    float* mid[4] = {scratch, scratch + n, scratch + 2 * n, scratch + 3 * n};
+    float* delta = scratch + 4 * n;
+    passes.first.img_end = delta;
+    const cudaError_t e = bwd_pass<H, P>(ps, pps, pr, ppr, mid[0], mid[1],
+                                         mid[2], mid[3], passes.first);
+    if (e != cudaSuccess) return e;
+    passes.second.img_start = delta;
+    passes.second.img_end = img;
+    passes.second.add = true;
+    return bwd_pass<H, P>(mid[0], mid[1], mid[2], mid[3], ps_out, pps_out,
+                          pr_out, ppr_out, passes.second);
   }
 
   template <int H>

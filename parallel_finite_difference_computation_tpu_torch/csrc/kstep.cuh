@@ -167,19 +167,27 @@ __device__ __forceinline__ float axis_taps(const float* f, int j, int stride,
   return acc + half[0] * f[j];
 }
 
-// This thread's band fragments of one axis's split taps (half: that
-// axis's coefficients, Coefs::z or Coefs::x); nothing for P = 0.
+// The band fragments of one axis's split taps (half: that axis's
+// coefficients, Coefs::z or Coefs::x) of the thread in lane lane of its
+// warp; nothing for P = 0.
 struct NoBand {};
 template <int H, int P>
 using SplitBand = std::conditional_t<P == 0, NoBand, Band<H, P>>;
 
 template <int H, int P>
-__device__ __forceinline__ SplitBand<H, P> split_band(const float* half) {
+__device__ __forceinline__ SplitBand<H, P> split_band(const float* half,
+                                                      int lane) {
   if constexpr (P == 0) {
     return {};
   } else {
-    return band_fragments<H, P>(half, static_cast<int>(threadIdx.x));
+    return band_fragments<H, P>(half, lane);
   }
+}
+
+// The same for a block whose threadIdx.x is the lane (32 threads along x).
+template <int H, int P>
+__device__ __forceinline__ SplitBand<H, P> split_band(const float* half) {
+  return split_band<H, P>(half, static_cast<int>(threadIdx.x));
 }
 
 // The z taps of the field f, centre included, as the P-part split-bf16

@@ -1,6 +1,9 @@
-// The register-strip pieces of the exact temporal-blocking bodies: the
-// backward body of bwd_strip.cuh (kstep_gpu_bwd, block_bwd, block2_bwd)
-// and the forward body of fwd_strip.cuh (kstep_mod, kstep_gpu_fwd).
+// The register-strip pieces of the temporal-blocking bodies: the backward
+// body of bwd_strip.cuh (kstep_gpu_bwd, block_bwd, block2_bwd, and with
+// the x taps split block_bwd_mma, block2_bwd_mma) and the forward body of
+// fwd_strip.cuh (kstep_mod, kstep_gpu_fwd, block_mod, block_fwd); the
+// split x product that bwd_strip.cuh and domain_block.cuh's staged-tile
+// bodies share.
 //
 // A block stages a tile of owned cells plus a halo of r = K*H cells on
 // both axes in dynamic shared memory: only the fields that neighbours read
@@ -34,17 +37,29 @@ struct StripShape {
 };
 
 // What a body stages besides the x ramp: its fields, each over the whole
-// tile, and whether the owned cells' image.
+// tile, whether the owned cells' image, and whether its rows are padded
+// (strip_pitch).
 struct StripStage {
   int fields;
   bool image;
+  bool padded = false;
 };
+
+// The pitch of a staged tile whose rows hold sz cells: sz, or padded to
+// the next count that is 4 mod 8 floats, so that rows 2 apart start 8
+// banks apart (the split x product's A-fragment reads and its stores,
+// whose lanes t = 0..3 take rows 2t apart: 4-way bank conflicts at a
+// pitch of 0 mod 32, none at 4 mod 8).
+__host__ __device__ constexpr int strip_pitch(int sz, bool padded) {
+  return padded ? (sz + 3) / 8 * 8 + 4 : sz;
+}
 
 // Dynamic shared memory of a tile of shape s with a halo of r cells.
 inline size_t strip_bytes(StripShape s, StripStage g, int r) {
-  const size_t sx = s.tx + 2 * r, sz = s.tz + 2 * r;
+  const size_t sx = s.tx + 2 * r;
+  const size_t pitch = strip_pitch(s.tz + 2 * r, g.padded);
   return sizeof(float) *
-         (g.fields * sx * sz +
+         (g.fields * sx * pitch +
           (g.image ? static_cast<size_t>(s.tx) * s.tz : 0) + sx);
 }
 
@@ -79,26 +94,39 @@ struct StripTile {
 };
 
 // Stages the tile of each field src[f] (one shot's (nxf, nzf) field) into
-// dst[f] with cp.async, 0 outside the grid, and the x ramp of the tile's
-// rows into sxr; the caller then waits (cp_async_wait_all) and syncs.
-template <int NF>
+// dst[f] at the given pitch with cp.async, 0 outside the grid and wherever
+// held(gx, gz) is false, and the x ramp of the tile's rows into sxr; the
+// caller then waits (cp_async_wait_all) and syncs.
+template <int NF, class Held>
 __device__ __forceinline__ void stage_strip_tile(
     float* const (&dst)[NF], const float* const (&src)[NF], float* sxr,
-    const float* __restrict__ xramp, const StripTile& t, int nxf, int nzf) {
+    const float* __restrict__ xramp, const StripTile& t, int nxf, int nzf,
+    Held&& held, int pitch) {
   const int tid = static_cast<int>(threadIdx.x);
   const int nth = static_cast<int>(blockDim.x);
   for (int i = tid; i < t.sx * t.sz; i += nth) {
     const int lx = i / t.sz, lz = i - lx * t.sz;
     const int gx = t.gx0 + lx, gz = t.gz0 + lz;
-    const bool in = gx >= 0 && gx < nxf && gz >= 0 && gz < nzf;
+    const bool in =
+        gx >= 0 && gx < nxf && gz >= 0 && gz < nzf && held(gx, gz);
     const size_t q = in ? static_cast<size_t>(gx) * nzf + gz : 0;
+    const int j = lx * pitch + lz;
 #pragma unroll
-    for (int f = 0; f < NF; ++f) cp_async4(dst[f] + i, src[f] + q, in);
+    for (int f = 0; f < NF; ++f) cp_async4(dst[f] + j, src[f] + q, in);
   }
   for (int lx = tid; lx < t.sx; lx += nth) {
     const int gx = t.gx0 + lx;
     sxr[lx] = gx >= 0 && gx < nxf ? xramp[gx] : 0.0f;
   }
+}
+
+// The same, every cell in the grid held, at the pitch t.sz.
+template <int NF>
+__device__ __forceinline__ void stage_strip_tile(
+    float* const (&dst)[NF], const float* const (&src)[NF], float* sxr,
+    const float* __restrict__ xramp, const StripTile& t, int nxf, int nzf) {
+  stage_strip_tile<NF>(dst, src, sxr, xramp, t, nxf, nzf,
+                       [](int, int) { return true; }, t.sz);
 }
 
 // The taper multiplier of tile row lx in a column of z factor zf whose
@@ -108,20 +136,30 @@ __device__ __forceinline__ float strip_taper(const float* sxr, int lx,
   return zf * (ramp ? sxr[lx] : 1.0f);
 }
 
-// Tapers the staged field f at every tile cell in the grid, in a phase of
-// its own (the barrier after it is here; the one before, the staging's).
+// Tapers the staged field f (rows pitch apart) at every tile cell in the
+// grid, in a phase of its own (the barrier after it is here; the one
+// before, the staging's).
 __device__ __forceinline__ void taper_strip_tile(
     float* f, const float* sxr, const float* __restrict__ zfac,
-    const float* __restrict__ strip, const StripTile& t, int nxf, int nzf) {
+    const float* __restrict__ strip, const StripTile& t, int nxf, int nzf,
+    int pitch) {
   for (int i = static_cast<int>(threadIdx.x); i < t.sx * t.sz;
        i += static_cast<int>(blockDim.x)) {
     const int lx = i / t.sz, lz = i - lx * t.sz;
     const int gx = t.gx0 + lx, gz = t.gz0 + lz;
+    const int j = lx * pitch + lz;
     if (gx >= 0 && gx < nxf && gz >= 0 && gz < nzf) {
-      f[i] = f[i] * strip_taper(sxr, lx, zfac[gz], strip[gz] != 0.0f);
+      f[j] = f[j] * strip_taper(sxr, lx, zfac[gz], strip[gz] != 0.0f);
     }
   }
   __syncthreads();
+}
+
+// The same at the pitch t.sz.
+__device__ __forceinline__ void taper_strip_tile(
+    float* f, const float* sxr, const float* __restrict__ zfac,
+    const float* __restrict__ strip, const StripTile& t, int nxf, int nzf) {
+  taper_strip_tile(f, sxr, zfac, strip, t, nxf, nzf, t.sz);
 }
 
 // The strips of S rows (fewer at the region's end) of the tile region at
@@ -190,6 +228,45 @@ __device__ __forceinline__ float strip_lap(const float (&w)[N], int i,
   }
   accx = accx + c.x[0] * centre;
   return accz + accx;
+}
+
+// The x taps of the staged field f, centre included, as the P-part
+// split-bf16 banded product, into xb at every cell of the tile t (a
+// StripTile, or domain_block.cuh's BlockTile) at least lo cells from its
+// edge, f and xb with rows pitch apart; the caller's barrier follows.
+// Warp warp of nwarps takes the region's blocks of 16 columns (the mma's
+// rows m, along z) by 8 rows (its outputs n, along x) in turn, contracting
+// down x:
+// A[m][k] is column z0 + m of the tile at row x0 - H + k, the window of
+// output row x0 + n starting H rows before it. Reads past the tile read 0
+// (the band's zeros multiply every value read, so each must be finite: the
+// staged cells all are), and outputs beyond the region are not written.
+template <int H, int P, class T>
+__device__ __forceinline__ void x_product(float* xb, const float* f,
+                                          const T& t, int lo,
+                                          const Band<H, P>& band, int pitch,
+                                          int warp, int nwarps, int lane) {
+  const int hx = t.sx - lo, hz = t.sz - lo;
+  const int nbz = (hz - lo + 15) / 16;
+  const int nb = (hx - lo + 7) / 8 * nbz;
+  for (int b = warp; b < nb; b += nwarps) {
+    const int x0 = lo + 8 * (b / nbz);
+    const int z0 = lo + 16 * (b % nbz);
+    float y[4];
+    banded_mma<H, P>(
+        y,
+        [&](int m, int k) {
+          const int lx = x0 - H + k, lz = z0 + m;
+          return lx < t.sx && lz < t.sz ? f[lx * pitch + lz] : 0.0f;
+        },
+        band, lane);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int lz = z0 + frag_g(lane) + 8 * (q >> 1);
+      const int lx = x0 + 2 * frag_t(lane) + (q & 1);
+      if (lx < hx && lz < hz) xb[lx * pitch + lz] = y[q];
+    }
+  }
 }
 
 }  // namespace pfdc

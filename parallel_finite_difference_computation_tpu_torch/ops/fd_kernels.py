@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import os
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -168,30 +169,50 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
 MAX_ORDER = 16
 # A block's dynamic shared memory on an H100 (kMaxSmemBytes, csrc/kstep.cuh).
 SMEM_BYTES = 232448
-# The staging kernels' owned cells a block (x, z): the split K-step
-# kernels' tile (kTileX, kTileZ, csrc/kstep.cuh; block_mod_mma and
-# block_fwd_mma: kModTX, kModTZ, csrc/domain_block.cuh) and block_bwd_mma's
-# (kBwdMmaTX, kBwdMmaTZ).
+class _Tile(NamedTuple):
+    """A staged-tile split kernel's block: its owned cells (x, z), the
+    fields it stages and whether the owned image."""
+    tile: tuple
+    fields: int
+    image: bool
+
+
+class _Strip(NamedTuple):
+    """A strip body's owned shapes, the first that fits taken, and what it
+    stages besides the x ramp: fields, whether the owned image, and
+    whether its rows are padded (strip.cuh: StripStage, strip_pitch)."""
+    shapes: tuple
+    fields: int
+    image: bool
+    padded: bool = False
+
+
+# The staged-tile split kernels' owned cells (kTileX, kTileZ,
+# csrc/kstep.cuh; block_mod_mma and block_fwd_mma: kModTX, kModTZ,
+# csrc/domain_block.cuh).
 _TILE = (32, 64)
-_BWD_MMA_TILE = (16, 32)
-# The exact strip bodies' owned shapes, the first that fits taken, and what
-# they stage besides the x ramp: fields, and whether the owned image
-# (csrc/bwd_strip.cuh: kBwdShapes, kBwdStage, kstep_gpu_bwd and block_bwd;
-# csrc/fwd_strip.cuh: kFwdShapes, kFwdStage, kstep_mod and kstep_gpu_fwd;
-# kBlockFwdShapes, block_mod and block_fwd).
-_BWD_STRIP = (((32, 64), (32, 32), (16, 32), (16, 16)), 4, True)
-_FWD_STRIP = (((64, 64), (32, 64), (32, 32), (16, 32), (16, 16)), 2, False)
-_BLOCK_FWD_STRIP = (((64, 96),) + _FWD_STRIP[0], 2, False)
-# The most steps a pass of the exact block kernels takes (kBlockPassSteps).
+# The strip bodies (csrc/bwd_strip.cuh: kBwdShapes, kBwdStage,
+# kstep_gpu_bwd and block_bwd; kBwdMmaStage, block_bwd_mma, the two x
+# products staged too, on padded rows; csrc/fwd_strip.cuh: kFwdShapes,
+# kFwdStage, kstep_mod and kstep_gpu_fwd; kBlockFwdShapes, block_mod and
+# block_fwd).
+_BWD_STRIP = _Strip(((32, 64), (32, 32), (16, 32), (16, 16)), 4, True)
+_BWD_MMA_STRIP = _BWD_STRIP._replace(fields=6, padded=True)
+_FWD_STRIP = _Strip(((64, 64), (32, 64), (32, 32), (16, 32), (16, 16)), 2,
+                    False)
+_BLOCK_FWD_STRIP = _FWD_STRIP._replace(shapes=((64, 96),)
+                                       + _FWD_STRIP.shapes)
+# The most steps a pass of the block kernels on strip bodies takes
+# (kBlockPassSteps).
 BLOCK_PASS_STEPS = 4
-# Per kernel: the split twin's tile, staged fields and whether the owned
-# image; the exact kernel's strip body.
-_STAGED = {"kstep_mod": (_TILE, 4, False, _FWD_STRIP),
-           "kstep_gpu_fwd": (_TILE, 4, False, _FWD_STRIP),
-           "kstep_gpu_bwd": (_TILE, 7, True, _BWD_STRIP),
-           "block_mod": (_TILE, 3, False, _BLOCK_FWD_STRIP),
-           "block_fwd": (_TILE, 3, False, _BLOCK_FWD_STRIP),
-           "block_bwd": (_BWD_MMA_TILE, 5, True, _BWD_STRIP)}
+# Per kernel: its split twin's body (a staged tile, or for block_bwd_mma a
+# strip body) and the exact kernel's strip body.
+_STAGED = {"kstep_mod": (_Tile(_TILE, 4, False), _FWD_STRIP),
+           "kstep_gpu_fwd": (_Tile(_TILE, 4, False), _FWD_STRIP),
+           "kstep_gpu_bwd": (_Tile(_TILE, 7, True), _BWD_STRIP),
+           "block_mod": (_Tile(_TILE, 3, False), _BLOCK_FWD_STRIP),
+           "block_fwd": (_Tile(_TILE, 3, False), _BLOCK_FWD_STRIP),
+           "block_bwd": (_BWD_MMA_STRIP, _BWD_STRIP)}
 STAGING_KERNELS = tuple(_STAGED)
 
 
@@ -201,15 +222,21 @@ def _tile_bytes(tile, r: int, fields: int, image: bool) -> int:
                                                         else 0))
 
 
-def _strip_bytes(shape, r: int, fields: int, image: bool) -> int:
-    """strip.cuh's strip_bytes: the staged fields, the owned image if
-    staged, and the x ramp of the tile's rows."""
-    return _tile_bytes(shape, r, fields, image) + 4 * (shape[0] + 2 * r)
+def _strip_bytes(shape, r: int, body: _Strip) -> int:
+    """strip.cuh's strip_bytes: the staged fields at the rows' pitch
+    (strip_pitch), the owned image if staged, and the x ramp of the tile's
+    rows."""
+    tx, tz = shape
+    sz = tz + 2 * r
+    pitch = (sz + 3) // 8 * 8 + 4 if body.padded else sz
+    return 4 * (body.fields * (tx + 2 * r) * pitch
+                + (tx * tz if body.image else 0) + tx + 2 * r)
 
 
 def block_passes(k: int) -> tuple:
-    """The steps of each pass of an exact block kernel (``block_mod``,
-    ``block_fwd``, ``block_bwd`` and their ``block2_*``) for a block of
+    """The steps of each pass of a block kernel on a strip body (the exact
+    ``block_mod``, ``block_fwd``, ``block_bwd`` and their ``block2_*``,
+    and the split ``block_bwd_mma`` and ``block2_bwd_mma``) for a block of
     ``k`` steps: one pass up to ``BLOCK_PASS_STEPS``, else two, of ``(k +
     1) // 2`` and ``k // 2`` steps (kBlockPassSteps, BlockPasses,
     csrc/domain_block.cuh); each pass is a launch."""
@@ -220,19 +247,19 @@ def smem_bytes(kernel: str, order: int, k: int, parts: int = 0) -> int:
     """Dynamic shared memory of one block of the staging kernel ``kernel``
     (one of ``STAGING_KERNELS``; ``block2_*`` as ``block_*``, ``*_mma`` as
     ``parts`` > 0) at ``order`` and K = ``k`` steps (a halo of k*h cells),
-    as its launcher sizes it. The exact kernels run a strip body and take
-    the first of its shapes that fits ``SMEM_BYTES``; where none does, the
-    smallest's bytes (refused); the exact block kernels stage the steps of
+    as its launcher sizes it. A kernel on a strip body takes the first of
+    its shapes that fits ``SMEM_BYTES``; where none does, the smallest's
+    bytes (refused); the block kernels on strip bodies stage the steps of
     their longer pass only (:func:`block_passes`)."""
     kernel = kernel.replace("block2_", "block_").removesuffix("_mma")
-    tile, split, image, exact = _STAGED[kernel]
-    if kernel.startswith("block_") and not parts:
+    split, exact = _STAGED[kernel]
+    body = split if parts else exact
+    if isinstance(body, _Tile):
+        return _tile_bytes(body.tile, k * (order // 2), body.fields,
+                           body.image)
+    if kernel.startswith("block_"):
         k = block_passes(k)[0]
-    r = k * (order // 2)
-    if parts:
-        return _tile_bytes(tile, r, split, image)
-    shapes, fields, staged_image = exact
-    sizes = [_strip_bytes(s, r, fields, staged_image) for s in shapes]
+    sizes = [_strip_bytes(s, k * (order // 2), body) for s in body.shapes]
     return next((b for b in sizes if b <= SMEM_BYTES), sizes[-1])
 
 

@@ -488,14 +488,17 @@ def _entry(c: Tile, name: str, parts: int = 0):
             (*dims, c.ctx.order, *((parts,) if parts else ())))
 
 
-def _scratch(c: Tile, parts: int, k: int, fields: int, like, extra: int = 0):
-    """The launches of a block of ``k`` steps (an exact kernel's passes,
-    :func:`..ops.fd_kernels.block_passes`; a ``*_mma`` twin's one), the
-    scratch argument of the entry point (none for a ``*_mma`` twin;
-    ``(None,)`` for one pass) and its buffer, which the caller keeps over
-    the launch: for two passes, ``fields`` tile fields and ``extra`` floats
-    on the device of ``like``."""
-    if parts:
+def _scratch(c: Tile, passes: bool, k: int, fields: int, like,
+             extra: int = 0):
+    """The launches of a block of ``k`` steps (with ``passes``, a kernel on
+    a strip body, its passes, :func:`..ops.fd_kernels.block_passes`: the
+    exact kernels and ``block_bwd_mma``; else, the staged-tile
+    ``block_mod_mma`` and ``block_fwd_mma``, one), the scratch argument of
+    the entry point (none without ``passes``; ``(None,)`` for one pass) and
+    its buffer, which the caller keeps over the launch: for two passes,
+    ``fields`` tile fields and ``extra`` floats on the device of
+    ``like``."""
+    if not passes:
         return 1, (), None
     passes = len(block_passes(k))
     if passes == 1:
@@ -530,7 +533,7 @@ def launch_mod(name: str, launches: dict, c: Tile, p, pp, amps, out=None,
     rec = (torch.empty if c.records else torch.zeros)(
         (ns, k, c.nxl), dtype=torch.float32, device=p.device)
     xr, zf, st = c.ramps
-    passes, scratch, _buf = _scratch(c, parts, k, 2, p)
+    passes, scratch, _buf = _scratch(c, not parts, k, 2, p)
     with torch.cuda.device(p.device):
         rc = run(p.data_ptr(), pp.data_ptr(), p_out.data_ptr(),
                  pp_out.data_ptr(), *scratch, c.v2m.data_ptr(), c.v2_stride,
@@ -562,7 +565,7 @@ def launch_fwd(name: str, launches: dict, c: Tile, p, pp, amps, out=None,
     run, dims = _entry(c, name, parts)
     p_out, pp_out = _outputs(p, out, 2)
     xr, zf, st = c.ramps
-    passes, scratch, _buf = _scratch(c, parts, len(amps), 2, p)
+    passes, scratch, _buf = _scratch(c, not parts, len(amps), 2, p)
     with torch.cuda.device(p.device):
         rc = run(p.data_ptr(), pp.data_ptr(), p_out.data_ptr(),
                  pp_out.data_ptr(), *scratch, c.v2m.data_ptr(), c.v2_stride,
@@ -580,7 +583,8 @@ def launch_bwd(name: str, launches: dict, c: Tile, ps, pps, pr, ppr, img,
     """One block of the backward kernel ``name`` (``block_bwd`` or
     ``block2_bwd``, or with ``parts`` > 0 its ``*_mma`` twin): the kernel
     on the card, which writes the owned cells of the four ``out`` buffers
-    as :func:`launch_mod` does and adds the image delta into ``img`` (ns,
+    as :func:`launch_mod` does (the split twin too takes a block of more
+    than 4 steps in two passes) and adds the image delta into ``img`` (ns,
     nxl, nzl) in place; :func:`block_bwd` on the CPU. Returns ``(ps, pps,
     pr, ppr, img)``."""
     ns = _check_state(c, ps=ps, pps=pps, pr=pr, ppr=ppr,
@@ -610,9 +614,8 @@ def launch_bwd(name: str, launches: dict, c: Tile, ps, pps, pr, ppr, img,
                                                  snaps[1].data_ptr())
     inj, inj_stride = ((None, 0) if c.inj is None
                        else (c.inj[:, it0].data_ptr(), c.inj.stride(0)))
-    # the exact kernel's state and image delta between its two passes
-    passes, scratch, _buf = _scratch(c, parts, k, 4, ps,
-                                     ns * c.nxl * c.nzl)
+    # the state and image delta between the kernel's two passes
+    passes, scratch, _buf = _scratch(c, True, k, 4, ps, ns * c.nxl * c.nzl)
     with torch.cuda.device(ps.device):
         rc = run(ps.data_ptr(), pps.data_ptr(), pr.data_ptr(), ppr.data_ptr(),
                  *(o.data_ptr() for o in outs), s0, s1, img.data_ptr(),

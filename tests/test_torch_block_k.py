@@ -32,7 +32,7 @@ from parallel_finite_difference_computation_tpu_torch.models import (
 from parallel_finite_difference_computation_tpu_torch.ops import (
     _build, fd_kernels as fk, stream)
 from parallel_finite_difference_computation_tpu_torch.parallel import (
-    make_mesh, shots)
+    domain2d_kernels as d2k, domain_kernels as dk, make_mesh, shots)
 
 ORDERS = (8, 10, 12, 14, 16)
 # 3lay's grid (231 x 231 extended): the slabs and tiles of these meshes
@@ -53,7 +53,7 @@ WANT_TILED = {"mod": {o: (4, 4) for o in ORDERS},
                       16: (4, 2)}}
 WANT_DOMAIN = {"mod": {8: (8, 8), 10: (8, 8), 12: (8, 7), 14: (8, 6),
                        16: (8, 5)},
-               "rtm": {8: (8, 8), 10: (8, 8), 12: (8, 6), 14: (8, 5),
+               "rtm": {8: (8, 8), 10: (8, 8), 12: (8, 7), 14: (8, 6),
                        16: (8, 5)}}
 DOMAIN_KERNELS = {"mod": ("block_mod",), "rtm": ("block_fwd", "block_bwd")}
 
@@ -108,8 +108,11 @@ def test_tiled_k_is_unchanged_by_the_forward_strip_body(order, lap_impl):
 # lap_impl, on every mesh shape alike, as chosen before block_mod and
 # block_fwd ran the forward strip body in passes: K = 8 everywhere but the
 # split kernels' above order 10, and the exact order-16 runs, which rose
-# from 7 (the forward kernels' one-pass tile refused K = 8) to 8.
-DOMAIN_SPLIT_K = {12: (7, 6), 14: (6, 5), 16: (5, 5)}
+# from 7 (the forward kernels' one-pass tile refused K = 8) to 8. The split
+# RTM K at orders 12 and 14 rose from 6 and 5 (block_bwd_mma's one-pass
+# tile) to 7 and 6 once that kernel ran the backward strip body in passes:
+# block_fwd_mma's tile bounds them now, as block_mod_mma's the modeling K.
+DOMAIN_SPLIT_K = {12: (7, 7), 14: (6, 6), 16: (5, 5)}
 DOMAIN_K = {order: {li: (8, 8) if order <= 10 or li in (None, "vpu")
                     else DOMAIN_SPLIT_K[order] for li in LAP_IMPLS}
             for order in range(4, 17, 2)}
@@ -129,9 +132,10 @@ def test_domain_k_is_unchanged_by_the_forward_strip_body(order, lap_impl,
 
 @pytest.mark.parametrize("k", range(1, stream.MAX_STEPS + 1))
 def test_block_pass_split(k):
-    """An exact block kernel's passes: all K steps in one up to 4, else
-    (K + 1) // 2 then K // 2 (the launches ``LAUNCHES`` counts), and the
-    shared memory of the longer pass's tile."""
+    """A block kernel's passes on a strip body (the exact ones and the
+    split backward twin): all K steps in one up to 4, else (K + 1) // 2
+    then K // 2 (the launches ``LAUNCHES`` counts), and the shared memory
+    of the longer pass's tile."""
     passes = fk.block_passes(k)
     assert sum(passes) == k
     assert passes == ((k,) if k <= fk.BLOCK_PASS_STEPS
@@ -147,9 +151,96 @@ def test_block_pass_split(k):
         if order == 8:
             assert fk.smem_bytes("block_mod", order, k) == 4 * (
                 2 * (64 + 2 * r) * (96 + 2 * r) + 64 + 2 * r)
-        # the split twins stage all K steps at once
+        # the staged-tile split twins stage all K steps at once; the split
+        # backward twin runs the backward strip body in the same passes
         assert fk.smem_bytes("block_mod", order, k, 2) > fk.smem_bytes(
             "block_mod", order, k - 1, 2)
+        assert fk.smem_bytes("block_fwd", order, k, 3) > fk.smem_bytes(
+            "block_fwd", order, k - 1, 3)
+        for parts in (2, 3):
+            for name in ("block_bwd", "block2_bwd"):
+                assert fk.smem_bytes(name, order, k, parts) == fk.smem_bytes(
+                    name, order, passes[0], parts) <= fk.SMEM_BYTES
+            # 32 x 64 owned cells, six staged fields (four and the two x
+            # products) on rows padded to 4 mod 8 floats, the owned image
+            # and the x ramp
+            if order == 8:
+                assert fk.smem_bytes("block_bwd", order, k, parts) == 4 * (
+                    6 * (32 + 2 * r) * ((64 + 2 * r + 3) // 8 * 8 + 4)
+                    + 32 * 64 + 32 + 2 * r)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 2, 2)])
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("order", range(4, 17, 2))
+def test_split_backward_block_takes_passes_and_scratch(monkeypatch, order,
+                                                       parts, shape):
+    """The launch of ``block_bwd_mma`` (``block2_bwd_mma``): above 4 steps
+    two passes, counted as two launches, through a scratch of the four
+    fields and the image delta (4·ns·nxw·nzw + ns·nxl·nzl floats) handed
+    to the entry point after ``img``; up to 4 steps one launch and a NULL
+    scratch. ``block_mod_mma`` stays one launch a block, with no scratch
+    argument. The wrappers' CUDA branch runs on CPU tensors into a
+    stand-in entry point that records its arguments."""
+    ctx = solver.FDContext.create(150, 80, 9, dx=10.0, dz=10.0, dt=0.001,
+                                  order=order, nxb=8, nzb=8, fac=0.7)
+    kernels = (dk.block_bwd_cuda, dk.block_mod_cuda, dk.LAUNCHES,
+               dk.prepare_tiles, dk.slab_geometry) if len(shape) == 2 else (
+        d2k.block2_bwd_cuda, d2k.block2_mod_cuda, d2k.LAUNCHES,
+        d2k.prepare_tiles, d2k.tile_geometry)
+    kbwd, kmod, launches, prep, geometry = kernels
+    seen, calls = [], []
+
+    def scratch(*a, **kw):
+        seen.append(real(*a, **kw))
+        return seen[-1]
+
+    real = dk._scratch
+    monkeypatch.setattr(dk, "_scratch", scratch)
+    monkeypatch.setattr(dk, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(dk, "_stream", lambda dev: 0)
+    monkeypatch.setattr(dk, "_entry", lambda c, name, parts=0: (
+        lambda *args: calls.append((name, args)) or 0, (0,)))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    rng = np.random.default_rng(order)
+    v2 = torch.full((2, ctx.nxe, ctx.nze), 4.0e6)
+    d_ext = np.zeros((2, ctx.nxe, ctx.nt), np.float32)
+    grid = make_mesh(*shape, devices=["cpu"] * int(np.prod(shape))).grid(0)
+    fitting = 0
+    for k in range(1, stream.MAX_STEPS + 1):
+        try:
+            geom = geometry(ctx, *shape[1:], k)
+        except ValueError:                    # the halo outgrows the tiles
+            break
+        fitting += 1
+        c = prep(ctx, grid, geom, v2, "top", sxs=(60, 61), sz=10,
+                 dobs_ext=d_ext, gz=12)[0]
+        f = [torch.from_numpy(rng.standard_normal(
+            (2, c.nxw, c.nzw)).astype(np.float32)) for _ in range(4)]
+        img = torch.zeros((2, c.nxl, c.nzl))
+        for n in launches:
+            launches[n] = 0
+        seen.clear()
+        calls.clear()
+        kbwd(c, *f, img, 0, k, parts=parts)
+        ((passes, arg, buf),), ((name, args),) = seen, calls
+        assert name.endswith("bwd_mma")
+        if k > fk.BLOCK_PASS_STEPS:
+            assert passes == 2 == len(fk.block_passes(k))
+            assert buf.numel() == 4 * 2 * c.nxw * c.nzw + 2 * c.nxl * c.nzl
+            assert arg == (buf.data_ptr(),) == args[11:12]
+        else:
+            assert (passes, arg, buf) == (1, (None,), None)
+            assert args[11] is None
+        assert args[10] == img.data_ptr()
+        assert launches == {n: passes if n == name else 0 for n in launches}
+        seen.clear()
+        calls.clear()
+        kmod(c, f[0], f[1], np.ones(k, np.float32), parts=parts)
+        assert seen == [(1, (), None)]
+        assert calls[0][1][4] == c.v2m.data_ptr()     # no scratch argument
+    assert fitting > fk.BLOCK_PASS_STEPS          # two passes seen
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (1, 2, 2)])

@@ -433,16 +433,17 @@ def test_shared_memory_of_the_kernels():
     the wrappers' mirror (``fk.smem_bytes``, which the pipelines' K choice
     reads): the split K-step kernels (``*_mma``: p, pp, v2*dt2 and the z
     taps' product; kstep_gpu_bwd_mma the four fields, v2*dt2, two products
-    and the owned image), the split block kernels (p, pp and the x taps'
-    product; block_bwd_mma on a smaller owned tile), and the exact strip
-    kernels, each on the first of its body's owned shapes that fits:
-    kstep_mod, kstep_gpu_fwd, block_mod and block_fwd on fwd_strip.cuh's
-    (the field at two time levels and the x ramp), kstep_gpu_bwd and
-    block_bwd on bwd_strip.cuh's (four staged fields, the owned image and
-    the x ramp), the exact block kernels staging the steps of the longer
-    of their passes. Which (kernel, order, K) the card refuses up to order
-    16, and that every tile fits at the pipelines' K up to order 10; the
-    wrappers' step limit is the kernels'."""
+    and the owned image), the staged-tile split block kernels (p, pp and
+    the x taps' product), and the strip kernels, each on the first of its
+    body's owned shapes that fits: kstep_mod, kstep_gpu_fwd, block_mod and
+    block_fwd on fwd_strip.cuh's (the field at two time levels and the x
+    ramp), kstep_gpu_bwd and block_bwd on bwd_strip.cuh's (four staged
+    fields, the owned image and the x ramp), block_bwd_mma on the same
+    shapes (the two x products staged too, on padded rows), the block
+    kernels on strip bodies staging the steps of the longer of their
+    passes. Which (kernel, order, K) the card refuses up to order 16, and
+    that every tile fits at the pipelines' K up to order 10; the wrappers'
+    step limit is the kernels'."""
     csrc = pathlib.Path(stream.__file__).parents[1] / "csrc"
     const = {m[1]: int(m[2]) for m in re.finditer(
         r"constexpr int (k\w+) = (\d+);", (csrc / "kstep.cuh").read_text())}
@@ -451,40 +452,50 @@ def test_shared_memory_of_the_kernels():
     assert limit == fk.SMEM_BYTES
 
     # the strip bodies' shapes and stages (csrc/bwd_strip.cuh,
-    # csrc/fwd_strip.cuh) and their bytes (csrc/strip.cuh)
-    assert " ".join((csrc / "strip.cuh").read_text().split()).count(
-        "sizeof(float) * (g.fields * sx * sz + (g.image ? "
+    # csrc/fwd_strip.cuh) and their bytes (csrc/strip.cuh), a padded
+    # stage's rows at the next pitch of 4 mod 8 floats
+    strip_h = " ".join((csrc / "strip.cuh").read_text().split())
+    assert strip_h.count(
+        "sizeof(float) * (g.fields * sx * pitch + (g.image ? "
         "static_cast<size_t>(s.tx) * s.tz : 0) + sx)") == 1
+    assert strip_h.count("const size_t pitch = strip_pitch(s.tz + 2 * r, "
+                         "g.padded);") == 1
+    assert strip_h.count("return padded ? (sz + 3) / 8 * 8 + 4 : sz;") == 1
 
-    def body(name, shapes_of=None):
-        """The shape list k{shapes_of}Shapes (by default the body's own)
-        and the stage of the strip body ``name``."""
+    def body(name, shapes_of=None, stage_of=None):
+        """The shape list k{shapes_of}Shapes and the stage k{stage_of}Stage
+        (by default the body's own) of the strip body ``name``."""
         text = (csrc / f"{name.lower()}_strip.cuh").read_text()
         shapes = [(int(a), int(b)) for a, b in re.findall(
             r"\{(\d+), (\d+)\}", re.search(
                 rf"\bk{shapes_of or name}Shapes\[\] = \{{(.*?)\}};", text,
                 re.S)[1])]
-        fields, image = re.search(
-            rf"StripStage k{name}Stage\{{(\d), (true|false)\}};",
-            text).groups()
-        return shapes, int(fields), image == "true"
+        fields, image, padded = re.search(
+            rf"StripStage k{stage_of or name}Stage\{{(\d), (true|false)"
+            rf"(?:, (true|false))?\}};", text).groups()
+        return shapes, int(fields), image == "true", padded == "true"
 
-    # the forward body's block kernels take a shape list of their own
+    # the forward body's block kernels take a shape list of their own; the
+    # backward body's split instances a shape list and a stage
     bodies = {"Bwd": body("Bwd"), "Fwd": body("Fwd"),
-              "BlockFwd": body("Fwd", "BlockFwd")}
+              "BlockFwd": body("Fwd", "BlockFwd"),
+              "BwdMma": body("Bwd", stage_of="BwdMma")}
     assert bodies == {
-        "Bwd": ([(32, 64), (32, 32), (16, 32), (16, 16)], 4, True),
+        "Bwd": ([(32, 64), (32, 32), (16, 32), (16, 16)], 4, True, False),
+        "BwdMma": ([(32, 64), (32, 32), (16, 32), (16, 16)], 6, True, True),
         "Fwd": ([(64, 64), (32, 64), (32, 32), (16, 32), (16, 16)], 2,
-                False),
+                False, False),
         "BlockFwd": ([(64, 96), (64, 64), (32, 64), (32, 32), (16, 32),
-                      (16, 16)], 2, False)}
+                      (16, 16)], 2, False, False)}
 
     def strip_smem(name, order, k):
         """strip_shape of the body ``name``: the first shape that fits;
         the smallest's bytes where none does."""
-        shapes, fields, image = bodies[name]
+        shapes, fields, image, padded = bodies[name]
         r = k * (order // 2)
-        sizes = [4 * (fields * (a + 2 * r) * (b + 2 * r)
+        pitch = ((lambda sz: (sz + 3) // 8 * 8 + 4) if padded
+                 else (lambda sz: sz))
+        sizes = [4 * (fields * (a + 2 * r) * pitch(b + 2 * r)
                       + (a * b if image else 0) + a + 2 * r)
                  for a, b in shapes]
         return next((n for n in sizes if n <= limit), sizes[-1])
@@ -529,9 +540,10 @@ def test_shared_memory_of_the_kernels():
     assert smem("kstep_gpu_fwd", 8, 8) == 4 * (2 * 128 * 128 + 128)
 
     # the block kernels of the domain tiers (csrc/domain_block.cuh): the
-    # split twin's tile_bytes<TX, TZ>(fields, K*h, image) for P > 0; for
-    # P = 0 the launcher takes its strip body's shape and bytes for a pass
-    # of pass.k_steps, a block of K above kBlockPassSteps running in two
+    # staged-tile split twins' tile_bytes<TX, TZ>(fields, K*h, image) for
+    # P > 0; on a strip body (the exact kernels and block_bwd_mma) the
+    # launcher takes the body's shape and bytes for a pass of
+    # pass.k_steps, a block of K above kBlockPassSteps running in two
     # passes, the longer of (K + 1) / 2 steps (BlockPasses)
     cuh = (csrc / "domain_block.cuh").read_text()
     dims = {m[1]: int(m[2]) for m in re.finditer(r"(k\w+T[XZ]) = (\d+)",
@@ -543,30 +555,47 @@ def test_shared_memory_of_the_kernels():
                           ("block_fwd", "BlockFwdRun"),
                           ("block_bwd", "BlockBwdRun"))}
     strip_of = {"block_mod": "BlockFwd", "block_fwd": "BlockFwd",
-                "block_bwd": "Bwd"}
+                "block_bwd": "Bwd", "block_bwd_mma": "BwdMma"}
     blocks = {}
-    for name, text in runs.items():
-        shapes = strip_of[name]
-        stage = shapes.removeprefix("Block")
-        assert re.search(rf"const pfdc::StripShape shape = pfdc::strip_shape"
-                         rf"\(\s*pfdc::k{shapes}Shapes, pfdc::k{stage}Stage, "
-                         rf"pass\.k_steps \* H\);\s*if \(shape\.tx == 0\) "
-                         rf"return cudaErrorInvalidValue;\s*const size_t "
-                         rf"bytes =\s*pfdc::strip_bytes\(shape, pfdc::k{stage}"
-                         rf"Stage, pass\.k_steps \* H\);", text), name
+    for name in ("block_mod", "block_fwd"):
+        text = runs[name]
+        assert re.search(r"const pfdc::StripShape shape = pfdc::strip_shape"
+                         r"\(\s*pfdc::kBlockFwdShapes, pfdc::kFwdStage, "
+                         r"pass\.k_steps \* H\);\s*if \(shape\.tx == 0\) "
+                         r"return cudaErrorInvalidValue;\s*const size_t "
+                         r"bytes =\s*pfdc::strip_bytes\(shape, pfdc::kFwd"
+                         r"Stage, pass\.k_steps \* H\);", text), name
         assert re.search(rf"if constexpr \(P == 0\) \{{\s*(?:const )?"
                          rf"BlockPasses<kZ> passes\(d, k, H\);(?:.|\n)*?"
                          rf"\}} else \{{\s*const size_t bytes = {one};",
                          text), name
         blocks[f"{name}_mma"] = re.search(
             rf"\}} else \{{\s*const size_t bytes = {one};", text).groups()
+    # block_bwd and block_bwd_mma: one pass launcher and one pass rule for
+    # every P, the body's shapes, the stage of its P = 0 or P > 0 instances
+    text = runs["block_bwd"]
+    assert re.search(r"const pfdc::StripStage stage = P \? pfdc::kBwdMmaStage"
+                     r" : pfdc::kBwdStage;\s*const pfdc::StripShape shape ="
+                     r"\s*pfdc::strip_shape\(pfdc::kBwdShapes, stage, pass\."
+                     r"k_steps \* H\);\s*if \(shape\.tx == 0\) return "
+                     r"cudaErrorInvalidValue;\s*const size_t bytes = pfdc::"
+                     r"strip_bytes\(shape, stage, pass\.k_steps \* H\);",
+                     text)
+    assert re.search(r"cudaError_t launch\(\) const \{\s*if \(!d\.fits\(k "
+                     r"\* H\)\) return cudaErrorInvalidValue;\s*BlockPasses"
+                     r"<kZ> passes\(d, k, H\);", text)
+    assert "if constexpr" not in text
     assert re.search(r"const int k1 = k <= kBlockPassSteps \? k : \(k \+ 1\)"
                      r" / 2, k2 = k - k1;", cuh)
     pass_steps = int(re.search(r"kBlockPassSteps = (\d+);", cuh)[1])
     assert pass_steps == fk.BLOCK_PASS_STEPS == 4
-    # the split twins' bodies take P > 0 only
-    assert len(re.findall(r"static_assert\(P > 0, \"block_(mod|fwd|bwd) "
-                          r"runs (fwd|bwd)_strip\"\);", cuh)) == 3
+    # the staged-tile split bodies take P > 0 only; block_bwd_mma is the
+    # strip body's split instance
+    assert len(re.findall(r"static_assert\(P > 0, \"block_(mod|fwd) runs "
+                          r"fwd_strip\"\);", cuh)) == 2
+    assert "block_bwd_body" not in cuh
+    assert re.search(r"static_assert\(P > 0, \"block_bwd is the exact "
+                     r"kernel\"\);", cuh)
 
     def block_smem(kernel, order, k):
         if kernel in strip_of:
@@ -580,7 +609,10 @@ def test_shared_memory_of_the_kernels():
 
     # order 8, K = 8: two passes of 4, the K = 4 tile of kstep_gpu_bwd,
     # and of block_mod 64 x 96 owned cells (two blocks an SM); K = 5: a
-    # longer pass of 3
+    # longer pass of 3; block_bwd_mma two passes of 4 on 32 x 64 owned
+    # cells, rows of 96 cells at a pitch of 100 floats; at order 16 the
+    # padded 32 x 32 tile (96 x 100 floats a field) outgrows a block, 16 x
+    # 32 is taken
     assert block_smem("block_bwd", 8, 8) == smem("kstep_gpu_bwd", 8, 4)
     assert block_smem("block_mod", 8, 8) == 4 * (2 * 96 * 128 + 96)
     assert 2 * (block_smem("block_mod", 8, 8) + 1024) <= 228 * 1024
@@ -588,7 +620,12 @@ def test_shared_memory_of_the_kernels():
     assert block_smem("block_bwd", 10, 8) == 4 * (4 * 72 * 104 + 32 * 64
                                                   + 72)
     assert block_smem("block_mod_mma", 8, 8) == 4 * 3 * 96 * 128
-    assert block_smem("block_bwd_mma", 10, 8) == 4 * (5 * 96 * 112 + 16 * 32)
+    assert block_smem("block_bwd_mma", 8, 8) == 4 * (6 * 64 * 100 + 32 * 64
+                                                     + 64)
+    assert block_smem("block_bwd_mma", 10, 8) == 4 * (6 * 72 * 108 + 32 * 64
+                                                      + 72)
+    assert block_smem("block_bwd_mma", 16, 8) == 4 * (6 * 80 * 100 + 16 * 32
+                                                      + 80)
 
     # the mirror the pipelines choose K by is the launchers' arithmetic
     for order in range(2, 17, 2):
@@ -648,7 +685,8 @@ def test_shared_memory_of_the_kernels():
         16: {"kstep_mod_mma": 5, "kstep_gpu_fwd_mma": 5,
              "kstep_gpu_bwd_mma": 3}}
     # the split block kernels fit the pipelines' K = 8 up to order 10 (the
-    # JAX domain tests' orders); above it they take fewer steps a block
+    # JAX domain tests' orders); above it the staged-tile ones take fewer
+    # steps a block, and block_bwd_mma, in two passes, every K
     assert {order: {kernel: first_refused(block_smem, kernel, order)
                     for kernel in ("block_mod_mma", "block_fwd_mma",
                                    "block_bwd_mma")}
@@ -657,9 +695,9 @@ def test_shared_memory_of_the_kernels():
             "block_bwd_mma": None},
         10: {"block_mod_mma": None, "block_fwd_mma": None,
              "block_bwd_mma": None},
-        12: {"block_mod_mma": 8, "block_fwd_mma": 8, "block_bwd_mma": 7},
-        14: {"block_mod_mma": 7, "block_fwd_mma": 7, "block_bwd_mma": 6},
-        16: {"block_mod_mma": 6, "block_fwd_mma": 6, "block_bwd_mma": 6}}
+        12: {"block_mod_mma": 8, "block_fwd_mma": 8, "block_bwd_mma": None},
+        14: {"block_mod_mma": 7, "block_fwd_mma": 7, "block_bwd_mma": None},
+        16: {"block_mod_mma": 6, "block_fwd_mma": 6, "block_bwd_mma": None}}
     # the per-step kernels (fd_step, fd_update, gpu_step and the whole-grid
     # step kernels) stage nothing, gpu_step_mma a static tile under 48 KB
     # (a static_assert), and they take every order up to MAX_ORDER
