@@ -160,8 +160,9 @@ Run from the root of the repository, on a machine with one CUDA card and
    against their plain passes with the z taps in the same bf16 parts, on
    the same CUDA tensors, pass by pass and through the two tiled drivers:
    phase 8's 67 x 88 grid (nt=21) at orders 4, 8, 10 and 16, K = 2 and 4,
-   parts 2 and 3 (order 16's split backward tile at K = 4 exceeds a block
-   and must be refused), then the Pluto grid (2 shots, nt=203, K = 4);
+   parts 2 and 3 (``kstep_gpu_bwd_mma`` on the backward strip body, whose
+   tile fits every one of these), then the Pluto grid (2 shots, nt=203, K
+   = 4);
    gate: gathers and images <= 1e-5 max rel, the fields <= 1e-4;
 26. the Pluto path through the split tier: ``run_modeling`` then
    ``run_rtm_gpu`` at the full Pluto grid, 2 shots, ``backend="auto"``
@@ -217,9 +218,10 @@ Run from the root of the repository, on a machine with one CUDA card and
    (seeded, full and tail blocks): phases 11 and 16's 134 x 88 grid over
    (1, 2), (1, 4), (1, 2, 2) and (1, 1, 4) meshes, orders 4, 8 and 10,
    K = 2, 3 and 8, parts 2 and 3, and the split makers on meshes of
-   cuda:0 against CPU meshes; then the Pluto slab and tile shapes (2
-   shots, K = 8 and the tails 4 and 1); gates: traces and images <= 1e-5
-   max rel, fields <= 1e-4;
+   cuda:0 against CPU meshes; the split forward and backward twins, which
+   take two passes above 4 steps, alone at K = 5 and 7 at orders 8, 12 and
+   16; then the Pluto slab and tile shapes (2 shots, K = 8 and the tails 4
+   and 1); gates: traces and images <= 1e-5 max rel, fields <= 1e-4;
 33. the 3lay mesh paths under ``lap_impl="auto"`` (= mxu) and ``"mxu6"``:
    (1, 4) and (1, 2, 2) meshes of cuda:0 against the no-mesh run at the
    same lap_impl (the per-step ``*_step_mma`` tier), rel RMS <= 1e-5, and
@@ -652,13 +654,13 @@ def build_report(log: str) -> list:
 def block_launches(name: str, nt: int, k: int, tiles: int) -> int:
     """Launches of the domain block kernel ``name`` over nt steps in
     blocks of k (and a tail) on ``tiles`` slabs or tiles: one a block for
-    the staged-tile ``*_mod_mma`` and ``*_fwd_mma`` twins, one a pass for
-    an exact kernel and the split ``*_bwd_mma``, which take a block of
-    more than 4 steps in two (``fk.block_passes``)."""
+    the staged-tile ``*_mod_mma`` twins, one a pass for an exact kernel and
+    the split ``*_fwd_mma`` and ``*_bwd_mma``, which take a block of more
+    than 4 steps in two (``fk.block_passes``)."""
     from parallel_finite_difference_computation_tpu_torch.ops import (
         fd_kernels as fk)
     full, tail = divmod(nt, k)
-    per = ((lambda n: 1) if name.endswith(("mod_mma", "fwd_mma"))
+    per = ((lambda n: 1) if name.endswith("mod_mma")
            else (lambda n: len(fk.block_passes(n))))
     return tiles * (full * per(k) + (per(tail) if tail else 0))
 
@@ -806,12 +808,20 @@ def main() -> int:
         print(f"[build] {template} (row {row}): {b} bytes of dynamic shared "
               f"memory a block at order 8, K = 4, "
               f"{228 * 1024 // (b + 1024)} blocks an SM by shared memory")
-    # and the split instances of the backward body (block_bwd_mma,
-    # block2_bwd_mma) at the domain tiers' K = 8, two passes of 4
-    b = fk.smem_bytes("block_bwd", 8, 8, parts=2)
-    print(f"[build] block_bwd_mma (rows 15c/16c split, bwd_strip.cuh at P > "
-          f"0): {b} bytes of dynamic shared memory a block at order 8, K = "
-          f"8, {228 * 1024 // (b + 1024)} blocks an SM by shared memory")
+    # and the split instances of the strip bodies: kstep_gpu_bwd_mma at the
+    # tiled tier's K = 4, the block kernels' at the domain tiers' K = 8, two
+    # passes of 4
+    for wrapper, k, what in (
+            ("kstep_gpu_bwd", 4, "kstep_gpu_bwd_mma (row 13 split, "
+                                 "bwd_strip.cuh, the z taps split)"),
+            ("block_fwd", 8, "block_fwd_mma (rows 15b/16b split, "
+                             "fwd_strip.cuh at P > 0)"),
+            ("block_bwd", 8, "block_bwd_mma (rows 15c/16c split, "
+                             "bwd_strip.cuh at P > 0)")):
+        b = fk.smem_bytes(wrapper, 8, k, parts=2)
+        print(f"[build] {what}: {b} bytes of dynamic shared memory a block "
+              f"at order 8, K = {k}, {228 * 1024 // (b + 1024)} blocks an SM "
+              f"by shared memory")
 
     phase_done("build")
 
@@ -2634,8 +2644,7 @@ def main() -> int:
         point source, top taper); kstep_gpu_fwd_mma's passes; the two
         gpu_step_mma seed steps from the plain snapshots; kstep_gpu_bwd_mma's
         passes from the plain seeded state; the whole tiled RTM (its image
-        under kstep_gpu_bwd_mma). None for the RTM where its tile does not
-        fit a block, which must then be refused."""
+        under kstep_gpu_bwd_mma)."""
         ctx_m, ctx_r, v2_m, v2_r, wav_m, wav_r, d, gp_ = case
         lap = solver.laplacian_of(ctx_r, parts, axis="z")
         lap_m = solver.laplacian_of(ctx_m, parts, axis="z")
@@ -2669,21 +2678,6 @@ def main() -> int:
                                 functools.partial(solver.fd_step_gpu,
                                                   lap=lap))
         out["gpu_step_mma"] = ob(("pr", "ppr", "images"), ks[2:], ps[2:])
-        # the split backward's tile at order 16 and K = 4 exceeds a block's
-        # shared memory (tests/test_torch_tiled.py::
-        # test_shared_memory_of_the_kernels): the card must refuse it
-        if (ctx_r.order, k) == (16, 4):
-            try:
-                stream.fd_back_kstep_cuda(ctx_r, *ps[:4], ps[4].clone(), v2_r,
-                                          inj[:, 2:2 + k], gp_.gz, consts=c,
-                                          parts=parts)
-            except ValueError as e:
-                check("shared memory" in str(e), f"refusal: {e}")
-            else:
-                check(False, f"kstep_gpu_bwd_mma order {ctx_r.order} K {k} "
-                             f"was not refused")
-            out["kstep_gpu_bwd_mma"] = None
-            return out
         kb = ps[:4] + (ps[4].clone(),)
         for it0 in range(2, ctx_r.nt, k):
             kb = stream.fd_back_kstep_cuda(ctx_r, *kb, v2_r,
@@ -2706,7 +2700,7 @@ def main() -> int:
         largest max abs error of each kernel."""
         worst = {}
         for kname, rows in outs.items():
-            for name, rel, absd in rows or ():
+            for name, rel, absd in rows:
                 gate = GATE if name in ("gathers", "images",
                                         "tiled RTM images") else 1e-4
                 print(f"[split vs plain] {kname} {label}: {name} max rel err "
@@ -3355,9 +3349,9 @@ def main() -> int:
     # (seeded, full and tail blocks): phases 11 and 16's 134 x 88 grid and
     # meshes at orders 4, 8 and 10, K = 2, 3 and 8, parts 2 and 3, and the
     # split makers on a mesh of cuda:0 against a CPU mesh; the split
-    # backward twins alone at K = 5 and 7 (two unequal passes) at orders 8,
-    # 12 and 16; then the Pluto slab and tile shapes (2 shots, K = 8 and
-    # the tails 4 and 1). Gates:
+    # forward and backward twins alone at K = 5 and 7 (two unequal passes)
+    # at orders 8, 12 and 16; then the Pluto slab and tile shapes (2 shots,
+    # K = 8 and the tails 4 and 1). Gates:
     # traces and images 1e-5 max rel, fields 1e-4 (each mma sums its 16
     # products in the card's order)
     SPLIT_GATES = {"fields": 1e-4, "traces": GATE, "image": GATE}
@@ -3508,32 +3502,39 @@ def main() -> int:
                         check(rel <= GATE, f"split makers {shape} order "
                                            f"{order} parts {parts}: {rel:.3e}")
 
-    def split_bwd_case(case, shape, k, parts, seed):
-        """:func:`split_errs` of the split backward twin alone on random
-        states of every tile of a mesh of ``shape``, a block of k steps,
-        seeded and not."""
+    def split_pass_case(case, shape, k, parts, seed):
+        """:func:`split_errs` of the split forward and backward twins (two
+        passes above 4 steps) on random states of every tile of a mesh of
+        ``shape``, a block of k steps, the backward seeded and not."""
         _, rs = split_tiles(case, shape, k)
-        name, kb, pb = split_blocks(len(shape) == 3, parts)[2]
+        blocks = split_blocks(len(shape) == 3, parts)
         rng = np.random.default_rng(seed)
+        amps = rng.standard_normal(k).astype(np.float32)
         out = {}
+
+        def note(name, kinds, got, want):
+            for kind, a, b in zip(kinds, got, want):
+                old = out.get((name, kind), (0.0, 0.0))
+                out[name, kind] = (max(old[0], max_rel(a, b)),
+                                   max(old[1], float((a - b).abs().max())))
+
         for cr in rs:
             f = [randn(rng, cr.ns, cr.nxw, cr.nzw) for _ in range(6)]
             img = randn(rng, cr.ns, cr.nxl, cr.nzl)
+            name, kf, pf = blocks[1]
+            note(name, ("fields", "fields"), kf(cr, f[0], f[1], amps),
+                 pf(cr, f[0], f[1], amps))
+            name, kb, pb = blocks[2]
             for it0, snaps in ((k, None), (0, f[4:6])):
-                got = kb(cr, *f[:4], img.clone(), it0, k, snaps)
-                want = pb(cr, *f[:4], img, it0, k, snaps)
-                for kind, a, b in zip(("fields",) * 4 + ("image",), got,
-                                      want):
-                    old = out.get((name, kind), (0.0, 0.0))
-                    out[name, kind] = (
-                        max(old[0], max_rel(a, b)),
-                        max(old[1], float((a - b).abs().max())))
+                note(name, ("fields",) * 4 + ("image",),
+                     kb(cr, *f[:4], img.clone(), it0, k, snaps),
+                     pb(cr, *f[:4], img, it0, k, snaps))
         torch.cuda.synchronize()
         return out
 
-    # the split backward twins run two passes above 4 steps: unequal
-    # splits (K = 5: 3 + 2, K = 7: 4 + 3) at orders 8, 12 and 16, where
-    # the tiles take them
+    # the split forward and backward twins run two passes above 4 steps:
+    # unequal splits (K = 5: 3 + 2, K = 7: 4 + 3) at orders 8, 12 and 16,
+    # where the tiles take them
     for order in (8, 12, 16):
         case_x = tier_case(dataclasses.replace(dom, order=order))
         case_z = tier_case(dataclasses.replace(dom2, order=order))
@@ -3546,9 +3547,9 @@ def main() -> int:
                     continue
                 for parts in (2, 3):
                     hold(f"order {order} mesh {shape} K {k} parts {parts}",
-                         split_bwd_case(case_z if len(shape) == 3
-                                        else case_x, shape, k, parts,
-                                        order * 1000 + k * 10 + parts))
+                         split_pass_case(case_z if len(shape) == 3
+                                         else case_x, shape, k, parts,
+                                         order * 1000 + k * 10 + parts))
                     n_cases += 1
     print(f"[split domain vs plain] {n_cases} cases on {dom.nxe} x "
           f"{dom.nze}, nt {dom.nt}", flush=True)

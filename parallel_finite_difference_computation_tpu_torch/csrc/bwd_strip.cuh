@@ -4,8 +4,7 @@
 // shared by kstep_gpu_bwd (kstep_gpu_bwd.cu, the large-grid tier) and
 // block_bwd / block2_bwd (domain_block.cuh, the domain tiers), and with
 // the x taps in split bf16 (P > 0, below) by block_bwd_mma /
-// block2_bwd_mma. kstep_gpu_bwd's split twin keeps the staged-tile body of
-// kstep_gpu_bwd.cu.
+// block2_bwd_mma, with the z taps in split bf16 by kstep_gpu_bwd_mma.
 //
 // What held the earlier body back on an H100 (PERF.md, kernel table): it
 // staged five fields and the image (131 KB at order 8, K = 4; 147 KB for
@@ -56,7 +55,8 @@
 // that seeds a step (block_bwd's first block) if any, the trace row's
 // injection, and whether a cell is imaged and stored.
 //
-// The split x taps (P = 2 or 3 bf16 parts: lap_impl "mxu", "mxu6"). Each
+// The split x taps (P = 2 or 3 bf16 parts: lap_impl "mxu", "mxu6";
+// Split::kX, the domain tiers' block kernels). Each
 // step first takes the x taps of the source and the receiver field over
 // the step's region as the banded product on the tensor cores
 // (strip.cuh's x_product; the source's not on a seeded step) into two
@@ -79,6 +79,15 @@
 // ran no faster. A second pass's buffers may hold no value past what the
 // first wrote: the split instances stage 0 there (the site's held()),
 // since the product multiplies every value it reads.
+//
+// The split z taps (Split::kZ, kstep_gpu_bwd_mma: the JAX K-step kernels
+// split the z taps and keep the x taps exact). Each step takes the z
+// products of the source and the receiver field over the step's region
+// (strip.cuh's z_product) into the two product buffers, then one barrier;
+// the strip walk keeps the exact body's register windows of both fields,
+// and a Laplacian is the product plus the window's x taps (zb + accx, the
+// sum and order of kstep.cuh's tile_lap). The same stage, padded rows and
+// shapes as the x split.
 #pragma once
 
 #include "strip.cuh"
@@ -87,30 +96,42 @@ namespace pfdc {
 
 // Owned shapes, the first that fits taken (strip_shape), and what the body
 // stages: the four fields and the owned image; the split instances the
-// two x products too, on padded rows.
+// two products too, on padded rows. kstep_gpu_bwd_mma takes shapes of its
+// own: 32 x 96 first (215 KB at order 8, K = 4) ran 7 % faster than 32 x
+// 64 on the Pluto grid, where the exact kstep_gpu_bwd ran 21 % slower
+// (one block an SM instead of two; PERF.md).
 constexpr StripShape kBwdShapes[] = {{32, 64}, {32, 32}, {16, 32}, {16, 16}};
+constexpr StripShape kBwdZMmaShapes[] = {
+    {32, 96}, {32, 64}, {32, 32}, {16, 32}, {16, 16}};
 constexpr StripStage kBwdStage{4, true};
 constexpr StripStage kBwdMmaStage{6, true, true};
 
+// The axis whose taps a split instance (P > 0) takes as the banded product.
+enum class Split { kX, kZ };
+
 // The Laplacian of strip cell i at tile cell j of the staged field f:
-// exact from the strip's x window w (P = 0), or the x product xb plus the
-// exact z taps.
-template <int H, int P, int N>
+// exact from the strip's x window w (P = 0); the x product xb plus the
+// exact z taps (Split::kX); or the z product plus the window's x taps
+// (Split::kZ).
+template <int H, int P, Split A, int N>
 __device__ __forceinline__ float bwd_lap(const float (&w)[N], int i,
                                          const float* f, const float* xb,
                                          int j, const Coefs& c) {
   if constexpr (P == 0) {
     return strip_lap<H>(w, i, f, j, c);
-  } else {
+  } else if constexpr (A == Split::kX) {
     return xb[j] + axis_taps<H>(f, j, 1, c.z);
+  } else {
+    return xb[j] + window_taps<H>(w, i, c.x);
   }
 }
 
-// The value of strip cell i at tile cell j of f: the window's (P = 0).
-template <int H, int P, int N>
+// The value of strip cell i at tile cell j of f: the window's where the
+// instance loads one.
+template <int H, int P, Split A, int N>
 __device__ __forceinline__ float bwd_centre(const float (&w)[N], int i,
                                             const float* f, int j) {
-  if constexpr (P == 0) {
+  if constexpr (P == 0 || A == Split::kZ) {
     return w[i + H];
   } else {
     return f[j];
@@ -118,12 +139,13 @@ __device__ __forceinline__ float bwd_centre(const float (&w)[N], int i,
 }
 
 // Steps k0 .. k0 + k_steps - 1 of the site's block, on its tile (blockDim.x
-// = kStripThreads, a 1-D block), with the x taps exact (P = 0) or in P
-// bf16 parts. Per step, from the state (ps, pps, pr, ppr) with pr tapered:
-// the source s = (2ps - pps) + v*lap(ps), untapered, or the site's
-// snapshot; the receiver u = (2pr - ppr*m) + v*lap(pr) plus the trace row;
-// the image += s*u on the imaged cells; the next state (s, ps, u*m, pr).
-template <int H, int P = 0, class Site>
+// = kStripThreads, a 1-D block), with the taps exact (P = 0) or the taps
+// of axis A in P bf16 parts. Per step, from the state (ps, pps, pr, ppr)
+// with pr tapered: the source s = (2ps - pps) + v*lap(ps), untapered, or
+// the site's snapshot; the receiver u = (2pr - ppr*m) + v*lap(pr) plus
+// the trace row; the image += s*u on the imaged cells; the next state (s,
+// ps, u*m, pr).
+template <int H, int P = 0, Split A = Split::kX, class Site>
 __device__ __forceinline__ void bwd_strip(float* smem, const Site& site,
                                           const StripTile& t, int k0,
                                           int k_steps, const Coefs& c) {
@@ -137,7 +159,7 @@ __device__ __forceinline__ void bwd_strip(float* smem, const Site& site,
   float* r_old = smem + 3 * n;
   float* simg = smem + 4 * n;   // t.tx x t.tz, the owned cells
   float* sxr = simg + t.tx * t.tz;
-  float* xbs = sxr + t.sx;      // P > 0: the x products of s_cur, r_cur
+  float* xbs = sxr + t.sx;      // P > 0: the products of s_cur, r_cur
   float* xbr = xbs + n;
   const int tid = static_cast<int>(threadIdx.x);
   const int nth = static_cast<int>(blockDim.x);
@@ -165,16 +187,25 @@ __device__ __forceinline__ void bwd_strip(float* smem, const Site& site,
   // step 0's taper phase: the staged receiver field, every cell in the grid
   taper_strip_tile(r_cur, sxr, site.zfac, site.strip, t, nxf, nzf, pitch);
   const int warp = tid >> 5, lane = tid & 31, nwarps = nth >> 5;
-  const SplitBand<H, P> band = split_band<H, P>(c.x, lane);
+  const SplitBand<H, P> band =
+      split_band<H, P>(A == Split::kX ? c.x : c.z, lane);
   for (int k = 0; k < k_steps; ++k) {
     const bool last = k + 1 == k_steps;
     const StripWalk<S> walk(t, (k + 1) * H);
-    if constexpr (P > 0) {
+    if constexpr (P > 0 && A == Split::kX) {
       if (!site.seeded(k0 + k)) {
         x_product<H, P>(xbs, s_cur, t, walk.lo, band, pitch, warp, nwarps,
                         lane);
       }
       x_product<H, P>(xbr, r_cur, t, walk.lo, band, pitch, warp, nwarps,
+                      lane);
+      __syncthreads();
+    } else if constexpr (P > 0) {
+      if (!site.seeded(k0 + k)) {
+        z_product<H, P>(xbs, s_cur, t, walk.lo, band, pitch, warp, nwarps,
+                        lane);
+      }
+      z_product<H, P>(xbr, r_cur, t, walk.lo, band, pitch, warp, nwarps,
                       lane);
       __syncthreads();
     }
@@ -186,6 +217,8 @@ __device__ __forceinline__ void bwd_strip(float* smem, const Site& site,
       float w[2][S + 2 * H];     // the source's and the receiver's
       if constexpr (P == 0) {
         strip_windows<H>(w, {s_cur, r_cur}, t, lx0, rows, lz);
+      } else if constexpr (A == Split::kZ) {
+        strip_windows<H>(w, {s_cur, r_cur}, t, lx0, rows, lz, pitch);
       }
 #pragma unroll
       for (int i = 0; i < S; ++i) {
@@ -199,15 +232,15 @@ __device__ __forceinline__ void bwd_strip(float* smem, const Site& site,
           us = site.snapshot(k0 + k, gx, gz);
         } else {
           const float lap_s =
-              interior ? bwd_lap<H, P>(w[0], i, s_cur, xbs, j, c) : 0.0f;
-          us = (2.0f * bwd_centre<H, P>(w[0], i, s_cur, j) - s_old[j]) +
+              interior ? bwd_lap<H, P, A>(w[0], i, s_cur, xbs, j, c) : 0.0f;
+          us = (2.0f * bwd_centre<H, P, A>(w[0], i, s_cur, j) - s_old[j]) +
                v * lap_s;
         }
         const float m = strip_taper(sxr, lx, zf, ramp);
         const float lap_r =
-            interior ? bwd_lap<H, P>(w[1], i, r_cur, xbr, j, c) : 0.0f;
+            interior ? bwd_lap<H, P, A>(w[1], i, r_cur, xbr, j, c) : 0.0f;
         float ur =
-            (2.0f * bwd_centre<H, P>(w[1], i, r_cur, j) - r_old[j] * m) +
+            (2.0f * bwd_centre<H, P, A>(w[1], i, r_cur, j) - r_old[j] * m) +
             v * lap_r;
         ur = site.inject(k0 + k, gx, gz, ur);
         s_old[j] = us;

@@ -41,8 +41,8 @@
 // slabs and tiles faster than 64 x 64, 64 x 112, 48 x 96, 32 x 128 and
 // 64 x 128, though 64 x 112 is 2-3 % faster on the tiles alone; PERF.md),
 // block_bwd the body of bwd_strip.cuh (kstep_gpu_bwd's; 32 x 64 owned
-// cells, 32 x 32 at order 10), and so does block_bwd_mma, with the x taps
-// split (below). Each takes the K steps of a block in
+// cells, 32 x 32 at order 10), and so do block_fwd_mma and block_bwd_mma,
+// with the x taps split (below). Each takes the K steps of a block in
 // passes of at most kBlockPassSteps (below), so that the staged halo stays
 // that deep: at order 8, K = 8, two passes of 4 on 64 x 96 owned cells
 // compute 1.35x the owned cells each, where the earlier forward body's one
@@ -52,9 +52,8 @@
 // functions' (parallel/domain_kernels.py) and the TPU kernels', outputs
 // to buffers no block of the launch reads: the strip bodies put the taper
 // where a value is written or read at its own cell (fwd_strip.cuh says
-// why that rounds the same), block_mod_mma's and block_fwd_mma's
-// staged-tile bodies taper the older field in place in a phase of its
-// own, then a barrier.
+// why that rounds the same), block_mod_mma's staged-tile body tapers the
+// older field in place in a phase of its own, then a barrier.
 // block_bwd sums the image delta of the block from 0 in shared memory and
 // adds it to the running image once, as the JAX package does
 // (domain_pallas.py:161, :178, :492). Offsets into trace rows and
@@ -75,20 +74,24 @@
 // then the strip walk; block_bwd's shapes, 32 x 64 owned cells first) in
 // the passes of block_bwd, so that a pass of 4 steps at order 8 computes
 // 1.67x its owned cells, where the earlier staged-tile body's one pass of
-// 8 on 16 x 32 computed 5.8x.
-// block_mod_mma and block_fwd_mma keep the staged-tile bodies below
-// (templates on P > 0; x_band is x_product behind a barrier): all K steps
-// in one pass, 32 x 64 owned cells, the older field tapered in place in a
-// phase of its own. Their buffers keep the tile's pitch (TZ + 2Kh floats:
-// 128 at order 8, K = 8, which gives the column reads 4-way bank
-// conflicts; the strip body's 64 at order 8 does too). The TPU kernels'
-// lane pad to a multiple of 128 (nxww, domain_pallas.py:252) is layout,
-// with zero lanes: here a window past the tile reads 0, and every staged
-// cell is finite (a second pass stages 0 past what the first wrote). What
-// bounds the twins: the exact kernels' bytes; what they add is
-// shared-memory and issue work (the split of every value a window reads,
-// the staged products, one more barrier a step, the halo the smaller
-// owned tiles recompute), not tensor-core time.
+// 8 on 16 x 32 computed 5.8x. block_fwd_mma runs the forward strip body's
+// split instances (fwd_strip.cuh: the newest field's product into one
+// buffer, one barrier, then the strip walk; kFwdShapes, 64 x 64 first) in
+// the passes of block_fwd, where the staged-tile body it replaces took
+// all K steps in one pass on 32 x 64 owned cells (2.9x the owned cells
+// computed at order 8, K = 8).
+// block_mod_mma keeps the staged-tile body below (a template on P > 0;
+// x_band is x_product behind a barrier): all K steps in one pass, 32 x 64
+// owned cells, the older field tapered in place in a phase of its own.
+// Its buffers keep the tile's pitch (TZ + 2Kh floats: 128 at order 8, K = 8,
+// which gives the column reads 4-way bank conflicts; the strip body's 64 at
+// order 8 does too). The TPU kernels' lane pad to a multiple of 128 (nxww,
+// domain_pallas.py:252) is layout, with zero lanes: here a window past the tile
+// reads 0, and every staged cell is finite (a second pass stages 0 past what
+// the first wrote). What bounds the twins: the exact kernels' bytes; what they
+// add is shared-memory and issue work (the split of every value a window reads,
+// the staged products, one more barrier a step, the halo the smaller owned
+// tiles recompute), not tensor-core time.
 //
 // The kernels sit in an anonymous namespace: each source that includes
 // this header builds its own instances.
@@ -100,7 +103,7 @@
 
 namespace {
 
-constexpr int kModTX = 32, kModTZ = 64;   // block_mod_mma, block_fwd_mma
+constexpr int kModTX = 32, kModTZ = 64;   // block_mod_mma
 
 // A tile's owned size and halos. kZ: an (x, z) tile, with a z halo and z
 // extent of its own; false: an x-slab (no z halo, nzl = nze), whose z
@@ -295,63 +298,8 @@ __device__ __forceinline__ void block_mod_body(
   store_tile(pp_out + s * plane, spp, t, d);
 }
 
-// Per step, from the state (p, pp), p tapered and pp not (fd-code.cu:
-// 259-267): t = pp*m (in place, then a barrier), u = (2t - p*m) + v*lap(t),
-// u += amp * src on row src_z; the next state is (t, u): block_fwd_mma's
-// body (P > 0; block_fwd runs fwd_strip.cuh's).
-template <int H, bool kZ, int P>
-__device__ __forceinline__ void block_fwd_body(
-    float* smem, const float* __restrict__ p_in,
-    const float* __restrict__ pp_in, float* __restrict__ p_out,
-    float* __restrict__ pp_out, const float* __restrict__ v2m,
-    int v2_shot_stride, const float* __restrict__ xramp,
-    const float* __restrict__ zfac, const float* __restrict__ strip,
-    const float* __restrict__ src, int src_z, const pfdc::Amps& amps,
-    int k_steps, const Dims<kZ>& d, const pfdc::Coefs& c) {
-  static_assert(P > 0, "block_fwd runs fwd_strip");
-  const int nxw = d.nxw(), nzw = d.nzw();
-  const BlockTile<kModTX, kModTZ> t(k_steps * H, d);
-  const int n = t.cells();
-  float* sx_ = smem;      // p: the older field, tapered
-  float* sy = smem + n;   // pp: the newest field
-  float* xb = smem + 2 * n;     // the x taps of sy
-  const auto band = pfdc::split_band<H, P>(c.x);
-  const int s = blockIdx.z;
-  const size_t plane = d.plane();
-  load_tile(sx_, p_in + s * plane, t, nxw, nzw);
-  load_tile(sy, pp_in + s * plane, t, nxw, nzw);
-  const float* v = v2m + s * static_cast<size_t>(v2_shot_stride);
-  const float* src_s = src + s * static_cast<size_t>(nxw);
-  for (int k = 0; k < k_steps; ++k) {
-    // taper the newest field over every cell this step's taps read
-    for_cells(t, k * H, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
-      const int j = lx * t.sz + lz;
-      sy[j] = sy[j] * pfdc::taper_at(xramp, zfac, strip, gx, gz);
-    });
-    __syncthreads();
-    x_band<H, P>(xb, sy, t, (k + 1) * H, band);
-    const float amp = amps.a[k];
-    for_cells(t, (k + 1) * H, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
-      const int j = lx * t.sz + lz;
-      const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
-      const float lap = pfdc::in_interior(gx, gz, H, nxw, nzw)
-                            ? block_lap<H>(sy, xb, j, c)
-                            : 0.0f;
-      float u = (2.0f * sy[j] - sx_[j] * m) +
-                v[static_cast<size_t>(gx) * nzw + gz] * lap;
-      if (gz == src_z) u = u + amp * src_s[gx];
-      sx_[j] = u;
-    });
-    float* tmp = sx_;
-    sx_ = sy;
-    sy = tmp;
-  }
-  store_tile(p_out + s * plane, sx_, t, d);
-  store_tile(pp_out + s * plane, sy, t, d);
-}
-
-// The split-bf16 twins (P = 2, 3), whose mma fragments take registers:
-// their launch bounds are stated.
+// The staged-tile split twin (P = 2, 3), whose mma fragments take
+// registers: its launch bounds are stated.
 template <int H, bool kZ, int P>
 __global__ void __launch_bounds__(pfdc::kTileThreads)
     block_mod_mma(const float* __restrict__ p_in,
@@ -369,38 +317,20 @@ __global__ void __launch_bounds__(pfdc::kTileThreads)
                            amps, k_steps, rec, gz_rec, d, c);
 }
 
-template <int H, bool kZ, int P>
-__global__ void __launch_bounds__(pfdc::kTileThreads)
-    block_fwd_mma(const float* __restrict__ p_in,
-                  const float* __restrict__ pp_in, float* __restrict__ p_out,
-                  float* __restrict__ pp_out, const float* __restrict__ v2m,
-                  int v2_shot_stride, const float* __restrict__ xramp,
-                  const float* __restrict__ zfac,
-                  const float* __restrict__ strip,
-                  const float* __restrict__ src, int src_z, pfdc::Amps amps,
-                  int k_steps, Dims<kZ> d, pfdc::Coefs c) {
-  extern __shared__ float smem[];
-  block_fwd_body<H, kZ, P>(smem, p_in, pp_in, p_out, pp_out, v2m,
-                           v2_shot_stride, xramp, zfac, strip, src, src_z,
-                           amps, k_steps, d, c);
-}
-
-// The kernels on strip bodies (the exact ones and block_bwd_mma) take the
-// K steps of a block in passes of at most kBlockPassSteps, so that the
-// staged halo stays that many steps deep (K =
-// 8 at order 8: two passes of 4, a 16-cell halo, two blocks an SM, where
-// one pass of 8 staged a 32-cell halo, one block an SM, and computed 1.9x
-// the owned cells of block_mod's 64 x 96, 2.9x of block_bwd's 32 x 64; on
-// the card one pass was 1.5x slower for block_mod on 64 x 64 and 1.8x for
-// block_bwd, PERF.md). Above it a block takes two
-// passes, of (K + 1) / 2 and K / 2 steps: the first writes its fields into
-// scratch buffers over the owned cells and the margin that the second
-// stages (K/2 * h rows where the tile has an x halo, as many columns where
-// it has a z halo), and block_bwd's image delta, from 0, into a scratch
-// image; the second reads them and writes the outputs, block_bwd summing
-// on from the delta and adding it to the running image once, so the sums
-// are the one-pass body's. The forward states compose across the passes
-// as fwd_strip.cuh says.
+// The kernels on strip bodies (the exact ones, block_fwd_mma and block_bwd_mma)
+// take the K steps of a block in passes of at most kBlockPassSteps, so that the
+// staged halo stays that many steps deep (K = 8 at order 8: two passes of 4, a
+// 16-cell halo, two blocks an SM, where one pass of 8 staged a 32-cell halo,
+// one block an SM, and computed 1.9x the owned cells of block_mod's 64 x 96,
+// 2.9x of block_bwd's 32 x 64; on the card one pass was 1.5x slower for
+// block_mod on 64 x 64 and 1.8x for block_bwd, PERF.md). Above it a block takes
+// two passes, of (K + 1) / 2 and K / 2 steps: the first writes its fields into
+// scratch buffers over the owned cells and the margin that the second stages
+// (K/2 * h rows where the tile has an x halo, as many columns where it has a z
+// halo), and block_bwd's image delta, from 0, into a scratch image; the second
+// reads them and writes the outputs, block_bwd summing on from the delta and
+// adding it to the running image once, so the sums are the one-pass body's. The
+// forward states compose across the passes as fwd_strip.cuh says.
 constexpr int kBlockPassSteps = 4;
 
 // One pass of a block kernel on a strip body: steps k0 .. k0 + k_steps - 1
@@ -562,7 +492,50 @@ __global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
   pfdc::fwd_strip<H>(smem, site, t, amps, pass.k_steps, c);
 }
 
-// One pass of the exact block_fwd: amps holds the pass's amplitudes.
+// block_fwd_mma's site: block_fwd's, whose buffers, in a second pass,
+// hold values on the rectangle the first wrote only, the owned cells and
+// the margin (ix, iz).
+template <bool kZ>
+struct BlockFwdMmaSite : BlockFwdSite<kZ> {
+  int ix, iz;
+
+  __device__ bool held(int gx, int gz) const {
+    return in_rect(this->d, gx, gz, ix, iz);
+  }
+};
+
+// One pass of block_fwd (P = 0) or block_fwd_mma (P = 2, 3) on the
+// forward strip body: amps holds the pass's amplitudes.
+template <int H, bool kZ, int P>
+__device__ __forceinline__ void block_fwd_pass(
+    float* smem, const float* __restrict__ p_in,
+    const float* __restrict__ pp_in, float* __restrict__ p_out,
+    float* __restrict__ pp_out, const float* __restrict__ v2m,
+    int v2_shot_stride, const float* __restrict__ xramp,
+    const float* __restrict__ zfac, const float* __restrict__ strip,
+    const float* __restrict__ src, int src_z, const pfdc::Amps& amps,
+    const Dims<kZ>& d, pfdc::StripShape shape, const BlockPass& pass,
+    const pfdc::Coefs& c) {
+  const int s = blockIdx.z;
+  const size_t plane = d.plane();
+  const int nxw = d.nxw();
+  const BlockFwdSite<kZ> site{
+      pp_in + s * plane, p_in + s * plane, pp_out + s * plane,
+      p_out + s * plane, v2m + s * static_cast<size_t>(v2_shot_stride),
+      xramp, zfac, strip, src + s * static_cast<size_t>(nxw), src_z, nxw,
+      d.nzw(), pass.ex, pass.ez, d};
+  const pfdc::StripTile t = pass_tile(pass.k_steps * H, shape, pass, d);
+  if constexpr (P == 0) {
+    pfdc::fwd_strip<H>(smem, site, t, amps, pass.k_steps, c);
+  } else {
+    // the input: the whole buffer, or what a first pass wrote
+    const BlockFwdMmaSite<kZ> split{
+        site, pass.k0 ? (d.hs ? pass.k_steps * H : 0) : d.hs,
+        pass.k0 ? (d.hz() ? pass.k_steps * H : 0) : d.hz()};
+    pfdc::fwd_strip<H, P>(smem, split, t, amps, pass.k_steps, c);
+  }
+}
+
 template <int H, bool kZ>
 __global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
     block_fwd(const float* __restrict__ p_in,
@@ -575,16 +548,38 @@ __global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
               Dims<kZ> d, pfdc::StripShape shape, BlockPass pass,
               pfdc::Coefs c) {
   extern __shared__ float smem[];
-  const int s = blockIdx.z;
-  const size_t plane = d.plane();
-  const int nxw = d.nxw();
-  const BlockFwdSite<kZ> site{
-      pp_in + s * plane, p_in + s * plane, pp_out + s * plane,
-      p_out + s * plane, v2m + s * static_cast<size_t>(v2_shot_stride),
-      xramp, zfac, strip, src + s * static_cast<size_t>(nxw), src_z, nxw,
-      d.nzw(), pass.ex, pass.ez, d};
-  const pfdc::StripTile t = pass_tile(pass.k_steps * H, shape, pass, d);
-  pfdc::fwd_strip<H>(smem, site, t, amps, pass.k_steps, c);
+  block_fwd_pass<H, kZ, 0>(smem, p_in, pp_in, p_out, pp_out, v2m,
+                           v2_shot_stride, xramp, zfac, strip, src, src_z,
+                           amps, d, shape, pass, c);
+}
+
+// The split twin (P = 2, 3): the same pass with the x taps in bf16 parts.
+template <int H, bool kZ, int P>
+__global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
+    block_fwd_mma(const float* __restrict__ p_in,
+                  const float* __restrict__ pp_in, float* __restrict__ p_out,
+                  float* __restrict__ pp_out, const float* __restrict__ v2m,
+                  int v2_shot_stride, const float* __restrict__ xramp,
+                  const float* __restrict__ zfac,
+                  const float* __restrict__ strip,
+                  const float* __restrict__ src, int src_z, pfdc::Amps amps,
+                  Dims<kZ> d, pfdc::StripShape shape, BlockPass pass,
+                  pfdc::Coefs c) {
+  static_assert(P > 0, "block_fwd is the exact kernel");
+  extern __shared__ float smem[];
+  block_fwd_pass<H, kZ, P>(smem, p_in, pp_in, p_out, pp_out, v2m,
+                           v2_shot_stride, xramp, zfac, strip, src, src_z,
+                           amps, d, shape, pass, c);
+}
+
+// The forward kernel of a pass at P.
+template <int H, bool kZ, int P>
+auto fwd_kernel() {
+  if constexpr (P == 0) {
+    return block_fwd<H, kZ>;
+  } else {
+    return block_fwd_mma<H, kZ, P>;
+  }
 }
 
 // block_bwd's site (bwd_strip.cuh): one shot's tile buffers, (nxw, nzw);
@@ -825,8 +820,7 @@ struct BlockFwdRun {
   const float* pp;
   float* p_out;
   float* pp_out;
-  // the exact block_fwd with k > kBlockPassSteps: (p, pp) between its
-  // passes, 2 * ns * plane floats
+  // k > kBlockPassSteps: (p, pp) between the passes, 2 * ns * plane floats
   float* scratch;
   const float* v2m;
   int v2_shot_stride;
@@ -842,21 +836,26 @@ struct BlockFwdRun {
   int parts;
   cudaStream_t stream;
 
-  // One pass of the exact block_fwd from (a, b) into (a_out, b_out).
-  template <int H>
+  // One pass of block_fwd (block_fwd_mma at P > 0) from (a, b) into
+  // (a_out, b_out).
+  template <int H, int P>
   cudaError_t fwd_pass(const float* a, const float* b, float* a_out,
                        float* b_out, BlockPass pass) const {
-    const pfdc::StripShape shape = pfdc::strip_shape(
-        pfdc::kBlockFwdShapes, pfdc::kFwdStage, pass.k_steps * H);
+    const pfdc::StripStage stage =
+        P ? pfdc::kBlockFwdMmaStage : pfdc::kFwdStage;
+    const pfdc::StripShape shape =
+        P ? pfdc::strip_shape(pfdc::kFwdShapes, stage, pass.k_steps * H)
+          : pfdc::strip_shape(pfdc::kBlockFwdShapes, stage,
+                              pass.k_steps * H);
     if (shape.tx == 0) return cudaErrorInvalidValue;
-    const size_t bytes =
-        pfdc::strip_bytes(shape, pfdc::kFwdStage, pass.k_steps * H);
-    const cudaError_t e = pfdc::allow_smem(block_fwd<H, kZ>, bytes);
+    const size_t bytes = pfdc::strip_bytes(shape, stage, pass.k_steps * H);
+    const auto kernel = fwd_kernel<H, kZ, P>();
+    const cudaError_t e = pfdc::allow_smem(kernel, bytes);
     if (e != cudaSuccess) return e;
     const dim3 grid = pfdc::strip_grid(shape, ns, d.nxl + 2 * pass.ex,
                                        d.nzl + 2 * pass.ez);
     const dim3 block(pfdc::kStripThreads);
-    block_fwd<H, kZ><<<grid, block, bytes, stream>>>(
+    kernel<<<grid, block, bytes, stream>>>(
         a, b, a_out, b_out, v2m, v2_shot_stride, xramp, zfac, strip, src, sz,
         amps_from(amps, pass.k0), d, shape, pass, c);
     return cudaGetLastError();
@@ -865,27 +864,15 @@ struct BlockFwdRun {
   template <int H, int P>
   cudaError_t launch() const {
     if (!d.fits(k * H)) return cudaErrorInvalidValue;
-    if constexpr (P == 0) {
-      const BlockPasses<kZ> passes(d, k, H);
-      if (passes.n == 1) {
-        return fwd_pass<H>(p, pp, p_out, pp_out, passes.first);
-      }
-      if (scratch == nullptr) return cudaErrorInvalidValue;
-      float* mid = scratch + ns * d.plane();
-      const cudaError_t e = fwd_pass<H>(p, pp, scratch, mid, passes.first);
-      if (e != cudaSuccess) return e;
-      return fwd_pass<H>(scratch, mid, p_out, pp_out, passes.second);
-    } else {
-      const size_t bytes = tile_bytes<kModTX, kModTZ>(3, k * H, false);
-      const cudaError_t e = pfdc::allow_smem(block_fwd_mma<H, kZ, P>, bytes);
-      if (e != cudaSuccess) return e;
-      const dim3 grid = tile_grid<kModTX, kModTZ>(ns, d);
-      const dim3 block = pfdc::tile_block();
-      block_fwd_mma<H, kZ, P><<<grid, block, bytes, stream>>>(
-          p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp, zfac, strip, src,
-          sz, amps, k, d, c);
-      return cudaGetLastError();
+    const BlockPasses<kZ> passes(d, k, H);
+    if (passes.n == 1) {
+      return fwd_pass<H, P>(p, pp, p_out, pp_out, passes.first);
     }
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    float* mid = scratch + ns * d.plane();
+    const cudaError_t e = fwd_pass<H, P>(p, pp, scratch, mid, passes.first);
+    if (e != cudaSuccess) return e;
+    return fwd_pass<H, P>(scratch, mid, p_out, pp_out, passes.second);
   }
 
   template <int H>

@@ -3,9 +3,10 @@
 // tier's kstep_mod (kstep_mod.cu, mod_main's modeling step) and
 // kstep_gpu_fwd (kstep_gpu_fwd.cu, the GPU suite's fd_forward), and by the
 // domain tiers' block_mod and block_fwd (domain_block.cuh: the same two
-// states on a halo-extended slab or tile, in passes of at most 4 steps).
-// Their split twins (P > 0) keep the staged-tile bodies of kstep.cuh and
-// domain_block.cuh.
+// states on a halo-extended slab or tile, in passes of at most 4 steps),
+// and with the x taps in split bf16 (P > 0, below) by block_fwd_mma /
+// block2_fwd_mma. The other split twins keep the staged-tile bodies of
+// kstep.cuh and domain_block.cuh.
 //
 // What held the earlier bodies back on an H100 (PERF.md, kernel table,
 // rows 11-12 and 15a-16b: 11-13x the bytes bound for the K-step kernels,
@@ -65,6 +66,25 @@
 // injection, the trace row, if any, and which owned cells of the tile are
 // stored (all of them on the K-step kernels' grid; on a block kernel's
 // tile the pass's output rectangle, not its halo).
+//
+// The split x taps (P = 2 or 3 bf16 parts: lap_impl "mxu", "mxu6"; the
+// kstep_gpu_fwd state only, block_fwd_mma's). Each step first takes the x
+// taps of the newest field t over the step's region as the banded product
+// on the tensor cores (strip.cuh's x_product) into one more staged buffer,
+// then a barrier: an mma hands an output to another lane than the strip's
+// cell thread. The strip walk then adds the exact z taps to the product at
+// the cell (xb + accz, the order of the JAX block kernels' use_mxu branch
+// and of the staged-tile body this replaces), and keeps everything else of
+// the exact step: the taper of t where it is written, the source row, u*m
+// as the next t. No register window is loaded: the x taps are the
+// product's. Two barriers a step (the product's, the step's); the product
+// is written only after the end-of-step barrier that follows every read of
+// the last one. What the split body stages: the field at two levels and
+// the product, on rows padded to 4 mod 8 floats (strip_pitch: the
+// product's fragment reads and stores without bank conflicts), and the x
+// ramp. A second pass's buffers may hold no value past what the first
+// wrote: the split instances stage 0 there (the site's held()), since the
+// product multiplies every value it reads.
 #pragma once
 
 #include "strip.cuh"
@@ -81,61 +101,101 @@ constexpr StripShape kFwdShapes[] = {
 constexpr StripShape kBlockFwdShapes[] = {
     {64, 96}, {64, 64}, {32, 64}, {32, 32}, {16, 32}, {16, 16}};
 constexpr StripStage kFwdStage{2, false};
+// The split instances (block_fwd_mma) stage the product too, on padded
+// rows, and take kFwdShapes: 64 x 64 first (115.6 KB at order 8 and a
+// pass of 4 steps, two blocks an SM) ran 11 % faster than 64 x 96 (one
+// block an SM) and 17 % faster than 32 x 64 on the domain tiers' Pluto
+// slabs and tiles (PERF.md).
+constexpr StripStage kBlockFwdMmaStage{3, false, true};
 
 // The k_steps steps of the site's block on its tile (blockDim.x =
 // kStripThreads, a 1-D block), amps.a[k] the source amplitude of step k
 // (of the pass: a block kernel's second pass gets the block's amplitudes
-// from its first step on, and its site records step k as k0 + k).
-template <int H, class Site>
+// from its first step on, and its site records step k as k0 + k), with
+// the x taps exact (P = 0) or in P bf16 parts.
+template <int H, int P = 0, class Site>
 __device__ __forceinline__ void fwd_strip(float* smem, const Site& site,
                                           const StripTile& t,
                                           const Amps& amps, int k_steps,
                                           const Coefs& c) {
+  static_assert(P == 0 || Site::kGpu, "the split instances: block_fwd's");
   constexpr int S = kStripRows;
-  const int n = t.sx * t.sz;
+  // the rows' pitch: padded in the split instances (strip_pitch)
+  const int pitch =
+      P == 0 ? t.sz : strip_pitch(t.sz, kBlockFwdMmaStage.padded);
+  const int n = t.sx * pitch;
   float* cur = smem;         // the newest level, whose taps a step reads
   float* old = smem + n;     // the older level, read at its own cell
   float* sxr = smem + 2 * n;
+  float* xb = sxr + t.sx;    // P > 0: the x product of cur
   const int nxf = site.nxf, nzf = site.nzf;
   const int tid = static_cast<int>(threadIdx.x);
   const int nth = static_cast<int>(blockDim.x);
   const int warp = tid >> 5, lane = tid & 31, nwarps = nth >> 5;
-  stage_strip_tile<2>({cur, old}, {site.cur, site.old}, sxr, site.xramp, t,
-                      nxf, nzf);
+  if constexpr (P == 0) {
+    stage_strip_tile<2>({cur, old}, {site.cur, site.old}, sxr, site.xramp,
+                        t, nxf, nzf);
+  } else {
+    // x_product reads every staged cell: 0 where the site's buffers hold
+    // no value (past what a first pass wrote)
+    stage_strip_tile<2>({cur, old}, {site.cur, site.old}, sxr, site.xramp,
+                        t, nxf, nzf,
+                        [&](int gx, int gz) { return site.held(gx, gz); },
+                        pitch);
+  }
   cp_async_wait_all();
   __syncthreads();
-  if constexpr (Site::kGpu) {
+  if constexpr (P > 0) {
+    taper_strip_tile(cur, sxr, site.zfac, site.strip, t, nxf, nzf, pitch);
+  } else if constexpr (Site::kGpu) {
     taper_strip_tile(cur, sxr, site.zfac, site.strip, t, nxf, nzf);
   }
+  const SplitBand<H, P> band = split_band<H, P>(c.x, lane);
   for (int k = 0; k < k_steps; ++k) {
     const float amp = amps.a[k];
     const bool last = k + 1 == k_steps;
     const bool old_tapered = !Site::kGpu && k == 0;
     const StripWalk<S> walk(t, (k + 1) * H);
+    if constexpr (P > 0) {
+      x_product<H, P>(xb, cur, t, walk.lo, band, pitch, warp, nwarps, lane);
+      __syncthreads();
+    }
     for (int item = warp; item < walk.items; item += nwarps) {
       int lx0, rows, lz, gz;
       if (!walk.strip(item, lane, t, nzf, lx0, rows, lz, gz)) continue;
       const float zf = site.zfac[gz];
       const bool ramp = site.strip[gz] != 0.0f;
       float w[1][S + 2 * H];
-      strip_windows<H>(w, {cur}, t, lx0, rows, lz);
+      if constexpr (P == 0) {
+        strip_windows<H>(w, {cur}, t, lx0, rows, lz);
+      }
 #pragma unroll
       for (int i = 0; i < S; ++i) {
         const int lx = lx0 + i, gx = t.gx0 + lx;
         if (i >= rows || gx < 0 || gx >= nxf) continue;
-        const int j = lx * t.sz + lz;
+        const int j = lx * pitch + lz;
         const float m = strip_taper(sxr, lx, zf, ramp);
-        const float lap = in_interior(gx, gz, H, nxf, nzf)
-                              ? strip_lap<H>(w[0], i, cur, j, c)
-                              : 0.0f;
+        float lap = 0.0f;
+        float centre;
+        if constexpr (P == 0) {
+          lap = in_interior(gx, gz, H, nxf, nzf)
+                    ? strip_lap<H>(w[0], i, cur, j, c)
+                    : 0.0f;
+          centre = w[0][i + H];
+        } else {
+          lap = in_interior(gx, gz, H, nxf, nzf)
+                    ? xb[j] + axis_taps<H>(cur, j, 1, c.z)
+                    : 0.0f;
+          centre = cur[j];
+        }
         const float o = old_tapered ? old[j] : old[j] * m;
-        float u = (2.0f * w[0][i + H] - o) + site.v(gx, gz) * lap;
+        float u = (2.0f * centre - o) + site.v(gx, gz) * lap;
         u = site.inject(amp, gx, gz, u);
         old[j] = Site::kGpu && last ? u : u * m;
         const int ox = lx - t.r, oz = lz - t.r;
         if (site.records(gx, gz) && ox >= 0 && ox < t.tx && oz >= 0 &&
             oz < t.tz) {
-          site.record(k, gx, w[0][i + H] * m);
+          site.record(k, gx, centre * m);
         }
       }
     }
@@ -151,7 +211,7 @@ __device__ __forceinline__ void fwd_strip(float* smem, const Site& site,
     if (gx < 0 || gx >= nxf || gz < 0 || gz >= nzf || !site.stored(gx, gz)) {
       continue;
     }
-    const int j = lx * t.sz + lz;
+    const int j = lx * pitch + lz;
     const size_t q = static_cast<size_t>(gx) * nzf + gz;
     site.cur_out[q] = cur[j];
     site.old_out[q] =

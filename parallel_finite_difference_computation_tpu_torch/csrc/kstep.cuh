@@ -1,10 +1,11 @@
 // Shared pieces of the K-step kernels of the large-grid tier (kstep_mod.cu,
 // kstep_gpu_fwd.cu, kstep_gpu_bwd.cu): the shared-memory tile, the taper
 // rebuilt from its 1-D ramps, the loop over a tile's cells, and the split
-// z taps of their lap_impl mxu/mxu6 variants. The exact K-step kernels run
-// the strip bodies of fwd_strip.cuh and bwd_strip.cuh (on strip.cuh) and
-// take only the constants and the taper's ramps from here; the split ones
-// and the domain tiers' block kernels (domain_block.cuh) stage this tile.
+// z taps of their lap_impl mxu/mxu6 variants. The exact K-step kernels and
+// kstep_gpu_bwd_mma run the strip bodies of fwd_strip.cuh and
+// bwd_strip.cuh (on strip.cuh) and take only the constants, the taper's
+// ramps and axis_taps' order from here; the other split ones and the
+// domain tiers' block_mod_mma (domain_block.cuh) stage this tile.
 //
 // Temporal blocking on an SM. One block owns kTileX x kTileZ cells of one
 // shot and stages each field of the tile plus a halo of r = K*H cells on

@@ -7,19 +7,23 @@
 // Replaces: parallel_finite_difference_computation_tpu/ops/pallas_stream.py,
 // _kstep_gpu_bwd_kernel (:857), called through fd_kstep_gpu_bwd_padded
 // (:932) by the JAX package's rtm_shot_snapshot_tiled with block_k > 1:
-// kstep_gpu_bwd_strip<H> its exact taps, kstep_gpu_bwd<H, 2 or 3>
-// (kstep_gpu_bwd_mma) its use_mxu branch (:875-883), the z taps of both
-// Laplacians in split bf16 on the tensor cores (kstep.cuh, z_band).
+// kstep_gpu_bwd_strip<H> its exact taps, kstep_gpu_bwd_mma<H, 2 or 3> its
+// use_mxu branch (:875-883), the z taps of both Laplacians in split bf16
+// on the tensor cores.
 //
-// The exact kernel runs the strip body of bwd_strip.cuh on a block's tile
-// of 32 x 64 owned cells (a smaller shape where the halo leaves that no
-// room) with a K*H halo: four staged fields, the owned image and the x
-// ramp, 107 KB at order 8 and K = 4, so two blocks share an SM.
-// The split kernel stages a 2-D tile of the four fields and v2*dt2 with a
-// K*H halo on both axes, and its owned part of the image (kstep.cuh),
-// plus two tiles for the z taps of the two fields, so that one loop over
-// the cells takes both Laplacians: 180 KB at order 8 and K = 4, 218 KB at
-// order 10.
+// Both run the strip body of bwd_strip.cuh on a block's tile with a K*H
+// halo. The exact kernel stages four fields, the owned image and the x
+// ramp on 32 x 64 owned cells (a smaller shape where the halo leaves that
+// no room), 107 KB at order 8 and K = 4, so two blocks share an SM. The
+// split kernel (Split::kZ) stages the z products of the source and the
+// receiver field too, on rows padded to 4 mod 8 floats, on 32 x 96 owned
+// cells first (215 KB at order 8 and K = 4, one block an SM; on 32 x 64,
+// at the tile's pitch of 96 floats, the product's 8-way bank conflicts
+// made it 19 % slower on the card), and keeps the x taps exact from the
+// strip's register window; the staged-tile body it replaces staged
+// v2*dt2 as well, with dependent loads, a taper phase and its barrier
+// every step, and a Laplacian that read 2H + 1 x taps from shared
+// memory.
 //
 // What bounds it on an H100: at the Pluto grid the per-step rtm_bwd_step
 // moves ~340 MB a shot-step through HBM; this pass reads four fields,
@@ -36,114 +40,13 @@
 // bitwise the per-step kernel; the split one sums each mma's 16 products
 // in the tensor cores' own order.
 #include "bwd_strip.cuh"
-#include "kstep.cuh"
 
 namespace {
 
-// Staged tiles of the split kernel: four fields, v2*dt2, and the z
-// products of the source and the receiver field.
-constexpr int kSplitFields = 7;
-
-template <int H, int P>
-__global__ void __launch_bounds__(pfdc::kTileThreads)
-    kstep_gpu_bwd(const float* __restrict__ ps_in,
-                  const float* __restrict__ pps_in,
-                  const float* __restrict__ pr_in,
-                  const float* __restrict__ ppr_in,
-                  float* __restrict__ ps_out, float* __restrict__ pps_out,
-                  float* __restrict__ pr_out, float* __restrict__ ppr_out,
-                  float* __restrict__ img, const float* __restrict__ v2dt2,
-                  int v2_shot_stride, const float* __restrict__ xramp,
-                  const float* __restrict__ zfac,
-                  const float* __restrict__ strip,
-                  const float* __restrict__ inj, int inj_shot_stride,
-                  int gz_rec, int k_steps, int nxb, int nzb, int nx, int nz,
-                  int nxe, int nze, pfdc::Coefs c) {
-  extern __shared__ float smem[];
-  const pfdc::Tile t(k_steps * H);
-  const int n = t.cells();
-  float* sps = smem;
-  float* spps = smem + n;
-  float* spr = smem + 2 * n;
-  float* sppr = smem + 3 * n;
-  float* sv = smem + 4 * n;
-  float* simg = smem + 5 * n;   // kTileX x kTileZ, owned cells
-  float* zs = simg + pfdc::kTileX * pfdc::kTileZ;   // P > 0: z taps of sps
-  float* zr = zs + n;                               // and of spr
-  const auto band = pfdc::split_band<H, P>(c.z);
-  const int s = blockIdx.z;
-  const size_t plane = static_cast<size_t>(nxe) * nze;
-  pfdc::load_tile(sps, ps_in + s * plane, t, nxe, nze);
-  pfdc::load_tile(spps, pps_in + s * plane, t, nxe, nze);
-  pfdc::load_tile(spr, pr_in + s * plane, t, nxe, nze);
-  pfdc::load_tile(sppr, ppr_in + s * plane, t, nxe, nze);
-  pfdc::load_tile(sv, v2dt2 + s * static_cast<size_t>(v2_shot_stride), t,
-                  nxe, nze);
-  float* img_s = img + s * static_cast<size_t>(nx) * nz;
-  auto imaged = [&](int gx, int gz) {
-    return gx >= nxb && gx < nxb + nx && gz >= nzb && gz < nzb + nz;
-  };
-  auto img_at = [&](int gx, int gz) -> float& {
-    return img_s[static_cast<size_t>(gx - nxb) * nz + (gz - nzb)];
-  };
-  pfdc::for_cells(t, t.r, nxe, nze, [&](int lx, int lz, int gx, int gz) {
-    if (imaged(gx, gz)) {
-      simg[(lx - t.r) * pfdc::kTileZ + (lz - t.r)] = img_at(gx, gz);
-    }
-  });
-  const float* inj_s = inj + s * static_cast<size_t>(inj_shot_stride);
-  for (int k = 0; k < k_steps; ++k) {
-    // taper the receiver field over every cell this step's taps read
-    pfdc::for_cells(t, k * H, nxe, nze, [&](int lx, int lz, int gx, int gz) {
-      const int j = lx * t.sz + lz;
-      spr[j] = spr[j] * pfdc::taper_at(xramp, zfac, strip, gx, gz);
-    });
-    __syncthreads();
-    pfdc::z_band<H, P>(zs, sps, t, (k + 1) * H, band);
-    pfdc::z_band<H, P>(zr, spr, t, (k + 1) * H, band);
-    pfdc::for_cells(t, (k + 1) * H, nxe, nze,
-                    [&](int lx, int lz, int gx, int gz) {
-      const int j = lx * t.sz + lz;
-      const bool interior = pfdc::in_interior(gx, gz, H, nxe, nze);
-      const float v = sv[j];
-      const float lap_s =
-          interior ? pfdc::tile_lap<H, P>(sps, zs, j, t.sz, c) : 0.0f;
-      const float us = (2.0f * sps[j] - spps[j]) + v * lap_s;
-      spps[j] = us;
-      const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
-      const float lap_r =
-          interior ? pfdc::tile_lap<H, P>(spr, zr, j, t.sz, c) : 0.0f;
-      float ur = (2.0f * spr[j] - sppr[j] * m) + v * lap_r;
-      if (gz == gz_rec && gx >= nxb && gx < nxb + nx) {
-        ur = ur + inj_s[static_cast<size_t>(k) * nx + (gx - nxb)];
-      }
-      sppr[j] = ur;
-      if (t.owned(lx, lz) && imaged(gx, gz)) {
-        float& acc = simg[(lx - t.r) * pfdc::kTileZ + (lz - t.r)];
-        acc = acc + us * ur;
-      }
-    });
-    float* tmp = sps;
-    sps = spps;
-    spps = tmp;
-    tmp = spr;
-    spr = sppr;
-    sppr = tmp;
-  }
-  pfdc::store_tile(ps_out + s * plane, sps, t, nxe, nze);
-  pfdc::store_tile(pps_out + s * plane, spps, t, nxe, nze);
-  pfdc::store_tile(pr_out + s * plane, spr, t, nxe, nze);
-  pfdc::store_tile(ppr_out + s * plane, sppr, t, nxe, nze);
-  pfdc::for_cells(t, t.r, nxe, nze, [&](int lx, int lz, int gx, int gz) {
-    if (imaged(gx, gz)) {
-      img_at(gx, gz) = simg[(lx - t.r) * pfdc::kTileZ + (lz - t.r)];
-    }
-  });
-}
-
-// The exact kernel's site (bwd_strip.cuh): one shot's fields on the
-// (nxe, nze) grid; the image is the interior's, summed from its running
-// value; the trace row is injected on the receiver row's interior cells.
+// The kernels' site (bwd_strip.cuh): one shot's fields on the (nxe, nze)
+// grid, every cell of which holds a value; the image is the interior's,
+// summed from its running value; the trace row is injected on the
+// receiver row's interior cells.
 struct KstepBwdSite {
   const float* ps;
   const float* pps;
@@ -164,6 +67,7 @@ struct KstepBwdSite {
   __device__ float v(int gx, int gz) const {
     return __ldg(v2dt2 + static_cast<size_t>(gx) * nzf + gz);
   }
+  __device__ bool held(int, int) const { return true; }
   __device__ bool seeded(int) const { return false; }
   __device__ float snapshot(int, int, int) const { return 0.0f; }
   __device__ float inject(int k, int gx, int gz, float u) const {
@@ -186,6 +90,36 @@ struct KstepBwdSite {
   }
 };
 
+// One pass of the kernel with the taps exact (P = 0) or the z taps in P
+// bf16 parts.
+template <int H, int P>
+__device__ __forceinline__ void kstep_gpu_bwd_pass(
+    float* smem, const float* __restrict__ ps_in,
+    const float* __restrict__ pps_in, const float* __restrict__ pr_in,
+    const float* __restrict__ ppr_in, float* __restrict__ ps_out,
+    float* __restrict__ pps_out, float* __restrict__ pr_out,
+    float* __restrict__ ppr_out, float* __restrict__ img,
+    const float* __restrict__ v2dt2, int v2_shot_stride,
+    const float* __restrict__ xramp, const float* __restrict__ zfac,
+    const float* __restrict__ strip, const float* __restrict__ inj,
+    int inj_shot_stride, int gz_rec, int k_steps, int nxb, int nzb, int nx,
+    int nz, int nxe, int nze, pfdc::StripShape shape, const pfdc::Coefs& c) {
+  const int s = blockIdx.z;
+  const size_t plane = static_cast<size_t>(nxe) * nze;
+  const KstepBwdSite site{
+      ps_in + s * plane,    pps_in + s * plane,  pr_in + s * plane,
+      ppr_in + s * plane,   ps_out + s * plane,  pps_out + s * plane,
+      pr_out + s * plane,   ppr_out + s * plane,
+      img + s * static_cast<size_t>(nx) * nz,
+      v2dt2 + s * static_cast<size_t>(v2_shot_stride), xramp, zfac, strip,
+      inj + s * static_cast<size_t>(inj_shot_stride), gz_rec, nxb, nzb, nx,
+      nz, nxe, nze};
+  const pfdc::StripTile t(k_steps * H, shape,
+                          static_cast<int>(blockIdx.y) * shape.tx,
+                          static_cast<int>(blockIdx.x) * shape.tz);
+  pfdc::bwd_strip<H, P, pfdc::Split::kZ>(smem, site, t, 0, k_steps, c);
+}
+
 template <int H>
 __global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
     kstep_gpu_bwd_strip(const float* __restrict__ ps_in,
@@ -205,20 +139,52 @@ __global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
                         int nz, int nxe, int nze, pfdc::StripShape shape,
                         pfdc::Coefs c) {
   extern __shared__ float smem[];
-  const int s = blockIdx.z;
-  const size_t plane = static_cast<size_t>(nxe) * nze;
-  const KstepBwdSite site{
-      ps_in + s * plane,    pps_in + s * plane,  pr_in + s * plane,
-      ppr_in + s * plane,   ps_out + s * plane,  pps_out + s * plane,
-      pr_out + s * plane,   ppr_out + s * plane,
-      img + s * static_cast<size_t>(nx) * nz,
-      v2dt2 + s * static_cast<size_t>(v2_shot_stride), xramp, zfac, strip,
-      inj + s * static_cast<size_t>(inj_shot_stride), gz_rec, nxb, nzb, nx,
-      nz, nxe, nze};
-  const pfdc::StripTile t(k_steps * H, shape,
-                          static_cast<int>(blockIdx.y) * shape.tx,
-                          static_cast<int>(blockIdx.x) * shape.tz);
-  pfdc::bwd_strip<H>(smem, site, t, 0, k_steps, c);
+  kstep_gpu_bwd_pass<H, 0>(smem, ps_in, pps_in, pr_in, ppr_in, ps_out,
+                           pps_out, pr_out, ppr_out, img, v2dt2,
+                           v2_shot_stride, xramp, zfac, strip, inj,
+                           inj_shot_stride, gz_rec, k_steps, nxb, nzb, nx, nz,
+                           nxe, nze, shape, c);
+}
+
+// The split twin (P = 2, 3): the same pass with the z taps in bf16 parts.
+// Its tile takes one block an SM at order 8, so its launch bounds leave
+// it 128 registers a thread: at two blocks an SM's 64 it spilled and ran
+// 5 % slower on the Pluto grid (PERF.md).
+template <int H, int P>
+__global__ void __launch_bounds__(pfdc::kStripThreads, 1)
+    kstep_gpu_bwd_mma(const float* __restrict__ ps_in,
+                      const float* __restrict__ pps_in,
+                      const float* __restrict__ pr_in,
+                      const float* __restrict__ ppr_in,
+                      float* __restrict__ ps_out,
+                      float* __restrict__ pps_out,
+                      float* __restrict__ pr_out,
+                      float* __restrict__ ppr_out, float* __restrict__ img,
+                      const float* __restrict__ v2dt2, int v2_shot_stride,
+                      const float* __restrict__ xramp,
+                      const float* __restrict__ zfac,
+                      const float* __restrict__ strip,
+                      const float* __restrict__ inj, int inj_shot_stride,
+                      int gz_rec, int k_steps, int nxb, int nzb, int nx,
+                      int nz, int nxe, int nze, pfdc::StripShape shape,
+                      pfdc::Coefs c) {
+  static_assert(P > 0, "kstep_gpu_bwd_strip is the exact kernel");
+  extern __shared__ float smem[];
+  kstep_gpu_bwd_pass<H, P>(smem, ps_in, pps_in, pr_in, ppr_in, ps_out,
+                           pps_out, pr_out, ppr_out, img, v2dt2,
+                           v2_shot_stride, xramp, zfac, strip, inj,
+                           inj_shot_stride, gz_rec, k_steps, nxb, nzb, nx, nz,
+                           nxe, nze, shape, c);
+}
+
+// The kernel at P.
+template <int H, int P>
+auto bwd_kernel() {
+  if constexpr (P == 0) {
+    return kstep_gpu_bwd_strip<H>;
+  } else {
+    return kstep_gpu_bwd_mma<H, P>;
+  }
 }
 
 struct KstepBwdRun {
@@ -244,32 +210,21 @@ struct KstepBwdRun {
 
   template <int H, int P>
   cudaError_t launch() const {
-    if constexpr (P == 0) {
-      const pfdc::StripShape shape =
-          pfdc::strip_shape(pfdc::kBwdShapes, pfdc::kBwdStage, k * H);
-      if (shape.tx == 0) return cudaErrorInvalidValue;
-      const size_t bytes = pfdc::strip_bytes(shape, pfdc::kBwdStage, k * H);
-      const cudaError_t e = pfdc::allow_smem(kstep_gpu_bwd_strip<H>, bytes);
-      if (e != cudaSuccess) return e;
-      const dim3 grid = pfdc::strip_grid(shape, ns, nxe, nze);
-      const dim3 block(pfdc::kStripThreads);
-      kstep_gpu_bwd_strip<H><<<grid, block, bytes, stream>>>(
-          ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out, img, v2dt2,
-          v2_shot_stride, xramp, zfac, strip, inj, inj_shot_stride, gz, k,
-          nxb, nzb, nxe - 2 * nxb, nze - 2 * nzb, nxe, nze, shape, c);
-    } else {
-      const size_t bytes =
-          sizeof(float) * (kSplitFields * pfdc::tile_cells(k * H) +
-                           static_cast<size_t>(pfdc::kTileX) * pfdc::kTileZ);
-      const cudaError_t e = pfdc::allow_smem(kstep_gpu_bwd<H, P>, bytes);
-      if (e != cudaSuccess) return e;
-      const dim3 grid = pfdc::tile_grid(ns, nxe, nze);
-      const dim3 block = pfdc::tile_block();
-      kstep_gpu_bwd<H, P><<<grid, block, bytes, stream>>>(
-          ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out, img, v2dt2,
-          v2_shot_stride, xramp, zfac, strip, inj, inj_shot_stride, gz, k,
-          nxb, nzb, nxe - 2 * nxb, nze - 2 * nzb, nxe, nze, c);
-    }
+    const pfdc::StripStage stage = P ? pfdc::kBwdMmaStage : pfdc::kBwdStage;
+    const pfdc::StripShape shape =
+        P ? pfdc::strip_shape(pfdc::kBwdZMmaShapes, stage, k * H)
+          : pfdc::strip_shape(pfdc::kBwdShapes, stage, k * H);
+    if (shape.tx == 0) return cudaErrorInvalidValue;
+    const size_t bytes = pfdc::strip_bytes(shape, stage, k * H);
+    const auto kernel = bwd_kernel<H, P>();
+    const cudaError_t e = pfdc::allow_smem(kernel, bytes);
+    if (e != cudaSuccess) return e;
+    const dim3 grid = pfdc::strip_grid(shape, ns, nxe, nze);
+    const dim3 block(pfdc::kStripThreads);
+    kernel<<<grid, block, bytes, stream>>>(
+        ps, pps, pr, ppr, ps_out, pps_out, pr_out, ppr_out, img, v2dt2,
+        v2_shot_stride, xramp, zfac, strip, inj, inj_shot_stride, gz, k, nxb,
+        nzb, nxe - 2 * nxb, nze - 2 * nzb, nxe, nze, shape, c);
     return cudaGetLastError();
   }
 

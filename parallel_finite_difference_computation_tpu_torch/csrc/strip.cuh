@@ -1,9 +1,11 @@
 // The register-strip pieces of the temporal-blocking bodies: the backward
-// body of bwd_strip.cuh (kstep_gpu_bwd, block_bwd, block2_bwd, and with
-// the x taps split block_bwd_mma, block2_bwd_mma) and the forward body of
-// fwd_strip.cuh (kstep_mod, kstep_gpu_fwd, block_mod, block_fwd); the
-// split x product that bwd_strip.cuh and domain_block.cuh's staged-tile
-// bodies share.
+// body of bwd_strip.cuh (kstep_gpu_bwd, block_bwd, block2_bwd; with the x
+// taps split block_bwd_mma, block2_bwd_mma, with the z taps split
+// kstep_gpu_bwd_mma) and the forward body of fwd_strip.cuh (kstep_mod,
+// kstep_gpu_fwd, block_mod, block_fwd; with the x taps split
+// block_fwd_mma, block2_fwd_mma); the split x product that the strip
+// bodies and domain_block.cuh's staged-tile bodies share, and the split z
+// product of the backward body's K-step instances.
 //
 // A block stages a tile of owned cells plus a halo of r = K*H cells on
 // both axes in dynamic shared memory: only the fields that neighbours read
@@ -207,27 +209,49 @@ __device__ __forceinline__ void strip_windows(float (&w)[NF][N],
   }
 }
 
+// The same for fields whose rows lie pitch apart (strip_pitch).
+template <int H, int NF, int N>
+__device__ __forceinline__ void strip_windows(float (&w)[NF][N],
+                                              const float* const (&f)[NF],
+                                              const StripTile& t, int lx0,
+                                              int rows, int lz, int pitch) {
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    const int j = (lx0 - H + q) * pitch + lz;
+    const bool ok = q < rows + 2 * H;
+#pragma unroll
+    for (int i = 0; i < NF; ++i) w[i][q] = ok ? f[i][j] : 0.0f;
+  }
+}
+
+// The x taps of strip cell i from its window w (w[q] is row lx - H + q of
+// the cell's column), centre included, with the coefficients half
+// (Coefs::x), summed as kstep.cuh's axis_taps sums down a column.
+template <int H, int N>
+__device__ __forceinline__ float window_taps(const float (&w)[N], int i,
+                                             const float* half) {
+  float acc = half[H] * (w[i] + w[i + 2 * H]);
+#pragma unroll
+  for (int k = H - 1; k >= 1; --k) {
+    acc = acc + half[k] * (w[i + H - k] + w[i + H + k]);
+  }
+  return acc + half[0] * w[i + H];
+}
+
 // The Laplacian of strip cell i at tile cell j: the z taps from the staged
-// field f, the x taps from the strip's window w (w[q] is row lx - H + q
-// of the cell's column), in the order of stencil.cuh's laplacian.
+// field f, the x taps from the strip's window w, in the order of
+// stencil.cuh's laplacian (accz + accx).
 template <int H, int N>
 __device__ __forceinline__ float strip_lap(const float (&w)[N], int i,
                                            const float* f, int j,
                                            const Coefs& c) {
-  const float centre = w[i + H];
   float accz = c.z[H] * (f[j - H] + f[j + H]);
 #pragma unroll
   for (int k = H - 1; k >= 1; --k) {
     accz = accz + c.z[k] * (f[j - k] + f[j + k]);
   }
-  accz = accz + c.z[0] * centre;
-  float accx = c.x[H] * (w[i] + w[i + 2 * H]);
-#pragma unroll
-  for (int k = H - 1; k >= 1; --k) {
-    accx = accx + c.x[k] * (w[i + H - k] + w[i + H + k]);
-  }
-  accx = accx + c.x[0] * centre;
-  return accz + accx;
+  accz = accz + c.z[0] * w[i + H];
+  return accz + window_taps<H>(w, i, c.x);
 }
 
 // The x taps of the staged field f, centre included, as the P-part
@@ -265,6 +289,47 @@ __device__ __forceinline__ void x_product(float* xb, const float* f,
       const int lz = z0 + frag_g(lane) + 8 * (q >> 1);
       const int lx = x0 + 2 * frag_t(lane) + (q & 1);
       if (lx < hx && lz < hz) xb[lx * pitch + lz] = y[q];
+    }
+  }
+}
+
+// The z taps of the staged field f, centre included, as the P-part
+// split-bf16 banded product, into zb at every cell of the StripTile t at
+// least lo cells from its edge, f and zb with rows pitch apart; the
+// caller's barrier follows. kstep.cuh's z_band on a strip tile: warp warp
+// of nwarps takes the region's blocks of 16 rows (the mma's rows m, along
+// x) by 8 columns (its outputs n, along z) in turn, contracting along z:
+// A[m][k] is row x0 + m of the tile at column z0 - H + k, the window of
+// output column z0 + n starting H columns before it. A fragment's lanes
+// read 8 rows at 4 columns 2 apart: at a pitch of 4 mod 8 floats (the
+// padded rows) 2-way bank conflicts, at 0 mod 32 (the unpadded 64 + 2r
+// of a halo r of 16 or 32) 8-way. Reads past the tile read 0 (every value
+// read must be finite, the band's zeros included: the staged cells all
+// are), and outputs beyond the region are not written.
+template <int H, int P>
+__device__ __forceinline__ void z_product(float* zb, const float* f,
+                                          const StripTile& t, int lo,
+                                          const Band<H, P>& band, int pitch,
+                                          int warp, int nwarps, int lane) {
+  const int hx = t.sx - lo, hz = t.sz - lo;
+  const int nbz = (hz - lo + 7) / 8;
+  const int nb = (hx - lo + 15) / 16 * nbz;
+  for (int b = warp; b < nb; b += nwarps) {
+    const int x0 = lo + 16 * (b / nbz);
+    const int z0 = lo + 8 * (b % nbz);
+    float y[4];
+    banded_mma<H, P>(
+        y,
+        [&](int m, int k) {
+          const int lx = x0 + m, lz = z0 - H + k;
+          return lx < t.sx && lz < t.sz ? f[lx * pitch + lz] : 0.0f;
+        },
+        band, lane);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int lx = x0 + frag_g(lane) + 8 * (q >> 1);
+      const int lz = z0 + 2 * frag_t(lane) + (q & 1);
+      if (lx < hx && lz < hz) zb[lx * pitch + lz] = y[q];
     }
   }
 }

@@ -188,30 +188,34 @@ class _Strip(NamedTuple):
 
 
 # The staged-tile split kernels' owned cells (kTileX, kTileZ,
-# csrc/kstep.cuh; block_mod_mma and block_fwd_mma: kModTX, kModTZ,
-# csrc/domain_block.cuh).
+# csrc/kstep.cuh; block_mod_mma: kModTX, kModTZ, csrc/domain_block.cuh).
 _TILE = (32, 64)
 # The strip bodies (csrc/bwd_strip.cuh: kBwdShapes, kBwdStage,
-# kstep_gpu_bwd and block_bwd; kBwdMmaStage, block_bwd_mma, the two x
+# kstep_gpu_bwd and block_bwd; kBwdMmaStage, their split twins
+# block_bwd_mma and, on kBwdZMmaShapes, kstep_gpu_bwd_mma, the two
 # products staged too, on padded rows; csrc/fwd_strip.cuh: kFwdShapes,
 # kFwdStage, kstep_mod and kstep_gpu_fwd; kBlockFwdShapes, block_mod and
-# block_fwd).
+# block_fwd; kFwdShapes and kBlockFwdMmaStage, block_fwd_mma, the x
+# product staged too, on padded rows).
 _BWD_STRIP = _Strip(((32, 64), (32, 32), (16, 32), (16, 16)), 4, True)
 _BWD_MMA_STRIP = _BWD_STRIP._replace(fields=6, padded=True)
+_BWD_ZMMA_STRIP = _BWD_MMA_STRIP._replace(shapes=((32, 96),)
+                                          + _BWD_STRIP.shapes)
 _FWD_STRIP = _Strip(((64, 64), (32, 64), (32, 32), (16, 32), (16, 16)), 2,
                     False)
 _BLOCK_FWD_STRIP = _FWD_STRIP._replace(shapes=((64, 96),)
                                        + _FWD_STRIP.shapes)
+_BLOCK_FWD_MMA_STRIP = _FWD_STRIP._replace(fields=3, padded=True)
 # The most steps a pass of the block kernels on strip bodies takes
 # (kBlockPassSteps).
 BLOCK_PASS_STEPS = 4
-# Per kernel: its split twin's body (a staged tile, or for block_bwd_mma a
-# strip body) and the exact kernel's strip body.
+# Per kernel: its split twin's body (a staged tile, or a strip body) and
+# the exact kernel's strip body.
 _STAGED = {"kstep_mod": (_Tile(_TILE, 4, False), _FWD_STRIP),
            "kstep_gpu_fwd": (_Tile(_TILE, 4, False), _FWD_STRIP),
-           "kstep_gpu_bwd": (_Tile(_TILE, 7, True), _BWD_STRIP),
+           "kstep_gpu_bwd": (_BWD_ZMMA_STRIP, _BWD_STRIP),
            "block_mod": (_Tile(_TILE, 3, False), _BLOCK_FWD_STRIP),
-           "block_fwd": (_Tile(_TILE, 3, False), _BLOCK_FWD_STRIP),
+           "block_fwd": (_BLOCK_FWD_MMA_STRIP, _BLOCK_FWD_STRIP),
            "block_bwd": (_BWD_MMA_STRIP, _BWD_STRIP)}
 STAGING_KERNELS = tuple(_STAGED)
 
@@ -236,7 +240,8 @@ def _strip_bytes(shape, r: int, body: _Strip) -> int:
 def block_passes(k: int) -> tuple:
     """The steps of each pass of a block kernel on a strip body (the exact
     ``block_mod``, ``block_fwd``, ``block_bwd`` and their ``block2_*``,
-    and the split ``block_bwd_mma`` and ``block2_bwd_mma``) for a block of
+    and the split ``block_fwd_mma``, ``block_bwd_mma`` and their
+    ``block2_*``) for a block of
     ``k`` steps: one pass up to ``BLOCK_PASS_STEPS``, else two, of ``(k +
     1) // 2`` and ``k // 2`` steps (kBlockPassSteps, BlockPasses,
     csrc/domain_block.cuh); each pass is a launch."""

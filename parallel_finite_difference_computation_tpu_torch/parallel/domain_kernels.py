@@ -492,9 +492,9 @@ def _scratch(c: Tile, passes: bool, k: int, fields: int, like,
              extra: int = 0):
     """The launches of a block of ``k`` steps (with ``passes``, a kernel on
     a strip body, its passes, :func:`..ops.fd_kernels.block_passes`: the
-    exact kernels and ``block_bwd_mma``; else, the staged-tile
-    ``block_mod_mma`` and ``block_fwd_mma``, one), the scratch argument of
-    the entry point (none without ``passes``; ``(None,)`` for one pass) and
+    exact kernels, ``block_fwd_mma`` and ``block_bwd_mma``; else, the
+    staged-tile ``block_mod_mma``, one), the scratch argument of the entry
+    point (none without ``passes``; ``(None,)`` for one pass) and
     its buffer, which the caller keeps over the launch: for two passes,
     ``fields`` tile fields and ``extra`` floats on the device of
     ``like``."""
@@ -550,7 +550,8 @@ def launch_fwd(name: str, launches: dict, c: Tile, p, pp, amps, out=None,
     """One block of the forward kernel ``name`` (``block_fwd`` or
     ``block2_fwd``, or with ``parts`` > 0 its ``*_mma`` twin): the kernel
     on the card, writing the owned cells of ``out`` and counted as
-    :func:`launch_mod` does; :func:`block_fwd` on the CPU. Returns ``(p,
+    :func:`launch_mod` does (the split twin too takes a block of more than
+    4 steps in two passes); :func:`block_fwd` on the CPU. Returns ``(p,
     pp)``."""
     amps = host_wavelet(amps)
     ns = _check_state(c, p=p, pp=pp)
@@ -565,7 +566,7 @@ def launch_fwd(name: str, launches: dict, c: Tile, p, pp, amps, out=None,
     run, dims = _entry(c, name, parts)
     p_out, pp_out = _outputs(p, out, 2)
     xr, zf, st = c.ramps
-    passes, scratch, _buf = _scratch(c, not parts, len(amps), 2, p)
+    passes, scratch, _buf = _scratch(c, True, len(amps), 2, p)
     with torch.cuda.device(p.device):
         rc = run(p.data_ptr(), pp.data_ptr(), p_out.data_ptr(),
                  pp_out.data_ptr(), *scratch, c.v2m.data_ptr(), c.v2_stride,

@@ -47,14 +47,16 @@ TILED_RTM = ("kstep_gpu_fwd", "kstep_gpu_bwd")
 # domain kernels take a block of more than 4 steps in two passes, each
 # staging the halo of its own steps, so at order 16 the exact K is the JAX
 # package's 8 (it was 7 while block_mod and block_fwd staged all K steps
-# at once on 32 x 64 owned cells, whose K = 8 tile did not fit).
+# at once on 32 x 64 owned cells, whose K = 8 tile did not fit). The split
+# RTM runs rose to the JAX package's K once kstep_gpu_bwd_mma and
+# block_fwd_mma ran strip bodies: the tiled one from 3, 3, 2 at orders 12,
+# 14, 16 (kstep_gpu_bwd_mma's staged tile of seven fields) to 4, the
+# domain one from 7, 6, 5 (block_fwd_mma's one-pass staged tile) to 8.
 WANT_TILED = {"mod": {o: (4, 4) for o in ORDERS},
-              "rtm": {8: (4, 4), 10: (4, 4), 12: (4, 3), 14: (4, 3),
-                      16: (4, 2)}}
+              "rtm": {o: (4, 4) for o in ORDERS}}
 WANT_DOMAIN = {"mod": {8: (8, 8), 10: (8, 8), 12: (8, 7), 14: (8, 6),
                        16: (8, 5)},
-               "rtm": {8: (8, 8), 10: (8, 8), 12: (8, 7), 14: (8, 6),
-                       16: (8, 5)}}
+               "rtm": {o: (8, 8) for o in ORDERS}}
 DOMAIN_KERNELS = {"mod": ("block_mod",), "rtm": ("block_fwd", "block_bwd")}
 
 
@@ -85,10 +87,12 @@ def test_tiled_default_k_fits(order):
 # The tiled tier's K (modeling, RTM) on 3lay at orders 4-16 under each
 # lap_impl, as chosen before kstep_mod and kstep_gpu_fwd ran the forward
 # strip body: their tiles shrank, every K = 4 of theirs fit before and
-# after, and the RTM run's K is kstep_gpu_bwd's or its split twin's.
+# after. The RTM run's K is kstep_gpu_bwd's or its split twin's: the split
+# one took 3 at orders 12 and 14 and 2 at 16 while it staged seven fields
+# on 32 x 64 owned cells, and takes the JAX package's 4 on the backward
+# strip body (16 x 32 owned cells at order 16).
 LAP_IMPLS = (None, "vpu", "mxu", "mxu6", "auto")
-TILED_K = {order: {li: (4, 4) if order <= 10 or li in (None, "vpu")
-                   else (4, 2 if order == 16 else 3) for li in LAP_IMPLS}
+TILED_K = {order: {li: (4, 4) for li in LAP_IMPLS}
            for order in range(4, 17, 2)}
 
 
@@ -110,9 +114,11 @@ def test_tiled_k_is_unchanged_by_the_forward_strip_body(order, lap_impl):
 # split kernels' above order 10, and the exact order-16 runs, which rose
 # from 7 (the forward kernels' one-pass tile refused K = 8) to 8. The split
 # RTM K at orders 12 and 14 rose from 6 and 5 (block_bwd_mma's one-pass
-# tile) to 7 and 6 once that kernel ran the backward strip body in passes:
-# block_fwd_mma's tile bounds them now, as block_mod_mma's the modeling K.
-DOMAIN_SPLIT_K = {12: (7, 7), 14: (6, 6), 16: (5, 5)}
+# tile) to 7 and 6 once that kernel ran the backward strip body in passes,
+# and at orders 12, 14 and 16 from 7, 6 and 5 (block_fwd_mma's one-pass
+# tile) to 8 once block_fwd_mma ran the forward strip body in passes;
+# block_mod_mma's one-pass tile still bounds the split modeling K.
+DOMAIN_SPLIT_K = {12: (7, 8), 14: (6, 8), 16: (5, 8)}
 DOMAIN_K = {order: {li: (8, 8) if order <= 10 or li in (None, "vpu")
                     else DOMAIN_SPLIT_K[order] for li in LAP_IMPLS}
             for order in range(4, 17, 2)}
@@ -133,9 +139,9 @@ def test_domain_k_is_unchanged_by_the_forward_strip_body(order, lap_impl,
 @pytest.mark.parametrize("k", range(1, stream.MAX_STEPS + 1))
 def test_block_pass_split(k):
     """A block kernel's passes on a strip body (the exact ones and the
-    split backward twin): all K steps in one up to 4, else (K + 1) // 2
-    then K // 2 (the launches ``LAUNCHES`` counts), and the shared memory
-    of the longer pass's tile."""
+    split forward and backward twins): all K steps in one up to 4, else (K
+    + 1) // 2 then K // 2 (the launches ``LAUNCHES`` counts), and the
+    shared memory of the longer pass's tile."""
     passes = fk.block_passes(k)
     assert sum(passes) == k
     assert passes == ((k,) if k <= fk.BLOCK_PASS_STEPS
@@ -151,16 +157,21 @@ def test_block_pass_split(k):
         if order == 8:
             assert fk.smem_bytes("block_mod", order, k) == 4 * (
                 2 * (64 + 2 * r) * (96 + 2 * r) + 64 + 2 * r)
-        # the staged-tile split twins stage all K steps at once; the split
-        # backward twin runs the backward strip body in the same passes
+        # the staged-tile split twin stages all K steps at once; the split
+        # forward and backward twins run the strip bodies in the same passes
         assert fk.smem_bytes("block_mod", order, k, 2) > fk.smem_bytes(
             "block_mod", order, k - 1, 2)
-        assert fk.smem_bytes("block_fwd", order, k, 3) > fk.smem_bytes(
-            "block_fwd", order, k - 1, 3)
         for parts in (2, 3):
-            for name in ("block_bwd", "block2_bwd"):
+            for name in ("block_fwd", "block2_fwd", "block_bwd",
+                         "block2_bwd"):
                 assert fk.smem_bytes(name, order, k, parts) == fk.smem_bytes(
                     name, order, passes[0], parts) <= fk.SMEM_BYTES
+            # block_fwd_mma at order 8: 64 x 64 owned cells, three staged
+            # fields (two and the x product) on padded rows, the x ramp
+            if order == 8:
+                assert fk.smem_bytes("block_fwd", order, k, parts) == 4 * (
+                    3 * (64 + 2 * r) * ((64 + 2 * r + 3) // 8 * 8 + 4)
+                    + 64 + 2 * r)
             # 32 x 64 owned cells, six staged fields (four and the two x
             # products) on rows padded to 4 mod 8 floats, the owned image
             # and the x ramp
@@ -168,6 +179,28 @@ def test_block_pass_split(k):
                 assert fk.smem_bytes("block_bwd", order, k, parts) == 4 * (
                     6 * (32 + 2 * r) * ((64 + 2 * r + 3) // 8 * 8 + 4)
                     + 32 * 64 + 32 + 2 * r)
+
+
+def _stub_launches(monkeypatch):
+    """Sends the block wrappers down their CUDA branch with CPU tensors
+    into a stand-in entry point: returns the lists that collect each
+    ``_scratch`` result (launches, scratch argument, buffer) and each
+    entry-point call (name, arguments)."""
+    seen, calls = [], []
+    real = dk._scratch
+
+    def scratch(*a, **kw):
+        seen.append(real(*a, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(dk, "_scratch", scratch)
+    monkeypatch.setattr(dk, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(dk, "_stream", lambda dev: 0)
+    monkeypatch.setattr(dk, "_entry", lambda c, name, parts=0: (
+        lambda *args: calls.append((name, args)) or 0, (0,)))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    return seen, calls
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (1, 2, 2)])
@@ -189,20 +222,7 @@ def test_split_backward_block_takes_passes_and_scratch(monkeypatch, order,
         d2k.block2_bwd_cuda, d2k.block2_mod_cuda, d2k.LAUNCHES,
         d2k.prepare_tiles, d2k.tile_geometry)
     kbwd, kmod, launches, prep, geometry = kernels
-    seen, calls = [], []
-
-    def scratch(*a, **kw):
-        seen.append(real(*a, **kw))
-        return seen[-1]
-
-    real = dk._scratch
-    monkeypatch.setattr(dk, "_scratch", scratch)
-    monkeypatch.setattr(dk, "_on_cuda", lambda t: True)
-    monkeypatch.setattr(dk, "_stream", lambda dev: 0)
-    monkeypatch.setattr(dk, "_entry", lambda c, name, parts=0: (
-        lambda *args: calls.append((name, args)) or 0, (0,)))
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
+    seen, calls = _stub_launches(monkeypatch)
     rng = np.random.default_rng(order)
     v2 = torch.full((2, ctx.nxe, ctx.nze), 4.0e6)
     d_ext = np.zeros((2, ctx.nxe, ctx.nt), np.float32)
@@ -234,6 +254,65 @@ def test_split_backward_block_takes_passes_and_scratch(monkeypatch, order,
             assert (passes, arg, buf) == (1, (None,), None)
             assert args[11] is None
         assert args[10] == img.data_ptr()
+        assert launches == {n: passes if n == name else 0 for n in launches}
+        seen.clear()
+        calls.clear()
+        kmod(c, f[0], f[1], np.ones(k, np.float32), parts=parts)
+        assert seen == [(1, (), None)]
+        assert calls[0][1][4] == c.v2m.data_ptr()     # no scratch argument
+    assert fitting > fk.BLOCK_PASS_STEPS          # two passes seen
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 2, 2)])
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("order", range(4, 17, 2))
+def test_split_forward_block_takes_passes_and_scratch(monkeypatch, order,
+                                                      parts, shape):
+    """The launch of ``block_fwd_mma`` (``block2_fwd_mma``): above 4 steps
+    two passes, counted as two launches, through a scratch of the two
+    fields (2·ns·nxw·nzw floats) handed to the entry point after
+    ``pp_out``; up to 4 steps one launch and a NULL scratch.
+    ``block_mod_mma`` stays one launch a block, with no scratch argument.
+    The wrappers' CUDA branch runs on CPU tensors into a stand-in entry
+    point that records its arguments."""
+    ctx = solver.FDContext.create(150, 80, 9, dx=10.0, dz=10.0, dt=0.001,
+                                  order=order, nxb=8, nzb=8, fac=0.7)
+    kernels = (dk.block_fwd_cuda, dk.block_mod_cuda, dk.LAUNCHES,
+               dk.prepare_tiles, dk.slab_geometry) if len(shape) == 2 else (
+        d2k.block2_fwd_cuda, d2k.block2_mod_cuda, d2k.LAUNCHES,
+        d2k.prepare_tiles, d2k.tile_geometry)
+    kfwd, kmod, launches, prep, geometry = kernels
+    seen, calls = _stub_launches(monkeypatch)
+    rng = np.random.default_rng(order)
+    v2 = torch.full((2, ctx.nxe, ctx.nze), 4.0e6)
+    grid = make_mesh(*shape, devices=["cpu"] * int(np.prod(shape))).grid(0)
+    fitting = 0
+    for k in range(1, stream.MAX_STEPS + 1):
+        try:
+            geom = geometry(ctx, *shape[1:], k)
+        except ValueError:                    # the halo outgrows the tiles
+            break
+        fitting += 1
+        c = prep(ctx, grid, geom, v2, "top", sxs=(60, 61), sz=10, gz=12)[0]
+        f = [torch.from_numpy(rng.standard_normal(
+            (2, c.nxw, c.nzw)).astype(np.float32)) for _ in range(2)]
+        out = [torch.zeros((2, c.nxw, c.nzw)) for _ in range(2)]
+        for n in launches:
+            launches[n] = 0
+        seen.clear()
+        calls.clear()
+        kfwd(c, *f, np.ones(k, np.float32), out=out, parts=parts)
+        ((passes, arg, buf),), ((name, args),) = seen, calls
+        assert name.endswith("fwd_mma")
+        assert args[2:4] == tuple(o.data_ptr() for o in out)
+        if k > fk.BLOCK_PASS_STEPS:
+            assert passes == 2 == len(fk.block_passes(k))
+            assert buf.numel() == 2 * 2 * c.nxw * c.nzw
+            assert arg == (buf.data_ptr(),) == args[4:5]
+        else:
+            assert (passes, arg, buf) == (1, (None,), None)
+            assert args[4] is None
+        assert args[5] == c.v2m.data_ptr()
         assert launches == {n: passes if n == name else 0 for n in launches}
         seen.clear()
         calls.clear()

@@ -1,0 +1,175 @@
+"""The split kernels on the strip bodies against their plain versions with
+the same parts on the card: ``kstep_gpu_bwd_mma`` (the backward strip body
+of ``csrc/bwd_strip.cuh`` with the z taps in bf16 parts) and
+``block_fwd_mma`` / ``block2_fwd_mma`` (the forward strip body of
+``csrc/fwd_strip.cuh`` with the x taps in bf16 parts, in passes). Each mma
+sums its products in the card's own order, so the gates are those of the
+split tiers: fields 1e-4 and image 1e-5 of the plain result's max.
+
+* ``stream.fd_back_kstep_cuda(..., parts=)`` against the plain pass
+  (``solver.fd_back_kstep`` with the same split z taps) at orders 4, 8,
+  10, 12 and 16 and every K from 1 to 8 whose tile fits a block (a K
+  that does not is refused), on two ragged grids (no multiple of the
+  owned shapes), parts 2 and 3; one launch a pass.
+* ``block_fwd_cuda(..., parts=)`` on the slabs of a (1, 2) mesh and
+  ``block2_fwd_cuda`` on the tiles of a (1, 2, 2) mesh of the card against
+  ``dk.block_fwd`` with the same parts at the same orders and every K the
+  tiles take, on the same grids; above 4 steps the kernel runs two passes,
+  and ``LAUNCHES`` counts each.
+* One pass of K = 4 at the Pluto grid (7040 x 1281 extended, order 8) and
+  one block of K = 8 on its slabs and tiles, parts 2 and 3.
+
+Card-only: every case is marked ``cuda`` and skips where there is none
+(``python -m pytest tests/test_torch_split_strip.py -m cuda --noconftest``
+on a GPU machine; this file imports no JAX)."""
+
+import numpy as np
+import pytest
+import torch
+
+from parallel_finite_difference_computation_tpu_torch import solver
+from parallel_finite_difference_computation_tpu_torch.ops import (
+    fd_kernels as fk, stream)
+from parallel_finite_difference_computation_tpu_torch.parallel import (
+    domain2d_kernels as d2k, domain_kernels as dk, make_mesh)
+
+ORDERS = (4, 8, 10, 12, 16)
+GRIDS = [(101, 120, 9, 11), (53, 70, 7, 9)]
+BWD_GATES = (1e-4,) * 4 + (1e-5,)        # ps, pps, pr, ppr; the image
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
+    return torch.device("cuda", 0)
+
+
+def _f32(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+def _v2(rng, ctx):
+    return torch.from_numpy(((1500.0 + 2500.0 * rng.random(
+        (2, ctx.nxe, ctx.nze))).astype(np.float32)) ** 2)
+
+
+def _within(got, want, gates):
+    for a, b, gate in zip(got, want, gates):
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        assert err <= gate, (err, gate)
+
+
+def _ctx(grid, order, nt=9):
+    nx, nz, nxb, nzb = grid
+    return solver.FDContext.create(nx, nz, nt, dx=10.0, dz=10.0, dt=0.001,
+                                   order=order, nxb=nxb, nzb=nzb, fac=0.7)
+
+
+def _kstep_bwd(ctx, rng, device, k, parts, gz):
+    """One pass of k steps of the split backward kernel against the plain
+    pass (``solver.fd_back_kstep`` with the z taps in the same parts), on
+    the same random state on the card."""
+    st = [_f32(rng, 2, ctx.nxe, ctx.nze).to(device) for _ in range(4)]
+    img = _f32(rng, 2, ctx.nx, ctx.nz).to(device)
+    inj = _f32(rng, 2, k, ctx.nx).to(device)
+    v2 = _v2(rng, ctx).to(device)
+    want = solver.fd_back_kstep(ctx, *st, img.clone(), v2, inj, gz,
+                                solver.laplacian_of(ctx, parts, axis="z"))
+    got = stream.fd_back_kstep_cuda(ctx, *st, img.clone(), v2, inj, gz,
+                                    parts=parts)
+    torch.cuda.synchronize()
+    _within(got, want, BWD_GATES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("grid", GRIDS)
+def test_kstep_gpu_bwd_mma_matches_plain_on_the_card(cuda_device, grid,
+                                                     order, parts):
+    rng = np.random.default_rng(order + 10 * parts)
+    ctx = _ctx(grid, order)
+    stream.reset_launches()
+    calls = 0
+    for k in range(1, stream.MAX_STEPS + 1):
+        if fk.smem_bytes("kstep_gpu_bwd", order, k, parts) > fk.SMEM_BYTES:
+            with pytest.raises(ValueError, match="shared memory"):
+                _kstep_bwd(ctx, rng, cuda_device, k, parts, grid[3] + 4)
+            continue
+        _kstep_bwd(ctx, rng, cuda_device, k, parts, grid[3] + 4)
+        calls += 1
+    assert calls >= 4                  # the pipelines' K = 4 at every order
+    assert {n: v for n, v in stream.LAUNCHES.items() if v} == {
+        "kstep_gpu_bwd_mma": calls}
+
+
+def _fwd_tiles(ctx, shape, k, device):
+    prep, geometry = ((dk.prepare_tiles, dk.slab_geometry) if len(shape) == 2
+                      else (d2k.prepare_tiles, d2k.tile_geometry))
+    geom = geometry(ctx, *shape[1:], k)
+    grid = make_mesh(*shape, devices=[device] * int(np.prod(shape))).grid(0)
+    v2 = _v2(np.random.default_rng(k), ctx)
+    return prep(ctx, grid, geom, v2, "top", sxs=(33, 34), sz=42, gz=46)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("shape", [(1, 2), (1, 2, 2)])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_block_fwd_mma_matches_plain_on_the_card(cuda_device, grid, shape,
+                                                 order, parts):
+    rng = np.random.default_rng(order + 10 * parts + len(shape))
+    ctx = _ctx(grid, order)
+    kernel = dk.block_fwd_cuda if len(shape) == 2 else d2k.block2_fwd_cuda
+    launches = dk.LAUNCHES if len(shape) == 2 else d2k.LAUNCHES
+    name = ("block_fwd" if len(shape) == 2 else "block2_fwd") + "_mma"
+    for n in launches:
+        launches[n] = 0
+    calls = 0
+    for k in range(1, stream.MAX_STEPS + 1):
+        try:
+            tiles = _fwd_tiles(ctx, shape, k, cuda_device)
+        except ValueError:                    # the halo outgrows the tiles
+            break
+        assert fk.smem_bytes(name, order, k, parts) <= fk.SMEM_BYTES
+        amps = np.float32(rng.standard_normal(k))
+        for c in tiles:
+            f = [_f32(rng, 2, c.nxw, c.nzw).to(cuda_device)
+                 for _ in range(2)]
+            got = kernel(c, *f, amps, parts=parts)
+            want = dk.block_fwd(c, *f, amps, parts)
+            torch.cuda.synchronize()
+            _within(got, want, (1e-4, 1e-4))
+            calls += len(fk.block_passes(k))
+    assert launches == {n: calls if n == name else 0 for n in launches}
+    assert calls > 0
+
+
+PLUTO = dict(nx=6960, nz=1201, nt=17, dx=7.62, dz=7.62, dt=0.0007, order=8,
+             nxb=40, nzb=40, fac=0.75)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3])
+def test_split_strip_kernels_match_plain_at_pluto(cuda_device, parts):
+    rng = np.random.default_rng(parts)
+    ctx = solver.FDContext.create(**PLUTO)
+    _kstep_bwd(ctx, rng, cuda_device, 4, parts, 40)
+    for shape in ((1, 4), (1, 2, 2)):
+        kernel = dk.block_fwd_cuda if len(shape) == 2 else d2k.block2_fwd_cuda
+        prep, geometry = ((dk.prepare_tiles, dk.slab_geometry)
+                          if len(shape) == 2
+                          else (d2k.prepare_tiles, d2k.tile_geometry))
+        grid = make_mesh(*shape, devices=[cuda_device] * 4).grid(0)
+        tiles = prep(ctx, grid, geometry(ctx, *shape[1:], 8), _v2(rng, ctx),
+                     "top", sxs=(2740, 2760), sz=40, gz=40)
+        amps = np.float32(rng.standard_normal(8))
+        for c in tiles:
+            f = [_f32(rng, 2, c.nxw, c.nzw).to(cuda_device)
+                 for _ in range(2)]
+            got = kernel(c, *f, amps, parts=parts)
+            want = dk.block_fwd(c, *f, amps, parts)
+            torch.cuda.synchronize()
+            _within(got, want, (1e-4, 1e-4))

@@ -431,17 +431,18 @@ def test_wrappers_raise_on_bad_inputs(bad):
 def test_shared_memory_of_the_kernels():
     """The staging kernels' tiles, as their C sources size them, against
     the wrappers' mirror (``fk.smem_bytes``, which the pipelines' K choice
-    reads): the split K-step kernels (``*_mma``: p, pp, v2*dt2 and the z
-    taps' product; kstep_gpu_bwd_mma the four fields, v2*dt2, two products
-    and the owned image), the staged-tile split block kernels (p, pp and
-    the x taps' product), and the strip kernels, each on the first of its
-    body's owned shapes that fits: kstep_mod, kstep_gpu_fwd, block_mod and
+    reads): the staged-tile split K-step kernels (``kstep_mod_mma``,
+    ``kstep_gpu_fwd_mma``: p, pp, v2*dt2 and the z taps' product), the
+    staged-tile split block kernel (``block_mod_mma``: p, pp and the x
+    taps' product), and the strip kernels, each on the first of its body's
+    owned shapes that fits: kstep_mod, kstep_gpu_fwd, block_mod and
     block_fwd on fwd_strip.cuh's (the field at two time levels and the x
-    ramp), kstep_gpu_bwd and block_bwd on bwd_strip.cuh's (four staged
-    fields, the owned image and the x ramp), block_bwd_mma on the same
-    shapes (the two x products staged too, on padded rows), the block
-    kernels on strip bodies staging the steps of the longer of their
-    passes. Which (kernel, order, K) the card refuses up to order 16, and
+    ramp), block_fwd_mma on shapes of its own (the x product staged too,
+    on padded rows), kstep_gpu_bwd and block_bwd on bwd_strip.cuh's (four
+    staged fields, the owned image and the x ramp), kstep_gpu_bwd_mma and
+    block_bwd_mma on the same shapes (the two z or x products staged too,
+    on padded rows), the block kernels on strip bodies staging the steps
+    of the longer of their passes. Which (kernel, order, K) the card refuses up to order 16, and
     that every tile fits at the pipelines' K up to order 10; the wrappers'
     step limit is the kernels'."""
     csrc = pathlib.Path(stream.__file__).parents[1] / "csrc"
@@ -475,18 +476,26 @@ def test_shared_memory_of_the_kernels():
             rf"(?:, (true|false))?\}};", text).groups()
         return shapes, int(fields), image == "true", padded == "true"
 
-    # the forward body's block kernels take a shape list of their own; the
-    # backward body's split instances a shape list and a stage
+    # the forward body's block kernels take a shape list of their own, its
+    # split instances the K-step kernels' shapes and a stage of their own;
+    # the backward body's split instances a stage, and kstep_gpu_bwd_mma a
+    # shape list of its own
     bodies = {"Bwd": body("Bwd"), "Fwd": body("Fwd"),
               "BlockFwd": body("Fwd", "BlockFwd"),
-              "BwdMma": body("Bwd", stage_of="BwdMma")}
+              "BlockFwdMma": body("Fwd", stage_of="BlockFwdMma"),
+              "BwdMma": body("Bwd", stage_of="BwdMma"),
+              "BwdZMma": body("Bwd", "BwdZMma", "BwdMma")}
     assert bodies == {
         "Bwd": ([(32, 64), (32, 32), (16, 32), (16, 16)], 4, True, False),
         "BwdMma": ([(32, 64), (32, 32), (16, 32), (16, 16)], 6, True, True),
+        "BwdZMma": ([(32, 96), (32, 64), (32, 32), (16, 32), (16, 16)], 6,
+                    True, True),
         "Fwd": ([(64, 64), (32, 64), (32, 32), (16, 32), (16, 16)], 2,
                 False, False),
         "BlockFwd": ([(64, 96), (64, 64), (32, 64), (32, 32), (16, 32),
-                      (16, 16)], 2, False, False)}
+                      (16, 16)], 2, False, False),
+        "BlockFwdMma": ([(64, 64), (32, 64), (32, 32), (16, 32), (16, 16)],
+                        3, False, True)}
 
     def strip_smem(name, order, k):
         """strip_shape of the body ``name``: the first shape that fits;
@@ -504,8 +513,22 @@ def test_shared_memory_of_the_kernels():
         """Bytes of a block of ``kernel`` (``*_mma``: its split variant,
         P > 0 in the same source), from its launcher."""
         src = (csrc / f"{kernel.removesuffix('_mma')}.cu").read_text()
+        if kernel.startswith("kstep_gpu_bwd"):
+            # one launcher for every P, the shapes and stage of its P = 0
+            # or P > 0 instances (the split one: kstep_gpu_bwd_mma)
+            assert re.search(
+                r"const pfdc::StripStage stage = P \? pfdc::kBwdMmaStage : "
+                r"pfdc::kBwdStage;\s*const pfdc::StripShape shape =\s*P \? "
+                r"pfdc::strip_shape\(pfdc::kBwdZMmaShapes, stage, k \* H\)"
+                r"\s*: pfdc::strip_shape\(pfdc::kBwdShapes, stage, k \* H\);"
+                r"\s*if \(shape\.tx == 0\) return cudaErrorInvalidValue;\s*"
+                r"const size_t bytes = pfdc::strip_bytes\(shape, stage, k \* "
+                r"H\);", src)
+            assert "kSplitFields" not in src and "kTileX" not in src
+            return strip_smem("BwdZMma" if kernel.endswith("_mma") else "Bwd",
+                              order, k)
         if not kernel.endswith("_mma"):
-            name = "Bwd" if kernel == "kstep_gpu_bwd" else "Fwd"
+            name = "Fwd"
             assert re.search(
                 rf"if constexpr \(P == 0\) \{{\s*const pfdc::StripShape "
                 rf"shape =\s*pfdc::strip_shape\(pfdc::k{name}Shapes, "
@@ -526,7 +549,9 @@ def test_shared_memory_of_the_kernels():
     assert smem("kstep_gpu_bwd", 8, 4) == 4 * (4 * 64 * 96 + 32 * 64 + 64)
     assert smem("kstep_mod_mma", 8, 4) == 4 * 4 * 64 * 96
     assert smem("kstep_gpu_fwd_mma", 8, 4) == 4 * 4 * 64 * 96
-    assert smem("kstep_gpu_bwd_mma", 8, 4) == 4 * (7 * 64 * 96 + 32 * 64)
+    # the split backward: 32 x 96 owned cells, six fields at a pitch of 132
+    assert smem("kstep_gpu_bwd_mma", 8, 4) == 4 * (6 * 64 * 132 + 32 * 96
+                                                   + 64)
     ksteps = ("kstep_mod", "kstep_gpu_fwd", "kstep_gpu_bwd")
     splits = tuple(f"{k}_mma" for k in ksteps)
     for kernel in ksteps + splits:
@@ -540,8 +565,9 @@ def test_shared_memory_of_the_kernels():
     assert smem("kstep_gpu_fwd", 8, 8) == 4 * (2 * 128 * 128 + 128)
 
     # the block kernels of the domain tiers (csrc/domain_block.cuh): the
-    # staged-tile split twins' tile_bytes<TX, TZ>(fields, K*h, image) for
-    # P > 0; on a strip body (the exact kernels and block_bwd_mma) the
+    # staged-tile split twin's tile_bytes<TX, TZ>(fields, K*h, image) for
+    # P > 0 (block_mod_mma); on a strip body (the exact kernels,
+    # block_fwd_mma and block_bwd_mma) the
     # launcher takes the body's shape and bytes for a pass of
     # pass.k_steps, a block of K above kBlockPassSteps running in two
     # passes, the longer of (K + 1) / 2 steps (BlockPasses)
@@ -555,9 +581,10 @@ def test_shared_memory_of_the_kernels():
                           ("block_fwd", "BlockFwdRun"),
                           ("block_bwd", "BlockBwdRun"))}
     strip_of = {"block_mod": "BlockFwd", "block_fwd": "BlockFwd",
-                "block_bwd": "Bwd", "block_bwd_mma": "BwdMma"}
+                "block_fwd_mma": "BlockFwdMma", "block_bwd": "Bwd",
+                "block_bwd_mma": "BwdMma"}
     blocks = {}
-    for name in ("block_mod", "block_fwd"):
+    for name in ("block_mod",):
         text = runs[name]
         assert re.search(r"const pfdc::StripShape shape = pfdc::strip_shape"
                          r"\(\s*pfdc::kBlockFwdShapes, pfdc::kFwdStage, "
@@ -571,6 +598,21 @@ def test_shared_memory_of_the_kernels():
                          text), name
         blocks[f"{name}_mma"] = re.search(
             rf"\}} else \{{\s*const size_t bytes = {one};", text).groups()
+    # block_fwd and block_fwd_mma: one pass launcher and one pass rule for
+    # every P, the shapes and stage of its P = 0 or P > 0 instances
+    text = runs["block_fwd"]
+    assert re.search(r"const pfdc::StripStage stage =\s*P \? pfdc::kBlock"
+                     r"FwdMmaStage : pfdc::kFwdStage;\s*const pfdc::Strip"
+                     r"Shape shape =\s*P \? pfdc::strip_shape\(pfdc::k"
+                     r"FwdShapes, stage, pass\.k_steps \* H\)\s*: "
+                     r"pfdc::strip_shape\(pfdc::kBlockFwdShapes, stage,\s*"
+                     r"pass\.k_steps \* H\);\s*if \(shape\.tx == 0\) return"
+                     r" cudaErrorInvalidValue;\s*const size_t bytes = pfdc::"
+                     r"strip_bytes\(shape, stage, pass\.k_steps \* H\);", text)
+    assert re.search(r"cudaError_t launch\(\) const \{\s*if \(!d\.fits\(k "
+                     r"\* H\)\) return cudaErrorInvalidValue;\s*const "
+                     r"BlockPasses<kZ> passes\(d, k, H\);", text)
+    assert "if constexpr" not in text
     # block_bwd and block_bwd_mma: one pass launcher and one pass rule for
     # every P, the body's shapes, the stage of its P = 0 or P > 0 instances
     text = runs["block_bwd"]
@@ -589,13 +631,14 @@ def test_shared_memory_of_the_kernels():
                      r" / 2, k2 = k - k1;", cuh)
     pass_steps = int(re.search(r"kBlockPassSteps = (\d+);", cuh)[1])
     assert pass_steps == fk.BLOCK_PASS_STEPS == 4
-    # the staged-tile split bodies take P > 0 only; block_bwd_mma is the
-    # strip body's split instance
+    # the staged-tile split body takes P > 0 only; block_fwd_mma and
+    # block_bwd_mma are the strip bodies' split instances
     assert len(re.findall(r"static_assert\(P > 0, \"block_(mod|fwd) runs "
-                          r"fwd_strip\"\);", cuh)) == 2
-    assert "block_bwd_body" not in cuh
-    assert re.search(r"static_assert\(P > 0, \"block_bwd is the exact "
-                     r"kernel\"\);", cuh)
+                          r"fwd_strip\"\);", cuh)) == 1
+    assert "block_bwd_body" not in cuh and "block_fwd_body" not in cuh
+    for name in ("fwd", "bwd"):
+        assert re.search(rf"static_assert\(P > 0, \"block_{name} is the "
+                         rf"exact kernel\"\);", cuh)
 
     def block_smem(kernel, order, k):
         if kernel in strip_of:
@@ -620,6 +663,9 @@ def test_shared_memory_of_the_kernels():
     assert block_smem("block_bwd", 10, 8) == 4 * (4 * 72 * 104 + 32 * 64
                                                   + 72)
     assert block_smem("block_mod_mma", 8, 8) == 4 * 3 * 96 * 128
+    # block_fwd_mma: two passes of 4 on 64 x 64 owned cells, three fields
+    # of 96 rows at a pitch of 100 floats
+    assert block_smem("block_fwd_mma", 8, 8) == 4 * (3 * 96 * 100 + 96)
     assert block_smem("block_bwd_mma", 8, 8) == 4 * (6 * 64 * 100 + 32 * 64
                                                      + 64)
     assert block_smem("block_bwd_mma", 10, 8) == 4 * (6 * 72 * 108 + 32 * 64
@@ -671,22 +717,28 @@ def test_shared_memory_of_the_kernels():
              "block_mod": None, "block_fwd": None, "block_bwd": None},
         16: {"kstep_mod": None, "kstep_gpu_fwd": None, "kstep_gpu_bwd": 7,
              "block_mod": None, "block_fwd": None, "block_bwd": None}}
-    # the split tier at TILED_BLOCK_K = 4: RTM up to order 10, modeling up
-    # to order 16
+    # the split tier at TILED_BLOCK_K = 4: RTM and modeling up to order 16
+    # (the split backward on its strip body: at order 16, K = 4, 16 x 32
+    # owned cells; its staged tile took K = 3 at most at orders 12 and 14,
+    # 2 at 16)
     assert refused_split == {
         8: {"kstep_mod_mma": None, "kstep_gpu_fwd_mma": None,
-            "kstep_gpu_bwd_mma": 6},
+            "kstep_gpu_bwd_mma": None},
         10: {"kstep_mod_mma": 8, "kstep_gpu_fwd_mma": 8,
-             "kstep_gpu_bwd_mma": 5},
+             "kstep_gpu_bwd_mma": None},
         12: {"kstep_mod_mma": 7, "kstep_gpu_fwd_mma": 7,
-             "kstep_gpu_bwd_mma": 4},
+             "kstep_gpu_bwd_mma": 7},
         14: {"kstep_mod_mma": 6, "kstep_gpu_fwd_mma": 6,
-             "kstep_gpu_bwd_mma": 4},
+             "kstep_gpu_bwd_mma": 6},
         16: {"kstep_mod_mma": 5, "kstep_gpu_fwd_mma": 5,
-             "kstep_gpu_bwd_mma": 3}}
+             "kstep_gpu_bwd_mma": 6}}
+    assert smem("kstep_gpu_bwd_mma", 16, 4) == 4 * (6 * 80 * 100 + 16 * 32
+                                                    + 80)
     # the split block kernels fit the pipelines' K = 8 up to order 10 (the
-    # JAX domain tests' orders); above it the staged-tile ones take fewer
-    # steps a block, and block_bwd_mma, in two passes, every K
+    # JAX domain tests' orders); above it the staged-tile block_mod_mma
+    # takes fewer steps a block, and block_fwd_mma and block_bwd_mma, in
+    # two passes, every K (block_fwd_mma's one-pass staged tile took K = 7
+    # at most at order 12, 6 at 14, 5 at 16)
     assert {order: {kernel: first_refused(block_smem, kernel, order)
                     for kernel in ("block_mod_mma", "block_fwd_mma",
                                    "block_bwd_mma")}
@@ -695,9 +747,12 @@ def test_shared_memory_of_the_kernels():
             "block_bwd_mma": None},
         10: {"block_mod_mma": None, "block_fwd_mma": None,
              "block_bwd_mma": None},
-        12: {"block_mod_mma": 8, "block_fwd_mma": 8, "block_bwd_mma": None},
-        14: {"block_mod_mma": 7, "block_fwd_mma": 7, "block_bwd_mma": None},
-        16: {"block_mod_mma": 6, "block_fwd_mma": 6, "block_bwd_mma": None}}
+        12: {"block_mod_mma": 8, "block_fwd_mma": None,
+             "block_bwd_mma": None},
+        14: {"block_mod_mma": 7, "block_fwd_mma": None,
+             "block_bwd_mma": None},
+        16: {"block_mod_mma": 6, "block_fwd_mma": None,
+             "block_bwd_mma": None}}
     # the per-step kernels (fd_step, fd_update, gpu_step and the whole-grid
     # step kernels) stage nothing, gpu_step_mma a static tile under 48 KB
     # (a static_assert), and they take every order up to MAX_ORDER
