@@ -218,10 +218,11 @@ Run from the root of the repository, on a machine with one CUDA card and
    (seeded, full and tail blocks): phases 11 and 16's 134 x 88 grid over
    (1, 2), (1, 4), (1, 2, 2) and (1, 1, 4) meshes, orders 4, 8 and 10,
    K = 2, 3 and 8, parts 2 and 3, and the split makers on meshes of
-   cuda:0 against CPU meshes; the split forward and backward twins, which
-   take two passes above 4 steps, alone at K = 5 and 7 at orders 8, 12 and
-   16; then the Pluto slab and tile shapes (2 shots, K = 8 and the tails 4
-   and 1); gates: traces and images <= 1e-5 max rel, fields <= 1e-4;
+   cuda:0 against CPU meshes; every split twin, each of which takes two
+   passes above 4 steps, alone at K = 5, 7 and 8 at orders 8, 12, 14 and
+   16 (the modeling twin in both source modes, with its traces); then the
+   Pluto slab and tile shapes (2 shots, K = 8 and the tails 4 and 1);
+   gates: traces and images <= 1e-5 max rel, fields <= 1e-4;
 33. the 3lay mesh paths under ``lap_impl="auto"`` (= mxu) and ``"mxu6"``:
    (1, 4) and (1, 2, 2) meshes of cuda:0 against the no-mesh run at the
    same lap_impl (the per-step ``*_step_mma`` tier), rel RMS <= 1e-5, and
@@ -240,7 +241,11 @@ Run from the root of the repository, on a machine with one CUDA card and
 36. order 12: ``run_modeling`` and ``run_rtm_gpu`` on the 3lay config
    through ``backend="tiled"`` and over a (1, 2) and a (1, 2, 2) mesh of
    cuda:0, each at the K its pipeline chooses to fit a block's shared
-   memory, against the per-step tier (rel RMS <= 1e-5).
+   memory, against the per-step tier (rel RMS <= 1e-5); and
+   ``run_modeling`` under ``lap_impl="mxu"`` over the same meshes, at the
+   JAX package's K = 8 that its pipeline now chooses, with the split
+   modeling twin's launch counts, against the per-step split tier (rel RMS
+   <= 1e-5).
 
 Every phase prints its seconds, and the run its total. It prints one JSON line of per-kernel results (with each kernel's bound,
 worked out from this run's shapes), the nvidia-smi line, and, as the last
@@ -653,15 +658,13 @@ def build_report(log: str) -> list:
 
 def block_launches(name: str, nt: int, k: int, tiles: int) -> int:
     """Launches of the domain block kernel ``name`` over nt steps in
-    blocks of k (and a tail) on ``tiles`` slabs or tiles: one a block for
-    the staged-tile ``*_mod_mma`` twins, one a pass for an exact kernel and
-    the split ``*_fwd_mma`` and ``*_bwd_mma``, which take a block of more
-    than 4 steps in two (``fk.block_passes``)."""
+    blocks of k (and a tail) on ``tiles`` slabs or tiles: one a pass, as
+    every block kernel, exact or split, takes a block of more than 4 steps
+    in two (``fk.block_passes``)."""
     from parallel_finite_difference_computation_tpu_torch.ops import (
         fd_kernels as fk)
     full, tail = divmod(nt, k)
-    per = ((lambda n: 1) if name.endswith("mod_mma")
-           else (lambda n: len(fk.block_passes(n))))
+    per = lambda n: len(fk.block_passes(n))
     return tiles * (full * per(k) + (per(tail) if tail else 0))
 
 
@@ -814,6 +817,8 @@ def main() -> int:
     for wrapper, k, what in (
             ("kstep_gpu_bwd", 4, "kstep_gpu_bwd_mma (row 13 split, "
                                  "bwd_strip.cuh, the z taps split)"),
+            ("block_mod", 8, "block_mod_mma (rows 15a/16a split, "
+                             "fwd_strip.cuh at P > 0)"),
             ("block_fwd", 8, "block_fwd_mma (rows 15b/16b split, "
                              "fwd_strip.cuh at P > 0)"),
             ("block_bwd", 8, "block_bwd_mma (rows 15c/16c split, "
@@ -3348,10 +3353,10 @@ def main() -> int:
     # tensors, launch by launch on random states of every slab or tile
     # (seeded, full and tail blocks): phases 11 and 16's 134 x 88 grid and
     # meshes at orders 4, 8 and 10, K = 2, 3 and 8, parts 2 and 3, and the
-    # split makers on a mesh of cuda:0 against a CPU mesh; the split
-    # forward and backward twins alone at K = 5 and 7 (two unequal passes)
-    # at orders 8, 12 and 16; then the Pluto slab and tile shapes (2 shots,
-    # K = 8 and the tails 4 and 1). Gates:
+    # split makers on a mesh of cuda:0 against a CPU mesh; every split twin
+    # alone at K = 5 and 7 (two unequal passes) and 8 at orders 8, 12, 14
+    # and 16; then the Pluto slab and tile shapes (2 shots, K = 8 and the
+    # tails 4 and 1). Gates:
     # traces and images 1e-5 max rel, fields 1e-4 (each mma sums its 16
     # products in the card's order)
     SPLIT_GATES = {"fields": 1e-4, "traces": GATE, "image": GATE}
@@ -3503,10 +3508,11 @@ def main() -> int:
                                            f"{order} parts {parts}: {rel:.3e}")
 
     def split_pass_case(case, shape, k, parts, seed):
-        """:func:`split_errs` of the split forward and backward twins (two
-        passes above 4 steps) on random states of every tile of a mesh of
-        ``shape``, a block of k steps, the backward seeded and not."""
-        _, rs = split_tiles(case, shape, k)
+        """:func:`split_errs` of the three split twins (two passes above 4
+        steps) on random states of every tile of a mesh of ``shape``, a
+        block of k steps, the modeling twin in both source modes, the
+        backward seeded and not."""
+        ms, rs = split_tiles(case, shape, k)
         blocks = split_blocks(len(shape) == 3, parts)
         rng = np.random.default_rng(seed)
         amps = rng.standard_normal(k).astype(np.float32)
@@ -3518,9 +3524,13 @@ def main() -> int:
                 out[name, kind] = (max(old[0], max_rel(a, b)),
                                    max(old[1], float((a - b).abs().max())))
 
-        for cr in rs:
+        for cm, cr in zip(ms, rs):
             f = [randn(rng, cr.ns, cr.nxw, cr.nzw) for _ in range(6)]
             img = randn(rng, cr.ns, cr.nxl, cr.nzl)
+            name, km, pm = blocks[0]
+            for c in (cm, cr):
+                note(name, ("fields", "fields", "traces"),
+                     km(c, f[0], f[1], amps), pm(c, f[0], f[1], amps))
             name, kf, pf = blocks[1]
             note(name, ("fields", "fields"), kf(cr, f[0], f[1], amps),
                  pf(cr, f[0], f[1], amps))
@@ -3532,16 +3542,16 @@ def main() -> int:
         torch.cuda.synchronize()
         return out
 
-    # the split forward and backward twins run two passes above 4 steps:
-    # unequal splits (K = 5: 3 + 2, K = 7: 4 + 3) at orders 8, 12 and 16,
-    # where the tiles take them
-    for order in (8, 12, 16):
+    # the split twins run two passes above 4 steps: unequal splits (K = 5:
+    # 3 + 2, K = 7: 4 + 3) and K = 8, the pipelines' choice at every order,
+    # at orders 8, 12, 14 and 16, where the tiles take them
+    for order in (8, 12, 14, 16):
         case_x = tier_case(dataclasses.replace(dom, order=order))
         case_z = tier_case(dataclasses.replace(dom2, order=order))
         for shape in ((1, 2), (1, 2, 2)):
             nxl = -(-dom.nxe // shape[1])
             nzl = -(-dom.nze // shape[2]) if len(shape) == 3 else dom.nze
-            for k in (5, 7):
+            for k in (5, 7, 8):
                 halo = k * order // 2
                 if halo > nxl or (len(shape) == 3 and halo > nzl):
                     continue
@@ -3753,7 +3763,9 @@ def main() -> int:
 
     # ---- 36. order 12 on the pipelines' chosen K: run_modeling and
     # run_rtm_gpu at 3lay through backend="tiled" and over a (1, 2) and a
-    # (1, 2, 2) mesh of cuda:0, against the per-step tier
+    # (1, 2, 2) mesh of cuda:0, against the per-step tier; then the split
+    # modeling over the same meshes at the K its pipeline chooses (8, the
+    # JAX package's), against the per-step split tier
     p12 = dataclasses.replace(P, order=12)
     ctx12 = solver.FDContext.from_params(p12)
     dat12 = pipeline.run_modeling(p12, vp=vp, device=dev, backend="pallas")
@@ -3780,7 +3792,32 @@ def main() -> int:
               f"rel RMS {rr[1]:.3e} (gate {GATE})", flush=True)
         check(launched and max(rr) <= GATE, f"order 12 {label} differs "
                                              f"from the per-step tier")
-    del dat12, img12, runs12
+    dat12s = pipeline.run_modeling(p12, vp=vp, device=dev, backend="pallas",
+                                   lap_impl="mxu")
+    batches = -(-p12.ns // pipeline._batch_shots(p12, planes=4, traces=2))
+    for shape in ((1, 2), (1, 2, 2)):
+        mesh = make_mesh(*shape, devices=[dev] * int(np.prod(shape)))
+        k12 = pipeline._block_k(ctx12, mesh, ctx12.nt, ("block_mod",), "mxu")
+        check(k12 == 8, f"order 12 split modeling mesh {shape}: K {k12}, "
+                        f"not the JAX package's 8")
+        for c in (fk, stream, dk, d2k):
+            c.reset_launches()
+        got_d = pipeline.run_modeling(p12, vp=vp, mesh=mesh, lap_impl="mxu")
+        torch.cuda.synchronize()
+        launched = {k: n for c in (fk, stream, dk, d2k)
+                    for k, n in c.LAUNCHES.items() if n}
+        name = "block2_mod_mma" if len(shape) == 3 else "block_mod_mma"
+        want = {name: batches * block_launches(name, p12.nt, k12,
+                                               int(np.prod(shape)))}
+        rr = rel_rms(got_d, dat12s)
+        print(f"[order 12] 3lay split modeling (mxu) mesh {shape}, K {k12}: "
+              f"launches {launched}; vs the per-step split tier: gathers rel "
+              f"RMS {rr:.3e} (gate {GATE})", flush=True)
+        check(launched == want, f"order 12 split modeling mesh {shape}: "
+                                f"launches {launched}, expected {want}")
+        check(rr <= GATE, f"order 12 split modeling mesh {shape} differs "
+                          f"from the per-step split tier")
+    del dat12, img12, runs12, dat12s
     phase_done("order 12 on the chosen K")
 
     print(f"[total] {time.perf_counter() - start:.1f} s", flush=True)

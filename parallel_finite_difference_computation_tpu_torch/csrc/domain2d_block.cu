@@ -1,9 +1,8 @@
 // domain2d_block: the (x, z)-domain tier's three block kernels, each K time
 // steps on one halo-extended (x, z) tile for every shot of a batch: the C
 // entry points pfdc_block2_{mod,fwd,bwd}_run and, with the x taps in split
-// bf16, pfdc_block2_{mod,fwd,bwd}_mma_run (the modeling twin one launch a
-// block and tile; the forward and backward twins, as the exact kernels,
-// two for a block of more than 4 steps) of the kernels in
+// bf16, pfdc_block2_{mod,fwd,bwd}_mma_run (each, as the exact kernels,
+// two launches for a block of more than 4 steps) of the kernels in
 // domain_block.cuh, which the x tier shares.
 //
 // Replaces: parallel_finite_difference_computation_tpu/parallel/
@@ -110,10 +109,12 @@ extern "C" int pfdc_block2_mod_run(const float* p, const float* pp,
 }
 
 // The same block with the x taps in parts (2 or 3) bf16 splits:
-// block_mod_mma on an (x, z) tile.
+// block_mod_mma on an (x, z) tile, in two passes for k > 4 (scratch as
+// above).
 extern "C" int pfdc_block2_mod_mma_run(const float* p, const float* pp,
                                        float* p_out, float* pp_out,
-                                       const float* v2m, int v2_shot_stride,
+                                       float* scratch, const float* v2m,
+                                       int v2_shot_stride,
                                        const float* xramp, const float* zfac,
                                        const float* strip, const float* src,
                                        int r, int sz, const float* amps,
@@ -124,7 +125,7 @@ extern "C" int pfdc_block2_mod_mma_run(const float* p, const float* pp,
   if (parts != 2 && parts != 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return block2_mod_run(p, pp, p_out, pp_out, nullptr, v2m, v2_shot_stride,
+  return block2_mod_run(p, pp, p_out, pp_out, scratch, v2m, v2_shot_stride,
                         xramp, zfac, strip, src, r, sz, amps, k, rec, gz, ns,
                         hs, nxl, hz, nzl, order, parts, cx, cz, stream);
 }

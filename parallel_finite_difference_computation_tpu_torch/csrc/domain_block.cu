@@ -1,10 +1,10 @@
 // domain_block: the x-domain tier's three block kernels, each K time steps
 // on one halo-extended x-slab for every shot of a batch: the C entry points
 // pfdc_block_{mod,fwd,bwd}_run and, with the x taps in split bf16,
-// pfdc_block_{mod,fwd,bwd}_mma_run (the modeling twin one launch a block
-// and slab; the forward and backward twins, as the exact kernels, two for
-// a block of more than 4 steps) of the kernels in domain_block.cuh,
-// for a slab, the tile that spans the whole z axis (no z halo).
+// pfdc_block_{mod,fwd,bwd}_mma_run (each, as the exact kernels, two
+// launches for a block of more than 4 steps) of the kernels in
+// domain_block.cuh, for a slab, the tile that spans the whole z axis (no
+// z halo).
 //
 // Replaces: parallel_finite_difference_computation_tpu/parallel/
 // domain_pallas.py, _mod_block_kernel (:189), _fwd_block_kernel (:115) and
@@ -100,10 +100,12 @@ extern "C" int pfdc_block_mod_run(const float* p, const float* pp,
 }
 
 // The same block with the x taps in parts (2 or 3) bf16 splits:
-// block_mod_mma.
+// block_mod_mma, which takes a block of k > 4 in two passes as well
+// (scratch as above).
 extern "C" int pfdc_block_mod_mma_run(const float* p, const float* pp,
                                       float* p_out, float* pp_out,
-                                      const float* v2m, int v2_shot_stride,
+                                      float* scratch, const float* v2m,
+                                      int v2_shot_stride,
                                       const float* xramp, const float* zfac,
                                       const float* strip, const float* src,
                                       int r, int sz, const float* amps, int k,
@@ -114,7 +116,7 @@ extern "C" int pfdc_block_mod_mma_run(const float* p, const float* pp,
   if (parts != 2 && parts != 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return block_mod_run(p, pp, p_out, pp_out, nullptr, v2m, v2_shot_stride,
+  return block_mod_run(p, pp, p_out, pp_out, scratch, v2m, v2_shot_stride,
                        xramp, zfac, strip, src, r, sz, amps, k, rec, gz, ns,
                        hs, nxl, nze, order, parts, cx, cz, stream);
 }

@@ -11,9 +11,10 @@
 // in one part carries no halo (hs or hz = 0): its tile edge is the grid's.
 // The exact region shrinks by h a step from every edge that has a halo,
 // so after k steps, k*h <= the halo, the owned cells are exact
-// (communication-avoiding blocking). A block of threads owns kTX x kTZ
-// cells of one shot and stages its part of the tile with a k*h halo on
-// both axes in shared memory, as the K-step kernels do (kstep.cuh): a
+// (communication-avoiding blocking). A block of threads owns a shape of
+// cells of one shot (strip.cuh's StripShape) and stages its part of the
+// tile with a k*h halo on both axes in shared memory, as the K-step
+// kernels do (strip.cuh): a
 // Pluto tile is thousands of rows of hundreds of floats, far beyond an
 // SM. The Laplacian is zero on the tile's border (in_interior over the
 // tile), and the global interior is folded into v2m = v2*dt2 (0 outside
@@ -40,24 +41,22 @@
 // x 96 owned cells, kBlockFwdShapes: over the four kernels on the Pluto
 // slabs and tiles faster than 64 x 64, 64 x 112, 48 x 96, 32 x 128 and
 // 64 x 128, though 64 x 112 is 2-3 % faster on the tiles alone; PERF.md),
-// block_bwd the body of bwd_strip.cuh (kstep_gpu_bwd's; 32 x 64 owned
-// cells, 32 x 32 at order 10), and so do block_fwd_mma and block_bwd_mma,
-// with the x taps split (below). Each takes the K steps of a block in
-// passes of at most kBlockPassSteps (below), so that the staged halo stays
-// that deep: at order 8, K = 8, two passes of 4 on 64 x 96 owned cells
-// compute 1.35x the owned cells each, where the earlier forward body's one
-// pass of 8 on 32 x 64 computed 2.9x.
+// block_bwd the body of bwd_strip.cuh (kstep_gpu_bwd's; 32 x 64 owned cells, 32
+// x 32 at order 10), and so do block_mod_mma, block_fwd_mma and block_bwd_mma,
+// with the x taps split (below). Each takes the K steps of a block in passes of
+// at most kBlockPassSteps (below), so that the staged halo stays that deep: at
+// order 8, K = 8, two passes of 4 on 64 x 96 owned cells compute 1.35x the
+// owned cells each, where the earlier forward body's one pass of 8 on 32 x 64
+// computed 2.9x.
 //
 // Per step the operations, their order and rounding are the plain block
-// functions' (parallel/domain_kernels.py) and the TPU kernels', outputs
-// to buffers no block of the launch reads: the strip bodies put the taper
-// where a value is written or read at its own cell (fwd_strip.cuh says
-// why that rounds the same), block_mod_mma's staged-tile body tapers the
-// older field in place in a phase of its own, then a barrier.
-// block_bwd sums the image delta of the block from 0 in shared memory and
-// adds it to the running image once, as the JAX package does
-// (domain_pallas.py:161, :178, :492). Offsets into trace rows and
-// seismograms are size_t.
+// functions' (parallel/domain_kernels.py) and the TPU kernels', outputs to
+// buffers no block of the launch reads: the strip bodies put the taper where a
+// value is written or read at its own cell (fwd_strip.cuh says why that rounds
+// the same). block_bwd sums the image delta of the block from 0 in shared
+// memory and adds it to the running image once, as the JAX package does
+// (domain_pallas.py:161, :178, :492). Offsets into trace rows and seismograms
+// are size_t.
 //
 // The split x taps (lap_impl "mxu", "mxu6"): P = 2 (3) is the *_mma twin
 // of a kernel (block_mod_mma, ...), which takes the x taps as the 3-pass
@@ -74,24 +73,18 @@
 // then the strip walk; block_bwd's shapes, 32 x 64 owned cells first) in
 // the passes of block_bwd, so that a pass of 4 steps at order 8 computes
 // 1.67x its owned cells, where the earlier staged-tile body's one pass of
-// 8 on 16 x 32 computed 5.8x. block_fwd_mma runs the forward strip body's
-// split instances (fwd_strip.cuh: the newest field's product into one
-// buffer, one barrier, then the strip walk; kFwdShapes, 64 x 64 first) in
-// the passes of block_fwd, where the staged-tile body it replaces took
-// all K steps in one pass on 32 x 64 owned cells (2.9x the owned cells
-// computed at order 8, K = 8).
-// block_mod_mma keeps the staged-tile body below (a template on P > 0;
-// x_band is x_product behind a barrier): all K steps in one pass, 32 x 64
-// owned cells, the older field tapered in place in a phase of its own.
-// Its buffers keep the tile's pitch (TZ + 2Kh floats: 128 at order 8, K = 8,
-// which gives the column reads 4-way bank conflicts; the strip body's 64 at
-// order 8 does too). The TPU kernels' lane pad to a multiple of 128 (nxww,
-// domain_pallas.py:252) is layout, with zero lanes: here a window past the tile
-// reads 0, and every staged cell is finite (a second pass stages 0 past what
-// the first wrote). What bounds the twins: the exact kernels' bytes; what they
-// add is shared-memory and issue work (the split of every value a window reads,
-// the staged products, one more barrier a step, the halo the smaller owned
-// tiles recompute), not tensor-core time.
+// 8 on 16 x 32 computed 5.8x. block_mod_mma and block_fwd_mma run the
+// forward strip body's split instances (fwd_strip.cuh: the newest field's
+// product into one buffer, one barrier, then the strip walk; kFwdShapes,
+// 64 x 64 first) in the passes of block_mod and block_fwd, where the
+// staged-tile bodies they replace took all K steps in one pass on 32 x 64
+// owned cells (2.9x the owned cells computed at order 8, K = 8). The TPU
+// kernels' lane pad to a multiple of 128 (nxww, domain_pallas.py:252) is
+// layout, with zero lanes: here a window past the tile reads 0, and every
+// staged cell is finite (a second pass stages 0 past what the first
+// wrote). What bounds the twins: the exact kernels' bytes; what they add is
+// shared-memory and issue work (the split of every value a window reads,
+// the staged product, one more barrier a step), not tensor-core time.
 //
 // The kernels sit in an anonymous namespace: each source that includes
 // this header builds its own instances.
@@ -102,8 +95,6 @@
 #include "kstep.cuh"
 
 namespace {
-
-constexpr int kModTX = 32, kModTZ = 64;   // block_mod_mma
 
 // A tile's owned size and halos. kZ: an (x, z) tile, with a z halo and z
 // extent of its own; false: an x-slab (no z halo, nzl = nze), whose z
@@ -129,196 +120,8 @@ struct Dims {
   }
 };
 
-// One block's part of the tile: local (0, 0) is tile cell (x0, z0); the
-// owned cells are local [r, r + TX) x [r, r + TZ) within the owned cells
-// of the tile.
-template <int TX, int TZ>
-struct BlockTile {
-  static constexpr int kTX = TX, kTZ = TZ;
-  int r, sx, sz, x0, z0;
-
-  template <bool kZ>
-  __device__ BlockTile(int halo, const Dims<kZ>& d)
-      : r(halo),
-        sx(TX + 2 * halo),
-        sz(TZ + 2 * halo),
-        x0(d.hs + static_cast<int>(blockIdx.y) * TX - halo),
-        z0(d.hz() + static_cast<int>(blockIdx.x) * TZ - halo) {}
-
-  __device__ int cells() const { return sx * sz; }
-
-  template <bool kZ>
-  __device__ bool owned(int lx, int lz, int gx, int gz,
-                        const Dims<kZ>& d) const {
-    return lx >= r && lx < r + TX && lz >= r && lz < r + TZ && d.owns(gx, gz);
-  }
-};
-
-template <int TX, int TZ>
-size_t tile_bytes(int fields, int halo, bool image) {
-  const size_t cells = static_cast<size_t>(TX + 2 * halo) * (TZ + 2 * halo);
-  return sizeof(float) * (fields * cells + (image ? TX * TZ : 0));
-}
-
-template <int TX, int TZ, bool kZ>
-dim3 tile_grid(int ns, const Dims<kZ>& d) {
-  return dim3((d.nzl + TZ - 1) / TZ, (d.nxl + TX - 1) / TX, ns);
-}
-
-// Calls fn(lx, lz, gx, gz) for every block-tile cell at least lo cells
-// from its edge that lies in the nxw x nzw tile (gx, gz: tile row and
-// column). The cell -> thread map does not depend on lo.
-template <class T, class F>
-__device__ __forceinline__ void for_cells(const T& t, int lo, int nxw, int nzw,
-                                          F&& fn) {
-  for (int lx = threadIdx.y; lx < t.sx; lx += blockDim.y) {
-    const int gx = t.x0 + lx;
-    if (lx < lo || lx >= t.sx - lo || gx < 0 || gx >= nxw) continue;
-    for (int lz = threadIdx.x; lz < t.sz; lz += blockDim.x) {
-      const int gz = t.z0 + lz;
-      if (lz < lo || lz >= t.sz - lo || gz < 0 || gz >= nzw) continue;
-      fn(lx, lz, gx, gz);
-    }
-  }
-}
-
-// Stages one shot's tile field f (nxw, nzw) into s, 0 outside the tile.
-template <class T>
-__device__ __forceinline__ void load_tile(float* s, const float* __restrict__ f,
-                                          const T& t, int nxw, int nzw) {
-  for (int lx = threadIdx.y; lx < t.sx; lx += blockDim.y) {
-    const int gx = t.x0 + lx;
-    for (int lz = threadIdx.x; lz < t.sz; lz += blockDim.x) {
-      const int gz = t.z0 + lz;
-      s[lx * t.sz + lz] = (gx >= 0 && gx < nxw && gz >= 0 && gz < nzw)
-                              ? f[static_cast<size_t>(gx) * nzw + gz]
-                              : 0.0f;
-    }
-  }
-}
-
-// Writes the owned cells of s to one shot's tile field f.
-template <class T, class D>
-__device__ __forceinline__ void store_tile(float* __restrict__ f,
-                                           const float* s, const T& t,
-                                           const D& d) {
-  const int nzw = d.nzw();
-  for_cells(t, t.r, d.nxw(), nzw, [&](int lx, int lz, int gx, int gz) {
-    if (t.owned(lx, lz, gx, gz, d)) {
-      f[static_cast<size_t>(gx) * nzw + gz] = s[lx * t.sz + lz];
-    }
-  });
-}
-
-// The x taps of the field f as the P-part split-bf16 banded product
-// (strip.cuh's x_product), into xb at every block-tile cell at least lo
-// cells from its edge, a warp a threadIdx.y, then a barrier.
-template <int H, int P, class T>
-__device__ __forceinline__ void x_band(float* xb, const float* f, const T& t,
-                                       int lo, const pfdc::SplitBand<H, P>& band) {
-  static_assert(P > 0, "the split twins' x product");
-  pfdc::x_product<H, P>(xb, f, t, lo, band, t.sz,
-                        static_cast<int>(threadIdx.y),
-                        static_cast<int>(blockDim.y),
-                        static_cast<int>(threadIdx.x));
-  __syncthreads();
-}
-
-// The split Laplacian at block-tile cell j of the field f: the x taps
-// x_band left in xb plus the exact z taps (yx + accz).
-template <int H>
-__device__ __forceinline__ float block_lap(const float* f, const float* xb,
-                                           int j, const pfdc::Coefs& c) {
-  return xb[j] + pfdc::axis_taps<H>(f, j, 1, c.z);
-}
-
-// Per step, from the state (p, pp), pp tapered: u = (2p - pp) + v*lap(p);
-// u += amp * src on the source rows; pp' = u*m; p' = p*m, whose row gz on
-// the owned cells is the step's trace (mod_main.cpp:146-168):
-// block_mod_mma's body (P > 0; block_mod runs fwd_strip.cuh's).
-template <int H, bool kZ, int P>
-__device__ __forceinline__ void block_mod_body(
-    float* smem, const float* __restrict__ p_in,
-    const float* __restrict__ pp_in, float* __restrict__ p_out,
-    float* __restrict__ pp_out, const float* __restrict__ v2m,
-    int v2_shot_stride, const float* __restrict__ xramp,
-    const float* __restrict__ zfac, const float* __restrict__ strip,
-    const float* __restrict__ src, int r, int src_z, const pfdc::Amps& amps,
-    int k_steps, float* __restrict__ rec, int gz_rec, const Dims<kZ>& d,
-    const pfdc::Coefs& c) {
-  static_assert(P > 0, "block_mod runs fwd_strip");
-  const int nxw = d.nxw(), nzw = d.nzw();
-  const BlockTile<kModTX, kModTZ> t(k_steps * H, d);
-  const int n = t.cells();
-  float* sp = smem;
-  float* spp = smem + n;
-  float* xb = smem + 2 * n;     // the x taps of sp
-  const auto band = pfdc::split_band<H, P>(c.x);
-  const int s = blockIdx.z;
-  const size_t plane = d.plane();
-  load_tile(sp, p_in + s * plane, t, nxw, nzw);
-  load_tile(spp, pp_in + s * plane, t, nxw, nzw);
-  __syncthreads();
-  const float* v = v2m + s * static_cast<size_t>(v2_shot_stride);
-  const float* src_s = src + s * static_cast<size_t>(2 * r + 1) * nxw;
-  float* rec_s = rec + s * static_cast<size_t>(k_steps) * d.nxl;
-  for (int k = 0; k < k_steps; ++k) {
-    const int lo = (k + 1) * H;
-    const float amp = amps.a[k];
-    x_band<H, P>(xb, sp, t, lo, band);
-    // the update, into the older field's slot (read only at its own cell)
-    for_cells(t, lo, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
-      const int j = lx * t.sz + lz;
-      const float lap = pfdc::in_interior(gx, gz, H, nxw, nzw)
-                            ? block_lap<H>(sp, xb, j, c)
-                            : 0.0f;
-      float u = (2.0f * sp[j] - spp[j]) +
-                v[static_cast<size_t>(gx) * nzw + gz] * lap;
-      const int dz = gz - src_z;
-      if (dz >= -r && dz <= r) {
-        u = u + amp * src_s[static_cast<size_t>(dz + r) * nxw + gx];
-      }
-      spp[j] = u * pfdc::taper_at(xramp, zfac, strip, gx, gz);
-    });
-    __syncthreads();
-    // taper the old field once every neighbour has read it; record row gz
-    for_cells(t, lo, nxw, nzw, [&](int lx, int lz, int gx, int gz) {
-      const int j = lx * t.sz + lz;
-      const float q = sp[j] * pfdc::taper_at(xramp, zfac, strip, gx, gz);
-      sp[j] = q;
-      if (gz == gz_rec && t.owned(lx, lz, gx, gz, d)) {
-        rec_s[static_cast<size_t>(k) * d.nxl + (gx - d.hs)] = q;
-      }
-    });
-    float* tmp = sp;
-    sp = spp;
-    spp = tmp;
-  }
-  store_tile(p_out + s * plane, sp, t, d);
-  store_tile(pp_out + s * plane, spp, t, d);
-}
-
-// The staged-tile split twin (P = 2, 3), whose mma fragments take
-// registers: its launch bounds are stated.
-template <int H, bool kZ, int P>
-__global__ void __launch_bounds__(pfdc::kTileThreads)
-    block_mod_mma(const float* __restrict__ p_in,
-                  const float* __restrict__ pp_in, float* __restrict__ p_out,
-                  float* __restrict__ pp_out, const float* __restrict__ v2m,
-                  int v2_shot_stride, const float* __restrict__ xramp,
-                  const float* __restrict__ zfac,
-                  const float* __restrict__ strip,
-                  const float* __restrict__ src, int r, int src_z,
-                  pfdc::Amps amps, int k_steps, float* __restrict__ rec,
-                  int gz_rec, Dims<kZ> d, pfdc::Coefs c) {
-  extern __shared__ float smem[];
-  block_mod_body<H, kZ, P>(smem, p_in, pp_in, p_out, pp_out, v2m,
-                           v2_shot_stride, xramp, zfac, strip, src, r, src_z,
-                           amps, k_steps, rec, gz_rec, d, c);
-}
-
-// The kernels on strip bodies (the exact ones, block_fwd_mma and block_bwd_mma)
-// take the K steps of a block in passes of at most kBlockPassSteps, so that the
+// The kernels on strip bodies (the exact ones and their split twins) take
+// the K steps of a block in passes of at most kBlockPassSteps, so that the
 // staged halo stays that many steps deep (K = 8 at order 8: two passes of 4, a
 // 16-cell halo, two blocks an SM, where one pass of 8 staged a 32-cell halo,
 // one block an SM, and computed 1.9x the owned cells of block_mod's 64 x 96,
@@ -464,8 +267,53 @@ struct BlockFwdSite {
   }
 };
 
-// One pass of the exact block_mod: amps holds the pass's amplitudes from
-// its first step, k_steps is the block's (the traces' shot stride).
+// A split twin's site on the forward strip body (block_mod_mma's,
+// block_fwd_mma's): the exact kernel's, whose buffers, in a second pass,
+// hold values on the rectangle the first wrote only, the owned cells and
+// the margin (ix, iz).
+template <class Site>
+struct HeldSite : Site {
+  int ix, iz;
+
+  __device__ bool held(int gx, int gz) const {
+    return in_rect(this->d, gx, gz, ix, iz);
+  }
+};
+
+// One pass of block_mod (P = 0) or block_mod_mma (P = 2, 3) on the
+// forward strip body: amps holds the pass's amplitudes from its first
+// step, k_steps is the block's (the traces' shot stride).
+template <int H, bool kZ, int P>
+__device__ __forceinline__ void block_mod_pass(
+    float* smem, const float* __restrict__ p_in,
+    const float* __restrict__ pp_in, float* __restrict__ p_out,
+    float* __restrict__ pp_out, const float* __restrict__ v2m,
+    int v2_shot_stride, const float* __restrict__ xramp,
+    const float* __restrict__ zfac, const float* __restrict__ strip,
+    const float* __restrict__ src, int r, int src_z, const pfdc::Amps& amps,
+    int k_steps, float* __restrict__ rec, int gz_rec, const Dims<kZ>& d,
+    pfdc::StripShape shape, const BlockPass& pass, const pfdc::Coefs& c) {
+  const int s = blockIdx.z;
+  const size_t plane = d.plane();
+  const int nxw = d.nxw();
+  const BlockModSite<kZ> site{
+      p_in + s * plane, pp_in + s * plane, p_out + s * plane,
+      pp_out + s * plane, v2m + s * static_cast<size_t>(v2_shot_stride),
+      xramp, zfac, strip, src + s * static_cast<size_t>(2 * r + 1) * nxw,
+      rec + s * static_cast<size_t>(k_steps) * d.nxl, r, src_z, gz_rec,
+      pass.k0, nxw, d.nzw(), pass.ex, pass.ez, d};
+  const pfdc::StripTile t = pass_tile(pass.k_steps * H, shape, pass, d);
+  if constexpr (P == 0) {
+    pfdc::fwd_strip<H>(smem, site, t, amps, pass.k_steps, c);
+  } else {
+    // the input: the whole buffer, or what a first pass wrote
+    const HeldSite<BlockModSite<kZ>> split{
+        site, pass.k0 ? (d.hs ? pass.k_steps * H : 0) : d.hs,
+        pass.k0 ? (d.hz() ? pass.k_steps * H : 0) : d.hz()};
+    pfdc::fwd_strip<H, P>(smem, split, t, amps, pass.k_steps, c);
+  }
+}
+
 template <int H, bool kZ>
 __global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
     block_mod(const float* __restrict__ p_in,
@@ -479,30 +327,40 @@ __global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
               int gz_rec, Dims<kZ> d, pfdc::StripShape shape,
               BlockPass pass, pfdc::Coefs c) {
   extern __shared__ float smem[];
-  const int s = blockIdx.z;
-  const size_t plane = d.plane();
-  const int nxw = d.nxw();
-  const BlockModSite<kZ> site{
-      p_in + s * plane, pp_in + s * plane, p_out + s * plane,
-      pp_out + s * plane, v2m + s * static_cast<size_t>(v2_shot_stride),
-      xramp, zfac, strip, src + s * static_cast<size_t>(2 * r + 1) * nxw,
-      rec + s * static_cast<size_t>(k_steps) * d.nxl, r, src_z, gz_rec,
-      pass.k0, nxw, d.nzw(), pass.ex, pass.ez, d};
-  const pfdc::StripTile t = pass_tile(pass.k_steps * H, shape, pass, d);
-  pfdc::fwd_strip<H>(smem, site, t, amps, pass.k_steps, c);
+  block_mod_pass<H, kZ, 0>(smem, p_in, pp_in, p_out, pp_out, v2m,
+                           v2_shot_stride, xramp, zfac, strip, src, r, src_z,
+                           amps, k_steps, rec, gz_rec, d, shape, pass, c);
 }
 
-// block_fwd_mma's site: block_fwd's, whose buffers, in a second pass,
-// hold values on the rectangle the first wrote only, the owned cells and
-// the margin (ix, iz).
-template <bool kZ>
-struct BlockFwdMmaSite : BlockFwdSite<kZ> {
-  int ix, iz;
+// The split twin (P = 2, 3): the same pass with the x taps in bf16 parts.
+template <int H, bool kZ, int P>
+__global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
+    block_mod_mma(const float* __restrict__ p_in,
+                  const float* __restrict__ pp_in, float* __restrict__ p_out,
+                  float* __restrict__ pp_out, const float* __restrict__ v2m,
+                  int v2_shot_stride, const float* __restrict__ xramp,
+                  const float* __restrict__ zfac,
+                  const float* __restrict__ strip,
+                  const float* __restrict__ src, int r, int src_z,
+                  pfdc::Amps amps, int k_steps, float* __restrict__ rec,
+                  int gz_rec, Dims<kZ> d, pfdc::StripShape shape,
+                  BlockPass pass, pfdc::Coefs c) {
+  static_assert(P > 0, "block_mod is the exact kernel");
+  extern __shared__ float smem[];
+  block_mod_pass<H, kZ, P>(smem, p_in, pp_in, p_out, pp_out, v2m,
+                           v2_shot_stride, xramp, zfac, strip, src, r, src_z,
+                           amps, k_steps, rec, gz_rec, d, shape, pass, c);
+}
 
-  __device__ bool held(int gx, int gz) const {
-    return in_rect(this->d, gx, gz, ix, iz);
+// The modeling kernel of a pass at P.
+template <int H, bool kZ, int P>
+auto mod_kernel() {
+  if constexpr (P == 0) {
+    return block_mod<H, kZ>;
+  } else {
+    return block_mod_mma<H, kZ, P>;
   }
-};
+}
 
 // One pass of block_fwd (P = 0) or block_fwd_mma (P = 2, 3) on the
 // forward strip body: amps holds the pass's amplitudes.
@@ -529,7 +387,7 @@ __device__ __forceinline__ void block_fwd_pass(
     pfdc::fwd_strip<H>(smem, site, t, amps, pass.k_steps, c);
   } else {
     // the input: the whole buffer, or what a first pass wrote
-    const BlockFwdMmaSite<kZ> split{
+    const HeldSite<BlockFwdSite<kZ>> split{
         site, pass.k0 ? (d.hs ? pass.k_steps * H : 0) : d.hs,
         pass.k0 ? (d.hz() ? pass.k_steps * H : 0) : d.hz()};
     pfdc::fwd_strip<H, P>(smem, split, t, amps, pass.k_steps, c);
@@ -737,14 +595,30 @@ auto bwd_kernel() {
   }
 }
 
+// The owned shape (tx = 0: none fits) and bytes of a pass of k_steps of a
+// kernel on the forward strip body at P: the exact kernels' shapes, or the
+// split instances' shapes and stage.
+struct FwdPassTile {
+  pfdc::StripShape shape;
+  size_t bytes;
+};
+
+template <int H, int P>
+FwdPassTile fwd_pass_tile(int k_steps) {
+  const pfdc::StripStage stage = P ? pfdc::kBlockFwdMmaStage : pfdc::kFwdStage;
+  const pfdc::StripShape shape =
+      P ? pfdc::strip_shape(pfdc::kFwdShapes, stage, k_steps * H)
+        : pfdc::strip_shape(pfdc::kBlockFwdShapes, stage, k_steps * H);
+  return {shape, pfdc::strip_bytes(shape, stage, k_steps * H)};
+}
+
 template <bool kZ>
 struct BlockModRun {
   const float* p;
   const float* pp;
   float* p_out;
   float* pp_out;
-  // the exact block_mod with k > kBlockPassSteps: (p, pp) between its
-  // passes, 2 * ns * plane floats
+  // k > kBlockPassSteps: (p, pp) between the passes, 2 * ns * plane floats
   float* scratch;
   const float* v2m;
   int v2_shot_stride;
@@ -762,21 +636,20 @@ struct BlockModRun {
   int parts;
   cudaStream_t stream;
 
-  // One pass of the exact block_mod from (a, b) into (a_out, b_out).
-  template <int H>
+  // One pass of block_mod (block_mod_mma at P > 0) from (a, b) into
+  // (a_out, b_out).
+  template <int H, int P>
   cudaError_t mod_pass(const float* a, const float* b, float* a_out,
                        float* b_out, BlockPass pass) const {
-    const pfdc::StripShape shape = pfdc::strip_shape(
-        pfdc::kBlockFwdShapes, pfdc::kFwdStage, pass.k_steps * H);
+    const auto [shape, bytes] = fwd_pass_tile<H, P>(pass.k_steps);
     if (shape.tx == 0) return cudaErrorInvalidValue;
-    const size_t bytes =
-        pfdc::strip_bytes(shape, pfdc::kFwdStage, pass.k_steps * H);
-    const cudaError_t e = pfdc::allow_smem(block_mod<H, kZ>, bytes);
+    const auto kernel = mod_kernel<H, kZ, P>();
+    const cudaError_t e = pfdc::allow_smem(kernel, bytes);
     if (e != cudaSuccess) return e;
     const dim3 grid = pfdc::strip_grid(shape, ns, d.nxl + 2 * pass.ex,
                                        d.nzl + 2 * pass.ez);
     const dim3 block(pfdc::kStripThreads);
-    block_mod<H, kZ><<<grid, block, bytes, stream>>>(
+    kernel<<<grid, block, bytes, stream>>>(
         a, b, a_out, b_out, v2m, v2_shot_stride, xramp, zfac, strip, src, r,
         sz, amps_from(amps, pass.k0), k, rec, gz, d, shape, pass, c);
     return cudaGetLastError();
@@ -785,27 +658,15 @@ struct BlockModRun {
   template <int H, int P>
   cudaError_t launch() const {
     if (!d.fits(k * H)) return cudaErrorInvalidValue;
-    if constexpr (P == 0) {
-      const BlockPasses<kZ> passes(d, k, H);
-      if (passes.n == 1) {
-        return mod_pass<H>(p, pp, p_out, pp_out, passes.first);
-      }
-      if (scratch == nullptr) return cudaErrorInvalidValue;
-      float* mid = scratch + ns * d.plane();
-      const cudaError_t e = mod_pass<H>(p, pp, scratch, mid, passes.first);
-      if (e != cudaSuccess) return e;
-      return mod_pass<H>(scratch, mid, p_out, pp_out, passes.second);
-    } else {
-      const size_t bytes = tile_bytes<kModTX, kModTZ>(3, k * H, false);
-      const cudaError_t e = pfdc::allow_smem(block_mod_mma<H, kZ, P>, bytes);
-      if (e != cudaSuccess) return e;
-      const dim3 grid = tile_grid<kModTX, kModTZ>(ns, d);
-      const dim3 block = pfdc::tile_block();
-      block_mod_mma<H, kZ, P><<<grid, block, bytes, stream>>>(
-          p, pp, p_out, pp_out, v2m, v2_shot_stride, xramp, zfac, strip, src,
-          r, sz, amps, k, rec, gz, d, c);
-      return cudaGetLastError();
+    const BlockPasses<kZ> passes(d, k, H);
+    if (passes.n == 1) {
+      return mod_pass<H, P>(p, pp, p_out, pp_out, passes.first);
     }
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    float* mid = scratch + ns * d.plane();
+    const cudaError_t e = mod_pass<H, P>(p, pp, scratch, mid, passes.first);
+    if (e != cudaSuccess) return e;
+    return mod_pass<H, P>(scratch, mid, p_out, pp_out, passes.second);
   }
 
   template <int H>
@@ -841,14 +702,8 @@ struct BlockFwdRun {
   template <int H, int P>
   cudaError_t fwd_pass(const float* a, const float* b, float* a_out,
                        float* b_out, BlockPass pass) const {
-    const pfdc::StripStage stage =
-        P ? pfdc::kBlockFwdMmaStage : pfdc::kFwdStage;
-    const pfdc::StripShape shape =
-        P ? pfdc::strip_shape(pfdc::kFwdShapes, stage, pass.k_steps * H)
-          : pfdc::strip_shape(pfdc::kBlockFwdShapes, stage,
-                              pass.k_steps * H);
+    const auto [shape, bytes] = fwd_pass_tile<H, P>(pass.k_steps);
     if (shape.tx == 0) return cudaErrorInvalidValue;
-    const size_t bytes = pfdc::strip_bytes(shape, stage, pass.k_steps * H);
     const auto kernel = fwd_kernel<H, kZ, P>();
     const cudaError_t e = pfdc::allow_smem(kernel, bytes);
     if (e != cudaSuccess) return e;

@@ -4,9 +4,9 @@
 // kstep_gpu_fwd (kstep_gpu_fwd.cu, the GPU suite's fd_forward), and by the
 // domain tiers' block_mod and block_fwd (domain_block.cuh: the same two
 // states on a halo-extended slab or tile, in passes of at most 4 steps),
-// and with the x taps in split bf16 (P > 0, below) by block_fwd_mma /
-// block2_fwd_mma. The other split twins keep the staged-tile bodies of
-// kstep.cuh and domain_block.cuh.
+// and with the x taps in split bf16 (P > 0, below) by block_mod_mma /
+// block2_mod_mma and block_fwd_mma / block2_fwd_mma. The K-step split twins
+// keep the staged-tile body of kstep.cuh.
 //
 // What held the earlier bodies back on an H100 (PERF.md, kernel table,
 // rows 11-12 and 15a-16b: 11-13x the bytes bound for the K-step kernels,
@@ -67,24 +67,25 @@
 // stored (all of them on the K-step kernels' grid; on a block kernel's
 // tile the pass's output rectangle, not its halo).
 //
-// The split x taps (P = 2 or 3 bf16 parts: lap_impl "mxu", "mxu6"; the
-// kstep_gpu_fwd state only, block_fwd_mma's). Each step first takes the x
-// taps of the newest field t over the step's region as the banded product
-// on the tensor cores (strip.cuh's x_product) into one more staged buffer,
-// then a barrier: an mma hands an output to another lane than the strip's
-// cell thread. The strip walk then adds the exact z taps to the product at
-// the cell (xb + accz, the order of the JAX block kernels' use_mxu branch
-// and of the staged-tile body this replaces), and keeps everything else of
-// the exact step: the taper of t where it is written, the source row, u*m
-// as the next t. No register window is loaded: the x taps are the
-// product's. Two barriers a step (the product's, the step's); the product
-// is written only after the end-of-step barrier that follows every read of
-// the last one. What the split body stages: the field at two levels and
-// the product, on rows padded to 4 mod 8 floats (strip_pitch: the
-// product's fragment reads and stores without bank conflicts), and the x
-// ramp. A second pass's buffers may hold no value past what the first
-// wrote: the split instances stage 0 there (the site's held()), since the
-// product multiplies every value it reads.
+// The split x taps (P = 2 or 3 bf16 parts: lap_impl "mxu", "mxu6"; the block
+// kernels' states, block_mod_mma's and block_fwd_mma's). Each step first takes
+// the x taps of the newest field t over the step's region as the banded product
+// on the tensor cores (strip.cuh's x_product) into one more staged buffer, then
+// a barrier: an mma hands an output to another lane than the strip's cell
+// thread. The strip walk then adds the exact z taps to the product at the cell
+// (xb + accz, the order of the JAX block kernels' use_mxu branch and of the
+// staged-tile bodies this replaces), and keeps everything else of the exact
+// step of its state: the initial taper of t (kGpu only: the mod state stages p
+// tapered, and a second multiplication by m would round otherwise), the older
+// field's taper where it is read, the source, the trace, the taper where a
+// value is written. No register window is loaded: the x taps are the product's.
+// Two barriers a step (the product's, the step's); the product is written only
+// after the end-of-step barrier that follows every read of the last one. What
+// the split body stages: the field at two levels and the product, on rows
+// padded to 4 mod 8 floats (strip_pitch: the product's fragment reads and
+// stores without bank conflicts), and the x ramp. A second pass's buffers may
+// hold no value past what the first wrote: the split instances stage 0 there
+// (the site's held()), since the product multiplies every value it reads.
 #pragma once
 
 #include "strip.cuh"
@@ -101,11 +102,11 @@ constexpr StripShape kFwdShapes[] = {
 constexpr StripShape kBlockFwdShapes[] = {
     {64, 96}, {64, 64}, {32, 64}, {32, 32}, {16, 32}, {16, 16}};
 constexpr StripStage kFwdStage{2, false};
-// The split instances (block_fwd_mma) stage the product too, on padded
-// rows, and take kFwdShapes: 64 x 64 first (115.6 KB at order 8 and a
-// pass of 4 steps, two blocks an SM) ran 11 % faster than 64 x 96 (one
-// block an SM) and 17 % faster than 32 x 64 on the domain tiers' Pluto
-// slabs and tiles (PERF.md).
+// The split instances (block_mod_mma, block_fwd_mma) stage the product
+// too, on padded rows, and take kFwdShapes: 64 x 64 first (115.6 KB at
+// order 8 and a pass of 4 steps, two blocks an SM) ran 11 % faster than 64
+// x 96 (one block an SM) and 17 % faster than 32 x 64 for block_fwd_mma on
+// the domain tiers' Pluto slabs and tiles (PERF.md).
 constexpr StripStage kBlockFwdMmaStage{3, false, true};
 
 // The k_steps steps of the site's block on its tile (blockDim.x =
@@ -118,7 +119,6 @@ __device__ __forceinline__ void fwd_strip(float* smem, const Site& site,
                                           const StripTile& t,
                                           const Amps& amps, int k_steps,
                                           const Coefs& c) {
-  static_assert(P == 0 || Site::kGpu, "the split instances: block_fwd's");
   constexpr int S = kStripRows;
   // the rows' pitch: padded in the split instances (strip_pitch)
   const int pitch =
@@ -145,7 +145,7 @@ __device__ __forceinline__ void fwd_strip(float* smem, const Site& site,
   }
   cp_async_wait_all();
   __syncthreads();
-  if constexpr (P > 0) {
+  if constexpr (Site::kGpu && P > 0) {
     taper_strip_tile(cur, sxr, site.zfac, site.strip, t, nxf, nzf, pitch);
   } else if constexpr (Site::kGpu) {
     taper_strip_tile(cur, sxr, site.zfac, site.strip, t, nxf, nzf);

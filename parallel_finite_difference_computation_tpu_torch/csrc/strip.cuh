@@ -3,9 +3,9 @@
 // taps split block_bwd_mma, block2_bwd_mma, with the z taps split
 // kstep_gpu_bwd_mma) and the forward body of fwd_strip.cuh (kstep_mod,
 // kstep_gpu_fwd, block_mod, block_fwd; with the x taps split
-// block_fwd_mma, block2_fwd_mma); the split x product that the strip
-// bodies and domain_block.cuh's staged-tile bodies share, and the split z
-// product of the backward body's K-step instances.
+// block_mod_mma, block2_mod_mma, block_fwd_mma, block2_fwd_mma); the split
+// x product of both bodies' block instances, and the split z product of
+// the backward body's K-step instances.
 //
 // A block stages a tile of owned cells plus a halo of r = K*H cells on
 // both axes in dynamic shared memory: only the fields that neighbours read
@@ -255,9 +255,9 @@ __device__ __forceinline__ float strip_lap(const float (&w)[N], int i,
 }
 
 // The x taps of the staged field f, centre included, as the P-part
-// split-bf16 banded product, into xb at every cell of the tile t (a
-// StripTile, or domain_block.cuh's BlockTile) at least lo cells from its
-// edge, f and xb with rows pitch apart; the caller's barrier follows.
+// split-bf16 banded product, into xb at every cell of the StripTile t at
+// least lo cells from its edge, f and xb with rows pitch apart; the
+// caller's barrier follows.
 // Warp warp of nwarps takes the region's blocks of 16 columns (the mma's
 // rows m, along z) by 8 rows (its outputs n, along x) in turn, contracting
 // down x:
@@ -265,9 +265,9 @@ __device__ __forceinline__ float strip_lap(const float (&w)[N], int i,
 // output row x0 + n starting H rows before it. Reads past the tile read 0
 // (the band's zeros multiply every value read, so each must be finite: the
 // staged cells all are), and outputs beyond the region are not written.
-template <int H, int P, class T>
+template <int H, int P>
 __device__ __forceinline__ void x_product(float* xb, const float* f,
-                                          const T& t, int lo,
+                                          const StripTile& t, int lo,
                                           const Band<H, P>& band, int pitch,
                                           int warp, int nwarps, int lane) {
   const int hx = t.sx - lo, hz = t.sz - lo;

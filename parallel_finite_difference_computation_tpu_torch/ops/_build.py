@@ -169,19 +169,19 @@ _SIGNATURES = {
                             _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _P, _P, _P],
     # pfdc_block{,2}_{mod,fwd,bwd}_mma_run: the exact entry points'
-    # arguments (without scratch for mod), with parts after order
-    "pfdc_block_mod_mma_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
-                               _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _P, _P, _P],
+    # arguments, with parts after order
+    "pfdc_block_mod_mma_run": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                               _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _P, _P, _P],
     "pfdc_block_fwd_mma_run": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                                _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                                _P],
     "pfdc_block_bwd_mma_run": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _P, _P, _P],
-    "pfdc_block2_mod_mma_run": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
-                                _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _P, _P, _P],
+    "pfdc_block2_mod_mma_run": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                                _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _P, _P, _P],
     "pfdc_block2_fwd_mma_run": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                                 _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                                 _P, _P],

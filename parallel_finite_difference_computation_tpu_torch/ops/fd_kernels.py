@@ -188,15 +188,15 @@ class _Strip(NamedTuple):
 
 
 # The staged-tile split kernels' owned cells (kTileX, kTileZ,
-# csrc/kstep.cuh; block_mod_mma: kModTX, kModTZ, csrc/domain_block.cuh).
+# csrc/kstep.cuh).
 _TILE = (32, 64)
 # The strip bodies (csrc/bwd_strip.cuh: kBwdShapes, kBwdStage,
 # kstep_gpu_bwd and block_bwd; kBwdMmaStage, their split twins
 # block_bwd_mma and, on kBwdZMmaShapes, kstep_gpu_bwd_mma, the two
 # products staged too, on padded rows; csrc/fwd_strip.cuh: kFwdShapes,
 # kFwdStage, kstep_mod and kstep_gpu_fwd; kBlockFwdShapes, block_mod and
-# block_fwd; kFwdShapes and kBlockFwdMmaStage, block_fwd_mma, the x
-# product staged too, on padded rows).
+# block_fwd; kFwdShapes and kBlockFwdMmaStage, block_mod_mma and
+# block_fwd_mma, the x product staged too, on padded rows).
 _BWD_STRIP = _Strip(((32, 64), (32, 32), (16, 32), (16, 16)), 4, True)
 _BWD_MMA_STRIP = _BWD_STRIP._replace(fields=6, padded=True)
 _BWD_ZMMA_STRIP = _BWD_MMA_STRIP._replace(shapes=((32, 96),)
@@ -214,7 +214,7 @@ BLOCK_PASS_STEPS = 4
 _STAGED = {"kstep_mod": (_Tile(_TILE, 4, False), _FWD_STRIP),
            "kstep_gpu_fwd": (_Tile(_TILE, 4, False), _FWD_STRIP),
            "kstep_gpu_bwd": (_BWD_ZMMA_STRIP, _BWD_STRIP),
-           "block_mod": (_Tile(_TILE, 3, False), _BLOCK_FWD_STRIP),
+           "block_mod": (_BLOCK_FWD_MMA_STRIP, _BLOCK_FWD_STRIP),
            "block_fwd": (_BLOCK_FWD_MMA_STRIP, _BLOCK_FWD_STRIP),
            "block_bwd": (_BWD_MMA_STRIP, _BWD_STRIP)}
 STAGING_KERNELS = tuple(_STAGED)
@@ -240,11 +240,10 @@ def _strip_bytes(shape, r: int, body: _Strip) -> int:
 def block_passes(k: int) -> tuple:
     """The steps of each pass of a block kernel on a strip body (the exact
     ``block_mod``, ``block_fwd``, ``block_bwd`` and their ``block2_*``,
-    and the split ``block_fwd_mma``, ``block_bwd_mma`` and their
-    ``block2_*``) for a block of
-    ``k`` steps: one pass up to ``BLOCK_PASS_STEPS``, else two, of ``(k +
-    1) // 2`` and ``k // 2`` steps (kBlockPassSteps, BlockPasses,
-    csrc/domain_block.cuh); each pass is a launch."""
+    and their split twins ``*_mma``) for a block of ``k`` steps: one pass
+    up to ``BLOCK_PASS_STEPS``, else two, of ``(k + 1) // 2`` and ``k //
+    2`` steps (kBlockPassSteps, BlockPasses, csrc/domain_block.cuh); each
+    pass is a launch."""
     return (k,) if k <= BLOCK_PASS_STEPS else ((k + 1) // 2, k // 2)
 
 

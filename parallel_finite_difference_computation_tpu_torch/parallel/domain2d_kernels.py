@@ -43,7 +43,8 @@ kernels (no fallback; ``LAUNCHES`` counts one per launch, and only there):
 Not ported, as TPU-only apparatus: ``_block2_vmem_params`` and the lane
 padding ``pad_to`` (the split variant's ``nxww``, ``domain2d_pallas.py:
 237``, whose zero lanes are inert); nor ``force_halo``, the benchmark's
-halo-cost proxy (ROADMAP.md, Queue 1 item 3).
+halo-cost proxy (ROADMAP.md, Queue 1, "Measurement harness, then the
+benchmark cells").
 """
 
 from __future__ import annotations

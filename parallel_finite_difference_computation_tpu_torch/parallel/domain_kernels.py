@@ -488,18 +488,13 @@ def _entry(c: Tile, name: str, parts: int = 0):
             (*dims, c.ctx.order, *((parts,) if parts else ())))
 
 
-def _scratch(c: Tile, passes: bool, k: int, fields: int, like,
-             extra: int = 0):
-    """The launches of a block of ``k`` steps (with ``passes``, a kernel on
-    a strip body, its passes, :func:`..ops.fd_kernels.block_passes`: the
-    exact kernels, ``block_fwd_mma`` and ``block_bwd_mma``; else, the
-    staged-tile ``block_mod_mma``, one), the scratch argument of the entry
-    point (none without ``passes``; ``(None,)`` for one pass) and
-    its buffer, which the caller keeps over the launch: for two passes,
-    ``fields`` tile fields and ``extra`` floats on the device of
-    ``like``."""
-    if not passes:
-        return 1, (), None
+def _scratch(c: Tile, k: int, fields: int, like, extra: int = 0):
+    """The launches of a block of ``k`` steps (its passes,
+    :func:`..ops.fd_kernels.block_passes`, as every block kernel, exact or
+    split, takes them), the scratch argument of the entry point (``(None,)``
+    for one pass) and its buffer, which the caller keeps over the launch:
+    for two passes, ``fields`` tile fields and ``extra`` floats on the
+    device of ``like``."""
     passes = len(block_passes(k))
     if passes == 1:
         return 1, (None,), None
@@ -514,9 +509,9 @@ def launch_mod(name: str, launches: dict, c: Tile, p, pp, amps, out=None,
     ``block2_mod``, or with ``parts`` > 0 its ``*_mma`` twin): the kernel
     on the card, writing the owned cells of ``out = (p_out, pp_out)`` (new
     buffers with zero halos when None) and counted in ``launches``, once a
-    pass (the exact kernel takes a block of more than 4 steps in two);
-    :func:`block_mod` on the CPU, which returns new buffers. Returns ``(p,
-    pp, rec)``."""
+    pass (the kernel, exact or split, takes a block of more than 4 steps in
+    two); :func:`block_mod` on the CPU, which returns new buffers. Returns
+    ``(p, pp, rec)``."""
     amps = host_wavelet(amps)
     ns = _check_state(c, p=p, pp=pp)
     _check_steps(c, len(amps))
@@ -533,7 +528,7 @@ def launch_mod(name: str, launches: dict, c: Tile, p, pp, amps, out=None,
     rec = (torch.empty if c.records else torch.zeros)(
         (ns, k, c.nxl), dtype=torch.float32, device=p.device)
     xr, zf, st = c.ramps
-    passes, scratch, _buf = _scratch(c, not parts, k, 2, p)
+    passes, scratch, _buf = _scratch(c, k, 2, p)
     with torch.cuda.device(p.device):
         rc = run(p.data_ptr(), pp.data_ptr(), p_out.data_ptr(),
                  pp_out.data_ptr(), *scratch, c.v2m.data_ptr(), c.v2_stride,
@@ -550,8 +545,7 @@ def launch_fwd(name: str, launches: dict, c: Tile, p, pp, amps, out=None,
     """One block of the forward kernel ``name`` (``block_fwd`` or
     ``block2_fwd``, or with ``parts`` > 0 its ``*_mma`` twin): the kernel
     on the card, writing the owned cells of ``out`` and counted as
-    :func:`launch_mod` does (the split twin too takes a block of more than
-    4 steps in two passes); :func:`block_fwd` on the CPU. Returns ``(p,
+    :func:`launch_mod` does; :func:`block_fwd` on the CPU. Returns ``(p,
     pp)``."""
     amps = host_wavelet(amps)
     ns = _check_state(c, p=p, pp=pp)
@@ -566,7 +560,7 @@ def launch_fwd(name: str, launches: dict, c: Tile, p, pp, amps, out=None,
     run, dims = _entry(c, name, parts)
     p_out, pp_out = _outputs(p, out, 2)
     xr, zf, st = c.ramps
-    passes, scratch, _buf = _scratch(c, True, len(amps), 2, p)
+    passes, scratch, _buf = _scratch(c, len(amps), 2, p)
     with torch.cuda.device(p.device):
         rc = run(p.data_ptr(), pp.data_ptr(), p_out.data_ptr(),
                  pp_out.data_ptr(), *scratch, c.v2m.data_ptr(), c.v2_stride,
@@ -584,8 +578,7 @@ def launch_bwd(name: str, launches: dict, c: Tile, ps, pps, pr, ppr, img,
     """One block of the backward kernel ``name`` (``block_bwd`` or
     ``block2_bwd``, or with ``parts`` > 0 its ``*_mma`` twin): the kernel
     on the card, which writes the owned cells of the four ``out`` buffers
-    as :func:`launch_mod` does (the split twin too takes a block of more
-    than 4 steps in two passes) and adds the image delta into ``img`` (ns,
+    as :func:`launch_mod` does and adds the image delta into ``img`` (ns,
     nxl, nzl) in place; :func:`block_bwd` on the CPU. Returns ``(ps, pps,
     pr, ppr, img)``."""
     ns = _check_state(c, ps=ps, pps=pps, pr=pr, ppr=ppr,
@@ -616,7 +609,7 @@ def launch_bwd(name: str, launches: dict, c: Tile, ps, pps, pr, ppr, img,
     inj, inj_stride = ((None, 0) if c.inj is None
                        else (c.inj[:, it0].data_ptr(), c.inj.stride(0)))
     # the state and image delta between the kernel's two passes
-    passes, scratch, _buf = _scratch(c, True, k, 4, ps, ns * c.nxl * c.nzl)
+    passes, scratch, _buf = _scratch(c, k, 4, ps, ns * c.nxl * c.nzl)
     with torch.cuda.device(ps.device):
         rc = run(ps.data_ptr(), pps.data_ptr(), pr.data_ptr(), ppr.data_ptr(),
                  *(o.data_ptr() for o in outs), s0, s1, img.data_ptr(),

@@ -335,8 +335,8 @@ def run_rtm_cpu(p: Params, vp: Optional[np.ndarray] = None,
         raise NotImplementedError(
             "run_rtm_cpu over a mesh whose x or z axis is > 1 (rtm_main's "
             "domain tiers, make_sharded_rtm_full and make_sharded_rtm_full_"
-            "2d) is still to be ported (see ROADMAP.md, Queue 1 item 2); use "
-            "a shot-only mesh")
+            "2d) is still to be ported (see ROADMAP.md, Queue 1, \"rtm_main "
+            "over a decomposed grid\"); use a shot-only mesh")
     tier = resolve_backend(backend, p.nxe, p.nze)
     if vp is None:
         vp = io.read_velocity(p.vpfile, p.nx, p.nz)
@@ -488,8 +488,8 @@ def _rtm_gpu_domain(ctx, g, mesh, lap_impl):
             f"the domain RTM needs blocks of K >= 2 steps, this grid and "
             f"mesh give K={block_k} (nxe={ctx.nxe}, nze={ctx.nze}, mesh "
             f"{mesh.shape}, nt={ctx.nt}); the JAX package's per-step "
-            f"fallback on the card is not ported (see ROADMAP.md, Queue 1 "
-            f"item 2): use fewer x or z shards")
+            f"fallback on the card is not ported (see ROADMAP.md, Queue 1, "
+            f"\"rtm_main over a decomposed grid\"): use fewer x or z shards")
     if _mesh_on_cpu(mesh):
         run = (domain2d.make_sharded_rtm_snapshot_2d if two_d
                else domain.make_sharded_rtm_snapshot)(ctx, mesh, g.gz)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Build, check and time the split kernels on the strip bodies of
 checkouts of the PyTorch port on one CUDA card: ``kstep_gpu_bwd_mma`` (the
-z taps in bf16 parts) and ``block_fwd_mma`` / ``block2_fwd_mma`` (the x
-taps in bf16 parts), each beside its exact twin.
+z taps in bf16 parts), ``block_fwd_mma`` / ``block2_fwd_mma`` and
+``block_mod_mma`` / ``block2_mod_mma`` (the x taps in bf16 parts), each
+beside its exact twin.
 
     python3 scripts/torch_split_probe.py TREE [TREE ...]
                                          [--variants NAME ...]
@@ -13,15 +14,18 @@ tree (building its kernels there). The process prints the compiler's
 register, shared-memory and spill lines of these kernels at orders 8 and
 16, holds the split kernels against their plain versions with the same
 parts (2 and 3) on a small ragged grid (67 x 88 extended, two shots;
-``kstep_gpu_bwd_mma`` pass by pass, the forward block kernels on the
-slabs of a (1, 2) and the tiles of a (1, 2, 2) mesh of cuda:0; orders 8
-and 16, K = 3, 4, 5 and 8 where the kernel takes them; fields 1e-4 and
-image 1e-5 max rel) and the exact ones bitwise, and then times them at the
-Pluto grid (7040 x 1281 extended, order 8, 2 shots, nt = 1001) as
-``chip_smoke.py`` times them: ``kstep_gpu_bwd`` as 250 passes of K = 4;
-each forward block kernel as 126 blocks of K = 8 (the last of one step) on
-the four slabs of a (1, 4) mesh of cuda:0 or the four tiles of a (1, 2, 2)
-mesh, from fixed random states; exact, mxu and mxu6. Median of 3
+``kstep_gpu_bwd_mma`` pass by pass, the forward and modeling block
+kernels on the slabs of a (1, 2) and the tiles of a (1, 2, 2) mesh of
+cuda:0, the modeling ones in both source modes with their traces; orders
+8 and 16, K = 3, 4, 5 and 8 where the kernel takes them; fields 1e-4,
+traces and image 1e-5 max rel) and the exact ones bitwise, and then times
+them at the Pluto grid (7040 x 1281 extended, order 8, 2 shots, nt =
+1001) as ``chip_smoke.py`` times them: ``kstep_gpu_bwd`` as 250 passes of
+K = 4; each forward and modeling block kernel as 126 blocks of K = 8 (the
+last of one step) on the four slabs of a (1, 4) mesh of cuda:0 or the
+four tiles of a (1, 2, 2) mesh, from fixed random states (the modeling
+kernels with the Gaussian source, the all-edge taper and the trace row);
+exact, mxu and mxu6. Median of 3
 CUDA-event samples after a warm-up. A tree whose kernel refuses a K
 (an older one's staged tile) reports the refusal and goes on.
 
@@ -32,10 +36,11 @@ CUDA-event samples after a warm-up. A tree whose kernel refuses a K
 kernels' launch bounds, one block an SM, ``csrc/strip.cuh``),
 ``kstep_blocks2`` (``kstep_gpu_bwd_mma``'s, two blocks an SM),
 ``fwd64x96``, ``fwd48x64``, ``fwd64x48`` and
-``fwd32x64`` (``block_fwd_mma``'s first owned shape, that of
-``kFwdShapes`` in ``csrc/fwd_strip.cuh``, which the forward K-step
-kernels share), ``fwd_blocks1`` (its launch bounds, one block an
-SM) and ``fwd_unpadded`` (its rows at the tile's pitch), made under a
+``fwd32x64`` (the first owned shape of ``block_fwd_mma`` and
+``block_mod_mma``, that of ``kFwdShapes`` in ``csrc/fwd_strip.cuh``,
+which the forward K-step kernels share), ``fwd_blocks1`` (the launch
+bounds of ``block_fwd_mma``, one block an SM) and ``fwd_unpadded`` (the
+rows of both at the tile's pitch), made under a
 temporary directory. The trees run in turns, ``--rounds`` times (A, B,
 ..., then in reverse), as ``scripts/torch_bwd_probe.py`` runs them.
 Prints one JSON line per process and the medians per tree, beside the
@@ -97,9 +102,10 @@ for line in build.build_log().splitlines():
     if m:
         fn = m.group(1)
     # the order-8 and order-16 instances (H = 4, 8)
-    pat = r"(kstep_gpu_bwd\w*|block2?_fwd\w*)ILi[48]E"
+    pat = r"(kstep_gpu_bwd\w*|block2?_(?:fwd|mod)\w*)ILi[48]E"
     if fn and re.search(pat, fn) and ("registers" in line or "spill" in line):
-        name = re.search(r"(kstep_gpu_bwd\w*?|block2?_fwd\w*?)EEv", fn)
+        name = re.search(r"(kstep_gpu_bwd\w*?|block2?_(?:fwd|mod)\w*?)EEv",
+                         fn)
         print(f"[ptxas] {name[1] if name else fn[:60]}: {line.strip()}",
               file=sys.stderr)
 res = {"bitwise": True}
@@ -110,7 +116,8 @@ def f32(*shape):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
 def max_rel(a, b):
-    return float((a.cpu() - b).abs().max()) / float(b.abs().max())
+    # a tile that records no trace row returns zeros
+    return float((a.cpu() - b).abs().max()) / (float(b.abs().max()) or 1.0)
 
 def judge(label, got, want, parts, gates):
     global n_checks
@@ -149,36 +156,46 @@ for order in (8, 16):
                 continue
             judge(f"kstep_gpu_bwd parts {parts} order {order} K {k}", got,
                   want, parts, (1e-4,) * 4 + (1e-5,))
-    for name, shape, prep, kern, geometry in (
+    # the forward kernels; the modeling ones with the Gaussian source and
+    # the all-edge taper (one velocity plane) and with the point source
+    # and the top taper, their traces within 1e-5
+    for name, shape, prep, kern, geometry, modes in (
             ("block_fwd", (1, 2), dk.prepare_tiles, dk.block_fwd_cuda,
-             dk.slab_geometry),
+             dk.slab_geometry, (("top", "point"),)),
             ("block2_fwd", (1, 2, 2), d2k.prepare_tiles, d2k.block2_fwd_cuda,
-             d2k.tile_geometry)):
+             d2k.tile_geometry, (("top", "point"),)),
+            ("block_mod", (1, 2), dk.prepare_tiles, dk.block_mod_cuda,
+             dk.slab_geometry, (("all", "gaussian"), ("top", "point"))),
+            ("block2_mod", (1, 2, 2), d2k.prepare_tiles, d2k.block2_mod_cuda,
+             d2k.tile_geometry, (("all", "gaussian"), ("top", "point")))):
         for k in (3, 5, 8):
             try:
                 geom = geometry(ctx, *shape[1:], k)
             except ValueError:                  # beyond the tiles' width
                 continue
             n = int(np.prod(shape))
-            tiles = [prep(ctx, mesh_mod.make_mesh(*shape, devices=[d] * n
-                                                  ).grid(0),
-                          geom, v2, "top", sxs=(33, 34), sz=42, gz=46)
-                     for d in ("cpu", dev)]
-            a = np.float32(rng.standard_normal(k))
-            for j, (cc, cg) in enumerate(zip(*tiles)):
-                f = [f32(2, cc.nxw, cc.nzw) for _ in range(2)]
-                for parts in (0, 2, 3):
-                    want = kern(cc, *f, a, parts=parts)
-                    try:
-                        got = kern(cg, *(x.to(dev) for x in f), a,
-                                   parts=parts)
-                    except ValueError as e:
-                        print(f"[check] {name} parts {parts} order {order} "
-                              f"K {k}: refused ({str(e)[:50]})",
-                              file=sys.stderr)
-                        continue
-                    judge(f"{name} parts {parts} order {order} K {k} tile "
-                          f"{j}", got, want, parts, (1e-4, 1e-4))
+            for taper, source in modes:
+                vv = v2[0] if source == "gaussian" else v2
+                tiles = [prep(ctx, mesh_mod.make_mesh(
+                    *shape, devices=[d] * n).grid(0), geom, vv, taper,
+                    sxs=(33, 34), sz=42, source=source, gz=46)
+                         for d in ("cpu", dev)]
+                a = np.float32(rng.standard_normal(k))
+                for j, (cc, cg) in enumerate(zip(*tiles)):
+                    f = [f32(2, cc.nxw, cc.nzw) for _ in range(2)]
+                    for parts in (0, 2, 3):
+                        want = kern(cc, *f, a, parts=parts)
+                        try:
+                            got = kern(cg, *(x.to(dev) for x in f), a,
+                                       parts=parts)
+                        except ValueError as e:
+                            print(f"[check] {name} parts {parts} order "
+                                  f"{order} K {k}: refused "
+                                  f"({str(e)[:50]})", file=sys.stderr)
+                            continue
+                        judge(f"{name} {source} parts {parts} order "
+                              f"{order} K {k} tile {j}", got, want, parts,
+                              (1e-4, 1e-4, 1e-5))
 print(f"[check] {n_checks} cases, {'all held' if res['bitwise'] else 'FAILED'}",
       file=sys.stderr)
 
@@ -221,10 +238,18 @@ for name, shape, prep, kern, geometry in (
         ("block_fwd", (1, 4), dk.prepare_tiles, dk.block_fwd_cuda,
          dk.slab_geometry),
         ("block2_fwd", (1, 2, 2), d2k.prepare_tiles, d2k.block2_fwd_cuda,
+         d2k.tile_geometry),
+        ("block_mod", (1, 4), dk.prepare_tiles, dk.block_mod_cuda,
+         dk.slab_geometry),
+        ("block2_mod", (1, 2, 2), d2k.prepare_tiles, d2k.block2_mod_cuda,
          d2k.tile_geometry)):
     geom = geometry(ctx, *shape[1:], K)
     grid = mesh_mod.make_mesh(*shape, devices=[dev] * 4).grid(0)
-    rs = prep(ctx, grid, geom, v2, "top", sxs=(2740, 2760), sz=40, gz=40)
+    if name.endswith("mod"):
+        rs = prep(ctx, grid, geom, v2[0], "all", sxs=(2740, 2760), sz=40,
+                  source="gaussian", gz=40)
+    else:
+        rs = prep(ctx, grid, geom, v2, "top", sxs=(2740, 2760), sz=40, gz=40)
     sts = [[torch.from_numpy(rng.standard_normal((2, c.nxw, c.nzw)).astype(
         np.float32)).to(dev) for _ in range(2)] for c in rs]
     outs = [[torch.zeros_like(f[0]) for _ in range(2)] for f in sts]

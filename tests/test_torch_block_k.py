@@ -19,6 +19,8 @@ This file imports no JAX (``python -m pytest tests/test_torch_block_k.py
 -m cuda --noconftest`` on a GPU machine)."""
 
 import contextlib
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -48,14 +50,14 @@ TILED_RTM = ("kstep_gpu_fwd", "kstep_gpu_bwd")
 # staging the halo of its own steps, so at order 16 the exact K is the JAX
 # package's 8 (it was 7 while block_mod and block_fwd staged all K steps
 # at once on 32 x 64 owned cells, whose K = 8 tile did not fit). The split
-# RTM runs rose to the JAX package's K once kstep_gpu_bwd_mma and
-# block_fwd_mma ran strip bodies: the tiled one from 3, 3, 2 at orders 12,
-# 14, 16 (kstep_gpu_bwd_mma's staged tile of seven fields) to 4, the
-# domain one from 7, 6, 5 (block_fwd_mma's one-pass staged tile) to 8.
+# runs rose to the JAX package's K once their kernels ran strip bodies:
+# the tiled RTM from 3, 3, 2 at orders 12, 14, 16 (kstep_gpu_bwd_mma's
+# staged tile of seven fields) to 4, the domain RTM from 7, 6, 5
+# (block_fwd_mma's one-pass staged tile) to 8, and the domain modeling
+# from 7, 6, 5 (block_mod_mma's) to 8.
 WANT_TILED = {"mod": {o: (4, 4) for o in ORDERS},
               "rtm": {o: (4, 4) for o in ORDERS}}
-WANT_DOMAIN = {"mod": {8: (8, 8), 10: (8, 8), 12: (8, 7), 14: (8, 6),
-                       16: (8, 5)},
+WANT_DOMAIN = {"mod": {o: (8, 8) for o in ORDERS},
                "rtm": {o: (8, 8) for o in ORDERS}}
 DOMAIN_KERNELS = {"mod": ("block_mod",), "rtm": ("block_fwd", "block_bwd")}
 
@@ -109,18 +111,18 @@ def test_tiled_k_is_unchanged_by_the_forward_strip_body(order, lap_impl):
 
 
 # The domain tiers' K (modeling, RTM) on 3lay at orders 4-16 under each
-# lap_impl, on every mesh shape alike, as chosen before block_mod and
-# block_fwd ran the forward strip body in passes: K = 8 everywhere but the
-# split kernels' above order 10, and the exact order-16 runs, which rose
-# from 7 (the forward kernels' one-pass tile refused K = 8) to 8. The split
-# RTM K at orders 12 and 14 rose from 6 and 5 (block_bwd_mma's one-pass
-# tile) to 7 and 6 once that kernel ran the backward strip body in passes,
-# and at orders 12, 14 and 16 from 7, 6 and 5 (block_fwd_mma's one-pass
-# tile) to 8 once block_fwd_mma ran the forward strip body in passes;
-# block_mod_mma's one-pass tile still bounds the split modeling K.
-DOMAIN_SPLIT_K = {12: (7, 8), 14: (6, 8), 16: (5, 8)}
-DOMAIN_K = {order: {li: (8, 8) if order <= 10 or li in (None, "vpu")
-                    else DOMAIN_SPLIT_K[order] for li in LAP_IMPLS}
+# lap_impl, on every mesh shape alike: the JAX package's K = 8 everywhere.
+# As chosen before block_mod and block_fwd ran the forward strip body in
+# passes, it was 8 everywhere but the split kernels' above order 10 and the
+# exact order-16 runs, which rose from 7 (the forward kernels' one-pass
+# tile refused K = 8) to 8. The split RTM K at orders 12 and 14 rose from 6
+# and 5 (block_bwd_mma's one-pass tile) to 7 and 6 once that kernel ran the
+# backward strip body in passes, and at orders 12, 14 and 16 from 7, 6 and
+# 5 (block_fwd_mma's one-pass tile) to 8 once block_fwd_mma ran the
+# forward strip body in passes; the split modeling K at orders 12, 14 and
+# 16 rose from 7, 6 and 5 (block_mod_mma's one-pass tile) to 8 once
+# block_mod_mma did too.
+DOMAIN_K = {order: {li: (8, 8) for li in LAP_IMPLS}
             for order in range(4, 17, 2)}
 
 
@@ -138,10 +140,10 @@ def test_domain_k_is_unchanged_by_the_forward_strip_body(order, lap_impl,
 
 @pytest.mark.parametrize("k", range(1, stream.MAX_STEPS + 1))
 def test_block_pass_split(k):
-    """A block kernel's passes on a strip body (the exact ones and the
-    split forward and backward twins): all K steps in one up to 4, else (K
-    + 1) // 2 then K // 2 (the launches ``LAUNCHES`` counts), and the
-    shared memory of the longer pass's tile."""
+    """A block kernel's passes on a strip body (the exact ones and their
+    split twins): all K steps in one up to 4, else (K + 1) // 2 then K // 2
+    (the launches ``LAUNCHES`` counts), and the shared memory of the longer
+    pass's tile."""
     passes = fk.block_passes(k)
     assert sum(passes) == k
     assert passes == ((k,) if k <= fk.BLOCK_PASS_STEPS
@@ -157,21 +159,20 @@ def test_block_pass_split(k):
         if order == 8:
             assert fk.smem_bytes("block_mod", order, k) == 4 * (
                 2 * (64 + 2 * r) * (96 + 2 * r) + 64 + 2 * r)
-        # the staged-tile split twin stages all K steps at once; the split
-        # forward and backward twins run the strip bodies in the same passes
-        assert fk.smem_bytes("block_mod", order, k, 2) > fk.smem_bytes(
-            "block_mod", order, k - 1, 2)
+        # the split twins run the strip bodies in the same passes
         for parts in (2, 3):
-            for name in ("block_fwd", "block2_fwd", "block_bwd",
-                         "block2_bwd"):
+            for name in ("block_mod", "block2_mod", "block_fwd", "block2_fwd",
+                         "block_bwd", "block2_bwd"):
                 assert fk.smem_bytes(name, order, k, parts) == fk.smem_bytes(
                     name, order, passes[0], parts) <= fk.SMEM_BYTES
-            # block_fwd_mma at order 8: 64 x 64 owned cells, three staged
-            # fields (two and the x product) on padded rows, the x ramp
+            # block_mod_mma and block_fwd_mma at order 8: 64 x 64 owned
+            # cells, three staged fields (two and the x product) on padded
+            # rows, the x ramp
             if order == 8:
-                assert fk.smem_bytes("block_fwd", order, k, parts) == 4 * (
-                    3 * (64 + 2 * r) * ((64 + 2 * r + 3) // 8 * 8 + 4)
-                    + 64 + 2 * r)
+                for name in ("block_mod", "block_fwd"):
+                    assert fk.smem_bytes(name, order, k, parts) == 4 * (
+                        3 * (64 + 2 * r) * ((64 + 2 * r + 3) // 8 * 8 + 4)
+                        + 64 + 2 * r)
             # 32 x 64 owned cells, six staged fields (four and the two x
             # products) on rows padded to 4 mod 8 floats, the owned image
             # and the x ramp
@@ -212,16 +213,15 @@ def test_split_backward_block_takes_passes_and_scratch(monkeypatch, order,
     two passes, counted as two launches, through a scratch of the four
     fields and the image delta (4·ns·nxw·nzw + ns·nxl·nzl floats) handed
     to the entry point after ``img``; up to 4 steps one launch and a NULL
-    scratch. ``block_mod_mma`` stays one launch a block, with no scratch
-    argument. The wrappers' CUDA branch runs on CPU tensors into a
-    stand-in entry point that records its arguments."""
+    scratch. The wrappers' CUDA branch runs on CPU tensors into a stand-in
+    entry point that records its arguments."""
     ctx = solver.FDContext.create(150, 80, 9, dx=10.0, dz=10.0, dt=0.001,
                                   order=order, nxb=8, nzb=8, fac=0.7)
-    kernels = (dk.block_bwd_cuda, dk.block_mod_cuda, dk.LAUNCHES,
-               dk.prepare_tiles, dk.slab_geometry) if len(shape) == 2 else (
-        d2k.block2_bwd_cuda, d2k.block2_mod_cuda, d2k.LAUNCHES,
-        d2k.prepare_tiles, d2k.tile_geometry)
-    kbwd, kmod, launches, prep, geometry = kernels
+    kernels = (dk.block_bwd_cuda, dk.LAUNCHES, dk.prepare_tiles,
+               dk.slab_geometry) if len(shape) == 2 else (
+        d2k.block2_bwd_cuda, d2k.LAUNCHES, d2k.prepare_tiles,
+        d2k.tile_geometry)
+    kbwd, launches, prep, geometry = kernels
     seen, calls = _stub_launches(monkeypatch)
     rng = np.random.default_rng(order)
     v2 = torch.full((2, ctx.nxe, ctx.nze), 4.0e6)
@@ -255,11 +255,6 @@ def test_split_backward_block_takes_passes_and_scratch(monkeypatch, order,
             assert args[11] is None
         assert args[10] == img.data_ptr()
         assert launches == {n: passes if n == name else 0 for n in launches}
-        seen.clear()
-        calls.clear()
-        kmod(c, f[0], f[1], np.ones(k, np.float32), parts=parts)
-        assert seen == [(1, (), None)]
-        assert calls[0][1][4] == c.v2m.data_ptr()     # no scratch argument
     assert fitting > fk.BLOCK_PASS_STEPS          # two passes seen
 
 
@@ -271,17 +266,16 @@ def test_split_forward_block_takes_passes_and_scratch(monkeypatch, order,
     """The launch of ``block_fwd_mma`` (``block2_fwd_mma``): above 4 steps
     two passes, counted as two launches, through a scratch of the two
     fields (2·ns·nxw·nzw floats) handed to the entry point after
-    ``pp_out``; up to 4 steps one launch and a NULL scratch.
-    ``block_mod_mma`` stays one launch a block, with no scratch argument.
-    The wrappers' CUDA branch runs on CPU tensors into a stand-in entry
-    point that records its arguments."""
+    ``pp_out``; up to 4 steps one launch and a NULL scratch. The wrappers'
+    CUDA branch runs on CPU tensors into a stand-in entry point that
+    records its arguments."""
     ctx = solver.FDContext.create(150, 80, 9, dx=10.0, dz=10.0, dt=0.001,
                                   order=order, nxb=8, nzb=8, fac=0.7)
-    kernels = (dk.block_fwd_cuda, dk.block_mod_cuda, dk.LAUNCHES,
-               dk.prepare_tiles, dk.slab_geometry) if len(shape) == 2 else (
-        d2k.block2_fwd_cuda, d2k.block2_mod_cuda, d2k.LAUNCHES,
-        d2k.prepare_tiles, d2k.tile_geometry)
-    kfwd, kmod, launches, prep, geometry = kernels
+    kernels = (dk.block_fwd_cuda, dk.LAUNCHES, dk.prepare_tiles,
+               dk.slab_geometry) if len(shape) == 2 else (
+        d2k.block2_fwd_cuda, d2k.LAUNCHES, d2k.prepare_tiles,
+        d2k.tile_geometry)
+    kfwd, launches, prep, geometry = kernels
     seen, calls = _stub_launches(monkeypatch)
     rng = np.random.default_rng(order)
     v2 = torch.full((2, ctx.nxe, ctx.nze), 4.0e6)
@@ -314,12 +308,119 @@ def test_split_forward_block_takes_passes_and_scratch(monkeypatch, order,
             assert args[4] is None
         assert args[5] == c.v2m.data_ptr()
         assert launches == {n: passes if n == name else 0 for n in launches}
+    assert fitting > fk.BLOCK_PASS_STEPS          # two passes seen
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 2, 2)])
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("order", range(4, 17, 2))
+def test_split_modeling_block_takes_passes_and_scratch(monkeypatch, order,
+                                                       parts, shape):
+    """The launch of ``block_mod_mma`` (``block2_mod_mma``), as of the exact
+    kernel: above 4 steps two passes, counted as two launches, through a
+    scratch of the two fields (2·ns·nxw·nzw floats) handed to the entry
+    point after ``pp_out``; up to 4 steps one launch and a NULL scratch;
+    the traces (ns, K, nxl) of both passes in one buffer. The wrappers'
+    CUDA branch runs on CPU tensors into a stand-in entry point that
+    records its arguments."""
+    ctx = solver.FDContext.create(150, 80, 9, dx=10.0, dz=10.0, dt=0.001,
+                                  order=order, nxb=8, nzb=8, fac=0.7)
+    kernels = (dk.block_mod_cuda, dk.LAUNCHES, dk.prepare_tiles,
+               dk.slab_geometry) if len(shape) == 2 else (
+        d2k.block2_mod_cuda, d2k.LAUNCHES, d2k.prepare_tiles,
+        d2k.tile_geometry)
+    kmod, launches, prep, geometry = kernels
+    seen, calls = _stub_launches(monkeypatch)
+    rng = np.random.default_rng(order)
+    v2 = torch.full((2, ctx.nxe, ctx.nze), 4.0e6)
+    grid = make_mesh(*shape, devices=["cpu"] * int(np.prod(shape))).grid(0)
+    fitting = 0
+    for k in range(1, stream.MAX_STEPS + 1):
+        try:
+            geom = geometry(ctx, *shape[1:], k)
+        except ValueError:                    # the halo outgrows the tiles
+            break
+        fitting += 1
+        c = prep(ctx, grid, geom, v2, "all", sxs=(60, 61), sz=10,
+                 source="gaussian", gz=12)[0]
+        f = [torch.from_numpy(rng.standard_normal(
+            (2, c.nxw, c.nzw)).astype(np.float32)) for _ in range(2)]
+        out = [torch.zeros((2, c.nxw, c.nzw)) for _ in range(2)]
+        for n in launches:
+            launches[n] = 0
         seen.clear()
         calls.clear()
-        kmod(c, f[0], f[1], np.ones(k, np.float32), parts=parts)
-        assert seen == [(1, (), None)]
-        assert calls[0][1][4] == c.v2m.data_ptr()     # no scratch argument
+        p_out, pp_out, rec = kmod(c, *f, np.ones(k, np.float32), out=out,
+                                  parts=parts)
+        ((passes, arg, buf),), ((name, args),) = seen, calls
+        assert name.endswith("mod_mma")
+        assert p_out is out[0] and pp_out is out[1]
+        assert args[2:4] == tuple(o.data_ptr() for o in out)
+        if k > fk.BLOCK_PASS_STEPS:
+            assert passes == 2 == len(fk.block_passes(k))
+            assert buf.numel() == 2 * 2 * c.nxw * c.nzw
+            assert arg == (buf.data_ptr(),) == args[4:5]
+        else:
+            assert (passes, arg, buf) == (1, (None,), None)
+            assert args[4] is None
+        assert args[5] == c.v2m.data_ptr()
+        assert rec.shape == (2, k, c.nxl) and args[15] == rec.data_ptr()
+        assert launches == {n: passes if n == name else 0 for n in launches}
     assert fitting > fk.BLOCK_PASS_STEPS          # two passes seen
+
+
+def _chip_smoke():
+    """The repository's ``chip_smoke.py`` as a module (its ``main`` does
+    not run)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("k", range(1, stream.MAX_STEPS + 1))
+@pytest.mark.parametrize("shape", [(1, 2), (1, 2, 2)])
+def test_chip_smoke_counts_block_launches_as_the_wrappers_do(monkeypatch,
+                                                             shape, k):
+    """``chip_smoke.block_launches``, which the card run holds the main
+    path's launch counts to, against the counts of the wrappers
+    (``LAUNCHES``, one a pass): each of a tier's six block kernels, exact
+    and split, over nt = 2k + max(k - 1, 1) steps in blocks of k and a
+    tail on every tile of a mesh of ``shape``, through a stand-in entry
+    point."""
+    smoke = _chip_smoke()
+    nt = 2 * k + max(k - 1, 1)
+    ctx = solver.FDContext.create(150, 80, nt, dx=10.0, dz=10.0, dt=0.001,
+                                  order=8, nxb=8, nzb=8, fac=0.7)
+    kmod, kfwd, kbwd, launches, prep, geometry = (
+        dk.block_mod_cuda, dk.block_fwd_cuda, dk.block_bwd_cuda,
+        dk.LAUNCHES, dk.prepare_tiles, dk.slab_geometry) if len(
+        shape) == 2 else (
+        d2k.block2_mod_cuda, d2k.block2_fwd_cuda, d2k.block2_bwd_cuda,
+        d2k.LAUNCHES, d2k.prepare_tiles, d2k.tile_geometry)
+    _stub_launches(monkeypatch)
+    v2 = torch.full((2, ctx.nxe, ctx.nze), 4.0e6)
+    grid = make_mesh(*shape, devices=["cpu"] * int(np.prod(shape))).grid(0)
+    geom = geometry(ctx, *shape[1:], k)
+    ms = prep(ctx, grid, geom, v2, "all", sxs=(60, 61), sz=10,
+              source="gaussian", gz=12)
+    rs = prep(ctx, grid, geom, v2, "top", sxs=(60, 61), sz=10, gz=12,
+              dobs_ext=np.zeros((2, ctx.nxe, nt), np.float32))
+    for n in launches:
+        launches[n] = 0
+    for parts in (0, 2):
+        for it0 in range(0, nt, k):
+            amps = np.ones(min(k, nt - it0), np.float32)
+            for cm, cr in zip(ms, rs):
+                f = [torch.zeros((2, cm.nxw, cm.nzw)) for _ in range(4)]
+                img = torch.zeros((2, cm.nxl, cm.nzl))
+                kmod(cm, f[0], f[1], amps, parts=parts)
+                kfwd(cr, f[0], f[1], amps, parts=parts)
+                kbwd(cr, *f, img, it0, len(amps), parts=parts)
+    assert len(launches) == 6
+    assert launches == {n: smoke.block_launches(n, nt, k, len(ms))
+                        for n in launches}
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (1, 2, 2)])

@@ -12,7 +12,9 @@ x taps as ``_make_lap``'s MXU branch does on the TPU.
 
 * The modeling and RTM makers of both tiers against the JAX makers at
   orders 4, 8 and 10, odd K, forward and backward tails, nxe (and nze)
-  padded, sources across the cuts, acquisition rows in a later z part.
+  padded, sources across the cuts, acquisition rows in a later z part;
+  and the modeling makers in blocks of 8 steps, the pipelines' K, which
+  the split kernels on the card take in two passes of 4.
 * The split is not the exact taps, and mxu6 lies closer to them than mxu.
 * The wrappers: ``parts`` on CPU tensors runs the plain split functions
   and leaves the six ``*_mma`` launch counters at zero; a bad part count
@@ -187,6 +189,36 @@ def test_split_block2_modeling_matches_pallas(jmeshes, order, k, nt, source,
         jctx, jmeshes[shape], sz, gz, source=source, taper=taper, block_k=k,
         interpret=True, lap_impl=lap_impl)(v2, sxs, jnp.asarray(wav))
     assert got.shape == (len(sxs), nt, ctx.nxe)
+    assert_close(got, want, GATHER_TOL, 1.0)
+
+
+# Blocks of K = 8 at order 8 (a 32-cell halo) on a 64 x 64 extended grid:
+# 32-row slabs of a (1, 2) mesh, 32 x 32 tiles of a (1, 2, 2) mesh, two
+# blocks and a tail of 1; the Gaussian source and the trace row across the
+# cuts (32).
+BLOCK8_CASES = [  # mesh, lap_impl
+    ((1, 2), "mxu"),
+    ((1, 2, 2), "mxu6"),
+]
+
+
+@pytest.mark.parametrize("shape,lap_impl", BLOCK8_CASES)
+def test_split_modeling_blocks_of_8_steps_match_pallas(jmeshes, shape,
+                                                       lap_impl):
+    jctx, ctx = _ctxs(nx=56, nz=56, nt=17, order=8)
+    assert (ctx.nxe, ctx.nze) == (64, 64)
+    v2, wav, _ = _inputs(ctx, 800 + len(shape))
+    sxs, sz, gz = np.asarray([30, 34], np.int32), 29, 31
+    mod, jmod = ((dk.make_sharded_forward_modeling_cuda,
+                  make_sharded_forward_modeling_pallas) if len(shape) == 2
+                 else (d2k.make_sharded_forward_modeling_2d_cuda,
+                       make_sharded_forward_modeling_2d_pallas))
+    got = mod(ctx, cpu_mesh(*shape), sz, gz, source="gaussian", taper="all",
+              block_k=8, lap_impl=lap_impl)(v2, sxs, wav)
+    want = jmod(jctx, jmeshes[shape], sz, gz, source="gaussian", taper="all",
+                block_k=8, interpret=True, lap_impl=lap_impl)(
+        v2, sxs, jnp.asarray(wav))
+    assert got.shape == (2, 17, ctx.nxe)
     assert_close(got, want, GATHER_TOL, 1.0)
 
 

@@ -1,10 +1,11 @@
 """The split kernels on the strip bodies against their plain versions with
 the same parts on the card: ``kstep_gpu_bwd_mma`` (the backward strip body
-of ``csrc/bwd_strip.cuh`` with the z taps in bf16 parts) and
-``block_fwd_mma`` / ``block2_fwd_mma`` (the forward strip body of
-``csrc/fwd_strip.cuh`` with the x taps in bf16 parts, in passes). Each mma
-sums its products in the card's own order, so the gates are those of the
-split tiers: fields 1e-4 and image 1e-5 of the plain result's max.
+of ``csrc/bwd_strip.cuh`` with the z taps in bf16 parts), and
+``block_mod_mma`` / ``block2_mod_mma`` and ``block_fwd_mma`` /
+``block2_fwd_mma`` (the forward strip body of ``csrc/fwd_strip.cuh`` with
+the x taps in bf16 parts, in passes). Each mma sums its products in the
+card's own order, so the gates are those of the split tiers: fields 1e-4,
+traces and image 1e-5 of the plain result's max.
 
 * ``stream.fd_back_kstep_cuda(..., parts=)`` against the plain pass
   (``solver.fd_back_kstep`` with the same split z taps) at orders 4, 8,
@@ -16,8 +17,13 @@ split tiers: fields 1e-4 and image 1e-5 of the plain result's max.
   ``dk.block_fwd`` with the same parts at the same orders and every K the
   tiles take, on the same grids; above 4 steps the kernel runs two passes,
   and ``LAUNCHES`` counts each.
+* ``block_mod_cuda(..., parts=)`` and ``block2_mod_cuda`` likewise against
+  ``dk.block_mod``, in both source modes (the Gaussian source with the
+  all-edge taper, the point source with the top taper), the trace rows
+  included.
 * One pass of K = 4 at the Pluto grid (7040 x 1281 extended, order 8) and
-  one block of K = 8 on its slabs and tiles, parts 2 and 3.
+  one block of K = 8 of the forward and modeling twins on its slabs and
+  tiles, parts 2 and 3.
 
 Card-only: every case is marked ``cuda`` and skips where there is none
 (``python -m pytest tests/test_torch_split_strip.py -m cuda --noconftest``
@@ -56,7 +62,8 @@ def _v2(rng, ctx):
 
 def _within(got, want, gates):
     for a, b, gate in zip(got, want, gates):
-        err = float((a - b).abs().max()) / float(b.abs().max())
+        # a tile that records no trace row returns zeros
+        err = float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
         assert err <= gate, (err, gate)
 
 
@@ -147,6 +154,61 @@ def test_block_fwd_mma_matches_plain_on_the_card(cuda_device, grid, shape,
     assert calls > 0
 
 
+def _mod_tiles(ctx, shape, k, device, sxs=(33, 34), sz=42, gz=46):
+    """The modeling tiles of a mesh of ``shape`` on ``device`` for blocks
+    of k steps in both source modes: the Gaussian source with the all-edge
+    taper and one velocity plane for every shot, then the point source
+    with the top taper; both record row gz."""
+    prep, geometry = ((dk.prepare_tiles, dk.slab_geometry) if len(shape) == 2
+                      else (d2k.prepare_tiles, d2k.tile_geometry))
+    geom = geometry(ctx, *shape[1:], k)
+    grid = make_mesh(*shape, devices=[device] * int(np.prod(shape))).grid(0)
+    v2 = _v2(np.random.default_rng(k), ctx)
+    return (prep(ctx, grid, geom, v2[0], "all", sxs=sxs, sz=sz,
+                 source="gaussian", gz=gz)
+            + prep(ctx, grid, geom, v2, "top", sxs=sxs, sz=sz, gz=gz))
+
+
+def _mod_block(kernel, c, rng, amps, parts, device):
+    """One block of the split modeling kernel on tile c against the plain
+    block: fields 1e-4, traces 1e-5."""
+    f = [_f32(rng, 2, c.nxw, c.nzw).to(device) for _ in range(2)]
+    got = kernel(c, *f, amps, parts=parts)
+    want = dk.block_mod(c, *f, amps, parts)
+    torch.cuda.synchronize()
+    _within(got, want, (1e-4, 1e-4, 1e-5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("shape", [(1, 2), (1, 2, 2)])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_block_mod_mma_matches_plain_on_the_card(cuda_device, grid, shape,
+                                                 order, parts):
+    rng = np.random.default_rng(order + 10 * parts + len(shape))
+    ctx = _ctx(grid, order)
+    kernel = dk.block_mod_cuda if len(shape) == 2 else d2k.block2_mod_cuda
+    launches = dk.LAUNCHES if len(shape) == 2 else d2k.LAUNCHES
+    name = ("block_mod" if len(shape) == 2 else "block2_mod") + "_mma"
+    for n in launches:
+        launches[n] = 0
+    calls = recording = 0
+    for k in range(1, stream.MAX_STEPS + 1):
+        try:
+            tiles = _mod_tiles(ctx, shape, k, cuda_device)
+        except ValueError:                    # the halo outgrows the tiles
+            break
+        assert fk.smem_bytes(name, order, k, parts) <= fk.SMEM_BYTES
+        amps = np.float32(rng.standard_normal(k))
+        for c in tiles:
+            _mod_block(kernel, c, rng, amps, parts, cuda_device)
+            calls += len(fk.block_passes(k))
+            recording += c.records
+    assert launches == {n: calls if n == name else 0 for n in launches}
+    assert calls > 0 and recording > 0
+
+
 PLUTO = dict(nx=6960, nz=1201, nt=17, dx=7.62, dz=7.62, dt=0.0007, order=8,
              nxb=40, nzb=40, fac=0.75)
 
@@ -173,3 +235,7 @@ def test_split_strip_kernels_match_plain_at_pluto(cuda_device, parts):
             want = dk.block_fwd(c, *f, amps, parts)
             torch.cuda.synchronize()
             _within(got, want, (1e-4, 1e-4))
+        kmod = dk.block_mod_cuda if len(shape) == 2 else d2k.block2_mod_cuda
+        for c in _mod_tiles(ctx, shape, 8, cuda_device, sxs=(2740, 2760),
+                            sz=40, gz=40):
+            _mod_block(kmod, c, rng, amps, parts, cuda_device)

@@ -432,19 +432,18 @@ def test_shared_memory_of_the_kernels():
     """The staging kernels' tiles, as their C sources size them, against
     the wrappers' mirror (``fk.smem_bytes``, which the pipelines' K choice
     reads): the staged-tile split K-step kernels (``kstep_mod_mma``,
-    ``kstep_gpu_fwd_mma``: p, pp, v2*dt2 and the z taps' product), the
-    staged-tile split block kernel (``block_mod_mma``: p, pp and the x
-    taps' product), and the strip kernels, each on the first of its body's
-    owned shapes that fits: kstep_mod, kstep_gpu_fwd, block_mod and
-    block_fwd on fwd_strip.cuh's (the field at two time levels and the x
-    ramp), block_fwd_mma on shapes of its own (the x product staged too,
-    on padded rows), kstep_gpu_bwd and block_bwd on bwd_strip.cuh's (four
+    ``kstep_gpu_fwd_mma``: p, pp, v2*dt2 and the z taps' product), and the
+    strip kernels, each on the first of its body's owned shapes that fits:
+    kstep_mod, kstep_gpu_fwd, block_mod and block_fwd on fwd_strip.cuh's
+    (the field at two time levels and the x ramp), block_mod_mma and
+    block_fwd_mma on shapes of their own (the x product staged too, on
+    padded rows), kstep_gpu_bwd and block_bwd on bwd_strip.cuh's (four
     staged fields, the owned image and the x ramp), kstep_gpu_bwd_mma and
     block_bwd_mma on the same shapes (the two z or x products staged too,
     on padded rows), the block kernels on strip bodies staging the steps
-    of the longer of their passes. Which (kernel, order, K) the card refuses up to order 16, and
-    that every tile fits at the pipelines' K up to order 10; the wrappers'
-    step limit is the kernels'."""
+    of the longer of their passes. Which (kernel, order, K) the card
+    refuses up to order 16, and that every tile fits at the pipelines' K up
+    to order 10; the wrappers' step limit is the kernels'."""
     csrc = pathlib.Path(stream.__file__).parents[1] / "csrc"
     const = {m[1]: int(m[2]) for m in re.finditer(
         r"constexpr int (k\w+) = (\d+);", (csrc / "kstep.cuh").read_text())}
@@ -564,55 +563,40 @@ def test_shared_memory_of_the_kernels():
     assert smem("kstep_gpu_bwd", 8, 8) == 4 * (4 * 96 * 128 + 32 * 64 + 96)
     assert smem("kstep_gpu_fwd", 8, 8) == 4 * (2 * 128 * 128 + 128)
 
-    # the block kernels of the domain tiers (csrc/domain_block.cuh): the
-    # staged-tile split twin's tile_bytes<TX, TZ>(fields, K*h, image) for
-    # P > 0 (block_mod_mma); on a strip body (the exact kernels,
-    # block_fwd_mma and block_bwd_mma) the
-    # launcher takes the body's shape and bytes for a pass of
-    # pass.k_steps, a block of K above kBlockPassSteps running in two
-    # passes, the longer of (K + 1) / 2 steps (BlockPasses)
+    # the block kernels of the domain tiers (csrc/domain_block.cuh), every
+    # one on a strip body: the launcher takes the body's shape and bytes for
+    # a pass of pass.k_steps, a block of K above kBlockPassSteps running in
+    # two passes, the longer of (K + 1) / 2 steps (BlockPasses)
     cuh = (csrc / "domain_block.cuh").read_text()
-    dims = {m[1]: int(m[2]) for m in re.finditer(r"(k\w+T[XZ]) = (\d+)",
-                                                 cuh)}
-    one = r"tile_bytes<(\w+), (\w+)>\((\d), k \* H, (true|false)\)"
     runs = {name: cuh[cuh.index(f"struct {run} {{"):][:cuh[cuh.index(
         f"struct {run} {{"):].index("\n};")]
         for name, run in (("block_mod", "BlockModRun"),
                           ("block_fwd", "BlockFwdRun"),
                           ("block_bwd", "BlockBwdRun"))}
     strip_of = {"block_mod": "BlockFwd", "block_fwd": "BlockFwd",
-                "block_fwd_mma": "BlockFwdMma", "block_bwd": "Bwd",
-                "block_bwd_mma": "BwdMma"}
-    blocks = {}
-    for name in ("block_mod",):
+                "block_mod_mma": "BlockFwdMma", "block_fwd_mma": "BlockFwdMma",
+                "block_bwd": "Bwd", "block_bwd_mma": "BwdMma"}
+    # block_mod and block_fwd and their split twins: one pass launcher and
+    # one pass rule for every P, the shapes and stage of its P = 0 or P > 0
+    # instances (fwd_pass_tile)
+    assert re.search(r"FwdPassTile fwd_pass_tile\(int k_steps\) \{\s*const "
+                     r"pfdc::StripStage stage = P \? pfdc::kBlockFwdMmaStage "
+                     r": pfdc::kFwdStage;\s*const pfdc::StripShape shape =\s*"
+                     r"P \? pfdc::strip_shape\(pfdc::kFwdShapes, stage, "
+                     r"k_steps \* H\)\s*: pfdc::strip_shape\(pfdc::kBlock"
+                     r"FwdShapes, stage, k_steps \* H\);\s*return \{shape, "
+                     r"pfdc::strip_bytes\(shape, stage, k_steps \* H\)\};",
+                     cuh)
+    for name in ("block_mod", "block_fwd"):
         text = runs[name]
-        assert re.search(r"const pfdc::StripShape shape = pfdc::strip_shape"
-                         r"\(\s*pfdc::kBlockFwdShapes, pfdc::kFwdStage, "
-                         r"pass\.k_steps \* H\);\s*if \(shape\.tx == 0\) "
-                         r"return cudaErrorInvalidValue;\s*const size_t "
-                         r"bytes =\s*pfdc::strip_bytes\(shape, pfdc::kFwd"
-                         r"Stage, pass\.k_steps \* H\);", text), name
-        assert re.search(rf"if constexpr \(P == 0\) \{{\s*(?:const )?"
-                         rf"BlockPasses<kZ> passes\(d, k, H\);(?:.|\n)*?"
-                         rf"\}} else \{{\s*const size_t bytes = {one};",
+        assert re.search(r"const auto \[shape, bytes\] = fwd_pass_tile<H, P>"
+                         r"\(pass\.k_steps\);\s*if \(shape\.tx == 0\) "
+                         r"return cudaErrorInvalidValue;", text), name
+        assert re.search(r"cudaError_t launch\(\) const \{\s*if \(!d\.fits"
+                         r"\(k \* H\)\) return cudaErrorInvalidValue;\s*"
+                         r"const BlockPasses<kZ> passes\(d, k, H\);",
                          text), name
-        blocks[f"{name}_mma"] = re.search(
-            rf"\}} else \{{\s*const size_t bytes = {one};", text).groups()
-    # block_fwd and block_fwd_mma: one pass launcher and one pass rule for
-    # every P, the shapes and stage of its P = 0 or P > 0 instances
-    text = runs["block_fwd"]
-    assert re.search(r"const pfdc::StripStage stage =\s*P \? pfdc::kBlock"
-                     r"FwdMmaStage : pfdc::kFwdStage;\s*const pfdc::Strip"
-                     r"Shape shape =\s*P \? pfdc::strip_shape\(pfdc::k"
-                     r"FwdShapes, stage, pass\.k_steps \* H\)\s*: "
-                     r"pfdc::strip_shape\(pfdc::kBlockFwdShapes, stage,\s*"
-                     r"pass\.k_steps \* H\);\s*if \(shape\.tx == 0\) return"
-                     r" cudaErrorInvalidValue;\s*const size_t bytes = pfdc::"
-                     r"strip_bytes\(shape, stage, pass\.k_steps \* H\);", text)
-    assert re.search(r"cudaError_t launch\(\) const \{\s*if \(!d\.fits\(k "
-                     r"\* H\)\) return cudaErrorInvalidValue;\s*const "
-                     r"BlockPasses<kZ> passes\(d, k, H\);", text)
-    assert "if constexpr" not in text
+        assert "if constexpr" not in text, name
     # block_bwd and block_bwd_mma: one pass launcher and one pass rule for
     # every P, the body's shapes, the stage of its P = 0 or P > 0 instances
     text = runs["block_bwd"]
@@ -631,24 +615,18 @@ def test_shared_memory_of_the_kernels():
                      r" / 2, k2 = k - k1;", cuh)
     pass_steps = int(re.search(r"kBlockPassSteps = (\d+);", cuh)[1])
     assert pass_steps == fk.BLOCK_PASS_STEPS == 4
-    # the staged-tile split body takes P > 0 only; block_fwd_mma and
-    # block_bwd_mma are the strip bodies' split instances
-    assert len(re.findall(r"static_assert\(P > 0, \"block_(mod|fwd) runs "
-                          r"fwd_strip\"\);", cuh)) == 1
-    assert "block_bwd_body" not in cuh and "block_fwd_body" not in cuh
-    for name in ("fwd", "bwd"):
+    # no staged-tile body is left: every split twin is a strip body's split
+    # instance
+    for gone in ("block_mod_body", "block_bwd_body", "block_fwd_body",
+                 "BlockTile", "tile_bytes", "kModTX"):
+        assert gone not in cuh, gone
+    for name in ("mod", "fwd", "bwd"):
         assert re.search(rf"static_assert\(P > 0, \"block_{name} is the "
                          rf"exact kernel\"\);", cuh)
 
     def block_smem(kernel, order, k):
-        if kernel in strip_of:
-            return strip_smem(strip_of[kernel], order,
-                              k if k <= pass_steps else (k + 1) // 2)
-        bx, bz, fields, image = blocks[kernel]
-        r = k * (order // 2)
-        cells = (dims[bx] + 2 * r) * (dims[bz] + 2 * r)
-        return 4 * (int(fields) * cells
-                    + (dims[bx] * dims[bz] if image == "true" else 0))
+        return strip_smem(strip_of[kernel], order,
+                          k if k <= pass_steps else (k + 1) // 2)
 
     # order 8, K = 8: two passes of 4, the K = 4 tile of kstep_gpu_bwd,
     # and of block_mod 64 x 96 owned cells (two blocks an SM); K = 5: a
@@ -662,10 +640,12 @@ def test_shared_memory_of_the_kernels():
     assert block_smem("block_fwd", 8, 5) == 4 * (2 * 88 * 120 + 88)
     assert block_smem("block_bwd", 10, 8) == 4 * (4 * 72 * 104 + 32 * 64
                                                   + 72)
-    assert block_smem("block_mod_mma", 8, 8) == 4 * 3 * 96 * 128
-    # block_fwd_mma: two passes of 4 on 64 x 64 owned cells, three fields
-    # of 96 rows at a pitch of 100 floats
-    assert block_smem("block_fwd_mma", 8, 8) == 4 * (3 * 96 * 100 + 96)
+    # block_mod_mma and block_fwd_mma: two passes of 4 on 64 x 64 owned
+    # cells, three fields of 96 rows at a pitch of 100 floats; at order 16
+    # 64 x 64 still fits, at a pitch of 132 floats
+    for kernel in ("block_mod_mma", "block_fwd_mma"):
+        assert block_smem(kernel, 8, 8) == 4 * (3 * 96 * 100 + 96)
+        assert block_smem(kernel, 16, 8) == 4 * (3 * 128 * 132 + 128)
     assert block_smem("block_bwd_mma", 8, 8) == 4 * (6 * 64 * 100 + 32 * 64
                                                      + 64)
     assert block_smem("block_bwd_mma", 10, 8) == 4 * (6 * 72 * 108 + 32 * 64
@@ -734,11 +714,9 @@ def test_shared_memory_of_the_kernels():
              "kstep_gpu_bwd_mma": 6}}
     assert smem("kstep_gpu_bwd_mma", 16, 4) == 4 * (6 * 80 * 100 + 16 * 32
                                                     + 80)
-    # the split block kernels fit the pipelines' K = 8 up to order 10 (the
-    # JAX domain tests' orders); above it the staged-tile block_mod_mma
-    # takes fewer steps a block, and block_fwd_mma and block_bwd_mma, in
-    # two passes, every K (block_fwd_mma's one-pass staged tile took K = 7
-    # at most at order 12, 6 at 14, 5 at 16)
+    # the split block kernels, in two passes, fit every K up to order 16
+    # (the one-pass staged tiles of block_mod_mma and block_fwd_mma took K
+    # = 7 at most at order 12, 6 at 14, 5 at 16)
     assert {order: {kernel: first_refused(block_smem, kernel, order)
                     for kernel in ("block_mod_mma", "block_fwd_mma",
                                    "block_bwd_mma")}
@@ -747,11 +725,11 @@ def test_shared_memory_of_the_kernels():
             "block_bwd_mma": None},
         10: {"block_mod_mma": None, "block_fwd_mma": None,
              "block_bwd_mma": None},
-        12: {"block_mod_mma": 8, "block_fwd_mma": None,
+        12: {"block_mod_mma": None, "block_fwd_mma": None,
              "block_bwd_mma": None},
-        14: {"block_mod_mma": 7, "block_fwd_mma": None,
+        14: {"block_mod_mma": None, "block_fwd_mma": None,
              "block_bwd_mma": None},
-        16: {"block_mod_mma": 6, "block_fwd_mma": None,
+        16: {"block_mod_mma": None, "block_fwd_mma": None,
              "block_bwd_mma": None}}
     # the per-step kernels (fd_step, fd_update, gpu_step and the whole-grid
     # step kernels) stage nothing, gpu_step_mma a static tile under 48 KB
