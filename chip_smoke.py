@@ -154,15 +154,17 @@ Run from the root of the repository, on a machine with one CUDA card and
    ``conv2d``; one profiler trace of each mxu call and chain. The bounds
    count the x taps' multiply-adds of each cross term at the bf16 tensor
    rate and the rest at the float32 rate.
-25. the split-bf16 lowering of the large-grid tier: ``kstep_mod_mma``
-   (Gaussian source with the all-edge taper, point source with the top
-   strip), ``kstep_gpu_fwd_mma``, ``gpu_step_mma`` and ``kstep_gpu_bwd_mma``
-   against their plain passes with the z taps in the same bf16 parts, on
-   the same CUDA tensors, pass by pass and through the two tiled drivers:
-   phase 8's 67 x 88 grid (nt=21) at orders 4, 8, 10 and 16, K = 2 and 4,
-   parts 2 and 3 (``kstep_gpu_bwd_mma`` on the backward strip body, whose
-   tile fits every one of these), then the Pluto grid (2 shots, nt=203, K
-   = 4);
+25. the split-bf16 lowering of the large-grid tier, whose three K-step
+   kernels run strip bodies with the z product (``kstep_mod_mma`` and
+   ``kstep_gpu_fwd_mma`` the forward one, ``kstep_gpu_bwd_mma`` the
+   backward one): ``kstep_mod_mma`` (Gaussian source with the all-edge
+   taper, point source with the top strip), ``kstep_gpu_fwd_mma``,
+   ``gpu_step_mma`` and ``kstep_gpu_bwd_mma`` against their plain passes
+   with the z taps in the same bf16 parts, on the same CUDA tensors, pass
+   by pass and (above K = 1) through the tiled RTM driver: phase 8's 67 x
+   88 grid (nt=21) at orders 4, 8, 10 and 16, K = 1, 2, 4 and 8 (order 16
+   at K = 8, whose tiles outgrow a block, skipped), parts 2 and 3, then
+   the Pluto grid (2 shots, nt=203, K = 4);
    gate: gathers and images <= 1e-5 max rel, the fields <= 1e-4;
 26. the Pluto path through the split tier: ``run_modeling`` then
    ``run_rtm_gpu`` at the full Pluto grid, 2 shots, ``backend="auto"``
@@ -2623,33 +2625,38 @@ def main() -> int:
     phase_done("tensor-core tiers: times and profile")
 
     # ---- 25. the split-bf16 lowering of the large-grid tier (rows 10-13):
-    # kstep_mod_mma (both sources and tapers), kstep_gpu_fwd_mma,
-    # gpu_step_mma and kstep_gpu_bwd_mma against their plain passes (the z
+    # the three split K-step kernels, each on a strip body with the z
+    # product (kstep_mod_mma in both sources and tapers and
+    # kstep_gpu_fwd_mma on the forward body, kstep_gpu_bwd_mma on the
+    # backward one), and gpu_step_mma against their plain passes (the z
     # taps in the same bf16 parts) on the same CUDA tensors, pass by pass
-    # and through the two tiled drivers; phase 8's 67 x 88 grid, then the
-    # Pluto grid
+    # and through the tiled RTM driver; phase 8's 67 x 88 grid at K = 1,
+    # 2, 4 and 8, then the Pluto grid
     split_names = ("kstep_mod_mma", "kstep_gpu_fwd_mma", "gpu_step_mma",
                    "kstep_gpu_bwd_mma")
 
-    def plain_modeling(ctx, v2, wav, gp_, k, lap, source, taper):
-        """The plain K-step passes of forward_modeling_tiled."""
+    def modeling_passes(ctx, v2, wav, gp_, k, lap, source, taper, parts=0):
+        """The K-step passes of forward_modeling_tiled: plain with the
+        Laplacian lap, or through kstep_mod_mma with parts > 0 (at every
+        K, where the driver runs the K = 1 tier's kernels at K = 1)."""
+        step = (functools.partial(stream.mod_kstep_cuda, parts=parts)
+                if parts else lambda *a: solver.mod_kstep(*a, lap))
         p_ = pp_ = torch.zeros((len(gp_.sx), ctx.nxe, ctx.nze), device=dev)
         rec = []
         for it0 in range(0, ctx.nt, k):
-            p_, pp_, tr = solver.mod_kstep(ctx, p_, pp_, v2,
-                                           wav[it0:it0 + k], gp_.sx, gp_.sz,
-                                           gp_.gz, source, taper, lap)
+            p_, pp_, tr = step(ctx, p_, pp_, v2, wav[it0:it0 + k], gp_.sx,
+                               gp_.sz, gp_.gz, source, taper)
             rec.append(tr)
         return p_, pp_, torch.cat(rec, 1)
 
     def compare_split(case, k: int, parts: int):
         """{kernel: [(output, max rel, max abs)]} of the split kernels
-        against their plain passes with the same Laplacian: kstep_mod_mma
-        through forward_modeling_tiled (Gaussian source, all-edge taper;
-        point source, top taper); kstep_gpu_fwd_mma's passes; the two
-        gpu_step_mma seed steps from the plain snapshots; kstep_gpu_bwd_mma's
-        passes from the plain seeded state; the whole tiled RTM (its image
-        under kstep_gpu_bwd_mma)."""
+        against their plain passes with the same Laplacian: kstep_mod_mma's
+        passes (Gaussian source, all-edge taper; point source, top taper);
+        kstep_gpu_fwd_mma's passes; the two gpu_step_mma seed steps from the
+        plain snapshots; kstep_gpu_bwd_mma's passes from the plain seeded
+        state; above K = 1 the whole tiled RTM (its image under
+        kstep_gpu_bwd_mma)."""
         ctx_m, ctx_r, v2_m, v2_r, wav_m, wav_r, d, gp_ = case
         lap = solver.laplacian_of(ctx_r, parts, axis="z")
         lap_m = solver.laplacian_of(ctx_m, parts, axis="z")
@@ -2660,11 +2667,10 @@ def main() -> int:
 
         out = {"kstep_mod_mma": []}
         for source, taper in (("gaussian", "all"), ("point", "top")):
-            km = solver.forward_modeling_tiled(
-                ctx_m, v2_m, wav_m, gp_.sx, gp_.sz, gp_.gz, source=source,
-                taper=taper, block_k=k, lap_impl=parts)
-            pm = plain_modeling(ctx_m, v2_m, wav_m, gp_, k, lap_m, source,
-                                taper)
+            km = modeling_passes(ctx_m, v2_m, wav_m, gp_, k, None, source,
+                                 taper, parts)
+            pm = modeling_passes(ctx_m, v2_m, wav_m, gp_, k, lap_m, source,
+                                 taper)
             out["kstep_mod_mma"] += ob(("p", "pp", "gathers"), km, pm)
         c = stream.prepare(ctx_r, v2_r, gp_.sx, source="point", taper="top")
         kf = (torch.zeros((len(gp_.sx), ctx_r.nxe, ctx_r.nze),
@@ -2689,12 +2695,14 @@ def main() -> int:
                                            inj[:, it0:it0 + k], gp_.gz,
                                            consts=c, parts=parts)
         pb = solver.fd_back_kstep(ctx_r, *ps, v2_r, inj[:, 2:], gp_.gz, lap)
-        ki = solver.rtm_shot_snapshot_tiled(ctx_r, v2_r, wav_r, d, gp_.sx,
-                                            gp_.sz, gp_.gz, block_k=k,
-                                            lap_impl=parts)
-        out["kstep_gpu_bwd_mma"] = ob(
-            ("ps", "pps", "pr", "ppr", "images", "tiled RTM images"),
-            kb + (ki,), pb + (pb[4],))
+        out["kstep_gpu_bwd_mma"] = ob(("ps", "pps", "pr", "ppr", "images"),
+                                      kb, pb)
+        if k > 1:
+            ki = solver.rtm_shot_snapshot_tiled(ctx_r, v2_r, wav_r, d, gp_.sx,
+                                                gp_.sz, gp_.gz, block_k=k,
+                                                lap_impl=parts)
+            out["kstep_gpu_bwd_mma"] += ob(("tiled RTM images",), (ki,),
+                                           (pb[4],))
         torch.cuda.synchronize()
         return out
 
@@ -2717,10 +2725,19 @@ def main() -> int:
 
     for order in (4, 8, 10, 16):
         case = tier_case(dataclasses.replace(short, order=order))
-        for k in (2, 4):
+        for k in (1, 2, 4, 8):
             for parts in (2, 3):
-                check_split(f"order {order} K {k} parts {parts} nt "
-                            f"{short.nt} 67 x 88", compare_split(case, k, parts))
+                label = (f"order {order} K {k} parts {parts} nt {short.nt} "
+                         f"67 x 88")
+                refused = [n for n in ("kstep_mod", "kstep_gpu_fwd",
+                                       "kstep_gpu_bwd")
+                           if fk.smem_bytes(n, order, k, parts)
+                           > fk.SMEM_BYTES]
+                if refused:      # order 16 at K = 8 (the backward from 6)
+                    print(f"[split vs plain] {label}: skipped, the tiles of "
+                          f"{refused} outgrow a block", flush=True)
+                    continue
+                check_split(label, compare_split(case, k, parts))
     case = tier_case(pluto, PLUTO_VELOCITIES)
     for parts in (2, 3):
         worst = check_split(f"Pluto {pluto.nxe} x {pluto.nze} order 8 K 4 nt "
@@ -2810,7 +2827,7 @@ def main() -> int:
                 ps_, vp_pl)).to(dev)
             v2_r = pipeline.prepare_velocities_gpu(ps_, vp_pl, device=dev,
                                                    seed=0)
-            plain_d = plain_modeling(
+            plain_d = modeling_passes(
                 ctx_m, v2_m, numerics.ricker_wavelet(
                     nt_s, ps_.dt, ps_.fpeak, truncated=True), g_s, 4, lap,
                 "gaussian", "all")[2].transpose(1, 2).cpu().numpy()

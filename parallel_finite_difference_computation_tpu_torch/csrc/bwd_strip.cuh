@@ -86,8 +86,8 @@
 // (strip.cuh's z_product) into the two product buffers, then one barrier;
 // the strip walk keeps the exact body's register windows of both fields,
 // and a Laplacian is the product plus the window's x taps (zb + accx, the
-// sum and order of kstep.cuh's tile_lap). The same stage, padded rows and
-// shapes as the x split.
+// sum and order of the JAX K-step kernels' use_mxu branch; strip.cuh's
+// cell_lap). The same stage and padded rows as the x split.
 #pragma once
 
 #include "strip.cuh"
@@ -105,38 +105,6 @@ constexpr StripShape kBwdZMmaShapes[] = {
     {32, 96}, {32, 64}, {32, 32}, {16, 32}, {16, 16}};
 constexpr StripStage kBwdStage{4, true};
 constexpr StripStage kBwdMmaStage{6, true, true};
-
-// The axis whose taps a split instance (P > 0) takes as the banded product.
-enum class Split { kX, kZ };
-
-// The Laplacian of strip cell i at tile cell j of the staged field f:
-// exact from the strip's x window w (P = 0); the x product xb plus the
-// exact z taps (Split::kX); or the z product plus the window's x taps
-// (Split::kZ).
-template <int H, int P, Split A, int N>
-__device__ __forceinline__ float bwd_lap(const float (&w)[N], int i,
-                                         const float* f, const float* xb,
-                                         int j, const Coefs& c) {
-  if constexpr (P == 0) {
-    return strip_lap<H>(w, i, f, j, c);
-  } else if constexpr (A == Split::kX) {
-    return xb[j] + axis_taps<H>(f, j, 1, c.z);
-  } else {
-    return xb[j] + window_taps<H>(w, i, c.x);
-  }
-}
-
-// The value of strip cell i at tile cell j of f: the window's where the
-// instance loads one.
-template <int H, int P, Split A, int N>
-__device__ __forceinline__ float bwd_centre(const float (&w)[N], int i,
-                                            const float* f, int j) {
-  if constexpr (P == 0 || A == Split::kZ) {
-    return w[i + H];
-  } else {
-    return f[j];
-  }
-}
 
 // Steps k0 .. k0 + k_steps - 1 of the site's block, on its tile (blockDim.x
 // = kStripThreads, a 1-D block), with the taps exact (P = 0) or the taps
@@ -232,15 +200,15 @@ __device__ __forceinline__ void bwd_strip(float* smem, const Site& site,
           us = site.snapshot(k0 + k, gx, gz);
         } else {
           const float lap_s =
-              interior ? bwd_lap<H, P, A>(w[0], i, s_cur, xbs, j, c) : 0.0f;
-          us = (2.0f * bwd_centre<H, P, A>(w[0], i, s_cur, j) - s_old[j]) +
+              interior ? cell_lap<H, P, A>(w[0], i, s_cur, xbs, j, c) : 0.0f;
+          us = (2.0f * cell_centre<H, P, A>(w[0], i, s_cur, j) - s_old[j]) +
                v * lap_s;
         }
         const float m = strip_taper(sxr, lx, zf, ramp);
         const float lap_r =
-            interior ? bwd_lap<H, P, A>(w[1], i, r_cur, xbr, j, c) : 0.0f;
+            interior ? cell_lap<H, P, A>(w[1], i, r_cur, xbr, j, c) : 0.0f;
         float ur =
-            (2.0f * bwd_centre<H, P, A>(w[1], i, r_cur, j) - r_old[j] * m) +
+            (2.0f * cell_centre<H, P, A>(w[1], i, r_cur, j) - r_old[j] * m) +
             v * lap_r;
         ur = site.inject(k0 + k, gx, gz, ur);
         s_old[j] = us;

@@ -605,7 +605,7 @@ struct FwdPassTile {
 
 template <int H, int P>
 FwdPassTile fwd_pass_tile(int k_steps) {
-  const pfdc::StripStage stage = P ? pfdc::kBlockFwdMmaStage : pfdc::kFwdStage;
+  const pfdc::StripStage stage = P ? pfdc::kFwdMmaStage : pfdc::kFwdStage;
   const pfdc::StripShape shape =
       P ? pfdc::strip_shape(pfdc::kFwdShapes, stage, k_steps * H)
         : pfdc::strip_shape(pfdc::kBlockFwdShapes, stage, k_steps * H);

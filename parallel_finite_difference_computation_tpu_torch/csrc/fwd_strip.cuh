@@ -5,8 +5,8 @@
 // domain tiers' block_mod and block_fwd (domain_block.cuh: the same two
 // states on a halo-extended slab or tile, in passes of at most 4 steps),
 // and with the x taps in split bf16 (P > 0, below) by block_mod_mma /
-// block2_mod_mma and block_fwd_mma / block2_fwd_mma. The K-step split twins
-// keep the staged-tile body of kstep.cuh.
+// block2_mod_mma and block_fwd_mma / block2_fwd_mma, with the z taps in
+// split bf16 by kstep_mod_mma and kstep_gpu_fwd_mma.
 //
 // What held the earlier bodies back on an H100 (PERF.md, kernel table,
 // rows 11-12 and 15a-16b: 11-13x the bytes bound for the K-step kernels,
@@ -86,6 +86,15 @@
 // stores without bank conflicts), and the x ramp. A second pass's buffers may
 // hold no value past what the first wrote: the split instances stage 0 there
 // (the site's held()), since the product multiplies every value it reads.
+//
+// The split z taps (Split::kZ, kstep_mod_mma and kstep_gpu_fwd_mma: the JAX
+// K-step kernels split the z taps and keep the x taps exact). Each step takes
+// the z product of t over the step's region (strip.cuh's z_product) into the
+// product buffer, then a barrier; the strip walk keeps the exact body's
+// register window of t, loaded at the padded pitch, and a Laplacian is the
+// product plus the window's x taps (zb + accx, the JAX kernels' order), its
+// centre the window's. The same stage and padded rows as the x split; a
+// K-step pass stages whole fields, so its sites hold every cell.
 #pragma once
 
 #include "strip.cuh"
@@ -102,19 +111,20 @@ constexpr StripShape kFwdShapes[] = {
 constexpr StripShape kBlockFwdShapes[] = {
     {64, 96}, {64, 64}, {32, 64}, {32, 32}, {16, 32}, {16, 16}};
 constexpr StripStage kFwdStage{2, false};
-// The split instances (block_mod_mma, block_fwd_mma) stage the product
-// too, on padded rows, and take kFwdShapes: 64 x 64 first (115.6 KB at
-// order 8 and a pass of 4 steps, two blocks an SM) ran 11 % faster than 64
-// x 96 (one block an SM) and 17 % faster than 32 x 64 for block_fwd_mma on
-// the domain tiers' Pluto slabs and tiles (PERF.md).
-constexpr StripStage kBlockFwdMmaStage{3, false, true};
+// The split instances stage the product too, on padded rows, and take
+// kFwdShapes: 64 x 64 first (115.6 KB at order 8 and a pass of 4 steps,
+// two blocks an SM) ran 11 % faster than 64 x 96 (one block an SM) and 17
+// % faster than 32 x 64 for block_fwd_mma on the domain tiers' Pluto slabs
+// and tiles; 48 x 64, 32 x 96 and 64 x 96 ran 8-17 % slower for
+// kstep_mod_mma and kstep_gpu_fwd_mma on the Pluto grid (PERF.md).
+constexpr StripStage kFwdMmaStage{3, false, true};
 
 // The k_steps steps of the site's block on its tile (blockDim.x =
 // kStripThreads, a 1-D block), amps.a[k] the source amplitude of step k
 // (of the pass: a block kernel's second pass gets the block's amplitudes
 // from its first step on, and its site records step k as k0 + k), with
-// the x taps exact (P = 0) or in P bf16 parts.
-template <int H, int P = 0, class Site>
+// the taps exact (P = 0) or the taps of axis A in P bf16 parts.
+template <int H, int P = 0, Split A = Split::kX, class Site>
 __device__ __forceinline__ void fwd_strip(float* smem, const Site& site,
                                           const StripTile& t,
                                           const Amps& amps, int k_steps,
@@ -122,12 +132,12 @@ __device__ __forceinline__ void fwd_strip(float* smem, const Site& site,
   constexpr int S = kStripRows;
   // the rows' pitch: padded in the split instances (strip_pitch)
   const int pitch =
-      P == 0 ? t.sz : strip_pitch(t.sz, kBlockFwdMmaStage.padded);
+      P == 0 ? t.sz : strip_pitch(t.sz, kFwdMmaStage.padded);
   const int n = t.sx * pitch;
   float* cur = smem;         // the newest level, whose taps a step reads
   float* old = smem + n;     // the older level, read at its own cell
   float* sxr = smem + 2 * n;
-  float* xb = sxr + t.sx;    // P > 0: the x product of cur
+  float* xb = sxr + t.sx;    // P > 0: the product of cur
   const int nxf = site.nxf, nzf = site.nzf;
   const int tid = static_cast<int>(threadIdx.x);
   const int nth = static_cast<int>(blockDim.x);
@@ -136,8 +146,8 @@ __device__ __forceinline__ void fwd_strip(float* smem, const Site& site,
     stage_strip_tile<2>({cur, old}, {site.cur, site.old}, sxr, site.xramp,
                         t, nxf, nzf);
   } else {
-    // x_product reads every staged cell: 0 where the site's buffers hold
-    // no value (past what a first pass wrote)
+    // the product reads every staged cell: 0 where the site's buffers
+    // hold no value (past what a first pass wrote)
     stage_strip_tile<2>({cur, old}, {site.cur, site.old}, sxr, site.xramp,
                         t, nxf, nzf,
                         [&](int gx, int gz) { return site.held(gx, gz); },
@@ -150,14 +160,18 @@ __device__ __forceinline__ void fwd_strip(float* smem, const Site& site,
   } else if constexpr (Site::kGpu) {
     taper_strip_tile(cur, sxr, site.zfac, site.strip, t, nxf, nzf);
   }
-  const SplitBand<H, P> band = split_band<H, P>(c.x, lane);
+  const SplitBand<H, P> band =
+      split_band<H, P>(A == Split::kX ? c.x : c.z, lane);
   for (int k = 0; k < k_steps; ++k) {
     const float amp = amps.a[k];
     const bool last = k + 1 == k_steps;
     const bool old_tapered = !Site::kGpu && k == 0;
     const StripWalk<S> walk(t, (k + 1) * H);
-    if constexpr (P > 0) {
+    if constexpr (P > 0 && A == Split::kX) {
       x_product<H, P>(xb, cur, t, walk.lo, band, pitch, warp, nwarps, lane);
+      __syncthreads();
+    } else if constexpr (P > 0) {
+      z_product<H, P>(xb, cur, t, walk.lo, band, pitch, warp, nwarps, lane);
       __syncthreads();
     }
     for (int item = warp; item < walk.items; item += nwarps) {
@@ -168,6 +182,8 @@ __device__ __forceinline__ void fwd_strip(float* smem, const Site& site,
       float w[1][S + 2 * H];
       if constexpr (P == 0) {
         strip_windows<H>(w, {cur}, t, lx0, rows, lz);
+      } else if constexpr (A == Split::kZ) {
+        strip_windows<H>(w, {cur}, t, lx0, rows, lz, pitch);
       }
 #pragma unroll
       for (int i = 0; i < S; ++i) {
@@ -175,19 +191,10 @@ __device__ __forceinline__ void fwd_strip(float* smem, const Site& site,
         if (i >= rows || gx < 0 || gx >= nxf) continue;
         const int j = lx * pitch + lz;
         const float m = strip_taper(sxr, lx, zf, ramp);
-        float lap = 0.0f;
-        float centre;
-        if constexpr (P == 0) {
-          lap = in_interior(gx, gz, H, nxf, nzf)
-                    ? strip_lap<H>(w[0], i, cur, j, c)
-                    : 0.0f;
-          centre = w[0][i + H];
-        } else {
-          lap = in_interior(gx, gz, H, nxf, nzf)
-                    ? xb[j] + axis_taps<H>(cur, j, 1, c.z)
-                    : 0.0f;
-          centre = cur[j];
-        }
+        const float lap = in_interior(gx, gz, H, nxf, nzf)
+                              ? cell_lap<H, P, A>(w[0], i, cur, xb, j, c)
+                              : 0.0f;
+        const float centre = cell_centre<H, P, A>(w[0], i, cur, j);
         const float o = old_tapered ? old[j] : old[j] * m;
         float u = (2.0f * centre - o) + site.v(gx, gz) * lap;
         u = site.inject(amp, gx, gz, u);

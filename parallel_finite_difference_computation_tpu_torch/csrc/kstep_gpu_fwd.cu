@@ -6,16 +6,19 @@
 // Replaces: parallel_finite_difference_computation_tpu/ops/pallas_stream.py,
 // _kstep_gpu_fwd_kernel (:740), called through fd_kstep_gpu_fwd_padded
 // (:796) by the JAX package's rtm_shot_snapshot_tiled with block_k > 1:
-// kstep_gpu_fwd_strip<H> its exact taps, kstep_gpu_fwd<H, 2 or 3>
-// (kstep_gpu_fwd_mma) its use_mxu branch (:753-761), the z taps in split
-// bf16 on the tensor cores (kstep.cuh, z_band).
+// kstep_gpu_fwd_strip<H> its exact taps, kstep_gpu_fwd_mma<H, 2 or 3> its
+// use_mxu branch (:753-761), the z taps in split bf16 on the tensor cores.
 //
-// The exact kernel runs the one-field strip body of fwd_strip.cuh on a
-// block's tile of 64 x 64 owned cells (a smaller shape where the halo
-// leaves that no room): the field at two time levels and the x ramp, 74.1
-// KB at order 8, K = 4, two blocks of 16 warps an SM. The split kernel
-// stages p, pp, v2*dt2 and the z product of the newest field over a 2-D
-// tile with a K*H halo (kstep.cuh).
+// Both run the one-field strip body of fwd_strip.cuh on a block's tile of
+// 64 x 64 owned cells (a smaller shape where the halo leaves that no
+// room). The exact kernel stages the field at two time levels and the x
+// ramp, 74.1 KB at order 8, K = 4, two blocks of 16 warps an SM. The split
+// kernel (Split::kZ) stages the z product of the newest field too, on rows
+// padded to 4 mod 8 floats (115.6 KB at order 8, K = 4, two blocks an SM),
+// and keeps the x taps exact from the strip's register window. On the
+// Pluto grid 48 x 64, 32 x 96 and 64 x 96 ran 9-17 % slower, and
+// __launch_bounds__(512, 1) 27 % slower (PERF.md), though at order 16 and
+// P = 3 the 64 registers of two blocks an SM spill 8 bytes.
 //
 // What bounds it on an H100: at the Pluto grid the per-step rtm_fwd_step
 // moves ~180 MB a shot-step through HBM; this pass reads p, pp and v2*dt2
@@ -30,70 +33,12 @@
 // bitwise the per-step kernel; the split one sums each mma's 16 products
 // in the tensor cores' own order.
 #include "fwd_strip.cuh"
-#include "kstep.cuh"
 
 namespace {
 
-// Staged tiles of the split kernel: p, pp, v2*dt2 and the z product of pp.
-constexpr int kSplitFields = 4;
-
-template <int H, int P>
-__global__ void __launch_bounds__(pfdc::kTileThreads)
-    kstep_gpu_fwd(const float* __restrict__ p_in,
-                  const float* __restrict__ pp_in, float* __restrict__ p_out,
-                  float* __restrict__ pp_out, const float* __restrict__ v2dt2,
-                  int v2_shot_stride, const float* __restrict__ xramp,
-                  const float* __restrict__ zfac,
-                  const float* __restrict__ strip,
-                  const int* __restrict__ sx, int sz, pfdc::Amps amps,
-                  int k_steps, int nxe, int nze, pfdc::Coefs c) {
-  static_assert(P > 0, "the exact kernel is kstep_gpu_fwd_strip");
-  extern __shared__ float smem[];
-  const pfdc::Tile t(k_steps * H);
-  const int n = t.cells();
-  float* sx_ = smem;      // p: the older field, tapered
-  float* sy = smem + n;   // pp: the newest field
-  float* sv = smem + 2 * n;
-  float* zb = smem + 3 * n;     // P > 0: the z taps of sy
-  const auto band = pfdc::split_band<H, P>(c.z);
-  const int s = blockIdx.z;
-  const size_t plane = static_cast<size_t>(nxe) * nze;
-  pfdc::load_tile(sx_, p_in + s * plane, t, nxe, nze);
-  pfdc::load_tile(sy, pp_in + s * plane, t, nxe, nze);
-  pfdc::load_tile(sv, v2dt2 + s * static_cast<size_t>(v2_shot_stride), t,
-                  nxe, nze);
-  const int src_x = sx[s];
-  for (int k = 0; k < k_steps; ++k) {
-    // taper the newest field over every cell this step's taps read
-    pfdc::for_cells(t, k * H, nxe, nze, [&](int lx, int lz, int gx, int gz) {
-      const int j = lx * t.sz + lz;
-      sy[j] = sy[j] * pfdc::taper_at(xramp, zfac, strip, gx, gz);
-    });
-    __syncthreads();
-    const float amp = amps.a[k];
-    pfdc::z_band<H, P>(zb, sy, t, (k + 1) * H, band);
-    pfdc::for_cells(t, (k + 1) * H, nxe, nze,
-                    [&](int lx, int lz, int gx, int gz) {
-      const int j = lx * t.sz + lz;
-      const float m = pfdc::taper_at(xramp, zfac, strip, gx, gz);
-      const float lap = pfdc::in_interior(gx, gz, H, nxe, nze)
-                            ? pfdc::tile_lap<H, P>(sy, zb, j, t.sz, c)
-                            : 0.0f;
-      float u = (2.0f * sy[j] - sx_[j] * m) + sv[j] * lap;
-      if (gx == src_x && gz == sz) u = u + amp;
-      sx_[j] = u;
-    });
-    float* tmp = sx_;
-    sx_ = sy;
-    sy = tmp;
-  }
-  pfdc::store_tile(p_out + s * plane, sx_, t, nxe, nze);
-  pfdc::store_tile(pp_out + s * plane, sy, t, nxe, nze);
-}
-
-// The exact kernel's site (fwd_strip.cuh): one shot's fields on the
-// (nxe, nze) grid, pp the newest level and p the older; the point source
-// at (src_x, sz); no trace.
+// The kernels' site (fwd_strip.cuh): one shot's fields on the (nxe, nze)
+// grid, pp the newest level and p the older, every cell of which holds a
+// value; the point source at (src_x, sz); no trace.
 struct KstepFwdSite {
   static constexpr bool kGpu = true;
   const float* cur;
@@ -114,8 +59,32 @@ struct KstepFwdSite {
   }
   __device__ bool records(int, int) const { return false; }
   __device__ void record(int, int, float) const {}
+  __device__ bool held(int, int) const { return true; }
   __device__ bool stored(int, int) const { return true; }
 };
+
+// One pass of the kernel with the taps exact (P = 0) or the z taps in P
+// bf16 parts.
+template <int H, int P>
+__device__ __forceinline__ void kstep_gpu_fwd_pass(
+    float* smem, const float* __restrict__ p_in,
+    const float* __restrict__ pp_in, float* __restrict__ p_out,
+    float* __restrict__ pp_out, const float* __restrict__ v2dt2,
+    int v2_shot_stride, const float* __restrict__ xramp,
+    const float* __restrict__ zfac, const float* __restrict__ strip,
+    const int* __restrict__ sx, int sz, const pfdc::Amps& amps, int k_steps,
+    int nxe, int nze, pfdc::StripShape shape, const pfdc::Coefs& c) {
+  const int s = blockIdx.z;
+  const size_t plane = static_cast<size_t>(nxe) * nze;
+  const KstepFwdSite site{
+      pp_in + s * plane, p_in + s * plane, pp_out + s * plane,
+      p_out + s * plane, v2dt2 + s * static_cast<size_t>(v2_shot_stride),
+      xramp, zfac, strip, sx[s], sz, nxe, nze};
+  const pfdc::StripTile t(k_steps * H, shape,
+                          static_cast<int>(blockIdx.y) * shape.tx,
+                          static_cast<int>(blockIdx.x) * shape.tz);
+  pfdc::fwd_strip<H, P, pfdc::Split::kZ>(smem, site, t, amps, k_steps, c);
+}
 
 template <int H>
 __global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
@@ -131,16 +100,40 @@ __global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
                         int k_steps, int nxe, int nze,
                         pfdc::StripShape shape, pfdc::Coefs c) {
   extern __shared__ float smem[];
-  const int s = blockIdx.z;
-  const size_t plane = static_cast<size_t>(nxe) * nze;
-  const KstepFwdSite site{
-      pp_in + s * plane, p_in + s * plane, pp_out + s * plane,
-      p_out + s * plane, v2dt2 + s * static_cast<size_t>(v2_shot_stride),
-      xramp, zfac, strip, sx[s], sz, nxe, nze};
-  const pfdc::StripTile t(k_steps * H, shape,
-                          static_cast<int>(blockIdx.y) * shape.tx,
-                          static_cast<int>(blockIdx.x) * shape.tz);
-  pfdc::fwd_strip<H>(smem, site, t, amps, k_steps, c);
+  kstep_gpu_fwd_pass<H, 0>(smem, p_in, pp_in, p_out, pp_out, v2dt2,
+                           v2_shot_stride, xramp, zfac, strip, sx, sz, amps,
+                           k_steps, nxe, nze, shape, c);
+}
+
+// The split twin (P = 2, 3): the same pass with the z taps in bf16 parts.
+template <int H, int P>
+__global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
+    kstep_gpu_fwd_mma(const float* __restrict__ p_in,
+                      const float* __restrict__ pp_in,
+                      float* __restrict__ p_out,
+                      float* __restrict__ pp_out,
+                      const float* __restrict__ v2dt2, int v2_shot_stride,
+                      const float* __restrict__ xramp,
+                      const float* __restrict__ zfac,
+                      const float* __restrict__ strip,
+                      const int* __restrict__ sx, int sz, pfdc::Amps amps,
+                      int k_steps, int nxe, int nze, pfdc::StripShape shape,
+                      pfdc::Coefs c) {
+  static_assert(P > 0, "kstep_gpu_fwd_strip is the exact kernel");
+  extern __shared__ float smem[];
+  kstep_gpu_fwd_pass<H, P>(smem, p_in, pp_in, p_out, pp_out, v2dt2,
+                           v2_shot_stride, xramp, zfac, strip, sx, sz, amps,
+                           k_steps, nxe, nze, shape, c);
+}
+
+// The kernel at P.
+template <int H, int P>
+auto fwd_kernel() {
+  if constexpr (P == 0) {
+    return kstep_gpu_fwd_strip<H>;
+  } else {
+    return kstep_gpu_fwd_mma<H, P>;
+  }
 }
 
 struct KstepFwdRun {
@@ -163,29 +156,19 @@ struct KstepFwdRun {
 
   template <int H, int P>
   cudaError_t launch() const {
-    if constexpr (P == 0) {
-      const pfdc::StripShape shape =
-          pfdc::strip_shape(pfdc::kFwdShapes, pfdc::kFwdStage, k * H);
-      if (shape.tx == 0) return cudaErrorInvalidValue;
-      const size_t bytes = pfdc::strip_bytes(shape, pfdc::kFwdStage, k * H);
-      const cudaError_t e = pfdc::allow_smem(kstep_gpu_fwd_strip<H>, bytes);
-      if (e != cudaSuccess) return e;
-      const dim3 grid = pfdc::strip_grid(shape, ns, nxe, nze);
-      const dim3 block(pfdc::kStripThreads);
-      kstep_gpu_fwd_strip<H><<<grid, block, bytes, stream>>>(
-          p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp, zfac, strip,
-          sx, sz, amps, k, nxe, nze, shape, c);
-    } else {
-      const size_t bytes =
-          kSplitFields * sizeof(float) * pfdc::tile_cells(k * H);
-      const cudaError_t e = pfdc::allow_smem(kstep_gpu_fwd<H, P>, bytes);
-      if (e != cudaSuccess) return e;
-      const dim3 grid = pfdc::tile_grid(ns, nxe, nze);
-      const dim3 block = pfdc::tile_block();
-      kstep_gpu_fwd<H, P><<<grid, block, bytes, stream>>>(
-          p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp, zfac, strip,
-          sx, sz, amps, k, nxe, nze, c);
-    }
+    const pfdc::StripStage stage = P ? pfdc::kFwdMmaStage : pfdc::kFwdStage;
+    const pfdc::StripShape shape =
+        pfdc::strip_shape(pfdc::kFwdShapes, stage, k * H);
+    if (shape.tx == 0) return cudaErrorInvalidValue;
+    const size_t bytes = pfdc::strip_bytes(shape, stage, k * H);
+    const auto kernel = fwd_kernel<H, P>();
+    const cudaError_t e = pfdc::allow_smem(kernel, bytes);
+    if (e != cudaSuccess) return e;
+    const dim3 grid = pfdc::strip_grid(shape, ns, nxe, nze);
+    const dim3 block(pfdc::kStripThreads);
+    kernel<<<grid, block, bytes, stream>>>(
+        p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp, zfac, strip, sx,
+        sz, amps, k, nxe, nze, shape, c);
     return cudaGetLastError();
   }
 

@@ -11,8 +11,8 @@
 //
 // gpu_step_mma lets the lane that holds an mma output do that cell's whole
 // step. The stream and rec kernels instead write the z product into a
-// second buffer behind a barrier (tile_z_mma), as kstep.cuh's z_band does,
-// and then take the cells in the exact kernels' order, threads along z
+// second buffer behind a barrier (tile_z_mma), as strip.cuh's z_product
+// does, and then take the cells in the exact kernels' order, threads along z
 // (for_tile_cells), each adding the exact x taps from the tile: every load
 // and store of a warp covers whole 32-byte sectors (the fields, a frame of
 // swf or rwf, the image), where an mma lane holds two adjacent z values of
@@ -113,7 +113,7 @@ __device__ __forceinline__ void for_tile_cells(int x0, int z0, int nxe,
 }
 
 // The split Laplacian of tile cell jt at grid cell (ix, iz): the z product
-// zb[jz] plus the exact x taps (yz + accx, kstep.cuh's tile_lap), 0 outside
+// zb[jz] plus the exact x taps (yz + accx, strip.cuh's cell_lap), 0 outside
 // the interior [H, nxe - H) x [H, nze - H).
 template <int H>
 __device__ __forceinline__ float split_lap(const float* t, const float* zb,

@@ -3,9 +3,10 @@
 // taps split block_bwd_mma, block2_bwd_mma, with the z taps split
 // kstep_gpu_bwd_mma) and the forward body of fwd_strip.cuh (kstep_mod,
 // kstep_gpu_fwd, block_mod, block_fwd; with the x taps split
-// block_mod_mma, block2_mod_mma, block_fwd_mma, block2_fwd_mma); the split
-// x product of both bodies' block instances, and the split z product of
-// the backward body's K-step instances.
+// block_mod_mma, block2_mod_mma, block_fwd_mma, block2_fwd_mma; with the z
+// taps split kstep_mod_mma, kstep_gpu_fwd_mma); the split x product of
+// both bodies' block instances, and the split z product of both bodies'
+// K-step instances.
 //
 // A block stages a tile of owned cells plus a halo of r = K*H cells on
 // both axes in dynamic shared memory: only the fields that neighbours read
@@ -254,6 +255,38 @@ __device__ __forceinline__ float strip_lap(const float (&w)[N], int i,
   return accz + window_taps<H>(w, i, c.x);
 }
 
+// The axis whose taps a split instance (P > 0) takes as the banded product.
+enum class Split { kX, kZ };
+
+// The Laplacian of strip cell i at tile cell j of the staged field f:
+// exact from the strip's x window w (P = 0); the x product xb plus the
+// exact z taps (Split::kX); or the z product (in xb) plus the window's x
+// taps (Split::kZ), the order of the JAX K-step kernels' use_mxu branch.
+template <int H, int P, Split A, int N>
+__device__ __forceinline__ float cell_lap(const float (&w)[N], int i,
+                                          const float* f, const float* xb,
+                                          int j, const Coefs& c) {
+  if constexpr (P == 0) {
+    return strip_lap<H>(w, i, f, j, c);
+  } else if constexpr (A == Split::kX) {
+    return xb[j] + axis_taps<H>(f, j, 1, c.z);
+  } else {
+    return xb[j] + window_taps<H>(w, i, c.x);
+  }
+}
+
+// The value of strip cell i at tile cell j of f: the window's where the
+// instance loads one.
+template <int H, int P, Split A, int N>
+__device__ __forceinline__ float cell_centre(const float (&w)[N], int i,
+                                             const float* f, int j) {
+  if constexpr (P == 0 || A == Split::kZ) {
+    return w[i + H];
+  } else {
+    return f[j];
+  }
+}
+
 // The x taps of the staged field f, centre included, as the P-part
 // split-bf16 banded product, into xb at every cell of the StripTile t at
 // least lo cells from its edge, f and xb with rows pitch apart; the
@@ -296,9 +329,9 @@ __device__ __forceinline__ void x_product(float* xb, const float* f,
 // The z taps of the staged field f, centre included, as the P-part
 // split-bf16 banded product, into zb at every cell of the StripTile t at
 // least lo cells from its edge, f and zb with rows pitch apart; the
-// caller's barrier follows. kstep.cuh's z_band on a strip tile: warp warp
-// of nwarps takes the region's blocks of 16 rows (the mma's rows m, along
-// x) by 8 columns (its outputs n, along z) in turn, contracting along z:
+// caller's barrier follows. Warp warp of nwarps takes the region's blocks
+// of 16 rows (the mma's rows m, along x) by 8 columns (its outputs n,
+// along z) in turn, contracting along z:
 // A[m][k] is row x0 + m of the tile at column z0 - H + k, the window of
 // output column z0 + n starting H columns before it. A fragment's lanes
 // read 8 rows at 4 columns 2 apart: at a pitch of 4 mod 8 floats (the

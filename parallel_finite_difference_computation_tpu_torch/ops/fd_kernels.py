@@ -169,12 +169,6 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
 MAX_ORDER = 16
 # A block's dynamic shared memory on an H100 (kMaxSmemBytes, csrc/kstep.cuh).
 SMEM_BYTES = 232448
-class _Tile(NamedTuple):
-    """A staged-tile split kernel's block: its owned cells (x, z), the
-    fields it stages and whether the owned image."""
-    tile: tuple
-    fields: int
-    image: bool
 
 
 class _Strip(NamedTuple):
@@ -187,16 +181,13 @@ class _Strip(NamedTuple):
     padded: bool = False
 
 
-# The staged-tile split kernels' owned cells (kTileX, kTileZ,
-# csrc/kstep.cuh).
-_TILE = (32, 64)
 # The strip bodies (csrc/bwd_strip.cuh: kBwdShapes, kBwdStage,
 # kstep_gpu_bwd and block_bwd; kBwdMmaStage, their split twins
 # block_bwd_mma and, on kBwdZMmaShapes, kstep_gpu_bwd_mma, the two
 # products staged too, on padded rows; csrc/fwd_strip.cuh: kFwdShapes,
 # kFwdStage, kstep_mod and kstep_gpu_fwd; kBlockFwdShapes, block_mod and
-# block_fwd; kFwdShapes and kBlockFwdMmaStage, block_mod_mma and
-# block_fwd_mma, the x product staged too, on padded rows).
+# block_fwd; kFwdShapes and kFwdMmaStage, the split twins of all four,
+# the x or z product staged too, on padded rows).
 _BWD_STRIP = _Strip(((32, 64), (32, 32), (16, 32), (16, 16)), 4, True)
 _BWD_MMA_STRIP = _BWD_STRIP._replace(fields=6, padded=True)
 _BWD_ZMMA_STRIP = _BWD_MMA_STRIP._replace(shapes=((32, 96),)
@@ -205,25 +196,18 @@ _FWD_STRIP = _Strip(((64, 64), (32, 64), (32, 32), (16, 32), (16, 16)), 2,
                     False)
 _BLOCK_FWD_STRIP = _FWD_STRIP._replace(shapes=((64, 96),)
                                        + _FWD_STRIP.shapes)
-_BLOCK_FWD_MMA_STRIP = _FWD_STRIP._replace(fields=3, padded=True)
+_FWD_MMA_STRIP = _FWD_STRIP._replace(fields=3, padded=True)
 # The most steps a pass of the block kernels on strip bodies takes
 # (kBlockPassSteps).
 BLOCK_PASS_STEPS = 4
-# Per kernel: its split twin's body (a staged tile, or a strip body) and
-# the exact kernel's strip body.
-_STAGED = {"kstep_mod": (_Tile(_TILE, 4, False), _FWD_STRIP),
-           "kstep_gpu_fwd": (_Tile(_TILE, 4, False), _FWD_STRIP),
+# Per kernel: its split twin's strip body and the exact kernel's.
+_STAGED = {"kstep_mod": (_FWD_MMA_STRIP, _FWD_STRIP),
+           "kstep_gpu_fwd": (_FWD_MMA_STRIP, _FWD_STRIP),
            "kstep_gpu_bwd": (_BWD_ZMMA_STRIP, _BWD_STRIP),
-           "block_mod": (_BLOCK_FWD_MMA_STRIP, _BLOCK_FWD_STRIP),
-           "block_fwd": (_BLOCK_FWD_MMA_STRIP, _BLOCK_FWD_STRIP),
+           "block_mod": (_FWD_MMA_STRIP, _BLOCK_FWD_STRIP),
+           "block_fwd": (_FWD_MMA_STRIP, _BLOCK_FWD_STRIP),
            "block_bwd": (_BWD_MMA_STRIP, _BWD_STRIP)}
 STAGING_KERNELS = tuple(_STAGED)
-
-
-def _tile_bytes(tile, r: int, fields: int, image: bool) -> int:
-    tx, tz = tile
-    return 4 * (fields * (tx + 2 * r) * (tz + 2 * r) + (tx * tz if image
-                                                        else 0))
 
 
 def _strip_bytes(shape, r: int, body: _Strip) -> int:
@@ -258,9 +242,6 @@ def smem_bytes(kernel: str, order: int, k: int, parts: int = 0) -> int:
     kernel = kernel.replace("block2_", "block_").removesuffix("_mma")
     split, exact = _STAGED[kernel]
     body = split if parts else exact
-    if isinstance(body, _Tile):
-        return _tile_bytes(body.tile, k * (order // 2), body.fields,
-                           body.image)
     if kernel.startswith("block_"):
         k = block_passes(k)[0]
     sizes = [_strip_bytes(s, k * (order // 2), body) for s in body.shapes]

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Build, check and time the split kernels on the strip bodies of
-checkouts of the PyTorch port on one CUDA card: ``kstep_gpu_bwd_mma`` (the
-z taps in bf16 parts), ``block_fwd_mma`` / ``block2_fwd_mma`` and
-``block_mod_mma`` / ``block2_mod_mma`` (the x taps in bf16 parts), each
-beside its exact twin.
+checkouts of the PyTorch port on one CUDA card: ``kstep_gpu_bwd_mma``,
+``kstep_mod_mma`` and ``kstep_gpu_fwd_mma`` (the z taps in bf16 parts),
+``block_fwd_mma`` / ``block2_fwd_mma`` and ``block_mod_mma`` /
+``block2_mod_mma`` (the x taps in bf16 parts), each beside its exact twin.
 
     python3 scripts/torch_split_probe.py TREE [TREE ...]
                                          [--variants NAME ...]
@@ -14,14 +14,15 @@ tree (building its kernels there). The process prints the compiler's
 register, shared-memory and spill lines of these kernels at orders 8 and
 16, holds the split kernels against their plain versions with the same
 parts (2 and 3) on a small ragged grid (67 x 88 extended, two shots;
-``kstep_gpu_bwd_mma`` pass by pass, the forward and modeling block
-kernels on the slabs of a (1, 2) and the tiles of a (1, 2, 2) mesh of
+the K-step kernels pass by pass, ``kstep_mod_mma`` in both source modes
+with its traces, the forward and modeling block kernels on the slabs of a (1, 2) and the tiles of a (1, 2, 2) mesh of
 cuda:0, the modeling ones in both source modes with their traces; orders
 8 and 16, K = 3, 4, 5 and 8 where the kernel takes them; fields 1e-4,
 traces and image 1e-5 max rel) and the exact ones bitwise, and then times
 them at the Pluto grid (7040 x 1281 extended, order 8, 2 shots, nt =
 1001) as ``chip_smoke.py`` times them: ``kstep_gpu_bwd`` as 250 passes of
-K = 4; each forward and modeling block kernel as 126 blocks of K = 8 (the
+K = 4, ``kstep_mod`` (the Gaussian source, the all-edge taper, the trace
+row) and ``kstep_gpu_fwd`` as 251; each forward and modeling block kernel as 126 blocks of K = 8 (the
 last of one step) on the four slabs of a (1, 4) mesh of cuda:0 or the
 four tiles of a (1, 2, 2) mesh, from fixed random states (the modeling
 kernels with the Gaussian source, the all-edge taper and the trace row);
@@ -36,11 +37,15 @@ CUDA-event samples after a warm-up. A tree whose kernel refuses a K
 kernels' launch bounds, one block an SM, ``csrc/strip.cuh``),
 ``kstep_blocks2`` (``kstep_gpu_bwd_mma``'s, two blocks an SM),
 ``fwd64x96``, ``fwd48x64``, ``fwd64x48`` and
-``fwd32x64`` (the first owned shape of ``block_fwd_mma`` and
-``block_mod_mma``, that of ``kFwdShapes`` in ``csrc/fwd_strip.cuh``,
-which the forward K-step kernels share), ``fwd_blocks1`` (the launch
-bounds of ``block_fwd_mma``, one block an SM) and ``fwd_unpadded`` (the
-rows of both at the tile's pitch), made under a
+``fwd32x64`` and ``fwd32x96`` (the first owned shape of the forward
+body's split instances, ``block_fwd_mma``, ``block_mod_mma``,
+``kstep_mod_mma`` and ``kstep_gpu_fwd_mma``, that of ``kFwdShapes`` in
+``csrc/fwd_strip.cuh``, which the exact forward K-step kernels share),
+``fwd_blocks1`` (the launch bounds of ``block_fwd_mma``, one block an
+SM), ``fwd_unpadded`` (the rows of the forward body's split instances at
+the tile's pitch) and ``zmod_blocks1`` / ``zfwd_blocks1`` (the launch
+bounds of ``kstep_mod_mma`` / ``kstep_gpu_fwd_mma``, one block an SM),
+made under a
 temporary directory. The trees run in turns, ``--rounds`` times (A, B,
 ..., then in reverse), as ``scripts/torch_bwd_probe.py`` runs them.
 Prints one JSON line per process and the medians per tree, beside the
@@ -79,8 +84,16 @@ VARIANTS = {
                     _LB + "pfdc::kStripBlocks)\n    block_fwd_mma(",
                     _LB + "1)\n    block_fwd_mma("),
     "fwd_unpadded": ("fwd_strip.cuh",
-                     "StripStage kBlockFwdMmaStage{3, false, true};",
-                     "StripStage kBlockFwdMmaStage{3, false};"),
+                     "StripStage kFwdMmaStage{3, false, true};",
+                     "StripStage kFwdMmaStage{3, false};"),
+    "fwd32x96": ("fwd_strip.cuh", _FWD_FIRST,
+                 "kFwdShapes[] = {\n    {32, 96}, {64, 64}, "),
+    "zmod_blocks1": ("kstep_mod.cu",
+                     _LB + "pfdc::kStripBlocks)\n    kstep_mod_mma(",
+                     _LB + "1)\n    kstep_mod_mma("),
+    "zfwd_blocks1": ("kstep_gpu_fwd.cu",
+                     _LB + "pfdc::kStripBlocks)\n    kstep_gpu_fwd_mma(",
+                     _LB + "1)\n    kstep_gpu_fwd_mma("),
 }
 
 CHILD = r'''
@@ -97,17 +110,17 @@ mesh_mod = __import__(pkg + ".parallel", fromlist=["x"])
 dev = torch.device("cuda", 0)
 build.library()
 fn = None
+ptxas = []        # printed after the checks, whose lines stderr's tail keeps
 for line in build.build_log().splitlines():
     m = re.search(r"Compiling entry function '(\S+)'", line)
     if m:
         fn = m.group(1)
     # the order-8 and order-16 instances (H = 4, 8)
-    pat = r"(kstep_gpu_bwd\w*|block2?_(?:fwd|mod)\w*)ILi[48]E"
+    pat = r"\d(kstep_\w*|block2?_(?:fwd|mod)\w*)ILi[48]E"
     if fn and re.search(pat, fn) and ("registers" in line or "spill" in line):
-        name = re.search(r"(kstep_gpu_bwd\w*?|block2?_(?:fwd|mod)\w*?)EEv",
-                         fn)
-        print(f"[ptxas] {name[1] if name else fn[:60]}: {line.strip()}",
-              file=sys.stderr)
+        name = re.search(r"\d(kstep_\w*?|block2?_(?:fwd|mod)\w*?)EEv", fn)
+        ptxas.append(f"[ptxas] {name[1] if name else fn[:60]}: "
+                     f"{line.strip()}")
 res = {"bitwise": True}
 n_checks = 0
 rng = np.random.default_rng(0)
@@ -156,6 +169,29 @@ for order in (8, 16):
                 continue
             judge(f"kstep_gpu_bwd parts {parts} order {order} K {k}", got,
                   want, parts, (1e-4,) * 4 + (1e-5,))
+        # the forward K-step kernels: kstep_mod in both source modes (its
+        # traces within 1e-5), kstep_gpu_fwd
+        a = np.float32(rng.standard_normal(k))
+        for name, mode in (("kstep_mod", ("gaussian", "all")),
+                           ("kstep_mod", ("point", "top")),
+                           ("kstep_gpu_fwd", None)):
+            for parts in (0, 2, 3):
+                if mode is None:
+                    call = lambda s, v: stream.fd_forward_kstep_cuda(
+                        ctx, *s[:2], v, a, (31, 63), 62, parts=parts)
+                else:
+                    call = lambda s, v: stream.mod_kstep_cuda(
+                        ctx, *s[:2], v[0], a, (31, 63), 62, 64, *mode,
+                        parts=parts)
+                want = call(st, v2)
+                try:
+                    got = call([x.to(dev) for x in st], v2.to(dev))
+                except ValueError as e:
+                    print(f"[check] {name} parts {parts} order {order} K "
+                          f"{k}: refused ({str(e)[:50]})", file=sys.stderr)
+                    continue
+                judge(f"{name} {mode} parts {parts} order {order} K {k}",
+                      got, want, parts, (1e-4, 1e-4, 1e-5))
     # the forward kernels; the modeling ones with the Gaussian source and
     # the all-edge taper (one velocity plane) and with the point source
     # and the top taper, their traces within 1e-5
@@ -196,6 +232,7 @@ for order in (8, 16):
                         judge(f"{name} {source} parts {parts} order "
                               f"{order} K {k} tile {j}", got, want, parts,
                               (1e-4, 1e-4, 1e-5))
+print("\n".join(ptxas), file=sys.stderr)
 print(f"[check] {n_checks} cases, {'all held' if res['bitwise'] else 'FAILED'}",
       file=sys.stderr)
 
@@ -232,7 +269,27 @@ for parts, sfx in ((0, ""), (2, "_mma"), (3, "_mma mxu6")):
                                       parts=parts)
 
     res["kstep_gpu_bwd" + sfx] = median_ms(kstep)
-del st, img, inj, consts
+wav = np.float32(rng.standard_normal(ctx.nt))
+v2m = v2[0]                     # one plane: consts hold to the tensor
+cm = stream.prepare(ctx, v2m, [2740, 2760], source="gaussian", taper="all")
+cf = stream.prepare(ctx, v2, [2740, 2760], source="point", taper="top")
+for parts, sfx in ((0, ""), (2, "_mma"), (3, "_mma mxu6")):
+
+    def kmod():
+        for it0 in range(0, ctx.nt, 4):
+            stream.mod_kstep_cuda(ctx, *st[:2], v2m, wav[it0:it0 + 4],
+                                  [2740, 2760], 40, 40, consts=cm,
+                                  parts=parts)
+
+    def kfwd():
+        for it0 in range(0, ctx.nt, 4):
+            stream.fd_forward_kstep_cuda(ctx, *st[:2], v2, wav[it0:it0 + 4],
+                                         [2740, 2760], 40, consts=cf,
+                                         parts=parts)
+
+    res["kstep_mod" + sfx] = median_ms(kmod)
+    res["kstep_gpu_fwd" + sfx] = median_ms(kfwd)
+del st, img, inj, consts, cm, cf, v2m
 K = 8
 for name, shape, prep, kern, geometry in (
         ("block_fwd", (1, 4), dk.prepare_tiles, dk.block_fwd_cuda,

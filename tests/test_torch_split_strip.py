@@ -1,17 +1,24 @@
 """The split kernels on the strip bodies against their plain versions with
 the same parts on the card: ``kstep_gpu_bwd_mma`` (the backward strip body
-of ``csrc/bwd_strip.cuh`` with the z taps in bf16 parts), and
+of ``csrc/bwd_strip.cuh`` with the z taps in bf16 parts),
+``kstep_mod_mma`` and ``kstep_gpu_fwd_mma`` (the forward strip body of
+``csrc/fwd_strip.cuh`` with the z taps in bf16 parts), and
 ``block_mod_mma`` / ``block2_mod_mma`` and ``block_fwd_mma`` /
-``block2_fwd_mma`` (the forward strip body of ``csrc/fwd_strip.cuh`` with
-the x taps in bf16 parts, in passes). Each mma sums its products in the
-card's own order, so the gates are those of the split tiers: fields 1e-4,
-traces and image 1e-5 of the plain result's max.
+``block2_fwd_mma`` (the forward strip body with the x taps in bf16 parts,
+in passes). Each mma sums its products in the card's own order, so the
+gates are those of the split tiers: fields 1e-4, traces and image 1e-5 of
+the plain result's max.
 
 * ``stream.fd_back_kstep_cuda(..., parts=)`` against the plain pass
   (``solver.fd_back_kstep`` with the same split z taps) at orders 4, 8,
   10, 12 and 16 and every K from 1 to 8 whose tile fits a block (a K
   that does not is refused), on two ragged grids (no multiple of the
   owned shapes), parts 2 and 3; one launch a pass.
+* ``stream.mod_kstep_cuda(..., parts=)`` in both source modes (the
+  Gaussian source with the all-edge taper, the point source with the top
+  taper), the trace rows included, and ``stream.fd_forward_kstep_cuda(...,
+  parts=)`` against ``solver.mod_kstep`` / ``solver.fd_forward_kstep``
+  with the same split z taps, likewise.
 * ``block_fwd_cuda(..., parts=)`` on the slabs of a (1, 2) mesh and
   ``block2_fwd_cuda`` on the tiles of a (1, 2, 2) mesh of the card against
   ``dk.block_fwd`` with the same parts at the same orders and every K the
@@ -21,9 +28,9 @@ traces and image 1e-5 of the plain result's max.
   ``dk.block_mod``, in both source modes (the Gaussian source with the
   all-edge taper, the point source with the top taper), the trace rows
   included.
-* One pass of K = 4 at the Pluto grid (7040 x 1281 extended, order 8) and
-  one block of K = 8 of the forward and modeling twins on its slabs and
-  tiles, parts 2 and 3.
+* One pass of K = 4 of each K-step kernel at the Pluto grid (7040 x 1281
+  extended, order 8) and one block of K = 8 of the forward and modeling
+  block twins on its slabs and tiles, parts 2 and 3.
 
 Card-only: every case is marked ``cuda`` and skips where there is none
 (``python -m pytest tests/test_torch_split_strip.py -m cuda --noconftest``
@@ -109,6 +116,73 @@ def test_kstep_gpu_bwd_mma_matches_plain_on_the_card(cuda_device, grid,
     assert calls >= 4                  # the pipelines' K = 4 at every order
     assert {n: v for n, v in stream.LAUNCHES.items() if v} == {
         "kstep_gpu_bwd_mma": calls}
+
+
+def _kstep_fwd(ctx, rng, device, k, parts, mode, sxs=(31, 63), sz=62,
+               gz=64):
+    """One pass of k steps of a split forward K-step kernel against the
+    plain pass with the z taps in the same parts, on the same random state
+    on the card: ``kstep_mod_mma`` in the source mode ``mode`` (source,
+    taper), recording row gz, or ``kstep_gpu_fwd_mma`` (mode None). The
+    default sources and row lie across the edges of the 64 x 64 and 32 x
+    64 owned shapes."""
+    p, pp = (_f32(rng, 2, ctx.nxe, ctx.nze).to(device) for _ in range(2))
+    v2 = _v2(rng, ctx).to(device)
+    amps = np.float32(rng.standard_normal(k))
+    lap = solver.laplacian_of(ctx, parts, axis="z")
+    if mode is None:
+        want = solver.fd_forward_kstep(ctx, p, pp, v2, amps, sxs, sz, lap)
+        got = stream.fd_forward_kstep_cuda(ctx, p, pp, v2, amps, sxs, sz,
+                                           parts=parts)
+    else:
+        want = solver.mod_kstep(ctx, p, pp, v2[0], amps, sxs, sz, gz, *mode,
+                                lap)
+        got = stream.mod_kstep_cuda(ctx, p, pp, v2[0], amps, sxs, sz, gz,
+                                    *mode, parts=parts)
+    torch.cuda.synchronize()
+    _within(got, want, (1e-4, 1e-4, 1e-5))
+
+
+def _kstep_fwd_passes(device, grid, order, parts, name, modes):
+    """_kstep_fwd at every K from 1 to 8 in each mode of ``modes``, a K
+    whose tile does not fit a block refused; one launch of ``name``_mma a
+    pass."""
+    rng = np.random.default_rng(order + 10 * parts + len(modes))
+    ctx = _ctx(grid, order)
+    stream.reset_launches()
+    calls = 0
+    for k in range(1, stream.MAX_STEPS + 1):
+        for mode in modes:
+            if fk.smem_bytes(name, order, k, parts) > fk.SMEM_BYTES:
+                with pytest.raises(ValueError, match="shared memory"):
+                    _kstep_fwd(ctx, rng, device, k, parts, mode)
+                continue
+            _kstep_fwd(ctx, rng, device, k, parts, mode)
+            calls += 1
+    # every K up to 7 at every order, and K = 8 up to order 14
+    assert calls >= 7 * len(modes)
+    assert {n: v for n, v in stream.LAUNCHES.items() if v} == {
+        f"{name}_mma": calls}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("grid", GRIDS)
+def test_kstep_mod_mma_matches_plain_on_the_card(cuda_device, grid, order,
+                                                 parts):
+    _kstep_fwd_passes(cuda_device, grid, order, parts, "kstep_mod",
+                      [("gaussian", "all"), ("point", "top")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("grid", GRIDS)
+def test_kstep_gpu_fwd_mma_matches_plain_on_the_card(cuda_device, grid,
+                                                     order, parts):
+    _kstep_fwd_passes(cuda_device, grid, order, parts, "kstep_gpu_fwd",
+                      [None])
 
 
 def _fwd_tiles(ctx, shape, k, device):
@@ -219,6 +293,9 @@ def test_split_strip_kernels_match_plain_at_pluto(cuda_device, parts):
     rng = np.random.default_rng(parts)
     ctx = solver.FDContext.create(**PLUTO)
     _kstep_bwd(ctx, rng, cuda_device, 4, parts, 40)
+    for mode in (("gaussian", "all"), ("point", "top"), None):
+        _kstep_fwd(ctx, rng, cuda_device, 4, parts, mode, sxs=(2740, 2760),
+                   sz=40, gz=40)
     for shape in ((1, 4), (1, 2, 2)):
         kernel = dk.block_fwd_cuda if len(shape) == 2 else d2k.block2_fwd_cuda
         prep, geometry = ((dk.prepare_tiles, dk.slab_geometry)

@@ -431,25 +431,37 @@ def test_wrappers_raise_on_bad_inputs(bad):
 def test_shared_memory_of_the_kernels():
     """The staging kernels' tiles, as their C sources size them, against
     the wrappers' mirror (``fk.smem_bytes``, which the pipelines' K choice
-    reads): the staged-tile split K-step kernels (``kstep_mod_mma``,
-    ``kstep_gpu_fwd_mma``: p, pp, v2*dt2 and the z taps' product), and the
-    strip kernels, each on the first of its body's owned shapes that fits:
-    kstep_mod, kstep_gpu_fwd, block_mod and block_fwd on fwd_strip.cuh's
-    (the field at two time levels and the x ramp), block_mod_mma and
-    block_fwd_mma on shapes of their own (the x product staged too, on
-    padded rows), kstep_gpu_bwd and block_bwd on bwd_strip.cuh's (four
-    staged fields, the owned image and the x ramp), kstep_gpu_bwd_mma and
-    block_bwd_mma on the same shapes (the two z or x products staged too,
-    on padded rows), the block kernels on strip bodies staging the steps
-    of the longer of their passes. Which (kernel, order, K) the card
-    refuses up to order 16, and that every tile fits at the pipelines' K up
-    to order 10; the wrappers' step limit is the kernels'."""
+    reads): every staging kernel runs a strip body, on the first of its
+    owned shapes that fits: kstep_mod, kstep_gpu_fwd, block_mod and
+    block_fwd on fwd_strip.cuh's (the field at two time levels and the x
+    ramp; the block kernels a shape list of their own), their split twins
+    on the K-step kernels' shapes with the z product (kstep_mod_mma,
+    kstep_gpu_fwd_mma) or the x product (block_mod_mma, block_fwd_mma)
+    staged too, on padded rows;
+    kstep_gpu_bwd and block_bwd on bwd_strip.cuh's (four staged fields,
+    the owned image and the x ramp), kstep_gpu_bwd_mma and block_bwd_mma
+    (the two z or x products staged too, on padded rows), the block kernels
+    staging the steps of the longer of their passes. Which (kernel, order,
+    K) the card refuses up to order 16, and that every tile fits at the
+    pipelines' K up to order 10; the wrappers' step limit is the
+    kernels'."""
     csrc = pathlib.Path(stream.__file__).parents[1] / "csrc"
     const = {m[1]: int(m[2]) for m in re.finditer(
         r"constexpr int (k\w+) = (\d+);", (csrc / "kstep.cuh").read_text())}
     assert stream.MAX_STEPS == const["kMaxSteps"]
-    tx, tz, limit = const["kTileX"], const["kTileZ"], const["kMaxSmemBytes"]
+    limit = const["kMaxSmemBytes"]
     assert limit == fk.SMEM_BYTES
+    # the staged-tile body of kstep.cuh is gone: no source defines or
+    # calls its pieces
+    # (lap_padded.cu and step_mma.cu have a Tile of their own)
+    for src in csrc.iterdir():
+        text = src.read_text()
+        for gone in ("kTileThreads", "pfdc::Tile", "for_cells", "load_tile",
+                     "store_tile", "z_band", "tile_lap", "kSplitFields",
+                     "tile_cells", "tile_block"):
+            assert not re.search(rf"\b{gone}\b", text), (src.name, gone)
+    assert not re.search(r"\b(struct Tile|kTileX|kTileZ)\b",
+                         (csrc / "kstep.cuh").read_text())
 
     # the strip bodies' shapes and stages (csrc/bwd_strip.cuh,
     # csrc/fwd_strip.cuh) and their bytes (csrc/strip.cuh), a padded
@@ -476,12 +488,12 @@ def test_shared_memory_of_the_kernels():
         return shapes, int(fields), image == "true", padded == "true"
 
     # the forward body's block kernels take a shape list of their own, its
-    # split instances the K-step kernels' shapes and a stage of their own;
-    # the backward body's split instances a stage, and kstep_gpu_bwd_mma a
-    # shape list of its own
+    # split instances (K-step and block) a stage of their own on the
+    # K-step kernels' shapes; the backward body's split instances a stage,
+    # and kstep_gpu_bwd_mma a shape list of its own
     bodies = {"Bwd": body("Bwd"), "Fwd": body("Fwd"),
               "BlockFwd": body("Fwd", "BlockFwd"),
-              "BlockFwdMma": body("Fwd", stage_of="BlockFwdMma"),
+              "FwdMma": body("Fwd", stage_of="FwdMma"),
               "BwdMma": body("Bwd", stage_of="BwdMma"),
               "BwdZMma": body("Bwd", "BwdZMma", "BwdMma")}
     assert bodies == {
@@ -493,8 +505,8 @@ def test_shared_memory_of_the_kernels():
                 False, False),
         "BlockFwd": ([(64, 96), (64, 64), (32, 64), (32, 32), (16, 32),
                       (16, 16)], 2, False, False),
-        "BlockFwdMma": ([(64, 64), (32, 64), (32, 32), (16, 32), (16, 16)],
-                        3, False, True)}
+        "FwdMma": ([(64, 64), (32, 64), (32, 32), (16, 32), (16, 16)], 3,
+                   False, True)}
 
     def strip_smem(name, order, k):
         """strip_shape of the body ``name``: the first shape that fits;
@@ -512,42 +524,34 @@ def test_shared_memory_of_the_kernels():
         """Bytes of a block of ``kernel`` (``*_mma``: its split variant,
         P > 0 in the same source), from its launcher."""
         src = (csrc / f"{kernel.removesuffix('_mma')}.cu").read_text()
-        if kernel.startswith("kstep_gpu_bwd"):
-            # one launcher for every P, the shapes and stage of its P = 0
-            # or P > 0 instances (the split one: kstep_gpu_bwd_mma)
-            assert re.search(
-                r"const pfdc::StripStage stage = P \? pfdc::kBwdMmaStage : "
-                r"pfdc::kBwdStage;\s*const pfdc::StripShape shape =\s*P \? "
-                r"pfdc::strip_shape\(pfdc::kBwdZMmaShapes, stage, k \* H\)"
-                r"\s*: pfdc::strip_shape\(pfdc::kBwdShapes, stage, k \* H\);"
-                r"\s*if \(shape\.tx == 0\) return cudaErrorInvalidValue;\s*"
-                r"const size_t bytes = pfdc::strip_bytes\(shape, stage, k \* "
-                r"H\);", src)
-            assert "kSplitFields" not in src and "kTileX" not in src
-            return strip_smem("BwdZMma" if kernel.endswith("_mma") else "Bwd",
-                              order, k)
+        # one launcher for every P, the stage of its P = 0 or P > 0
+        # instances (the split one: kernel_mma); kstep_gpu_bwd_mma on
+        # shapes of its own
+        name = "Bwd" if kernel.startswith("kstep_gpu_bwd") else "Fwd"
+        shapes = (rf"P \? pfdc::strip_shape\(pfdc::kBwdZMmaShapes, stage, "
+                  rf"k \* H\)\s*: pfdc::strip_shape\(pfdc::kBwdShapes, "
+                  rf"stage, k \* H\);" if name == "Bwd" else
+                  rf"pfdc::strip_shape\(pfdc::kFwdShapes, stage, k \* H\);")
+        assert re.search(
+            rf"const pfdc::StripStage stage = P \? pfdc::k{name}MmaStage : "
+            rf"pfdc::k{name}Stage;\s*const pfdc::StripShape shape =\s*"
+            rf"{shapes}\s*if \(shape\.tx == 0\) return "
+            rf"cudaErrorInvalidValue;\s*const size_t bytes = pfdc::"
+            rf"strip_bytes\(shape, stage, k \* H\);", src), kernel
         if not kernel.endswith("_mma"):
-            name = "Fwd"
-            assert re.search(
-                rf"if constexpr \(P == 0\) \{{\s*const pfdc::StripShape "
-                rf"shape =\s*pfdc::strip_shape\(pfdc::k{name}Shapes, "
-                rf"pfdc::k{name}Stage, k \* H\);(?:.|\n)*?pfdc::strip_bytes"
-                rf"\(shape, pfdc::k{name}Stage, k \* H\)", src)
             return strip_smem(name, order, k)
-        assert re.search(r"kSplitFields \* (?:sizeof\(float\) \* )?"
-                         r"pfdc::tile_cells", src)
-        fields = int(re.search(r"kSplitFields = (\d);", src)[1])
-        image = tx * tz if "pfdc::kTileX) * pfdc::kTileZ" in src else 0
-        r = k * (order // 2)
-        return 4 * (fields * (tx + 2 * r) * (tz + 2 * r) + image)
+        return strip_smem("BwdZMma" if name == "Bwd" else "FwdMma", order, k)
 
     # order 8, K = 4: (32 + 32) x (64 + 32) cells a field, (64 + 32)^2 on
     # the forward body's 64 x 64 owned cells
     assert smem("kstep_mod", 8, 4) == 4 * (2 * 96 * 96 + 96)
     assert smem("kstep_gpu_fwd", 8, 4) == 4 * (2 * 96 * 96 + 96)
     assert smem("kstep_gpu_bwd", 8, 4) == 4 * (4 * 64 * 96 + 32 * 64 + 64)
-    assert smem("kstep_mod_mma", 8, 4) == 4 * 4 * 64 * 96
-    assert smem("kstep_gpu_fwd_mma", 8, 4) == 4 * 4 * 64 * 96
+    # the split forward: 64 x 64 owned cells, three fields at a pitch of
+    # 100 (the staged tile took 4 * 4 * 64 * 96: four fields on 32 x 64)
+    assert smem("kstep_mod_mma", 8, 4) == 4 * (3 * 96 * 100 + 96)
+    assert smem("kstep_gpu_fwd_mma", 8, 4) == 4 * (3 * 96 * 100 + 96)
+    assert 2 * (smem("kstep_mod_mma", 8, 4) + 1024) <= 228 * 1024
     # the split backward: 32 x 96 owned cells, six fields at a pitch of 132
     assert smem("kstep_gpu_bwd_mma", 8, 4) == 4 * (6 * 64 * 132 + 32 * 96
                                                    + 64)
@@ -574,13 +578,13 @@ def test_shared_memory_of_the_kernels():
                           ("block_fwd", "BlockFwdRun"),
                           ("block_bwd", "BlockBwdRun"))}
     strip_of = {"block_mod": "BlockFwd", "block_fwd": "BlockFwd",
-                "block_mod_mma": "BlockFwdMma", "block_fwd_mma": "BlockFwdMma",
+                "block_mod_mma": "FwdMma", "block_fwd_mma": "FwdMma",
                 "block_bwd": "Bwd", "block_bwd_mma": "BwdMma"}
     # block_mod and block_fwd and their split twins: one pass launcher and
     # one pass rule for every P, the shapes and stage of its P = 0 or P > 0
     # instances (fwd_pass_tile)
     assert re.search(r"FwdPassTile fwd_pass_tile\(int k_steps\) \{\s*const "
-                     r"pfdc::StripStage stage = P \? pfdc::kBlockFwdMmaStage "
+                     r"pfdc::StripStage stage = P \? pfdc::kFwdMmaStage "
                      r": pfdc::kFwdStage;\s*const pfdc::StripShape shape =\s*"
                      r"P \? pfdc::strip_shape\(pfdc::kFwdShapes, stage, "
                      r"k_steps \* H\)\s*: pfdc::strip_shape\(pfdc::kBlock"
@@ -700,18 +704,22 @@ def test_shared_memory_of_the_kernels():
     # the split tier at TILED_BLOCK_K = 4: RTM and modeling up to order 16
     # (the split backward on its strip body: at order 16, K = 4, 16 x 32
     # owned cells; its staged tile took K = 3 at most at orders 12 and 14,
-    # 2 at 16)
+    # 2 at 16). The split forward kernels on the forward strip body refuse
+    # only order 16's K = 8 (16 x 16 owned cells: 256.3 KB); their staged
+    # tile refused K = 8 at order 10, 7 at 12, 6 at 14, 5 at 16.
     assert refused_split == {
         8: {"kstep_mod_mma": None, "kstep_gpu_fwd_mma": None,
             "kstep_gpu_bwd_mma": None},
-        10: {"kstep_mod_mma": 8, "kstep_gpu_fwd_mma": 8,
+        10: {"kstep_mod_mma": None, "kstep_gpu_fwd_mma": None,
              "kstep_gpu_bwd_mma": None},
-        12: {"kstep_mod_mma": 7, "kstep_gpu_fwd_mma": 7,
+        12: {"kstep_mod_mma": None, "kstep_gpu_fwd_mma": None,
              "kstep_gpu_bwd_mma": 7},
-        14: {"kstep_mod_mma": 6, "kstep_gpu_fwd_mma": 6,
+        14: {"kstep_mod_mma": None, "kstep_gpu_fwd_mma": None,
              "kstep_gpu_bwd_mma": 6},
-        16: {"kstep_mod_mma": 5, "kstep_gpu_fwd_mma": 5,
+        16: {"kstep_mod_mma": 8, "kstep_gpu_fwd_mma": 8,
              "kstep_gpu_bwd_mma": 6}}
+    assert smem("kstep_mod_mma", 16, 8) == 4 * (3 * 144 * 148 + 144)
+    assert smem("kstep_gpu_fwd_mma", 16, 4) == 4 * (3 * 128 * 132 + 128)
     assert smem("kstep_gpu_bwd_mma", 16, 4) == 4 * (6 * 80 * 100 + 16 * 32
                                                     + 80)
     # the split block kernels, in two passes, fit every K up to order 16

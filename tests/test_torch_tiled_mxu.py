@@ -43,6 +43,12 @@ PARITY = 5e-6
 TR = 16                      # tile_rows of the JAX streaming kernels
 
 
+def _tile_rows(order, k):
+    """TR, or the JAX kernels' least tile_rows for a halo of k*h rows (a
+    multiple of 8 at least as large)."""
+    return max(TR, -(-k * (order // 2) // 8) * 8)
+
+
 def max_rel(got, want) -> float:
     got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     want = np.asarray(want)
@@ -68,17 +74,17 @@ def _velocity(rng, ctx, ns=None):
     return ((1500.0 + 500.0 * rng.random(shape)).astype(np.float32)) ** 2
 
 
-def _pad(a, ctx):
-    return to_padded(jnp.asarray(a), ctx.order, TR)
+def _pad(a, ctx, tr=TR):
+    return to_padded(jnp.asarray(a), ctx.order, tr)
 
 
-def _unpad(a, ctx):
-    return np.asarray(from_padded(a, ctx.nxe, ctx.nze, ctx.order, TR))
+def _unpad(a, ctx, tr=TR):
+    return np.asarray(from_padded(a, ctx.nxe, ctx.nze, ctx.order, tr))
 
 
-def _v2m(ctx, v2):
+def _v2m(ctx, v2, tr=TR):
     return _pad(v2 * np.float32(ctx.dt2)
-                * lap_interior_mask(ctx.nxe, ctx.nze, ctx.order), ctx)
+                * lap_interior_mask(ctx.nxe, ctx.nze, ctx.order), ctx, tr)
 
 
 def _lap(ctx, lap_impl):
@@ -91,63 +97,68 @@ def _shots(ctx):
 
 
 # Each axis a few times, not the full product: order 8 at K = 2, 3, 4 with
-# both split tiers; orders 4 and 16 (two k-steps of 16 a window) at K = 2.
+# both split tiers; orders 4 and 16 (two k-steps of 16 a window) at K = 2;
+# the tiled tier's K = 4 at orders 12 and 16, and order 8 at K = 8, which
+# the split kernels' tiles take on the forward strip body.
 CASES = [(8, 2, "mxu"), (8, 3, "mxu"), (8, 4, "mxu"), (8, 2, "mxu6"),
          (8, 3, "mxu6"), (8, 4, "mxu6"), (4, 2, "mxu"), (4, 2, "mxu6"),
-         (16, 2, "mxu"), (16, 2, "mxu6")]
+         (16, 2, "mxu"), (16, 2, "mxu6"), (12, 4, "mxu"), (16, 4, "mxu6"),
+         (8, 8, "mxu")]
 
 
 # ------------------------------------------------ one pass against Pallas
 
 @pytest.mark.parametrize("order,k,lap_impl", CASES)
 def test_mod_kstep_split_matches_pallas(order, k, lap_impl):
+    tr = _tile_rows(order, k)
     jctx, ctx = _ctxs(order, exact=False)
     rng = np.random.default_rng(10 * order + k)
     p, pp, v2 = _field(rng, ctx), _field(rng, ctx), _velocity(rng, ctx)
     amps = rng.standard_normal(k).astype(np.float32)
     sx, sz, gz = ctx.nxb + 10, ctx.nzb + 3, ctx.nzb + 1
-    R, W, row0, col0 = padded_layout(ctx.nxe, ctx.nze, order, TR)
+    R, W, row0, col0 = padded_layout(ctx.nxe, ctx.nze, order, tr)
     inj48, win0 = injection_window(jnp.asarray(ctx.source_patch),
                                    row0 + sx - 3, col0 + sz - 3, ctx.nxe,
-                                   ctx.nze, order, TR,
-                                   mask_pad=_pad(ctx.mask_all, ctx))
+                                   ctx.nze, order, tr,
+                                   mask_pad=_pad(ctx.mask_all, ctx, tr))
     mrow, mzp = separable_mask_operands(
-        *j_mask_ramps(ctx.mask_all, ctx.mask_top, "all", ctx.nzb), order, TR)
+        *j_mask_ramps(ctx.mask_all, ctx.mask_top, "all", ctx.nzb), order, tr)
     jp, jpp, jrec = fd_kstep_padded(
-        _pad(p, ctx), _pad(pp, ctx), _v2m(ctx, v2), mrow, mzp, inj48, win0,
-        jnp.asarray(amps), col0 + gz, ctx.coefs_x, ctx.coefs_z, order,
-        ctx.nxe, ctx.nze, k, TR, interpret=True, lap_impl=lap_impl)
+        _pad(p, ctx, tr), _pad(pp, ctx, tr), _v2m(ctx, v2, tr), mrow, mzp,
+        inj48, win0, jnp.asarray(amps), col0 + gz, ctx.coefs_x, ctx.coefs_z,
+        order, ctx.nxe, ctx.nze, k, tr, interpret=True, lap_impl=lap_impl)
     tp, tpp, trec = solver.mod_kstep(
         ctx, torch.from_numpy(p[None]), torch.from_numpy(pp[None]),
         torch.from_numpy(v2), amps, [sx], sz, gz, lap=_lap(ctx, lap_impl))
-    assert max_rel(tp[0], _unpad(jp, ctx)) <= PARITY
-    assert max_rel(tpp[0], _unpad(jpp, ctx)) <= PARITY
+    assert max_rel(tp[0], _unpad(jp, ctx, tr)) <= PARITY
+    assert max_rel(tpp[0], _unpad(jpp, ctx, tr)) <= PARITY
     rows = np.asarray(jrec)[row0 + ctx.nxb:row0 + ctx.nxb + ctx.nx, :k]
     assert max_rel(trec[0], rows.T) <= PARITY
 
 
 @pytest.mark.parametrize("order,k,lap_impl", CASES)
 def test_fd_forward_kstep_split_matches_pallas(order, k, lap_impl):
+    tr = _tile_rows(order, k)
     jctx, ctx = _ctxs(order)
     rng = np.random.default_rng(20 * order + k)
     p, pp, v2 = _field(rng, ctx), _field(rng, ctx), _velocity(rng, ctx)
     amps = rng.standard_normal(k).astype(np.float32)
     sx, sz = ctx.nxb + 9, ctx.nzb + 2
-    R, W, row0, col0 = padded_layout(ctx.nxe, ctx.nze, order, TR)
+    R, W, row0, col0 = padded_layout(ctx.nxe, ctx.nze, order, tr)
     point48, win0 = injection_window(jnp.ones((1, 1), jnp.float32),
                                      row0 + sx, col0 + sz, ctx.nxe, ctx.nze,
-                                     order, TR)
+                                     order, tr)
     mrow, mzp = separable_mask_operands(
-        *j_mask_ramps(ctx.mask_all, ctx.mask_top, "top", ctx.nzb), order, TR)
+        *j_mask_ramps(ctx.mask_all, ctx.mask_top, "top", ctx.nzb), order, tr)
     jp, jpp = fd_kstep_gpu_fwd_padded(
-        _pad(p, ctx), _pad(pp, ctx), _v2m(ctx, v2), mrow, mzp, point48, win0,
-        jnp.asarray(amps), ctx.coefs_x, ctx.coefs_z, order, ctx.nxe, ctx.nze,
-        k, TR, interpret=True, lap_impl=lap_impl)
+        _pad(p, ctx, tr), _pad(pp, ctx, tr), _v2m(ctx, v2, tr), mrow, mzp,
+        point48, win0, jnp.asarray(amps), ctx.coefs_x, ctx.coefs_z, order,
+        ctx.nxe, ctx.nze, k, tr, interpret=True, lap_impl=lap_impl)
     tp, tpp = solver.fd_forward_kstep(
         ctx, torch.from_numpy(p[None]), torch.from_numpy(pp[None]),
         torch.from_numpy(v2), amps, [sx], sz, _lap(ctx, lap_impl))
-    assert max_rel(tp[0], _unpad(jp, ctx)) <= PARITY
-    assert max_rel(tpp[0], _unpad(jpp, ctx)) <= PARITY
+    assert max_rel(tp[0], _unpad(jp, ctx, tr)) <= PARITY
+    assert max_rel(tpp[0], _unpad(jpp, ctx, tr)) <= PARITY
 
 
 def _image_ext(ctx, img):
@@ -162,6 +173,7 @@ def _image(ctx, ext):
 
 @pytest.mark.parametrize("order,k,lap_impl", CASES)
 def test_fd_back_kstep_split_matches_pallas(order, k, lap_impl):
+    tr = _tile_rows(order, k)
     jctx, ctx = _ctxs(order)
     rng = np.random.default_rng(30 * order + k)
     fields = [_field(rng, ctx) for _ in range(4)]
@@ -169,23 +181,23 @@ def test_fd_back_kstep_split_matches_pallas(order, k, lap_impl):
     img = rng.standard_normal((ctx.nx, ctx.nz)).astype(np.float32)
     inj = rng.standard_normal((k, ctx.nx)).astype(np.float32)
     gz = ctx.nzb + 1
-    R, W, row0, col0 = padded_layout(ctx.nxe, ctx.nze, order, TR)
+    R, W, row0, col0 = padded_layout(ctx.nxe, ctx.nze, order, tr)
     sism = np.zeros((R, 128), np.float32)
     sism[row0 + ctx.nxb:row0 + ctx.nxb + ctx.nx, :k] = inj.T
     mrow, mzp = separable_mask_operands(
-        *j_mask_ramps(ctx.mask_all, ctx.mask_top, "top", ctx.nzb), order, TR)
+        *j_mask_ramps(ctx.mask_all, ctx.mask_top, "top", ctx.nzb), order, tr)
     jout = fd_kstep_gpu_bwd_padded(
-        *(_pad(f, ctx) for f in fields), _v2m(ctx, v2), mrow, mzp,
-        jnp.asarray(sism), _pad(_image_ext(ctx, img), ctx), col0 + gz,
+        *(_pad(f, ctx, tr) for f in fields), _v2m(ctx, v2, tr), mrow, mzp,
+        jnp.asarray(sism), _pad(_image_ext(ctx, img), ctx, tr), col0 + gz,
         ctx.coefs_x, ctx.coefs_z, order, ctx.nxe, ctx.nze, ctx.nzb, ctx.nz,
-        ctx.nxb, ctx.nx, k, TR, interpret=True, lap_impl=lap_impl)
+        ctx.nxb, ctx.nx, k, tr, interpret=True, lap_impl=lap_impl)
     tout = solver.fd_back_kstep(
         ctx, *(torch.from_numpy(f[None]) for f in fields),
         torch.from_numpy(img[None]), torch.from_numpy(v2),
         torch.from_numpy(inj[None]), gz, _lap(ctx, lap_impl))
     for t, j in zip(tout[:4], jout[:4]):
-        assert max_rel(t[0], _unpad(j, ctx)) <= PARITY
-    assert max_rel(tout[4][0], _image(ctx, _unpad(jout[4], ctx))) <= PARITY
+        assert max_rel(t[0], _unpad(j, ctx, tr)) <= PARITY
+    assert max_rel(tout[4][0], _image(ctx, _unpad(jout[4], ctx, tr))) <= PARITY
 
 
 @pytest.mark.parametrize("order", [4, 8, 16])
