@@ -184,8 +184,9 @@ Run from the root of the repository, on a machine with one CUDA card and
    rate); the whole tiled modeling and RTM calls in exact, mxu and mxu6;
    one profiler trace of each split call;
 28. the split-bf16 lowering of the K = 1 tier and of rtm_main's recording
-   kernels: ``fd_step_mma`` (both tapers, every injection) and
-   ``fd_update_mma`` one step from random states (gate 1e-6 of max an
+   kernels: ``fd_step_mma`` (both tapers, every injection),
+   ``fd_update_mma`` and ``gpu_step_mma`` (without and with the trace row
+   and the image) one step from random states (gate 1e-6 of max an
    apply), ``rec_fwd_step_mma`` and ``rec_bwd_step_mma`` (frame mode at
    both receiver offsets, image mode) over nt steps (images 1e-5, frames
    and fields 1e-4), against their plain versions with the z taps in the
@@ -207,7 +208,9 @@ Run from the root of the repository, on a machine with one CUDA card and
    under ``PFDC_LAP_IMPL=auto``, which keeps the exact taps (the JAX lax
    ``rtm_shot_full`` has no other);
 31. times and traces: ``fd_step_mma``/``fd_update_mma`` over 1001 launches
-   at the Pluto grid and ``rec_fwd_step_mma``/``rec_bwd_step_mma`` over
+   and ``gpu_step_mma`` over the RTM's 1001 receiver launches at the Pluto
+   grid (the forward launches' bound beside), and
+   ``rec_fwd_step_mma``/``rec_bwd_step_mma`` over
    3lay's 8 shots x 1001 steps, each against mxu6, its plain version and
    its exact twin, with ``stream_bounds(parts=)`` and
    ``step_bounds(parts=)``; the Pluto K = 1 modeling and RTM calls and the
@@ -462,14 +465,16 @@ def stream_bounds(ctx, ns: int, parts: int = 0):
     """Bounds of the K = 1 tier's launches as this script times them, nt
     launches over ns shots: fd_step with the Gaussian window and the
     all-edge taper (one velocity plane), fd_update (one velocity plane a
-    shot), each input read once and each output written once a launch.
-    With parts > 0 the z taps are the split-bf16 banded product
-    (:func:`mma_lap_flops`): the bounds of fd_step_mma and
-    fd_update_mma."""
+    shot), gpu_step's receiver launches (the trace row and the image) and
+    its forward ones (neither), each input read once and each output
+    written once a launch. With parts > 0 the z taps are the split-bf16
+    banded product (:func:`mma_lap_flops`): the bounds of fd_step_mma,
+    fd_update_mma and gpu_step_mma."""
     h = ctx.order // 2
     lf, tf = (lap_flops(h), 0) if not parts else mma_lap_flops(h, parts)
     plane = ctx.nxe * ctx.nze
     lapc = (ctx.nxe - 2 * h) * (ctx.nze - 2 * h)
+    inter = ctx.nx * ctx.nz
     ramps = ctx.nxe + 2 * ctx.nze
     steps = ns * ctx.nt
     return {
@@ -482,7 +487,20 @@ def stream_bounds(ctx, ns: int, parts: int = 0):
         # field a shot; the update (4)
         "fd_update": bound(4 * ctx.nt * 4 * ns * plane,
                            steps * (lapc * lf + 4 * plane),
-                           steps * lapc * tf)}
+                           steps * lapc * tf),
+        # gpu_step, the RTM's receiver launches: reads y, x, one v2*dt2
+        # plane a shot, the ramps and the trace row, and over the interior
+        # the source field and the image; writes t, the new field and the
+        # image (kstep_bounds' launch, nt times)
+        "gpu_step": bound(
+            4 * ctx.nt * (5 * ns * plane + ramps + ns * ctx.nx
+                          + 3 * ns * inter),
+            steps * (lapc * lf + 7 * plane + ctx.nx + 2 * inter),
+            steps * lapc * tf),
+        # gpu_step, the RTM's forward launches: no trace row, no image
+        "gpu_step forward": bound(4 * ctx.nt * (5 * ns * plane + ramps),
+                                  steps * (lapc * lf + 7 * plane),
+                                  steps * lapc * tf)}
 
 
 def kstep_bounds(ctx, ns: int, k: int, parts: int = 0):
@@ -521,11 +539,11 @@ def kstep_bounds(ctx, ns: int, k: int, parts: int = 0):
                            + 2 * ns * inter),
             steps * (lapc * 2 * lf + 11 * plane + ctx.nx + 2 * inter),
             steps * lapc * 2 * tf),
-        # gpu_step, one launch: reads y, x, v2*dt2, ramps, the source
-        # field, the trace row and the image; writes t, the new field and
-        # the image
+        # gpu_step, one launch: reads y, x, v2*dt2, ramps and the trace
+        # row, and over the interior (the only cells it images) the source
+        # field and the image; writes t, the new field and the image
         "gpu_step": bound(
-            f4 * (6 * ns * plane + ramps + ns * ctx.nx + 2 * ns * inter),
+            f4 * (5 * ns * plane + ramps + ns * ctx.nx + 3 * ns * inter),
             ns * (lapc * lf + 7 * plane + ctx.nx + 2 * inter),
             ns * lapc * tf),
     }
@@ -633,16 +651,26 @@ def strip_row(template: str) -> str:
     return f" (row {row}, {wrapper})"
 
 
+def template_args(mangled: str, name: str) -> str:
+    """``<8, 3>``: the integer template arguments that follow the template
+    ``name`` in an Itanium-mangled kernel name (``Lin5E`` is -5)."""
+    m = re.search(rf"{name}I((?:Lin?\d+E)+)E", mangled)
+    args = re.findall(r"Li(n?\d+)E", m.group(1)) if m else []
+    return f"<{', '.join(a.replace('n', '-') for a in args)}>"
+
+
 def build_report(log: str) -> list:
     """One line per kernel of the build log: its instances, registers,
-    static shared memory and spill stores (ptxas names an entry function,
-    then prints its spills, then its registers and shared memory), with the
-    kernel-table row of an exact strip kernel."""
-    per, fn, spill = {}, None, 0
+    static shared memory and spill stores, with the instances that spill
+    the most (ptxas names an entry function, then prints its spills, then
+    its registers and shared memory), and the kernel-table row of an exact
+    strip kernel."""
+    per, fn, args, spill = {}, None, "", 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             fn = kernel_name(m.group(1))
+            args = fn and template_args(m.group(1), fn)
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = int(m.group(1))
@@ -650,12 +678,19 @@ def build_report(log: str) -> list:
         if m and fn:
             smem = re.search(r"(\d+) bytes smem", line)
             per.setdefault(fn, []).append(
-                (int(m.group(1)), spill, int(smem.group(1)) if smem else 0))
-    return [f"[build] {fn}{strip_row(fn)}: {len(rs)} instances, "
-            f"{min(r[0] for r in rs)}-{max(r[0] for r in rs)} registers, "
-            f"{max(r[2] for r in rs)} bytes of static shared memory, "
-            f"{max(r[1] for r in rs)} bytes of spill stores at most"
-            for fn, rs in sorted(per.items())]
+                (int(m.group(1)), spill, int(smem.group(1)) if smem else 0,
+                 args))
+    lines = []
+    for fn, rs in sorted(per.items()):
+        most = max(r[1] for r in rs)
+        where = (f" (in {', '.join(r[3] for r in rs if r[1] == most)})"
+                 if most else "")
+        lines.append(f"[build] {fn}{strip_row(fn)}: {len(rs)} instances, "
+                     f"{min(r[0] for r in rs)}-{max(r[0] for r in rs)} "
+                     f"registers, {max(r[2] for r in rs)} bytes of static "
+                     f"shared memory, {most} bytes of spill stores at "
+                     f"most{where}")
+    return lines
 
 
 def block_launches(name: str, nt: int, k: int, tiles: int) -> int:
@@ -2967,9 +3002,10 @@ def main() -> int:
     phase_done("split tier: times and profile")
 
     # ---- 28. the split-bf16 lowering of the per-step streaming tier and of
-    # rtm_main's recording kernels (rows 8, 9, 14): fd_step_mma,
-    # fd_update_mma, rec_fwd_step_mma and rec_bwd_step_mma against their
-    # plain versions (the z taps in the same bf16 parts) on the same CUDA
+    # rtm_main's recording kernels (rows 8, 9, 10, 14): fd_step_mma,
+    # fd_update_mma, gpu_step_mma (without and with the trace row and the
+    # image), rec_fwd_step_mma and rec_bwd_step_mma against their plain
+    # versions (the z taps in the same bf16 parts) on the same CUDA
     # tensors: one step from random states on phase 8's 67 x 88 grid at
     # orders 4-16 and at the Pluto grid, gate 1e-6 of max an apply; the rec
     # loops (frames, frame and image mode) on the 67 x 88 grid (nt=21), at
@@ -2978,7 +3014,9 @@ def main() -> int:
     # of the tensor cores' summation order over many steps, phase 23)
     split_k1 = ("fd_step_mma", "fd_update_mma", "rec_fwd_step_mma",
                 "rec_bwd_step_mma")
-    worst28 = dict.fromkeys(split_k1, 0.0)
+    # gpu_step_mma's max abs err in the results is phase 25's (the main
+    # path's seed steps)
+    worst28 = dict.fromkeys(split_k1 + ("gpu_step_mma",), 0.0)
 
     def gate28(label, name, got, want, gate):
         """Prints and gates the largest errors of the kernel outputs got
@@ -2989,10 +3027,12 @@ def main() -> int:
         check(rel <= gate, f"{name} {label}: {rel:.3e} > {gate}")
         worst28[name.split()[0]] = max(worst28[name.split()[0]], absd)
 
-    def split_steps(label, case, parts, st, row):
+    def split_steps(label, case, parts, st, row, img):
         """fd_step_mma (both tapers; no injection, the Gaussian window, the
-        point source, the receiver row at nzb) and fd_update_mma (a
-        velocity plane a shot), one step from the random state st."""
+        point source, the receiver row at nzb), fd_update_mma (a velocity
+        plane a shot) and gpu_step_mma (without and with the trace row at
+        gz and the image, st[2] the source field), one step from the
+        random state st."""
         ctx_m, ctx_r, v2_m, v2_r, _, _, _, gp_ = case
         lap = solver.laplacian_of(ctx_m, parts, axis="z")
         cases = [(taper, kw) for taper in ("all", "top") for kw in (
@@ -3000,15 +3040,22 @@ def main() -> int:
             dict(amp=0.7, sx=gp_.sx, sz=gp_.sz, source="point"),
             dict(inj_row=row, x0=ctx_m.nzb, gz=gp_.gz))]
         gate28(f"{label} (both tapers, every injection)", "fd_step_mma",
-               [stream.fd_step_cuda(ctx_m, *st, v2_m, taper, parts=parts,
-                                    **kw) for taper, kw in cases],
-               [solver.fd_step(ctx_m, *st, v2_m, taper, lap=lap, **kw)
+               [stream.fd_step_cuda(ctx_m, *st[:2], v2_m, taper,
+                                    parts=parts, **kw) for taper, kw in cases],
+               [solver.fd_step(ctx_m, *st[:2], v2_m, taper, lap=lap, **kw)
                 for taper, kw in cases], 1e-6)
+        lap_r = solver.laplacian_of(ctx_r, parts, axis="z")
         gate28(label, "fd_update_mma",
-               [stream.fd_update_cuda(ctx_r, *st, v2_r, parts=parts)],
-               [solver.fd_update(ctx_r, *st, v2_r,
-                                 solver.laplacian_of(ctx_r, parts, axis="z"))],
-               1e-6)
+               [stream.fd_update_cuda(ctx_r, *st[:2], v2_r, parts=parts)],
+               [solver.fd_update(ctx_r, *st[:2], v2_r, lap_r)], 1e-6)
+        gate28(f"{label} (without and with the trace row and the image)",
+               "gpu_step_mma",
+               [stream.fd_step_gpu_cuda(ctx_r, *st[:2], v2_r, parts=parts),
+                stream.fd_step_gpu_cuda(ctx_r, *st[:2], v2_r, gp_.gz, row,
+                                        img.clone(), st[2], parts=parts)],
+               [solver.fd_step_gpu(ctx_r, *st[:2], v2_r, lap=lap_r),
+                solver.fd_step_gpu(ctx_r, *st[:2], v2_r, gp_.gz, row,
+                                   img.clone(), st[2], lap_r)], 1e-6)
 
     def split_rec(label, p_, dobs, parts, quirks=(True, False)):
         """rec_fwd_step_mma's frames and fields, rec_bwd_step_mma in frame
@@ -3047,26 +3094,28 @@ def main() -> int:
         torch.cuda.synchronize()
 
     rng = np.random.default_rng(28)
-    for order in (4, 8, 10, 12, 16):
+    for order in range(4, 17, 2):
         p_ = dataclasses.replace(short, order=order)
         case = tier_case(p_)
-        st = [randn(rng, p_.ns, case[0].nxe, case[0].nze) for _ in range(2)]
+        st = [randn(rng, p_.ns, case[0].nxe, case[0].nze) for _ in range(3)]
         row = randn(rng, p_.ns, p_.nx)
+        img = randn(rng, p_.ns, p_.nx, p_.nz)
         for parts in (2, 3):
             label = f"order {order} parts {parts} 67 x 88"
-            split_steps(label, case, parts, st, row)
+            split_steps(label, case, parts, st, row, img)
             split_rec(f"{label} nt {p_.nt}", p_, case[6].cpu().numpy(),
                       parts)
     case = tier_case(pluto, PLUTO_VELOCITIES)
-    st = [randn(rng, pluto.ns, pluto.nxe, pluto.nze) for _ in range(2)]
+    st = [randn(rng, pluto.ns, pluto.nxe, pluto.nze) for _ in range(3)]
     row = randn(rng, pluto.ns, pluto.nx)
+    img = randn(rng, pluto.ns, pluto.nx, pluto.nz)
     p5 = dataclasses.replace(pluto, nt=5)
     for parts in (2, 3):
         label = f"Pluto {pluto.nxe} x {pluto.nze} ns {pluto.ns} parts {parts}"
-        split_steps(label, case, parts, st, row)
+        split_steps(label, case, parts, st, row, img)
         split_rec(f"{label} nt 5", p5, case[6][..., :5].cpu().numpy(),
                   parts, quirks=(True,))
-    del case, st, row
+    del case, st, row, img
     for parts in (2, 3):
         split_rec(f"3lay ns {P.ns} nt {P.nt} parts {parts}", P, data, parts,
                   quirks=(True,))
@@ -3245,17 +3294,21 @@ def main() -> int:
 
     # ---- 31. times and traces of the split K = 1 and rtm_main kernels:
     # fd_step_mma and fd_update_mma over 1001 launches at the Pluto grid (2
-    # shots; phase 21's loops), rec_fwd_step_mma and rec_bwd_step_mma (image
-    # mode) over 3lay's 8 shots x 1001 steps; each against mxu6, its plain
-    # version (mxu, timed once) and its exact twin, in turns; the whole
-    # Pluto K = 1 calls and the 3lay rtm_main call per lowering; one trace
-    # of each split call
+    # shots; phase 21's loops), gpu_step_mma over the RTM's 1001 receiver
+    # launches there (the trace row and the image), rec_fwd_step_mma and
+    # rec_bwd_step_mma (image mode) over 3lay's 8 shots x 1001 steps; each
+    # against mxu6, its plain version (mxu, timed once) and its exact
+    # twin, in turns; the whole Pluto K = 1 calls and the 3lay rtm_main
+    # call per lowering; one trace of each split call
     c_mod = stream.prepare(ctx_pm, v2_pm, gp.sx, source="gaussian",
                            taper="all")
     c_rtm = stream.prepare(ctx_pr, v2_pr, gp.sx, source="point", taper="top")
-    st = [randn(np.random.default_rng(31), pt.ns, pt.nxe, pt.nze)
-          for _ in range(4)]
+    rng31 = np.random.default_rng(31)
+    st = [randn(rng31, pt.ns, pt.nxe, pt.nze) for _ in range(5)]
+    row31 = randn(rng31, pt.ns, pt.nx)
+    img31 = torch.zeros((pt.ns, pt.nx, pt.nz), device=dev)
     mask_all = torch.as_tensor(ctx_pm.mask_all, device=dev)
+    mask_top = torch.as_tensor(ctx_pr.mask_top, device=dev)
     patch = torch.as_tensor(ctx_pm.source_patch, device=dev)
     lap2m = solver.laplacian_of(ctx_pm, 2, axis="z")
     lap2r = solver.laplacian_of(ctx_pr, 2, axis="z")
@@ -3280,7 +3333,7 @@ def main() -> int:
                 else:
                     stream.fd_step_cuda(ctx_pm, st[0], st[1], v2_pm, "all",
                                         amp=float(amp), sx=gp.sx, sz=gp.sz,
-                                        consts=c_mod, out=st[2:],
+                                        consts=c_mod, out=st[2:4],
                                         parts=parts)
         return run
 
@@ -3298,7 +3351,35 @@ def main() -> int:
         results[k].update(ms=statistics.median(tk),
                           plain_ms=statistics.median(tp), bound_ms=bms,
                           bound_by=by, library_ms=None)
-    del st, c_mod, c_rtm
+
+    def gpu_loop(parts):
+        """The RTM's nt receiver launches of gpu_step(_mma) from the state
+        (st[1], st[0]), st[4] the source field; parts None: the plain
+        step with the z taps in 2 bf16 parts. The results' gpu_step_mma
+        entry stays phase 27's one-launch timing."""
+        def run():
+            for _ in range(pt.nt):
+                if parts is None:
+                    solver._gpu_step(ctx_pr, st[0], st[1], v2_pr, mask_top,
+                                     gp.gz, row31, img31, st[4], lap2r)
+                else:
+                    stream.fd_step_gpu_cuda(ctx_pr, st[0], st[1], v2_pr,
+                                            gp.gz, row31, img31, st[4],
+                                            consts=c_rtm, out=st[2:4],
+                                            parts=parts)
+        return run
+
+    tk, tk6, tp, te = in_turns([gpu_loop(2), gpu_loop(3), gpu_loop(None),
+                                gpu_loop(0)], once=(2,))
+    (bms, by), (bfw, bfy) = b2["gpu_step"], b2["gpu_step forward"]
+    print(f"[times] gpu_step_mma at the Pluto grid ({pt.ns} shots, {pt.nt} "
+          f"receiver launches, the trace row and the image): kernel (mxu) "
+          f"{span(tk)}, mxu6 {span(tk6)}, plain (mxu) {span(tp)}, exact "
+          f"kernel gpu_step {span(te)}; bound {bms:.3f} ms ({by}; mxu6 "
+          f"{b3['gpu_step'][0]:.3f}; {pt.nt} forward launches, no trace row "
+          f"and no image: {bfw:.3f} ms, {bfy}), kernel / bound "
+          f"{statistics.median(tk) / bms:.2f}; {smi}", flush=True)
+    del st, c_mod, c_rtm, row31, img31, mask_top
     ctx3, v23, wav3, d3, nxt3 = rec_inputs(P, data)
     g3 = Geometry.from_params(P)
     wf = dict(source="point", taper="top", record="wavefield")

@@ -3,21 +3,23 @@
 // the C entry points pfdc_gpu_step_run and pfdc_gpu_step_mma_run that
 // launch it. The large-grid tier runs it for fd_back's two seed steps
 // (it = 0, 1), whose source field is a snapshot instead of a propagated
-// field.
+// field; the K = 1 tier runs it for every step of fd_forward (no trace
+// row, no image) and of fd_back's receiver field: 2 * nt launches a call.
 //
 // Replaces: parallel_finite_difference_computation_tpu/ops/pallas_stream.py,
 // _kernel_gpu (:207), called through fd_step_gpu_padded (:324) by the JAX
-// package's _rtm_snapshot_kblocked for the same two steps: gpu_step its
+// package's rtm_shot_snapshot_tiled at block_k = 1 and its
+// _rtm_snapshot_kblocked for the seed steps (the same steps): gpu_step its
 // exact taps, gpu_step_mma<H, 2 or 3> its use_mxu branch (_lap_dispatch,
 // :64, through pallas_stencil.py's _lap_taps_mxu: the z taps as the split-
 // bf16 banded product, then the x taps exact).
 //
 // What bounds it on an H100: one launch reads y, x, v2*dt2, the source
 // field and the image, and writes t, the new field and the image: ~280 MB
-// a shot at the Pluto grid, twice per shot. Threads run along z for
-// coalesced loads; the Laplacian tapers its taps on read, as rtm_bwd_step
-// does, with the top-strip taper rebuilt from its 1-D ramps (kstep.cuh,
-// taper_at) instead of read from a 36 MB mask plane.
+// a shot at the Pluto grid. Threads run along z for coalesced loads; the
+// Laplacian tapers its taps on read, as rtm_bwd_step does, with the
+// top-strip taper rebuilt from its 1-D ramps (kstep.cuh, taper_at) instead
+// of read from a 36 MB mask plane.
 //
 // From the state (x, y) with x tapered: t = m*y, u = (2t - x*m) + v*lap(t),
 // plus the trace row at depth gz; img += src*u over the interior. These
@@ -25,23 +27,15 @@
 // the result is bitwise the per-step kernel's. The outputs are separate
 // buffers (neighbours read y); img is updated in place, one cell a thread.
 //
-// gpu_step_mma stages what its taps read: a block of four warps takes
-// 64 x 64 cells and copies t = m*y of them and of an H-cell halo into
-// shared memory (zeros outside the grid; mma_tile.cuh's MmaTile). Each
-// warp runs its 16 rows as eight 16 x 8 mma blocks along z (mma_bf16.cuh,
-// banded_mma: the window of an output starts H cells before it), and the
-// lane that holds an output does that cell's whole step: the x taps from
-// the tile, the update, the trace row and the image. The tile is the only
-// thing shared, so one barrier suffices. The step runs twice a call: it is
-// kept simple.
-#include "mma_tile.cuh"
+// gpu_step_mma runs the one-step split body of step_strip.cuh (the kGpu
+// state): a block of 16 warps stages y over 128 x 64 owned cells and an
+// H-cell halo, tapers it in a phase of its own (t = m*y, the tapped field
+// and t_out), takes its z product, and walks the owned cells in 4-row
+// strips, lanes along z, reading x, v2*dt2, the trace row, the source
+// field and the image at the cell and writing t, u and the image there.
+#include "step_strip.cuh"
 
 namespace {
-
-using pfdc::kMmaThreads;
-using pfdc::kMmaTileX;
-using pfdc::kMmaTileZ;
-using pfdc::MmaTile;
 
 template <int H>
 __global__ void gpu_step(const float* __restrict__ y,
@@ -86,8 +80,63 @@ __global__ void gpu_step(const float* __restrict__ y,
   }
 }
 
+// gpu_step_mma's site (step_strip.cuh): one shot's fields on the (nxf,
+// nzf) grid; the step from the staged t = m*y and the cell's x, v2*dt2 and
+// (over the interior, when imaging) source field and image, with the trace
+// row and the image where given. Four operands a cell: strips of 4 rows,
+// the next strip's loaded ahead (receiver launches 8 % faster than with
+// each strip's loaded when it is taken; 8 rows spilled and ran 41 %
+// slower, PERF.md).
+struct GpuStepSite {
+  static constexpr int kRows = pfdc::kStripRows;
+  static constexpr bool kAhead = true;
+  static constexpr bool kGpu = true;
+  const float* field;   // y
+  const float* xramp;
+  const float* zfac;
+  const float* strip;
+  int nxf, nzf;
+  const float* x;
+  float* t_out;
+  float* u_out;
+  const float* v2dt2;
+  const float* inj;
+  int gz;
+  const float* src;
+  float* img;
+  int nxb, nzb, nx, nz;
+
+  struct Cell {
+    float x, v, src, img;
+  };
+  __device__ bool imaged(int gx, int gz_) const {
+    return img != nullptr && gx >= nxb && gx < nxb + nx && gz_ >= nzb &&
+           gz_ < nzb + nz;
+  }
+  __device__ float* image_at(int gx, int gz_) const {
+    return img + static_cast<size_t>(gx - nxb) * nz + (gz_ - nzb);
+  }
+  __device__ Cell load(int gx, int gz_) const {
+    const size_t q = static_cast<size_t>(gx) * nzf + gz_;
+    const bool im = imaged(gx, gz_);
+    return {__ldg(x + q), __ldg(v2dt2 + q), im ? __ldg(src + q) : 0.0f,
+            im ? *image_at(gx, gz_) : 0.0f};
+  }
+  __device__ void step(int gx, int gz_, const Cell& in, float t, float m,
+                       float lap) const {
+    const size_t q = static_cast<size_t>(gx) * nzf + gz_;
+    float u = (2.0f * t - in.x * m) + in.v * lap;
+    if (inj != nullptr && gz_ == gz && gx >= nxb && gx < nxb + nx) {
+      u = u + inj[gx - nxb];
+    }
+    t_out[q] = t;
+    u_out[q] = u;
+    if (imaged(gx, gz_)) *image_at(gx, gz_) = in.img + in.src * u;
+  }
+};
+
 template <int H, int P>
-__global__ void __launch_bounds__(kMmaThreads)
+__global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
     gpu_step_mma(const float* __restrict__ y, const float* __restrict__ x,
                  float* __restrict__ t_out, float* __restrict__ u_out,
                  const float* __restrict__ v2dt2, int v2_shot_stride,
@@ -97,65 +146,22 @@ __global__ void __launch_bounds__(kMmaThreads)
                  const float* __restrict__ inj, int inj_shot_stride, int gz,
                  const float* __restrict__ src, float* __restrict__ img,
                  int nxb, int nzb, int nx, int nz, int nxe, int nze,
-                 pfdc::Coefs c) {
-  using T = MmaTile<H>;
-  __shared__ float tile[T::kRows][T::kPitch];
+                 pfdc::StripShape shape, pfdc::Coefs c) {
+  extern __shared__ float smem[];
   const int s = blockIdx.z;
-  const int x0 = blockIdx.y * kMmaTileX;
-  const int z0 = blockIdx.x * kMmaTileZ;
   const size_t plane = static_cast<size_t>(nxe) * nze;
-  const float* ys = y + s * plane;
-  for (int i = threadIdx.x; i < T::kRows * T::kCols; i += kMmaThreads) {
-    const int r = i / T::kCols;
-    const int cc = i - r * T::kCols;
-    const int ix = x0 - H + r;
-    const int iz = z0 - H + cc;
-    tile[r][cc] = (ix >= 0 && ix < nxe && iz >= 0 && iz < nze)
-                      ? pfdc::taper_at(xramp, zfac, strip, ix, iz) *
-                            ys[static_cast<size_t>(ix) * nze + iz]
-                      : 0.0f;
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int wr = 16 * (threadIdx.x >> 5);   // the warp's first output row
-  const pfdc::Band<H, P> band = pfdc::band_fragments<H, P>(c.z, lane);
-#pragma unroll 1
-  for (int nb = 0; nb < kMmaTileZ / 8; ++nb) {
-    float yz[4];
-    pfdc::banded_mma<H, P>(
-        yz, [&](int m, int k) { return tile[H + wr + m][8 * nb + k]; }, band,
-        lane);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int r = wr + pfdc::frag_g(lane) + 8 * (q >> 1);   // output row
-      const int cz = 8 * nb + 2 * pfdc::frag_t(lane) + (q & 1);
-      const int ix = x0 + r;
-      const int iz = z0 + cz;
-      if (ix >= nxe || iz >= nze) continue;
-      const int j_tile = (r + H) * T::kPitch + cz + H;   // its tile cell
-      const float lap = pfdc::in_interior(ix, iz, H, nxe, nze)
-                            ? yz[q] + pfdc::axis_taps<H>(&tile[0][0], j_tile,
-                                                         T::kPitch, c.x)
-                            : 0.0f;
-      const float t = (&tile[0][0])[j_tile];
-      const float m = pfdc::taper_at(xramp, zfac, strip, ix, iz);
-      const size_t j = static_cast<size_t>(ix) * nze + iz;
-      const size_t qi = s * plane + j;
-      float u = (2.0f * t - x[qi] * m) +
-                v2dt2[s * static_cast<size_t>(v2_shot_stride) + j] * lap;
-      if (inj != nullptr && iz == gz && ix >= nxb && ix < nxb + nx) {
-        u = u + inj[s * static_cast<size_t>(inj_shot_stride) + (ix - nxb)];
-      }
-      t_out[qi] = t;
-      u_out[qi] = u;
-      if (img != nullptr && ix >= nxb && ix < nxb + nx && iz >= nzb &&
-          iz < nzb + nz) {
-        float* im = img + s * static_cast<size_t>(nx) * nz +
-                    static_cast<size_t>(ix - nxb) * nz + (iz - nzb);
-        *im = *im + src[qi] * u;
-      }
-    }
-  }
+  const GpuStepSite site{
+      y + s * plane, xramp, zfac, strip, nxe, nze, x + s * plane,
+      t_out + s * plane, u_out + s * plane,
+      v2dt2 + s * static_cast<size_t>(v2_shot_stride),
+      inj == nullptr ? nullptr
+                     : inj + s * static_cast<size_t>(inj_shot_stride),
+      gz, src == nullptr ? nullptr : src + s * plane,
+      img == nullptr ? nullptr : img + s * static_cast<size_t>(nx) * nz,
+      nxb, nzb, nx, nz};
+  const pfdc::StripTile t(H, shape, static_cast<int>(blockIdx.y) * shape.tx,
+                          static_cast<int>(blockIdx.x) * shape.tz);
+  pfdc::step_strip<H, P>(smem, site, t, c);
 }
 
 struct GpuStepRun {
@@ -187,16 +193,18 @@ struct GpuStepRun {
           inj_shot_stride, gz, src, img, nxb, nzb, nxe - 2 * nxb,
           nze - 2 * nzb, nxe, nze, c);
     } else {
-      static_assert(sizeof(float) * MmaTile<H>::kRows * MmaTile<H>::kPitch <=
-                        48 * 1024,
-                    "static shared memory");
-      const dim3 grid((nze + kMmaTileZ - 1) / kMmaTileZ,
-                      (nxe + kMmaTileX - 1) / kMmaTileX, ns);
-      const dim3 block(kMmaThreads);
-      gpu_step_mma<H, P><<<grid, block, 0, stream>>>(
+      const pfdc::StripShape shape =
+          pfdc::strip_shape(pfdc::kStepShapes, pfdc::kStepStage, H);
+      if (shape.tx == 0) return cudaErrorInvalidValue;
+      const size_t bytes = pfdc::strip_bytes(shape, pfdc::kStepStage, H);
+      const cudaError_t e = pfdc::allow_smem(gpu_step_mma<H, P>, bytes);
+      if (e != cudaSuccess) return e;
+      const dim3 grid = pfdc::strip_grid(shape, ns, nxe, nze);
+      const dim3 block(pfdc::kStripThreads);
+      gpu_step_mma<H, P><<<grid, block, bytes, stream>>>(
           y, x, t_out, u_out, v2dt2, v2_shot_stride, xramp, zfac, strip, inj,
           inj_shot_stride, gz, src, img, nxb, nzb, nxe - 2 * nxb,
-          nze - 2 * nzb, nxe, nze, c);
+          nze - 2 * nzb, nxe, nze, shape, c);
     }
     return cudaGetLastError();
   }

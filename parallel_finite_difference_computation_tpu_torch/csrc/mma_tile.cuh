@@ -1,22 +1,20 @@
-// The staged 64 x 64 output tile of the per-step split-bf16 kernels
-// (gpu_step_mma in gpu_step.cu; fd_step_mma and fd_update_mma in
-// stream_step.cu; rec_fwd_step_mma and rec_bwd_step_mma in rec_step.cu):
-// its shape, and the stage, z product and cell loop that the stream and
-// rec kernels share.
+// The staged 64 x 64 output tile of the per-step split-bf16 kernels that
+// do not run a strip body (fd_update_mma in stream_step.cu;
+// rec_fwd_step_mma and rec_bwd_step_mma in rec_step.cu): its shape, and
+// the stage, z product and cell loop they share. fd_step_mma and
+// gpu_step_mma run the one-step strip body of step_strip.cuh instead.
 //
 // A block of four warps owns kMmaTileX x kMmaTileZ output cells of one shot
 // and stages the field its taps read (zeros outside the grid). Each warp
 // runs its 16 rows as eight 16 x 8 mma blocks along z (mma_bf16.cuh,
-// banded_mma: the window of an output starts H cells before it).
-//
-// gpu_step_mma lets the lane that holds an mma output do that cell's whole
-// step. The stream and rec kernels instead write the z product into a
-// second buffer behind a barrier (tile_z_mma), as strip.cuh's z_product
-// does, and then take the cells in the exact kernels' order, threads along z
-// (for_tile_cells), each adding the exact x taps from the tile: every load
-// and store of a warp covers whole 32-byte sectors (the fields, a frame of
-// swf or rwf, the image), where an mma lane holds two adjacent z values of
-// a row and its neighbour the next pair.
+// banded_mma: the window of an output starts H cells before it), writes
+// the z product into a second buffer behind a barrier (tile_z_mma), as
+// strip.cuh's z_product does, and then the block takes the cells in the
+// exact kernels' order, threads along z (for_tile_cells), each adding the
+// exact x taps from the tile: every load and store of a warp covers whole
+// 32-byte sectors (the fields, a frame of swf or rwf, the image), where an
+// mma lane holds two adjacent z values of a row and its neighbour the next
+// pair.
 #pragma once
 
 #include "kstep.cuh"
@@ -37,8 +35,8 @@ struct MmaTile {
   static constexpr int kCols = kMmaTileZ - 8 + 16 * band_ksteps<H>();
   static constexpr int kPitch = (kCols + 23) / 32 * 32 + 8;
   static constexpr int kCells = kRows * kPitch;
-  // dynamic shared memory of the stream and rec kernels: the tile, then
-  // the z product of the output cells
+  // dynamic shared memory of a block: the tile, then the z product of the
+  // output cells
   static constexpr size_t kStageBytes =
       sizeof(float) * (kCells + kMmaTileX * kZbPitch);
 };

@@ -44,12 +44,18 @@
 // fd_step_mma<H, P> and fd_update_mma<H, P> compute what their exact twins
 // compute, in the same order and with the same taper, but for the
 // Laplacian: the z taps as the P-part (2: lap_impl "mxu", 3: "mxu6")
-// split-bf16 banded product on the tensor cores, plus the exact x taps. A
-// block stages a 64 x 64 tile of p and its halo, writes the z product
-// behind a barrier and then takes its cells threads along z
-// (mma_tile.cuh). They read and write what the exact kernels do, so HBM
-// bounds them too; the stage adds a shared-memory pass and two barriers.
+// split-bf16 banded product on the tensor cores, plus the exact x taps.
+// They read and write what the exact kernels do, so HBM bounds them too.
+// fd_step_mma runs the one-step split body of step_strip.cuh: a block of
+// 16 warps stages p over 128 x 64 owned cells and an H-cell halo with
+// cp.async, takes its z product behind one barrier, and walks the owned
+// cells in 8-row strips, lanes along z, the x taps from a register window,
+// reading pp, v2*dt2 and the injections at the cell and writing p*m and
+// u*m there. fd_update_mma stages a 64 x 64 tile of p and its halo, writes
+// the z product behind a barrier and then takes its cells threads along z
+// (mma_tile.cuh).
 #include "mma_tile.cuh"
+#include "step_strip.cuh"
 
 namespace {
 
@@ -114,8 +120,59 @@ __global__ void fd_update(const float* __restrict__ p,
            v2dt2[s * static_cast<size_t>(v2_shot_stride) + j] * lap;
 }
 
+// fd_step_mma's site (step_strip.cuh): one shot's fields on the (nxf, nzf)
+// grid; the step from the staged p and the cell's pp and v2*dt2, with the
+// source window (patch null: none) and the receiver row (inj null: none)
+// before the taper. Two operands a cell: strips of 8 rows, each strip's
+// loaded when it is taken (4 rows ran 8 % slower; 8 rows with the next
+// strip loaded ahead spilled and ran 15 % slower, PERF.md).
+struct FdStepSite {
+  static constexpr int kRows = 8;
+  static constexpr bool kAhead = false;
+  static constexpr bool kGpu = false;
+  const float* field;   // p
+  const float* xramp;
+  const float* zfac;
+  const float* strip;
+  int nxf, nzf;
+  const float* pp;
+  float* p_out;
+  float* pp_out;
+  const float* v2dt2;
+  const float* patch;
+  int r, src_x, sz;
+  float amp;
+  const float* inj;
+  int x0, gz, nx;
+
+  struct Cell {
+    float pp, v;
+  };
+  __device__ Cell load(int gx, int gz_) const {
+    const size_t q = static_cast<size_t>(gx) * nzf + gz_;
+    return {__ldg(pp + q), __ldg(v2dt2 + q)};
+  }
+  __device__ void step(int gx, int gz_, const Cell& in, float pc, float m,
+                       float lap) const {
+    const size_t q = static_cast<size_t>(gx) * nzf + gz_;
+    float u = (2.0f * pc - in.pp) + in.v * lap;
+    if (patch != nullptr) {
+      const int dx = gx - src_x;
+      const int dz = gz_ - sz;
+      if (dx >= -r && dx <= r && dz >= -r && dz <= r) {
+        u = u + amp * patch[(dx + r) * (2 * r + 1) + (dz + r)];
+      }
+    }
+    if (inj != nullptr && gz_ == gz && gx >= x0 && gx < x0 + nx) {
+      u = u + inj[gx - x0];
+    }
+    p_out[q] = pc * m;
+    pp_out[q] = u * m;
+  }
+};
+
 template <int H, int P>
-__global__ void __launch_bounds__(pfdc::kMmaThreads)
+__global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
     fd_step_mma(const float* __restrict__ p, const float* __restrict__ pp,
                 float* __restrict__ p_out, float* __restrict__ pp_out,
                 const float* __restrict__ v2dt2, int v2_shot_stride,
@@ -125,38 +182,22 @@ __global__ void __launch_bounds__(pfdc::kMmaThreads)
                 const float* __restrict__ patch, int r,
                 const int* __restrict__ sx, int sz, float amp,
                 const float* __restrict__ inj, int inj_shot_stride, int x0,
-                int gz, int nx, int nxe, int nze, pfdc::Coefs c) {
+                int gz, int nx, int nxe, int nze, pfdc::StripShape shape,
+                pfdc::Coefs c) {
   extern __shared__ float smem[];
-  float* t = smem;
-  float* zb = smem + pfdc::MmaTile<H>::kCells;
   const int s = blockIdx.z;
-  const int bx = blockIdx.y * pfdc::kMmaTileX;
-  const int bz = blockIdx.x * pfdc::kMmaTileZ;
   const size_t plane = static_cast<size_t>(nxe) * nze;
-  pfdc::stage_tile<H>(t, p + s * plane, bx, bz, nxe, nze);
-  pfdc::tile_z_mma<H, P>(zb, t, bx, bz, nxe, nze, c);
-  pfdc::for_tile_cells<H>(bx, bz, nxe, nze, [&](int ix, int iz, int jt,
-                                                int jz) {
-    const size_t j = static_cast<size_t>(ix) * nze + iz;
-    const size_t q = s * plane + j;
-    const float pc = t[jt];
-    const float lap = pfdc::split_lap<H>(t, zb, ix, iz, jt, jz, nxe, nze, c);
-    float u = (2.0f * pc - pp[q]) +
-              v2dt2[s * static_cast<size_t>(v2_shot_stride) + j] * lap;
-    if (patch != nullptr) {
-      const int dx = ix - sx[s];
-      const int dz = iz - sz;
-      if (dx >= -r && dx <= r && dz >= -r && dz <= r) {
-        u = u + amp * patch[(dx + r) * (2 * r + 1) + (dz + r)];
-      }
-    }
-    if (inj != nullptr && iz == gz && ix >= x0 && ix < x0 + nx) {
-      u = u + inj[s * static_cast<size_t>(inj_shot_stride) + (ix - x0)];
-    }
-    const float m = pfdc::taper_at(xramp, zfac, strip, ix, iz);
-    p_out[q] = pc * m;
-    pp_out[q] = u * m;
-  });
+  const FdStepSite site{
+      p + s * plane, xramp, zfac, strip, nxe, nze, pp + s * plane,
+      p_out + s * plane, pp_out + s * plane,
+      v2dt2 + s * static_cast<size_t>(v2_shot_stride), patch, r,
+      patch == nullptr ? 0 : sx[s], sz, amp,
+      inj == nullptr ? nullptr
+                     : inj + s * static_cast<size_t>(inj_shot_stride),
+      x0, gz, nx};
+  const pfdc::StripTile t(H, shape, static_cast<int>(blockIdx.y) * shape.tx,
+                          static_cast<int>(blockIdx.x) * shape.tz);
+  pfdc::step_strip<H, P>(smem, site, t, c);
 }
 
 template <int H, int P>
@@ -214,15 +255,18 @@ struct FdStepRun {
           patch, r, sx, sz, amp, inj, inj_shot_stride, x0, gz, nx, nxe, nze,
           c);
     } else {
-      const size_t bytes = pfdc::MmaTile<H>::kStageBytes;
+      const pfdc::StripShape shape =
+          pfdc::strip_shape(pfdc::kStepShapes, pfdc::kStepStage, H);
+      if (shape.tx == 0) return cudaErrorInvalidValue;
+      const size_t bytes = pfdc::strip_bytes(shape, pfdc::kStepStage, H);
       const cudaError_t e = pfdc::allow_smem(fd_step_mma<H, P>, bytes);
       if (e != cudaSuccess) return e;
-      const dim3 grid = pfdc::mma_grid(ns, nxe, nze);
-      const dim3 block(pfdc::kMmaThreads);
+      const dim3 grid = pfdc::strip_grid(shape, ns, nxe, nze);
+      const dim3 block(pfdc::kStripThreads);
       fd_step_mma<H, P><<<grid, block, bytes, stream>>>(
           p, pp, p_out, pp_out, v2dt2, v2_shot_stride, xramp, zfac, strip,
           patch, r, sx, sz, amp, inj, inj_shot_stride, x0, gz, nx, nxe, nze,
-          c);
+          shape, c);
     }
     return cudaGetLastError();
   }

@@ -1,0 +1,219 @@
+#!/usr/bin/env python3
+"""Build, check and time the split kernels of the K = 1 tier of checkouts
+of the PyTorch port on one CUDA card: ``fd_step_mma`` and ``gpu_step_mma``
+(the z taps in bf16 parts), each beside its exact twin, with
+``fd_update_mma`` as a control.
+
+    python3 scripts/torch_step_probe.py TREE [TREE ...]
+                                        [--variants NAME ...] [--rounds N]
+
+Each tree runs in a process of its own that imports the port from that
+tree (building its kernels there). The process prints the compiler's
+register, shared-memory and spill lines of these kernels at orders 8 and
+16, holds the split kernels against their plain versions with the same
+parts (2 and 3) on a small ragged grid (67 x 88 extended, two shots,
+orders 4, 8, 12 and 16; ``fd_step`` with both tapers and every injection:
+none, the Gaussian window, the point source, the receiver row;
+``gpu_step`` without and with the trace row and the image; gate 1e-6 of
+the plain result's max) and the exact ones bitwise, and then times them
+at the Pluto grid (7040 x 1281 extended, order 8, 2 shots) as
+``chip_smoke.py`` phase 31 times them: ``fd_step`` over 1001 launches
+(the Gaussian source, the all-edge taper, one velocity plane),
+``gpu_step`` over 1001 receiver launches (the trace row and the image)
+and over 1001 forward launches (neither), ``fd_update`` over 999; exact,
+mxu and mxu6 (``fd_update`` exact and mxu); then the split K = 1
+modeling and RTM calls (``forward_modeling_tiled`` and
+``rtm_shot_snapshot_tiled`` at block_k = 1, mxu, nt = 1001). Median of 3
+CUDA-event samples after a warm-up.
+
+``--variants`` adds copies of the last tree with other constants:
+``step64x64``, ``step64x128`` and ``step32x128`` (the first owned shape
+of the one-step split body, ``kStepShapes`` in ``csrc/step_strip.cuh``);
+``fd_rows4`` and ``gpu_rows8`` (the rows of a strip, ``kRows`` of
+``fd_step_mma``'s and ``gpu_step_mma``'s sites); ``fd_ahead`` and
+``gpu_behind`` (whether a warp loads its next strip's operands while it
+computes the current one, ``kAhead`` of the same sites), made under a
+temporary directory. The trees run in turns, ``--rounds`` times (A, B,
+..., then in reverse), as ``scripts/torch_bwd_probe.py`` runs them.
+Prints one JSON line per process and the medians per tree, beside the
+card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import torch_bwd_probe
+
+_STEP_FIRST = "kStepShapes[] = {{128, 64}};"
+VARIANTS = {
+    "step64x64": ("step_strip.cuh", _STEP_FIRST,
+                  "kStepShapes[] = {{64, 64}};"),
+    "step64x128": ("step_strip.cuh", _STEP_FIRST,
+                   "kStepShapes[] = {{64, 128}};"),
+    "step32x128": ("step_strip.cuh", _STEP_FIRST,
+                   "kStepShapes[] = {{32, 128}};"),
+    "fd_rows4": ("stream_step.cu", "static constexpr int kRows = 8;",
+                 "static constexpr int kRows = pfdc::kStripRows;"),
+    "fd_ahead": ("stream_step.cu", "static constexpr bool kAhead = false;",
+                 "static constexpr bool kAhead = true;"),
+    "gpu_rows8": ("gpu_step.cu",
+                  "static constexpr int kRows = pfdc::kStripRows;",
+                  "static constexpr int kRows = 8;"),
+    "gpu_behind": ("gpu_step.cu", "static constexpr bool kAhead = true;",
+                   "static constexpr bool kAhead = false;"),
+}
+
+CHILD = r'''
+import json, re, statistics, sys
+sys.path.insert(0, TREE)
+import numpy as np, torch
+pkg = "parallel_finite_difference_computation_tpu_torch"
+solver = __import__(pkg + ".solver", fromlist=["x"])
+stream = __import__(pkg + ".ops.stream", fromlist=["x"])
+build = __import__(pkg + ".ops._build", fromlist=["x"])
+dev = torch.device("cuda", 0)
+build.library()
+fn = None
+ptxas = []        # printed after the checks, whose lines stderr's tail keeps
+for line in build.build_log().splitlines():
+    m = re.search(r"Compiling entry function '(\S+)'", line)
+    if m:
+        fn = m.group(1)
+    # the order-8 and order-16 instances (H = 4, 8)
+    name = fn and re.search(r"\d((?:fd|gpu)_step\w*?I(?:Li\d+E)+)E", fn)
+    if (name and re.search(r"ILi[48]E", name[1])
+            and ("registers" in line or "spill" in line)):
+        ptxas.append(f"[ptxas] {name[1]}: {line.strip()}")
+res = {"bitwise": True}
+n_checks = 0
+rng = np.random.default_rng(0)
+
+def f32(*shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+def judge(label, got, want, parts):
+    global n_checks
+    if parts:
+        rel = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(got, want))
+        ok = rel <= 1e-6
+        what = f"max rel {rel:.2e}"
+    else:
+        ok = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        what = "bitwise" if ok else "DIFFERS"
+    res["bitwise"] &= ok
+    n_checks += 1
+    if not ok or "order 16" in label:
+        print(f"[check] {label}: {what}{'' if ok else ' FAILS'}",
+              file=sys.stderr)
+
+for order in (4, 8, 12, 16):
+    ctx = solver.FDContext.create(53, 70, 9, dx=10.0, dz=10.0, dt=0.001,
+                                  order=order, nxb=7, nzb=9, fac=0.7)
+    v2 = torch.from_numpy(((1500.0 + 500.0 * rng.random(
+        (2, ctx.nxe, ctx.nze))).astype(np.float32)) ** 2)
+    st = [f32(2, ctx.nxe, ctx.nze) for _ in range(3)]
+    img = f32(2, ctx.nx, ctx.nz)
+    row = f32(2, ctx.nx)
+    # the sources and the row across the tile edges at x = 64 and z = 64
+    sxs, sz, gz = (31, 61), 62, 63
+    for parts in (0, 2, 3):
+        calls = {}
+        for taper in ("all", "top"):
+            for inj, kw in (("none", {}),
+                            ("gaussian", dict(amp=0.7, sx=sxs, sz=sz)),
+                            ("point", dict(amp=0.7, sx=sxs, sz=sz,
+                                           source="point")),
+                            ("receiver row", dict(inj_row=row, x0=ctx.nzb,
+                                                  gz=gz))):
+                calls[f"fd_step {taper} {inj}"] = (
+                    lambda s, v, taper=taper, kw=kw: stream.fd_step_cuda(
+                        ctx, s[0], s[1], v[0], taper, parts=parts,
+                        **{k: a.to(s[0].device) if torch.is_tensor(a)
+                           else a for k, a in kw.items()}))
+        calls["gpu_step"] = lambda s, v: stream.fd_step_gpu_cuda(
+            ctx, s[0], s[1], v, parts=parts)
+        calls["gpu_step K5 K6"] = lambda s, v: stream.fd_step_gpu_cuda(
+            ctx, s[0], s[1], v, gz, row.to(s[0].device),
+            img.clone().to(s[0].device), s[2], parts=parts)
+        for label, call in calls.items():
+            want = call(st, v2)
+            got = call([a.to(dev) for a in st], v2.to(dev))
+            judge(f"{label} parts {parts} order {order}", got, want, parts)
+print("\n".join(ptxas), file=sys.stderr)
+print(f"[check] {n_checks} cases, {'all held' if res['bitwise'] else 'FAILED'}",
+      file=sys.stderr)
+
+ctx = solver.FDContext.create(6960, 1201, 1001, dx=7.62, dz=7.62, dt=0.0007,
+                              order=8, nxb=40, nzb=40, fac=0.75)
+v2 = torch.from_numpy(((1500.0 + 2500.0 * rng.random(
+    (2, ctx.nxe, ctx.nze))).astype(np.float32)) ** 2).to(dev)
+
+def median_ms(fn):
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+st = [torch.from_numpy(rng.standard_normal((2, ctx.nxe, ctx.nze)).astype(
+    np.float32)).to(dev) for _ in range(5)]
+img = torch.zeros((2, ctx.nx, ctx.nz), device=dev)
+row = torch.from_numpy(rng.standard_normal((2, ctx.nx)).astype(
+    np.float32)).to(dev)
+wav = np.float32(rng.standard_normal(ctx.nt))
+sxs = [2740, 2760]
+v2m = v2[0]                     # one plane: consts hold to the tensor
+cm = stream.prepare(ctx, v2m, sxs, source="gaussian", taper="all")
+cr = stream.prepare(ctx, v2, sxs, source="point", taper="top")
+for parts, sfx in ((0, ""), (2, "_mma"), (3, "_mma mxu6")):
+
+    def fd_step():
+        for amp in wav:
+            stream.fd_step_cuda(ctx, st[0], st[1], v2m, "all",
+                                amp=float(amp), sx=sxs, sz=40, consts=cm,
+                                out=st[2:4], parts=parts)
+
+    def gpu_rec():
+        for _ in range(ctx.nt):
+            stream.fd_step_gpu_cuda(ctx, st[0], st[1], v2, 40, row, img,
+                                    st[4], consts=cr, out=st[2:4],
+                                    parts=parts)
+
+    def gpu_fwd():
+        for _ in range(ctx.nt):
+            stream.fd_step_gpu_cuda(ctx, st[0], st[1], v2, consts=cr,
+                                    out=st[2:4], parts=parts)
+
+    res["fd_step" + sfx] = median_ms(fd_step)
+    res["gpu_step" + sfx + " receiver"] = median_ms(gpu_rec)
+    res["gpu_step" + sfx + " forward"] = median_ms(gpu_fwd)
+for parts, sfx in ((0, ""), (2, "_mma")):
+
+    def fd_update():
+        for _ in range(ctx.nt - 2):
+            stream.fd_update_cuda(ctx, st[0], st[1], v2, consts=cr,
+                                  out=st[2], parts=parts)
+
+    res["fd_update" + sfx] = median_ms(fd_update)
+del st, img, cm, cr
+dobs = torch.from_numpy(rng.standard_normal((2, ctx.nx, ctx.nt)).astype(
+    np.float32)).to(dev)
+res["K=1 modeling mxu"] = median_ms(lambda: solver.forward_modeling_tiled(
+    ctx, v2m, wav, sxs, 40, 40, block_k=1, lap_impl="mxu"))
+res["K=1 RTM mxu"] = median_ms(lambda: solver.rtm_shot_snapshot_tiled(
+    ctx, v2, wav, dobs, sxs, 40, 40, block_k=1, lap_impl="mxu"))
+print(json.dumps(res))
+'''
+
+
+if __name__ == "__main__":
+    sys.exit(torch_bwd_probe.main(CHILD, VARIANTS, __doc__))

@@ -31,10 +31,23 @@ the plain result's max.
 * One pass of K = 4 of each K-step kernel at the Pluto grid (7040 x 1281
   extended, order 8) and one block of K = 8 of the forward and modeling
   block twins on its slabs and tiles, parts 2 and 3.
+* ``stream.fd_step_cuda(..., parts=)`` (``fd_step_mma``, the one-step
+  split body of ``csrc/step_strip.cuh``) with both tapers and every
+  injection (none, the Gaussian window, the point source, the receiver
+  row), and ``stream.fd_step_gpu_cuda(..., parts=)`` (``gpu_step_mma``,
+  the same body) without and with the trace row and the image, one step
+  against the plain step with the same split z taps at every even order
+  from 4 to 16 on the same grids, on a third one two owned shapes wide
+  along x, and at the Pluto grid; one launch a step.
+  One step's gate is 1e-6 of the plain result's max (``chip_smoke.py``
+  phase 28's).
 
 Card-only: every case is marked ``cuda`` and skips where there is none
 (``python -m pytest tests/test_torch_split_strip.py -m cuda --noconftest``
-on a GPU machine; this file imports no JAX)."""
+on a GPU machine; this file imports no JAX). The one-step body's shared
+memory is checked in ``tests/test_torch_tiled.py``
+(``test_shared_memory_of_the_kernels``)."""
+
 
 import numpy as np
 import pytest
@@ -316,3 +329,99 @@ def test_split_strip_kernels_match_plain_at_pluto(cuda_device, parts):
         for c in _mod_tiles(ctx, shape, 8, cuda_device, sxs=(2740, 2760),
                             sz=40, gz=40):
             _mod_block(kmod, c, rng, amps, parts, cuda_device)
+
+
+K1_ORDERS = (4, 6, 8, 10, 12, 14, 16)
+# and a grid of two 128 x 64 owned shapes along x, with tails on both axes
+K1_GRIDS = GRIDS + [(150, 60, 7, 9)]
+STEP_GATE = 1e-6                   # one step, of the plain result's max
+
+
+def _step_inputs(ctx, rng, device):
+    """A random state (p, pp, src), trace row and image, and a velocity a
+    shot, on the device."""
+    st = [_f32(rng, 2, ctx.nxe, ctx.nze).to(device) for _ in range(3)]
+    row = _f32(rng, 2, ctx.nx).to(device)
+    img = _f32(rng, 2, ctx.nx, ctx.nz).to(device)
+    return st, row, img, _v2(rng, ctx).to(device)
+
+
+def _fd_steps(ctx, rng, device, parts, sxs=None, sz=62, gz=63):
+    """fd_step_mma against the plain step with the same split z taps: both
+    tapers, and no injection, the Gaussian window, the point source, the
+    receiver row (one velocity plane for every shot). The default sources
+    lie across the owned cells' edges at x = 64 and (on a grid wider than
+    140) 128, the default row across the edge at z = 64. Returns the
+    launches."""
+    sxs = sxs or ((31, 61) if ctx.nxe < 140 else (61, 126))
+    (p, pp, _), row, _, v2 = _step_inputs(ctx, rng, device)
+    lap = solver.laplacian_of(ctx, parts, axis="z")
+    n = 0
+    for taper in ("all", "top"):
+        for kw in ({}, dict(amp=0.7, sx=sxs, sz=sz),
+                   dict(amp=0.7, sx=sxs, sz=sz, source="point"),
+                   dict(inj_row=row, x0=ctx.nzb, gz=gz)):
+            got = stream.fd_step_cuda(ctx, p, pp, v2[0], taper, parts=parts,
+                                      **kw)
+            want = solver.fd_step(ctx, p, pp, v2[0], taper, lap=lap, **kw)
+            torch.cuda.synchronize()
+            _within(got, want, (STEP_GATE,) * 2)
+            n += 1
+    return n
+
+
+def _gpu_step(ctx, rng, device, parts, imaging, gz=63):
+    """gpu_step_mma against the plain step with the same split z taps,
+    with the trace row at depth gz and the image (imaging) or neither."""
+    (y, x, src), row, img, v2 = _step_inputs(ctx, rng, device)
+    lap = solver.laplacian_of(ctx, parts, axis="z")
+    if imaging:
+        got = stream.fd_step_gpu_cuda(ctx, y, x, v2, gz, row, img.clone(),
+                                      src, parts=parts)
+        want = solver.fd_step_gpu(ctx, y, x, v2, gz, row, img.clone(), src,
+                                  lap)
+    else:
+        got = stream.fd_step_gpu_cuda(ctx, y, x, v2, parts=parts)
+        want = solver.fd_step_gpu(ctx, y, x, v2, lap=lap)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == (3 if imaging else 2)
+    _within(got, want, (STEP_GATE,) * 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("order", K1_ORDERS)
+@pytest.mark.parametrize("grid", K1_GRIDS)
+def test_fd_step_mma_matches_plain_on_the_card(cuda_device, grid, order,
+                                               parts):
+    rng = np.random.default_rng(order + 10 * parts)
+    ctx = _ctx(grid, order)
+    stream.reset_launches()
+    n = _fd_steps(ctx, rng, cuda_device, parts)
+    assert {k: v for k, v in stream.LAUNCHES.items() if v} == {
+        "fd_step_mma": n}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("imaging", [False, True])
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("order", K1_ORDERS)
+@pytest.mark.parametrize("grid", K1_GRIDS)
+def test_gpu_step_mma_matches_plain_on_the_card(cuda_device, grid, order,
+                                                parts, imaging):
+    rng = np.random.default_rng(order + 10 * parts + imaging)
+    ctx = _ctx(grid, order)
+    stream.reset_launches()
+    _gpu_step(ctx, rng, cuda_device, parts, imaging)
+    assert {k: v for k, v in stream.LAUNCHES.items() if v} == {
+        "gpu_step_mma": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3])
+def test_step_strip_kernels_match_plain_at_pluto(cuda_device, parts):
+    rng = np.random.default_rng(20 + parts)
+    ctx = solver.FDContext.create(**PLUTO)
+    _fd_steps(ctx, rng, cuda_device, parts, sxs=(2740, 2760), sz=40, gz=40)
+    for imaging in (False, True):
+        _gpu_step(ctx, rng, cuda_device, parts, imaging, gz=40)

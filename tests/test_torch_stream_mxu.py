@@ -117,11 +117,15 @@ def _t(a):
 
 STEP_CASES = [(4, "mxu"), (4, "mxu6"), (8, "mxu"), (8, "mxu6"),
               (12, "mxu"), (16, "mxu"), (16, "mxu6")]
+# fd_step also at the orders between (fd_step_mma's one-step strip body
+# tiles every order the same way)
+FD_STEP_CASES = STEP_CASES + [(6, "mxu"), (6, "mxu6"), (10, "mxu"),
+                              (10, "mxu6"), (14, "mxu"), (14, "mxu6")]
 
 
 # ------------------------------------------------ one step against Pallas
 
-@pytest.mark.parametrize("order,lap_impl", STEP_CASES)
+@pytest.mark.parametrize("order,lap_impl", FD_STEP_CASES)
 @pytest.mark.parametrize("taper", ["all", "top"])
 def test_fd_step_split_matches_pallas(order, lap_impl, taper):
     jctx, ctx = _ctxs(order)

@@ -441,7 +441,9 @@ def test_shared_memory_of_the_kernels():
     kstep_gpu_bwd and block_bwd on bwd_strip.cuh's (four staged fields,
     the owned image and the x ramp), kstep_gpu_bwd_mma and block_bwd_mma
     (the two z or x products staged too, on padded rows), the block kernels
-    staging the steps of the longer of their passes. Which (kernel, order,
+    staging the steps of the longer of their passes; fd_step_mma and
+    gpu_step_mma on step_strip.cuh's (the field and its z product, on
+    padded rows, at a halo of H). Which (kernel, order,
     K) the card refuses up to order 16, and that every tile fits at the
     pipelines' K up to order 10; the wrappers' step limit is the
     kernels'."""
@@ -566,6 +568,25 @@ def test_shared_memory_of_the_kernels():
     assert 3 * (smem("kstep_mod", 8, 4) + 1024) <= 228 * 1024
     assert smem("kstep_gpu_bwd", 8, 8) == 4 * (4 * 96 * 128 + 32 * 64 + 96)
     assert smem("kstep_gpu_fwd", 8, 8) == 4 * (2 * 128 * 128 + 128)
+
+    # the one-step split body (csrc/step_strip.cuh): fd_step_mma and
+    # gpu_step_mma take the first of its shapes that fits at a halo of H
+    # cells, with the staged field and its z product on padded rows; that
+    # first shape fits two blocks an SM at every order the kernels take
+    for name in ("gpu_step.cu", "stream_step.cu"):
+        src = " ".join((csrc / name).read_text().split())
+        assert src.count("pfdc::strip_shape(pfdc::kStepShapes, "
+                         "pfdc::kStepStage, H);") == 1, name
+        assert src.count("pfdc::strip_bytes(shape, pfdc::kStepStage, "
+                         "H);") == 1, name
+    bodies["Step"] = body("Step")
+    shapes, *stage = bodies["Step"]
+    assert stage == [2, False, True]
+    for order in range(4, fk.MAX_ORDER + 1, 2):
+        first = fk._strip_bytes(shapes[0], order // 2,
+                                fk._Strip(tuple(shapes), *stage))
+        assert strip_smem("Step", order, 1) == first <= limit, order
+        assert 2 * (first + 1024) <= 228 * 1024, order
 
     # the block kernels of the domain tiers (csrc/domain_block.cuh), every
     # one on a strip body: the launcher takes the body's shape and bytes for

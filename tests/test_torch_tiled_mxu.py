@@ -200,7 +200,7 @@ def test_fd_back_kstep_split_matches_pallas(order, k, lap_impl):
     assert max_rel(tout[4][0], _image(ctx, _unpad(jout[4], ctx, tr))) <= PARITY
 
 
-@pytest.mark.parametrize("order", [4, 8, 16])
+@pytest.mark.parametrize("order", [4, 6, 8, 10, 12, 14, 16])
 @pytest.mark.parametrize("lap_impl", ["mxu", "mxu6"])
 @pytest.mark.parametrize("imaging", [True, False])
 def test_fd_step_gpu_split_matches_pallas(order, lap_impl, imaging):
