@@ -191,8 +191,11 @@ Run from the root of the repository, on a machine with one CUDA card and
    both receiver offsets, image mode) over nt steps (images 1e-5, frames
    and fields 1e-4), against their plain versions with the z taps in the
    same bf16 parts: phase 8's 67 x 88 grid (nt=21) at orders 4-16, parts 2
-   and 3, then the Pluto grid (2 shots; the rec loops at nt=5) and 3lay
-   (8 shots, nt=1001);
+   and 3; ``fd_update_mma`` and the rec loops on 164 x 78 (two 128 x 64
+   shapes along each axis, with tails) at orders 4-16, the rec loops on
+   8 shots of 360 x 360 (where ``rec_bwd_step_mma``'s launcher takes 64 x
+   64) at orders 8 and 16; then the Pluto grid (2 shots; the rec loops at
+   nt=5) and 3lay (8 shots, nt=1001);
 29. the Pluto K = 1 path through them: ``forward_modeling_tiled`` and
    ``rtm_shot_snapshot_tiled`` at block_k=1, 2 shots, nt=1001, with
    ``lap_impl="auto"`` (= mxu) and ``"mxu6"``: launch counts (only the
@@ -652,11 +655,14 @@ def strip_row(template: str) -> str:
 
 
 def template_args(mangled: str, name: str) -> str:
-    """``<8, 3>``: the integer template arguments that follow the template
-    ``name`` in an Itanium-mangled kernel name (``Lin5E`` is -5)."""
-    m = re.search(rf"{name}I((?:Lin?\d+E)+)E", mangled)
-    args = re.findall(r"Li(n?\d+)E", m.group(1)) if m else []
-    return f"<{', '.join(a.replace('n', '-') for a in args)}>"
+    """``<8, 3, true>``: the integer and bool template arguments that
+    follow the template ``name`` in an Itanium-mangled kernel name
+    (``Lin5E`` is -5, ``Lb1E`` true)."""
+    m = re.search(rf"{name}I((?:L[ib]n?\d+E)+)E", mangled)
+    args = re.findall(r"L([ib])(n?\d+)E", m.group(1)) if m else []
+    return "<" + ", ".join(
+        ("true" if v == "1" else "false") if t == "b" else v.replace("n", "-")
+        for t, v in args) + ">"
 
 
 def build_report(log: str) -> list:
@@ -3007,9 +3013,11 @@ def main() -> int:
     # image), rec_fwd_step_mma and rec_bwd_step_mma against their plain
     # versions (the z taps in the same bf16 parts) on the same CUDA
     # tensors: one step from random states on phase 8's 67 x 88 grid at
-    # orders 4-16 and at the Pluto grid, gate 1e-6 of max an apply; the rec
-    # loops (frames, frame and image mode) on the 67 x 88 grid (nt=21), at
-    # the Pluto grid (nt=5) and at 3lay (8 shots, nt=1001), gate 1e-5 for
+    # orders 4-16 (fd_update_mma also on 164 x 78) and at the Pluto grid,
+    # gate 1e-6 of max an apply; the rec loops (frames, frame and image
+    # mode) on the 67 x 88 and 164 x 78 grids (nt=21), on 8 shots of 360 x
+    # 360 (orders 8 and 16), at the Pluto grid (nt=5) and at 3lay (8
+    # shots, nt=1001), gate 1e-5 for
     # the images, 1e-4 for the frames and final fields (the fields' floor
     # of the tensor cores' summation order over many steps, phase 23)
     split_k1 = ("fd_step_mma", "fd_update_mma", "rec_fwd_step_mma",
@@ -3105,6 +3113,27 @@ def main() -> int:
             split_steps(label, case, parts, st, row, img)
             split_rec(f"{label} nt {p_.nt}", p_, case[6].cpu().numpy(),
                       parts)
+    # the one-step body's shapes with tails: fd_update_mma's 128 x 64 twice
+    # along x and z on 164 x 78 (rec_bwd_step_mma's launcher takes 32 x 64
+    # there), and 8 shots of 360 x 360, where it takes 64 x 64 (144 blocks
+    # of 128 x 64 for 132 SMs)
+    for order in range(4, 17, 2):
+        p_ = dataclasses.replace(short, nx=150, nz=60, order=order)
+        _, ctx_r, _, v2_r, _, _, d_, _ = tier_case(p_)
+        st = [randn(rng, p_.ns, ctx_r.nxe, ctx_r.nze) for _ in range(2)]
+        for parts in (2, 3):
+            label = f"order {order} parts {parts} 164 x 78"
+            gate28(label, "fd_update_mma",
+                   [stream.fd_update_cuda(ctx_r, *st, v2_r, parts=parts)],
+                   [solver.fd_update(ctx_r, *st, v2_r, solver.laplacian_of(
+                       ctx_r, parts, axis="z"))], 1e-6)
+            split_rec(f"{label} nt {p_.nt}", p_, d_.cpu().numpy(), parts)
+            if order in (8, 16):
+                p8 = dataclasses.replace(short, nx=320, nz=320, ns=8,
+                                         nxb=20, nzb=20, order=order)
+                split_rec(f"order {order} parts {parts} 8 x 360 x 360 nt "
+                          f"{p8.nt}", p8, randn(rng, p8.ns, p8.nx, p8.nt)
+                          .cpu().numpy(), parts, quirks=(True,))
     case = tier_case(pluto, PLUTO_VELOCITIES)
     st = [randn(rng, pluto.ns, pluto.nxe, pluto.nze) for _ in range(3)]
     row = randn(rng, pluto.ns, pluto.nx)

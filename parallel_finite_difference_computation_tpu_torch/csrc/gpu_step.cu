@@ -90,6 +90,7 @@ __global__ void gpu_step(const float* __restrict__ y,
 struct GpuStepSite {
   static constexpr int kRows = pfdc::kStripRows;
   static constexpr bool kAhead = true;
+  static constexpr bool kTaper = true;
   static constexpr bool kGpu = true;
   const float* field;   // y
   const float* xramp;

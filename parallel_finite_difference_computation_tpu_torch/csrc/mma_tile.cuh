@@ -1,8 +1,8 @@
-// The staged 64 x 64 output tile of the per-step split-bf16 kernels that
-// do not run a strip body (fd_update_mma in stream_step.cu;
-// rec_fwd_step_mma and rec_bwd_step_mma in rec_step.cu): its shape, and
-// the stage, z product and cell loop they share. fd_step_mma and
-// gpu_step_mma run the one-step strip body of step_strip.cuh instead.
+// The staged 64 x 64 output tile of the one per-step split-bf16 kernel
+// that does not run a strip body yet, rec_fwd_step_mma (rec_step.cu): its
+// shape, stage, z product and cell loop. fd_step_mma, fd_update_mma,
+// gpu_step_mma and rec_bwd_step_mma run the one-step strip body of
+// step_strip.cuh instead.
 //
 // A block of four warps owns kMmaTileX x kMmaTileZ output cells of one shot
 // and stages the field its taps read (zeros outside the grid). Each warp

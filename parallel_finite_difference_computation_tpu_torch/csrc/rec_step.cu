@@ -42,14 +42,26 @@
 // rec_fwd_step_mma<H, P> and rec_bwd_step_mma<H, P, kImage> compute what
 // their exact twins compute, in the same order, but for the Laplacian: the
 // z taps as the P-part (2: lap_impl "mxu", 3: "mxu6") split-bf16 banded
-// product on the tensor cores, plus the exact x taps. A block stages a
-// 64 x 64 tile of the time-t field and its halo, writes the z product
-// behind a barrier and then takes its cells threads along z
+// product on the tensor cores, plus the exact x taps. rec_fwd_step_mma
+// stages a 64 x 64 tile of the time-t field and its halo, writes the z
+// product behind a barrier and then takes its cells threads along z
 // (mma_tile.cuh), so that a warp's frame stores and swf reads cover whole
-// 32-byte sectors, as the exact kernels' do.
+// 32-byte sectors, as the exact kernels' do. rec_bwd_step_mma runs the
+// one-step split body of step_strip.cuh without a taper (the stored field
+// is tapered already; the mask plane is read at the cell): a block of 16
+// warps stages the time-t field over its owned cells and an H-cell halo
+// with cp.async, takes its z product behind one barrier, and walks the
+// owned cells in 4-row strips, lanes along z (whole sectors for the
+// fields, the frames and the image), reading the older field, v2*dt2, the
+// mask and, in image mode, swf and the image at the cell, the next
+// strip's while it computes the current one. Its launcher
+// takes the largest owned shape whose grid gives every SM two blocks
+// (kRecShapes): 3lay's 8 shots of 231 x 231 gave 128 x 64 tiles only 64
+// blocks for the card's 132 SMs.
 //
 // Frame offsets are size_t: ns * nt * nx * nz passes 2^31 at marmousi size.
 #include "mma_tile.cuh"
+#include "step_strip.cuh"
 
 namespace {
 
@@ -197,8 +209,68 @@ __global__ void __launch_bounds__(pfdc::kMmaThreads)
   });
 }
 
+// rec_bwd_step_mma's site (step_strip.cuh, no taper): one shot's fields
+// on the (nxf, nzf) grid; the receiver step from the staged time-t field
+// and the cell's older field, v2*dt2 and mask and, in image mode over the
+// interior, swf's frame and the image. The older field is written in
+// place: only the cell's own thread reads it. Up to five operands a
+// cell: strips of 4 rows, the next strip's loaded ahead (a 2-shot,
+// 203-step Pluto call 10-13 % faster than with each strip's loaded when
+// it is taken, 3lay within 1.3 % either way; 8 rows ran 3lay 47 % slower,
+// PERF.md).
+template <bool kImage>
+struct RecBwdSite {
+  static constexpr int kRows = pfdc::kStripRows;
+  static constexpr bool kAhead = true;
+  static constexpr bool kTaper = false;
+  static constexpr bool kGpu = false;
+  const float* field;   // the time-t field, as stored
+  int nxf, nzf;
+  float* old;
+  const float* v2dt2;
+  const float* mask;
+  const float* inj;     // this step's row of the shot, x from x0
+  int x0, gz;
+  const float* swf;     // frame nt-1-it of the shot (image mode)
+  float* out;           // the shot's image, or frame it of its rwf
+  int nxb, nzb, nx, nz;
+
+  struct Cell {
+    float old, v, m, swf, img;
+  };
+  __device__ bool interior(int gx, int gz_) const {
+    return gx >= nxb && gx < nxb + nx && gz_ >= nzb && gz_ < nzb + nz;
+  }
+  __device__ Cell load(int gx, int gz_) const {
+    const size_t j = static_cast<size_t>(gx) * nzf + gz_;
+    Cell c{old[j], __ldg(v2dt2 + j), __ldg(mask + j), 0.0f, 0.0f};
+    if constexpr (kImage) {
+      if (interior(gx, gz_)) {
+        const size_t q = frame_offset(gx, gz_, nxb, nzb, nz);
+        c.swf = __ldg(swf + q);
+        c.img = out[q];
+      }
+    }
+    return c;
+  }
+  __device__ void step(int gx, int gz_, const Cell& in, float pc,
+                       float lap) const {
+    float u = (2.0f * pc - in.old * in.m) + in.v * lap;
+    if (gz_ == gz && gx >= x0 && gx < x0 + nx) u = u + inj[gx - x0];
+    old[static_cast<size_t>(gx) * nzf + gz_] = u * in.m;
+    if (interior(gx, gz_)) {
+      const size_t q = frame_offset(gx, gz_, nxb, nzb, nz);
+      if constexpr (kImage) {
+        out[q] = in.img + in.swf * (pc * in.m);
+      } else {
+        out[q] = pc * in.m;
+      }
+    }
+  }
+};
+
 template <int H, int P, bool kImage>
-__global__ void __launch_bounds__(pfdc::kMmaThreads)
+__global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
     rec_bwd_step_mma(const float* __restrict__ cur, float* __restrict__ old,
                      const float* __restrict__ v2dt2, int v2_shot_stride,
                      const float* __restrict__ mask,
@@ -207,39 +279,20 @@ __global__ void __launch_bounds__(pfdc::kMmaThreads)
                      const float* __restrict__ swf_rev,
                      float* __restrict__ out, size_t frame_shot_stride,
                      int nxb, int nzb, int nx, int nz, int nxe, int nze,
-                     pfdc::Coefs c) {
+                     pfdc::StripShape shape, pfdc::Coefs c) {
   extern __shared__ float smem[];
-  float* t = smem;
-  float* zb = smem + pfdc::MmaTile<H>::kCells;
   const int s = blockIdx.z;
-  const int bx = blockIdx.y * pfdc::kMmaTileX;
-  const int bz = blockIdx.x * pfdc::kMmaTileZ;
   const size_t plane = static_cast<size_t>(nxe) * nze;
-  float* pp = old + s * plane;
-  pfdc::stage_tile<H>(t, cur + s * plane, bx, bz, nxe, nze);
-  pfdc::tile_z_mma<H, P>(zb, t, bx, bz, nxe, nze, c);
-  pfdc::for_tile_cells<H>(bx, bz, nxe, nze, [&](int ix, int iz, int jt,
-                                                int jz) {
-    const size_t j = static_cast<size_t>(ix) * nze + iz;
-    const float m = mask[j];
-    const float pc = t[jt];
-    const float lap = pfdc::split_lap<H>(t, zb, ix, iz, jt, jz, nxe, nze, c);
-    float u = (2.0f * pc - pp[j] * m) +
-              v2dt2[s * static_cast<size_t>(v2_shot_stride) + j] * lap;
-    if (iz == gz && ix >= x0 && ix < x0 + nx) {
-      u = u + inj_it[s * inj_shot_stride + (ix - x0)];
-    }
-    pp[j] = u * m;
-    if (ix >= nxb && ix < nxb + nx && iz >= nzb && iz < nzb + nz) {
-      const size_t q = frame_offset(ix, iz, nxb, nzb, nz);
-      if (kImage) {
-        float* im = out + s * static_cast<size_t>(nx) * nz + q;
-        *im = *im + swf_rev[s * frame_shot_stride + q] * (pc * m);
-      } else {
-        out[s * frame_shot_stride + q] = pc * m;
-      }
-    }
-  });
+  const RecBwdSite<kImage> site{
+      cur + s * plane, nxe, nze, old + s * plane,
+      v2dt2 + s * static_cast<size_t>(v2_shot_stride), mask,
+      inj_it + s * inj_shot_stride, x0, gz,
+      kImage ? swf_rev + s * frame_shot_stride : nullptr,
+      out + s * (kImage ? static_cast<size_t>(nx) * nz : frame_shot_stride),
+      nxb, nzb, nx, nz};
+  const pfdc::StripTile t(H, shape, static_cast<int>(blockIdx.y) * shape.tx,
+                          static_cast<int>(blockIdx.x) * shape.tz);
+  pfdc::step_strip<H, P>(smem, site, t, c);
 }
 
 struct RecFwdRun {
@@ -300,6 +353,12 @@ struct RecFwdRun {
   }
 };
 
+// rec_bwd_step_mma's owned shapes, largest first: the launcher takes the
+// first whose grid gives every SM two blocks, else the last
+// (strip_shape_for_grid). Pluto's 2 shots take 128 x 64 (2310 blocks),
+// 3lay's 8 shots of 231 x 231 32 x 64 (256 blocks: 64 x 64 gives 128).
+constexpr pfdc::StripShape kRecShapes[] = {{128, 64}, {64, 64}, {32, 64}};
+
 struct RecBwdRun {
   float* a;
   float* b;
@@ -320,10 +379,17 @@ struct RecBwdRun {
     const int nx = nxe - 2 * nxb;
     const int nz = nze - 2 * nzb;
     const size_t frame = static_cast<size_t>(nx) * nz;
-    const size_t bytes = pfdc::MmaTile<H>::kStageBytes;
+    pfdc::StripShape shape{0, 0};
+    size_t bytes = 0;
     if constexpr (P > 0) {
-      const cudaError_t e =
-          pfdc::allow_smem(rec_bwd_step_mma<H, P, kImage>, bytes);
+      int sms = 0;
+      cudaError_t e = pfdc::device_sms(sms);
+      if (e != cudaSuccess) return e;
+      shape = pfdc::strip_shape_for_grid(kRecShapes, pfdc::kStepStage, H,
+                                         ns, nxe, nze, sms);
+      if (shape.tx == 0) return cudaErrorInvalidValue;
+      bytes = pfdc::strip_bytes(shape, pfdc::kStepStage, H);
+      e = pfdc::allow_smem(rec_bwd_step_mma<H, P, kImage>, bytes);
       if (e != cudaSuccess) return e;
     }
     for (int it = 0; it < nt; ++it) {
@@ -341,12 +407,13 @@ struct RecBwdRun {
             static_cast<size_t>(nt) * nx, x0, gz, swf_rev, out_it,
             static_cast<size_t>(nt) * frame, nxb, nzb, nx, nz, nxe, nze, c);
       } else {
-        const dim3 grid = pfdc::mma_grid(ns, nxe, nze);
-        const dim3 block(pfdc::kMmaThreads);
+        const dim3 grid = pfdc::strip_grid(shape, ns, nxe, nze);
+        const dim3 block(pfdc::kStripThreads);
         rec_bwd_step_mma<H, P, kImage><<<grid, block, bytes, stream>>>(
             cur, old, v2dt2, v2_shot_stride, mask, inj_it,
             static_cast<size_t>(nt) * nx, x0, gz, swf_rev, out_it,
-            static_cast<size_t>(nt) * frame, nxb, nzb, nx, nz, nxe, nze, c);
+            static_cast<size_t>(nt) * frame, nxb, nzb, nx, nz, nxe, nze,
+            shape, c);
       }
       const cudaError_t e = cudaGetLastError();
       if (e != cudaSuccess) return e;

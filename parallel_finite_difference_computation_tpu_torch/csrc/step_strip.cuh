@@ -1,6 +1,8 @@
-// The one-step split body: one time step of the K = 1 tier with the z taps
-// as the split-bf16 banded product, on the strip pieces of strip.cuh,
-// shared by fd_step_mma (stream_step.cu) and gpu_step_mma (gpu_step.cu).
+// The one-step split body: one time step with the z taps as the
+// split-bf16 banded product, on the strip pieces of strip.cuh, shared by
+// the K = 1 tier's fd_step_mma, fd_update_mma (stream_step.cu) and
+// gpu_step_mma (gpu_step.cu), and rtm_main's rec_bwd_step_mma
+// (rec_step.cu).
 //
 // What held the staged-tile kernels back on an H100 (PERF.md, kernel
 // table, rows 8 and 10 split: 2.66x and 5.4x their bytes bound, read from
@@ -18,9 +20,10 @@
 //   that fits taken (strip_shape): 128 x 64 owned cells (at K = 1 the halo
 //   is only H cells), the K = 1 calls 1-2 % faster than on 64 x 128 and
 //   4-7 % faster than on 64 x 64;
-// - stages only the field whose taps are read (p for fd_step_mma, y for
-//   gpu_step_mma) with cp.async, on rows padded to 4 mod 8 floats
-//   (strip_pitch), and the tile's x ramp;
+// - stages only the field whose taps are read (p for fd_step_mma and
+//   fd_update_mma, y for gpu_step_mma, the time-t field for
+//   rec_bwd_step_mma) with cp.async, on rows padded to 4 mod 8 floats
+//   (strip_pitch), and, where the step tapers, the tile's x ramp;
 // - for the kGpu state (gpu_step_mma) tapers the staged field in a phase
 //   of its own (taper_strip_tile), so that the staged t = m*y is both the
 //   tapped field and t_out;
@@ -30,22 +33,29 @@
 //   column (StripWalk from lo = H, lanes along z): the x taps from a
 //   register window of the staged field, added to the product at the cell
 //   (cell_lap<H, P, Split::kZ>: zb + accx, the order of the JAX kernels'
-//   use_mxu branch), the centre from the window, the taper from the
-//   staged ramp and the column's z factor and strip flag in registers.
+//   use_mxu branch), the centre from the window, the taper (where the
+//   step tapers) from the staged ramp and the column's z factor and strip
+//   flag in registers.
 //   Every other operand is read at the cell from global memory (lanes
 //   along z: whole sectors), a strip's loads all issued before the first
 //   of its stores, and the outputs are written straight to global memory.
 //
 // Exactness. Per cell the operations and their order are the plain
-// versions' (solver.fd_step, solver._gpu_step); built with -fmad=false. The
-// outputs are buffers no block of the launch reads.
+// versions' (solver.fd_step, solver.fd_update, solver._gpu_step, the
+// receiver step of solver.backward_recorded); built with -fmad=false. The
+// outputs are buffers no block of the launch reads, or cells of a field
+// that only the cell's own thread reads (rec_bwd_step_mma's older field).
 //
-// The site. A kernel hands the body a Site: the flavour (kGpu: the staged
-// field is tapered before its taps are read), one shot's field pointer in
-// the (nxf, nzf) layout and the taper's ramps, the operands a cell reads
-// from global memory (Site::Cell, load(gx, gz)), and step(gx, gz, cell,
-// centre, m, lap), which finishes the cell's step from them, its staged
-// value, its taper multiplier and its Laplacian (0 outside the interior).
+// The site. A kernel hands the body a Site: the flavour (kTaper: the step
+// takes the taper's multiplier from its ramps; kGpu: the staged field is
+// tapered before its taps are read), one shot's field pointer in the
+// (nxf, nzf) layout and, with kTaper, the taper's ramps, the operands a
+// cell reads from global memory (Site::Cell, load(gx, gz)), and step(gx,
+// gz, cell, centre, m, lap), which finishes the cell's step from them,
+// its staged value, its taper multiplier and its Laplacian (0 outside the
+// interior); without kTaper step(gx, gz, cell, centre, lap): no ramp is
+// staged or read and no multiplier is formed (fd_update does not taper;
+// rec_bwd_step_mma reads its mask plane at the cell).
 // The loads of a strip's cells go first: a store may alias a later cell's
 // operand as far as the compiler knows, so loads and stores interleaved
 // cell by cell would wait for memory once a cell instead of once a strip
@@ -66,6 +76,35 @@ namespace pfdc {
 // kernels take, two blocks an SM.
 constexpr StripShape kStepShapes[] = {{128, 64}};
 constexpr StripStage kStepStage{2, false, true};
+
+// The first of shapes that fits whose launch over ns shots of an (nx, nz)
+// grid gives each of sms SMs at least kStripBlocks blocks, else the last
+// that fits, or {0, 0} if none does: for a launcher whose grids can be too
+// small to fill the card with its largest shape.
+template <size_t N>
+inline StripShape strip_shape_for_grid(const StripShape (&shapes)[N],
+                                       StripStage g, int r, int ns, int nx,
+                                       int nz, int sms) {
+  StripShape last{0, 0};
+  for (const StripShape& s : shapes) {
+    if (strip_bytes(s, g, r) > static_cast<size_t>(kMaxSmemBytes)) continue;
+    const dim3 grid = strip_grid(s, ns, nx, nz);
+    if (static_cast<long long>(grid.x) * grid.y * grid.z >=
+        static_cast<long long>(kStripBlocks) * sms) {
+      return s;
+    }
+    last = s;
+  }
+  return last;
+}
+
+// The SMs of the current device into sms.
+inline cudaError_t device_sms(int& sms) {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  return cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+}
 
 // One step of the site's block on its tile (blockDim.x = kStripThreads, a
 // 1-D block, a halo of t.r = H cells) with the z taps in P bf16 parts.
@@ -102,8 +141,13 @@ __device__ __forceinline__ void step_strip(float* smem, const Site& site,
     }
   };
   if constexpr (Site::kAhead) load_strip(warp, in);
-  stage_strip_tile<1>({f}, {site.field}, sxr, site.xramp, t, nxf, nzf,
-                      [](int, int) { return true; }, pitch);
+  if constexpr (Site::kTaper) {
+    stage_strip_tile<1>({f}, {site.field}, sxr, site.xramp, t, nxf, nzf,
+                        [](int, int) { return true; }, pitch);
+  } else {
+    stage_strip_fields<1>({f}, {site.field}, t, nxf, nzf,
+                          [](int, int) { return true; }, pitch);
+  }
   cp_async_wait_all();
   __syncthreads();
   if constexpr (Site::kGpu) {
@@ -120,8 +164,12 @@ __device__ __forceinline__ void step_strip(float* smem, const Site& site,
     }
     int lx0, rows, lz, gz;
     if (walk.strip(item, lane, t, nzf, lx0, rows, lz, gz)) {
-      const float zf = site.zfac[gz];
-      const bool ramp = site.strip[gz] != 0.0f;
+      float zf = 1.0f;
+      bool ramp = false;
+      if constexpr (Site::kTaper) {
+        zf = site.zfac[gz];
+        ramp = site.strip[gz] != 0.0f;
+      }
       float w[1][S + 2 * H];
       strip_windows<H>(w, {f}, t, lx0, rows, lz, pitch);
 #pragma unroll
@@ -133,8 +181,12 @@ __device__ __forceinline__ void step_strip(float* smem, const Site& site,
             in_interior(gx, gz, H, nxf, nzf)
                 ? cell_lap<H, P, Split::kZ>(w[0], i, f, zb, j, c)
                 : 0.0f;
-        site.step(gx, gz, in[i], w[0][i + H],
-                  strip_taper(sxr, lx, zf, ramp), lap);
+        if constexpr (Site::kTaper) {
+          site.step(gx, gz, in[i], w[0][i + H],
+                    strip_taper(sxr, lx, zf, ramp), lap);
+        } else {
+          site.step(gx, gz, in[i], w[0][i + H], lap);
+        }
       }
     }
     if constexpr (Site::kAhead) {

@@ -46,15 +46,13 @@
 // Laplacian: the z taps as the P-part (2: lap_impl "mxu", 3: "mxu6")
 // split-bf16 banded product on the tensor cores, plus the exact x taps.
 // They read and write what the exact kernels do, so HBM bounds them too.
-// fd_step_mma runs the one-step split body of step_strip.cuh: a block of
-// 16 warps stages p over 128 x 64 owned cells and an H-cell halo with
-// cp.async, takes its z product behind one barrier, and walks the owned
-// cells in 8-row strips, lanes along z, the x taps from a register window,
-// reading pp, v2*dt2 and the injections at the cell and writing p*m and
-// u*m there. fd_update_mma stages a 64 x 64 tile of p and its halo, writes
-// the z product behind a barrier and then takes its cells threads along z
-// (mma_tile.cuh).
-#include "mma_tile.cuh"
+// Both run the one-step split body of step_strip.cuh: a block of 16 warps
+// stages p over 128 x 64 owned cells and an H-cell halo with cp.async,
+// takes its z product behind one barrier, and walks the owned cells in
+// strips of 8 rows, lanes along z, the x taps from a register window.
+// fd_step_mma reads pp, v2*dt2 and the injections at the cell and writes
+// p*m and u*m there; fd_update_mma, which does not taper (no ramp staged
+// or read), reads pp and v2*dt2 and writes u.
 #include "step_strip.cuh"
 
 namespace {
@@ -129,6 +127,7 @@ __global__ void fd_update(const float* __restrict__ p,
 struct FdStepSite {
   static constexpr int kRows = 8;
   static constexpr bool kAhead = false;
+  static constexpr bool kTaper = true;
   static constexpr bool kGpu = false;
   const float* field;   // p
   const float* xramp;
@@ -200,28 +199,50 @@ __global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
   pfdc::step_strip<H, P>(smem, site, t, c);
 }
 
+// fd_update_mma's site (step_strip.cuh): one shot's fields on the (nxf,
+// nzf) grid; the untapered step from the staged p and the cell's pp and
+// v2*dt2. Two operands a cell, as fd_step_mma's: strips of 8 rows, each
+// strip's loaded when it is taken.
+struct FdUpdateSite {
+  static constexpr int kRows = 8;
+  static constexpr bool kAhead = false;
+  static constexpr bool kTaper = false;
+  static constexpr bool kGpu = false;
+  const float* field;   // p
+  int nxf, nzf;
+  const float* pp;
+  float* out;
+  const float* v2dt2;
+
+  struct Cell {
+    float pp, v;
+  };
+  __device__ Cell load(int gx, int gz_) const {
+    const size_t q = static_cast<size_t>(gx) * nzf + gz_;
+    return {__ldg(pp + q), __ldg(v2dt2 + q)};
+  }
+  __device__ void step(int gx, int gz_, const Cell& in, float pc,
+                       float lap) const {
+    out[static_cast<size_t>(gx) * nzf + gz_] = (2.0f * pc - in.pp) +
+                                               in.v * lap;
+  }
+};
+
 template <int H, int P>
-__global__ void __launch_bounds__(pfdc::kMmaThreads)
+__global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
     fd_update_mma(const float* __restrict__ p, const float* __restrict__ pp,
                   float* __restrict__ out, const float* __restrict__ v2dt2,
-                  int v2_shot_stride, int nxe, int nze, pfdc::Coefs c) {
+                  int v2_shot_stride, int nxe, int nze,
+                  pfdc::StripShape shape, pfdc::Coefs c) {
   extern __shared__ float smem[];
-  float* t = smem;
-  float* zb = smem + pfdc::MmaTile<H>::kCells;
   const int s = blockIdx.z;
-  const int bx = blockIdx.y * pfdc::kMmaTileX;
-  const int bz = blockIdx.x * pfdc::kMmaTileZ;
   const size_t plane = static_cast<size_t>(nxe) * nze;
-  pfdc::stage_tile<H>(t, p + s * plane, bx, bz, nxe, nze);
-  pfdc::tile_z_mma<H, P>(zb, t, bx, bz, nxe, nze, c);
-  pfdc::for_tile_cells<H>(bx, bz, nxe, nze, [&](int ix, int iz, int jt,
-                                                int jz) {
-    const size_t j = static_cast<size_t>(ix) * nze + iz;
-    const size_t q = s * plane + j;
-    const float lap = pfdc::split_lap<H>(t, zb, ix, iz, jt, jz, nxe, nze, c);
-    out[q] = (2.0f * t[jt] - pp[q]) +
-             v2dt2[s * static_cast<size_t>(v2_shot_stride) + j] * lap;
-  });
+  const FdUpdateSite site{p + s * plane, nxe, nze, pp + s * plane,
+                          out + s * plane,
+                          v2dt2 + s * static_cast<size_t>(v2_shot_stride)};
+  const pfdc::StripTile t(H, shape, static_cast<int>(blockIdx.y) * shape.tx,
+                          static_cast<int>(blockIdx.x) * shape.tz);
+  pfdc::step_strip<H, P>(smem, site, t, c);
 }
 
 struct FdStepRun {
@@ -295,13 +316,16 @@ struct FdUpdateRun {
       fd_update<H><<<grid, block, 0, stream>>>(p, pp, out, v2dt2,
                                                v2_shot_stride, nxe, nze, c);
     } else {
-      const size_t bytes = pfdc::MmaTile<H>::kStageBytes;
+      const pfdc::StripShape shape =
+          pfdc::strip_shape(pfdc::kStepShapes, pfdc::kStepStage, H);
+      if (shape.tx == 0) return cudaErrorInvalidValue;
+      const size_t bytes = pfdc::strip_bytes(shape, pfdc::kStepStage, H);
       const cudaError_t e = pfdc::allow_smem(fd_update_mma<H, P>, bytes);
       if (e != cudaSuccess) return e;
-      const dim3 grid = pfdc::mma_grid(ns, nxe, nze);
-      const dim3 block(pfdc::kMmaThreads);
+      const dim3 grid = pfdc::strip_grid(shape, ns, nxe, nze);
+      const dim3 block(pfdc::kStripThreads);
       fd_update_mma<H, P><<<grid, block, bytes, stream>>>(
-          p, pp, out, v2dt2, v2_shot_stride, nxe, nze, c);
+          p, pp, out, v2dt2, v2_shot_stride, nxe, nze, shape, c);
     }
     return cudaGetLastError();
   }

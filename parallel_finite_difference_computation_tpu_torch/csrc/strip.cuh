@@ -5,9 +5,10 @@
 // kstep_gpu_fwd, block_mod, block_fwd; with the x taps split
 // block_mod_mma, block2_mod_mma, block_fwd_mma, block2_fwd_mma; with the z
 // taps split kstep_mod_mma, kstep_gpu_fwd_mma), and the one-step split
-// body of step_strip.cuh (fd_step_mma, gpu_step_mma); the split x product
-// of both bodies' block instances, and the split z product of both bodies'
-// K-step instances and of the one-step body.
+// body of step_strip.cuh (fd_step_mma, gpu_step_mma, fd_update_mma,
+// rec_bwd_step_mma); the split x product of both bodies' block instances,
+// and the split z product of both bodies' K-step instances and of the
+// one-step body.
 //
 // A block stages a tile of owned cells plus a halo of r = K*H cells on
 // both axes in dynamic shared memory: only the fields that neighbours read
@@ -99,13 +100,12 @@ struct StripTile {
 
 // Stages the tile of each field src[f] (one shot's (nxf, nzf) field) into
 // dst[f] at the given pitch with cp.async, 0 outside the grid and wherever
-// held(gx, gz) is false, and the x ramp of the tile's rows into sxr; the
-// caller then waits (cp_async_wait_all) and syncs.
+// held(gx, gz) is false; the caller then waits (cp_async_wait_all) and
+// syncs.
 template <int NF, class Held>
-__device__ __forceinline__ void stage_strip_tile(
-    float* const (&dst)[NF], const float* const (&src)[NF], float* sxr,
-    const float* __restrict__ xramp, const StripTile& t, int nxf, int nzf,
-    Held&& held, int pitch) {
+__device__ __forceinline__ void stage_strip_fields(
+    float* const (&dst)[NF], const float* const (&src)[NF],
+    const StripTile& t, int nxf, int nzf, Held&& held, int pitch) {
   const int tid = static_cast<int>(threadIdx.x);
   const int nth = static_cast<int>(blockDim.x);
   for (int i = tid; i < t.sx * t.sz; i += nth) {
@@ -118,6 +118,17 @@ __device__ __forceinline__ void stage_strip_tile(
 #pragma unroll
     for (int f = 0; f < NF; ++f) cp_async4(dst[f] + j, src[f] + q, in);
   }
+}
+
+// The same, and the x ramp of the tile's rows into sxr.
+template <int NF, class Held>
+__device__ __forceinline__ void stage_strip_tile(
+    float* const (&dst)[NF], const float* const (&src)[NF], float* sxr,
+    const float* __restrict__ xramp, const StripTile& t, int nxf, int nzf,
+    Held&& held, int pitch) {
+  stage_strip_fields<NF>(dst, src, t, nxf, nzf, held, pitch);
+  const int tid = static_cast<int>(threadIdx.x);
+  const int nth = static_cast<int>(blockDim.x);
   for (int lx = tid; lx < t.sx; lx += nth) {
     const int gx = t.gx0 + lx;
     sxr[lx] = gx >= 0 && gx < nxf ? xramp[gx] : 0.0f;

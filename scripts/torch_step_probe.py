@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Build, check and time the split kernels of the K = 1 tier of checkouts
-of the PyTorch port on one CUDA card: ``fd_step_mma`` and ``gpu_step_mma``
-(the z taps in bf16 parts), each beside its exact twin, with
-``fd_update_mma`` as a control.
+"""Build, check and time the split kernels of the one-step strip body of
+checkouts of the PyTorch port on one CUDA card: ``fd_step_mma``,
+``fd_update_mma`` and ``gpu_step_mma`` of the K = 1 tier and rtm_main's
+``rec_bwd_step_mma`` (the z taps in bf16 parts), each beside its exact
+twin.
 
     python3 scripts/torch_step_probe.py TREE [TREE ...]
                                         [--variants NAME ...] [--rounds N]
@@ -14,26 +15,36 @@ register, shared-memory and spill lines of these kernels at orders 8 and
 parts (2 and 3) on a small ragged grid (67 x 88 extended, two shots,
 orders 4, 8, 12 and 16; ``fd_step`` with both tapers and every injection:
 none, the Gaussian window, the point source, the receiver row;
-``gpu_step`` without and with the trace row and the image; gate 1e-6 of
-the plain result's max) and the exact ones bitwise, and then times them
-at the Pluto grid (7040 x 1281 extended, order 8, 2 shots) as
-``chip_smoke.py`` phase 31 times them: ``fd_step`` over 1001 launches
-(the Gaussian source, the all-edge taper, one velocity plane),
-``gpu_step`` over 1001 receiver launches (the trace row and the image)
-and over 1001 forward launches (neither), ``fd_update`` over 999; exact,
-mxu and mxu6 (``fd_update`` exact and mxu); then the split K = 1
-modeling and RTM calls (``forward_modeling_tiled`` and
-``rtm_shot_snapshot_tiled`` at block_k = 1, mxu, nt = 1001). Median of 3
-CUDA-event samples after a warm-up.
+``fd_update``; ``gpu_step`` without and with the trace row and the
+image; gate 1e-6 of the plain result's max; ``rec_bwd_step`` over 9
+steps in frame mode, both receiver offsets, and in image mode, gates
+1e-4 and 1e-5, exact or split) and the other exact ones bitwise, and
+then times them at the
+Pluto grid (7040 x 1281 extended, order 8, 2 shots) as ``chip_smoke.py``
+phase 31 times them: ``fd_step`` over 1001 launches (the Gaussian
+source, the all-edge taper, one velocity plane), ``gpu_step`` over 1001
+receiver launches (the trace row and the image) and over 1001 forward
+launches (neither), ``fd_update`` over 999; exact, mxu and mxu6; then
+``rec_bwd_step`` in image mode at 3lay (8 shots of 231 x 231 extended,
+nt = 1001) and at the Pluto grid (2 shots, nt = 203, the rtm_main path
+of phase 30), exact, mxu and mxu6; then the split K = 1 modeling and RTM
+calls (``forward_modeling_tiled`` and ``rtm_shot_snapshot_tiled`` at
+block_k = 1, mxu, nt = 1001) and the 3lay rtm_main call
+(``rtm_full_cuda``, mxu). Median of 3 CUDA-event samples after a
+warm-up.
 
 ``--variants`` adds copies of the last tree with other constants:
 ``step64x64``, ``step64x128`` and ``step32x128`` (the first owned shape
 of the one-step split body, ``kStepShapes`` in ``csrc/step_strip.cuh``);
-``fd_rows4`` and ``gpu_rows8`` (the rows of a strip, ``kRows`` of
-``fd_step_mma``'s and ``gpu_step_mma``'s sites); ``fd_ahead`` and
-``gpu_behind`` (whether a warp loads its next strip's operands while it
-computes the current one, ``kAhead`` of the same sites), made under a
-temporary directory. The trees run in turns, ``--rounds`` times (A, B,
+``fd_rows4``, ``upd_rows4``, ``gpu_rows8`` and ``rec_rows8`` (the rows of
+a strip, ``kRows`` of ``fd_step_mma``'s, ``fd_update_mma``'s,
+``gpu_step_mma``'s and ``rec_bwd_step_mma``'s sites); ``fd_ahead``,
+``upd_ahead``, ``gpu_behind`` and ``rec_behind`` (whether a warp loads its
+next strip's operands while it computes the current one, ``kAhead`` of
+the same sites); ``rec128x64``, ``rec64x64``, ``rec32x64`` and
+``rec64x32`` (``rec_bwd_step_mma`` on that one owned shape at every grid
+instead of its shape rule, ``kRecShapes`` in ``csrc/rec_step.cu``), made
+under a temporary directory. The trees run in turns, ``--rounds`` times (A, B,
 ..., then in reverse), as ``scripts/torch_bwd_probe.py`` runs them.
 Prints one JSON line per process and the medians per tree, beside the
 card's name and power limit.
@@ -46,6 +57,11 @@ import sys
 import torch_bwd_probe
 
 _STEP_FIRST = "kStepShapes[] = {{128, 64}};"
+_REC = "kRecShapes[] = {{128, 64}, {64, 64}, {32, 64}};"
+_FD = "struct FdStepSite {\n  static constexpr int kRows = 8;\n"
+_UPD = "struct FdUpdateSite {\n  static constexpr int kRows = 8;\n"
+_REC_SITE = ("struct RecBwdSite {\n  static constexpr int kRows = "
+             "pfdc::kStripRows;\n  static constexpr bool kAhead = true;\n")
 VARIANTS = {
     "step64x64": ("step_strip.cuh", _STEP_FIRST,
                   "kStepShapes[] = {{64, 64}};"),
@@ -53,10 +69,23 @@ VARIANTS = {
                    "kStepShapes[] = {{64, 128}};"),
     "step32x128": ("step_strip.cuh", _STEP_FIRST,
                    "kStepShapes[] = {{32, 128}};"),
-    "fd_rows4": ("stream_step.cu", "static constexpr int kRows = 8;",
-                 "static constexpr int kRows = pfdc::kStripRows;"),
-    "fd_ahead": ("stream_step.cu", "static constexpr bool kAhead = false;",
-                 "static constexpr bool kAhead = true;"),
+    "fd_rows4": ("stream_step.cu", _FD, _FD.replace(
+        "8;", "pfdc::kStripRows;")),
+    "fd_ahead": ("stream_step.cu", _FD + "  static constexpr bool kAhead = "
+                 "false;", _FD + "  static constexpr bool kAhead = true;"),
+    "upd_rows4": ("stream_step.cu", _UPD, _UPD.replace(
+        "8;", "pfdc::kStripRows;")),
+    "upd_ahead": ("stream_step.cu", _UPD + "  static constexpr bool kAhead "
+                  "= false;", _UPD + "  static constexpr bool kAhead = "
+                  "true;"),
+    "rec_rows8": ("rec_step.cu", _REC_SITE, _REC_SITE.replace(
+        "pfdc::kStripRows;", "8;")),
+    "rec_behind": ("rec_step.cu", _REC_SITE, _REC_SITE.replace(
+        "true;", "false;")),
+    "rec128x64": ("rec_step.cu", _REC, "kRecShapes[] = {{128, 64}};"),
+    "rec64x64": ("rec_step.cu", _REC, "kRecShapes[] = {{64, 64}};"),
+    "rec32x64": ("rec_step.cu", _REC, "kRecShapes[] = {{32, 64}};"),
+    "rec64x32": ("rec_step.cu", _REC, "kRecShapes[] = {{64, 32}};"),
     "gpu_rows8": ("gpu_step.cu",
                   "static constexpr int kRows = pfdc::kStripRows;",
                   "static constexpr int kRows = 8;"),
@@ -71,6 +100,7 @@ import numpy as np, torch
 pkg = "parallel_finite_difference_computation_tpu_torch"
 solver = __import__(pkg + ".solver", fromlist=["x"])
 stream = __import__(pkg + ".ops.stream", fromlist=["x"])
+fk = __import__(pkg + ".ops.fd_kernels", fromlist=["x"])
 build = __import__(pkg + ".ops._build", fromlist=["x"])
 dev = torch.device("cuda", 0)
 build.library()
@@ -81,7 +111,9 @@ for line in build.build_log().splitlines():
     if m:
         fn = m.group(1)
     # the order-8 and order-16 instances (H = 4, 8)
-    name = fn and re.search(r"\d((?:fd|gpu)_step\w*?I(?:Li\d+E)+)E", fn)
+    name = fn and re.search(
+        r"\d((?:fd_step|fd_update|gpu_step|rec_bwd_step)\w*?I(?:L\w\d+E)+)E",
+        fn)
     if (name and re.search(r"ILi[48]E", name[1])
             and ("registers" in line or "spill" in line)):
         ptxas.append(f"[ptxas] {name[1]}: {line.strip()}")
@@ -92,12 +124,15 @@ rng = np.random.default_rng(0)
 def f32(*shape):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
-def judge(label, got, want, parts):
+def judge(label, got, want, parts, gate=1e-6):
+    """Split kernels within gate of max; exact ones bitwise, but for the
+    rec loops (gate=): their image sums in another order than the plain
+    loop's, which chip_smoke.py phase 5 holds to 1e-5."""
     global n_checks
-    if parts:
+    if parts or gate != 1e-6:
         rel = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
                   for a, b in zip(got, want))
-        ok = rel <= 1e-6
+        ok = rel <= gate
         what = f"max rel {rel:.2e}"
     else:
         ok = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
@@ -132,6 +167,8 @@ for order in (4, 8, 12, 16):
                         ctx, s[0], s[1], v[0], taper, parts=parts,
                         **{k: a.to(s[0].device) if torch.is_tensor(a)
                            else a for k, a in kw.items()}))
+        calls["fd_update"] = lambda s, v: (stream.fd_update_cuda(
+            ctx, s[0], s[1], v, parts=parts),)
         calls["gpu_step"] = lambda s, v: stream.fd_step_gpu_cuda(
             ctx, s[0], s[1], v, parts=parts)
         calls["gpu_step K5 K6"] = lambda s, v: stream.fd_step_gpu_cuda(
@@ -141,6 +178,24 @@ for order in (4, 8, 12, 16):
             want = call(st, v2)
             got = call([a.to(dev) for a in st], v2.to(dev))
             judge(f"{label} parts {parts} order {order}", got, want, parts)
+        # rec_bwd_step over 9 steps: frames and fields, both receiver
+        # offsets, then the image; the plain loops with the same parts
+        lap = solver.laplacian_of(ctx, parts, axis="z")
+        dobs = f32(2, ctx.nx, ctx.nt)
+        swf = f32(2, ctx.nt, ctx.nx, ctx.nz)
+        for quirk in (True, False):
+            want = solver.backward_recorded(ctx, v2[0], dobs, gz,
+                                            x_off_quirk=quirk, lap=lap)
+            got = fk.backward_recorded_cuda(ctx, v2[0].to(dev), dobs.to(dev),
+                                            gz, x_off_quirk=quirk,
+                                            lap_impl=parts)
+            judge(f"rec_bwd_step frames x_off_quirk {quirk} parts {parts} "
+                  f"order {order}", got, want, parts, 1e-4)
+        want = solver.backward_image(ctx, v2[0], swf, dobs, gz, lap=lap)
+        got = fk.backward_image_cuda(ctx, v2[0].to(dev), swf.to(dev),
+                                     dobs.to(dev), gz, lap_impl=parts)
+        judge(f"rec_bwd_step image parts {parts} order {order}", (got,),
+              (want,), parts, 1e-5)
 print("\n".join(ptxas), file=sys.stderr)
 print(f"[check] {n_checks} cases, {'all held' if res['bitwise'] else 'FAILED'}",
       file=sys.stderr)
@@ -196,7 +251,7 @@ for parts, sfx in ((0, ""), (2, "_mma"), (3, "_mma mxu6")):
     res["fd_step" + sfx] = median_ms(fd_step)
     res["gpu_step" + sfx + " receiver"] = median_ms(gpu_rec)
     res["gpu_step" + sfx + " forward"] = median_ms(gpu_fwd)
-for parts, sfx in ((0, ""), (2, "_mma")):
+for parts, sfx in ((0, ""), (2, "_mma"), (3, "_mma mxu6")):
 
     def fd_update():
         for _ in range(ctx.nt - 2):
@@ -205,12 +260,45 @@ for parts, sfx in ((0, ""), (2, "_mma")):
 
     res["fd_update" + sfx] = median_ms(fd_update)
 del st, img, cm, cr
+# rec_bwd_step in image mode: 3lay (8 shots, nt = 1001) and the Pluto
+# rtm_main path of chip_smoke.py phase 30 (2 shots, nt = 203), on random
+# gathers and source frames made on the card
+gen = torch.Generator(device=dev).manual_seed(0)
+for where, ctx_r, ns in (
+        ("3lay", solver.FDContext.create(151, 151, 1001, dx=10.0, dz=10.0,
+                                         dt=0.001, order=8, nxb=40, nzb=40,
+                                         fac=0.01), 8),
+        ("Pluto nt 203", solver.FDContext.create(
+            6960, 1201, 203, dx=7.62, dz=7.62, dt=0.0007, order=8, nxb=40,
+            nzb=40, fac=0.75), 2)):
+    v2r = ((1500.0 + 2000.0 * torch.rand((ctx_r.nxe, ctx_r.nze), device=dev,
+                                          generator=gen)) ** 2)
+    d = torch.randn((ns, ctx_r.nx, ctx_r.nt), device=dev, generator=gen)
+    swf = torch.randn((ns, ctx_r.nt, ctx_r.nx, ctx_r.nz), device=dev,
+                      generator=gen)
+    for parts, sfx in ((0, ""), (2, "_mma"), (3, "_mma mxu6")):
+        res[f"rec_bwd_step{sfx} {where}"] = median_ms(
+            lambda: fk.backward_image_cuda(ctx_r, v2r, swf, d, 40,
+                                           lap_impl=parts))
+    del d, swf
+    torch.cuda.empty_cache()
 dobs = torch.from_numpy(rng.standard_normal((2, ctx.nx, ctx.nt)).astype(
     np.float32)).to(dev)
 res["K=1 modeling mxu"] = median_ms(lambda: solver.forward_modeling_tiled(
     ctx, v2m, wav, sxs, 40, 40, block_k=1, lap_impl="mxu"))
 res["K=1 RTM mxu"] = median_ms(lambda: solver.rtm_shot_snapshot_tiled(
     ctx, v2, wav, dobs, sxs, 40, 40, block_k=1, lap_impl="mxu"))
+del dobs, v2, v2m
+torch.cuda.empty_cache()
+ctx3 = solver.FDContext.create(151, 151, 1001, dx=10.0, dz=10.0, dt=0.001,
+                               order=8, nxb=40, nzb=40, fac=0.01)
+v23 = ((1500.0 + 2000.0 * torch.rand((ctx3.nxe, ctx3.nze), device=dev,
+                                     generator=gen)) ** 2)
+d3 = torch.randn((8, ctx3.nx, ctx3.nt), device=dev, generator=gen)
+wav3 = np.float32(rng.standard_normal(ctx3.nt))
+sx3 = [40 + 20 * i for i in range(8)]
+res["3lay rtm_main mxu"] = median_ms(lambda: fk.rtm_full_cuda(
+    ctx3, v23, wav3, d3, sx3, 40, 40, lap_impl="mxu"))
 print(json.dumps(res))
 '''
 

@@ -41,6 +41,16 @@ the plain result's max.
   along x, and at the Pluto grid; one launch a step.
   One step's gate is 1e-6 of the plain result's max (``chip_smoke.py``
   phase 28's).
+* ``stream.fd_update_cuda(..., parts=)`` (``fd_update_mma``, the same body
+  without a taper) one step against ``solver.fd_update`` with the same
+  split z taps, likewise, gate 1e-6; and ``fk.backward_recorded_cuda`` /
+  ``fk.backward_image_cuda(..., lap_impl=)`` (``rec_bwd_step_mma`` in
+  frame mode with both receiver offsets and in image mode, the same body
+  without a taper, one launch a step) against
+  ``solver.backward_recorded`` / ``solver.backward_image`` over 9 steps,
+  on the same grids and orders, and on an 8-shot grid whose launcher takes
+  64 x 64 owned cells; gates 1e-4 for the frames and fields, 1e-5 for the
+  images (phase 28's).
 
 Card-only: every case is marked ``cuda`` and skips where there is none
 (``python -m pytest tests/test_torch_split_strip.py -m cuda --noconftest``
@@ -425,3 +435,75 @@ def test_step_strip_kernels_match_plain_at_pluto(cuda_device, parts):
     _fd_steps(ctx, rng, cuda_device, parts, sxs=(2740, 2760), sz=40, gz=40)
     for imaging in (False, True):
         _gpu_step(ctx, rng, cuda_device, parts, imaging, gz=40)
+
+
+REC_GATES = (1e-4, 1e-4, 1e-4)            # p, pp, the frames
+IMAGE_GATE = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("order", K1_ORDERS)
+@pytest.mark.parametrize("grid", K1_GRIDS)
+def test_fd_update_mma_matches_plain_on_the_card(cuda_device, grid, order,
+                                                 parts):
+    rng = np.random.default_rng(order + 10 * parts + 2)
+    ctx = _ctx(grid, order)
+    (p, pp, _), _, _, v2 = _step_inputs(ctx, rng, cuda_device)
+    stream.reset_launches()
+    got = stream.fd_update_cuda(ctx, p, pp, v2, parts=parts)
+    want = solver.fd_update(ctx, p, pp, v2,
+                            solver.laplacian_of(ctx, parts, axis="z"))
+    torch.cuda.synchronize()
+    _within((got,), (want,), (STEP_GATE,))
+    assert {k: v for k, v in stream.LAUNCHES.items() if v} == {
+        "fd_update_mma": 1}
+
+
+def _rec_bwd(ctx, rng, device, parts, ns=2):
+    """rec_bwd_step_mma over ctx.nt steps in frame mode (both receiver
+    offsets) and in image mode against the plain loops with the same split
+    z taps, on random gathers, source frames and velocity, the receiver
+    row at nzb + 3; one launch a step."""
+    v2 = _v2(rng, ctx)[0].to(device)
+    dobs = _f32(rng, ns, ctx.nx, ctx.nt).to(device)
+    swf = _f32(rng, ns, ctx.nt, ctx.nx, ctx.nz).to(device)
+    nxt = (0.5,) + (0.0,) * (ns - 1)
+    gz = ctx.nzb + 3
+    lap = solver.laplacian_of(ctx, parts, axis="z")
+    fk.reset_launches()
+    for quirk in (True, False):
+        got = fk.backward_recorded_cuda(ctx, v2, dobs, gz, x_off_quirk=quirk,
+                                        next_shot_first=nxt, lap_impl=parts)
+        want = solver.backward_recorded(ctx, v2, dobs, gz, x_off_quirk=quirk,
+                                        next_shot_first=nxt, lap=lap)
+        torch.cuda.synchronize()
+        _within(got, want, REC_GATES)
+    got = fk.backward_image_cuda(ctx, v2, swf, dobs, gz, next_shot_first=nxt,
+                                 lap_impl=parts)
+    want = solver.backward_image(ctx, v2, swf, dobs, gz, next_shot_first=nxt,
+                                 lap=lap)
+    torch.cuda.synchronize()
+    _within((got,), (want,), (IMAGE_GATE,))
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "rec_bwd_step_mma": 3 * ctx.nt}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("order", K1_ORDERS)
+@pytest.mark.parametrize("grid", K1_GRIDS)
+def test_rec_bwd_step_mma_matches_plain_on_the_card(cuda_device, grid,
+                                                    order, parts):
+    rng = np.random.default_rng(order + 10 * parts + 3)
+    _rec_bwd(_ctx(grid, order), rng, cuda_device, parts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("order", [8, 16])
+def test_rec_bwd_step_mma_on_its_middle_shape(cuda_device, order, parts):
+    """8 shots of 360 x 360 extended: 144 blocks of 128 x 64 for the H100's
+    132 SMs, 288 of 64 x 64, which the launcher takes."""
+    rng = np.random.default_rng(order + 10 * parts + 4)
+    _rec_bwd(_ctx((320, 320, 20, 20), order), rng, cuda_device, parts, ns=8)

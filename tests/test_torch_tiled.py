@@ -428,6 +428,60 @@ def test_wrappers_raise_on_bad_inputs(bad):
             stream.fd_back_kstep_cuda(ctx, p, pp, p, pp, img, v2, inj, gz)
 
 
+def _rec_shapes():
+    """rec_bwd_step_mma's owned shapes (kRecShapes, csrc/rec_step.cu)."""
+    text = (pathlib.Path(stream.__file__).parents[1] / "csrc"
+            / "rec_step.cu").read_text()
+    return [(int(a), int(b)) for a, b in re.findall(r"\{(\d+), (\d+)\}",
+            re.search(r"kRecShapes\[\] = \{(.*?)\};", text, re.S)[1])]
+
+
+def _rec_shape(ns, nxe, nze, h, sms):
+    """The launcher's choice (strip_shape_for_grid, csrc/step_strip.cuh):
+    the first of kRecShapes that fits a block (at a halo of h) whose grid
+    over ns shots gives each of sms SMs at least kStripBlocks blocks, else
+    the last that fits; with the launch's blocks."""
+    body = fk._Strip(tuple(_rec_shapes()), 2, False, True)
+    last = None
+    for tx, tz in body.shapes:
+        if fk._strip_bytes((tx, tz), h, body) > fk.SMEM_BYTES:
+            continue
+        blocks = ns * -(-nxe // tx) * -(-nze // tz)
+        if blocks >= 2 * sms:
+            return (tx, tz), blocks
+        last = (tx, tz), blocks
+    return last
+
+
+def test_rec_shape_fills_the_card():
+    """rec_bwd_step_mma's launcher picks its owned shape by the grid, so
+    that 3lay (8 shots of 231 x 231 extended: 64 blocks of 128 x 64 for an
+    H100's 132 SMs) fills the card: the rule as step_strip.cuh writes it,
+    mirrored; at least 132 blocks at 3lay at every order, and the largest
+    shape, 128 x 64, on the Pluto rtm_main path (2 shots of 7040 x 1281
+    extended, chip_smoke.py phase 30)."""
+    csrc = pathlib.Path(stream.__file__).parents[1] / "csrc"
+    step = " ".join((csrc / "step_strip.cuh").read_text().split())
+    assert ("if (strip_bytes(s, g, r) > static_cast<size_t>(kMaxSmemBytes)) "
+            "continue; const dim3 grid = strip_grid(s, ns, nx, nz); if "
+            "(static_cast<long long>(grid.x) * grid.y * grid.z >= "
+            "static_cast<long long>(kStripBlocks) * sms) { return s; } "
+            "last = s;") in step
+    assert re.search(r"constexpr int kStripBlocks = 2;",
+                     (csrc / "strip.cuh").read_text())
+    shapes = _rec_shapes()
+    assert shapes[0] == (128, 64)
+    assert shapes == sorted(shapes, key=lambda s: -s[0] * s[1])
+    for order in range(4, fk.MAX_ORDER + 1, 2):
+        h = order // 2
+        shape, blocks = _rec_shape(8, 231, 231, h, 132)
+        assert blocks >= 132, (order, shape, blocks)
+        assert _rec_shape(8, 231, 231, h, 132)[0] != (128, 64)
+        assert _rec_shape(2, 7040, 1281, h, 132) == ((128, 64), 2310)
+    # a card of fewer SMs (or a larger batch) keeps the largest shape
+    assert _rec_shape(8, 231, 231, 4, 32)[0] == (128, 64)
+
+
 def test_shared_memory_of_the_kernels():
     """The staging kernels' tiles, as their C sources size them, against
     the wrappers' mirror (``fk.smem_bytes``, which the pipelines' K choice
@@ -441,9 +495,11 @@ def test_shared_memory_of_the_kernels():
     kstep_gpu_bwd and block_bwd on bwd_strip.cuh's (four staged fields,
     the owned image and the x ramp), kstep_gpu_bwd_mma and block_bwd_mma
     (the two z or x products staged too, on padded rows), the block kernels
-    staging the steps of the longer of their passes; fd_step_mma and
-    gpu_step_mma on step_strip.cuh's (the field and its z product, on
-    padded rows, at a halo of H). Which (kernel, order,
+    staging the steps of the longer of their passes; fd_step_mma,
+    fd_update_mma, gpu_step_mma and rec_bwd_step_mma on step_strip.cuh's
+    (the field and its z product, on padded rows, at a halo of H;
+    rec_bwd_step_mma on a shape list of its own, chosen by the grid), none
+    of them on mma_tile.cuh's staged tile any more. Which (kernel, order,
     K) the card refuses up to order 16, and that every tile fits at the
     pipelines' K up to order 10; the wrappers' step limit is the
     kernels'."""
@@ -569,24 +625,54 @@ def test_shared_memory_of_the_kernels():
     assert smem("kstep_gpu_bwd", 8, 8) == 4 * (4 * 96 * 128 + 32 * 64 + 96)
     assert smem("kstep_gpu_fwd", 8, 8) == 4 * (2 * 128 * 128 + 128)
 
-    # the one-step split body (csrc/step_strip.cuh): fd_step_mma and
-    # gpu_step_mma take the first of its shapes that fits at a halo of H
-    # cells, with the staged field and its z product on padded rows; that
-    # first shape fits two blocks an SM at every order the kernels take
-    for name in ("gpu_step.cu", "stream_step.cu"):
+    # the one-step split body (csrc/step_strip.cuh): fd_step_mma,
+    # fd_update_mma (stream_step.cu) and gpu_step_mma take the first of its
+    # shapes that fits at a halo of H cells, with the staged field and its
+    # z product on padded rows; rec_bwd_step_mma (rec_step.cu) one of its
+    # own shapes, by the grid (test_rec_shape_fills_the_card), at the same
+    # stage and halo; every one of those shapes fits two blocks an SM at
+    # every order the kernels take
+    for name, launchers in (("gpu_step.cu", 1), ("stream_step.cu", 2),
+                            ("rec_step.cu", 0)):
         src = " ".join((csrc / name).read_text().split())
         assert src.count("pfdc::strip_shape(pfdc::kStepShapes, "
-                         "pfdc::kStepStage, H);") == 1, name
+                         "pfdc::kStepStage, H);") == launchers, name
         assert src.count("pfdc::strip_bytes(shape, pfdc::kStepStage, "
-                         "H);") == 1, name
+                         "H);") == max(launchers, 1), name
+    rec_src = " ".join((csrc / "rec_step.cu").read_text().split())
+    assert rec_src.count("pfdc::strip_shape_for_grid(kRecShapes, "
+                         "pfdc::kStepStage, H, ns, nxe, nze, sms);") == 1
     bodies["Step"] = body("Step")
     shapes, *stage = bodies["Step"]
     assert stage == [2, False, True]
+    rec_shapes = _rec_shapes()
     for order in range(4, fk.MAX_ORDER + 1, 2):
+        for shape in shapes + rec_shapes:
+            b = fk._strip_bytes(shape, order // 2,
+                                fk._Strip(tuple(shapes), *stage))
+            assert b <= limit and 2 * (b + 1024) <= 228 * 1024, (order,
+                                                                  shape)
         first = fk._strip_bytes(shapes[0], order // 2,
                                 fk._Strip(tuple(shapes), *stage))
-        assert strip_smem("Step", order, 1) == first <= limit, order
-        assert 2 * (first + 1024) <= 228 * 1024, order
+        assert strip_smem("Step", order, 1) == first, order
+    # the staged 64 x 64 tile of mma_tile.cuh serves rec_fwd_step_mma
+    # alone: stream_step.cu no longer includes it, and rec_bwd_step_mma
+    # calls none of its pieces
+    assert "mma_tile.cuh" not in (csrc / "stream_step.cu").read_text()
+    rec_text = (csrc / "rec_step.cu").read_text()
+    cut = [rec_text.index(m) for m in ("struct RecBwdSite",
+                                       "struct RecFwdRun",
+                                       "struct RecBwdRun",
+                                       "}  // namespace")]
+    bwd_mma = rec_text[cut[0]:cut[1]] + rec_text[cut[2]:cut[3]]
+    rest = rec_text[:cut[0]] + rec_text[cut[1]:cut[2]]
+    for piece in ("stage_tile", "tile_z_mma", "for_tile_cells", "split_lap",
+                  "mma_grid", "MmaTile", "kMmaThreads"):
+        assert not re.search(rf"\b{piece}\b", bwd_mma), piece
+        assert re.search(rf"\b{piece}\b", rest), piece
+        for name in ("stream_step.cu", "gpu_step.cu"):
+            assert not re.search(rf"\b{piece}\b",
+                                 (csrc / name).read_text()), (name, piece)
 
     # the block kernels of the domain tiers (csrc/domain_block.cuh), every
     # one on a strip body: the launcher takes the body's shape and bytes for
