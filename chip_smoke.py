@@ -2445,8 +2445,9 @@ def main() -> int:
 
     # ---- 23. the split-bf16 tiers of the per-step kernels (row 5): the
     # three *_mma kernels vs their plain versions (short runs at orders 4,
-    # 8, 10, 16 with nxb != nzb, and 3lay), then the 3lay main path with
-    # lap_impl="auto" (which resolves to mxu) and "mxu6"
+    # 8, 10, 16 with nxb != nzb, at orders 8 and 16 on a grid whose tails
+    # cut rtm_bwd_step_mma's owned shape, and 3lay), then the 3lay main
+    # path with lap_impl="auto" (which resolves to mxu) and "mxu6"
     mma_names = ("mod_step_mma", "rtm_fwd_step_mma", "rtm_bwd_step_mma")
     exact_img = img
 
@@ -2456,8 +2457,10 @@ def main() -> int:
         backward kernel from the plain forward's snapshots."""
         ctx_m = solver.FDContext.from_params(p, exact_taper=False)
         ctx_r = solver.FDContext.from_params(p, exact_taper=True)
-        v2_m = torch.from_numpy(pipeline.prepare_velocity_cpu(p, vp)).to(dev)
-        v2_r = pipeline.prepare_velocities_gpu(p, vp, device=dev, seed=0)
+        vp_ = (vp if (p.nx, p.nz) == (P.nx, P.nz)
+               else layered_model(p.nx, p.nz))
+        v2_m = torch.from_numpy(pipeline.prepare_velocity_cpu(p, vp_)).to(dev)
+        v2_r = pipeline.prepare_velocities_gpu(p, vp_, device=dev, seed=0)
         wav_m = numerics.ricker_wavelet(p.nt, p.dt, p.fpeak, truncated=True)
         wav_r = numerics.ricker_wavelet(p.nt, p.dt, p.fpeak)
         gp_ = Geometry.from_params(p)
@@ -2490,6 +2493,11 @@ def main() -> int:
             for order, nxb, nzb in ((4, 40, 30), (8, 40, 40), (10, 12, 30),
                                     (16, 30, 40))
             for li in ("mxu", "mxu6")]
+    # a grid whose tails cut rtm_bwd_step_mma's owned shape along both
+    # axes (126 x 92 extended: 32 x 32, 32 x 64 or 64 x 32 owned cells)
+    runs += [(dataclasses.replace(P, order=order, nt=20, nx=100, nz=70,
+                                  nxb=13, nzb=11, ns=4), li)
+             for order in (8, 16) for li in ("mxu", "mxu6")]
     runs += [(P, "mxu"), (P, "mxu6")]
     for p, li in runs:
         for k, outs in compare_mma(p, li).items():
@@ -3114,8 +3122,8 @@ def main() -> int:
             split_rec(f"{label} nt {p_.nt}", p_, case[6].cpu().numpy(),
                       parts)
     # the one-step body's shapes with tails: fd_update_mma's 128 x 64 twice
-    # along x and z on 164 x 78 (rec_bwd_step_mma's launcher takes 32 x 64
-    # there), and 8 shots of 360 x 360, where it takes 64 x 64 (144 blocks
+    # along x and z on 164 x 78 (the rec kernels' launchers take 32 x 64
+    # there), and 8 shots of 360 x 360, where they take 64 x 64 (144 blocks
     # of 128 x 64 for 132 SMs)
     for order in range(4, 17, 2):
         p_ = dataclasses.replace(short, nx=150, nz=60, order=order)

@@ -1,8 +1,8 @@
 // Shared pieces of the temporal-blocking kernels of the large-grid tier
 // (kstep_mod.cu, kstep_gpu_fwd.cu, kstep_gpu_bwd.cu) and of the kernels
-// that reuse them (the strip bodies of strip.cuh, fwd_strip.cuh and
-// bwd_strip.cuh; domain_block.cuh; the per-step tensor-core kernels of
-// mma_tile.cuh): the step limit of a pass and the wavelet samples it takes,
+// that reuse them (the strip bodies of strip.cuh, fwd_strip.cuh,
+// bwd_strip.cuh and step_strip.cuh; domain_block.cuh; rtm_bwd_step_mma of
+// step_mma.cu): the step limit of a pass and the wavelet samples it takes,
 // a block's shared-memory limit, the taper rebuilt from its 1-D ramps, one
 // axis's exact taps, the band fragments of a split axis, and the dispatch
 // on the split's bf16 parts P (P = 0: the exact kernel; P = 2 (3): the

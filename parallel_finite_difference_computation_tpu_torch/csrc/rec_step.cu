@@ -42,25 +42,24 @@
 // rec_fwd_step_mma<H, P> and rec_bwd_step_mma<H, P, kImage> compute what
 // their exact twins compute, in the same order, but for the Laplacian: the
 // z taps as the P-part (2: lap_impl "mxu", 3: "mxu6") split-bf16 banded
-// product on the tensor cores, plus the exact x taps. rec_fwd_step_mma
-// stages a 64 x 64 tile of the time-t field and its halo, writes the z
-// product behind a barrier and then takes its cells threads along z
-// (mma_tile.cuh), so that a warp's frame stores and swf reads cover whole
-// 32-byte sectors, as the exact kernels' do. rec_bwd_step_mma runs the
+// product on the tensor cores, plus the exact x taps. Both run the
 // one-step split body of step_strip.cuh without a taper (the stored field
-// is tapered already; the mask plane is read at the cell): a block of 16
-// warps stages the time-t field over its owned cells and an H-cell halo
-// with cp.async, takes its z product behind one barrier, and walks the
-// owned cells in 4-row strips, lanes along z (whole sectors for the
-// fields, the frames and the image), reading the older field, v2*dt2, the
-// mask and, in image mode, swf and the image at the cell, the next
-// strip's while it computes the current one. Its launcher
-// takes the largest owned shape whose grid gives every SM two blocks
-// (kRecShapes): 3lay's 8 shots of 231 x 231 gave 128 x 64 tiles only 64
-// blocks for the card's 132 SMs.
+// is tapered already; the mask plane is read at the cell), each through a
+// site of its own: a block of 16 warps stages the time-t field over its
+// owned cells and an H-cell halo with cp.async, takes its z product behind
+// one barrier, and walks the owned cells in 4-row strips, lanes along z
+// (whole sectors for the fields, the frames and the image), reading the
+// older field, v2*dt2, the mask and, in image mode, swf and the image at
+// the cell (the receiver step the next strip's while it computes the
+// current one); the source step adds the point source's patch where its
+// window covers the cell.
+// Their launchers take the largest owned shape whose grid gives every SM
+// two blocks (kRecShapes, rec_shape): 3lay's 8 shots of 231 x 231 gave 128
+// x 64 tiles only 64 blocks for the card's 132 SMs. On a staged 64 x 64
+// tile of four warps rec_fwd_step_mma ran 3.3x its exact twin at 3lay
+// (PERF.md, kernel table, row 14).
 //
 // Frame offsets are size_t: ns * nt * nx * nz passes 2^31 at marmousi size.
-#include "mma_tile.cuh"
 #include "step_strip.cuh"
 
 namespace {
@@ -168,8 +167,55 @@ __global__ void rec_bwd_step(const float* __restrict__ cur,
   }
 }
 
+// rec_fwd_step_mma's site (step_strip.cuh, no taper): one shot's fields
+// on the (nxf, nzf) grid; the source step from the staged time-t field and
+// the cell's older field, v2*dt2 and mask, the point source's patch in the
+// (2r+1)^2 window around (sx, sz), and the frame of the interior. The
+// older field is written in place: only the cell's own thread reads it.
+// Three operands a cell: strips of 4 rows, each strip's loaded when it is
+// taken (a 3lay call 7 % faster than with the next strip's loaded ahead,
+// a 203-step Pluto call 3 % slower; 8-row strips, which spill, 11 % and
+// 32 % slower than 4 with the lookahead; PERF.md).
+struct RecFwdSite {
+  static constexpr int kRows = pfdc::kStripRows;
+  static constexpr bool kAhead = false;
+  static constexpr bool kTaper = false;
+  static constexpr bool kGpu = false;
+  const float* field;   // the time-t field, as stored
+  int nxf, nzf;
+  float* old;
+  const float* v2dt2;
+  const float* mask;
+  const float* patch;   // (2r+1, 2r+1)
+  int r, sx, sz;
+  float amp;
+  float* swf;           // frame it of the shot
+  int nxb, nzb, nx, nz;
+
+  struct Cell {
+    float old, v, m;
+  };
+  __device__ Cell load(int gx, int gz) const {
+    const size_t j = static_cast<size_t>(gx) * nzf + gz;
+    return {old[j], __ldg(v2dt2 + j), __ldg(mask + j)};
+  }
+  __device__ void step(int gx, int gz, const Cell& in, float pc,
+                       float lap) const {
+    float u = (2.0f * pc - in.old * in.m) + in.v * lap;
+    const int dx = gx - sx;
+    const int dz = gz - sz;
+    if (dx >= -r && dx <= r && dz >= -r && dz <= r) {
+      u = u + amp * __ldg(patch + (dx + r) * (2 * r + 1) + (dz + r));
+    }
+    old[static_cast<size_t>(gx) * nzf + gz] = u * in.m;
+    if (gx >= nxb && gx < nxb + nx && gz >= nzb && gz < nzb + nz) {
+      swf[frame_offset(gx, gz, nxb, nzb, nz)] = pc * in.m;
+    }
+  }
+};
+
 template <int H, int P>
-__global__ void __launch_bounds__(pfdc::kMmaThreads)
+__global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
     rec_fwd_step_mma(const float* __restrict__ cur, float* __restrict__ old,
                      const float* __restrict__ v2dt2, int v2_shot_stride,
                      const float* __restrict__ mask,
@@ -177,36 +223,17 @@ __global__ void __launch_bounds__(pfdc::kMmaThreads)
                      const int* __restrict__ sx, int sz, float amp,
                      float* __restrict__ swf_it, size_t swf_shot_stride,
                      int nxb, int nzb, int nx, int nz, int nxe, int nze,
-                     pfdc::Coefs c) {
+                     pfdc::StripShape shape, pfdc::Coefs c) {
   extern __shared__ float smem[];
-  float* t = smem;
-  float* zb = smem + pfdc::MmaTile<H>::kCells;
   const int s = blockIdx.z;
-  const int bx = blockIdx.y * pfdc::kMmaTileX;
-  const int bz = blockIdx.x * pfdc::kMmaTileZ;
   const size_t plane = static_cast<size_t>(nxe) * nze;
-  float* pp = old + s * plane;
-  pfdc::stage_tile<H>(t, cur + s * plane, bx, bz, nxe, nze);
-  pfdc::tile_z_mma<H, P>(zb, t, bx, bz, nxe, nze, c);
-  pfdc::for_tile_cells<H>(bx, bz, nxe, nze, [&](int ix, int iz, int jt,
-                                                int jz) {
-    const size_t j = static_cast<size_t>(ix) * nze + iz;
-    const float m = mask[j];
-    const float pc = t[jt];
-    const float lap = pfdc::split_lap<H>(t, zb, ix, iz, jt, jz, nxe, nze, c);
-    float u = (2.0f * pc - pp[j] * m) +
-              v2dt2[s * static_cast<size_t>(v2_shot_stride) + j] * lap;
-    const int dx = ix - sx[s];
-    const int dz = iz - sz;
-    if (dx >= -r && dx <= r && dz >= -r && dz <= r) {
-      u = u + amp * patch[(dx + r) * (2 * r + 1) + (dz + r)];
-    }
-    pp[j] = u * m;
-    if (ix >= nxb && ix < nxb + nx && iz >= nzb && iz < nzb + nz) {
-      swf_it[s * swf_shot_stride + frame_offset(ix, iz, nxb, nzb, nz)] =
-          pc * m;
-    }
-  });
+  const RecFwdSite site{
+      cur + s * plane, nxe, nze, old + s * plane,
+      v2dt2 + s * static_cast<size_t>(v2_shot_stride), mask, patch, r,
+      sx[s], sz, amp, swf_it + s * swf_shot_stride, nxb, nzb, nx, nz};
+  const pfdc::StripTile t(H, shape, static_cast<int>(blockIdx.y) * shape.tx,
+                          static_cast<int>(blockIdx.x) * shape.tz);
+  pfdc::step_strip<H, P>(smem, site, t, c);
 }
 
 // rec_bwd_step_mma's site (step_strip.cuh, no taper): one shot's fields
@@ -295,6 +322,29 @@ __global__ void __launch_bounds__(pfdc::kStripThreads, pfdc::kStripBlocks)
   pfdc::step_strip<H, P>(smem, site, t, c);
 }
 
+// The owned shapes of rec_fwd_step_mma and rec_bwd_step_mma, largest
+// first: the launchers take the first whose grid gives every SM two
+// blocks, else the last (strip_shape_for_grid). Pluto's 2 shots take 128 x
+// 64 (2310 blocks), 3lay's 8 shots of 231 x 231 32 x 64 (256 blocks: 64 x
+// 64 gives 128).
+constexpr pfdc::StripShape kRecShapes[] = {{128, 64}, {64, 64}, {32, 64}};
+
+// The shape of a launch of the rec kernel over ns shots of the (nxe, nze)
+// grid on this device, and its bytes of dynamic shared memory, allowed to
+// the kernel.
+template <int H, class Kernel>
+cudaError_t rec_shape(Kernel kernel, int ns, int nxe, int nze,
+                      pfdc::StripShape& shape, size_t& bytes) {
+  int sms = 0;
+  const cudaError_t e = pfdc::device_sms(sms);
+  if (e != cudaSuccess) return e;
+  shape = pfdc::strip_shape_for_grid(kRecShapes, pfdc::kStepStage, H, ns,
+                                     nxe, nze, sms);
+  if (shape.tx == 0) return cudaErrorInvalidValue;
+  bytes = pfdc::strip_bytes(shape, pfdc::kStepStage, H);
+  return pfdc::allow_smem(kernel, bytes);
+}
+
 struct RecFwdRun {
   float* a;
   float* b;
@@ -317,9 +367,11 @@ struct RecFwdRun {
     const int nx = nxe - 2 * nxb;
     const int nz = nze - 2 * nzb;
     const size_t frame = static_cast<size_t>(nx) * nz;
-    const size_t bytes = pfdc::MmaTile<H>::kStageBytes;
+    pfdc::StripShape shape{0, 0};
+    size_t bytes = 0;
     if constexpr (P > 0) {
-      const cudaError_t e = pfdc::allow_smem(rec_fwd_step_mma<H, P>, bytes);
+      const cudaError_t e =
+          rec_shape<H>(rec_fwd_step_mma<H, P>, ns, nxe, nze, shape, bytes);
       if (e != cudaSuccess) return e;
     }
     for (int it = 0; it < nt; ++it) {
@@ -334,12 +386,12 @@ struct RecFwdRun {
             swf_it, static_cast<size_t>(nt) * frame, nxb, nzb, nx, nz, nxe,
             nze, c);
       } else {
-        const dim3 grid = pfdc::mma_grid(ns, nxe, nze);
-        const dim3 block(pfdc::kMmaThreads);
+        const dim3 grid = pfdc::strip_grid(shape, ns, nxe, nze);
+        const dim3 block(pfdc::kStripThreads);
         rec_fwd_step_mma<H, P><<<grid, block, bytes, stream>>>(
             cur, old, v2dt2, v2_shot_stride, mask, patch, r, sx, sz, wav[it],
             swf_it, static_cast<size_t>(nt) * frame, nxb, nzb, nx, nz, nxe,
-            nze, c);
+            nze, shape, c);
       }
       const cudaError_t e = cudaGetLastError();
       if (e != cudaSuccess) return e;
@@ -352,12 +404,6 @@ struct RecFwdRun {
     return pfdc::dispatch_parts<H>(*this, parts);
   }
 };
-
-// rec_bwd_step_mma's owned shapes, largest first: the launcher takes the
-// first whose grid gives every SM two blocks, else the last
-// (strip_shape_for_grid). Pluto's 2 shots take 128 x 64 (2310 blocks),
-// 3lay's 8 shots of 231 x 231 32 x 64 (256 blocks: 64 x 64 gives 128).
-constexpr pfdc::StripShape kRecShapes[] = {{128, 64}, {64, 64}, {32, 64}};
 
 struct RecBwdRun {
   float* a;
@@ -382,14 +428,8 @@ struct RecBwdRun {
     pfdc::StripShape shape{0, 0};
     size_t bytes = 0;
     if constexpr (P > 0) {
-      int sms = 0;
-      cudaError_t e = pfdc::device_sms(sms);
-      if (e != cudaSuccess) return e;
-      shape = pfdc::strip_shape_for_grid(kRecShapes, pfdc::kStepStage, H,
-                                         ns, nxe, nze, sms);
-      if (shape.tx == 0) return cudaErrorInvalidValue;
-      bytes = pfdc::strip_bytes(shape, pfdc::kStepStage, H);
-      e = pfdc::allow_smem(rec_bwd_step_mma<H, P, kImage>, bytes);
+      const cudaError_t e = rec_shape<H>(rec_bwd_step_mma<H, P, kImage>, ns,
+                                         nxe, nze, shape, bytes);
       if (e != cudaSuccess) return e;
     }
     for (int it = 0; it < nt; ++it) {

@@ -17,15 +17,32 @@
 // band is the (2h+1)-tap sum of each interior cell, which those windows
 // also give it.
 //
-// A block owns 32 x outputs by 32 z outputs of one shot and stages (32 +
-// 2h, or the k-steps' window) rows by (32 + 2h) columns of the field in
-// shared memory, tapered (m * f) for the tapered steps: the fields the
-// Laplacian reads. Warp w computes z outputs 16 (w & 1) .. + 15 of the
-// x outputs 16 (w >> 1) .. + 15, two 16 (z) x 8 (x) mma blocks whose rows
-// are z and whose contraction runs down x: A[m][k] = tile[8n + k][h + z]
-// is a column of the tile, read at a row pitch of 4 mod 32 floats (no
-// bank conflicts). Each lane then finishes the four cells of each block
-// it holds in the accumulator fragment (z = g, g + 8; x = 2t, 2t + 1).
+// mod_step_mma and rtm_fwd_step_mma: a block owns 32 x outputs by 32 z
+// outputs of one shot and stages (32 + 2h, or the k-steps' window) rows by
+// (32 + 2h) columns of the field in static shared memory, tapered (m * f)
+// for the tapered steps: the fields the Laplacian reads. Warp w computes z
+// outputs 16 (w & 1) .. + 15 of the x outputs 16 (w >> 1) .. + 15, two 16
+// (z) x 8 (x) mma blocks whose rows are z and whose contraction runs down
+// x: A[m][k] = tile[8n + k][h + z] is a column of the tile, read at a row
+// pitch of 4 mod 32 floats (no bank conflicts). Each lane then finishes
+// the four cells of each block it holds in the accumulator fragment (z =
+// g, g + 8; x = 2t, 2t + 1): a warp's loads and stores of a fragment entry
+// cover 8 consecutive z in 4 rows, and no product goes through shared
+// memory.
+//
+// rtm_bwd_step_mma keeps that layout (kBwdTileX x kBwdTileZ owned cells, a
+// warp for each 16 x 16) and feeds it otherwise: it stages the source
+// field (but on the two seeded steps), the receiver field and the mask
+// with cp.async into dynamic shared memory, every copy of a thread in
+// flight at once and no division per copy (for_staged_cells); issues each
+// lane's loads of its 8 cells' older fields, v2*dt2 and image before it
+// waits; then each thread tapers the receiver cells it copied (m * pr, one
+// multiplication, as the exact kernel's taps read it), one barrier, and
+// the lanes finish their cells, the centres and the mask from the tiles.
+// It staged both tiles with synchronous loads, an integer division and,
+// for the receiver, two dependent global loads per element, and read the
+// centres and the mask from global memory again, at 1.83x its exact twin
+// at 3lay (PERF.md, kernel table, row 5).
 //
 // What bounds it on an H100: at the 3lay size (231 x 231, 8 shots) a step
 // touches about 7 MB (12 MB for rtm_bwd), inside the 50 MB L2, and the
@@ -34,8 +51,7 @@
 // x taps' multiply-adds off the CUDA cores (3 or 6 passes of 16 * KS
 // multiply-adds a cell), the split and the staging add work; whether the
 // tier is faster than the exact kernels is measured, not assumed.
-#include "mma_bf16.cuh"
-#include "stencil.cuh"
+#include "strip.cuh"
 
 namespace {
 
@@ -219,8 +235,67 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// rtm_bwd_step_mma's block: kBwdTileX x kBwdTileZ owned cells of one
+// shot, a warp for each 16 x 16 of them (two 16 (z) x 8 (x) mma blocks, as
+// in the kernels above): 32 x 64 and 8 warps, 256 blocks for 3lay's 8
+// shots, ran 2.5-5 % faster than 32 x 32 and 4 warps (512 blocks) and 4 %
+// faster than 64 x 32 (PERF.md). The staged tiles of the source field, the
+// receiver field and the mask: rows x0 - H .. (kRows), columns z0 - H ..
+// (kCols), on rows padded to 4 mod 8 floats (strip_pitch), at which the
+// fragments' reads of rows 2 apart and the z taps' of 8 columns hit no
+// bank twice.
+constexpr int kBwdTileX = 32;
+constexpr int kBwdTileZ = 64;
+constexpr int kBwdWarps = kBwdTileX / 16 * (kBwdTileZ / 16);
+constexpr int kBwdThreads = 32 * kBwdWarps;
+
+template <int H>
+struct BwdTile {
+  static constexpr int kKS = pfdc::band_ksteps<H>();
+  static constexpr int kRows = kBwdTileX + 2 * H > kBwdTileX - 8 + 16 * kKS
+                                   ? kBwdTileX + 2 * H
+                                   : kBwdTileX - 8 + 16 * kKS;
+  static constexpr int kCols = kBwdTileZ + 2 * H;
+  static constexpr int kPitch = pfdc::strip_pitch(kCols, true);
+  static constexpr int kCells = kRows * kPitch;
+  static constexpr size_t kBytes = sizeof(float) * 3 * kCells;
+  // a thread's staged cells: cell tid, then every kBwdThreads-th, walked
+  // kStepRows rows and kStepCols columns at a time
+  static constexpr int kCopies = (kRows * kCols + kBwdThreads - 1) /
+                                 kBwdThreads;
+  static constexpr int kStepRows = kBwdThreads / kCols;
+  static constexpr int kStepCols = kBwdThreads % kCols;
+};
+
+// Calls fn(lx, lz) for each staged cell of this thread, row lx and column
+// lz of the tile, the same cells for every call: no division but the
+// first.
+template <int H, class F>
+__device__ __forceinline__ void for_staged_cells(F&& fn) {
+  using T = BwdTile<H>;
+  int lx = static_cast<int>(threadIdx.x) / T::kCols;
+  int lz = static_cast<int>(threadIdx.x) - lx * T::kCols;
+#pragma unroll
+  for (int i = 0; i < T::kCopies; ++i) {
+    if (lx < T::kRows) fn(lx, lz);
+    lx += T::kStepRows;
+    lz += T::kStepCols;
+    if (lz >= T::kCols) {
+      lz -= T::kCols;
+      ++lx;
+    }
+  }
+}
+
+// A lane's operands of one cell, loaded before the stage completes: the
+// older source field (the snapshot on the two seeded steps), the older
+// receiver field, v2*dt2 and, in the image's rectangle, the image.
+struct BwdCell {
+  float so, ro, v, img;
+};
+
 template <int H, int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads)
     rtm_bwd_step_mma(const float* __restrict__ s_cur,
                      float* __restrict__ s_old,
                      const float* __restrict__ snap,
@@ -231,56 +306,109 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ inj_it, int inj_shot_stride,
                      float* __restrict__ img, int gz, int nxb, int nzb,
                      int nx, int nz, int nxe, int nze, pfdc::Coefs c) {
-  __shared__ StepArray<H> src_tile;
-  __shared__ StepArray<H> rec_tile;
+  using T = BwdTile<H>;
+  extern __shared__ float smem[];
+  float* src = smem;                 // ps
+  float* rec = smem + T::kCells;     // m * pr
+  float* msk = smem + 2 * T::kCells;
   const int lane = threadIdx.x & 31;
-  const pfdc::Band<H, P> band = pfdc::band_fragments<H, P>(c.x, lane);
-  const int x0 = blockIdx.y * kTileX;
-  const int z0 = blockIdx.x * kTileZ;
+  const int warp = threadIdx.x >> 5;
+  const int x0 = blockIdx.y * kBwdTileX;
+  const int z0 = blockIdx.x * kBwdTileZ;
   const int s = blockIdx.z;
   const size_t plane = static_cast<size_t>(nxe) * nze;
   const float* ps = s_cur + s * plane;
   float* so = s_old + s * plane;
   const float* pr = r_cur + s * plane;
   float* ro = r_old + s * plane;
+  const float* v2 = v2dt2 + s * static_cast<size_t>(v2_shot_stride);
+  float* im = img + s * static_cast<size_t>(nx) * nz;
   // the source field is untapered; at it = 0, 1 it is the snapshot itself
-  if (snap == nullptr) {
-    stage_field<H>(src_tile, ps, nullptr, x0, z0, nxe, nze);
-  }
-  stage_field<H>(rec_tile, pr, mask, x0, z0, nxe, nze);
-  __syncthreads();
-  const Cells cl(threadIdx.x >> 5, lane);
+  const bool seeded = snap != nullptr;
+  for_staged_cells<H>([&](int lx, int lz) {
+    const int x = x0 - H + lx, z = z0 - H + lz;
+    const bool in = x >= 0 && x < nxe && z >= 0 && z < nze;
+    const size_t q = in ? static_cast<size_t>(x) * nze + z : 0;
+    const int j = lx * T::kPitch + lz;
+    if (!seeded) pfdc::cp_async4(src + j, ps + q, in);
+    pfdc::cp_async4(rec + j, pr + q, in);
+    pfdc::cp_async4(msk + j, mask + q, in);
+  });
+  // this lane's cells: rows xw + 8b + 2t + (q & 1), columns zw + g +
+  // 8 (q >> 1) of the owned cells, their operands in flight with the stage
+  const int zw = 16 * (warp % (kBwdTileZ / 16));
+  const int xw = 16 * (warp / (kBwdTileZ / 16));
+  const int g = pfdc::frag_g(lane), t = pfdc::frag_t(lane);
+  BwdCell cell[2][4];
 #pragma unroll
   for (int b = 0; b < 2; ++b) {
-    float ys[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float yr[4];
-    if (snap == nullptr) x_taps<H, P>(ys, src_tile, cl, b, band, lane);
-    x_taps<H, P>(yr, rec_tile, cl, b, band, lane);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int ix = x0 + cl.xl(b, q);
-      const int iz = z0 + cl.zl(q);
+      const int ix = x0 + xw + 8 * b + 2 * t + (q & 1);
+      const int iz = z0 + zw + g + 8 * (q >> 1);
       if (ix >= nxe || iz >= nze) continue;
-      const int j = ix * nze + iz;
-      const int xr = H + cl.xl(b, q);
-      const int zc = H + cl.zl(q);
+      const size_t j = static_cast<size_t>(ix) * nze + iz;
+      BwdCell& e = cell[b][q];
+      e.so = seeded ? snap[s * plane + j] : so[j];
+      e.ro = ro[j];
+      e.v = v2[j];
+      if (ix >= nxb && ix < nxb + nx && iz >= nzb && iz < nzb + nz) {
+        e.img = im[static_cast<size_t>(ix - nxb) * nz + (iz - nzb)];
+      }
+    }
+  }
+  // the receiver's staged cells hold m * pr, as the exact kernels' taps
+  // read it: each thread tapers the cells it copied once its own copies
+  // have landed, then one barrier
+  pfdc::cp_async_wait_all();
+  for_staged_cells<H>([&](int lx, int lz) {
+    const int j = lx * T::kPitch + lz;
+    rec[j] = msk[j] * rec[j];
+  });
+  __syncthreads();
+  const pfdc::Band<H, P> band = pfdc::band_fragments<H, P>(c.x, lane);
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    // the banded x taps of both fields: A[m][k] is column zw + m of the
+    // tile at row xw + 8b + k, the window of output row xw + 8b + n
+    const int r0 = xw + 8 * b;
+    const int c0 = H + zw;
+    float ys[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float yr[4];
+    if (!seeded) {
+      pfdc::banded_mma<H, P>(
+          ys, [&](int m, int k) { return src[(r0 + k) * T::kPitch + c0 + m]; },
+          band, lane);
+    }
+    pfdc::banded_mma<H, P>(
+        yr, [&](int m, int k) { return rec[(r0 + k) * T::kPitch + c0 + m]; },
+        band, lane);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int xl = r0 + 2 * t + (q & 1);
+      const int zl = zw + g + 8 * (q >> 1);
+      const int ix = x0 + xl;
+      const int iz = z0 + zl;
+      if (ix >= nxe || iz >= nze) continue;
+      const BwdCell& e = cell[b][q];
+      const size_t j = static_cast<size_t>(ix) * nze + iz;
+      const int jt = (H + xl) * T::kPitch + H + zl;
       const bool interior = pfdc::in_interior(ix, iz, H, nxe, nze);
-      const float v = v2dt2[s * static_cast<size_t>(v2_shot_stride) + j];
 
       float us;
-      if (snap != nullptr) {
-        us = snap[s * plane + j];
+      if (seeded) {
+        us = e.so;
       } else {
         const float lap =
-            interior ? ys[q] + taps_z<H>(src_tile, xr, zc, c) : 0.0f;
-        us = (2.0f * ps[j] - so[j]) + v * lap;
+            interior ? ys[q] + pfdc::axis_taps<H>(src, jt, 1, c.z) : 0.0f;
+        us = (2.0f * src[jt] - e.so) + e.v * lap;
       }
       so[j] = us;
 
-      const float m = mask[j];
+      const float m = msk[jt];
       const float lap =
-          interior ? yr[q] + taps_z<H>(rec_tile, xr, zc, c) : 0.0f;
-      float ur = (2.0f * (m * pr[j]) - m * (m * ro[j])) + v * lap;
+          interior ? yr[q] + pfdc::axis_taps<H>(rec, jt, 1, c.z) : 0.0f;
+      float ur = (2.0f * rec[jt] - m * (m * e.ro)) + e.v * lap;
       if (iz == gz && ix >= nxb && ix < nxb + nx) {
         ur = ur +
              inj_it[s * static_cast<size_t>(inj_shot_stride) + (ix - nxb)];
@@ -288,9 +416,7 @@ __global__ void __launch_bounds__(kThreads)
       ro[j] = ur;
 
       if (ix >= nxb && ix < nxb + nx && iz >= nzb && iz < nzb + nz) {
-        float* im = img + s * static_cast<size_t>(nx) * nz +
-                    static_cast<size_t>(ix - nxb) * nz + (iz - nzb);
-        *im = *im + us * ur;
+        im[static_cast<size_t>(ix - nxb) * nz + (iz - nzb)] = e.img + us * ur;
       }
     }
   }
@@ -400,12 +526,16 @@ struct BwdRun {
 
   template <int H, int P>
   cudaError_t operator()() const {
-    const dim3 grid = tile_grid(ns, nxe, nze);
-    const dim3 block(kThreads);
+    const size_t bytes = BwdTile<H>::kBytes;
+    const cudaError_t e = pfdc::allow_smem(rtm_bwd_step_mma<H, P>, bytes);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((nze + kBwdTileZ - 1) / kBwdTileZ,
+                    (nxe + kBwdTileX - 1) / kBwdTileX, ns);
+    const dim3 block(kBwdThreads);
     for (int it = 0; it < nt; ++it) {
       const bool even = it % 2 == 0;
       const float* snap = it == 0 ? snap1 : (it == 1 ? snap0 : nullptr);
-      rtm_bwd_step_mma<H, P><<<grid, block, 0, stream>>>(
+      rtm_bwd_step_mma<H, P><<<grid, block, bytes, stream>>>(
           even ? sa : sb, even ? sb : sa, snap, even ? ra : rb,
           even ? rb : ra, v2dt2, v2_shot_stride, mask,
           inj + static_cast<size_t>(it) * nx, nt * nx, img, gz, nxb, nzb, nx,

@@ -1,8 +1,9 @@
 // The one-step split body: one time step with the z taps as the
 // split-bf16 banded product, on the strip pieces of strip.cuh, shared by
 // the K = 1 tier's fd_step_mma, fd_update_mma (stream_step.cu) and
-// gpu_step_mma (gpu_step.cu), and rtm_main's rec_bwd_step_mma
-// (rec_step.cu).
+// gpu_step_mma (gpu_step.cu), and rtm_main's rec_fwd_step_mma and
+// rec_bwd_step_mma (rec_step.cu). Every per-step split kernel of those
+// tiers runs it; the staged 64 x 64 tile they ran before is gone.
 //
 // What held the staged-tile kernels back on an H100 (PERF.md, kernel
 // table, rows 8 and 10 split: 2.66x and 5.4x their bytes bound, read from
@@ -22,8 +23,9 @@
 //   4-7 % faster than on 64 x 64;
 // - stages only the field whose taps are read (p for fd_step_mma and
 //   fd_update_mma, y for gpu_step_mma, the time-t field for
-//   rec_bwd_step_mma) with cp.async, on rows padded to 4 mod 8 floats
-//   (strip_pitch), and, where the step tapers, the tile's x ramp;
+//   rec_fwd_step_mma and rec_bwd_step_mma) with cp.async, on rows padded
+//   to 4 mod 8 floats (strip_pitch), and, where the step tapers, the
+//   tile's x ramp;
 // - for the kGpu state (gpu_step_mma) tapers the staged field in a phase
 //   of its own (taper_strip_tile), so that the staged t = m*y is both the
 //   tapped field and t_out;
@@ -42,9 +44,10 @@
 //
 // Exactness. Per cell the operations and their order are the plain
 // versions' (solver.fd_step, solver.fd_update, solver._gpu_step, the
-// receiver step of solver.backward_recorded); built with -fmad=false. The
+// source and receiver steps of solver.forward_modeling and
+// solver.backward_recorded); built with -fmad=false. The
 // outputs are buffers no block of the launch reads, or cells of a field
-// that only the cell's own thread reads (rec_bwd_step_mma's older field).
+// that only the cell's own thread reads (the rec kernels' older field).
 //
 // The site. A kernel hands the body a Site: the flavour (kTaper: the step
 // takes the taper's multiplier from its ramps; kGpu: the staged field is
@@ -55,7 +58,7 @@
 // its staged value, its taper multiplier and its Laplacian (0 outside the
 // interior); without kTaper step(gx, gz, cell, centre, lap): no ramp is
 // staged or read and no multiplier is formed (fd_update does not taper;
-// rec_bwd_step_mma reads its mask plane at the cell).
+// the rec kernels read their mask plane at the cell).
 // The loads of a strip's cells go first: a store may alias a later cell's
 // operand as far as the compiler knows, so loads and stores interleaved
 // cell by cell would wait for memory once a cell instead of once a strip

@@ -6,9 +6,9 @@
 // block_mod_mma, block2_mod_mma, block_fwd_mma, block2_fwd_mma; with the z
 // taps split kstep_mod_mma, kstep_gpu_fwd_mma), and the one-step split
 // body of step_strip.cuh (fd_step_mma, gpu_step_mma, fd_update_mma,
-// rec_bwd_step_mma); the split x product of both bodies' block instances,
-// and the split z product of both bodies' K-step instances and of the
-// one-step body.
+// rec_fwd_step_mma, rec_bwd_step_mma); the split x product of both
+// bodies' block instances, and the split z product of both bodies' K-step
+// instances and of the one-step body.
 //
 // A block stages a tile of owned cells plus a halo of r = K*H cells on
 // both axes in dynamic shared memory: only the fields that neighbours read

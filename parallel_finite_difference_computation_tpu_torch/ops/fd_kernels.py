@@ -23,8 +23,8 @@ per Laplacian apply), and is added to only where the kernels are launched.
 | ``mod_step_mma`` | ``csrc/step_mma.cu`` | ``pallas_fd.py`` MXU branch of ``_make_lap`` (:260-334) in ``_fwd_mod_kernel`` (:423) |
 | ``rtm_fwd_step_mma`` | ``csrc/step_mma.cu`` | the same in ``_rtm_kernel``'s forward (:534) |
 | ``rtm_bwd_step_mma`` | ``csrc/step_mma.cu`` | the same in ``_rtm_kernel``'s backward (:534) |
-| ``rec_fwd_step_mma`` | ``csrc/rec_step.cu`` | ``pallas_stream.py`` ``_kstep_rec_kernel``'s ``use_mxu`` branch (:1026-1033), source mode |
-| ``rec_bwd_step_mma`` | ``csrc/rec_step.cu`` | the same, receiver mode |
+| ``rec_fwd_step_mma`` | ``csrc/rec_step.cu`` on ``step_strip.cuh`` | ``pallas_stream.py`` ``_kstep_rec_kernel``'s ``use_mxu`` branch (:1026-1033), source mode |
+| ``rec_bwd_step_mma`` | ``csrc/rec_step.cu`` on ``step_strip.cuh`` | the same, receiver mode |
 
 The padded-layout stencil's two kernels, ``lap_padded`` and
 ``lap_padded_mma`` (``pallas_stencil.py`` ``_kernel_padded`` :546 and

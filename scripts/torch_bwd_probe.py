@@ -234,6 +234,10 @@ def main(child: str = CHILD, variants=None, doc: str = __doc__) -> int:
                     choices=sorted(variants), metavar="NAME",
                     help=f"copies of the last tree: {', '.join(variants)}")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--only", default="",
+                    help="a regular expression: the child times only the "
+                         "cases whose names it finds (children that read "
+                         "ONLY; default: every case)")
     args = ap.parse_args()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -250,7 +254,8 @@ def main(child: str = CHILD, variants=None, doc: str = __doc__) -> int:
             for name in order:
                 out = subprocess.run(
                     [sys.executable, "-c",
-                     f"TREE = {trees[name]!r}\n" + child],
+                     f"TREE = {trees[name]!r}\nONLY = {args.only!r}\n"
+                     + child],
                     capture_output=True, text=True, timeout=1200)
                 sys.stderr.write(out.stderr[-6000:])
                 if out.returncode != 0:

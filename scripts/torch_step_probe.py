@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Build, check and time the split kernels of the one-step strip body of
-checkouts of the PyTorch port on one CUDA card: ``fd_step_mma``,
-``fd_update_mma`` and ``gpu_step_mma`` of the K = 1 tier and rtm_main's
-``rec_bwd_step_mma`` (the z taps in bf16 parts), each beside its exact
-twin.
+"""Build, check and time the split per-step kernels of checkouts of the
+PyTorch port on one CUDA card: ``fd_step_mma``, ``fd_update_mma`` and
+``gpu_step_mma`` of the K = 1 tier and rtm_main's ``rec_fwd_step_mma`` and
+``rec_bwd_step_mma`` (the one-step strip body, the z taps in bf16 parts),
+and the two-snapshot RTM's ``rtm_bwd_step_mma`` (the x taps in bf16
+parts), each beside its exact twin.
 
     python3 scripts/torch_step_probe.py TREE [TREE ...]
                                         [--variants NAME ...] [--rounds N]
+                                        [--only REGEX]
 
 Each tree runs in a process of its own that imports the port from that
 tree (building its kernels there). The process prints the compiler's
@@ -18,33 +20,43 @@ none, the Gaussian window, the point source, the receiver row;
 ``fd_update``; ``gpu_step`` without and with the trace row and the
 image; gate 1e-6 of the plain result's max; ``rec_bwd_step`` over 9
 steps in frame mode, both receiver offsets, and in image mode, gates
-1e-4 and 1e-5, exact or split) and the other exact ones bitwise, and
+1e-4 and 1e-5, exact or split; ``rec_fwd_step``'s fields and frames over
+9 steps, the point sources across the owned shapes' edges, gate 1e-4;
+``rtm_bwd_step``'s image over 9 steps from random snapshots, the two
+seeded steps included, gate 1e-5) and the other exact ones bitwise, and
 then times them at the
 Pluto grid (7040 x 1281 extended, order 8, 2 shots) as ``chip_smoke.py``
 phase 31 times them: ``fd_step`` over 1001 launches (the Gaussian
 source, the all-edge taper, one velocity plane), ``gpu_step`` over 1001
 receiver launches (the trace row and the image) and over 1001 forward
 launches (neither), ``fd_update`` over 999; exact, mxu and mxu6; then
-``rec_bwd_step`` in image mode at 3lay (8 shots of 231 x 231 extended,
-nt = 1001) and at the Pluto grid (2 shots, nt = 203, the rtm_main path
-of phase 30), exact, mxu and mxu6; then the split K = 1 modeling and RTM
-calls (``forward_modeling_tiled`` and ``rtm_shot_snapshot_tiled`` at
-block_k = 1, mxu, nt = 1001) and the 3lay rtm_main call
-(``rtm_full_cuda``, mxu). Median of 3 CUDA-event samples after a
-warm-up.
+``rec_fwd_step`` (the frames) and ``rec_bwd_step`` in image mode at 3lay
+(8 shots of 231 x 231 extended, nt = 1001) and at the Pluto grid (2
+shots, nt = 203, the rtm_main path of phase 30), exact, mxu and mxu6;
+then the split K = 1 modeling and RTM calls (``forward_modeling_tiled``
+and ``rtm_shot_snapshot_tiled`` at block_k = 1, mxu, nt = 1001), the 3lay
+rtm_main call (``rtm_full_cuda``, mxu), ``rtm_bwd_step`` at 3lay from
+random snapshots (exact, mxu and mxu6) and the 3lay RTM call
+(``rtm_snapshot_cuda``, mxu). Median of 3 CUDA-event samples after a
+warm-up. ``--only`` times only the cases whose names the regular
+expression finds (``"rec_fwd|rtm_bwd|3lay"``: the rtm_main and 3lay
+cases); the checks always run.
 
 ``--variants`` adds copies of the last tree with other constants:
 ``step64x64``, ``step64x128`` and ``step32x128`` (the first owned shape
 of the one-step split body, ``kStepShapes`` in ``csrc/step_strip.cuh``);
 ``fd_rows4``, ``upd_rows4``, ``gpu_rows8`` and ``rec_rows8`` (the rows of
 a strip, ``kRows`` of ``fd_step_mma``'s, ``fd_update_mma``'s,
-``gpu_step_mma``'s and ``rec_bwd_step_mma``'s sites); ``fd_ahead``,
-``upd_ahead``, ``gpu_behind`` and ``rec_behind`` (whether a warp loads its
-next strip's operands while it computes the current one, ``kAhead`` of
-the same sites); ``rec128x64``, ``rec64x64``, ``rec32x64`` and
-``rec64x32`` (``rec_bwd_step_mma`` on that one owned shape at every grid
-instead of its shape rule, ``kRecShapes`` in ``csrc/rec_step.cu``), made
-under a temporary directory. The trees run in turns, ``--rounds`` times (A, B,
+``gpu_step_mma``'s and ``rec_bwd_step_mma``'s sites; ``recf_rows8``:
+``rec_fwd_step_mma``'s); ``fd_ahead``, ``upd_ahead``, ``gpu_behind``,
+``rec_behind`` and ``recf_ahead`` (whether a warp loads its next strip's
+operands while it computes the current one, ``kAhead`` of the same
+sites); ``rec128x64``, ``rec64x64``, ``rec32x64`` and ``rec64x32`` (both
+rec kernels on that one owned shape at every grid instead of their shape
+rule, ``kRecShapes`` in ``csrc/rec_step.cu``); ``bwd32x32`` and
+``bwd64x32`` (``rtm_bwd_step_mma``'s owned shape instead of 32 x 64, a
+warp for each 16 x 16: ``kBwdTileX``/``kBwdTileZ`` in
+``csrc/step_mma.cu``); made under a temporary directory. The trees run in turns, ``--rounds`` times (A, B,
 ..., then in reverse), as ``scripts/torch_bwd_probe.py`` runs them.
 Prints one JSON line per process and the medians per tree, beside the
 card's name and power limit.
@@ -62,6 +74,9 @@ _FD = "struct FdStepSite {\n  static constexpr int kRows = 8;\n"
 _UPD = "struct FdUpdateSite {\n  static constexpr int kRows = 8;\n"
 _REC_SITE = ("struct RecBwdSite {\n  static constexpr int kRows = "
              "pfdc::kStripRows;\n  static constexpr bool kAhead = true;\n")
+_RECF_SITE = _REC_SITE.replace("RecBwdSite", "RecFwdSite").replace(
+    "true;", "false;")
+_BWD = "constexpr int kBwdTileX = 32;\nconstexpr int kBwdTileZ = 64;"
 VARIANTS = {
     "step64x64": ("step_strip.cuh", _STEP_FIRST,
                   "kStepShapes[] = {{64, 64}};"),
@@ -82,6 +97,13 @@ VARIANTS = {
         "pfdc::kStripRows;", "8;")),
     "rec_behind": ("rec_step.cu", _REC_SITE, _REC_SITE.replace(
         "true;", "false;")),
+    "recf_rows8": ("rec_step.cu", _RECF_SITE, _RECF_SITE.replace(
+        "pfdc::kStripRows;", "8;")),
+    "recf_ahead": ("rec_step.cu", _RECF_SITE, _RECF_SITE.replace(
+        "false;", "true;")),
+    "bwd32x32": ("step_mma.cu", _BWD, _BWD.replace("Z = 64", "Z = 32")),
+    "bwd64x32": ("step_mma.cu", _BWD, _BWD.replace("X = 32", "X = 64")
+                 .replace("Z = 64", "Z = 32")),
     "rec128x64": ("rec_step.cu", _REC, "kRecShapes[] = {{128, 64}};"),
     "rec64x64": ("rec_step.cu", _REC, "kRecShapes[] = {{64, 64}};"),
     "rec32x64": ("rec_step.cu", _REC, "kRecShapes[] = {{32, 64}};"),
@@ -112,13 +134,18 @@ for line in build.build_log().splitlines():
         fn = m.group(1)
     # the order-8 and order-16 instances (H = 4, 8)
     name = fn and re.search(
-        r"\d((?:fd_step|fd_update|gpu_step|rec_bwd_step)\w*?I(?:L\w\d+E)+)E",
-        fn)
+        r"\d((?:fd_step|fd_update|gpu_step|rec_fwd_step|rec_bwd_step"
+        r"|rtm_bwd_step)\w*?I(?:L\w\d+E)+)E", fn)
     if (name and re.search(r"ILi[48]E", name[1])
             and ("registers" in line or "spill" in line)):
         ptxas.append(f"[ptxas] {name[1]}: {line.strip()}")
 res = {"bitwise": True}
 n_checks = 0
+
+def timed(case):
+    """Whether the case is timed (--only)."""
+    return not ONLY or re.search(ONLY, case) is not None
+
 rng = np.random.default_rng(0)
 
 def f32(*shape):
@@ -196,6 +223,26 @@ for order in (4, 8, 12, 16):
                                      dobs.to(dev), gz, lap_impl=parts)
         judge(f"rec_bwd_step image parts {parts} order {order}", (got,),
               (want,), parts, 1e-5)
+        # rec_fwd_step over 9 steps: the point sources across the owned
+        # shapes' edges, fields and frames
+        wav9 = np.float32(rng.standard_normal(ctx.nt))
+        kw = dict(source="point", taper="top", record="wavefield")
+        want = solver.forward_modeling(ctx, v2[0], wav9, sxs, sz, gz, **kw,
+                                       lap_impl=parts)
+        got = fk.forward_modeling_cuda(ctx, v2[0].to(dev), wav9, sxs, sz, gz,
+                                       **kw, lap_impl=parts)
+        judge(f"rec_fwd_step fields and frames parts {parts} order {order}",
+              got, want, parts, 1e-4)
+        # rtm_bwd_step over 9 steps from random snapshots, the two seeded
+        # steps included: the image (summed in time order, as the plain
+        # loop sums it)
+        snaps = (f32(2, ctx.nxe, ctx.nze), f32(2, ctx.nxe, ctx.nze))
+        want = solver.fd_back(ctx, v2, *snaps, dobs, gz,
+                              solver.laplacian_of(ctx, parts))
+        got = fk._fd_back(ctx, v2.to(dev), *(a.to(dev) for a in snaps),
+                          dobs.to(dev), gz, parts)
+        judge(f"rtm_bwd_step image parts {parts} order {order}", (got,),
+              (want,), parts, 1e-5)
 print("\n".join(ptxas), file=sys.stderr)
 print(f"[check] {n_checks} cases, {'all held' if res['bitwise'] else 'FAILED'}",
       file=sys.stderr)
@@ -248,9 +295,11 @@ for parts, sfx in ((0, ""), (2, "_mma"), (3, "_mma mxu6")):
             stream.fd_step_gpu_cuda(ctx, st[0], st[1], v2, consts=cr,
                                     out=st[2:4], parts=parts)
 
-    res["fd_step" + sfx] = median_ms(fd_step)
-    res["gpu_step" + sfx + " receiver"] = median_ms(gpu_rec)
-    res["gpu_step" + sfx + " forward"] = median_ms(gpu_fwd)
+    if timed("fd_step"):
+        res["fd_step" + sfx] = median_ms(fd_step)
+    if timed("gpu_step"):
+        res["gpu_step" + sfx + " receiver"] = median_ms(gpu_rec)
+        res["gpu_step" + sfx + " forward"] = median_ms(gpu_fwd)
 for parts, sfx in ((0, ""), (2, "_mma"), (3, "_mma mxu6")):
 
     def fd_update():
@@ -258,11 +307,12 @@ for parts, sfx in ((0, ""), (2, "_mma"), (3, "_mma mxu6")):
             stream.fd_update_cuda(ctx, st[0], st[1], v2, consts=cr,
                                   out=st[2], parts=parts)
 
-    res["fd_update" + sfx] = median_ms(fd_update)
+    if timed("fd_update"):
+        res["fd_update" + sfx] = median_ms(fd_update)
 del st, img, cm, cr
-# rec_bwd_step in image mode: 3lay (8 shots, nt = 1001) and the Pluto
-# rtm_main path of chip_smoke.py phase 30 (2 shots, nt = 203), on random
-# gathers and source frames made on the card
+# rec_fwd_step (frames) and rec_bwd_step in image mode: 3lay (8 shots, nt
+# = 1001) and the Pluto rtm_main path of chip_smoke.py phase 30 (2 shots,
+# nt = 203), on random gathers and source frames made on the card
 gen = torch.Generator(device=dev).manual_seed(0)
 for where, ctx_r, ns in (
         ("3lay", solver.FDContext.create(151, 151, 1001, dx=10.0, dz=10.0,
@@ -273,6 +323,18 @@ for where, ctx_r, ns in (
             nzb=40, fac=0.75), 2)):
     v2r = ((1500.0 + 2000.0 * torch.rand((ctx_r.nxe, ctx_r.nze), device=dev,
                                           generator=gen)) ** 2)
+    wr = np.float32(rng.standard_normal(ctx_r.nt))
+    sxr = ([40 + 20 * i for i in range(8)] if ns == 8 else [2740, 2760])
+    for parts, sfx in ((0, ""), (2, "_mma"), (3, "_mma mxu6")):
+        if timed(f"rec_fwd_step{sfx} {where}"):
+            res[f"rec_fwd_step{sfx} {where}"] = median_ms(
+                lambda: fk.forward_modeling_cuda(
+                    ctx_r, v2r, wr, sxr, 40, 40, "point", "top",
+                    "wavefield", lap_impl=parts))
+    torch.cuda.empty_cache()
+    if not timed(f"rec_bwd_step {where}") and not timed(
+            f"rec_bwd_step_mma {where}"):
+        continue
     d = torch.randn((ns, ctx_r.nx, ctx_r.nt), device=dev, generator=gen)
     swf = torch.randn((ns, ctx_r.nt, ctx_r.nx, ctx_r.nz), device=dev,
                       generator=gen)
@@ -284,10 +346,12 @@ for where, ctx_r, ns in (
     torch.cuda.empty_cache()
 dobs = torch.from_numpy(rng.standard_normal((2, ctx.nx, ctx.nt)).astype(
     np.float32)).to(dev)
-res["K=1 modeling mxu"] = median_ms(lambda: solver.forward_modeling_tiled(
-    ctx, v2m, wav, sxs, 40, 40, block_k=1, lap_impl="mxu"))
-res["K=1 RTM mxu"] = median_ms(lambda: solver.rtm_shot_snapshot_tiled(
-    ctx, v2, wav, dobs, sxs, 40, 40, block_k=1, lap_impl="mxu"))
+if timed("K=1 modeling mxu"):
+    res["K=1 modeling mxu"] = median_ms(lambda: solver.forward_modeling_tiled(
+        ctx, v2m, wav, sxs, 40, 40, block_k=1, lap_impl="mxu"))
+if timed("K=1 RTM mxu"):
+    res["K=1 RTM mxu"] = median_ms(lambda: solver.rtm_shot_snapshot_tiled(
+        ctx, v2, wav, dobs, sxs, 40, 40, block_k=1, lap_impl="mxu"))
 del dobs, v2, v2m
 torch.cuda.empty_cache()
 ctx3 = solver.FDContext.create(151, 151, 1001, dx=10.0, dz=10.0, dt=0.001,
@@ -297,8 +361,21 @@ v23 = ((1500.0 + 2000.0 * torch.rand((ctx3.nxe, ctx3.nze), device=dev,
 d3 = torch.randn((8, ctx3.nx, ctx3.nt), device=dev, generator=gen)
 wav3 = np.float32(rng.standard_normal(ctx3.nt))
 sx3 = [40 + 20 * i for i in range(8)]
-res["3lay rtm_main mxu"] = median_ms(lambda: fk.rtm_full_cuda(
-    ctx3, v23, wav3, d3, sx3, 40, 40, lap_impl="mxu"))
+if timed("3lay rtm_main mxu"):
+    res["3lay rtm_main mxu"] = median_ms(lambda: fk.rtm_full_cuda(
+        ctx3, v23, wav3, d3, sx3, 40, 40, lap_impl="mxu"))
+# rtm_bwd_step (the two-snapshot backward) at 3lay from random snapshots,
+# exact, mxu and mxu6, and the 3lay RTM mxu call (rtm_snapshot_cuda)
+v28 = v23.expand(8, -1, -1).contiguous()
+snaps = [torch.randn((8, ctx3.nxe, ctx3.nze), device=dev, generator=gen)
+         for _ in range(2)]
+for parts, sfx in ((0, ""), (2, "_mma"), (3, "_mma mxu6")):
+    if timed(f"rtm_bwd_step{sfx} 3lay"):
+        res[f"rtm_bwd_step{sfx} 3lay"] = median_ms(
+            lambda: fk._fd_back(ctx3, v28, *snaps, d3, 40, parts))
+if timed("3lay RTM mxu"):
+    res["3lay RTM mxu"] = median_ms(lambda: fk.rtm_snapshot_cuda(
+        ctx3, v28, wav3, d3, sx3, 40, 40, lap_impl="mxu"))
 print(json.dumps(res))
 '''
 

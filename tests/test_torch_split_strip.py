@@ -51,6 +51,14 @@ the plain result's max.
   on the same grids and orders, and on an 8-shot grid whose launcher takes
   64 x 64 owned cells; gates 1e-4 for the frames and fields, 1e-5 for the
   images (phase 28's).
+* ``fk.forward_modeling_cuda(..., record="wavefield", lap_impl=)``
+  (``rec_fwd_step_mma``, the same body without a taper, the point source's
+  patch added at the cell) against ``solver.forward_modeling`` over 9
+  steps on the same grids and orders and on the 8-shot grid, gates 1e-4
+  for the fields and the frames; and ``fk._fd_back(..., parts)``
+  (``rtm_bwd_step_mma``, the x taps split, staged by ``cp.async``) against
+  ``solver.fd_back`` over 9 steps, its two seeded steps included, on the
+  same grids and orders, gate 1e-5 for the image.
 
 Card-only: every case is marked ``cuda`` and skips where there is none
 (``python -m pytest tests/test_torch_split_strip.py -m cuda --noconftest``
@@ -507,3 +515,72 @@ def test_rec_bwd_step_mma_on_its_middle_shape(cuda_device, order, parts):
     132 SMs, 288 of 64 x 64, which the launcher takes."""
     rng = np.random.default_rng(order + 10 * parts + 4)
     _rec_bwd(_ctx((320, 320, 20, 20), order), rng, cuda_device, parts, ns=8)
+
+
+def _rec_fwd(ctx, rng, device, parts, ns=2):
+    """rec_fwd_step_mma over ctx.nt steps (the point source, the top
+    taper, the interior frames) against the plain loop with the same split
+    z taps, on a random velocity and wavelet, the sources across the owned
+    shapes' edges at x = 64 and 128 and the source depth across z = 64;
+    one launch a step."""
+    v2 = _v2(rng, ctx)[0].to(device)
+    wav = rng.standard_normal(ctx.nt).astype(np.float32)
+    sxs = ((31, 61) if ctx.nxe < 140 else (61, 126)) if ns == 2 else tuple(
+        30 + 40 * i for i in range(ns))
+    sz, gz = 63, ctx.nzb + 3
+    fk.reset_launches()
+    got = fk.forward_modeling_cuda(ctx, v2, wav, sxs, sz, gz, "point", "top",
+                                   "wavefield", lap_impl=parts)
+    want = solver.forward_modeling(ctx, v2, wav, sxs, sz, gz, "point", "top",
+                                   "wavefield", lap_impl=parts)
+    torch.cuda.synchronize()
+    _within(got, want, REC_GATES)
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "rec_fwd_step_mma": ctx.nt}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("order", K1_ORDERS)
+@pytest.mark.parametrize("grid", K1_GRIDS)
+def test_rec_fwd_step_mma_matches_plain_on_the_card(cuda_device, grid,
+                                                    order, parts):
+    rng = np.random.default_rng(order + 10 * parts + 5)
+    _rec_fwd(_ctx(grid, order), rng, cuda_device, parts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("order", [8, 16])
+def test_rec_fwd_step_mma_on_its_middle_shape(cuda_device, order, parts):
+    """8 shots of 360 x 360 extended, where the launcher takes 64 x 64
+    (test_rec_bwd_step_mma_on_its_middle_shape)."""
+    rng = np.random.default_rng(order + 10 * parts + 6)
+    _rec_fwd(_ctx((320, 320, 20, 20), order), rng, cuda_device, parts, ns=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("order", K1_ORDERS)
+@pytest.mark.parametrize("grid", K1_GRIDS)
+def test_rtm_bwd_step_mma_matches_plain_on_the_card(cuda_device, grid,
+                                                    order, parts):
+    """rtm_bwd_step_mma over ctx.nt steps, the two seeded steps (the
+    snapshots as the source field) included, against the plain backward
+    loop with the same split x taps, on grids that are no multiple of its
+    owned shape; the receiver row across z = 32; one launch a step."""
+    rng = np.random.default_rng(order + 10 * parts + 7)
+    ctx = _ctx(grid, order)
+    v2 = _v2(rng, ctx).to(cuda_device)
+    snap_p, snap_pp = (_f32(rng, 2, ctx.nxe, ctx.nze).to(cuda_device)
+                       for _ in range(2))
+    dobs = _f32(rng, 2, ctx.nx, ctx.nt).to(cuda_device)
+    gz = 31
+    fk.reset_launches()
+    got = fk._fd_back(ctx, v2, snap_p, snap_pp, dobs, gz, parts)
+    want = solver.fd_back(ctx, v2, snap_p, snap_pp, dobs, gz,
+                          solver.laplacian_of(ctx, parts))
+    torch.cuda.synchronize()
+    _within((got,), (want,), (IMAGE_GATE,))
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "rtm_bwd_step_mma": ctx.nt}

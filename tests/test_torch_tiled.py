@@ -482,6 +482,33 @@ def test_rec_shape_fills_the_card():
     assert _rec_shape(8, 231, 231, 4, 32)[0] == (128, 64)
 
 
+
+def test_rec_fwd_step_mma_takes_the_rec_shapes():
+    """rec_fwd_step_mma runs the one-step body through a site of its own
+    (RecFwdSite: no taper, three operands a cell) and launches on the shape
+    the rec kernels' rule picks (rec_shape, mirrored by _rec_shape): 8
+    shots of 3lay (231 x 231 extended) on 32 x 64 owned cells, 256 blocks
+    for an H100's 132 SMs, and the Pluto rtm_main path (2 shots of 7040 x
+    1281) on 128 x 64."""
+    csrc = pathlib.Path(stream.__file__).parents[1] / "csrc"
+    text = " ".join((csrc / "rec_step.cu").read_text().split())
+    site = text[text.index("struct RecFwdSite {"):
+                text.index("struct RecBwdSite {")
+                if "struct RecBwdSite {" in text else None]
+    for piece in ("static constexpr bool kTaper = false;",
+                  "static constexpr bool kGpu = false;",
+                  "struct Cell { float old, v, m; };",
+                  "pfdc::step_strip<H, P>(smem, site, t, c);"):
+        assert piece in site, piece
+    run = text[text.index("struct RecFwdRun {"):text.index("struct RecBwdRun")]
+    assert "rec_shape<H>(rec_fwd_step_mma<H, P>, ns, nxe, nze" in run
+    assert "pfdc::strip_grid(shape, ns, nxe, nze);" in run
+    assert "const dim3 block(pfdc::kStripThreads);" in run
+    for order in (8, 16):
+        assert _rec_shape(8, 231, 231, order // 2, 132) == ((32, 64), 256)
+        assert _rec_shape(2, 7040, 1281, order // 2, 132) == ((128, 64),
+                                                              2310)
+
 def test_shared_memory_of_the_kernels():
     """The staging kernels' tiles, as their C sources size them, against
     the wrappers' mirror (``fk.smem_bytes``, which the pipelines' K choice
@@ -496,10 +523,12 @@ def test_shared_memory_of_the_kernels():
     the owned image and the x ramp), kstep_gpu_bwd_mma and block_bwd_mma
     (the two z or x products staged too, on padded rows), the block kernels
     staging the steps of the longer of their passes; fd_step_mma,
-    fd_update_mma, gpu_step_mma and rec_bwd_step_mma on step_strip.cuh's
-    (the field and its z product, on padded rows, at a halo of H;
-    rec_bwd_step_mma on a shape list of its own, chosen by the grid), none
-    of them on mma_tile.cuh's staged tile any more. Which (kernel, order,
+    fd_update_mma, gpu_step_mma, rec_fwd_step_mma and rec_bwd_step_mma on
+    step_strip.cuh's (the field and its z product, on padded rows, at a
+    halo of H; the rec kernels on a shape list of their own, chosen by the
+    grid); mma_tile.cuh's staged tile is gone; rtm_bwd_step_mma
+    (step_mma.cu) stages three fields on padded rows into dynamic shared
+    memory that fits at every even order up to 16. Which (kernel, order,
     K) the card refuses up to order 16, and that every tile fits at the
     pipelines' K up to order 10; the wrappers' step limit is the
     kernels'."""
@@ -655,24 +684,55 @@ def test_shared_memory_of_the_kernels():
         first = fk._strip_bytes(shapes[0], order // 2,
                                 fk._Strip(tuple(shapes), *stage))
         assert strip_smem("Step", order, 1) == first, order
-    # the staged 64 x 64 tile of mma_tile.cuh serves rec_fwd_step_mma
-    # alone: stream_step.cu no longer includes it, and rec_bwd_step_mma
-    # calls none of its pieces
-    assert "mma_tile.cuh" not in (csrc / "stream_step.cu").read_text()
-    rec_text = (csrc / "rec_step.cu").read_text()
-    cut = [rec_text.index(m) for m in ("struct RecBwdSite",
-                                       "struct RecFwdRun",
-                                       "struct RecBwdRun",
-                                       "}  // namespace")]
-    bwd_mma = rec_text[cut[0]:cut[1]] + rec_text[cut[2]:cut[3]]
-    rest = rec_text[:cut[0]] + rec_text[cut[1]:cut[2]]
-    for piece in ("stage_tile", "tile_z_mma", "for_tile_cells", "split_lap",
-                  "mma_grid", "MmaTile", "kMmaThreads"):
-        assert not re.search(rf"\b{piece}\b", bwd_mma), piece
-        assert re.search(rf"\b{piece}\b", rest), piece
-        for name in ("stream_step.cu", "gpu_step.cu"):
-            assert not re.search(rf"\b{piece}\b",
-                                 (csrc / name).read_text()), (name, piece)
+    # the staged 64 x 64 tile of mma_tile.cuh is gone: no source names it
+    # or its pieces, and both rec kernels' launchers take their shape by
+    # the grid (rec_shape: strip_shape_for_grid over kRecShapes)
+    assert not (csrc / "mma_tile.cuh").exists()
+    for src in csrc.iterdir():
+        text = src.read_text()
+        assert "mma_tile.cuh" not in text, src.name
+        for piece in ("stage_tile", "tile_z_mma", "for_tile_cells",
+                      "split_lap", "mma_grid", "MmaTile", "kMmaThreads"):
+            assert not re.search(rf"\b{piece}\b", text), (src.name, piece)
+    rec_text = " ".join((csrc / "rec_step.cu").read_text().split())
+    runs = {name: rec_text[rec_text.index(f"struct {name} {{"):]
+            for name in ("RecFwdRun", "RecBwdRun")}
+    assert re.search(r"rec_shape<H>\(rec_fwd_step_mma<H, P>, ns, nxe, nze, "
+                     r"shape, bytes\);", runs["RecFwdRun"][
+                         :runs["RecFwdRun"].index("struct RecBwdRun")])
+    assert re.search(r"rec_shape<H>\(rec_bwd_step_mma<H, P, kImage>, ns, "
+                     r"nxe, nze, shape, bytes\);", runs["RecBwdRun"])
+    shape_fn = rec_text[rec_text.index("cudaError_t rec_shape("):
+                        rec_text.index("struct RecFwdRun {")]
+    assert ("shape = pfdc::strip_shape_for_grid(kRecShapes, "
+            "pfdc::kStepStage, H, ns, nxe, nze, sms);") in shape_fn
+    assert "return pfdc::allow_smem(kernel, bytes);" in shape_fn
+
+    # rtm_bwd_step_mma: its owned shape's rows and columns plus the halo
+    # (the rows as far as the last x window reads), three fields (the
+    # source, the receiver and the mask) on padded rows, as dynamic shared
+    # memory; every even order up to 16 fits, with blocks to spare
+    mma_text = (csrc / "step_mma.cu").read_text()
+    tx, tz = (int(re.search(rf"constexpr int kBwdTile{a} = (\d+);",
+                            mma_text)[1]) for a in "XZ")
+    assert {tx, tz} <= {32, 64} and tx * tz <= 2048
+    flat = " ".join(mma_text.split())
+    assert ("static constexpr int kPitch = pfdc::strip_pitch(kCols, true);"
+            in flat)
+    assert ("static constexpr size_t kBytes = sizeof(float) * 3 * kCells;"
+            in flat)
+    assert re.search(r"const size_t bytes = BwdTile<H>::kBytes; const "
+                     r"cudaError_t e = pfdc::allow_smem\(rtm_bwd_step_mma<H, "
+                     r"P>, bytes\);", flat)
+    assert "<<<grid, block, bytes, stream>>>" in flat
+    for order in range(4, fk.MAX_ORDER + 1, 2):
+        h = order // 2
+        ks = (8 + 2 * h + 15) // 16
+        rows = max(tx + 2 * h, tx - 8 + 16 * ks)
+        pitch = (tz + 2 * h + 3) // 8 * 8 + 4
+        assert pitch % 8 == 4 and pitch >= tz + 2 * h
+        b = 4 * 3 * rows * pitch
+        assert 4 * (b + 1024) <= 228 * 1024, (order, b)
 
     # the block kernels of the domain tiers (csrc/domain_block.cuh), every
     # one on a strip body: the launcher takes the body's shape and bytes for
