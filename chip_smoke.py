@@ -9,12 +9,23 @@ Run from the root of the repository, on a machine with one CUDA card and
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the CUDA kernels from ``csrc/``, with ``nvcc`` (one per source,
    started together), and each kernel's registers and spill stores;
-3. kernel vs plain: ``mod_step``, ``rtm_fwd_step`` and ``rtm_bwd_step``
-   against their plain torch versions on the same CUDA tensors, at the 3lay
-   shapes (231 x 231 extended grid, nt=1001, 8 shots, order 8) and in short
-   runs (nt=20) at orders 4 and 10; gate: max relative error <= 1e-5;
+3. kernel vs plain: ``mod_step``, the exact two-snapshot RTM's resident
+   kernels ``rtm_fwd_cluster`` and ``rtm_bwd_cluster`` (the 3lay route:
+   one launch a pass, each shot in a thread-block cluster) and its
+   per-step ones ``rtm_fwd_step`` and ``rtm_bwd_step`` (the route forced)
+   against their plain torch versions on the same CUDA tensors, at the
+   3lay shapes (231 x 231 extended grid, nt=1001, 8 shots, order 8) and in
+   short runs (nt=20) at orders 4, 10 and 16; then 2 shots, nt=20, order
+   8, on a grid just inside the resident route's limit (256 x 256
+   extended: 16 rows a CTA, 512 strips of 4 x 2 cells) and one just past
+   it (260 x 260: the per-step kernels), with launch counts; gate: max
+   relative error <= 1e-5, the resident kernels bitwise (max abs err 0),
+   and the clusters the card holds at once; the per-step kernels' launches
+   in the ``kernels`` line are those of the forced route at 3lay, order 8,
+   whose time phase 14 gives;
 4. main path (mod -> rtm_gpu): ``run_modeling`` then ``run_rtm_gpu`` on the
-   3lay config, ns=8, through the kernels: the launch counts,
+   3lay config, ns=8, through the kernels: the launch counts (``mod_step``
+   nt, the two resident kernels one each),
    ``dir.image``, the image against the plain path on the card (rel RMS
    <= 1e-5), and the whole slice at a small size against the plain path on
    the CPU;
@@ -73,7 +84,9 @@ Run from the root of the repository, on a machine with one CUDA card and
    CUDA events, median of 3 after a warm-up, taken in turns; for the
    stencil also ``torch.nn.functional.conv2d`` with the same taps (the
    library yardstick, not used by the port); for the K-step kernels, at
-   the Pluto grid (2 shots, nt=1001), their passes, their plain passes and
+   3lay both routes of the exact RTM kernels and calls in turns with the
+   plain versions; at the Pluto grid (2 shots, nt=1001), the K-step
+   kernels' passes, their plain passes and
    the per-step kernel call for the same function (here and in phases 18,
    21 and 27 the plain versions at the Pluto grid, seconds a call, are
    timed once, without a warm-up of their own); the same for the block
@@ -81,7 +94,8 @@ Run from the root of the repository, on a machine with one CUDA card and
    against its plain version there (K = 8 and the tails 4 and 1, seeded;
    gate 1e-5, every kernel bitwise), and the domain tier's whole
    modeling and RTM calls against the per-step calls;
-15. profile: one ``torch.profiler`` trace of each 3lay 8-shot call, of the
+15. profile: one ``torch.profiler`` trace of each 3lay 8-shot call (the
+   RTM call on both routes), of the
    8192 x 8192 stencil, and of the Pluto modeling and RTM calls (nt=1001)
    of each tier: the device time of each kernel, its launch count, and the
    share of the event-timed call that the card spent in kernels; for the
@@ -285,6 +299,10 @@ KERNELS = {
                      "parallel_finite_difference_computation_tpu/ops/pallas_fd.py:534"),
     "rtm_bwd_step": (f"{PKG}/csrc/rtm_bwd_step.cu",
                      "parallel_finite_difference_computation_tpu/ops/pallas_fd.py:534"),
+    "rtm_fwd_cluster": (f"{PKG}/csrc/rtm_fwd_step.cu",
+                        "parallel_finite_difference_computation_tpu/ops/pallas_fd.py:702"),
+    "rtm_bwd_cluster": (f"{PKG}/csrc/rtm_bwd_step.cu",
+                        "parallel_finite_difference_computation_tpu/ops/pallas_fd.py:729"),
     "rec_fwd_step": (f"{PKG}/csrc/rec_step.cu",
                      "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:1002"),
     "rec_bwd_step": (f"{PKG}/csrc/rec_step.cu",
@@ -890,37 +908,103 @@ def main() -> int:
         wav_rtm = numerics.ricker_wavelet(nt, p.dt, p.fpeak)
         return ctx_mod, ctx_rtm, v2_mod, v2_rtm, wav_mod, wav_rtm
 
+    def pair_errs(k, p):
+        return (max(max_rel(a, b) for a, b in zip(k, p)),
+                max(float((a - b).abs().max()) for a, b in zip(k, p)))
+
+    def rtm_errs(ctx_r, v2_r, wav_r, dobs, sx, sz, gz, out, record=False):
+        """Both routes of the exact two-snapshot RTM against plain, into
+        out, with the route each call took (its LAUNCHES); with record,
+        the forced route's launches go into the per-step kernels'
+        records."""
+        pf = solver.fd_forward(ctx_r, v2_r, wav_r, sx, sz)
+        pb = solver.fd_back(ctx_r, v2_r, pf[0], pf[1], dobs, gz)
+        for per_step in (False, True):
+            fk.reset_launches()
+            kf = fk._fd_forward(ctx_r, v2_r, wav_r, sx, sz, 0,
+                                per_step=per_step)
+            kb = fk._fd_back(ctx_r, v2_r, pf[0], pf[1], dobs, gz, 0,
+                             per_step=per_step)
+            torch.cuda.synchronize()
+            names = [k for k, n in fk.LAUNCHES.items() if n]
+            out[" + ".join(names)] = (pair_errs(kf, pf), pair_errs((kb,),
+                                                                   (pb,)))
+            plan = fk.resident_plan(ctx_r.nxe, ctx_r.nze, ctx_r.order)
+            want = ({"rtm_fwd_cluster": 1, "rtm_bwd_cluster": 1}
+                    if plan and not per_step
+                    else {"rtm_fwd_step": ctx_r.nt, "rtm_bwd_step": ctx_r.nt})
+            check({k: fk.LAUNCHES[k] for k in names} == want,
+                  f"RTM route (per_step={per_step}): launches "
+                  f"{dict(fk.LAUNCHES)}, expected {want}")
+            if record and per_step:
+                for k in names:
+                    results[k]["launches"] = fk.LAUNCHES[k]
+        return out
+
     def compare(order: int, nt: int):
         ctx_m, ctx_r, v2_m, v2_r, wav_m, wav_r = shapes(order, nt)
         out = {}
         km = fk.forward_modeling_cuda(ctx_m, v2_m, wav_m, g.sx, g.sz, g.gz)
         pm = solver.forward_modeling(ctx_m, v2_m, wav_m, g.sx, g.sz, g.gz)
-        out["mod_step"] = (max(max_rel(a, b) for a, b in zip(km, pm)),
-                           max(float((a - b).abs().max())
-                               for a, b in zip(km, pm)))
-        kf = fk.fd_forward_cuda(ctx_r, v2_r, wav_r, g.sx, g.sz)
-        pf = solver.fd_forward(ctx_r, v2_r, wav_r, g.sx, g.sz)
-        out["rtm_fwd_step"] = (max(max_rel(a, b) for a, b in zip(kf, pf)),
-                               max(float((a - b).abs().max())
-                                   for a, b in zip(kf, pf)))
+        out["mod_step"] = pair_errs(km, pm)
         dobs = pm[2].transpose(1, 2).contiguous()          # (ns, nx, nt)
-        kb = fk.fd_back_cuda(ctx_r, v2_r, pf[0], pf[1], dobs, g.gz)
-        pb = solver.fd_back(ctx_r, v2_r, pf[0], pf[1], dobs, g.gz)
-        out["rtm_bwd_step"] = (max_rel(kb, pb), float((kb - pb).abs().max()))
+        rtm_errs(ctx_r, v2_r, wav_r, dobs, g.sx, g.sz, g.gz, out,
+                 record=order == 8 and nt == P.nt)
         torch.cuda.synchronize()
         return out, pm[2]
 
+    def report(k, errs, where, order):
+        """Prints and gates one kernel's (max rel, max abs) errors; the
+        resident kernels bitwise."""
+        rel, absd = errs
+        print(f"[kernel vs plain] {k} {where}: max rel err {rel:.3e}, max "
+              f"abs err {absd:.3e}", flush=True)
+        check(rel <= GATE, f"{k} {where}: {rel:.3e} > {GATE}")
+        check(not k.endswith("_cluster") or absd == 0,
+              f"{k} {where} is not bitwise")
+        if order == 8:
+            results[k]["max_abs_err"] = max(
+                results[k].get("max_abs_err", 0.0), absd)
+
     plain_seis = None
-    for order, nt in ((8, P.nt), (4, 20), (10, 20)):
+    for order, nt in ((8, P.nt), (4, 20), (10, 20), (16, 20)):
         errs, seis = compare(order, nt)
         if order == 8:
             plain_seis = seis
-        for k, (rel, absd) in errs.items():
-            print(f"[kernel vs plain] {k} order {order} nt {nt} ns {P.ns}: "
-                  f"max rel err {rel:.3e}, max abs err {absd:.3e}", flush=True)
-            check(rel <= GATE, f"{k} order {order}: {rel:.3e} > {GATE}")
-            if order == 8:
-                results[k]["max_abs_err"] = absd
+        for names, e in errs.items():
+            for k, err in zip(names.split(" + "),
+                              e if names != "mod_step" else (e,)):
+                report(k, err, f"order {order} nt {nt} ns {P.ns}", order)
+    # 2 shots on grids just inside the resident route's limit (a strip for
+    # each of 512 threads) and just past it (the per-step kernels)
+    for n in (176, 180):
+        pg = dataclasses.replace(P, nx=n, nz=n, nt=20, ns=2, ds=100)
+        ctx_g = solver.FDContext.from_params(pg, exact_taper=True)
+        plan = fk.resident_plan(ctx_g.nxe, ctx_g.nze, pg.order)
+        check((plan is not None) == (n == 176),
+              f"{ctx_g.nxe} x {ctx_g.nze}: resident plan {plan}")
+        gg = Geometry.from_params(pg)
+        v2_g = pipeline.prepare_velocities_gpu(pg, layered_model(n, n),
+                                               device=dev, seed=0)
+        wav_g = numerics.ricker_wavelet(pg.nt, pg.dt, pg.fpeak)
+        d_g = torch.randn((pg.ns, pg.nx, pg.nt), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(n))
+        errs = rtm_errs(ctx_g, v2_g, wav_g, d_g, gg.sx, gg.sz, gg.gz, {})
+        for names, e in errs.items():
+            if names == "rtm_fwd_step + rtm_bwd_step" and plan:
+                names = "rtm_fwd_step + rtm_bwd_step (forced)"
+            print(f"[kernel vs plain] {ctx_g.nxe} x {ctx_g.nze}, 2 shots, nt "
+                  f"20, plan {plan}: {names}", flush=True)
+            for k, err in zip(names.split(" (")[0].split(" + "), e):
+                report(k, err, f"at {ctx_g.nxe} x {ctx_g.nze}", 0)
+    for order in (4, 8, 16):
+        print(f"[kernel vs plain] 3lay order {order}: "
+              f"{fk.resident_plan(P.nxe, P.nze, order)}; clusters the card "
+              f"holds at once: forward "
+              f"{_build.library().pfdc_rtm_fwd_clusters(P.nxe, P.nze, order)}"
+              f", backward "
+              f"{_build.library().pfdc_rtm_bwd_clusters(P.nxe, P.nze, order)}"
+              f" (a batch of {P.ns} shots)", flush=True)
 
     phase_done("kernel vs plain")
 
@@ -942,10 +1026,12 @@ def main() -> int:
     print(f"[main path] run_modeling + run_rtm_gpu, 3lay ns={P.ns} "
           f"nt={P.nt}: {wall:.3f} s wall incl. host; launches {launches}",
           flush=True)
-    for k in ("mod_step", "rtm_fwd_step", "rtm_bwd_step"):
+    want = {"mod_step": P.nt, "rtm_fwd_cluster": 1, "rtm_bwd_cluster": 1}
+    for k, n in launches.items():
+        check(n == want.get(k, 0), f"{k} launched {n} times, expected "
+                                   f"{want.get(k, 0)}")
+    for k in want:
         results[k]["launches"] = launches[k]
-        check(launches[k] == P.nt, f"{k} launched {launches[k]} times, "
-                                   f"expected {P.nt}")
     check(not any(stream.LAUNCHES.values()),
           f"the 3lay path launched K-step kernels: {stream.LAUNCHES}")
     check(data.shape == (P.ns, P.nx, P.nt) and np.isfinite(data).all()
@@ -1536,15 +1622,24 @@ def main() -> int:
         "mod_step": (
             lambda: fk.forward_modeling_cuda(ctx_m, v2_m, wav_m, g.sx, g.sz, g.gz),
             lambda: solver.forward_modeling(ctx_m, v2_m, wav_m, g.sx, g.sz, g.gz)),
-        "rtm_fwd_step": (
+        # the exact RTM's two routes, in turns with one plain version:
+        # the resident kernels and the per-step ones (forced)
+        "rtm_fwd_cluster": (
             lambda: fk.fd_forward_cuda(ctx_r, v2_r, wav_r, g.sx, g.sz),
-            lambda: solver.fd_forward(ctx_r, v2_r, wav_r, g.sx, g.sz)),
-        "rtm_bwd_step": (
+            lambda: solver.fd_forward(ctx_r, v2_r, wav_r, g.sx, g.sz),
+            lambda: fk._fd_forward(ctx_r, v2_r, wav_r, g.sx, g.sz, 0,
+                                   per_step=True)),
+        "rtm_bwd_cluster": (
             lambda: fk.fd_back_cuda(ctx_r, v2_r, *snaps, d, g.gz),
-            lambda: solver.fd_back(ctx_r, v2_r, *snaps, d, g.gz)),
+            lambda: solver.fd_back(ctx_r, v2_r, *snaps, d, g.gz),
+            lambda: fk._fd_back(ctx_r, v2_r, *snaps, d, g.gz, 0,
+                                per_step=True)),
         "rtm": (
             lambda: fk.rtm_snapshot_cuda(ctx_r, v2_r, wav_r, d, g.sx, g.sz, g.gz),
-            lambda: solver.rtm_shot_snapshot(ctx_r, v2_r, wav_r, d, g.sx, g.sz, g.gz)),
+            lambda: solver.rtm_shot_snapshot(ctx_r, v2_r, wav_r, d, g.sx, g.sz, g.gz),
+            lambda: fk._fd_back(ctx_r, v2_r, *fk._fd_forward(
+                ctx_r, v2_r, wav_r, g.sx, g.sz, 0, per_step=True), d, g.gz,
+                0, per_step=True)),
         "rec_fwd_step": (rec_fwd(fk.forward_modeling_cuda),
                          rec_fwd(solver.forward_modeling)),
         "rec_bwd_step": (
@@ -1565,24 +1660,33 @@ def main() -> int:
     }
 
     times = {}
-    for k, (kern, plain) in cases.items():
-        tk, tp = in_turns([kern, plain])
-        times[k] = (tk, tp)
-        print(f"[times] {k}: kernel {span(tk)}, plain {span(tp)} per call "
-              f"of {P.ns} shots x {P.nt} steps; {smi}", flush=True)
+    for k, (kern, plain, *step) in cases.items():
+        tk, tp, *ts = in_turns([kern, plain, *step])
+        times[k] = (tk, tp, *ts)
+        also = (f", per-step route {span(ts[0])}" if ts else "")
+        print(f"[times] {k}: kernel {span(tk)}, plain {span(tp)}{also} per "
+              f"call of {P.ns} shots x {P.nt} steps; {smi}", flush=True)
         if k in results:
             results[k]["ms"] = statistics.median(tk)
             results[k]["plain_ms"] = statistics.median(tp)
+        if k.endswith("_cluster"):
+            step_name = k.replace("_cluster", "_step")
+            results[step_name]["ms"] = statistics.median(ts[0])
+            results[step_name]["plain_ms"] = statistics.median(tp)
     del swf
     for label, k in (("modeling", "mod_step"), ("RTM", "rtm"),
                      ("rtm_main", "rtm_main")):
-        tk, tp = times[k]
+        tk, tp, *ts = times[k]
+        also = (f", the per-step route "
+                f"{statistics.median(ts[0]) / 1e3 / P.ns:.6f}" if ts else "")
         print(f"[times] 3lay {label} s/shot (8-shot batch): kernel "
-              f"{statistics.median(tk) / 1e3 / P.ns:.6f}, plain "
+              f"{statistics.median(tk) / 1e3 / P.ns:.6f}{also}, plain "
               f"{statistics.median(tp) / 1e3 / P.ns:.6f}; {smi}")
     for k, (bms, by) in step_bounds(ctx_c, P.ns).items():
-        results[k]["bound_ms"], results[k]["bound_by"] = bms, by
-        results[k]["library_ms"] = None
+        for name in (k, k.replace("_step", "_cluster")):
+            if name in results:
+                results[name]["bound_ms"], results[name]["bound_by"] = bms, by
+                results[name]["library_ms"] = None
 
     # the stencil: kernel, plain, and conv2d with the same taps (cuDNN in
     # full float32: TF32 off), 10 calls per sample
@@ -1830,6 +1934,8 @@ def main() -> int:
     for label, fn, ms in (
             ("modeling", cases["mod_step"][0], results["mod_step"]["ms"]),
             ("RTM", cases["rtm"][0], statistics.median(times["rtm"][0])),
+            ("RTM per-step route", cases["rtm"][2],
+             statistics.median(times["rtm"][2])),
             ("rtm_main", cases["rtm_main"][0],
              statistics.median(times["rtm_main"][0])),
             ("stencil 8192 x 8192", stencil_call,
@@ -2610,8 +2716,9 @@ def main() -> int:
         tk, tp, te = in_turns([kern, plain, exact_call])
         bms, by = bounds[k[:-4]]
         print(f"[times] {k} (mxu) {P.ns} shots x {P.nt} steps: kernel "
-              f"{span(tk)}, plain {span(tp)}, exact per-step kernel "
-              f"{span(te)}; bound {bms:.4f} ms ({by}); {smi}", flush=True)
+              f"{span(tk)}, plain {span(tp)}, exact kernel (the resident "
+              f"route for the RTM) {span(te)}; bound {bms:.4f} ms ({by}); "
+              f"{smi}", flush=True)
         results[k].update(ms=statistics.median(tk),
                           plain_ms=statistics.median(tp), library_ms=None,
                           bound_ms=bms, bound_by=by)

@@ -1,0 +1,340 @@
+// The cluster-resident time loop of the exact two-snapshot RTM kernels
+// (rtm_fwd_cluster in rtm_fwd_step.cu, rtm_bwd_cluster in rtm_bwd_step.cu):
+// one launch runs all nt steps of a pass for every shot of a batch.
+//
+// The TPU kernels they replace (ops/pallas_fd.py _rtm_kernel :534,
+// _fwd_gpu_kernel :702, _bwd_gpu_kernel :729) keep one shot in VMEM for all
+// nt steps. One SM cannot hold a shot (3lay: 231 x 231 x 4 B = 209 KiB a
+// field, the backward needs four), but a thread-block cluster can: each
+// shot is one cluster, and each CTA of it owns a slab of whole x rows
+// (rows [x0, x0 + n), all nze columns: the (nxe, nze) layout, z
+// contiguous), the slabs' rows differing by one at most. The slab's field
+// levels live in the CTA's dynamic shared memory for the whole loop, each
+// with H halo rows above and below the slab. A thread that computes one of
+// the slab's first or last H rows also stores the value into the
+// neighbour CTA's halo rows of the same level through distributed shared
+// memory (map_shared_rank), so every read of a step is a local one: a
+// remote store does not wait, a remote load does (reading the neighbour's
+// rows at each tap instead cost the forward 2.0 of its 5.3 ms at 3lay on
+// an H100, PERF.md). Every slab holds at least H rows, so a halo row
+// comes from the next CTA only.
+//
+// One cluster barrier a step: step t reads the current level everywhere
+// and the older level only at a thread's own cells, and writes the new
+// value into the older level at those same cells and the neighbours' halo
+// copies of them. So one cluster.sync() between steps orders every read of
+// step t before the writes of step t + 1, and the halo stores of step t
+// before the reads of step t + 1. A first cluster.sync() comes before any
+// store to a neighbour (all CTAs have started and zeroed their levels),
+// and a last one before any CTA exits (no neighbour writes a CTA's shared
+// memory after it has left).
+//
+// A thread owns one strip of kClusterRows x kClusterCols cells (lanes
+// along z), read and written kClusterCols floats at a time: rows are padded
+// with zeros to a 16-byte pitch. The strip's x taps come from a register
+// window of kClusterRows + 2H vectors, each row's z taps from a register
+// window of its columns and H on each side (a 7-shot forward pass at 3lay:
+// 2.58 ms, one column a lane 3.00 in the same run). Per-cell constants
+// (v2*dt2, the mask, the backward's image sum) stay in registers for all
+// nt steps; the image goes to global memory once, at the end. A shot whose
+// slabs need more strips than a CTA has threads takes the per-step route.
+//
+// Rounding: the taps keep pfdc::laplacian's order (stencil.cuh): one
+// accumulator per axis, pairs in descending k, the centre last, then
+// accz + accx; built with -fmad=false, bitwise the per-step kernels and the
+// plain version. A tapered field is stored as m * u: a tap reads the stored
+// product, which rounds as forming m * p at the tap does, and the older
+// level is read as m * (m * u) = m * stored. (Storing u and reading the
+// mask at every tap cost the forward 2.3x at 3lay, PERF.md.)
+//
+// What bounds it on an H100: the instructions a step issues (the fp32
+// operations of the taps, -fmad=false, and the shared-memory vector
+// loads), not HBM; plus the cluster barrier, ~0.8 us a step at 3lay. The
+// card holds 7 clusters of 16 at once (one GPC each), so 8 shots run in
+// two waves; clusters of 9 run them in one but take 1.5x as long a shot
+// (scripts/torch_step_probe.py --rtm; PERF.md).
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "kstep.cuh"
+
+namespace pfdc {
+
+// The route rule's constants. Cluster sizes are tried in turn: 16 CTAs
+// need the non-portable cluster size.
+constexpr int kClusterSizes[] = {16, 8, 4, 2};
+constexpr int kClusterRows = 4;       // rows of a thread's strip (x)
+constexpr int kClusterCols = 2;       // columns of a thread's strip (z)
+constexpr int kClusterZPad = 8;       // zero columns on each side of a row
+constexpr int kClusterThreads = 512;  // threads of a CTA, at most
+constexpr int kClusterLevels = 4;     // the backward's: 2 fields x 2 levels
+static_assert(kClusterZPad >= kMaxHalf && kClusterZPad % 4 == 0 &&
+                  4 % kClusterCols == 0,
+              "a row's z taps and vectors stay inside its padded pitch");
+
+// Floats of a level's row: nze columns and kClusterZPad zeros on each side,
+// rounded up to 16 bytes, so that every column group of kClusterCols
+// starts on a vector.
+__host__ __device__ constexpr int cluster_pitch(int nze) {
+  return (nze + 2 * kClusterZPad + 3) / 4 * 4;
+}
+
+// How a shot runs on the resident route: cluster CTAs (0: the shot does not
+// fit, the per-step kernels run), each a slab of rows or rows - 1 x nze
+// cells, threads a CTA (one strip each), and the dynamic shared memory of
+// a forward and a backward CTA (its levels, H halo rows on each side).
+struct ClusterPlan {
+  int cluster = 0;
+  int rows = 0;
+  int threads = 0;
+  int fwd_bytes = 0;
+  int bwd_bytes = 0;
+};
+
+// The route rule: the first cluster size whose slabs hold at least H rows
+// each, whose strips are at most kClusterThreads and whose backward levels
+// fit a CTA's shared memory.
+inline ClusterPlan cluster_plan(int nxe, int nze, int order) {
+  ClusterPlan p;
+  const int h = order / 2;
+  if (order % 2 || h < 1 || h > kMaxHalf) return p;
+  for (const int cs : kClusterSizes) {
+    const int rows = (nxe + cs - 1) / cs;
+    if (nxe / cs < h) continue;
+    const long strips =
+        static_cast<long>((rows + kClusterRows - 1) / kClusterRows) *
+        ((nze + kClusterCols - 1) / kClusterCols);
+    const long bytes = sizeof(float) * kClusterLevels *
+                       static_cast<long>(rows + 2 * h) * cluster_pitch(nze);
+    if (strips > kClusterThreads || bytes > kMaxSmemBytes) continue;
+    p.cluster = cs;
+    p.rows = rows;
+    p.threads = static_cast<int>((strips + 31) / 32 * 32);
+    p.fwd_bytes = static_cast<int>(bytes / 2);
+    p.bwd_bytes = static_cast<int>(bytes);
+    return p;
+  }
+  return p;
+}
+
+// One CTA's slab: rows [x0, x0 + n) of the shot's nxe, the first nxe % cs
+// slabs one row more than the others; prev and next are the neighbour
+// CTAs' dynamic shared memory (nullptr at the grid's edges), prev_n the
+// rows of the previous slab. A level is (rows + 2H) rows of pitch floats,
+// slab row lx at row lx + H, column iz at kClusterZPad + iz (level_cell).
+struct Slab {
+  int x0, n, prev_n, rows, nxe, nze, pitch;
+  float* prev;
+  float* next;
+};
+
+__device__ __forceinline__ Slab make_slab(cooperative_groups::cluster_group& cl,
+                                          float* smem, int rows, int nxe,
+                                          int nze) {
+  const int rank = static_cast<int>(cl.block_rank());
+  const int cs = static_cast<int>(cl.num_blocks());
+  const int small = nxe / cs, extra = nxe % cs;
+  Slab s;
+  s.x0 = rank * small + (rank < extra ? rank : extra);
+  s.n = small + (rank < extra);
+  s.prev_n = small + (rank - 1 < extra);
+  s.rows = rows;
+  s.nxe = nxe;
+  s.nze = nze;
+  s.pitch = cluster_pitch(nze);
+  s.prev = rank > 0 ? cl.map_shared_rank(smem, rank - 1) : nullptr;
+  s.next = rank + 1 < cs ? cl.map_shared_rank(smem, rank + 1) : nullptr;
+  return s;
+}
+
+// Floats of a level, and the index of slab row lx, column iz in one.
+template <int H>
+__device__ __forceinline__ size_t level_floats(const Slab& s) {
+  return static_cast<size_t>(s.rows + 2 * H) * s.pitch;
+}
+
+template <int H>
+__device__ __forceinline__ int level_cell(const Slab& s, int lx, int iz) {
+  return (lx + H) * s.pitch + kClusterZPad + iz;
+}
+
+// kClusterCols floats read and written as one vector.
+struct __align__(4 * kClusterCols) Cols {
+  float v[kClusterCols];
+};
+
+__device__ __forceinline__ Cols load_cols(const float* p) {
+  return *reinterpret_cast<const Cols*>(p);
+}
+
+__device__ __forceinline__ void store_cols(float* p, const Cols& c) {
+  *reinterpret_cast<Cols*>(p) = c;
+}
+
+// A thread's strip: rows lx0 .. lx0 + kClusterRows - 1 and columns iz0 ..
+// iz0 + kClusterCols - 1 of the slab (those below s.n and s.nze are the
+// thread's cells; the others of a column group are padding, kept 0).
+struct Strip {
+  bool valid;
+  int lx0, iz0;
+};
+
+__device__ __forceinline__ Strip strip_of(const Slab& s) {
+  const int t = threadIdx.x;
+  const int groups = (s.nze + kClusterCols - 1) / kClusterCols;
+  const int strips = (s.rows + kClusterRows - 1) / kClusterRows * groups;
+  return {t < strips, t / groups * kClusterRows, t % groups * kClusterCols};
+}
+
+// The x window of strip st in level lvl (this CTA's shared memory): rows
+// st.lx0 - H .. st.lx0 + kClusterRows + H - 1 of its columns, halo rows
+// included, those no cell of the slab reads (H or more past the slab) 0.
+template <int H>
+__device__ __forceinline__ void load_window(Cols (&w)[kClusterRows + 2 * H],
+                                            const float* lvl, const Slab& s,
+                                            Strip st) {
+#pragma unroll
+  for (int q = 0; q < kClusterRows + 2 * H; ++q) {
+    const int lx = st.lx0 - H + q;
+    w[q] = lx < s.n + H ? load_cols(lvl + level_cell<H>(s, lx, st.iz0))
+                        : Cols{};
+  }
+}
+
+// The z window of slab row lx of strip st in level lvl: columns st.iz0 - Z
+// .. st.iz0 + kClusterCols + Z - 1, Z = H rounded up to kClusterCols, the
+// padding's zeros outside the grid.
+template <int H>
+__host__ __device__ constexpr int z_reach() {
+  return (H + kClusterCols - 1) / kClusterCols * kClusterCols;
+}
+
+template <int H>
+__device__ __forceinline__ void load_row(
+    float (&z)[2 * z_reach<H>() + kClusterCols], const float* lvl,
+    const Slab& s, int lx, Strip st) {
+  const float* row = lvl + level_cell<H>(s, lx, st.iz0) - z_reach<H>();
+#pragma unroll
+  for (int k = 0; k < (2 * z_reach<H>() + kClusterCols) / kClusterCols; ++k) {
+    const Cols c = load_cols(row + k * kClusterCols);
+#pragma unroll
+    for (int j = 0; j < kClusterCols; ++j) z[k * kClusterCols + j] = c.v[j];
+  }
+}
+
+// Stores c, the new values of slab row lx of strip st in the level at
+// offset off, into the halo rows of the neighbours that read them: the
+// slab's first H rows are the previous CTA's last halo rows, its last H
+// rows the next CTA's first. A remote store does not wait.
+template <int H>
+__device__ __forceinline__ void push_halo(const Slab& s, size_t off, int lx,
+                                          Strip st, const Cols& c) {
+  if (lx < H && s.prev != nullptr) {
+    store_cols(s.prev + off + level_cell<H>(s, s.prev_n + lx, st.iz0), c);
+  }
+  if (lx >= s.n - H && s.next != nullptr) {
+    store_cols(s.next + off + level_cell<H>(s, lx - s.n, st.iz0), c);
+  }
+}
+
+// The barrier between two steps of the resident loop: one a step.
+__device__ __forceinline__ void step_barrier(
+    cooperative_groups::cluster_group& cl) {
+  cl.sync();
+}
+
+// The Laplacian of cell (r, col) of a strip, or 0 outside the interior, as
+// the per-step kernels take it, in pfdc::laplacian's order: the z taps from
+// its row's z window z, the x taps from the window w. Every tap of every
+// cell lies in the level (halo rows, the rows' zero padding; a row's last
+// column group may reach the next row's padding), so the taps are summed
+// for every cell and the interior selected without a branch.
+template <int H>
+__device__ __forceinline__ float cell_lap(
+    const Cols (&w)[kClusterRows + 2 * H],
+    const float (&z)[2 * z_reach<H>() + kClusterCols], int r, int col,
+    bool interior, const Coefs& c) {
+  constexpr int Z = z_reach<H>();
+  const auto t = [&](int k) { return z[Z + col + k]; };
+  const float centre = w[r + H].v[col];
+  float accz = c.z[H] * (t(-H) + t(H));
+#pragma unroll
+  for (int k = H - 1; k >= 1; --k) {
+    accz = accz + c.z[k] * (t(-k) + t(k));
+  }
+  accz = accz + c.z[0] * centre;
+  float accx = c.x[H] * (w[r].v[col] + w[r + 2 * H].v[col]);
+#pragma unroll
+  for (int k = H - 1; k >= 1; --k) {
+    accx = accx + c.x[k] * (w[r + H - k].v[col] + w[r + H + k].v[col]);
+  }
+  accx = accx + c.x[0] * centre;
+  const float lap = accz + accx;
+  return interior ? lap : 0.0f;
+}
+
+// Launches kernel over ns shots, one cluster of plan.cluster CTAs a shot,
+// with bytes of dynamic shared memory a CTA. A cluster the card cannot
+// hold (cudaOccupancyMaxActiveClusters of 0) is refused; there is no
+// fallback.
+template <class Kernel, class... Args>
+cudaError_t launch_cluster(Kernel kernel, const ClusterPlan& plan, int ns,
+                           int bytes, cudaStream_t stream, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && plan.cluster > 8) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(plan.cluster * ns);
+  cfg.blockDim = dim3(plan.threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = plan.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int active = 0;
+  e = cudaOccupancyMaxActiveClusters(
+      &active, reinterpret_cast<const void*>(kernel), &cfg);
+  if (e != cudaSuccess) return e;
+  if (active < 1) return cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// The most clusters of kernel the card holds at once at plan, or -1 on an
+// error (a diagnostic for the probe and chip_smoke.py).
+template <class Kernel>
+int active_clusters(Kernel kernel, const ClusterPlan& plan, int bytes) {
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes) != cudaSuccess ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1) != cudaSuccess) {
+    return -1;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(plan.cluster);
+  cfg.blockDim = dim3(plan.threads);
+  cfg.dynamicSmemBytes = bytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = plan.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int active = 0;
+  return cudaOccupancyMaxActiveClusters(
+             &active, reinterpret_cast<const void*>(kernel), &cfg) == cudaSuccess
+             ? active
+             : -1;
+}
+
+}  // namespace pfdc

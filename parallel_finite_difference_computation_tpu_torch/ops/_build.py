@@ -41,15 +41,21 @@ _SIGNATURES = {
     "pfdc_mod_run": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I,
                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # pfdc_rtm_fwd_run(a, b, v2dt2, v2_shot_stride, mask, sx, sz, wav,
-    #                  ns, nxe, nze, nt, order, cx, cz, stream)
+    #                  ns, nxe, nze, nt, order, cx, cz, per_step, resident,
+    #                  stream)
     "pfdc_rtm_fwd_run": [_P, _P, _P, _I, _P, _P, _I, _P,
-                         _I, _I, _I, _I, _I, _P, _P, _P],
+                         _I, _I, _I, _I, _I, _P, _P, _I, _P, _P],
     # pfdc_rtm_bwd_run(sa, sb, snap0, snap1, ra, rb, v2dt2, v2_shot_stride,
     #                  mask, inj, img, gz, nxb, nzb, ns, nxe, nze, nt, order,
-    #                  cx, cz, stream)
+    #                  cx, cz, per_step, resident, stream)
     "pfdc_rtm_bwd_run": [_P, _P, _P, _P, _P, _P, _P, _I,
                          _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _P, _P, _P],
+                         _P, _P, _I, _P, _P],
+    # pfdc_cluster_plan(nxe, nze, order, out); pfdc_rtm_fwd_clusters,
+    # pfdc_rtm_bwd_clusters(nxe, nze, order)
+    "pfdc_cluster_plan": [_I, _I, _I, _P],
+    "pfdc_rtm_fwd_clusters": [_I, _I, _I],
+    "pfdc_rtm_bwd_clusters": [_I, _I, _I],
     # pfdc_rec_fwd_run(a, b, v2dt2, v2_shot_stride, mask, patch, r, sx, sz,
     #                  wav, swf, ns, nxe, nze, nxb, nzb, nt, order, parts,
     #                  cx, cz, stream)

@@ -8,15 +8,22 @@ raises. Nothing falls back.
 
 One step-kernel launch is one time step for every shot of the batch; the C
 entry point loops over the nt steps on PyTorch's current stream, so one
-wrapper call runs a whole batch, as one Pallas call ran a whole shot.
-``LAUNCHES`` counts the launches of each kernel (nt per propagation, one
-per Laplacian apply), and is added to only where the kernels are launched.
+wrapper call runs a whole batch, as one Pallas call ran a whole shot. The
+exact two-snapshot RTM passes run all nt steps in one launch where a shot
+fits a thread-block cluster (:func:`resident_plan`): ``rtm_fwd_cluster``
+and ``rtm_bwd_cluster``, elsewhere their per-step kernels; the C entry
+point reports the route it took. ``LAUNCHES``
+counts the launches of each kernel (nt per propagation of a per-step
+kernel, one per resident pass, one per Laplacian apply), and is added to
+only where the kernels are launched.
 
 | kernel | source | replaces (JAX package, ``ops/``) |
 |---|---|---|
 | ``mod_step`` | ``csrc/mod_step.cu`` | ``pallas_fd.py`` ``_fwd_mod_kernel`` (:423) |
 | ``rtm_fwd_step`` | ``csrc/rtm_fwd_step.cu`` | ``pallas_fd.py`` ``_rtm_kernel`` forward, ``_fwd_gpu_kernel`` (:534, :702) |
 | ``rtm_bwd_step`` | ``csrc/rtm_bwd_step.cu`` | ``pallas_fd.py`` ``_rtm_kernel`` backward, ``_bwd_gpu_kernel`` (:534, :729) |
+| ``rtm_fwd_cluster`` | ``csrc/rtm_fwd_step.cu`` on ``cluster_loop.cuh`` | the same as ``rtm_fwd_step``, all nt steps in one launch |
+| ``rtm_bwd_cluster`` | ``csrc/rtm_bwd_step.cu`` on ``cluster_loop.cuh`` | the same as ``rtm_bwd_step``, all nt steps in one launch |
 | ``rec_fwd_step`` | ``csrc/rec_step.cu`` | ``pallas_stream.py`` ``_kstep_rec_kernel`` source mode (:1002) |
 | ``rec_bwd_step`` | ``csrc/rec_step.cu`` | ``pallas_stream.py`` ``_kstep_rec_kernel`` receiver mode (:1002) |
 | ``lap_apply`` | ``csrc/laplacian.cu`` | ``pallas_stencil.py`` ``_kernel`` (:60) |
@@ -47,6 +54,7 @@ and are not ported.
 
 from __future__ import annotations
 
+import ctypes
 import os
 import warnings
 from typing import NamedTuple
@@ -60,13 +68,14 @@ from . import stencil
 
 __all__ = ["LAUNCHES", "reset_launches", "MXU3_NT_MAX", "MXU6_NT_MAX",
            "SMEM_BYTES", "STAGING_KERNELS", "BLOCK_PASS_STEPS", "block_passes",
-           "smem_bytes", "largest_fitting_k",
+           "smem_bytes", "largest_fitting_k", "ResidentPlan", "resident_plan",
            "resolve_lap_impl", "lap_parts",
            "forward_modeling_cuda", "fd_forward_cuda", "fd_back_cuda",
            "rtm_snapshot_cuda", "backward_recorded_cuda",
            "backward_image_cuda", "rtm_full_cuda", "laplacian_cuda"]
 
 LAUNCHES = {"mod_step": 0, "rtm_fwd_step": 0, "rtm_bwd_step": 0,
+            "rtm_fwd_cluster": 0, "rtm_bwd_cluster": 0,
             "rec_fwd_step": 0, "rec_bwd_step": 0, "lap_apply": 0,
             "mod_step_mma": 0, "rtm_fwd_step_mma": 0, "rtm_bwd_step_mma": 0,
             "rec_fwd_step_mma": 0, "rec_bwd_step_mma": 0}
@@ -257,6 +266,35 @@ def largest_fitting_k(kernels, order: int, k_max: int, parts: int = 0) -> int:
                for n in kernels):
             return k
     return 1
+
+
+class ResidentPlan(NamedTuple):
+    """How a shot runs on the resident route of the exact two-snapshot RTM
+    (``pfdc::ClusterPlan``, csrc/cluster_loop.cuh): ``cluster`` CTAs, each
+    a slab of ``rows`` or ``rows - 1`` x nze cells, ``threads`` a CTA (one
+    strip of cells each), and the dynamic shared memory of a forward and a
+    backward CTA."""
+    cluster: int
+    rows: int
+    threads: int
+    fwd_bytes: int
+    bwd_bytes: int
+
+
+def resident_plan(nxe: int, nze: int, order: int):
+    """The route rule of ``pfdc_rtm_fwd_run``/``pfdc_rtm_bwd_run``
+    (``cluster_plan``, csrc/cluster_loop.cuh), asked of the built library:
+    the first cluster size whose slabs hold at least order/2 rows each,
+    whose strips a CTA's threads cover and whose backward levels fit a
+    CTA's shared memory. Returns a :class:`ResidentPlan`, or None where the
+    per-step kernels run. The wrappers count the route the entry points
+    report, not this."""
+    from . import _build
+    out = (ctypes.c_int * len(ResidentPlan._fields))()
+    resident = _build.library().pfdc_cluster_plan(nxe, nze, order, out)
+    return ResidentPlan(*out) if resident else None
+
+
 _INVALID_VALUE = 1             # cudaErrorInvalidValue
 
 
@@ -569,9 +607,13 @@ def fd_forward_cuda(ctx: FDContext, v2, wavelet, sx, sz: int):
     return _fd_forward(ctx, v2, wavelet, sx, sz, 0)
 
 
-def _fd_forward(ctx: FDContext, v2, wavelet, sx, sz: int, parts: int):
+def _fd_forward(ctx: FDContext, v2, wavelet, sx, sz: int, parts: int,
+                per_step: bool = False):
     """:func:`fd_forward_cuda` with the Laplacian in ``parts`` bf16 splits
-    (0: exact, ``rtm_fwd_step``; 2, 3: ``rtm_fwd_step_mma``)."""
+    (0: exact, ``rtm_fwd_cluster`` where :func:`resident_plan` takes the
+    shot, else ``rtm_fwd_step``, as the entry point reports; 2, 3:
+    ``rtm_fwd_step_mma``). ``per_step`` runs the exact per-step kernel at
+    any shape (the probe and ``chip_smoke.py`` time both routes)."""
     sxs = shot_positions(sx)
     ns, dev = len(sxs), v2.device
     wav = _check_wavelet(ctx, wavelet)
@@ -588,18 +630,25 @@ def _fd_forward(ctx: FDContext, v2, wavelet, sx, sz: int, parts: int):
     a = torch.zeros((ns, ctx.nxe, ctx.nze), dtype=torch.float32, device=dev)
     b = torch.zeros_like(a)
     keep, (cx, cz) = _coef_args(ctx)
-    name = "rtm_fwd_step_mma" if parts else "rtm_fwd_step"
     args = (a.data_ptr(), b.data_ptr(), v2dt2.data_ptr(), v2_stride,
-            mask.data_ptr(), sx_d.data_ptr(), sz, wav.ctypes.data, ns,
-            ctx.nxe, ctx.nze, ctx.nt, ctx.order)
-    with torch.cuda.device(dev):
-        lib = _build.library()
-        if parts:
-            rc = lib.pfdc_rtm_fwd_mma_run(*args, parts, cx, cz, _stream(dev))
-        else:
-            rc = lib.pfdc_rtm_fwd_run(*args, cx, cz, _stream(dev))
+            mask.data_ptr(), sx_d.data_ptr(), sz)
+    dims = (ns, ctx.nxe, ctx.nze, ctx.nt, ctx.order)
+    if parts:
+        name, count = "rtm_fwd_step_mma", ctx.nt
+        with torch.cuda.device(dev):
+            rc = _build.library().pfdc_rtm_fwd_mma_run(
+                *args, wav.ctypes.data, *dims, parts, cx, cz, _stream(dev))
+    else:
+        wav_d = _dev_f32(wav, dev)
+        resident = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = _build.library().pfdc_rtm_fwd_run(
+                *args, wav_d.data_ptr(), *dims, cx, cz, int(per_step),
+                ctypes.byref(resident), _stream(dev))
+        name, count = (("rtm_fwd_cluster", 1) if resident.value
+                       else ("rtm_fwd_step", ctx.nt))
     _raise_on(rc, name)
-    LAUNCHES[name] += ctx.nt
+    LAUNCHES[name] += count
     newest, prev = _newest_prev(a, b, ctx.nt)
     return prev * mask, newest
 
@@ -613,9 +662,12 @@ def fd_back_cuda(ctx: FDContext, v2, snap_p, snap_pp, dobs, gz: int):
 
 
 def _fd_back(ctx: FDContext, v2, snap_p, snap_pp, dobs, gz: int,
-             parts: int):
+             parts: int, per_step: bool = False):
     """:func:`fd_back_cuda` with the Laplacian in ``parts`` bf16 splits
-    (0: exact, ``rtm_bwd_step``; 2, 3: ``rtm_bwd_step_mma``)."""
+    (0: exact, ``rtm_bwd_cluster`` where :func:`resident_plan` takes the
+    shot, else ``rtm_bwd_step``, as the entry point reports; 2, 3:
+    ``rtm_bwd_step_mma``). ``per_step`` runs the exact per-step kernel at
+    any shape."""
     _check_order(ctx.order, _on_cuda(v2))
     dev = v2.device
     ns = snap_p.shape[0]
@@ -637,20 +689,26 @@ def _fd_back(ctx: FDContext, v2, snap_p, snap_pp, dobs, gz: int,
     rb = torch.zeros_like(sa)
     img = torch.zeros((ns, ctx.nx, ctx.nz), dtype=torch.float32, device=dev)
     keep, (cx, cz) = _coef_args(ctx)
-    name = "rtm_bwd_step_mma" if parts else "rtm_bwd_step"
     args = (sa.data_ptr(), sb.data_ptr(), snap_p.data_ptr(),
             snap_pp.data_ptr(), ra.data_ptr(), rb.data_ptr(),
             v2dt2.data_ptr(), v2_stride, mask.data_ptr(), inj.data_ptr(),
             img.data_ptr(), gz, ctx.nxb, ctx.nzb, ns, ctx.nxe, ctx.nze,
             ctx.nt, ctx.order)
-    with torch.cuda.device(dev):
-        lib = _build.library()
-        if parts:
-            rc = lib.pfdc_rtm_bwd_mma_run(*args, parts, cx, cz, _stream(dev))
-        else:
-            rc = lib.pfdc_rtm_bwd_run(*args, cx, cz, _stream(dev))
+    if parts:
+        name, count = "rtm_bwd_step_mma", ctx.nt
+        with torch.cuda.device(dev):
+            rc = _build.library().pfdc_rtm_bwd_mma_run(*args, parts, cx, cz,
+                                                       _stream(dev))
+    else:
+        resident = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = _build.library().pfdc_rtm_bwd_run(
+                *args, cx, cz, int(per_step), ctypes.byref(resident),
+                _stream(dev))
+        name, count = (("rtm_bwd_cluster", 1) if resident.value
+                       else ("rtm_bwd_step", ctx.nt))
     _raise_on(rc, name)
-    LAUNCHES[name] += ctx.nt
+    LAUNCHES[name] += count
     return img
 
 

@@ -21,8 +21,9 @@ states, median of 3 CUDA-event samples after a warm-up.
 
 ``--variants`` adds copies of the last tree with other constants of
 ``csrc/strip.cuh``, ``csrc/bwd_strip.cuh`` and ``csrc/domain_block.cuh``
-(the strip's rows, the warps of a block, the first owned shape,
-``block_bwd`` in one pass),
+(the strip's rows, the warps of a block, the first owned shape, the
+block kernels' passes of up to 8 steps instead of 4, ``kBlockPassSteps``:
+one pass a block of ``block_bwd``; the wrappers still count two),
 made under a temporary directory. The trees run in turns,
 ``--rounds`` times (A, B, ..., then in reverse). Prints one JSON line per
 process and the medians per tree, beside the card's name and power limit.
@@ -53,8 +54,8 @@ VARIANTS = {
                 "constexpr int kStripWarps = 12;"),
     "tile64x64": ("bwd_strip.cuh", "{32, 64}, {32, 32}, {16, 32}, {16, 16}};",
                   "{64, 64}, {32, 64}, {32, 32}, {16, 32}, {16, 16}};"),
-    "one_pass": ("domain_block.cuh", "constexpr int kBwdPassSteps = 4;",
-                 "constexpr int kBwdPassSteps = 8;"),
+    "one_pass": ("domain_block.cuh", "constexpr int kBlockPassSteps = 4;",
+                 "constexpr int kBlockPassSteps = 8;"),
 }
 
 CHILD = r'''
@@ -205,19 +206,22 @@ print(json.dumps(res))
 def variant_trees(tree: str, names, tmp: pathlib.Path,
                   variants=None) -> dict:
     """Copies of the port in ``tree`` with each of the ``variants`` (by
-    default VARIANTS) ``names`` applied."""
+    default VARIANTS) ``names`` applied: a variant is one (header, text,
+    replacement) or a list of them."""
     variants = VARIANTS if variants is None else variants
     out = {}
     for name in names:
-        header, old, new = variants[name]
+        edits = variants[name]
         dst = tmp / name
         shutil.copytree(pathlib.Path(tree) / PKG, dst / PKG,
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        header = dst / PKG / "csrc" / header
-        text = header.read_text()
-        if old not in text:
-            raise ValueError(f"variant {name}: {old!r} not in {header}")
-        header.write_text(text.replace(old, new))
+        for header, old, new in ([edits] if isinstance(edits[0], str)
+                                 else edits):
+            header = dst / PKG / "csrc" / header
+            text = header.read_text()
+            if old not in text:
+                raise ValueError(f"variant {name}: {old!r} not in {header}")
+            header.write_text(text.replace(old, new))
         out[name] = str(dst)
     return out
 

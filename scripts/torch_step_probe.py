@@ -8,7 +8,7 @@ parts), each beside its exact twin.
 
     python3 scripts/torch_step_probe.py TREE [TREE ...]
                                         [--variants NAME ...] [--rounds N]
-                                        [--only REGEX]
+                                        [--only REGEX] [--rtm]
 
 Each tree runs in a process of its own that imports the port from that
 tree (building its kernels there). The process prints the compiler's
@@ -60,6 +60,28 @@ warp for each 16 x 16: ``kBwdTileX``/``kBwdTileZ`` in
 ..., then in reverse), as ``scripts/torch_bwd_probe.py`` runs them.
 Prints one JSON line per process and the medians per tree, beside the
 card's name and power limit.
+
+``--rtm`` probes the exact two-snapshot RTM instead (``rtm_fwd_cluster``
+and ``rtm_bwd_cluster`` on ``csrc/cluster_loop.cuh``, and the per-step
+``rtm_fwd_step``/``rtm_bwd_step``): the compiler's lines of both at
+orders 8 and 16, the clusters the card holds at once at 3lay, both routes
+bitwise against the plain versions at 3lay (8 shots of 231 x 231
+extended, nt = 20, orders 4, 8, 10 and 16, random velocities, gathers and
+wavelet; 1lay, 281 x 181 extended, at order 8), then, at 3lay and 1lay,
+order 8, nt = 1001, the forward and backward pass of each route and the
+RTM call of each route (the two passes back to back), at 3lay the
+resident passes also at 7 shots (one wave of the clusters of 16 the card
+holds at once) and 1, and the tiled K-step tier's RTM call
+(``rtm_shot_snapshot_tiled`` at the pipeline's K), median of 3. A tree
+without the resident route (the parent) times its per-step kernels under
+the resident names. Its variants (``csrc/cluster_loop.cuh``): the cluster
+sizes tried (``kClusterSizes``) ``cluster8`` and ``cluster9``; the strip
+(``kClusterRows`` x ``kClusterCols``, 4 x 2) ``rows2``, ``rows8``,
+``cols1``, ``cols4``, ``cols4rows2``; ``threads1024``
+(``kClusterThreads``); ``cluster9c4``, ``cluster9t`` and ``cluster8c4``
+(a cluster size with 4 columns or 1024 threads); and, for timing only
+(wrong results, so the probe exits 1), ``nosync`` and ``nosync9`` (no
+cluster barrier between steps).
 """
 
 from __future__ import annotations
@@ -77,6 +99,10 @@ _REC_SITE = ("struct RecBwdSite {\n  static constexpr int kRows = "
 _RECF_SITE = _REC_SITE.replace("RecBwdSite", "RecFwdSite").replace(
     "true;", "false;")
 _BWD = "constexpr int kBwdTileX = 32;\nconstexpr int kBwdTileZ = 64;"
+_SIZES = "constexpr int kClusterSizes[] = {16, 8, 4, 2};"
+_ROWS = "constexpr int kClusterRows = 4;"
+_COLS = "constexpr int kClusterCols = 2;"
+_SYNC = "    cooperative_groups::cluster_group& cl) {\n  cl.sync();"
 VARIANTS = {
     "step64x64": ("step_strip.cuh", _STEP_FIRST,
                   "kStepShapes[] = {{64, 64}};"),
@@ -113,6 +139,36 @@ VARIANTS = {
                   "static constexpr int kRows = 8;"),
     "gpu_behind": ("gpu_step.cu", "static constexpr bool kAhead = true;",
                    "static constexpr bool kAhead = false;"),
+    "cluster8": ("cluster_loop.cuh", _SIZES,
+                 _SIZES.replace("{16, 8, 4, 2}", "{8, 4, 2}")),
+    "rows2": ("cluster_loop.cuh", _ROWS, _ROWS.replace("4;", "2;")),
+    "rows8": ("cluster_loop.cuh", _ROWS, _ROWS.replace("4;", "8;")),
+    "cols1": ("cluster_loop.cuh", _COLS, _COLS.replace("2;", "1;")),
+    "cols4": ("cluster_loop.cuh", _COLS, _COLS.replace("2;", "4;")),
+    "cols4rows2": [("cluster_loop.cuh", _COLS, _COLS.replace("2;", "4;")),
+                   ("cluster_loop.cuh", _ROWS, _ROWS.replace("4;", "2;"))],
+    "threads1024": ("cluster_loop.cuh",
+                    "constexpr int kClusterThreads = 512; ",
+                    "constexpr int kClusterThreads = 1024;"),
+    "cluster9": ("cluster_loop.cuh", _SIZES,
+                 _SIZES.replace("{16, 8, 4, 2}", "{9, 8, 4, 2}")),
+    "cluster9c4": [("cluster_loop.cuh", _SIZES,
+                    _SIZES.replace("{16, 8, 4, 2}", "{9, 8, 4, 2}")),
+                   ("cluster_loop.cuh", _COLS, _COLS.replace("2;", "4;"))],
+    "cluster9t": [("cluster_loop.cuh", _SIZES,
+                   _SIZES.replace("{16, 8, 4, 2}", "{9, 8, 4, 2}")),
+                  ("cluster_loop.cuh", "constexpr int kClusterThreads = 512; ",
+                   "constexpr int kClusterThreads = 1024;")],
+    "cluster8c4": [("cluster_loop.cuh", _SIZES,
+                    _SIZES.replace("{16, 8, 4, 2}", "{8, 4, 2}")),
+                   ("cluster_loop.cuh", _COLS, _COLS.replace("2;", "4;"))],
+    # timing only, wrong results: no cluster barrier between steps
+    "nosync": ("cluster_loop.cuh", _SYNC, _SYNC.replace("cl.sync()",
+                                                        "__syncthreads()")),
+    "nosync9": [("cluster_loop.cuh", _SIZES,
+                 _SIZES.replace("{16, 8, 4, 2}", "{9, 8, 4, 2}")),
+                ("cluster_loop.cuh", _SYNC, _SYNC.replace("cl.sync()",
+                                                          "__syncthreads()"))],
 }
 
 CHILD = r'''
@@ -380,5 +436,136 @@ print(json.dumps(res))
 '''
 
 
+RTM_CHILD = r'''
+import inspect, json, re, statistics, sys
+sys.path.insert(0, TREE)
+import numpy as np, torch
+pkg = "parallel_finite_difference_computation_tpu_torch"
+solver = __import__(pkg + ".solver", fromlist=["x"])
+stream = __import__(pkg + ".ops.stream", fromlist=["x"])
+fk = __import__(pkg + ".ops.fd_kernels", fromlist=["x"])
+build = __import__(pkg + ".ops._build", fromlist=["x"])
+dev = torch.device("cuda", 0)
+lib = build.library()
+resident = "per_step" in inspect.signature(fk._fd_forward).parameters
+fn = None
+for line in build.build_log().splitlines():
+    m = re.search(r"Compiling entry function '(\S+)'", line)
+    if m:
+        fn = m.group(1)
+    name = fn and re.search(
+        r"\d((?:rtm_fwd_step|rtm_bwd_step|rtm_fwd_cluster|rtm_bwd_cluster)"
+        r"I(?:L\w\d+E)+)E", fn)
+    if (name and re.search(r"ILi[48]E", name[1])
+            and ("registers" in line or "spill" in line)):
+        print(f"[ptxas] {name[1]}: {line.strip()}", file=sys.stderr)
+res = {"bitwise": True}
+if resident:
+    res["clusters fwd 3lay"] = lib.pfdc_rtm_fwd_clusters(231, 231, 8)
+    res["clusters bwd 3lay"] = lib.pfdc_rtm_bwd_clusters(231, 231, 8)
+    print(f"[plan] 3lay order 8: {fk.resident_plan(231, 231, 8)}; clusters "
+          f"held at once: forward {res['clusters fwd 3lay']}, backward "
+          f"{res['clusters bwd 3lay']}", file=sys.stderr)
+
+def timed(case):
+    return not ONLY or re.search(ONLY, case) is not None
+
+gen = torch.Generator(device=dev).manual_seed(0)
+rng = np.random.default_rng(0)
+
+SHAPES = {"3lay": (151, 151), "1lay": (201, 101)}
+
+def case(order, nt, model="3lay"):
+    nx, nz = SHAPES[model]
+    ctx = solver.FDContext.create(nx, nz, nt, dx=10.0, dz=10.0, dt=0.001,
+                                  order=order, nxb=40, nzb=40, fac=0.01)
+    v2 = (1500.0 + 2000.0 * torch.rand((8, ctx.nxe, ctx.nze), device=dev,
+                                       generator=gen)) ** 2
+    d = torch.randn((8, ctx.nx, nt), device=dev, generator=gen)
+    wav = np.float32(rng.standard_normal(nt))
+    return ctx, v2, d, wav
+
+sx, sz, gz = [40 + 20 * i for i in range(8)], 40, 40
+routes = (False, True) if resident else (None,)
+
+def fwd(ctx, v2, wav, per_step):
+    return (fk.fd_forward_cuda(ctx, v2, wav, sx, sz) if per_step is None
+            else fk._fd_forward(ctx, v2, wav, sx, sz, 0, per_step=per_step))
+
+def bwd(ctx, v2, snaps, d, per_step):
+    return (fk.fd_back_cuda(ctx, v2, *snaps, d, gz) if per_step is None
+            else fk._fd_back(ctx, v2, *snaps, d, gz, 0, per_step=per_step))
+
+for order, model in ((4, "3lay"), (8, "3lay"), (10, "3lay"), (16, "3lay"),
+                     (8, "1lay")):
+    ctx, v2, d, wav = case(order, 20, model)
+    want = solver.fd_forward(ctx, v2, wav, sx, sz)
+    want_img = solver.fd_back(ctx, v2, *want, d, gz)
+    for per_step in routes:
+        got = fwd(ctx, v2, wav, per_step)
+        img = bwd(ctx, v2, want, d, per_step)
+        same = (all(torch.equal(a, b) for a, b in zip(got, want))
+                and torch.equal(img, want_img))
+        res["bitwise"] &= same
+        print(f"[check] {model} order {order} nt 20, "
+              f"{'per-step' if per_step else 'resident'} route: "
+              f"{'bitwise' if same else 'DIFFERS'}", file=sys.stderr)
+
+def median_ms(fn):
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+for model in ("1lay", "3lay"):
+    ctx, v2, d, wav = case(8, 1001, model)
+    snaps = [torch.randn((8, ctx.nxe, ctx.nze), device=dev, generator=gen)
+             for _ in range(2)]
+    if resident:
+        print(f"[plan] {model} ({ctx.nxe} x {ctx.nze}) order 8: "
+              f"{fk.resident_plan(ctx.nxe, ctx.nze, 8)}", file=sys.stderr)
+    for per_step in routes:
+        sfx = " per-step" if per_step else ""
+        if timed(f"rtm_fwd{sfx} {model}"):
+            res[f"rtm_fwd{sfx} {model}"] = median_ms(
+                lambda: fwd(ctx, v2, wav, per_step))
+        if timed(f"rtm_bwd{sfx} {model}"):
+            res[f"rtm_bwd{sfx} {model}"] = median_ms(
+                lambda: bwd(ctx, v2, snaps, d, per_step))
+        if timed(f"{model} RTM{sfx}"):
+            res[f"{model} RTM{sfx}"] = median_ms(lambda: bwd(
+                ctx, v2, fwd(ctx, v2, wav, per_step), d, per_step))
+if resident:
+    for ns7 in (7, 1):
+        # one wave of the clusters the card holds at once, and one shot
+        s7 = [a[:ns7].contiguous() for a in snaps]
+        if timed(f"rtm_fwd 3lay {ns7} shots"):
+            res[f"rtm_fwd 3lay {ns7} shots"] = median_ms(
+                lambda: fk._fd_forward(ctx, v2[:ns7].contiguous(), wav,
+                                       sx[:ns7], sz, 0))
+        if timed(f"rtm_bwd 3lay {ns7} shots"):
+            res[f"rtm_bwd 3lay {ns7} shots"] = median_ms(
+                lambda: fk._fd_back(ctx, v2[:ns7].contiguous(), *s7,
+                                    d[:ns7].contiguous(), gz, 0))
+if timed("3lay RTM tiled"):
+    k = stream.tiled_block_k(ctx, ("kstep_gpu_fwd", "kstep_gpu_bwd"))
+    res["3lay RTM tiled"] = median_ms(lambda: solver.rtm_shot_snapshot_tiled(
+        ctx, v2, wav, d, sx, sz, gz, block_k=k))
+print(json.dumps(res))
+'''
+
+
 if __name__ == "__main__":
-    sys.exit(torch_bwd_probe.main(CHILD, VARIANTS, __doc__))
+    rtm = "--rtm" in sys.argv
+    if rtm:
+        sys.argv.remove("--rtm")
+    sys.exit(torch_bwd_probe.main(RTM_CHILD if rtm else CHILD, VARIANTS,
+                                  __doc__))

@@ -153,7 +153,8 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
                          lap_impl=lap_impl)
         fk.backward_recorded_cuda(ctx, v2, dobs, GZ, lap_impl=lap_impl)
     assert fk.LAUNCHES == {"mod_step": 0, "rtm_fwd_step": 0,
-                           "rtm_bwd_step": 0, "rec_fwd_step": 0,
+                           "rtm_bwd_step": 0, "rtm_fwd_cluster": 0,
+                           "rtm_bwd_cluster": 0, "rec_fwd_step": 0,
                            "rec_bwd_step": 0, "lap_apply": 0,
                            "mod_step_mma": 0, "rtm_fwd_step_mma": 0,
                            "rtm_bwd_step_mma": 0, "rec_fwd_step_mma": 0,
@@ -361,8 +362,11 @@ def test_kernels_match_plain_on_the_card(cuda_device, order, nt):
     pi = solver.fd_back(ctx, v2, *pp, dobs, GZ)
     torch.cuda.synchronize()
     assert float((ki - pi).abs().max() / pi.abs().max()) <= GATE
-    assert fk.LAUNCHES == {"mod_step": nt, "rtm_fwd_step": nt,
-                           "rtm_bwd_step": nt, "rec_fwd_step": 0,
+    # the 44 x 40 extended shots fit a cluster: one resident launch a pass
+    assert fk.resident_plan(ctx.nxe, ctx.nze, order) is not None
+    assert fk.LAUNCHES == {"mod_step": nt, "rtm_fwd_step": 0,
+                           "rtm_bwd_step": 0, "rtm_fwd_cluster": 1,
+                           "rtm_bwd_cluster": 1, "rec_fwd_step": 0,
                            "rec_bwd_step": 0, "lap_apply": 0,
                            "mod_step_mma": 0, "rtm_fwd_step_mma": 0,
                            "rtm_bwd_step_mma": 0, "rec_fwd_step_mma": 0,
