@@ -9,10 +9,11 @@ Run from the root of the repository, on a machine with one CUDA card and
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the CUDA kernels from ``csrc/``, with ``nvcc`` (one per source,
    started together), and each kernel's registers and spill stores;
-3. kernel vs plain: ``mod_step``, the exact two-snapshot RTM's resident
-   kernels ``rtm_fwd_cluster`` and ``rtm_bwd_cluster`` (the 3lay route:
-   one launch a pass, each shot in a thread-block cluster) and its
-   per-step ones ``rtm_fwd_step`` and ``rtm_bwd_step`` (the route forced)
+3. kernel vs plain: the exact modeling's resident kernel ``mod_cluster``
+   and the exact two-snapshot RTM's ``rtm_fwd_cluster`` and
+   ``rtm_bwd_cluster`` (the 3lay route: one launch a pass, each shot in a
+   thread-block cluster) and their per-step ones ``mod_step``,
+   ``rtm_fwd_step`` and ``rtm_bwd_step`` (the route forced)
    against their plain torch versions on the same CUDA tensors, at the
    3lay shapes (231 x 231 extended grid, nt=1001, 8 shots, order 8) and in
    short runs (nt=20) at orders 4, 10 and 16; then 2 shots, nt=20, order
@@ -24,19 +25,23 @@ Run from the root of the repository, on a machine with one CUDA card and
    in the ``kernels`` line are those of the forced route at 3lay, order 8,
    whose time phase 14 gives;
 4. main path (mod -> rtm_gpu): ``run_modeling`` then ``run_rtm_gpu`` on the
-   3lay config, ns=8, through the kernels: the launch counts (``mod_step``
-   nt, the two resident kernels one each),
+   3lay config, ns=8, through the kernels: the launch counts (the three
+   resident kernels one each),
    ``dir.image``, the image against the plain path on the card (rel RMS
-   <= 1e-5), and the whole slice at a small size against the plain path on
-   the CPU;
-5. rec kernels vs plain: ``rec_fwd_step`` frames, ``rec_bwd_step`` in frame
+   <= 1e-5), the gathers bitwise the forced per-step route's of phase 3,
+   and the whole slice at a small size against the plain path on the CPU;
+5. rec kernels vs plain: the frames of ``rec_fwd_cluster`` (resident,
+   bitwise) and ``rec_fwd_step`` (forced), ``rec_bwd_step`` in frame
    and image mode and ``rtm_full_cuda`` against their plain versions at the
    3lay shapes (``exact_taper=False``, phase 4's gathers as ``dobs``) and
    in short runs (nt=20, 21) at orders 4 and 10 with nxb != nzb (one of
-   them with the receiver row clamped) and ``next_shot_first`` != 0;
+   them with the receiver row clamped) and ``next_shot_first`` != 0; the
+   forward's two routes also at order 16 (nt=20) and on phase 3's 256 x
+   256 and 260 x 260 grids; the clusters the card holds at once;
    gate: max relative error <= 1e-5;
 6. rtm_main path: ``run_rtm_cpu`` on the 3lay config, ns=8, after phase
-   4's ``run_modeling``: the launch counts, ``dir.image`` and ``dir.img``
+   4's ``run_modeling``: the launch counts (``rec_fwd_cluster`` once,
+   ``rec_bwd_step`` nt times), ``dir.image`` and ``dir.img``
    against the returned arrays, the image against the plain path on the
    card (rel RMS <= 1e-5), and the small config card vs plain on the CPU;
 7. stencil path: ``run_stencil`` through a file at the reference stencil's
@@ -73,7 +78,8 @@ Run from the root of the repository, on a machine with one CUDA card and
    ``csrc/bwd_strip.cuh``, a block of more than 4 steps in two passes);
 12. 3lay mesh path: ``run_modeling`` then ``run_rtm_gpu`` on the 3lay
    config over meshes (2, 1), (2, 2) and (1, 4), every position on cuda:0,
-   against the no-mesh run of phase 4 (rel RMS <= 1e-5);
+   against the no-mesh run of phase 4 (rel RMS <= 1e-5), with the launch
+   counts (the shot-only mesh: each resident kernel once a shot group);
 13. the Pluto domain path: ``run_modeling`` then ``run_rtm_gpu`` at the
    full Pluto grid, nt=4500 (cut from 12860 for time), 2 shots, over a
    (1, 4) mesh of cuda:0 (K=8): launch counts (two passes a block of each
@@ -84,8 +90,9 @@ Run from the root of the repository, on a machine with one CUDA card and
    CUDA events, median of 3 after a warm-up, taken in turns; for the
    stencil also ``torch.nn.functional.conv2d`` with the same taps (the
    library yardstick, not used by the port); for the K-step kernels, at
-   3lay both routes of the exact RTM kernels and calls in turns with the
-   plain versions; at the Pluto grid (2 shots, nt=1001), the K-step
+   3lay both routes of the exact modeling, RTM and rtm_main kernels and
+   calls in turns with the plain versions; at the Pluto grid (2 shots,
+   nt=1001), the K-step
    kernels' passes, their plain passes and
    the per-step kernel call for the same function (here and in phases 18,
    21 and 27 the plain versions at the Pluto grid, seconds a call, are
@@ -95,7 +102,7 @@ Run from the root of the repository, on a machine with one CUDA card and
    gate 1e-5, every kernel bitwise), and the domain tier's whole
    modeling and RTM calls against the per-step calls;
 15. profile: one ``torch.profiler`` trace of each 3lay 8-shot call (the
-   RTM call on both routes), of the
+   modeling, RTM and rtm_main calls on both routes), of the
    8192 x 8192 stencil, and of the Pluto modeling and RTM calls (nt=1001)
    of each tier: the device time of each kernel, its launch count, and the
    share of the event-timed call that the card spent in kernels; for the
@@ -303,6 +310,10 @@ KERNELS = {
                         "parallel_finite_difference_computation_tpu/ops/pallas_fd.py:702"),
     "rtm_bwd_cluster": (f"{PKG}/csrc/rtm_bwd_step.cu",
                         "parallel_finite_difference_computation_tpu/ops/pallas_fd.py:729"),
+    "mod_cluster": (f"{PKG}/csrc/mod_step.cu",
+                    "parallel_finite_difference_computation_tpu/ops/pallas_fd.py:423"),
+    "rec_fwd_cluster": (f"{PKG}/csrc/rec_step.cu",
+                        "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:1002"),
     "rec_fwd_step": (f"{PKG}/csrc/rec_step.cu",
                      "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:1002"),
     "rec_bwd_step": (f"{PKG}/csrc/rec_step.cu",
@@ -941,17 +952,47 @@ def main() -> int:
                     results[k]["launches"] = fk.LAUNCHES[k]
         return out
 
+    def mod_errs(ctx_m, v2_m, wav_m, sx, sz, gz, out, record=False,
+                 source="gaussian", taper="all", rec="trace"):
+        """Both routes of the exact modeling (``rec``: what is recorded)
+        against plain, into out: the resident kernel (mod_cluster, or
+        rec_fwd_cluster for the frames) where the shot fits a cluster,
+        and the per-step one (mod_step, rec_fwd_step) forced, each with
+        the launches it counted; with record, the forced route's launches
+        go into the per-step kernel's records. Returns the plain outputs
+        and the forced route's."""
+        pm = solver.forward_modeling(ctx_m, v2_m, wav_m, sx, sz, gz,
+                                     source=source, taper=taper, record=rec)
+        kinds = (("rec_fwd_cluster", "rec_fwd_step") if rec == "wavefield"
+                 else ("mod_cluster", "mod_step"))
+        plan = fk.resident_plan(ctx_m.nxe, ctx_m.nze, ctx_m.order)
+        for per_step in (False, True):
+            fk.reset_launches()
+            km = fk._forward_modeling(ctx_m, v2_m, wav_m, sx, sz, gz, source,
+                                      taper, rec, 0, per_step=per_step)
+            torch.cuda.synchronize()
+            name = kinds[1] if per_step or plan is None else kinds[0]
+            want = {name: ctx_m.nt if name == kinds[1] else 1}
+            got = {k: n for k, n in fk.LAUNCHES.items() if n}
+            check(got == want, f"modeling route ({rec}, per_step="
+                               f"{per_step}): launches {got}, expected "
+                               f"{want}")
+            out[name + (" (forced)" if per_step and plan else "")] = (
+                pair_errs(km, pm),)
+            if record and per_step:
+                results[name]["launches"] = fk.LAUNCHES[name]
+        return pm, km
+
     def compare(order: int, nt: int):
         ctx_m, ctx_r, v2_m, v2_r, wav_m, wav_r = shapes(order, nt)
         out = {}
-        km = fk.forward_modeling_cuda(ctx_m, v2_m, wav_m, g.sx, g.sz, g.gz)
-        pm = solver.forward_modeling(ctx_m, v2_m, wav_m, g.sx, g.sz, g.gz)
-        out["mod_step"] = pair_errs(km, pm)
+        pm, ks = mod_errs(ctx_m, v2_m, wav_m, g.sx, g.sz, g.gz, out,
+                          record=order == 8 and nt == P.nt)
         dobs = pm[2].transpose(1, 2).contiguous()          # (ns, nx, nt)
         rtm_errs(ctx_r, v2_r, wav_r, dobs, g.sx, g.sz, g.gz, out,
                  record=order == 8 and nt == P.nt)
         torch.cuda.synchronize()
-        return out, pm[2]
+        return out, pm[2], ks[2]
 
     def report(k, errs, where, order):
         """Prints and gates one kernel's (max rel, max abs) errors; the
@@ -966,14 +1007,13 @@ def main() -> int:
             results[k]["max_abs_err"] = max(
                 results[k].get("max_abs_err", 0.0), absd)
 
-    plain_seis = None
+    plain_seis = step_seis = None
     for order, nt in ((8, P.nt), (4, 20), (10, 20), (16, 20)):
-        errs, seis = compare(order, nt)
+        errs, seis, seis_step = compare(order, nt)
         if order == 8:
-            plain_seis = seis
+            plain_seis, step_seis = seis, seis_step
         for names, e in errs.items():
-            for k, err in zip(names.split(" + "),
-                              e if names != "mod_step" else (e,)):
+            for k, err in zip(names.split(" (")[0].split(" + "), e):
                 report(k, err, f"order {order} nt {nt} ns {P.ns}", order)
     # 2 shots on grids just inside the resident route's limit (a strip for
     # each of 512 threads) and just past it (the per-step kernels)
@@ -990,6 +1030,12 @@ def main() -> int:
         d_g = torch.randn((pg.ns, pg.nx, pg.nt), device=dev,
                           generator=torch.Generator(device=dev).manual_seed(n))
         errs = rtm_errs(ctx_g, v2_g, wav_g, d_g, gg.sx, gg.sz, gg.gz, {})
+        ctx_gm = solver.FDContext.from_params(pg, exact_taper=False)
+        v2_gm = torch.from_numpy(pipeline.prepare_velocity_cpu(
+            pg, layered_model(n, n))).to(dev)
+        mod_errs(ctx_gm, v2_gm, numerics.ricker_wavelet(
+            pg.nt, pg.dt, pg.fpeak, truncated=True), gg.sx, gg.sz, gg.gz,
+                 errs)
         for names, e in errs.items():
             if names == "rtm_fwd_step + rtm_bwd_step" and plan:
                 names = "rtm_fwd_step + rtm_bwd_step (forced)"
@@ -997,14 +1043,15 @@ def main() -> int:
                   f"20, plan {plan}: {names}", flush=True)
             for k, err in zip(names.split(" (")[0].split(" + "), e):
                 report(k, err, f"at {ctx_g.nxe} x {ctx_g.nze}", 0)
+    lib = _build.library()
     for order in (4, 8, 16):
         print(f"[kernel vs plain] 3lay order {order}: "
               f"{fk.resident_plan(P.nxe, P.nze, order)}; clusters the card "
               f"holds at once: forward "
-              f"{_build.library().pfdc_rtm_fwd_clusters(P.nxe, P.nze, order)}"
-              f", backward "
-              f"{_build.library().pfdc_rtm_bwd_clusters(P.nxe, P.nze, order)}"
-              f" (a batch of {P.ns} shots)", flush=True)
+              f"{lib.pfdc_rtm_fwd_clusters(P.nxe, P.nze, order)}, backward "
+              f"{lib.pfdc_rtm_bwd_clusters(P.nxe, P.nze, order)}, modeling "
+              f"{lib.pfdc_mod_clusters(P.nxe, P.nze, order)} (a batch of "
+              f"{P.ns} shots)", flush=True)
 
     phase_done("kernel vs plain")
 
@@ -1026,7 +1073,7 @@ def main() -> int:
     print(f"[main path] run_modeling + run_rtm_gpu, 3lay ns={P.ns} "
           f"nt={P.nt}: {wall:.3f} s wall incl. host; launches {launches}",
           flush=True)
-    want = {"mod_step": P.nt, "rtm_fwd_cluster": 1, "rtm_bwd_cluster": 1}
+    want = {"mod_cluster": 1, "rtm_fwd_cluster": 1, "rtm_bwd_cluster": 1}
     for k, n in launches.items():
         check(n == want.get(k, 0), f"{k} launched {n} times, expected "
                                    f"{want.get(k, 0)}")
@@ -1049,9 +1096,13 @@ def main() -> int:
     plain_img = solver.rtm_shot_snapshot(ctx_r, v2_r, wav_r, d, g.sx, g.sz,
                                          g.gz).cpu().numpy().sum(axis=0)
     rr_img = rel_rms(img, plain_img)
+    same_step = np.array_equal(data, step_seis.transpose(1, 2).cpu().numpy())
     print(f"[main path] vs plain on the card: gathers rel RMS {rr_data:.3e}, "
-          f"image rel RMS {rr_img:.3e}", flush=True)
+          f"image rel RMS {rr_img:.3e}; gathers bitwise the forced per-step "
+          f"route's (mod_step, phase 3): {same_step}", flush=True)
     check(rr_data <= GATE and rr_img <= GATE, "main path differs from plain")
+    check(same_step, "the main path's gathers differ from the per-step "
+                     "route's")
 
     # the whole slice at a small size, card kernels vs plain on the CPU; the
     # per-shot boundary velocities come from one vel_ext_file (the parity
@@ -1101,19 +1152,28 @@ def main() -> int:
         return (max(max_rel(a, b) for a, b in zip(k, p)),
                 max(float((a - b).abs().max()) for a, b in zip(k, p)))
 
+    def rec_fwd_errs(p, ctx, v2, wav, out):
+        """Both routes of rtm_main's forward (the frames) against plain
+        (mod_errs), into out as (max rel, max abs) by kernel; the forced
+        route's launches recorded at 3lay. Returns the plain frames."""
+        gp = Geometry.from_params(p)
+        fwd = {}
+        pf, _ = mod_errs(ctx, v2, wav, gp.sx, gp.sz, gp.gz, fwd,
+                         record=p is P, source="point", taper="top",
+                         rec="wavefield")
+        out.update({k: e for k, (e,) in fwd.items()})
+        return pf[2]
+
     def compare_rec(p, dobs, quirk):
         ctx, v2, wav, d, nxt = rec_inputs(p, dobs)
         gp = Geometry.from_params(p)
         out = {}
-        kf = fk.forward_modeling_cuda(ctx, v2, wav, gp.sx, gp.sz, gp.gz,
-                                      source="point", taper="top",
-                                      record="wavefield")
-        pf = solver.forward_modeling(ctx, v2, wav, gp.sx, gp.sz, gp.gz,
-                                     source="point", taper="top",
-                                     record="wavefield")
-        out["rec_fwd_step"] = errs(kf, pf)
-        swf = pf[2]
-        del kf, pf
+        if quirk:    # the forward does not see the quirk: once a case
+            swf = rec_fwd_errs(p, ctx, v2, wav, out)
+        else:
+            swf = solver.forward_modeling(ctx, v2, wav, gp.sx, gp.sz, gp.gz,
+                                          source="point", taper="top",
+                                          record="wavefield")[2]
         kb = fk.backward_recorded_cuda(ctx, v2, d, gp.gz, x_off_quirk=quirk,
                                        next_shot_first=nxt)
         pb = solver.backward_recorded(ctx, v2, d, gp.gz, x_off_quirk=quirk,
@@ -1150,10 +1210,36 @@ def main() -> int:
                   f"{absd:.3e}", flush=True)
             check(rel <= GATE, f"{k} order {p.order} nt {p.nt}: {rel:.3e} > "
                                f"{GATE}")
-        if p is P:
-            results["rec_fwd_step"]["max_abs_err"] = out["rec_fwd_step"][1]
+            check(not k.endswith("_cluster") or absd == 0,
+                  f"{k} order {p.order} nt {p.nt} is not bitwise")
+        if p is P and quirk:
+            results["rec_fwd_cluster"]["max_abs_err"] = out[
+                "rec_fwd_cluster"][1]
+            results["rec_fwd_step"]["max_abs_err"] = out[
+                "rec_fwd_step (forced)"][1]
             results["rec_bwd_step"]["max_abs_err"] = max(
                 out["rec_bwd_step frames"][1], out["rec_bwd_step image"][1])
+    # the forward's two routes at order 16 (3lay, nt 20) and, 2 shots, on
+    # phase 3's grids at the resident route's limit (256 x 256 extended)
+    # and past it (260 x 260)
+    for p in (dataclasses.replace(P, order=16, nt=20),
+              *(dataclasses.replace(P, nx=n, nz=n, nt=20, ns=2, ds=100)
+                for n in (176, 180))):
+        ctx, v2, wav, _, _ = rec_inputs(p, np.zeros((p.ns, p.nx, p.nt)))
+        out = {}
+        rec_fwd_errs(p, ctx, v2, wav, out)
+        for k, (rel, absd) in out.items():
+            print(f"[rec vs plain] {k} order {p.order} nt {p.nt} ns {p.ns} "
+                  f"at {ctx.nxe} x {ctx.nze}: max rel err {rel:.3e}, max "
+                  f"abs err {absd:.3e}", flush=True)
+            check(rel <= GATE and (not k.endswith("_cluster") or absd == 0),
+                  f"{k} at {ctx.nxe} x {ctx.nze} order {p.order}: {rel:.3e},"
+                  f" {absd:.3e}")
+    for order in (4, 8, 16):
+        print(f"[rec vs plain] 3lay order {order}: clusters of "
+              f"rec_fwd_cluster the card holds at once: "
+              f"{lib.pfdc_rec_fwd_clusters(P.nxe, P.nze, order)} (a batch of "
+              f"{P.ns} shots)", flush=True)
 
     phase_done("rec kernels vs plain")
 
@@ -1170,10 +1256,12 @@ def main() -> int:
         written_locs = np.fromfile(os.path.join(tmp, "dir.img"), np.float32)
     print(f"[rtm_main path] run_rtm_cpu, 3lay ns={P.ns} nt={P.nt}: "
           f"{wall:.3f} s wall incl. host; launches {launches}", flush=True)
-    for k in ("rec_fwd_step", "rec_bwd_step"):
+    want = {"rec_fwd_cluster": 1, "rec_bwd_step": P.nt}
+    for k, n in launches.items():
+        check(n == want.get(k, 0), f"{k} launched {n} times, expected "
+                                   f"{want.get(k, 0)}")
+    for k in want:
         results[k]["launches"] = launches[k]
-        check(launches[k] == P.nt, f"{k} launched {launches[k]} times, "
-                                   f"expected {P.nt}")
     check(img_m.shape == (P.nx, P.nz) and np.isfinite(imlocs_m).all()
           and np.abs(img_m).max() > 0, "rtm_main image not finite or zero")
     check(written.tobytes() == img_m.tobytes(),
@@ -1538,6 +1626,7 @@ def main() -> int:
     for shape in ((2, 1), (2, 2), (1, 4)):
         mesh = make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
         dk.reset_launches()
+        fk.reset_launches()
         t0 = time.perf_counter()
         data_m = pipeline.run_modeling(P, vp=vp, mesh=mesh)
         img_m3, locs_m3 = pipeline.run_rtm_gpu(P, vp=vp, dobs=data_m, seed=0,
@@ -1555,6 +1644,11 @@ def main() -> int:
         check((shape[1] > 1) == all(exact_n) and sum(exact_n) == sum(
             dk.LAUNCHES.values()), f"mesh {shape}: block launches "
                                    f"{dk.LAUNCHES}")
+        # a shot-only mesh runs the resident kernels once a shot group
+        fk_n = {k: n for k, n in fk.LAUNCHES.items() if n}
+        want = ({} if shape[1] > 1 else dict.fromkeys(
+            ("mod_cluster", "rtm_fwd_cluster", "rtm_bwd_cluster"), shape[0]))
+        check(fk_n == want, f"mesh {shape}: launches {fk_n}, expected {want}")
     phase_done("3lay mesh path")
 
     # ---- 13. the Pluto path over a (1, 4) mesh of cuda:0: four x-slabs,
@@ -1618,10 +1712,18 @@ def main() -> int:
     rec_fwd = lambda fn: (lambda: fn(ctx_c, v2_c, wav_c, g.sx, g.sz, g.gz,
                                      source="point", taper="top",
                                      record="wavefield"))
+    rec_fwd_step = lambda: fk._forward_modeling(
+        ctx_c, v2_c, wav_c, g.sx, g.sz, g.gz, "point", "top", "wavefield", 0,
+        per_step=True)
     cases = {
-        "mod_step": (
+        # the exact modeling's two routes, in turns with the plain version:
+        # the resident kernel and the per-step one (forced)
+        "mod_cluster": (
             lambda: fk.forward_modeling_cuda(ctx_m, v2_m, wav_m, g.sx, g.sz, g.gz),
-            lambda: solver.forward_modeling(ctx_m, v2_m, wav_m, g.sx, g.sz, g.gz)),
+            lambda: solver.forward_modeling(ctx_m, v2_m, wav_m, g.sx, g.sz, g.gz),
+            lambda: fk._forward_modeling(ctx_m, v2_m, wav_m, g.sx, g.sz, g.gz,
+                                         "gaussian", "all", "trace", 0,
+                                         per_step=True)),
         # the exact RTM's two routes, in turns with one plain version:
         # the resident kernels and the per-step ones (forced)
         "rtm_fwd_cluster": (
@@ -1640,8 +1742,8 @@ def main() -> int:
             lambda: fk._fd_back(ctx_r, v2_r, *fk._fd_forward(
                 ctx_r, v2_r, wav_r, g.sx, g.sz, 0, per_step=True), d, g.gz,
                 0, per_step=True)),
-        "rec_fwd_step": (rec_fwd(fk.forward_modeling_cuda),
-                         rec_fwd(solver.forward_modeling)),
+        "rec_fwd_cluster": (rec_fwd(fk.forward_modeling_cuda),
+                            rec_fwd(solver.forward_modeling), rec_fwd_step),
         "rec_bwd_step": (
             lambda: fk.backward_image_cuda(ctx_c, v2_c, swf, d_c, g.gz,
                                            next_shot_first=nxt_c),
@@ -1656,7 +1758,9 @@ def main() -> int:
             lambda: fk.rtm_full_cuda(ctx_c, v2_c, wav_c, d_c, g.sx, g.sz,
                                      g.gz, next_shot_first=nxt_c),
             lambda: solver.rtm_shot_full(ctx_c, v2_c, wav_c, d_c, g.sx, g.sz,
-                                         g.gz, next_shot_first=nxt_c)),
+                                         g.gz, next_shot_first=nxt_c),
+            lambda: fk.backward_image_cuda(ctx_c, v2_c, rec_fwd_step()[2],
+                                           d_c, g.gz, next_shot_first=nxt_c)),
     }
 
     times = {}
@@ -1674,7 +1778,7 @@ def main() -> int:
             results[step_name]["ms"] = statistics.median(ts[0])
             results[step_name]["plain_ms"] = statistics.median(tp)
     del swf
-    for label, k in (("modeling", "mod_step"), ("RTM", "rtm"),
+    for label, k in (("modeling", "mod_cluster"), ("RTM", "rtm"),
                      ("rtm_main", "rtm_main")):
         tk, tp, *ts = times[k]
         also = (f", the per-step route "
@@ -1932,12 +2036,17 @@ def main() -> int:
     cx, cz = numerics.scaled_coefficients(8, 10.0, 10.0)
     stencil_call = lambda: fk.laplacian_cuda(f, cx, cz, 8)
     for label, fn, ms in (
-            ("modeling", cases["mod_step"][0], results["mod_step"]["ms"]),
+            ("modeling", cases["mod_cluster"][0],
+             results["mod_cluster"]["ms"]),
+            ("modeling per-step route", cases["mod_cluster"][2],
+             results["mod_step"]["ms"]),
             ("RTM", cases["rtm"][0], statistics.median(times["rtm"][0])),
             ("RTM per-step route", cases["rtm"][2],
              statistics.median(times["rtm"][2])),
             ("rtm_main", cases["rtm_main"][0],
              statistics.median(times["rtm_main"][0])),
+            ("rtm_main per-step route", cases["rtm_main"][2],
+             statistics.median(times["rtm_main"][2])),
             ("stencil 8192 x 8192", stencil_call,
              results["lap_apply"]["ms"]),
             *((f"Pluto {c}", pluto_calls[c], pluto_ms[c])
@@ -2368,7 +2477,11 @@ def main() -> int:
                   f"{p_.ns}, nt {p_.nt}): {time.perf_counter() - t0:.3f} s "
                   f"wall; launches {dict(fk.LAUNCHES)}, "
                   f"{dict(stream.LAUNCHES)}", flush=True)
-            check(fk.LAUNCHES["rec_fwd_step"] == p_.nt
+            # the forward resident where the shot fits a cluster (3lay)
+            fwd = (("rec_fwd_cluster", 1)
+                   if fk.resident_plan(p_.nxe, p_.nze, p_.order)
+                   else ("rec_fwd_step", p_.nt))
+            check(fk.LAUNCHES[fwd[0]] == fwd[1]
                   and fk.LAUNCHES["rec_bwd_step"] == p_.nt
                   and np.isfinite(outs[backend][1]).all()
                   and np.abs(outs[backend][0]).max() > 0,
@@ -3429,7 +3542,7 @@ def main() -> int:
     print(f"[split rtm_main] 3lay run_rtm_cpu (whole-grid tier) under "
           f"PFDC_LAP_IMPL=auto: launches {launches}, images bitwise the "
           f"exact run's: {np.array_equal(auto3, exact3)}", flush=True)
-    check(launches == {"rec_fwd_step": P.nt, "rec_bwd_step": P.nt}
+    check(launches == {"rec_fwd_cluster": 1, "rec_bwd_step": P.nt}
           and np.array_equal(auto3, exact3),
           "the whole-grid rtm_main tier left the exact taps under auto")
     del full, d, v2_m, sub_locs, exact3, auto3

@@ -1,6 +1,8 @@
 // The cluster-resident time loop of the exact two-snapshot RTM kernels
-// (rtm_fwd_cluster in rtm_fwd_step.cu, rtm_bwd_cluster in rtm_bwd_step.cu):
-// one launch runs all nt steps of a pass for every shot of a batch.
+// (rtm_fwd_cluster in rtm_fwd_step.cu, rtm_bwd_cluster in rtm_bwd_step.cu)
+// and of the exact modeling kernels (mod_loop below: mod_cluster in
+// mod_step.cu, rec_fwd_cluster in rec_step.cu): one launch runs all nt
+// steps of a pass for every shot of a batch.
 //
 // The TPU kernels they replace (ops/pallas_fd.py _rtm_kernel :534,
 // _fwd_gpu_kernel :702, _bwd_gpu_kernel :729) keep one shot in VMEM for all
@@ -272,6 +274,152 @@ __device__ __forceinline__ float cell_lap(
   accx = accx + c.x[0] * centre;
   const float lap = accz + accx;
   return interior ? lap : 0.0f;
+}
+
+// What the modeling loop records each step: nothing, the trace row (mod_step
+// at gz), or the interior frame (rec_fwd_step).
+constexpr int kRecordNone = 0;
+constexpr int kRecordTrace = 1;
+constexpr int kRecordFrames = 2;
+
+// The arguments of the modeling loop (mod_loop): the two fields (zeroed by
+// the caller), v2*dt2, the taper mask, the source patch of radius r around
+// (sx[s], sz), the nt-sample wavelet on the device, and what is recorded:
+// rec is (ns, nt, nx) traces of row gz (kRecordTrace) or (ns, nt, nx, nz)
+// interior frames (kRecordFrames); nxb, nzb the borders.
+struct ModArgs {
+  float* a;
+  float* b;
+  const float* v2dt2;
+  int v2_shot_stride;
+  const float* mask;
+  const float* patch;
+  int r;
+  const int* sx;
+  int sz;
+  const float* wav;
+  float* rec;
+  int gz, nxb, nzb, nx, nz;
+  int nxe, nze, rows, nt;
+};
+
+// All nt steps of the CPU-flavor modeling step (mod_step.cu, rec_step.cu)
+// for the shot of this cluster, on the resident loop of rtm_fwd_cluster
+// (rtm_fwd_step.cu): u = (2p - m*pp) + v2dt2*lap(p), the source's patch
+// added into u where its window covers the cell, stored as m*u, the record
+// m*p of the time-t field. The levels hold what the per-step kernels' buffers
+// hold (the stored m*u), so level L is buffer a (L = 0) or b (L = 1) of the
+// per-step loop, and the last step writes the newest stored field and the
+// previous one into a and b as that loop leaves them. A thread reads its
+// cells' patch values once, into registers (reading the patch at each step
+// cost the modeling 7 % at 3lay on an H100, PERF.md), and records the
+// trace row only where its column group holds gz; the frames are stored as
+// scalars (pairs of columns as one vector where a frame row allows cost
+// 6 %).
+template <int H, int kRecord>
+__device__ __forceinline__ void mod_loop(float* smem, const ModArgs& g,
+                                         const Coefs& c) {
+  constexpr int R = kClusterRows, V = kClusterCols;
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  const Slab sl = make_slab(cl, smem, g.rows, g.nxe, g.nze);
+  const Strip st = strip_of(sl);
+  const int s = blockIdx.x / cl.num_blocks();
+  const size_t plane = static_cast<size_t>(g.nxe) * g.nze;
+  const size_t level = level_floats<H>(sl);
+  const int src_x = g.sx[s];
+  const bool trace = kRecord == kRecordTrace && st.valid &&
+                     g.gz >= st.iz0 && g.gz < st.iz0 + V;
+  float* const rec_shot =
+      kRecord == kRecordNone
+          ? nullptr
+          : g.rec + static_cast<size_t>(s) * g.nt * g.nx *
+                        (kRecord == kRecordFrames ? g.nz : 1);
+  for (size_t k = threadIdx.x; k < 2 * level; k += blockDim.x) smem[k] = 0.0f;
+  // per-cell constants; 0 at a column group's padding, whose values stay 0;
+  // the source's patch value of each cell in its window (bit r * V + col
+  // of pw)
+  float vr[R][V], mr[R][V], pr[R][V];
+  unsigned pw = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int col = 0; col < V; ++col) {
+      const int lx = st.lx0 + r, iz = st.iz0 + col;
+      const bool own = st.valid && lx < sl.n && iz < g.nze;
+      const int j = (sl.x0 + lx) * g.nze + iz;
+      vr[r][col] =
+          own ? g.v2dt2[s * static_cast<size_t>(g.v2_shot_stride) + j] : 0.0f;
+      mr[r][col] = own ? g.mask[j] : 0.0f;
+      const int dx = sl.x0 + lx - src_x, dz = iz - g.sz;
+      const bool in_w =
+          own && dx >= -g.r && dx <= g.r && dz >= -g.r && dz <= g.r;
+      pr[r][col] =
+          in_w ? g.patch[(dx + g.r) * (2 * g.r + 1) + (dz + g.r)] : 0.0f;
+      pw |= static_cast<unsigned>(in_w) << (r * V + col);
+    }
+  }
+  cl.sync();
+  // the wavelet sample of the step, loaded a step ahead by the threads the
+  // source's window covers (the 3lay frames' loop 5 % faster than with
+  // the load at the step, PERF.md)
+  float amp_next = pw && g.nt > 0 ? g.wav[0] : 0.0f;
+  // one step; the last (kLast) also writes the newest and the previous
+  // stored field to a and b
+  const auto step = [&](int it, auto last_step) {
+    constexpr bool kLast = decltype(last_step)::value;
+    const size_t cur = (it & 1) * level;
+    const size_t old = level - cur;
+    if (st.valid) {
+      const float amp = amp_next;
+      if (pw && it + 1 < g.nt) amp_next = g.wav[it + 1];
+      Cols w[R + 2 * H];
+      load_window<H>(w, smem + cur, sl, st);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int lx = st.lx0 + r;
+        if (lx >= sl.n) continue;
+        const int gx = sl.x0 + lx;
+        const bool x_in = gx >= H && gx < g.nxe - H;
+        const int q = level_cell<H>(sl, lx, st.iz0);
+        float z[2 * z_reach<H>() + V];
+        load_row<H>(z, smem + cur, sl, lx, st);
+        const Cols ps = load_cols(smem + old + q);
+        Cols stored;
+#pragma unroll
+        for (int col = 0; col < V; ++col) {
+          const int iz = st.iz0 + col;
+          const float m = mr[r][col];
+          const float centre = w[r + H].v[col];
+          const float lap = cell_lap<H>(
+              w, z, r, col, x_in && iz >= H && iz < g.nze - H, c);
+          float u = (2.0f * centre - m * ps.v[col]) + vr[r][col] * lap;
+          if ((pw >> (r * V + col)) & 1u) u = u + amp * pr[r][col];
+          stored.v[col] = m * u;
+          if (trace && iz == g.gz && gx >= g.nxb && gx < g.nxb + g.nx) {
+            rec_shot[static_cast<size_t>(it) * g.nx + (gx - g.nxb)] =
+                m * centre;
+          }
+          if (kRecord == kRecordFrames && gx >= g.nxb &&
+              gx < g.nxb + g.nx && iz >= g.nzb && iz < g.nzb + g.nz) {
+            rec_shot[(static_cast<size_t>(it) * g.nx + (gx - g.nxb)) * g.nz +
+                     (iz - g.nzb)] = m * centre;
+          }
+          if (kLast && iz < g.nze) {
+            const size_t j =
+                s * plane + static_cast<size_t>(gx) * g.nze + iz;
+            ((g.nt & 1) ? g.b : g.a)[j] = stored.v[col];
+            ((g.nt & 1) ? g.a : g.b)[j] = centre;
+          }
+        }
+        store_cols(smem + old + q, stored);
+        push_halo<H>(sl, old, lx, st, stored);
+      }
+    }
+    step_barrier(cl);
+  };
+  for (int it = 0; it + 1 < g.nt; ++it) step(it, std::false_type{});
+  if (g.nt > 0) step(g.nt - 1, std::true_type{});
+  cl.sync();  // no neighbour writes this CTA's shared memory after it exits
 }
 
 // Launches kernel over ns shots, one cluster of plan.cluster CTAs a shot,

@@ -1,6 +1,9 @@
 // rec_fwd_step / rec_bwd_step: one time step of rtm_main's full-wavefield
 // RTM (rtm_main.cpp:158-247) for every shot of a batch, their split-bf16
-// twins rec_fwd_step_mma and rec_bwd_step_mma, and the C entry points
+// twins rec_fwd_step_mma and rec_bwd_step_mma, rec_fwd_cluster (all nt
+// steps of the exact forward in one launch where a shot fits a
+// thread-block cluster: mod_loop of cluster_loop.cuh recording the frames,
+// as mod_cluster records the trace), and the C entry points
 // pfdc_rec_fwd_run and pfdc_rec_bwd_run that run the whole time loop on a
 // stream.
 //
@@ -60,6 +63,7 @@
 // (PERF.md, kernel table, row 14).
 //
 // Frame offsets are size_t: ns * nt * nx * nz passes 2^31 at marmousi size.
+#include "cluster_loop.cuh"
 #include "step_strip.cuh"
 
 namespace {
@@ -121,6 +125,16 @@ __global__ void rec_fwd_step(const float* __restrict__ cur,
   if (ix >= nxb && ix < nxb + nx && iz >= nzb && iz < nzb + nz) {
     swf_it[s * swf_shot_stride + frame_offset(ix, iz, nxb, nzb, nz)] = pc * m;
   }
+}
+
+// rec_fwd_step's loop as one launch (mod_loop, cluster_loop.cuh), the
+// frames of every step into g.rec, stored as scalars: at 3lay nz (151) is
+// odd, so a pair of columns starts on 8 bytes in every other row only.
+template <int H>
+__global__ void __launch_bounds__(pfdc::kClusterThreads, 1)
+    rec_fwd_cluster(pfdc::ModArgs g, pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  pfdc::mod_loop<H, pfdc::kRecordFrames>(smem, g, c);
 }
 
 template <int H, bool kImage>
@@ -355,11 +369,13 @@ struct RecFwdRun {
   int r;
   const int* sx;
   int sz;
-  const float* wav;  // host, nt samples
-  float* swf;        // (ns, nt, nx, nz)
+  const float* wav;   // host, nt samples
+  const float* dwav;  // device, nt samples (the resident route)
+  float* swf;         // (ns, nt, nx, nz)
   int ns, nxe, nze, nxb, nzb, nt;
   pfdc::Coefs c;
   int parts;
+  pfdc::ClusterPlan plan;  // plan.cluster == 0: the per-step route
   cudaStream_t stream;
 
   template <int H, int P>
@@ -401,7 +417,26 @@ struct RecFwdRun {
 
   template <int H>
   cudaError_t operator()() const {
+    if (plan.cluster) {
+      const pfdc::ModArgs g{a,   b,  v2dt2, v2_shot_stride, mask,
+                            patch, r, sx,   sz,             dwav,
+                            swf, 0,  nxb,   nzb,            nxe - 2 * nxb,
+                            nze - 2 * nzb,  nxe, nze,       plan.rows,
+                            nt};
+      return pfdc::launch_cluster(rec_fwd_cluster<H>, plan, ns,
+                                  plan.fwd_bytes, stream, g, c);
+    }
     return pfdc::dispatch_parts<H>(*this, parts);
+  }
+};
+
+struct RecFwdClusters {
+  pfdc::ClusterPlan plan;
+  int* out;
+  template <int H>
+  cudaError_t operator()() const {
+    *out = pfdc::active_clusters(rec_fwd_cluster<H>, plan, plan.fwd_bytes);
+    return cudaSuccess;
   }
 };
 
@@ -474,23 +509,41 @@ struct RecBwdRun {
 
 }  // namespace
 
-// Runs nt steps of rec_fwd_step, writing the (ns, nt, nx, nz) interior
-// frames into swf. a and b hold the two fields (zeroed by the caller);
-// after the loop the newest field is in b when nt is odd, else in a.
-// parts: 0 for the exact taps (rec_fwd_step), 2 or 3 for the z taps in
-// that many bf16 splits (rec_fwd_step_mma). Returns a cudaError_t.
+// Runs nt steps of the source-mode step, writing the (ns, nt, nx, nz)
+// interior frames into swf: with parts 0, rec_fwd_cluster where the shot
+// fits a cluster (pfdc::cluster_plan) and per_step is 0, else nt launches
+// of rec_fwd_step; parts 2 or 3, the z taps in that many bf16 splits, nt
+// launches of rec_fwd_step_mma. *resident says which (1: the cluster
+// kernel). a and b hold the two fields (zeroed by the caller); after the
+// loop the newest field is in b when nt is odd, else in a. wav is the
+// nt-sample wavelet on the host (the per-step kernels take a sample a
+// launch), dwav the same on the device (the resident route). Returns a
+// cudaError_t.
 extern "C" int pfdc_rec_fwd_run(float* a, float* b, const float* v2dt2,
                                 int v2_shot_stride, const float* mask,
                                 const float* patch, int r, const int* sx,
-                                int sz, const float* wav, float* swf, int ns,
-                                int nxe, int nze, int nxb, int nzb, int nt,
-                                int order, int parts, const float* cx,
-                                const float* cz, void* stream) {
-  const RecFwdRun run{a,   b,   v2dt2, v2_shot_stride, mask, patch, r,
-                      sx,  sz,  wav,   swf,            ns,   nxe,   nze,
-                      nxb, nzb, nt,    pfdc::make_coefs(order / 2, cx, cz),
-                      parts, static_cast<cudaStream_t>(stream)};
+                                int sz, const float* wav, const float* dwav,
+                                float* swf, int ns, int nxe, int nze, int nxb,
+                                int nzb, int nt, int order, int parts,
+                                const float* cx, const float* cz,
+                                int per_step, int* resident, void* stream) {
+  pfdc::ClusterPlan plan;
+  if (!per_step && parts == 0) plan = pfdc::cluster_plan(nxe, nze, order);
+  *resident = plan.cluster != 0;
+  const RecFwdRun run{a,     b,   v2dt2, v2_shot_stride, mask, patch, r,
+                      sx,    sz,  wav,   dwav,           swf,  ns,    nxe,
+                      nze,   nxb, nzb,   nt,             pfdc::make_coefs(order / 2, cx, cz),
+                      parts, plan, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(pfdc::dispatch_half(order, run));
+}
+
+// The most clusters of rec_fwd_cluster the card holds at once at (nxe, nze,
+// order), or -1 where the shot takes the per-step route or on an error.
+extern "C" int pfdc_rec_fwd_clusters(int nxe, int nze, int order) {
+  int n = -1;
+  const RecFwdClusters f{pfdc::cluster_plan(nxe, nze, order), &n};
+  if (f.plan.cluster) pfdc::dispatch_half(order, f);
+  return n;
 }
 
 // Runs nt steps of rec_bwd_step with the (ns, nt, nx) injection rows inj.

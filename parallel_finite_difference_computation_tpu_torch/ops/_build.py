@@ -37,9 +37,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # pfdc_mod_run(a, b, v2dt2, v2_shot_stride, mask, patch, r, sx, sz, gz,
-    #              wav, seis, ns, nxe, nze, nxb, nx, nt, order, cx, cz, stream)
+    #              wav, dwav, seis, record, ns, nxe, nze, nxb, nx, nt, order,
+    #              cx, cz, per_step, resident, stream)
     "pfdc_mod_run": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I,
-                     _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+                     _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _P, _P, _I, _P, _P],
     # pfdc_rtm_fwd_run(a, b, v2dt2, v2_shot_stride, mask, sx, sz, wav,
     #                  ns, nxe, nze, nt, order, cx, cz, per_step, resident,
     #                  stream)
@@ -52,16 +54,19 @@ _SIGNATURES = {
                          _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _I, _P, _P],
     # pfdc_cluster_plan(nxe, nze, order, out); pfdc_rtm_fwd_clusters,
-    # pfdc_rtm_bwd_clusters(nxe, nze, order)
+    # pfdc_rtm_bwd_clusters, pfdc_mod_clusters,
+    # pfdc_rec_fwd_clusters(nxe, nze, order)
     "pfdc_cluster_plan": [_I, _I, _I, _P],
     "pfdc_rtm_fwd_clusters": [_I, _I, _I],
     "pfdc_rtm_bwd_clusters": [_I, _I, _I],
+    "pfdc_mod_clusters": [_I, _I, _I],
+    "pfdc_rec_fwd_clusters": [_I, _I, _I],
     # pfdc_rec_fwd_run(a, b, v2dt2, v2_shot_stride, mask, patch, r, sx, sz,
-    #                  wav, swf, ns, nxe, nze, nxb, nzb, nt, order, parts,
-    #                  cx, cz, stream)
+    #                  wav, dwav, swf, ns, nxe, nze, nxb, nzb, nt, order,
+    #                  parts, cx, cz, per_step, resident, stream)
     "pfdc_rec_fwd_run": [_P, _P, _P, _I, _P, _P, _I, _P, _I,
-                         _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                         _P],
+                         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _I, _P, _P],
     # pfdc_rec_bwd_run(a, b, v2dt2, v2_shot_stride, mask, inj, x0, gz, swf,
     #                  out, ns, nxe, nze, nxb, nzb, nt, order, parts, cx, cz,
     #                  stream)
@@ -72,7 +77,9 @@ _SIGNATURES = {
     # pfdc_lap_padded_run(p, out, rows, pitch, nx, nz, order, parts, cx, cz,
     #                     stream)
     "pfdc_lap_padded_run": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # pfdc_mod_mma_run: pfdc_mod_run's arguments with parts after order
+    # pfdc_mod_mma_run(a, b, v2dt2, v2_shot_stride, mask, patch, r, sx, sz,
+    #                  gz, wav, seis, ns, nxe, nze, nxb, nx, nt, order, parts,
+    #                  cx, cz, stream)
     "pfdc_mod_mma_run": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I,
                          _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # pfdc_rtm_fwd_mma_run: pfdc_rtm_fwd_run's with parts after order

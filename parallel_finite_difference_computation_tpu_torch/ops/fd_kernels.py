@@ -9,10 +9,11 @@ raises. Nothing falls back.
 One step-kernel launch is one time step for every shot of the batch; the C
 entry point loops over the nt steps on PyTorch's current stream, so one
 wrapper call runs a whole batch, as one Pallas call ran a whole shot. The
-exact two-snapshot RTM passes run all nt steps in one launch where a shot
-fits a thread-block cluster (:func:`resident_plan`): ``rtm_fwd_cluster``
-and ``rtm_bwd_cluster``, elsewhere their per-step kernels; the C entry
-point reports the route it took. ``LAUNCHES``
+exact two-snapshot RTM passes and the exact modeling runs go through all nt
+steps in one launch where a shot fits a thread-block cluster
+(:func:`resident_plan`): ``rtm_fwd_cluster``, ``rtm_bwd_cluster``,
+``mod_cluster`` and ``rec_fwd_cluster``, elsewhere their per-step kernels;
+the C entry point reports the route it took. ``LAUNCHES``
 counts the launches of each kernel (nt per propagation of a per-step
 kernel, one per resident pass, one per Laplacian apply), and is added to
 only where the kernels are launched.
@@ -24,6 +25,8 @@ only where the kernels are launched.
 | ``rtm_bwd_step`` | ``csrc/rtm_bwd_step.cu`` | ``pallas_fd.py`` ``_rtm_kernel`` backward, ``_bwd_gpu_kernel`` (:534, :729) |
 | ``rtm_fwd_cluster`` | ``csrc/rtm_fwd_step.cu`` on ``cluster_loop.cuh`` | the same as ``rtm_fwd_step``, all nt steps in one launch |
 | ``rtm_bwd_cluster`` | ``csrc/rtm_bwd_step.cu`` on ``cluster_loop.cuh`` | the same as ``rtm_bwd_step``, all nt steps in one launch |
+| ``mod_cluster`` | ``csrc/mod_step.cu`` on ``cluster_loop.cuh`` | the same as ``mod_step``, all nt steps in one launch |
+| ``rec_fwd_cluster`` | ``csrc/rec_step.cu`` on ``cluster_loop.cuh`` | the same as ``rec_fwd_step``, all nt steps in one launch |
 | ``rec_fwd_step`` | ``csrc/rec_step.cu`` | ``pallas_stream.py`` ``_kstep_rec_kernel`` source mode (:1002) |
 | ``rec_bwd_step`` | ``csrc/rec_step.cu`` | ``pallas_stream.py`` ``_kstep_rec_kernel`` receiver mode (:1002) |
 | ``lap_apply`` | ``csrc/laplacian.cu`` | ``pallas_stencil.py`` ``_kernel`` (:60) |
@@ -75,7 +78,8 @@ __all__ = ["LAUNCHES", "reset_launches", "MXU3_NT_MAX", "MXU6_NT_MAX",
            "backward_image_cuda", "rtm_full_cuda", "laplacian_cuda"]
 
 LAUNCHES = {"mod_step": 0, "rtm_fwd_step": 0, "rtm_bwd_step": 0,
-            "rtm_fwd_cluster": 0, "rtm_bwd_cluster": 0,
+            "rtm_fwd_cluster": 0, "rtm_bwd_cluster": 0, "mod_cluster": 0,
+            "rec_fwd_cluster": 0,
             "rec_fwd_step": 0, "rec_bwd_step": 0, "lap_apply": 0,
             "mod_step_mma": 0, "rtm_fwd_step_mma": 0, "rtm_bwd_step_mma": 0,
             "rec_fwd_step_mma": 0, "rec_bwd_step_mma": 0}
@@ -270,10 +274,10 @@ def largest_fitting_k(kernels, order: int, k_max: int, parts: int = 0) -> int:
 
 class ResidentPlan(NamedTuple):
     """How a shot runs on the resident route of the exact two-snapshot RTM
-    (``pfdc::ClusterPlan``, csrc/cluster_loop.cuh): ``cluster`` CTAs, each
-    a slab of ``rows`` or ``rows - 1`` x nze cells, ``threads`` a CTA (one
-    strip of cells each), and the dynamic shared memory of a forward and a
-    backward CTA."""
+    and modeling (``pfdc::ClusterPlan``, csrc/cluster_loop.cuh):
+    ``cluster`` CTAs, each a slab of ``rows`` or ``rows - 1`` x nze cells,
+    ``threads`` a CTA (one strip of cells each), and the dynamic shared
+    memory of a forward (the modeling kernels' too) and a backward CTA."""
     cluster: int
     rows: int
     threads: int
@@ -282,7 +286,8 @@ class ResidentPlan(NamedTuple):
 
 
 def resident_plan(nxe: int, nze: int, order: int):
-    """The route rule of ``pfdc_rtm_fwd_run``/``pfdc_rtm_bwd_run``
+    """The route rule of ``pfdc_rtm_fwd_run``/``pfdc_rtm_bwd_run``, and of
+    ``pfdc_mod_run``/``pfdc_rec_fwd_run`` with the exact taps
     (``cluster_plan``, csrc/cluster_loop.cuh), asked of the built library:
     the first cluster size whose slabs hold at least order/2 rows each,
     whose strips a CTA's threads cover and whose backward levels fit a
@@ -382,12 +387,25 @@ def forward_modeling_cuda(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
     """Forward modeling (``mod_main``, and ``rtm_main``'s forward half) for
     a batch of shots: the counterpart of ``forward_modeling_pallas`` and of
     ``forward_modeling_tiled``. Returns ``(p, pp, recorded)`` as
-    :func:`..solver.forward_modeling`: ``record="trace"`` and ``"none"``
-    run ``mod_step``, or ``mod_step_mma`` (the x taps split) where
-    ``lap_impl`` resolves to a split-bf16 tier (:func:`lap_parts`);
-    ``"wavefield"`` runs ``rec_fwd_step``, or ``rec_fwd_step_mma`` (the z
-    taps split), which write the (ns, nt, nx, nz) interior frames."""
-    parts = lap_parts(lap_impl, ctx)
+    :func:`..solver.forward_modeling`. With the exact taps, ``record=
+    "trace"`` and ``"none"`` run ``mod_cluster`` where
+    :func:`resident_plan` takes the shot (all nt steps in one launch), else
+    ``mod_step``; ``"wavefield"`` runs ``rec_fwd_cluster``, else
+    ``rec_fwd_step``, which write the (ns, nt, nx, nz) interior frames; the
+    route is the one the entry point reports. Where ``lap_impl`` resolves
+    to a split-bf16 tier (:func:`lap_parts`) they run ``mod_step_mma`` (the
+    x taps split) and ``rec_fwd_step_mma`` (the z taps split)."""
+    return _forward_modeling(ctx, v2, wavelet, sx, sz, gz, source, taper,
+                             record, lap_parts(lap_impl, ctx))
+
+
+def _forward_modeling(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
+                      source: str, taper: str, record: str, parts: int,
+                      per_step: bool = False):
+    """:func:`forward_modeling_cuda` with the Laplacian in ``parts`` bf16
+    splits. ``per_step`` runs the exact per-step kernels (``mod_step``,
+    ``rec_fwd_step``) at any shape (the probe and ``chip_smoke.py`` time
+    both routes)."""
     if record not in solver.RECORD_MODES:
         raise ValueError(f"unknown record mode {record!r}")
     sxs = shot_positions(sx)
@@ -407,41 +425,45 @@ def forward_modeling_cuda(ctx: FDContext, v2, wavelet, sx, sz: int, gz: int,
     v2dt2 = v2 * ctx.dt2
     mask = _dev_f32(ctx.mask_all if taper == "all" else ctx.mask_top, dev)
     patch_d = _dev_f32(patch, dev)
+    wav_d = _dev_f32(wav, dev)
     sx_d = torch.tensor(sxs, dtype=torch.int32, device=dev)
     a = torch.zeros((ns, ctx.nxe, ctx.nze), dtype=torch.float32, device=dev)
     b = torch.zeros_like(a)
     keep, (cx, cz) = _coef_args(ctx)
+    resident = ctypes.c_int(0)
+    args = (a.data_ptr(), b.data_ptr(), v2dt2.data_ptr(), v2_stride,
+            mask.data_ptr(), patch_d.data_ptr(), r, sx_d.data_ptr(), sz)
     if record == "wavefield":
         rec = torch.empty((ns, ctx.nt, ctx.nx, ctx.nz), dtype=torch.float32,
                           device=dev)
-        name = "rec_fwd_step_mma" if parts else "rec_fwd_step"
         with torch.cuda.device(dev):
             rc = _build.library().pfdc_rec_fwd_run(
-                a.data_ptr(), b.data_ptr(), v2dt2.data_ptr(), v2_stride,
-                mask.data_ptr(), patch_d.data_ptr(), r, sx_d.data_ptr(), sz,
-                wav.ctypes.data, rec.data_ptr(), ns, ctx.nxe, ctx.nze,
-                ctx.nxb, ctx.nzb, ctx.nt, ctx.order, parts, cx, cz,
-                _stream(dev))
-        _raise_on(rc, name)
-        LAUNCHES[name] += ctx.nt
+                *args, wav.ctypes.data, wav_d.data_ptr(), rec.data_ptr(), ns,
+                ctx.nxe, ctx.nze, ctx.nxb, ctx.nzb, ctx.nt, ctx.order, parts,
+                cx, cz, int(per_step), ctypes.byref(resident), _stream(dev))
+        names = ("rec_fwd_cluster", "rec_fwd_step_mma" if parts
+                 else "rec_fwd_step")
     else:
         rec = torch.empty((ns, ctx.nt, ctx.nx), dtype=torch.float32,
                           device=dev)
-        name = "mod_step_mma" if parts else "mod_step"
-        args = (a.data_ptr(), b.data_ptr(), v2dt2.data_ptr(), v2_stride,
-                mask.data_ptr(), patch_d.data_ptr(), r, sx_d.data_ptr(), sz,
-                gz, wav.ctypes.data, rec.data_ptr(), ns, ctx.nxe, ctx.nze,
-                ctx.nxb, ctx.nx, ctx.nt, ctx.order)
+        dims = (ns, ctx.nxe, ctx.nze, ctx.nxb, ctx.nx, ctx.nt, ctx.order)
         with torch.cuda.device(dev):
             lib = _build.library()
             if parts:
-                rc = lib.pfdc_mod_mma_run(*args, parts, cx, cz, _stream(dev))
+                rc = lib.pfdc_mod_mma_run(*args, gz, wav.ctypes.data,
+                                          rec.data_ptr(), *dims, parts, cx,
+                                          cz, _stream(dev))
             else:
-                rc = lib.pfdc_mod_run(*args, cx, cz, _stream(dev))
-        _raise_on(rc, name)
-        LAUNCHES[name] += ctx.nt
+                rc = lib.pfdc_mod_run(
+                    *args, gz, wav.ctypes.data, wav_d.data_ptr(),
+                    rec.data_ptr(), int(record == "trace"), *dims, cx, cz,
+                    int(per_step), ctypes.byref(resident), _stream(dev))
+        names = ("mod_cluster", "mod_step_mma" if parts else "mod_step")
         if record == "none":
             rec = None
+    name, count = ((names[0], 1) if resident.value else (names[1], ctx.nt))
+    _raise_on(rc, name)
+    LAUNCHES[name] += count
     newest, prev = _newest_prev(a, b, ctx.nt)
     return newest, prev * mask, rec
 

@@ -56,6 +56,9 @@ def kernels(tree: str) -> dict:
         if m:
             cur = out.setdefault(m.group(1).strip(), [])
             continue
+        if re.match(r"\s*=+\s*$", line):
+            cur = None     # a section's header (arch, code version) follows
+            continue
         code = re.sub(r"/\*[0-9a-f]+\*/|/\* 0x[0-9a-f]+ \*/", "", line)
         code = code.strip()
         if cur is not None and code and not code.startswith(("..", "Fatbin",

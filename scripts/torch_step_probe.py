@@ -8,7 +8,7 @@ parts), each beside its exact twin.
 
     python3 scripts/torch_step_probe.py TREE [TREE ...]
                                         [--variants NAME ...] [--rounds N]
-                                        [--only REGEX] [--rtm]
+                                        [--only REGEX] [--rtm | --mod]
 
 Each tree runs in a process of its own that imports the port from that
 tree (building its kernels there). The process prints the compiler's
@@ -61,6 +61,22 @@ warp for each 16 x 16: ``kBwdTileX``/``kBwdTileZ`` in
 Prints one JSON line per process and the medians per tree, beside the
 card's name and power limit.
 
+``--mod`` probes the exact modeling kernels instead (``mod_cluster`` and
+``rec_fwd_cluster``, ``mod_loop`` of ``csrc/cluster_loop.cuh``, and the
+per-step ``mod_step``/``rec_fwd_step``): the compiler's lines of each at
+orders 8 and 16, the clusters the card holds at once at 3lay, both routes
+bitwise against the plain version at 3lay (8 shots of 231 x 231
+extended, nt = 20, orders 4, 8, 10 and 16; 1lay, 281 x 181 extended, at
+order 8) for the modeling (the Gaussian source, the all-edge taper, the
+trace) and rtm_main's forward (the point source, the top taper, the
+frames), then, at 1lay and 3lay, order 8, nt = 1001, each call on each
+route, and at 3lay the resident calls at 7 shots and 1, median of 3. A
+tree without the modeling's resident route (the parent) times its
+per-step kernels under the resident names. Its variants: ``frame_pairs``
+(a column pair's frames stored as one 8-byte vector where the frame row
+allows) and ``amp_now`` (the wavelet sample loaded at its step, not a
+step ahead).
+
 ``--rtm`` probes the exact two-snapshot RTM instead (``rtm_fwd_cluster``
 and ``rtm_bwd_cluster`` on ``csrc/cluster_loop.cuh``, and the per-step
 ``rtm_fwd_step``/``rtm_bwd_step``): the compiler's lines of both at
@@ -103,6 +119,35 @@ _SIZES = "constexpr int kClusterSizes[] = {16, 8, 4, 2};"
 _ROWS = "constexpr int kClusterRows = 4;"
 _COLS = "constexpr int kClusterCols = 2;"
 _SYNC = "    cooperative_groups::cluster_group& cl) {\n  cl.sync();"
+_FRAMES = """          if (kRecord == kRecordFrames && gx >= g.nxb &&
+              gx < g.nxb + g.nx && iz >= g.nzb && iz < g.nzb + g.nz) {
+            rec_shot[(static_cast<size_t>(it) * g.nx + (gx - g.nxb)) * g.nz +
+                     (iz - g.nzb)] = m * centre;
+          }
+"""
+_STORE_ROW = "        store_cols(smem + old + q, stored);\n"
+_PAIRS = """        if (kRecord == kRecordFrames && gx >= g.nxb && gx < g.nxb + g.nx) {
+          const int fz = st.iz0 - g.nzb;
+          float* f = rec_shot +
+                     (static_cast<size_t>(it) * g.nx + (gx - g.nxb)) * g.nz +
+                     fz;
+          const float f0 = mr[r][0] * w[r + H].v[0];
+          const float f1 = mr[r][1] * w[r + H].v[1];
+          const bool in0 = fz >= 0 && fz < g.nz;
+          const bool in1 = fz + 1 >= 0 && fz + 1 < g.nz;
+          if (in0 && in1 && (reinterpret_cast<size_t>(f) & 7) == 0) {
+            *reinterpret_cast<float2*>(f) = make_float2(f0, f1);
+          } else {
+            if (in0) f[0] = f0;
+            if (in1) f[1] = f1;
+          }
+        }
+"""
+_AMP = "      const float amp = pw ? g.wav[it] : 0.0f;\n"
+_AMP_AHEAD = """      const float amp = amp_next;
+      if (pw && it + 1 < g.nt) amp_next = g.wav[it + 1];
+"""
+_AMP_FIRST = "  float amp_next = pw && g.nt > 0 ? g.wav[0] : 0.0f;\n"
 VARIANTS = {
     "step64x64": ("step_strip.cuh", _STEP_FIRST,
                   "kStepShapes[] = {{64, 64}};"),
@@ -162,6 +207,15 @@ VARIANTS = {
     "cluster8c4": [("cluster_loop.cuh", _SIZES,
                     _SIZES.replace("{16, 8, 4, 2}", "{8, 4, 2}")),
                    ("cluster_loop.cuh", _COLS, _COLS.replace("2;", "4;"))],
+    # the modeling loop (mod_loop, --mod): the frames of a column pair
+    # stored as one 8-byte vector where the frame's row puts it on 8 bytes
+    # (at 3lay's odd nz every other row), else as two floats
+    "frame_pairs": [("cluster_loop.cuh", _FRAMES, ""),
+                    ("cluster_loop.cuh", _STORE_ROW, _STORE_ROW + _PAIRS)],
+    # the wavelet sample loaded at its step, not a step ahead, by the
+    # threads whose cells the source's window covers
+    "amp_now": [("cluster_loop.cuh", _AMP_AHEAD, _AMP),
+                ("cluster_loop.cuh", _AMP_FIRST, "")],
     # timing only, wrong results: no cluster barrier between steps
     "nosync": ("cluster_loop.cuh", _SYNC, _SYNC.replace("cl.sync()",
                                                         "__syncthreads()")),
@@ -563,9 +617,119 @@ print(json.dumps(res))
 '''
 
 
+MOD_CHILD = r'''
+import inspect, json, re, statistics, sys
+sys.path.insert(0, TREE)
+import numpy as np, torch
+pkg = "parallel_finite_difference_computation_tpu_torch"
+solver = __import__(pkg + ".solver", fromlist=["x"])
+fk = __import__(pkg + ".ops.fd_kernels", fromlist=["x"])
+build = __import__(pkg + ".ops._build", fromlist=["x"])
+dev = torch.device("cuda", 0)
+lib = build.library()
+resident = hasattr(fk, "_forward_modeling")
+fn = None
+for line in build.build_log().splitlines():
+    m = re.search(r"Compiling entry function '(\S+)'", line)
+    if m:
+        fn = m.group(1)
+    name = fn and re.search(
+        r"\d((?:mod_step|mod_cluster|rec_fwd_step|rec_fwd_cluster)"
+        r"I(?:L\w\d+E)+)E", fn)
+    if (name and re.search(r"ILi[48]E", name[1])
+            and ("registers" in line or "spill" in line)):
+        print(f"[ptxas] {name[1]}: {line.strip()}", file=sys.stderr)
+res = {"bitwise": True}
+if resident:
+    res["clusters mod 3lay"] = lib.pfdc_mod_clusters(231, 231, 8)
+    res["clusters rec_fwd 3lay"] = lib.pfdc_rec_fwd_clusters(231, 231, 8)
+    print(f"[plan] 3lay order 8: {fk.resident_plan(231, 231, 8)}; clusters "
+          f"held at once: mod_cluster {res['clusters mod 3lay']}, "
+          f"rec_fwd_cluster {res['clusters rec_fwd 3lay']}", file=sys.stderr)
+
+def timed(case):
+    return not ONLY or re.search(ONLY, case) is not None
+
+gen = torch.Generator(device=dev).manual_seed(0)
+rng = np.random.default_rng(0)
+SHAPES = {"3lay": (151, 151), "1lay": (201, 101)}
+KINDS = {"mod": ("gaussian", "all", "trace"),
+         "rec_fwd": ("point", "top", "wavefield")}
+
+def case(order, nt, model="3lay"):
+    nx, nz = SHAPES[model]
+    ctx = solver.FDContext.create(nx, nz, nt, dx=10.0, dz=10.0, dt=0.001,
+                                  order=order, nxb=40, nzb=40, fac=0.01,
+                                  exact_taper=False)
+    v2 = (1500.0 + 2000.0 * torch.rand((ctx.nxe, ctx.nze), device=dev,
+                                       generator=gen)) ** 2
+    wav = np.float32(rng.standard_normal(nt))
+    return ctx, v2, wav
+
+sx, sz, gz = [40 + 20 * i for i in range(8)], 40, 40
+routes = (False, True) if resident else (None,)
+
+def run(ctx, v2, wav, kind, per_step, ns=8):
+    source, taper, record = KINDS[kind]
+    if per_step is None:
+        return fk.forward_modeling_cuda(ctx, v2, wav, sx[:ns], sz, gz,
+                                        source, taper, record)
+    return fk._forward_modeling(ctx, v2, wav, sx[:ns], sz, gz, source,
+                                taper, record, 0, per_step=per_step)
+
+for order, model in ((4, "3lay"), (8, "3lay"), (10, "3lay"), (16, "3lay"),
+                     (8, "1lay")):
+    ctx, v2, wav = case(order, 20, model)
+    for kind, (source, taper, record) in KINDS.items():
+        want = solver.forward_modeling(ctx, v2, wav, sx, sz, gz, source,
+                                       taper, record)
+        for per_step in routes:
+            got = run(ctx, v2, wav, kind, per_step)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            res["bitwise"] &= same
+            print(f"[check] {kind} {model} order {order} nt 20, "
+                  f"{'per-step' if per_step else 'resident'} route: "
+                  f"{'bitwise' if same else 'DIFFERS'}", file=sys.stderr)
+
+def median_ms(fn):
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+for model in ("1lay", "3lay"):
+    ctx, v2, wav = case(8, 1001, model)
+    for kind in KINDS:
+        for per_step in routes:
+            key = f"{kind}{' per-step' if per_step else ''} {model}"
+            if timed(key):
+                res[key] = median_ms(lambda: run(ctx, v2, wav, kind,
+                                                 per_step))
+            torch.cuda.empty_cache()
+if resident:
+    for kind in KINDS:
+        for ns in (7, 1):
+            # one wave of the clusters the card holds at once, and one shot
+            key = f"{kind} 3lay {ns} shots"
+            if timed(key):
+                res[key] = median_ms(lambda: run(ctx, v2, wav, kind, False,
+                                                 ns))
+print(json.dumps(res))
+'''
+
+
 if __name__ == "__main__":
-    rtm = "--rtm" in sys.argv
-    if rtm:
-        sys.argv.remove("--rtm")
-    sys.exit(torch_bwd_probe.main(RTM_CHILD if rtm else CHILD, VARIANTS,
-                                  __doc__))
+    child = CHILD
+    for flag, flag_child in (("--rtm", RTM_CHILD), ("--mod", MOD_CHILD)):
+        if flag in sys.argv:
+            sys.argv.remove(flag)
+            child = flag_child
+    sys.exit(torch_bwd_probe.main(child, VARIANTS, __doc__))

@@ -154,7 +154,8 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
         fk.backward_recorded_cuda(ctx, v2, dobs, GZ, lap_impl=lap_impl)
     assert fk.LAUNCHES == {"mod_step": 0, "rtm_fwd_step": 0,
                            "rtm_bwd_step": 0, "rtm_fwd_cluster": 0,
-                           "rtm_bwd_cluster": 0, "rec_fwd_step": 0,
+                           "rtm_bwd_cluster": 0, "mod_cluster": 0,
+                           "rec_fwd_cluster": 0, "rec_fwd_step": 0,
                            "rec_bwd_step": 0, "lap_apply": 0,
                            "mod_step_mma": 0, "rtm_fwd_step_mma": 0,
                            "rtm_bwd_step_mma": 0, "rec_fwd_step_mma": 0,
@@ -362,11 +363,13 @@ def test_kernels_match_plain_on_the_card(cuda_device, order, nt):
     pi = solver.fd_back(ctx, v2, *pp, dobs, GZ)
     torch.cuda.synchronize()
     assert float((ki - pi).abs().max() / pi.abs().max()) <= GATE
-    # the 44 x 40 extended shots fit a cluster: one resident launch a pass
+    # the 44 x 40 extended shots fit a cluster: one resident launch a pass,
+    # the modeling's too
     assert fk.resident_plan(ctx.nxe, ctx.nze, order) is not None
-    assert fk.LAUNCHES == {"mod_step": nt, "rtm_fwd_step": 0,
+    assert fk.LAUNCHES == {"mod_step": 0, "rtm_fwd_step": 0,
                            "rtm_bwd_step": 0, "rtm_fwd_cluster": 1,
-                           "rtm_bwd_cluster": 1, "rec_fwd_step": 0,
+                           "rtm_bwd_cluster": 1, "mod_cluster": 1,
+                           "rec_fwd_cluster": 0, "rec_fwd_step": 0,
                            "rec_bwd_step": 0, "lap_apply": 0,
                            "mod_step_mma": 0, "rtm_fwd_step_mma": 0,
                            "rtm_bwd_step_mma": 0, "rec_fwd_step_mma": 0,
@@ -425,7 +428,10 @@ def test_rec_kernels_match_plain_on_the_card(cuda_device, order, nt, nxb,
                                   x_off_quirk=quirk, next_shot_first=nxt)
         torch.cuda.synchronize()
         assert float((ki - pi).abs().max() / pi.abs().max()) <= GATE
-    assert fk.LAUNCHES["rec_fwd_step"] == 3 * nt
+    # the shots fit a cluster: rec_fwd_cluster, one launch a forward pass
+    assert fk.resident_plan(ctx.nxe, ctx.nze, order) is not None
+    assert fk.LAUNCHES["rec_fwd_cluster"] == 3
+    assert fk.LAUNCHES["rec_fwd_step"] == 0
     assert fk.LAUNCHES["rec_bwd_step"] == 4 * nt
 
 
