@@ -31,17 +31,22 @@ Run from the root of the repository, on a machine with one CUDA card and
    <= 1e-5), the gathers bitwise the forced per-step route's of phase 3,
    and the whole slice at a small size against the plain path on the CPU;
 5. rec kernels vs plain: the frames of ``rec_fwd_cluster`` (resident,
-   bitwise) and ``rec_fwd_step`` (forced), ``rec_bwd_step`` in frame
-   and image mode and ``rtm_full_cuda`` against their plain versions at the
-   3lay shapes (``exact_taper=False``, phase 4's gathers as ``dobs``) and
-   in short runs (nt=20, 21) at orders 4 and 10 with nxb != nzb (one of
-   them with the receiver row clamped) and ``next_shot_first`` != 0; the
-   forward's two routes also at order 16 (nt=20) and on phase 3's 256 x
-   256 and 260 x 260 grids; the clusters the card holds at once;
-   gate: max relative error <= 1e-5;
+   bitwise) and ``rec_fwd_step`` (forced); ``rec_bwd_cluster`` (resident)
+   and ``rec_bwd_step`` (forced) in frame mode (the frames and the final
+   pair) and in image mode (against the plain frames' correlation summed
+   in time order, as both routes sum it, and against the plain
+   ``backward_image``), and ``rtm_full_cuda`` against their plain
+   versions at the 3lay shapes (``exact_taper=False``, phase 4's gathers
+   as ``dobs``) and in short runs (nt=20, 21) at orders 4 and 10 with nxb
+   != nzb (one of them with the receiver row clamped) and
+   ``next_shot_first`` != 0; both passes' two routes also on phase 3's
+   256 x 256 and 260 x 260 grids, the forward's at order 16 (nt=20); the
+   clusters the card holds at once; gate: max relative error <= 1e-5, the
+   resident kernels bitwise the plain versions summed in their order and
+   the forced per-step route;
 6. rtm_main path: ``run_rtm_cpu`` on the 3lay config, ns=8, after phase
-   4's ``run_modeling``: the launch counts (``rec_fwd_cluster`` once,
-   ``rec_bwd_step`` nt times), ``dir.image`` and ``dir.img``
+   4's ``run_modeling``: the launch counts (``rec_fwd_cluster`` and
+   ``rec_bwd_cluster`` once each), ``dir.image`` and ``dir.img``
    against the returned arrays, the image against the plain path on the
    card (rel RMS <= 1e-5), and the small config card vs plain on the CPU;
 7. stencil path: ``run_stencil`` through a file at the reference stencil's
@@ -313,6 +318,8 @@ KERNELS = {
     "mod_cluster": (f"{PKG}/csrc/mod_step.cu",
                     "parallel_finite_difference_computation_tpu/ops/pallas_fd.py:423"),
     "rec_fwd_cluster": (f"{PKG}/csrc/rec_step.cu",
+                        "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:1002"),
+    "rec_bwd_cluster": (f"{PKG}/csrc/rec_step.cu",
                         "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:1002"),
     "rec_fwd_step": (f"{PKG}/csrc/rec_step.cu",
                      "parallel_finite_difference_computation_tpu/ops/pallas_stream.py:1002"),
@@ -1164,6 +1171,61 @@ def main() -> int:
         out.update({k: e for k, (e,) in fwd.items()})
         return pf[2]
 
+    def rec_bwd_errs(ctx, v2, d, gz, quirk, nxt, swf, out, record=False):
+        """Both routes of rtm_main's backward against plain, into out as
+        (max rel, max abs) by kernel and mode: the resident kernel
+        (rec_bwd_cluster) where the shot fits a cluster and the per-step
+        one (rec_bwd_step) forced; the frames and the final pair against
+        backward_recorded, the image against the plain frames'
+        correlation summed in time order (as both routes sum it) and
+        against backward_image; the launches each call counted; with
+        record, the forced image call's launches go into rec_bwd_step's
+        record. The resident route is held bitwise to the forced one."""
+        plan = fk.resident_plan(ctx.nxe, ctx.nze, ctx.order)
+        pb = solver.backward_recorded(ctx, v2, d, gz, x_off_quirk=quirk,
+                                      next_shot_first=nxt)
+        pt = torch.zeros_like(swf[:, 0])
+        for it in range(ctx.nt):
+            pt = pt + swf[:, ctx.nt - 1 - it] * pb[2][:, it]
+        pi = solver.backward_image(ctx, v2, swf, d, gz, x_off_quirk=quirk,
+                                   next_shot_first=nxt)
+        got = []
+        for per_step in (False, True):
+            name = ("rec_bwd_step" if per_step or plan is None
+                    else "rec_bwd_cluster")
+            sfx = " (forced)" if per_step and plan else ""
+            fk.reset_launches()
+            kb = fk._rec_bwd(ctx, v2, d, gz, quirk, nxt, 0,
+                             per_step=per_step)
+            frames = dict(fk.LAUNCHES)
+            fk.reset_launches()
+            ki = fk._rec_bwd(ctx, v2, d, gz, quirk, nxt, 0, swf=swf,
+                             per_step=per_step)
+            torch.cuda.synchronize()
+            n = 1 if name == "rec_bwd_cluster" else ctx.nt
+            for mode, counts in (("frames", frames),
+                                 ("image", dict(fk.LAUNCHES))):
+                want = {name: n}
+                have = {k: v for k, v in counts.items() if v}
+                check(have == want, f"rtm_main backward route ({mode}, "
+                                    f"per_step={per_step}): launches "
+                                    f"{have}, expected {want}")
+            if record and per_step:
+                results[name]["launches"] = fk.LAUNCHES[name]
+            out[f"{name} frames{sfx}"] = errs(kb, pb)
+            out[f"{name} image{sfx}"] = errs(ki, pt)
+            out[f"{name} image{sfx} vs backward_image"] = errs(ki, pi)
+            got.append((*kb, ki))
+        if plan:
+            same = all(torch.equal(a, b) for a, b in zip(*got))
+            print(f"[rec vs plain] rec_bwd_cluster bitwise the forced "
+                  f"rec_bwd_step (frames, pair, image) at {ctx.nxe} x "
+                  f"{ctx.nze} order {ctx.order} nt {ctx.nt} x_off_quirk "
+                  f"{quirk}: {same}", flush=True)
+            check(same, f"rec_bwd_cluster differs from the forced "
+                        f"rec_bwd_step at {ctx.nxe} x {ctx.nze}")
+        return out
+
     def compare_rec(p, dobs, quirk):
         ctx, v2, wav, d, nxt = rec_inputs(p, dobs)
         gp = Geometry.from_params(p)
@@ -1174,17 +1236,8 @@ def main() -> int:
             swf = solver.forward_modeling(ctx, v2, wav, gp.sx, gp.sz, gp.gz,
                                           source="point", taper="top",
                                           record="wavefield")[2]
-        kb = fk.backward_recorded_cuda(ctx, v2, d, gp.gz, x_off_quirk=quirk,
-                                       next_shot_first=nxt)
-        pb = solver.backward_recorded(ctx, v2, d, gp.gz, x_off_quirk=quirk,
-                                      next_shot_first=nxt)
-        out["rec_bwd_step frames"] = errs(kb, pb)
-        del kb, pb
-        ki = fk.backward_image_cuda(ctx, v2, swf, d, gp.gz,
-                                    x_off_quirk=quirk, next_shot_first=nxt)
-        pi = solver.backward_image(ctx, v2, swf, d, gp.gz,
-                                   x_off_quirk=quirk, next_shot_first=nxt)
-        out["rec_bwd_step image"] = errs(ki, pi)
+        rec_bwd_errs(ctx, v2, d, gp.gz, quirk, nxt, swf, out,
+                     record=p is P and quirk)
         del swf
         kr = fk.rtm_full_cuda(ctx, v2, wav, d, gp.sx, gp.sz, gp.gz,
                               x_off_quirk=quirk, next_shot_first=nxt)
@@ -1193,6 +1246,12 @@ def main() -> int:
         out["rtm_full_cuda"] = errs(kr, pr)
         torch.cuda.synchronize()
         return out, solver.receiver_offset(ctx, quirk)
+
+    def bitwise_kernel(k: str) -> bool:
+        """Whether the result k of phase 5 must be bitwise: the resident
+        kernels against the plain versions summed in their order."""
+        return (k.split(" ")[0].endswith("_cluster")
+                and "backward_image" not in k)
 
     rng = np.random.default_rng(7)
     runs = [(P, data, True)]
@@ -1210,36 +1269,48 @@ def main() -> int:
                   f"{absd:.3e}", flush=True)
             check(rel <= GATE, f"{k} order {p.order} nt {p.nt}: {rel:.3e} > "
                                f"{GATE}")
-            check(not k.endswith("_cluster") or absd == 0,
+            check(not bitwise_kernel(k) or absd == 0,
                   f"{k} order {p.order} nt {p.nt} is not bitwise")
         if p is P and quirk:
             results["rec_fwd_cluster"]["max_abs_err"] = out[
                 "rec_fwd_cluster"][1]
             results["rec_fwd_step"]["max_abs_err"] = out[
                 "rec_fwd_step (forced)"][1]
+            results["rec_bwd_cluster"]["max_abs_err"] = max(
+                out["rec_bwd_cluster frames"][1],
+                out["rec_bwd_cluster image"][1])
             results["rec_bwd_step"]["max_abs_err"] = max(
-                out["rec_bwd_step frames"][1], out["rec_bwd_step image"][1])
-    # the forward's two routes at order 16 (3lay, nt 20) and, 2 shots, on
-    # phase 3's grids at the resident route's limit (256 x 256 extended)
-    # and past it (260 x 260)
+                out["rec_bwd_step frames (forced)"][1],
+                out["rec_bwd_step image (forced)"][1])
+    # the forward's two routes at order 16 (3lay, nt 20); both passes' two
+    # routes, 2 shots, on phase 3's grids at the resident route's limit
+    # (256 x 256 extended) and past it (260 x 260)
     for p in (dataclasses.replace(P, order=16, nt=20),
               *(dataclasses.replace(P, nx=n, nz=n, nt=20, ns=2, ds=100)
                 for n in (176, 180))):
-        ctx, v2, wav, _, _ = rec_inputs(p, np.zeros((p.ns, p.nx, p.nt)))
+        dobs = rng.standard_normal((p.ns, p.nx, p.nt)).astype(np.float32)
+        ctx, v2, wav, d, nxt = rec_inputs(p, dobs)
         out = {}
-        rec_fwd_errs(p, ctx, v2, wav, out)
+        swf = rec_fwd_errs(p, ctx, v2, wav, out)
+        if p.ns == 2:
+            gp = Geometry.from_params(p)
+            rec_bwd_errs(ctx, v2, d, gp.gz, True, nxt, swf, out)
         for k, (rel, absd) in out.items():
             print(f"[rec vs plain] {k} order {p.order} nt {p.nt} ns {p.ns} "
-                  f"at {ctx.nxe} x {ctx.nze}: max rel err {rel:.3e}, max "
-                  f"abs err {absd:.3e}", flush=True)
-            check(rel <= GATE and (not k.endswith("_cluster") or absd == 0),
+                  f"at {ctx.nxe} x {ctx.nze} (plan "
+                  f"{fk.resident_plan(ctx.nxe, ctx.nze, p.order)}): max rel "
+                  f"err {rel:.3e}, max abs err {absd:.3e}", flush=True)
+            check(rel <= GATE and (not bitwise_kernel(k) or absd == 0),
                   f"{k} at {ctx.nxe} x {ctx.nze} order {p.order}: {rel:.3e},"
                   f" {absd:.3e}")
+        del swf
     for order in (4, 8, 16):
-        print(f"[rec vs plain] 3lay order {order}: clusters of "
-              f"rec_fwd_cluster the card holds at once: "
-              f"{lib.pfdc_rec_fwd_clusters(P.nxe, P.nze, order)} (a batch of "
-              f"{P.ns} shots)", flush=True)
+        print(f"[rec vs plain] 3lay order {order}: clusters the card holds "
+              f"at once: rec_fwd_cluster "
+              f"{lib.pfdc_rec_fwd_clusters(P.nxe, P.nze, order)}, "
+              f"rec_bwd_cluster "
+              f"{lib.pfdc_rec_bwd_clusters(P.nxe, P.nze, order)} (a batch "
+              f"of {P.ns} shots)", flush=True)
 
     phase_done("rec kernels vs plain")
 
@@ -1256,7 +1327,7 @@ def main() -> int:
         written_locs = np.fromfile(os.path.join(tmp, "dir.img"), np.float32)
     print(f"[rtm_main path] run_rtm_cpu, 3lay ns={P.ns} nt={P.nt}: "
           f"{wall:.3f} s wall incl. host; launches {launches}", flush=True)
-    want = {"rec_fwd_cluster": 1, "rec_bwd_step": P.nt}
+    want = {"rec_fwd_cluster": 1, "rec_bwd_cluster": 1}
     for k, n in launches.items():
         check(n == want.get(k, 0), f"{k} launched {n} times, expected "
                                    f"{want.get(k, 0)}")
@@ -1744,23 +1815,29 @@ def main() -> int:
                 0, per_step=True)),
         "rec_fwd_cluster": (rec_fwd(fk.forward_modeling_cuda),
                             rec_fwd(solver.forward_modeling), rec_fwd_step),
-        "rec_bwd_step": (
+        # rtm_main's backward in image mode (the main path's) and in frame
+        # mode: the resident kernel and the per-step one (forced)
+        "rec_bwd_cluster": (
             lambda: fk.backward_image_cuda(ctx_c, v2_c, swf, d_c, g.gz,
                                            next_shot_first=nxt_c),
             lambda: solver.backward_image(ctx_c, v2_c, swf, d_c, g.gz,
-                                          next_shot_first=nxt_c)),
-        "rec_bwd_step frames": (
+                                          next_shot_first=nxt_c),
+            lambda: fk._rec_bwd(ctx_c, v2_c, d_c, g.gz, True, nxt_c, 0,
+                                swf=swf, per_step=True)),
+        "rec_bwd_cluster frames": (
             lambda: fk.backward_recorded_cuda(ctx_c, v2_c, d_c, g.gz,
                                               next_shot_first=nxt_c),
             lambda: solver.backward_recorded(ctx_c, v2_c, d_c, g.gz,
-                                             next_shot_first=nxt_c)),
+                                             next_shot_first=nxt_c),
+            lambda: fk._rec_bwd(ctx_c, v2_c, d_c, g.gz, True, nxt_c, 0,
+                                per_step=True)),
         "rtm_main": (
             lambda: fk.rtm_full_cuda(ctx_c, v2_c, wav_c, d_c, g.sx, g.sz,
                                      g.gz, next_shot_first=nxt_c),
             lambda: solver.rtm_shot_full(ctx_c, v2_c, wav_c, d_c, g.sx, g.sz,
                                          g.gz, next_shot_first=nxt_c),
-            lambda: fk.backward_image_cuda(ctx_c, v2_c, rec_fwd_step()[2],
-                                           d_c, g.gz, next_shot_first=nxt_c)),
+            lambda: fk._rec_bwd(ctx_c, v2_c, d_c, g.gz, True, nxt_c, 0,
+                                swf=rec_fwd_step()[2], per_step=True)),
     }
 
     times = {}
@@ -2477,12 +2554,13 @@ def main() -> int:
                   f"{p_.ns}, nt {p_.nt}): {time.perf_counter() - t0:.3f} s "
                   f"wall; launches {dict(fk.LAUNCHES)}, "
                   f"{dict(stream.LAUNCHES)}", flush=True)
-            # the forward resident where the shot fits a cluster (3lay)
-            fwd = (("rec_fwd_cluster", 1)
-                   if fk.resident_plan(p_.nxe, p_.nze, p_.order)
-                   else ("rec_fwd_step", p_.nt))
+            # both passes resident where the shot fits a cluster (3lay)
+            plan_ = fk.resident_plan(p_.nxe, p_.nze, p_.order)
+            fwd, bwd = ((("rec_fwd_cluster", 1), ("rec_bwd_cluster", 1))
+                        if plan_ else (("rec_fwd_step", p_.nt),
+                                       ("rec_bwd_step", p_.nt)))
             check(fk.LAUNCHES[fwd[0]] == fwd[1]
-                  and fk.LAUNCHES["rec_bwd_step"] == p_.nt
+                  and fk.LAUNCHES[bwd[0]] == bwd[1]
                   and np.isfinite(outs[backend][1]).all()
                   and np.abs(outs[backend][0]).max() > 0,
                   f"run_rtm_cpu {label} {backend}")
@@ -3542,7 +3620,7 @@ def main() -> int:
     print(f"[split rtm_main] 3lay run_rtm_cpu (whole-grid tier) under "
           f"PFDC_LAP_IMPL=auto: launches {launches}, images bitwise the "
           f"exact run's: {np.array_equal(auto3, exact3)}", flush=True)
-    check(launches == {"rec_fwd_cluster": 1, "rec_bwd_step": P.nt}
+    check(launches == {"rec_fwd_cluster": 1, "rec_bwd_cluster": 1}
           and np.array_equal(auto3, exact3),
           "the whole-grid rtm_main tier left the exact taps under auto")
     del full, d, v2_m, sub_locs, exact3, auto3
@@ -3665,7 +3743,8 @@ def main() -> int:
         print(f"[times] {k} at 3lay ({P.ns} shots, {P.nt} launches"
               f"{', image mode' if 'bwd' in k else ''}): kernel (mxu) "
               f"{span(tk)}, mxu6 {span(tk6)}, plain (mxu) {span(tp)}, exact "
-              f"kernel {k[:-4]} {span(te)}; bound {bms:.3f} ms ({by}; mxu6 "
+              f"kernel {k[:-9]}_cluster {span(te)}; bound {bms:.3f} ms "
+              f"({by}; mxu6 "
               f"{b3[k[:-4]][0]:.3f}), kernel / bound "
               f"{statistics.median(tk) / bms:.2f}; {smi}", flush=True)
         results[k].update(ms=statistics.median(tk),

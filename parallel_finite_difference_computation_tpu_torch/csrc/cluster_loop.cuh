@@ -1,8 +1,8 @@
 // The cluster-resident time loop of the exact two-snapshot RTM kernels
 // (rtm_fwd_cluster in rtm_fwd_step.cu, rtm_bwd_cluster in rtm_bwd_step.cu)
-// and of the exact modeling kernels (mod_loop below: mod_cluster in
-// mod_step.cu, rec_fwd_cluster in rec_step.cu): one launch runs all nt
-// steps of a pass for every shot of a batch.
+// and of the exact CPU-flavor kernels (mod_loop below: mod_cluster in
+// mod_step.cu, rec_fwd_cluster and rec_bwd_cluster in rec_step.cu): one
+// launch runs all nt steps of a pass for every shot of a batch.
 //
 // The TPU kernels they replace (ops/pallas_fd.py _rtm_kernel :534,
 // _fwd_gpu_kernel :702, _bwd_gpu_kernel :729) keep one shot in VMEM for all
@@ -276,18 +276,23 @@ __device__ __forceinline__ float cell_lap(
   return interior ? lap : 0.0f;
 }
 
-// What the modeling loop records each step: nothing, the trace row (mod_step
-// at gz), or the interior frame (rec_fwd_step).
+// What the CPU-flavor loop records each step: nothing, the trace row
+// (mod_step at gz), the interior frame (rec_fwd_step, rec_bwd_step's frame
+// mode) or the image, the frame correlated with the source wavefield read
+// back in reverse (rec_bwd_step's image mode).
 constexpr int kRecordNone = 0;
 constexpr int kRecordTrace = 1;
 constexpr int kRecordFrames = 2;
+constexpr int kRecordImage = 3;
 
-// The arguments of the modeling loop (mod_loop): the two fields (zeroed by
-// the caller), v2*dt2, the taper mask, the source patch of radius r around
-// (sx[s], sz), the nt-sample wavelet on the device, and what is recorded:
-// rec is (ns, nt, nx) traces of row gz (kRecordTrace) or (ns, nt, nx, nz)
-// interior frames (kRecordFrames); nxb, nzb the borders.
+// The arguments of the modeling loop (mod_loop with the source's patch):
+// the two fields (zeroed by the caller), v2*dt2, the taper mask, the source
+// patch of radius r around (sx[s], sz), the nt-sample wavelet on the
+// device, and what is recorded: rec is (ns, nt, nx) traces of row gz
+// (kRecordTrace) or (ns, nt, nx, nz) interior frames (kRecordFrames); nxb,
+// nzb the borders.
 struct ModArgs {
+  static constexpr bool kPatch = true;
   float* a;
   float* b;
   const float* v2dt2;
@@ -303,37 +308,81 @@ struct ModArgs {
   int nxe, nze, rows, nt;
 };
 
-// All nt steps of the CPU-flavor modeling step (mod_step.cu, rec_step.cu)
-// for the shot of this cluster, on the resident loop of rtm_fwd_cluster
-// (rtm_fwd_step.cu): u = (2p - m*pp) + v2dt2*lap(p), the source's patch
-// added into u where its window covers the cell, stored as m*u, the record
-// m*p of the time-t field. The levels hold what the per-step kernels' buffers
+// The arguments of the receiver loop (mod_loop with an injection row,
+// rec_bwd_step's): the two fields (zeroed by the caller), v2*dt2, the
+// taper mask, the (ns, nt, nx) injection rows, added on row gz at x0 <= x
+// < x0 + nx (x0 clamped into the grid by the caller), and what is
+// recorded: rec is (ns, nt, nx, nz) interior frames (kRecordFrames), or
+// with swf, the (ns, nt, nx, nz) source frames, the (ns, nx, nz) images
+// (kRecordImage).
+struct RecvArgs {
+  static constexpr bool kPatch = false;
+  float* a;
+  float* b;
+  const float* v2dt2;
+  int v2_shot_stride;
+  const float* mask;
+  const float* inj;
+  int x0;
+  const float* swf;
+  float* rec;
+  int gz, nxb, nzb, nx, nz;
+  int nxe, nze, rows, nt;
+};
+
+// The source's x of shot s (mod_loop with the patch).
+template <class Args>
+__device__ __forceinline__ int source_x(const Args& g, int s) {
+  if constexpr (Args::kPatch) {
+    return g.sx[s];
+  } else {
+    return 0;
+  }
+}
+
+// All nt steps of the CPU-flavor step (mod_step.cu, rec_step.cu) for the
+// shot of this cluster, on the resident loop of rtm_fwd_cluster
+// (rtm_fwd_step.cu): u = (2p - m*pp) + v2dt2*lap(p), the source added into
+// u (Args::kPatch: the patch where its window covers the cell, scaled by
+// the wavelet; else the injection row), stored as m*u, the record m*p of
+// the time-t field. The levels hold what the per-step kernels' buffers
 // hold (the stored m*u), so level L is buffer a (L = 0) or b (L = 1) of the
 // per-step loop, and the last step writes the newest stored field and the
-// previous one into a and b as that loop leaves them. A thread reads its
-// cells' patch values once, into registers (reading the patch at each step
-// cost the modeling 7 % at 3lay on an H100, PERF.md), and records the
-// trace row only where its column group holds gz; the frames are stored as
-// scalars (pairs of columns as one vector where a frame row allows cost
-// 6 %).
-template <int H, int kRecord>
-__device__ __forceinline__ void mod_loop(float* smem, const ModArgs& g,
+// previous one into a and b as that loop leaves them (not in image mode:
+// the image is the result).
+// A thread reads its cells' patch values once, into registers (reading the
+// patch at each step cost the modeling 7 % at 3lay on an H100, PERF.md),
+// and records the trace row only where its column group holds gz; the
+// frames are stored as scalars (pairs of columns as one vector where a
+// frame row allows cost 6 %). Every global value a step reads (the
+// wavelet sample, the injection row's samples of the thread's cells, in
+// image mode their source frame values) is loaded a step ahead, into
+// registers, by the threads that use it: a load a warp waits on at its
+// step holds the whole cluster at the barrier. The image of a thread's
+// cells is summed in registers, img = img + swf * (m*p) in time order from
+// 0, as rec_bwd_step sums it in the zeroed image, and written once at the
+// end.
+template <int H, int kRecord, class Args>
+__device__ __forceinline__ void mod_loop(float* smem, const Args& g,
                                          const Coefs& c) {
   constexpr int R = kClusterRows, V = kClusterCols;
+  constexpr bool kPatch = Args::kPatch;
+  constexpr bool kImage = kRecord == kRecordImage;
   cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
   const Slab sl = make_slab(cl, smem, g.rows, g.nxe, g.nze);
   const Strip st = strip_of(sl);
   const int s = blockIdx.x / cl.num_blocks();
   const size_t plane = static_cast<size_t>(g.nxe) * g.nze;
   const size_t level = level_floats<H>(sl);
-  const int src_x = g.sx[s];
+  const int src_x = source_x(g, s);
   const bool trace = kRecord == kRecordTrace && st.valid &&
                      g.gz >= st.iz0 && g.gz < st.iz0 + V;
   float* const rec_shot =
       kRecord == kRecordNone
           ? nullptr
-          : g.rec + static_cast<size_t>(s) * g.nt * g.nx *
-                        (kRecord == kRecordFrames ? g.nz : 1);
+      : kImage ? g.rec + static_cast<size_t>(s) * g.nx * g.nz
+               : g.rec + static_cast<size_t>(s) * g.nt * g.nx *
+                             (kRecord == kRecordFrames ? g.nz : 1);
   for (size_t k = threadIdx.x; k < 2 * level; k += blockDim.x) smem[k] = 0.0f;
   // per-cell constants; 0 at a column group's padding, whose values stay 0;
   // the source's patch value of each cell in its window (bit r * V + col
@@ -350,19 +399,73 @@ __device__ __forceinline__ void mod_loop(float* smem, const ModArgs& g,
       vr[r][col] =
           own ? g.v2dt2[s * static_cast<size_t>(g.v2_shot_stride) + j] : 0.0f;
       mr[r][col] = own ? g.mask[j] : 0.0f;
-      const int dx = sl.x0 + lx - src_x, dz = iz - g.sz;
-      const bool in_w =
-          own && dx >= -g.r && dx <= g.r && dz >= -g.r && dz <= g.r;
-      pr[r][col] =
-          in_w ? g.patch[(dx + g.r) * (2 * g.r + 1) + (dz + g.r)] : 0.0f;
-      pw |= static_cast<unsigned>(in_w) << (r * V + col);
+      if constexpr (kPatch) {
+        const int dx = sl.x0 + lx - src_x, dz = iz - g.sz;
+        const bool in_w =
+            own && dx >= -g.r && dx <= g.r && dz >= -g.r && dz <= g.r;
+        pr[r][col] =
+            in_w ? g.patch[(dx + g.r) * (2 * g.r + 1) + (dz + g.r)] : 0.0f;
+        pw |= static_cast<unsigned>(in_w) << (r * V + col);
+      }
+    }
+  }
+  // the receiver loop's operands: the injection row's cells of the thread
+  // (bit r of rw: row r of the strip takes inj[s, it, x - x0] at column
+  // gz), their samples of the next step (in_next), and in image mode the
+  // frame cells of the strip (bit r * V + col of fw: interior, at offset
+  // f0 + r * nz + col of a frame), their source frame values of the next
+  // step (sw_next) and the image sums (acc)
+  unsigned rw = 0, fw = 0;
+  float in_next[R], sw_next[R][V], acc[R][V];
+  const float* inj_shot = nullptr;
+  const float* swf_shot = nullptr;
+  const int f0 = (sl.x0 + st.lx0 - g.nxb) * g.nz + (st.iz0 - g.nzb);
+  if constexpr (!kPatch) {
+    inj_shot = g.inj + static_cast<ptrdiff_t>(s) * g.nt * g.nx +
+               (sl.x0 + st.lx0 - g.x0);
+    const bool row = st.valid && g.gz >= st.iz0 && g.gz < st.iz0 + V;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int gx = sl.x0 + st.lx0 + r;
+      rw |= static_cast<unsigned>(row && st.lx0 + r < sl.n && gx >= g.x0 &&
+                                  gx < g.x0 + g.nx)
+            << r;
+      in_next[r] = (rw >> r) & 1u && g.nt > 0 ? inj_shot[r] : 0.0f;
+    }
+    if constexpr (kImage) {
+      swf_shot = g.swf + static_cast<ptrdiff_t>(s) * g.nt * g.nx * g.nz;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int col = 0; col < V; ++col) {
+          const int gx = sl.x0 + st.lx0 + r, iz = st.iz0 + col;
+          fw |= static_cast<unsigned>(st.valid && st.lx0 + r < sl.n &&
+                                      gx >= g.nxb && gx < g.nxb + g.nx &&
+                                      iz >= g.nzb && iz < g.nzb + g.nz)
+                << (r * V + col);
+          acc[r][col] = 0.0f;
+        }
+      }
+      // frame nt - 1 of the source wavefield is the first step's
+      const float* frame =
+          swf_shot + static_cast<ptrdiff_t>(g.nt - 1) * g.nx * g.nz + f0;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int col = 0; col < V; ++col) {
+          sw_next[r][col] = (fw >> (r * V + col)) & 1u && g.nt > 0
+                                ? frame[r * g.nz + col]
+                                : 0.0f;
+        }
+      }
     }
   }
   cl.sync();
   // the wavelet sample of the step, loaded a step ahead by the threads the
   // source's window covers (the 3lay frames' loop 5 % faster than with
   // the load at the step, PERF.md)
-  float amp_next = pw && g.nt > 0 ? g.wav[0] : 0.0f;
+  float amp_next = 0.0f;
+  if constexpr (kPatch) amp_next = pw && g.nt > 0 ? g.wav[0] : 0.0f;
   // one step; the last (kLast) also writes the newest and the previous
   // stored field to a and b
   const auto step = [&](int it, auto last_step) {
@@ -370,8 +473,37 @@ __device__ __forceinline__ void mod_loop(float* smem, const ModArgs& g,
     const size_t cur = (it & 1) * level;
     const size_t old = level - cur;
     if (st.valid) {
-      const float amp = amp_next;
-      if (pw && it + 1 < g.nt) amp_next = g.wav[it + 1];
+      float amp = 0.0f;
+      if constexpr (kPatch) {
+        amp = amp_next;
+        if (pw && it + 1 < g.nt) amp_next = g.wav[it + 1];
+      }
+      float in_now[R], sw_now[R][V];
+      if constexpr (!kPatch) {
+        const bool ahead = it + 1 < g.nt;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          in_now[r] = in_next[r];
+          if ((rw >> r) & 1u && ahead) {
+            in_next[r] = inj_shot[static_cast<ptrdiff_t>(it + 1) * g.nx + r];
+          }
+        }
+        if constexpr (kImage) {
+          const float* frame =
+              swf_shot +
+              static_cast<ptrdiff_t>(g.nt - 2 - it) * g.nx * g.nz + f0;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+#pragma unroll
+            for (int col = 0; col < V; ++col) {
+              sw_now[r][col] = sw_next[r][col];
+              if ((fw >> (r * V + col)) & 1u && ahead) {
+                sw_next[r][col] = frame[r * g.nz + col];
+              }
+            }
+          }
+        }
+      }
       Cols w[R + 2 * H];
       load_window<H>(w, smem + cur, sl, st);
 #pragma unroll
@@ -393,7 +525,11 @@ __device__ __forceinline__ void mod_loop(float* smem, const ModArgs& g,
           const float lap = cell_lap<H>(
               w, z, r, col, x_in && iz >= H && iz < g.nze - H, c);
           float u = (2.0f * centre - m * ps.v[col]) + vr[r][col] * lap;
-          if ((pw >> (r * V + col)) & 1u) u = u + amp * pr[r][col];
+          if constexpr (kPatch) {
+            if ((pw >> (r * V + col)) & 1u) u = u + amp * pr[r][col];
+          } else {
+            if ((rw >> r) & 1u && iz == g.gz) u = u + in_now[r];
+          }
           stored.v[col] = m * u;
           if (trace && iz == g.gz && gx >= g.nxb && gx < g.nxb + g.nx) {
             rec_shot[static_cast<size_t>(it) * g.nx + (gx - g.nxb)] =
@@ -404,7 +540,12 @@ __device__ __forceinline__ void mod_loop(float* smem, const ModArgs& g,
             rec_shot[(static_cast<size_t>(it) * g.nx + (gx - g.nxb)) * g.nz +
                      (iz - g.nzb)] = m * centre;
           }
-          if (kLast && iz < g.nze) {
+          if constexpr (kImage) {
+            if ((fw >> (r * V + col)) & 1u) {
+              acc[r][col] = acc[r][col] + sw_now[r][col] * (m * centre);
+            }
+          }
+          if (kLast && !kImage && iz < g.nze) {
             const size_t j =
                 s * plane + static_cast<size_t>(gx) * g.nze + iz;
             ((g.nt & 1) ? g.b : g.a)[j] = stored.v[col];
@@ -420,6 +561,16 @@ __device__ __forceinline__ void mod_loop(float* smem, const ModArgs& g,
   for (int it = 0; it + 1 < g.nt; ++it) step(it, std::false_type{});
   if (g.nt > 0) step(g.nt - 1, std::true_type{});
   cl.sync();  // no neighbour writes this CTA's shared memory after it exits
+  if constexpr (kImage) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int col = 0; col < V; ++col) {
+        if ((fw >> (r * V + col)) & 1u) rec_shot[f0 + r * g.nz + col] =
+            acc[r][col];
+      }
+    }
+  }
 }
 
 // Launches kernel over ns shots, one cluster of plan.cluster CTAs a shot,

@@ -1,19 +1,22 @@
 // rec_fwd_step / rec_bwd_step: one time step of rtm_main's full-wavefield
 // RTM (rtm_main.cpp:158-247) for every shot of a batch, their split-bf16
-// twins rec_fwd_step_mma and rec_bwd_step_mma, rec_fwd_cluster (all nt
-// steps of the exact forward in one launch where a shot fits a
-// thread-block cluster: mod_loop of cluster_loop.cuh recording the frames,
-// as mod_cluster records the trace), and the C entry points
-// pfdc_rec_fwd_run and pfdc_rec_bwd_run that run the whole time loop on a
-// stream.
+// twins rec_fwd_step_mma and rec_bwd_step_mma, rec_fwd_cluster and
+// rec_bwd_cluster (all nt steps of the exact forward or backward in one
+// launch where a shot fits a thread-block cluster: mod_loop of
+// cluster_loop.cuh with the source's patch recording the frames, as
+// mod_cluster records the trace, or with the injection row recording the
+// frames or the image), and the C entry points pfdc_rec_fwd_run and
+// pfdc_rec_bwd_run that run the whole time loop on a stream.
 //
 // Replaces: parallel_finite_difference_computation_tpu/ops/pallas_stream.py,
 // _kstep_rec_kernel (:1002), called through fd_kstep_rec_padded (:1084) in
 // source-window mode (the forward half, solver.py:311-321 there) and in
 // receiver-column mode (the backward half, solver.py:663-719). That kernel
 // fuses K steps per pass only because a large grid does not fit in VMEM;
-// here each step is one launch over all shots, as in mod_step.cu, and the
-// host function loops over the steps. The *_mma kernels replace its
+// here a shot that fits a cluster runs all nt steps in one launch (the
+// *_cluster kernels), and elsewhere each step is one launch over all
+// shots, as in mod_step.cu, the host function looping over the steps. The
+// *_mma kernels replace its
 // use_mxu branch (:1026-1033: _lap_z_mxu_full + _lap_x_slab, the z taps as
 // the split-bf16 banded product, then the x taps exact).
 //
@@ -37,10 +40,14 @@
 // extended, 151 x 151 interior, nt = 1001, 8 shots) swf is 730 MB, written
 // once by the forward and read once by the backward: 0.22 ms each at
 // 3.35 TB/s, about the time of the ~33 flop per cell-step at 67 TFLOP/s.
-// The fields, v2*dt2 and the mask (7 MB) stay in L2. This first version
-// does nothing special: threads run along z for coalesced loads and frame
+// The fields, v2*dt2 and the mask (7 MB) stay in L2. The per-step kernels
+// do nothing special: threads run along z for coalesced loads and frame
 // stores, nothing is staged in shared memory, and each launch is short, so
-// launch latency sets the pace, as for mod_step.
+// launch latency sets their pace, as for mod_step. The resident kernels
+// hold the fields in the cluster's shared memory and issue the step's
+// instructions (cluster_loop.cuh); rec_bwd_cluster's image mode reads each
+// thread's source frame values a step ahead, into registers, so that the
+// stream of swf overlaps the step before.
 //
 // rec_fwd_step_mma<H, P> and rec_bwd_step_mma<H, P, kImage> compute what
 // their exact twins compute, in the same order, but for the Laplacian: the
@@ -135,6 +142,17 @@ __global__ void __launch_bounds__(pfdc::kClusterThreads, 1)
     rec_fwd_cluster(pfdc::ModArgs g, pfdc::Coefs c) {
   extern __shared__ float smem[];
   pfdc::mod_loop<H, pfdc::kRecordFrames>(smem, g, c);
+}
+
+// rec_bwd_step's loop as one launch (mod_loop with the injection row,
+// cluster_loop.cuh): the frames of every step into g.rec, stored as scalars,
+// or (kImage) the image, summed in registers and stored once.
+template <int H, bool kImage>
+__global__ void __launch_bounds__(pfdc::kClusterThreads, 1)
+    rec_bwd_cluster(pfdc::RecvArgs g, pfdc::Coefs c) {
+  extern __shared__ float smem[];
+  pfdc::mod_loop<H, kImage ? pfdc::kRecordImage : pfdc::kRecordFrames>(
+      smem, g, c);
 }
 
 template <int H, bool kImage>
@@ -453,6 +471,7 @@ struct RecBwdRun {
   int ns, nxe, nze, nxb, nzb, nt;
   pfdc::Coefs c;
   int parts;
+  pfdc::ClusterPlan plan;  // plan.cluster == 0: the per-step route
   cudaStream_t stream;
 
   template <int H, int P, bool kImage>
@@ -503,7 +522,29 @@ struct RecBwdRun {
 
   template <int H>
   cudaError_t operator()() const {
+    if (plan.cluster) {
+      const pfdc::RecvArgs g{a,   b,   v2dt2, v2_shot_stride, mask,
+                             inj, x0,  swf,   out,            gz,
+                             nxb, nzb, nxe - 2 * nxb,         nze - 2 * nzb,
+                             nxe, nze, plan.rows,             nt};
+      return swf != nullptr
+                 ? pfdc::launch_cluster(rec_bwd_cluster<H, true>, plan, ns,
+                                        plan.fwd_bytes, stream, g, c)
+                 : pfdc::launch_cluster(rec_bwd_cluster<H, false>, plan, ns,
+                                        plan.fwd_bytes, stream, g, c);
+    }
     return pfdc::dispatch_parts<H>(*this, parts);
+  }
+};
+
+struct RecBwdClusters {
+  pfdc::ClusterPlan plan;
+  int* out;
+  template <int H>
+  cudaError_t operator()() const {
+    *out = pfdc::active_clusters(rec_bwd_cluster<H, true>, plan,
+                                 plan.fwd_bytes);
+    return cudaSuccess;
   }
 };
 
@@ -546,22 +587,39 @@ extern "C" int pfdc_rec_fwd_clusters(int nxe, int nze, int order) {
   return n;
 }
 
-// Runs nt steps of rec_bwd_step with the (ns, nt, nx) injection rows inj.
-// With swf null (frame mode) it writes the (ns, nt, nx, nz) frames into
-// out; with swf the forward's frames (image mode) it adds each shot's
-// correlation into out, an (ns, nx, nz) image zeroed by the caller. Field
-// roles and parts (rec_bwd_step or rec_bwd_step_mma) as for
-// pfdc_rec_fwd_run. Returns a cudaError_t.
+// Runs nt steps of the receiver-mode step with the (ns, nt, nx) injection
+// rows inj, added on row gz from x0: with parts 0, rec_bwd_cluster where
+// the shot fits a cluster (pfdc::cluster_plan) and per_step is 0, else nt
+// launches of rec_bwd_step; parts 2 or 3, nt launches of rec_bwd_step_mma.
+// *resident says which (1: the cluster kernel). With swf null (frame mode)
+// it writes the (ns, nt, nx, nz) frames into out; with swf the forward's
+// frames (image mode) it adds each shot's correlation into out, an (ns,
+// nx, nz) image zeroed by the caller (the resident route writes it once,
+// and leaves a and b as they were). Field roles as for pfdc_rec_fwd_run.
+// Returns a cudaError_t.
 extern "C" int pfdc_rec_bwd_run(float* a, float* b, const float* v2dt2,
                                 int v2_shot_stride, const float* mask,
                                 const float* inj, int x0, int gz,
                                 const float* swf, float* out, int ns, int nxe,
                                 int nze, int nxb, int nzb, int nt, int order,
                                 int parts, const float* cx, const float* cz,
-                                void* stream) {
+                                int per_step, int* resident, void* stream) {
+  pfdc::ClusterPlan plan;
+  if (!per_step && parts == 0) plan = pfdc::cluster_plan(nxe, nze, order);
+  *resident = plan.cluster != 0;
   const RecBwdRun run{a,   b,   v2dt2, v2_shot_stride, mask, inj, x0,
                       gz,  swf, out,   ns,             nxe,  nze, nxb,
                       nzb, nt,  pfdc::make_coefs(order / 2, cx, cz),
-                      parts, static_cast<cudaStream_t>(stream)};
+                      parts, plan, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(pfdc::dispatch_half(order, run));
+}
+
+// The most clusters of rec_bwd_cluster (image mode) the card holds at once
+// at (nxe, nze, order), or -1 where the shot takes the per-step route or on
+// an error.
+extern "C" int pfdc_rec_bwd_clusters(int nxe, int nze, int order) {
+  int n = -1;
+  const RecBwdClusters f{pfdc::cluster_plan(nxe, nze, order), &n};
+  if (f.plan.cluster) pfdc::dispatch_half(order, f);
+  return n;
 }

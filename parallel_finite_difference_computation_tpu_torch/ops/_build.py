@@ -55,12 +55,13 @@ _SIGNATURES = {
                          _P, _P, _I, _P, _P],
     # pfdc_cluster_plan(nxe, nze, order, out); pfdc_rtm_fwd_clusters,
     # pfdc_rtm_bwd_clusters, pfdc_mod_clusters,
-    # pfdc_rec_fwd_clusters(nxe, nze, order)
+    # pfdc_rec_fwd_clusters, pfdc_rec_bwd_clusters(nxe, nze, order)
     "pfdc_cluster_plan": [_I, _I, _I, _P],
     "pfdc_rtm_fwd_clusters": [_I, _I, _I],
     "pfdc_rtm_bwd_clusters": [_I, _I, _I],
     "pfdc_mod_clusters": [_I, _I, _I],
     "pfdc_rec_fwd_clusters": [_I, _I, _I],
+    "pfdc_rec_bwd_clusters": [_I, _I, _I],
     # pfdc_rec_fwd_run(a, b, v2dt2, v2_shot_stride, mask, patch, r, sx, sz,
     #                  wav, dwav, swf, ns, nxe, nze, nxb, nzb, nt, order,
     #                  parts, cx, cz, per_step, resident, stream)
@@ -69,9 +70,10 @@ _SIGNATURES = {
                          _P, _P, _I, _P, _P],
     # pfdc_rec_bwd_run(a, b, v2dt2, v2_shot_stride, mask, inj, x0, gz, swf,
     #                  out, ns, nxe, nze, nxb, nzb, nt, order, parts, cx, cz,
-    #                  stream)
+    #                  per_step, resident, stream)
     "pfdc_rec_bwd_run": [_P, _P, _P, _I, _P, _P, _I, _I, _P,
-                         _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+                         _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                         _I, _P, _P],
     # pfdc_lap_run(p, out, nx, nz, order, cx, cz, stream)
     "pfdc_lap_run": [_P, _P, _I, _I, _I, _P, _P, _P],
     # pfdc_lap_padded_run(p, out, rows, pitch, nx, nz, order, parts, cx, cz,

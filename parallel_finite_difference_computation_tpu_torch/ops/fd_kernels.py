@@ -9,10 +9,11 @@ raises. Nothing falls back.
 One step-kernel launch is one time step for every shot of the batch; the C
 entry point loops over the nt steps on PyTorch's current stream, so one
 wrapper call runs a whole batch, as one Pallas call ran a whole shot. The
-exact two-snapshot RTM passes and the exact modeling runs go through all nt
-steps in one launch where a shot fits a thread-block cluster
-(:func:`resident_plan`): ``rtm_fwd_cluster``, ``rtm_bwd_cluster``,
-``mod_cluster`` and ``rec_fwd_cluster``, elsewhere their per-step kernels;
+exact two-snapshot RTM passes and the exact modeling and ``rtm_main`` passes
+go through all nt steps in one launch where a shot fits a thread-block
+cluster (:func:`resident_plan`): ``rtm_fwd_cluster``, ``rtm_bwd_cluster``,
+``mod_cluster``, ``rec_fwd_cluster`` and ``rec_bwd_cluster``, elsewhere
+their per-step kernels;
 the C entry point reports the route it took. ``LAUNCHES``
 counts the launches of each kernel (nt per propagation of a per-step
 kernel, one per resident pass, one per Laplacian apply), and is added to
@@ -27,6 +28,7 @@ only where the kernels are launched.
 | ``rtm_bwd_cluster`` | ``csrc/rtm_bwd_step.cu`` on ``cluster_loop.cuh`` | the same as ``rtm_bwd_step``, all nt steps in one launch |
 | ``mod_cluster`` | ``csrc/mod_step.cu`` on ``cluster_loop.cuh`` | the same as ``mod_step``, all nt steps in one launch |
 | ``rec_fwd_cluster`` | ``csrc/rec_step.cu`` on ``cluster_loop.cuh`` | the same as ``rec_fwd_step``, all nt steps in one launch |
+| ``rec_bwd_cluster`` | ``csrc/rec_step.cu`` on ``cluster_loop.cuh`` | the same as ``rec_bwd_step``, all nt steps in one launch |
 | ``rec_fwd_step`` | ``csrc/rec_step.cu`` | ``pallas_stream.py`` ``_kstep_rec_kernel`` source mode (:1002) |
 | ``rec_bwd_step`` | ``csrc/rec_step.cu`` | ``pallas_stream.py`` ``_kstep_rec_kernel`` receiver mode (:1002) |
 | ``lap_apply`` | ``csrc/laplacian.cu`` | ``pallas_stencil.py`` ``_kernel`` (:60) |
@@ -79,7 +81,7 @@ __all__ = ["LAUNCHES", "reset_launches", "MXU3_NT_MAX", "MXU6_NT_MAX",
 
 LAUNCHES = {"mod_step": 0, "rtm_fwd_step": 0, "rtm_bwd_step": 0,
             "rtm_fwd_cluster": 0, "rtm_bwd_cluster": 0, "mod_cluster": 0,
-            "rec_fwd_cluster": 0,
+            "rec_fwd_cluster": 0, "rec_bwd_cluster": 0,
             "rec_fwd_step": 0, "rec_bwd_step": 0, "lap_apply": 0,
             "mod_step_mma": 0, "rtm_fwd_step_mma": 0, "rtm_bwd_step_mma": 0,
             "rec_fwd_step_mma": 0, "rec_bwd_step_mma": 0}
@@ -287,7 +289,8 @@ class ResidentPlan(NamedTuple):
 
 def resident_plan(nxe: int, nze: int, order: int):
     """The route rule of ``pfdc_rtm_fwd_run``/``pfdc_rtm_bwd_run``, and of
-    ``pfdc_mod_run``/``pfdc_rec_fwd_run`` with the exact taps
+    ``pfdc_mod_run``/``pfdc_rec_fwd_run``/``pfdc_rec_bwd_run`` with the
+    exact taps
     (``cluster_plan``, csrc/cluster_loop.cuh), asked of the built library:
     the first cluster size whose slabs hold at least order/2 rows each,
     whose strips a CTA's threads cover and whose backward levels fit a
@@ -491,11 +494,15 @@ def _next_shot_first(next_shot_first, ns: int, device) -> torch.Tensor:
 
 
 def _rec_bwd(ctx: FDContext, v2, dobs, gz: int, x_off_quirk, next_shot_first,
-             lap_impl, swf=None):
+             lap_impl, swf=None, per_step: bool = False):
     """Checks the inputs of the receiver-mode step and routes them: the
-    plain version on the CPU, ``rec_bwd_step`` (``rec_bwd_step_mma`` where
-    ``lap_impl`` resolves to a split-bf16 tier: the z taps split) on the
-    card. Without ``swf`` (frame mode) returns ``(p, pp, rwf)``; with it
+    plain version on the CPU; on the card with the exact taps
+    ``rec_bwd_cluster`` where :func:`resident_plan` takes the shot (all nt
+    steps in one launch), else ``rec_bwd_step``, as the entry point
+    reports; ``rec_bwd_step_mma`` where ``lap_impl`` resolves to a
+    split-bf16 tier (the z taps split). ``per_step`` runs the exact
+    per-step kernel at any shape (the probe and ``chip_smoke.py`` time both
+    routes). Without ``swf`` (frame mode) returns ``(p, pp, rwf)``; with it
     (image mode) returns the (ns, nx, nz) images."""
     parts = lap_parts(lap_impl, ctx)
     _check_order(ctx.order, _on_cuda(v2))
@@ -529,16 +536,18 @@ def _rec_bwd(ctx: FDContext, v2, dobs, gz: int, x_off_quirk, next_shot_first,
         out = torch.zeros((ns, ctx.nx, ctx.nz), dtype=torch.float32,
                           device=dev)
     keep, (cx, cz) = _coef_args(ctx)
-    name = "rec_bwd_step_mma" if parts else "rec_bwd_step"
+    resident = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = _build.library().pfdc_rec_bwd_run(
             a.data_ptr(), b.data_ptr(), v2dt2.data_ptr(), v2_stride,
             mask.data_ptr(), inj.data_ptr(), x0, gz,
             None if swf is None else swf.data_ptr(), out.data_ptr(), ns,
             ctx.nxe, ctx.nze, ctx.nxb, ctx.nzb, ctx.nt, ctx.order, parts, cx,
-            cz, _stream(dev))
+            cz, int(per_step), ctypes.byref(resident), _stream(dev))
+    name, count = (("rec_bwd_cluster", 1) if resident.value else
+                   ("rec_bwd_step_mma" if parts else "rec_bwd_step", ctx.nt))
     _raise_on(rc, name)
-    LAUNCHES[name] += ctx.nt
+    LAUNCHES[name] += count
     if swf is not None:
         return out
     newest, prev = _newest_prev(a, b, ctx.nt)
@@ -550,9 +559,11 @@ def backward_recorded_cuda(ctx: FDContext, v2, dobs, gz: int,
                            lap_impl=None):
     """``rtm_main``'s backward half for a batch of shots (``dobs`` (ns, nx,
     nt); ``next_shot_first`` one number or one per shot): the counterpart of
-    ``backward_recorded_tiled``, ``rec_bwd_step`` (``rec_bwd_step_mma``
-    under a split ``lap_impl``) in frame mode. Returns ``(p, pp, rwf)`` with
-    rwf (ns, nt, nx, nz), as :func:`..solver.backward_recorded`."""
+    ``backward_recorded_tiled``, in frame mode ``rec_bwd_cluster`` where
+    :func:`resident_plan` takes the shot (all nt steps in one launch), else
+    ``rec_bwd_step`` (``rec_bwd_step_mma`` under a split ``lap_impl``).
+    Returns ``(p, pp, rwf)`` with rwf (ns, nt, nx, nz), as
+    :func:`..solver.backward_recorded`."""
     return _rec_bwd(ctx, v2, dobs, gz, x_off_quirk, next_shot_first,
                     lap_impl)
 
@@ -561,11 +572,14 @@ def backward_image_cuda(ctx: FDContext, v2, swf, dobs, gz: int,
                         x_off_quirk: bool = True, next_shot_first=0.0,
                         lap_impl=None):
     """``rtm_main``'s backward half fused with its imaging for a batch of
-    shots: ``rec_bwd_step`` (``rec_bwd_step_mma`` under a split
-    ``lap_impl``) in image mode, correlating each step's frame with
-    ``swf[:, nt-1-it]`` without storing the receiver wavefield. Returns the
-    (ns, nx, nz) images, as :func:`..solver.backward_image` (the sum runs in
-    time order there, so the two agree to rounding)."""
+    shots, correlating each step's frame with ``swf[:, nt-1-it]`` without
+    storing the receiver wavefield: with the exact taps ``rec_bwd_cluster``
+    in image mode where :func:`resident_plan` takes the shot (all nt steps
+    in one launch, each cell's sum in registers), else ``rec_bwd_step``
+    (``rec_bwd_step_mma`` under a split ``lap_impl``), the route the entry
+    point reports. Returns the (ns, nx, nz) images, as
+    :func:`..solver.backward_image` (both routes sum in time order, that
+    function does not, so the two agree to rounding)."""
     return _rec_bwd(ctx, v2, dobs, gz, x_off_quirk, next_shot_first,
                     lap_impl, swf=swf)
 
@@ -574,12 +588,14 @@ def rtm_full_cuda(ctx: FDContext, v2, wavelet, dobs, sx, sz: int, gz: int,
                   x_off_quirk: bool = True, next_shot_first=0.0,
                   lap_impl=None):
     """Full-wavefield RTM (``rtm_main``) for a batch of shots: the
-    counterpart of ``rtm_shot_full_tiled``. ``rec_fwd_step`` stores the
-    source wavefield, then ``rec_bwd_step`` in image mode reads it back in
-    reverse; under a ``lap_impl`` that resolves to ``mxu``/``mxu6``, their
-    ``*_mma`` twins (the z taps split, as the JAX K-step recording kernel
-    splits them). Returns the (ns, nx, nz) images, as
-    :func:`..solver.rtm_shot_full`."""
+    counterpart of ``rtm_shot_full_tiled``. The forward stores the source
+    wavefield, then the backward in image mode reads it back in reverse:
+    with the exact taps ``rec_fwd_cluster`` and ``rec_bwd_cluster``, one
+    launch each, where :func:`resident_plan` takes the shot, else
+    ``rec_fwd_step`` and ``rec_bwd_step``, nt launches each; under a
+    ``lap_impl`` that resolves to ``mxu``/``mxu6``, their ``*_mma`` twins
+    (the z taps split, as the JAX K-step recording kernel splits them).
+    Returns the (ns, nx, nz) images, as :func:`..solver.rtm_shot_full`."""
     parts = lap_parts(lap_impl, ctx)
     _, _, swf = forward_modeling_cuda(ctx, v2, wavelet, sx, sz, gz,
                                       source="point", taper="top",

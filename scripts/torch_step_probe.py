@@ -8,7 +8,8 @@ parts), each beside its exact twin.
 
     python3 scripts/torch_step_probe.py TREE [TREE ...]
                                         [--variants NAME ...] [--rounds N]
-                                        [--only REGEX] [--rtm | --mod]
+                                        [--only REGEX]
+                                        [--rtm | --mod | --rec-bwd]
 
 Each tree runs in a process of its own that imports the port from that
 tree (building its kernels there). The process prints the compiler's
@@ -76,6 +77,26 @@ per-step kernels under the resident names. Its variants: ``frame_pairs``
 (a column pair's frames stored as one 8-byte vector where the frame row
 allows) and ``amp_now`` (the wavelet sample loaded at its step, not a
 step ahead).
+
+``--rec-bwd`` probes rtm_main's exact backward instead
+(``rec_bwd_cluster``, ``mod_loop`` with the injection row, and the
+per-step ``rec_bwd_step``): the compiler's lines of both and of the
+forward kernels on the same loop (``mod_cluster``, ``rec_fwd_cluster``)
+at orders 8 and 16, the clusters the card holds at once at 3lay, both
+routes bitwise against the plain version at 3lay (8 shots of 231 x 231
+extended, nt = 20, orders 4, 8, 10 and 16; 1lay at order 8; both
+``x_off_quirk`` settings, random ``next_shot_first``): the frames and the
+final pair against ``solver.backward_recorded``, the image from random
+source frames against the plain frames' correlation summed in time
+order; then, at 1lay and 3lay, order 8, nt = 1001, the image and the
+frame mode on each route, at 3lay the resident calls at 7 shots and 1,
+the modeling and rtm_main's forward (resident) and the whole rtm_main
+call (``rtm_full_cuda``), median of 3. A tree without the backward's
+resident route (the parent) times its per-step kernel under the resident
+names. Its variant ``swf_staged``: each thread's source frame values of
+the next step copied with ``cp.async`` into a double buffer in shared
+memory and waited at the step, instead of loaded into registers a step
+ahead.
 
 ``--rtm`` probes the exact two-snapshot RTM instead (``rtm_fwd_cluster``
 and ``rtm_bwd_cluster`` on ``csrc/cluster_loop.cuh``, and the per-step
@@ -148,6 +169,111 @@ _AMP_AHEAD = """      const float amp = amp_next;
       if (pw && it + 1 < g.nt) amp_next = g.wav[it + 1];
 """
 _AMP_FIRST = "  float amp_next = pw && g.nt > 0 ? g.wav[0] : 0.0f;\n"
+_CP_FNS_AT = "// The source's x of shot s (mod_loop with the patch).\n"
+_CP_FNS = """// cp.async groups: commit this thread's copies; wait until at most N
+// are pending.
+__device__ __forceinline__ void cp_async_commit() {
+#ifndef PFDC_CPU_SHIM
+  asm volatile("cp.async.commit_group;\\n" ::);
+#endif
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#ifndef PFDC_CPU_SHIM
+  asm volatile("cp.async.wait_group %0;\\n" ::"n"(N));
+#endif
+}
+
+"""
+_SW_FIRST = """      // frame nt - 1 of the source wavefield is the first step's
+      const float* frame =
+          swf_shot + static_cast<ptrdiff_t>(g.nt - 1) * g.nx * g.nz + f0;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int col = 0; col < V; ++col) {
+          sw_next[r][col] = (fw >> (r * V + col)) & 1u && g.nt > 0
+                                ? frame[r * g.nz + col]
+                                : 0.0f;
+        }
+      }
+"""
+_SW_FIRST_STAGED = """      // frame nt - 1 of the source wavefield is the first step's: into
+      // stage buffer 0, after the two levels
+      const float* frame =
+          swf_shot + static_cast<ptrdiff_t>(g.nt - 1) * g.nx * g.nz + f0;
+      if (g.nt > 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+          for (int col = 0; col < V; ++col) {
+            const bool in = (fw >> (r * V + col)) & 1u;
+            cp_async4(smem + 2 * level + (r * V + col) * blockDim.x +
+                          threadIdx.x,
+                      in ? frame + r * g.nz + col : g.swf, in);
+          }
+        }
+        cp_async_commit();
+      }
+"""
+_SW_STEP = """        if constexpr (kImage) {
+          const float* frame =
+              swf_shot +
+              static_cast<ptrdiff_t>(g.nt - 2 - it) * g.nx * g.nz + f0;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+#pragma unroll
+            for (int col = 0; col < V; ++col) {
+              sw_now[r][col] = sw_next[r][col];
+              if ((fw >> (r * V + col)) & 1u && ahead) {
+                sw_next[r][col] = frame[r * g.nz + col];
+              }
+            }
+          }
+        }
+"""
+_SW_STEP_STAGED = """        if constexpr (kImage) {
+          float* const buf = smem + 2 * level;
+          const int n = R * V * blockDim.x;
+          if (ahead) {
+            const float* frame =
+                swf_shot +
+                static_cast<ptrdiff_t>(g.nt - 2 - it) * g.nx * g.nz + f0;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+#pragma unroll
+              for (int col = 0; col < V; ++col) {
+                const bool in = (fw >> (r * V + col)) & 1u;
+                cp_async4(buf + ((it + 1) & 1) * n +
+                              (r * V + col) * blockDim.x + threadIdx.x,
+                          in ? frame + r * g.nz + col : g.swf, in);
+              }
+            }
+            cp_async_commit();
+            cp_async_wait<1>();
+          } else {
+            cp_async_wait<0>();
+          }
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+#pragma unroll
+            for (int col = 0; col < V; ++col) {
+              sw_now[r][col] = buf[(it & 1) * n +
+                                   (r * V + col) * blockDim.x + threadIdx.x];
+            }
+          }
+        }
+"""
+_REC_BWD_BYTES = """                 ? pfdc::launch_cluster(rec_bwd_cluster<H, true>, plan, ns,
+                                        plan.fwd_bytes, stream, g, c)"""
+_STAGE_BYTES = ("plan.fwd_bytes + 2 * pfdc::kClusterRows * "
+                "pfdc::kClusterCols * plan.threads * 4")
+_REC_BWD_BYTES_STAGED = _REC_BWD_BYTES.replace("plan.fwd_bytes",
+                                               _STAGE_BYTES)
+_REC_BWD_HELD = """    *out = pfdc::active_clusters(rec_bwd_cluster<H, true>, plan,
+                                 plan.fwd_bytes);"""
+_REC_BWD_HELD_STAGED = _REC_BWD_HELD.replace("plan.fwd_bytes", _STAGE_BYTES)
 VARIANTS = {
     "step64x64": ("step_strip.cuh", _STEP_FIRST,
                   "kStepShapes[] = {{64, 64}};"),
@@ -216,6 +342,15 @@ VARIANTS = {
     # threads whose cells the source's window covers
     "amp_now": [("cluster_loop.cuh", _AMP_AHEAD, _AMP),
                 ("cluster_loop.cuh", _AMP_FIRST, "")],
+    # rtm_main's backward in image mode (--rec-bwd): each thread's source
+    # frame values of the next step copied with cp.async into a double
+    # buffer in shared memory (a cell's values of the CTA's threads
+    # adjacent), waited at the step, instead of loaded into registers
+    "swf_staged": [("cluster_loop.cuh", _CP_FNS_AT, _CP_FNS + _CP_FNS_AT),
+                   ("cluster_loop.cuh", _SW_FIRST, _SW_FIRST_STAGED),
+                   ("cluster_loop.cuh", _SW_STEP, _SW_STEP_STAGED),
+                   ("rec_step.cu", _REC_BWD_BYTES, _REC_BWD_BYTES_STAGED),
+                   ("rec_step.cu", _REC_BWD_HELD, _REC_BWD_HELD_STAGED)],
     # timing only, wrong results: no cluster barrier between steps
     "nosync": ("cluster_loop.cuh", _SYNC, _SYNC.replace("cl.sync()",
                                                         "__syncthreads()")),
@@ -726,9 +861,136 @@ print(json.dumps(res))
 '''
 
 
+REC_BWD_CHILD = r'''
+import inspect, json, re, statistics, sys
+sys.path.insert(0, TREE)
+import numpy as np, torch
+pkg = "parallel_finite_difference_computation_tpu_torch"
+solver = __import__(pkg + ".solver", fromlist=["x"])
+fk = __import__(pkg + ".ops.fd_kernels", fromlist=["x"])
+build = __import__(pkg + ".ops._build", fromlist=["x"])
+dev = torch.device("cuda", 0)
+lib = build.library()
+resident = "per_step" in inspect.signature(fk._rec_bwd).parameters
+fn = None
+for line in build.build_log().splitlines():
+    m = re.search(r"Compiling entry function '(\S+)'", line)
+    if m:
+        fn = m.group(1)
+    name = fn and re.search(
+        r"\d((?:mod_cluster|rec_fwd_cluster|rec_bwd_step|rec_bwd_cluster)"
+        r"I(?:L\w\d+E)+)E", fn)
+    if (name and re.search(r"ILi[48]E", name[1])
+            and ("registers" in line or "spill" in line)):
+        print(f"[ptxas] {name[1]}: {line.strip()}", file=sys.stderr)
+res = {"bitwise": True}
+if resident:
+    res["clusters rec_bwd 3lay"] = lib.pfdc_rec_bwd_clusters(231, 231, 8)
+    print(f"[plan] 3lay order 8: {fk.resident_plan(231, 231, 8)}; clusters "
+          f"held at once: rec_bwd_cluster {res['clusters rec_bwd 3lay']}",
+          file=sys.stderr)
+
+def timed(case):
+    return not ONLY or re.search(ONLY, case) is not None
+
+gen = torch.Generator(device=dev).manual_seed(0)
+rng = np.random.default_rng(0)
+SHAPES = {"3lay": (151, 151), "1lay": (201, 101)}
+NXT = np.float32(rng.standard_normal(8))
+
+def case(order, nt, model="3lay"):
+    nx, nz = SHAPES[model]
+    ctx = solver.FDContext.create(nx, nz, nt, dx=10.0, dz=10.0, dt=0.001,
+                                  order=order, nxb=40, nzb=40, fac=0.01,
+                                  exact_taper=False)
+    v2 = (1500.0 + 2000.0 * torch.rand((ctx.nxe, ctx.nze), device=dev,
+                                       generator=gen)) ** 2
+    d = torch.randn((8, ctx.nx, nt), device=dev, generator=gen)
+    swf = torch.randn((8, nt, ctx.nx, ctx.nz), device=dev, generator=gen)
+    return ctx, v2, d, swf
+
+sx, sz, gz = [40 + 20 * i for i in range(8)], 40, 41
+routes = (False, True) if resident else (None,)
+
+def run(ctx, v2, d, swf, per_step, ns=8, quirk=True):
+    # swf None: frame mode
+    d, swf = d[:ns].contiguous(), None if swf is None else swf[:ns]
+    if per_step is None:
+        if swf is None:
+            return fk.backward_recorded_cuda(ctx, v2, d, gz, quirk, NXT[:ns])
+        return fk.backward_image_cuda(ctx, v2, swf, d, gz, quirk, NXT[:ns])
+    return fk._rec_bwd(ctx, v2, d, gz, quirk, NXT[:ns], 0, swf=swf,
+                       per_step=per_step)
+
+for order, model in ((4, "3lay"), (8, "3lay"), (10, "3lay"), (16, "3lay"),
+                     (8, "1lay")):
+    ctx, v2, d, swf = case(order, 20, model)
+    for quirk in (True, False):
+        pb = solver.backward_recorded(ctx, v2, d, gz, x_off_quirk=quirk,
+                                      next_shot_first=NXT)
+        pt = torch.zeros_like(swf[:, 0])
+        for it in range(ctx.nt):    # the image summed in time order
+            pt = pt + swf[:, ctx.nt - 1 - it] * pb[2][:, it]
+        for per_step in routes:
+            got = (*run(ctx, v2, d, None, per_step, quirk=quirk),
+                   run(ctx, v2, d, swf, per_step, quirk=quirk))
+            same = all(torch.equal(a, b) for a, b in zip(got, (*pb, pt)))
+            res["bitwise"] &= same
+            print(f"[check] rec_bwd {model} order {order} nt 20 x_off_quirk "
+                  f"{quirk}, {'per-step' if per_step else 'resident'} "
+                  f"route: {'bitwise' if same else 'DIFFERS'}",
+                  file=sys.stderr)
+
+def median_ms(fn):
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+for model in ("1lay", "3lay"):
+    ctx, v2, d, swf = case(8, 1001, model)
+    for mode, sw in (("image", swf), ("frames", None)):
+        for per_step in routes:
+            key = f"rec_bwd {mode}{' per-step' if per_step else ''} {model}"
+            if timed(key):
+                res[key] = median_ms(lambda: run(ctx, v2, d, sw, per_step))
+            torch.cuda.empty_cache()
+if resident:
+    for mode, sw in (("image", swf), ("frames", None)):
+        for ns in (7, 1):
+            # one wave of the clusters the card holds at once, and one shot
+            key = f"rec_bwd {mode} 3lay {ns} shots"
+            if timed(key):
+                res[key] = median_ms(lambda: run(ctx, v2, d, sw, False, ns))
+# the forward passes on the modeling loop beside it (a change to mod_loop
+# must leave them as they were) and the whole rtm_main call
+wav = np.float32(rng.standard_normal(ctx.nt))
+for kind, (source, taper, record) in (("mod", ("gaussian", "all", "trace")),
+                                      ("rec_fwd", ("point", "top",
+                                                   "wavefield"))):
+    key = f"{kind} 3lay"
+    if timed(key):
+        res[key] = median_ms(lambda: fk.forward_modeling_cuda(
+            ctx, v2, wav, sx, sz, gz, source, taper, record))
+    torch.cuda.empty_cache()
+if timed("rtm_main 3lay"):
+    res["rtm_main 3lay"] = median_ms(lambda: fk.rtm_full_cuda(
+        ctx, v2, wav, d, sx, sz, gz, next_shot_first=NXT))
+print(json.dumps(res))
+'''
+
 if __name__ == "__main__":
     child = CHILD
-    for flag, flag_child in (("--rtm", RTM_CHILD), ("--mod", MOD_CHILD)):
+    for flag, flag_child in (("--rtm", RTM_CHILD), ("--mod", MOD_CHILD),
+                             ("--rec-bwd", REC_BWD_CHILD)):
         if flag in sys.argv:
             sys.argv.remove(flag)
             child = flag_child

@@ -155,8 +155,9 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     assert fk.LAUNCHES == {"mod_step": 0, "rtm_fwd_step": 0,
                            "rtm_bwd_step": 0, "rtm_fwd_cluster": 0,
                            "rtm_bwd_cluster": 0, "mod_cluster": 0,
-                           "rec_fwd_cluster": 0, "rec_fwd_step": 0,
-                           "rec_bwd_step": 0, "lap_apply": 0,
+                           "rec_fwd_cluster": 0, "rec_bwd_cluster": 0,
+                           "rec_fwd_step": 0, "rec_bwd_step": 0,
+                           "lap_apply": 0,
                            "mod_step_mma": 0, "rtm_fwd_step_mma": 0,
                            "rtm_bwd_step_mma": 0, "rec_fwd_step_mma": 0,
                            "rec_bwd_step_mma": 0}
@@ -369,8 +370,9 @@ def test_kernels_match_plain_on_the_card(cuda_device, order, nt):
     assert fk.LAUNCHES == {"mod_step": 0, "rtm_fwd_step": 0,
                            "rtm_bwd_step": 0, "rtm_fwd_cluster": 1,
                            "rtm_bwd_cluster": 1, "mod_cluster": 1,
-                           "rec_fwd_cluster": 0, "rec_fwd_step": 0,
-                           "rec_bwd_step": 0, "lap_apply": 0,
+                           "rec_fwd_cluster": 0, "rec_bwd_cluster": 0,
+                           "rec_fwd_step": 0, "rec_bwd_step": 0,
+                           "lap_apply": 0,
                            "mod_step_mma": 0, "rtm_fwd_step_mma": 0,
                            "rtm_bwd_step_mma": 0, "rec_fwd_step_mma": 0,
                            "rec_bwd_step_mma": 0}
@@ -428,11 +430,13 @@ def test_rec_kernels_match_plain_on_the_card(cuda_device, order, nt, nxb,
                                   x_off_quirk=quirk, next_shot_first=nxt)
         torch.cuda.synchronize()
         assert float((ki - pi).abs().max() / pi.abs().max()) <= GATE
-    # the shots fit a cluster: rec_fwd_cluster, one launch a forward pass
+    # the shots fit a cluster: rec_fwd_cluster and rec_bwd_cluster, one
+    # launch a pass
     assert fk.resident_plan(ctx.nxe, ctx.nze, order) is not None
     assert fk.LAUNCHES["rec_fwd_cluster"] == 3
     assert fk.LAUNCHES["rec_fwd_step"] == 0
-    assert fk.LAUNCHES["rec_bwd_step"] == 4 * nt
+    assert fk.LAUNCHES["rec_bwd_cluster"] == 4
+    assert fk.LAUNCHES["rec_bwd_step"] == 0
 
 
 @pytest.mark.cuda

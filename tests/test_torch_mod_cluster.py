@@ -14,10 +14,11 @@ record modes, nt of both parities (the final pair in either buffer),
 orders 4, 8 and 16 on clusters of 8, 4 and 2 CTAs, the Gaussian window
 across a slab edge, the trace row through every slab. The per-step route
 forced beside them, and ``rtm_full_cuda`` (``rec_fwd_cluster`` then
-``rec_bwd_step``), with the launches the wrapper counts from the route the
-entry point reports; a cluster launch the device refuses raises. Skips
-where ``g++`` is missing. On the card ``chip_smoke.py`` holds both routes
-to plain.
+``rec_bwd_cluster``; ``tests/test_torch_rec_cluster.py`` holds the
+backward's resident route), with the launches the wrapper counts from the
+route the entry point reports; a cluster launch the device refuses raises.
+Skips where ``g++`` is missing. On the card ``chip_smoke.py`` holds both
+routes to plain.
 """
 
 import ctypes
@@ -102,11 +103,11 @@ def test_refused_cluster_launch_raises(shim):
 
 def test_rtm_full_through_the_cpu_shim(shim):
     """rtm_main's two passes: ``rec_fwd_cluster`` once, then
-    ``rec_bwd_step`` in image mode nt times. The image is bitwise
-    ``rec_bwd_step``'s from the plain version's frames (the resident
-    frames are the plain ones), and within 1e-5 of the plain
-    ``rtm_shot_full`` (``rec_bwd_step`` sums the image in another order:
-    ``chip_smoke.py`` holds it to the same gate)."""
+    ``rec_bwd_cluster`` in image mode once. The image is bitwise the
+    backward's from the plain version's frames (the resident frames are
+    the plain ones), and within 1e-5 of the plain ``rtm_shot_full`` (the
+    backward sums the image in another order: ``chip_smoke.py`` holds it
+    to the same gate)."""
     mod, lib = shim
     rng = np.random.default_rng(5)
     nx, nz, nxb, nzb = mod.MOD_GRID
@@ -132,7 +133,7 @@ def test_rtm_full_through_the_cpu_shim(shim):
     assert torch.equal(got, ref)
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
     assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
-        "rec_fwd_cluster": 1, "rec_bwd_step": ctx.nt}
+        "rec_fwd_cluster": 1, "rec_bwd_cluster": 1}
 
 
 def test_private_per_step_keyword_keeps_the_plain_path_on_the_cpu():
