@@ -175,8 +175,8 @@ Run from the root of the repository, on a machine with one CUDA card and
    exact image (<= 1e-4 for mxu, <= 1e-5 for mxu6);
 24. times and traces of the tensor-core tiers: the 3lay modeling and RTM
    calls in exact, mxu and mxu6; each *_mma kernel's call (mxu) against its
-   plain version and the exact per-step call of the same function; the
-   padded chain per apply (vpu, mxu, mxu6) against ``lap_apply`` and fp32
+   plain version, the exact per-step call of the same function and the
+   exact call on its resident route, in the same turns; the padded chain per apply (vpu, mxu, mxu6) against ``lap_apply`` and fp32
    ``conv2d``; one profiler trace of each mxu call and chain. The bounds
    count the x taps' multiply-adds of each cross term at the bf16 tensor
    rate and the rest at the float32 rate.
@@ -2743,7 +2743,7 @@ def main() -> int:
     # ---- 23. the split-bf16 tiers of the per-step kernels (row 5): the
     # three *_mma kernels vs their plain versions (short runs at orders 4,
     # 8, 10, 16 with nxb != nzb, at orders 8 and 16 on a grid whose tails
-    # cut rtm_bwd_step_mma's owned shape, and 3lay), then the 3lay main
+    # cut their owned shapes, and 3lay), then the 3lay main
     # path with lap_impl="auto" (which resolves to mxu) and "mxu6"
     mma_names = ("mod_step_mma", "rtm_fwd_step_mma", "rtm_bwd_step_mma")
     exact_img = img
@@ -2790,8 +2790,9 @@ def main() -> int:
             for order, nxb, nzb in ((4, 40, 30), (8, 40, 40), (10, 12, 30),
                                     (16, 30, 40))
             for li in ("mxu", "mxu6")]
-    # a grid whose tails cut rtm_bwd_step_mma's owned shape along both
-    # axes (126 x 92 extended: 32 x 32, 32 x 64 or 64 x 32 owned cells)
+    # a grid whose tails cut the owned shape of every kernel of
+    # step_mma.cu along both axes (126 x 92 extended: 32 x 64 owned cells,
+    # or 32 x 32 and 64 x 64 as the probe tries them)
     runs += [(dataclasses.replace(P, order=order, nt=20, nx=100, nz=70,
                                   nxb=13, nzb=11, ns=4), li)
              for order in (8, 16) for li in ("mxu", "mxu6")]
@@ -2867,8 +2868,9 @@ def main() -> int:
 
     # ---- 24. times and traces of the tensor-core tiers: the 3lay calls in
     # exact, mxu and mxu6 in turns; each *_mma call (mxu) against its plain
-    # version and the exact per-step call of the same function; the padded
-    # chain per apply against lap_apply and conv2d; one trace of each
+    # version, the exact per-step call of the same function (per_step=True)
+    # and the exact call on its resident route, in the same turns; the
+    # padded chain per apply against lap_apply and conv2d; one trace of each
     ctx_m, ctx_r, v2_m, v2_r, wav_m, wav_r = shapes(8, P.nt)
     d = torch.from_numpy(data).to(dev)
     calls = {}
@@ -2892,24 +2894,33 @@ def main() -> int:
                                              g.gz, lap_impl=2),
             lambda: solver.forward_modeling(ctx_m, v2_m, wav_m, g.sx, g.sz,
                                             g.gz, lap_impl=2),
+            lambda: fk._forward_modeling(ctx_m, v2_m, wav_m, g.sx, g.sz,
+                                         g.gz, "gaussian", "all", "trace", 0,
+                                         per_step=True),
             lambda: fk.forward_modeling_cuda(ctx_m, v2_m, wav_m, g.sx, g.sz,
                                              g.gz)),
         "rtm_fwd_step_mma": (
             lambda: fk._fd_forward(ctx_r, v2_r, wav_r, g.sx, g.sz, 2),
             lambda: solver.fd_forward(ctx_r, v2_r, wav_r, g.sx, g.sz, lap2),
+            lambda: fk._fd_forward(ctx_r, v2_r, wav_r, g.sx, g.sz, 0,
+                                   per_step=True),
             lambda: fk.fd_forward_cuda(ctx_r, v2_r, wav_r, g.sx, g.sz)),
         "rtm_bwd_step_mma": (
             lambda: fk._fd_back(ctx_r, v2_r, *snaps2, d, g.gz, 2),
             lambda: solver.fd_back(ctx_r, v2_r, *snaps2, d, g.gz, lap2),
+            lambda: fk._fd_back(ctx_r, v2_r, *snaps0, d, g.gz, 0,
+                                per_step=True),
             lambda: fk.fd_back_cuda(ctx_r, v2_r, *snaps0, d, g.gz))}
     bounds = step_bounds(ctx_r, P.ns, parts=2)
-    for k, (kern, plain, exact_call) in mma_cases.items():
-        tk, tp, te = in_turns([kern, plain, exact_call])
+    for k, (kern, plain, per_step_call, exact_call) in mma_cases.items():
+        tk, tp, ts_, te = in_turns([kern, plain, per_step_call, exact_call])
         bms, by = bounds[k[:-4]]
         print(f"[times] {k} (mxu) {P.ns} shots x {P.nt} steps: kernel "
-              f"{span(tk)}, plain {span(tp)}, exact kernel (the resident "
-              f"route for the RTM) {span(te)}; bound {bms:.4f} ms ({by}); "
-              f"{smi}", flush=True)
+              f"{span(tk)}, plain {span(tp)}, exact per-step twin "
+              f"({k[:-4]}, {P.nt} launches) {span(ts_)}, exact resident "
+              f"route {span(te)}; kernel / per-step twin "
+              f"{statistics.median(tk) / statistics.median(ts_):.3f}; bound "
+              f"{bms:.4f} ms ({by}); {smi}", flush=True)
         results[k].update(ms=statistics.median(tk),
                           plain_ms=statistics.median(tp), library_ms=None,
                           bound_ms=bms, bound_by=by)

@@ -17,32 +17,39 @@
 // band is the (2h+1)-tap sum of each interior cell, which those windows
 // also give it.
 //
-// mod_step_mma and rtm_fwd_step_mma: a block owns 32 x outputs by 32 z
-// outputs of one shot and stages (32 + 2h, or the k-steps' window) rows by
-// (32 + 2h) columns of the field in static shared memory, tapered (m * f)
-// for the tapered steps: the fields the Laplacian reads. Warp w computes z
-// outputs 16 (w & 1) .. + 15 of the x outputs 16 (w >> 1) .. + 15, two 16
-// (z) x 8 (x) mma blocks whose rows are z and whose contraction runs down
-// x: A[m][k] = tile[8n + k][h + z] is a column of the tile, read at a row
-// pitch of 4 mod 32 floats (no bank conflicts). Each lane then finishes
-// the four cells of each block it holds in the accumulator fragment (z =
-// g, g + 8; x = 2t, 2t + 1): a warp's loads and stores of a fragment entry
-// cover 8 consecutive z in 4 rows, and no product goes through shared
-// memory.
+// One design for the three kernels. A block owns kX x outputs by kZ z
+// outputs of one shot (the kernel's owned shape), a warp for each 16 x 16 of
+// them: two 16 (z) x 8 (x) mma blocks whose rows are z and whose
+// contraction runs down x, A[m][k] = tile[(r0 + k) * kPitch + c0 + m], a
+// column of the tile. The block stages the fields it reads around its
+// cells (StageTile: rows x0 - H .. as far as the last x window reads,
+// columns z0 - H .. z0 + kZ + H - 1, zeros outside the grid, rows padded to
+// 4 mod 8 floats by strip_pitch, at which the fragments' reads of rows 2
+// apart and the z taps' of 8 columns hit no bank twice) with cp.async into
+// dynamic shared memory, every copy of a thread in flight at once and no
+// division per copy (for_staged_cells). Each lane issues the loads of its 8
+// cells' other operands before it waits; a field that the exact kernel's
+// taps read tapered (m * f) is tapered by each thread on the cells it
+// copied, once its own copies have landed; then one barrier, and each lane
+// finishes the four cells of each block it holds in the accumulator
+// fragment (z = g, g + 8; x = 2t, 2t + 1), the centres and the mask from
+// the tiles where they are staged, no product through shared memory:
 //
-// rtm_bwd_step_mma keeps that layout (kBwdTileX x kBwdTileZ owned cells, a
-// warp for each 16 x 16) and feeds it otherwise: it stages the source
-// field (but on the two seeded steps), the receiver field and the mask
-// with cp.async into dynamic shared memory, every copy of a thread in
-// flight at once and no division per copy (for_staged_cells); issues each
-// lane's loads of its 8 cells' older fields, v2*dt2 and image before it
-// waits; then each thread tapers the receiver cells it copied (m * pr, one
-// multiplication, as the exact kernel's taps read it), one barrier, and
-// the lanes finish their cells, the centres and the mask from the tiles.
-// It staged both tiles with synchronous loads, an integer division and,
-// for the receiver, two dependent global loads per element, and read the
-// centres and the mask from global memory again, at 1.83x its exact twin
-// at 3lay (PERF.md, kernel table, row 5).
+//   kernel            staged (kFields)            tapered  lane's loads
+//   mod_step_mma      cur (1)                     -        pp, mask, v2*dt2,
+//                                                          the patch value
+//   rtm_fwd_step_mma  cur, mask (2)               cur      pp, v2*dt2
+//   rtm_bwd_step_mma  source (not on the two      receiver older fields,
+//                     seeded steps), receiver,             v2*dt2, image
+//                     mask (3)
+//
+// mod_step_mma stages cur untapered: the exact mod_step's taps read p as it
+// is stored. The two forward kernels staged a static tile of 32 x 32 owned
+// cells before, with synchronous loads, an integer division per element
+// and, tapered, two dependent global loads, and read their operands (the
+// centre and the mask again) from global memory after the product: 1.70x
+// and 1.40x their exact per-step twins at 3lay (PERF.md, kernel table, row
+// 5), where rtm_bwd_step_mma, on this design, ran at 1.11x.
 //
 // What bounds it on an H100: at the 3lay size (231 x 231, 8 shots) a step
 // touches about 7 MB (12 MB for rtm_bwd), inside the 50 MB L2, and the
@@ -55,224 +62,57 @@
 
 namespace {
 
-constexpr int kTileX = 32;   // x outputs of a block: 4 mma blocks of 8
-constexpr int kTileZ = 32;   // z outputs of a block: 2 mma blocks of 16
-constexpr int kThreads = 128;
-
-// The staged tile: rows x0 - H .. (kRows), columns z0 - H .. (kCols).
-template <int H>
-struct StepTile {
-  static constexpr int kKS = pfdc::band_ksteps<H>();
-  // the exact taps read rows to kTileX + 2H - 1, the last x window to
-  // kTileX - 8 + 16 * kKS - 1
-  static constexpr int kRows = kTileX + 2 * H > kTileX - 8 + 16 * kKS
-                                   ? kTileX + 2 * H
-                                   : kTileX - 8 + 16 * kKS;
-  static constexpr int kCols = kTileZ + 2 * H;
-  static constexpr int kPitch = (kCols + 27) / 32 * 32 + 4;
-};
-
-template <int H>
-using StepArray = float[StepTile<H>::kRows][StepTile<H>::kPitch];
-
-// Stages one shot's field f (m[q] * f[q] where mask is not null, as the
-// exact kernels' taps read it), zeros outside the grid.
-template <int H>
-__device__ __forceinline__ void stage_field(StepArray<H>& tile,
-                                            const float* __restrict__ f,
-                                            const float* __restrict__ mask,
-                                            int x0, int z0, int nxe,
-                                            int nze) {
-  using T = StepTile<H>;
-  for (int i = threadIdx.x; i < T::kRows * T::kCols; i += kThreads) {
-    const int rr = i / T::kCols;
-    const int cc = i - rr * T::kCols;
-    const int x = x0 - H + rr;
-    const int z = z0 - H + cc;
-    float v = 0.0f;
-    if (x >= 0 && x < nxe && z >= 0 && z < nze) {
-      const int q = x * nze + z;
-      v = mask != nullptr ? mask[q] * f[q] : f[q];
-    }
-    tile[rr][cc] = v;
-  }
-}
-
-// The exact z taps of the cell at tile row xr, column zc, centre included,
-// in the order of pfdc::laplacian's accz.
-template <int H>
-__device__ __forceinline__ float taps_z(const StepArray<H>& tile, int xr,
-                                        int zc, const pfdc::Coefs& c) {
-  const float* row = &tile[xr][zc];
-  float acc = c.z[H] * (row[-H] + row[H]);
-#pragma unroll
-  for (int k = H - 1; k >= 1; --k) acc = acc + c.z[k] * (row[-k] + row[k]);
-  return acc + c.z[0] * row[0];
-}
-
-// Where this lane's cells are: for block b (0, 1) of the warp and fragment
-// entry q, the tile-relative x (xl) and z (zl) of the output.
-struct Cells {
-  int zw, nb, g, t;
-  __device__ __forceinline__ Cells(int warp, int lane)
-      : zw(16 * (warp & 1)), nb(2 * (warp >> 1)), g(pfdc::frag_g(lane)),
-        t(pfdc::frag_t(lane)) {}
-  __device__ __forceinline__ int xl(int b, int q) const {
-    return 8 * (nb + b) + 2 * t + (q & 1);
-  }
-  __device__ __forceinline__ int zl(int q) const {
-    return zw + g + 8 * (q >> 1);
-  }
-};
-
-// yx[q] of block b: the banded x taps of the staged field.
-template <int H, int P>
-__device__ __forceinline__ void x_taps(float (&yx)[4],
-                                       const StepArray<H>& tile,
-                                       const Cells& cl, int b,
-                                       const pfdc::Band<H, P>& band,
-                                       int lane) {
-  const int r0 = 8 * (cl.nb + b);
-  const int c0 = H + cl.zw;
-  pfdc::banded_mma<H, P>(
-      yx, [&](int m, int k) { return tile[r0 + k][c0 + m]; }, band, lane);
-}
-
-template <int H, int P>
-__global__ void __launch_bounds__(kThreads)
-    mod_step_mma(const float* __restrict__ cur, float* __restrict__ old,
-                 const float* __restrict__ v2dt2, int v2_shot_stride,
-                 const float* __restrict__ mask,
-                 const float* __restrict__ patch, int r,
-                 const int* __restrict__ sx, int sz, float amp,
-                 float* __restrict__ seis_it, int seis_shot_stride, int gz,
-                 int nxb, int nx, int nxe, int nze, pfdc::Coefs c) {
-  __shared__ StepArray<H> tile;
-  const int lane = threadIdx.x & 31;
-  const pfdc::Band<H, P> band = pfdc::band_fragments<H, P>(c.x, lane);
-  const int x0 = blockIdx.y * kTileX;
-  const int z0 = blockIdx.x * kTileZ;
-  const int s = blockIdx.z;
-  const size_t plane = static_cast<size_t>(nxe) * nze;
-  const float* p = cur + s * plane;
-  float* pp = old + s * plane;
-  stage_field<H>(tile, p, nullptr, x0, z0, nxe, nze);
-  __syncthreads();
-  const Cells cl(threadIdx.x >> 5, lane);
-#pragma unroll
-  for (int b = 0; b < 2; ++b) {
-    float yx[4];
-    x_taps<H, P>(yx, tile, cl, b, band, lane);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int ix = x0 + cl.xl(b, q);
-      const int iz = z0 + cl.zl(q);
-      if (ix >= nxe || iz >= nze) continue;
-      const int j = ix * nze + iz;
-      const float lap =
-          pfdc::in_interior(ix, iz, H, nxe, nze)
-              ? yx[q] + taps_z<H>(tile, H + cl.xl(b, q), H + cl.zl(q), c)
-              : 0.0f;
-      const float m = mask[j];
-      const float pc = p[j];
-      float u = (2.0f * pc - pp[j] * m) +
-                v2dt2[s * static_cast<size_t>(v2_shot_stride) + j] * lap;
-      const int dx = ix - sx[s];
-      const int dz = iz - sz;
-      if (dx >= -r && dx <= r && dz >= -r && dz <= r) {
-        u = u + amp * patch[(dx + r) * (2 * r + 1) + (dz + r)];
-      }
-      pp[j] = u * m;
-      if (iz == gz && ix >= nxb && ix < nxb + nx) {
-        seis_it[s * static_cast<size_t>(seis_shot_stride) + (ix - nxb)] =
-            pc * m;
-      }
-    }
-  }
-}
-
-template <int H, int P>
-__global__ void __launch_bounds__(kThreads)
-    rtm_fwd_step_mma(const float* __restrict__ cur, float* __restrict__ old,
-                     const float* __restrict__ v2dt2, int v2_shot_stride,
-                     const float* __restrict__ mask,
-                     const int* __restrict__ sx, int sz, float amp, int nxe,
-                     int nze, pfdc::Coefs c) {
-  __shared__ StepArray<H> tile;
-  const int lane = threadIdx.x & 31;
-  const pfdc::Band<H, P> band = pfdc::band_fragments<H, P>(c.x, lane);
-  const int x0 = blockIdx.y * kTileX;
-  const int z0 = blockIdx.x * kTileZ;
-  const int s = blockIdx.z;
-  const size_t plane = static_cast<size_t>(nxe) * nze;
-  const float* p = cur + s * plane;
-  float* pp = old + s * plane;
-  stage_field<H>(tile, p, mask, x0, z0, nxe, nze);
-  __syncthreads();
-  const Cells cl(threadIdx.x >> 5, lane);
-#pragma unroll
-  for (int b = 0; b < 2; ++b) {
-    float yx[4];
-    x_taps<H, P>(yx, tile, cl, b, band, lane);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int ix = x0 + cl.xl(b, q);
-      const int iz = z0 + cl.zl(q);
-      if (ix >= nxe || iz >= nze) continue;
-      const int j = ix * nze + iz;
-      const float lap =
-          pfdc::in_interior(ix, iz, H, nxe, nze)
-              ? yx[q] + taps_z<H>(tile, H + cl.xl(b, q), H + cl.zl(q), c)
-              : 0.0f;
-      const float m = mask[j];
-      const float pc = m * p[j];
-      const float ppc = m * (m * pp[j]);
-      float u = (2.0f * pc - ppc) +
-                v2dt2[s * static_cast<size_t>(v2_shot_stride) + j] * lap;
-      if (ix == sx[s] && iz == sz) u = u + amp;
-      pp[j] = u;
-    }
-  }
-}
-
-// rtm_bwd_step_mma's block: kBwdTileX x kBwdTileZ owned cells of one
-// shot, a warp for each 16 x 16 of them (two 16 (z) x 8 (x) mma blocks, as
-// in the kernels above): 32 x 64 and 8 warps, 256 blocks for 3lay's 8
-// shots, ran 2.5-5 % faster than 32 x 32 and 4 warps (512 blocks) and 4 %
-// faster than 64 x 32 (PERF.md). The staged tiles of the source field, the
-// receiver field and the mask: rows x0 - H .. (kRows), columns z0 - H ..
-// (kCols), on rows padded to 4 mod 8 floats (strip_pitch), at which the
-// fragments' reads of rows 2 apart and the z taps' of 8 columns hit no
-// bank twice.
+// The owned shapes, x rows by z columns, 256 blocks of 8 warps for 3lay's
+// 8 shots (PERF.md): on 32 x 64 rtm_bwd_step_mma ran 2.5-5 % faster than
+// on 32 x 32 and 4 % faster than on 64 x 32, mod_step_mma 1.5 % and 6 %
+// faster than on 32 x 32 and 64 x 64, rtm_fwd_step_mma 5 % and 4 %.
+constexpr int kModTileX = 32;
+constexpr int kModTileZ = 64;
+constexpr int kFwdTileX = 32;
+constexpr int kFwdTileZ = 64;
 constexpr int kBwdTileX = 32;
 constexpr int kBwdTileZ = 64;
-constexpr int kBwdWarps = kBwdTileX / 16 * (kBwdTileZ / 16);
-constexpr int kBwdThreads = 32 * kBwdWarps;
 
-template <int H>
-struct BwdTile {
+// The kFields staged fields of a block of TX x TZ owned cells: rows x0 - H
+// .. (kRows), columns z0 - H .. (kCols), kCells floats each on padded rows.
+template <int H, int kFields, int TX, int TZ>
+struct StageTile {
+  static constexpr int kX = TX;
+  static constexpr int kZ = TZ;
+  static constexpr int kBlockThreads = 32 * (TX / 16) * (TZ / 16);
   static constexpr int kKS = pfdc::band_ksteps<H>();
-  static constexpr int kRows = kBwdTileX + 2 * H > kBwdTileX - 8 + 16 * kKS
-                                   ? kBwdTileX + 2 * H
-                                   : kBwdTileX - 8 + 16 * kKS;
-  static constexpr int kCols = kBwdTileZ + 2 * H;
+  // the exact taps read rows to TX + 2H - 1, the last x window to
+  // TX - 8 + 16 * kKS - 1
+  static constexpr int kRows =
+      TX + 2 * H > TX - 8 + 16 * kKS ? TX + 2 * H : TX - 8 + 16 * kKS;
+  static constexpr int kCols = TZ + 2 * H;
   static constexpr int kPitch = pfdc::strip_pitch(kCols, true);
   static constexpr int kCells = kRows * kPitch;
-  static constexpr size_t kBytes = sizeof(float) * 3 * kCells;
-  // a thread's staged cells: cell tid, then every kBwdThreads-th, walked
+  static constexpr size_t kBytes = sizeof(float) * kFields * kCells;
+  // a thread's staged cells: cell tid, then every kBlockThreads-th, walked
   // kStepRows rows and kStepCols columns at a time
-  static constexpr int kCopies = (kRows * kCols + kBwdThreads - 1) /
-                                 kBwdThreads;
-  static constexpr int kStepRows = kBwdThreads / kCols;
-  static constexpr int kStepCols = kBwdThreads % kCols;
+  static constexpr int kCopies =
+      (kRows * kCols + kBlockThreads - 1) / kBlockThreads;
+  static constexpr int kStepRows = kBlockThreads / kCols;
+  static constexpr int kStepCols = kBlockThreads % kCols;
+
+  static dim3 grid(int ns, int nxe, int nze) {
+    return dim3((nze + TZ - 1) / TZ, (nxe + TX - 1) / TX, ns);
+  }
 };
 
+template <int H>
+using ModTile = StageTile<H, 1, kModTileX, kModTileZ>;
+template <int H>
+using FwdTile = StageTile<H, 2, kFwdTileX, kFwdTileZ>;
+template <int H>
+using BwdTile = StageTile<H, 3, kBwdTileX, kBwdTileZ>;
+
 // Calls fn(lx, lz) for each staged cell of this thread, row lx and column
-// lz of the tile, the same cells for every call: no division but the
+// lz of the tile T, the same cells for every call: no division but the
 // first.
-template <int H, class F>
+template <class T, class F>
 __device__ __forceinline__ void for_staged_cells(F&& fn) {
-  using T = BwdTile<H>;
   int lx = static_cast<int>(threadIdx.x) / T::kCols;
   int lz = static_cast<int>(threadIdx.x) - lx * T::kCols;
 #pragma unroll
@@ -287,15 +127,206 @@ __device__ __forceinline__ void for_staged_cells(F&& fn) {
   }
 }
 
-// A lane's operands of one cell, loaded before the stage completes: the
-// older source field (the snapshot on the two seeded steps), the older
-// receiver field, v2*dt2 and, in the image's rectangle, the image.
+// A lane's operands of one mod_step_mma cell, loaded before the stage
+// completes: the older field, the mask, v2*dt2 and, in the source's
+// window, the patch value.
+struct ModCell {
+  float pp, m, v, w;
+};
+
+template <int H, int P>
+__global__ void __launch_bounds__(ModTile<H>::kBlockThreads)
+    mod_step_mma(const float* __restrict__ cur, float* __restrict__ old,
+                 const float* __restrict__ v2dt2, int v2_shot_stride,
+                 const float* __restrict__ mask,
+                 const float* __restrict__ patch, int r,
+                 const int* __restrict__ sx, int sz, float amp,
+                 float* __restrict__ seis_it, int seis_shot_stride, int gz,
+                 int nxb, int nx, int nxe, int nze, pfdc::Coefs c) {
+  using T = ModTile<H>;
+  extern __shared__ float smem[];
+  float* f = smem;  // p, untapered, as the exact mod_step's taps read it
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int x0 = blockIdx.y * T::kX;
+  const int z0 = blockIdx.x * T::kZ;
+  const int s = blockIdx.z;
+  const size_t plane = static_cast<size_t>(nxe) * nze;
+  const float* p = cur + s * plane;
+  float* pp = old + s * plane;
+  const float* v2 = v2dt2 + s * static_cast<size_t>(v2_shot_stride);
+  for_staged_cells<T>([&](int lx, int lz) {
+    const int x = x0 - H + lx, z = z0 - H + lz;
+    const bool in = x >= 0 && x < nxe && z >= 0 && z < nze;
+    const size_t q = in ? static_cast<size_t>(x) * nze + z : 0;
+    pfdc::cp_async4(f + lx * T::kPitch + lz, p + q, in);
+  });
+  // this lane's cells: rows xw + 8b + 2t + (q & 1), columns zw + g +
+  // 8 (q >> 1) of the owned cells, their operands in flight with the stage
+  const int zw = 16 * (warp % (T::kZ / 16));
+  const int xw = 16 * (warp / (T::kZ / 16));
+  const int g = pfdc::frag_g(lane), t = pfdc::frag_t(lane);
+  const int xs = sx[s];
+  ModCell cell[2][4];
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int ix = x0 + xw + 8 * b + 2 * t + (q & 1);
+      const int iz = z0 + zw + g + 8 * (q >> 1);
+      if (ix >= nxe || iz >= nze) continue;
+      const size_t j = static_cast<size_t>(ix) * nze + iz;
+      ModCell& e = cell[b][q];
+      e.pp = pp[j];
+      e.m = mask[j];
+      e.v = v2[j];
+      const int dx = ix - xs, dz = iz - sz;
+      if (dx >= -r && dx <= r && dz >= -r && dz <= r) {
+        e.w = patch[(dx + r) * (2 * r + 1) + (dz + r)];
+      }
+    }
+  }
+  pfdc::cp_async_wait_all();
+  __syncthreads();
+  const pfdc::Band<H, P> band = pfdc::band_fragments<H, P>(c.x, lane);
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    // the banded x taps: A[m][k] is column zw + m of the tile at row
+    // xw + 8b + k, the window of output row xw + 8b + n
+    const int r0 = xw + 8 * b;
+    const int c0 = H + zw;
+    float yx[4];
+    pfdc::banded_mma<H, P>(
+        yx, [&](int m, int k) { return f[(r0 + k) * T::kPitch + c0 + m]; },
+        band, lane);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int xl = r0 + 2 * t + (q & 1);
+      const int zl = zw + g + 8 * (q >> 1);
+      const int ix = x0 + xl;
+      const int iz = z0 + zl;
+      if (ix >= nxe || iz >= nze) continue;
+      const ModCell& e = cell[b][q];
+      const size_t j = static_cast<size_t>(ix) * nze + iz;
+      const int jt = (H + xl) * T::kPitch + H + zl;
+      const float lap = pfdc::in_interior(ix, iz, H, nxe, nze)
+                            ? yx[q] + pfdc::axis_taps<H>(f, jt, 1, c.z)
+                            : 0.0f;
+      const float pc = f[jt];
+      float u = (2.0f * pc - e.pp * e.m) + e.v * lap;
+      const int dx = ix - xs, dz = iz - sz;
+      if (dx >= -r && dx <= r && dz >= -r && dz <= r) u = u + amp * e.w;
+      pp[j] = u * e.m;
+      if (iz == gz && ix >= nxb && ix < nxb + nx) {
+        seis_it[s * static_cast<size_t>(seis_shot_stride) + (ix - nxb)] =
+            pc * e.m;
+      }
+    }
+  }
+}
+
+// A lane's operands of one rtm_fwd_step_mma cell, loaded before the stage
+// completes: the older field and v2*dt2.
+struct FwdCell {
+  float pp, v;
+};
+
+template <int H, int P>
+__global__ void __launch_bounds__(FwdTile<H>::kBlockThreads)
+    rtm_fwd_step_mma(const float* __restrict__ cur, float* __restrict__ old,
+                     const float* __restrict__ v2dt2, int v2_shot_stride,
+                     const float* __restrict__ mask,
+                     const int* __restrict__ sx, int sz, float amp, int nxe,
+                     int nze, pfdc::Coefs c) {
+  using T = FwdTile<H>;
+  extern __shared__ float smem[];
+  float* f = smem;  // m * p
+  float* msk = smem + T::kCells;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int x0 = blockIdx.y * T::kX;
+  const int z0 = blockIdx.x * T::kZ;
+  const int s = blockIdx.z;
+  const size_t plane = static_cast<size_t>(nxe) * nze;
+  const float* p = cur + s * plane;
+  float* pp = old + s * plane;
+  const float* v2 = v2dt2 + s * static_cast<size_t>(v2_shot_stride);
+  for_staged_cells<T>([&](int lx, int lz) {
+    const int x = x0 - H + lx, z = z0 - H + lz;
+    const bool in = x >= 0 && x < nxe && z >= 0 && z < nze;
+    const size_t q = in ? static_cast<size_t>(x) * nze + z : 0;
+    const int j = lx * T::kPitch + lz;
+    pfdc::cp_async4(f + j, p + q, in);
+    pfdc::cp_async4(msk + j, mask + q, in);
+  });
+  // this lane's cells, as in mod_step_mma
+  const int zw = 16 * (warp % (T::kZ / 16));
+  const int xw = 16 * (warp / (T::kZ / 16));
+  const int g = pfdc::frag_g(lane), t = pfdc::frag_t(lane);
+  const int xs = sx[s];
+  FwdCell cell[2][4];
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int ix = x0 + xw + 8 * b + 2 * t + (q & 1);
+      const int iz = z0 + zw + g + 8 * (q >> 1);
+      if (ix >= nxe || iz >= nze) continue;
+      const size_t j = static_cast<size_t>(ix) * nze + iz;
+      cell[b][q].pp = pp[j];
+      cell[b][q].v = v2[j];
+    }
+  }
+  // the staged field holds m * p, as the exact kernel's taps read it: each
+  // thread tapers the cells it copied once its own copies have landed,
+  // then one barrier
+  pfdc::cp_async_wait_all();
+  for_staged_cells<T>([&](int lx, int lz) {
+    const int j = lx * T::kPitch + lz;
+    f[j] = msk[j] * f[j];
+  });
+  __syncthreads();
+  const pfdc::Band<H, P> band = pfdc::band_fragments<H, P>(c.x, lane);
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    const int r0 = xw + 8 * b;
+    const int c0 = H + zw;
+    float yx[4];
+    pfdc::banded_mma<H, P>(
+        yx, [&](int m, int k) { return f[(r0 + k) * T::kPitch + c0 + m]; },
+        band, lane);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int xl = r0 + 2 * t + (q & 1);
+      const int zl = zw + g + 8 * (q >> 1);
+      const int ix = x0 + xl;
+      const int iz = z0 + zl;
+      if (ix >= nxe || iz >= nze) continue;
+      const FwdCell& e = cell[b][q];
+      const size_t j = static_cast<size_t>(ix) * nze + iz;
+      const int jt = (H + xl) * T::kPitch + H + zl;
+      const float lap = pfdc::in_interior(ix, iz, H, nxe, nze)
+                            ? yx[q] + pfdc::axis_taps<H>(f, jt, 1, c.z)
+                            : 0.0f;
+      const float m = msk[jt];
+      const float ppc = m * (m * e.pp);
+      float u = (2.0f * f[jt] - ppc) + e.v * lap;
+      if (ix == xs && iz == sz) u = u + amp;
+      pp[j] = u;
+    }
+  }
+}
+
+// A lane's operands of one rtm_bwd_step_mma cell, loaded before the stage
+// completes: the older source field (the snapshot on the two seeded
+// steps), the older receiver field, v2*dt2 and, in the image's rectangle,
+// the image.
 struct BwdCell {
   float so, ro, v, img;
 };
 
 template <int H, int P>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(BwdTile<H>::kBlockThreads)
     rtm_bwd_step_mma(const float* __restrict__ s_cur,
                      float* __restrict__ s_old,
                      const float* __restrict__ snap,
@@ -313,8 +344,8 @@ __global__ void __launch_bounds__(kBwdThreads)
   float* msk = smem + 2 * T::kCells;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int x0 = blockIdx.y * kBwdTileX;
-  const int z0 = blockIdx.x * kBwdTileZ;
+  const int x0 = blockIdx.y * T::kX;
+  const int z0 = blockIdx.x * T::kZ;
   const int s = blockIdx.z;
   const size_t plane = static_cast<size_t>(nxe) * nze;
   const float* ps = s_cur + s * plane;
@@ -325,7 +356,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   float* im = img + s * static_cast<size_t>(nx) * nz;
   // the source field is untapered; at it = 0, 1 it is the snapshot itself
   const bool seeded = snap != nullptr;
-  for_staged_cells<H>([&](int lx, int lz) {
+  for_staged_cells<T>([&](int lx, int lz) {
     const int x = x0 - H + lx, z = z0 - H + lz;
     const bool in = x >= 0 && x < nxe && z >= 0 && z < nze;
     const size_t q = in ? static_cast<size_t>(x) * nze + z : 0;
@@ -334,10 +365,9 @@ __global__ void __launch_bounds__(kBwdThreads)
     pfdc::cp_async4(rec + j, pr + q, in);
     pfdc::cp_async4(msk + j, mask + q, in);
   });
-  // this lane's cells: rows xw + 8b + 2t + (q & 1), columns zw + g +
-  // 8 (q >> 1) of the owned cells, their operands in flight with the stage
-  const int zw = 16 * (warp % (kBwdTileZ / 16));
-  const int xw = 16 * (warp / (kBwdTileZ / 16));
+  // this lane's cells, as in mod_step_mma
+  const int zw = 16 * (warp % (T::kZ / 16));
+  const int xw = 16 * (warp / (T::kZ / 16));
   const int g = pfdc::frag_g(lane), t = pfdc::frag_t(lane);
   BwdCell cell[2][4];
 #pragma unroll
@@ -358,10 +388,9 @@ __global__ void __launch_bounds__(kBwdThreads)
     }
   }
   // the receiver's staged cells hold m * pr, as the exact kernels' taps
-  // read it: each thread tapers the cells it copied once its own copies
-  // have landed, then one barrier
+  // read it: tapered as in rtm_fwd_step_mma
   pfdc::cp_async_wait_all();
-  for_staged_cells<H>([&](int lx, int lz) {
+  for_staged_cells<T>([&](int lx, int lz) {
     const int j = lx * T::kPitch + lz;
     rec[j] = msk[j] * rec[j];
   });
@@ -369,8 +398,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   const pfdc::Band<H, P> band = pfdc::band_fragments<H, P>(c.x, lane);
 #pragma unroll
   for (int b = 0; b < 2; ++b) {
-    // the banded x taps of both fields: A[m][k] is column zw + m of the
-    // tile at row xw + 8b + k, the window of output row xw + 8b + n
+    // the banded x taps of both fields
     const int r0 = xw + 8 * b;
     const int c0 = H + zw;
     float ys[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -422,10 +450,6 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 }
 
-inline dim3 tile_grid(int ns, int nxe, int nze) {
-  return dim3((nze + kTileZ - 1) / kTileZ, (nxe + kTileX - 1) / kTileX, ns);
-}
-
 template <class F>
 struct ByParts {
   const F& f;
@@ -463,12 +487,16 @@ struct ModRun {
 
   template <int H, int P>
   cudaError_t operator()() const {
-    const dim3 grid = tile_grid(ns, nxe, nze);
-    const dim3 block(kThreads);
+    using T = ModTile<H>;
+    const size_t bytes = T::kBytes;
+    const cudaError_t e = pfdc::allow_smem(mod_step_mma<H, P>, bytes);
+    if (e != cudaSuccess) return e;
+    const dim3 grid = T::grid(ns, nxe, nze);
+    const dim3 block(T::kBlockThreads);
     for (int it = 0; it < nt; ++it) {
       float* cur = (it % 2 == 0) ? a : b;
       float* old = (it % 2 == 0) ? b : a;
-      mod_step_mma<H, P><<<grid, block, 0, stream>>>(
+      mod_step_mma<H, P><<<grid, block, bytes, stream>>>(
           cur, old, v2dt2, v2_shot_stride, mask, patch, r, sx, sz, wav[it],
           seis + static_cast<size_t>(it) * nx, nt * nx, gz, nxb, nx, nxe, nze,
           c);
@@ -494,12 +522,16 @@ struct FwdRun {
 
   template <int H, int P>
   cudaError_t operator()() const {
-    const dim3 grid = tile_grid(ns, nxe, nze);
-    const dim3 block(kThreads);
+    using T = FwdTile<H>;
+    const size_t bytes = T::kBytes;
+    const cudaError_t e = pfdc::allow_smem(rtm_fwd_step_mma<H, P>, bytes);
+    if (e != cudaSuccess) return e;
+    const dim3 grid = T::grid(ns, nxe, nze);
+    const dim3 block(T::kBlockThreads);
     for (int it = 0; it < nt; ++it) {
       float* cur = (it % 2 == 0) ? a : b;
       float* old = (it % 2 == 0) ? b : a;
-      rtm_fwd_step_mma<H, P><<<grid, block, 0, stream>>>(
+      rtm_fwd_step_mma<H, P><<<grid, block, bytes, stream>>>(
           cur, old, v2dt2, v2_shot_stride, mask, sx, sz, wav[it], nxe, nze, c);
       const cudaError_t e = cudaGetLastError();
       if (e != cudaSuccess) return e;
@@ -526,12 +558,12 @@ struct BwdRun {
 
   template <int H, int P>
   cudaError_t operator()() const {
-    const size_t bytes = BwdTile<H>::kBytes;
+    using T = BwdTile<H>;
+    const size_t bytes = T::kBytes;
     const cudaError_t e = pfdc::allow_smem(rtm_bwd_step_mma<H, P>, bytes);
     if (e != cudaSuccess) return e;
-    const dim3 grid((nze + kBwdTileZ - 1) / kBwdTileZ,
-                    (nxe + kBwdTileX - 1) / kBwdTileX, ns);
-    const dim3 block(kBwdThreads);
+    const dim3 grid = T::grid(ns, nxe, nze);
+    const dim3 block(T::kBlockThreads);
     for (int it = 0; it < nt; ++it) {
       const bool even = it % 2 == 0;
       const float* snap = it == 0 ? snap1 : (it == 1 ? snap0 : nullptr);

@@ -9,7 +9,8 @@ parts), each beside its exact twin.
     python3 scripts/torch_step_probe.py TREE [TREE ...]
                                         [--variants NAME ...] [--rounds N]
                                         [--only REGEX]
-                                        [--rtm | --mod | --rec-bwd]
+                                        [--rtm | --mod | --rec-bwd |
+                                         --step-mma]
 
 Each tree runs in a process of its own that imports the port from that
 tree (building its kernels there). The process prints the compiler's
@@ -119,6 +120,22 @@ sizes tried (``kClusterSizes``) ``cluster8`` and ``cluster9``; the strip
 (a cluster size with 4 columns or 1024 threads); and, for timing only
 (wrong results, so the probe exits 1), ``nosync`` and ``nosync9`` (no
 cluster barrier between steps).
+
+``--step-mma`` probes the split per-step kernels of ``csrc/step_mma.cu``
+instead (``mod_step_mma``, ``rtm_fwd_step_mma``, ``rtm_bwd_step_mma``, the
+x taps split): the compiler's lines of each at orders 8 and 16, each
+against its plain version with the same parts (2 and 3) within 1e-5 of the
+plain result's max over 20 steps at 3lay (8 shots of 231 x 231 extended,
+orders 4, 8, 10 and 16, the taper at fac 0.7) and on a ragged 207 x 203
+(orders 8 and 16), then, at 3lay, order 8, nt = 1001, each kernel in mxu
+and mxu6 (``mod_step_mma``: the 3lay modeling call, one velocity plane),
+its exact per-step twin (``per_step=True``) and the 3lay RTM call in mxu,
+median of 3. Its variants: ``own32x32`` and ``own64x64``
+(``mod_step_mma``'s and ``rtm_fwd_step_mma``'s owned shape instead of 32 x
+64: ``kModTileX``/``kModTileZ`` and ``kFwdTileX``/``kFwdTileZ``);
+``sx_first`` (``mod_step_mma`` reads its shot's x before it issues the
+stage, not after), ``band_early`` (both forward kernels compute their band
+fragments before the wait, not after the barrier) and ``sx_band`` (both).
 """
 
 from __future__ import annotations
@@ -135,6 +152,29 @@ _REC_SITE = ("struct RecBwdSite {\n  static constexpr int kRows = "
              "pfdc::kStripRows;\n  static constexpr bool kAhead = true;\n")
 _RECF_SITE = _REC_SITE.replace("RecBwdSite", "RecFwdSite").replace(
     "true;", "false;")
+_OWN = ("constexpr int kModTileX = 32;\nconstexpr int kModTileZ = 64;\n"
+        "constexpr int kFwdTileX = 32;\nconstexpr int kFwdTileZ = 64;\n")
+_MOD_HEAD = """  const int s = blockIdx.z;
+  const size_t plane = static_cast<size_t>(nxe) * nze;
+  const float* p = cur + s * plane;
+  float* pp = old + s * plane;
+  const float* v2 = v2dt2 + s * static_cast<size_t>(v2_shot_stride);
+  for_staged_cells<T>([&](int lx, int lz) {
+    const int x = x0 - H + lx, z = z0 - H + lz;
+    const bool in = x >= 0 && x < nxe && z >= 0 && z < nze;
+    const size_t q = in ? static_cast<size_t>(x) * nze + z : 0;
+    pfdc::cp_async4(f + lx * T::kPitch + lz, p + q, in);
+"""
+_MOD_XS = "  const int xs = sx[s];\n  ModCell cell[2][4];\n"
+_BAND = "  const pfdc::Band<H, P> band = pfdc::band_fragments<H, P>(c.x, lane);\n"
+_MOD_WAIT = "  pfdc::cp_async_wait_all();\n  __syncthreads();\n" + _BAND
+_FWD_WAIT = """  pfdc::cp_async_wait_all();
+  for_staged_cells<T>([&](int lx, int lz) {
+    const int j = lx * T::kPitch + lz;
+    f[j] = msk[j] * f[j];
+  });
+  __syncthreads();
+""" + _BAND
 _BWD = "constexpr int kBwdTileX = 32;\nconstexpr int kBwdTileZ = 64;"
 _SIZES = "constexpr int kClusterSizes[] = {16, 8, 4, 2};"
 _ROWS = "constexpr int kClusterRows = 4;"
@@ -298,6 +338,18 @@ VARIANTS = {
         "pfdc::kStripRows;", "8;")),
     "recf_ahead": ("rec_step.cu", _RECF_SITE, _RECF_SITE.replace(
         "false;", "true;")),
+    # mod_step_mma's and rtm_fwd_step_mma's owned shape (--step-mma)
+    "own32x32": ("step_mma.cu", _OWN, _OWN.replace("Z = 64", "Z = 32")),
+    "own64x64": ("step_mma.cu", _OWN, _OWN.replace("X = 32", "X = 64")),
+    # mod_step_mma's shot position read first, before the stage is
+    # issued (the window test of the lanes' patch loads waits on it)
+    "sx_first": [("step_mma.cu", _MOD_HEAD, _MOD_HEAD.replace(
+        "blockIdx.z;\n", "blockIdx.z;\n  const int xs = sx[s];\n", 1)),
+                 ("step_mma.cu", _MOD_XS, "  ModCell cell[2][4];\n")],
+    # the band fragments of mod_step_mma and rtm_fwd_step_mma computed
+    # while the stage is in flight, not after the barrier
+    "band_early": [("step_mma.cu", _MOD_WAIT, _BAND + _MOD_WAIT[:-len(
+        _BAND)]), ("step_mma.cu", _FWD_WAIT, _BAND + _FWD_WAIT[:-len(_BAND)])],
     "bwd32x32": ("step_mma.cu", _BWD, _BWD.replace("Z = 64", "Z = 32")),
     "bwd64x32": ("step_mma.cu", _BWD, _BWD.replace("X = 32", "X = 64")
                  .replace("Z = 64", "Z = 32")),
@@ -359,6 +411,8 @@ VARIANTS = {
                 ("cluster_loop.cuh", _SYNC, _SYNC.replace("cl.sync()",
                                                           "__syncthreads()"))],
 }
+# both of the above
+VARIANTS["sx_band"] = VARIANTS["sx_first"] + VARIANTS["band_early"]
 
 CHILD = r'''
 import json, re, statistics, sys
@@ -987,10 +1041,121 @@ if timed("rtm_main 3lay"):
 print(json.dumps(res))
 '''
 
+
+STEP_MMA_CHILD = r'''
+import json, re, statistics, sys
+sys.path.insert(0, TREE)
+import numpy as np, torch
+pkg = "parallel_finite_difference_computation_tpu_torch"
+solver = __import__(pkg + ".solver", fromlist=["x"])
+fk = __import__(pkg + ".ops.fd_kernels", fromlist=["x"])
+build = __import__(pkg + ".ops._build", fromlist=["x"])
+dev = torch.device("cuda", 0)
+build.library()
+fn = None
+for line in build.build_log().splitlines():
+    m = re.search(r"Compiling entry function '(\S+)'", line)
+    if m:
+        fn = m.group(1)
+    name = fn and re.search(
+        r"\d((?:mod_step_mma|rtm_fwd_step_mma|rtm_bwd_step_mma)"
+        r"I(?:L\w\d+E)+)E", fn)
+    if (name and re.search(r"ILi[48]E", name[1])
+            and ("registers" in line or "spill" in line)):
+        print(f"[ptxas] {name[1]}: {line.strip()}", file=sys.stderr)
+res = {"bitwise": True}
+
+def timed(case):
+    return not ONLY or re.search(ONLY, case) is not None
+
+gen = torch.Generator(device=dev).manual_seed(0)
+rng = np.random.default_rng(0)
+sx, sz, gz = [40 + 20 * i for i in range(8)], 40, 40
+
+def case(order, nt, nx=151, nz=151, fac=0.01):
+    ctx = solver.FDContext.create(nx, nz, nt, dx=10.0, dz=10.0, dt=0.001,
+                                  order=order, nxb=40, nzb=40, fac=fac)
+    v2 = (1500.0 + 2000.0 * torch.rand((8, ctx.nxe, ctx.nze), device=dev,
+                                       generator=gen)) ** 2
+    d = torch.randn((8, ctx.nx, nt), device=dev, generator=gen)
+    snaps = [torch.randn((8, ctx.nxe, ctx.nze), device=dev, generator=gen)
+             for _ in range(2)]
+    wav = np.float32(rng.standard_normal(nt))
+    return ctx, v2, d, snaps, wav
+
+def calls(ctx, v2, d, snaps, wav, parts, per_step=False):
+    # the modeling (one velocity plane, the Gaussian source, the all-edge
+    # taper, the trace: the 3lay modeling call), rtm_fwd_step (the final
+    # pair) and rtm_bwd_step (the image from the snapshots); parts 0: the
+    # exact kernels, per-step where asked
+    return {
+        "mod_step": lambda: fk._forward_modeling(
+            ctx, v2[0], wav, sx, sz, gz, "gaussian", "all", "trace", parts,
+            per_step=per_step),
+        "rtm_fwd_step": lambda: fk._fd_forward(ctx, v2, wav, sx, sz, parts,
+                                               per_step=per_step),
+        "rtm_bwd_step": lambda: (fk._fd_back(ctx, v2, *snaps, d, gz, parts,
+                                             per_step=per_step),)}
+
+# the split kernels within 1e-5 of the plain result's max over 20 steps
+# (the tensor cores sum in their own order), at 3lay (231 x 231 extended,
+# 8 shots) and on a ragged grid (207 x 203 extended), orders 4, 8, 10, 16
+for order, shape in ((4, (151, 151)), (8, (151, 151)), (10, (151, 151)),
+                     (16, (151, 151)), (8, (127, 123)), (16, (127, 123))):
+    ctx, v2, d, snaps, wav = case(order, 20, *shape, fac=0.7)
+    for parts in (2, 3):
+        lap = solver.laplacian_of(ctx, parts)
+        want = {"mod_step": solver.forward_modeling(
+                    ctx, v2[0], wav, sx, sz, gz, lap_impl=parts),
+                "rtm_fwd_step": solver.fd_forward(ctx, v2, wav, sx, sz, lap),
+                "rtm_bwd_step": (solver.fd_back(ctx, v2, *snaps, d, gz,
+                                                lap),)}
+        for k, call in calls(ctx, v2, d, snaps, wav, parts).items():
+            got = call()
+            rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                      for a, b in zip(got, want[k]))
+            ok = rel <= 1e-5
+            res["bitwise"] &= ok
+            print(f"[check] {k}_mma parts {parts} order {order} "
+                  f"{ctx.nxe} x {ctx.nze}: max rel {rel:.2e}"
+                  f"{'' if ok else ' FAILS'}", file=sys.stderr)
+    del v2, d, snaps
+    torch.cuda.empty_cache()
+
+def median_ms(fn):
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+# 3lay, order 8, 8 shots x 1001 steps: each split kernel (mxu, mxu6; the
+# mod_step_mma call is the 3lay mxu modeling call), its exact per-step
+# twin, and the 3lay mxu RTM call
+ctx, v2, d, snaps, wav = case(8, 1001)
+for parts, sfx in ((2, "_mma"), (3, "_mma mxu6"), (0, " per-step")):
+    for k, call in calls(ctx, v2, d, snaps, wav, parts,
+                         per_step=parts == 0).items():
+        if timed(k + sfx):
+            res[k + sfx] = median_ms(call)
+if timed("3lay RTM mxu"):
+    res["3lay RTM mxu"] = median_ms(lambda: fk.rtm_snapshot_cuda(
+        ctx, v2, wav, d, sx, sz, gz, lap_impl="mxu"))
+print(json.dumps(res))
+'''
+
 if __name__ == "__main__":
     child = CHILD
     for flag, flag_child in (("--rtm", RTM_CHILD), ("--mod", MOD_CHILD),
-                             ("--rec-bwd", REC_BWD_CHILD)):
+                             ("--rec-bwd", REC_BWD_CHILD),
+                             ("--step-mma", STEP_MMA_CHILD)):
         if flag in sys.argv:
             sys.argv.remove(flag)
             child = flag_child

@@ -526,9 +526,11 @@ def test_shared_memory_of_the_kernels():
     fd_update_mma, gpu_step_mma, rec_fwd_step_mma and rec_bwd_step_mma on
     step_strip.cuh's (the field and its z product, on padded rows, at a
     halo of H; the rec kernels on a shape list of their own, chosen by the
-    grid); mma_tile.cuh's staged tile is gone; rtm_bwd_step_mma
-    (step_mma.cu) stages three fields on padded rows into dynamic shared
-    memory that fits at every even order up to 16. Which (kernel, order,
+    grid); mma_tile.cuh's staged tile is gone; the three kernels of
+    step_mma.cu stage one (mod_step_mma), two (rtm_fwd_step_mma) and three
+    fields (rtm_bwd_step_mma) on padded rows into dynamic shared memory on
+    one tile description, which fits at every even order 4-16, and the
+    static tile they staged before is gone. Which (kernel, order,
     K) the card refuses up to order 16, and that every tile fits at the
     pipelines' K up to order 10; the wrappers' step limit is the
     kernels'."""
@@ -540,7 +542,7 @@ def test_shared_memory_of_the_kernels():
     assert limit == fk.SMEM_BYTES
     # the staged-tile body of kstep.cuh is gone: no source defines or
     # calls its pieces
-    # (lap_padded.cu and step_mma.cu have a Tile of their own)
+    # (lap_padded.cu has a Tile of its own)
     for src in csrc.iterdir():
         text = src.read_text()
         for gone in ("kTileThreads", "pfdc::Tile", "for_cells", "load_tile",
@@ -708,31 +710,50 @@ def test_shared_memory_of_the_kernels():
             "pfdc::kStepStage, H, ns, nxe, nze, sms);") in shape_fn
     assert "return pfdc::allow_smem(kernel, bytes);" in shape_fn
 
-    # rtm_bwd_step_mma: its owned shape's rows and columns plus the halo
-    # (the rows as far as the last x window reads), three fields (the
-    # source, the receiver and the mask) on padded rows, as dynamic shared
-    # memory; every even order up to 16 fits, with blocks to spare
+    # the kernels of step_mma.cu: each owned shape's rows and columns plus
+    # the halo (the rows as far as the last x window reads), kFields fields
+    # (mod_step_mma the field, rtm_fwd_step_mma the field and the mask,
+    # rtm_bwd_step_mma the source, the receiver and the mask) on padded
+    # rows, as dynamic shared memory sized from the one tile description;
+    # every even order 4-16 fits, with blocks to spare; the static tile the
+    # two forward kernels staged before is gone
     mma_text = (csrc / "step_mma.cu").read_text()
-    tx, tz = (int(re.search(rf"constexpr int kBwdTile{a} = (\d+);",
-                            mma_text)[1]) for a in "XZ")
-    assert {tx, tz} <= {32, 64} and tx * tz <= 2048
     flat = " ".join(mma_text.split())
     assert ("static constexpr int kPitch = pfdc::strip_pitch(kCols, true);"
             in flat)
-    assert ("static constexpr size_t kBytes = sizeof(float) * 3 * kCells;"
-            in flat)
-    assert re.search(r"const size_t bytes = BwdTile<H>::kBytes; const "
-                     r"cudaError_t e = pfdc::allow_smem\(rtm_bwd_step_mma<H, "
-                     r"P>, bytes\);", flat)
-    assert "<<<grid, block, bytes, stream>>>" in flat
-    for order in range(4, fk.MAX_ORDER + 1, 2):
-        h = order // 2
-        ks = (8 + 2 * h + 15) // 16
-        rows = max(tx + 2 * h, tx - 8 + 16 * ks)
-        pitch = (tz + 2 * h + 3) // 8 * 8 + 4
-        assert pitch % 8 == 4 and pitch >= tz + 2 * h
-        b = 4 * 3 * rows * pitch
-        assert 4 * (b + 1024) <= 228 * 1024, (order, b)
+    assert ("static constexpr size_t kBytes = sizeof(float) * kFields * "
+            "kCells;" in flat)
+    assert flat.count("template <int H, int kFields, int TX, int TZ> struct "
+                      "StageTile {") == 1
+    for src in csrc.iterdir():
+        text = src.read_text()
+        for gone in ("StepTile", "StepArray", "stage_field", "taps_z",
+                     "x_taps", "tile_grid"):
+            assert not re.search(rf"\b{gone}\b", text), (src.name, gone)
+    assert "__shared__ float" not in mma_text.replace(
+        "extern __shared__ float smem[];", "")
+    for kernel, key, fields in (("mod_step_mma", "Mod", 1),
+                                ("rtm_fwd_step_mma", "Fwd", 2),
+                                ("rtm_bwd_step_mma", "Bwd", 3)):
+        tx, tz = (int(re.search(rf"constexpr int k{key}Tile{a} = (\d+);",
+                                mma_text)[1]) for a in "XZ")
+        assert {tx, tz} <= {32, 64} and tx * tz <= 2048, kernel
+        assert (f"template <int H> using {key}Tile = StageTile<H, {fields}, "
+                f"k{key}TileX, k{key}TileZ>;" in flat), kernel
+        assert (f"__global__ void __launch_bounds__({key}Tile<H>::"
+                f"kBlockThreads) {kernel}(" in flat), kernel
+        assert re.search(rf"using T = {key}Tile<H>; const size_t bytes = "
+                         rf"T::kBytes; const cudaError_t e = pfdc::allow_smem"
+                         rf"\({kernel}<H, P>, bytes\);", flat), kernel
+        assert f"{kernel}<H, P><<<grid, block, bytes, stream>>>(" in flat
+        for order in range(4, fk.MAX_ORDER + 1, 2):
+            h = order // 2
+            ks = (8 + 2 * h + 15) // 16
+            rows = max(tx + 2 * h, tx - 8 + 16 * ks)
+            pitch = (tz + 2 * h + 3) // 8 * 8 + 4
+            assert pitch % 8 == 4 and pitch >= tz + 2 * h
+            b = 4 * fields * rows * pitch
+            assert 4 * (b + 1024) <= 228 * 1024, (kernel, order, b)
 
     # the block kernels of the domain tiers (csrc/domain_block.cuh), every
     # one on a strip body: the launcher takes the body's shape and bytes for
