@@ -50,8 +50,10 @@ Run from the root of the repository, on a machine with one CUDA card and
    against the returned arrays, the image against the plain path on the
    card (rel RMS <= 1e-5), and the small config card vs plain on the CPU;
 7. stencil path: ``run_stencil`` through a file at the reference stencil's
-   415 x 295 grid and at 8192 x 8192, orders 4, 8 and 10: one launch each,
-   and each result against the plain version on the card (<= 1e-5);
+   415 x 295 grid and at 8192 x 8192, orders 4, 8 and 10, and at a ragged
+   4099 x 4097 (rows off 16 bytes, tails cutting ``lap_apply``'s band and
+   run), orders 2 and 16: one launch each, and each result bitwise the
+   plain version on the card;
 8. large-grid kernels vs plain: ``kstep_mod``, ``kstep_gpu_fwd``,
    ``gpu_step`` and ``kstep_gpu_bwd`` against their plain versions on the
    same CUDA tensors, pass by pass and through the tiled loops, in short
@@ -94,7 +96,8 @@ Run from the root of the repository, on a machine with one CUDA card and
 14. times: each kernel's wrapper call and its plain version, timed with
    CUDA events, median of 3 after a warm-up, taken in turns; for the
    stencil also ``torch.nn.functional.conv2d`` with the same taps (the
-   library yardstick, not used by the port); for the K-step kernels, at
+   library yardstick, not used by the port), and ``lap_apply`` at orders 4
+   and 16 at 8192 x 8192 beside their bounds; for the K-step kernels, at
    3lay both routes of the exact modeling, RTM and rtm_main kernels and
    calls in turns with the plain versions; at the Pluto grid (2 shots,
    nt=1001), the K-step
@@ -1365,10 +1368,17 @@ def main() -> int:
                                  dt=0.001, nxb=40, nzb=40),
              "8192 x 8192": Params(nx=8112, nz=8112, nt=1, dx=10.0, dz=10.0,
                                    dt=0.001, nxb=40, nzb=40)}
+    # and a ragged large field, whose rows are not on 16 bytes and whose
+    # tails cut lap_apply's band and run, at the lowest and highest order
+    ragged = {"4099 x 4097": Params(nx=4019, nz=4017, nt=1, dx=10.0,
+                                    dz=10.0, dt=0.001, nxb=40, nzb=40)}
+    stencil_grids = {**grids, **ragged}
+    orders = {**{label: (4, 8, 10) for label in grids},
+              **{label: (2, 16) for label in ragged}}
     fields = {}
     stencil_err = 0.0
     with tempfile.TemporaryDirectory() as tmp:
-        for label, p in grids.items():
+        for label, p in stencil_grids.items():
             path = os.path.join(tmp, f"{p.nxe}x{p.nze}.bin")
             f = np.random.default_rng(p.nxe).standard_normal(
                 (p.nxe, p.nze)).astype(np.float32)
@@ -1377,8 +1387,8 @@ def main() -> int:
         fk.reset_launches()
         t0 = time.perf_counter()
         laps = {}
-        for label, p in grids.items():
-            for order in (4, 8, 10):
+        for label, p in stencil_grids.items():
+            for order in orders[label]:
                 q = dataclasses.replace(p, order=order)
                 laps[label, order] = pipeline.run_stencil(
                     q, input_path=os.path.join(tmp, f"{p.nxe}x{p.nze}.bin"),
@@ -1387,26 +1397,31 @@ def main() -> int:
         wall = time.perf_counter() - t0
         launches = dict(fk.LAUNCHES)
     print(f"[stencil path] run_stencil at 415 x 295 and 8192 x 8192, orders "
-          f"4, 8, 10: {wall:.3f} s wall incl. file reads; launches "
-          f"{launches}", flush=True)
+          f"4, 8, 10, and 4099 x 4097, orders 2, 16: {wall:.3f} s wall incl. "
+          f"file reads; launches {launches}", flush=True)
     results["lap_apply"]["launches"] = launches["lap_apply"]
     check(launches["lap_apply"] == len(laps),
           f"lap_apply launched {launches['lap_apply']} times, expected "
           f"{len(laps)}")
     for (label, order), lap in laps.items():
-        p = grids[label]
+        p = stencil_grids[label]
         cx, cz = numerics.scaled_coefficients(order, p.dx, p.dz)
         want = stencil.laplacian(fields[label], cx, cz, order)
         got = torch.from_numpy(lap).to(dev)
         rel, absd = errs(got, want)
+        bitwise = torch.equal(got.view(torch.int32), want.view(torch.int32))
         stencil_err = max(stencil_err, absd)
         print(f"[stencil path] lap_apply {label} order {order} vs plain on "
-              f"the card: max rel err {rel:.3e}, max abs err {absd:.3e}",
-              flush=True)
+              f"the card: {'bitwise' if bitwise else 'NOT bitwise'}, max rel "
+              f"err {rel:.3e}, max abs err {absd:.3e}; launch "
+              f"{fk.lap_shape(p.nxe, p.nze, order)}", flush=True)
         check(lap.shape == (p.nxe, p.nze) and np.isfinite(lap).all()
-              and rel <= GATE, f"lap_apply {label} order {order}")
+              and bitwise, f"lap_apply {label} order {order} is not bitwise "
+              f"its plain version")
     results["lap_apply"]["max_abs_err"] = stencil_err
     del laps
+    for label in ragged:
+        del fields[label]
 
     phase_done("stencil path")
 
@@ -1896,6 +1911,19 @@ def main() -> int:
             results["lap_apply"].update(
                 ms=statistics.median(tk), plain_ms=statistics.median(tp),
                 library_ms=statistics.median(tl), bound_ms=bms, bound_by=by)
+    # lap_apply at orders 4 and 16 at 8192 x 8192 beside their bounds (the
+    # same bytes; more flop at 16)
+    p, f = grids["8192 x 8192"], fields["8192 x 8192"]
+    for order in (4, 16):
+        h = order // 2
+        cx, cz = numerics.scaled_coefficients(order, p.dx, p.dz)
+        tk, = in_turns([lambda: fk.laplacian_cuda(f, cx, cz, order)],
+                       reps=10)
+        bms, by = bound(2 * 4 * p.nxe * p.nze,
+                        (p.nxe - 2 * h) * (p.nze - 2 * h) * lap_flops(h))
+        print(f"[times] lap_apply 8192 x 8192 order {order}: kernel "
+              f"{span(tk)}; bound {bms:.4f} ms ({by}), kernel / bound "
+              f"{statistics.median(tk) / bms:.2f}; {smi}", flush=True)
 
     # the large-grid tier at the Pluto grid, 2 shots, nt=1001: each K-step
     # kernel's passes (constants prepared once, as the tiled loops do), its

@@ -76,6 +76,8 @@ _SIGNATURES = {
                          _I, _P, _P],
     # pfdc_lap_run(p, out, nx, nz, order, cx, cz, stream)
     "pfdc_lap_run": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # pfdc_lap_shape(nx, nz, order, out)
+    "pfdc_lap_shape": [_I, _I, _I, _P],
     # pfdc_lap_padded_run(p, out, rows, pitch, nx, nz, order, parts, cx, cz,
     #                     stream)
     "pfdc_lap_padded_run": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],

@@ -74,7 +74,7 @@ from . import stencil
 __all__ = ["LAUNCHES", "reset_launches", "MXU3_NT_MAX", "MXU6_NT_MAX",
            "SMEM_BYTES", "STAGING_KERNELS", "BLOCK_PASS_STEPS", "block_passes",
            "smem_bytes", "largest_fitting_k", "ResidentPlan", "resident_plan",
-           "resolve_lap_impl", "lap_parts",
+           "resolve_lap_impl", "lap_parts", "LapShape", "lap_shape",
            "forward_modeling_cuda", "fd_forward_cuda", "fd_back_cuda",
            "rtm_snapshot_cuda", "backward_recorded_cuda",
            "backward_image_cuda", "rtm_full_cuda", "laplacian_cuda"]
@@ -304,6 +304,7 @@ def resident_plan(nxe: int, nze: int, order: int):
 
 
 _INVALID_VALUE = 1             # cudaErrorInvalidValue
+_INT_MAX = 2**31 - 1           # a dim the C entry points take as an int
 
 
 def _check_order(order: int, on_cuda: bool) -> None:
@@ -606,20 +607,47 @@ def rtm_full_cuda(ctx: FDContext, v2, wavelet, dobs, sx, sz: int, gz: int,
                                lap_impl=parts)
 
 
+class LapShape(NamedTuple):
+    """The launch of ``lap_apply`` over an (nx, nz) field (``lap_shape``,
+    csrc/laplacian.cu): ``bands`` x ``runs`` CTAs, each ``band`` output
+    columns by ``run`` output rows (the grid's tails cut the last of each),
+    ``threads`` a CTA, and the ring of input rows in ``smem_bytes`` of
+    dynamic shared memory."""
+    bands: int
+    runs: int
+    run: int
+    band: int
+    threads: int
+    smem_bytes: int
+
+
+def lap_shape(nx: int, nz: int, order: int) -> LapShape:
+    """The launch :func:`laplacian_cuda` makes over an (nx, nz) field at
+    ``order`` on the current device, asked of the built library: the runs
+    are cut so that the grid makes about two waves of CTAs on the device's
+    SMs, at least 16 rows each."""
+    from . import _build
+    out = (ctypes.c_int * len(LapShape._fields))()
+    _raise_on(_build.library().pfdc_lap_shape(nx, nz, order, out),
+              "lap_apply")
+    return LapShape(*out)
+
+
 def laplacian_cuda(p, coefs_x, coefs_z, order: int):
     """The order-``order`` interior Laplacian of one (nx, nz) field with a
     zero border of width order/2: the counterpart of ``laplacian_pallas``,
-    ``lap_apply`` on the card, :func:`.stencil.laplacian` on the CPU.
-    ``coefs_x``/``coefs_z`` are the premultiplied (order+1,) arrays of
+    ``lap_apply`` on the card (one launch of :func:`lap_shape`'s grid),
+    :func:`.stencil.laplacian` on the CPU. ``coefs_x``/``coefs_z`` are the
+    premultiplied (order+1,) arrays of
     :func:`..numerics.scaled_coefficients`."""
     _check_order(order, _on_cuda(p))
     if p.dim() != 2:
         raise ValueError(f"p must be one (nx, nz) field, got shape "
                          f"{tuple(p.shape)}")
     nx, nz = p.shape
-    if nx <= order or nz <= order or -(-nx // 8) > 65535:
+    if nx <= order or nz <= order or max(nx, nz) > _INT_MAX:
         raise ValueError(f"field {nx}x{nz} does not fit order {order} or "
-                         f"the launch grid")
+                         f"the kernel's int dims")
     _check("p", p, (nx, nz), p.device)
     cx = np.ascontiguousarray(coefs_x, np.float32)
     cz = np.ascontiguousarray(coefs_z, np.float32)

@@ -140,9 +140,14 @@ fragments before the wait, not after the barrier) and ``sx_band`` (both).
 
 from __future__ import annotations
 
+import pathlib
+import re
 import sys
 
 import torch_bwd_probe
+
+CSRC = (pathlib.Path(__file__).resolve().parents[1]
+        / "parallel_finite_difference_computation_tpu_torch" / "csrc")
 
 _STEP_FIRST = "kStepShapes[] = {{128, 64}};"
 _REC = "kRecShapes[] = {{128, 64}, {64, 64}, {32, 64}};"
@@ -413,6 +418,20 @@ VARIANTS = {
 }
 # both of the above
 VARIANTS["sx_band"] = VARIANTS["sx_first"] + VARIANTS["band_early"]
+# lap_apply (--stencil): csrc/laplacian.cu's constants, one at a time
+for _name, _const, _values in (
+        ("band", "kLapBand", ("128", "512")),
+        ("ahead", "kLapAhead", ("2", "8")),
+        ("waves", "kLapWaves", ("1", "4")),
+        ("minrun", "kLapMinRun", ("8", "16"))):
+    _line = re.search(rf"constexpr \w+ {_const} = (\w+);",
+                      (CSRC / "laplacian.cu").read_text())
+    for _v in _values:
+        VARIANTS[f"lap_{_name}{_v}"] = ("laplacian.cu", _line[0],
+                                        re.sub(r"= \w+;", f"= {_v};",
+                                               _line[0]))
+VARIANTS["lap_narrow"] = ("laplacian.cu", "kLapWide = true;",
+                          "kLapWide = false;")
 
 CHILD = r'''
 import json, re, statistics, sys
@@ -1151,11 +1170,150 @@ if timed("3lay RTM mxu"):
 print(json.dumps(res))
 '''
 
+STENCIL_CHILD = r'''
+import ctypes, json, os, re, statistics, sys, tempfile
+sys.path.insert(0, TREE)
+import numpy as np, torch
+pkg = "parallel_finite_difference_computation_tpu_torch"
+numerics = __import__(pkg + ".numerics", fromlist=["x"])
+stencil = __import__(pkg + ".ops.stencil", fromlist=["x"])
+padded = __import__(pkg + ".ops.padded", fromlist=["x"])
+fk = __import__(pkg + ".ops.fd_kernels", fromlist=["x"])
+build = __import__(pkg + ".ops._build", fromlist=["x"])
+dev = torch.device("cuda", 0)
+# a library of the tree's two stencil sources only, built as _build builds
+# the whole one (the other sources take minutes and no part here)
+tmp = tempfile.mkdtemp()
+srcs = ("laplacian.cu", "lap_padded.cu")
+objs = [os.path.join(tmp, n + ".o") for n in srcs]
+flags = [f for f in build.NVCC_FLAGS if f != "-shared"]
+log = build._run_all([[build._nvcc(), *flags, "-c", "-o", o,
+                       str(build.CSRC / n)] for n, o in zip(srcs, objs)])
+so = os.path.join(tmp, "libstencil.so")
+log += build._run_all([[build._nvcc(), *build.NVCC_FLAGS, "-o", so, *objs]])
+lib = ctypes.CDLL(so)
+for name, argtypes in build._SIGNATURES.items():
+    fn = getattr(lib, name, None)
+    if fn is not None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+build.library = lambda: lib
+fn = None
+for line in log.splitlines():
+    m = re.search(r"Compiling entry function '(\S+)'", line)
+    if m:
+        fn = m.group(1)
+    # the order-4, 8 and 16 instances (H = 2, 4, 8)
+    name = fn and re.search(r"\d((?:lap_apply|lap_padded)I(?:L\w\d+E)+)E",
+                            fn)
+    if (name and re.search(r"ILi[248]E", name[1])
+            and ("registers" in line or "spill" in line)):
+        print(f"[ptxas] {name[1]}: {line.strip()}", file=sys.stderr)
+res = {"bitwise": True}
+gen = torch.Generator(device=dev).manual_seed(0)
+
+def timed(case):
+    return not ONLY or re.search(ONLY, case) is not None
+
+def field(nx, nz, offset=0):
+    # offset floats into its storage: 1 puts it off 16 bytes
+    flat = torch.randn(nx * nz + offset, device=dev, generator=gen)
+    return flat[offset:].view(nx, nz)
+
+# bitwise the plain version on the card: the stencil grids, a ragged large
+# field, small ragged ones, the smallest, and fields off 16 bytes
+shapes = [((415, 295), 0), ((8192, 8192), 0), ((4099, 4097), 0),
+          ((45, 139), 0), ((300, 257), 0), ((415, 295), 1),
+          ((4099, 4097), 1), ((8192, 8192), 3)]
+n_checks = 0
+for order in range(2, 18, 2):
+    cx, cz = numerics.scaled_coefficients(order, 10.0, 12.5)
+    for (nx, nz), offset in shapes + [((order + 1, order + 1), 0)]:
+        f = field(nx, nz, offset)
+        got = fk.laplacian_cuda(f, cx, cz, order)
+        want = stencil.laplacian(f, cx, cz, order)
+        ok = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        res["bitwise"] &= ok
+        n_checks += 1
+        if not ok:
+            print(f"[check] lap_apply order {order} {nx} x {nz} offset "
+                  f"{offset}: max abs diff "
+                  f"{float((got - want).abs().max()):.3e} FAILS",
+                  file=sys.stderr)
+        del f, got, want
+torch.cuda.empty_cache()
+print(f"[check] {n_checks} cases, {'all bitwise' if res['bitwise'] else 'FAILED'}",
+      file=sys.stderr)
+
+def per_call(fn, reps=20):
+    # ms a call: median of 5 CUDA-event samples of reps calls, warmed up
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / reps)
+    return statistics.median(ts)
+
+def kernel_us(fn, key, reps=20):
+    # device us a launch of the kernels whose names hold key (profiler)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    t = n = 0
+    for e in prof.key_averages():
+        if key in e.key:
+            t += getattr(e, "device_time_total", 0) or e.cuda_time_total
+            n += e.count
+    return t / n if n else float("nan")
+
+for (nx, nz), orders in (((8192, 8192), (4, 8, 16)), ((415, 295), (4, 8, 16)),
+                         ((4099, 4097), (8,))):
+    f = field(nx, nz)
+    for order in orders:
+        cx, cz = numerics.scaled_coefficients(order, 10.0, 12.5)
+        call = lambda: fk.laplacian_cuda(f, cx, cz, order)
+        case = f"lap_apply {nx}x{nz} o{order}"
+        if timed(case):
+            res[case] = per_call(call)
+            res[case + " kernel us"] = kernel_us(call, "lap_apply")
+        if hasattr(fk, "lap_shape") and order == 8:
+            print(f"[shape] {nx} x {nz} order 8: {fk.lap_shape(nx, nz, 8)}",
+                  file=sys.stderr)
+    if (nx, nz) == (8192, 8192) and timed("lap_padded"):
+        # lap_padded per apply of a 16-apply chain at order 8 (the padded
+        # layout's kernel, the same bytes)
+        cx, cz = numerics.scaled_coefficients(8, 10.0, 12.5)
+        pf = padded.to_padded(f, 8)
+        bufs = (pf.clone(), torch.empty_like(pf))
+
+        def chain():
+            for n in range(16):
+                padded.laplacian_padded_cuda(bufs[n % 2], cx, cz, 8, nx, nz,
+                                             "vpu", out=bufs[1 - n % 2])
+
+        res["lap_padded 8192x8192 o8"] = per_call(chain, reps=1) / 16
+        del pf, bufs
+    del f
+    torch.cuda.empty_cache()
+print(json.dumps(res))
+'''
+
+
 if __name__ == "__main__":
     child = CHILD
     for flag, flag_child in (("--rtm", RTM_CHILD), ("--mod", MOD_CHILD),
                              ("--rec-bwd", REC_BWD_CHILD),
-                             ("--step-mma", STEP_MMA_CHILD)):
+                             ("--step-mma", STEP_MMA_CHILD),
+                             ("--stencil", STENCIL_CHILD)):
         if flag in sys.argv:
             sys.argv.remove(flag)
             child = flag_child
